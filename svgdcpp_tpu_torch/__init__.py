@@ -1,0 +1,53 @@
+"""svgdcpp_tpu_torch: Stein Variational Gradient Descent in PyTorch + CUDA.
+
+The PyTorch port of ``svgdcpp_tpu`` for an NVIDIA Hopper GPU (H100). It
+keeps the JAX package's public surface, layout and names. This first slice
+covers the main path: MultivariateNormal models (and ``+ - * /`` /
+``mixture`` composition), Gaussian-RBF kernels with MEDIAN / HESSIAN /
+CONSTANT bandwidth, AdaGrad / Adam / RMSProp, and the SVGD class's dense,
+blocked, fused and fused_cuda routes. The fused_cuda route runs two
+hand-written CUDA kernels (``csrc/fused_phi.cu``), built with nvcc at their
+first launch.
+
+The package imports torch and numpy only. Importing it builds nothing and
+changes none of torch's global settings.
+"""
+
+from .core.exceptions import (
+    DimensionMismatchError,
+    SVGDError,
+    UnsetError,
+)
+from .core.types import ParticleStore, PrecisionPolicy, as_coords
+from .kernels.gaussian_rbf import GaussianRBFKernel, ScaleMethod
+from .kernels.kernel import Kernel
+from .models.model import Model, mixture
+from .models.multivariate_normal import MultivariateNormal
+from .optimizers.adagrad import AdaGrad
+from .optimizers.adam import Adam
+from .optimizers.base import Optimizer
+from .optimizers.rmsprop import RMSProp
+from .svgd import SVGD, SVGDOptions
+
+__version__ = "1.0.0"  # keep in sync with pyproject.toml
+
+__all__ = [
+    "SVGD",
+    "SVGDOptions",
+    "Model",
+    "mixture",
+    "MultivariateNormal",
+    "Kernel",
+    "GaussianRBFKernel",
+    "ScaleMethod",
+    "Optimizer",
+    "Adam",
+    "AdaGrad",
+    "RMSProp",
+    "ParticleStore",
+    "PrecisionPolicy",
+    "as_coords",
+    "SVGDError",
+    "DimensionMismatchError",
+    "UnsetError",
+]

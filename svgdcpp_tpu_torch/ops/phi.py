@@ -1,0 +1,311 @@
+"""Stein variational gradient phi_hat, plain torch sweeps.
+
+    phi(x_i) = (1/n) sum_j [ k(x_j, x_i) grad_{x_j} log p(x_j)
+                             + grad_{x_j} k(x_j, x_i) ]
+
+Port of the closed-form RBF paths of ``svgdcpp_tpu.ops.phi`` (reference hot
+loop SVGD.hpp:407-454):
+
+  * ``phi_rbf``         -- dense: K = exp(-quad), then
+                           phi = (K S - (K X - rowsum(K) X)(P+P^T)) / n.
+  * ``phi_rbf_blocked`` -- the same, streamed over row tiles so the n x n
+                           kernel matrix never exists whole.
+  * ``phi_rbf_terms_cross_fused_counts`` and its wrappers -- ONE sweep
+                           giving phi and the median-selection counts. This
+                           is the plain version of the CUDA kernels in
+                           ``ops/cuda_phi.py``, which hold themselves to it.
+
+Index convention: K[i, j] = k(x_j, x_i), row i is the target particle.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .pairwise import auto_row_tile, sq_matmul, weighted_quadratic_pairwise
+
+#: Up to this dimension the sweeps build squared distances and quadratic
+#: forms from explicit differences, as the JAX package's XLA sweeps do
+#: (exact in float32, no Gram cancellation); above it, the Gram identity.
+DIFF_FORM_MAX_M = 4
+
+
+# ----------------------------------------------------------------------
+# Gaussian-RBF closed form: dense path
+# ----------------------------------------------------------------------
+
+
+def rbf_kernel_matrix(
+    coords: torch.Tensor, p_matrix: torch.Tensor, psd: bool = True
+) -> torch.Tensor:
+    """K[i, j] = exp(-(x_j - x_i)^T P (x_j - x_i)) via the Gram identity;
+    ``psd=False`` skips the clamp-at-zero noise guard (indefinite P)."""
+    return torch.exp(-weighted_quadratic_pairwise(coords, p_matrix, psd=psd))
+
+
+def phi_rbf(
+    coords: torch.Tensor,
+    scores: torch.Tensor,
+    p_matrix: torch.Tensor,
+    psd: bool = True,
+) -> torch.Tensor:
+    """Closed-form RBF phi: phi = (K S - (K X - rowsum(K) * X)(P + P^T)) / n."""
+    n = coords.shape[0]
+    k = rbf_kernel_matrix(coords, p_matrix, psd=psd)
+    p_sym = p_matrix + p_matrix.T
+    ks = k @ scores
+    kx = k @ coords
+    rowsum = torch.sum(k, dim=1)
+    return (ks - (kx - rowsum[:, None] * coords) @ p_sym) / n
+
+
+# ----------------------------------------------------------------------
+# Gaussian-RBF closed form: tile-streamed (no n x n materialization)
+# ----------------------------------------------------------------------
+
+
+def phi_rbf_cross(
+    targets: torch.Tensor,
+    sources: torch.Tensor,
+    source_scores: torch.Tensor,
+    p_matrix: torch.Tensor,
+    row_tile: int = 1024,
+    psd: bool = True,
+) -> torch.Tensor:
+    """Streaming RBF phi for ``targets`` rows against ``sources``:
+
+    phi_i = (1/n_src) sum_j [ k(s_j, t_i) score_j + grad_{s_j} k(s_j, t_i) ]
+
+    Memory O(row_tile * n_src). Both sets are centered on the source mean
+    (phi is translation-invariant; centering protects the Gram branch from
+    float32 cancellation off origin). For m <= 4 the quadratic form and
+    the summed kernel gradient come from explicit differences.
+    """
+    center = sources.mean(dim=0)
+    targets = targets - center
+    sources = sources - center
+
+    n_t, m = targets.shape
+    n_s = sources.shape[0]
+    row_tile = auto_row_tile(n_s, row_tile)
+    p_sym = p_matrix + p_matrix.T
+    out = []
+
+    if m <= DIFF_FORM_MAX_M:
+        for start in range(0, n_t, row_tile):
+            rows = targets[start : start + row_tile]
+            diffs = [rows[:, a, None] - sources[None, :, a] for a in range(m)]
+            quad = torch.zeros(
+                (rows.shape[0], n_s), dtype=rows.dtype, device=rows.device
+            )
+            for a in range(m):
+                for bb in range(a, m):
+                    w = p_sym[a, bb] if a != bb else p_matrix[a, a]
+                    quad = quad + w * diffs[a] * diffs[bb]
+            if psd:
+                quad = torch.clamp_min(quad, 0.0)
+            k_tile = torch.exp(-quad)
+            ks = k_tile @ source_scores
+            # sum_j grad_{x_j} k = (P+P^T) sum_j K (x_i - x_j) per target i
+            t_vec = torch.stack(
+                [torch.sum(k_tile * diffs[a], dim=1) for a in range(m)], dim=1
+            )
+            out.append(ks + t_vec @ p_sym)
+        return torch.cat(out, dim=0) / n_s
+
+    q_src = torch.sum((sources @ p_matrix) * sources, dim=1)  # (n_s,)
+    q_tgt = torch.sum((targets @ p_matrix) * targets, dim=1)  # (n_t,)
+    src_ps = sources @ p_sym  # (n_s, m): rows s_j^T (P+P^T)
+    b = torch.cat(
+        [source_scores, sources,
+         torch.ones((n_s, 1), dtype=sources.dtype, device=sources.device)],
+        dim=1,
+    )  # (n_s, 2m+1)
+    for start in range(0, n_t, row_tile):
+        rows = targets[start : start + row_tile]
+        cross = sq_matmul(rows, src_ps.T)
+        quad = q_tgt[start : start + row_tile, None] + q_src[None, :] - cross
+        if psd:
+            quad = torch.clamp_min(quad, 0.0)
+        out.append(torch.exp(-quad) @ b)
+    a = torch.cat(out, dim=0)
+    ks = a[:, :m]
+    kx = a[:, m : 2 * m]
+    rowsum = a[:, 2 * m]
+    return (ks - (kx - rowsum[:, None] * targets) @ p_sym) / n_s
+
+
+def phi_rbf_blocked(
+    coords: torch.Tensor,
+    scores: torch.Tensor,
+    p_matrix: torch.Tensor,
+    row_tile: int = 1024,
+    psd: bool = True,
+) -> torch.Tensor:
+    """Tile-streamed single-set RBF phi (see phi_rbf_cross)."""
+    return phi_rbf_cross(coords, coords, scores, p_matrix, row_tile, psd=psd)
+
+
+# ----------------------------------------------------------------------
+# Fused phi + median-selection counts
+# ----------------------------------------------------------------------
+
+
+def phi_rbf_terms_cross_fused_counts(
+    targets: torch.Tensor,
+    sources: torch.Tensor,
+    source_scores: torch.Tensor,
+    gammas,
+    signs,
+    thresholds_sq: torch.Tensor,
+    row_tile: int = 1024,
+):
+    """ONE O(n_t * n_s) sweep: phi of a signed sum of ISOTROPIC RBF terms
+    AND the median-selection threshold counts, in cross form.
+
+    The single implementation behind the fused entry points (the wrappers
+    below). Term t's quadratic form is gamma_t * sq, so every term shares
+    one squared-distance tile. Counts are int64, cumulative (sq <= edge)
+    over all n_t x n_s pairs, self-zeros included (reference
+    GaussianRBFKernel.hpp:66). Thresholds are taken in the targets' dtype.
+
+    For m <= 4 the tile is built from explicit differences, summed from
+    the first coordinate up, each product and sum rounded on its own: the
+    CUDA kernels compute sq in the same order with the same roundings, so
+    their counts equal these exactly. For a single positive term,
+    phi = K S + 2 gamma sum_j K (x_i - x_j); for T terms the tile combines
+
+        k_c = sum_t sign_t exp(-gamma_t sq)            (for K S)
+        w   = sum_t sign_t gamma_t exp(-gamma_t sq)    (for the grad part)
+
+    Returns (phi (n_t, m) normalized by n_s, counts (E,) int64).
+    """
+    center = sources.mean(dim=0)
+    targets = targets - center
+    sources = sources - center
+
+    n_t, m = targets.shape
+    n_s = sources.shape[0]
+    dtype, device = targets.dtype, targets.device
+    row_tile = auto_row_tile(n_s, row_tile)
+    gammas = [torch.as_tensor(g, dtype=dtype, device=device) for g in gammas]
+    signs = [float(s) for s in signs]
+    thresholds_sq = torch.as_tensor(thresholds_sq, dtype=dtype, device=device)
+    single = len(gammas) == 1 and signs[0] == 1.0
+    counts = torch.zeros(thresholds_sq.shape[0], dtype=torch.int64, device=device)
+    ones = torch.ones((n_s, 1), dtype=dtype, device=device)
+
+    def tile_counts(sq):
+        return torch.sum(
+            sq[None, :, :] <= thresholds_sq[:, None, None], dim=(1, 2)
+        )
+
+    def combine(sq):
+        k_c = None
+        w = None
+        for s, g in zip(signs, gammas):
+            k_t = torch.exp(-g * sq)
+            k_term = s * k_t
+            w_term = (s * g) * k_t
+            k_c = k_term if k_c is None else k_c + k_term
+            w = w_term if w is None else w + w_term
+        return k_c, w
+
+    out = []
+    if m <= DIFF_FORM_MAX_M:
+        for start in range(0, n_t, row_tile):
+            rows = targets[start : start + row_tile]
+            diffs = [rows[:, a, None] - sources[None, :, a] for a in range(m)]
+            sq = torch.zeros((rows.shape[0], n_s), dtype=dtype, device=device)
+            for a in range(m):
+                sq = sq + diffs[a] * diffs[a]
+            if single:
+                k_tile = torch.exp(-gammas[0] * sq)
+                ks = k_tile @ source_scores
+                t_vec = torch.stack(
+                    [torch.sum(k_tile * diffs[a], dim=1) for a in range(m)],
+                    dim=1,
+                )
+                out.append(ks + 2.0 * gammas[0] * t_vec)
+            else:
+                k_c, w = combine(sq)
+                ks = k_c @ source_scores
+                t_vec = torch.stack(
+                    [torch.sum(w * diffs[a], dim=1) for a in range(m)], dim=1
+                )
+                out.append(ks + 2.0 * t_vec)
+            counts += tile_counts(sq)
+        return torch.cat(out, dim=0) / n_s, counts
+
+    q_src = torch.sum(sources * sources, dim=1)
+    q_tgt = torch.sum(targets * targets, dim=1)
+    if single:
+        b = torch.cat([source_scores, sources, ones], dim=1)
+    else:
+        xs1 = torch.cat([sources, ones], dim=1)
+    for start in range(0, n_t, row_tile):
+        rows = targets[start : start + row_tile]
+        gram = sq_matmul(rows, sources.T)
+        sq = torch.clamp_min(
+            q_tgt[start : start + row_tile, None] + q_src[None, :] - 2.0 * gram,
+            0.0,
+        )
+        if single:
+            out.append(torch.exp(-gammas[0] * sq) @ b)
+        else:
+            k_c, w = combine(sq)
+            out.append(torch.cat([k_c @ source_scores, w @ xs1], dim=1))
+        counts += tile_counts(sq)
+    a = torch.cat(out, dim=0)
+    ks = a[:, :m]
+    mid = a[:, m : 2 * m]
+    last = a[:, 2 * m]
+    if single:
+        phi = (ks - 2.0 * gammas[0] * (mid - last[:, None] * targets)) / n_s
+    else:
+        # mid/last already carry the gamma weights (w = sum sign*gamma*k).
+        phi = (ks - 2.0 * (mid - last[:, None] * targets)) / n_s
+    return phi, counts
+
+
+def phi_rbf_cross_fused_counts(
+    targets: torch.Tensor,
+    sources: torch.Tensor,
+    source_scores: torch.Tensor,
+    gamma,
+    thresholds_sq: torch.Tensor,
+    row_tile: int = 1024,
+):
+    """Single-term cross fused sweep (see phi_rbf_terms_cross_fused_counts)."""
+    return phi_rbf_terms_cross_fused_counts(
+        targets, sources, source_scores, [gamma], [1], thresholds_sq, row_tile,
+    )
+
+
+def phi_rbf_terms_fused_counts(
+    coords: torch.Tensor,
+    scores: torch.Tensor,
+    gammas,
+    signs,
+    thresholds_sq: torch.Tensor,
+    row_tile: int = 1024,
+):
+    """Single-set multi-term fused sweep (see the cross form)."""
+    return phi_rbf_terms_cross_fused_counts(
+        coords, coords, scores, gammas, signs, thresholds_sq, row_tile
+    )
+
+
+def phi_rbf_fused_counts(
+    coords: torch.Tensor,
+    scores: torch.Tensor,
+    gamma,
+    thresholds_sq: torch.Tensor,
+    row_tile: int = 1024,
+):
+    """Single-set single-term fused sweep: ONE O(n^2) pass giving the RBF
+    phi (P = gamma I) and the median-selection counts, the main path's
+    plain sweep (see phi_rbf_terms_cross_fused_counts)."""
+    return phi_rbf_terms_cross_fused_counts(
+        coords, coords, scores, [gamma], [1], thresholds_sq, row_tile
+    )

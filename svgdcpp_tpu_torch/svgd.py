@@ -1,0 +1,656 @@
+"""The SVGD class.
+
+PyTorch port of ``svgdcpp_tpu.svgd`` (reference: include/SVGDCpp/SVGD.hpp).
+The construction/validation surface, options, Initialize/Run lifecycle,
+bounds clamping, annealing, hooks, statistics and parameter hot-swap follow
+the JAX package. ``run()`` is a Python loop over the same pure step
+function ``build_step_fn()`` returns (the JAX package rolls it into one
+``lax.scan``).
+
+Routes (``SVGDOptions.phi_impl``):
+
+  * ``dense``      -- closed-form RBF phi on the full n x n kernel matrix.
+  * ``blocked``    -- the same, streamed over row tiles.
+  * ``fused``      -- ONE plain torch sweep per step giving phi (with the
+                      previous step's verified median, lag-1) and this
+                      step's median-selection counts.
+  * ``fused_cuda`` -- the same through the hand-written CUDA kernels
+                      (``ops/cuda_phi.py``); the counterpart of the JAX
+                      package's ``fused_pallas``. On CPU tensors its
+                      wrappers run the plain sweep.
+  * ``auto``       -- on a CUDA device: ``fused_cuda`` for a MEDIAN RBF
+                      kernel above CUDA_FUSED_MIN_PARTICLES, else ``dense``
+                      up to DENSE_PHI_MAX_PARTICLES and ``blocked`` above.
+                      On the CPU: the JAX package's non-TPU rule (``fused``
+                      above DENSE_PHI_MAX_PARTICLES).
+
+The other routes of the JAX package, ``SVGDOptions.mesh`` and intermediate
+matrix logging raise NotImplementedError naming the ROADMAP.md item that
+ports them; no other route is substituted.
+
+On the fused routes each step reads ONE boolean on the host: whether the
+median bracket held (ops/median.fused_median_from_counts). When it did not,
+the bisection fallback runs and ``median_fallbacks`` counts it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import numpy as np
+import torch
+from torch.func import vmap
+
+from .core.exceptions import DimensionMismatchError, SVGD_LOG_PREFIX
+from .core.types import ParticleStore, as_store, as_tensor
+from .kernels.gaussian_rbf import GaussianRBFKernel, rbf_kernel_fn
+from .kernels.kernel import Kernel, _as_param_tuple
+from .models.model import Model, params_on
+from .ops.cuda_phi import MAX_M, phi_rbf_fused_cuda
+from .ops.median import fused_lag1_plan, fused_median_from_counts
+from .ops.phi import phi_rbf, phi_rbf_blocked, phi_rbf_fused_counts
+from .optimizers.base import Optimizer
+
+#: Above this particle count the dense n x n phi switches to the
+#: tile-streamed implementation (the JAX package's rule).
+DENSE_PHI_MAX_PARTICLES = 1024
+
+#: On a CUDA device, auto takes the fused kernel route above this particle
+#: count. Set to the JAX package's TPU rule (TPU_FUSED_MIN_PARTICLES) as a
+#: starting point; the crossover on the card is not measured yet.
+CUDA_FUSED_MIN_PARTICLES = 256
+
+#: Routes of the JAX package that this package does not have yet, with the
+#: ROADMAP.md item that ports each.
+_UNPORTED_ROUTES = {
+    "generic": "slice 2, item 9 (composed kernels: the generic route)",
+    "rbf_terms": "slice 2, item 9 (composed kernels: the rbf_terms route)",
+    "fused_terms": "slice 2, item 9 (composed kernels: fused_terms)",
+    "fused_terms_pallas": "slice 2, item 9 and kernels K6-K13",
+    "fused_aniso_terms_pallas": "slice 3, item 10 and kernel K14",
+    "pallas": "the opt-in kernel K15 (after slice 1)",
+}
+
+_ROUTES = ("dense", "blocked", "fused", "fused_cuda")
+
+
+def _not_ported(what: str, where: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to svgdcpp_tpu_torch yet (ROADMAP.md: {where})."
+    )
+
+
+@dataclasses.dataclass
+class SVGDOptions:
+    """Options struct (reference SVGDOptions, SVGD.hpp:27-52).
+
+    ``lower_bound=None`` / ``upper_bound=None`` disable bound checking, the
+    reference's +/-inf sentinel (SVGD.hpp:41-43, 184-190).
+    """
+
+    dimension: int = 0
+    num_iterations: int = 0
+    coordinate_matrix: Any = None  # (n, m) tensor/array or ParticleStore
+    kernel: Optional[Kernel] = None
+    model: Optional[Model] = None
+    optimizer: Optional[Optimizer] = None
+    lower_bound: Any = None
+    upper_bound: Any = None
+    intermediate_matrices_output_path: str = "log.txt"
+    parallel: bool = True  # accepted for parity; the sweeps are data parallel
+    log_intermediate_matrices: bool = False
+    # --- extensions shared with svgdcpp_tpu ---
+    phi_impl: str = "auto"  # 'auto' | 'dense' | 'blocked' | 'fused' | 'fused_cuda'
+    row_tile: int = 1024
+    mesh: Any = None  # multi-device sharding: not ported yet
+    #: Annealed SVGD: per-iteration temperature tau scaling the scores. A
+    #: (num_iterations,) array, or a callable iteration (int) -> tau.
+    annealing: Any = None
+    #: Record per-step statistics (phi RMS, max step size, bandwidth) during
+    #: run(); available afterwards as ``svgd.stats`` (stacked numpy arrays).
+    track_stats: bool = False
+    #: Median-selection bins per fused sweep: fused_bins + 1 threshold
+    #: compares per pair. The count-verified bracket and its bisection
+    #: fallback hold for any value.
+    fused_bins: int = 2
+    #: Operand dtype of the fused kernel sweep: 'float32' only here (the
+    #: JAX package's bfloat16 opt-in is not ported).
+    fused_dot_dtype: str = "float32"
+    #: Triangle (upper-triangle) kernel for 'fused_cuda': None picks it from
+    #: ops/cuda_phi.SYM_MIN_N particles up; True/False force it on/off.
+    fused_sym: Any = None
+
+
+def _prepare_bound(bound, dimension, name) -> Optional[torch.Tensor]:
+    """Validate/broadcast a bound to shape (m,) (reference SVGD.hpp:193-216)."""
+    if bound is None:
+        return None
+    b = as_tensor(bound).to(torch.float64).reshape(-1)
+    if b.shape[0] == 1:
+        b = b.expand(dimension)
+    elif b.shape[0] != dimension:
+        raise DimensionMismatchError(
+            f"The provided {name} bounds have incorrect dimensions."
+        )
+    return b
+
+
+def _matrix_is_psd(p, tol: float = -1e-12) -> bool:
+    """PSD check on the symmetric part (the quadratic form only sees it),
+    the JAX package's algebra.matrix_is_psd rule."""
+    p = np.asarray(as_tensor(p).detach().cpu(), dtype=np.float64)
+    if p.ndim != 2 or p.shape[0] != p.shape[1]:
+        return False
+    return bool(np.linalg.eigvalsh(0.5 * (p + p.T)).min() >= tol)
+
+
+class SVGD:
+    """SVGD (reference SVGD class, SVGD.hpp:84-511)."""
+
+    def __init__(self, *args, **kwargs):
+        # SVGD(options) or
+        # SVGD(dim, iter, coords, kernel, model, optimizer, [lower, upper, ...])
+        # (reference SVGD.hpp:93-250).
+        if len(args) == 1 and isinstance(args[0], SVGDOptions) and not kwargs:
+            opts = args[0]
+        else:
+            names = [
+                "dimension",
+                "num_iterations",
+                "coordinate_matrix",
+                "kernel",
+                "model",
+                "optimizer",
+                "lower_bound",
+                "upper_bound",
+                "parallel",
+                "log_intermediate_matrices",
+                "intermediate_matrices_output_path",
+            ]
+            if len(args) > len(names):
+                raise TypeError(
+                    f"SVGD() takes at most {len(names)} positional arguments "
+                    f"({len(args)} given)"
+                )
+            merged = dict(zip(names, args))
+            dup = set(merged) & set(kwargs)
+            if dup:
+                raise TypeError(
+                    "SVGD() got multiple values for argument(s): "
+                    + ", ".join(sorted(dup))
+                )
+            merged.update(kwargs)
+            opts = SVGDOptions(**merged)
+
+        self.options = opts
+        self.store: ParticleStore = as_store(opts.coordinate_matrix)
+        self.dimension = self.store.dimension
+        self.num_particles = self.store.num_particles
+        self.num_iterations = int(opts.num_iterations)
+
+        # Dimension check (reference SVGD.hpp:169-173).
+        if self.dimension != int(opts.dimension):
+            raise DimensionMismatchError(
+                "Specified dimension does not match the particle coordinate matrix."
+            )
+
+        # Null-component validation (reference SVGD.hpp:223-236).
+        if opts.kernel is None:
+            raise ValueError(SVGD_LOG_PREFIX + "[Argument Error] Invalid Kernel object.")
+        if opts.model is None:
+            raise ValueError(SVGD_LOG_PREFIX + "[Argument Error] Invalid Model object.")
+        if opts.optimizer is None:
+            raise ValueError(
+                SVGD_LOG_PREFIX + "[Argument Error] Invalid Optimizer object."
+            )
+        self.kernel: Kernel = opts.kernel
+        self.model: Model = opts.model
+        self.optimizer: Optimizer = opts.optimizer
+
+        # Share the particle store with the kernel (the reference's
+        # shared-pointer contract, SVGD.hpp:176, GaussianRBFKernel.hpp:52).
+        if hasattr(self.kernel, "store"):
+            self.kernel.store = self.store
+
+        self.lower_bound = _prepare_bound(opts.lower_bound, self.dimension, "lower")
+        self.upper_bound = _prepare_bound(opts.upper_bound, self.dimension, "upper")
+        self.check_bounds = self.lower_bound is not None or self.upper_bound is not None
+        if self.check_bounds:
+            print(SVGD_LOG_PREFIX + "Bound checking enabled.")
+
+        self.log_intermediate_matrices = bool(opts.log_intermediate_matrices)
+        self.intermediate_matrices_output_path = opts.intermediate_matrices_output_path
+        self.mesh = opts.mesh
+        self._initialized = False
+
+    # ------------------------------------------------------------------
+    # Lifecycle
+    # ------------------------------------------------------------------
+    def initialize(self):
+        """Initialize components and build the step (reference SVGD.hpp:268-296).
+
+        A full reset: the annealing iteration, the optimizer state, the
+        median brackets (re-seeded from the CURRENT coordinates) and the
+        fallback count start over.
+        """
+        self.model.initialize()
+        self.kernel.initialize()
+        coords = self.store.value
+        self._opt_state = self.optimizer.init(coords.dtype, coords.device)
+        self._iteration = 0
+        self._scale_aux = None
+        #: Bisection fallbacks taken by the fused routes' median update.
+        self.median_fallbacks = 0
+        self._select_impl()
+        self._step_fn = self.build_step_fn()
+        self._initialized = True
+        return self
+
+    def _select_impl(self):
+        opts = self.options
+        if opts.mesh is not None:
+            raise _not_ported(
+                "SVGDOptions.mesh", "slice 4, item 11 (multi-GPU engines)"
+            )
+        if self.log_intermediate_matrices:
+            raise _not_ported(
+                "log_intermediate_matrices=True",
+                "slice 2, item 9 (it needs the generic route's K and grad-K"
+                " stacks)",
+            )
+        self._is_rbf = (
+            isinstance(self.kernel, GaussianRBFKernel)
+            and self.kernel._kernel_fn is rbf_kernel_fn
+        )
+        # (slot_index, owning kernel) pairs whose inverse-scale parameter is
+        # recomputed every step.
+        self._adaptive_slots = self.kernel.adaptive_slots()
+        self._refresh_psd()
+        impl = opts.phi_impl
+        if impl in _UNPORTED_ROUTES:
+            raise _not_ported(f"phi_impl={impl!r}", _UNPORTED_ROUTES[impl])
+        is_median = (
+            getattr(self.kernel, "scale_method", None)
+            == GaussianRBFKernel.ScaleMethod.MEDIAN
+        )
+        if impl == "auto":
+            if not self._is_rbf:
+                raise _not_ported(
+                    "phi_impl='auto' for a composed or custom kernel "
+                    "(the rbf_terms, fused_terms and generic routes)",
+                    "slice 2, item 9",
+                )
+            on_cuda = self.store.value.device.type == "cuda"
+            fused_threshold = (
+                CUDA_FUSED_MIN_PARTICLES if on_cuda else DENSE_PHI_MAX_PARTICLES
+            )
+            if is_median and self.num_particles > fused_threshold:
+                if on_cuda and self.dimension > MAX_M:
+                    raise _not_ported(
+                        f"the fused CUDA sweep at m={self.dimension} > {MAX_M}",
+                        "slice 2, item 9 (the Gram / tensor-core sq form for m > 8)",
+                    )
+                impl = "fused_cuda" if on_cuda else "fused"
+            elif self.num_particles <= DENSE_PHI_MAX_PARTICLES:
+                impl = "dense"
+            else:
+                impl = "blocked"
+        if impl not in _ROUTES:
+            hint = (
+                " (its CUDA counterpart is 'fused_cuda')"
+                if impl == "fused_pallas" else ""
+            )
+            raise ValueError(f"unknown phi_impl {impl!r}{hint}")
+        if not self._is_rbf:
+            raise ValueError(
+                f"phi_impl={impl!r} requires an uncomposed GaussianRBFKernel."
+            )
+        if impl in ("fused", "fused_cuda") and not is_median:
+            raise ValueError(
+                "phi_impl='fused' requires ScaleMethod.MEDIAN (the fused "
+                "sweep produces median-selection counts)."
+            )
+        if impl == "fused_cuda" and opts.fused_dot_dtype != "float32":
+            raise _not_ported(
+                f"fused_dot_dtype={opts.fused_dot_dtype!r}",
+                "item 15 (the bfloat16 operand opt-in)",
+            )
+        self._phi_impl = impl
+
+    def _refresh_psd(self):
+        """Whether the RBF quadratic form may be clamped at zero: MEDIAN
+        scales are PSD by construction, HESSIAN scales may be indefinite,
+        constant matrices are eigenvalue-checked (re-run on hot-swap)."""
+        if not self._is_rbf:
+            self._rbf_psd = True
+            return
+        method = self.kernel.scale_method
+        if method == GaussianRBFKernel.ScaleMethod.MEDIAN:
+            self._rbf_psd = True
+        elif method == GaussianRBFKernel.ScaleMethod.HESSIAN:
+            self._rbf_psd = False
+        else:
+            self._rbf_psd = _matrix_is_psd(self.kernel.parameters[0])
+
+    # Hooks: a user-overridden per-step hook runs before each step, in the
+    # reference's hook-then-phi order (SVGD.hpp:373-400).
+    @staticmethod
+    def _hook_override(obj, base_fns):
+        """The overridden hook, honoring both the snake_case ``step`` and
+        the CamelCase ``Step`` spelling (a subclass may override either)."""
+        cls = type(obj)
+        if getattr(cls, "Step", None) not in base_fns:
+            return obj.Step
+        if getattr(cls, "step", None) not in base_fns:
+            return obj.step
+        return None
+
+    _MODEL_BASE_HOOKS = (Model.step, Model.Step)
+    _KERNEL_BASE_HOOKS = (
+        Kernel.step,
+        Kernel.Step,
+        GaussianRBFKernel.step,
+        GaussianRBFKernel.Step,
+    )
+
+    def _has_custom_hooks(self) -> bool:
+        return (
+            self._hook_override(self.model, self._MODEL_BASE_HOOKS) is not None
+            or self._hook_override(self.kernel, self._KERNEL_BASE_HOOKS)
+            is not None
+        )
+
+    # ------------------------------------------------------------------
+    # Pure step construction
+    # ------------------------------------------------------------------
+    def _phi(self, coords, scores, kparams):
+        if self._phi_impl == "dense":
+            return phi_rbf(coords, scores, kparams[0], psd=self._rbf_psd)
+        if self._phi_impl == "blocked":
+            return phi_rbf_blocked(
+                coords, scores, kparams[0], self.options.row_tile,
+                psd=self._rbf_psd,
+            )
+        raise ValueError(f"unknown phi_impl {self._phi_impl!r}")
+
+    def _scale_params(self, coords, mparams, kparams, scale_aux, slot_mparams):
+        """Per-step bandwidth adaptation (reference kernel Step(),
+        GaussianRBFKernel.hpp:141-156): each adaptive slot is refilled by
+        its owning kernel, threading the warm-start aux."""
+        if not self._adaptive_slots:
+            return kparams, scale_aux
+        kparams = list(kparams)
+        new_aux = list(scale_aux)
+        for i, (idx, owner) in enumerate(self._adaptive_slots):
+            if owner.target_model is self.model:
+                mp = mparams
+            else:
+                mp = slot_mparams[i]  # None when the slot has no model
+            if scale_aux[i] is not None and hasattr(owner, "compute_scale_with_aux"):
+                kparams[idx], new_aux[i] = owner.compute_scale_with_aux(
+                    coords, mp, scale_aux[i]
+                )
+            elif mp is not None:
+                kparams[idx] = owner.compute_scale_pure(coords, mp)
+            else:
+                kparams[idx] = owner.compute_scale_pure(coords)
+        return tuple(kparams), tuple(new_aux)
+
+    def build_step_fn(self):
+        """Return the pure step: state -> (state, stats | None).
+
+        state = {coords, opt_state, kernel_params, model_params, scale_aux,
+        slot_model_params, iteration}, the same keys as the JAX package's
+        (``utils/convert.py`` carries a state across).
+        """
+        coords0 = self.store.value
+        annealing = self.options.annealing
+        if annealing is not None and not callable(annealing):
+            annealing_arr = as_tensor(annealing).to(coords0.device)
+            last = annealing_arr.shape[0] - 1
+            annealing = lambda it: annealing_arr[min(max(int(it), 0), last)]  # noqa: E731
+
+        bounds = [
+            None if b is None else b.to(dtype=coords0.dtype, device=coords0.device)
+            for b in (self.lower_bound, self.upper_bound)
+        ]
+        fused = self._phi_impl in ("fused", "fused_cuda")
+        fused_cuda = self._phi_impl == "fused_cuda"
+        fused_bins = int(self.options.fused_bins)
+        row_tile = self.options.row_tile
+        track_stats = self.options.track_stats
+
+        def step_fn(state, _=None):
+            coords = state["coords"]
+            mparams = state["model_params"]
+            # Through grad_log_density_pure so a model's closed-form score
+            # override is honored.
+            scores = vmap(
+                lambda x: self.model.grad_log_density_pure(x, mparams)
+            )(coords)
+            if annealing is not None:
+                tau = annealing(state["iteration"])
+                scores = scores * torch.as_tensor(
+                    tau, dtype=scores.dtype, device=scores.device
+                )
+            if fused:
+                # ONE O(n^2) sweep: phi with the PREVIOUS step's verified
+                # median (lag-1) + this step's selection counts.
+                n, m = coords.shape
+                aux = state["scale_aux"][0]
+                fdt = aux["med"].dtype
+                gamma, sel = fused_lag1_plan(aux, n, fused_bins, coords.dtype)
+                thresholds = sel["edges"]
+                kparams = (
+                    gamma * torch.eye(m, dtype=coords.dtype, device=coords.device),
+                )
+                if fused_cuda:
+                    phi, counts = phi_rbf_fused_cuda(
+                        coords, scores, gamma, thresholds,
+                        sym=self.options.fused_sym,
+                    )
+                else:
+                    phi, counts = phi_rbf_fused_counts(
+                        coords, scores, gamma, thresholds, row_tile
+                    )
+                med_new, lo1, hi1, lo2, hi2, fell_back = fused_median_from_counts(
+                    counts, sel, n * n, coords,
+                    initialized=aux["hi1"] >= aux["lo1"], row_tile=row_tile,
+                )
+                if fell_back:
+                    self.median_fallbacks += 1
+                scale_aux = (
+                    {
+                        "med": med_new.to(fdt),
+                        "lo1": lo1.to(fdt),
+                        "hi1": hi1.to(fdt),
+                        "lo2": lo2.to(fdt),
+                        "hi2": hi2.to(fdt),
+                        "disp": aux["disp"],
+                    },
+                )
+            else:
+                kparams, scale_aux = self._scale_params(
+                    coords, mparams, state["kernel_params"], state["scale_aux"],
+                    state["slot_model_params"],
+                )
+                phi = self._phi(coords, scores, kparams)
+            # getattr: duck-typed user optimizers need not subclass Optimizer
+            if getattr(self.optimizer, "needs_params", False):
+                opt_state, inc = self.optimizer.step(
+                    state["opt_state"], phi, coords
+                )
+            else:
+                opt_state, inc = self.optimizer.step(state["opt_state"], phi)
+            new_coords = coords + inc
+            if bounds[0] is not None:
+                new_coords = torch.maximum(new_coords, bounds[0])
+            if bounds[1] is not None:
+                new_coords = torch.minimum(new_coords, bounds[1])
+            if any(a is not None for a in scale_aux):
+                # Max particle displacement of THIS update (clamp included):
+                # next step's bracket expands by 2x this.
+                disp = torch.sqrt(
+                    torch.max(torch.sum((new_coords - coords) ** 2, dim=1))
+                )
+                scale_aux = tuple(
+                    {**a, "disp": disp.to(a["disp"].dtype)}
+                    if a is not None
+                    else None
+                    for a in scale_aux
+                )
+            new_state = {
+                "coords": new_coords,
+                "opt_state": opt_state,
+                "kernel_params": kparams,
+                "model_params": mparams,
+                "scale_aux": scale_aux,
+                "slot_model_params": state["slot_model_params"],
+                "iteration": state["iteration"] + 1,
+            }
+            stats = None
+            if track_stats:
+                # 'bandwidth' assumes an (m, m) inverse-scale in slot 0; a
+                # custom kernel may carry none: report NaN then.
+                if kparams and getattr(kparams[0], "ndim", 0) == 2:
+                    bandwidth = kparams[0][0, 0]
+                else:
+                    bandwidth = torch.full(
+                        (), float("nan"), dtype=coords.dtype, device=coords.device
+                    )
+                stats = {
+                    "phi_rms": torch.sqrt(torch.mean(phi * phi)),
+                    "step_max": torch.max(
+                        torch.sqrt(torch.sum((new_coords - coords) ** 2, dim=1))
+                    ),
+                    "bandwidth": bandwidth,
+                }
+            return new_state, stats
+
+        return step_fn
+
+    def make_state(self):
+        """Assemble the state from the current component parameters, on the
+        coordinates' device."""
+        coords = self.store.value
+        return {
+            "coords": coords,
+            "opt_state": self._opt_state,
+            # Kernel params follow the coords dtype: adaptive slots are
+            # REPLACED each step by values derived from coords.
+            "kernel_params": tuple(
+                as_tensor(p).to(dtype=coords.dtype, device=coords.device)
+                for p in self.kernel.parameters
+            ),
+            "model_params": params_on(self.model.parameters, coords.device),
+            # Foreign-model params per adaptive slot, read FRESH so a
+            # hot-swap on a kernel's private target model is honored.
+            "slot_model_params": tuple(
+                params_on(owner.target_model.parameters, coords.device)
+                if getattr(owner, "target_model", None) is not None
+                and owner.target_model is not self.model
+                else None
+                for _, owner in self._adaptive_slots
+            ),
+            "scale_aux": self._current_scale_aux(coords),
+            "iteration": int(getattr(self, "_iteration", 0)),
+        }
+
+    def _current_scale_aux(self, coords):
+        """Per-adaptive-slot warm-start aux (carried across run() calls)."""
+        stored = getattr(self, "_scale_aux", None)
+        if stored is not None:
+            return stored
+        if self._phi_impl in ("fused", "fused_cuda"):
+            # {med, lo, hi, disp}: the INITIAL positions' median seeds the
+            # lag-1 fused pipeline.
+            return (self.kernel.init_fused_aux(coords),)
+        return tuple(
+            owner.init_scale_aux(coords)
+            if hasattr(owner, "init_scale_aux")
+            else None
+            for _, owner in self._adaptive_slots
+        )
+
+    def _absorb_state(self, state):
+        self.store.value = state["coords"]
+        self._opt_state = state["opt_state"]
+        self._scale_aux = state["scale_aux"]
+        self._iteration = int(state["iteration"])
+        self.kernel.update_parameters(state["kernel_params"])
+
+    # ------------------------------------------------------------------
+    # Execution
+    # ------------------------------------------------------------------
+    def step(self):
+        """Execute one SVGD step (reference SVGD::Step, SVGD.hpp:373-400)."""
+        self._require_init()
+        if self._has_custom_hooks():
+            self._eager_hooks()
+        new_state, _ = self._step_fn(self.make_state())
+        self._absorb_state(new_state)
+
+    def run(self):
+        """Execute num_iterations steps (reference SVGD::Run, SVGD.hpp:338-366)."""
+        self._require_init()
+        hooks = self._has_custom_hooks()
+        collected = []
+        state = None if hooks else self.make_state()
+        for _ in range(self.num_iterations):
+            if hooks:
+                # Host-side hooks may change the model or kernel: rebuild the
+                # state from the components around each step.
+                self._eager_hooks()
+                state = self.make_state()
+            state, stats = self._step_fn(state)
+            if hooks:
+                self._absorb_state(state)
+            if stats is not None:
+                collected.append(stats)
+        if state is not None and not hooks:
+            self._absorb_state(state)
+        if collected:
+            self.stats = {
+                key: torch.stack([s[key] for s in collected]).cpu().numpy()
+                for key in collected[0]
+            }
+        return self.store.value
+
+    def _eager_hooks(self):
+        model_hook = self._hook_override(self.model, self._MODEL_BASE_HOOKS)
+        if model_hook is not None:
+            model_hook()
+        kernel_hook = self._hook_override(self.kernel, self._KERNEL_BASE_HOOKS)
+        if kernel_hook is not None:
+            kernel_hook()
+
+    def _require_init(self):
+        if not self._initialized:
+            raise RuntimeError(
+                SVGD_LOG_PREFIX + "Initialize() must be called before stepping."
+            )
+
+    # ------------------------------------------------------------------
+    # Parameter hot-swap (reference SVGD.hpp:304-332)
+    # ------------------------------------------------------------------
+    def update_kernel_parameters(self, params):
+        self.kernel.update_parameters(_as_param_tuple(params))
+        self.kernel.initialize()
+        if getattr(self, "_initialized", False):
+            # The step reads the PSD flag when it runs; before initialize()
+            # there is none yet, and initialize() derives it.
+            self._refresh_psd()
+
+    def update_model_parameters(self, params):
+        self.model.update_parameters(params)
+        self.model.initialize()
+
+    # ------------------------------------------------------------------
+    # CamelCase aliases
+    # ------------------------------------------------------------------
+    Initialize = initialize
+    Run = run
+    Step = step
+    UpdateKernelParameters = update_kernel_parameters
+    UpdateModelParameters = update_model_parameters

@@ -1,0 +1,69 @@
+"""Carry an SVGD state between the JAX package and this one.
+
+``svgdcpp_tpu.SVGD.make_state()`` and ``svgdcpp_tpu_torch.SVGD.make_state()``
+have the same keys: coords, opt_state, kernel_params, model_params,
+scale_aux, slot_model_params and iteration. ``state_from_numpy`` takes the
+JAX state after ``jax.device_get`` (numpy leaves) and returns this
+package's; ``state_to_numpy`` goes back. So one step can be taken in each
+package from the same state and the results compared.
+
+Floating leaves take ``dtype``, except ``scale_aux`` (the median selection
+state), which stays float64 as in ops/median.SELECT_DTYPE. Integer leaves
+(Adam's step count) keep their integer type.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops.median import SELECT_DTYPE
+
+
+def _leaf_to_torch(x, device, dtype):
+    arr = np.asarray(x)
+    t = torch.from_numpy(np.array(arr)).to(device)
+    if arr.dtype.kind == "f":
+        t = t.to(dtype)
+    return t
+
+
+def _map(tree, fn):
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_map(v, fn) for v in tree)
+    return fn(tree)
+
+
+def state_from_numpy(np_state, device="cpu", dtype=torch.float64) -> dict:
+    """This package's SVGD state from a JAX ``make_state()`` pytree with
+    numpy leaves."""
+
+    def conv(dt):
+        return lambda x: _leaf_to_torch(x, device, dt)
+
+    return {
+        "coords": conv(dtype)(np_state["coords"]),
+        "opt_state": _map(np_state["opt_state"], conv(dtype)),
+        "kernel_params": _map(np_state["kernel_params"], conv(dtype)),
+        "model_params": _map(np_state["model_params"], conv(dtype)),
+        "scale_aux": _map(np_state["scale_aux"], conv(SELECT_DTYPE)),
+        "slot_model_params": _map(np_state["slot_model_params"], conv(dtype)),
+        "iteration": int(np.asarray(np_state["iteration"])),
+    }
+
+
+def state_to_numpy(state) -> dict:
+    """The reverse: every tensor leaf to a numpy array on the host."""
+
+    def conv(x):
+        if torch.is_tensor(x):
+            return x.detach().cpu().numpy()
+        return np.asarray(x)
+
+    out = {k: _map(v, conv) for k, v in state.items() if k != "iteration"}
+    out["iteration"] = np.asarray(state["iteration"], dtype=np.int32)
+    return out

@@ -1,0 +1,172 @@
+"""svgdcpp_tpu_torch phi sweeps against svgdcpp_tpu.
+
+* The plain sweeps (phi_rbf, phi_rbf_blocked, phi_rbf_fused_counts, the
+  multi-term phi_rbf_terms_fused_counts and the cross forms) against the
+  JAX package's XLA twins in float64: rtol 1e-10 (the same arithmetic,
+  summed in another order), counts exactly equal.
+* The CUDA kernels' wrappers on CPU tensors (which run the plain version)
+  against the Pallas kernels in interpret mode, float32, at a ragged n=300
+  off origin (+50): phi rtol 2e-4, atol 2e-5 (the tolerance the JAX
+  package's own interpret tests use); counts exactly equal at m <= 4, where
+  both sides build sq from differences, and within n at m > 4, where the
+  Pallas kernel uses a bf16x3-split Gram identity and the plain version a
+  float32 one.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from svgdcpp_tpu.ops import pallas_phi as pj
+from svgdcpp_tpu.ops import phi as phj
+from svgdcpp_tpu_torch.ops import cuda_phi
+from svgdcpp_tpu_torch.ops import phi as pht
+
+# The suite runs several xdist workers on one CPU: torch's default of an
+# OpenMP thread per core in each of them oversubscribes it.
+torch.set_num_threads(1)
+
+
+def assert_close(got, want, rtol, atol=0.0):
+    got = np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=atol)
+
+
+def inputs(n, m, offset=0.0, seed=0, dtype=np.float64):
+    rng = np.random.default_rng(seed)
+    x = (rng.normal(size=(n, m)) + offset).astype(dtype)
+    s = rng.normal(size=(n, m)).astype(dtype)
+    return x, s
+
+
+@pytest.mark.parametrize("m", [2, 6])
+def test_phi_rbf_dense_and_blocked_f64(m):
+    x, s = inputs(150, m, offset=3.0)
+    a = np.random.default_rng(1).normal(size=(m, m))
+    p = 0.2 * (a @ a.T / m + np.eye(m))
+    want = phj.phi_rbf(jnp.asarray(x), jnp.asarray(s), jnp.asarray(p))
+    assert_close(pht.phi_rbf(*map(torch.from_numpy, (x, s, p))), want, 1e-10)
+    want_b = phj.phi_rbf_blocked(jnp.asarray(x), jnp.asarray(s), jnp.asarray(p), 64)
+    got_b = pht.phi_rbf_blocked(*map(torch.from_numpy, (x, s, p)), 64)
+    assert_close(got_b, want_b, 1e-10)
+    assert_close(got_b, want, 1e-10)
+
+
+@pytest.mark.parametrize("m", [2, 6])
+def test_phi_rbf_fused_counts_f64(m):
+    x, s = inputs(250, m, offset=-7.0)
+    gamma = 0.45
+    thr = np.array([0.5, 2.0, 6.0, 30.0])
+    want_phi, want_cnt = phj.phi_rbf_fused_counts(
+        jnp.asarray(x), jnp.asarray(s), gamma, jnp.asarray(thr), 64
+    )
+    got_phi, got_cnt = pht.phi_rbf_fused_counts(
+        torch.from_numpy(x), torch.from_numpy(s), gamma, torch.from_numpy(thr), 64
+    )
+    assert_close(got_phi, want_phi, 1e-10)
+    assert got_cnt.dtype == torch.int64
+    np.testing.assert_array_equal(got_cnt.numpy(), np.asarray(want_cnt).astype(np.int64))
+    # the cross form, n_t != n_s
+    xt = x[:70] + 0.3
+    want_phi, want_cnt = phj.phi_rbf_cross_fused_counts(
+        jnp.asarray(xt), jnp.asarray(x), jnp.asarray(s), gamma, jnp.asarray(thr), 32
+    )
+    got_phi, got_cnt = pht.phi_rbf_cross_fused_counts(
+        torch.from_numpy(xt), torch.from_numpy(x), torch.from_numpy(s), gamma,
+        torch.from_numpy(thr), 32,
+    )
+    assert_close(got_phi, want_phi, 1e-10)
+    np.testing.assert_array_equal(got_cnt.numpy(), np.asarray(want_cnt).astype(np.int64))
+
+
+@pytest.mark.parametrize("m", [2, 6])
+def test_phi_rbf_terms_fused_counts_f64(m):
+    """Two signed isotropic terms: the k_c/w combination in the difference
+    form (m=2) and the Gram form (m=6), single-set and cross."""
+    x, s = inputs(230, m, offset=4.0, seed=m)
+    gammas, signs = [0.3, 1.1], [1.0, -0.5]
+    thr = np.array([0.25, 3.0, 12.0])
+    want_phi, want_cnt = phj.phi_rbf_terms_fused_counts(
+        jnp.asarray(x), jnp.asarray(s), gammas, signs, jnp.asarray(thr), 64
+    )
+    got_phi, got_cnt = pht.phi_rbf_terms_fused_counts(
+        torch.from_numpy(x), torch.from_numpy(s), gammas, signs,
+        torch.from_numpy(thr), 64,
+    )
+    assert_close(got_phi, want_phi, 1e-10)
+    np.testing.assert_array_equal(got_cnt.numpy(), np.asarray(want_cnt).astype(np.int64))
+    xt = x[:50] - 0.4
+    want_phi, want_cnt = phj.phi_rbf_terms_cross_fused_counts(
+        jnp.asarray(xt), jnp.asarray(x), jnp.asarray(s), gammas, signs,
+        jnp.asarray(thr), 32,
+    )
+    got_phi, got_cnt = pht.phi_rbf_terms_cross_fused_counts(
+        torch.from_numpy(xt), torch.from_numpy(x), torch.from_numpy(s), gammas,
+        signs, torch.from_numpy(thr), 32,
+    )
+    assert_close(got_phi, want_phi, 1e-10)
+    np.testing.assert_array_equal(got_cnt.numpy(), np.asarray(want_cnt).astype(np.int64))
+
+
+def _check_kernel_pair(got, want, n, m):
+    phi_t, cnt_t = got
+    phi_j, cnt_j = want
+    assert_close(phi_t, phi_j, rtol=2e-4, atol=2e-5)
+    cnt_t = cnt_t.numpy()
+    cnt_j = np.asarray(cnt_j).astype(np.int64)
+    if m <= 4:
+        np.testing.assert_array_equal(cnt_t, cnt_j)
+    else:
+        assert np.abs(cnt_t - cnt_j).max() <= n
+
+
+@pytest.mark.parametrize("m", [2, 3, 6])
+@pytest.mark.parametrize("sym", [False, True])
+def test_fused_cuda_wrapper_on_cpu_vs_pallas_interpret(m, sym):
+    n = 300
+    x, s = inputs(n, m, offset=50.0, seed=m, dtype=np.float32)
+    gamma = np.float32(0.6)
+    thr = np.linspace(0.0, 20.0, 5).astype(np.float32)
+    want = pj.phi_rbf_fused_pallas(
+        jnp.asarray(x), jnp.asarray(s), gamma, jnp.asarray(thr),
+        tile_i=64, tile_j=128, sym=sym, interpret=True,
+    )
+    got = cuda_phi.phi_rbf_fused_cuda(
+        torch.from_numpy(x), torch.from_numpy(s), torch.tensor(gamma),
+        torch.from_numpy(thr), sym=sym,
+    )
+    assert got[0].dtype == torch.float32
+    _check_kernel_pair(got, want, n, m)
+
+
+def test_fused_cuda_cross_on_cpu_vs_pallas_interpret():
+    xs, s = inputs(300, 2, offset=50.0, seed=4, dtype=np.float32)
+    xt, _ = inputs(130, 2, offset=50.5, seed=5, dtype=np.float32)
+    gamma = np.float32(0.6)
+    thr = np.linspace(0.0, 20.0, 5).astype(np.float32)
+    want = pj.phi_rbf_fused_pallas_cross(
+        jnp.asarray(xt), jnp.asarray(xs), jnp.asarray(s), gamma,
+        jnp.asarray(thr), tile_i=64, tile_j=128, interpret=True,
+    )
+    got = cuda_phi.phi_rbf_fused_cuda_cross(
+        torch.from_numpy(xt), torch.from_numpy(xs), torch.from_numpy(s),
+        torch.tensor(gamma), torch.from_numpy(thr),
+    )
+    _check_kernel_pair(got, want, 300, 2)
+
+
+def test_resolve_sym_and_launch_counts_on_cpu():
+    assert cuda_phi.resolve_sym(None, cuda_phi.SYM_MIN_N - 1) is False
+    assert cuda_phi.resolve_sym(None, cuda_phi.SYM_MIN_N) is True
+    assert cuda_phi.resolve_sym(True, 10) is True
+    assert cuda_phi.resolve_sym(False, 10**6) is False
+    # the plain version on a CPU tensor launches nothing
+    cuda_phi.reset_launch_counts()
+    x, s = inputs(40, 2)
+    cuda_phi.phi_rbf_fused_cuda(
+        torch.from_numpy(x), torch.from_numpy(s), 0.5, torch.tensor([1.0, 2.0])
+    )
+    assert all(v == 0 for v in cuda_phi.launch_counts.values())

@@ -1,0 +1,285 @@
+"""svgdcpp_tpu_torch's SVGD class against svgdcpp_tpu's.
+
+* Construction, validation messages, lifecycle errors, bounds, routes that
+  are not ported yet.
+* One step from the SAME state (the JAX SVGD's make_state() carried over
+  by utils/convert.py) on the dense route at n=64 (exact median), the dense
+  route at n=600 (warm median) and the fused route at n=1500: coords,
+  optimizer state and median brackets within rtol 1e-9 (float64; the same
+  arithmetic in another order).
+* 15-step run() trajectories on the same three, and the flagship config
+  (flagship_mvn(1500), AdaGrad 0.1) for 20 steps: rtol 1e-7 (rounding
+  differences grow through AdaGrad's normalization over the steps).
+* 'fused_cuda' on CPU tensors (the plain sweep) against the JAX package's
+  'fused_pallas' (Pallas interpret mode) at n=600 for 3 steps, float32:
+  rtol 2e-3, atol 2e-4, the JAX package's own tolerance for that pair.
+"""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import svgdcpp_tpu as sv
+import svgdcpp_tpu_torch as st
+from svgdcpp_tpu.utils.workloads import flagship_mvn as flagship_j
+from svgdcpp_tpu_torch.utils.convert import state_from_numpy, state_to_numpy
+from svgdcpp_tpu_torch.utils.workloads import flagship_mvn
+
+# The suite runs several xdist workers on one CPU: torch's default of an
+# OpenMP thread per core in each of them oversubscribes it.
+torch.set_num_threads(1)
+
+MEAN = np.array([-0.6871, 0.8010])
+COV = 5.0 * np.array([[0.2260, 0.1652], [0.1652, 0.6779]])
+
+
+def build(pkg, x0, iters, impl="auto", optimizer=None, **kw):
+    n, dim = x0.shape
+    model = pkg.MultivariateNormal(MEAN.astype(x0.dtype), COV.astype(x0.dtype))
+    kernel = pkg.GaussianRBFKernel(x0.copy(), pkg.ScaleMethod.MEDIAN, model)
+    opt = optimizer(pkg) if optimizer else pkg.AdaGrad(dim, n, 0.1)
+    opts = pkg.SVGDOptions(
+        dimension=dim, num_iterations=iters, coordinate_matrix=x0.copy(),
+        kernel=kernel, model=model, optimizer=opt, phi_impl=impl, **kw
+    )
+    return pkg.SVGD(opts).initialize()
+
+
+def x0_for(n, seed=0):
+    return np.random.default_rng(seed).normal(size=(n, 2)) * 2.0
+
+
+def leaves(tree):
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [v for k in sorted(tree) for v in leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [v for t in tree for v in leaves(t)]
+    return [tree]
+
+
+def assert_states_close(got, want, rtol):
+    for key in ("coords", "opt_state", "scale_aux", "kernel_params"):
+        lg, lw = leaves(got[key]), leaves(want[key])
+        assert len(lg) == len(lw), key
+        for a, b in zip(lg, lw):
+            a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+            np.testing.assert_allclose(
+                a, b, rtol=rtol, atol=rtol * max(1.0, np.abs(b).max()),
+                err_msg=key,
+            )
+    assert int(got["iteration"]) == int(want["iteration"])
+
+
+CASES = [(64, "dense"), (600, "dense"), (1500, "fused")]
+
+
+@pytest.mark.parametrize("n,route", CASES)
+def test_one_step_from_converted_state(n, route):
+    x0 = x0_for(n)
+    sj = build(sv, x0, 1)
+    s_t = build(st, x0, 1)
+    assert sj._phi_impl == s_t._phi_impl == route
+    np_state = jax.device_get(sj.make_state())
+    want, _ = jax.jit(sj.build_step_fn())(np_state)
+    got, _ = s_t.build_step_fn()(state_from_numpy(np_state))
+    assert_states_close(state_to_numpy(got), jax.device_get(want), 1e-9)
+
+
+@pytest.mark.parametrize("n,route", CASES)
+def test_fifteen_step_trajectories(n, route):
+    x0 = x0_for(n, seed=1)
+    sj = build(sv, x0, 15)
+    s_t = build(st, x0, 15)
+    out_j = np.asarray(sj.run())
+    out_t = s_t.run().numpy()
+    np.testing.assert_allclose(out_t, out_j, rtol=1e-7, atol=1e-9)
+    assert s_t._iteration == 15
+
+
+def test_flagship_config_twenty_steps():
+    mean, cov, x0 = flagship_mvn(1500)
+    mean_j, cov_j, x0_j = flagship_j(1500)
+    np.testing.assert_array_equal(x0, x0_j)
+
+    def run(pkg):
+        model = pkg.MultivariateNormal(mean, cov)
+        kernel = pkg.GaussianRBFKernel(x0.copy(), pkg.ScaleMethod.MEDIAN, model)
+        svgd = pkg.SVGD(pkg.SVGDOptions(
+            dimension=2, num_iterations=20, coordinate_matrix=x0.copy(),
+            kernel=kernel, model=model, optimizer=pkg.AdaGrad(2, 1500, 0.1),
+        )).initialize()
+        return np.asarray(svgd.run()), svgd
+
+    out_j, _ = run(sv)
+    out_t, s_t = run(st)
+    assert s_t._phi_impl == "fused"
+    np.testing.assert_allclose(out_t, out_j, rtol=1e-7, atol=1e-9)
+    assert s_t.median_fallbacks == 0
+
+
+def test_fused_cuda_on_cpu_vs_fused_pallas_interpret():
+    n = 600
+    x0 = (np.random.default_rng(42).normal(size=(n, 2)) * 2).astype(np.float32)
+
+    def run(pkg, impl):
+        model = pkg.MultivariateNormal(np.zeros(2, np.float32), np.eye(2, dtype=np.float32))
+        kernel = pkg.GaussianRBFKernel(x0.copy(), pkg.ScaleMethod.MEDIAN, model)
+        svgd = pkg.SVGD(pkg.SVGDOptions(
+            dimension=2, num_iterations=3, coordinate_matrix=x0.copy(),
+            kernel=kernel, model=model, optimizer=pkg.AdaGrad(2, n, 0.1),
+            phi_impl=impl,
+        )).initialize()
+        return np.asarray(svgd.run())
+
+    np.testing.assert_allclose(
+        run(st, "fused_cuda"), run(sv, "fused_pallas"), rtol=2e-3, atol=2e-4
+    )
+
+
+def test_fallback_counted_and_matches_jax():
+    """A bracket that cannot hold the median forces the bisection fallback
+    on both sides; the port counts it."""
+    x0 = x0_for(1500, seed=3)
+    sj = build(sv, x0, 1)
+    s_t = build(st, x0, 1)
+    np_state = jax.device_get(sj.make_state())
+    aux = dict(np_state["scale_aux"][0])
+    for key in ("lo1", "lo2"):
+        aux[key] = np.asarray(1e3, np.float64)
+    for key in ("hi1", "hi2"):
+        aux[key] = np.asarray(2e3, np.float64)
+    np_state["scale_aux"] = (aux,)
+    want, _ = jax.jit(sj.build_step_fn())(np_state)
+    got, _ = s_t.build_step_fn()(state_from_numpy(np_state))
+    assert s_t.median_fallbacks == 1
+    assert_states_close(state_to_numpy(got), jax.device_get(want), 1e-9)
+
+
+def test_annealing_stats_and_other_optimizers():
+    x0 = x0_for(64, seed=2)
+    tau = np.linspace(0.2, 1.0, 6)
+
+    def adam(pkg):
+        return pkg.Adam(2, 64, 0.05, 0.9, 0.999)
+
+    sj = build(sv, x0, 6, optimizer=adam, annealing=tau, track_stats=True)
+    s_t = build(st, x0, 6, optimizer=adam, annealing=tau, track_stats=True)
+    np.testing.assert_allclose(s_t.run().numpy(), np.asarray(sj.run()), rtol=1e-9)
+    assert set(s_t.stats) == set(sj.stats)
+    for key in sj.stats:
+        np.testing.assert_allclose(s_t.stats[key], np.asarray(sj.stats[key]), rtol=1e-9)
+
+
+def test_bounds_clamp_matches_jax():
+    x0 = x0_for(64, seed=4)
+    sj = build(sv, x0, 5, lower_bound=-0.5, upper_bound=[1.0, 0.7])
+    s_t = build(st, x0, 5, lower_bound=-0.5, upper_bound=[1.0, 0.7])
+    out_t = s_t.run().numpy()
+    np.testing.assert_allclose(out_t, np.asarray(sj.run()), rtol=1e-9)
+    assert (out_t >= -0.5).all() and (out_t[:, 0] <= 1.0).all()
+    assert (out_t[:, 1] <= 0.7).all()
+
+
+def test_hot_swap_and_continued_run_match_jax():
+    x0 = x0_for(64, seed=5)
+    p = 0.4 * np.eye(2)
+
+    def run(pkg):
+        model = pkg.MultivariateNormal(MEAN, COV)
+        kernel = pkg.GaussianRBFKernel(
+            x0.copy(), pkg.ScaleMethod.CONSTANT, constant_scale=p
+        )
+        svgd = pkg.SVGD(2, 4, x0.copy(), kernel, model, pkg.AdaGrad(2, 64, 0.1))
+        svgd.Initialize()
+        svgd.Run()
+        svgd.UpdateKernelParameters((0.9 * np.eye(2),))
+        svgd.UpdateModelParameters((MEAN + 0.5, COV))
+        svgd.Step()
+        return np.asarray(svgd.Run())
+
+    np.testing.assert_allclose(run(st), run(sv), rtol=1e-9)
+
+
+def test_custom_hooks_run_each_iteration():
+    x0 = x0_for(32, seed=6)
+    calls = []
+
+    class CountingModel(st.MultivariateNormal):
+        def step(self):
+            calls.append(1)
+
+    model = CountingModel(MEAN, COV)
+    kernel = st.GaussianRBFKernel(x0, st.ScaleMethod.MEDIAN, model)
+    svgd = st.SVGD(st.SVGDOptions(
+        dimension=2, num_iterations=3, coordinate_matrix=x0, kernel=kernel,
+        model=model, optimizer=st.AdaGrad(2, 32, 0.1),
+    )).initialize()
+    svgd.run()
+    assert len(calls) == 3 and svgd._iteration == 3
+
+
+def _error_pair(make):
+    with pytest.raises(Exception) as ej:
+        make(sv)
+    with pytest.raises(Exception) as et:
+        make(st)
+    assert type(et.value).__name__ == type(ej.value).__name__
+    assert str(et.value) == str(ej.value)
+
+
+def test_constructor_validation_matches_jax():
+    x0 = x0_for(8)
+
+    def parts(pkg):
+        model = pkg.MultivariateNormal(MEAN, COV)
+        return model, pkg.GaussianRBFKernel(x0, pkg.ScaleMethod.MEDIAN), pkg.AdaGrad(2, 8, 0.1)
+
+    _error_pair(lambda pkg: pkg.SVGD(3, 1, x0, *parts(pkg)[1::-1], parts(pkg)[2]))
+    _error_pair(lambda pkg: pkg.SVGD(2, 1, x0, None, parts(pkg)[0], parts(pkg)[2]))
+    _error_pair(lambda pkg: pkg.SVGD(2, 1, x0, parts(pkg)[1], None, parts(pkg)[2]))
+    _error_pair(lambda pkg: pkg.SVGD(2, 1, x0, parts(pkg)[1], parts(pkg)[0], None))
+    _error_pair(lambda pkg: pkg.SVGD(*range(12)))
+    _error_pair(lambda pkg: pkg.SVGD(2, 1, x0, dimension=2))
+    _error_pair(lambda pkg: pkg.SVGD(
+        2, 1, x0, parts(pkg)[1], parts(pkg)[0], parts(pkg)[2], [0.0, 0.0, 0.0]
+    ))
+    _error_pair(lambda pkg: pkg.SVGD(
+        2, 1, x0, parts(pkg)[1], parts(pkg)[0], parts(pkg)[2]
+    ).run())
+    # phi_impl='fused' needs a MEDIAN kernel: same message
+    _error_pair(lambda pkg: pkg.SVGD(pkg.SVGDOptions(
+        dimension=2, num_iterations=1, coordinate_matrix=x0,
+        kernel=pkg.GaussianRBFKernel(x0, pkg.ScaleMethod.CONSTANT,
+                                     constant_scale=np.eye(2)),
+        model=parts(pkg)[0], optimizer=parts(pkg)[2], phi_impl="fused",
+    )).initialize())
+
+
+@pytest.mark.parametrize("options", [
+    {"impl": "generic"},
+    {"impl": "rbf_terms"},
+    {"impl": "fused_terms_pallas"},
+    {"impl": "fused_aniso_terms_pallas"},
+    {"impl": "pallas"},
+    {"mesh": object()},
+    {"log_intermediate_matrices": True},
+    {"impl": "fused_cuda", "fused_dot_dtype": "bfloat16"},
+])
+def test_unported_routes_raise_not_implemented(options):
+    x0 = x0_for(16)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build(st, x0, 1, **options)
+
+
+def test_composed_kernel_auto_and_fused_pallas_name():
+    x0 = x0_for(16)
+    model = st.MultivariateNormal(MEAN, COV)
+    k = st.GaussianRBFKernel(x0) + st.GaussianRBFKernel(x0)
+    svgd = st.SVGD(2, 1, x0, k, model, st.AdaGrad(2, 16, 0.1))
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        svgd.initialize()
+    with pytest.raises(ValueError, match="fused_cuda"):
+        build(st, x0, 1, impl="fused_pallas")
