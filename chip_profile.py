@@ -1,10 +1,18 @@
 #!/usr/bin/env python3
-"""Where the time of a flagship step goes, on one CUDA GPU.
+"""Where the time of a step goes, on one CUDA GPU.
 
-    python3 chip_profile.py [--large] [--out chiprun_out/profile.json]
+    python3 chip_profile.py [--config mvn|hier|blr] [--large] [--out PATH]
 
-Drives svgdcpp_tpu_torch's flagship (MVN d=2, N=10000, RBF with the median
-bandwidth, AdaGrad lr 0.1, route ``fused_cuda``) and prints:
+Drives one configuration of svgdcpp_tpu_torch at its full width:
+
+  * ``mvn`` (default): the flagship, MVN d=2, N=10000, RBF with the median
+    bandwidth, AdaGrad lr 0.1, route ``fused_cuda`` (triangle kernel);
+  * ``hier``: hierarchical BLR, d=10 (m=11), N=10000, median RBF + 0.1 I,
+    Adam lr 5e-2, route ``fused_terms_cuda`` (terms triangle kernel);
+  * ``blr``: flat BLR, d=50, N=1000, median RBF, Adam lr 5e-2, route
+    ``fused_cuda`` (square kernel at m=50);
+
+and prints:
 
   * host ms/step: CUDA events around 200 unprofiled steps (``run()``), after
     a 20-step warm-up;
@@ -15,20 +23,23 @@ bandwidth, AdaGrad lr 0.1, route ``fused_cuda``) and prints:
     to the last one's end. Both come from the trace's device clock, so the
     profiler's host overhead widens the span, not the busy time; hence also
     ``device_idle_share_of_step``, ``1 - busy / (host ms/step)`` against
-    the unprofiled step. Also the device events per step, and the triangle
+    the unprofiled step. Also the device events per step, and the sweep
     kernel's us per call;
   * sections of one step, each ended by ``torch.cuda.synchronize()`` and
     timed on the host clock over 200 steps: scores, plan, sweep, median
     post-processing, optimizer. They call the same functions as the
     driver's step, in its order; each includes one synchronize.
 
-With ``--large`` it also runs the triangle kernel once at n = 100000 and
+With ``--large`` (mvn only) it also runs the triangle kernel once at
+n = 100000 and
 n = 1000000 (m=2, three thresholds, after one warm-up call, CUDA events)
 against the plain torch sweep on the same inputs (host clock; it takes
 about a minute at n = 1000000): phi's max |diff| / max |phi| and the count
 difference.
 
-The JSON summary goes to ``--out``. Exits non-zero without a CUDA device.
+The JSON summary goes to ``--out`` (default
+``chiprun_out/profile[_<config>].json``). Exits non-zero without a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -58,9 +69,9 @@ def union_us(intervals):
     return total
 
 
-def device_timeline(trace_path, steps, sym_name):
-    """Busy us/step, idle share, device events/step and the triangle
-    kernel's mean us per call from a chrome trace of ``steps`` steps."""
+def device_timeline(trace_path, steps, sweep_name):
+    """Busy us/step, idle share, device events/step and the sweep kernel's
+    mean us per call from a chrome trace of ``steps`` steps."""
     events = json.loads(Path(trace_path).read_text())["traceEvents"]
     dev = [
         ev for ev in events
@@ -71,26 +82,46 @@ def device_timeline(trace_path, steps, sym_name):
     spans = [(float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])) for ev in dev]
     busy = union_us(spans)
     span = max(e for _, e in spans) - min(s for s, _ in spans)
-    sym = [float(ev["dur"]) for ev in dev if sym_name in ev.get("name", "")]
+    sweep = [float(ev["dur"]) for ev in dev
+             if sweep_name + "_kernel" in ev.get("name", "")]
     return {
         "device_busy_us_per_step": busy / steps,
         "device_span_us_per_step": span / steps,
         "device_idle_share": 1.0 - busy / span,
         "device_events_per_step": len(dev) / steps,
-        "sym_kernel_calls": len(sym),
-        "sym_kernel_us_per_call": sum(sym) / len(sym) if sym else None,
+        "sweep_kernel": sweep_name,
+        "sweep_kernel_calls": len(sweep),
+        "sweep_kernel_us_per_call": sum(sweep) / len(sweep) if sweep else None,
     }
 
 
-def make_flagship(st, n, iters):
-    from chip_smoke import make_svgd
-    from svgdcpp_tpu_torch.utils.workloads import flagship_mvn
+def make_driver(st, config, iters):
+    """(driver, its sweep kernel's name) for ``config`` at full width."""
+    import torch
 
-    mean, cov, x0 = flagship_mvn(n)
-    svgd = make_svgd(st, x0, mean, cov, iters)
-    if svgd._phi_impl != "fused_cuda":
-        raise RuntimeError(f"flagship routed to {svgd._phi_impl!r}")
-    return svgd
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.utils.workloads import blr_workload, build_blr_svgd
+
+    if config == "mvn":
+        from chip_smoke import make_svgd
+        from svgdcpp_tpu_torch.utils.workloads import flagship_mvn
+
+        mean, cov, x0 = flagship_mvn(10000)
+        svgd = make_svgd(st, x0, mean, cov, iters)
+        route, kernel = "fused_cuda", cuda_phi.SYM_KERNEL
+    else:
+        hier = config == "hier"
+        n, d = (10000, 10) if hier else (1000, 50)
+        feats, labels, x0 = blr_workload(n, d, hierarchical=hier)
+        svgd = build_blr_svgd(torch.tensor(x0, device="cuda"), feats, labels,
+                              hierarchical=hier, num_iterations=iters)
+        route, kernel = (
+            ("fused_terms_cuda", cuda_phi.TERMS_SYM_KERNEL) if hier
+            else ("fused_cuda", cuda_phi.SQUARE_KERNEL)
+        )
+    if svgd._phi_impl != route:
+        raise RuntimeError(f"{config} routed to {svgd._phi_impl!r}, not {route!r}")
+    return svgd, kernel
 
 
 def host_ms_per_step(svgd, steps):
@@ -109,16 +140,22 @@ def host_ms_per_step(svgd, steps):
 
 def sections_ms(svgd, steps):
     """Host ms/step of each section of the fused step, each ended by a
-    synchronize, in the driver's order (svgd.py, build_step_fn)."""
+    synchronize, in the driver's order (svgd.py, build_step_fn); the plan of
+    a composed kernel includes its slot refill."""
     import torch
     from torch.func import vmap
 
-    from svgdcpp_tpu_torch.ops.cuda_phi import phi_rbf_fused_cuda
+    from svgdcpp_tpu_torch.kernels.algebra import refill_median_slots
+    from svgdcpp_tpu_torch.ops.cuda_phi import (
+        phi_rbf_fused_cuda,
+        phi_rbf_terms_fused_cuda,
+    )
     from svgdcpp_tpu_torch.ops.median import (
         fused_lag1_plan,
         fused_median_from_counts,
     )
 
+    terms = svgd._rbf_terms
     state = svgd.make_state()
     coords, opt_state = state["coords"], state["opt_state"]
     aux = state["scale_aux"][0]
@@ -137,8 +174,18 @@ def sections_ms(svgd, steps):
         scores = vmap(lambda x: svgd.model.grad_log_density_pure(x, mparams))(coords)
         mark()
         gamma, sel = fused_lag1_plan(aux, n, int(svgd.options.fused_bins), coords.dtype)
+        if terms is not None:
+            _, gammas = refill_median_slots(
+                state["kernel_params"], [i for i, _ in svgd._adaptive_slots],
+                gamma, coords.shape[1], coords.dtype, [p for _, p in terms],
+            )
         mark()
-        phi, counts = phi_rbf_fused_cuda(coords, scores, gamma, sel["edges"])
+        if terms is not None:
+            phi, counts = phi_rbf_terms_fused_cuda(
+                coords, scores, gammas, [s for s, _ in terms], sel["edges"]
+            )
+        else:
+            phi, counts = phi_rbf_fused_cuda(coords, scores, gamma, sel["edges"])
         mark()
         med, lo1, hi1, lo2, hi2, _ = fused_median_from_counts(
             counts, sel, n * n, coords, initialized=aux["hi1"] >= aux["lo1"],
@@ -201,10 +248,17 @@ def large_n(n, device):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--config", choices=("mvn", "hier", "blr"),
+                        default="mvn")
     parser.add_argument("--large", action="store_true",
                         help="also run the triangle kernel at n = 1e5 and 1e6")
-    parser.add_argument("--out", default="chiprun_out/profile.json")
+    parser.add_argument("--out", default=None)
     args = parser.parse_args()
+    if args.large and args.config != "mvn":
+        parser.error("--large runs with --config mvn only")
+    if args.out is None:
+        suffix = "" if args.config == "mvn" else f"_{args.config}"
+        args.out = f"chiprun_out/profile{suffix}.json"
 
     import torch
 
@@ -212,16 +266,16 @@ def main() -> int:
         print("chip_profile: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
     import svgdcpp_tpu_torch as st
-    from svgdcpp_tpu_torch.ops import cuda_phi
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card)
-    result = {"card": card, "torch": torch.__version__, "cuda": torch.version.cuda}
+    result = {"card": card, "config": args.config, "torch": torch.__version__,
+              "cuda": torch.version.cuda}
 
-    svgd = make_flagship(st, 10000, 20)
+    svgd, sweep_kernel = make_driver(st, args.config, 20)
     svgd.run()  # warm-up: builds the kernels and fills the allocator
     result["host_ms_per_step"] = host_ms_per_step(svgd, 200)
 
@@ -236,7 +290,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         trace = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(trace))
-        result.update(device_timeline(trace, steps, cuda_phi.SYM_KERNEL))
+        result.update(device_timeline(trace, steps, sweep_kernel))
     result["device_idle_share_of_step"] = (
         1.0 - result["device_busy_us_per_step"] / (1e3 * result["host_ms_per_step"])
     )

@@ -1,13 +1,15 @@
 """svgdcpp_tpu_torch: Stein Variational Gradient Descent in PyTorch + CUDA.
 
 The PyTorch port of ``svgdcpp_tpu`` for an NVIDIA Hopper GPU (H100). It
-keeps the JAX package's public surface, layout and names. This first slice
-covers the main path: MultivariateNormal models (and ``+ - * /`` /
+keeps the JAX package's public surface, layout and names. It covers the
+main path and the composed-kernel / BLR path: MultivariateNormal and
+(hierarchical) Bayesian logistic regression models (and ``+ - * /`` /
 ``mixture`` composition), Gaussian-RBF kernels with MEDIAN / HESSIAN /
-CONSTANT bandwidth, AdaGrad / Adam / RMSProp, and the SVGD class's dense,
-blocked, fused and fused_cuda routes. The fused_cuda route runs two
-hand-written CUDA kernels (``csrc/fused_phi.cu``), built with nvcc at their
-first launch.
+CONSTANT bandwidth and their ``+ - * /`` compositions (kernels/algebra.py),
+AdaGrad / Adam / RMSProp, and the SVGD class's dense, blocked, fused,
+fused_cuda, rbf_terms, fused_terms and fused_terms_cuda routes. The CUDA
+routes run four hand-written CUDA kernels (``csrc/``), built with nvcc at
+their first launch.
 
 The package imports torch and numpy only. Importing it builds nothing and
 changes none of torch's global settings.
@@ -21,6 +23,10 @@ from .core.exceptions import (
 from .core.types import ParticleStore, PrecisionPolicy, as_coords
 from .kernels.gaussian_rbf import GaussianRBFKernel, ScaleMethod
 from .kernels.kernel import Kernel
+from .models.bayesian_logistic_regression import (
+    BayesianLogisticRegression,
+    HierarchicalBayesianLogisticRegression,
+)
 from .models.model import Model, mixture
 from .models.multivariate_normal import MultivariateNormal
 from .optimizers.adagrad import AdaGrad
@@ -37,6 +43,8 @@ __all__ = [
     "Model",
     "mixture",
     "MultivariateNormal",
+    "BayesianLogisticRegression",
+    "HierarchicalBayesianLogisticRegression",
     "Kernel",
     "GaussianRBFKernel",
     "ScaleMethod",

@@ -1,0 +1,139 @@
+// Device helpers shared by the fused sweeps (fused_phi.cu,
+// fused_phi_terms.cu): the pair's squared distance in the plain version's
+// order, threshold counting, the exact count flush, the upper-triangle
+// tile decode, and the dispatch from a runtime dimension m to a kernel
+// instance.
+//
+// Kernel instances. A kernel is a template over <MM, kExact>: with kExact
+// the dimension is exactly MM (every loop over the coordinates is unrolled
+// with no guard); without it the dimension is a runtime m <= MM and every
+// coordinate k >= m is skipped by a guard that the unrolled loop folds into
+// predicates. Per-thread vectors are MM-long register arrays either way.
+// SVGD_DISPATCH_M picks the exact instance for m = 1..8, 11 and 50 (the
+// flagship, hierarchical-BLR and flat-BLR widths) and the runtime instance
+// with MM = 16, 32 or 64 for every other m up to 64.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <math.h>
+#include <stdint.h>
+
+namespace svgd {
+
+constexpr int kMaxT = 8;  // thresholds held in registers
+constexpr int kMaxM = 64;  // largest dimension any instance takes
+constexpr float kLog2e = 1.4426950408889634f;
+
+// The square sweeps: one thread per target row, kSqThreads rows a block,
+// sources staged through shared memory SqTile<MM>::value rows at a time
+// (shorter for wide m, so the coordinate and score tiles stay within 48 KB
+// of static shared memory).
+constexpr int kSqThreads = 128;
+
+template <int MM>
+struct SqTile {
+  static constexpr int value = MM <= 16 ? 256 : (MM <= 32 ? 128 : 64);
+};
+
+// sq = |xi - xj|^2 over the first m coordinates, summed from k = 0 up, each
+// product and sum rounded on its own (no FMA contraction): the plain torch
+// version's difference form, so the counts of both agree exactly.
+template <int MM, bool kExact>
+__device__ __forceinline__ float pair_sq(const float* xi, const float* xj,
+                                         int m) {
+  float sq = 0.0f;
+#pragma unroll
+  for (int k = 0; k < MM; ++k) {
+    if (kExact || k < m) {
+      const float d = __fsub_rn(xi[k], xj[k]);
+      sq = k == 0 ? __fmul_rn(d, d) : __fadd_rn(sq, __fmul_rn(d, d));
+    }
+  }
+  return sq;
+}
+
+__device__ __forceinline__ void count_pair(float sq, const float* th, int T,
+                                           unsigned int* cnt) {
+#pragma unroll
+  for (int t = 0; t < kMaxT; ++t) {
+    if (t < T) cnt[t] += (sq <= th[t]) ? 1u : 0u;
+  }
+}
+
+// Warp-reduce each thread's counts; lane 0 adds the warp's total with one
+// 64-bit integer atomic per threshold. Integer sums are exact and
+// independent of order, so the counts are deterministic. Every lane of the
+// warp must be present.
+__device__ __forceinline__ void flush_counts(const unsigned int* cnt, int T,
+                                             unsigned long long* counts) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int t = 0; t < kMaxT; ++t) {
+    if (t < T) {
+      unsigned int v = cnt[t];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        v += __shfl_down_sync(0xffffffffu, v, off);
+      }
+      if (lane == 0 && v != 0u) {
+        atomicAdd(counts + t, static_cast<unsigned long long>(v));
+      }
+    }
+  }
+}
+
+// Tile pair (bi <= bj) of the upper triangle from a linear block index t.
+// Row i of the triangle holds nb - i tiles; rows before i hold
+// off(i) = i*nb - i*(i-1)/2. Solve off(i) <= t < off(i+1) in double, then
+// correct the rounding with integer steps.
+__device__ __forceinline__ void decode_upper_pair(long long t, int nb, int* bi,
+                                                  int* bj) {
+  const double b = 2.0 * nb + 1.0;
+  long long i = static_cast<long long>(
+      floor((b - sqrt(b * b - 8.0 * static_cast<double>(t))) * 0.5));
+  if (i < 0) i = 0;
+  if (i > nb - 1) i = nb - 1;
+  auto off = [nb](long long r) { return r * nb - r * (r - 1) / 2; };
+  while (i > 0 && off(i) > t) --i;
+  while (i + 1 < nb && off(i + 1) <= t) ++i;
+  *bi = static_cast<int>(i);
+  *bj = static_cast<int>(i + (t - off(i)));
+}
+
+// Number of blocks of an upper-triangle launch over n particles in tiles of
+// `tile`, or -1 when it does not fit a one-dimensional grid.
+inline long long upper_pairs(int n, int tile) {
+  const long long nb = (n + tile - 1) / tile;
+  const long long pairs = nb * (nb + 1) / 2;
+  return pairs > 0x7fffffffLL ? -1 : pairs;
+}
+
+}  // namespace svgd
+
+// LAUNCH(MM, kExact) for the instance that serves dimension m; an m outside
+// 1..64 returns cudaErrorInvalidValue from the enclosing function.
+#define SVGD_DISPATCH_M(m, LAUNCH)                                      \
+  switch (m) {                                                          \
+    case 1: LAUNCH(1, true); break;                                     \
+    case 2: LAUNCH(2, true); break;                                     \
+    case 3: LAUNCH(3, true); break;                                     \
+    case 4: LAUNCH(4, true); break;                                     \
+    case 5: LAUNCH(5, true); break;                                     \
+    case 6: LAUNCH(6, true); break;                                     \
+    case 7: LAUNCH(7, true); break;                                     \
+    case 8: LAUNCH(8, true); break;                                     \
+    case 11: LAUNCH(11, true); break;                                   \
+    case 50: LAUNCH(50, true); break;                                   \
+    default:                                                            \
+      if (m >= 9 && m <= 16) {                                          \
+        LAUNCH(16, false);                                              \
+      } else if (m >= 17 && m <= 32) {                                  \
+        LAUNCH(32, false);                                              \
+      } else if (m >= 33 && m <= svgd::kMaxM) {                         \
+        LAUNCH(64, false);                                              \
+      } else {                                                          \
+        return static_cast<int>(cudaErrorInvalidValue);                 \
+      }                                                                 \
+  }

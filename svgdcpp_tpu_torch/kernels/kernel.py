@@ -15,8 +15,9 @@ API parity:
   * ``update_location``      <-> Kernel::UpdateLocation (Kernel.hpp:322-330)
   * ``evaluate_kernel``      <-> Kernel.hpp:279-282
   * ``evaluate_kernel_grad`` <-> Kernel.hpp:294-297 (Jacobian w.r.t. x)
-  * ``+ - * /`` composition  <-> Kernel.hpp:55-223 (constructs and
-    evaluates; the SVGD class's composed routes are not ported yet)
+  * ``+ - * /`` composition  <-> Kernel.hpp:55-223 (a tree of pure RBF
+    kernels runs the SVGD class's closed-form routes through
+    kernels/algebra.py)
   * ``step`` hook            <-> Kernel.hpp:356
 """
 
@@ -177,8 +178,8 @@ class Kernel:
         composed._composed_adaptive_slots = list(self.adaptive_slots()) + [
             (idx + n1, fn_) for idx, fn_ in other.adaptive_slots()
         ]
-        # Structural record for the algebraic dispatch that comes with the
-        # composed-kernel slice; n1 pins the parameter split.
+        # Structural record for the algebraic dispatch (kernels/algebra.py
+        # flatten_rbf_terms); n1 pins the parameter split.
         composed._compose_info = (op_name, self, other, n1)
         return composed
 

@@ -41,9 +41,15 @@ def _as_param_tuple(params) -> Tuple[torch.Tensor, ...]:
     return tuple(as_tensor(p) for p in params)
 
 
-def params_on(params, device) -> Tuple[torch.Tensor, ...]:
-    """The parameter tuple moved to ``device`` (dtype kept)."""
-    return tuple(p.to(device) for p in params)
+def params_on(params, device, dtype=None) -> Tuple[torch.Tensor, ...]:
+    """The parameter tuple moved to ``device``; with ``dtype``, floating
+    parameters are cast to it (integer ones keep theirs)."""
+    return tuple(
+        p.to(device=device, dtype=dtype)
+        if dtype is not None and p.is_floating_point()
+        else p.to(device)
+        for p in params
+    )
 
 
 class Model:

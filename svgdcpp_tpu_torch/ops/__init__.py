@@ -12,6 +12,14 @@ from .phi import (
     phi_rbf_blocked,
     phi_rbf_cross,
     phi_rbf_fused_counts,
+    phi_rbf_terms,
+    phi_rbf_terms_cross,
+    phi_rbf_terms_fused_counts,
     rbf_kernel_matrix,
 )
-from .cuda_phi import phi_rbf_fused_cuda, phi_rbf_fused_cuda_cross
+from .cuda_phi import (
+    phi_rbf_fused_cuda,
+    phi_rbf_fused_cuda_cross,
+    phi_rbf_terms_fused_cuda,
+    phi_rbf_terms_fused_cuda_cross,
+)

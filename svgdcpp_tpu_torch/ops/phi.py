@@ -10,6 +10,9 @@ loop SVGD.hpp:407-454):
                            phi = (K S - (K X - rowsum(K) X)(P+P^T)) / n.
   * ``phi_rbf_blocked`` -- the same, streamed over row tiles so the n x n
                            kernel matrix never exists whole.
+  * ``phi_rbf_terms``   -- a composed kernel flattened to signed RBF terms
+                           (kernels/algebra.py): the signed sum of each
+                           term's streamed phi.
   * ``phi_rbf_terms_cross_fused_counts`` and its wrappers -- ONE sweep
                            giving phi and the median-selection counts. This
                            is the plain version of the CUDA kernels in
@@ -144,6 +147,60 @@ def phi_rbf_blocked(
 ) -> torch.Tensor:
     """Tile-streamed single-set RBF phi (see phi_rbf_cross)."""
     return phi_rbf_cross(coords, coords, scores, p_matrix, row_tile, psd=psd)
+
+
+# ----------------------------------------------------------------------
+# Composed kernels: signed sum of closed-form RBF terms
+# ----------------------------------------------------------------------
+
+
+def phi_rbf_terms_cross(
+    targets: torch.Tensor,
+    sources: torch.Tensor,
+    source_scores: torch.Tensor,
+    kernel_params,
+    terms,
+    row_tile: int = 1024,
+    psd_flags=None,
+) -> torch.Tensor:
+    """phi for a composed kernel flattened to signed RBF terms
+    (kernels/algebra.flatten_rbf_terms): phi is linear in k, so it is the
+    signed sum of each term's closed-form RBF phi, with the term's
+    effective P. ``psd_flags`` (kernels/algebra.term_psd_flags) controls
+    each term's clamp of the quadratic form at zero; without it the
+    positional term_is_psd rule is used."""
+    from ..kernels.algebra import term_is_psd, term_precision
+
+    if psd_flags is None:
+        psd_flags = [term_is_psd(t) for t in terms]
+    elif len(psd_flags) != len(terms):
+        raise ValueError(
+            f"psd_flags has {len(psd_flags)} entries for {len(terms)} terms"
+        )
+    phi = None
+    for (sign, plist), t_psd in zip(terms, psd_flags):
+        p = term_precision(plist, kernel_params)
+        t_phi = phi_rbf_cross(
+            targets, sources, source_scores, p, row_tile, psd=t_psd
+        )
+        t_phi = t_phi if sign > 0 else -t_phi
+        phi = t_phi if phi is None else phi + t_phi
+    return phi
+
+
+def phi_rbf_terms(
+    coords: torch.Tensor,
+    scores: torch.Tensor,
+    kernel_params,
+    terms,
+    row_tile: int = 1024,
+    psd_flags=None,
+) -> torch.Tensor:
+    """Single-set composed-RBF phi (see phi_rbf_terms_cross)."""
+    return phi_rbf_terms_cross(
+        coords, coords, scores, kernel_params, terms, row_tile,
+        psd_flags=psd_flags,
+    )
 
 
 # ----------------------------------------------------------------------

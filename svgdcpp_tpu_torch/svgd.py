@@ -18,11 +18,17 @@ Routes (``SVGDOptions.phi_impl``):
                       (``ops/cuda_phi.py``); the counterpart of the JAX
                       package's ``fused_pallas``. On CPU tensors its
                       wrappers run the plain sweep.
-  * ``auto``       -- on a CUDA device: ``fused_cuda`` for a MEDIAN RBF
-                      kernel above CUDA_FUSED_MIN_PARTICLES, else ``dense``
-                      up to DENSE_PHI_MAX_PARTICLES and ``blocked`` above.
-                      On the CPU: the JAX package's non-TPU rule (``fused``
-                      above DENSE_PHI_MAX_PARTICLES).
+  * ``rbf_terms``  -- a `+ - * /` composition of pure RBF kernels
+                      (kernels/algebra.py): the signed sum of each term's
+                      streamed closed-form phi.
+  * ``fused_terms`` / ``fused_terms_cuda`` -- the fused lag-1 sweep for a
+                      composition whose adaptive slots are all median-scaled
+                      and whose constant slots are isotropic: the plain
+                      sweep, and the CUDA terms kernels (the counterpart of
+                      ``fused_terms_pallas``).
+  * ``auto``       -- the JAX package's rule. On a CUDA device its TPU rule,
+                      with CUDA_FUSED_MIN_PARTICLES and the CUDA routes in
+                      place of the TPU ones; on the CPU its non-TPU rule.
 
 The other routes of the JAX package, ``SVGDOptions.mesh`` and intermediate
 matrix logging raise NotImplementedError naming the ROADMAP.md item that
@@ -38,25 +44,49 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
-import numpy as np
 import torch
 from torch.func import vmap
 
 from .core.exceptions import DimensionMismatchError, SVGD_LOG_PREFIX
 from .core.types import ParticleStore, as_store, as_tensor
+from .kernels.algebra import (
+    flatten_rbf_terms,
+    fused_aniso_terms_supported,
+    fused_terms_eligible,
+    fused_terms_statically_positive,
+    matrix_is_psd,
+    refill_median_slots,
+    split_iso_aniso_terms,
+    term_psd_flags,
+)
 from .kernels.gaussian_rbf import GaussianRBFKernel, rbf_kernel_fn
 from .kernels.kernel import Kernel, _as_param_tuple
 from .models.model import Model, params_on
-from .ops.cuda_phi import MAX_M, phi_rbf_fused_cuda
-from .ops.median import fused_lag1_plan, fused_median_from_counts
-from .ops.phi import phi_rbf, phi_rbf_blocked, phi_rbf_fused_counts
+from .ops.cuda_phi import (
+    SYM_MIN_N,
+    check_dimension,
+    phi_rbf_fused_cuda,
+    phi_rbf_terms_fused_cuda,
+)
+from .ops.median import (
+    fused_lag1_plan,
+    fused_median_from_counts,
+    fused_median_seed,
+)
+from .ops.phi import (
+    phi_rbf,
+    phi_rbf_blocked,
+    phi_rbf_fused_counts,
+    phi_rbf_terms,
+    phi_rbf_terms_fused_counts,
+)
 from .optimizers.base import Optimizer
 
 #: Above this particle count the dense n x n phi switches to the
 #: tile-streamed implementation (the JAX package's rule).
 DENSE_PHI_MAX_PARTICLES = 1024
 
-#: On a CUDA device, auto takes the fused kernel route above this particle
+#: On a CUDA device, auto takes the fused kernel routes above this particle
 #: count. Set to the JAX package's TPU rule (TPU_FUSED_MIN_PARTICLES) as a
 #: starting point; the crossover on the card is not measured yet.
 CUDA_FUSED_MIN_PARTICLES = 256
@@ -64,15 +94,24 @@ CUDA_FUSED_MIN_PARTICLES = 256
 #: Routes of the JAX package that this package does not have yet, with the
 #: ROADMAP.md item that ports each.
 _UNPORTED_ROUTES = {
-    "generic": "slice 2, item 9 (composed kernels: the generic route)",
-    "rbf_terms": "slice 2, item 9 (composed kernels: the rbf_terms route)",
-    "fused_terms": "slice 2, item 9 (composed kernels: fused_terms)",
-    "fused_terms_pallas": "slice 2, item 9 and kernels K6-K13",
+    "generic": "item 9a (the generic route and phi_generic)",
     "fused_aniso_terms_pallas": "slice 3, item 10 and kernel K14",
-    "pallas": "the opt-in kernel K15 (after slice 1)",
+    "pallas": "the opt-in kernel K15",
 }
 
-_ROUTES = ("dense", "blocked", "fused", "fused_cuda")
+#: Routes of the JAX package whose CUDA counterpart has another name.
+_CUDA_NAMES = {
+    "fused_pallas": "fused_cuda",
+    "fused_terms_pallas": "fused_terms_cuda",
+}
+
+_ROUTES = (
+    "dense", "blocked", "fused", "fused_cuda", "rbf_terms", "fused_terms",
+    "fused_terms_cuda",
+)
+_SINGLE_RBF_ROUTES = ("dense", "blocked", "fused", "fused_cuda")
+_TERMS_ROUTES = ("rbf_terms", "fused_terms", "fused_terms_cuda")
+_FUSED_ROUTES = ("fused", "fused_cuda", "fused_terms", "fused_terms_cuda")
 
 
 def _not_ported(what: str, where: str) -> NotImplementedError:
@@ -101,7 +140,7 @@ class SVGDOptions:
     parallel: bool = True  # accepted for parity; the sweeps are data parallel
     log_intermediate_matrices: bool = False
     # --- extensions shared with svgdcpp_tpu ---
-    phi_impl: str = "auto"  # 'auto' | 'dense' | 'blocked' | 'fused' | 'fused_cuda'
+    phi_impl: str = "auto"  # 'auto' or one of the routes above
     row_tile: int = 1024
     mesh: Any = None  # multi-device sharding: not ported yet
     #: Annealed SVGD: per-iteration temperature tau scaling the scores. A
@@ -134,15 +173,6 @@ def _prepare_bound(bound, dimension, name) -> Optional[torch.Tensor]:
             f"The provided {name} bounds have incorrect dimensions."
         )
     return b
-
-
-def _matrix_is_psd(p, tol: float = -1e-12) -> bool:
-    """PSD check on the symmetric part (the quadratic form only sees it),
-    the JAX package's algebra.matrix_is_psd rule."""
-    p = np.asarray(as_tensor(p).detach().cpu(), dtype=np.float64)
-    if p.ndim != 2 or p.shape[0] != p.shape[1]:
-        return False
-    return bool(np.linalg.eigvalsh(0.5 * (p + p.T)).min() >= tol)
 
 
 class SVGD:
@@ -256,72 +286,157 @@ class SVGD:
         if self.log_intermediate_matrices:
             raise _not_ported(
                 "log_intermediate_matrices=True",
-                "slice 2, item 9 (it needs the generic route's K and grad-K"
-                " stacks)",
+                "item 9a (it needs the generic route's K and grad-K stacks)",
             )
         self._is_rbf = (
             isinstance(self.kernel, GaussianRBFKernel)
             and self.kernel._kernel_fn is rbf_kernel_fn
         )
         # (slot_index, owning kernel) pairs whose inverse-scale parameter is
-        # recomputed every step.
+        # recomputed every step (a composed kernel's RBF slots included).
         self._adaptive_slots = self.kernel.adaptive_slots()
+        # Algebraic flattening of `+ - * /` trees of pure RBF kernels
+        # (kernels/algebra.py): closed-form phi instead of the generic VJP.
+        self._rbf_terms = (
+            None if self._is_rbf else flatten_rbf_terms(self.kernel)
+        )
         self._refresh_psd()
+        on_cuda = self.store.value.device.type == "cuda"
         impl = opts.phi_impl
+        if impl == "auto":
+            impl = self._auto_impl(on_cuda)
         if impl in _UNPORTED_ROUTES:
             raise _not_ported(f"phi_impl={impl!r}", _UNPORTED_ROUTES[impl])
-        is_median = (
-            getattr(self.kernel, "scale_method", None)
-            == GaussianRBFKernel.ScaleMethod.MEDIAN
-        )
-        if impl == "auto":
-            if not self._is_rbf:
-                raise _not_ported(
-                    "phi_impl='auto' for a composed or custom kernel "
-                    "(the rbf_terms, fused_terms and generic routes)",
-                    "slice 2, item 9",
-                )
-            on_cuda = self.store.value.device.type == "cuda"
-            fused_threshold = (
-                CUDA_FUSED_MIN_PARTICLES if on_cuda else DENSE_PHI_MAX_PARTICLES
-            )
-            if is_median and self.num_particles > fused_threshold:
-                if on_cuda and self.dimension > MAX_M:
-                    raise _not_ported(
-                        f"the fused CUDA sweep at m={self.dimension} > {MAX_M}",
-                        "slice 2, item 9 (the Gram / tensor-core sq form for m > 8)",
-                    )
-                impl = "fused_cuda" if on_cuda else "fused"
-            elif self.num_particles <= DENSE_PHI_MAX_PARTICLES:
-                impl = "dense"
-            else:
-                impl = "blocked"
         if impl not in _ROUTES:
             hint = (
-                " (its CUDA counterpart is 'fused_cuda')"
-                if impl == "fused_pallas" else ""
+                f" (its CUDA counterpart is {_CUDA_NAMES[impl]!r})"
+                if impl in _CUDA_NAMES else ""
             )
             raise ValueError(f"unknown phi_impl {impl!r}{hint}")
-        if not self._is_rbf:
+        if impl in _SINGLE_RBF_ROUTES and not self._is_rbf:
             raise ValueError(
                 f"phi_impl={impl!r} requires an uncomposed GaussianRBFKernel."
             )
-        if impl in ("fused", "fused_cuda") and not is_median:
+        if impl in _TERMS_ROUTES and self._rbf_terms is None:
+            raise ValueError(
+                f"phi_impl={impl!r} requires a `+ - * /` composition of "
+                "pure GaussianRBFKernels (see kernels/algebra.py)."
+            )
+        params = self.kernel.parameters
+        if impl in ("fused_terms", "fused_terms_cuda"):
+            if not fused_terms_eligible(
+                self._rbf_terms, self._adaptive_slots, params
+            ):
+                raise ValueError(
+                    f"phi_impl={impl!r} requires every adaptive slot to "
+                    "be median-scaled and every constant slot isotropic "
+                    "(gamma * I); use 'rbf_terms' for the general case."
+                )
+            if impl == "fused_terms_cuda" and not (
+                fused_terms_statically_positive(
+                    self._rbf_terms, self._adaptive_slots, params
+                )
+            ):
+                raise ValueError(
+                    "phi_impl='fused_terms_cuda' requires every effective "
+                    "term gamma to be provably positive (no division terms, "
+                    "positive constant scales); use 'fused_terms'."
+                )
+        if impl in ("fused", "fused_cuda") and (
+            getattr(self.kernel, "scale_method", None)
+            != GaussianRBFKernel.ScaleMethod.MEDIAN
+        ):
             raise ValueError(
                 "phi_impl='fused' requires ScaleMethod.MEDIAN (the fused "
                 "sweep produces median-selection counts)."
             )
-        if impl == "fused_cuda" and opts.fused_dot_dtype != "float32":
-            raise _not_ported(
-                f"fused_dot_dtype={opts.fused_dot_dtype!r}",
-                "item 15 (the bfloat16 operand opt-in)",
-            )
+        if impl in ("fused_cuda", "fused_terms_cuda"):
+            if opts.fused_dot_dtype != "float32":
+                raise _not_ported(
+                    f"fused_dot_dtype={opts.fused_dot_dtype!r}",
+                    "item 15 (the bfloat16 operand opt-in)",
+                )
+            if on_cuda:
+                check_dimension(self.dimension)
         self._phi_impl = impl
 
+    def _auto_impl(self, on_cuda: bool) -> str:
+        """phi_impl='auto': the JAX package's rule, its TPU branch on a CUDA
+        device (CUDA_FUSED_MIN_PARTICLES and the CUDA routes in place of
+        TPU_FUSED_MIN_PARTICLES and the Mosaic ones), its non-TPU branch on
+        the CPU."""
+        fused_threshold = (
+            CUDA_FUSED_MIN_PARTICLES if on_cuda else DENSE_PHI_MAX_PARTICLES
+        )
+        n = self.num_particles
+        if self._rbf_terms is not None:
+            params = self.kernel.parameters
+            eligible = fused_terms_eligible(
+                self._rbf_terms, self._adaptive_slots, params
+            )
+            # The kernel route needs every effective gamma provably positive
+            # (as the Mosaic one does); an eligible composition that is not
+            # (division terms) goes to the plain sweep, and keeps the exact
+            # same-step median of 'rbf_terms' up to the non-kernel
+            # threshold.
+            kernel_route = (
+                eligible
+                and on_cuda
+                and fused_terms_statically_positive(
+                    self._rbf_terms, self._adaptive_slots, params
+                )
+            )
+            threshold = fused_threshold if kernel_route else DENSE_PHI_MAX_PARTICLES
+            if n > threshold and eligible:
+                return "fused_terms_cuda" if kernel_route else "fused_terms"
+            if on_cuda and self._aniso_terms_kernel_route():
+                raise _not_ported(
+                    "phi_impl='auto' for an anisotropic composed kernel at "
+                    f"n={n} (the JAX package's fused_aniso_terms_pallas "
+                    "route)",
+                    _UNPORTED_ROUTES["fused_aniso_terms_pallas"],
+                )
+            return "rbf_terms"
+        if not self._is_rbf:
+            raise _not_ported(
+                "phi_impl='auto' for a custom kernel (the generic route)",
+                _UNPORTED_ROUTES["generic"],
+            )
+        if (
+            self.kernel.scale_method == GaussianRBFKernel.ScaleMethod.MEDIAN
+            and n > fused_threshold
+        ):
+            return "fused_cuda" if on_cuda else "fused"
+        return "dense" if n <= DENSE_PHI_MAX_PARTICLES else "blocked"
+
+    def _aniso_terms_kernel_route(self) -> bool:
+        """Whether the JAX package's TPU rule would take the anisotropic
+        fused sweep (``_aniso_terms_auto_ok``): a supported composition
+        with at least one anisotropic term and at most 8 gradient
+        accumulators, from SYM_MIN_N particles up. Its VMEM budget has no
+        counterpart on the card and is left out."""
+        params = self.kernel.parameters
+        if not fused_aniso_terms_supported(
+            self._rbf_terms, self._adaptive_slots, params
+        ):
+            return False
+        iso_idx, aniso_idx = split_iso_aniso_terms(
+            self._rbf_terms, self._adaptive_slots, params
+        )
+        n_w = (1 if iso_idx else 0) + len(aniso_idx)
+        return bool(aniso_idx) and n_w <= 8 and self.num_particles >= SYM_MIN_N
+
     def _refresh_psd(self):
-        """Whether the RBF quadratic form may be clamped at zero: MEDIAN
-        scales are PSD by construction, HESSIAN scales may be indefinite,
-        constant matrices are eigenvalue-checked (re-run on hot-swap)."""
+        """PSD-ness of the quadratic forms the closed-form routes clamp:
+        MEDIAN scales are PSD by construction, HESSIAN scales may be
+        indefinite, constant matrices are eigenvalue-checked on their
+        current values (re-run on hot-swap); a composed kernel gets one flag
+        per term (kernels/algebra.term_psd_flags)."""
+        self._term_psd = (
+            None if self._rbf_terms is None else term_psd_flags(
+                self._rbf_terms, self._adaptive_slots, self.kernel.parameters
+            )
+        )
         if not self._is_rbf:
             self._rbf_psd = True
             return
@@ -331,7 +446,7 @@ class SVGD:
         elif method == GaussianRBFKernel.ScaleMethod.HESSIAN:
             self._rbf_psd = False
         else:
-            self._rbf_psd = _matrix_is_psd(self.kernel.parameters[0])
+            self._rbf_psd = matrix_is_psd(self.kernel.parameters[0])
 
     # Hooks: a user-overridden per-step hook runs before each step, in the
     # reference's hook-then-phi order (SVGD.hpp:373-400).
@@ -365,6 +480,11 @@ class SVGD:
     # Pure step construction
     # ------------------------------------------------------------------
     def _phi(self, coords, scores, kparams):
+        if self._phi_impl == "rbf_terms":
+            return phi_rbf_terms(
+                coords, scores, kparams, self._rbf_terms,
+                self.options.row_tile, psd_flags=self._term_psd,
+            )
         if self._phi_impl == "dense":
             return phi_rbf(coords, scores, kparams[0], psd=self._rbf_psd)
         if self._phi_impl == "blocked":
@@ -415,9 +535,14 @@ class SVGD:
             None if b is None else b.to(dtype=coords0.dtype, device=coords0.device)
             for b in (self.lower_bound, self.upper_bound)
         ]
-        fused = self._phi_impl in ("fused", "fused_cuda")
-        fused_cuda = self._phi_impl == "fused_cuda"
+        fused = self._phi_impl in _FUSED_ROUTES
+        fused_terms = self._phi_impl in ("fused_terms", "fused_terms_cuda")
+        on_kernels = self._phi_impl in ("fused_cuda", "fused_terms_cuda")
         fused_bins = int(self.options.fused_bins)
+        if fused_terms:
+            median_slot_idx = [idx for idx, _ in self._adaptive_slots]
+            term_signs = [s for s, _ in self._rbf_terms]
+            term_plists = [p for _, p in self._rbf_terms]
         row_tile = self.options.row_tile
         track_stats = self.options.track_stats
 
@@ -442,10 +567,30 @@ class SVGD:
                 fdt = aux["med"].dtype
                 gamma, sel = fused_lag1_plan(aux, n, fused_bins, coords.dtype)
                 thresholds = sel["edges"]
-                kparams = (
-                    gamma * torch.eye(m, dtype=coords.dtype, device=coords.device),
-                )
-                if fused_cuda:
+                if fused_terms:
+                    # Refill every (median) adaptive slot with the lag-1
+                    # scale; constant slots keep their state values
+                    # (isotropy checked at initialize and on hot-swap).
+                    kparams, gammas = refill_median_slots(
+                        state["kernel_params"], median_slot_idx, gamma, m,
+                        coords.dtype, term_plists,
+                    )
+                else:
+                    kparams = (
+                        gamma
+                        * torch.eye(m, dtype=coords.dtype, device=coords.device),
+                    )
+                if fused_terms and on_kernels:
+                    phi, counts = phi_rbf_terms_fused_cuda(
+                        coords, scores, gammas, term_signs, thresholds,
+                        sym=self.options.fused_sym,
+                    )
+                elif fused_terms:
+                    phi, counts = phi_rbf_terms_fused_counts(
+                        coords, scores, gammas, term_signs, thresholds,
+                        row_tile,
+                    )
+                elif on_kernels:
                     phi, counts = phi_rbf_fused_cuda(
                         coords, scores, gamma, thresholds,
                         sym=self.options.fused_sym,
@@ -543,11 +688,18 @@ class SVGD:
                 as_tensor(p).to(dtype=coords.dtype, device=coords.device)
                 for p in self.kernel.parameters
             ),
-            "model_params": params_on(self.model.parameters, coords.device),
+            # Model params follow the coords' device and floating dtype: a
+            # float64 data matrix against float32 coords would otherwise
+            # promote the scores to float64.
+            "model_params": params_on(
+                self.model.parameters, coords.device, coords.dtype
+            ),
             # Foreign-model params per adaptive slot, read FRESH so a
             # hot-swap on a kernel's private target model is honored.
             "slot_model_params": tuple(
-                params_on(owner.target_model.parameters, coords.device)
+                params_on(
+                    owner.target_model.parameters, coords.device, coords.dtype
+                )
                 if getattr(owner, "target_model", None) is not None
                 and owner.target_model is not self.model
                 else None
@@ -566,6 +718,11 @@ class SVGD:
             # {med, lo, hi, disp}: the INITIAL positions' median seeds the
             # lag-1 fused pipeline.
             return (self.kernel.init_fused_aux(coords),)
+        if self._phi_impl in ("fused_terms", "fused_terms_cuda"):
+            # Composed kernel: the same seed, computed at the root with the
+            # first adaptive leaf's median_method.
+            method = self._adaptive_slots[0][1].median_method
+            return (fused_median_seed(coords, method),)
         return tuple(
             owner.init_scale_aux(coords)
             if hasattr(owner, "init_scale_aux")
@@ -635,12 +792,41 @@ class SVGD:
     # Parameter hot-swap (reference SVGD.hpp:304-332)
     # ------------------------------------------------------------------
     def update_kernel_parameters(self, params):
-        self.kernel.update_parameters(_as_param_tuple(params))
+        if not getattr(self, "_initialized", False):
+            # Before initialize() there are no route flags yet; initialize()
+            # derives them from the new values.
+            self.kernel.update_parameters(_as_param_tuple(params))
+            self.kernel.initialize()
+            return
+        # Validate against the PROSPECTIVE values before mutating the
+        # kernel: a rejected swap leaves the running driver untouched.
+        new_params = _as_param_tuple(params)
+        if self._phi_impl in ("fused_terms", "fused_terms_cuda"):
+            # The fused-terms sweep reads each constant slot as gamma =
+            # P[0, 0]; an anisotropic swap would be silently truncated.
+            if not fused_terms_eligible(
+                self._rbf_terms, self._adaptive_slots, new_params
+            ):
+                raise ValueError(
+                    "phi_impl='fused_terms' requires isotropic constant "
+                    "slots; the swapped parameters are anisotropic. Rebuild "
+                    "with phi_impl='rbf_terms' for anisotropic compositions."
+                )
+            if self._phi_impl == "fused_terms_cuda" and not (
+                fused_terms_statically_positive(
+                    self._rbf_terms, self._adaptive_slots, new_params
+                )
+            ):
+                raise ValueError(
+                    "phi_impl='fused_terms_cuda' requires every constant "
+                    "slot gamma to stay positive; the swapped parameters "
+                    "violate that. Rebuild with phi_impl='fused_terms'."
+                )
+        self.kernel.update_parameters(new_params)
         self.kernel.initialize()
-        if getattr(self, "_initialized", False):
-            # The step reads the PSD flag when it runs; before initialize()
-            # there is none yet, and initialize() derives it.
-            self._refresh_psd()
+        # The step reads the PSD flags when it runs, so re-deriving them is
+        # enough (the JAX package rebuilds its compiled step instead).
+        self._refresh_psd()
 
     def update_model_parameters(self, params):
         self.model.update_parameters(params)

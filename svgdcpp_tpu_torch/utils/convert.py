@@ -9,7 +9,9 @@ package from the same state and the results compared.
 
 Floating leaves take ``dtype``, except ``scale_aux`` (the median selection
 state), which stays float64 as in ops/median.SELECT_DTYPE. Integer leaves
-(Adam's step count) keep their integer type.
+(Adam's step count) keep their integer type. Tuples keep their length and
+order, so a composed kernel's flat parameter tuple and a BLR model's
+(features, labels, ...) carry across slot for slot.
 """
 
 from __future__ import annotations

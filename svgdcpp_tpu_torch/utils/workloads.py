@@ -2,8 +2,10 @@
 
 The flagship MVN configuration (the reference mvn_example target,
 examples/multivariate_normal/mvn_example.cpp:9-35), with the same constants
-and the same seeded x0 as ``svgdcpp_tpu.utils.workloads``. It is repeated
-here because importing the JAX package would import ``jax``.
+and the same seeded x0 as ``svgdcpp_tpu.utils.workloads``, and the BLR
+workloads of ``bench.py --config blr|hier`` (BASELINE configs 3-4) with the
+bench's data, x0 and constants. They are repeated here because importing
+the JAX package or the bench would import ``jax``.
 """
 
 from __future__ import annotations
@@ -13,9 +15,72 @@ import numpy as np
 MVN_MEAN = np.array([-0.6871, 0.8010])
 MVN_COV = 5.0 * np.array([[0.2260, 0.1652], [0.1652, 0.6779]])
 
+#: The bench's BLR constants (bench.py:383-412): flat BLR's prior precision
+#: (not the model's default of 0.01), Adam's learning rate and decays, and
+#: the hierarchical config's constant kernel term 0.1 * I.
+BLR_PRIOR_PRECISION = 0.1
+BLR_ADAM = {"lr": 5e-2, "beta1": 0.9, "beta2": 0.999}
+HIER_CONSTANT_SCALE = 0.1
+
 
 def flagship_mvn(num_particles: int, seed: int = 0, dtype=np.float64):
     """(mean, cov, x0) for the flagship workload; x0 ~ 3 * U(-1, 1)."""
     rng = np.random.default_rng(seed)
     x0 = 3.0 * rng.uniform(-1.0, 1.0, (num_particles, 2))
     return MVN_MEAN.astype(dtype), MVN_COV.astype(dtype), x0.astype(dtype)
+
+
+def blr_workload(particles: int, dim: int, n_data: int = 1024,
+                 hierarchical: bool = False, seed: int = 0):
+    """(features, labels, x0) as numpy arrays, equal to
+    ``bench.make_blr_workload``: the synthetic data is drawn first, then x0
+    ~ N(0, 1) of shape (particles, dim + 1 if hierarchical else dim), cast
+    to float32 as the bench does. features and labels are float64."""
+    from ..models.bayesian_logistic_regression import (
+        make_synthetic_classification,
+    )
+
+    rng = np.random.default_rng(seed)
+    features, labels, _ = make_synthetic_classification(
+        rng, n_data=n_data, dim=dim
+    )
+    full_dim = dim + 1 if hierarchical else dim
+    x0 = rng.normal(size=(particles, full_dim)).astype(np.float32)
+    return features.numpy(), labels.numpy(), x0
+
+
+def build_blr_svgd(x0, features, labels, hierarchical=False,
+                   phi_impl="auto", num_iterations=100):
+    """The bench's BLR / hierarchical-BLR driver (bench.py:383-412), built
+    on this package and initialized: flat BLR with prior precision 0.1 and
+    a median RBF kernel, or hierarchical BLR with the composed kernel
+    median RBF + 0.1 * I; Adam in both. ``x0`` may be a tensor (its device
+    and dtype are kept) or an array."""
+    import svgdcpp_tpu_torch as st
+
+    particles, full_dim = x0.shape
+    if hierarchical:
+        model = st.HierarchicalBayesianLogisticRegression(features, labels)
+    else:
+        model = st.BayesianLogisticRegression(
+            features, labels, BLR_PRIOR_PRECISION
+        )
+    kernel = st.GaussianRBFKernel(x0, st.ScaleMethod.MEDIAN, model)
+    if hierarchical:
+        kernel = kernel + st.GaussianRBFKernel(
+            x0, st.ScaleMethod.CONSTANT,
+            constant_scale=HIER_CONSTANT_SCALE
+            * np.eye(full_dim, dtype=np.float32),
+        )
+    svgd = st.SVGD(
+        st.SVGDOptions(
+            dimension=full_dim, num_iterations=num_iterations,
+            coordinate_matrix=x0, kernel=kernel, model=model,
+            optimizer=st.Adam(
+                full_dim, particles, BLR_ADAM["lr"], BLR_ADAM["beta1"],
+                BLR_ADAM["beta2"],
+            ),
+            phi_impl=phi_impl,
+        )
+    )
+    return svgd.initialize()

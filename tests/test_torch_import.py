@@ -56,10 +56,10 @@ def test_missing_nvcc_raises_with_the_command(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(cuda_build, "find_nvcc", lambda: None)
     with pytest.raises(RuntimeError, match="nvcc") as err:
-        cuda_build.build_library(
-            "svgd_fused_phi", [cuda_build.CSRC_DIR / "fused_phi.cu"]
-        )
+        cuda_build.build_library(cuda_phi.LIBRARY, cuda_phi.SOURCES)
     assert "arch=compute_90a,code=sm_90a" in str(err.value)
+    for src in cuda_phi.SOURCES:  # one compile command per source
+        assert str(src) in str(err.value)
     assert not list((tmp_path / "build").glob("*.so"))
 
 
@@ -70,6 +70,10 @@ def test_non_cpu_tensor_never_falls_back_to_the_plain_version():
         cuda_phi.phi_rbf_fused_cuda(x, x, 0.5, thr)
     with pytest.raises(ValueError, match="CUDA device"):
         cuda_phi.phi_rbf_fused_cuda_cross(x, x, x, 0.5, thr)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_phi.phi_rbf_terms_fused_cuda(x, x, [0.5, 0.1], (1, 1), thr)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_phi.phi_rbf_terms_fused_cuda_cross(x, x, x, [0.5], (1,), thr)
     assert not cuda_phi.library_loaded()
 
 

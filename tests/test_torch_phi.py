@@ -4,6 +4,8 @@
   multi-term phi_rbf_terms_fused_counts and the cross forms) against the
   JAX package's XLA twins in float64: rtol 1e-10 (the same arithmetic,
   summed in another order), counts exactly equal.
+* phi_rbf_terms (the composed-kernel rbf_terms route) against the JAX
+  package's in float64, with and without PSD flags: rtol 1e-10.
 * The CUDA kernels' wrappers on CPU tensors (which run the plain version)
   against the Pallas kernels in interpret mode, float32, at a ragged n=300
   off origin (+50): phi rtol 2e-4, atol 2e-5 (the tolerance the JAX
@@ -11,6 +13,11 @@
   both sides build sq from differences, and within n at m > 4, where the
   Pallas kernel uses a bf16x3-split Gram identity and the plain version a
   float32 one.
+* The composed-kernel wrappers on CPU tensors against
+  phi_rbf_terms_fused_pallas(_cross) in interpret mode, float32: (n=700,
+  m=3, signs (1, -1)) square, (n=600, m=11) triangle and a cross case:
+  phi rtol 2e-4, atol 2e-6 (tests/test_pallas.py's bound for that kernel);
+  counts as above.
 """
 
 import jax.numpy as jnp
@@ -111,10 +118,51 @@ def test_phi_rbf_terms_fused_counts_f64(m):
     np.testing.assert_array_equal(got_cnt.numpy(), np.asarray(want_cnt).astype(np.int64))
 
 
-def _check_kernel_pair(got, want, n, m):
+@pytest.mark.parametrize("m", [2, 6])
+def test_phi_rbf_terms_f64(m):
+    """Three terms (sum, difference, a product's summed precision) with
+    anisotropic constant slots, single-set and cross, PSD flags given and
+    defaulted."""
+    x, s = inputs(140, m, offset=2.0, seed=10 + m)
+    rng = np.random.default_rng(20 + m)
+    params = []
+    for scale in (0.3, 0.1, 0.05):
+        a = rng.normal(size=(m, m))
+        params.append(scale * (a @ a.T / m + np.eye(m)))
+    terms = [(1, ((0, 1),)), (-1, ((1, 1),)), (1, ((0, 1), (2, 1)))]
+    flags = [True, True, False]
+    for psd_flags in (None, flags):
+        want = phj.phi_rbf_terms(
+            jnp.asarray(x), jnp.asarray(s), [jnp.asarray(p) for p in params],
+            terms, 64, psd_flags=psd_flags,
+        )
+        got = pht.phi_rbf_terms(
+            torch.from_numpy(x), torch.from_numpy(s),
+            [torch.from_numpy(p) for p in params], terms, 64,
+            psd_flags=psd_flags,
+        )
+        assert_close(got, want, 1e-10)
+    xt = x[:40] + 0.25
+    want = phj.phi_rbf_terms_cross(
+        jnp.asarray(xt), jnp.asarray(x), jnp.asarray(s),
+        [jnp.asarray(p) for p in params], terms, 32,
+    )
+    got = pht.phi_rbf_terms_cross(
+        torch.from_numpy(xt), torch.from_numpy(x), torch.from_numpy(s),
+        [torch.from_numpy(p) for p in params], terms, 32,
+    )
+    assert_close(got, want, 1e-10)
+    with pytest.raises(ValueError, match="psd_flags"):
+        pht.phi_rbf_terms(
+            torch.from_numpy(x), torch.from_numpy(s),
+            [torch.from_numpy(p) for p in params], terms, psd_flags=[True],
+        )
+
+
+def _check_kernel_pair(got, want, n, m, atol=2e-5):
     phi_t, cnt_t = got
     phi_j, cnt_j = want
-    assert_close(phi_t, phi_j, rtol=2e-4, atol=2e-5)
+    assert_close(phi_t, phi_j, rtol=2e-4, atol=atol)
     cnt_t = cnt_t.numpy()
     cnt_j = np.asarray(cnt_j).astype(np.int64)
     if m <= 4:
@@ -158,6 +206,53 @@ def test_fused_cuda_cross_on_cpu_vs_pallas_interpret():
     _check_kernel_pair(got, want, 300, 2)
 
 
+@pytest.mark.parametrize("n,m,signs,sym", [
+    (700, 3, (1, -1), False),
+    (600, 11, (1, 1), True),
+])
+def test_terms_cuda_wrapper_on_cpu_vs_pallas_interpret(n, m, signs, sym):
+    x, s = inputs(n, m, offset=2.0, seed=30 + m, dtype=np.float32)
+    gammas = [np.float32(0.6 / m), np.float32(0.08)]
+    thr = np.linspace(0.5, 8.0 * m, 4).astype(np.float32)
+    want = pj.phi_rbf_terms_fused_pallas(
+        jnp.asarray(x), jnp.asarray(s), [jnp.float32(g) for g in gammas],
+        list(signs), jnp.asarray(thr), interpret=True, sym=sym,
+    )
+    got = cuda_phi.phi_rbf_terms_fused_cuda(
+        torch.from_numpy(x), torch.from_numpy(s),
+        [torch.tensor(g) for g in gammas], signs, torch.from_numpy(thr),
+        sym=sym,
+    )
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int64
+    _check_kernel_pair(got, want, n, m, atol=2e-6)
+
+
+def test_terms_cuda_cross_on_cpu_vs_pallas_interpret():
+    xs, s = inputs(500, 11, offset=1.0, seed=40, dtype=np.float32)
+    xt, _ = inputs(130, 11, offset=1.2, seed=41, dtype=np.float32)
+    gammas = [np.float32(0.05), np.float32(0.1)]
+    thr = np.linspace(2.0, 60.0, 3).astype(np.float32)
+    want = pj.phi_rbf_terms_fused_pallas_cross(
+        jnp.asarray(xt), jnp.asarray(xs), jnp.asarray(s),
+        [jnp.float32(g) for g in gammas], [1, 1], jnp.asarray(thr),
+        interpret=True,
+    )
+    got = cuda_phi.phi_rbf_terms_fused_cuda_cross(
+        torch.from_numpy(xt), torch.from_numpy(xs), torch.from_numpy(s),
+        [torch.tensor(g) for g in gammas], (1, 1), torch.from_numpy(thr),
+    )
+    _check_kernel_pair(got, want, 500, 11, atol=2e-6)
+
+
+def test_dimension_limit_names_the_roadmap():
+    for m in (1, 11, 50, cuda_phi.MAX_M):
+        cuda_phi.check_dimension(m)
+    assert cuda_phi.MAX_M == 64
+    for m in (0, cuda_phi.MAX_M + 1):
+        with pytest.raises(ValueError, match="ROADMAP"):
+            cuda_phi.check_dimension(m)
+
+
 def test_resolve_sym_and_launch_counts_on_cpu():
     assert cuda_phi.resolve_sym(None, cuda_phi.SYM_MIN_N - 1) is False
     assert cuda_phi.resolve_sym(None, cuda_phi.SYM_MIN_N) is True
@@ -169,4 +264,17 @@ def test_resolve_sym_and_launch_counts_on_cpu():
     cuda_phi.phi_rbf_fused_cuda(
         torch.from_numpy(x), torch.from_numpy(s), 0.5, torch.tensor([1.0, 2.0])
     )
+    for sym in (False, True):
+        cuda_phi.phi_rbf_terms_fused_cuda(
+            torch.from_numpy(x), torch.from_numpy(s), [0.5, 0.1], (1, -1),
+            torch.tensor([1.0, 2.0]), sym=sym,
+        )
+    cuda_phi.phi_rbf_terms_fused_cuda_cross(
+        torch.from_numpy(x[:5]), torch.from_numpy(x), torch.from_numpy(s),
+        [0.5], (1,), torch.tensor([1.0]),
+    )
+    assert set(cuda_phi.launch_counts) == {
+        cuda_phi.SQUARE_KERNEL, cuda_phi.SYM_KERNEL,
+        cuda_phi.TERMS_SQUARE_KERNEL, cuda_phi.TERMS_SYM_KERNEL,
+    }
     assert all(v == 0 for v in cuda_phi.launch_counts.values())

@@ -13,6 +13,12 @@
 * 'fused_cuda' on CPU tensors (the plain sweep) against the JAX package's
   'fused_pallas' (Pallas interpret mode) at n=600 for 3 steps, float32:
   rtol 2e-3, atol 2e-4, the JAX package's own tolerance for that pair.
+* Composed kernels: the rbf_terms route against the JAX package's (4
+  steps, float64, rtol 1e-9); auto's choice of route on the CPU (the JAX
+  package's non-TPU rule) and on a CUDA device (its TPU rule with the CUDA
+  routes); 'fused_terms_cuda' on CPU tensors equal to 'fused_terms'; the
+  hot-swap's rejections with the JAX package's messages, and an accepted
+  swap followed by more steps against the JAX package (rtol 1e-9).
 """
 
 import jax
@@ -260,8 +266,6 @@ def test_constructor_validation_matches_jax():
 
 @pytest.mark.parametrize("options", [
     {"impl": "generic"},
-    {"impl": "rbf_terms"},
-    {"impl": "fused_terms_pallas"},
     {"impl": "fused_aniso_terms_pallas"},
     {"impl": "pallas"},
     {"mesh": object()},
@@ -274,12 +278,137 @@ def test_unported_routes_raise_not_implemented(options):
         build(st, x0, 1, **options)
 
 
+def composed(pkg, x0, const, op="+", model=None):
+    """Median RBF (op) constant RBF, the hierarchical-BLR kernel's shape."""
+    med = pkg.GaussianRBFKernel(x0.copy(), pkg.ScaleMethod.MEDIAN, model)
+    c = pkg.GaussianRBFKernel(
+        x0.copy(), pkg.ScaleMethod.CONSTANT, constant_scale=np.asarray(const)
+    )
+    return {"+": med + c, "*": med * c, "/": med / c}[op]
+
+
+def build_composed(pkg, x0, iters, const, op="+", impl="auto", **kw):
+    n, dim = x0.shape
+    model = pkg.MultivariateNormal(MEAN.astype(x0.dtype), COV.astype(x0.dtype))
+    opts = pkg.SVGDOptions(
+        dimension=dim, num_iterations=iters, coordinate_matrix=x0.copy(),
+        kernel=composed(pkg, x0, const, op, model), model=model,
+        optimizer=pkg.Adam(dim, n, 0.05, 0.9, 0.999), phi_impl=impl, **kw
+    )
+    return pkg.SVGD(opts).initialize()
+
+
+ANISO = np.array([[0.3, 0.1], [0.1, 0.2]])
+
+
+@pytest.mark.parametrize("op,const", [("+", ANISO), ("/", 0.05 * np.eye(2))])
+def test_rbf_terms_route_matches_jax(op, const):
+    x0 = x0_for(64, seed=7)
+    sj = build_composed(sv, x0, 4, const, op)
+    s_t = build_composed(st, x0, 4, const, op)
+    assert sj._phi_impl == s_t._phi_impl == "rbf_terms"
+    assert s_t._term_psd == sj._term_psd
+    np.testing.assert_allclose(s_t.run().numpy(), np.asarray(sj.run()),
+                               rtol=1e-9, atol=1e-12)
+
+
 def test_composed_kernel_auto_and_fused_pallas_name():
-    x0 = x0_for(16)
+    """auto on the CPU follows the JAX package's non-TPU rule; on a CUDA
+    device (the rule evaluated with on_cuda=True) its TPU rule with the
+    CUDA routes; the JAX names of the Mosaic routes point to the CUDA
+    ones."""
+    iso = 0.1 * np.eye(2)
+    for n, op, const, cpu, cuda in [
+        (16, "+", iso, "rbf_terms", "rbf_terms"),
+        (300, "+", iso, "rbf_terms", "fused_terms_cuda"),
+        (1100, "+", iso, "fused_terms", "fused_terms_cuda"),
+        (300, "/", iso, "rbf_terms", "rbf_terms"),
+        (1100, "/", iso, "fused_terms", "fused_terms"),
+        (1100, "+", ANISO, "rbf_terms", "rbf_terms"),
+    ]:
+        x0 = x0_for(n)
+        s_t = build_composed(st, x0, 1, const, op)
+        sj = build_composed(sv, x0, 1, const, op)
+        assert s_t._phi_impl == sj._phi_impl == cpu, (n, op)
+        assert s_t._auto_impl(on_cuda=True) == cuda, (n, op)
+    # where the TPU rule takes the anisotropic Mosaic sweep: not ported
+    s_t = build_composed(st, x0_for(2100), 1, ANISO)
+    with pytest.raises(NotImplementedError, match="slice 3.*K14"):
+        s_t._auto_impl(on_cuda=True)
+    # a custom kernel takes the generic route: not ported
     model = st.MultivariateNormal(MEAN, COV)
-    k = st.GaussianRBFKernel(x0) + st.GaussianRBFKernel(x0)
-    svgd = st.SVGD(2, 1, x0, k, model, st.AdaGrad(2, 16, 0.1))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        svgd.initialize()
+    x0 = x0_for(16)
+    custom = st.Kernel(2, lambda x, p, loc: torch.exp(-torch.sum((x - loc) ** 2)))
+    with pytest.raises(NotImplementedError, match="generic"):
+        st.SVGD(2, 1, x0, custom, model, st.AdaGrad(2, 16, 0.1)).initialize()
     with pytest.raises(ValueError, match="fused_cuda"):
         build(st, x0, 1, impl="fused_pallas")
+    with pytest.raises(ValueError, match="'fused_terms_cuda'"):
+        build_composed(st, x0, 1, iso, impl="fused_terms_pallas")
+
+
+def test_composed_route_validation_matches_jax():
+    x0 = x0_for(40)
+    # a single RBF on a terms route, and a composition on a single-RBF one
+    _error_pair(lambda pkg: build(pkg, x0, 1, impl="rbf_terms"))
+    _error_pair(lambda pkg: build_composed(pkg, x0, 1, 0.1 * np.eye(2),
+                                           impl="dense"))
+    # an anisotropic constant slot on the fused terms route
+    _error_pair(lambda pkg: build_composed(pkg, x0, 1, ANISO,
+                                           impl="fused_terms"))
+    # division terms on the kernel route: the JAX message, its route's name
+    with pytest.raises(ValueError) as ej:
+        build_composed(sv, x0, 1, 0.1 * np.eye(2), "/",
+                       impl="fused_terms_pallas")
+    with pytest.raises(ValueError) as et:
+        build_composed(st, x0, 1, 0.1 * np.eye(2), "/",
+                       impl="fused_terms_cuda")
+    assert str(et.value) == str(ej.value).replace(
+        "fused_terms_pallas", "fused_terms_cuda"
+    )
+
+
+def test_fused_terms_cuda_on_cpu_equals_fused_terms():
+    x0 = x0_for(1100, seed=8)
+    runs = {
+        impl: build_composed(st, x0, 3, 0.1 * np.eye(2), impl=impl)
+        for impl in ("fused_terms_cuda", "fused_terms")
+    }
+    outs = {impl: s.run().numpy() for impl, s in runs.items()}
+    np.testing.assert_array_equal(outs["fused_terms_cuda"], outs["fused_terms"])
+    assert runs["fused_terms_cuda"].median_fallbacks == 0
+
+
+def test_fused_terms_hot_swap_matches_jax():
+    x0 = x0_for(1100, seed=9)
+    iso = 0.1 * np.eye(2)
+
+    def swapped(pkg, impl):
+        svgd = build_composed(pkg, x0, 2, iso, impl=impl)
+        svgd.run()
+        med = svgd.kernel.parameters[0]
+        svgd.update_kernel_parameters((med, 0.3 * np.eye(2)))
+        return np.asarray(svgd.run())
+
+    np.testing.assert_allclose(
+        swapped(st, "fused_terms"), swapped(sv, "fused_terms"),
+        rtol=1e-9, atol=1e-12,
+    )
+    # rejections: an anisotropic swap on a fused terms route, a
+    # non-positive one on the kernel route; the driver keeps its parameters
+    for impl_t, impl_j, bad in [
+        ("fused_terms", "fused_terms", ANISO),
+        ("fused_terms_cuda", "fused_terms_pallas", -0.1 * np.eye(2)),
+    ]:
+        with pytest.raises(ValueError) as ej:
+            s_j = build_composed(sv, x0, 1, iso, impl=impl_j)
+            s_j.update_kernel_parameters((s_j.kernel.parameters[0], bad))
+        s_t = build_composed(st, x0, 1, iso, impl=impl_t)
+        before = [p.clone() for p in s_t.kernel.parameters]
+        with pytest.raises(ValueError) as et:
+            s_t.update_kernel_parameters((s_t.kernel.parameters[0], bad))
+        assert str(et.value) == str(ej.value).replace(
+            "fused_terms_pallas", "fused_terms_cuda"
+        )
+        for a, b in zip(s_t.kernel.parameters, before):
+            assert torch.equal(a, b)
