@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of a step goes, on one CUDA GPU.
 
-    python3 chip_profile.py [--config mvn|hier|blr] [--large] [--out PATH]
+    python3 chip_profile.py [--config mvn|hier|blr|aniso|hessian] [--large]
+                            [--out PATH]
 
 Drives one configuration of svgdcpp_tpu_torch at its full width:
 
@@ -11,6 +12,11 @@ Drives one configuration of svgdcpp_tpu_torch at its full width:
     Adam lr 5e-2, route ``fused_terms_cuda`` (terms triangle kernel);
   * ``blr``: flat BLR, d=50, N=1000, median RBF, Adam lr 5e-2, route
     ``fused_cuda`` (square kernel at m=50);
+  * ``aniso``: scripts/check_aniso_posterior.py's configuration, MVN d=11,
+    N=10240, median RBF + RBF with a full constant P, AdaGrad lr 0.05,
+    route ``fused_aniso_terms_cuda`` (the anisotropic terms kernel);
+  * ``hessian``: the same target with one RBF whose scale is the HESSIAN
+    one, route ``cuda`` (the fixed-P square kernel);
 
 and prints:
 
@@ -25,10 +31,11 @@ and prints:
     ``device_idle_share_of_step``, ``1 - busy / (host ms/step)`` against
     the unprofiled step. Also the device events per step, and the sweep
     kernel's us per call;
-  * sections of one step, each ended by ``torch.cuda.synchronize()`` and
-    timed on the host clock over 200 steps: scores, plan, sweep, median
-    post-processing, optimizer. They call the same functions as the
-    driver's step, in its order; each includes one synchronize.
+  * sections of the driver's own step (``SVGD.section_hook``), each ended
+    by ``torch.cuda.synchronize()`` and timed on the host clock over 200
+    steps: scores, plan, sweep, median post-processing, optimizer
+    (``hessian``: scores, scale, sweep, optimizer); each includes one
+    synchronize.
 
 With ``--large`` (mvn only) it also runs the triangle kernel once at
 n = 100000 and
@@ -96,13 +103,31 @@ def device_timeline(trace_path, steps, sweep_name):
 
 
 def make_driver(st, config, iters):
-    """(driver, its sweep kernel's name) for ``config`` at full width."""
+    """(driver, the name of its sweep kernel's device function, without
+    ``_kernel``) for ``config`` at full width."""
     import torch
 
     from svgdcpp_tpu_torch.ops import cuda_phi
-    from svgdcpp_tpu_torch.utils.workloads import blr_workload, build_blr_svgd
+    from svgdcpp_tpu_torch.utils.workloads import (
+        aniso_mvn_workload,
+        blr_workload,
+        build_aniso_svgd,
+        build_blr_svgd,
+    )
 
-    if config == "mvn":
+    if config in ("aniso", "hessian"):
+        mean, cov, x0, p_aniso = aniso_mvn_workload(10240)
+        hessian = config == "hessian"
+        svgd = build_aniso_svgd(
+            torch.tensor(x0, device="cuda"), mean, cov, p_aniso,
+            phi_impl="cuda" if hessian else "auto", num_iterations=iters,
+            kernel_scale=st.ScaleMethod.HESSIAN if hessian else None,
+        )
+        route, kernel = (
+            ("cuda", cuda_phi.PHI_RBF_KERNEL) if hessian
+            else ("fused_aniso_terms_cuda", cuda_phi.ANISO_KERNEL)
+        )
+    elif config == "mvn":
         from chip_smoke import make_svgd
         from svgdcpp_tpu_torch.utils.workloads import flagship_mvn
 
@@ -139,68 +164,31 @@ def host_ms_per_step(svgd, steps):
 
 
 def sections_ms(svgd, steps):
-    """Host ms/step of each section of the fused step, each ended by a
-    synchronize, in the driver's order (svgd.py, build_step_fn); the plan of
-    a composed kernel includes its slot refill."""
+    """Host ms/step of each section of the driver's own step (svgd.py,
+    build_step_fn), each ended by a synchronize through SVGD.section_hook:
+    scores, plan, sweep, median, optimizer on the fused routes; scores,
+    scale, sweep, optimizer on the others. Runs ``steps`` steps on
+    ``svgd``."""
     import torch
-    from torch.func import vmap
 
-    from svgdcpp_tpu_torch.kernels.algebra import refill_median_slots
-    from svgdcpp_tpu_torch.ops.cuda_phi import (
-        phi_rbf_fused_cuda,
-        phi_rbf_terms_fused_cuda,
-    )
-    from svgdcpp_tpu_torch.ops.median import (
-        fused_lag1_plan,
-        fused_median_from_counts,
-    )
+    totals, last = {}, [0.0]
 
-    terms = svgd._rbf_terms
-    state = svgd.make_state()
-    coords, opt_state = state["coords"], state["opt_state"]
-    aux = state["scale_aux"][0]
-    mparams = state["model_params"]
-    n = coords.shape[0]
-    names = ("scores", "plan", "sweep", "median", "optimizer")
-    totals = dict.fromkeys(names, 0.0)
-    torch.cuda.synchronize()
-    for _ in range(steps):
-        marks = [time.perf_counter()]
+    def mark(name):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        totals[name] = totals.get(name, 0.0) + (now - last[0]) * 1e3
+        last[0] = now
 
-        def mark():
-            torch.cuda.synchronize()
-            marks.append(time.perf_counter())
-
-        scores = vmap(lambda x: svgd.model.grad_log_density_pure(x, mparams))(coords)
-        mark()
-        gamma, sel = fused_lag1_plan(aux, n, int(svgd.options.fused_bins), coords.dtype)
-        if terms is not None:
-            _, gammas = refill_median_slots(
-                state["kernel_params"], [i for i, _ in svgd._adaptive_slots],
-                gamma, coords.shape[1], coords.dtype, [p for _, p in terms],
-            )
-        mark()
-        if terms is not None:
-            phi, counts = phi_rbf_terms_fused_cuda(
-                coords, scores, gammas, [s for s, _ in terms], sel["edges"]
-            )
-        else:
-            phi, counts = phi_rbf_fused_cuda(coords, scores, gamma, sel["edges"])
-        mark()
-        med, lo1, hi1, lo2, hi2, _ = fused_median_from_counts(
-            counts, sel, n * n, coords, initialized=aux["hi1"] >= aux["lo1"],
-            row_tile=svgd.options.row_tile,
-        )
-        mark()
-        opt_state, inc = svgd.optimizer.step(opt_state, phi)
-        new = coords + inc
-        disp = torch.sqrt(torch.max(torch.sum((new - coords) ** 2, dim=1)))
-        mark()
-        aux = {"med": med, "lo1": lo1, "hi1": hi1, "lo2": lo2, "hi2": hi2,
-               "disp": disp.to(aux["disp"].dtype)}
-        coords = new
-        for name, a, b in zip(names, marks, marks[1:]):
-            totals[name] += (b - a) * 1e3
+    svgd.section_hook = mark
+    svgd._step_fn = svgd.build_step_fn()
+    svgd.num_iterations = steps
+    try:
+        torch.cuda.synchronize()
+        last[0] = time.perf_counter()
+        svgd.run()
+    finally:
+        svgd.section_hook = None
+        svgd._step_fn = svgd.build_step_fn()
     return {name: v / steps for name, v in totals.items()}
 
 
@@ -248,7 +236,8 @@ def large_n(n, device):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--config", choices=("mvn", "hier", "blr"),
+    parser.add_argument("--config",
+                        choices=("mvn", "hier", "blr", "aniso", "hessian"),
                         default="mvn")
     parser.add_argument("--large", action="store_true",
                         help="also run the triangle kernel at n = 1e5 and 1e6")

@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the package's CUDA kernels from ``svgdcpp_tpu_torch/csrc`` and runs
-thirteen phases, one line each (several for phases 2, 3, 7, 8 and 9):
+eighteen phases, one line each (several for phases 2, 3, 7-9 and 14-18):
 
   1. device and build: the card's name and power limit, torch and CUDA
      versions, nvcc build seconds and ptxas's registers and spill bytes of
@@ -38,7 +38,33 @@ thirteen phases, one line each (several for phases 2, 3, 7, 8 and 9):
  12. flat BLR at full width: N = 1000, d = 50, 1000 iterations (the bench
      runs 4000; cut for time), 1000 K1 launches at m = 50;
  13. the hierarchical kernel route against the plain route ('fused_terms')
-     for 20 steps at N = 10000.
+     for 20 steps at N = 10000;
+ 14. the anisotropic terms kernel (fused_phi_aniso_terms_sym, K14's port)
+     against its plain version: m = 2 (iso + 1 aniso off origin, aniso
+     only), m = 11 (the main path's shape (10240, 11), iso + 3 aniso, iso +
+     7 aniso, a negative sign) and m = 50;
+ 15. the fixed-P kernel (phi_rbf_square, K15's port) against phi_rbf /
+     phi_rbf_blocked: isotropic (1500, 2), the HESSIAN scale of the d = 11
+     target at (10240, 11), a full PD P at (1000, 50), an indefinite P with
+     psd=False, and an offset of 200;
+ 16. times, kernel against plain: K14 at (10240, 11) with 2, 4 and 8
+     gradient accumulators, K15 at (10240, 11) and (1500, 2);
+ 17. the anisotropic main path (scripts/check_aniso_posterior.py's
+     configuration: d = 11 MVN, median RBF + RBF with a full constant P,
+     N = 10240, AdaGrad 0.05), auto picks fused_aniso_terms_cuda, 1000
+     iterations, 1000 K14 launches; updates/s and the moment errors
+     (printed, not gated: the configuration does not converge in 1000
+     iterations), the first step against 'rbf_terms' and the posterior
+     moments against 'rbf_terms' on the card;
+ 18. the 'cuda' route: a HESSIAN RBF on the same target at N = 10240, 1000
+     iterations, 1000 K15 launches; 20 steps against 'blocked'; a MEDIAN RBF
+     on the flagship at n = 1500, 50 iterations, 50 K15 launches.
+
+The ``kernels`` line gives, for each kernel, its launches, error against its
+plain version and times on the main path it serves first, and its bound:
+the larger of the FP32 operations its function needs (counted per pair,
+an ex2 or a compare as one; see sweep_bound) over 67 TFLOP/s and the bytes
+of its inputs and outputs over 3.35 TB/s, the published H100 SXM peaks.
 
 Any failed check raises and the exit code is not 0. Without a CUDA device,
 or without the package beside it, the script exits with an error before
@@ -138,6 +164,77 @@ def inputs_for(n, m, offset, seed, device):
     return fn(n, m, offset, seed, device)
 
 
+#: Published H100 SXM peaks at 700 W: FP32 outside the tensor cores, and
+#: HBM3 bandwidth (NVIDIA's data sheet).
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the least time the card could take, the larger
+    of the operations over the FP32 peak and the bytes over the memory
+    rate."""
+    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def sweep_bound(kernel, n, m, T=3, n_iso=1, n_aniso=0):
+    """bound() of one kernel call, with the FP32 operations each pair of the
+    function needs, whatever the kernel's design runs (an FMA as 2; an ex2,
+    a compare and any other operation as 1):
+
+      * the difference x_i - x_j once (m) and its square sum (2m);
+      * an isotropic term 6 (scale, ex2, the FMAs into k_c and into w);
+        one RBF 2 (scale, ex2);
+      * per direction, KS = sum k s_j (2m) and each gradient accumulator
+        D = sum w (x_i - x_j) from that same difference (2m);
+      * T compares;
+      * an anisotropic term its form |z_ti - z_tj|^2 (3m) and 6 to
+        combine; one accumulator D_t each; KS once for all terms;
+      * K15: the form sum_k lam_k (dz_k)^2 (4m: the difference, a multiply
+        and an FMA), 2 for the exponential, KS and D_z = sum k dz (2m each).
+
+    The square kernels take n^2 ordered pairs and one direction; the triangle
+    kernels n(n+1)/2 unordered pairs (diagonal included) and both. Bytes:
+    the function's inputs read once (coordinates, scores, precisions,
+    thresholds) and its outputs written once (phi, the int64 counts). One
+    particle set of n, as on every main path."""
+    square_pairs = n * n
+    tri_pairs = n * (n + 1) / 2
+    contract = 4 * m  # KS and one D, one direction
+    if kernel == "fused_phi_counts_square":
+        flops = square_pairs * (3 * m + 2 + T + contract)
+    elif kernel == "fused_phi_counts_sym":
+        flops = tri_pairs * (3 * m + 2 + T + 2 * contract)
+    elif kernel == "fused_phi_terms_square":
+        flops = square_pairs * (3 * m + 6 * n_iso + T + contract)
+    elif kernel == "fused_phi_terms_sym":
+        flops = tri_pairs * (3 * m + 6 * n_iso + T + 2 * contract)
+    elif kernel == "fused_phi_aniso_terms_sym":
+        n_w = (1 if n_iso else 0) + n_aniso
+        flops = tri_pairs * (3 * m + T + 6 * n_iso + n_aniso * (3 * m + 6)
+                             + 2 * (2 * m + 2 * m * n_w))
+    elif kernel == "phi_rbf_square":
+        flops = square_pairs * (4 * m + 2 + contract)
+        T = 0
+    else:
+        raise ValueError(kernel)
+    nbytes = 4 * (2 * n * m + n_aniso * m * m + n_iso + T) + 4 * n * m + 8 * T
+    if kernel == "phi_rbf_square":
+        nbytes += 4 * m * m
+    return bound(flops, nbytes)
+
+
+def compare_phi(name, got, want):
+    """(max |dphi| / max |phi|, max |dphi|), phi within 1e-4 relative."""
+    abs_err = float((got - want).abs().max())
+    rel = abs_err / float(want.abs().max())
+    check(bool(got.isfinite().all()), f"{name}: non-finite phi")
+    check(rel <= 1e-4, f"{name}: phi rel err {rel:.3e} > 1e-4")
+    return rel, abs_err
+
+
 def compare(name, got, want, n, m, n_t=None):
     """(max |dphi| / max |phi|, max |dphi|, max |dcounts|) with the checks:
     phi within 1e-4 relative; counts exact at m <= 4, where the kernels and
@@ -162,7 +259,10 @@ def compare(name, got, want, n, m, n_t=None):
 
 def ptxas_summary(log_text):
     """{instance: "R regs, S B spill"} from ptxas's -v report, an instance
-    named kernel<MM,exact> (sweep_common.cuh), e.g. counts_square<50,1>."""
+    named kernel<MM,exact> (sweep_common.cuh), e.g. counts_square<50,1>
+    or rbf_square<2,1> (phi_rbf_square); the terms triangle sweep
+    (terms_sym.cuh) has a third flag, its term groups: terms_sym<11,1,0>
+    and aniso_terms_sym<11,1,1>."""
     import re
 
     out, name = {}, None
@@ -171,11 +271,12 @@ def ptxas_summary(log_text):
         hit = re.search(r"Compiling entry function '(\w+)'", line)
         if hit:
             inst = re.search(
-                r"(?<=\d)fused_phi_(\w+?)_kernelILi(\d+)ELb([01])E",
+                r"(?<=\d)(?:fused_)?phi_(\w+?)_kernel"
+                r"ILi(\d+)ELb([01])E(?:Lb([01])E)?",
                 hit.group(1),
             )
-            name = (f"{inst.group(1)}<{inst.group(2)},{inst.group(3)}>"
-                    if inst else hit.group(1))
+            flags = ",".join(g for g in inst.groups()[1:] if g) if inst else ""
+            name = f"{inst.group(1)}<{flags}>" if inst else hit.group(1)
             spill = "?"
         hit = re.search(r"(\d+) bytes spill stores", line)
         if hit and name:
@@ -244,18 +345,23 @@ def main() -> int:
               "a CUDA device", file=sys.stderr)
         return 1
 
+    import numpy as np
+
     import svgdcpp_tpu_torch as st
     from svgdcpp_tpu_torch.ops import cuda_phi
     from svgdcpp_tpu_torch.ops.phi import (
+        phi_rbf,
+        phi_rbf_aniso_terms_fused_counts,
+        phi_rbf_blocked,
         phi_rbf_cross_fused_counts,
         phi_rbf_fused_counts,
-    )
-    from svgdcpp_tpu_torch.ops.phi import (
         phi_rbf_terms_cross_fused_counts,
         phi_rbf_terms_fused_counts,
     )
     from svgdcpp_tpu_torch.utils.workloads import (
+        aniso_mvn_workload,
         blr_workload,
+        build_aniso_svgd,
         build_blr_svgd,
         flagship_mvn,
     )
@@ -611,49 +717,278 @@ def main() -> int:
           f"ok coords_max_abs_diff={diff:.3e} "
           f"vs_float64_plain={json.dumps(floor)}")
 
-    def main_path(phase, n, m, launches, ms, plain_ms):
+    # -- phase 14: K14 vs plain ---------------------------------------------
+    def aniso_ps(g, m, count, seed):
+        """``count`` full PD precisions around the median gamma g:
+        g (0.5 I + A A^T / m), A ~ N(0, 1) from a numpy seed."""
+        rng = np.random.default_rng(seed)
+        out = []
+        for _ in range(count):
+            a = rng.normal(size=(m, m))
+            out.append(g * torch.tensor(0.5 * np.eye(m) + a @ a.T / m,
+                                        dtype=torch.float32, device=dev))
+        return out
+
+    # (10240, 11) with one isotropic and one anisotropic term is the shape
+    # phase 17's main path gives the kernel.
+    aniso_err = 0.0
+    for idx, (n, m, off, iso_s, an_s) in enumerate([
+        (2048, 2, 100.0, (1.0,), (0.8,)),
+        (10007, 2, 0.0, (), (1.0,)),
+        (10240, 11, 0.0, (1.0,), (1.0,)),
+        (10240, 11, 0.0, (1.0,), (1.0, 0.5, 0.3)),
+        (4096, 11, 0.0, (1.0,), (1.0,) * 7),
+        (2048, 50, 0.0, (1.0,), (1.0,)),
+        (4096, 11, 0.0, (1.0, -0.4), (-0.3,)),
+    ]):
+        x, s, g, thr = inputs_for(n, m, off, 140 + idx, dev)
+        iso_g = [g, 2.0 * g][:len(iso_s)]
+        ps = aniso_ps(g, m, len(an_s), 150 + idx)
+        got = cuda_phi.phi_rbf_aniso_terms_fused_cuda(x, s, iso_g, iso_s, ps,
+                                                      an_s, thr)
+        want = phi_rbf_aniso_terms_fused_counts(x, s, iso_g, iso_s, ps, an_s,
+                                                thr)
+        rel, abs_err, dcnt = compare(f"aniso n={n} m={m}", got, want, n, m)
+        aniso_err = max(aniso_err, abs_err)
+        print(f"phase 14 aniso n={n} m={m} offset={off} "
+              f"iso_signs={list(iso_s)} aniso_signs={list(an_s)}: ok "
+              f"phi_rel={rel:.3e} count_diff={dcnt} "
+              f"count_bound={1e-6 * n * n if m > 4 else 0:.3g}")
+
+    # -- phase 15: K15 vs phi_rbf / phi_rbf_blocked ----------------------------
+    mean_a, cov_a, x0_a, p_a = aniso_mvn_workload(10240)
+    x_a = torch.tensor(x0_a, device=dev)
+    model_a = st.MultivariateNormal(
+        torch.tensor(mean_a, dtype=torch.float32),
+        torch.tensor(cov_a, dtype=torch.float32),
+    )
+    # The HESSIAN scale of the d = 11 target: phase 18's main path's P.
+    p_hess = st.GaussianRBFKernel(
+        x_a, st.ScaleMethod.HESSIAN, model_a
+    ).compute_scale_pure(x_a)
+    k15_err = 0.0
+    for idx, (label, n, m, off, psd) in enumerate([
+        ("isotropic", 1500, 2, 0.0, True),
+        ("hessian", 10240, 11, 0.0, False),
+        ("full_pd", 1000, 50, 0.0, True),
+        ("indefinite", 600, 3, 0.0, False),
+        ("isotropic", 2000, 2, 200.0, True),
+    ]):
+        x, s, g, _ = sweep_inputs(n, m, off, 170 + idx, dev)
+        if label == "hessian":
+            x, p = x_a, p_hess
+        elif label == "full_pd":
+            p = aniso_ps(g, m, 1, 180)[0]
+        elif label == "indefinite":
+            p = g * torch.tensor([[0.5, 0.1, 0.0], [0.1, -0.1, 0.05],
+                                  [0.0, 0.05, 0.3]], device=dev)
+        else:
+            p = g * torch.eye(m, device=dev)
+        got = cuda_phi.phi_rbf_cuda(x, s, p, psd=psd)
+        # The dense phi_rbf does not center: off origin, the blocked one.
+        plain = phi_rbf if n <= 2048 and off == 0.0 else phi_rbf_blocked
+        rel, abs_err = compare_phi(f"phi_rbf {label} n={n} m={m}", got,
+                                   plain(x, s, p, psd=psd))
+        k15_err = max(k15_err, abs_err)
+        print(f"phase 15 phi_rbf {label} n={n} m={m} offset={off} psd={psd}: "
+              f"ok phi_rel={rel:.3e} plain={plain.__name__}")
+
+    # -- phase 16: times, K14 and K15 against plain ------------------------
+    times16 = {}
+    x, s, g, thr = sweep_inputs(10240, 11, 0.0, 160, dev)
+    for n_w in (2, 4, 8):
+        ps = aniso_ps(g, 11, n_w - 1, 161)
+        an_s = (1.0,) * (n_w - 1)
+        kern = time_ms(lambda: cuda_phi.phi_rbf_aniso_terms_fused_cuda(
+            x, s, [g], (1.0,), ps, an_s, thr))
+        plain = time_ms(lambda: phi_rbf_aniso_terms_fused_counts(
+            x, s, [g], (1.0,), ps, an_s, thr))
+        times16[("aniso", n_w)] = {"kernel": kern, "plain": plain}
+        print(f"phase 16 times aniso n=10240 m=11 n_w={n_w} T=3 (ms, median "
+              f"of 50): kernel={kern:.4f} plain={plain:.4f}")
+    # As the 'cuda' route calls it: a HESSIAN P decomposed on the host each
+    # call, a median's gamma I with its decomposition (diagonal, I).
+    for n, m in ((10240, 11), (1500, 2)):
+        x, s, g, _ = sweep_inputs(n, m, 0.0, 165, dev)
+        if m == 11:
+            p, psd, eig = p_hess, False, None
+        else:
+            p, psd = g * torch.eye(m, device=dev), True
+            eig = (p.diagonal(), torch.eye(m, device=dev))
+        kern = time_ms(lambda: cuda_phi.phi_rbf_cuda(x, s, p, psd=psd,
+                                                     eig=eig))
+        plain = time_ms(lambda: phi_rbf_blocked(x, s, p, psd=psd))
+        times16[("phi_rbf", n, m)] = {"kernel": kern, "plain": plain}
+        print(f"phase 16 times phi_rbf n={n} m={m} psd={psd} (ms, median of "
+              f"50): kernel={kern:.4f} plain={plain:.4f}")
+
+    # -- phase 17: the anisotropic main path, N = 10240, d = 11 -------------
+    def aniso_driver(phi_impl, iters, kernel_scale=None, dtype=torch.float32):
+        return build_aniso_svgd(
+            torch.tensor(x0_a, dtype=dtype, device=dev), mean_a, cov_a, p_a,
+            phi_impl=phi_impl, num_iterations=iters,
+            kernel_scale=kernel_scale,
+        )
+
+    cuda_phi.reset_launch_counts()
+    svgd = aniso_driver("auto", seg_len)
+    check(svgd._phi_impl == "fused_aniso_terms_cuda",
+          f"aniso N=10240 routed to {svgd._phi_impl!r}, not "
+          "'fused_aniso_terms_cuda'")
+    timed_s = segmented_run(svgd, segments)
+    main_aniso = dict(cuda_phi.launch_counts)
+    out_aniso = svgd.store.value.double()
+    check(bool(out_aniso.isfinite().all())
+          and tuple(out_aniso.shape) == (10240, 11), "aniso run: bad output")
+    want = {k: 0 for k in main_aniso}
+    want[cuda_phi.ANISO_KERNEL] = segments * seg_len
+    check(main_aniso == want,
+          f"aniso N=10240, 1000 steps: launches {main_aniso}, want {want}")
+    rate = 10240 * (segments - 1) * seg_len / timed_s
+    post = posterior_metrics(out_aniso.cpu().numpy(), mean_a, cov_a)
+    print(f"phase 17 aniso N=10240 d=11 1000 iters: ok "
+          f"route=fused_aniso_terms_cuda launches={json.dumps(main_aniso)} "
+          f"fallbacks={svgd.median_fallbacks} updates_per_s={rate:.6g} "
+          f"timed_s={timed_s:.4f} posterior_not_gated={json.dumps(post)}")
+    # The lag-1 seed is x0's median, so the first step uses the bandwidth
+    # 'rbf_terms' takes that step.
+    first = {impl: aniso_driver(impl, 1).run().double()
+             for impl in ("fused_aniso_terms_cuda", "rbf_terms")}
+    d_first = float((first["fused_aniso_terms_cuda"]
+                     - first["rbf_terms"]).abs().max())
+    check(d_first <= 1e-3,
+          f"aniso first step: kernel route vs rbf_terms {d_first:.3e} > 1e-3")
+    ref = aniso_driver("rbf_terms", seg_len)
+    t0 = time.perf_counter()
+    ref.run()
+    torch.cuda.synchronize()
+    ref_seg_s = time.perf_counter() - t0
+    # rbf_terms is cut to 300 iterations (and the kernel route rerun to
+    # match) if 1000 would take more than a minute.
+    ref_iters = segments * seg_len if ref_seg_s * segments <= 60 else 300
+    for _ in range(ref_iters // seg_len - 1):
+        ref.run()
+    if ref_iters == segments * seg_len:
+        fused_out = out_aniso
+    else:
+        fused = aniso_driver("fused_aniso_terms_cuda", ref_iters)
+        fused_out = fused.run().double()
+    a = fused_out.cpu().numpy()
+    r = ref.store.value.double().cpu().numpy()
+    d_mean = float(np.abs(a.mean(axis=0) - r.mean(axis=0)).max())
+    d_cov = float(np.linalg.norm(np.cov(a.T) - np.cov(r.T))
+                  / np.linalg.norm(np.cov(r.T)))
+    check(d_mean <= 5e-3 and d_cov <= 5e-3,
+          f"aniso vs rbf_terms after {ref_iters} iters: mean {d_mean:.3e}, "
+          f"cov {d_cov:.3e} (limits 5e-3)")
+    print(f"phase 17 aniso vs rbf_terms: ok first_step_max_abs_diff="
+          f"{d_first:.3e} iters={ref_iters} rbf_terms_first_segment_s="
+          f"{ref_seg_s:.2f} mean_max_abs_diff={d_mean:.3e} "
+          f"cov_fro_rel_diff={d_cov:.3e} "
+          f"rbf_terms_posterior_not_gated="
+          f"{json.dumps(posterior_metrics(r, mean_a, cov_a))}")
+
+    # -- phase 18: the 'cuda' route (K15) ------------------------------------
+    hessian = st.ScaleMethod.HESSIAN
+    cuda_phi.reset_launch_counts()
+    svgd = aniso_driver("cuda", seg_len, kernel_scale=hessian)
+    timed_s = segmented_run(svgd, segments)
+    main_k15 = dict(cuda_phi.launch_counts)
+    out = svgd.store.value
+    check(bool(out.isfinite().all()) and tuple(out.shape) == (10240, 11),
+          "HESSIAN cuda run: bad output")
+    want = {k: 0 for k in main_k15}
+    want[cuda_phi.PHI_RBF_KERNEL] = segments * seg_len
+    check(main_k15 == want,
+          f"HESSIAN N=10240, 1000 steps: launches {main_k15}, want {want}")
+    rate = 10240 * (segments - 1) * seg_len / timed_s
+    print(f"phase 18 HESSIAN cuda N=10240 d=11 1000 iters: ok route=cuda "
+          f"launches={json.dumps(main_k15)} updates_per_s={rate:.6g} "
+          f"timed_s={timed_s:.4f} psd={svgd._rbf_psd}")
+    finals = {}
+    for impl, dtype in (("cuda", torch.float32), ("blocked", torch.float32),
+                        ("blocked", torch.float64)):
+        finals[(impl, dtype)] = aniso_driver(
+            impl, 20, kernel_scale=hessian, dtype=dtype
+        ).run().double()
+    ref = finals[("blocked", torch.float64)]
+    diff = float((finals[("cuda", torch.float32)]
+                  - finals[("blocked", torch.float32)]).abs().max())
+    floor = {impl: float((finals[(impl, torch.float32)] - ref).abs().max())
+             for impl in ("cuda", "blocked")}
+    check(diff <= 1e-3, f"cuda vs blocked coords differ by {diff:.3e}")
+    print(f"phase 18 HESSIAN cuda vs blocked N=10240 20 steps: ok "
+          f"coords_max_abs_diff={diff:.3e} "
+          f"vs_float64_blocked={json.dumps(floor)}")
+    mean, cov, x0 = flagship_mvn(1500)
+    cuda_phi.reset_launch_counts()
+    svgd = make_svgd(st, x0, mean, cov, 50, phi_impl="cuda")
+    out = svgd.run()
+    torch.cuda.synchronize()
+    main_k15_median = dict(cuda_phi.launch_counts)
+    check(bool(out.isfinite().all()) and tuple(out.shape) == (1500, 2),
+          "MEDIAN cuda n=1500 run: bad output")
+    want = {k: 0 for k in main_k15_median}
+    want[cuda_phi.PHI_RBF_KERNEL] = 50
+    check(main_k15_median == want,
+          f"MEDIAN cuda n=1500, 50 steps: launches {main_k15_median}, "
+          f"want {want}")
+    print(f"phase 18 MEDIAN cuda n=1500 m=2 50 iters: ok route=cuda "
+          f"launches={json.dumps(main_k15_median)}")
+
+    def main_path(phase, kernel, n, m, launches, times, **work):
+        bound_ms, bound_by = sweep_bound(kernel, n, m, **work)
         return {"phase": phase, "n": n, "m": m, "launches": launches,
-                "ms": ms, "plain_ms": plain_ms}
+                "ms": times["kernel"], "plain_ms": times["plain"],
+                "bound_ms": bound_ms, "bound_by": bound_by}
 
-    # Each entry's launches, ms and plain_ms are those of its first main
-    # path; main_paths lists every main path that runs the kernel, with the
-    # times at that path's shape (phases 3 and 9).
-    blr_square = times9[("square", 1000, 50)]
-    terms_sq_t = times9[("terms_square", 1500, 11)]
-    terms_sym_t = times9[("terms_sym", 10000, 11)]
-    k1_paths = [
-        main_path(4, 1500, 2, main_square[cuda_phi.SQUARE_KERNEL],
-                  times[1500]["square"], times[1500]["plain"]),
-        main_path(12, 1000, 50, main_blr[cuda_phi.SQUARE_KERNEL],
-                  blr_square["kernel"], blr_square["plain"]),
-    ]
-    k2_paths = [main_path(5, 10000, 2, main_sym[cuda_phi.SYM_KERNEL],
-                          times[10000]["sym"], times[10000]["plain"])]
-    terms_sq_paths = [main_path(
-        10, 1500, 11, main_terms_sq[cuda_phi.TERMS_SQUARE_KERNEL],
-        terms_sq_t["kernel"], terms_sq_t["plain"])]
-    terms_sym_paths = [main_path(
-        11, 10000, 11, main_terms_sym[cuda_phi.TERMS_SYM_KERNEL],
-        terms_sym_t["kernel"], terms_sym_t["plain"])]
+    # Each entry's launches, ms, plain_ms and bound are those of its first
+    # main path; main_paths lists every main path that runs the kernel, with
+    # the times at that path's shape (phases 3, 9 and 16). No single PyTorch
+    # call computes phi with the median counts, or phi with a full P, so
+    # there is no library time.
+    sq, sym = cuda_phi.SQUARE_KERNEL, cuda_phi.SYM_KERNEL
+    t_sq, t_sym = cuda_phi.TERMS_SQUARE_KERNEL, cuda_phi.TERMS_SYM_KERNEL
+    aniso, k15 = cuda_phi.ANISO_KERNEL, cuda_phi.PHI_RBF_KERNEL
+    k1_1500 = {"kernel": times[1500]["square"], "plain": times[1500]["plain"]}
+    k2_10k = {"kernel": times[10000]["sym"], "plain": times[10000]["plain"]}
+    paths = {
+        sq: [main_path(4, sq, 1500, 2, main_square[sq], k1_1500),
+             main_path(12, sq, 1000, 50, main_blr[sq],
+                       times9[("square", 1000, 50)])],
+        sym: [main_path(5, sym, 10000, 2, main_sym[sym], k2_10k)],
+        t_sq: [main_path(10, t_sq, 1500, 11, main_terms_sq[t_sq],
+                         times9[("terms_square", 1500, 11)], n_iso=2)],
+        t_sym: [main_path(11, t_sym, 10000, 11, main_terms_sym[t_sym],
+                          times9[("terms_sym", 10000, 11)], n_iso=2)],
+        aniso: [main_path(17, aniso, 10240, 11, main_aniso[aniso],
+                          times16[("aniso", 2)], n_aniso=1)],
+        k15: [main_path(18, k15, 10240, 11, main_k15[k15],
+                        times16[("phi_rbf", 10240, 11)]),
+              main_path(18, k15, 1500, 2, main_k15_median[k15],
+                        times16[("phi_rbf", 1500, 2)])],
+    }
 
-    def entry(name, source, replaces, err, paths):
-        first = paths[0]
+    def entry(name, source, replaces, err):
+        first = paths[name][0]
         return {"name": name, "route": "cuda",
                 "source": f"svgdcpp_tpu_torch/csrc/{source}",
                 "replaces": replaces, "launches": first["launches"],
                 "max_abs_err": err, "ms": first["ms"],
-                "plain_ms": first["plain_ms"], "main_paths": paths}
+                "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+                "bound_by": first["bound_by"], "library_ms": None,
+                "main_paths": paths[name]}
 
     pallas = "svgdcpp_tpu/ops/pallas_phi.py"
     print(json.dumps({"kernels": [
-        entry(cuda_phi.SQUARE_KERNEL, "fused_phi.cu", f"{pallas}:365",
-              square_err, k1_paths),
-        entry(cuda_phi.SYM_KERNEL, "fused_phi.cu", f"{pallas}:546",
-              sym_err, k2_paths),
-        entry(cuda_phi.TERMS_SQUARE_KERNEL, "fused_phi_terms.cu",
-              f"{pallas}:1963 {pallas}:1908", terms_sq_err, terms_sq_paths),
-        entry(cuda_phi.TERMS_SYM_KERNEL, "fused_phi_terms.cu",
-              f"{pallas}:2299 {pallas}:2240", terms_sym_err, terms_sym_paths),
+        entry(sq, "fused_phi.cu", f"{pallas}:365", square_err),
+        entry(sym, "fused_phi.cu", f"{pallas}:546", sym_err),
+        entry(t_sq, "fused_phi_terms.cu", f"{pallas}:1963 {pallas}:1908",
+              terms_sq_err),
+        entry(t_sym, "fused_phi_terms.cu", f"{pallas}:2299 {pallas}:2240",
+              terms_sym_err),
+        entry(aniso, "fused_phi_aniso.cu", f"{pallas}:3205", aniso_err),
+        entry(k15, "phi_rbf.cu", f"{pallas}:116", k15_err),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

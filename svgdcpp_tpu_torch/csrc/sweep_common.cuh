@@ -1,8 +1,9 @@
-// Device helpers shared by the fused sweeps (fused_phi.cu,
-// fused_phi_terms.cu): the pair's squared distance in the plain version's
-// order, threshold counting, the exact count flush, the upper-triangle
-// tile decode, and the dispatch from a runtime dimension m to a kernel
-// instance.
+// Device helpers shared by the sweeps (fused_phi.cu, fused_phi_terms.cu,
+// terms_sym.cuh, fused_phi_aniso.cu, phi_rbf.cu): the pair's squared
+// distance in the plain version's order, threshold counting, the exact
+// count flush, the upper-triangle tile decode, the signed-term combination
+// of the composed kernels, and the dispatch from a runtime dimension m to a
+// kernel instance.
 //
 // Kernel instances. A kernel is a template over <MM, kExact>: with kExact
 // the dimension is exactly MM (every loop over the coordinates is unrolled
@@ -11,7 +12,9 @@
 // predicates. Per-thread vectors are MM-long register arrays either way.
 // SVGD_DISPATCH_M picks the exact instance for m = 1..8, 11 and 50 (the
 // flagship, hierarchical-BLR and flat-BLR widths) and the runtime instance
-// with MM = 16, 32 or 64 for every other m up to 64.
+// with MM = 16, 32 or 64 for every other m up to 64. SVGD_DISPATCH_M_2_11,
+// for the kernels with fewer main paths, has exact instances for m = 2 and
+// 11 only and runtime ones with MM = 8, 16, 32 or 64.
 
 #pragma once
 
@@ -110,6 +113,62 @@ inline long long upper_pairs(int n, int tile) {
   return pairs > 0x7fffffffLL ? -1 : pairs;
 }
 
+// The composed kernels' triangle sweeps: tiles of 64 particles up to m = 12
+// and 32 above, so two padded pair tiles and four coordinate/score tiles
+// stay within 48 KB of static shared memory.
+template <int MM>
+struct SymTermsTile {
+  static constexpr int value = MM <= 12 ? 64 : 32;
+};
+
+// Signed RBF terms sharing one squared distance sq:
+//   k_c = sum_t s_t exp(-gamma_t sq),   w = sum_t s_t gamma_t exp(-gamma_t sq).
+constexpr int kMaxTerms = 16;  // MAX_RBF_TERMS of kernels/algebra.py
+
+struct TermSigns {
+  float s[kMaxTerms];
+};
+
+inline TermSigns make_signs(const float* signs, int nterms) {
+  TermSigns out{};
+  for (int t = 0; t < nterms; ++t) out.s[t] = signs[t];
+  return out;
+}
+
+// Per-term constants in shared memory (broadcast reads): -gamma_t log2(e),
+// s_t and s_t gamma_t. Called by every thread before the block's first
+// __syncthreads().
+__device__ __forceinline__ void load_terms(const float* __restrict__ gammas,
+                                           const TermSigns& signs, int nterms,
+                                           float* sh_g2, float* sh_sn,
+                                           float* sh_sg) {
+  for (int t = threadIdx.x; t < nterms; t += blockDim.x) {
+    const float g = gammas[t];
+    sh_g2[t] = -g * kLog2e;
+    sh_sn[t] = signs.s[t];
+    sh_sg[t] = signs.s[t] * g;
+  }
+}
+
+// (k_c, w) of one pair from its squared distance.
+__device__ __forceinline__ void combine_terms(float sq, int nterms,
+                                              const float* sh_g2,
+                                              const float* sh_sn,
+                                              const float* sh_sg, float* kc,
+                                              float* w) {
+  float a = 0.0f;
+  float b = 0.0f;
+#pragma unroll
+  for (int t = 0; t < kMaxTerms; ++t) {
+    if (t >= nterms) break;
+    const float kt = exp2f(sh_g2[t] * sq);
+    a = fmaf(sh_sn[t], kt, a);
+    b = fmaf(sh_sg[t], kt, b);
+  }
+  *kc = a;
+  *w = b;
+}
+
 }  // namespace svgd
 
 // LAUNCH(MM, kExact) for the instance that serves dimension m; an m outside
@@ -128,6 +187,24 @@ inline long long upper_pairs(int n, int tile) {
     case 50: LAUNCH(50, true); break;                                   \
     default:                                                            \
       if (m >= 9 && m <= 16) {                                          \
+        LAUNCH(16, false);                                              \
+      } else if (m >= 17 && m <= 32) {                                  \
+        LAUNCH(32, false);                                              \
+      } else if (m >= 33 && m <= svgd::kMaxM) {                         \
+        LAUNCH(64, false);                                              \
+      } else {                                                          \
+        return static_cast<int>(cudaErrorInvalidValue);                 \
+      }                                                                 \
+  }
+
+#define SVGD_DISPATCH_M_2_11(m, LAUNCH)                                 \
+  switch (m) {                                                          \
+    case 2: LAUNCH(2, true); break;                                     \
+    case 11: LAUNCH(11, true); break;                                   \
+    default:                                                            \
+      if (m >= 1 && m <= 8) {                                           \
+        LAUNCH(8, false);                                               \
+      } else if (m >= 9 && m <= 16) {                                   \
         LAUNCH(16, false);                                              \
       } else if (m >= 17 && m <= 32) {                                  \
         LAUNCH(32, false);                                              \

@@ -149,11 +149,12 @@ def split_iso_aniso_terms(terms, adaptive_slots, parameters):
 
 def fused_aniso_terms_supported(terms, adaptive_slots, parameters) -> bool:
     """True when the composition can run the ANISOTROPIC fused sweep
-    (kernel K14, not ported yet): flattenable, at least one adaptive slot,
-    every adaptive slot median-scaled, no division terms, and every term's
-    constant part C = sum(sign * P) PSD when the term has an adaptive slot
-    (C + gamma*I is then PD for any gamma > 0) and PD outright when it has
-    none, with a tolerance relative to C's largest eigenvalue."""
+    (kernel K14, ``fused_phi_aniso_terms_sym`` on the card): flattenable,
+    at least one adaptive slot, every adaptive slot median-scaled, no
+    division terms, and every term's constant part C = sum(sign * P) PSD
+    when the term has an adaptive slot (C + gamma*I is then PD for any
+    gamma > 0) and PD outright when it has none, with a tolerance relative
+    to C's largest eigenvalue."""
     if terms is None or not adaptive_slots:
         return False
     adaptive_idx = _median_slot_indices(adaptive_slots)

@@ -1,8 +1,7 @@
-"""Fused phi + median-count sweeps on the card: wrappers of the CUDA kernels.
+"""Fused phi sweeps on the card: wrappers of the CUDA kernels.
 
-Four hand-written Hopper kernels, built into one library, replace the
-Pallas kernels of the main path and of the composed-kernel path in
-``svgdcpp_tpu/ops/pallas_phi.py``:
+Six hand-written Hopper kernels, built into one library, replace the Pallas
+kernels of the package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
 
   * ``fused_phi_counts_square`` (``csrc/fused_phi.cu``) -- ``_fused_kernel``
     (K1), the square/cross sweep (each target row against every source).
@@ -14,16 +13,30 @@ Pallas kernels of the main path and of the composed-kernel path in
     the square/cross sweep of a signed sum of isotropic RBF terms.
   * ``fused_phi_terms_sym``     (``csrc/fused_phi_terms.cu``) --
     ``_sym_terms_direct_kernel`` and ``_sym_terms_kernel`` (K8, K9): its
-    upper-triangle sweep.
+    upper-triangle sweep, whose kernel is in ``csrc/terms_sym.cuh``.
+  * ``fused_phi_aniso_terms_sym`` (``csrc/fused_phi_aniso.cu``) --
+    ``_sym_aniso_terms_kernel`` (K14): the upper-triangle sweep of a
+    composed kernel with anisotropic (full-P) terms, the terms triangle
+    kernel's body under its own name, with one term group per anisotropic
+    term.
+  * ``phi_rbf_square``          (``csrc/phi_rbf.cu``) -- ``_phi_kernel``
+    (K15): the square sweep of one RBF with a full, fixed P, no counts.
 
-Each returns phi and the int64 counts of pair squared distances at or below
-each threshold, like ``ops/phi.phi_rbf_terms_cross_fused_counts``, their
-plain version. Every dimension 1 <= m <= MAX_M runs; above it the wrappers
-raise.
+The first five return phi and the int64 counts of pair squared distances at
+or below each threshold, like ``ops/phi.phi_rbf_terms_cross_fused_counts``
+and ``phi_rbf_aniso_terms_fused_counts``, their plain versions; the sixth
+returns phi, like ``ops/phi.phi_rbf_blocked``. Every dimension
+1 <= m <= MAX_M runs; above it the wrappers raise.
 
 Where the wrappers run: a tensor on the CPU goes to the plain version (the
 CPU tests use this); a tensor on a CUDA device launches the kernel or
 raises. There is no fallback from the card to the plain version.
+
+The quadratic forms of K14 and K15 come from rows prepared here in float64
+(``cholesky_rows``, ``eigen_rows``), so each kernel takes the difference
+form of its form. ``eigen_rows`` decomposes an (m, m) matrix on the host
+(``symmetric_eigen``) unless the caller passes the decomposition: the
+``cuda`` route reads P on the host once per step for a HESSIAN scale only.
 
 Each wrapper counts its kernel's launches in ``launch_counts`` (one plain
 integer per kernel), so a run can show that it went through the kernels.
@@ -39,6 +52,8 @@ import torch
 from ..kernels.algebra import MAX_RBF_TERMS
 from ..utils.cuda_build import CSRC_DIR, build_library, library_path
 from .phi import (
+    phi_rbf_aniso_terms_fused_counts,
+    phi_rbf_blocked,
     phi_rbf_cross_fused_counts,
     phi_rbf_fused_counts,
     phi_rbf_terms_cross_fused_counts,
@@ -50,24 +65,33 @@ from .phi import (
 #: starting point; the crossover on the card is still to be measured.
 SYM_MIN_N = 2048
 
-#: Largest dimension, threshold count and term count the kernels take.
+#: Largest dimension, threshold count and term count the kernels take, and
+#: the most anisotropic terms (gradient accumulators) K14's kernel takes:
+#: the JAX package's _ANISO_MAX_W.
 MAX_M = 64
 MAX_T = 8
 MAX_TERMS = MAX_RBF_TERMS
+MAX_ANISO_TERMS = 8
 
 SQUARE_KERNEL = "fused_phi_counts_square"
 SYM_KERNEL = "fused_phi_counts_sym"
 TERMS_SQUARE_KERNEL = "fused_phi_terms_square"
 TERMS_SYM_KERNEL = "fused_phi_terms_sym"
+ANISO_KERNEL = "fused_phi_aniso_terms_sym"
+PHI_RBF_KERNEL = "phi_rbf_square"
 
 #: Launches of each kernel since the last reset_launch_counts().
 launch_counts = {
     SQUARE_KERNEL: 0, SYM_KERNEL: 0, TERMS_SQUARE_KERNEL: 0,
-    TERMS_SYM_KERNEL: 0,
+    TERMS_SYM_KERNEL: 0, ANISO_KERNEL: 0, PHI_RBF_KERNEL: 0,
 }
 
 LIBRARY = "svgd_fused_phi"
-SOURCES = (CSRC_DIR / "fused_phi.cu", CSRC_DIR / "fused_phi_terms.cu")
+SOURCES = tuple(
+    CSRC_DIR / name
+    for name in ("fused_phi.cu", "fused_phi_terms.cu", "fused_phi_aniso.cu",
+                 "phi_rbf.cu")
+)
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -104,6 +128,9 @@ def load_library() -> ctypes.CDLL:
                     [ptr] * 5 + [i32, ptr] + [i32] * 4 + [ptr] * 3,
                 "svgd_fused_phi_terms_sym":
                     [ptr] * 4 + [i32, ptr] + [i32] * 3 + [ptr] * 3,
+                "svgd_fused_phi_aniso_terms_sym":
+                    [ptr] * 5 + [i32, ptr, i32, ptr] + [i32] * 3 + [ptr] * 3,
+                "svgd_phi_rbf_square": [ptr] * 3 + [i32] * 3 + [ptr] * 2,
             }
             for fn, argtypes in signatures.items():
                 getattr(lib, fn).argtypes = argtypes
@@ -137,31 +164,39 @@ def check_dimension(m: int) -> None:
         )
 
 
-def _device_operands(coords, scores, gammas, thresholds_sq):
-    """Validate the CUDA path's inputs and return float32 device operands
-    (gammas (nterms,), thresholds (T,)) without any host read."""
+def _check_pair(coords, scores):
     if coords.ndim != 2 or scores.shape != coords.shape:
         raise ValueError(
             f"coords and scores must both be (n, m); got {tuple(coords.shape)}"
             f" and {tuple(scores.shape)}"
         )
     check_dimension(coords.shape[1])
+    if scores.device != coords.device:
+        raise ValueError("coords and scores must share one device")
+
+
+def _device_operands(coords, scores, gammas, thresholds_sq, min_terms=1):
+    """Validate the CUDA path's inputs and return float32 device operands
+    (gammas (nterms,), or one zero for no term; thresholds (T,)) without
+    any host read."""
+    _check_pair(coords, scores)
     t = thresholds_sq.shape[0]
     if not 1 <= t <= MAX_T:
         raise ValueError(
             f"the CUDA sweeps take 1 <= T <= {MAX_T} thresholds, got T={t}"
         )
-    if not 1 <= len(gammas) <= MAX_TERMS:
+    if not min_terms <= len(gammas) <= MAX_TERMS:
         raise ValueError(
-            f"the CUDA sweeps take 1 to {MAX_TERMS} terms, got {len(gammas)}"
+            f"the CUDA sweeps take {min_terms} to {MAX_TERMS} terms, got "
+            f"{len(gammas)}"
         )
     device = coords.device
-    if scores.device != device or thresholds_sq.device != device:
+    if thresholds_sq.device != device:
         raise ValueError("coords, scores and thresholds must share one device")
     g = torch.stack([
         torch.as_tensor(gm, dtype=torch.float32, device=device).reshape(())
         for gm in gammas
-    ])
+    ]) if gammas else torch.zeros(1, dtype=torch.float32, device=device)
     thr = thresholds_sq.to(torch.float32).contiguous()
     return g, thr
 
@@ -180,6 +215,50 @@ def _host_signs(signs, nterms):
     return (ctypes.c_float * nterms)(*(float(s) for s in signs))
 
 
+def _centered32(coords):
+    """float32 coordinates centered on their mean (phi is
+    translation-invariant; the float32 cancellation guard of every sweep)."""
+    c32 = coords.to(torch.float32)
+    return c32 - c32.mean(dim=0)
+
+
+def cholesky_rows(coords_c, p_matrices):
+    """K14's operands: (z (T, n, m), L (T, m, m)) in float64, with
+    P_sym/2 = L_t L_t^T (P_sym = P_t + P_t^T) and z_t = coords_c L_t, so
+    ``|z_ti - z_tj|^2 = d^T P_t d`` for d = x_i - x_j.
+
+    ``torch.linalg.cholesky_ex`` does not read on the host; it does not
+    check either, so every P_t must be positive definite (the route's gate,
+    kernels/algebra.fused_aniso_terms_supported, proves it)."""
+    p = torch.stack([
+        torch.as_tensor(pm, device=coords_c.device).to(torch.float64)
+        for pm in p_matrices
+    ])
+    lower, _ = torch.linalg.cholesky_ex(0.5 * (p + p.transpose(-1, -2)))
+    return coords_c.to(torch.float64) @ lower, lower
+
+
+def symmetric_eigen(p_matrix):
+    """(lam (m,), V (m, m)) in float64 on the host, with
+    P_sym/2 = V diag(lam) V^T. On the card this reads P on the host: one
+    synchronisation."""
+    p = torch.as_tensor(p_matrix).to("cpu", torch.float64)
+    return torch.linalg.eigh(0.5 * (p + p.T))
+
+
+def eigen_rows(coords_c, p_matrix, eig=None):
+    """K15's operands: (z (n, m), lam (m,), V (m, m)) in float64, with
+    P_sym/2 = V diag(lam) V^T and z = coords_c V, so
+    ``sum_k lam_k (z_ik - z_jk)^2 = d^T P d`` for any P, indefinite too.
+
+    ``eig``: the caller's (lam, V) of P_sym/2, used as given (nothing is
+    read on the host); without it, ``symmetric_eigen(p_matrix)``."""
+    lam, v = symmetric_eigen(p_matrix) if eig is None else eig
+    lam = lam.to(coords_c.device, torch.float64)
+    v = v.to(coords_c.device, torch.float64)
+    return coords_c.to(torch.float64) @ v, lam, v
+
+
 def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq):
     """K1 (one positive term, ``signs`` None) or the terms square kernel."""
     g, thr = _device_operands(sources, scores, gammas, thresholds_sq)
@@ -189,8 +268,7 @@ def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq):
         raise ValueError("targets and sources must share one device")
     n_t, m = targets.shape
     n_s = sources.shape[0]
-    # phi is translation-invariant: center on the source mean (float32
-    # cancellation guard), as the plain version and the JAX wrapper do.
+    # Center on the source mean, as the plain version and the JAX wrapper do.
     src32 = sources.to(torch.float32)
     center = src32.mean(dim=0)
     tgt_c = (targets.to(torch.float32) - center).contiguous()
@@ -225,8 +303,7 @@ def _sym_launch(coords, scores, gammas, signs, thresholds_sq):
     """K2 (one positive term, ``signs`` None) or the terms triangle kernel."""
     g, thr = _device_operands(coords, scores, gammas, thresholds_sq)
     n, m = coords.shape
-    c32 = coords.to(torch.float32)
-    coords_c = (c32 - c32.mean(dim=0)).contiguous()
+    coords_c = _centered32(coords).contiguous()
     sc32 = scores.to(torch.float32).contiguous()
     acc = torch.zeros((2 * m, n), dtype=torch.float32, device=coords.device)
     upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=coords.device)
@@ -261,6 +338,76 @@ def _sym_launch(coords, scores, gammas, signs, thresholds_sq):
         phi = (a[:, :m] - sum(float(s) for s in signs) * sc32
                + 2.0 * a[:, m:]) / n
     return phi.to(coords.dtype), 2 * upper - n
+
+
+def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
+                  aniso_signs, thresholds_sq):
+    """K14: the anisotropic terms triangle kernel."""
+    g, thr = _device_operands(coords, scores, iso_gammas, thresholds_sq,
+                              min_terms=0)
+    n_aniso = len(aniso_ps)
+    if not 1 <= n_aniso <= MAX_ANISO_TERMS:
+        raise ValueError(
+            f"the anisotropic CUDA sweep takes 1 to {MAX_ANISO_TERMS} "
+            f"anisotropic terms, got {n_aniso}"
+        )
+    n, m = coords.shape
+    coords_c = _centered32(coords)
+    z64, lower = cholesky_rows(coords_c, aniso_ps)
+    coords_c = coords_c.contiguous()
+    z = z64.to(torch.float32).contiguous()
+    sc32 = scores.to(torch.float32).contiguous()
+    acc = torch.zeros((1 + n_aniso, 2 * m, n), dtype=torch.float32,
+                      device=coords.device)
+    upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=coords.device)
+    lib = load_library()
+    with torch.cuda.device(coords.device):
+        rc = lib.svgd_fused_phi_aniso_terms_sym(
+            coords_c.data_ptr(), z.data_ptr(), sc32.data_ptr(), g.data_ptr(),
+            _host_signs(iso_signs, len(iso_gammas)), len(iso_gammas),
+            _host_signs(aniso_signs, n_aniso), n_aniso, thr.data_ptr(), n, m,
+            thr.shape[0], acc.data_ptr(), upper.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _check_launch(rc, ANISO_KERNEL)
+    launch_counts[ANISO_KERNEL] += 1
+    # Epilogue: acc[g] = [KS_g | D_g]. The groups' KS add up; the self pairs
+    # (k = 1 for every term) entered KS in both directions, so subtract
+    # (sum s) s_i once. D_0 is the isotropic direction (weights already
+    # carry gamma); D_1+t = sum_j s_t k_t (z_ti - z_tj), and
+    # D_t P_sym = 2 D_1+t L_t^T (float64, never TF32).
+    s_total = sum(float(s) for s in iso_signs) + sum(
+        float(s) for s in aniso_signs
+    )
+    grad_aniso = torch.einsum(
+        "tkn,tlk->nl", acc[1:, m:].to(torch.float64), lower
+    )
+    phi = (acc[:, :m].sum(dim=0).T - s_total * sc32 + 2.0 * acc[0, m:].T
+           + 2.0 * grad_aniso.to(torch.float32)) / n
+    return phi.to(coords.dtype), 2 * upper - n
+
+
+def _phi_rbf_launch(coords, scores, p_matrix, psd, eig):
+    """K15: the fixed-P square kernel."""
+    _check_pair(coords, scores)
+    n, m = coords.shape
+    z64, lam, v = eigen_rows(_centered32(coords), p_matrix, eig)
+    z = z64.to(torch.float32).contiguous()
+    lam32 = lam.to(torch.float32).contiguous()
+    sc32 = scores.to(torch.float32).contiguous()
+    out = torch.zeros((2 * m, n), dtype=torch.float32, device=coords.device)
+    lib = load_library()
+    with torch.cuda.device(coords.device):
+        rc = lib.svgd_phi_rbf_square(
+            z.data_ptr(), sc32.data_ptr(), lam32.data_ptr(), n, m, int(psd),
+            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
+        )
+    _check_launch(rc, PHI_RBF_KERNEL)
+    launch_counts[PHI_RBF_KERNEL] += 1
+    # out = [KS | D_z]; D P_sym = 2 D_z diag(lam) V^T (float64).
+    grad = (out[m:].T.to(torch.float64) * lam) @ v.T
+    phi = (out[:m].T + 2.0 * grad.to(torch.float32)) / n
+    return phi.to(coords.dtype)
 
 
 def phi_rbf_fused_cuda(coords, scores, gamma, thresholds_sq, sym=None):
@@ -332,3 +479,49 @@ def phi_rbf_terms_fused_cuda_cross(targets, sources, source_scores, gammas,
     return _square_launch(
         targets, sources, source_scores, gammas, signs, thresholds_sq
     )
+
+
+def phi_rbf_aniso_terms_fused_cuda(coords, scores, iso_gammas, iso_signs,
+                                   aniso_ps, aniso_signs, thresholds_sq):
+    """Fused sweep of a composed kernel with anisotropic terms over one
+    particle set: phi of ``sum_iso s exp(-gamma sq) + sum_t s_t
+    exp(-d^T P_t d)`` and the counts of the Euclidean pair distances.
+
+    Counterpart of
+    ``svgdcpp_tpu.ops.pallas_phi.phi_rbf_aniso_terms_fused_pallas``, and
+    like it a triangle sweep at any n. ``iso_gammas`` are scalars (device
+    tensors on the card, never read on the host), ``aniso_ps`` (m, m)
+    precisions, each positive definite; the signs are Python numbers. On a
+    CUDA tensor: the kernel fused_phi_aniso_terms_sym, in float32; with no
+    anisotropic term (a hot-swap may leave none), the terms triangle kernel,
+    which computes the same function. On a CPU tensor: the plain
+    ``phi_rbf_aniso_terms_fused_counts``.
+    """
+    if coords.device.type == "cpu":
+        return phi_rbf_aniso_terms_fused_counts(
+            coords, scores, iso_gammas, iso_signs, aniso_ps, aniso_signs,
+            thresholds_sq,
+        )
+    _require_cuda(coords)
+    if not aniso_ps:
+        return _sym_launch(coords, scores, iso_gammas, iso_signs,
+                           thresholds_sq)
+    return _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
+                         aniso_signs, thresholds_sq)
+
+
+def phi_rbf_cuda(coords, scores, p_matrix, psd=True, eig=None):
+    """RBF phi with one full (m, m) precision P over one particle set.
+
+    Counterpart of ``svgdcpp_tpu.ops.pallas_phi.phi_rbf_pallas``: ``psd``
+    clamps the quadratic form at 0 (False for an indefinite P, such as a
+    HESSIAN scale). ``eig``: (lam, V) of P_sym/2 where the caller has it
+    (a P fixed over the run, or gamma I); without it the wrapper reads P on
+    the host to decompose it. On a CUDA tensor: the square kernel
+    phi_rbf_square, in float32. On a CPU tensor: the plain
+    ``phi_rbf_blocked`` (``eig`` unused).
+    """
+    if coords.device.type == "cpu":
+        return phi_rbf_blocked(coords, scores, p_matrix, psd=psd)
+    _require_cuda(coords)
+    return _phi_rbf_launch(coords, scores, p_matrix, psd, eig)

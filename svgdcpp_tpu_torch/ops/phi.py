@@ -17,6 +17,8 @@ loop SVGD.hpp:407-454):
                            giving phi and the median-selection counts. This
                            is the plain version of the CUDA kernels in
                            ``ops/cuda_phi.py``, which hold themselves to it.
+  * ``phi_rbf_aniso_terms_fused_counts`` -- the same for a composed kernel
+                           with anisotropic (full-P) terms.
 
 Index convention: K[i, j] = k(x_j, x_i), row i is the target particle.
 """
@@ -235,6 +237,8 @@ def phi_rbf_terms_cross_fused_counts(
         k_c = sum_t sign_t exp(-gamma_t sq)            (for K S)
         w   = sum_t sign_t gamma_t exp(-gamma_t sq)    (for the grad part)
 
+    With no term at all, phi is zero and the sweep gives the counts alone.
+
     Returns (phi (n_t, m) normalized by n_s, counts (E,) int64).
     """
     center = sources.mean(dim=0)
@@ -266,6 +270,8 @@ def phi_rbf_terms_cross_fused_counts(
             w_term = (s * g) * k_t
             k_c = k_term if k_c is None else k_c + k_term
             w = w_term if w is None else w + w_term
+        if k_c is None:  # no term
+            k_c = w = torch.zeros_like(sq)
         return k_c, w
 
     out = []
@@ -366,3 +372,39 @@ def phi_rbf_fused_counts(
     return phi_rbf_terms_cross_fused_counts(
         coords, coords, scores, [gamma], [1], thresholds_sq, row_tile
     )
+
+
+def phi_rbf_aniso_terms_fused_counts(
+    coords: torch.Tensor,
+    scores: torch.Tensor,
+    iso_gammas,
+    iso_signs,
+    aniso_ps,
+    aniso_signs,
+    thresholds_sq: torch.Tensor,
+    row_tile: int = 1024,
+):
+    """phi of a composed kernel with ANISOTROPIC terms and the counts of the
+    Euclidean pair distances: the plain version of the CUDA kernel
+    ``fused_phi_aniso_terms_sym`` (ops/cuda_phi.py), the counterpart of
+    ``svgdcpp_tpu.ops.pallas_phi.phi_rbf_aniso_terms_fused_pallas``.
+
+    The kernel is ``sum_iso s exp(-gamma sq) + sum_t s_t exp(-d^T P_t d)``.
+    phi is linear in k, so it is the isotropic terms' fused sweep
+    (:func:`phi_rbf_terms_fused_counts`, which also gives the counts with
+    its squared distances) plus each anisotropic term's signed closed-form
+    phi (:func:`phi_rbf_cross` with P_t, its form clamped at zero: the
+    route's gate proves every term positive definite). Both stream over row
+    tiles; float32 and float64 both run. Returns (phi (n, m), counts (E,)
+    int64).
+    """
+    phi, counts = phi_rbf_terms_fused_counts(
+        coords, scores, list(iso_gammas), list(iso_signs), thresholds_sq,
+        row_tile,
+    )
+    for p, sign in zip(aniso_ps, aniso_signs):
+        p = torch.as_tensor(p, dtype=coords.dtype, device=coords.device)
+        phi = phi + float(sign) * phi_rbf_cross(
+            coords, coords, scores, p, row_tile, psd=True
+        )
+    return phi, counts

@@ -26,13 +26,28 @@ Routes (``SVGDOptions.phi_impl``):
                       and whose constant slots are isotropic: the plain
                       sweep, and the CUDA terms kernels (the counterpart of
                       ``fused_terms_pallas``).
+  * ``fused_aniso_terms_cuda`` -- the fused lag-1 triangle sweep for a
+                      composition with anisotropic (full-matrix) constant
+                      slots, every term positive definite: the CUDA kernel
+                      K14's port (the counterpart of
+                      ``fused_aniso_terms_pallas``); its plain version on
+                      CPU tensors.
+  * ``cuda``       -- one RBF with a full P fixed over the step, through
+                      the CUDA square kernel (K15's port; the counterpart of
+                      the opt-in ``pallas``); ``phi_rbf_blocked`` on CPU
+                      tensors.
   * ``auto``       -- the JAX package's rule. On a CUDA device its TPU rule,
                       with CUDA_FUSED_MIN_PARTICLES and the CUDA routes in
                       place of the TPU ones; on the CPU its non-TPU rule.
 
 The other routes of the JAX package, ``SVGDOptions.mesh`` and intermediate
 matrix logging raise NotImplementedError naming the ROADMAP.md item that
-ports them; no other route is substituted.
+ports them; no other route is substituted. A JAX route name whose CUDA
+counterpart has another name raises ValueError naming it.
+
+Where it runs: a coordinate matrix that is a tensor keeps its device; any
+other (a numpy array, a list) goes to ``SVGDOptions.device``, the card by
+default. Without a CUDA device that default raises: pass ``device="cpu"``.
 
 On the fused routes each step reads ONE boolean on the host: whether the
 median bracket held (ops/median.fused_median_from_counts). When it did not,
@@ -48,7 +63,7 @@ import torch
 from torch.func import vmap
 
 from .core.exceptions import DimensionMismatchError, SVGD_LOG_PREFIX
-from .core.types import ParticleStore, as_store, as_tensor
+from .core.types import ParticleStore, as_coords, as_store, as_tensor
 from .kernels.algebra import (
     flatten_rbf_terms,
     fused_aniso_terms_supported,
@@ -57,16 +72,21 @@ from .kernels.algebra import (
     matrix_is_psd,
     refill_median_slots,
     split_iso_aniso_terms,
+    term_precision,
     term_psd_flags,
 )
 from .kernels.gaussian_rbf import GaussianRBFKernel, rbf_kernel_fn
 from .kernels.kernel import Kernel, _as_param_tuple
 from .models.model import Model, params_on
 from .ops.cuda_phi import (
+    MAX_ANISO_TERMS,
     SYM_MIN_N,
     check_dimension,
+    phi_rbf_aniso_terms_fused_cuda,
+    phi_rbf_cuda,
     phi_rbf_fused_cuda,
     phi_rbf_terms_fused_cuda,
+    symmetric_eigen,
 )
 from .ops.median import (
     fused_lag1_plan,
@@ -95,29 +115,76 @@ CUDA_FUSED_MIN_PARTICLES = 256
 #: ROADMAP.md item that ports each.
 _UNPORTED_ROUTES = {
     "generic": "item 9a (the generic route and phi_generic)",
-    "fused_aniso_terms_pallas": "slice 3, item 10 and kernel K14",
-    "pallas": "the opt-in kernel K15",
 }
 
 #: Routes of the JAX package whose CUDA counterpart has another name.
 _CUDA_NAMES = {
     "fused_pallas": "fused_cuda",
     "fused_terms_pallas": "fused_terms_cuda",
+    "fused_aniso_terms_pallas": "fused_aniso_terms_cuda",
+    "pallas": "cuda",
 }
 
 _ROUTES = (
     "dense", "blocked", "fused", "fused_cuda", "rbf_terms", "fused_terms",
-    "fused_terms_cuda",
+    "fused_terms_cuda", "fused_aniso_terms_cuda", "cuda",
 )
-_SINGLE_RBF_ROUTES = ("dense", "blocked", "fused", "fused_cuda")
-_TERMS_ROUTES = ("rbf_terms", "fused_terms", "fused_terms_cuda")
-_FUSED_ROUTES = ("fused", "fused_cuda", "fused_terms", "fused_terms_cuda")
+_SINGLE_RBF_ROUTES = ("dense", "blocked", "fused", "fused_cuda", "cuda")
+_TERMS_ROUTES = (
+    "rbf_terms", "fused_terms", "fused_terms_cuda", "fused_aniso_terms_cuda",
+)
+_FUSED_TERMS_ROUTES = (
+    "fused_terms", "fused_terms_cuda", "fused_aniso_terms_cuda",
+)
+_FUSED_ROUTES = ("fused", "fused_cuda") + _FUSED_TERMS_ROUTES
+_KERNEL_ROUTES = (
+    "fused_cuda", "fused_terms_cuda", "fused_aniso_terms_cuda", "cuda",
+)
+
+
+def _skip_section(name: str) -> None:
+    """SVGD.section_hook's stand-in when no one times the sections."""
 
 
 def _not_ported(what: str, where: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported to svgdcpp_tpu_torch yet (ROADMAP.md: {where})."
     )
+
+
+def _coords_store(coords, device) -> ParticleStore:
+    """The particle store of SVGDOptions.coordinate_matrix: a tensor (or a
+    store) keeps its device, the caller's choice; anything else goes to
+    ``device``. The card is never swapped for the CPU quietly."""
+    if isinstance(coords, ParticleStore) or torch.is_tensor(coords):
+        return as_store(coords)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            SVGD_LOG_PREFIX + "SVGDOptions.device is 'cuda' (the default) "
+            "and no CUDA device is available: pass device=\"cpu\" to run on "
+            "the CPU, or a coordinate tensor on the device of your choice."
+        )
+    return as_store(as_coords(coords, device=device))
+
+
+def _aniso_accumulators(split) -> int:
+    """Gradient accumulators of an iso/aniso term split: one shared by the
+    isotropic terms, one per anisotropic term."""
+    iso_idx, aniso_idx = split
+    return (1 if iso_idx else 0) + len(aniso_idx)
+
+
+def _check_aniso_split(split) -> None:
+    """Raise for a split the CUDA anisotropic sweep does not take."""
+    n_w = _aniso_accumulators(split)
+    if n_w > MAX_ANISO_TERMS:
+        raise ValueError(
+            "phi_impl='fused_aniso_terms_cuda' takes at most "
+            f"{MAX_ANISO_TERMS} gradient accumulators on a CUDA device (one "
+            "for the isotropic terms, one per anisotropic term), got "
+            f"{n_w}; use 'rbf_terms'."
+        )
 
 
 @dataclasses.dataclass
@@ -159,6 +226,9 @@ class SVGDOptions:
     #: Triangle (upper-triangle) kernel for 'fused_cuda': None picks it from
     #: ops/cuda_phi.SYM_MIN_N particles up; True/False force it on/off.
     fused_sym: Any = None
+    #: Where a coordinate matrix that is not a tensor goes: the card by
+    #: default ("cpu" to ask for the CPU). A tensor keeps its own device.
+    device: Any = "cuda"
 
 
 def _prepare_bound(bound, dimension, name) -> Optional[torch.Tensor]:
@@ -214,7 +284,9 @@ class SVGD:
             opts = SVGDOptions(**merged)
 
         self.options = opts
-        self.store: ParticleStore = as_store(opts.coordinate_matrix)
+        self.store: ParticleStore = _coords_store(
+            opts.coordinate_matrix, opts.device
+        )
         self.dimension = self.store.dimension
         self.num_particles = self.store.num_particles
         self.num_iterations = int(opts.num_iterations)
@@ -252,6 +324,11 @@ class SVGD:
         self.log_intermediate_matrices = bool(opts.log_intermediate_matrices)
         self.intermediate_matrices_output_path = opts.intermediate_matrices_output_path
         self.mesh = opts.mesh
+        #: Called with each section's name as the step ends it (scores,
+        #: plan, sweep, median, optimizer on the fused routes; scores,
+        #: scale, sweep, optimizer on the others), for a profiler to time
+        #: the driver's own step. Read when the step is built.
+        self.section_hook = None
         self._initialized = False
 
     # ------------------------------------------------------------------
@@ -323,6 +400,20 @@ class SVGD:
                 "pure GaussianRBFKernels (see kernels/algebra.py)."
             )
         params = self.kernel.parameters
+        if impl == "fused_aniso_terms_cuda":
+            if not fused_aniso_terms_supported(
+                self._rbf_terms, self._adaptive_slots, params
+            ):
+                raise ValueError(
+                    "phi_impl='fused_aniso_terms_cuda' requires "
+                    "median-scaled adaptive slots, no division terms, and "
+                    "every term's effective precision positive definite; "
+                    "use 'rbf_terms' for the general case."
+                )
+            if on_cuda:
+                _check_aniso_split(split_iso_aniso_terms(
+                    self._rbf_terms, self._adaptive_slots, params
+                ))
         if impl in ("fused_terms", "fused_terms_cuda"):
             if not fused_terms_eligible(
                 self._rbf_terms, self._adaptive_slots, params
@@ -350,7 +441,7 @@ class SVGD:
                 "phi_impl='fused' requires ScaleMethod.MEDIAN (the fused "
                 "sweep produces median-selection counts)."
             )
-        if impl in ("fused_cuda", "fused_terms_cuda"):
+        if impl in _KERNEL_ROUTES:
             if opts.fused_dot_dtype != "float32":
                 raise _not_ported(
                     f"fused_dot_dtype={opts.fused_dot_dtype!r}",
@@ -390,12 +481,7 @@ class SVGD:
             if n > threshold and eligible:
                 return "fused_terms_cuda" if kernel_route else "fused_terms"
             if on_cuda and self._aniso_terms_kernel_route():
-                raise _not_ported(
-                    "phi_impl='auto' for an anisotropic composed kernel at "
-                    f"n={n} (the JAX package's fused_aniso_terms_pallas "
-                    "route)",
-                    _UNPORTED_ROUTES["fused_aniso_terms_pallas"],
-                )
+                return "fused_aniso_terms_cuda"
             return "rbf_terms"
         if not self._is_rbf:
             raise _not_ported(
@@ -420,11 +506,14 @@ class SVGD:
             self._rbf_terms, self._adaptive_slots, params
         ):
             return False
-        iso_idx, aniso_idx = split_iso_aniso_terms(
+        split = split_iso_aniso_terms(
             self._rbf_terms, self._adaptive_slots, params
         )
-        n_w = (1 if iso_idx else 0) + len(aniso_idx)
-        return bool(aniso_idx) and n_w <= 8 and self.num_particles >= SYM_MIN_N
+        return (
+            bool(split[1])
+            and _aniso_accumulators(split) <= MAX_ANISO_TERMS
+            and self.num_particles >= SYM_MIN_N
+        )
 
     def _refresh_psd(self):
         """PSD-ness of the quadratic forms the closed-form routes clamp:
@@ -492,7 +581,35 @@ class SVGD:
                 coords, scores, kparams[0], self.options.row_tile,
                 psd=self._rbf_psd,
             )
+        if self._phi_impl == "cuda":
+            return phi_rbf_cuda(
+                coords, scores, kparams[0], psd=self._rbf_psd,
+                eig=self._fixed_p_eigen(kparams[0]),
+            )
         raise ValueError(f"unknown phi_impl {self._phi_impl!r}")
+
+    def _fixed_p_eigen(self, p):
+        """(lam, V) of P_sym/2 for the 'cuda' route where it needs no host
+        read each step: a MEDIAN scale is gamma I, so (its diagonal, I) on
+        the device; a CONSTANT P is decomposed once and kept while the step
+        carries the same tensor (a hot-swap or a new run() may bring a new
+        one). None for a HESSIAN scale, which changes every step: the
+        wrapper decomposes it on the host."""
+        method = self.kernel.scale_method
+        if method == GaussianRBFKernel.ScaleMethod.MEDIAN:
+            return p.diagonal(), torch.eye(
+                p.shape[0], dtype=p.dtype, device=p.device
+            )
+        if method == GaussianRBFKernel.ScaleMethod.CONSTANT:
+            cached = getattr(self, "_constant_eigen", None)
+            if cached is None or cached[0] is not p:
+                # Kept on P's device: a copy from the host each step would
+                # synchronise as the read does.
+                self._constant_eigen = (p, tuple(
+                    t.to(p.device) for t in symmetric_eigen(p)
+                ))
+            return self._constant_eigen[1]
+        return None
 
     def _scale_params(self, coords, mparams, kparams, scale_aux, slot_mparams):
         """Per-step bandwidth adaptation (reference kernel Step(),
@@ -536,15 +653,24 @@ class SVGD:
             for b in (self.lower_bound, self.upper_bound)
         ]
         fused = self._phi_impl in _FUSED_ROUTES
-        fused_terms = self._phi_impl in ("fused_terms", "fused_terms_cuda")
-        on_kernels = self._phi_impl in ("fused_cuda", "fused_terms_cuda")
+        fused_terms = self._phi_impl in _FUSED_TERMS_ROUTES
+        fused_aniso = self._phi_impl == "fused_aniso_terms_cuda"
+        on_kernels = self._phi_impl in _KERNEL_ROUTES
         fused_bins = int(self.options.fused_bins)
         if fused_terms:
             median_slot_idx = [idx for idx, _ in self._adaptive_slots]
             term_signs = [s for s, _ in self._rbf_terms]
             term_plists = [p for _, p in self._rbf_terms]
+        if fused_aniso:
+            # Which terms are anisotropic is fixed for the step built here;
+            # a hot-swap that changes it rebuilds the step.
+            self._aniso_split = split_iso_aniso_terms(
+                self._rbf_terms, self._adaptive_slots, self.kernel.parameters
+            )
+            iso_idx, aniso_idx = self._aniso_split
         row_tile = self.options.row_tile
         track_stats = self.options.track_stats
+        section = self.section_hook or _skip_section
 
         def step_fn(state, _=None):
             coords = state["coords"]
@@ -559,6 +685,7 @@ class SVGD:
                 scores = scores * torch.as_tensor(
                     tau, dtype=scores.dtype, device=scores.device
                 )
+            section("scores")
             if fused:
                 # ONE O(n^2) sweep: phi with the PREVIOUS step's verified
                 # median (lag-1) + this step's selection counts.
@@ -580,7 +707,18 @@ class SVGD:
                         gamma
                         * torch.eye(m, dtype=coords.dtype, device=coords.device),
                     )
-                if fused_terms and on_kernels:
+                section("plan")
+                if fused_aniso:
+                    phi, counts = phi_rbf_aniso_terms_fused_cuda(
+                        coords, scores,
+                        [gammas[i] for i in iso_idx],
+                        [term_signs[i] for i in iso_idx],
+                        [term_precision(term_plists[i], kparams)
+                         for i in aniso_idx],
+                        [term_signs[i] for i in aniso_idx],
+                        thresholds,
+                    )
+                elif fused_terms and on_kernels:
                     phi, counts = phi_rbf_terms_fused_cuda(
                         coords, scores, gammas, term_signs, thresholds,
                         sym=self.options.fused_sym,
@@ -599,6 +737,7 @@ class SVGD:
                     phi, counts = phi_rbf_fused_counts(
                         coords, scores, gamma, thresholds, row_tile
                     )
+                section("sweep")
                 med_new, lo1, hi1, lo2, hi2, fell_back = fused_median_from_counts(
                     counts, sel, n * n, coords,
                     initialized=aux["hi1"] >= aux["lo1"], row_tile=row_tile,
@@ -615,12 +754,15 @@ class SVGD:
                         "disp": aux["disp"],
                     },
                 )
+                section("median")
             else:
                 kparams, scale_aux = self._scale_params(
                     coords, mparams, state["kernel_params"], state["scale_aux"],
                     state["slot_model_params"],
                 )
+                section("scale")
                 phi = self._phi(coords, scores, kparams)
+                section("sweep")
             # getattr: duck-typed user optimizers need not subclass Optimizer
             if getattr(self.optimizer, "needs_params", False):
                 opt_state, inc = self.optimizer.step(
@@ -671,6 +813,7 @@ class SVGD:
                     ),
                     "bandwidth": bandwidth,
                 }
+            section("optimizer")
             return new_state, stats
 
         return step_fn
@@ -718,7 +861,7 @@ class SVGD:
             # {med, lo, hi, disp}: the INITIAL positions' median seeds the
             # lag-1 fused pipeline.
             return (self.kernel.init_fused_aux(coords),)
-        if self._phi_impl in ("fused_terms", "fused_terms_cuda"):
+        if self._phi_impl in _FUSED_TERMS_ROUTES:
             # Composed kernel: the same seed, computed at the root with the
             # first adaptive leaf's median_method.
             method = self._adaptive_slots[0][1].median_method
@@ -801,6 +944,22 @@ class SVGD:
         # Validate against the PROSPECTIVE values before mutating the
         # kernel: a rejected swap leaves the running driver untouched.
         new_params = _as_param_tuple(params)
+        new_split = None
+        if self._phi_impl == "fused_aniso_terms_cuda":
+            if not fused_aniso_terms_supported(
+                self._rbf_terms, self._adaptive_slots, new_params
+            ):
+                raise ValueError(
+                    "phi_impl='fused_aniso_terms_cuda' requires every "
+                    "term's effective precision to stay positive definite; "
+                    "the swapped parameters violate that. Rebuild with "
+                    "phi_impl='rbf_terms'."
+                )
+            new_split = split_iso_aniso_terms(
+                self._rbf_terms, self._adaptive_slots, new_params
+            )
+            if self.store.value.device.type == "cuda":
+                _check_aniso_split(new_split)
         if self._phi_impl in ("fused_terms", "fused_terms_cuda"):
             # The fused-terms sweep reads each constant slot as gamma =
             # P[0, 0]; an anisotropic swap would be silently truncated.
@@ -825,8 +984,11 @@ class SVGD:
         self.kernel.update_parameters(new_params)
         self.kernel.initialize()
         # The step reads the PSD flags when it runs, so re-deriving them is
-        # enough (the JAX package rebuilds its compiled step instead).
+        # enough (the JAX package rebuilds its compiled step instead); the
+        # iso/aniso split is fixed in the step, so a new one rebuilds it.
         self._refresh_psd()
+        if new_split is not None and new_split != self._aniso_split:
+            self._step_fn = self.build_step_fn()
 
     def update_model_parameters(self, params):
         self.model.update_parameters(params)

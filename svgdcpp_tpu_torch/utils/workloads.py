@@ -2,10 +2,15 @@
 
 The flagship MVN configuration (the reference mvn_example target,
 examples/multivariate_normal/mvn_example.cpp:9-35), with the same constants
-and the same seeded x0 as ``svgdcpp_tpu.utils.workloads``, and the BLR
+and the same seeded x0 as ``svgdcpp_tpu.utils.workloads``; the BLR
 workloads of ``bench.py --config blr|hier`` (BASELINE configs 3-4) with the
-bench's data, x0 and constants. They are repeated here because importing
-the JAX package or the bench would import ``jax``.
+bench's data, x0 and constants; and the anisotropic composed-kernel
+posterior of ``scripts/check_aniso_posterior.py`` with its draws. They are
+repeated here because importing the JAX package, the bench or the script
+would import ``jax``.
+
+The builders follow the drivers' rule: an ``x0`` that is a tensor keeps its
+device, any other goes to ``device``, the card by default.
 """
 
 from __future__ import annotations
@@ -50,12 +55,12 @@ def blr_workload(particles: int, dim: int, n_data: int = 1024,
 
 
 def build_blr_svgd(x0, features, labels, hierarchical=False,
-                   phi_impl="auto", num_iterations=100):
+                   phi_impl="auto", num_iterations=100, device="cuda"):
     """The bench's BLR / hierarchical-BLR driver (bench.py:383-412), built
     on this package and initialized: flat BLR with prior precision 0.1 and
     a median RBF kernel, or hierarchical BLR with the composed kernel
     median RBF + 0.1 * I; Adam in both. ``x0`` may be a tensor (its device
-    and dtype are kept) or an array."""
+    and dtype are kept) or an array (it goes to ``device``)."""
     import svgdcpp_tpu_torch as st
 
     particles, full_dim = x0.shape
@@ -80,7 +85,64 @@ def build_blr_svgd(x0, features, labels, hierarchical=False,
                 full_dim, particles, BLR_ADAM["lr"], BLR_ADAM["beta1"],
                 BLR_ADAM["beta2"],
             ),
-            phi_impl=phi_impl,
+            phi_impl=phi_impl, device=device,
+        )
+    )
+    return svgd.initialize()
+
+
+#: AdaGrad's learning rate of the anisotropic posterior check
+#: (scripts/check_aniso_posterior.py:66).
+ANISO_ADAGRAD_LR = 0.05
+
+
+def aniso_mvn_workload(num_particles: int, seed: int = 7, dim: int = 11):
+    """(mean, cov, x0, p_aniso) of scripts/check_aniso_posterior.py:76-89,
+    drawn in its order from ``default_rng(seed)``: cov = I + A A^T with
+    A ~ 0.3 N(0, 1); mean ~ N(0, 1); x0 ~ 2 N(0, 1) as float32; the
+    constant kernel slot P = 0.05 I + B B^T with B ~ 0.1 N(0, 1), a full PD
+    matrix. The script runs num_particles = 10240; P is drawn after x0, so
+    it depends on the particle count."""
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(dim, dim)) * 0.3
+    cov = np.eye(dim) + a @ a.T
+    mean = rng.normal(size=dim)
+    x0 = (rng.normal(size=(num_particles, dim)) * 2).astype(np.float32)
+    b = rng.normal(size=(dim, dim)) * 0.1
+    p_aniso = 0.05 * np.eye(dim) + b @ b.T
+    return mean, cov, x0, p_aniso
+
+
+def build_aniso_svgd(x0, mean, cov, p_aniso, phi_impl="auto",
+                     num_iterations=100, device="cuda", kernel_scale=None):
+    """The anisotropic posterior check's driver
+    (scripts/check_aniso_posterior.py:51-69), initialized: an MVN target
+    (mean and cov as float32), the composed kernel median RBF + RBF with
+    the constant full matrix ``p_aniso`` (float32), AdaGrad lr 0.05.
+    ``kernel_scale`` replaces the median RBF by one with that scale method
+    (a ScaleMethod) and no constant term. ``x0`` may be a tensor (its device
+    and dtype are kept) or an array (it goes to ``device``)."""
+    import svgdcpp_tpu_torch as st
+
+    particles, dim = x0.shape
+    model = st.MultivariateNormal(
+        np.asarray(mean, np.float32), np.asarray(cov, np.float32)
+    )
+    if kernel_scale is None:
+        kernel = st.GaussianRBFKernel(
+            x0, st.ScaleMethod.MEDIAN, model
+        ) + st.GaussianRBFKernel(
+            x0, st.ScaleMethod.CONSTANT,
+            constant_scale=np.asarray(p_aniso, np.float32),
+        )
+    else:
+        kernel = st.GaussianRBFKernel(x0, kernel_scale, model)
+    svgd = st.SVGD(
+        st.SVGDOptions(
+            dimension=dim, num_iterations=num_iterations,
+            coordinate_matrix=x0, kernel=kernel, model=model,
+            optimizer=st.AdaGrad(dim, particles, ANISO_ADAGRAD_LR),
+            phi_impl=phi_impl, device=device,
         )
     )
     return svgd.initialize()

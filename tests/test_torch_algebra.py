@@ -6,7 +6,8 @@
   compositions built in each package.
 * The per-composition predicates (fused_terms_eligible,
   fused_terms_statically_positive, term_psd_flags, split_iso_aniso_terms,
-  fused_aniso_terms_supported, matrix_is_psd) equal the JAX ones, and
+  fused_aniso_terms_supported, matrix_is_psd) equal the JAX ones, on
+  compositions that include tests/test_pallas.py:1418-1503's, and
   refill_median_slots gives the same parameters and term gammas (float64,
   exactly: the same few scalar operations).
 """
@@ -103,6 +104,18 @@ COMPOSITIONS = {
     "hessian_plus_iso": lambda pkg: hessian(pkg) + const(pkg, 0.1 * np.eye(M)),
     "two_medians": lambda pkg: median(pkg) + median(pkg),
     "consts_only": lambda pkg: (lambda a, b: a + b)(*consts(pkg, 2)),
+    # tests/test_pallas.py:1418-1503: two isotropic terms and one
+    # anisotropic; a PSD singular constant part under a product (PD for
+    # every median gamma); a singular constant-only term (not PD)
+    "median_plus_aniso_plus_iso": lambda pkg: median(pkg) + const(
+        pkg, spd(4, 0.2)
+    ) + const(pkg, 0.3 * np.eye(M)),
+    "median_times_psd_singular": lambda pkg: median(pkg) * const(
+        pkg, np.diag([1.0, 0.0, 0.3])
+    ),
+    "median_plus_singular": lambda pkg: median(pkg) + const(
+        pkg, np.diag([0.5, 0.0, 0.2])
+    ),
 }
 
 

@@ -115,7 +115,7 @@ def test_driver_five_adam_steps_match_jax(n, d, hierarchical, route):
     sj = bench.build_blr_svgd(x0, feats, labels, hierarchical=hierarchical,
                               steps_per_call=5)
     s_t = build_blr_svgd(x0, feats, labels, hierarchical=hierarchical,
-                         num_iterations=5)
+                         num_iterations=5, device="cpu")
     assert sj._phi_impl == s_t._phi_impl == route
     out_j = np.asarray(sj.run())
     out_t = s_t.run().numpy()
@@ -140,7 +140,7 @@ def test_one_step_from_converted_hier_state(n, route):
     sj = bench.build_blr_svgd(x0, feats, labels, hierarchical=True,
                               steps_per_call=1)
     s_t = build_blr_svgd(x0, feats, labels, hierarchical=True,
-                         num_iterations=1)
+                         num_iterations=1, device="cpu")
     assert sj._phi_impl == s_t._phi_impl == route
     sj.run()  # a non-zero Adam state and count to carry across
     np_state = jax.device_get(sj.make_state())
@@ -176,7 +176,8 @@ def test_float32_coords_with_float64_data(hierarchical):
     out32 = s32.run()
     assert out32.dtype == torch.float32
     s64 = build_blr_svgd(x0.astype(np.float64), feats, labels,
-                         hierarchical=hierarchical, num_iterations=4)
+                         hierarchical=hierarchical, num_iterations=4,
+                         device="cpu")
     np.testing.assert_allclose(
         out32.double().numpy(), s64.run().numpy(), rtol=0, atol=1e-4
     )

@@ -1,13 +1,16 @@
 """What importing svgdcpp_tpu_torch does and does not do, on a machine
 without a CUDA device: no jax, no triton, no kernel build, no change to
-torch's global settings; and a CUDA-only call raises instead of computing
-on the CPU."""
+torch's global settings; a CUDA-only call raises instead of computing on
+the CPU; and an installed package carries every file its kernels' build
+reads."""
 
+import fnmatch
 import os
 import re
 import shutil
 import subprocess
 import sys
+import tomllib
 from pathlib import Path
 
 import pytest
@@ -74,7 +77,32 @@ def test_non_cpu_tensor_never_falls_back_to_the_plain_version():
         cuda_phi.phi_rbf_terms_fused_cuda(x, x, [0.5, 0.1], (1, 1), thr)
     with pytest.raises(ValueError, match="CUDA device"):
         cuda_phi.phi_rbf_terms_fused_cuda_cross(x, x, x, [0.5], (1,), thr)
+    p = torch.eye(2, device="meta")
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_phi.phi_rbf_aniso_terms_fused_cuda(x, x, [0.5], (1,), [p], (1,),
+                                                thr)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_phi.phi_rbf_cuda(x, x, p)
     assert not cuda_phi.library_loaded()
+
+
+def test_package_data_covers_every_kernel_include():
+    """Every source the build compiles, and every file a csrc/ source
+    includes with #include "...", matches a package-data glob of
+    pyproject.toml, so an installed package can build its kernels."""
+    config = tomllib.loads((REPO / "pyproject.toml").read_text())
+    globs = config["tool"]["setuptools"]["package-data"]["svgdcpp_tpu_torch"]
+    package = REPO / "svgdcpp_tpu_torch"
+    csrc = package / "csrc"
+    needed = {src.relative_to(package).as_posix() for src in cuda_phi.SOURCES}
+    for src in csrc.iterdir():
+        for name in re.findall(r'^\s*#include\s+"([^"]+)"', src.read_text(),
+                               re.M):
+            assert (csrc / name).is_file(), (src.name, name)
+            needed.add(f"csrc/{name}")
+    assert "csrc/sweep_common.cuh" in needed
+    for rel in sorted(needed):
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), (rel, globs)
 
 
 def test_chip_smoke_fails_without_a_card_or_alone(tmp_path):

@@ -18,6 +18,12 @@
   m=3, signs (1, -1)) square, (n=600, m=11) triangle and a cross case:
   phi rtol 2e-4, atol 2e-6 (tests/test_pallas.py's bound for that kernel);
   counts as above.
+* K15's wrapper phi_rbf_cuda on CPU tensors (phi_rbf_blocked) and the dense
+  phi_rbf against phi_rbf_pallas in interpret mode, float32, on
+  tests/test_pallas.py's cases: n = 100 and 517, ragged n = 73, and an
+  indefinite P with psd=False: rtol 2e-4, atol 2e-5 (5e-4, 5e-6 for the
+  indefinite P); off origin (+200) against the f64 dense phi: 2e-3
+  relative. The JAX package's own tolerances for those cases.
 """
 
 import jax.numpy as jnp
@@ -244,6 +250,46 @@ def test_terms_cuda_cross_on_cpu_vs_pallas_interpret():
     _check_kernel_pair(got, want, 500, 11, atol=2e-6)
 
 
+K15_P = np.array([[0.7, 0.1], [0.1, 0.5]])
+
+
+@pytest.mark.parametrize("n,p,tiles,psd,rtol,atol", [
+    (100, K15_P, (64, 128), True, 2e-4, 2e-5),
+    (517, K15_P, (64, 128), True, 2e-4, 2e-5),
+    (73, 0.4 * np.eye(2), (32, 32), True, 2e-4, 2e-5),
+    (64, np.array([[0.4, 0.0], [0.0, -0.3]]), (512, 1024), False, 5e-4,
+     5e-6),
+])
+def test_phi_rbf_cuda_on_cpu_vs_phi_rbf_pallas(n, p, tiles, psd, rtol, atol):
+    x, s = inputs(n, 2, seed=n, dtype=np.float32)
+    p = p.astype(np.float32)
+    want = pj.phi_rbf_pallas(
+        jnp.asarray(x), jnp.asarray(s), jnp.asarray(p), tile_i=tiles[0],
+        tile_j=tiles[1], psd=psd, interpret=True,
+    )
+    args = (torch.from_numpy(x), torch.from_numpy(s), torch.from_numpy(p))
+    for got in (cuda_phi.phi_rbf_cuda(*args, psd=psd),
+                pht.phi_rbf(*args, psd=psd)):
+        assert got.dtype == torch.float32
+        assert_close(got, want, rtol=rtol, atol=atol)
+
+
+def test_phi_rbf_cuda_on_cpu_off_origin():
+    x, s = inputs(96, 2, offset=200.0, seed=96, dtype=np.float32)
+    p = np.float32(np.log(96) / 2.0) * np.eye(2, dtype=np.float32)
+    want = np.asarray(phj.phi_rbf(
+        jnp.asarray(x, jnp.float64), jnp.asarray(s, jnp.float64),
+        jnp.asarray(p, jnp.float64),
+    ))
+    for got in (
+        pj.phi_rbf_pallas(jnp.asarray(x), jnp.asarray(s), jnp.asarray(p),
+                          tile_i=32, tile_j=32, interpret=True),
+        cuda_phi.phi_rbf_cuda(*map(torch.from_numpy, (x, s, p))),
+    ):
+        rel = np.abs(np.asarray(got) - want).max() / np.abs(want).max()
+        assert rel < 2e-3, rel
+
+
 def test_dimension_limit_names_the_roadmap():
     for m in (1, 11, 50, cuda_phi.MAX_M):
         cuda_phi.check_dimension(m)
@@ -273,8 +319,15 @@ def test_resolve_sym_and_launch_counts_on_cpu():
         torch.from_numpy(x[:5]), torch.from_numpy(x), torch.from_numpy(s),
         [0.5], (1,), torch.tensor([1.0]),
     )
+    p = torch.eye(2, dtype=torch.float64)
+    cuda_phi.phi_rbf_aniso_terms_fused_cuda(
+        torch.from_numpy(x), torch.from_numpy(s), [0.5], (1,), [p], (1,),
+        torch.tensor([1.0]),
+    )
+    cuda_phi.phi_rbf_cuda(torch.from_numpy(x), torch.from_numpy(s), p)
     assert set(cuda_phi.launch_counts) == {
         cuda_phi.SQUARE_KERNEL, cuda_phi.SYM_KERNEL,
         cuda_phi.TERMS_SQUARE_KERNEL, cuda_phi.TERMS_SYM_KERNEL,
+        cuda_phi.ANISO_KERNEL, cuda_phi.PHI_RBF_KERNEL,
     }
     assert all(v == 0 for v in cuda_phi.launch_counts.values())

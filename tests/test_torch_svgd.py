@@ -19,6 +19,13 @@
   routes); 'fused_terms_cuda' on CPU tensors equal to 'fused_terms'; the
   hot-swap's rejections with the JAX package's messages, and an accepted
   swap followed by more steps against the JAX package (rtol 1e-9).
+* Where the driver runs: numpy coordinates go to SVGDOptions.device, the
+  card by default (raising without one); the tests ask for the CPU with
+  device="cpu" or a CPU tensor. The JAX names of the kernel routes name
+  their CUDA counterparts.
+* The 'cuda' route (K15's port) on CPU tensors against the JAX package's
+  'pallas' route (interpret mode), float32, 3 AdaGrad steps at n=300: d=2
+  MEDIAN and d=5 HESSIAN, rtol 2e-3, atol 2e-4.
 """
 
 import jax
@@ -40,6 +47,18 @@ MEAN = np.array([-0.6871, 0.8010])
 COV = 5.0 * np.array([[0.2260, 0.1652], [0.1652, 0.6779]])
 
 
+def on_cpu(pkg):
+    """SVGDOptions keywords that put the port on the CPU (its default device
+    is the card); the JAX package takes none."""
+    return {"device": "cpu"} if pkg is st else {}
+
+
+def coords_for(pkg, x0):
+    """x0 as the positional constructor takes it: a CPU tensor for the
+    port, which keeps a tensor's device."""
+    return torch.from_numpy(x0) if pkg is st else x0
+
+
 def build(pkg, x0, iters, impl="auto", optimizer=None, **kw):
     n, dim = x0.shape
     model = pkg.MultivariateNormal(MEAN.astype(x0.dtype), COV.astype(x0.dtype))
@@ -47,7 +66,8 @@ def build(pkg, x0, iters, impl="auto", optimizer=None, **kw):
     opt = optimizer(pkg) if optimizer else pkg.AdaGrad(dim, n, 0.1)
     opts = pkg.SVGDOptions(
         dimension=dim, num_iterations=iters, coordinate_matrix=x0.copy(),
-        kernel=kernel, model=model, optimizer=opt, phi_impl=impl, **kw
+        kernel=kernel, model=model, optimizer=opt, phi_impl=impl, **kw,
+        **on_cpu(pkg),
     )
     return pkg.SVGD(opts).initialize()
 
@@ -116,6 +136,7 @@ def test_flagship_config_twenty_steps():
         svgd = pkg.SVGD(pkg.SVGDOptions(
             dimension=2, num_iterations=20, coordinate_matrix=x0.copy(),
             kernel=kernel, model=model, optimizer=pkg.AdaGrad(2, 1500, 0.1),
+            **on_cpu(pkg),
         )).initialize()
         return np.asarray(svgd.run()), svgd
 
@@ -136,7 +157,7 @@ def test_fused_cuda_on_cpu_vs_fused_pallas_interpret():
         svgd = pkg.SVGD(pkg.SVGDOptions(
             dimension=2, num_iterations=3, coordinate_matrix=x0.copy(),
             kernel=kernel, model=model, optimizer=pkg.AdaGrad(2, n, 0.1),
-            phi_impl=impl,
+            phi_impl=impl, **on_cpu(pkg),
         )).initialize()
         return np.asarray(svgd.run())
 
@@ -198,7 +219,8 @@ def test_hot_swap_and_continued_run_match_jax():
         kernel = pkg.GaussianRBFKernel(
             x0.copy(), pkg.ScaleMethod.CONSTANT, constant_scale=p
         )
-        svgd = pkg.SVGD(2, 4, x0.copy(), kernel, model, pkg.AdaGrad(2, 64, 0.1))
+        svgd = pkg.SVGD(2, 4, coords_for(pkg, x0.copy()), kernel, model,
+                        pkg.AdaGrad(2, 64, 0.1))
         svgd.Initialize()
         svgd.Run()
         svgd.UpdateKernelParameters((0.9 * np.eye(2),))
@@ -221,7 +243,7 @@ def test_custom_hooks_run_each_iteration():
     kernel = st.GaussianRBFKernel(x0, st.ScaleMethod.MEDIAN, model)
     svgd = st.SVGD(st.SVGDOptions(
         dimension=2, num_iterations=3, coordinate_matrix=x0, kernel=kernel,
-        model=model, optimizer=st.AdaGrad(2, 32, 0.1),
+        model=model, optimizer=st.AdaGrad(2, 32, 0.1), device="cpu",
     )).initialize()
     svgd.run()
     assert len(calls) == 3 and svgd._iteration == 3
@@ -243,17 +265,20 @@ def test_constructor_validation_matches_jax():
         model = pkg.MultivariateNormal(MEAN, COV)
         return model, pkg.GaussianRBFKernel(x0, pkg.ScaleMethod.MEDIAN), pkg.AdaGrad(2, 8, 0.1)
 
-    _error_pair(lambda pkg: pkg.SVGD(3, 1, x0, *parts(pkg)[1::-1], parts(pkg)[2]))
-    _error_pair(lambda pkg: pkg.SVGD(2, 1, x0, None, parts(pkg)[0], parts(pkg)[2]))
-    _error_pair(lambda pkg: pkg.SVGD(2, 1, x0, parts(pkg)[1], None, parts(pkg)[2]))
-    _error_pair(lambda pkg: pkg.SVGD(2, 1, x0, parts(pkg)[1], parts(pkg)[0], None))
+    def c(pkg):
+        return coords_for(pkg, x0)
+
+    _error_pair(lambda pkg: pkg.SVGD(3, 1, c(pkg), *parts(pkg)[1::-1], parts(pkg)[2]))
+    _error_pair(lambda pkg: pkg.SVGD(2, 1, c(pkg), None, parts(pkg)[0], parts(pkg)[2]))
+    _error_pair(lambda pkg: pkg.SVGD(2, 1, c(pkg), parts(pkg)[1], None, parts(pkg)[2]))
+    _error_pair(lambda pkg: pkg.SVGD(2, 1, c(pkg), parts(pkg)[1], parts(pkg)[0], None))
     _error_pair(lambda pkg: pkg.SVGD(*range(12)))
-    _error_pair(lambda pkg: pkg.SVGD(2, 1, x0, dimension=2))
+    _error_pair(lambda pkg: pkg.SVGD(2, 1, c(pkg), dimension=2))
     _error_pair(lambda pkg: pkg.SVGD(
-        2, 1, x0, parts(pkg)[1], parts(pkg)[0], parts(pkg)[2], [0.0, 0.0, 0.0]
+        2, 1, c(pkg), parts(pkg)[1], parts(pkg)[0], parts(pkg)[2], [0.0, 0.0, 0.0]
     ))
     _error_pair(lambda pkg: pkg.SVGD(
-        2, 1, x0, parts(pkg)[1], parts(pkg)[0], parts(pkg)[2]
+        2, 1, c(pkg), parts(pkg)[1], parts(pkg)[0], parts(pkg)[2]
     ).run())
     # phi_impl='fused' needs a MEDIAN kernel: same message
     _error_pair(lambda pkg: pkg.SVGD(pkg.SVGDOptions(
@@ -261,21 +286,77 @@ def test_constructor_validation_matches_jax():
         kernel=pkg.GaussianRBFKernel(x0, pkg.ScaleMethod.CONSTANT,
                                      constant_scale=np.eye(2)),
         model=parts(pkg)[0], optimizer=parts(pkg)[2], phi_impl="fused",
+        **on_cpu(pkg),
     )).initialize())
 
 
 @pytest.mark.parametrize("options", [
     {"impl": "generic"},
-    {"impl": "fused_aniso_terms_pallas"},
-    {"impl": "pallas"},
     {"mesh": object()},
     {"log_intermediate_matrices": True},
     {"impl": "fused_cuda", "fused_dot_dtype": "bfloat16"},
+    {"impl": "cuda", "fused_dot_dtype": "bfloat16"},
 ])
 def test_unported_routes_raise_not_implemented(options):
     x0 = x0_for(16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build(st, x0, 1, **options)
+
+
+@pytest.mark.parametrize("jax_name,cuda_name,composed_kernel", [
+    ("fused_aniso_terms_pallas", "fused_aniso_terms_cuda", True),
+    ("pallas", "cuda", False),
+])
+def test_jax_route_names_point_to_cuda(jax_name, cuda_name, composed_kernel):
+    """The Mosaic routes' JAX names raise ValueError naming their CUDA
+    counterparts, which run (on CPU tensors, their plain versions)."""
+    x0 = x0_for(40)
+
+    def make(impl):
+        if composed_kernel:
+            return build_composed(st, x0, 1, ANISO, impl=impl)
+        return build(st, x0, 1, impl=impl)
+
+    with pytest.raises(ValueError, match=f"'{cuda_name}'"):
+        make(jax_name)
+    svgd = make(cuda_name)
+    assert svgd._phi_impl == cuda_name
+    assert svgd.run().isfinite().all()
+
+
+def test_numpy_coords_default_to_cuda(monkeypatch):
+    """Coordinates that are not a tensor go to SVGDOptions.device, the card
+    by default: without a CUDA device that raises, naming device="cpu";
+    with device="cpu" they run on the CPU. A tensor keeps its device, and
+    the BLR builder follows the same rule."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x0 = x0_for(16)
+    model = st.MultivariateNormal(MEAN, COV)
+
+    def options(coords, **kw):
+        return st.SVGDOptions(
+            dimension=2, num_iterations=1, coordinate_matrix=coords,
+            kernel=st.GaussianRBFKernel(x0, st.ScaleMethod.MEDIAN, model),
+            model=model, optimizer=st.AdaGrad(2, 16, 0.1), **kw,
+        )
+
+    assert st.SVGDOptions().device == "cuda"
+    for coords in (x0, x0.tolist()):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            st.SVGD(options(coords))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        st.SVGD(2, 1, x0, st.GaussianRBFKernel(x0), model,
+                st.AdaGrad(2, 16, 0.1))
+    for svgd in (st.SVGD(options(x0, device="cpu")),
+                 st.SVGD(options(torch.from_numpy(x0)))):
+        assert svgd.store.value.device.type == "cpu"
+        assert svgd.initialize().run().device.type == "cpu"
+    from svgdcpp_tpu_torch.utils.workloads import blr_workload, build_blr_svgd
+
+    feats, labels, xb = blr_workload(16, 3, n_data=32)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build_blr_svgd(xb, feats, labels)
+    assert build_blr_svgd(xb, feats, labels, device="cpu").store.value.device.type == "cpu"
 
 
 def composed(pkg, x0, const, op="+", model=None):
@@ -293,7 +374,8 @@ def build_composed(pkg, x0, iters, const, op="+", impl="auto", **kw):
     opts = pkg.SVGDOptions(
         dimension=dim, num_iterations=iters, coordinate_matrix=x0.copy(),
         kernel=composed(pkg, x0, const, op, model), model=model,
-        optimizer=pkg.Adam(dim, n, 0.05, 0.9, 0.999), phi_impl=impl, **kw
+        optimizer=pkg.Adam(dim, n, 0.05, 0.9, 0.999), phi_impl=impl, **kw,
+        **on_cpu(pkg),
     )
     return pkg.SVGD(opts).initialize()
 
@@ -331,16 +413,17 @@ def test_composed_kernel_auto_and_fused_pallas_name():
         sj = build_composed(sv, x0, 1, const, op)
         assert s_t._phi_impl == sj._phi_impl == cpu, (n, op)
         assert s_t._auto_impl(on_cuda=True) == cuda, (n, op)
-    # where the TPU rule takes the anisotropic Mosaic sweep: not ported
+    # where the TPU rule takes the anisotropic Mosaic sweep: its CUDA port
     s_t = build_composed(st, x0_for(2100), 1, ANISO)
-    with pytest.raises(NotImplementedError, match="slice 3.*K14"):
-        s_t._auto_impl(on_cuda=True)
+    assert s_t._phi_impl == "rbf_terms"
+    assert s_t._auto_impl(on_cuda=True) == "fused_aniso_terms_cuda"
     # a custom kernel takes the generic route: not ported
     model = st.MultivariateNormal(MEAN, COV)
     x0 = x0_for(16)
     custom = st.Kernel(2, lambda x, p, loc: torch.exp(-torch.sum((x - loc) ** 2)))
     with pytest.raises(NotImplementedError, match="generic"):
-        st.SVGD(2, 1, x0, custom, model, st.AdaGrad(2, 16, 0.1)).initialize()
+        st.SVGD(2, 1, torch.from_numpy(x0), custom, model,
+                st.AdaGrad(2, 16, 0.1)).initialize()
     with pytest.raises(ValueError, match="fused_cuda"):
         build(st, x0, 1, impl="fused_pallas")
     with pytest.raises(ValueError, match="'fused_terms_cuda'"):
@@ -412,3 +495,103 @@ def test_fused_terms_hot_swap_matches_jax():
         )
         for a, b in zip(s_t.kernel.parameters, before):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dim,scale", [(2, "MEDIAN"), (5, "HESSIAN")])
+def test_cuda_route_on_cpu_vs_pallas_route(dim, scale):
+    """'cuda' (K15's port; phi_rbf_blocked on CPU tensors) against the JAX
+    package's 'pallas' route in interpret mode, float32, 3 AdaGrad steps at
+    n=300: the tolerance the JAX package holds its kernel routes to."""
+    n = 300
+    rng = np.random.default_rng(50 + dim)
+    x0 = (rng.normal(size=(n, dim)) * 1.5).astype(np.float32)
+    a = rng.normal(size=(dim, dim)) * 0.4
+    mean = rng.normal(size=dim).astype(np.float32)
+    cov = (np.eye(dim) + a @ a.T).astype(np.float32)
+
+    def run(pkg, impl):
+        model = pkg.MultivariateNormal(mean, cov)
+        kernel = pkg.GaussianRBFKernel(
+            x0.copy(), getattr(pkg.ScaleMethod, scale), model
+        )
+        svgd = pkg.SVGD(pkg.SVGDOptions(
+            dimension=dim, num_iterations=3, coordinate_matrix=x0.copy(),
+            kernel=kernel, model=model, optimizer=pkg.AdaGrad(dim, n, 0.1),
+            phi_impl=impl, **on_cpu(pkg),
+        )).initialize()
+        assert svgd._rbf_psd is (scale == "MEDIAN")
+        return np.asarray(svgd.run())
+
+    np.testing.assert_allclose(
+        run(st, "cuda"), run(sv, "pallas"), rtol=2e-3, atol=2e-4
+    )
+
+
+@pytest.mark.parametrize("scale", ["MEDIAN", "CONSTANT", "HESSIAN"])
+def test_cuda_route_decomposes_p_on_the_host_for_hessian_only(
+    scale, monkeypatch
+):
+    """The 'cuda' route hands K15's wrapper the eigendecomposition of
+    P_sym/2 where it needs no host read each step: MEDIAN's gamma I as (its
+    diagonal, I), a CONSTANT P decomposed once (again after a hot-swap); a
+    HESSIAN scale gets none, and the wrapper decomposes it."""
+    import svgdcpp_tpu_torch.svgd as driver
+
+    n, dim = 40, 3
+    rng = np.random.default_rng(60)
+    x0 = rng.normal(size=(n, dim)) * 1.5
+    a = rng.normal(size=(dim, dim)) * 0.4
+    model = st.MultivariateNormal(np.zeros(dim), np.eye(dim) + a @ a.T)
+    p_const = 0.3 * np.eye(dim) + 0.1 * rng.normal(size=(dim, dim))
+    kernel = st.GaussianRBFKernel(
+        x0.copy(), getattr(st.ScaleMethod, scale), model,
+        constant_scale=p_const if scale == "CONSTANT" else None,
+    )
+    decompositions, calls = [], []
+    real_eigen, real_phi = driver.symmetric_eigen, driver.phi_rbf_cuda
+    monkeypatch.setattr(driver, "symmetric_eigen",
+                        lambda p: decompositions.append(p) or real_eigen(p))
+    monkeypatch.setattr(driver, "phi_rbf_cuda", lambda c, s, p, psd, eig: (
+        calls.append((p, eig)) or real_phi(c, s, p, psd=psd, eig=eig)))
+    svgd = st.SVGD(st.SVGDOptions(
+        dimension=dim, num_iterations=3, coordinate_matrix=x0.copy(),
+        kernel=kernel, model=model, optimizer=st.AdaGrad(dim, n, 0.1),
+        phi_impl="cuda", device="cpu",
+    )).initialize()
+    svgd.run()
+    if scale == "CONSTANT":
+        svgd.update_kernel_parameters((0.5 * p_const,))
+        svgd.run()
+    assert len(calls) == 3 * (2 if scale == "CONSTANT" else 1)
+    want_decompositions = {"MEDIAN": 0, "CONSTANT": 2, "HESSIAN": 0}[scale]
+    assert len(decompositions) == want_decompositions
+    for p, eig in calls:
+        if scale == "HESSIAN":
+            assert eig is None
+            continue
+        lam, v = eig
+        assert lam.device == p.device and v.device == p.device
+        np.testing.assert_allclose(
+            (v * lam) @ v.T, 0.5 * (p + p.T).double(), atol=1e-12
+        )
+    if scale == "CONSTANT":  # one decomposition per P, kept across steps
+        assert calls[0][1] is calls[2][1] and calls[3][1] is calls[5][1]
+        assert calls[0][1] is not calls[3][1]
+
+
+@pytest.mark.parametrize("impl,names", [
+    ("fused", ["scores", "plan", "sweep", "median", "optimizer"]),
+    ("dense", ["scores", "scale", "sweep", "optimizer"]),
+])
+def test_section_hook_marks_the_step(impl, names):
+    """SVGD.section_hook sees each section of the driver's step end, in
+    order, and changes nothing the step computes."""
+    x0 = x0_for(300, seed=11)
+    plain = build(st, x0, 2, impl=impl).run()
+    svgd = build(st, x0, 2, impl=impl)
+    seen = []
+    svgd.section_hook = seen.append
+    svgd._step_fn = svgd.build_step_fn()
+    out = svgd.run()
+    assert seen == names * 2
+    assert torch.equal(out, plain)
