@@ -1,15 +1,20 @@
 #!/usr/bin/env python3
 """Where the time of a step goes, on one CUDA GPU.
 
-    python3 chip_profile.py [--config mvn|hier|blr|aniso|hessian] [--large]
+    python3 chip_profile.py [--config mvn|large|hier|blr|aniso|hessian]
+                            [--particles N] [--large] [--crossover]
                             [--out PATH]
 
 Drives one configuration of svgdcpp_tpu_torch at its full width:
 
   * ``mvn`` (default): the flagship, MVN d=2, N=10000, RBF with the median
     bandwidth, AdaGrad lr 0.1, route ``fused_cuda`` (triangle kernel);
+  * ``large``: the same at N=262144 (path A of the large-N paths,
+    utils/workloads.large_mvn_workload), where the route runs the panel
+    triangle kernel;
   * ``hier``: hierarchical BLR, d=10 (m=11), N=10000, median RBF + 0.1 I,
-    Adam lr 5e-2, route ``fused_terms_cuda`` (terms triangle kernel);
+    Adam lr 5e-2, route ``fused_terms_cuda`` (terms triangle kernel; with
+    ``--particles 131072``, path B, the terms panel kernel);
   * ``blr``: flat BLR, d=50, N=1000, median RBF, Adam lr 5e-2, route
     ``fused_cuda`` (square kernel at m=50);
   * ``aniso``: scripts/check_aniso_posterior.py's configuration, MVN d=11,
@@ -18,7 +23,11 @@ Drives one configuration of svgdcpp_tpu_torch at its full width:
   * ``hessian``: the same target with one RBF whose scale is the HESSIAN
     one, route ``cuda`` (the fixed-P square kernel);
 
-and prints:
+``--particles`` sets N for ``mvn`` and ``hier``; the sweep kernel read is
+the one of the form the driver resolved (``SVGD.fused_sym_form``). From
+100000 particles up the step counts below drop to 5 (warm-up), 30 (host),
+5 (profiled) and 30 (sections), since a step takes 0.1 s or more. It
+prints:
 
   * host ms/step: CUDA events around 200 unprofiled steps (``run()``), after
     a 20-step warm-up;
@@ -43,6 +52,13 @@ n = 1000000 (m=2, three thresholds, after one warm-up call, CUDA events)
 against the plain torch sweep on the same inputs (host clock; it takes
 about a minute at n = 1000000): phi's max |diff| / max |phi| and the count
 difference.
+
+With ``--crossover`` it also times the full-width triangle kernels
+against the panel kernels on a ladder of n: K2 against K3's port at m = 2
+(one RBF) from n = 32768 to 524288, and the terms triangle kernel against
+the terms panel kernel at m = 11 with two terms (the hierarchical BLR's
+shape) from n = 16384 to 262144; wrapper ms, median of 5 calls between
+CUDA events after one warm-up call, three thresholds.
 
 The JSON summary goes to ``--out`` (default
 ``chiprun_out/profile[_<config>].json``). Exits non-zero without a CUDA
@@ -102,13 +118,15 @@ def device_timeline(trace_path, steps, sweep_name):
     }
 
 
-def make_driver(st, config, iters):
+def make_driver(st, config, iters, particles=None):
     """(driver, the name of its sweep kernel's device function, without
-    ``_kernel``) for ``config`` at full width."""
+    ``_kernel``) for ``config`` at full width, with ``particles`` particles
+    where given (mvn and hier)."""
     import torch
 
     from svgdcpp_tpu_torch.ops import cuda_phi
     from svgdcpp_tpu_torch.utils.workloads import (
+        LARGE_MVN_PARTICLES,
         aniso_mvn_workload,
         blr_workload,
         build_aniso_svgd,
@@ -127,21 +145,28 @@ def make_driver(st, config, iters):
             ("cuda", cuda_phi.PHI_RBF_KERNEL) if hessian
             else ("fused_aniso_terms_cuda", cuda_phi.ANISO_KERNEL)
         )
-    elif config == "mvn":
+    elif config in ("mvn", "large"):
         from chip_smoke import make_svgd
         from svgdcpp_tpu_torch.utils.workloads import flagship_mvn
 
-        mean, cov, x0 = flagship_mvn(10000)
+        n = LARGE_MVN_PARTICLES if config == "large" else (particles or 10000)
+        mean, cov, x0 = flagship_mvn(n)
         svgd = make_svgd(st, x0, mean, cov, iters)
-        route, kernel = "fused_cuda", cuda_phi.SYM_KERNEL
+        route = "fused_cuda"
+        kernel = {"panel": cuda_phi.SYMPANEL_KERNEL, True: cuda_phi.SYM_KERNEL,
+                  False: cuda_phi.SQUARE_KERNEL}[svgd.fused_sym_form]
     else:
         hier = config == "hier"
-        n, d = (10000, 10) if hier else (1000, 50)
+        n, d = ((particles or 10000), 10) if hier else (1000, 50)
         feats, labels, x0 = blr_workload(n, d, hierarchical=hier)
         svgd = build_blr_svgd(torch.tensor(x0, device="cuda"), feats, labels,
                               hierarchical=hier, num_iterations=iters)
         route, kernel = (
-            ("fused_terms_cuda", cuda_phi.TERMS_SYM_KERNEL) if hier
+            ("fused_terms_cuda", {
+                "panel": cuda_phi.TERMS_SYMPANEL_KERNEL,
+                True: cuda_phi.TERMS_SYM_KERNEL,
+                False: cuda_phi.TERMS_SQUARE_KERNEL,
+            }[svgd.fused_sym_form]) if hier
             else ("fused_cuda", cuda_phi.SQUARE_KERNEL)
         )
     if svgd._phi_impl != route:
@@ -234,19 +259,62 @@ def large_n(n, device):
     }
 
 
+def crossover(device):
+    """The full-width triangle kernels against the panel kernels on a
+    ladder of n (see the module's docstring)."""
+    import torch
+
+    from chip_smoke import sweep_inputs, time_ms
+    from svgdcpp_tpu_torch.ops import cuda_phi
+
+    rows = []
+    ladder = [(2, None, n) for n in (32768, 65536, 131072, 262144, 524288)]
+    ladder += [(11, (1.0, 1.0), n) for n in (16384, 32768, 65536, 131072,
+                                             262144)]
+    for m, signs, n in ladder:
+        x, s, g, thr = sweep_inputs(n, m, 0.0, n + m, device)
+        if signs is None:
+            def sweep(form):
+                return cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=form)
+        else:
+            gs = [g, torch.full_like(g, 0.1)]
+
+            def sweep(form):
+                return cuda_phi.phi_rbf_terms_fused_cuda(x, s, gs, signs, thr,
+                                                         sym=form)
+        full = time_ms(lambda: sweep(True), reps=5, warmup=1)
+        panel = time_ms(lambda: sweep("panel"), reps=5, warmup=1)
+        rows.append({"n": n, "m": m, "terms": len(signs) if signs else 1,
+                     "full_width_ms": full, "panel_ms": panel,
+                     "panel_over_full": panel / full,
+                     "jax_form": cuda_phi.resolve_sym(
+                         None, n, m, len(signs) if signs else None)})
+    return rows
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config",
-                        choices=("mvn", "hier", "blr", "aniso", "hessian"),
+                        choices=("mvn", "large", "hier", "blr", "aniso",
+                                 "hessian"),
                         default="mvn")
+    parser.add_argument("--particles", type=int, default=None,
+                        help="particle count of mvn or hier")
     parser.add_argument("--large", action="store_true",
                         help="also run the triangle kernel at n = 1e5 and 1e6")
+    parser.add_argument("--crossover", action="store_true",
+                        help="also time the full-width triangle kernels "
+                             "against the panel kernels on a ladder of n")
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
     if args.large and args.config != "mvn":
         parser.error("--large runs with --config mvn only")
+    if args.particles is not None and args.config not in ("mvn", "hier"):
+        parser.error("--particles sets mvn's or hier's particle count")
     if args.out is None:
         suffix = "" if args.config == "mvn" else f"_{args.config}"
+        if args.particles is not None:
+            suffix += f"_{args.particles}"
         args.out = f"chiprun_out/profile{suffix}.json"
 
     import torch
@@ -264,11 +332,16 @@ def main() -> int:
     result = {"card": card, "config": args.config, "torch": torch.__version__,
               "cuda": torch.version.cuda}
 
-    svgd, sweep_kernel = make_driver(st, args.config, 20)
+    svgd, sweep_kernel = make_driver(st, args.config, 1, args.particles)
+    big = svgd.num_particles >= 100_000
+    warm, host_steps, steps = (5, 30, 5) if big else (20, 200, 20)
+    result.update(particles=svgd.num_particles, form=svgd.fused_sym_form,
+                  steps={"warm_up": warm, "host": host_steps,
+                         "profiled": steps, "sections": host_steps})
+    svgd.num_iterations = warm
     svgd.run()  # warm-up: builds the kernels and fills the allocator
-    result["host_ms_per_step"] = host_ms_per_step(svgd, 200)
+    result["host_ms_per_step"] = host_ms_per_step(svgd, host_steps)
 
-    steps = 20
     svgd.num_iterations = steps
     activities = [torch.profiler.ProfilerActivity.CPU,
                   torch.profiler.ProfilerActivity.CUDA]
@@ -286,10 +359,12 @@ def main() -> int:
     result["profiler_table"] = prof.key_averages().table(
         sort_by="self_cuda_time_total", row_limit=15
     )
-    result["sections_ms_per_step"] = sections_ms(svgd, 200)
+    result["sections_ms_per_step"] = sections_ms(svgd, host_steps)
     result["fallbacks"] = svgd.median_fallbacks
     if args.large:
         result["large_n"] = [large_n(n, torch.device("cuda")) for n in (100_000, 1_000_000)]
+    if args.crossover:
+        result["crossover"] = crossover(torch.device("cuda"))
 
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

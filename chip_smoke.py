@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the package's CUDA kernels from ``svgdcpp_tpu_torch/csrc`` and runs
-eighteen phases, one line each (several for phases 2, 3, 7-9 and 14-18):
+twenty-four phases, one line each (several for phases 2, 3, 7-9 and
+14-24):
 
   1. device and build: the card's name and power limit, torch and CUDA
      versions, nvcc build seconds and ptxas's registers and spill bytes of
@@ -58,13 +59,38 @@ eighteen phases, one line each (several for phases 2, 3, 7-9 and 14-18):
      moments against 'rbf_terms' on the card;
  18. the 'cuda' route: a HESSIAN RBF on the same target at N = 10240, 1000
      iterations, 1000 K15 launches; 20 steps against 'blocked'; a MEDIAN RBF
-     on the flagship at n = 1500, 50 iterations, 50 K15 launches.
+     on the flagship at n = 1500, 50 iterations, 50 K15 launches;
+ 19. the panel triangle kernel of one RBF (fused_phi_counts_sympanel, K3's
+     port) against its plain version (the panel schedule in torch): forced
+     at n = 10007 with 3 and 8 super-blocks off origin, at (262144, 2) (path
+     A's shape) and (65536, 11); against the full-width kernel at
+     (1048576, 2), both also against a float64 reference on a row subset;
+ 20. the terms panel kernel (fused_phi_terms_sympanel, K12/K13's port)
+     against its plain version: (131072, 11, two terms) at the hierarchical
+     BLR's signs (path B's shape; K12's on the TPU), (65536, 11, three
+     terms) (K13's), (262144, 2, two terms) and forced small panels with a
+     negative sign;
+ 21. times: the panel kernels against the full-width ones (K2, terms-sym)
+     at (262144, 2), (1048576, 2) and (131072, 11, two terms), and the plain
+     versions under 10 s a call (CUDA events; median of 50 calls, of 5 at
+     1048576 and of 3 for a plain version over 0.25 s); phases 19-24
+     also print the seconds since the script started;
+ 22. path A: the flagship at N = 262144 through 'auto', 100 iterations, the
+     panel form with 100 panel-kernel launches and no K2 launch; updates/s,
+     the moment errors (printed, not gated) and the KSD before and after
+     (it must drop); then N = 1048576 for 4 iterations;
+ 23. path B: the hierarchical BLR at N = 131072 through 'auto', 50
+     iterations, 50 terms-panel launches and no terms-sym launch; updates/s
+     and the training accuracy;
+ 24. the panel route against the full-width route (fused_sym=True) for 20
+     steps from one x0 on both paths.
 
 The ``kernels`` line gives, for each kernel, its launches, error against its
 plain version and times on the main path it serves first, and its bound:
 the larger of the FP32 operations its function needs (counted per pair,
 an ex2 or a compare as one; see sweep_bound) over 67 TFLOP/s and the bytes
-of its inputs and outputs over 3.35 TB/s, the published H100 SXM peaks.
+of its inputs and outputs over 3.35 TB/s, the published H100 SXM peaks;
+and the TPU kernels it stands for.
 
 Any failed check raises and the exit code is not 0. Without a CUDA device,
 or without the package beside it, the script exits with an error before
@@ -164,6 +190,13 @@ def inputs_for(n, m, offset, seed, device):
     return fn(n, m, offset, seed, device)
 
 
+#: Path A's particle count, its short run's and path B's (utils/workloads'
+#: LARGE_MVN_PARTICLES, LARGE_MVN_SHORT_PARTICLES, LARGE_HIER_PARTICLES),
+#: their iteration counts, and the steps of phase 24's route comparison.
+PATH_A_N, PATH_A_SHORT_N, PATH_B_N = 262144, 1048576, 131072
+PATH_A_ITERS, PATH_A_SHORT_ITERS, PATH_B_ITERS = 100, 4, 50
+COMPARE_STEPS = 20
+
 #: Published H100 SXM peaks at 700 W: FP32 outside the tensor cores, and
 #: HBM3 bandwidth (NVIDIA's data sheet).
 PEAK_FP32_FLOPS = 67e12
@@ -196,7 +229,8 @@ def sweep_bound(kernel, n, m, T=3, n_iso=1, n_aniso=0):
         and an FMA), 2 for the exponential, KS and D_z = sum k dz (2m each).
 
     The square kernels take n^2 ordered pairs and one direction; the triangle
-    kernels n(n+1)/2 unordered pairs (diagonal included) and both. Bytes:
+    kernels, full-width and panel alike, n(n+1)/2 unordered pairs (diagonal
+    included) and both. Bytes:
     the function's inputs read once (coordinates, scores, precisions,
     thresholds) and its outputs written once (phi, the int64 counts). One
     particle set of n, as on every main path."""
@@ -205,11 +239,11 @@ def sweep_bound(kernel, n, m, T=3, n_iso=1, n_aniso=0):
     contract = 4 * m  # KS and one D, one direction
     if kernel == "fused_phi_counts_square":
         flops = square_pairs * (3 * m + 2 + T + contract)
-    elif kernel == "fused_phi_counts_sym":
+    elif kernel in ("fused_phi_counts_sym", "fused_phi_counts_sympanel"):
         flops = tri_pairs * (3 * m + 2 + T + 2 * contract)
     elif kernel == "fused_phi_terms_square":
         flops = square_pairs * (3 * m + 6 * n_iso + T + contract)
-    elif kernel == "fused_phi_terms_sym":
+    elif kernel in ("fused_phi_terms_sym", "fused_phi_terms_sympanel"):
         flops = tri_pairs * (3 * m + 6 * n_iso + T + 2 * contract)
     elif kernel == "fused_phi_aniso_terms_sym":
         n_w = (1 if n_iso else 0) + n_aniso
@@ -317,28 +351,41 @@ def posterior_metrics(coords, mean, cov):
     }
 
 
-def make_svgd(st, x0, mean, cov, iters, phi_impl="auto", dtype=None):
+def make_svgd(st, x0, mean, cov, iters, phi_impl="auto", dtype=None,
+              fused_sym=None):
+    """The flagship driver on the card (utils/workloads.build_mvn_svgd),
+    float32 unless ``dtype`` says otherwise."""
     import torch
 
-    dtype = dtype or torch.float32
-    x = torch.tensor(x0, dtype=dtype, device="cuda")
-    n, dim = x.shape
-    model = st.MultivariateNormal(
-        torch.tensor(mean, dtype=dtype), torch.tensor(cov, dtype=dtype)
-    )
-    kernel = st.GaussianRBFKernel(x, st.ScaleMethod.MEDIAN, model)
-    svgd = st.SVGD(
-        st.SVGDOptions(
-            dimension=dim, num_iterations=iters, coordinate_matrix=x,
-            kernel=kernel, model=model, optimizer=st.AdaGrad(dim, n, 0.1),
-            phi_impl=phi_impl,
-        )
-    )
-    return svgd.initialize()
+    from svgdcpp_tpu_torch.utils.workloads import build_mvn_svgd
+
+    x = torch.tensor(x0, dtype=dtype or torch.float32, device="cuda")
+    return build_mvn_svgd(x, mean, cov, phi_impl=phi_impl,
+                          num_iterations=iters, fused_sym=fused_sym)
+
+
+def f64_rows_reference(x, s, gammas, signs, thr, rows):
+    """phi of ``rows`` of one particle set in float64 (the plain cross sweep
+    of the rows against every particle), returned in float32: the reference
+    where two float32 kernels differ by their summation order alone."""
+    import torch
+
+    from svgdcpp_tpu_torch.ops.phi import phi_rbf_terms_cross_fused_counts
+
+    x64, s64 = x.double(), s.double()
+    return phi_rbf_terms_cross_fused_counts(
+        x64[rows], x64, s64, [g.double() for g in gammas], signs, thr.double()
+    )[0].to(torch.float32)
 
 
 def main() -> int:
     import torch
+
+    t_start = time.perf_counter()
+
+    def clock():
+        """Seconds since the script started (printed on phases 19-24)."""
+        return f"t={time.perf_counter() - t_start:.1f}s"
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this test needs "
@@ -349,14 +396,21 @@ def main() -> int:
 
     import svgdcpp_tpu_torch as st
     from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.ksd import ksd_rbf
     from svgdcpp_tpu_torch.ops.phi import (
         phi_rbf,
         phi_rbf_aniso_terms_fused_counts,
         phi_rbf_blocked,
         phi_rbf_cross_fused_counts,
         phi_rbf_fused_counts,
+        phi_rbf_sympanel_fused_counts,
         phi_rbf_terms_cross_fused_counts,
         phi_rbf_terms_fused_counts,
+        phi_rbf_terms_sympanel_fused_counts,
+    )
+    from svgdcpp_tpu_torch.ops.sym_plan import (
+        card_panel_plan,
+        tpu_terms_panel_kernel,
     )
     from svgdcpp_tpu_torch.utils.workloads import (
         aniso_mvn_workload,
@@ -364,6 +418,8 @@ def main() -> int:
         build_aniso_svgd,
         build_blr_svgd,
         flagship_mvn,
+        large_hier_workload,
+        large_mvn_workload,
     )
 
     dev = torch.device("cuda", 0)
@@ -936,11 +992,271 @@ def main() -> int:
     print(f"phase 18 MEDIAN cuda n=1500 m=2 50 iters: ok route=cuda "
           f"launches={json.dumps(main_k15_median)}")
 
+    # -- phase 19: K3's port (the panel kernel) vs its plain version --------
+    sympanel_err = 0.0
+    for idx, (n, m, off, blocks) in enumerate([
+        (10007, 2, 100.0, 3), (10007, 2, 100.0, 8), (PATH_A_N, 2, 0.0, None),
+        (65536, 11, 0.0, None),
+    ]):
+        x, s, g, thr = inputs_for(n, m, off, 190 + idx, dev)
+        got = cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym="panel",
+                                          panel_blocks=blocks)
+        want = phi_rbf_sympanel_fused_counts(x, s, g, thr, panel_blocks=blocks)
+        rel, abs_err, dcnt = compare(f"sympanel n={n} m={m}", got, want, n, m)
+        sympanel_err = max(sympanel_err, abs_err)
+        nb, w, _ = card_panel_plan(n, blocks)
+        print(f"phase 19 sympanel n={n} m={m} offset={off} nb={nb} W={w}: ok "
+              f"phi_rel={rel:.3e} count_diff={dcnt} "
+              f"count_bound={1e-6 * n * n if m > 4 else 0:.3g} {clock()}")
+    # At 1M the plain version takes about a minute: the panel kernel is held
+    # to the full-width one, and both to a float64 reference on a row subset
+    # (the bound that float32 summation order alone sets).
+    n = PATH_A_SHORT_N
+    x, s, g, thr = sweep_inputs(n, 2, 0.0, 195, dev)
+    got = cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym="panel")
+    full = cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=True)
+    rows = torch.arange(0, n, n // 2048, device=dev)
+    exact = f64_rows_reference(x, s, [g], [1.0], thr, rows)
+    scale = float(exact.abs().max())
+    f64_rel = {name: float((phi_[rows] - exact).abs().max()) / scale
+               for name, phi_ in (("panel", got[0]), ("full_width", full[0]))}
+    rel = float((got[0] - full[0]).abs().max() / full[0].abs().max())
+    dcnt = int((got[1] - full[1]).abs().max())
+    check(bool(got[0].isfinite().all()), "sympanel 1M: non-finite phi")
+    check(dcnt == 0, f"sympanel vs sym at 1M: counts differ by {dcnt}")
+    # Past 1e-4 the panel kernel must be no further from float64 than the
+    # full-width kernel is: the two differ in summation order only.
+    check(rel <= 1e-4 or f64_rel["panel"] <= max(1e-4, f64_rel["full_width"]),
+          f"sympanel vs sym at 1M: phi rel {rel:.3e}, float64 row-subset "
+          f"rel {f64_rel}")
+    print(f"phase 19 sympanel vs sym n={n} m=2: ok phi_rel={rel:.3e} "
+          f"count_diff={dcnt} vs_float64_rows={json.dumps(f64_rel)} "
+          f"rows={rows.numel()} {clock()}")
+
+    # -- phase 20: the terms panel kernel (K12/K13's port) vs plain --------
+    terms_panel_err = 0.0
+    for idx, (n, m, signs, blocks, tpu) in enumerate([
+        (PATH_B_N, 11, (1.0, 1.0), None, "K12"),
+        (65536, 11, (1.0, 1.0, 0.5), None, "K13"),
+        (PATH_A_N, 2, (1.0, 1.0), None, "K12"),
+        (10007, 2, (1.0, -0.5), 3, None),
+        (4099, 11, (1.0, -0.5, 0.3), 5, None),
+    ]):
+        x, s, g, thr = inputs_for(n, m, 0.0, 200 + idx, dev)
+        gs = terms_gammas(g, signs)
+        got = cuda_phi.phi_rbf_terms_fused_cuda(x, s, gs, signs, thr,
+                                                sym="panel",
+                                                panel_blocks=blocks)
+        want = phi_rbf_terms_sympanel_fused_counts(x, s, gs, signs, thr,
+                                                   panel_blocks=blocks)
+        rel, abs_err, dcnt = compare(f"terms sympanel n={n} m={m}", got, want,
+                                     n, m)
+        terms_panel_err = max(terms_panel_err, abs_err)
+        on_tpu = tpu_terms_panel_kernel(n, m, len(signs))
+        check(tpu is None or on_tpu == tpu,
+              f"terms sympanel n={n} m={m}: the TPU runs {on_tpu}, not {tpu}")
+        nb, w, _ = card_panel_plan(n, blocks)
+        print(f"phase 20 terms sympanel n={n} m={m} signs={list(signs)} "
+              f"nb={nb} W={w} (TPU kernel at this shape: {on_tpu}): ok "
+              f"phi_rel={rel:.3e} count_diff={dcnt} "
+              f"count_bound={1e-6 * n * n if m > 4 else 0:.3g} {clock()}")
+
+    # -- phase 21: times, panel kernels vs full-width kernels and plain ----
+    def plain_ms(fn):
+        """time_ms of a plain version: 50 calls, or 3 when one call takes
+        more than 0.25 s."""
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        slow = time.perf_counter() - t0 > 0.25
+        return time_ms(fn, reps=3 if slow else 50, warmup=0 if slow else 5)
+
+    times21 = {}
+    for n, reps in ((PATH_A_N, 50), (PATH_A_SHORT_N, 5)):
+        x, s, g, thr = sweep_inputs(n, 2, 0.0, 210, dev)
+        t = {
+            "kernel": time_ms(lambda: cuda_phi.phi_rbf_fused_cuda(
+                x, s, g, thr, sym="panel"), reps=reps, warmup=5 if reps > 5
+                else 1),
+            "full": time_ms(lambda: cuda_phi.phi_rbf_fused_cuda(
+                x, s, g, thr, sym=True), reps=reps, warmup=5 if reps > 5
+                else 1),
+            # about a minute a call at 1M: not timed there
+            "plain": plain_ms(lambda: phi_rbf_sympanel_fused_counts(
+                x, s, g, thr)) if n == PATH_A_N else None,
+        }
+        times21[("sympanel", n, 2)] = t
+        print(f"phase 21 times sympanel n={n} m=2 T=3 (ms, median of {reps}): "
+              f"panel={t['kernel']:.4f} sym={t['full']:.4f} plain="
+              + ("not timed" if t["plain"] is None else f"{t['plain']:.4f}")
+              + f" {clock()}")
+    x, s, g, thr = sweep_inputs(PATH_B_N, 11, 0.0, 211, dev)
+    gs = terms_gammas(g, (1, 1))
+    t = {
+        "kernel": time_ms(lambda: cuda_phi.phi_rbf_terms_fused_cuda(
+            x, s, gs, (1, 1), thr, sym="panel")),
+        "full": time_ms(lambda: cuda_phi.phi_rbf_terms_fused_cuda(
+            x, s, gs, (1, 1), thr, sym=True)),
+        "plain": plain_ms(lambda: phi_rbf_terms_sympanel_fused_counts(
+            x, s, gs, (1, 1), thr)),
+    }
+    times21[("terms_sympanel", PATH_B_N, 11)] = t
+    print(f"phase 21 times terms sympanel n={PATH_B_N} m=11 T=3 two terms "
+          f"(ms, median of 50): panel={t['kernel']:.4f} "
+          f"terms_sym={t['full']:.4f} plain={t['plain']:.4f} {clock()}")
+
+    # -- phase 22: path A, the flagship at N = 262144 and 1048576 -----------
+    def timed_run(svgd, warm, timed):
+        """``warm`` untimed iterations, then ``timed`` ones between CUDA
+        events; returns their seconds."""
+        svgd.num_iterations = warm
+        svgd.run()
+        torch.cuda.synchronize()
+        svgd.num_iterations = timed
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        svgd.run()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / 1e3
+
+    def require_only(counts, kernel, launches, what):
+        want = {k: 0 for k in counts}
+        want[kernel] = launches
+        check(counts == want, f"{what}: launches {counts}, want {want}")
+
+    mean_l, cov_l, x0_l = large_mvn_workload(PATH_A_N)
+    model_l = st.MultivariateNormal(torch.tensor(mean_l), torch.tensor(cov_l))
+    ksd_before = float(ksd_rbf(model_l, x0_l))  # goes to the card
+    cuda_phi.reset_launch_counts()
+    t0 = time.perf_counter()
+    svgd = make_svgd(st, x0_l, mean_l, cov_l, 1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(svgd._phi_impl == "fused_cuda" and svgd.fused_sym_form == "panel",
+          f"path A routed to {svgd._phi_impl!r} form "
+          f"{svgd.fused_sym_form!r}, not 'fused_cuda' 'panel'")
+    timed_s = timed_run(svgd, 10, PATH_A_ITERS - 10)
+    main_panel = dict(cuda_phi.launch_counts)
+    out = svgd.store.value
+    check(bool(out.isfinite().all()) and tuple(out.shape) == (PATH_A_N, 2),
+          "path A run: bad output")
+    require_only(main_panel, cuda_phi.SYMPANEL_KERNEL, PATH_A_ITERS,
+                 f"path A, {PATH_A_ITERS} steps")
+    ksd_after = float(ksd_rbf(model_l, out))
+    check(ksd_after < ksd_before,
+          f"path A: KSD {ksd_before:.4g} -> {ksd_after:.4g} did not drop")
+    rate = PATH_A_N * (PATH_A_ITERS - 10) / timed_s
+    post = posterior_metrics(out.cpu().numpy(), mean_l, cov_l)
+    print(f"phase 22 path A N={PATH_A_N} {PATH_A_ITERS} iters: ok "
+          f"route=fused_cuda form=panel launches={json.dumps(main_panel)} "
+          f"fallbacks={svgd.median_fallbacks} updates_per_s={rate:.6g} "
+          f"timed_s={timed_s:.4f} (last {PATH_A_ITERS - 10} iters) "
+          f"init_s={init_s:.2f} ksd_before={ksd_before:.6g} "
+          f"ksd_after={ksd_after:.6g} posterior_not_gated={json.dumps(post)} "
+          f"{clock()}")
+    del svgd, out
+    mean_s1, cov_s1, x0_s1 = large_mvn_workload(PATH_A_SHORT_N)
+    cuda_phi.reset_launch_counts()
+    t0 = time.perf_counter()
+    svgd = make_svgd(st, x0_s1, mean_s1, cov_s1, 1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    check(svgd.fused_sym_form == "panel",
+          f"N={PATH_A_SHORT_N} resolved to {svgd.fused_sym_form!r}")
+    timed_s = timed_run(svgd, 1, PATH_A_SHORT_ITERS - 1)
+    main_panel_1m = dict(cuda_phi.launch_counts)
+    out = svgd.store.value
+    check(bool(out.isfinite().all())
+          and tuple(out.shape) == (PATH_A_SHORT_N, 2), "path A 1M: bad output")
+    require_only(main_panel_1m, cuda_phi.SYMPANEL_KERNEL, PATH_A_SHORT_ITERS,
+                 f"path A N={PATH_A_SHORT_N}")
+    rate = PATH_A_SHORT_N * (PATH_A_SHORT_ITERS - 1) / timed_s
+    print(f"phase 22 path A N={PATH_A_SHORT_N} {PATH_A_SHORT_ITERS} iters: ok "
+          f"launches={json.dumps(main_panel_1m)} "
+          f"fallbacks={svgd.median_fallbacks} updates_per_s={rate:.6g} "
+          f"timed_s={timed_s:.4f} (last {PATH_A_SHORT_ITERS - 1} iters) "
+          f"init_s={init_s:.2f} (the plain median seed) {clock()}")
+    del svgd, out
+
+    # -- phase 23: path B, the hierarchical BLR at N = 131072 ---------------
+    feats_b, labels_b, x0_b = large_hier_workload(PATH_B_N)
+    cuda_phi.reset_launch_counts()
+    # x0 as the user has it, a numpy array: the builder puts it on the card
+    # before the kernel takes its median.
+    svgd = build_blr_svgd(x0_b, feats_b, labels_b, hierarchical=True,
+                          num_iterations=1)
+    check(svgd.store.value.is_cuda, "path B: x0 was not put on the card")
+    check(svgd._phi_impl == "fused_terms_cuda"
+          and svgd.fused_sym_form == "panel",
+          f"path B routed to {svgd._phi_impl!r} form "
+          f"{svgd.fused_sym_form!r}, not 'fused_terms_cuda' 'panel'")
+    timed_s = timed_run(svgd, 10, PATH_B_ITERS - 10)
+    main_tpanel = dict(cuda_phi.launch_counts)
+    out = svgd.store.value
+    check(bool(out.isfinite().all()) and tuple(out.shape) == (PATH_B_N, 11),
+          "path B run: bad output")
+    require_only(main_tpanel, cuda_phi.TERMS_SYMPANEL_KERNEL, PATH_B_ITERS,
+                 f"path B, {PATH_B_ITERS} steps")
+    acc0 = blr_accuracy(x0_b, feats_b, labels_b)
+    acc = blr_accuracy(out.cpu().numpy(), feats_b, labels_b)
+    check(acc > 0.5, f"path B training accuracy {acc:.4f} <= 0.5")
+    rate = PATH_B_N * (PATH_B_ITERS - 10) / timed_s
+    print(f"phase 23 path B hier N={PATH_B_N} d=10 {PATH_B_ITERS} iters: ok "
+          f"route=fused_terms_cuda form=panel "
+          f"launches={json.dumps(main_tpanel)} "
+          f"fallbacks={svgd.median_fallbacks} updates_per_s={rate:.6g} "
+          f"timed_s={timed_s:.4f} (last {PATH_B_ITERS - 10} iters) "
+          f"train_accuracy={acc:.4f} (x0: {acc0:.4f}) {clock()}")
+    del svgd, out
+
+    # -- phase 24: panel route vs full-width route, 20 steps ----------------
+    def routes_apart(build, panel_kernel, full_kernel, what):
+        """Max |coords| apart after the steps: the panel route against the
+        full-width route, and the full-width route against itself from the
+        same x0 (the floor that atomics order alone leaves)."""
+        finals = []
+        for form, kernel in (("panel", panel_kernel), (True, full_kernel),
+                             (True, full_kernel)):
+            cuda_phi.reset_launch_counts()
+            finals.append(build(form).run().double())
+            require_only(dict(cuda_phi.launch_counts), kernel, COMPARE_STEPS,
+                         f"{what} fused_sym={form!r}")
+        return (float((finals[0] - finals[1]).abs().max()),
+                float((finals[2] - finals[1]).abs().max()))
+
+    apart24 = {
+        "path_a": routes_apart(
+            lambda form: make_svgd(st, x0_l, mean_l, cov_l, COMPARE_STEPS,
+                                   fused_sym=form),
+            cuda_phi.SYMPANEL_KERNEL, cuda_phi.SYM_KERNEL, "path A"),
+        "path_b": routes_apart(
+            lambda form: build_blr_svgd(
+                torch.tensor(x0_b, device=dev), feats_b, labels_b,
+                hierarchical=True, num_iterations=COMPARE_STEPS,
+                fused_sym=form),
+            cuda_phi.TERMS_SYMPANEL_KERNEL, cuda_phi.TERMS_SYM_KERNEL,
+            "path B"),
+    }
+    diffs24 = {path: d for path, (d, _) in apart24.items()}
+    floors24 = {path: f for path, (_, f) in apart24.items()}
+    for path, diff in diffs24.items():
+        check(diff <= 1e-3, f"{path}: panel vs full-width route coords differ "
+                            f"by {diff:.3e} after {COMPARE_STEPS} steps")
+    print(f"phase 24 panel vs full-width routes {COMPARE_STEPS} steps "
+          f"(N={PATH_A_N} path A, N={PATH_B_N} path B): ok "
+          f"coords_max_abs_diff={json.dumps(diffs24)} "
+          f"full_width_run_twice_floor={json.dumps(floors24)} {clock()}")
+
     def main_path(phase, kernel, n, m, launches, times, **work):
         bound_ms, bound_by = sweep_bound(kernel, n, m, **work)
-        return {"phase": phase, "n": n, "m": m, "launches": launches,
+        path = {"phase": phase, "n": n, "m": m, "launches": launches,
                 "ms": times["kernel"], "plain_ms": times["plain"],
                 "bound_ms": bound_ms, "bound_by": bound_by}
+        if "full" in times:  # the full-width kernel at the same shape
+            path["full_width_ms"] = times["full"]
+        return path
 
     # Each entry's launches, ms, plain_ms and bound are those of its first
     # main path; main_paths lists every main path that runs the kernel, with
@@ -950,6 +1266,7 @@ def main() -> int:
     sq, sym = cuda_phi.SQUARE_KERNEL, cuda_phi.SYM_KERNEL
     t_sq, t_sym = cuda_phi.TERMS_SQUARE_KERNEL, cuda_phi.TERMS_SYM_KERNEL
     aniso, k15 = cuda_phi.ANISO_KERNEL, cuda_phi.PHI_RBF_KERNEL
+    sp, t_sp = cuda_phi.SYMPANEL_KERNEL, cuda_phi.TERMS_SYMPANEL_KERNEL
     k1_1500 = {"kernel": times[1500]["square"], "plain": times[1500]["plain"]}
     k2_10k = {"kernel": times[10000]["sym"], "plain": times[10000]["plain"]}
     paths = {
@@ -967,13 +1284,21 @@ def main() -> int:
                         times16[("phi_rbf", 10240, 11)]),
               main_path(18, k15, 1500, 2, main_k15_median[k15],
                         times16[("phi_rbf", 1500, 2)])],
+        sp: [main_path(22, sp, PATH_A_N, 2, main_panel[sp],
+                       times21[("sympanel", PATH_A_N, 2)]),
+             main_path(22, sp, PATH_A_SHORT_N, 2, main_panel_1m[sp],
+                       times21[("sympanel", PATH_A_SHORT_N, 2)])],
+        t_sp: [main_path(23, t_sp, PATH_B_N, 11, main_tpanel[t_sp],
+                         times21[("terms_sympanel", PATH_B_N, 11)],
+                         n_iso=2)],
     }
 
-    def entry(name, source, replaces, err):
+    def entry(name, source, replaces, tpu, err):
         first = paths[name][0]
         return {"name": name, "route": "cuda",
                 "source": f"svgdcpp_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": first["launches"],
+                "replaces": replaces, "tpu_kernels": tpu,
+                "launches": first["launches"],
                 "max_abs_err": err, "ms": first["ms"],
                 "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
                 "bound_by": first["bound_by"], "library_ms": None,
@@ -981,14 +1306,19 @@ def main() -> int:
 
     pallas = "svgdcpp_tpu/ops/pallas_phi.py"
     print(json.dumps({"kernels": [
-        entry(sq, "fused_phi.cu", f"{pallas}:365", square_err),
-        entry(sym, "fused_phi.cu", f"{pallas}:546", sym_err),
+        entry(sq, "fused_phi.cu", f"{pallas}:365", ["K1"], square_err),
+        entry(sym, "fused_phi.cu", f"{pallas}:546", ["K2"], sym_err),
         entry(t_sq, "fused_phi_terms.cu", f"{pallas}:1963 {pallas}:1908",
-              terms_sq_err),
+              ["K6", "K7"], terms_sq_err),
         entry(t_sym, "fused_phi_terms.cu", f"{pallas}:2299 {pallas}:2240",
-              terms_sym_err),
-        entry(aniso, "fused_phi_aniso.cu", f"{pallas}:3205", aniso_err),
-        entry(k15, "phi_rbf.cu", f"{pallas}:116", k15_err),
+              ["K8", "K9"], terms_sym_err),
+        entry(aniso, "fused_phi_aniso.cu", f"{pallas}:3205", ["K14"],
+              aniso_err),
+        entry(k15, "phi_rbf.cu", f"{pallas}:116", ["K15"], k15_err),
+        entry(sp, "fused_phi_panel.cu", f"{pallas}:860", ["K3"],
+              sympanel_err),
+        entry(t_sp, "fused_phi_panel.cu", f"{pallas}:2718 {pallas}:2925",
+              ["K12", "K13"], terms_panel_err),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

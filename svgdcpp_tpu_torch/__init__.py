@@ -2,14 +2,16 @@
 
 The PyTorch port of ``svgdcpp_tpu`` for an NVIDIA Hopper GPU (H100). It
 keeps the JAX package's public surface, layout and names. It covers the
-main path and the composed-kernel / BLR path: MultivariateNormal and
-(hierarchical) Bayesian logistic regression models (and ``+ - * /`` /
-``mixture`` composition), Gaussian-RBF kernels with MEDIAN / HESSIAN /
-CONSTANT bandwidth and their ``+ - * /`` compositions (kernels/algebra.py),
-AdaGrad / Adam / RMSProp, and the SVGD class's dense, blocked, fused,
-fused_cuda, rbf_terms, fused_terms and fused_terms_cuda routes. The CUDA
-routes run four hand-written CUDA kernels (``csrc/``), built with nvcc at
-their first launch.
+main path, the composed-kernel / BLR path, the anisotropic path and the
+large-N paths: MultivariateNormal and (hierarchical) Bayesian logistic
+regression models (and ``+ - * /`` / ``mixture`` composition),
+Gaussian-RBF kernels with MEDIAN / HESSIAN / CONSTANT bandwidth and their
+``+ - * /`` compositions (kernels/algebra.py), AdaGrad / Adam / RMSProp,
+the kernel Stein discrepancy (ops/ksd.py), and the SVGD class's dense,
+blocked, fused, fused_cuda, rbf_terms, fused_terms, fused_terms_cuda,
+fused_aniso_terms_cuda and cuda routes. The CUDA routes run eight
+hand-written CUDA kernels (``csrc/``), built with nvcc at their first
+launch.
 
 The package imports torch and numpy only. Importing it builds nothing and
 changes none of torch's global settings.

@@ -50,6 +50,23 @@ def as_coords(x, dtype=None, device=None) -> Array:
     return arr
 
 
+def place_coords(coords, device="cuda", option="device") -> Array:
+    """Coordinates on the device they run on, the entry points' rule: a
+    tensor keeps its device (the caller's choice), anything else goes to
+    ``device``. The card is never swapped for the CPU quietly: 'cuda'
+    without a CUDA device raises, naming ``option``."""
+    if torch.is_tensor(coords):
+        return as_coords(coords)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{option} is 'cuda' (the default) and no CUDA device is "
+            "available: pass device=\"cpu\" to run on the CPU, or a "
+            "coordinate tensor on the device of your choice."
+        )
+    return as_coords(coords, device=device)
+
+
 class ParticleStore:
     """Mutable holder for the particle coordinate tensor.
 

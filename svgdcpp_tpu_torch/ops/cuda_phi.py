@@ -1,7 +1,7 @@
 """Fused phi sweeps on the card: wrappers of the CUDA kernels.
 
-Six hand-written Hopper kernels, built into one library, replace the Pallas
-kernels of the package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
+Eight hand-written Hopper kernels, built into one library, replace the
+Pallas kernels of the package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
 
   * ``fused_phi_counts_square`` (``csrc/fused_phi.cu``) -- ``_fused_kernel``
     (K1), the square/cross sweep (each target row against every source).
@@ -21,12 +21,25 @@ kernels of the package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
     term.
   * ``phi_rbf_square``          (``csrc/phi_rbf.cu``) -- ``_phi_kernel``
     (K15): the square sweep of one RBF with a full, fixed P, no counts.
+  * ``fused_phi_counts_sympanel`` (``csrc/fused_phi_panel.cu``) --
+    ``_sym_panel_kernel`` (K3): the triangle sweep of one RBF laid out as
+    pairs of super-blocks, each with its own output window, summed by an
+    epilogue (``ops/phi.sympanel_epilogue``).
+  * ``fused_phi_terms_sympanel`` (``csrc/fused_phi_panel.cu``) --
+    ``_sym_panel_terms_direct_kernel`` and ``_sym_panel_terms_kernel``
+    (K12, K13): the same for a signed sum of isotropic RBF terms.
 
-The first five return phi and the int64 counts of pair squared distances at
-or below each threshold, like ``ops/phi.phi_rbf_terms_cross_fused_counts``
-and ``phi_rbf_aniso_terms_fused_counts``, their plain versions; the sixth
-returns phi, like ``ops/phi.phi_rbf_blocked``. Every dimension
-1 <= m <= MAX_M runs; above it the wrappers raise.
+All but ``phi_rbf_square`` return phi and the int64 counts of pair squared
+distances at or below each threshold, like
+``ops/phi.phi_rbf_terms_cross_fused_counts``,
+``phi_rbf_aniso_terms_fused_counts`` and the panel schedules
+``phi_rbf_sympanel_fused_counts`` / ``phi_rbf_terms_sympanel_fused_counts``,
+their plain versions; ``phi_rbf_square`` returns phi, like
+``ops/phi.phi_rbf_blocked``. Every dimension 1 <= m <= MAX_M runs; above it
+the wrappers raise.
+
+Which form sweeps one particle set is ``resolve_sym``: the JAX package's
+decision by default (``ops/sym_plan.jax_resolve_sym``), or the caller's.
 
 Where the wrappers run: a tensor on the CPU goes to the plain version (the
 CPU tests use this); a tensor on a CUDA device launches the kernel or
@@ -52,18 +65,18 @@ import torch
 from ..kernels.algebra import MAX_RBF_TERMS
 from ..utils.cuda_build import CSRC_DIR, build_library, library_path
 from .phi import (
+    panel_index,
     phi_rbf_aniso_terms_fused_counts,
     phi_rbf_blocked,
     phi_rbf_cross_fused_counts,
     phi_rbf_fused_counts,
+    phi_rbf_sympanel_fused_counts,
     phi_rbf_terms_cross_fused_counts,
     phi_rbf_terms_fused_counts,
+    phi_rbf_terms_sympanel_fused_counts,
+    sympanel_epilogue,
 )
-
-#: Use the triangle kernels from this many particles up (``sym=None``). The
-#: number is the JAX package's crossover for its TPU kernels, taken as a
-#: starting point; the crossover on the card is still to be measured.
-SYM_MIN_N = 2048
+from .sym_plan import SYM_MIN_N, card_panel_plan, jax_resolve_sym
 
 #: Largest dimension, threshold count and term count the kernels take, and
 #: the most anisotropic terms (gradient accumulators) K14's kernel takes:
@@ -79,19 +92,25 @@ TERMS_SQUARE_KERNEL = "fused_phi_terms_square"
 TERMS_SYM_KERNEL = "fused_phi_terms_sym"
 ANISO_KERNEL = "fused_phi_aniso_terms_sym"
 PHI_RBF_KERNEL = "phi_rbf_square"
+SYMPANEL_KERNEL = "fused_phi_counts_sympanel"
+TERMS_SYMPANEL_KERNEL = "fused_phi_terms_sympanel"
 
 #: Launches of each kernel since the last reset_launch_counts().
 launch_counts = {
     SQUARE_KERNEL: 0, SYM_KERNEL: 0, TERMS_SQUARE_KERNEL: 0,
     TERMS_SYM_KERNEL: 0, ANISO_KERNEL: 0, PHI_RBF_KERNEL: 0,
+    SYMPANEL_KERNEL: 0, TERMS_SYMPANEL_KERNEL: 0,
 }
 
 LIBRARY = "svgd_fused_phi"
 SOURCES = tuple(
     CSRC_DIR / name
     for name in ("fused_phi.cu", "fused_phi_terms.cu", "fused_phi_aniso.cu",
-                 "phi_rbf.cu")
+                 "phi_rbf.cu", "fused_phi_panel.cu")
 )
+
+#: The grid's y dimension holds one panel each.
+MAX_PANELS = 65535
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -131,6 +150,10 @@ def load_library() -> ctypes.CDLL:
                 "svgd_fused_phi_aniso_terms_sym":
                     [ptr] * 5 + [i32, ptr, i32, ptr] + [i32] * 3 + [ptr] * 3,
                 "svgd_phi_rbf_square": [ptr] * 3 + [i32] * 3 + [ptr] * 2,
+                "svgd_fused_phi_counts_sympanel":
+                    [ptr] * 4 + [i32] * 5 + [ptr] * 3,
+                "svgd_fused_phi_terms_sympanel":
+                    [ptr] * 4 + [i32, ptr] + [i32] * 5 + [ptr] * 3,
             }
             for fn, argtypes in signatures.items():
                 getattr(lib, fn).argtypes = argtypes
@@ -139,12 +162,30 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
-def resolve_sym(sym, n: int) -> bool:
-    """Resolve a ``sym`` request: None picks the triangle kernel from
-    SYM_MIN_N particles up; True/False force it on/off."""
+def resolve_sym(sym, n: int, m: int, num_terms: int | None = None):
+    """Which form sweeps n particles of dimension m: False (the square
+    kernel), True (the full-width triangle kernel) or "panel" (the panel
+    triangle kernel), for one RBF (``num_terms`` None) or a composed kernel
+    of ``num_terms`` terms.
+
+    ``None`` gives the JAX package's decision (``_resolve_sym`` at its
+    default tiles, ``sym_plan.jax_resolve_sym``): the square sweep below
+    SYM_MIN_N, the full-width triangle while its accumulator fits the TPU's
+    VMEM budget, the panel form past it where its eligibility rules admit
+    the shape, else the square sweep. Those are TPU numbers, taken as the
+    starting point as SYM_MIN_N is; the crossovers on the card are
+    measured in PERF.md. ``True`` forces the full-width kernel at any n,
+    where the JAX package's True is advisory (it takes the panel or the
+    square form past the budget): on the card the accumulator lives in
+    device memory and no shape is too wide for it. ``False`` and
+    ``"panel"`` force the square and the panel kernel."""
     if sym is None:
-        return n >= SYM_MIN_N
-    return bool(sym)
+        return jax_resolve_sym(n, m, num_terms)
+    if sym is True or sym is False or sym == "panel":
+        return sym
+    raise ValueError(
+        f"sym must be None, True, False or 'panel', got {sym!r}"
+    )
 
 
 def _check_launch(rc: int, kernel: str) -> None:
@@ -340,6 +381,69 @@ def _sym_launch(coords, scores, gammas, signs, thresholds_sq):
     return phi.to(coords.dtype), 2 * upper - n
 
 
+_panel_index_cache = {}
+
+
+def _panel_index(nb, device):
+    """panel_index(nb) on the device, built once per (nb, device): a copy
+    from the host each call would synchronise the step."""
+    key = (nb, str(device))
+    if key not in _panel_index_cache:
+        _panel_index_cache[key] = panel_index(nb, device)
+    return _panel_index_cache[key]
+
+
+def _sympanel_launch(coords, scores, gammas, signs, thresholds_sq,
+                     panel_blocks):
+    """K3's port (one positive term, ``signs`` None) or the terms panel
+    kernel (K12/K13's), on the card's panel plan."""
+    g, thr = _device_operands(coords, scores, gammas, thresholds_sq)
+    n, m = coords.shape
+    nb, w, _ = card_panel_plan(n, panel_blocks)
+    num_p = nb * (nb + 1) // 2
+    if num_p > MAX_PANELS:
+        raise ValueError(
+            f"the panel kernels take at most {MAX_PANELS} panels, got "
+            f"{num_p} ({nb} super-blocks)"
+        )
+    coords_c = _centered32(coords).contiguous()
+    sc32 = scores.to(torch.float32).contiguous()
+    panels = torch.zeros((num_p, 2, 2 * m, w), dtype=torch.float32,
+                         device=coords.device)
+    upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=coords.device)
+    lib = load_library()
+    with torch.cuda.device(coords.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if signs is None:
+            name = SYMPANEL_KERNEL
+            rc = lib.svgd_fused_phi_counts_sympanel(
+                coords_c.data_ptr(), sc32.data_ptr(), g.data_ptr(),
+                thr.data_ptr(), n, m, thr.shape[0], nb, w, panels.data_ptr(),
+                upper.data_ptr(), stream,
+            )
+        else:
+            name = TERMS_SYMPANEL_KERNEL
+            rc = lib.svgd_fused_phi_terms_sympanel(
+                coords_c.data_ptr(), sc32.data_ptr(), g.data_ptr(),
+                _host_signs(signs, g.shape[0]), g.shape[0], thr.data_ptr(),
+                n, m, thr.shape[0], nb, w, panels.data_ptr(),
+                upper.data_ptr(), stream,
+            )
+    _check_launch(rc, name)
+    launch_counts[name] += 1
+    # One RBF: D is unweighted, so phi takes 2 gamma D; the terms kernel's
+    # D carries the weights w = sum s gamma k.
+    if signs is None:
+        s_total, d_scale = 1.0, 2.0 * g[0]
+    else:
+        s_total, d_scale = sum(float(s) for s in signs), 2.0
+    phi, counts = sympanel_epilogue(
+        panels, upper, _panel_index(nb, coords.device), n, sc32, s_total,
+        d_scale,
+    )
+    return phi.to(coords.dtype), counts
+
+
 def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
                   aniso_signs, thresholds_sq):
     """K14: the anisotropic terms triangle kernel."""
@@ -410,19 +514,31 @@ def _phi_rbf_launch(coords, scores, p_matrix, psd, eig):
     return phi.to(coords.dtype)
 
 
-def phi_rbf_fused_cuda(coords, scores, gamma, thresholds_sq, sym=None):
+def phi_rbf_fused_cuda(coords, scores, gamma, thresholds_sq, sym=None,
+                       panel_blocks=None):
     """Fused sweep over one particle set: (phi (n, m), counts (T,) int64).
 
-    Counterpart of ``svgdcpp_tpu.ops.pallas_phi.phi_rbf_fused_pallas``. On
-    a CUDA tensor: the triangle kernel when ``resolve_sym(sym, n)``, else
-    the square kernel, in float32 (phi is returned in the coords' dtype).
-    On a CPU tensor: the plain version ``phi_rbf_fused_counts`` (its
-    square sweep gives the same phi and counts as either kernel).
+    Counterpart of ``svgdcpp_tpu.ops.pallas_phi.phi_rbf_fused_pallas``. The
+    form is ``resolve_sym(sym, n, m)``. On a CUDA tensor: the panel kernel
+    for "panel" (``panel_blocks`` forces its super-block count), the
+    full-width triangle kernel for True, else the square kernel, in float32
+    (phi is returned in the coords' dtype). On a CPU tensor the plain
+    versions: the panel schedule ``phi_rbf_sympanel_fused_counts`` for
+    "panel", else ``phi_rbf_fused_counts`` (its square sweep gives the same
+    phi and counts as either other kernel).
     """
+    form = resolve_sym(sym, coords.shape[0], coords.shape[1])
     if coords.device.type == "cpu":
+        if form == "panel":
+            return phi_rbf_sympanel_fused_counts(
+                coords, scores, gamma, thresholds_sq, panel_blocks
+            )
         return phi_rbf_fused_counts(coords, scores, gamma, thresholds_sq)
     _require_cuda(coords)
-    if resolve_sym(sym, coords.shape[0]):
+    if form == "panel":
+        return _sympanel_launch(coords, scores, [gamma], None, thresholds_sq,
+                                panel_blocks)
+    if form:
         return _sym_launch(coords, scores, [gamma], None, thresholds_sq)
     return _square_launch(coords, coords, scores, [gamma], None, thresholds_sq)
 
@@ -444,23 +560,34 @@ def phi_rbf_fused_cuda_cross(targets, sources, source_scores, gamma,
 
 
 def phi_rbf_terms_fused_cuda(coords, scores, gammas, signs, thresholds_sq,
-                             sym=None):
+                             sym=None, panel_blocks=None):
     """Composed-kernel fused sweep over one particle set: phi of
     ``sum_t signs[t] exp(-gammas[t] sq)`` and the counts.
 
     Counterpart of ``svgdcpp_tpu.ops.pallas_phi.phi_rbf_terms_fused_pallas``.
     ``gammas`` are scalars (device tensors on the card, never read on the
     host), ``signs`` Python numbers of either sign, 1 to MAX_TERMS of each.
-    On a CUDA tensor: the terms triangle kernel when
-    ``resolve_sym(sym, n)``, else the terms square kernel, in float32. On a
-    CPU tensor: the plain ``phi_rbf_terms_fused_counts``.
+    The form is ``resolve_sym(sym, n, m, len(signs))``. On a CUDA tensor:
+    the terms panel kernel for "panel" (``panel_blocks`` forces its
+    super-block count), the terms triangle kernel for True, else the terms
+    square kernel, in float32. On a CPU tensor: the plain
+    ``phi_rbf_terms_sympanel_fused_counts`` for "panel", else
+    ``phi_rbf_terms_fused_counts``.
     """
+    form = resolve_sym(sym, coords.shape[0], coords.shape[1], len(signs))
     if coords.device.type == "cpu":
+        if form == "panel":
+            return phi_rbf_terms_sympanel_fused_counts(
+                coords, scores, gammas, signs, thresholds_sq, panel_blocks
+            )
         return phi_rbf_terms_fused_counts(
             coords, scores, gammas, signs, thresholds_sq
         )
     _require_cuda(coords)
-    if resolve_sym(sym, coords.shape[0]):
+    if form == "panel":
+        return _sympanel_launch(coords, scores, gammas, signs, thresholds_sq,
+                                panel_blocks)
+    if form:
         return _sym_launch(coords, scores, gammas, signs, thresholds_sq)
     return _square_launch(coords, coords, scores, gammas, signs, thresholds_sq)
 

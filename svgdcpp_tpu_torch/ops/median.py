@@ -76,6 +76,12 @@ def count_le_cross(rows_coords, cols_coords, thresholds, *, row_tile: int = 2048
     are shifted by the COLUMN mean (distances are translation-invariant):
     the Gram-identity squared distances lose ~eps * |x|^2 otherwise, so an
     off-origin cluster would produce garbage counts.
+
+    One pass over each tile serves every threshold: each squared distance
+    is binned between the sorted thresholds (``torch.bucketize``), the bins
+    are counted, and their running sum is each threshold's count. The
+    thresholds are compared in the coordinates' dtype, as ``sq <= t`` with
+    a 0-d threshold tensor compares them.
     """
     center = cols_coords.mean(dim=0)
     rows_coords = rows_coords - center
@@ -85,9 +91,12 @@ def count_le_cross(rows_coords, cols_coords, thresholds, *, row_tile: int = 2048
     row_tile = auto_row_tile(n_c, row_tile)
     row_norms = torch.sum(rows_coords * rows_coords, dim=1)
     col_norms = torch.sum(cols_coords * cols_coords, dim=1)
-    counts = torch.zeros(
-        thresholds.shape[0], dtype=torch.int64, device=rows_coords.device
+    num_t = thresholds.shape[0]
+    thr = torch.as_tensor(thresholds, device=rows_coords.device).to(
+        rows_coords.dtype
     )
+    thr_sorted, order = torch.sort(thr)
+    hist = torch.zeros(num_t + 1, dtype=torch.int64, device=rows_coords.device)
     for start in range(0, n_r, row_tile):
         rows = rows_coords[start : start + row_tile]
         gram = sq_matmul(rows, cols_coords.T)
@@ -96,8 +105,11 @@ def count_le_cross(rows_coords, cols_coords, thresholds, *, row_tile: int = 2048
             - 2.0 * gram,
             0.0,
         )
-        for t in range(thresholds.shape[0]):
-            counts[t] += torch.count_nonzero(sq <= thresholds[t])
+        # bin b holds thr_sorted[b-1] < sq <= thr_sorted[b]
+        bins = torch.bucketize(sq, thr_sorted, out_int32=True)
+        hist += torch.bincount(bins.reshape(-1), minlength=num_t + 1)
+    counts = torch.empty(num_t, dtype=torch.int64, device=rows_coords.device)
+    counts[order] = torch.cumsum(hist[:num_t], dim=0)
     return counts
 
 
@@ -570,18 +582,20 @@ def pairwise_distance_median(coords: torch.Tensor, method: str = "auto") -> torc
     if method == "histogram":
         raise NotImplementedError(
             "median_method='histogram' is not ported yet (ROADMAP.md, "
-            "slice 5, item 12: the parity-only histogram selector)."
+            "slice 6, item 12: the parity-only histogram selector)."
         )
     raise ValueError(f"unknown median method: {method!r}")
 
 
-def fused_median_seed(coords: torch.Tensor, method: str = "auto") -> dict:
+def fused_median_seed(coords: torch.Tensor, method: str = "auto",
+                      med=None) -> dict:
     """{med, lo1, hi1, lo2, hi2, disp} seed for the fused phi+median sweep:
     the INITIAL positions' median with tight per-rank brackets that the
-    per-step movement bound then expands."""
-    med = torch.as_tensor(
-        pairwise_distance_median(coords, method), dtype=SELECT_DTYPE
-    )
+    per-step movement bound then expands. ``med`` is that median where the
+    caller already took it on these coordinates with this method."""
+    if med is None:
+        med = pairwise_distance_median(coords, method)
+    med = torch.as_tensor(med, dtype=SELECT_DTYPE)
     return {
         "med": med,
         "lo1": med * (1.0 - 1e-3),

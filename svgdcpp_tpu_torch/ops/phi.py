@@ -19,20 +19,23 @@ loop SVGD.hpp:407-454):
                            ``ops/cuda_phi.py``, which hold themselves to it.
   * ``phi_rbf_aniso_terms_fused_counts`` -- the same for a composed kernel
                            with anisotropic (full-P) terms.
+  * ``phi_rbf_sympanel_fused_counts`` / ``phi_rbf_terms_sympanel_fused_counts``
+                        -- the same function as the fused sweeps, computed
+                           on the panel kernels' schedule (super-block pairs,
+                           their windows and ``sympanel_epilogue``): the
+                           plain versions of the CUDA panel kernels.
 
 Index convention: K[i, j] = k(x_j, x_i), row i is the target particle.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .pairwise import auto_row_tile, sq_matmul, weighted_quadratic_pairwise
-
-#: Up to this dimension the sweeps build squared distances and quadratic
-#: forms from explicit differences, as the JAX package's XLA sweeps do
-#: (exact in float32, no Gram cancellation); above it, the Gram identity.
-DIFF_FORM_MAX_M = 4
+from .sym_plan import DIFF_FORM_MAX_M, card_panel_plan, panel_pairs
 
 
 # ----------------------------------------------------------------------
@@ -371,6 +374,189 @@ def phi_rbf_fused_counts(
     plain sweep (see phi_rbf_terms_cross_fused_counts)."""
     return phi_rbf_terms_cross_fused_counts(
         coords, coords, scores, [gamma], [1], thresholds_sq, row_tile
+    )
+
+
+def _sympanel_halves(coords_c, scores, gammas, signs, thresholds_sq, nb, w,
+                     single, row_tile):
+    """The panel windows of the triangle sweep, computed as the CUDA panel
+    kernels lay them out: (panels (P, 2, 2m, W), upper (E,) int64).
+
+    Panel p is the super-block pair (I, J) = panel_pairs(nb)[p] (I <= J) of
+    width W. Half 0 holds, for each row i of super-block I, KS_i and D_i
+    over the columns j of super-block J; half 1 the same for each column j
+    over the rows i (pair (i, j) adds k s_i and w (x_j - x_i) to j). A
+    diagonal panel (I == J) keeps the pairs j >= i, its self pairs in both
+    halves. ``upper`` counts the kept pairs at or below each threshold.
+    D is weighted by w = sum s gamma k for a composed kernel and by k alone
+    for one RBF (``single``; the epilogue multiplies by gamma). sq comes
+    from differences up to DIFF_FORM_MAX_M, as in
+    phi_rbf_terms_cross_fused_counts, else from the Gram identity with the
+    self pairs pinned to 0."""
+    n, m = coords_c.shape
+    dtype, device = coords_c.dtype, coords_c.device
+    thr = torch.as_tensor(thresholds_sq, dtype=dtype, device=device)
+    gammas = [torch.as_tensor(g, dtype=dtype, device=device) for g in gammas]
+    signs = [float(s) for s in signs]
+    pairs = panel_pairs(nb)
+    panels = torch.zeros((len(pairs), 2, 2 * m, w), dtype=dtype, device=device)
+    upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=device)
+    q = torch.sum(coords_c * coords_c, dim=1)
+    row_tile = auto_row_tile(w, row_tile)
+
+    def weights(sq):
+        if single:
+            k = torch.exp(-gammas[0] * sq)
+            return k, k
+        k_c = w_ = torch.zeros_like(sq)
+        for s, g in zip(signs, gammas):
+            k_t = torch.exp(-g * sq)
+            k_c = k_c + s * k_t
+            w_ = w_ + (s * g) * k_t
+        return k_c, w_
+
+    for p, (bi, bj) in enumerate(pairs):
+        c0, c_end = bj * w, min(bj * w + w, n)
+        for r0 in range(bi * w, min(bi * w + w, n), row_tile):
+            r1 = min(r0 + row_tile, bi * w + w, n)
+            # On a diagonal panel, the columns before the tile's first row
+            # hold no pair j >= i.
+            cs = max(c0, r0) if bi == bj else c0
+            if cs >= c_end:
+                continue
+            xr, sr = coords_c[r0:r1], scores[r0:r1]
+            xc, sc = coords_c[cs:c_end], scores[cs:c_end]
+            keep = None
+            if bi == bj:
+                gi = torch.arange(r0, r1, device=device)[:, None]
+                gj = torch.arange(cs, c_end, device=device)[None, :]
+                keep = gj >= gi
+            if m <= DIFF_FORM_MAX_M:
+                diffs = [xr[:, a, None] - xc[None, :, a] for a in range(m)]
+                sq = torch.zeros((r1 - r0, c_end - cs), dtype=dtype,
+                                 device=device)
+                for a in range(m):
+                    sq = sq + diffs[a] * diffs[a]
+            else:
+                sq = torch.clamp_min(
+                    q[r0:r1, None] + q[None, cs:c_end]
+                    - 2.0 * sq_matmul(xr, xc.T), 0.0,
+                )
+                if keep is not None:
+                    sq = torch.where(gj == gi, torch.zeros_like(sq), sq)
+            k_c, w_ = weights(sq)
+            if keep is not None:
+                k_c = torch.where(keep, k_c, torch.zeros_like(k_c))
+                w_ = torch.where(keep, w_, torch.zeros_like(w_))
+                hits = sq[None, :, :] <= thr[:, None, None]
+                upper += torch.sum(hits & keep[None], dim=(1, 2))
+            else:
+                upper += torch.sum(sq[None, :, :] <= thr[:, None, None],
+                                   dim=(1, 2))
+            if m <= DIFF_FORM_MAX_M:
+                d_row = torch.stack(
+                    [torch.sum(w_ * diffs[a], dim=1) for a in range(m)], dim=1
+                )
+                d_col = -torch.stack(
+                    [torch.sum(w_ * diffs[a], dim=0) for a in range(m)], dim=1
+                )
+            else:
+                d_row = torch.sum(w_, dim=1)[:, None] * xr - w_ @ xc
+                d_col = torch.sum(w_, dim=0)[:, None] * xc - w_.T @ xr
+            li, lj = r0 - bi * w, cs - c0
+            panels[p, 0, :m, li:li + r1 - r0] = (k_c @ sc).T
+            panels[p, 0, m:, li:li + r1 - r0] = d_row.T
+            panels[p, 1, :m, lj:lj + c_end - cs] += (k_c.T @ sr).T
+            panels[p, 1, m:, lj:lj + c_end - cs] += d_col.T
+    return panels, upper
+
+
+def panel_index(nb: int, device):
+    """(I, J) of each panel, in panel_pairs order, as int64 tensors."""
+    pairs = panel_pairs(nb)
+    return (torch.tensor([p[0] for p in pairs], device=device),
+            torch.tensor([p[1] for p in pairs], device=device))
+
+
+def sympanel_epilogue(panels, upper, index, n, scores, s_total, d_scale):
+    """(phi (n, m), counts (E,) int64) from the panel windows.
+
+    Scatter-adds each panel's halves onto the (2m, nb, W) accumulator
+    [KS | D] at super-blocks I (half 0) and J (half 1), then the full-width
+    triangle's epilogue: the self pairs entered KS in both halves (k = the
+    sum of the signs), so subtract ``s_total`` s_i once; their D is 0;
+    phi = (KS + d_scale D) / n; counts = 2U - n. ``index`` is
+    panel_index(nb) on the panels' device."""
+    num_p, _, rows, w = panels.shape
+    nb = (math.isqrt(8 * num_p + 1) - 1) // 2  # num_p = nb (nb + 1) / 2
+    m = rows // 2
+    acc = torch.zeros((rows, nb, w), dtype=panels.dtype, device=panels.device)
+    acc.index_add_(1, index[0], panels[:, 0].transpose(0, 1))
+    acc.index_add_(1, index[1], panels[:, 1].transpose(0, 1))
+    a = acc.reshape(rows, nb * w)[:, :n].T
+    phi = (a[:, :m] - s_total * scores + d_scale * a[:, m:]) / n
+    return phi, 2 * upper - n
+
+
+def phi_rbf_terms_sympanel_fused_counts(
+    coords: torch.Tensor,
+    scores: torch.Tensor,
+    gammas,
+    signs,
+    thresholds_sq: torch.Tensor,
+    panel_blocks=None,
+    row_tile: int = 1024,
+):
+    """The panel schedule of the composed-kernel triangle sweep in plain
+    torch: the plain version of the CUDA kernel ``fused_phi_terms_sympanel``
+    (ops/cuda_phi.py), the counterpart of the JAX package's panel terms
+    kernels (``_phi_rbf_terms_fused_pallas_sympanel_direct_impl`` and
+    ``_phi_rbf_terms_fused_pallas_sympanel_impl``).
+
+    The same function as :func:`phi_rbf_terms_fused_counts`: phi of
+    ``sum_t signs[t] exp(-gammas[t] sq)`` and the counts over all n^2
+    pairs, here from each panel's windows (``_sympanel_halves``) and the
+    kernel path's epilogue (:func:`sympanel_epilogue`), on the card's plan
+    (``sym_plan.card_panel_plan``; ``panel_blocks`` forces its super-block
+    count). Centered on the coordinates' mean. Returns (phi (n, m),
+    counts (E,) int64)."""
+    n = coords.shape[0]
+    nb, w, _ = card_panel_plan(n, panel_blocks)
+    coords_c = coords - coords.mean(dim=0)
+    scores = scores.to(coords.dtype)
+    panels, upper = _sympanel_halves(
+        coords_c, scores, gammas, signs, thresholds_sq, nb, w, False, row_tile
+    )
+    return sympanel_epilogue(
+        panels, upper, panel_index(nb, coords.device), n, scores,
+        sum(float(s) for s in signs), 2.0,
+    )
+
+
+def phi_rbf_sympanel_fused_counts(
+    coords: torch.Tensor,
+    scores: torch.Tensor,
+    gamma,
+    thresholds_sq: torch.Tensor,
+    panel_blocks=None,
+    row_tile: int = 1024,
+):
+    """One RBF's panel triangle sweep in plain torch: the plain version of
+    the CUDA kernel ``fused_phi_counts_sympanel`` (ops/cuda_phi.py), the
+    counterpart of ``_phi_rbf_fused_pallas_sympanel_impl``. The same
+    function as :func:`phi_rbf_fused_counts` (see
+    :func:`phi_rbf_terms_sympanel_fused_counts`)."""
+    n = coords.shape[0]
+    nb, w, _ = card_panel_plan(n, panel_blocks)
+    coords_c = coords - coords.mean(dim=0)
+    scores = scores.to(coords.dtype)
+    panels, upper = _sympanel_halves(
+        coords_c, scores, [gamma], [1.0], thresholds_sq, nb, w, True, row_tile
+    )
+    gamma = torch.as_tensor(gamma, dtype=coords.dtype, device=coords.device)
+    return sympanel_epilogue(
+        panels, upper, panel_index(nb, coords.device), n, scores, 1.0,
+        2.0 * gamma,
     )
 
 

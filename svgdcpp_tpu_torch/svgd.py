@@ -15,9 +15,11 @@ Routes (``SVGDOptions.phi_impl``):
                       previous step's verified median, lag-1) and this
                       step's median-selection counts.
   * ``fused_cuda`` -- the same through the hand-written CUDA kernels
-                      (``ops/cuda_phi.py``); the counterpart of the JAX
-                      package's ``fused_pallas``. On CPU tensors its
-                      wrappers run the plain sweep.
+                      (``ops/cuda_phi.py``): the square, full-width triangle
+                      or panel triangle sweep, as ``SVGDOptions.fused_sym``
+                      resolves for n and m (``fused_sym_form``); the
+                      counterpart of the JAX package's ``fused_pallas``. On
+                      CPU tensors its wrappers run the plain sweeps.
   * ``rbf_terms``  -- a `+ - * /` composition of pure RBF kernels
                       (kernels/algebra.py): the signed sum of each term's
                       streamed closed-form phi.
@@ -63,7 +65,7 @@ import torch
 from torch.func import vmap
 
 from .core.exceptions import DimensionMismatchError, SVGD_LOG_PREFIX
-from .core.types import ParticleStore, as_coords, as_store, as_tensor
+from .core.types import ParticleStore, as_store, as_tensor, place_coords
 from .kernels.algebra import (
     flatten_rbf_terms,
     fused_aniso_terms_supported,
@@ -86,13 +88,10 @@ from .ops.cuda_phi import (
     phi_rbf_cuda,
     phi_rbf_fused_cuda,
     phi_rbf_terms_fused_cuda,
+    resolve_sym,
     symmetric_eigen,
 )
-from .ops.median import (
-    fused_lag1_plan,
-    fused_median_from_counts,
-    fused_median_seed,
-)
+from .ops.median import fused_lag1_plan, fused_median_from_counts
 from .ops.phi import (
     phi_rbf,
     phi_rbf_blocked,
@@ -156,16 +155,11 @@ def _coords_store(coords, device) -> ParticleStore:
     """The particle store of SVGDOptions.coordinate_matrix: a tensor (or a
     store) keeps its device, the caller's choice; anything else goes to
     ``device``. The card is never swapped for the CPU quietly."""
-    if isinstance(coords, ParticleStore) or torch.is_tensor(coords):
-        return as_store(coords)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            SVGD_LOG_PREFIX + "SVGDOptions.device is 'cuda' (the default) "
-            "and no CUDA device is available: pass device=\"cpu\" to run on "
-            "the CPU, or a coordinate tensor on the device of your choice."
-        )
-    return as_store(as_coords(coords, device=device))
+    if isinstance(coords, ParticleStore):
+        return coords
+    return as_store(
+        place_coords(coords, device, SVGD_LOG_PREFIX + "SVGDOptions.device")
+    )
 
 
 def _aniso_accumulators(split) -> int:
@@ -223,8 +217,15 @@ class SVGDOptions:
     #: Operand dtype of the fused kernel sweep: 'float32' only here (the
     #: JAX package's bfloat16 opt-in is not ported).
     fused_dot_dtype: str = "float32"
-    #: Triangle (upper-triangle) kernel for 'fused_cuda': None picks it from
-    #: ops/cuda_phi.SYM_MIN_N particles up; True/False force it on/off.
+    #: Which form of the sweep the 'fused_cuda' and 'fused_terms_cuda'
+    #: routes run (ops/cuda_phi.resolve_sym): None (default) the JAX
+    #: package's rule, the full-width triangle kernel from SYM_MIN_N
+    #: particles up and the panel triangle kernel past the TPU's accumulator
+    #: budget (N = 262,144 at d = 2, N = 131,072 for the hierarchical BLR);
+    #: False the square kernel; True the full-width triangle kernel at any n
+    #: (advisory in the JAX package, which takes the panel or the square
+    #: form where its budget is exceeded); "panel" the panel kernel. The
+    #: form a driver resolved is ``SVGD.fused_sym_form``.
     fused_sym: Any = None
     #: Where a coordinate matrix that is not a tensor goes: the card by
     #: default ("cpu" to ask for the CPU). A tensor keeps its own device.
@@ -358,7 +359,7 @@ class SVGD:
         opts = self.options
         if opts.mesh is not None:
             raise _not_ported(
-                "SVGDOptions.mesh", "slice 4, item 11 (multi-GPU engines)"
+                "SVGDOptions.mesh", "slice 5, item 11 (multi-GPU engines)"
             )
         if self.log_intermediate_matrices:
             raise _not_ported(
@@ -450,6 +451,20 @@ class SVGD:
             if on_cuda:
                 check_dimension(self.dimension)
         self._phi_impl = impl
+        #: The form of the sweep the fused kernel routes run: False (square),
+        #: True (full-width triangle) or "panel" (ops/cuda_phi.resolve_sym
+        #: of SVGDOptions.fused_sym for this n, m and term count); None on
+        #: the other routes.
+        self.fused_sym_form = None
+        if impl == "fused_cuda":
+            self.fused_sym_form = resolve_sym(
+                opts.fused_sym, self.num_particles, self.dimension
+            )
+        elif impl == "fused_terms_cuda":
+            self.fused_sym_form = resolve_sym(
+                opts.fused_sym, self.num_particles, self.dimension,
+                len(self._rbf_terms),
+            )
 
     def _auto_impl(self, on_cuda: bool) -> str:
         """phi_impl='auto': the JAX package's rule, its TPU branch on a CUDA
@@ -721,7 +736,7 @@ class SVGD:
                 elif fused_terms and on_kernels:
                     phi, counts = phi_rbf_terms_fused_cuda(
                         coords, scores, gammas, term_signs, thresholds,
-                        sym=self.options.fused_sym,
+                        sym=self.fused_sym_form,
                     )
                 elif fused_terms:
                     phi, counts = phi_rbf_terms_fused_counts(
@@ -731,7 +746,7 @@ class SVGD:
                 elif on_kernels:
                     phi, counts = phi_rbf_fused_cuda(
                         coords, scores, gamma, thresholds,
-                        sym=self.options.fused_sym,
+                        sym=self.fused_sym_form,
                     )
                 else:
                     phi, counts = phi_rbf_fused_counts(
@@ -862,10 +877,9 @@ class SVGD:
             # lag-1 fused pipeline.
             return (self.kernel.init_fused_aux(coords),)
         if self._phi_impl in _FUSED_TERMS_ROUTES:
-            # Composed kernel: the same seed, computed at the root with the
-            # first adaptive leaf's median_method.
-            method = self._adaptive_slots[0][1].median_method
-            return (fused_median_seed(coords, method),)
+            # Composed kernel: the same seed, computed at the root by the
+            # first adaptive leaf (its median_method, its kept median).
+            return (self._adaptive_slots[0][1].init_fused_aux(coords),)
         return tuple(
             owner.init_scale_aux(coords)
             if hasattr(owner, "init_scale_aux")

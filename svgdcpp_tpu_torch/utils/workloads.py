@@ -2,7 +2,9 @@
 
 The flagship MVN configuration (the reference mvn_example target,
 examples/multivariate_normal/mvn_example.cpp:9-35), with the same constants
-and the same seeded x0 as ``svgdcpp_tpu.utils.workloads``; the BLR
+and the same seeded x0 as ``svgdcpp_tpu.utils.workloads``, and its driver;
+the large-N configurations (the flagship and the hierarchical BLR at the
+sizes where the panel triangle sweeps run); the BLR
 workloads of ``bench.py --config blr|hier`` (BASELINE configs 3-4) with the
 bench's data, x0 and constants; and the anisotropic composed-kernel
 posterior of ``scripts/check_aniso_posterior.py`` with its draws. They are
@@ -35,6 +37,65 @@ def flagship_mvn(num_particles: int, seed: int = 0, dtype=np.float64):
     return MVN_MEAN.astype(dtype), MVN_COV.astype(dtype), x0.astype(dtype)
 
 
+#: The flagship's AdaGrad learning rate (bench.py's default configuration).
+FLAGSHIP_ADAGRAD_LR = 0.1
+
+
+def build_mvn_svgd(x0, mean, cov, phi_impl="auto", num_iterations=100,
+                   device="cuda", fused_sym=None):
+    """The flagship driver (``bench.py``'s default configuration and
+    examples/large_scale_example.py), initialized: an MVN target with mean
+    and cov in x0's dtype, an RBF kernel with the median bandwidth, AdaGrad
+    lr 0.1. ``x0`` may be a tensor (its device and dtype are kept) or an
+    array (it goes to ``device`` first, so the kernel's median is taken
+    there, once)."""
+    import torch
+
+    import svgdcpp_tpu_torch as st
+
+    from ..core.types import place_coords
+
+    x0 = place_coords(x0, device)
+    n, dim = x0.shape
+    dtype = x0.dtype
+    model = st.MultivariateNormal(torch.as_tensor(np.asarray(mean)).to(dtype),
+                                  torch.as_tensor(np.asarray(cov)).to(dtype))
+    kernel = st.GaussianRBFKernel(x0, st.ScaleMethod.MEDIAN, model)
+    svgd = st.SVGD(
+        st.SVGDOptions(
+            dimension=dim, num_iterations=num_iterations,
+            coordinate_matrix=x0, kernel=kernel, model=model,
+            optimizer=st.AdaGrad(dim, n, FLAGSHIP_ADAGRAD_LR),
+            phi_impl=phi_impl, device=device, fused_sym=fused_sym,
+        )
+    )
+    return svgd.initialize()
+
+
+#: The large-N configurations (examples/large_scale_example.py runs the
+#: flagship at "10k-1M+" particles): path A is the flagship at
+#: N = 262,144, with a short run at N = 1,048,576; path B the hierarchical
+#: BLR of ``bench.py --config hier`` at N = 131,072. On them the JAX
+#: package's rule takes the panel triangle sweeps (K3; K12).
+LARGE_MVN_PARTICLES = 262144
+LARGE_MVN_SHORT_PARTICLES = 1048576
+LARGE_HIER_PARTICLES = 131072
+
+
+def large_mvn_workload(num_particles: int = LARGE_MVN_PARTICLES,
+                       seed: int = 0):
+    """(mean, cov, x0) of path A: ``flagship_mvn`` at large N in float32,
+    as examples/large_scale_example.py draws it."""
+    return flagship_mvn(num_particles, seed, dtype=np.float32)
+
+
+def large_hier_workload(particles: int = LARGE_HIER_PARTICLES,
+                        seed: int = 0):
+    """(features, labels, x0) of path B: ``blr_workload`` of the
+    hierarchical configuration (d = 10, m = 11) at large N."""
+    return blr_workload(particles, 10, hierarchical=True, seed=seed)
+
+
 def blr_workload(particles: int, dim: int, n_data: int = 1024,
                  hierarchical: bool = False, seed: int = 0):
     """(features, labels, x0) as numpy arrays, equal to
@@ -55,14 +116,20 @@ def blr_workload(particles: int, dim: int, n_data: int = 1024,
 
 
 def build_blr_svgd(x0, features, labels, hierarchical=False,
-                   phi_impl="auto", num_iterations=100, device="cuda"):
+                   phi_impl="auto", num_iterations=100, device="cuda",
+                   fused_sym=None):
     """The bench's BLR / hierarchical-BLR driver (bench.py:383-412), built
     on this package and initialized: flat BLR with prior precision 0.1 and
     a median RBF kernel, or hierarchical BLR with the composed kernel
     median RBF + 0.1 * I; Adam in both. ``x0`` may be a tensor (its device
-    and dtype are kept) or an array (it goes to ``device``)."""
+    and dtype are kept) or an array (it goes to ``device`` first, so the
+    kernel's median is taken there, once). ``fused_sym`` is
+    SVGDOptions.fused_sym."""
     import svgdcpp_tpu_torch as st
 
+    from ..core.types import place_coords
+
+    x0 = place_coords(x0, device)
     particles, full_dim = x0.shape
     if hierarchical:
         model = st.HierarchicalBayesianLogisticRegression(features, labels)
@@ -85,7 +152,7 @@ def build_blr_svgd(x0, features, labels, hierarchical=False,
                 full_dim, particles, BLR_ADAM["lr"], BLR_ADAM["beta1"],
                 BLR_ADAM["beta2"],
             ),
-            phi_impl=phi_impl, device=device,
+            phi_impl=phi_impl, device=device, fused_sym=fused_sym,
         )
     )
     return svgd.initialize()
@@ -121,9 +188,13 @@ def build_aniso_svgd(x0, mean, cov, p_aniso, phi_impl="auto",
     the constant full matrix ``p_aniso`` (float32), AdaGrad lr 0.05.
     ``kernel_scale`` replaces the median RBF by one with that scale method
     (a ScaleMethod) and no constant term. ``x0`` may be a tensor (its device
-    and dtype are kept) or an array (it goes to ``device``)."""
+    and dtype are kept) or an array (it goes to ``device`` first, so the
+    kernel's median is taken there, once)."""
     import svgdcpp_tpu_torch as st
 
+    from ..core.types import place_coords
+
+    x0 = place_coords(x0, device)
     particles, dim = x0.shape
     model = st.MultivariateNormal(
         np.asarray(mean, np.float32), np.asarray(cov, np.float32)

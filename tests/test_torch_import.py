@@ -101,6 +101,7 @@ def test_package_data_covers_every_kernel_include():
             assert (csrc / name).is_file(), (src.name, name)
             needed.add(f"csrc/{name}")
     assert "csrc/sweep_common.cuh" in needed
+    assert "csrc/fused_phi_panel.cu" in needed
     for rel in sorted(needed):
         assert any(fnmatch.fnmatch(rel, g) for g in globs), (rel, globs)
 

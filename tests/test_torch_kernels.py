@@ -59,6 +59,35 @@ def test_hessian_and_constant_scales_match_jax(rng):
     assert_close(kt.parameters[0], kj.parameters[0])
 
 
+def test_fused_seed_reuses_the_constructors_median(rng, monkeypatch):
+    """The fused routes' seed on the coordinates the constructor's MEDIAN
+    scale was taken on reuses that median; other coordinates or another
+    method take their own."""
+    from svgdcpp_tpu_torch.ops import median as mt
+
+    x = torch.from_numpy(rng.normal(size=(600, 2)))
+    kt = st.GaussianRBFKernel(x, st.ScaleMethod.MEDIAN)
+    want = mt.fused_median_seed(x)
+    calls = []
+    real = mt.pairwise_distance_median
+
+    def counted(*args, **kwargs):
+        calls.append(args[0].shape)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(mt, "pairwise_distance_median", counted)
+    got = kt.init_fused_aux(x.clone())
+    assert not calls
+    assert set(got) == set(want)
+    for key in want:
+        assert torch.equal(got[key], want[key])
+    kt.init_fused_aux(x + 1e-3)
+    assert len(calls) == 1
+    kt.median_method = "exact"
+    kt.init_fused_aux(x)
+    assert len(calls) == 2
+
+
 def test_scale_aux_seeds_match_jax(rng):
     x = rng.normal(size=(600, 2))
     kj = sv.GaussianRBFKernel(x, sv.ScaleMethod.MEDIAN)

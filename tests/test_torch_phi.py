@@ -300,10 +300,12 @@ def test_dimension_limit_names_the_roadmap():
 
 
 def test_resolve_sym_and_launch_counts_on_cpu():
-    assert cuda_phi.resolve_sym(None, cuda_phi.SYM_MIN_N - 1) is False
-    assert cuda_phi.resolve_sym(None, cuda_phi.SYM_MIN_N) is True
-    assert cuda_phi.resolve_sym(True, 10) is True
-    assert cuda_phi.resolve_sym(False, 10**6) is False
+    assert cuda_phi.resolve_sym(None, cuda_phi.SYM_MIN_N - 1, 2) is False
+    assert cuda_phi.resolve_sym(None, cuda_phi.SYM_MIN_N, 2) is True
+    assert cuda_phi.resolve_sym(None, cuda_phi.SYM_MIN_N, 11, 2) is True
+    assert cuda_phi.resolve_sym(True, 10, 2) is True
+    assert cuda_phi.resolve_sym(False, 10**6, 2) is False
+    assert cuda_phi.resolve_sym(None, 10**6, 2) == "panel"
     # the plain version on a CPU tensor launches nothing
     cuda_phi.reset_launch_counts()
     x, s = inputs(40, 2)
@@ -325,9 +327,18 @@ def test_resolve_sym_and_launch_counts_on_cpu():
         torch.tensor([1.0]),
     )
     cuda_phi.phi_rbf_cuda(torch.from_numpy(x), torch.from_numpy(s), p)
+    cuda_phi.phi_rbf_fused_cuda(
+        torch.from_numpy(x), torch.from_numpy(s), 0.5, torch.tensor([1.0]),
+        sym="panel",
+    )
+    cuda_phi.phi_rbf_terms_fused_cuda(
+        torch.from_numpy(x), torch.from_numpy(s), [0.5, 0.1], (1, -1),
+        torch.tensor([1.0, 2.0]), sym="panel", panel_blocks=2,
+    )
     assert set(cuda_phi.launch_counts) == {
         cuda_phi.SQUARE_KERNEL, cuda_phi.SYM_KERNEL,
         cuda_phi.TERMS_SQUARE_KERNEL, cuda_phi.TERMS_SYM_KERNEL,
         cuda_phi.ANISO_KERNEL, cuda_phi.PHI_RBF_KERNEL,
+        cuda_phi.SYMPANEL_KERNEL, cuda_phi.TERMS_SYMPANEL_KERNEL,
     }
     assert all(v == 0 for v in cuda_phi.launch_counts.values())

@@ -359,6 +359,56 @@ def test_numpy_coords_default_to_cuda(monkeypatch):
     assert build_blr_svgd(xb, feats, labels, device="cpu").store.value.device.type == "cpu"
 
 
+def builder_case(name, device):
+    """One of the workload builders, called on a numpy x0 with ``device``."""
+    from svgdcpp_tpu_torch.utils import workloads as wl
+
+    if name == "mvn":
+        mean, cov, x0 = flagship_mvn(600)
+        return lambda: wl.build_mvn_svgd(x0, mean, cov, device=device)
+    if name == "hier":
+        feats, labels, xb = wl.blr_workload(600, 3, n_data=32,
+                                            hierarchical=True)
+        return lambda: wl.build_blr_svgd(xb, feats, labels, hierarchical=True,
+                                         device=device)
+    mean, cov, xa, p_aniso = wl.aniso_mvn_workload(600, dim=3)
+    return lambda: wl.build_aniso_svgd(xa, mean, cov, p_aniso, device=device)
+
+
+def count_medians(monkeypatch):
+    """Count the median selections of the kernels' scale and of the fused
+    routes' seed."""
+    from svgdcpp_tpu_torch.kernels import gaussian_rbf
+    from svgdcpp_tpu_torch.ops import median
+
+    calls = []
+    real = median.pairwise_distance_median
+
+    def counted(coords, *args, **kwargs):
+        calls.append(coords.device.type)
+        return real(coords, *args, **kwargs)
+
+    for module in (median, gaussian_rbf):
+        monkeypatch.setattr(module, "pairwise_distance_median", counted)
+    return calls
+
+
+@pytest.mark.parametrize("name", ["mvn", "hier", "aniso"])
+def test_builders_place_numpy_x0_before_the_median(name, monkeypatch):
+    """A numpy x0 goes to the builder's device before the kernel is built:
+    without a CUDA device the default raises before any median is taken,
+    and with device="cpu" the median is taken once, on the driver's
+    device, and the fused routes' seed reuses it."""
+    calls = count_medians(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        builder_case(name, "cuda")()
+    assert calls == []
+    svgd = builder_case(name, "cpu")()
+    assert calls == ["cpu"]
+    assert svgd.store.value.device.type == "cpu"
+
+
 def composed(pkg, x0, const, op="+", model=None):
     """Median RBF (op) constant RBF, the hierarchical-BLR kernel's shape."""
     med = pkg.GaussianRBFKernel(x0.copy(), pkg.ScaleMethod.MEDIAN, model)
