@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of a step goes, on one CUDA GPU.
 
-    python3 chip_profile.py [--config mvn|large|hier|blr|aniso|hessian]
+    python3 chip_profile.py [--config mvn|large|hier|blr|aniso|hessian|sharded]
                             [--particles N] [--large] [--crossover]
                             [--out PATH]
 
@@ -22,9 +22,16 @@ Drives one configuration of svgdcpp_tpu_torch at its full width:
     route ``fused_aniso_terms_cuda`` (the anisotropic terms kernel);
   * ``hessian``: the same target with one RBF whose scale is the HESSIAN
     one, route ``cuda`` (the fixed-P square kernel);
+  * ``sharded``: the flagship on the sharded engine (examples/
+    sharded_example.py's configuration, utils/workloads.
+    build_sharded_mvn_svgd) on a one-rank NCCL group, N=10000: the
+    triangle's chunk kernel (K4's port), the gathers and sums of the group,
+    the same lag-1 median; its sections (``ShardedSVGD.section_hook``)
+    add the gather of the coordinates.
 
-``--particles`` sets N for ``mvn`` and ``hier``; the sweep kernel read is
-the one of the form the driver resolved (``SVGD.fused_sym_form``). From
+``--particles`` sets N for ``mvn``, ``hier`` and ``sharded``; the sweep
+kernel read is the one of the form the driver resolved
+(``SVGD.fused_sym_form``, ``ShardedSVGD._fused_sym``). From
 100000 particles up the step counts below drop to 5 (warm-up), 30 (host),
 5 (profiled) and 30 (sections), since a step takes 0.1 s or more. It
 prints:
@@ -118,10 +125,37 @@ def device_timeline(trace_path, steps, sweep_name):
     }
 
 
+class ShardedRunner:
+    """A ShardedSVGD driven as the profile drives SVGD: ``run()`` takes
+    ``num_iterations`` steps from the engine's current state."""
+
+    def __init__(self, engine, x0):
+        self.engine = engine
+        self.num_iterations = 1
+        self.num_particles = engine.num_particles
+        self.fused_sym_form = engine._fused_sym
+        engine._state = engine.init_state(x0)
+
+    @property
+    def median_fallbacks(self):
+        return self.engine.median_fallbacks
+
+    @property
+    def section_hook(self):
+        return self.engine.section_hook
+
+    @section_hook.setter
+    def section_hook(self, hook):
+        self.engine.section_hook = hook
+
+    def run(self):
+        self.engine.run_state(self.engine._state, self.num_iterations)
+
+
 def make_driver(st, config, iters, particles=None):
     """(driver, the name of its sweep kernel's device function, without
     ``_kernel``) for ``config`` at full width, with ``particles`` particles
-    where given (mvn and hier)."""
+    where given (mvn, hier and sharded)."""
     import torch
 
     from svgdcpp_tpu_torch.ops import cuda_phi
@@ -133,6 +167,25 @@ def make_driver(st, config, iters, particles=None):
         build_blr_svgd,
     )
 
+    if config == "sharded":
+        import numpy as np
+
+        from chip_smoke import free_port
+        from svgdcpp_tpu_torch.parallel import initialize_distributed
+        from svgdcpp_tpu_torch.utils.workloads import (
+            build_sharded_mvn_svgd,
+            flagship_mvn,
+        )
+
+        group = initialize_distributed(f"tcp://localhost:{free_port()}", 1, 0)
+        mean, cov, x0 = flagship_mvn(particles or 10000)
+        x0 = x0.astype(np.float32)
+        runner = ShardedRunner(build_sharded_mvn_svgd(x0, mean, cov, group),
+                               x0)
+        kernel = {"full": cuda_phi.SYM_CHUNK_KERNEL,
+                  "panel": cuda_phi.SYMPANEL_CHUNK_KERNEL,
+                  False: cuda_phi.SQUARE_KERNEL}[runner.fused_sym_form]
+        return runner, kernel
     if config in ("aniso", "hessian"):
         mean, cov, x0, p_aniso = aniso_mvn_workload(10240)
         hessian = config == "hessian"
@@ -204,8 +257,12 @@ def sections_ms(svgd, steps):
         totals[name] = totals.get(name, 0.0) + (now - last[0]) * 1e3
         last[0] = now
 
+    # The driver reads its hook when it builds the step; the sharded engine
+    # when it runs one.
+    rebuild = hasattr(svgd, "build_step_fn")
     svgd.section_hook = mark
-    svgd._step_fn = svgd.build_step_fn()
+    if rebuild:
+        svgd._step_fn = svgd.build_step_fn()
     svgd.num_iterations = steps
     try:
         torch.cuda.synchronize()
@@ -213,7 +270,8 @@ def sections_ms(svgd, steps):
         svgd.run()
     finally:
         svgd.section_hook = None
-        svgd._step_fn = svgd.build_step_fn()
+        if rebuild:
+            svgd._step_fn = svgd.build_step_fn()
     return {name: v / steps for name, v in totals.items()}
 
 
@@ -296,10 +354,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config",
                         choices=("mvn", "large", "hier", "blr", "aniso",
-                                 "hessian"),
+                                 "hessian", "sharded"),
                         default="mvn")
     parser.add_argument("--particles", type=int, default=None,
-                        help="particle count of mvn or hier")
+                        help="particle count of mvn, hier or sharded")
     parser.add_argument("--large", action="store_true",
                         help="also run the triangle kernel at n = 1e5 and 1e6")
     parser.add_argument("--crossover", action="store_true",
@@ -309,8 +367,10 @@ def main() -> int:
     args = parser.parse_args()
     if args.large and args.config != "mvn":
         parser.error("--large runs with --config mvn only")
-    if args.particles is not None and args.config not in ("mvn", "hier"):
-        parser.error("--particles sets mvn's or hier's particle count")
+    if args.particles is not None and args.config not in ("mvn", "hier",
+                                                          "sharded"):
+        parser.error("--particles sets mvn's, hier's or sharded's particle "
+                     "count")
     if args.out is None:
         suffix = "" if args.config == "mvn" else f"_{args.config}"
         if args.particles is not None:
@@ -361,6 +421,8 @@ def main() -> int:
     )
     result["sections_ms_per_step"] = sections_ms(svgd, host_steps)
     result["fallbacks"] = svgd.median_fallbacks
+    if args.config == "sharded":
+        torch.distributed.destroy_process_group()
     if args.large:
         result["large_n"] = [large_n(n, torch.device("cuda")) for n in (100_000, 1_000_000)]
     if args.crossover:

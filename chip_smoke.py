@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the package's CUDA kernels from ``svgdcpp_tpu_torch/csrc`` and runs
-twenty-four phases, one line each (several for phases 2, 3, 7-9 and
-14-24):
+thirty-one phases, one line each (several for phases 2, 3, 7-9 and
+14-31):
 
   1. device and build: the card's name and power limit, torch and CUDA
      versions, nvcc build seconds and ptxas's registers and spill bytes of
@@ -83,14 +83,45 @@ twenty-four phases, one line each (several for phases 2, 3, 7-9 and
      iterations, 50 terms-panel launches and no terms-sym launch; updates/s
      and the training accuracy;
  24. the panel route against the full-width route (fused_sym=True) for 20
-     steps from one x0 on both paths.
+     steps from one x0 on both paths;
+ 25. the sharded engine's triangle chunk kernels (fused_phi_counts_sym_chunk,
+     K4's port; fused_phi_terms_sym_chunk, K10/K11's) against their plain
+     chunk versions, every rank's chunk for worlds 1, 2, 4 and 8 summed and
+     finished, at (10000, 2), (10007, 2) off origin and (10000, 11) with
+     two and three terms (one negative); the sums also against K2 and the
+     terms triangle kernel (counts equal);
+ 26. the panel chunk kernel (fused_phi_counts_sympanel_chunk, K5's port)
+     against its plain version at (262144, 2) for worlds 2 and 4 and on
+     forced small panels at n = 10007 (worlds 2-8), and against K3's port;
+ 27. the count kernel (count_le_cross, K16's port) against the plain count
+     pass: square and cross at (10000, 2), (10000, 11) and 5000 x 10000,
+     17 and 40 thresholds; counts equal on grid inputs, within
+     1e-6 n_r n_c on Gaussian ones; the hybrid median through it;
+ 28. times of the chunk kernels at world 1 against their plain versions
+     and the full-width kernels, each rank's at world 2, and K16 at 10000^2
+     and 262144^2 (17 thresholds), where it is also held to the plain pass;
+ 29. the sharded flagship (examples/sharded_example.py's configuration,
+     utils/workloads.build_sharded_mvn_svgd) on a one-rank NCCL group,
+     N = 10000, 1000 iterations: 1000 K4 launches and no other sweep,
+     updates/s and phase 5's moment gates;
+ 30. the sharded hierarchical BLR at N = 10000, 1000 iterations (1000
+     K10/K11 launches, accuracy > 0.5), and the sharded flagship at
+     N = 262144, 20 iterations in the panel form (20 K5 launches);
+ 31. two ranks spawned on the one card over gloo, the flagship and the
+     hierarchical BLR at N = 10000 for 20 steps from one x0: each rank 20
+     chunk launches, the gathered coordinates within 1e-3 of the one-rank
+     run and of the single-device driver's kernel route.
+
+Phase 22 prints the N = 1,048,576 set-up (the median seed, now through
+K16) beside the 239.40 s the plain count pass took.
 
 The ``kernels`` line gives, for each kernel, its launches, error against its
 plain version and times on the main path it serves first, and its bound:
 the larger of the FP32 operations its function needs (counted per pair,
 an ex2 or a compare as one; see sweep_bound) over 67 TFLOP/s and the bytes
 of its inputs and outputs over 3.35 TB/s, the published H100 SXM peaks;
-and the TPU kernels it stands for.
+and the TPU kernels it stands for. Every main path resets the launch
+counts just before it runs and checks its sweep kernel's count after.
 
 Any failed check raises and the exit code is not 0. Without a CUDA device,
 or without the package beside it, the script exits with an error before
@@ -212,7 +243,8 @@ def bound(flops, nbytes):
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
 
 
-def sweep_bound(kernel, n, m, T=3, n_iso=1, n_aniso=0):
+def sweep_bound(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
+                n_c=None):
     """bound() of one kernel call, with the FP32 operations each pair of the
     function needs, whatever the kernel's design runs (an FMA as 2; an ex2,
     a compare and any other operation as 1):
@@ -226,24 +258,33 @@ def sweep_bound(kernel, n, m, T=3, n_iso=1, n_aniso=0):
       * an anisotropic term its form |z_ti - z_tj|^2 (3m) and 6 to
         combine; one accumulator D_t each; KS once for all terms;
       * K15: the form sum_k lam_k (dz_k)^2 (4m: the difference, a multiply
-        and an FMA), 2 for the exponential, KS and D_z = sum k dz (2m each).
+        and an FMA), 2 for the exponential, KS and D_z = sum k dz (2m each);
+      * the count pass (count_le_cross): the squared distance, 3m by
+        differences up to m = 4 and 2m + 3 by the Gram identity above (the
+        norms once per point), and T compares.
 
     The square kernels take n^2 ordered pairs and one direction; the triangle
     kernels, full-width and panel alike, n(n+1)/2 unordered pairs (diagonal
-    included) and both. Bytes:
+    included) and both; a chunk kernel the ``pairs`` of its tiles or panels
+    (the whole triangle by default); the count pass n x n_c pairs. Bytes:
     the function's inputs read once (coordinates, scores, precisions,
-    thresholds) and its outputs written once (phi, the int64 counts). One
-    particle set of n, as on every main path."""
+    thresholds) and its outputs written once (phi, or a chunk's raw (2m, n)
+    accumulator; the int64 counts). One particle set of n, as on every main
+    path."""
     square_pairs = n * n
-    tri_pairs = n * (n + 1) / 2
+    tri_pairs = n * (n + 1) / 2 if pairs is None else pairs
     contract = 4 * m  # KS and one D, one direction
+    out_floats = n * m
     if kernel == "fused_phi_counts_square":
         flops = square_pairs * (3 * m + 2 + T + contract)
-    elif kernel in ("fused_phi_counts_sym", "fused_phi_counts_sympanel"):
+    elif kernel in ("fused_phi_counts_sym", "fused_phi_counts_sympanel",
+                    "fused_phi_counts_sym_chunk",
+                    "fused_phi_counts_sympanel_chunk"):
         flops = tri_pairs * (3 * m + 2 + T + 2 * contract)
     elif kernel == "fused_phi_terms_square":
         flops = square_pairs * (3 * m + 6 * n_iso + T + contract)
-    elif kernel in ("fused_phi_terms_sym", "fused_phi_terms_sympanel"):
+    elif kernel in ("fused_phi_terms_sym", "fused_phi_terms_sympanel",
+                    "fused_phi_terms_sym_chunk"):
         flops = tri_pairs * (3 * m + 6 * n_iso + T + 2 * contract)
     elif kernel == "fused_phi_aniso_terms_sym":
         n_w = (1 if n_iso else 0) + n_aniso
@@ -252,12 +293,57 @@ def sweep_bound(kernel, n, m, T=3, n_iso=1, n_aniso=0):
     elif kernel == "phi_rbf_square":
         flops = square_pairs * (4 * m + 2 + contract)
         T = 0
+    elif kernel == "count_le_cross":
+        n_c = n if n_c is None else n_c
+        flops = n * n_c * ((3 * m if m <= 4 else 2 * m + 3) + T)
+        return bound(flops, 4 * (n + n_c) * m + 4 * T + 8 * T)
     else:
         raise ValueError(kernel)
-    nbytes = 4 * (2 * n * m + n_aniso * m * m + n_iso + T) + 4 * n * m + 8 * T
+    if kernel.endswith("_chunk"):
+        out_floats = 2 * n * m
+    nbytes = (4 * (2 * n * m + n_aniso * m * m + n_iso + T) + 4 * out_floats
+              + 8 * T)
     if kernel == "phi_rbf_square":
         nbytes += 4 * m * m
     return bound(flops, nbytes)
+
+
+def chunk_pairs(n, side, blocks):
+    """Unordered pairs (diagonal included) in ``blocks``, a list of
+    (bi, bj) blocks of ``side`` particles a side over n particles: a
+    diagonal block holds j >= i only, ragged blocks their rows and columns
+    below n."""
+    total = 0
+    for bi, bj in blocks:
+        rows = max(0, min(side, n - bi * side))
+        cols = max(0, min(side, n - bj * side))
+        total += rows * (rows + 1) // 2 if bi == bj else rows * cols
+    return total
+
+
+def free_port():
+    """A free TCP port on localhost for a torch.distributed rendezvous."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def require_only(counts, kernel, launches, what, count_launches=0):
+    """The sweep kernels' launches in ``counts`` are ``launches`` of
+    ``kernel`` and none of the others, and the count kernel (K16's port),
+    which runs under every median whichever sweep the path takes, launched
+    at least ``count_launches`` times."""
+    from svgdcpp_tpu_torch.ops.cuda_phi import COUNT_KERNEL
+
+    sweeps = {k: v for k, v in counts.items() if k != COUNT_KERNEL}
+    want = {k: 0 for k in sweeps}
+    want[kernel] = launches
+    check(sweeps == want, f"{what}: launches {counts}, want {want}")
+    check(counts[COUNT_KERNEL] >= count_launches,
+          f"{what}: {counts[COUNT_KERNEL]} launches of {COUNT_KERNEL}, "
+          f"want at least {count_launches}")
 
 
 def compare_phi(name, got, want):
@@ -378,6 +464,50 @@ def f64_rows_reference(x, s, gammas, signs, thr, rows):
     )[0].to(torch.float32)
 
 
+SHARDED_N, SHARDED_ITERS, SHARDED_LARGE_ITERS = 10000, 1000, 20
+
+
+def sharded_rank(rank, world, port, queue):
+    """Phase 31's rank ``rank`` of ``world``, spawned (not forked) once the
+    parent's CUDA is up: a gloo world on the one card (NCCL refuses two
+    ranks on one device), the sharded flagship and hierarchical BLR at
+    N = 10,000 for COMPARE_STEPS steps from the workloads' x0; puts
+    (rank, {case: (gathered coords, launch counts, form)}) on ``queue``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.parallel import initialize_distributed
+    from svgdcpp_tpu_torch.utils.workloads import (
+        blr_workload,
+        build_sharded_hier_svgd,
+        build_sharded_mvn_svgd,
+        flagship_mvn,
+    )
+
+    group = initialize_distributed(f"tcp://localhost:{port}", world, rank,
+                                   backend="gloo", device="cuda:0")
+    out = {}
+    mean, cov, x0 = flagship_mvn(SHARDED_N)
+    x0 = x0.astype(np.float32)
+    feats, labels, x0_h = blr_workload(SHARDED_N, 10, hierarchical=True)
+    for case, build, x in (
+        ("flagship", lambda: build_sharded_mvn_svgd(x0, mean, cov, group),
+         x0),
+        ("hier", lambda: build_sharded_hier_svgd(x0_h, feats, labels, group),
+         x0_h),
+    ):
+        engine = build()
+        cuda_phi.reset_launch_counts()
+        coords = engine.run(x, COMPARE_STEPS)
+        torch.cuda.synchronize()
+        out[case] = (coords.cpu().numpy(), dict(cuda_phi.launch_counts),
+                     engine._fused_sym)
+    queue.put((rank, out))
+    dist.destroy_process_group()
+
+
 def main() -> int:
     import torch
 
@@ -397,26 +527,43 @@ def main() -> int:
     import svgdcpp_tpu_torch as st
     from svgdcpp_tpu_torch.ops import cuda_phi
     from svgdcpp_tpu_torch.ops.ksd import ksd_rbf
+    from svgdcpp_tpu_torch.ops import median as median_mod
+    from svgdcpp_tpu_torch.ops.median import (
+        count_le_cross,
+        count_le_plain,
+        pairwise_distance_median_hybrid,
+    )
     from svgdcpp_tpu_torch.ops.phi import (
         phi_rbf,
         phi_rbf_aniso_terms_fused_counts,
         phi_rbf_blocked,
         phi_rbf_cross_fused_counts,
         phi_rbf_fused_counts,
+        phi_rbf_fused_sym_finish,
+        phi_rbf_sym_chunk_counts,
+        phi_rbf_sympanel_chunk_counts,
         phi_rbf_sympanel_fused_counts,
         phi_rbf_terms_cross_fused_counts,
         phi_rbf_terms_fused_counts,
+        phi_rbf_terms_fused_sym_finish,
+        phi_rbf_terms_sym_chunk_counts,
         phi_rbf_terms_sympanel_fused_counts,
     )
     from svgdcpp_tpu_torch.ops.sym_plan import (
         card_panel_plan,
+        sym_tile,
+        sym_tile_chunk,
         tpu_terms_panel_kernel,
+        upper_tile_rows,
     )
+    from svgdcpp_tpu_torch.parallel import initialize_distributed
     from svgdcpp_tpu_torch.utils.workloads import (
         aniso_mvn_workload,
         blr_workload,
         build_aniso_svgd,
         build_blr_svgd,
+        build_sharded_hier_svgd,
+        build_sharded_mvn_svgd,
         flagship_mvn,
         large_hier_workload,
         large_mvn_workload,
@@ -679,10 +826,8 @@ def main() -> int:
     main_terms_sq = dict(cuda_phi.launch_counts)
     check(bool(out.isfinite().all()) and tuple(out.shape) == (1500, 11),
           "hier n=1500 run: bad output")
-    want = {k: 0 for k in main_terms_sq}
-    want[cuda_phi.TERMS_SQUARE_KERNEL] = 50
-    check(main_terms_sq == want,
-          f"hier n=1500, 50 steps: launches {main_terms_sq}, want {want}")
+    require_only(main_terms_sq, cuda_phi.TERMS_SQUARE_KERNEL, 50,
+                 "hier n=1500, 50 steps")
     print(f"phase 10 hier main path n=1500 m=11 50 iters: ok "
           f"route=fused_terms_cuda launches={json.dumps(main_terms_sq)} "
           f"fallbacks={svgd.median_fallbacks}")
@@ -713,10 +858,8 @@ def main() -> int:
     out = svgd.store.value
     check(bool(out.isfinite().all()) and tuple(out.shape) == (10000, 11),
           "hier N=10000 run: bad output")
-    want = {k: 0 for k in main_terms_sym}
-    want[cuda_phi.TERMS_SYM_KERNEL] = segments * seg_len
-    check(main_terms_sym == want,
-          f"hier N=10000, 1000 steps: launches {main_terms_sym}, want {want}")
+    require_only(main_terms_sym, cuda_phi.TERMS_SYM_KERNEL, segments * seg_len,
+                 "hier N=10000, 1000 steps")
     acc0 = blr_accuracy(x0_hier, feats_h, labels_h)
     acc = blr_accuracy(out.cpu().numpy(), feats_h, labels_h)
     check(acc > 0.5, f"hier training accuracy {acc:.4f} <= 0.5")
@@ -739,10 +882,8 @@ def main() -> int:
     out = svgd.store.value
     check(bool(out.isfinite().all()) and tuple(out.shape) == (1000, 50),
           "flat BLR run: bad output")
-    want = {k: 0 for k in main_blr}
-    want[cuda_phi.SQUARE_KERNEL] = segments * seg_len
-    check(main_blr == want,
-          f"flat BLR, 1000 steps: launches {main_blr}, want {want}")
+    require_only(main_blr, cuda_phi.SQUARE_KERNEL, segments * seg_len,
+                 "flat BLR, 1000 steps")
     acc = blr_accuracy(out.cpu().numpy(), feats, labels)
     rate = 1000 * (segments - 1) * seg_len / timed_s
     print(f"phase 12 flat BLR N=1000 d=50 1000 iters (the bench runs 4000; "
@@ -896,10 +1037,8 @@ def main() -> int:
     out_aniso = svgd.store.value.double()
     check(bool(out_aniso.isfinite().all())
           and tuple(out_aniso.shape) == (10240, 11), "aniso run: bad output")
-    want = {k: 0 for k in main_aniso}
-    want[cuda_phi.ANISO_KERNEL] = segments * seg_len
-    check(main_aniso == want,
-          f"aniso N=10240, 1000 steps: launches {main_aniso}, want {want}")
+    require_only(main_aniso, cuda_phi.ANISO_KERNEL, segments * seg_len,
+                 "aniso N=10240, 1000 steps")
     rate = 10240 * (segments - 1) * seg_len / timed_s
     post = posterior_metrics(out_aniso.cpu().numpy(), mean_a, cov_a)
     print(f"phase 17 aniso N=10240 d=11 1000 iters: ok "
@@ -953,10 +1092,8 @@ def main() -> int:
     out = svgd.store.value
     check(bool(out.isfinite().all()) and tuple(out.shape) == (10240, 11),
           "HESSIAN cuda run: bad output")
-    want = {k: 0 for k in main_k15}
-    want[cuda_phi.PHI_RBF_KERNEL] = segments * seg_len
-    check(main_k15 == want,
-          f"HESSIAN N=10240, 1000 steps: launches {main_k15}, want {want}")
+    require_only(main_k15, cuda_phi.PHI_RBF_KERNEL, segments * seg_len,
+                 "HESSIAN N=10240, 1000 steps")
     rate = 10240 * (segments - 1) * seg_len / timed_s
     print(f"phase 18 HESSIAN cuda N=10240 d=11 1000 iters: ok route=cuda "
           f"launches={json.dumps(main_k15)} updates_per_s={rate:.6g} "
@@ -984,11 +1121,8 @@ def main() -> int:
     main_k15_median = dict(cuda_phi.launch_counts)
     check(bool(out.isfinite().all()) and tuple(out.shape) == (1500, 2),
           "MEDIAN cuda n=1500 run: bad output")
-    want = {k: 0 for k in main_k15_median}
-    want[cuda_phi.PHI_RBF_KERNEL] = 50
-    check(main_k15_median == want,
-          f"MEDIAN cuda n=1500, 50 steps: launches {main_k15_median}, "
-          f"want {want}")
+    require_only(main_k15_median, cuda_phi.PHI_RBF_KERNEL, 50,
+                 "MEDIAN cuda n=1500, 50 steps")
     print(f"phase 18 MEDIAN cuda n=1500 m=2 50 iters: ok route=cuda "
           f"launches={json.dumps(main_k15_median)}")
 
@@ -1121,11 +1255,6 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / 1e3
 
-    def require_only(counts, kernel, launches, what):
-        want = {k: 0 for k in counts}
-        want[kernel] = launches
-        check(counts == want, f"{what}: launches {counts}, want {want}")
-
     mean_l, cov_l, x0_l = large_mvn_workload(PATH_A_N)
     model_l = st.MultivariateNormal(torch.tensor(mean_l), torch.tensor(cov_l))
     ksd_before = float(ksd_rbf(model_l, x0_l))  # goes to the card
@@ -1142,8 +1271,10 @@ def main() -> int:
     out = svgd.store.value
     check(bool(out.isfinite().all()) and tuple(out.shape) == (PATH_A_N, 2),
           "path A run: bad output")
+    # The median seed's two count passes (the hybrid's 17 and 40 edges) go
+    # through K16.
     require_only(main_panel, cuda_phi.SYMPANEL_KERNEL, PATH_A_ITERS,
-                 f"path A, {PATH_A_ITERS} steps")
+                 f"path A, {PATH_A_ITERS} steps", count_launches=2)
     ksd_after = float(ksd_rbf(model_l, out))
     check(ksd_after < ksd_before,
           f"path A: KSD {ksd_before:.4g} -> {ksd_after:.4g} did not drop")
@@ -1171,13 +1302,15 @@ def main() -> int:
     check(bool(out.isfinite().all())
           and tuple(out.shape) == (PATH_A_SHORT_N, 2), "path A 1M: bad output")
     require_only(main_panel_1m, cuda_phi.SYMPANEL_KERNEL, PATH_A_SHORT_ITERS,
-                 f"path A N={PATH_A_SHORT_N}")
+                 f"path A N={PATH_A_SHORT_N}", count_launches=2)
     rate = PATH_A_SHORT_N * (PATH_A_SHORT_ITERS - 1) / timed_s
     print(f"phase 22 path A N={PATH_A_SHORT_N} {PATH_A_SHORT_ITERS} iters: ok "
           f"launches={json.dumps(main_panel_1m)} "
           f"fallbacks={svgd.median_fallbacks} updates_per_s={rate:.6g} "
           f"timed_s={timed_s:.4f} (last {PATH_A_SHORT_ITERS - 1} iters) "
-          f"init_s={init_s:.2f} (the plain median seed) {clock()}")
+          f"init_s={init_s:.2f} (the median seed through K16; 239.40 s with "
+          f"the plain count pass, PERF.md section 5) "
+          f"count_launches={main_panel_1m[cuda_phi.COUNT_KERNEL]} {clock()}")
     del svgd, out
 
     # -- phase 23: path B, the hierarchical BLR at N = 131072 ---------------
@@ -1249,6 +1382,388 @@ def main() -> int:
           f"coords_max_abs_diff={json.dumps(diffs24)} "
           f"full_width_run_twice_floor={json.dumps(floors24)} {clock()}")
 
+    # -- phase 25: K4 and K10/K11 (the triangle's chunks) vs plain ---------
+    def chunks_summed(fn, world):
+        """Every rank's (acc, upper) of a world, summed as the group sums
+        them."""
+        acc = upper = None
+        for rank in range(world):
+            a, u = fn(rank)
+            acc = a if acc is None else acc + a
+            upper = u if upper is None else upper + u
+        return acc, upper
+
+    # The chunk wrappers take the tile side from the library, the plain
+    # chunks from sym_plan.sym_tile: both must name the instance's tile.
+    lib = cuda_phi.load_library()
+    tiles_off = [(m, terms) for m in range(1, cuda_phi.MAX_M + 1)
+                 for terms in (0, 1)
+                 if lib.svgd_sym_tile(m, terms) != sym_tile(m, bool(terms))]
+    check(not tiles_off, f"svgd_sym_tile and sym_plan.sym_tile differ at "
+                         f"(m, terms) in {tiles_off}")
+    print(f"phase 25 tile sides: svgd_sym_tile equals sym_plan.sym_tile for "
+          f"m = 1..{cuda_phi.MAX_M}, one RBF and composed")
+    sym_chunk_err = terms_chunk_err = 0.0
+    # The main paths' shapes at worlds 1, 2, 4 and 8; then the dimensions
+    # served by a shared instance (m = 9, 10, 12 and 16 run the instance of
+    # 16, whose composed tile is 32; m = 17 that of 32) and m = 50, at
+    # every world of 1-8.
+    every = tuple(range(1, 9))
+    for idx, (n, m, off, signs, worlds) in enumerate([
+        (10000, 2, 0.0, None, (1, 2, 4, 8)),
+        (10007, 2, 100.0, None, (1, 2, 4, 8)),
+        (10000, 11, 0.0, (1.0, 1.0), (1, 2, 4, 8)),
+        (10000, 11, 0.0, (1.0, -0.5, 0.3), (1, 2, 4, 8)),
+        (3001, 9, 0.0, (1.0, 1.0), every), (3001, 10, 0.0, (1.0, 1.0), every),
+        (3001, 12, 0.0, (1.0, -0.5, 0.3), every),
+        (3001, 16, 0.0, (1.0, 1.0), every),
+        (3001, 17, 0.0, None, every), (3001, 50, 0.0, None, every),
+    ]):
+        x, s, g, thr = inputs_for(n, m, off, 250 + idx, dev)
+        if signs is None:
+            full = cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=True)
+
+            def kern(w, r):
+                return cuda_phi.phi_rbf_fused_sym_chunk_cuda(x, s, g, thr, w, r)
+
+            def plain(w, r):
+                return phi_rbf_sym_chunk_counts(x, s, g, thr, w, r)
+
+            def finish(acc):
+                return phi_rbf_fused_sym_finish(acc, s, g, n)
+        else:
+            gs = terms_gammas(g, signs)
+            full = cuda_phi.phi_rbf_terms_fused_cuda(x, s, gs, signs, thr,
+                                                     sym=True)
+
+            def kern(w, r):
+                return cuda_phi.phi_rbf_terms_fused_sym_chunk_cuda(
+                    x, s, gs, signs, thr, w, r)
+
+            def plain(w, r):
+                return phi_rbf_terms_sym_chunk_counts(x, s, gs, signs, thr,
+                                                      w, r)
+
+            def finish(acc):
+                return phi_rbf_terms_fused_sym_finish(acc, s, signs, n)
+        for world in worlds:
+            acc_k, up_k = chunks_summed(lambda r: kern(world, r), world)
+            acc_p, up_p = chunks_summed(lambda r: plain(world, r), world)
+            got = (finish(acc_k), 2 * up_k - n)
+            rel, abs_err, dcnt = compare(
+                f"chunks n={n} m={m} world={world}", got,
+                (finish(acc_p), 2 * up_p - n), n, m)
+            rel_full, _, dcnt_full = compare(
+                f"chunks vs full-width n={n} m={m} world={world}", got, full,
+                n, 2)  # the same sq in both kernels: counts equal at any m
+            if signs is None:
+                sym_chunk_err = max(sym_chunk_err, abs_err)
+            else:
+                terms_chunk_err = max(terms_chunk_err, abs_err)
+            print(f"phase 25 {'sym' if signs is None else 'terms sym'} "
+                  f"chunks n={n} m={m} offset={off} signs="
+                  f"{list(signs or [1.0])} world={world}: ok phi_rel={rel:.3e} "
+                  f"count_diff={dcnt} vs_full_width phi_rel={rel_full:.3e} "
+                  f"count_diff={dcnt_full} {clock()}")
+
+    # -- phase 26: K5 (the panel list's chunks) vs plain --------------------
+    panel_chunk_err = 0.0
+    for idx, (n, off, blocks, worlds) in enumerate([
+        (PATH_A_N, 0.0, None, (2, 4)), (10007, 100.0, 3, (2, 3, 4)),
+        (10007, 100.0, 8, (4, 8)),
+    ]):
+        x, s, g, thr = sweep_inputs(n, 2, off, 260 + idx, dev)
+        full = cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym="panel",
+                                           panel_blocks=blocks)
+        for world in worlds:
+            acc_k, up_k = chunks_summed(
+                lambda r: cuda_phi.phi_rbf_sympanel_chunk_cuda(
+                    x, s, g, thr, world, r, panel_blocks=blocks), world)
+            acc_p, up_p = chunks_summed(
+                lambda r: phi_rbf_sympanel_chunk_counts(
+                    x, s, g, thr, world, r, panel_blocks=blocks), world)
+            got = (phi_rbf_fused_sym_finish(acc_k, s, g, n), 2 * up_k - n)
+            rel, abs_err, dcnt = compare(
+                f"panel chunks n={n} world={world}", got,
+                (phi_rbf_fused_sym_finish(acc_p, s, g, n), 2 * up_p - n), n, 2)
+            rel_full, _, dcnt_full = compare(
+                f"panel chunks vs K3 n={n} world={world}", got, full, n, 2)
+            panel_chunk_err = max(panel_chunk_err, abs_err)
+            nb, w, _ = card_panel_plan(n, blocks)
+            print(f"phase 26 sympanel chunks n={n} m=2 offset={off} nb={nb} "
+                  f"W={w} world={world}: ok phi_rel={rel:.3e} "
+                  f"count_diff={dcnt} vs_K3 phi_rel={rel_full:.3e} "
+                  f"count_diff={dcnt_full} {clock()}")
+
+    # -- phase 27: K16 (the count pass) vs plain count_le_cross -------------
+    def count_thresholds(x, y, num, exact):
+        """``num`` thresholds at pair-distance quantiles; on a grid
+        (``exact``) halfway between multiples of 1/64."""
+        rng = np.random.default_rng(num)
+        i = rng.integers(0, x.shape[0], 4096)
+        j = rng.integers(0, y.shape[0], 4096)
+        sq = ((x[i] - y[j]).double() ** 2).sum(dim=1).cpu().numpy()
+        q = np.quantile(sq, np.linspace(0.02, 0.98, num))
+        if exact:
+            q = (np.floor(q * 64.0) + 0.5) / 64.0
+        return torch.tensor(q, dtype=torch.float64, device=dev)
+
+    count_err = 0
+    for idx, (n_r, n_c, m) in enumerate([
+        (10000, 10000, 2), (10000, 10000, 11), (5000, 10000, 2),
+    ]):
+        for exact in (True, False):
+            fn = grid_inputs if exact else sweep_inputs
+            xr = fn(n_r, m, 3.0, 270 + idx, dev)[0]
+            xc = xr if n_r == n_c else fn(n_c, m, 3.0, 280 + idx, dev)[0]
+            for num in (17, 40):  # the hybrid's edges; two launches
+                thr = count_thresholds(xr, xc, num, exact)
+                got = cuda_phi.count_le_cuda(xr, xc, thr)
+                want = count_le_plain(xr, xc, thr)
+                dcnt = int((got - want).abs().max())
+                limit = 0 if exact else 1e-6 * n_r * n_c
+                check(dcnt <= limit, f"count n_r={n_r} n_c={n_c} m={m} "
+                      f"T={num}: counts differ by {dcnt} > {limit:.3g}")
+                count_err = max(count_err, dcnt)
+                print(f"phase 27 count n_r={n_r} n_c={n_c} m={m} T={num} "
+                      f"{'grid' if exact else 'gaussian'}: ok "
+                      f"count_diff={dcnt} count_bound={limit:.3g}")
+    # The hybrid median (two count passes through K16) against the same
+    # selection on the plain pass: a count that differs at an edge moves
+    # the result by at most the hybrid's resolution gate, 1e-3 of it.
+    x_med = sweep_inputs(10000, 2, 0.0, 290, dev)[0]
+    med_k = float(pairwise_distance_median_hybrid(x_med))
+    median_mod.count_le_cross = count_le_plain
+    try:
+        med_p = float(pairwise_distance_median_hybrid(x_med))
+    finally:
+        median_mod.count_le_cross = count_le_cross
+    med_rel = abs(med_k - med_p) / med_p
+    check(med_rel <= 1e-3, f"hybrid median through K16 {med_k} vs plain "
+          f"{med_p}: rel {med_rel:.3e} > 1e-3")
+    print(f"phase 27 hybrid median n=10000 m=2: ok k16={med_k:.9g} "
+          f"plain={med_p:.9g} rel={med_rel:.3e} {clock()}")
+
+    # -- phase 28: times of the chunk kernels and K16 -----------------------
+    def chunk_blocks(n, tile, world, rank):
+        nb = -(-n // tile)
+        t0, count = sym_tile_chunk(n, world, rank, tile)
+        return [(bi, bj) for bi, first, last in upper_tile_rows(nb, t0, count)
+                for bj in range(first, last + 1)]
+
+    times28 = {}
+    x, s, g, thr = sweep_inputs(10000, 2, 0.0, 300, dev)
+    t = {"kernel": time_ms(lambda: cuda_phi.phi_rbf_fused_sym_chunk_cuda(
+             x, s, g, thr, 1, 0)),
+         "plain": plain_ms(lambda: phi_rbf_sym_chunk_counts(x, s, g, thr, 1,
+                                                            0)),
+         "full": time_ms(lambda: cuda_phi.phi_rbf_fused_cuda(x, s, g, thr,
+                                                             sym=True))}
+    ranks = [time_ms(lambda: cuda_phi.phi_rbf_fused_sym_chunk_cuda(
+        x, s, g, thr, 2, r)) for r in range(2)]
+    bounds = [sweep_bound(cuda_phi.SYM_CHUNK_KERNEL, 10000, 2,
+                          pairs=chunk_pairs(10000, 64,
+                                            chunk_blocks(10000, 64, 2, r)))[0]
+              for r in range(2)]
+    times28[("sym_chunk", 10000, 2)] = t
+    print(f"phase 28 times sym chunk n=10000 m=2 T=3 (ms, median of 50): "
+          f"world1={t['kernel']:.4f} plain={t['plain']:.4f} "
+          f"K2={t['full']:.4f} world2_rank0={ranks[0]:.4f} "
+          f"world2_rank1={ranks[1]:.4f} (bounds {bounds[0]:.5f}, "
+          f"{bounds[1]:.5f}) {clock()}")
+    x, s, g, thr = sweep_inputs(10000, 11, 0.0, 301, dev)
+    gs = terms_gammas(g, (1, 1))
+    t = {"kernel": time_ms(lambda: cuda_phi.phi_rbf_terms_fused_sym_chunk_cuda(
+             x, s, gs, (1, 1), thr, 1, 0)),
+         "plain": plain_ms(lambda: phi_rbf_terms_sym_chunk_counts(
+             x, s, gs, (1, 1), thr, 1, 0)),
+         "full": time_ms(lambda: cuda_phi.phi_rbf_terms_fused_cuda(
+             x, s, gs, (1, 1), thr, sym=True))}
+    ranks = [time_ms(lambda: cuda_phi.phi_rbf_terms_fused_sym_chunk_cuda(
+        x, s, gs, (1, 1), thr, 2, r)) for r in range(2)]
+    times28[("terms_sym_chunk", 10000, 11)] = t
+    print(f"phase 28 times terms sym chunk n=10000 m=11 T=3 two terms (ms, "
+          f"median of 50): world1={t['kernel']:.4f} plain={t['plain']:.4f} "
+          f"terms_sym={t['full']:.4f} world2_rank0={ranks[0]:.4f} "
+          f"world2_rank1={ranks[1]:.4f} {clock()}")
+    x, s, g, thr = sweep_inputs(PATH_A_N, 2, 0.0, 302, dev)
+    t = {"kernel": time_ms(lambda: cuda_phi.phi_rbf_sympanel_chunk_cuda(
+             x, s, g, thr, 1, 0)),
+         "plain": plain_ms(lambda: phi_rbf_sympanel_chunk_counts(
+             x, s, g, thr, 1, 0)),
+         "full": time_ms(lambda: cuda_phi.phi_rbf_fused_cuda(
+             x, s, g, thr, sym="panel"))}
+    ranks = [time_ms(lambda: cuda_phi.phi_rbf_sympanel_chunk_cuda(
+        x, s, g, thr, 2, r)) for r in range(2)]
+    times28[("sympanel_chunk", PATH_A_N, 2)] = t
+    print(f"phase 28 times sympanel chunk n={PATH_A_N} m=2 T=3 (ms, median of "
+          f"50): world1={t['kernel']:.4f} plain={t['plain']:.4f} "
+          f"K3={t['full']:.4f} world2_rank0={ranks[0]:.4f} "
+          f"world2_rank1={ranks[1]:.4f} {clock()}")
+    for n in (10000, PATH_A_N):
+        x = sweep_inputs(n, 2, 0.0, 303, dev)[0]
+        thr = count_thresholds(x, x, 17, False)
+        t = {"kernel": time_ms(lambda: cuda_phi.count_le_cuda(x, x, thr),
+                               reps=50 if n == 10000 else 10),
+             "plain": plain_ms(lambda: count_le_plain(x, x, thr))}
+        times28[("count", n, 2)] = t
+        # At the main paths' shapes (the seeds at N = 10,000 and 262,144)
+        # against the plain pass too.
+        dcnt = int((cuda_phi.count_le_cuda(x, x, thr)
+                    - count_le_plain(x, x, thr)).abs().max())
+        check(dcnt <= 1e-6 * n * n,
+              f"count n={n}^2: counts differ by {dcnt} > {1e-6 * n * n:.3g}")
+        count_err = max(count_err, dcnt)
+        print(f"phase 28 times count n={n}^2 m=2 T=17 (ms): "
+              f"kernel={t['kernel']:.4f} plain={t['plain']:.4f} "
+              f"bound={sweep_bound(cuda_phi.COUNT_KERNEL, n, 2, T=17)[0]:.5f} "
+              f"count_diff={dcnt} count_bound={1e-6 * n * n:.3g} {clock()}")
+
+    # -- phase 29: the sharded flagship on a one-rank NCCL group ------------
+    group = initialize_distributed(f"tcp://localhost:{free_port()}", 1, 0)
+    check(group.backend == "nccl", f"one-rank group on {group.backend!r}")
+    mean, cov, x0 = flagship_mvn(SHARDED_N)
+    x0 = x0.astype(np.float32)
+    cuda_phi.reset_launch_counts()
+    eng = build_sharded_mvn_svgd(x0, mean, cov, group)
+    check(eng._fused_cuda and eng._fused_sym == "full",
+          f"sharded flagship resolved fused_cuda={eng._fused_cuda} "
+          f"fused_sym={eng._fused_sym!r}, not 'full'")
+    state = eng.init_state(x0)
+    state = eng.run_state(state, seg_len)  # warm-up segment, untimed
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state = eng.run_state(state, SHARDED_ITERS - seg_len)
+    end.record()
+    end.synchronize()
+    timed_s = start.elapsed_time(end) / 1e3
+    main_shard = dict(cuda_phi.launch_counts)
+    out = group.all_gather_rows(state["coords"])
+    check(bool(out.isfinite().all()) and tuple(out.shape) == (SHARDED_N, 2),
+          "sharded flagship: bad output")
+    # The sharded median seed's two count passes go through K16.
+    require_only(main_shard, cuda_phi.SYM_CHUNK_KERNEL, SHARDED_ITERS,
+                 f"sharded flagship, {SHARDED_ITERS} steps", count_launches=2)
+    post = posterior_metrics(out.cpu().numpy(), mean, cov)
+    check(post["mean_err_over_mc"] <= 1.0,
+          f"sharded mean_err_over_mc {post['mean_err_over_mc']:.3f} > 1.0")
+    check(post["cov_rel_err"] <= 0.05,
+          f"sharded cov_rel_err {post['cov_rel_err']:.4f} > 0.05")
+    rate = SHARDED_N * (SHARDED_ITERS - seg_len) / timed_s
+    print(f"phase 29 sharded flagship N={SHARDED_N} {SHARDED_ITERS} iters, "
+          f"one rank on NCCL: ok fused_sym=full "
+          f"launches={json.dumps(main_shard)} "
+          f"fallbacks={eng.median_fallbacks} updates_per_s={rate:.6g} "
+          f"timed_s={timed_s:.4f} (last {SHARDED_ITERS - seg_len} iters) "
+          f"posterior={json.dumps(post)} {clock()}")
+
+    # -- phase 30: the sharded hierarchical BLR and the panel form ----------
+    cuda_phi.reset_launch_counts()
+    eng = build_sharded_hier_svgd(x0_hier, feats_h, labels_h, group)
+    check(eng._fused_cuda and eng._fused_sym == "full",
+          f"sharded hier resolved fused_sym={eng._fused_sym!r}")
+    state = eng.init_state(x0_hier)
+    state = eng.run_state(state, seg_len)
+    torch.cuda.synchronize()
+    start.record()
+    state = eng.run_state(state, SHARDED_ITERS - seg_len)
+    end.record()
+    end.synchronize()
+    timed_s = start.elapsed_time(end) / 1e3
+    main_shard_hier = dict(cuda_phi.launch_counts)
+    out = group.all_gather_rows(state["coords"])
+    check(bool(out.isfinite().all()) and tuple(out.shape) == (SHARDED_N, 11),
+          "sharded hier: bad output")
+    require_only(main_shard_hier, cuda_phi.TERMS_SYM_CHUNK_KERNEL,
+                 SHARDED_ITERS, f"sharded hier, {SHARDED_ITERS} steps")
+    acc = blr_accuracy(out.cpu().numpy(), feats_h, labels_h)
+    check(acc > 0.5, f"sharded hier training accuracy {acc:.4f} <= 0.5")
+    rate = SHARDED_N * (SHARDED_ITERS - seg_len) / timed_s
+    print(f"phase 30 sharded hier N={SHARDED_N} d=10 {SHARDED_ITERS} iters: "
+          f"ok fused_sym=full launches={json.dumps(main_shard_hier)} "
+          f"fallbacks={eng.median_fallbacks} updates_per_s={rate:.6g} "
+          f"timed_s={timed_s:.4f} train_accuracy={acc:.4f} {clock()}")
+    cuda_phi.reset_launch_counts()
+    eng = build_sharded_mvn_svgd(x0_l, mean_l, cov_l, group)
+    check(eng._fused_sym == "panel",
+          f"sharded N={PATH_A_N} resolved fused_sym={eng._fused_sym!r}")
+    state = eng.init_state(x0_l)
+    state = eng.run_state(state, 2)
+    torch.cuda.synchronize()
+    start.record()
+    state = eng.run_state(state, SHARDED_LARGE_ITERS - 2)
+    end.record()
+    end.synchronize()
+    timed_s = start.elapsed_time(end) / 1e3
+    main_shard_panel = dict(cuda_phi.launch_counts)
+    out = state["coords"]
+    check(bool(out.isfinite().all()) and tuple(out.shape) == (PATH_A_N, 2),
+          "sharded panel: bad output")
+    require_only(main_shard_panel, cuda_phi.SYMPANEL_CHUNK_KERNEL,
+                 SHARDED_LARGE_ITERS,
+                 f"sharded N={PATH_A_N}, {SHARDED_LARGE_ITERS} steps")
+    rate = PATH_A_N * (SHARDED_LARGE_ITERS - 2) / timed_s
+    print(f"phase 30 sharded flagship N={PATH_A_N} {SHARDED_LARGE_ITERS} "
+          f"iters: ok fused_sym=panel launches={json.dumps(main_shard_panel)} "
+          f"fallbacks={eng.median_fallbacks} updates_per_s={rate:.6g} "
+          f"timed_s={timed_s:.4f} (last {SHARDED_LARGE_ITERS - 2} iters) "
+          f"{clock()}")
+    del eng, state, out
+    # The one-rank runs phase 31 holds the two-rank runs to.
+    one_rank = {
+        "flagship": build_sharded_mvn_svgd(x0, mean, cov, group).run(
+            x0, COMPARE_STEPS).double(),
+        "hier": build_sharded_hier_svgd(x0_hier, feats_h, labels_h, group).run(
+            x0_hier, COMPARE_STEPS).double(),
+    }
+    torch.distributed.destroy_process_group()
+
+    # -- phase 31: two ranks on the one card over gloo ----------------------
+    driver = {
+        "flagship": make_svgd(st, x0, mean, cov, COMPARE_STEPS).run().double(),
+        "hier": build_blr_svgd(torch.tensor(x0_hier, device=dev), feats_h,
+                               labels_h, hierarchical=True,
+                               num_iterations=COMPARE_STEPS).run().double(),
+    }
+    spawn_ctx = torch.multiprocessing.get_context("spawn")
+    queue = spawn_ctx.Queue()
+    procs = torch.multiprocessing.start_processes(
+        sharded_rank, args=(2, free_port(), queue), nprocs=2, join=False,
+        start_method="spawn",
+    )
+    results = dict(queue.get(timeout=600) for _ in range(2))
+    while not procs.join(timeout=120):
+        pass
+    chunk_kernel = {"flagship": cuda_phi.SYM_CHUNK_KERNEL,
+                    "hier": cuda_phi.TERMS_SYM_CHUNK_KERNEL}
+    apart31 = {}
+    for case in ("flagship", "hier"):
+        coords = [torch.tensor(results[r][case][0], device=dev).double()
+                  for r in range(2)]
+        check(bool((coords[0] == coords[1]).all()),
+              f"{case}: the two ranks gathered different coordinates")
+        for r in range(2):
+            check(results[r][case][2] == "full",
+                  f"{case} rank {r}: fused_sym {results[r][case][2]!r}")
+            require_only(results[r][case][1], chunk_kernel[case],
+                         COMPARE_STEPS, f"{case} rank {r} of 2")
+        apart31[case] = {
+            "vs_one_rank": float((coords[0] - one_rank[case]).abs().max()),
+            "vs_driver": float((coords[0] - driver[case]).abs().max()),
+            "one_rank_vs_driver": float(
+                (one_rank[case] - driver[case]).abs().max()),
+        }
+        for what in ("vs_one_rank", "vs_driver"):
+            check(apart31[case][what] <= 1e-3,
+                  f"{case} two ranks {what}: {apart31[case][what]:.3e} > 1e-3")
+    print(f"phase 31 two ranks on one card over gloo, N={SHARDED_N} "
+          f"{COMPARE_STEPS} steps: ok coords_max_abs_diff="
+          f"{json.dumps(apart31)} launches_per_rank="
+          f"{json.dumps({c: [results[r][c][1][chunk_kernel[c]] for r in range(2)] for c in chunk_kernel})} "
+          f"{clock()}")
+
     def main_path(phase, kernel, n, m, launches, times, **work):
         bound_ms, bound_by = sweep_bound(kernel, n, m, **work)
         path = {"phase": phase, "n": n, "m": m, "launches": launches,
@@ -1267,6 +1782,8 @@ def main() -> int:
     t_sq, t_sym = cuda_phi.TERMS_SQUARE_KERNEL, cuda_phi.TERMS_SYM_KERNEL
     aniso, k15 = cuda_phi.ANISO_KERNEL, cuda_phi.PHI_RBF_KERNEL
     sp, t_sp = cuda_phi.SYMPANEL_KERNEL, cuda_phi.TERMS_SYMPANEL_KERNEL
+    k4, k10 = cuda_phi.SYM_CHUNK_KERNEL, cuda_phi.TERMS_SYM_CHUNK_KERNEL
+    k5, k16 = cuda_phi.SYMPANEL_CHUNK_KERNEL, cuda_phi.COUNT_KERNEL
     k1_1500 = {"kernel": times[1500]["square"], "plain": times[1500]["plain"]}
     k2_10k = {"kernel": times[10000]["sym"], "plain": times[10000]["plain"]}
     paths = {
@@ -1291,6 +1808,19 @@ def main() -> int:
         t_sp: [main_path(23, t_sp, PATH_B_N, 11, main_tpanel[t_sp],
                          times21[("terms_sympanel", PATH_B_N, 11)],
                          n_iso=2)],
+        # One rank: the chunk is the whole triangle or panel list.
+        k4: [main_path(29, k4, SHARDED_N, 2, main_shard[k4],
+                       times28[("sym_chunk", 10000, 2)])],
+        k10: [main_path(30, k10, SHARDED_N, 11, main_shard_hier[k10],
+                        times28[("terms_sym_chunk", 10000, 11)], n_iso=2)],
+        k5: [main_path(30, k5, PATH_A_N, 2, main_shard_panel[k5],
+                       times28[("sympanel_chunk", PATH_A_N, 2)])],
+        # The median seed and the fallbacks of path A (the seed's set-up
+        # at N = 262,144), timed at the hybrid's 17 edges.
+        k16: [main_path(22, k16, PATH_A_N, 2, main_panel[k16],
+                        times28[("count", PATH_A_N, 2)], T=17),
+              main_path(29, k16, SHARDED_N, 2, main_shard[k16],
+                        times28[("count", 10000, 2)], T=17)],
     }
 
     def entry(name, source, replaces, tpu, err):
@@ -1305,6 +1835,7 @@ def main() -> int:
                 "main_paths": paths[name]}
 
     pallas = "svgdcpp_tpu/ops/pallas_phi.py"
+    print(card)  # again beside the numbers, at the end of the output
     print(json.dumps({"kernels": [
         entry(sq, "fused_phi.cu", f"{pallas}:365", ["K1"], square_err),
         entry(sym, "fused_phi.cu", f"{pallas}:546", ["K2"], sym_err),
@@ -1319,6 +1850,13 @@ def main() -> int:
               sympanel_err),
         entry(t_sp, "fused_phi_panel.cu", f"{pallas}:2718 {pallas}:2925",
               ["K12", "K13"], terms_panel_err),
+        entry(k4, "fused_phi.cu", f"{pallas}:1106", ["K4"], sym_chunk_err),
+        entry(k10, "fused_phi_terms.cu", f"{pallas}:1335 {pallas}:1228",
+              ["K10", "K11"], terms_chunk_err),
+        entry(k5, "fused_phi_panel.cu", f"{pallas}:1555", ["K5"],
+              panel_chunk_err),
+        entry(k16, "count_le.cu", f"{pallas}:1839", ["K16"],
+              float(count_err)),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

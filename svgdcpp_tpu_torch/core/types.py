@@ -50,13 +50,10 @@ def as_coords(x, dtype=None, device=None) -> Array:
     return arr
 
 
-def place_coords(coords, device="cuda", option="device") -> Array:
-    """Coordinates on the device they run on, the entry points' rule: a
-    tensor keeps its device (the caller's choice), anything else goes to
-    ``device``. The card is never swapped for the CPU quietly: 'cuda'
-    without a CUDA device raises, naming ``option``."""
-    if torch.is_tensor(coords):
-        return as_coords(coords)
+def check_device(device, option="device") -> torch.device:
+    """``device`` as a torch.device, the entry points' rule: the card is
+    never swapped for the CPU quietly, so a CUDA device without one raises,
+    naming ``option``."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -64,7 +61,16 @@ def place_coords(coords, device="cuda", option="device") -> Array:
             "available: pass device=\"cpu\" to run on the CPU, or a "
             "coordinate tensor on the device of your choice."
         )
-    return as_coords(coords, device=device)
+    return device
+
+
+def place_coords(coords, device="cuda", option="device") -> Array:
+    """Coordinates on the device they run on, the entry points' rule: a
+    tensor keeps its device (the caller's choice), anything else goes to
+    ``device`` (``check_device``)."""
+    if torch.is_tensor(coords):
+        return as_coords(coords)
+    return as_coords(coords, device=check_device(device, option))
 
 
 class ParticleStore:

@@ -136,163 +136,31 @@ __global__ void __launch_bounds__(kSqThreads)
   flush_counts(cnt, T, counts);
 }
 
+}  // namespace
+
 // ---------------------------------------------------------------------------
-// fused_phi_counts_sym
+// fused_phi_counts_sym and fused_phi_counts_sym_chunk
 //
-// Replaces svgdcpp_tpu/ops/pallas_phi.py:_sym_kernel (the upper-triangle
-// sweep, called through _phi_rbf_fused_pallas_sym_impl).
+// fused_phi_counts_sym replaces svgdcpp_tpu/ops/pallas_phi.py:_sym_kernel
+// (the upper-triangle sweep, called through _phi_rbf_fused_pallas_sym_impl:
+// K2). fused_phi_counts_sym_chunk replaces the same Pallas kernel as
+// phi_rbf_fused_pallas_sym_sharded calls it (K4): one device's chunk of the
+// GLOBAL triangle, here a contiguous range [t0, t0 + count) of the tile
+// list (ops/sym_plan.sym_tile_chunk), whose raw accumulator and upper count
+// the caller sums over the ranks before one epilogue. Both are the body in
+// counts_sym.cuh under their own names.
 //
 // Bound on this card: the same per-pair work as the square sweep (3m+1
 // FLOPs for sq, one ex2, T compares), paid once per UNORDERED pair, plus
 // 4m FMAs, m subtractions and one shared-memory store and load per pair
 // for the two contraction directions. sq, ex2 and the compares, the
 // SFU-heavy part, halve.
-//
-// Design: one block per upper-triangle tile pair (bi <= bj) of
-// kTile x kTile particles, enumerated from a linear block index. On the
-// diagonal tile only pairs j >= i are entered. Thread r owns row
-// i = bi*kTile + r: it computes k_ij for the tile's columns, accumulates
-// the row direction in registers, and stores k_ij to a padded shared tile
-// (stride kTile+1: conflict-free by rows and by columns). Then thread r
-// owns column j = bj*kTile + r and accumulates the column direction from
-// that tile (pair (i, j) adds k s_i and k (x_j - x_i) to particle j). Both
-// directions are flushed with float32 atomicAdd into a zeroed (2m, n)
-// accumulator [KS | D] (coalesced: neighbouring threads, neighbouring
-// particles). The diagonal pairs enter both directions: their D term is 0,
-// and the wrapper's epilogue subtracts s_i once from KS (k_ii = 1 exactly),
-// the JAX epilogue's "acc - B" restricted to the columns kept.
-// The count buffer receives U, the upper count including the diagonal; the
-// wrapper forms 2U - n. Float atomics make phi's summation order vary from
-// run to run; the counts are integers and do not. Wide instances (m > 16)
-// use 32-particle tiles so the four coordinate/score tiles stay within 48 KB
-// of static shared memory.
 // ---------------------------------------------------------------------------
 
-template <int MM>
-struct SymTile {
-  static constexpr int value = MM <= 16 ? 64 : 32;
-};
-
-template <int MM, bool kExact>
-__global__ void __launch_bounds__(SymTile<MM>::value)
-    fused_phi_counts_sym_kernel(const float* __restrict__ coords,
-                                const float* __restrict__ scores,
-                                const float* __restrict__ gamma,
-                                const float* __restrict__ thr, int n, int m_arg,
-                                int T, int nb, float* __restrict__ acc,
-                                unsigned long long* __restrict__ counts) {
-  constexpr int kTile = SymTile<MM>::value;
-  __shared__ float sh_k[kTile][kTile + 1];
-  __shared__ float sh_xi[kTile * MM];
-  __shared__ float sh_si[kTile * MM];
-  __shared__ float sh_xj[kTile * MM];
-  __shared__ float sh_sj[kTile * MM];
-
-  const int m = kExact ? MM : m_arg;
-  int bi, bj;
-  decode_upper_pair(static_cast<long long>(blockIdx.x), nb, &bi, &bj);
-  const int r = threadIdx.x;
-  const int i0 = bi * kTile;
-  const int j0 = bj * kTile;
-
-  for (int e = r; e < kTile * m; e += kTile) {
-    const int p = e / m;
-    const bool ok_i = i0 + p < n;
-    const bool ok_j = j0 + p < n;
-    sh_xi[e] = ok_i ? coords[static_cast<size_t>(i0) * m + e] : 0.0f;
-    sh_si[e] = ok_i ? scores[static_cast<size_t>(i0) * m + e] : 0.0f;
-    sh_xj[e] = ok_j ? coords[static_cast<size_t>(j0) * m + e] : 0.0f;
-    sh_sj[e] = ok_j ? scores[static_cast<size_t>(j0) * m + e] : 0.0f;
-  }
-  __syncthreads();
-
-  const float g2 = gamma[0] * kLog2e;
-  float th[kMaxT];
-#pragma unroll
-  for (int t = 0; t < kMaxT; ++t) th[t] = (t < T) ? thr[t] : 0.0f;
-
-  // Row direction: thread r owns particle i.
-  const int i = i0 + r;
-  const bool row_ok = i < n;
-  float xi[MM];
-  float acc_s[MM];
-  float acc_d[MM];
-#pragma unroll
-  for (int k = 0; k < MM; ++k) {
-    xi[k] = (kExact || k < m) ? sh_xi[r * m + k] : 0.0f;
-    acc_s[k] = 0.0f;
-    acc_d[k] = 0.0f;
-  }
-  unsigned int cnt[kMaxT];
-#pragma unroll
-  for (int t = 0; t < kMaxT; ++t) cnt[t] = 0u;
-
-  for (int jj = 0; jj < kTile; ++jj) {
-    const int j = j0 + jj;
-    float kv = 0.0f;
-    if (row_ok && j < n && j >= i) {
-      const float* xj = sh_xj + jj * m;
-      const float* sj = sh_sj + jj * m;
-      const float sq = pair_sq<MM, kExact>(xi, xj, m);
-      kv = exp2f(-g2 * sq);
-#pragma unroll
-      for (int k = 0; k < MM; ++k) {
-        if (kExact || k < m) {
-          acc_s[k] = fmaf(kv, sj[k], acc_s[k]);
-          acc_d[k] = fmaf(kv, __fsub_rn(xi[k], xj[k]), acc_d[k]);
-        }
-      }
-      count_pair(sq, th, T, cnt);
-    }
-    sh_k[r][jj] = kv;
-  }
-  if (row_ok) {
-#pragma unroll
-    for (int k = 0; k < MM; ++k) {
-      if (kExact || k < m) {
-        atomicAdd(acc + static_cast<size_t>(k) * n + i, acc_s[k]);
-        atomicAdd(acc + static_cast<size_t>(m + k) * n + i, acc_d[k]);
-      }
-    }
-  }
-  flush_counts(cnt, T, counts);
-  __syncthreads();  // the k tile is complete
-
-  // Column direction: thread r owns particle j. Masked pairs hold k = 0.
-  const int j = j0 + r;
-  if (j < n) {
-    float xj[MM];
-    float col_s[MM];
-    float col_d[MM];
-#pragma unroll
-    for (int k = 0; k < MM; ++k) {
-      xj[k] = (kExact || k < m) ? sh_xj[r * m + k] : 0.0f;
-      col_s[k] = 0.0f;
-      col_d[k] = 0.0f;
-    }
-    for (int ii = 0; ii < kTile; ++ii) {
-      const float kv = sh_k[ii][r];
-      const float* x_i = sh_xi + ii * m;
-      const float* s_i = sh_si + ii * m;
-#pragma unroll
-      for (int k = 0; k < MM; ++k) {
-        if (kExact || k < m) {
-          col_s[k] = fmaf(kv, s_i[k], col_s[k]);
-          col_d[k] = fmaf(kv, xj[k] - x_i[k], col_d[k]);
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < MM; ++k) {
-      if (kExact || k < m) {
-        atomicAdd(acc + static_cast<size_t>(k) * n + j, col_s[k]);
-        atomicAdd(acc + static_cast<size_t>(m + k) * n + j, col_d[k]);
-      }
-    }
-  }
-}
-
-}  // namespace
+#define SVGD_COUNTS_SYM_KERNEL fused_phi_counts_sym_kernel
+#include "counts_sym.cuh"
+#define SVGD_COUNTS_SYM_KERNEL fused_phi_counts_sym_chunk_kernel
+#include "counts_sym.cuh"
 
 extern "C" {
 
@@ -340,11 +208,71 @@ int svgd_fused_phi_counts_sym(const float* coords, const float* scores,
     fused_phi_counts_sym_kernel<MM_, EX_>                                  \
         <<<static_cast<unsigned int>(pairs), tile, 0, s>>>(                \
             coords, scores, gamma, thr, n, m, T, (n + tile - 1) / tile,    \
-            acc, c);                                                       \
+            0LL, acc, c);                                                  \
   }
   SVGD_DISPATCH_M(m, SVGD_LAUNCH_SYM)
 #undef SVGD_LAUNCH_SYM
   return static_cast<int>(cudaGetLastError());
+}
+
+// One rank's chunk of the upper-triangle sweep: tiles [t0, t0 + count) of
+// the triangle's tile list (SymTile<MM> particles a side for this m), the
+// arguments otherwise as svgd_fused_phi_counts_sym's. coords and scores are
+// the GLOBAL set, centered on its mean; acc (2m, n) and counts receive this
+// chunk's raw sums. count = 0 launches nothing.
+int svgd_fused_phi_counts_sym_chunk(const float* coords, const float* scores,
+                                    const float* gamma, const float* thr,
+                                    int n, int m, int T, long long t0,
+                                    long long count, float* acc,
+                                    long long* counts, void* stream) {
+  if (n <= 0 || T < 1 || T > kMaxT) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* c = reinterpret_cast<unsigned long long*>(counts);
+#define SVGD_LAUNCH_SYM_CHUNK(MM_, EX_)                                    \
+  {                                                                        \
+    constexpr int tile = SymTile<MM_>::value;                              \
+    if (!tile_range_ok(n, tile, t0, count)) {                              \
+      return static_cast<int>(cudaErrorInvalidValue);                      \
+    }                                                                      \
+    if (count > 0) {                                                       \
+      fused_phi_counts_sym_chunk_kernel<MM_, EX_>                          \
+          <<<static_cast<unsigned int>(count), tile, 0, s>>>(              \
+              coords, scores, gamma, thr, n, m, T, (n + tile - 1) / tile,  \
+              t0, acc, c);                                                 \
+    }                                                                      \
+  }
+  SVGD_DISPATCH_M(m, SVGD_LAUNCH_SYM_CHUNK)
+#undef SVGD_LAUNCH_SYM_CHUNK
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"
+
+namespace {
+
+// The tile side of the triangle instance SVGD_DISPATCH_M picks for m.
+int sym_tile_of(int m, int terms, int* tile) {
+#define SVGD_SYM_TILE(MM_, EX_) \
+  *tile = terms ? SymTermsTile<MM_>::value : SymTile<MM_>::value
+  SVGD_DISPATCH_M(m, SVGD_SYM_TILE)
+#undef SVGD_SYM_TILE
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The side of the tiles in the triangle chunk kernels' tile list for
+// dimension m: svgd_fused_phi_counts_sym_chunk's (terms = 0) or
+// svgd_fused_phi_terms_sym_chunk's (terms = 1). A rank's [t0, t0 + count)
+// is a range of this list. -1 for an m outside 1..64.
+int svgd_sym_tile(int m, int terms) {
+  int tile = -1;
+  sym_tile_of(m, terms, &tile);
+  return tile;
 }
 
 }  // extern "C"

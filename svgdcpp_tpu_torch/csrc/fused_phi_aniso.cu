@@ -99,7 +99,7 @@ int svgd_fused_phi_aniso_terms_sym(const float* coords, const float* z,
     const dim3 grid(static_cast<unsigned int>(pairs), 1 + n_aniso);        \
     fused_phi_aniso_terms_sym_kernel<MM_, EX_, true><<<grid, tile, 0, s>>>(\
         coords, z, scores, gammas, si, n_iso, sa, thr, n, m, T,            \
-        (n + tile - 1) / tile, acc, c);                                    \
+        (n + tile - 1) / tile, 0LL, acc, c);                               \
   }
   SVGD_DISPATCH_M_2_11(m, SVGD_LAUNCH_ANISO)
 #undef SVGD_LAUNCH_ANISO

@@ -14,14 +14,21 @@
 //     RBF terms, k_c = sum s_t k_t for KS and w = sum s_t gamma_t k_t for D
 //     (fused_phi_terms.cu). The TPU's split of K12 and K13 into one or two
 //     rotating windows is a VMEM compile-envelope choice with no
-//     counterpart here, so one kernel stands for both.
+//     counterpart here, so one kernel stands for both;
+//   * fused_phi_counts_sympanel_chunk replaces _sym_panel_kernel as
+//     phi_rbf_fused_pallas_sympanel_sharded calls it (K5): one device's
+//     chunk of the GLOBAL panel list, here a contiguous range
+//     [p0, p0 + count) of it (ops/sym_plan.panel_chunk) with one window
+//     each; the caller scatters the windows, sums the accumulators over the
+//     ranks and runs one epilogue.
 //
 // Layout. The particles are cut into nb super-blocks of W (a multiple of
 // 64; ops/sym_plan.card_panel_plan chooses them for the card, not for the
 // TPU's VMEM). Panel p is the super-block pair (I, J), I <= J, in the order
 // of sym_plan.panel_pairs: the off-diagonal pairs row by row, then the
-// diagonal ones, decoded here from blockIdx.y. Each panel has its own
-// output window in the zeroed buffer `panels` (P, 2, 2m, W): half 0 holds
+// diagonal ones, decoded here from p0 + blockIdx.y (p0 = 0 for the whole
+// list). Each panel of the launch has its own output window, blockIdx.y, in
+// the zeroed buffer `panels` (P, 2, 2m, W): half 0 holds
 // [KS | D] of the rows of I over the columns of J, half 1 [KS | D] of the
 // columns of J over the rows of I (pair (i, j) adds k s_i and
 // k (x_j - x_i), or w (x_j - x_i), to j). The wrapper's epilogue
@@ -86,7 +93,8 @@ __device__ __forceinline__ void sympanel_body(
     const float* __restrict__ coords, const float* __restrict__ scores,
     const float* __restrict__ gammas, const TermSigns& signs, int nterms,
     const float* __restrict__ thr, int n, int m_arg, int T, int nb, int w,
-    float* __restrict__ panels, unsigned long long* __restrict__ counts) {
+    int p0, float* __restrict__ panels,
+    unsigned long long* __restrict__ counts) {
   constexpr int kTile = PanelTile<MM, kTerms>::value;
   __shared__ float sh_kc[kTile][kTile + 1];
   __shared__ float sh_w[kTerms ? kTile : 1][kTile + 1];
@@ -102,13 +110,14 @@ __device__ __forceinline__ void sympanel_body(
   // The panel's super-blocks (I, J): off-diagonal pairs first, in the
   // order of the upper triangle of nb - 1 blocks shifted one column right.
   const int n_off = nb * (nb - 1) / 2;
-  const int p = static_cast<int>(blockIdx.y);
+  const int p = static_cast<int>(blockIdx.y);  // the window
+  const int pg = p0 + p;                        // the panel in the list
   int bi, bj;
-  if (p < n_off) {
-    decode_upper_pair(p, nb - 1, &bi, &bj);
+  if (pg < n_off) {
+    decode_upper_pair(pg, nb - 1, &bi, &bj);
     ++bj;
   } else {
-    bi = bj = p - n_off;
+    bi = bj = pg - n_off;
   }
   const bool diag = bi == bj;
   const int r = threadIdx.x;
@@ -256,7 +265,19 @@ __global__ void __launch_bounds__(CountsPanelTile<MM>::value)
                                      unsigned long long* __restrict__ counts) {
   const TermSigns none{};
   sympanel_body<MM, kExact, false>(coords, scores, gamma, none, 1, thr, n,
-                                   m_arg, T, nb, w, panels, counts);
+                                   m_arg, T, nb, w, 0, panels, counts);
+}
+
+template <int MM, bool kExact>
+__global__ void __launch_bounds__(CountsPanelTile<MM>::value)
+    fused_phi_counts_sympanel_chunk_kernel(
+        const float* __restrict__ coords, const float* __restrict__ scores,
+        const float* __restrict__ gamma, const float* __restrict__ thr, int n,
+        int m_arg, int T, int nb, int w, int p0, float* __restrict__ panels,
+        unsigned long long* __restrict__ counts) {
+  const TermSigns none{};
+  sympanel_body<MM, kExact, false>(coords, scores, gamma, none, 1, thr, n,
+                                   m_arg, T, nb, w, p0, panels, counts);
 }
 
 template <int MM, bool kExact>
@@ -270,7 +291,7 @@ __global__ void __launch_bounds__(SymTermsTile<MM>::value)
                                     float* __restrict__ panels,
                                     unsigned long long* __restrict__ counts) {
   sympanel_body<MM, kExact, true>(coords, scores, gammas, signs, nterms, thr,
-                                  n, m_arg, T, nb, w, panels, counts);
+                                  n, m_arg, T, nb, w, 0, panels, counts);
 }
 
 // The plan's checks, shared by both entry points: nb super-blocks of w
@@ -312,6 +333,38 @@ int svgd_fused_phi_counts_sympanel(const float* coords, const float* scores,
   }
   SVGD_DISPATCH_M_2_11(m, SVGD_LAUNCH_SYMPANEL)
 #undef SVGD_LAUNCH_SYMPANEL
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One rank's chunk of the panel triangle sweep of one RBF: panels
+// [p0, p0 + count) of the nb super-blocks' panel list, one window each in
+// panels, a zeroed float32 (count, 2, 2m, w) buffer; the arguments otherwise
+// as svgd_fused_phi_counts_sympanel's (coords and scores are the GLOBAL set,
+// centered on its mean). counts receives this chunk's upper count. count = 0
+// launches nothing.
+int svgd_fused_phi_counts_sympanel_chunk(const float* coords,
+                                         const float* scores,
+                                         const float* gamma, const float* thr,
+                                         int n, int m, int T, int nb, int w,
+                                         int p0, int count, float* panels,
+                                         long long* counts, void* stream) {
+  const long long num_p = static_cast<long long>(nb) * (nb + 1) / 2;
+  if (!plan_ok(n, nb, w) || T < 1 || T > kMaxT || p0 < 0 || count < 0 ||
+      p0 + static_cast<long long>(count) > num_p) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (count == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* c = reinterpret_cast<unsigned long long*>(counts);
+#define SVGD_LAUNCH_SYMPANEL_CHUNK(MM_, EX_)                                \
+  {                                                                         \
+    constexpr int tile = PanelTile<MM_, false>::value;                      \
+    fused_phi_counts_sympanel_chunk_kernel<MM_, EX_>                        \
+        <<<dim3(w / tile, static_cast<unsigned int>(count)), tile, 0, s>>>( \
+            coords, scores, gamma, thr, n, m, T, nb, w, p0, panels, c);     \
+  }
+  SVGD_DISPATCH_M_2_11(m, SVGD_LAUNCH_SYMPANEL_CHUNK)
+#undef SVGD_LAUNCH_SYMPANEL_CHUNK
   return static_cast<int>(cudaGetLastError());
 }
 

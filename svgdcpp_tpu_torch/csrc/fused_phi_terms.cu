@@ -31,7 +31,15 @@
 //   * fused_phi_terms_sym replaces _sym_terms_direct_kernel (K8, both of its
 //     masked and unmasked calls) and _sym_terms_kernel (K9), the
 //     upper-triangle sweeps; its kernel, in terms_sym.cuh, also serves the
-//     anisotropic sweep (fused_phi_aniso.cu) with more term groups.
+//     anisotropic sweep (fused_phi_aniso.cu) with more term groups;
+//   * fused_phi_terms_sym_chunk replaces the same two Pallas kernels as the
+//     sharded engine calls them on one device's chunk of the GLOBAL triangle
+//     (K10 through phi_rbf_terms_fused_pallas_sym_sharded_direct, K11
+//     through _phi_rbf_terms_fused_pallas_sym_sharded_impl; the JAX split by
+//     _terms_direct_fits_npad is a VMEM choice): terms_sym.cuh's body under
+//     its own name over a range [t0, t0 + count) of the tile list
+//     (ops/sym_plan.sym_tile_chunk), whose raw accumulator and upper count
+//     the caller sums over the ranks.
 //
 // Bound on this card: per pair 3m+1 FLOPs for sq, nterms ex2 on the special
 // function unit (a quarter of the FP32 rate) plus 4 FP32 ops per term to
@@ -48,6 +56,8 @@
 // after its launch.
 
 #define SVGD_TERMS_SYM_KERNEL fused_phi_terms_sym_kernel
+#include "terms_sym.cuh"
+#define SVGD_TERMS_SYM_KERNEL fused_phi_terms_sym_chunk_kernel
 #include "terms_sym.cuh"
 
 namespace {
@@ -204,10 +214,46 @@ int svgd_fused_phi_terms_sym(const float* coords, const float* scores,
     fused_phi_terms_sym_kernel<MM_, EX_, false>                            \
         <<<static_cast<unsigned int>(pairs), tile, 0, s>>>(                \
             coords, nullptr, scores, gammas, sg, nterms, none, thr, n, m,  \
-            T, (n + tile - 1) / tile, acc, c);                             \
+            T, (n + tile - 1) / tile, 0LL, acc, c);                        \
   }
   SVGD_DISPATCH_M(m, SVGD_LAUNCH_TERMS_SYM)
 #undef SVGD_LAUNCH_TERMS_SYM
+  return static_cast<int>(cudaGetLastError());
+}
+
+// One rank's chunk of the composed-kernel triangle sweep: tiles
+// [t0, t0 + count) of the tile list (SymTermsTile<MM> particles a side), the
+// arguments otherwise as svgd_fused_phi_terms_sym's. coords and scores are
+// the GLOBAL set, centered on its mean; acc (2m, n) and counts receive this
+// chunk's raw sums. count = 0 launches nothing.
+int svgd_fused_phi_terms_sym_chunk(const float* coords, const float* scores,
+                                   const float* gammas, const float* signs,
+                                   int nterms, const float* thr, int n, int m,
+                                   int T, long long t0, long long count,
+                                   float* acc, long long* counts,
+                                   void* stream) {
+  if (n <= 0 || T < 1 || T > kMaxT || nterms < 1 || nterms > kMaxTerms) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const TermSigns sg = make_signs(signs, nterms);
+  const AnisoSigns none{};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* c = reinterpret_cast<unsigned long long*>(counts);
+#define SVGD_LAUNCH_TERMS_SYM_CHUNK(MM_, EX_)                              \
+  {                                                                        \
+    constexpr int tile = SymTermsTile<MM_>::value;                         \
+    if (!tile_range_ok(n, tile, t0, count)) {                              \
+      return static_cast<int>(cudaErrorInvalidValue);                      \
+    }                                                                      \
+    if (count > 0) {                                                       \
+      fused_phi_terms_sym_chunk_kernel<MM_, EX_, false>                    \
+          <<<static_cast<unsigned int>(count), tile, 0, s>>>(              \
+              coords, nullptr, scores, gammas, sg, nterms, none, thr, n,   \
+              m, T, (n + tile - 1) / tile, t0, acc, c);                    \
+    }                                                                      \
+  }
+  SVGD_DISPATCH_M(m, SVGD_LAUNCH_TERMS_SYM_CHUNK)
+#undef SVGD_LAUNCH_TERMS_SYM_CHUNK
   return static_cast<int>(cudaGetLastError());
 }
 

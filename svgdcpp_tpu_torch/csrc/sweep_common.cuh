@@ -1,5 +1,6 @@
 // Device helpers shared by the sweeps (fused_phi.cu, fused_phi_terms.cu,
-// terms_sym.cuh, fused_phi_aniso.cu, phi_rbf.cu): the pair's squared
+// counts_sym.cuh, terms_sym.cuh, fused_phi_aniso.cu, phi_rbf.cu,
+// fused_phi_panel.cu, count_le.cu): the pair's squared
 // distance in the plain version's order, threshold counting, the exact
 // count flush, the upper-triangle tile decode, the signed-term combination
 // of the composed kernels, and the dispatch from a runtime dimension m to a
@@ -113,6 +114,14 @@ inline long long upper_pairs(int n, int tile) {
   return pairs > 0x7fffffffLL ? -1 : pairs;
 }
 
+// The single-RBF triangle sweeps (counts_sym.cuh): tiles of 64 particles up
+// to m = 16 and 32 above, so the padded pair tile and the four
+// coordinate/score tiles stay within 48 KB of static shared memory.
+template <int MM>
+struct SymTile {
+  static constexpr int value = MM <= 16 ? 64 : 32;
+};
+
 // The composed kernels' triangle sweeps: tiles of 64 particles up to m = 12
 // and 32 above, so two padded pair tiles and four coordinate/score tiles
 // stay within 48 KB of static shared memory.
@@ -121,12 +130,28 @@ struct SymTermsTile {
   static constexpr int value = MM <= 12 ? 64 : 32;
 };
 
+// The triangle sweeps' launch over tiles [t0, t0 + count) of the tile list:
+// the whole triangle (t0 = 0, count = upper_pairs) or one rank's chunk. An
+// empty chunk launches nothing. Returns false for a range outside the list.
+inline bool tile_range_ok(int n, int tile, long long t0, long long count) {
+  const long long pairs = upper_pairs(n, tile);
+  return pairs >= 0 && t0 >= 0 && count >= 0 && t0 + count <= pairs;
+}
+
 // Signed RBF terms sharing one squared distance sq:
 //   k_c = sum_t s_t exp(-gamma_t sq),   w = sum_t s_t gamma_t exp(-gamma_t sq).
 constexpr int kMaxTerms = 16;  // MAX_RBF_TERMS of kernels/algebra.py
 
 struct TermSigns {
   float s[kMaxTerms];
+};
+
+// The anisotropic sweep's term groups (terms_sym.cuh): MAX_ANISO_TERMS of
+// ops/cuda_phi.py.
+constexpr int kMaxAniso = 8;
+
+struct AnisoSigns {
+  float s[kMaxAniso];
 };
 
 inline TermSigns make_signs(const float* signs, int nterms) {

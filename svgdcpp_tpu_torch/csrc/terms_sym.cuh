@@ -1,12 +1,15 @@
 // The composed kernels' upper-triangle sweep, shared by
-// fused_phi_terms.cu (fused_phi_terms_sym, K8/K9's port: one term group)
-// and fused_phi_aniso.cu (fused_phi_aniso_terms_sym, K14's port: one group
-// per anisotropic term besides the Euclidean one).
+// fused_phi_terms.cu (fused_phi_terms_sym, K8/K9's port: one term group; and
+// fused_phi_terms_sym_chunk, K10/K11's port: one rank's range of the tile
+// list) and fused_phi_aniso.cu (fused_phi_aniso_terms_sym, K14's port: one
+// group per anisotropic term besides the Euclidean one).
 //
 // fused_phi_counts_sym's design (fused_phi.cu) with TWO padded shared
 // tiles, k_c and w, in place of k: one block per upper-triangle tile pair
 // (bi <= bj) from a linear block index, diagonal tile masked to j >= i.
-// Thread r accumulates row i = bi*kTile + r in registers and stores the
+// The block's tile is t0 + blockIdx.x of the tile list (t0 = 0 for the whole
+// triangle). Thread r accumulates row i = bi*kTile + r in registers and
+// stores the
 // pair's (k_c, w) to the shared tiles; then thread r owns column
 // j = bj*kTile + r and accumulates k_c s_i and w (x_j - x_i) from them.
 // Both directions flush with float32 atomicAdd into the group's zeroed
@@ -33,8 +36,6 @@
 // Float atomics make phi's summation order vary from run to run; the counts
 // are integers and do not.
 
-#pragma once
-
 #include "sweep_common.cuh"
 
 #ifndef SVGD_TERMS_SYM_KERNEL
@@ -47,12 +48,6 @@ namespace {
 
 using namespace svgd;
 
-constexpr int kMaxAniso = 8;  // MAX_ANISO_TERMS of ops/cuda_phi.py
-
-struct AnisoSigns {
-  float s[kMaxAniso];
-};
-
 template <int MM, bool kExact, bool kGroups>
 __global__ void __launch_bounds__(SymTermsTile<MM>::value)
     SVGD_TERMS_SYM_KERNEL(
@@ -60,7 +55,8 @@ __global__ void __launch_bounds__(SymTermsTile<MM>::value)
         const float* __restrict__ scores, const float* __restrict__ gammas,
         TermSigns iso_signs, int n_iso, AnisoSigns aniso_signs,
         const float* __restrict__ thr, int n, int m_arg, int T, int nb,
-        float* __restrict__ acc, unsigned long long* __restrict__ counts) {
+        long long t0, float* __restrict__ acc,
+        unsigned long long* __restrict__ counts) {
   constexpr int kTile = SymTermsTile<MM>::value;
   __shared__ float sh_kc[kTile][kTile + 1];
   __shared__ float sh_w[kTile][kTile + 1];
@@ -92,7 +88,7 @@ __global__ void __launch_bounds__(SymTermsTile<MM>::value)
   float* acc_g = acc + static_cast<size_t>(group) * 2 * m * n;
 
   int bi, bj;
-  decode_upper_pair(static_cast<long long>(blockIdx.x), nb, &bi, &bj);
+  decode_upper_pair(t0 + static_cast<long long>(blockIdx.x), nb, &bi, &bj);
   const int r = threadIdx.x;
   const int i0 = bi * kTile;
   const int j0 = bj * kTile;
@@ -200,3 +196,5 @@ __global__ void __launch_bounds__(SymTermsTile<MM>::value)
 }
 
 }  // namespace
+
+#undef SVGD_TERMS_SYM_KERNEL

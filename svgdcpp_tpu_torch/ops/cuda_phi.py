@@ -1,6 +1,7 @@
-"""Fused phi sweeps on the card: wrappers of the CUDA kernels.
+"""Fused phi sweeps and count passes on the card: wrappers of the CUDA
+kernels.
 
-Eight hand-written Hopper kernels, built into one library, replace the
+Twelve hand-written Hopper kernels, built into one library, replace the
 Pallas kernels of the package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
 
   * ``fused_phi_counts_square`` (``csrc/fused_phi.cu``) -- ``_fused_kernel``
@@ -28,6 +29,15 @@ Pallas kernels of the package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
   * ``fused_phi_terms_sympanel`` (``csrc/fused_phi_panel.cu``) --
     ``_sym_panel_terms_direct_kernel`` and ``_sym_panel_terms_kernel``
     (K12, K13): the same for a signed sum of isotropic RBF terms.
+  * ``fused_phi_counts_sym_chunk`` (``csrc/fused_phi.cu``),
+    ``fused_phi_terms_sym_chunk`` (``csrc/fused_phi_terms.cu``) and
+    ``fused_phi_counts_sympanel_chunk`` (``csrc/fused_phi_panel.cu``) --
+    the same kernels as the sharded engine runs them (K4; K10 and K11; K5):
+    one rank's range of the triangle's tile list or of the panel list,
+    returning the raw accumulator and upper counts, which the engine sums
+    over the ranks before one epilogue (``parallel/sharded.py``).
+  * ``count_le_cross`` (``csrc/count_le.cu``) -- ``_count_kernel`` (K16):
+    the median selection's count pass, under ``ops/median.count_le_cross``.
 
 All but ``phi_rbf_square`` return phi and the int64 counts of pair squared
 distances at or below each threshold, like
@@ -64,25 +74,38 @@ import torch
 
 from ..kernels.algebra import MAX_RBF_TERMS
 from ..utils.cuda_build import CSRC_DIR, build_library, library_path
+from .median import count_le_plain
 from .phi import (
     panel_index,
     phi_rbf_aniso_terms_fused_counts,
     phi_rbf_blocked,
     phi_rbf_cross_fused_counts,
     phi_rbf_fused_counts,
+    phi_rbf_sym_chunk_counts,
+    phi_rbf_sympanel_chunk_counts,
     phi_rbf_sympanel_fused_counts,
     phi_rbf_terms_cross_fused_counts,
     phi_rbf_terms_fused_counts,
+    phi_rbf_terms_sym_chunk_counts,
     phi_rbf_terms_sympanel_fused_counts,
     sympanel_epilogue,
+    sympanel_scatter,
 )
-from .sym_plan import SYM_MIN_N, card_panel_plan, jax_resolve_sym
+from .sym_plan import (
+    SYM_MIN_N,
+    card_panel_plan,
+    jax_resolve_sym,
+    panel_chunk,
+    sym_tile_chunk,
+)
 
 #: Largest dimension, threshold count and term count the kernels take, and
 #: the most anisotropic terms (gradient accumulators) K14's kernel takes:
 #: the JAX package's _ANISO_MAX_W.
 MAX_M = 64
 MAX_T = 8
+#: Thresholds one count-kernel launch takes; more go in several launches.
+COUNT_MAX_T = 32
 MAX_TERMS = MAX_RBF_TERMS
 MAX_ANISO_TERMS = 8
 
@@ -94,19 +117,24 @@ ANISO_KERNEL = "fused_phi_aniso_terms_sym"
 PHI_RBF_KERNEL = "phi_rbf_square"
 SYMPANEL_KERNEL = "fused_phi_counts_sympanel"
 TERMS_SYMPANEL_KERNEL = "fused_phi_terms_sympanel"
+SYM_CHUNK_KERNEL = "fused_phi_counts_sym_chunk"
+TERMS_SYM_CHUNK_KERNEL = "fused_phi_terms_sym_chunk"
+SYMPANEL_CHUNK_KERNEL = "fused_phi_counts_sympanel_chunk"
+COUNT_KERNEL = "count_le_cross"
 
 #: Launches of each kernel since the last reset_launch_counts().
 launch_counts = {
     SQUARE_KERNEL: 0, SYM_KERNEL: 0, TERMS_SQUARE_KERNEL: 0,
     TERMS_SYM_KERNEL: 0, ANISO_KERNEL: 0, PHI_RBF_KERNEL: 0,
-    SYMPANEL_KERNEL: 0, TERMS_SYMPANEL_KERNEL: 0,
+    SYMPANEL_KERNEL: 0, TERMS_SYMPANEL_KERNEL: 0, SYM_CHUNK_KERNEL: 0,
+    TERMS_SYM_CHUNK_KERNEL: 0, SYMPANEL_CHUNK_KERNEL: 0, COUNT_KERNEL: 0,
 }
 
 LIBRARY = "svgd_fused_phi"
 SOURCES = tuple(
     CSRC_DIR / name
     for name in ("fused_phi.cu", "fused_phi_terms.cu", "fused_phi_aniso.cu",
-                 "phi_rbf.cu", "fused_phi_panel.cu")
+                 "phi_rbf.cu", "fused_phi_panel.cu", "count_le.cu")
 )
 
 #: The grid's y dimension holds one panel each.
@@ -138,7 +166,7 @@ def load_library() -> ctypes.CDLL:
     with _lib_lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build_library(LIBRARY, SOURCES)))
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             signatures = {
                 "svgd_fused_phi_counts_square":
                     [ptr] * 5 + [i32] * 4 + [ptr] * 3,
@@ -154,6 +182,15 @@ def load_library() -> ctypes.CDLL:
                     [ptr] * 4 + [i32] * 5 + [ptr] * 3,
                 "svgd_fused_phi_terms_sympanel":
                     [ptr] * 4 + [i32, ptr] + [i32] * 5 + [ptr] * 3,
+                "svgd_fused_phi_counts_sym_chunk":
+                    [ptr] * 4 + [i32] * 3 + [i64] * 2 + [ptr] * 3,
+                "svgd_fused_phi_terms_sym_chunk":
+                    [ptr] * 4 + [i32, ptr] + [i32] * 3 + [i64] * 2
+                    + [ptr] * 3,
+                "svgd_fused_phi_counts_sympanel_chunk":
+                    [ptr] * 4 + [i32] * 7 + [ptr] * 3,
+                "svgd_count_le_cross": [ptr] * 3 + [i32] * 4 + [ptr] * 2,
+                "svgd_sym_tile": [i32] * 2,
             }
             for fn, argtypes in signatures.items():
                 getattr(lib, fn).argtypes = argtypes
@@ -384,12 +421,13 @@ def _sym_launch(coords, scores, gammas, signs, thresholds_sq):
 _panel_index_cache = {}
 
 
-def _panel_index(nb, device):
-    """panel_index(nb) on the device, built once per (nb, device): a copy
-    from the host each call would synchronise the step."""
-    key = (nb, str(device))
+def _panel_index(nb, device, p0=0, count=None):
+    """panel_index(nb, device, p0, count) on the device, built once per
+    (nb, device, p0, count): a copy from the host each call would
+    synchronise the step."""
+    key = (nb, str(device), p0, count)
     if key not in _panel_index_cache:
-        _panel_index_cache[key] = panel_index(nb, device)
+        _panel_index_cache[key] = panel_index(nb, device, p0, count)
     return _panel_index_cache[key]
 
 
@@ -652,3 +690,193 @@ def phi_rbf_cuda(coords, scores, p_matrix, psd=True, eig=None):
         return phi_rbf_blocked(coords, scores, p_matrix, psd=psd)
     _require_cuda(coords)
     return _phi_rbf_launch(coords, scores, p_matrix, psd, eig)
+
+
+# ----------------------------------------------------------------------
+# The sharded engine's chunks (K4, K10/K11, K5) and the count pass (K16)
+# ----------------------------------------------------------------------
+
+
+def _check_chunk(world, rank):
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
+
+
+def _sym_chunk_launch(coords, scores, gammas, signs, thresholds_sq, world,
+                      rank):
+    """K4 (one positive term, ``signs`` None) or K10/K11's chunk kernel."""
+    g, thr = _device_operands(coords, scores, gammas, thresholds_sq)
+    n, m = coords.shape
+    lib = load_library()
+    # The range is one of the kernel's own tile list, whose tile side the
+    # library gives for the instance that serves m.
+    t0, count = sym_tile_chunk(n, world, rank,
+                               lib.svgd_sym_tile(m, int(signs is not None)))
+    # Every rank centers on the mean of the gathered global set.
+    coords_c = _centered32(coords).contiguous()
+    sc32 = scores.to(torch.float32).contiguous()
+    acc = torch.zeros((2 * m, n), dtype=torch.float32, device=coords.device)
+    upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=coords.device)
+    with torch.cuda.device(coords.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if signs is None:
+            name = SYM_CHUNK_KERNEL
+            rc = lib.svgd_fused_phi_counts_sym_chunk(
+                coords_c.data_ptr(), sc32.data_ptr(), g.data_ptr(),
+                thr.data_ptr(), n, m, thr.shape[0], t0, count,
+                acc.data_ptr(), upper.data_ptr(), stream,
+            )
+        else:
+            name = TERMS_SYM_CHUNK_KERNEL
+            rc = lib.svgd_fused_phi_terms_sym_chunk(
+                coords_c.data_ptr(), sc32.data_ptr(), g.data_ptr(),
+                _host_signs(signs, g.shape[0]), g.shape[0], thr.data_ptr(),
+                n, m, thr.shape[0], t0, count, acc.data_ptr(),
+                upper.data_ptr(), stream,
+            )
+    _check_launch(rc, name)
+    if count:
+        launch_counts[name] += 1
+    return acc, upper
+
+
+def phi_rbf_fused_sym_chunk_cuda(coords, scores, gamma, thresholds_sq, world,
+                                 rank):
+    """Rank's chunk of one RBF's full-width triangle sweep over the GLOBAL
+    set ``coords`` (n, m): (acc (2m, n) = [KS | D], upper (T,) int64), raw.
+
+    Counterpart of ``svgdcpp_tpu.ops.pallas_phi.
+    phi_rbf_fused_pallas_sym_sharded`` (K4). The chunk is rank's balanced
+    range of the kernel's tile list (``sym_plan.sym_tile_chunk``); summed
+    over the world's ranks, acc and upper are the whole triangle's, which
+    ``ops/phi.phi_rbf_fused_sym_finish`` and 2U - n finish. On a CUDA
+    tensor: the kernel fused_phi_counts_sym_chunk, in float32 (an empty
+    range launches nothing). On a CPU tensor: the plain
+    ``phi_rbf_sym_chunk_counts``."""
+    _check_chunk(world, rank)
+    if coords.device.type == "cpu":
+        return phi_rbf_sym_chunk_counts(coords, scores, gamma, thresholds_sq,
+                                        world, rank)
+    _require_cuda(coords)
+    return _sym_chunk_launch(coords, scores, [gamma], None, thresholds_sq,
+                             world, rank)
+
+
+def phi_rbf_terms_fused_sym_chunk_cuda(coords, scores, gammas, signs,
+                                       thresholds_sq, world, rank):
+    """Rank's chunk of a composed kernel's full-width triangle sweep over
+    the GLOBAL set: (acc (2m, n), upper (T,) int64), raw, D weighted by
+    w = sum s gamma k.
+
+    Counterpart of ``svgdcpp_tpu.ops.pallas_phi.
+    phi_rbf_terms_fused_pallas_sym_sharded`` and its ``_direct`` form (K11,
+    K10: one CUDA kernel stands for both). Finish with
+    ``ops/phi.phi_rbf_terms_fused_sym_finish``. On a CUDA tensor: the kernel
+    fused_phi_terms_sym_chunk, in float32. On a CPU tensor: the plain
+    ``phi_rbf_terms_sym_chunk_counts``."""
+    _check_chunk(world, rank)
+    if coords.device.type == "cpu":
+        return phi_rbf_terms_sym_chunk_counts(
+            coords, scores, gammas, signs, thresholds_sq, world, rank
+        )
+    _require_cuda(coords)
+    return _sym_chunk_launch(coords, scores, gammas, signs, thresholds_sq,
+                             world, rank)
+
+
+def phi_rbf_sympanel_chunk_cuda(coords, scores, gamma, thresholds_sq, world,
+                                rank, panel_blocks=None):
+    """Rank's chunk of one RBF's panel triangle sweep over the GLOBAL set:
+    (acc (2m, n), upper (T,) int64), raw.
+
+    Counterpart of ``svgdcpp_tpu.ops.pallas_phi.
+    phi_rbf_fused_pallas_sympanel_sharded`` (K5). The chunk is rank's
+    balanced range of the card's panel list (``sym_plan.panel_chunk`` of
+    ``card_panel_plan(n, panel_blocks)``); its windows are scattered onto
+    acc (``ops/phi.sympanel_scatter``), so that the sum over the ranks is
+    the whole sweep's accumulator. On a CUDA tensor: the kernel
+    fused_phi_counts_sympanel_chunk, in float32. On a CPU tensor: the plain
+    ``phi_rbf_sympanel_chunk_counts``."""
+    _check_chunk(world, rank)
+    if coords.device.type == "cpu":
+        return phi_rbf_sympanel_chunk_counts(
+            coords, scores, gamma, thresholds_sq, world, rank, panel_blocks
+        )
+    _require_cuda(coords)
+    g, thr = _device_operands(coords, scores, [gamma], thresholds_sq)
+    n, m = coords.shape
+    nb, w, _ = card_panel_plan(n, panel_blocks)
+    if nb * (nb + 1) // 2 > MAX_PANELS:
+        raise ValueError(
+            f"the panel kernels take at most {MAX_PANELS} panels, got "
+            f"{nb * (nb + 1) // 2} ({nb} super-blocks)"
+        )
+    p0, count = panel_chunk(nb, world, rank)
+    coords_c = _centered32(coords).contiguous()
+    sc32 = scores.to(torch.float32).contiguous()
+    panels = torch.zeros((count, 2, 2 * m, w), dtype=torch.float32,
+                         device=coords.device)
+    upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=coords.device)
+    lib = load_library()
+    with torch.cuda.device(coords.device):
+        rc = lib.svgd_fused_phi_counts_sympanel_chunk(
+            coords_c.data_ptr(), sc32.data_ptr(), g.data_ptr(),
+            thr.data_ptr(), n, m, thr.shape[0], nb, w, p0, count,
+            panels.data_ptr(), upper.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _check_launch(rc, SYMPANEL_CHUNK_KERNEL)
+    if count:
+        launch_counts[SYMPANEL_CHUNK_KERNEL] += 1
+    index = _panel_index(nb, coords.device, p0, count)
+    return sympanel_scatter(panels, index, nb, n), upper
+
+
+def count_le_cuda(rows_coords, cols_coords, thresholds):
+    """int64 counts (T,) of ``||r_i - c_j||^2 <= t`` over all pairs of rows
+    and columns, for each threshold t.
+
+    Counterpart of ``svgdcpp_tpu.ops.pallas_phi.count_le_pallas`` (K16).
+    Both sets are centered on the column mean and the thresholds compared
+    in float32. On CUDA tensors: the kernel count_le_cross (differences up
+    to m = 4, the FP32 Gram identity above; one launch per COUNT_MAX_T
+    thresholds). On CPU tensors: the plain pass ``ops/median.
+    count_le_plain``."""
+    if rows_coords.device.type == "cpu":
+        return count_le_plain(rows_coords, cols_coords, thresholds)
+    _require_cuda(rows_coords)
+    if (rows_coords.ndim != 2 or cols_coords.ndim != 2
+            or rows_coords.shape[1] != cols_coords.shape[1]):
+        raise ValueError(
+            f"rows and columns must be (n_r, m) and (n_c, m); got "
+            f"{tuple(rows_coords.shape)} and {tuple(cols_coords.shape)}"
+        )
+    check_dimension(rows_coords.shape[1])
+    device = rows_coords.device
+    if cols_coords.device != device:
+        raise ValueError("rows and columns must share one device")
+    thr = torch.as_tensor(thresholds, device=device).reshape(-1).to(
+        torch.float32
+    )
+    counts = torch.zeros(thr.shape[0], dtype=torch.int64, device=device)
+    n_r, m = rows_coords.shape
+    n_c = cols_coords.shape[0]
+    if n_r == 0 or n_c == 0 or thr.shape[0] == 0:
+        return counts
+    cols32 = cols_coords.to(torch.float32)
+    center = cols32.mean(dim=0)
+    rows_c = (rows_coords.to(torch.float32) - center).contiguous()
+    cols_c = (cols32 - center).contiguous()
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for t0 in range(0, thr.shape[0], COUNT_MAX_T):
+            part = thr[t0:t0 + COUNT_MAX_T].contiguous()
+            out = counts[t0:t0 + COUNT_MAX_T]
+            rc = lib.svgd_count_le_cross(
+                rows_c.data_ptr(), cols_c.data_ptr(), part.data_ptr(), n_r,
+                n_c, m, part.shape[0], out.data_ptr(), stream,
+            )
+            _check_launch(rc, COUNT_KERNEL)
+            launch_counts[COUNT_KERNEL] += 1
+    return counts

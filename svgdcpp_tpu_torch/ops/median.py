@@ -70,7 +70,22 @@ def pairwise_distance_median_exact(coords: torch.Tensor) -> torch.Tensor:
 
 def count_le_cross(rows_coords, cols_coords, thresholds, *, row_tile: int = 2048):
     """For each threshold t: int64 count of ||r_i - c_j||^2 <= t over all
-    pairs.
+    pairs, both sets centered on the column mean.
+
+    CPU tensors run the plain pass (:func:`count_le_plain`); CUDA tensors
+    the count kernel (``ops/cuda_phi.count_le_cuda``, K16's port), which
+    compares in float32 and builds sq from differences up to m = 4."""
+    if rows_coords.device.type == "cpu":
+        return count_le_plain(rows_coords, cols_coords, thresholds,
+                              row_tile=row_tile)
+    from .cuda_phi import count_le_cuda
+
+    return count_le_cuda(rows_coords, cols_coords, thresholds)
+
+
+def count_le_plain(rows_coords, cols_coords, thresholds, *,
+                   row_tile: int = 2048):
+    """count_le_cross in plain torch: the count kernel's plain version.
 
     Tile-streamed over row blocks (memory O(row_tile * n_cols)). Both inputs
     are shifted by the COLUMN mean (distances are translation-invariant):
@@ -498,10 +513,9 @@ def fused_median_from_counts(
     counts,
     sel,
     total: int,
-    coords,
+    count_env,
     *,
     initialized,
-    row_tile: int = 2048,
     fallback_bins: int = 16,
     fallback_passes: int = 6,
 ):
@@ -510,10 +524,12 @@ def fused_median_from_counts(
     ``counts`` are cumulative int64 pair counts at the squared-distance
     edges of a :func:`fused_lag1_plan` (``sel``): what ONE warm refinement
     pass would have measured. If the brackets did not contain both middle
-    order statistics, a full count-bisection on ``coords`` (the current
-    coordinates, through :func:`centered_count_env`) recovers exactly. The
-    JAX package takes that env's ``(count_fn, hi0)`` instead; here the check
-    is read on the host, so the env is built only when the fallback runs.
+    order statistics, a full count-bisection on the current coordinates
+    recovers exactly. ``count_env`` is a callable returning its
+    ``(count_fn, hi0)``: :func:`centered_count_env` of the coordinates, or
+    of this rank's rows and the group on the sharded engine. The JAX
+    package takes the env's ``(count_fn, hi0)`` itself; here the check is
+    read on the host, so the env is built only when the fallback runs.
 
     Returns (median_distance, lo1, hi1, lo2, hi2, fell_back): the JAX
     package's five values in DISTANCE space, and whether the bisection
@@ -544,7 +560,7 @@ def fused_median_from_counts(
             torch.sqrt(hi2).to(fdt),
             False,
         )
-    count_fn, hi0 = centered_count_env(coords, row_tile=row_tile)
+    count_fn, hi0 = count_env()
     med, (b1l, b1h, b2l, b2h) = _full_bisect_two_ranks(
         count_fn, total, hi0, bins=fallback_bins, passes=fallback_passes
     )
@@ -642,25 +658,46 @@ def fused_lag1_plan(aux, n_total, fused_bins, compute_dtype):
     return gamma, sel
 
 
-def centered_count_env(coords, *, row_tile: int = 2048,
+def centered_count_env(coords, sources_global=None, *, group=None,
+                       n_global=None, row_tile: int = 2048,
                        return_centered: bool = False):
     """(count_fn, hi0) for pairwise-distance selection on ``coords``.
 
     Single definition of two float32 guards: global-mean centering of the
     Gram identity, and the full-range squared-distance bound
     ``hi0 = 4 * max||x - mean||^2 * (1 + 1e-6) + 1e-30`` on the CENTERED
-    norms. Single-device only; the sharded forms come with the multi-GPU
-    slice.
+    norms.
+
+    Single-device (``group`` None): ``coords`` is the full set. Sharded:
+    ``coords`` is this rank's rows, ``sources_global`` the gathered global
+    set and ``group`` the particle group (``parallel/mesh.ParticleGroup``):
+    the center is the global mean (summed over the group), hi0 takes the
+    group's max of the local centered norms, and count_fn counts the local
+    rows against the centered sources and sums the int64 counts over the
+    group, so every rank gets the same global counts.
     """
-    centered = coords - coords.mean(dim=0)
-    hi0 = (
-        4.0 * torch.max(torch.sum(centered * centered, dim=1))
-        * (1.0 + 1e-6) + 1e-30
-    )
+    if group is None:
+        centered = coords - coords.mean(dim=0)
+        hi0 = (
+            4.0 * torch.max(torch.sum(centered * centered, dim=1))
+            * (1.0 + 1e-6) + 1e-30
+        )
+
+        def count_fn(thr):
+            return count_le_cross(centered, centered, thr, row_tile=row_tile)
+
+        if return_centered:
+            return count_fn, hi0, centered
+        return count_fn, hi0
+    center = group.all_reduce_sum(torch.sum(coords, dim=0)) / n_global
+    centered_local = coords - center
+    local_max = torch.max(torch.sum(centered_local * centered_local, dim=1))
+    hi0 = 4.0 * group.all_reduce_max(local_max) * (1.0 + 1e-6) + 1e-30
+    sources_centered = sources_global - center
 
     def count_fn(thr):
-        return count_le_cross(centered, centered, thr, row_tile=row_tile)
+        return group.all_reduce_sum(count_le_cross(
+            centered_local, sources_centered, thr, row_tile=row_tile
+        ))
 
-    if return_centered:
-        return count_fn, hi0, centered
     return count_fn, hi0

@@ -24,6 +24,13 @@ loop SVGD.hpp:407-454):
                            on the panel kernels' schedule (super-block pairs,
                            their windows and ``sympanel_epilogue``): the
                            plain versions of the CUDA panel kernels.
+  * ``phi_rbf_sym_chunk_counts`` / ``phi_rbf_terms_sym_chunk_counts`` /
+    ``phi_rbf_sympanel_chunk_counts``
+                        -- one rank's chunk of the triangle or of the panel
+                           list, returning the raw accumulator and upper
+                           counts that the sharded engine sums over the
+                           ranks and finishes (``sym_finish``): the plain
+                           versions of the CUDA chunk kernels.
 
 Index convention: K[i, j] = k(x_j, x_i), row i is the target particle.
 """
@@ -35,7 +42,15 @@ import math
 import torch
 
 from .pairwise import auto_row_tile, sq_matmul, weighted_quadratic_pairwise
-from .sym_plan import DIFF_FORM_MAX_M, card_panel_plan, panel_pairs
+from .sym_plan import (
+    DIFF_FORM_MAX_M,
+    card_panel_plan,
+    panel_chunk,
+    panel_pairs,
+    sym_tile,
+    sym_tile_chunk,
+    upper_tile_rows,
+)
 
 
 # ----------------------------------------------------------------------
@@ -377,32 +392,13 @@ def phi_rbf_fused_counts(
     )
 
 
-def _sympanel_halves(coords_c, scores, gammas, signs, thresholds_sq, nb, w,
-                     single, row_tile):
-    """The panel windows of the triangle sweep, computed as the CUDA panel
-    kernels lay them out: (panels (P, 2, 2m, W), upper (E,) int64).
-
-    Panel p is the super-block pair (I, J) = panel_pairs(nb)[p] (I <= J) of
-    width W. Half 0 holds, for each row i of super-block I, KS_i and D_i
-    over the columns j of super-block J; half 1 the same for each column j
-    over the rows i (pair (i, j) adds k s_i and w (x_j - x_i) to j). A
-    diagonal panel (I == J) keeps the pairs j >= i, its self pairs in both
-    halves. ``upper`` counts the kept pairs at or below each threshold.
-    D is weighted by w = sum s gamma k for a composed kernel and by k alone
-    for one RBF (``single``; the epilogue multiplies by gamma). sq comes
-    from differences up to DIFF_FORM_MAX_M, as in
-    phi_rbf_terms_cross_fused_counts, else from the Gram identity with the
-    self pairs pinned to 0."""
-    n, m = coords_c.shape
-    dtype, device = coords_c.dtype, coords_c.device
-    thr = torch.as_tensor(thresholds_sq, dtype=dtype, device=device)
+def _pair_weights(gammas, signs, single, dtype, device):
+    """sq -> (k_c, w): the pair weights of KS and D. One RBF (``single``):
+    k = exp(-gamma sq) for both (the epilogue multiplies D by gamma); a
+    composed kernel: k_c = sum s exp(-gamma sq), w = sum s gamma exp(-gamma
+    sq)."""
     gammas = [torch.as_tensor(g, dtype=dtype, device=device) for g in gammas]
     signs = [float(s) for s in signs]
-    pairs = panel_pairs(nb)
-    panels = torch.zeros((len(pairs), 2, 2 * m, w), dtype=dtype, device=device)
-    upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=device)
-    q = torch.sum(coords_c * coords_c, dim=1)
-    row_tile = auto_row_tile(w, row_tile)
 
     def weights(sq):
         if single:
@@ -415,6 +411,87 @@ def _sympanel_halves(coords_c, scores, gammas, signs, thresholds_sq, nb, w,
             w_ = w_ + (s * g) * k_t
         return k_c, w_
 
+    return weights
+
+
+def _pair_block(coords_c, scores, q, r0, r1, c0, c1, diag, weights, thr):
+    """Both directions of the pairs (i, j), i in [r0, r1), j in [c0, c1); on
+    a ``diag`` block only j >= i, the self pairs included: (KS_row (r, m),
+    D_row (r, m), KS_col (c, m), D_col (c, m), hits (E,) int64), as the
+    triangle kernels accumulate them. Row i gains k_c s_j and w (x_i - x_j),
+    column j gains k_c s_i and w (x_j - x_i); hits counts the pairs kept at
+    or below each threshold. sq comes from differences up to
+    DIFF_FORM_MAX_M, as in phi_rbf_terms_cross_fused_counts, else from the
+    Gram identity on the squared norms ``q`` with the self pairs pinned to
+    0."""
+    m = coords_c.shape[1]
+    dtype, device = coords_c.dtype, coords_c.device
+    xr, sr = coords_c[r0:r1], scores[r0:r1]
+    xc, sc = coords_c[c0:c1], scores[c0:c1]
+    keep = None
+    if diag:
+        gi = torch.arange(r0, r1, device=device)[:, None]
+        gj = torch.arange(c0, c1, device=device)[None, :]
+        keep = gj >= gi
+    if m <= DIFF_FORM_MAX_M:
+        diffs = [xr[:, a, None] - xc[None, :, a] for a in range(m)]
+        sq = torch.zeros((r1 - r0, c1 - c0), dtype=dtype, device=device)
+        for a in range(m):
+            sq = sq + diffs[a] * diffs[a]
+    else:
+        sq = torch.clamp_min(
+            q[r0:r1, None] + q[None, c0:c1] - 2.0 * sq_matmul(xr, xc.T), 0.0,
+        )
+        if keep is not None:
+            sq = torch.where(gj == gi, torch.zeros_like(sq), sq)
+    k_c, w_ = weights(sq)
+    if keep is not None:
+        k_c = torch.where(keep, k_c, torch.zeros_like(k_c))
+        w_ = torch.where(keep, w_, torch.zeros_like(w_))
+        hits = torch.sum(
+            (sq[None, :, :] <= thr[:, None, None]) & keep[None], dim=(1, 2)
+        )
+    else:
+        hits = torch.sum(sq[None, :, :] <= thr[:, None, None], dim=(1, 2))
+    if m <= DIFF_FORM_MAX_M:
+        d_row = torch.stack(
+            [torch.sum(w_ * diffs[a], dim=1) for a in range(m)], dim=1
+        )
+        d_col = -torch.stack(
+            [torch.sum(w_ * diffs[a], dim=0) for a in range(m)], dim=1
+        )
+    else:
+        d_row = torch.sum(w_, dim=1)[:, None] * xr - w_ @ xc
+        d_col = torch.sum(w_, dim=0)[:, None] * xc - w_.T @ xr
+    return k_c @ sc, d_row, k_c.T @ sr, d_col, hits
+
+
+def _sympanel_halves(coords_c, scores, gammas, signs, thresholds_sq, nb, w,
+                     single, row_tile, p0=0, count=None):
+    """The panel windows of the triangle sweep, computed as the CUDA panel
+    kernels lay them out: (panels (P, 2, 2m, W), upper (E,) int64).
+
+    Panel p is the super-block pair (I, J) = panel_pairs(nb)[p0 + p]
+    (I <= J) of width W, for the ``count`` panels from ``p0`` (all of them
+    by default). Half 0 holds, for each row i of super-block I, KS_i and
+    D_i over the columns j of super-block J; half 1 the same for each
+    column j over the rows i (pair (i, j) adds k s_i and w (x_j - x_i) to
+    j). A diagonal panel (I == J) keeps the pairs j >= i, its self pairs in
+    both halves. ``upper`` counts the kept pairs at or below each
+    threshold. D is weighted by w = sum s gamma k for a composed kernel and
+    by k alone for one RBF (``single``; the epilogue multiplies by gamma);
+    the pairs are ``_pair_block``'s."""
+    n, m = coords_c.shape
+    dtype, device = coords_c.dtype, coords_c.device
+    thr = torch.as_tensor(thresholds_sq, dtype=dtype, device=device)
+    pairs = panel_pairs(nb)
+    pairs = pairs[p0:] if count is None else pairs[p0:p0 + count]
+    panels = torch.zeros((len(pairs), 2, 2 * m, w), dtype=dtype, device=device)
+    upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=device)
+    q = torch.sum(coords_c * coords_c, dim=1)
+    row_tile = auto_row_tile(w, row_tile)
+    weights = _pair_weights(gammas, signs, single, dtype, device)
+
     for p, (bi, bj) in enumerate(pairs):
         c0, c_end = bj * w, min(bj * w + w, n)
         for r0 in range(bi * w, min(bi * w + w, n), row_tile):
@@ -424,78 +501,168 @@ def _sympanel_halves(coords_c, scores, gammas, signs, thresholds_sq, nb, w,
             cs = max(c0, r0) if bi == bj else c0
             if cs >= c_end:
                 continue
-            xr, sr = coords_c[r0:r1], scores[r0:r1]
-            xc, sc = coords_c[cs:c_end], scores[cs:c_end]
-            keep = None
-            if bi == bj:
-                gi = torch.arange(r0, r1, device=device)[:, None]
-                gj = torch.arange(cs, c_end, device=device)[None, :]
-                keep = gj >= gi
-            if m <= DIFF_FORM_MAX_M:
-                diffs = [xr[:, a, None] - xc[None, :, a] for a in range(m)]
-                sq = torch.zeros((r1 - r0, c_end - cs), dtype=dtype,
-                                 device=device)
-                for a in range(m):
-                    sq = sq + diffs[a] * diffs[a]
-            else:
-                sq = torch.clamp_min(
-                    q[r0:r1, None] + q[None, cs:c_end]
-                    - 2.0 * sq_matmul(xr, xc.T), 0.0,
-                )
-                if keep is not None:
-                    sq = torch.where(gj == gi, torch.zeros_like(sq), sq)
-            k_c, w_ = weights(sq)
-            if keep is not None:
-                k_c = torch.where(keep, k_c, torch.zeros_like(k_c))
-                w_ = torch.where(keep, w_, torch.zeros_like(w_))
-                hits = sq[None, :, :] <= thr[:, None, None]
-                upper += torch.sum(hits & keep[None], dim=(1, 2))
-            else:
-                upper += torch.sum(sq[None, :, :] <= thr[:, None, None],
-                                   dim=(1, 2))
-            if m <= DIFF_FORM_MAX_M:
-                d_row = torch.stack(
-                    [torch.sum(w_ * diffs[a], dim=1) for a in range(m)], dim=1
-                )
-                d_col = -torch.stack(
-                    [torch.sum(w_ * diffs[a], dim=0) for a in range(m)], dim=1
-                )
-            else:
-                d_row = torch.sum(w_, dim=1)[:, None] * xr - w_ @ xc
-                d_col = torch.sum(w_, dim=0)[:, None] * xc - w_.T @ xr
+            ks_row, d_row, ks_col, d_col, hits = _pair_block(
+                coords_c, scores, q, r0, r1, cs, c_end, bi == bj, weights,
+                thr,
+            )
+            upper += hits
             li, lj = r0 - bi * w, cs - c0
-            panels[p, 0, :m, li:li + r1 - r0] = (k_c @ sc).T
+            panels[p, 0, :m, li:li + r1 - r0] = ks_row.T
             panels[p, 0, m:, li:li + r1 - r0] = d_row.T
-            panels[p, 1, :m, lj:lj + c_end - cs] += (k_c.T @ sr).T
+            panels[p, 1, :m, lj:lj + c_end - cs] += ks_col.T
             panels[p, 1, m:, lj:lj + c_end - cs] += d_col.T
     return panels, upper
 
 
-def panel_index(nb: int, device):
-    """(I, J) of each panel, in panel_pairs order, as int64 tensors."""
+def panel_index(nb: int, device, p0: int = 0, count=None):
+    """(I, J) of each panel, in panel_pairs order, as int64 tensors: all of
+    them, or the ``count`` from ``p0``."""
     pairs = panel_pairs(nb)
-    return (torch.tensor([p[0] for p in pairs], device=device),
-            torch.tensor([p[1] for p in pairs], device=device))
+    pairs = pairs[p0:] if count is None else pairs[p0:p0 + count]
+    return (torch.tensor([p[0] for p in pairs], dtype=torch.int64,
+                         device=device),
+            torch.tensor([p[1] for p in pairs], dtype=torch.int64,
+                         device=device))
 
 
-def sympanel_epilogue(panels, upper, index, n, scores, s_total, d_scale):
-    """(phi (n, m), counts (E,) int64) from the panel windows.
-
-    Scatter-adds each panel's halves onto the (2m, nb, W) accumulator
-    [KS | D] at super-blocks I (half 0) and J (half 1), then the full-width
-    triangle's epilogue: the self pairs entered KS in both halves (k = the
-    sum of the signs), so subtract ``s_total`` s_i once; their D is 0;
-    phi = (KS + d_scale D) / n; counts = 2U - n. ``index`` is
-    panel_index(nb) on the panels' device."""
-    num_p, _, rows, w = panels.shape
-    nb = (math.isqrt(8 * num_p + 1) - 1) // 2  # num_p = nb (nb + 1) / 2
-    m = rows // 2
+def sympanel_scatter(panels, index, nb: int, n: int):
+    """The (2m, n) triangle accumulator [KS | D] of panel windows:
+    scatter-adds each window's half 0 at super-block I and half 1 at J
+    (``index`` = panel_index of the windows' panels, on their device). A
+    rank's chunk of the panel list gives its share of the accumulator, to
+    be summed over the ranks before the finish."""
+    rows, w = panels.shape[2], panels.shape[3]
     acc = torch.zeros((rows, nb, w), dtype=panels.dtype, device=panels.device)
     acc.index_add_(1, index[0], panels[:, 0].transpose(0, 1))
     acc.index_add_(1, index[1], panels[:, 1].transpose(0, 1))
-    a = acc.reshape(rows, nb * w)[:, :n].T
-    phi = (a[:, :m] - s_total * scores + d_scale * a[:, m:]) / n
-    return phi, 2 * upper - n
+    return acc.reshape(rows, nb * w)[:, :n]
+
+
+def sym_finish(acc, scores, n: int, s_total, d_scale):
+    """phi (n_band, m) of a band of the summed triangle accumulator ``acc``
+    (2m, n_band) = [KS | D], the full-width triangle's epilogue: the self
+    pairs entered KS in both directions (k = the sum of the signs), so
+    subtract ``s_total`` s_i once; their D is 0; phi = (KS + d_scale D) / n
+    for the global count n. The self-pair correction runs once, on the
+    accumulator summed over every rank's chunk."""
+    m = acc.shape[0] // 2
+    a = acc.T
+    return (a[:, :m] - s_total * scores + d_scale * a[:, m:]) / n
+
+
+def phi_rbf_fused_sym_finish(acc_band, scores_band, gamma, n: int):
+    """One RBF's band finish (the counterpart of the JAX package's
+    ``phi_rbf_fused_sym_finish``): D is weighted by k, so d_scale = 2
+    gamma."""
+    gamma = torch.as_tensor(gamma, dtype=acc_band.dtype,
+                            device=acc_band.device)
+    return sym_finish(acc_band, scores_band, n, 1.0, 2.0 * gamma)
+
+
+def phi_rbf_terms_fused_sym_finish(acc_band, scores_band, signs, n: int):
+    """A composed kernel's band finish (the counterpart of the JAX
+    package's ``phi_rbf_terms_fused_sym_finish`` and
+    ``phi_rbf_terms_fused_sym_direct_finish``): D carries the weights
+    w = sum s gamma k, so d_scale = 2."""
+    return sym_finish(acc_band, scores_band, n,
+                      sum(float(s) for s in signs), 2.0)
+
+
+def sympanel_epilogue(panels, upper, index, n, scores, s_total, d_scale):
+    """(phi (n, m), counts (E,) int64) from the panel windows of the whole
+    panel list: ``sympanel_scatter`` onto the (2m, n) accumulator, then
+    ``sym_finish``; counts = 2U - n. ``index`` is panel_index(nb) on the
+    panels' device."""
+    num_p = panels.shape[0]
+    nb = (math.isqrt(8 * num_p + 1) - 1) // 2  # num_p = nb (nb + 1) / 2
+    acc = sympanel_scatter(panels, index, nb, n)
+    return sym_finish(acc, scores, n, s_total, d_scale), 2 * upper - n
+
+
+def phi_rbf_terms_sym_chunk_counts(
+    coords: torch.Tensor,
+    scores: torch.Tensor,
+    gammas,
+    signs,
+    thresholds_sq: torch.Tensor,
+    world: int,
+    rank: int,
+    single: bool = False,
+):
+    """One rank's chunk of the full-width triangle sweep, in plain torch: the
+    plain version of the CUDA chunk kernels ``fused_phi_counts_sym_chunk``
+    (``single``, one RBF: K4's port) and ``fused_phi_terms_sym_chunk``
+    (K10/K11's port), the counterparts of the JAX package's
+    ``phi_rbf_fused_pallas_sym_sharded`` and
+    ``phi_rbf_terms_fused_pallas_sym_sharded(_direct)``.
+
+    ``coords`` and ``scores`` are the GLOBAL set; the chunk is rank's range
+    of the kernel's tile list (``sym_plan.sym_tile_chunk`` with the kernel's
+    tile, ``sym_plan.sym_tile``), swept one tile row at a time. Returns the
+    raw accumulator (2m, n) = [KS | D] and the upper counts (E,) int64
+    (diagonal included), as the kernels do: summed over the ranks, they are
+    the whole triangle's, which ``sym_finish`` and 2U - n finish. Centered
+    on the coordinates' mean."""
+    n, m = coords.shape
+    dtype, device = coords.dtype, coords.device
+    tile = sym_tile(m, terms=not single)
+    t0, count = sym_tile_chunk(n, world, rank, tile)
+    nb = -(-n // tile)
+    coords_c = coords - coords.mean(dim=0)
+    scores = scores.to(dtype)
+    thr = torch.as_tensor(thresholds_sq, dtype=dtype, device=device)
+    acc = torch.zeros((2 * m, n), dtype=dtype, device=device)
+    upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=device)
+    q = torch.sum(coords_c * coords_c, dim=1)
+    weights = _pair_weights(gammas, signs, single, dtype, device)
+    for bi, bj_first, bj_last in upper_tile_rows(nb, t0, count):
+        r0, r1 = bi * tile, min(bi * tile + tile, n)
+        c0, c1 = bj_first * tile, min(bj_last * tile + tile, n)
+        ks_row, d_row, ks_col, d_col, hits = _pair_block(
+            coords_c, scores, q, r0, r1, c0, c1, bj_first == bi, weights, thr,
+        )
+        upper += hits
+        acc[:m, r0:r1] += ks_row.T
+        acc[m:, r0:r1] += d_row.T
+        acc[:m, c0:c1] += ks_col.T
+        acc[m:, c0:c1] += d_col.T
+    return acc, upper
+
+
+def phi_rbf_sym_chunk_counts(coords, scores, gamma, thresholds_sq, world,
+                             rank):
+    """One RBF's triangle chunk in plain torch, K4's plain version (see
+    :func:`phi_rbf_terms_sym_chunk_counts`)."""
+    return phi_rbf_terms_sym_chunk_counts(
+        coords, scores, [gamma], [1.0], thresholds_sq, world, rank,
+        single=True,
+    )
+
+
+def phi_rbf_sympanel_chunk_counts(coords, scores, gamma, thresholds_sq,
+                                  world, rank, panel_blocks=None,
+                                  row_tile: int = 1024):
+    """One rank's chunk of one RBF's panel triangle sweep in plain torch:
+    the plain version of the CUDA kernel ``fused_phi_counts_sympanel_chunk``
+    (K5's port), the counterpart of the JAX package's
+    ``phi_rbf_fused_pallas_sympanel_sharded``. ``coords`` and ``scores`` are
+    the GLOBAL set, the chunk rank's range of the card's panel list
+    (``sym_plan.panel_chunk`` of ``card_panel_plan(n, panel_blocks)``).
+    Returns the chunk's windows scattered onto the raw (2m, n) accumulator
+    (``sympanel_scatter``) and its upper counts (E,) int64; summed over the
+    ranks they are the whole panel sweep's. Centered on the coordinates'
+    mean."""
+    n = coords.shape[0]
+    nb, w, _ = card_panel_plan(n, panel_blocks)
+    p0, count = panel_chunk(nb, world, rank)
+    coords_c = coords - coords.mean(dim=0)
+    scores = scores.to(coords.dtype)
+    panels, upper = _sympanel_halves(
+        coords_c, scores, [gamma], [1.0], thresholds_sq, nb, w, True,
+        row_tile, p0, count,
+    )
+    index = panel_index(nb, coords.device, p0, count)
+    return sympanel_scatter(panels, index, nb, n), upper
 
 
 def phi_rbf_terms_sympanel_fused_counts(

@@ -22,6 +22,15 @@ port, which imports nothing of the JAX package, makes the same decision:
 ``_terms_direct_fits`` (:2381-2392) is not repeated: it picks between K8
 and K9 inside the full-width form, and one CUDA kernel stands for both.
 
+The sharded engine's decisions are repeated too (``sym_pairs_plan``
+:1051, ``sym_sharded_plan`` :1493, ``sym_panel_sharded_plan`` :1508). The
+port uses them only to decide the form, "full", "panel" or False, as it
+uses ``jax_resolve_sym``: the card splits the work its own way, a
+contiguous balanced range of the full-width kernel's tile list per rank
+(``sym_tile_chunk``) or of the panel kernel's panel list (``panel_chunk``),
+every unordered pair in exactly one rank's range. The TPU's super-tiles
+and its sentinel pairs are not copied: an empty range is an empty launch.
+
 Every constant here is a TPU number (a VMEM budget, a compile envelope
 bisected on the chip), taken as the starting point in the same way as
 SYM_MIN_N; none is measured on the card. The card's own panel plan, the
@@ -217,3 +226,143 @@ def panel_pairs(nb: int):
     (whose strips are shorter), so the longest work items start first."""
     off = [(i, j) for i in range(nb) for j in range(i + 1, nb)]
     return off + [(i, i) for i in range(nb)]
+
+
+# ----------------------------------------------------------------------
+# The sharded engine: the JAX decisions and the card's chunks
+# ----------------------------------------------------------------------
+
+
+def sym_pairs_plan(n: int, num_chunks: int, tile_i: int = 512,
+                   tile_j: int = 2048):
+    """The JAX package's distribution of the global upper-triangle
+    super-tile list over ``num_chunks`` devices (``sym_pairs_plan``):
+    (pair_i, pair_j, n_pad, per_chunk), the pair arrays padded to
+    num_chunks * per_chunk with a sentinel pair, a strictly lower tile."""
+    import numpy as np
+
+    if tile_j % tile_i:
+        raise ValueError("sym sweep needs tile_j % tile_i == 0")
+    r = tile_j // tile_i
+
+    def build(npad):
+        nbi, nbj = npad // tile_i, npad // tile_j
+        return [(i, j) for i in range(nbi) for j in range(i // r, nbj)]
+
+    n_pad = ceil_mult(n, tile_j)
+    pairs = build(n_pad)
+    per = -(-len(pairs) // num_chunks)
+    short = num_chunks * per - len(pairs)
+    if short:
+        if (n_pad // tile_i - 1) * tile_i < tile_j:
+            n_pad += tile_j
+            pairs = build(n_pad)
+            per = -(-len(pairs) // num_chunks)
+            short = num_chunks * per - len(pairs)
+        pairs = pairs + [(n_pad // tile_i - 1, 0)] * short
+    return (
+        np.asarray([p[0] for p in pairs], np.int32),
+        np.asarray([p[1] for p in pairs], np.int32),
+        n_pad,
+        per,
+    )
+
+
+def sym_sharded_plan(n: int, m: int, num_chunks: int, tile_i: int = 512,
+                     tile_j: int = 2048):
+    """The JAX gate of the full-width sharded triangle
+    (``sym_sharded_plan``): None outside the triangle regime or when the
+    (2m+1, n_pad) accumulator pair of the sentinel-extended plan exceeds
+    the VMEM budget, else ``sym_pairs_plan``'s plan."""
+    if not sym_eligible(n, m, tile_j):
+        return None
+    plan = sym_pairs_plan(n, num_chunks, tile_i, tile_j)
+    if 2 * (2 * m + 1) * plan[2] * 4 > SYM_ACC_VMEM_BYTES:
+        return None
+    return plan
+
+
+def sym_panel_sharded_plan(n: int, m: int, num_chunks: int,
+                           tile_i: int = 512, tile_j: int = 2048):
+    """The JAX gate and plan of the chunked panel triangle
+    (``sym_panel_sharded_plan``): None outside the panel regime, else
+    (pair_i, pair_j, nb, w, n_pad, per_chunk) with sentinel panels
+    (bi > bj) padding the chunks to equal length."""
+    import numpy as np
+
+    if tile_j % tile_i:
+        return None
+    if n < SYM_MIN_N or not sym_panel_eligible(n, m, tile_j):
+        return None
+    nb, w, n_pad = sym_panel_plan(n, m, tile_j)
+    pairs = [(bi, bj) for bi in range(nb) for bj in range(bi, nb)]
+    per = -(-len(pairs) // num_chunks)
+    short = num_chunks * per - len(pairs)
+    pairs = pairs + [(nb - 1, 0)] * short
+    return (
+        np.asarray([p[0] for p in pairs], np.int32),
+        np.asarray([p[1] for p in pairs], np.int32),
+        nb,
+        w,
+        n_pad,
+        per,
+    )
+
+
+def dispatch_m(m: int) -> int:
+    """The kernels' instance for dimension m (``SVGD_DISPATCH_M`` of
+    csrc/sweep_common.cuh): m itself for m = 1..8, 11 and 50, else the
+    next of 16, 32 and 64."""
+    if m <= 8 or m in (11, 50):
+        return m
+    return 16 if m <= 16 else 32 if m <= 32 else 64
+
+
+def sym_tile(m: int, terms: bool = False) -> int:
+    """The side of the full-width triangle kernels' tiles for dimension m,
+    from the instance that serves m (:func:`dispatch_m`): 64 particles up
+    to an instance of 16 for one RBF (``SymTile``) and of 12 for a composed
+    kernel (``SymTermsTile``), 32 above. The chunk wrappers on the card take
+    the library's own answer (``svgd_sym_tile``); this copy serves the plain
+    chunk sweeps, and the card's smoke test holds it to the library's."""
+    return 64 if dispatch_m(m) <= (12 if terms else 16) else 32
+
+
+def balanced_range(total: int, world: int, rank: int):
+    """(start, count) of rank's contiguous share of ``total`` items: the
+    counts of any two ranks differ by at most one."""
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
+    start = rank * total // world
+    return start, (rank + 1) * total // world - start
+
+
+def sym_tile_chunk(n: int, world: int, rank: int, tile: int = 64):
+    """(t0, count): rank's range of the full-width triangle kernel's tile
+    list over n particles in tiles of ``tile`` (the nb (nb + 1) / 2 pairs
+    bi <= bj, row by row), balanced by tile count."""
+    nb = -(-n // tile)
+    return balanced_range(nb * (nb + 1) // 2, world, rank)
+
+
+def panel_chunk(nb: int, world: int, rank: int):
+    """(p0, count): rank's range of ``panel_pairs(nb)``, the panel kernel's
+    list of super-block pairs, balanced by panel count."""
+    return balanced_range(nb * (nb + 1) // 2, world, rank)
+
+
+def upper_tile_rows(nb: int, t0: int, count: int):
+    """The tiles [t0, t0 + count) of the nb-wide upper-triangle tile list
+    as runs of one tile row: (bi, bj_first, bj_last) for each row they
+    touch, in order."""
+    out = []
+    t, end = t0, t0 + count
+    bi, row_start = 0, 0
+    while t < end:
+        row_end = row_start + nb - bi  # tiles (bi, bi..nb-1)
+        if t < row_end:
+            last = min(end, row_end) - 1
+            out.append((bi, bi + t - row_start, bi + last - row_start))
+            t = last + 1
+        bi, row_start = bi + 1, row_end
+    return out

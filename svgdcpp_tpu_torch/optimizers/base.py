@@ -40,6 +40,32 @@ class Optimizer:
         """Map (state, grad (n, m)) -> (new_state, increment (n, m))."""
         raise NotImplementedError
 
+    def state_is_particle_sharded(self, state) -> Any:
+        """``state``'s structure with a bool per leaf: which leaves are
+        particle-major (num_particles, dimension) arrays, split by rows
+        over the ranks of the sharded engine (``parallel/sharded.py``).
+        Scalars like Adam's step count stay whole on every rank. Override in
+        an optimizer whose state carries other matrices."""
+        expect = (self.num_particles, self.dimension)
+
+        def mark(x):
+            if isinstance(x, dict):
+                return {k: mark(v) for k, v in x.items()}
+            if isinstance(x, (tuple, list)):
+                return type(x)(mark(v) for v in x)
+            return tuple(getattr(x, "shape", ())) == expect
+
+        return mark(state)
+
+    def shard_state(self, state, rows: slice) -> Any:
+        """One rank's share of a whole optimizer state: the rows ``rows``
+        of each particle-major leaf (:meth:`state_is_particle_sharded`),
+        every other leaf whole."""
+        return _map_pair(
+            state, self.state_is_particle_sharded(state),
+            lambda x, sharded: x[rows].contiguous() if sharded else x,
+        )
+
     # Convenience: stateful OO parity -----------------------------------
     def initialize(self, dtype=torch.float32, device=None):
         """Reset held state (reference Optimizer::Initialize)."""
@@ -64,3 +90,11 @@ class Optimizer:
         return torch.zeros(
             (self.num_particles, self.dimension), dtype=dtype, device=device
         )
+
+
+def _map_pair(tree, flags, fn):
+    if isinstance(tree, dict):
+        return {k: _map_pair(v, flags[k], fn) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_map_pair(v, f, fn) for v, f in zip(tree, flags))
+    return fn(tree, flags)

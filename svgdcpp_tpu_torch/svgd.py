@@ -91,7 +91,11 @@ from .ops.cuda_phi import (
     resolve_sym,
     symmetric_eigen,
 )
-from .ops.median import fused_lag1_plan, fused_median_from_counts
+from .ops.median import (
+    centered_count_env,
+    fused_lag1_plan,
+    fused_median_from_counts,
+)
 from .ops.phi import (
     phi_rbf,
     phi_rbf_blocked,
@@ -359,7 +363,8 @@ class SVGD:
         opts = self.options
         if opts.mesh is not None:
             raise _not_ported(
-                "SVGDOptions.mesh", "slice 5, item 11 (multi-GPU engines)"
+                "SVGDOptions.mesh",
+                "item 11 (the sharded engine is parallel.ShardedSVGD)",
             )
         if self.log_intermediate_matrices:
             raise _not_ported(
@@ -754,8 +759,9 @@ class SVGD:
                     )
                 section("sweep")
                 med_new, lo1, hi1, lo2, hi2, fell_back = fused_median_from_counts(
-                    counts, sel, n * n, coords,
-                    initialized=aux["hi1"] >= aux["lo1"], row_tile=row_tile,
+                    counts, sel, n * n,
+                    lambda: centered_count_env(coords, row_tile=row_tile),
+                    initialized=aux["hi1"] >= aux["lo1"],
                 )
                 if fell_back:
                     self.median_fallbacks += 1

@@ -6,6 +6,8 @@ scale_aux, slot_model_params and iteration. ``state_from_numpy`` takes the
 JAX state after ``jax.device_get`` (numpy leaves) and returns this
 package's; ``state_to_numpy`` goes back. So one step can be taken in each
 package from the same state and the results compared.
+``sharded_state_from_numpy`` takes the state of the JAX package's
+``ShardedSVGD`` and returns one rank's state of this package's engine.
 
 Floating leaves take ``dtype``, except ``scale_aux`` (the median selection
 state), which stays float64 as in ops/median.SELECT_DTYPE. Integer leaves
@@ -19,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.types import check_device
 from ..ops.median import SELECT_DTYPE
 
 
@@ -40,9 +43,12 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def state_from_numpy(np_state, device="cpu", dtype=torch.float64) -> dict:
+def state_from_numpy(np_state, device="cuda", dtype=torch.float64) -> dict:
     """This package's SVGD state from a JAX ``make_state()`` pytree with
-    numpy leaves."""
+    numpy leaves, on ``device``: the card by default, as every entry point
+    of the package; without a CUDA device that default raises (pass
+    ``device="cpu"``)."""
+    device = check_device(device, "state_from_numpy's device")
 
     def conv(dt):
         return lambda x: _leaf_to_torch(x, device, dt)
@@ -69,3 +75,25 @@ def state_to_numpy(state) -> dict:
     out = {k: _map(v, conv) for k, v in state.items() if k != "iteration"}
     out["iteration"] = np.asarray(state["iteration"], dtype=np.int32)
     return out
+
+
+def sharded_state_from_numpy(np_state, optimizer, rank: int, world_size: int,
+                             device="cuda", dtype=torch.float64) -> dict:
+    """One rank's state of ``parallel/sharded.ShardedSVGD`` from the JAX
+    package's sharded state (``ShardedSVGD.init_state``/``run_state``,
+    numpy leaves after ``jax.device_get``): the leaves as in
+    :func:`state_from_numpy`, then this rank's contiguous rows of the
+    coordinates and, through ``optimizer.shard_state`` (the engine's own
+    split), of the engine optimizer's particle-major leaves; the other
+    leaves, scalars and parameters, whole on every rank."""
+    state = state_from_numpy(np_state, device, dtype)
+    n = state["coords"].shape[0]
+    if n % world_size or not 0 <= rank < world_size:
+        raise ValueError(
+            f"rank {rank} of {world_size}: {n} particles do not split evenly"
+        )
+    local = n // world_size
+    rows = slice(rank * local, (rank + 1) * local)
+    state["coords"] = state["coords"][rows].contiguous()
+    state["opt_state"] = optimizer.shard_state(state["opt_state"], rows)
+    return state

@@ -7,7 +7,8 @@ the large-N configurations (the flagship and the hierarchical BLR at the
 sizes where the panel triangle sweeps run); the BLR
 workloads of ``bench.py --config blr|hier`` (BASELINE configs 3-4) with the
 bench's data, x0 and constants; and the anisotropic composed-kernel
-posterior of ``scripts/check_aniso_posterior.py`` with its draws. They are
+posterior of ``scripts/check_aniso_posterior.py`` with its draws; and the
+flagship and the hierarchical BLR on the sharded engine. They are
 repeated here because importing the JAX package, the bench or the script
 would import ``jax``.
 
@@ -217,3 +218,66 @@ def build_aniso_svgd(x0, mean, cov, p_aniso, phi_impl="auto",
         )
     )
     return svgd.initialize()
+
+
+def build_sharded_mvn_svgd(x0, mean, cov, group=None, **config):
+    """The sharded example's engine (examples/sharded_example.py:56-66) on
+    ``group`` (a ``parallel.ParticleGroup``; the default process group's
+    when None): an MVN target with mean and cov, the built-in median RBF,
+    AdaGrad lr 0.1, ``ShardedSVGDConfig(fused_phi=True, **config)``. x0
+    (n, m) is the global set every rank holds; ``engine.run(x0, iters)``
+    starts from it."""
+    import torch
+
+    import svgdcpp_tpu_torch as st
+
+    from ..parallel import ShardedSVGD, ShardedSVGDConfig, make_particle_group
+
+    group = group if group is not None else make_particle_group()
+    n, dim = np.shape(x0)
+    dtype = x0.dtype if torch.is_tensor(x0) else torch.from_numpy(
+        np.asarray(x0)).dtype
+    model = st.MultivariateNormal(
+        torch.as_tensor(np.asarray(mean)).to(dtype),
+        torch.as_tensor(np.asarray(cov)).to(dtype),
+    )
+    return ShardedSVGD(
+        model, st.AdaGrad(dim, n, FLAGSHIP_ADAGRAD_LR), n, dim, mesh=group,
+        config=ShardedSVGDConfig(**{"fused_phi": True, **config}),
+    )
+
+
+def build_sharded_hier_svgd(x0, features, labels, group=None, **config):
+    """``bench.py --config hier``'s model and kernel on the sharded engine
+    (the counterpart of ``build_blr_svgd(..., hierarchical=True)``):
+    hierarchical BLR, the composed kernel median RBF + 0.1 * I, Adam,
+    ``ShardedSVGDConfig(fused_phi=True, **config)`` on ``group``. x0 goes to
+    the group's device before the kernel takes its median, once; the fused
+    seed reuses it."""
+    import svgdcpp_tpu_torch as st
+
+    from ..parallel import (
+        ShardedSVGD,
+        ShardedSVGDConfig,
+        make_particle_group,
+        place_replicated,
+    )
+
+    group = group if group is not None else make_particle_group()
+    x0 = place_replicated(x0, group)
+    particles, full_dim = x0.shape
+    model = st.HierarchicalBayesianLogisticRegression(features, labels)
+    kernel = st.GaussianRBFKernel(x0, st.ScaleMethod.MEDIAN, model) + (
+        st.GaussianRBFKernel(
+            x0, st.ScaleMethod.CONSTANT,
+            constant_scale=HIER_CONSTANT_SCALE
+            * np.eye(full_dim, dtype=np.float32),
+        )
+    )
+    return ShardedSVGD(
+        model,
+        st.Adam(full_dim, particles, BLR_ADAM["lr"], BLR_ADAM["beta1"],
+                BLR_ADAM["beta2"]),
+        particles, full_dim, mesh=group, kernel=kernel,
+        config=ShardedSVGDConfig(**{"fused_phi": True, **config}),
+    )

@@ -146,7 +146,7 @@ def test_one_step_from_converted_hier_state(n, route):
     np_state = jax.device_get(sj.make_state())
     assert int(np_state["opt_state"]["count"]) == 1
     want, _ = jax.jit(sj.build_step_fn())(np_state)
-    torch_state = state_from_numpy(np_state)
+    torch_state = state_from_numpy(np_state, device="cpu")
     assert torch_state["opt_state"]["count"].dtype == torch.int32
     assert len(torch_state["kernel_params"]) == 2
     got, _ = s_t.build_step_fn()(torch_state)

@@ -1,6 +1,6 @@
-"""What importing svgdcpp_tpu_torch does and does not do, on a machine
-without a CUDA device: no jax, no triton, no kernel build, no change to
-torch's global settings; a CUDA-only call raises instead of computing on
+"""What importing svgdcpp_tpu_torch (its sharded engine included) does and
+does not do, on a machine without a CUDA device: no jax, no triton, no
+kernel build, no change to torch's global settings; a CUDA-only call raises instead of computing on
 the CPU; and an installed package carries every file its kernels' build
 reads."""
 
@@ -26,7 +26,9 @@ import sys, torch
 dtype, threads = torch.get_default_dtype(), torch.get_num_threads()
 precision = torch.get_float32_matmul_precision()
 import svgdcpp_tpu_torch
+import svgdcpp_tpu_torch.parallel
 from svgdcpp_tpu_torch.ops import cuda_phi
+from svgdcpp_tpu_torch.utils import convert, workloads
 assert "jax" not in sys.modules, "jax imported"
 assert "triton" not in sys.modules, "triton imported"
 assert "svgdcpp_tpu" not in sys.modules, "the JAX package imported"
@@ -83,6 +85,10 @@ def test_non_cpu_tensor_never_falls_back_to_the_plain_version():
                                                 thr)
     with pytest.raises(ValueError, match="CUDA device"):
         cuda_phi.phi_rbf_cuda(x, x, p)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_phi.count_le_cuda(x, x, thr)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_phi.phi_rbf_fused_sym_chunk_cuda(x, x, 0.5, thr, 1, 0)
     assert not cuda_phi.library_loaded()
 
 
@@ -102,6 +108,8 @@ def test_package_data_covers_every_kernel_include():
             needed.add(f"csrc/{name}")
     assert "csrc/sweep_common.cuh" in needed
     assert "csrc/fused_phi_panel.cu" in needed
+    assert "csrc/count_le.cu" in needed
+    assert "csrc/counts_sym.cuh" in needed
     for rel in sorted(needed):
         assert any(fnmatch.fnmatch(rel, g) for g in globs), (rel, globs)
 

@@ -171,7 +171,8 @@ def test_fused_median_from_counts(kind, initialized):
         counts_j, sel_j, n * n, fn_j, hi0_j, initialized=initialized
     )
     *out_t, fell_back = mt.fused_median_from_counts(
-        counts_t, sel_t, n * n, xt, initialized=initialized
+        counts_t, sel_t, n * n, lambda: mt.centered_count_env(xt),
+        initialized=initialized,
     )
     for a, b in zip(out_t, out_j):
         assert_close(a, b)

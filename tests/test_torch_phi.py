@@ -335,10 +335,26 @@ def test_resolve_sym_and_launch_counts_on_cpu():
         torch.from_numpy(x), torch.from_numpy(s), [0.5, 0.1], (1, -1),
         torch.tensor([1.0, 2.0]), sym="panel", panel_blocks=2,
     )
+    cuda_phi.phi_rbf_fused_sym_chunk_cuda(
+        torch.from_numpy(x), torch.from_numpy(s), 0.5, torch.tensor([1.0]),
+        2, 1,
+    )
+    cuda_phi.phi_rbf_terms_fused_sym_chunk_cuda(
+        torch.from_numpy(x), torch.from_numpy(s), [0.5, 0.1], (1, -1),
+        torch.tensor([1.0]), 2, 0,
+    )
+    cuda_phi.phi_rbf_sympanel_chunk_cuda(
+        torch.from_numpy(x), torch.from_numpy(s), 0.5, torch.tensor([1.0]),
+        3, 2,
+    )
+    cuda_phi.count_le_cuda(torch.from_numpy(x), torch.from_numpy(x),
+                           torch.tensor([1.0, 2.0]))
     assert set(cuda_phi.launch_counts) == {
         cuda_phi.SQUARE_KERNEL, cuda_phi.SYM_KERNEL,
         cuda_phi.TERMS_SQUARE_KERNEL, cuda_phi.TERMS_SYM_KERNEL,
         cuda_phi.ANISO_KERNEL, cuda_phi.PHI_RBF_KERNEL,
         cuda_phi.SYMPANEL_KERNEL, cuda_phi.TERMS_SYMPANEL_KERNEL,
+        cuda_phi.SYM_CHUNK_KERNEL, cuda_phi.TERMS_SYM_CHUNK_KERNEL,
+        cuda_phi.SYMPANEL_CHUNK_KERNEL, cuda_phi.COUNT_KERNEL,
     }
     assert all(v == 0 for v in cuda_phi.launch_counts.values())

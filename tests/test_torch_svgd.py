@@ -110,7 +110,7 @@ def test_one_step_from_converted_state(n, route):
     assert sj._phi_impl == s_t._phi_impl == route
     np_state = jax.device_get(sj.make_state())
     want, _ = jax.jit(sj.build_step_fn())(np_state)
-    got, _ = s_t.build_step_fn()(state_from_numpy(np_state))
+    got, _ = s_t.build_step_fn()(state_from_numpy(np_state, device="cpu"))
     assert_states_close(state_to_numpy(got), jax.device_get(want), 1e-9)
 
 
@@ -180,7 +180,7 @@ def test_fallback_counted_and_matches_jax():
         aux[key] = np.asarray(2e3, np.float64)
     np_state["scale_aux"] = (aux,)
     want, _ = jax.jit(sj.build_step_fn())(np_state)
-    got, _ = s_t.build_step_fn()(state_from_numpy(np_state))
+    got, _ = s_t.build_step_fn()(state_from_numpy(np_state, device="cpu"))
     assert s_t.median_fallbacks == 1
     assert_states_close(state_to_numpy(got), jax.device_get(want), 1e-9)
 
