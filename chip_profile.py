@@ -2,7 +2,7 @@
 """Where the time of a step goes, on one CUDA GPU.
 
     python3 chip_profile.py [--config mvn|large|hier|blr|aniso|hessian|sharded]
-                            [--particles N] [--large] [--crossover]
+                            [--particles N] [--large] [--crossover] [--sass]
                             [--out PATH]
 
 Drives one configuration of svgdcpp_tpu_torch at its full width:
@@ -62,10 +62,20 @@ difference.
 
 With ``--crossover`` it also times the full-width triangle kernels
 against the panel kernels on a ladder of n: K2 against K3's port at m = 2
-(one RBF) from n = 32768 to 524288, and the terms triangle kernel against
-the terms panel kernel at m = 11 with two terms (the hierarchical BLR's
-shape) from n = 16384 to 262144; wrapper ms, median of 5 calls between
-CUDA events after one warm-up call, three thresholds.
+(one RBF) from n = 32768 to 524288 and at m = 5 (the runtime-m instance)
+at n = 262144, and the terms triangle kernel against the terms panel
+kernel at m = 11 with two terms (the hierarchical BLR's shape) from
+n = 16384 to 262144; wrapper ms, median of 5 calls between CUDA events
+after one warm-up call, three thresholds.
+
+With ``--sass`` it also reads the machine code of the single-RBF panel
+kernel's instance that path A launches (m = 2, exact, T = 3; in a tree
+without the fixed-T instances, the m = 2 exact one) with ``cuobjdump
+--dump-sass`` from the built library, and prints every loop of it (each
+backward branch): its instructions, and how many of them are FP32
+arithmetic, special-function (MUFU), compares and selects, integer,
+shared-memory, global, barrier and branch instructions. The listing goes
+to ``chiprun_out/panel_sass.txt``.
 
 The JSON summary goes to ``--out`` (default
 ``chiprun_out/profile[_<config>].json``). Exits non-zero without a CUDA
@@ -327,6 +337,7 @@ def crossover(device):
 
     rows = []
     ladder = [(2, None, n) for n in (32768, 65536, 131072, 262144, 524288)]
+    ladder += [(5, None, 262144)]
     ladder += [(11, (1.0, 1.0), n) for n in (16384, 32768, 65536, 131072,
                                              262144)]
     for m, signs, n in ladder:
@@ -350,6 +361,75 @@ def crossover(device):
     return rows
 
 
+#: SASS opcode classes counted per loop by --sass.
+SASS_CLASSES = {
+    "fp32": ("FADD", "FMUL", "FFMA", "FMNMX"),
+    "mufu": ("MUFU",),
+    "cmp_sel": ("FSETP", "ISETP", "FSEL", "SEL", "PLOP3", "FSET", "ISET"),
+    "int": ("IADD3", "IMAD", "LEA", "LOP3", "SHF", "IABS", "VIADD", "IMNMX",
+            "MOV", "S2R", "CS2R", "I2F", "F2I"),
+    "shared": ("LDS", "STS"),
+    "global": ("LDG", "STG", "RED", "ATOM", "LD", "ST"),
+    "barrier": ("BAR", "WARPSYNC", "BSSY", "BSYNC"),
+    "branch": ("BRA", "EXIT", "RET"),
+}
+
+
+def panel_sass(out_dir):
+    """The loops of the single-RBF panel instance path A launches (see the
+    module's docstring)."""
+    import re
+
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.utils.cuda_build import find_nvcc, library_path
+
+    cuda_phi.load_library()
+    lib = library_path(cuda_phi.LIBRARY, cuda_phi.SOURCES)
+    cuobjdump = Path(find_nvcc() or "/usr/local/cuda/bin/nvcc").with_name(
+        "cuobjdump")
+    text = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    funcs, name = {}, None
+    for line in text.splitlines():
+        hit = re.search(r"Function : (\S+)", line)
+        if hit:
+            name = hit.group(1)
+            if "counts_sympanel" in name:
+                funcs[name] = []
+            continue
+        if name in funcs:
+            funcs[name].append(line)
+    # The whole-list kernel at MM = 2, exact; the T = 3 instance if any.
+    names = [f for f in funcs if "chunk" not in f and "ILi2ELb1E" in f]
+    inst = ([f for f in names if "Li3E" in f] or names or [None])[0]
+    if inst is None:
+        raise RuntimeError("no single-RBF panel instance at m = 2 in the SASS")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "panel_sass.txt").write_text(
+        f"Function : {inst}\n" + "\n".join(funcs[inst]))
+    insts = []
+    for line in funcs[inst]:
+        hit = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if hit:
+            insts.append((int(hit.group(1), 16), hit.group(2).strip()))
+    loops = []
+    for addr, branch in insts:
+        hit = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", branch)
+        if not hit or int(hit.group(1), 16) > addr:
+            continue
+        start = int(hit.group(1), 16)
+        body = [op for a, op in insts if start <= a <= addr]
+        classes = dict.fromkeys(SASS_CLASSES, 0)
+        for op in body:
+            code = re.sub(r"^@!?U?P\w+\s+", "", op).split()[0].split(".")[0]
+            for key, codes in SASS_CLASSES.items():
+                classes[key] += code in codes
+        loops.append({"start": hex(start), "end": hex(addr),
+                      "instructions": len(body), **classes})
+    return {"instance": inst, "loops": loops}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config",
@@ -363,6 +443,9 @@ def main() -> int:
     parser.add_argument("--crossover", action="store_true",
                         help="also time the full-width triangle kernels "
                              "against the panel kernels on a ladder of n")
+    parser.add_argument("--sass", action="store_true",
+                        help="also count the machine code of path A's "
+                             "panel kernel instance, loop by loop")
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
     if args.large and args.config != "mvn":
@@ -427,6 +510,8 @@ def main() -> int:
         result["large_n"] = [large_n(n, torch.device("cuda")) for n in (100_000, 1_000_000)]
     if args.crossover:
         result["crossover"] = crossover(torch.device("cuda"))
+    if args.sass:
+        result["panel_sass"] = panel_sass(Path(args.out).parent)
 
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)

@@ -63,8 +63,11 @@ thirty-one phases, one line each (several for phases 2, 3, 7-9 and
  19. the panel triangle kernel of one RBF (fused_phi_counts_sympanel, K3's
      port) against its plain version (the panel schedule in torch): forced
      at n = 10007 with 3 and 8 super-blocks off origin, at (262144, 2) (path
-     A's shape) and (65536, 11); against the full-width kernel at
-     (1048576, 2), both also against a float64 reference on a row subset;
+     A's shape) and (65536, 11), all at T = 3 (the kernel's fixed-T
+     instance); at T = 1 and 8 (its runtime-T instance) at n = 10007, m = 2
+     and at n = 9001, m = 5 (a runtime-m instance; also T = 3), counts
+     equal; against the full-width kernel at (1048576, 2), both also
+     against a float64 reference on a row subset;
  20. the terms panel kernel (fused_phi_terms_sympanel, K12/K13's port)
      against its plain version: (131072, 11, two terms) at the hierarchical
      BLR's signs (path B's shape; K12's on the TPU), (65536, 11, three
@@ -92,11 +95,16 @@ thirty-one phases, one line each (several for phases 2, 3, 7-9 and
      terms triangle kernel (counts equal);
  26. the panel chunk kernel (fused_phi_counts_sympanel_chunk, K5's port)
      against its plain version at (262144, 2) for worlds 2 and 4 and on
-     forced small panels at n = 10007 (worlds 2-8), and against K3's port;
+     forced small panels at n = 10007 (worlds 2-8), at T = 1, 3 and 8 and at
+     m = 5 (n = 9001), and against K3's port; counts equal;
  27. the count kernel (count_le_cross, K16's port) against the plain count
      pass: square and cross at (10000, 2), (10000, 11) and 5000 x 10000,
      17 and 40 thresholds; counts equal on grid inputs, within
-     1e-6 n_r n_c on Gaussian ones; the hybrid median through it;
+     1e-6 n_r n_c on Gaussian ones; the hybrid median through it; past
+     the sweeps' 64 dimensions (m = 65 and 100, 2048 x 3001) the wide
+     instance the same way, the hybrid median through it within 1e-3 of
+     the plain pass's and of the float64 exact median, and auto on the
+     card raising with the sweeps' item-17 error;
  28. times of the chunk kernels at world 1 against their plain versions
      and the full-width kernels, each rank's at world 2, and K16 at 10000^2
      and 262144^2 (17 thresholds), where it is also held to the plain pass;
@@ -219,6 +227,17 @@ def inputs_for(n, m, offset, seed, device):
     """Gaussian inputs at m <= 4, grid inputs above (see grid_inputs)."""
     fn = sweep_inputs if m <= 4 else grid_inputs
     return fn(n, m, offset, seed, device)
+
+
+def thresholds_of(thr, count):
+    """``count`` distinct thresholds from the three of sweep_inputs or
+    grid_inputs: cycled and raised by 1e-3 each, which keeps grid inputs'
+    thresholds off every multiple of 1/64 (count <= 7 steps of 1e-3 stay
+    below the 1/128 to the next one)."""
+    import torch
+
+    steps = torch.arange(count, device=thr.device)
+    return thr[steps % thr.shape[0]] + 1e-3 * steps.to(thr.dtype)
 
 
 #: Path A's particle count, its short run's and path B's (utils/workloads'
@@ -392,7 +411,7 @@ def ptxas_summary(log_text):
         if hit:
             inst = re.search(
                 r"(?<=\d)(?:fused_)?phi_(\w+?)_kernel"
-                r"ILi(\d+)ELb([01])E(?:Lb([01])E)?",
+                r"ILi(\d+)ELb([01])E(?:Lb([01])E)?(?:Li(\d+)E)?",
                 hit.group(1),
             )
             flags = ",".join(g for g in inst.groups()[1:] if g) if inst else ""
@@ -1127,21 +1146,32 @@ def main() -> int:
           f"launches={json.dumps(main_k15_median)}")
 
     # -- phase 19: K3's port (the panel kernel) vs its plain version --------
+    # T = 3 runs the kernel's fixed-T instance, T = 1 and 8 its runtime-T
+    # one; m = 5 the runtime-m instance (MM = 8) of the micro-tile body, m =
+    # 11 the wide body. Ragged n, and every schedule has diagonal panels; at
+    # m = 5 grid inputs make the plain version's Gram sq exact, so its counts
+    # must be equal too.
     sympanel_err = 0.0
-    for idx, (n, m, off, blocks) in enumerate([
-        (10007, 2, 100.0, 3), (10007, 2, 100.0, 8), (PATH_A_N, 2, 0.0, None),
-        (65536, 11, 0.0, None),
+    for idx, (n, m, off, blocks, n_t) in enumerate([
+        (10007, 2, 100.0, 3, 3), (10007, 2, 100.0, 8, 3),
+        (PATH_A_N, 2, 0.0, None, 3), (65536, 11, 0.0, None, 3),
+        (10007, 2, 100.0, 3, 1), (10007, 2, 0.0, 2, 8),
+        (9001, 5, 2.0, 3, 3), (9001, 5, 0.0, 2, 8), (9001, 5, 0.0, 1, 1),
     ]):
         x, s, g, thr = inputs_for(n, m, off, 190 + idx, dev)
+        thr = thresholds_of(thr, n_t)
         got = cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym="panel",
                                           panel_blocks=blocks)
         want = phi_rbf_sympanel_fused_counts(x, s, g, thr, panel_blocks=blocks)
-        rel, abs_err, dcnt = compare(f"sympanel n={n} m={m}", got, want, n, m)
+        rel, abs_err, dcnt = compare(f"sympanel n={n} m={m} T={n_t}", got,
+                                     want, n, m)
+        check(m > 8 or dcnt == 0,
+              f"sympanel n={n} m={m} T={n_t}: counts differ by {dcnt}")
         sympanel_err = max(sympanel_err, abs_err)
         nb, w, _ = card_panel_plan(n, blocks)
-        print(f"phase 19 sympanel n={n} m={m} offset={off} nb={nb} W={w}: ok "
-              f"phi_rel={rel:.3e} count_diff={dcnt} "
-              f"count_bound={1e-6 * n * n if m > 4 else 0:.3g} {clock()}")
+        print(f"phase 19 sympanel n={n} m={m} T={n_t} offset={off} nb={nb} "
+              f"W={w}: ok phi_rel={rel:.3e} count_diff={dcnt} "
+              f"count_bound={1e-6 * n * n if m > 8 else 0:.3g} {clock()}")
     # At 1M the plain version takes about a minute: the panel kernel is held
     # to the full-width one, and both to a float64 reference on a row subset
     # (the bound that float32 summation order alone sets).
@@ -1467,12 +1497,17 @@ def main() -> int:
                   f"count_diff={dcnt_full} {clock()}")
 
     # -- phase 26: K5 (the panel list's chunks) vs plain --------------------
+    # As phase 19: T = 3 the fixed-T instance, T = 1 and 8 the runtime-T
+    # one, m = 5 the runtime-m instance on grid inputs (counts equal).
     panel_chunk_err = 0.0
-    for idx, (n, off, blocks, worlds) in enumerate([
-        (PATH_A_N, 0.0, None, (2, 4)), (10007, 100.0, 3, (2, 3, 4)),
-        (10007, 100.0, 8, (4, 8)),
+    for idx, (n, m, off, blocks, worlds, n_t) in enumerate([
+        (PATH_A_N, 2, 0.0, None, (2, 4), 3), (10007, 2, 100.0, 3, (2, 3, 4), 3),
+        (10007, 2, 100.0, 8, (4, 8), 3), (10007, 2, 100.0, 3, (2, 3), 1),
+        (10007, 2, 0.0, 3, (3,), 8), (9001, 5, 2.0, 3, (2, 3), 3),
+        (9001, 5, 0.0, 2, (2,), 8),
     ]):
-        x, s, g, thr = sweep_inputs(n, 2, off, 260 + idx, dev)
+        x, s, g, thr = inputs_for(n, m, off, 260 + idx, dev)
+        thr = thresholds_of(thr, n_t)
         full = cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym="panel",
                                            panel_blocks=blocks)
         for world in worlds:
@@ -1484,14 +1519,19 @@ def main() -> int:
                     x, s, g, thr, world, r, panel_blocks=blocks), world)
             got = (phi_rbf_fused_sym_finish(acc_k, s, g, n), 2 * up_k - n)
             rel, abs_err, dcnt = compare(
-                f"panel chunks n={n} world={world}", got,
-                (phi_rbf_fused_sym_finish(acc_p, s, g, n), 2 * up_p - n), n, 2)
+                f"panel chunks n={n} m={m} T={n_t} world={world}", got,
+                (phi_rbf_fused_sym_finish(acc_p, s, g, n), 2 * up_p - n), n,
+                m)
             rel_full, _, dcnt_full = compare(
-                f"panel chunks vs K3 n={n} world={world}", got, full, n, 2)
+                f"panel chunks vs K3 n={n} m={m} T={n_t} world={world}", got,
+                full, n, m)
+            check(dcnt == 0 and dcnt_full == 0,
+                  f"panel chunks n={n} m={m} T={n_t} world={world}: counts "
+                  f"differ by {dcnt} (plain), {dcnt_full} (K3)")
             panel_chunk_err = max(panel_chunk_err, abs_err)
             nb, w, _ = card_panel_plan(n, blocks)
-            print(f"phase 26 sympanel chunks n={n} m=2 offset={off} nb={nb} "
-                  f"W={w} world={world}: ok phi_rel={rel:.3e} "
+            print(f"phase 26 sympanel chunks n={n} m={m} T={n_t} offset={off} "
+                  f"nb={nb} W={w} world={world}: ok phi_rel={rel:.3e} "
                   f"count_diff={dcnt} vs_K3 phi_rel={rel_full:.3e} "
                   f"count_diff={dcnt_full} {clock()}")
 
@@ -1543,6 +1583,55 @@ def main() -> int:
           f"{med_p}: rel {med_rel:.3e} > 1e-3")
     print(f"phase 27 hybrid median n=10000 m=2: ok k16={med_k:.9g} "
           f"plain={med_p:.9g} rel={med_rel:.3e} {clock()}")
+    # Past MAX_M (the sweeps' 64 dimensions) K16 runs its wide instance:
+    # counts against the plain pass as above, the hybrid median through it
+    # against the plain pass's and the float64 exact median (the hybrid's
+    # resolution gate, 1e-3), and auto on the card keeps the kernel route,
+    # which raises there (ROADMAP item 17) instead of running plain torch.
+    for m in (65, 100):
+        for exact in (True, False):
+            fn = grid_inputs if exact else sweep_inputs
+            xr = fn(2048, m, 3.0, 292 + m, dev)[0]
+            xc = fn(3001, m, 3.0, 293 + m, dev)[0]
+            for num in (17, 40):
+                thr = count_thresholds(xr, xc, num, exact)
+                got = cuda_phi.count_le_cuda(xr, xc, thr)
+                want = count_le_plain(xr, xc, thr)
+                dcnt = int((got - want).abs().max())
+                limit = 0 if exact else 1e-6 * 2048 * 3001
+                check(dcnt <= limit, f"count n_r=2048 n_c=3001 m={m} "
+                      f"T={num}: counts differ by {dcnt} > {limit:.3g}")
+                count_err = max(count_err, dcnt)
+                print(f"phase 27 count n_r=2048 n_c=3001 m={m} T={num} "
+                      f"{'grid' if exact else 'gaussian'}: ok "
+                      f"count_diff={dcnt} count_bound={limit:.3g}")
+        x_w = sweep_inputs(2048, m, 0.0, 291 + m, dev)[0]
+        cuda_phi.reset_launch_counts()
+        med_c = float(pairwise_distance_median_hybrid(x_w))
+        launched = cuda_phi.launch_counts[cuda_phi.COUNT_KERNEL]
+        median_mod.count_le_cross = count_le_plain
+        try:
+            med_p = float(pairwise_distance_median_hybrid(x_w))
+        finally:
+            median_mod.count_le_cross = count_le_cross
+        med_x = float(median_mod.pairwise_distance_median_exact(
+            x_w.double().cpu()))
+        rel_p, rel_x = abs(med_c - med_p) / med_p, abs(med_c - med_x) / med_x
+        check(launched >= 2 and rel_p <= 1e-3 and rel_x <= 1e-3,
+              f"hybrid median at m={m}: {med_c} vs plain {med_p} (rel "
+              f"{rel_p:.3e}) and float64 {med_x} (rel {rel_x:.3e}), "
+              f"{launched} K16 launches")
+        try:
+            make_svgd(st, x_w.cpu().numpy(), np.zeros(m), np.eye(m), 3)
+            raised = "no error"
+        except ValueError as err:
+            raised = str(err)
+        check("item 17" in raised,
+              f"auto at m={m} on the card: {raised!r}, not item 17's error")
+        print(f"phase 27 hybrid median n=2048 m={m} (past MAX_M): ok "
+              f"k16={med_c:.9g} plain={med_p:.9g} float64_exact={med_x:.9g} "
+              f"rel_plain={rel_p:.3e} rel_float64={rel_x:.3e} "
+              f"k16_launches={launched}; auto raises (item 17) {clock()}")
 
     # -- phase 28: times of the chunk kernels and K16 -----------------------
     def chunk_blocks(n, tile, world, rank):

@@ -2,16 +2,18 @@
 
 The PyTorch port of ``svgdcpp_tpu`` for an NVIDIA Hopper GPU (H100). It
 keeps the JAX package's public surface, layout and names. It covers the
-main path, the composed-kernel / BLR path, the anisotropic path and the
-large-N paths: MultivariateNormal and (hierarchical) Bayesian logistic
-regression models (and ``+ - * /`` / ``mixture`` composition),
-Gaussian-RBF kernels with MEDIAN / HESSIAN / CONSTANT bandwidth and their
-``+ - * /`` compositions (kernels/algebra.py), AdaGrad / Adam / RMSProp,
-the kernel Stein discrepancy (ops/ksd.py), and the SVGD class's dense,
-blocked, fused, fused_cuda, rbf_terms, fused_terms, fused_terms_cuda,
-fused_aniso_terms_cuda and cuda routes. The CUDA routes run eight
-hand-written CUDA kernels (``csrc/``), built with nvcc at their first
-launch.
+main path, the composed-kernel / BLR path, the anisotropic path, the
+large-N paths and the sharded engine: MultivariateNormal and
+(hierarchical) Bayesian logistic regression models (and ``+ - * /`` /
+``mixture`` composition), Gaussian-RBF kernels with MEDIAN / HESSIAN /
+CONSTANT bandwidth and their ``+ - * /`` compositions (kernels/algebra.py),
+AdaGrad / Adam / RMSProp, the kernel Stein discrepancy (``ksd_rbf``), the
+SVGD class's dense, blocked, fused, fused_cuda, rbf_terms, fused_terms,
+fused_terms_cuda, fused_aniso_terms_cuda and cuda routes, and
+``parallel.ShardedSVGD`` over a torch.distributed group
+(``initialize_distributed``, ``make_particle_mesh``). The CUDA routes run
+hand-written CUDA kernels, one for each Pallas kernel of the JAX package
+(``csrc/``), built with nvcc at their first launch.
 
 The package imports torch and numpy only. Importing it builds nothing and
 changes none of torch's global settings.
@@ -35,6 +37,8 @@ from .optimizers.adagrad import AdaGrad
 from .optimizers.adam import Adam
 from .optimizers.base import Optimizer
 from .optimizers.rmsprop import RMSProp
+from .ops.ksd import ksd_rbf
+from .parallel.mesh import initialize_distributed, make_particle_mesh
 from .svgd import SVGD, SVGDOptions
 
 __version__ = "1.0.0"  # keep in sync with pyproject.toml
@@ -57,6 +61,9 @@ __all__ = [
     "ParticleStore",
     "PrecisionPolicy",
     "as_coords",
+    "ksd_rbf",
+    "initialize_distributed",
+    "make_particle_mesh",
     "SVGDError",
     "DimensionMismatchError",
     "UnsetError",

@@ -1,7 +1,8 @@
 // Device helpers shared by the sweeps (fused_phi.cu, fused_phi_terms.cu,
 // counts_sym.cuh, terms_sym.cuh, fused_phi_aniso.cu, phi_rbf.cu,
 // fused_phi_panel.cu, count_le.cu): the pair's squared
-// distance in the plain version's order, threshold counting, the exact
+// distance in the plain version's order, threshold counting (at a runtime
+// or a compile-time number of thresholds), the exact
 // count flush, the upper-triangle tile decode, the signed-term combination
 // of the composed kernels, and the dispatch from a runtime dimension m to a
 // kernel instance.
@@ -63,6 +64,35 @@ __device__ __forceinline__ void count_pair(float sq, const float* th, int T,
 #pragma unroll
   for (int t = 0; t < kMaxT; ++t) {
     if (t < T) cnt[t] += (sq <= th[t]) ? 1u : 0u;
+  }
+}
+
+// cnt += (sq <= th), as one compare into a predicate and one predicated
+// add: written in PTX, since the compiler otherwise selects between cnt and
+// cnt + 1, a third instruction.
+__device__ __forceinline__ void add_if_le(unsigned int& cnt, float sq,
+                                          float th) {
+  asm("{\n\t.reg .pred p;\n\tsetp.le.f32 p, %1, %2;\n\t"
+      "@p add.u32 %0, %0, 1;\n\t}"
+      : "+r"(cnt)
+      : "f"(sq), "f"(th));
+}
+
+// count_pair over a compile-time number of thresholds kT, for a pair whose
+// validity is `ok` where kGuard is set (else the pair is valid): two
+// instructions per threshold on an unguarded pair, no guard on T. A kernel
+// that takes a runtime T <= kMaxT calls it with kT = kMaxT; the counters
+// past T take any thresholds and are never flushed.
+template <int kT, bool kGuard>
+__device__ __forceinline__ void count_pair_fixed(float sq, const float* th,
+                                                 bool ok, unsigned int* cnt) {
+#pragma unroll
+  for (int t = 0; t < kT; ++t) {
+    if (kGuard) {
+      cnt[t] += (ok && sq <= th[t]) ? 1u : 0u;
+    } else {
+      add_if_le(cnt[t], sq, th[t]);
+    }
   }
 }
 

@@ -45,8 +45,8 @@ distances at or below each threshold, like
 ``phi_rbf_aniso_terms_fused_counts`` and the panel schedules
 ``phi_rbf_sympanel_fused_counts`` / ``phi_rbf_terms_sympanel_fused_counts``,
 their plain versions; ``phi_rbf_square`` returns phi, like
-``ops/phi.phi_rbf_blocked``. Every dimension 1 <= m <= MAX_M runs; above it
-the wrappers raise.
+``ops/phi.phi_rbf_blocked``. The sweeps take every dimension 1 <= m <= MAX_M
+and raise above it (ROADMAP.md item 17); the count kernel takes any m.
 
 Which form sweeps one particle set is ``resolve_sym``: the JAX package's
 decision by default (``ops/sym_plan.jax_resolve_sym``), or the caller's.
@@ -838,8 +838,9 @@ def count_le_cuda(rows_coords, cols_coords, thresholds):
 
     Counterpart of ``svgdcpp_tpu.ops.pallas_phi.count_le_pallas`` (K16).
     Both sets are centered on the column mean and the thresholds compared
-    in float32. On CUDA tensors: the kernel count_le_cross (differences up
-    to m = 4, the FP32 Gram identity above; one launch per COUNT_MAX_T
+    in float32. On CUDA tensors: the kernel count_le_cross at any m
+    (differences up to m = 4, the FP32 Gram identity above, with the
+    dimensions in slices past MAX_M; one launch per COUNT_MAX_T
     thresholds). On CPU tensors: the plain pass ``ops/median.
     count_le_plain``."""
     if rows_coords.device.type == "cpu":
@@ -851,7 +852,8 @@ def count_le_cuda(rows_coords, cols_coords, thresholds):
             f"rows and columns must be (n_r, m) and (n_c, m); got "
             f"{tuple(rows_coords.shape)} and {tuple(cols_coords.shape)}"
         )
-    check_dimension(rows_coords.shape[1])
+    if rows_coords.shape[1] < 1:
+        raise ValueError("the count kernel takes m >= 1 dimensions, got m=0")
     device = rows_coords.device
     if cols_coords.device != device:
         raise ValueError("rows and columns must share one device")

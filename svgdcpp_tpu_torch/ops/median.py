@@ -73,8 +73,8 @@ def count_le_cross(rows_coords, cols_coords, thresholds, *, row_tile: int = 2048
     pairs, both sets centered on the column mean.
 
     CPU tensors run the plain pass (:func:`count_le_plain`); CUDA tensors
-    the count kernel (``ops/cuda_phi.count_le_cuda``, K16's port), which
-    compares in float32 and builds sq from differences up to m = 4."""
+    the count kernel (``ops/cuda_phi.count_le_cuda``, K16's port) at any m,
+    which compares in float32 and builds sq from differences up to m = 4."""
     if rows_coords.device.type == "cpu":
         return count_le_plain(rows_coords, cols_coords, thresholds,
                               row_tile=row_tile)

@@ -7,6 +7,7 @@ from .mesh import (
     ParticleGroup,
     initialize_distributed,
     make_particle_group,
+    make_particle_mesh,
     place_replicated,
     place_sharded,
 )

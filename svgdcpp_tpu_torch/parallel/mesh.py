@@ -14,7 +14,8 @@ the host on a gloo group; an NCCL group never does.
 
 Nothing tells a process of a cluster: the caller gives
 ``initialize_distributed`` its rendezvous address (``tcp://host:port``),
-the world size and the rank.
+the world size and the rank, or launches it with torchrun (``env://``);
+with neither it makes a one-rank world.
 """
 
 from __future__ import annotations
@@ -91,18 +92,26 @@ def local_rank(rank: int) -> int:
     return rank % max(1, torch.cuda.device_count())
 
 
+#: The default process group initialize_distributed made, and its
+#: ParticleGroup.
+_initialized: Optional[tuple] = None
+
+
 def make_particle_group(group=None, device=None) -> ParticleGroup:
     """The ParticleGroup of an initialized torch.distributed process group
     (the default group when ``group`` is None; the counterpart of
     ``make_particle_mesh``). ``device`` is this rank's device: by default
+    the one :func:`initialize_distributed` gave the default group, else
     ``cuda:<local rank>``, which raises without a CUDA device; pass
     ``"cpu"`` to run on the CPU."""
     if not dist.is_available() or not dist.is_initialized():
         raise RuntimeError(
             "no torch.distributed process group: call initialize_distributed"
-            "(init_method, world_size, rank) first (a one-rank world is "
-            "world_size=1, rank=0)"
+            "() first (a one-rank world without arguments)"
         )
+    if (device is None and group is None and _initialized is not None
+            and _initialized[0] is dist.group.WORLD):
+        return _initialized[1]
     rank = dist.get_rank(group)
     world = dist.get_world_size(group)
     backend = str(dist.get_backend(group))
@@ -115,15 +124,53 @@ def make_particle_group(group=None, device=None) -> ParticleGroup:
     return ParticleGroup(group, rank, world, device, backend)
 
 
-def initialize_distributed(init_method: str, world_size: int, rank: int,
+def make_particle_mesh(group=None, device=None) -> ParticleGroup:
+    """The JAX package's name for :func:`make_particle_group`, which, like
+    the JAX mesh over the visible devices, needs no set-up: without a
+    process group it makes a one-rank world (initialize_distributed)."""
+    if group is None and not dist.is_initialized():
+        return initialize_distributed(device=device)
+    return make_particle_group(group, device)
+
+
+def initialize_distributed(init_method: Optional[str] = None,
+                           world_size: Optional[int] = None,
+                           rank: Optional[int] = None,
                            backend: Optional[str] = None,
                            device=None) -> ParticleGroup:
     """Join this process to a world of ``world_size`` ranks as ``rank``
     (the counterpart of ``initialize_distributed``) and return its
-    ParticleGroup. ``init_method`` is the rendezvous, e.g.
-    ``tcp://localhost:<port>``. ``backend`` defaults to NCCL for a CUDA
-    device and gloo for the CPU; ranks that share one card pass "gloo".
-    ``device`` as in :func:`make_particle_group`."""
+    ParticleGroup.
+
+    ``init_method`` is the rendezvous, e.g. ``tcp://localhost:<port>``,
+    with ``world_size`` and ``rank``. Without it: torchrun's ``env://``
+    when its RANK and WORLD_SIZE are set (``world_size`` and ``rank``
+    default to them), else a one-rank world in this process. A call once
+    the default group exists returns its ParticleGroup (on ``device`` if
+    given). ``backend`` defaults to NCCL for a CUDA device and gloo for the
+    CPU; ranks that share one card pass "gloo". ``device`` as in
+    :func:`make_particle_group`."""
+    global _initialized
+    if dist.is_initialized():
+        return make_particle_group(device=device)
+    store = None
+    if init_method is None and "RANK" in os.environ \
+            and "WORLD_SIZE" in os.environ:
+        init_method = "env://"
+        world_size = int(os.environ["WORLD_SIZE"] if world_size is None
+                         else world_size)
+        rank = int(os.environ["RANK"] if rank is None else rank)
+    elif init_method is None:
+        if world_size not in (None, 1) or rank not in (None, 0):
+            raise ValueError(
+                f"world_size={world_size}, rank={rank} without a rendezvous: "
+                "pass init_method (a world of more than one rank must not "
+                "fall back to one rank per process)"
+            )
+        store, world_size, rank = dist.HashStore(), 1, 0
+    elif world_size is None or rank is None:
+        raise ValueError(f"init_method {init_method!r} needs world_size and "
+                         "rank")
     if device is None:
         device = torch.device("cuda", local_rank(rank))
     device = check_device(device, "the particle group's device")
@@ -131,9 +178,10 @@ def initialize_distributed(init_method: str, world_size: int, rank: int,
         backend = "nccl" if device.type == "cuda" else "gloo"
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    dist.init_process_group(backend, init_method=init_method,
+    dist.init_process_group(backend, init_method=init_method, store=store,
                             world_size=int(world_size), rank=int(rank))
-    return make_particle_group(device=device)
+    _initialized = (dist.group.WORLD, make_particle_group(device=device))
+    return _initialized[1]
 
 
 def place_replicated(x, group: ParticleGroup, dtype=None) -> torch.Tensor:

@@ -78,7 +78,7 @@ from ..ops.phi import (
 )
 from ..ops.sym_plan import sym_panel_sharded_plan, sym_sharded_plan
 from ..svgd import SVGD, _not_ported, _skip_section
-from .mesh import ParticleGroup, make_particle_group, place_replicated
+from .mesh import ParticleGroup, initialize_distributed, place_replicated
 
 
 # ----------------------------------------------------------------------
@@ -281,7 +281,9 @@ class ShardedSVGDConfig:
 
 class ShardedSVGD:
     """SVGD over the particle axis of a ParticleGroup (the JAX package's
-    ShardedSVGD, same constructor and methods; ``mesh`` is the group).
+    ShardedSVGD, same constructor and methods; ``mesh`` is the group, by
+    default :func:`initialize_distributed`'s: the default group's, or a
+    one-rank world where none exists).
 
     Each rank builds the engine with the same arguments and calls the same
     methods in the same order: the collectives pair up across the ranks.
@@ -301,7 +303,7 @@ class ShardedSVGD:
         self.model = model
         self.optimizer = optimizer
         self.kernel = kernel
-        self.mesh = mesh if mesh is not None else make_particle_group()
+        self.mesh = mesh if mesh is not None else initialize_distributed()
         self.config = config or ShardedSVGDConfig()
         self.num_particles = int(num_particles)
         self.dimension = int(dimension)
