@@ -65,17 +65,22 @@ against the panel kernels on a ladder of n: K2 against K3's port at m = 2
 (one RBF) from n = 32768 to 524288 and at m = 5 (the runtime-m instance)
 at n = 262144, and the terms triangle kernel against the terms panel
 kernel at m = 11 with two terms (the hierarchical BLR's shape) from
-n = 16384 to 262144; wrapper ms, median of 5 calls between CUDA events
-after one warm-up call, three thresholds.
+n = 16384 to 262144, and the terms kernels' other instances: m = 11 at
+T = 8 (n = 131072) and with three terms (n = 65536), m = 2 (n = 262144)
+and m = 5 (n = 131072) with two terms; wrapper ms, median of 5 calls
+between CUDA events after one warm-up call, three thresholds unless
+stated.
 
-With ``--sass`` it also reads the machine code of the single-RBF panel
-kernel's instance that path A launches (m = 2, exact, T = 3; in a tree
-without the fixed-T instances, the m = 2 exact one) with ``cuobjdump
---dump-sass`` from the built library, and prints every loop of it (each
-backward branch): its instructions, and how many of them are FP32
+With ``--sass`` it also reads the machine code of the panel kernels'
+instances that paths A and B launch (one RBF at m = 2, exact, T = 3; the
+terms kernel at m = 11, exact, T = 3, two terms; in a tree without the
+compile-time T or term count, the exact instance of that m) with
+``cuobjdump --dump-sass`` from the built library, and prints every loop of
+each (each backward branch): its instructions, how many of them are FP32
 arithmetic, special-function (MUFU), compares and selects, integer,
-shared-memory, global, barrier and branch instructions. The listing goes
-to ``chiprun_out/panel_sass.txt``.
+shared-memory, shuffle, global, barrier and branch instructions, and
+where the loop evaluates the function, its pairs (MUFU over the terms)
+and instructions a pair. The listing goes to ``chiprun_out/panel_sass.txt``.
 
 The JSON summary goes to ``--out`` (default
 ``chiprun_out/profile[_<config>].json``). Exits non-zero without a CUDA
@@ -332,21 +337,27 @@ def crossover(device):
     ladder of n (see the module's docstring)."""
     import torch
 
-    from chip_smoke import sweep_inputs, time_ms
+    from chip_smoke import sweep_inputs, thresholds_of, time_ms
     from svgdcpp_tpu_torch.ops import cuda_phi
 
     rows = []
-    ladder = [(2, None, n) for n in (32768, 65536, 131072, 262144, 524288)]
-    ladder += [(5, None, 262144)]
-    ladder += [(11, (1.0, 1.0), n) for n in (16384, 32768, 65536, 131072,
-                                             262144)]
-    for m, signs, n in ladder:
+    ladder = [(2, None, n, 3) for n in (32768, 65536, 131072, 262144,
+                                        524288)]
+    ladder += [(5, None, 262144, 3)]
+    ladder += [(11, (1.0, 1.0), n, 3) for n in (16384, 32768, 65536, 131072,
+                                                262144)]
+    # the terms panel kernel's other instances: T = 8, three terms (a
+    # runtime term count), m = 2 and m = 5 (the runtime-m instance)
+    ladder += [(11, (1.0, 1.0), 131072, 8), (11, (1.0, 1.0, 0.5), 65536, 3),
+               (2, (1.0, 1.0), 262144, 3), (5, (1.0, 1.0), 131072, 3)]
+    for m, signs, n, n_t in ladder:
         x, s, g, thr = sweep_inputs(n, m, 0.0, n + m, device)
+        thr = thresholds_of(thr, n_t)
         if signs is None:
             def sweep(form):
                 return cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=form)
         else:
-            gs = [g, torch.full_like(g, 0.1)]
+            gs = [g, torch.full_like(g, 0.1), 2.0 * g][:len(signs)]
 
             def sweep(form):
                 return cuda_phi.phi_rbf_terms_fused_cuda(x, s, gs, signs, thr,
@@ -354,6 +365,7 @@ def crossover(device):
         full = time_ms(lambda: sweep(True), reps=5, warmup=1)
         panel = time_ms(lambda: sweep("panel"), reps=5, warmup=1)
         rows.append({"n": n, "m": m, "terms": len(signs) if signs else 1,
+                     "T": n_t,
                      "full_width_ms": full, "panel_ms": panel,
                      "panel_over_full": panel / full,
                      "jax_form": cuda_phi.resolve_sym(
@@ -369,14 +381,72 @@ SASS_CLASSES = {
     "int": ("IADD3", "IMAD", "LEA", "LOP3", "SHF", "IABS", "VIADD", "IMNMX",
             "MOV", "S2R", "CS2R", "I2F", "F2I"),
     "shared": ("LDS", "STS"),
+    "shuffle": ("SHFL",),
     "global": ("LDG", "STG", "RED", "ATOM", "LD", "ST"),
     "barrier": ("BAR", "WARPSYNC", "BSSY", "BSYNC"),
     "branch": ("BRA", "EXIT", "RET"),
 }
 
 
+def sass_loops(text, function, pairs_per=None):
+    """Every loop (each backward branch) of ``function`` in ``cuobjdump
+    --dump-sass`` output ``text``: its address range, its instructions and
+    how many fall in each class of SASS_CLASSES (a predicate guard does not
+    change an instruction's class). With ``pairs_per`` (special-function
+    instructions a pair), also the loop's pairs, its MUFU count over
+    ``pairs_per``, and its instructions a pair."""
+    import re
+
+    lines, name = [], None
+    for line in text.splitlines():
+        hit = re.search(r"Function : (\S+)", line)
+        if hit:
+            name = hit.group(1)
+            continue
+        if name == function:
+            lines.append(line)
+    insts = []
+    for line in lines:
+        hit = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+        if hit:
+            insts.append((int(hit.group(1), 16), hit.group(2).strip()))
+    loops = []
+    for addr, branch in insts:
+        code = re.sub(r"^@!?U?P\w+\s+", "", branch)
+        hit = re.match(r"BRA\b.*?(0x[0-9a-f]+)", code)
+        if not hit or int(hit.group(1), 16) > addr:
+            continue
+        start = int(hit.group(1), 16)
+        body = [op for a, op in insts if start <= a <= addr]
+        classes = dict.fromkeys(SASS_CLASSES, 0)
+        for op in body:
+            code = re.sub(r"^@!?U?P\w+\s+", "", op).split()[0].split(".")[0]
+            for key, codes in SASS_CLASSES.items():
+                classes[key] += code in codes
+        loop = {"start": hex(start), "end": hex(addr),
+                "instructions": len(body), **classes}
+        if pairs_per and classes["mufu"]:
+            loop["pairs"] = classes["mufu"] / pairs_per
+            loop["per_pair"] = len(body) / loop["pairs"]
+        loops.append(loop)
+    return loops
+
+
+#: The panel instances --sass reads: (label, kernel name, its template
+#: arguments as mangled, MUFU instructions a pair). Path A's single-RBF
+#: instance <MM=2, exact, T=3> and path B's terms instance <MM=11, exact,
+#: T=3, two terms>; in a tree without a compile-time T (or term count),
+#: the one of the same MM, exact.
+SASS_INSTANCES = (
+    ("counts_sympanel<2,1,3>", "fused_phi_counts_sympanel_kernel",
+     ("ILi2ELb1ELi3E", "ILi2ELb1EE"), 1),
+    ("terms_sympanel<11,1,3,2>", "fused_phi_terms_sympanel_kernel",
+     ("ILi11ELb1ELi3ELi2E", "ILi11ELb1EE"), 2),
+)
+
+
 def panel_sass(out_dir):
-    """The loops of the single-RBF panel instance path A launches (see the
+    """The loops of the panel instances paths A and B launch (see the
     module's docstring)."""
     import re
 
@@ -390,44 +460,21 @@ def panel_sass(out_dir):
     text = subprocess.run([str(cuobjdump), "--dump-sass", str(lib)],
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
-    funcs, name = {}, None
-    for line in text.splitlines():
-        hit = re.search(r"Function : (\S+)", line)
-        if hit:
-            name = hit.group(1)
-            if "counts_sympanel" in name:
-                funcs[name] = []
+    names = re.findall(r"Function : (\S+)", text)
+    out, listing = {}, []
+    for label, kernel, args, per in SASS_INSTANCES:
+        inst = next((f for a in args for f in names if kernel + a in f), None)
+        if inst is None:
+            out[label] = None  # a tree without this instance
             continue
-        if name in funcs:
-            funcs[name].append(line)
-    # The whole-list kernel at MM = 2, exact; the T = 3 instance if any.
-    names = [f for f in funcs if "chunk" not in f and "ILi2ELb1E" in f]
-    inst = ([f for f in names if "Li3E" in f] or names or [None])[0]
-    if inst is None:
-        raise RuntimeError("no single-RBF panel instance at m = 2 in the SASS")
+        out[label] = {"function": inst,
+                      "loops": sass_loops(text, inst, pairs_per=per)}
+        body = text[text.index(f"Function : {inst}"):]
+        nxt = body.find("Function : ", 1)
+        listing.append(body if nxt < 0 else body[:nxt])
     out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "panel_sass.txt").write_text(
-        f"Function : {inst}\n" + "\n".join(funcs[inst]))
-    insts = []
-    for line in funcs[inst]:
-        hit = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
-        if hit:
-            insts.append((int(hit.group(1), 16), hit.group(2).strip()))
-    loops = []
-    for addr, branch in insts:
-        hit = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", branch)
-        if not hit or int(hit.group(1), 16) > addr:
-            continue
-        start = int(hit.group(1), 16)
-        body = [op for a, op in insts if start <= a <= addr]
-        classes = dict.fromkeys(SASS_CLASSES, 0)
-        for op in body:
-            code = re.sub(r"^@!?U?P\w+\s+", "", op).split()[0].split(".")[0]
-            for key, codes in SASS_CLASSES.items():
-                classes[key] += code in codes
-        loops.append({"start": hex(start), "end": hex(addr),
-                      "instructions": len(body), **classes})
-    return {"instance": inst, "loops": loops}
+    (out_dir / "panel_sass.txt").write_text("\n".join(listing))
+    return out
 
 
 def main() -> int:
@@ -444,8 +491,8 @@ def main() -> int:
                         help="also time the full-width triangle kernels "
                              "against the panel kernels on a ladder of n")
     parser.add_argument("--sass", action="store_true",
-                        help="also count the machine code of path A's "
-                             "panel kernel instance, loop by loop")
+                        help="also count the machine code of paths A's and "
+                             "B's panel kernel instances, loop by loop")
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
     if args.large and args.config != "mvn":

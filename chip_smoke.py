@@ -72,7 +72,11 @@ thirty-one phases, one line each (several for phases 2, 3, 7-9 and
      against its plain version: (131072, 11, two terms) at the hierarchical
      BLR's signs (path B's shape; K12's on the TPU), (65536, 11, three
      terms) (K13's), (262144, 2, two terms) and forced small panels with a
-     negative sign;
+     negative sign; at m = 11 forced small panels off origin (n = 10007, 3
+     super-blocks: ragged strips, diagonal panels) at T = 1, 3 and 8, with
+     one term and with a negative sign, and at m = 5 (n = 9001, two and
+     three terms, T = 3 and 8); counts equal at m <= 4, within 1e-6 n^2
+     above;
  21. times: the panel kernels against the full-width ones (K2, terms-sym)
      at (262144, 2), (1048576, 2) and (131072, 11, two terms), and the plain
      versions under 10 s a call (CUDA events; median of 50 calls, of 5 at
@@ -401,7 +405,9 @@ def ptxas_summary(log_text):
     named kernel<MM,exact> (sweep_common.cuh), e.g. counts_square<50,1>
     or rbf_square<2,1> (phi_rbf_square); the terms triangle sweep
     (terms_sym.cuh) has a third flag, its term groups: terms_sym<11,1,0>
-    and aniso_terms_sym<11,1,1>."""
+    and aniso_terms_sym<11,1,1>; the panel kernels their thresholds, and
+    the terms panel kernel its term count (0: any), counts_sympanel<2,1,3>
+    and terms_sympanel<11,1,3,2>."""
     import re
 
     out, name = {}, None
@@ -411,7 +417,7 @@ def ptxas_summary(log_text):
         if hit:
             inst = re.search(
                 r"(?<=\d)(?:fused_)?phi_(\w+?)_kernel"
-                r"ILi(\d+)ELb([01])E(?:Lb([01])E)?(?:Li(\d+)E)?",
+                r"ILi(\d+)ELb([01])E(?:Lb([01])E)?(?:Li(\d+)E)?(?:Li(\d+)E)?",
                 hit.group(1),
             )
             flags = ",".join(g for g in inst.groups()[1:] if g) if inst else ""
@@ -1198,15 +1204,28 @@ def main() -> int:
           f"rows={rows.numel()} {clock()}")
 
     # -- phase 20: the terms panel kernel (K12/K13's port) vs plain --------
+    # Two terms run the kernel's compile-time term count, others its
+    # runtime one; T = 3 its fixed-T instances, T = 1 and 8 the runtime-T
+    # ones; m = 2 and 11 exact instances, m = 5 a runtime-m one. The forced
+    # small panels off origin (n = 10007, 3 super-blocks) have ragged
+    # strips and diagonal panels, so they run the masked chunks.
     terms_panel_err = 0.0
-    for idx, (n, m, signs, blocks, tpu) in enumerate([
-        (PATH_B_N, 11, (1.0, 1.0), None, "K12"),
-        (65536, 11, (1.0, 1.0, 0.5), None, "K13"),
-        (PATH_A_N, 2, (1.0, 1.0), None, "K12"),
-        (10007, 2, (1.0, -0.5), 3, None),
-        (4099, 11, (1.0, -0.5, 0.3), 5, None),
+    for idx, (n, m, signs, blocks, tpu, off, n_t) in enumerate([
+        (PATH_B_N, 11, (1.0, 1.0), None, "K12", 0.0, 3),
+        (65536, 11, (1.0, 1.0, 0.5), None, "K13", 0.0, 3),
+        (PATH_A_N, 2, (1.0, 1.0), None, "K12", 0.0, 3),
+        (10007, 2, (1.0, -0.5), 3, None, 0.0, 3),
+        (4099, 11, (1.0, -0.5, 0.3), 5, None, 0.0, 3),
+        (10007, 11, (1.0, 1.0), 3, None, 2.0, 3),
+        (10007, 11, (1.0, 1.0), 3, None, 2.0, 1),
+        (10007, 11, (1.0, 1.0), 3, None, 0.0, 8),
+        (10007, 11, (1.0,), 3, None, 2.0, 3),
+        (10007, 11, (1.0, -0.5), 3, None, 2.0, 3),
+        (9001, 5, (1.0, 1.0), 3, None, 2.0, 3),
+        (9001, 5, (1.0, -0.5, 0.3), 2, None, 0.0, 8),
     ]):
-        x, s, g, thr = inputs_for(n, m, 0.0, 200 + idx, dev)
+        x, s, g, thr = inputs_for(n, m, off, 200 + idx, dev)
+        thr = thresholds_of(thr, n_t)
         gs = terms_gammas(g, signs)
         got = cuda_phi.phi_rbf_terms_fused_cuda(x, s, gs, signs, thr,
                                                 sym="panel",
@@ -1221,6 +1240,7 @@ def main() -> int:
               f"terms sympanel n={n} m={m}: the TPU runs {on_tpu}, not {tpu}")
         nb, w, _ = card_panel_plan(n, blocks)
         print(f"phase 20 terms sympanel n={n} m={m} signs={list(signs)} "
+              f"T={n_t} offset={off} "
               f"nb={nb} W={w} (TPU kernel at this shape: {on_tpu}): ok "
               f"phi_rel={rel:.3e} count_diff={dcnt} "
               f"count_bound={1e-6 * n * n if m > 4 else 0:.3g} {clock()}")

@@ -38,14 +38,16 @@
 //
 // Bound on this card. Per unordered pair the function needs the difference
 // and sq (3m FP32 operations, sq rounded term by term so that the counts
-// equal the plain version's), one ex2 on the special function unit, T
-// compares and 4m FMAs (k s and k d into both directions). The operands are
-// 2nm floats and the windows a few hundred MB at most, so the sweep is
-// bound by instruction issue on the FP32 pipes, not by memory: at m = 2,
-// T = 3 the floor is 21 instructions a pair (5 for sq, a multiply and the
-// ex2, 8 FMAs, a compare and an add per threshold).
+// equal the plain version's), one ex2 on the special function unit per
+// term, T compares and 4m FMAs (k s and k d into both directions). The
+// operands are 2nm floats and the windows a few hundred MB at most, so the
+// sweep is bound by instruction issue, not by memory: at m = 2, T = 3 with
+// one RBF the floor is 21 instructions a pair (5 for sq, a multiply and the
+// ex2, 8 FMAs, a compare and an add per threshold); at m = 11, T = 3 with
+// two terms 91 (33 for sq, 8 for the terms, 44 FMAs, 6 for the counts).
 //
-// The single-RBF body up to m = 8 (micro_panel_body; K3's and K5's port).
+// The micro-tile body: one RBF up to m = 8 (micro_panel_body; K3's and
+// K5's port).
 // A block of 4 warps owns a strip of 128 kRows rows of I (8 rows a thread
 // at m = 2) and sweeps all columns of J, 32 a chunk. Lane l of a warp holds
 // its rows' x, s and sums in registers and at step s of a chunk takes
@@ -74,16 +76,48 @@
 // memory; the column pass: the value back, x_i and s_i, the difference
 // again).
 //
-// The body for wider m (sympanel_body; the terms kernel, and one RBF at
-// m > 8, whose registers the micro-tile would spill): one block of kTile
-// threads owns a strip of kTile rows of I and sweeps all columns of J in
-// chunks of kTile; thread r keeps its row's 2m sums and T counts in
-// registers across the strip and stores them once at the end. Per chunk
-// the pair values go to a padded shared tile, thread r then owns column j
-// and flushes its 2m column sums with float32 atomicAdd into half 1. On a
-// diagonal panel a strip starts at its own chunk (the chunks before it
-// hold no pair j >= i) and masks j < i on it; the self pairs enter both
-// halves. Rows and columns past n are bounds checks.
+// The terms kernel at m = 1-8 and 11 (K12/K13's port, replacing
+// _sym_panel_terms_direct_kernel, pallas_phi.py:2718, and
+// _sym_panel_terms_kernel, :2925) runs the same micro-tile body with the
+// pair's weights from its terms: k_c = sum_t s_t k_t for KS and
+// w = sum_t s_t gamma_t k_t for D, each k_t one ex2.approx.ftz, the terms'
+// constants -gamma_t log2(e), s_t and s_t gamma_t in registers for two
+// terms (the hierarchical BLR's kernel) and in shared memory for any other
+// count. At m = 11 a row's x, s, strip totals and chunk partials take 66
+// registers and a column's records 22 floats each, padded to 24. What
+// binds there is not FP32 issue alone: with 2 rows a thread a lane's 18
+// 16-byte shared accesses a step (its column's operands, and its sums read
+// and written) take about 72 of the shared-memory pipe's clocks a
+// warp-step, against about 45 of issue. Two ways out were measured on the
+// card (chip_profile.py; PERF.md section 6): 3 rows a thread, which
+// spreads the same accesses over 3 pairs, and keeping the column's sums in
+// registers, passed one lane down after each step with __shfl_sync (the
+// lane rotation visits the columns in that order). At (131072, 11, two
+// terms, T = 3) on an NVIDIA H100 80GB HBM3 (700 W) the rotation took
+// 41.8-44.3 ms, 2 rows with records 46.2, and 3 rows with records spill
+// (255 registers, 104 B) and took 46.1-46.2, against 83.2-83.8 for
+// sympanel_body. So past m = 8 (kRotate) 2 rows a thread keep their
+// column's sums in registers: 22 shuffles and 6 16-byte shared reads a
+// step for 2 pairs, and after a chunk the warp writes its sums to its
+// records by plane, so that the block's atomics cover 32 consecutive
+// columns of one plane a warp. At m = 2 and 5 the records are faster
+// (41.7-42.0 and 39.6-39.8 ms against 44.0 and 41.2 at (262144, 2) and
+// (131072, 5), two terms) and stay. The m = 11 step loop then issues
+// about 109 instructions a pair (82 of them FP32) at 249 registers, 2
+// blocks an SM, and the kernel reaches about 66% of the card's issue
+// rate: it is bound by instruction issue with two warps a scheduler to
+// hide latency, not by shared memory or the special function unit.
+//
+// The body for wider m (sympanel_body; one RBF at m > 8 and the terms
+// kernel at m = 9, 10 and 12-64, whose registers the micro-tile would
+// spill): one block of kTile threads owns a strip of kTile rows of I and
+// sweeps all columns of J in chunks of kTile; thread r keeps its row's 2m
+// sums and T counts in registers across the strip and stores them once at
+// the end. Per chunk the pair values go to a padded shared tile, thread r
+// then owns column j and flushes its 2m column sums with float32 atomicAdd
+// into half 1. On a diagonal panel a strip starts at its own chunk (the
+// chunks before it hold no pair j >= i) and masks j < i on it; the self
+// pairs enter both halves. Rows and columns past n are bounds checks.
 //
 // Each entry point returns cudaGetLastError() after its launch.
 
@@ -114,6 +148,19 @@ struct PanelTile {
 
 constexpr int kPanelAlign = 64;  // sym_plan.CARD_PANEL_ALIGN
 
+// The super-blocks (I, J) of panel p of the list: the off-diagonal pairs
+// first, in the order of the upper triangle of nb - 1 blocks shifted one
+// column right, then the diagonal ones.
+__device__ __forceinline__ void panel_blocks(int p, int nb, int* bi, int* bj) {
+  const int n_off = nb * (nb - 1) / 2;
+  if (p < n_off) {
+    decode_upper_pair(p, nb - 1, bi, bj);
+    ++*bj;
+  } else {
+    *bi = *bj = p - n_off;
+  }
+}
+
 template <int MM, bool kExact, bool kTerms>
 __device__ __forceinline__ void sympanel_body(
     const float* __restrict__ coords, const float* __restrict__ scores,
@@ -133,18 +180,9 @@ __device__ __forceinline__ void sympanel_body(
   __shared__ float sh_sg[kMaxTerms];
 
   const int m = kExact ? MM : m_arg;
-  // The panel's super-blocks (I, J): off-diagonal pairs first, in the
-  // order of the upper triangle of nb - 1 blocks shifted one column right.
-  const int n_off = nb * (nb - 1) / 2;
   const int p = static_cast<int>(blockIdx.y);  // the window
-  const int pg = p0 + p;                        // the panel in the list
   int bi, bj;
-  if (pg < n_off) {
-    decode_upper_pair(pg, nb - 1, &bi, &bj);
-    ++bj;
-  } else {
-    bi = bj = pg - n_off;
-  }
+  panel_blocks(p0 + p, nb, &bi, &bj);
   const bool diag = bi == bj;
   const int r = threadIdx.x;
   const int li0 = static_cast<int>(blockIdx.x) * kTile;  // strip, local
@@ -281,46 +319,53 @@ __device__ __forceinline__ void sympanel_body(
 }
 
 // ---------------------------------------------------------------------------
-// The single-RBF body (K3's and K5's port) up to m = 8: register micro-tiles.
+// The micro-tile body: one RBF up to m = 8 (K3's and K5's port), and the
+// terms kernel (K12/K13's port) at m = 2, 1-8 and 11.
 // ---------------------------------------------------------------------------
 
 // Columns per chunk: one per lane. Steps of a chunk unrolled together.
 constexpr int kPanelChunk = 32;
 constexpr int kPanelUnroll = 2;
 
-// The micro-tile body's shape for an instance of width MM. It serves
-// MM <= 8 (the instances of m = 2 and of 1 <= m <= 8): a thread holds the
-// coordinates, scores and both sums of kRows rows, 4 kRows MM registers
-// and 2 kRows MM more for the chunk's row partials, which wider m would
-// spill. Wider instances keep sympanel_body.
-template <int MM>
+// The micro-tile body's shape for an instance of width MM, one RBF or
+// terms (kTerms). It serves one RBF up to MM = 8 and the terms kernel at
+// MM = 2, 8 and 11; wider instances keep sympanel_body, whose registers
+// the micro-tile would spill. A thread holds the coordinates, scores and
+// strip totals of kRows rows, and their chunk partials: 6 kRows MM
+// registers, 8 rows at MM = 2, 2 above (3 rows spill at MM = 11). A
+// column's record in shared memory, [x (MM) | s (MM)] for the operands,
+// [KS (MM) | D (MM)] for the partial sums, is padded to kPad, a multiple
+// of 4 floats for float4 access, and records lie kStride apart: 4 more
+// where kPad is a multiple of 8, so that 8 lanes' 16-byte reads of 8
+// consecutive records fall in distinct banks. Past MM = 8 (kRotate) the
+// column's sums stay in registers and rotate between lanes instead of
+// passing through the records every step.
+template <int MM, bool kTerms>
 struct MicroPanel {
-  static constexpr bool enabled = MM <= 8;
+  static constexpr bool enabled =
+      kTerms ? MM == 2 || MM == 8 || MM == 11 : MM <= 8;
+  static constexpr bool kRotate = MM > 8;
   static constexpr int kRows = MM <= 2 ? 8 : 2;
   static constexpr int kWarps = 4;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kStrip = kThreads * kRows;  // rows of a block
-  // A column's record in shared memory: [x (MM) | s (MM)] for the operands,
-  // [KS (MM) | D (MM)] for the partial sums; padded by 4 floats where 2 MM
-  // is a multiple of 8, so that 8 lanes' 16-byte reads of 8 consecutive
-  // records fall in distinct banks.
-  static constexpr int kRec = 2 * MM;
-  static constexpr int kStride = kRec % 8 == 0 ? kRec + 4 : kRec;
-  static_assert(!enabled || kRec % 4 == 0, "records are read as float4");
+  static constexpr int kPad = (2 * MM + 3) / 4 * 4;
+  static constexpr int kStride = kPad % 8 == 0 ? kPad + 4 : kPad;
 };
 
-template <int MM>
-struct CountsPanelThreads {
-  static constexpr int value = MicroPanel<MM>::enabled
-                                   ? MicroPanel<MM>::kThreads
-                                   : CountsPanelTile<MM>::value;
+// Block size and strip height of a panel kernel instance.
+template <int MM, bool kTerms>
+struct PanelThreads {
+  static constexpr int value = MicroPanel<MM, kTerms>::enabled
+                                   ? MicroPanel<MM, kTerms>::kThreads
+                                   : PanelTile<MM, kTerms>::value;
 };
 
-template <int MM>
-struct CountsPanelStrip {
-  static constexpr int value = MicroPanel<MM>::enabled
-                                   ? MicroPanel<MM>::kStrip
-                                   : CountsPanelTile<MM>::value;
+template <int MM, bool kTerms>
+struct PanelStrip {
+  static constexpr int value = MicroPanel<MM, kTerms>::enabled
+                                   ? MicroPanel<MM, kTerms>::kStrip
+                                   : PanelTile<MM, kTerms>::value;
 };
 
 // 2^x on the special function unit, subnormal results flushed to zero: a
@@ -332,47 +377,163 @@ __device__ __forceinline__ float ex2_ftz(float x) {
   return y;
 }
 
+// The pair's weights (k_c, w) from its sq: k_c multiplies the scores into
+// KS and w the differences into D. One RBF: k_c = w = 2^(-gamma log2(e) sq)
+// (D is scaled by 2 gamma in the epilogue).
+struct OneRbf {
+  float ng2;  // -gamma log2(e)
+
+  __device__ __forceinline__ void operator()(float sq, float& kc,
+                                             float& w) const {
+    kc = ex2_ftz(ng2 * sq);
+    w = kc;
+  }
+};
+
+// NT signed terms: k_c = sum_t s_t k_t, w = sum_t s_t gamma_t k_t,
+// k_t = 2^(-gamma_t log2(e) sq), the terms' constants -gamma_t log2(e),
+// s_t and s_t gamma_t in registers, set once per thread.
+template <int NT>
+struct FixedTerms {
+  float ng2[NT];
+  float sn[NT];
+  float sg[NT];
+
+  __device__ __forceinline__ FixedTerms(const float* __restrict__ gammas,
+                                        const TermSigns& signs) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const float g = gammas[t];
+      ng2[t] = -g * kLog2e;
+      sn[t] = signs.s[t];
+      sg[t] = signs.s[t] * g;
+    }
+  }
+
+  __device__ __forceinline__ void operator()(float sq, float& kc,
+                                             float& w) const {
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const float e = ex2_ftz(ng2[t] * sq);
+      kc = t == 0 ? sn[t] * e : fmaf(sn[t], e, kc);
+      w = t == 0 ? sg[t] * e : fmaf(sg[t], e, w);
+    }
+  }
+};
+
+// The same over a runtime number of terms, 1 <= nterms <= kMaxTerms, with
+// the constants in shared memory (load_terms).
+struct AnyTerms {
+  const float* g2;
+  const float* sn;
+  const float* sg;
+  int nterms;
+
+  __device__ __forceinline__ void operator()(float sq, float& kc,
+                                             float& w) const {
+    kc = 0.0f;
+    w = 0.0f;
+    // Rolled: the body inlines this loop into every row of every unrolled
+    // step, and a partially unrolled copy spills at MM = 2.
+#pragma unroll 1
+    for (int t = 0; t < nterms; ++t) {
+      const float e = ex2_ftz(g2[t] * sq);
+      kc = fmaf(sn[t], e, kc);
+      w = fmaf(sg[t], e, w);
+    }
+  }
+};
+
+// A chunk's operand records [x (MM) | s (MM)] of super-block J, STR floats
+// apart in shared memory, zero past n and past m: kCount values a thread
+// of NT, fetched into registers a chunk ahead and stored once the current
+// chunk is swept.
+template <int MM, bool kExact, int NT, int STR>
+struct ChunkStage {
+  static constexpr int kRec = 2 * MM;
+  static constexpr int kCount = (kPanelChunk * kRec + NT - 1) / NT;
+
+  static __device__ __forceinline__ void fetch(
+      const float* __restrict__ coords, const float* __restrict__ scores,
+      int tid, int m, int gj_base, int ncols, int c, float (&v)[kCount]) {
+    const int lj0 = c * kPanelChunk;
+#pragma unroll
+    for (int u = 0; u < kCount; ++u) {
+      const int e = tid + u * NT;
+      const int slot = e / kRec;
+      const int kk = e - slot * kRec;
+      const bool is_s = kk >= MM;
+      const int k = is_s ? kk - MM : kk;
+      v[u] = 0.0f;
+      if (e < kPanelChunk * kRec && lj0 + slot < ncols && (kExact || k < m)) {
+        const size_t at = static_cast<size_t>(gj_base + lj0 + slot) * m + k;
+        v[u] = is_s ? scores[at] : coords[at];
+      }
+    }
+  }
+
+  static __device__ __forceinline__ void store(const float (&v)[kCount],
+                                               int tid, float* buf) {
+#pragma unroll
+    for (int u = 0; u < kCount; ++u) {
+      const int e = tid + u * NT;
+      const int slot = e / kRec;
+      if (e < kPanelChunk * kRec) buf[slot * STR + e - slot * kRec] = v[u];
+    }
+  }
+};
+
 // One warp's sweep of one chunk: lane l holds rows R(l, q), q < RI, and at
-// step s takes column slot (l + s) mod 32 of the chunk, so the warp's 32
-// lanes hold 32 distinct columns at every step. The pair's value k stays in
-// registers and feeds both directions: the rows' chunk partials (k s_j and
-// k d, d = x_i - x_j) and the column's running sums (k s_i and -k d, which
-// is k (x_j - x_i) exactly: IEEE subtraction is antisymmetric). The column
-// sums live in the warp's own shared records, read and written once per
-// step; __syncwarp orders a slot's write by one lane before the next
-// step's read by its neighbour. kMasked adds the per-pair validity (rows
-// and columns below n, j >= i on a diagonal panel); interior chunks run
-// without it.
-template <int MM, bool kExact, int kT, bool kMasked>
+// step s takes column slot (l + s) mod 32, so the warp's 32 lanes hold 32
+// distinct columns at every step. The pair's weights (k_c, w) stay in
+// registers and feed both directions: the rows' chunk partials (k_c s_j
+// and w d, d = x_i - x_j) and the column's running sums (k_c s_i and -w d,
+// which is w (x_j - x_i) exactly: IEEE subtraction is antisymmetric). The
+// column sums live in the warp's own shared records, read and written once
+// per step; __syncwarp orders a slot's write by one lane before the next
+// step's read by its neighbour. Where they rotate (kRotate), lane l takes
+// over lane l + 1's sums after each step, its own column at the next one,
+// so after the 32 steps lane l holds column l's and writes them to the
+// records by plane. kMasked adds the per-pair validity (rows and columns
+// below n, j >= i on a diagonal panel); interior chunks run without it.
+template <int MM, bool kExact, int kT, bool kMasked, bool kTerms,
+          class Weights>
 __device__ __forceinline__ void micro_panel_chunk(
-    const float (&xi)[MicroPanel<MM>::kRows][MM],
-    const float (&si)[MicroPanel<MM>::kRows][MM],
-    float (&ps)[MicroPanel<MM>::kRows][MM],
-    float (&pd)[MicroPanel<MM>::kRows][MM], unsigned int* cnt,
-    const float* th, float ng2, int m, const float* sh_op, float* sh_col,
-    int lane, int row0, int nrows, int lj0, int ncols, bool diag) {
-  using P = MicroPanel<MM>;
+    const float (&xi)[MicroPanel<MM, kTerms>::kRows][MM],
+    const float (&si)[MicroPanel<MM, kTerms>::kRows][MM],
+    float (&ps)[MicroPanel<MM, kTerms>::kRows][MM],
+    float (&pd)[MicroPanel<MM, kTerms>::kRows][MM], unsigned int* cnt,
+    const float* th, const Weights& weights, int m, const float* sh_op,
+    float* sh_col, int lane, int row0, int nrows, int lj0, int ncols,
+    bool diag) {
+  using P = MicroPanel<MM, kTerms>;
   constexpr int RI = P::kRows;
   constexpr int STR = P::kStride;
+  float col[P::kPad];  // the column's sums, carried across steps if rotating
+  if constexpr (P::kRotate) {
+#pragma unroll
+    for (int k = 0; k < P::kPad; ++k) col[k] = 0.0f;
+  }
 #pragma unroll kPanelUnroll
   for (int s = 0; s < kPanelChunk; ++s) {
     const int slot = (lane + s) & (kPanelChunk - 1);
-    float op[P::kRec];
-    float col[P::kRec];
+    float op[P::kPad];
     const float4* op4 = reinterpret_cast<const float4*>(sh_op + slot * STR);
     float4* col4 = reinterpret_cast<float4*>(sh_col + slot * STR);
 #pragma unroll
-    for (int v = 0; v < P::kRec / 4; ++v) {
+    for (int v = 0; v < P::kPad / 4; ++v) {
       const float4 a = op4[v];
-      const float4 b = col4[v];
       op[4 * v] = a.x;
       op[4 * v + 1] = a.y;
       op[4 * v + 2] = a.z;
       op[4 * v + 3] = a.w;
-      col[4 * v] = b.x;
-      col[4 * v + 1] = b.y;
-      col[4 * v + 2] = b.z;
-      col[4 * v + 3] = b.w;
+      if constexpr (!P::kRotate) {
+        const float4 b = col4[v];
+        col[4 * v] = b.x;
+        col[4 * v + 1] = b.y;
+        col[4 * v + 2] = b.z;
+        col[4 * v + 3] = b.w;
+      }
     }
     const int lj = lj0 + slot;
 #pragma unroll
@@ -392,25 +553,44 @@ __device__ __forceinline__ void micro_panel_chunk(
         const int li = row0 + q * 32;
         ok = li < nrows && lj < ncols && (!diag || lj >= li);
       }
-      float kc = ex2_ftz(ng2 * sq);
-      if (kMasked) kc = ok ? kc : 0.0f;
+      float kc, w;
+      weights(sq, kc, w);
+      if (kMasked) {
+        kc = ok ? kc : 0.0f;
+        w = ok ? w : 0.0f;
+      }
 #pragma unroll
       for (int k = 0; k < MM; ++k) {
         if (kExact || k < m) {
           ps[q][k] = fmaf(kc, op[MM + k], ps[q][k]);
-          pd[q][k] = fmaf(kc, d[k], pd[q][k]);
+          pd[q][k] = fmaf(w, d[k], pd[q][k]);
           col[k] = fmaf(kc, si[q][k], col[k]);
-          col[MM + k] = fmaf(-kc, d[k], col[MM + k]);
+          col[MM + k] = fmaf(-w, d[k], col[MM + k]);
         }
       }
       count_pair_fixed<kT, kMasked>(sq, th, ok, cnt);
     }
+    if constexpr (P::kRotate) {
+      const int next = (lane + 1) & (kPanelChunk - 1);
 #pragma unroll
-    for (int v = 0; v < P::kRec / 4; ++v) {
-      col4[v] = make_float4(col[4 * v], col[4 * v + 1], col[4 * v + 2],
-                            col[4 * v + 3]);
+      for (int k = 0; k < MM; ++k) {
+        if (kExact || k < m) {
+          col[k] = __shfl_sync(0xffffffffu, col[k], next);
+          col[MM + k] = __shfl_sync(0xffffffffu, col[MM + k], next);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < P::kPad / 4; ++v) {
+        col4[v] = make_float4(col[4 * v], col[4 * v + 1], col[4 * v + 2],
+                              col[4 * v + 3]);
+      }
+      __syncwarp();
     }
-    __syncwarp();
+  }
+  if constexpr (P::kRotate) {
+#pragma unroll
+    for (int k = 0; k < 2 * MM; ++k) sh_col[k * kPanelChunk + lane] = col[k];
   }
 }
 
@@ -424,33 +604,26 @@ __device__ __forceinline__ void micro_panel_chunk(
 // sum: 32 columns, then the chunks). The strip totals go to half 0 with
 // plain stores at the end (the block is their only writer), the counts
 // through flush_counts. kT is the number of thresholds, or kMaxT for a
-// runtime T padded with thresholds below zero.
-template <int MM, bool kExact, int kT>
+// runtime T padded with the first threshold.
+template <int MM, bool kExact, int kT, bool kTerms, class Weights>
 __device__ __forceinline__ void micro_panel_body(
     const float* __restrict__ coords, const float* __restrict__ scores,
-    const float* __restrict__ gamma, const float* __restrict__ thr, int n,
-    int m_arg, int T, int nb, int w, int p0, float* __restrict__ panels,
+    const Weights& weights, const float* __restrict__ thr, int n, int m_arg,
+    int T, int nb, int w, int p0, float* __restrict__ panels,
     unsigned long long* __restrict__ counts) {
-  using P = MicroPanel<MM>;
+  using P = MicroPanel<MM, kTerms>;
   constexpr int RI = P::kRows;
   constexpr int NT = P::kThreads;
   constexpr int STR = P::kStride;
-  constexpr int REC = P::kRec;
+  constexpr int REC = 2 * MM;
   constexpr int kColFloats = kPanelChunk * STR;
   __shared__ __align__(16) float sh_op[2 * kColFloats];
   __shared__ __align__(16) float sh_col[2 * P::kWarps * kColFloats];
 
   const int m = kExact ? MM : m_arg;
-  const int n_off = nb * (nb - 1) / 2;
   const int p = static_cast<int>(blockIdx.y);  // the window
-  const int pg = p0 + p;                        // the panel in the list
   int bi, bj;
-  if (pg < n_off) {
-    decode_upper_pair(pg, nb - 1, &bi, &bj);
-    ++bj;
-  } else {
-    bi = bj = pg - n_off;
-  }
+  panel_blocks(p0 + p, nb, &bi, &bj);
   const bool diag = bi == bj;
   const int tid = static_cast<int>(threadIdx.x);
   const int lane = tid & 31;
@@ -463,7 +636,6 @@ __device__ __forceinline__ void micro_panel_body(
   // Block-uniform: a strip or a super-block wholly past n has no pair.
   if (li0 >= nrows || ncols <= 0) return;
 
-  const float ng2 = -gamma[0] * kLog2e;
   float th[kT];
 #pragma unroll
   for (int t = 0; t < kT; ++t) th[t] = thr[t < T ? t : 0];
@@ -491,35 +663,7 @@ __device__ __forceinline__ void micro_panel_body(
 #pragma unroll
   for (int t = 0; t < kMaxT; ++t) cnt[t] = 0u;
 
-  // Chunk c's x and s, zero past n: fetched into registers a chunk ahead,
-  // stored to shared memory once the current chunk is swept.
-  constexpr int kStage = (kPanelChunk * REC + NT - 1) / NT;
-  auto fetch = [&](int c, float (&v)[kStage]) {
-    const int lj0 = c * kPanelChunk;
-#pragma unroll
-    for (int u = 0; u < kStage; ++u) {
-      const int e = tid + u * NT;
-      const int slot = e / REC;
-      const int kk = e - slot * REC;
-      const bool is_s = kk >= MM;
-      const int k = is_s ? kk - MM : kk;
-      v[u] = 0.0f;
-      if (e < kPanelChunk * REC && lj0 + slot < ncols &&
-          (kExact || k < m)) {
-        const size_t at = static_cast<size_t>(gj_base + lj0 + slot) * m + k;
-        v[u] = is_s ? scores[at] : coords[at];
-      }
-    }
-  };
-  auto store = [&](const float (&v)[kStage], float* buf) {
-#pragma unroll
-    for (int u = 0; u < kStage; ++u) {
-      const int e = tid + u * NT;
-      const int slot = e / REC;
-      if (e < kPanelChunk * REC) buf[slot * STR + e - slot * REC] = v[u];
-    }
-  };
-
+  using Stage = ChunkStage<MM, kExact, NT, STR>;
   const size_t plane = static_cast<size_t>(w);
   float* half0 = panels + (static_cast<size_t>(p) * 2) * 2 * m * plane;
   float* half1 = half0 + 2 * m * plane;
@@ -534,17 +678,17 @@ __device__ __forceinline__ void micro_panel_body(
   // barrier a chunk orders them.
   for (int e = tid; e < 2 * P::kWarps * kColFloats; e += NT) sh_col[e] = 0.0f;
   {
-    float v[kStage];
-    fetch(c_begin, v);
-    store(v, sh_op + (c_begin & 1) * kColFloats);
+    float v[Stage::kCount];
+    Stage::fetch(coords, scores, tid, m, gj_base, ncols, c_begin, v);
+    Stage::store(v, tid, sh_op + (c_begin & 1) * kColFloats);
   }
   __syncthreads();
   for (int c = c_begin; c < n_chunks; ++c) {
     const int lj0 = c * kPanelChunk;
     const int buf = c & 1;
     const bool more = c + 1 < n_chunks;
-    float next[kStage];
-    if (more) fetch(c + 1, next);
+    float next[Stage::kCount];
+    if (more) Stage::fetch(coords, scores, tid, m, gj_base, ncols, c + 1, next);
     float ps[RI][MM];
     float pd[RI][MM];
 #pragma unroll
@@ -562,13 +706,13 @@ __device__ __forceinline__ void micro_panel_body(
     const bool masked = !rows_full || lj0 + kPanelChunk > ncols ||
                         (diag && lj0 < li0 + P::kStrip - 1);
     if (masked) {
-      micro_panel_chunk<MM, kExact, kT, true>(
-          xi, si, ps, pd, cnt, th, ng2, m, op, cols + warp * kColFloats, lane,
-          row0, nrows, lj0, ncols, diag);
+      micro_panel_chunk<MM, kExact, kT, true, kTerms>(
+          xi, si, ps, pd, cnt, th, weights, m, op, cols + warp * kColFloats,
+          lane, row0, nrows, lj0, ncols, diag);
     } else {
-      micro_panel_chunk<MM, kExact, kT, false>(
-          xi, si, ps, pd, cnt, th, ng2, m, op, cols + warp * kColFloats, lane,
-          row0, nrows, lj0, ncols, diag);
+      micro_panel_chunk<MM, kExact, kT, false, kTerms>(
+          xi, si, ps, pd, cnt, th, weights, m, op, cols + warp * kColFloats,
+          lane, row0, nrows, lj0, ncols, diag);
     }
 #pragma unroll
     for (int q = 0; q < RI; ++q) {
@@ -578,21 +722,30 @@ __device__ __forceinline__ void micro_panel_body(
         td[q][k] += pd[q][k];
       }
     }
-    if (more) store(next, sh_op + (buf ^ 1) * kColFloats);
+    if (more) Stage::store(next, tid, sh_op + (buf ^ 1) * kColFloats);
     __syncthreads();  // chunk c's records are complete, c + 1 is staged
     // The columns: the warps' records summed in warp order, one atomic per
-    // column and sum, and the records zeroed for chunk c + 2.
+    // column and sum, and the records zeroed for chunk c + 2; records by
+    // plane where the sums rotate, so a warp's atomics cover 32
+    // consecutive columns of one plane.
     for (int e = tid; e < kPanelChunk * REC; e += NT) {
-      const int slot = e / REC;
-      const int kk = e - slot * REC;
+      int slot, kk, at;
+      if constexpr (P::kRotate) {
+        kk = e / kPanelChunk;
+        slot = e - kk * kPanelChunk;
+        at = e;
+      } else {
+        slot = e / REC;
+        kk = e - slot * REC;
+        at = slot * STR + kk;
+      }
       const bool is_d = kk >= MM;
       const int k = is_d ? kk - MM : kk;
-      const int at = slot * STR + kk;
       float sum = 0.0f;
 #pragma unroll
       for (int wp = 0; wp < P::kWarps; ++wp) {
         sum += cols[wp * kColFloats + at];
-        cols[wp * kColFloats + at] = 0.0f;
+        if constexpr (!P::kRotate) cols[wp * kColFloats + at] = 0.0f;
       }
       if (lj0 + slot < ncols && (kExact || k < m)) {
         atomicAdd(half1 + static_cast<size_t>(is_d ? m + k : k) * plane +
@@ -627,9 +780,11 @@ __device__ __forceinline__ void counts_sympanel(
     const float* __restrict__ gamma, const float* __restrict__ thr, int n,
     int m_arg, int T, int nb, int w, int p0, float* __restrict__ panels,
     unsigned long long* __restrict__ counts) {
-  if constexpr (MicroPanel<MM>::enabled) {
-    micro_panel_body<MM, kExact, kT>(coords, scores, gamma, thr, n, m_arg, T,
-                                     nb, w, p0, panels, counts);
+  if constexpr (MicroPanel<MM, false>::enabled) {
+    const OneRbf weights{-gamma[0] * kLog2e};
+    micro_panel_body<MM, kExact, kT, false>(coords, scores, weights, thr, n,
+                                            m_arg, T, nb, w, p0, panels,
+                                            counts);
   } else {
     const TermSigns none{};
     sympanel_body<MM, kExact, false>(coords, scores, gamma, none, 1, thr, n,
@@ -638,7 +793,7 @@ __device__ __forceinline__ void counts_sympanel(
 }
 
 template <int MM, bool kExact, int kT>
-__global__ void __launch_bounds__(CountsPanelThreads<MM>::value)
+__global__ void __launch_bounds__(PanelThreads<MM, false>::value)
     fused_phi_counts_sympanel_kernel(const float* __restrict__ coords,
                                      const float* __restrict__ scores,
                                      const float* __restrict__ gamma,
@@ -651,7 +806,7 @@ __global__ void __launch_bounds__(CountsPanelThreads<MM>::value)
 }
 
 template <int MM, bool kExact, int kT>
-__global__ void __launch_bounds__(CountsPanelThreads<MM>::value)
+__global__ void __launch_bounds__(PanelThreads<MM, false>::value)
     fused_phi_counts_sympanel_chunk_kernel(
         const float* __restrict__ coords, const float* __restrict__ scores,
         const float* __restrict__ gamma, const float* __restrict__ thr, int n,
@@ -671,9 +826,9 @@ void launch_counts_sympanel(bool chunk, const float* coords,
                             const float* thr, int n, int m, int T, int nb,
                             int w, int p0, unsigned int num_p, float* panels,
                             unsigned long long* counts, cudaStream_t s) {
-  constexpr int strip = CountsPanelStrip<MM>::value;
+  constexpr int strip = PanelStrip<MM, false>::value;
   const dim3 grid((w + strip - 1) / strip, num_p);
-  const int threads = CountsPanelThreads<MM>::value;
+  const int threads = PanelThreads<MM, false>::value;
   auto go = [&](auto kt) {
     constexpr int kT = decltype(kt)::value;
     if (chunk) {
@@ -686,7 +841,7 @@ void launch_counts_sympanel(bool chunk, const float* coords,
                                     w, panels, counts);
     }
   };
-  if constexpr (MicroPanel<MM>::enabled) {
+  if constexpr (MicroPanel<MM, false>::enabled) {
     if (T == 3) {
       go(std::integral_constant<int, 3>{});
       return;
@@ -695,8 +850,11 @@ void launch_counts_sympanel(bool chunk, const float* coords,
   go(std::integral_constant<int, kMaxT>{});
 }
 
-template <int MM, bool kExact>
-__global__ void __launch_bounds__(SymTermsTile<MM>::value)
+// The terms kernel: the micro-tile body where it serves MM, at kT
+// thresholds (3, or kMaxT for a runtime T) and NTerms terms (a
+// compile-time count, or 0 for a runtime one); sympanel_body above.
+template <int MM, bool kExact, int kT, int NTerms>
+__global__ void __launch_bounds__(PanelThreads<MM, true>::value)
     fused_phi_terms_sympanel_kernel(const float* __restrict__ coords,
                                     const float* __restrict__ scores,
                                     const float* __restrict__ gammas,
@@ -705,8 +863,60 @@ __global__ void __launch_bounds__(SymTermsTile<MM>::value)
                                     int m_arg, int T, int nb, int w,
                                     float* __restrict__ panels,
                                     unsigned long long* __restrict__ counts) {
-  sympanel_body<MM, kExact, true>(coords, scores, gammas, signs, nterms, thr,
-                                  n, m_arg, T, nb, w, 0, panels, counts);
+  if constexpr (!MicroPanel<MM, true>::enabled) {
+    sympanel_body<MM, kExact, true>(coords, scores, gammas, signs, nterms,
+                                    thr, n, m_arg, T, nb, w, 0, panels,
+                                    counts);
+  } else if constexpr (NTerms > 0) {
+    const FixedTerms<NTerms> weights(gammas, signs);
+    micro_panel_body<MM, kExact, kT, true>(coords, scores, weights, thr, n,
+                                           m_arg, T, nb, w, 0, panels, counts);
+  } else {
+    __shared__ float sh_g2[kMaxTerms];
+    __shared__ float sh_sn[kMaxTerms];
+    __shared__ float sh_sg[kMaxTerms];
+    // The body's first barrier comes before its first pair.
+    load_terms(gammas, signs, nterms, sh_g2, sh_sn, sh_sg);
+    const AnyTerms weights{sh_g2, sh_sn, sh_sg, nterms};
+    micro_panel_body<MM, kExact, kT, true>(coords, scores, weights, thr, n,
+                                           m_arg, T, nb, w, 0, panels, counts);
+  }
+}
+
+// Launch of the terms panel sweep: where the micro-tile body serves MM, the
+// instance for T = 3 or any T <= 8, each for two terms (the hierarchical
+// BLR's kernel) or any count; else sympanel_body's.
+template <int MM, bool kExact>
+void launch_terms_sympanel(const float* coords, const float* scores,
+                           const float* gammas, const TermSigns& signs,
+                           int nterms, const float* thr, int n, int m, int T,
+                           int nb, int w, unsigned int num_p, float* panels,
+                           unsigned long long* counts, cudaStream_t s) {
+  constexpr int strip = PanelStrip<MM, true>::value;
+  const dim3 grid((w + strip - 1) / strip, num_p);
+  const int threads = PanelThreads<MM, true>::value;
+  auto go = [&](auto kt, auto nt) {
+    fused_phi_terms_sympanel_kernel<MM, kExact, decltype(kt)::value,
+                                    decltype(nt)::value>
+        <<<grid, threads, 0, s>>>(coords, scores, gammas, signs, nterms, thr,
+                                  n, m, T, nb, w, panels, counts);
+  };
+  if constexpr (MicroPanel<MM, true>::enabled) {
+    auto terms = [&](auto kt) {
+      if (nterms == 2) {
+        go(kt, std::integral_constant<int, 2>{});
+      } else {
+        go(kt, std::integral_constant<int, 0>{});
+      }
+    };
+    if (T == 3) {
+      terms(std::integral_constant<int, 3>{});
+    } else {
+      terms(std::integral_constant<int, kMaxT>{});
+    }
+  } else {
+    go(std::integral_constant<int, kMaxT>{}, std::integral_constant<int, 0>{});
+  }
 }
 
 // The plan's checks, shared by both entry points: nb super-blocks of w
@@ -793,14 +1003,9 @@ int svgd_fused_phi_terms_sympanel(const float* coords, const float* scores,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* c = reinterpret_cast<unsigned long long*>(counts);
   const unsigned int num_p = static_cast<unsigned int>(nb) * (nb + 1) / 2;
-#define SVGD_LAUNCH_TERMS_SYMPANEL(MM_, EX_)                                \
-  {                                                                         \
-    constexpr int tile = PanelTile<MM_, true>::value;                       \
-    fused_phi_terms_sympanel_kernel<MM_, EX_>                               \
-        <<<dim3(w / tile, num_p), tile, 0, s>>>(coords, scores, gammas, sg, \
-                                                nterms, thr, n, m, T, nb,   \
-                                                w, panels, c);              \
-  }
+#define SVGD_LAUNCH_TERMS_SYMPANEL(MM_, EX_)                             \
+  launch_terms_sympanel<MM_, EX_>(coords, scores, gammas, sg, nterms, thr, \
+                                  n, m, T, nb, w, num_p, panels, c, s);
   SVGD_DISPATCH_M_2_11(m, SVGD_LAUNCH_TERMS_SYMPANEL)
 #undef SVGD_LAUNCH_TERMS_SYMPANEL
   return static_cast<int>(cudaGetLastError());

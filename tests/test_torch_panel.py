@@ -15,7 +15,8 @@
 * K12 and K13's port: the terms wrapper against
   ``_phi_rbf_terms_fused_pallas_sympanel_direct_impl`` and
   ``_phi_rbf_terms_fused_pallas_sympanel_impl`` in interpret mode, the same
-  tolerances.
+  tolerances, at m in {2, 5, 11} with one to three terms, negative signs
+  and ragged n.
 * The plain panel schedules against the JAX package's plain sweeps
   (``phi_rbf_fused_counts``, ``phi_rbf_terms_fused_counts``) in float64
   for several super-block counts, empty and ragged super-blocks included:
@@ -174,6 +175,12 @@ def test_k3_wrapper_on_cpu_vs_sympanel_interpret(n, m, blocks):
     ("direct", 600, 11, (1.0, -0.5)),
     ("legacy", 900, 2, (1.0, 1.0)),
     ("legacy", 613, 11, (1.0, 1.0, -0.3)),
+    # the shapes the CUDA terms body's other instances serve: one term at
+    # m = 11 (a runtime term count), m = 5 (the runtime-m instance), and
+    # three terms with a negative sign, each at a ragged n
+    ("direct", 613, 11, (1.0,)),
+    ("direct", 707, 5, (1.0, 1.0)),
+    ("legacy", 677, 11, (1.0, -0.5, 0.3)),
 ])
 def test_k12_k13_terms_wrapper_on_cpu_vs_interpret(impl, n, m, signs):
     x, s = inputs(n, m, 1.0, 20 + n + m)
