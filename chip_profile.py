@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of a step goes, on one CUDA GPU.
 
-    python3 chip_profile.py [--config mvn|large|hier|blr|aniso|hessian|sharded]
+    python3 chip_profile.py [--config mvn|large|hier|blr|aniso|hessian|sharded|count]
                             [--particles N] [--large] [--crossover] [--sass]
                             [--out PATH]
 
@@ -27,7 +27,11 @@ Drives one configuration of svgdcpp_tpu_torch at its full width:
     build_sharded_mvn_svgd) on a one-rank NCCL group, N=10000: the
     triangle's chunk kernel (K4's port), the gathers and sums of the group,
     the same lag-1 median; its sections (``ShardedSVGD.section_hook``)
-    add the gather of the coordinates.
+    add the gather of the coordinates;
+  * ``count``: no driver's step, only the count kernel (K16's port) at the
+    median seed's shapes and path A's set-up at N=1048576 (``count_pass``;
+    with ``--sass``, its instances' loops too). Run from an older tree
+    with this script copied in, it times that tree's kernel the same way.
 
 ``--particles`` sets N for ``mvn``, ``hier`` and ``sharded``; the sweep
 kernel read is the one of the form the driver resolved
@@ -74,13 +78,15 @@ stated.
 With ``--sass`` it also reads the machine code of the panel kernels'
 instances that paths A and B launch (one RBF at m = 2, exact, T = 3; the
 terms kernel at m = 11, exact, T = 3, two terms; in a tree without the
-compile-time T or term count, the exact instance of that m) with
-``cuobjdump --dump-sass`` from the built library, and prints every loop of
-each (each backward branch): its instructions, how many of them are FP32
-arithmetic, special-function (MUFU), compares and selects, integer,
-shared-memory, shuffle, global, barrier and branch instructions, and
-where the loop evaluates the function, its pairs (MUFU over the terms)
-and instructions a pair. The listing goes to ``chiprun_out/panel_sass.txt``.
+compile-time T or term count, the exact instance of that m) and of the
+count kernel's (K16's port; SASS_INSTANCES) with ``cuobjdump --dump-sass``
+from the built library, and prints every loop of each (each backward
+branch): its instructions, how many of them are FP32 arithmetic,
+special-function (MUFU), compares and selects, integer, shared-memory,
+shuffle, global, barrier and branch instructions, and where the loop
+evaluates the function, its pairs (MUFU over the terms; for the count
+kernel, FP32 instructions over those of one pair's sq) and instructions a
+pair. The listing goes to ``chiprun_out/panel_sass.txt``.
 
 The JSON summary goes to ``--out`` (default
 ``chiprun_out/profile[_<config>].json``). Exits non-zero without a CUDA
@@ -332,6 +338,61 @@ def large_n(n, device):
     }
 
 
+def count_pass(st, device):
+    """The count kernel (K16's port) at the median seed's shapes: one set
+    against itself at 262,144 and 1,048,576 points, m = 2, 17 thresholds
+    at pair-distance quantiles; wrapper ms (CUDA events, median of 10 and 3
+    calls after two warm-up calls) and kernel ms (the profiler's
+    count_le_cross_kernel events over 3 calls); then path A's set-up at
+    N = 1,048,576, its driver's construction to the end of the median
+    seed (host seconds, synchronized), and its count-kernel launches."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import make_svgd, sweep_inputs, time_ms
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.utils.workloads import large_mvn_workload
+
+    rows = []
+    for n, reps in ((262144, 10), (1048576, 3)):
+        x = sweep_inputs(n, 2, 0.0, 303, device)[0]
+        rng = np.random.default_rng(17)
+        i, j = rng.integers(0, n, 4096), rng.integers(0, n, 4096)
+        sq = ((x[i] - x[j]).double() ** 2).sum(dim=1).cpu().numpy()
+        thr = torch.tensor(np.quantile(sq, np.linspace(0.02, 0.98, 17)),
+                           dtype=torch.float32, device=device)
+        wrapper_ms = time_ms(lambda: cuda_phi.count_le_cuda(x, x, thr),
+                             reps=reps, warmup=2)
+        activities = [torch.profiler.ProfilerActivity.CPU,
+                      torch.profiler.ProfilerActivity.CUDA]
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            for _ in range(3):
+                counts = cuda_phi.count_le_cuda(x, x, thr)
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(trace))
+            timeline = device_timeline(trace, 3, "count_le_cross")
+        rows.append({"n": n, "m": 2, "T": 17, "wrapper_ms": wrapper_ms,
+                     "kernel_ms": timeline["sweep_kernel_us_per_call"] / 1e3,
+                     "kernel_calls": timeline["sweep_kernel_calls"],
+                     "counts": [int(c) for c in counts.tolist()]})
+        print(json.dumps(rows[-1]), flush=True)
+        del x
+    mean, cov, x0 = large_mvn_workload(1048576)
+    cuda_phi.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svgd = make_svgd(st, x0, mean, cov, 1)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    return {"count_self": rows, "init_s_1048576": init_s,
+            "init_count_launches":
+                cuda_phi.launch_counts[cuda_phi.COUNT_KERNEL],
+            "init_form": svgd.fused_sym_form}
+
+
 def crossover(device):
     """The full-width triangle kernels against the panel kernels on a
     ladder of n (see the module's docstring)."""
@@ -388,13 +449,14 @@ SASS_CLASSES = {
 }
 
 
-def sass_loops(text, function, pairs_per=None):
+def sass_loops(text, function, pairs_per=None, pair_class="mufu"):
     """Every loop (each backward branch) of ``function`` in ``cuobjdump
     --dump-sass`` output ``text``: its address range, its instructions and
     how many fall in each class of SASS_CLASSES (a predicate guard does not
-    change an instruction's class). With ``pairs_per`` (special-function
-    instructions a pair), also the loop's pairs, its MUFU count over
-    ``pairs_per``, and its instructions a pair."""
+    change an instruction's class). With ``pairs_per`` (instructions of
+    ``pair_class`` a pair: special-function ones by default), also the
+    loop's pairs, its count of that class over ``pairs_per``, and its
+    instructions a pair."""
     import re
 
     lines, name = [], None
@@ -425,23 +487,34 @@ def sass_loops(text, function, pairs_per=None):
                 classes[key] += code in codes
         loop = {"start": hex(start), "end": hex(addr),
                 "instructions": len(body), **classes}
-        if pairs_per and classes["mufu"]:
-            loop["pairs"] = classes["mufu"] / pairs_per
+        if pairs_per and classes[pair_class]:
+            loop["pairs"] = classes[pair_class] / pairs_per
             loop["per_pair"] = len(body) / loop["pairs"]
         loops.append(loop)
     return loops
 
 
-#: The panel instances --sass reads: (label, kernel name, its template
-#: arguments as mangled, MUFU instructions a pair). Path A's single-RBF
-#: instance <MM=2, exact, T=3> and path B's terms instance <MM=11, exact,
-#: T=3, two terms>; in a tree without a compile-time T (or term count),
-#: the one of the same MM, exact.
+#: The instances --sass reads: (label, kernel name, its template arguments
+#: as mangled, the pair's instructions of a class: MUFU a pair, or (class,
+#: count)). Path A's single-RBF panel instance <MM=2, exact, T=3> and path
+#: B's terms panel instance <MM=11, exact, T=3, two terms> (in a tree
+#: without a compile-time T, or term count, the one of the same MM, exact);
+#: the count kernel's (K16's port) instances of the median's passes: m = 2
+#: binned with 5 search steps (T = 16-31) and predicated at T <= 3, m = 11
+#: binned (in a tree without the designs, its 32-threshold instance at
+#: m = 2), with 5 FP32 instructions a pair for sq by differences at m = 2
+#: and 15 by the Gram identity at m = 11.
 SASS_INSTANCES = (
     ("counts_sympanel<2,1,3>", "fused_phi_counts_sympanel_kernel",
      ("ILi2ELb1ELi3E", "ILi2ELb1EE"), 1),
     ("terms_sympanel<11,1,3,2>", "fused_phi_terms_sympanel_kernel",
      ("ILi11ELb1ELi3ELi2E", "ILi11ELb1EE"), 2),
+    ("count_le<2,1,0,1,5>", "count_le_cross_kernel",
+     ("ILi2ELb1ELb0ELb1ELi5E", "ILi2ELb1ELb0ELi32E"), ("fp32", 5)),
+    ("count_le<2,1,0,0,3>", "count_le_cross_kernel",
+     ("ILi2ELb1ELb0ELb0ELi3E",), ("fp32", 5)),
+    ("count_le<11,1,1,1,5>", "count_le_cross_kernel",
+     ("ILi11ELb1ELb1ELb1ELi5E", "ILi11ELb1ELb1ELi32E"), ("fp32", 15)),
 )
 
 
@@ -467,8 +540,10 @@ def panel_sass(out_dir):
         if inst is None:
             out[label] = None  # a tree without this instance
             continue
+        cls, per = per if isinstance(per, tuple) else ("mufu", per)
         out[label] = {"function": inst,
-                      "loops": sass_loops(text, inst, pairs_per=per)}
+                      "loops": sass_loops(text, inst, pairs_per=per,
+                                          pair_class=cls)}
         body = text[text.index(f"Function : {inst}"):]
         nxt = body.find("Function : ", 1)
         listing.append(body if nxt < 0 else body[:nxt])
@@ -481,7 +556,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config",
                         choices=("mvn", "large", "hier", "blr", "aniso",
-                                 "hessian", "sharded"),
+                                 "hessian", "sharded", "count"),
                         default="mvn")
     parser.add_argument("--particles", type=int, default=None,
                         help="particle count of mvn, hier or sharded")
@@ -522,6 +597,18 @@ def main() -> int:
     result = {"card": card, "config": args.config, "torch": torch.__version__,
               "cuda": torch.version.cuda}
 
+    if args.config == "count":
+        from svgdcpp_tpu_torch.ops import cuda_phi
+
+        cuda_phi.load_library()
+        result.update(count_pass(st, torch.device("cuda")))
+        if args.sass:
+            result["panel_sass"] = panel_sass(Path(args.out).parent)
+        out = Path(args.out)
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(result, indent=1))
+        print(json.dumps(result, indent=1))
+        return 0
     svgd, sweep_kernel = make_driver(st, args.config, 1, args.particles)
     big = svgd.num_particles >= 100_000
     warm, host_steps, steps = (5, 30, 5) if big else (20, 200, 20)

@@ -108,10 +108,19 @@ thirty-one phases, one line each (several for phases 2, 3, 7-9 and
      the sweeps' 64 dimensions (m = 65 and 100, 2048 x 3001) the wide
      instance the same way, the hybrid median through it within 1e-3 of
      the plain pass's and of the float64 exact median, and auto on the
-     card raising with the sweeps' item-17 error;
+     card raising with the sweeps' item-17 error; the self form (one set
+     as rows and columns, the triangle) at odd n off origin, m = 1, 2, 4,
+     11 and 65, T = 1, 3, 17, 32 and 33 with shuffled, duplicate, negative
+     and past-the-largest thresholds, in both designs: equal to the cross
+     form and across designs and calls, equal to the plain pass at m <= 4
+     (grid inputs) and within 1e-6 n^2 above; the library's tile rows
+     against count_tile;
  28. times of the chunk kernels at world 1 against their plain versions
-     and the full-width kernels, each rank's at world 2, and K16 at 10000^2
-     and 262144^2 (17 thresholds), where it is also held to the plain pass;
+     and the full-width kernels, each rank's at world 2, and K16's self
+     form at 10000^2, 262144^2 and 1048576^2 (17 thresholds; also held to
+     the plain pass below 10^6), both of its designs at T = 3, 17 and 32
+     below 10^6, its cross form at 10000^2 and its wide instance at
+     2048 x 3001 (m = 65 and 100);
  29. the sharded flagship (examples/sharded_example.py's configuration,
      utils/workloads.build_sharded_mvn_svgd) on a one-rank NCCL group,
      N = 10000, 1000 iterations: 1000 K4 launches and no other sweep,
@@ -284,12 +293,18 @@ def sweep_bound(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
         and an FMA), 2 for the exponential, KS and D_z = sum k dz (2m each);
       * the count pass (count_le_cross): the squared distance, 3m by
         differences up to m = 4 and 2m + 3 by the Gram identity above (the
-        norms once per point), and T compares.
+        norms once per point), and ceil(log2(T + 1)) compares, the search
+        of a pair's bin among the sorted thresholds (the prefix sum over
+        the bins is per block, not per pair).
 
     The square kernels take n^2 ordered pairs and one direction; the triangle
     kernels, full-width and panel alike, n(n+1)/2 unordered pairs (diagonal
     included) and both; a chunk kernel the ``pairs`` of its tiles or panels
-    (the whole triangle by default); the count pass n x n_c pairs. Bytes:
+    (the whole triangle by default); the count pass of one set against
+    itself (``n_c`` None: the median's passes on one device) n(n+1)/2
+    pairs, since sq is symmetric, and of rows against other columns (the
+    sharded engine's) n x n_c. count_bound_all_pairs gives the count
+    pass's bound as it was counted before the triangle and the bins. Bytes:
     the function's inputs read once (coordinates, scores, precisions,
     thresholds) and its outputs written once (phi, or a chunk's raw (2m, n)
     accumulator; the int64 counts). One particle set of n, as on every main
@@ -317,9 +332,13 @@ def sweep_bound(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
         flops = square_pairs * (4 * m + 2 + contract)
         T = 0
     elif kernel == "count_le_cross":
-        n_c = n if n_c is None else n_c
-        flops = n * n_c * ((3 * m if m <= 4 else 2 * m + 3) + T)
-        return bound(flops, 4 * (n + n_c) * m + 4 * T + 8 * T)
+        sq_ops = 3 * m if m <= 4 else 2 * m + 3
+        compares = math.ceil(math.log2(T + 1))
+        if n_c is None:  # a self count: one set, the triangle and diagonal
+            flops = n * (n + 1) / 2 * (sq_ops + compares)
+            return bound(flops, 4 * n * m + 12 * T)
+        flops = n * n_c * (sq_ops + compares)
+        return bound(flops, 4 * (n + n_c) * m + 12 * T)
     else:
         raise ValueError(kernel)
     if kernel.endswith("_chunk"):
@@ -329,6 +348,16 @@ def sweep_bound(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
     if kernel == "phi_rbf_square":
         nbytes += 4 * m * m
     return bound(flops, nbytes)
+
+
+def count_bound_all_pairs(n, m, T, n_c=None):
+    """bound() of the count pass over all n x n_c ordered pairs with T
+    compares a pair (n_c = n by default): the count sweep_bound took before
+    it counted a self count's triangle and the sorted bins' search, kept
+    beside it so that ratios to the bound stay comparable."""
+    n_c = n if n_c is None else n_c
+    flops = n * n_c * ((3 * m if m <= 4 else 2 * m + 3) + T)
+    return bound(flops, 4 * (n + n_c) * m + 12 * T)
 
 
 def chunk_pairs(n, side, blocks):
@@ -407,7 +436,9 @@ def ptxas_summary(log_text):
     (terms_sym.cuh) has a third flag, its term groups: terms_sym<11,1,0>
     and aniso_terms_sym<11,1,1>; the panel kernels their thresholds, and
     the terms panel kernel its term count (0: any), counts_sympanel<2,1,3>
-    and terms_sympanel<11,1,3,2>."""
+    and terms_sympanel<11,1,3,2>; the count kernel (count_le.cu)
+    count_le<MM,exact,gram,binned,P> (P: thresholds held, or binned search
+    steps) and count_le_wide<TT>."""
     import re
 
     out, name = {}, None
@@ -422,6 +453,11 @@ def ptxas_summary(log_text):
             )
             flags = ",".join(g for g in inst.groups()[1:] if g) if inst else ""
             name = f"{inst.group(1)}<{flags}>" if inst else hit.group(1)
+            count = re.search(r"count_le_cross_(wide_)?kernelI((?:L[ib]\d+E)+)",
+                              hit.group(1))
+            if count:
+                args = ",".join(re.findall(r"L[ib](\d+)E", count.group(2)))
+                name = f"count_le{'_wide' if count.group(1) else ''}<{args}>"
             spill = "?"
         hit = re.search(r"(\d+) bytes spill stores", line)
         if hit and name:
@@ -1653,6 +1689,55 @@ def main() -> int:
               f"rel_plain={rel_p:.3e} rel_float64={rel_x:.3e} "
               f"k16_launches={launched}; auto raises (item 17) {clock()}")
 
+    # The self form (one set as rows and columns: the single-device
+    # median's every pass) on odd and ragged n off origin, at T = 1 to 33
+    # with shuffled, duplicate, negative and past-the-largest thresholds,
+    # in the kernel's own design choice and in both forced designs: the
+    # self counts equal the cross counts of a clone and each other exactly
+    # at every m, equal the plain pass at m <= 4 (grid inputs, where both
+    # forms are exact) and lie within 1e-6 n^2 of it above (Gaussian
+    # inputs), and a second call repeats them.
+    def awkward_thresholds(x, num, exact):
+        q = count_thresholds(x, x, num, exact)
+        rng = np.random.default_rng(1000 + num)
+        if num >= 3:
+            q[1] = -0.5
+            q[2] = 8.0 * float(((x - x.mean(dim=0)) ** 2).sum(dim=1).max())
+        if num >= 5:
+            q[4] = q[3]
+        return q[torch.as_tensor(rng.permutation(num), device=dev)]
+
+    for n, m, off in ((4099, 1, 3.0), (10007, 2, 5.0), (3001, 4, -2.0),
+                      (2049, 11, 3.0), (1031, 65, 3.0)):
+        exact = m <= 4
+        x = (grid_inputs if exact else sweep_inputs)(n, m, off, 310 + m,
+                                                     dev)[0]
+        check(cuda_phi.load_library().svgd_count_tile(m)
+              == cuda_phi.count_tile(m),
+              f"count tile at m={m}: the library's differs from count_tile")
+        for num in (1, 3, 17, 32, 33):
+            thr = awkward_thresholds(x, num, exact)
+            want = count_le_plain(x, x, thr)
+            runs = {d: cuda_phi.count_le_cuda(x, x, thr, design=d)
+                    for d in (0, 1, 2)}
+            again = cuda_phi.count_le_cuda(x, x, thr)
+            cross = cuda_phi.count_le_cuda(x, x.clone(), thr)
+            for d, got in runs.items():
+                check(bool((got == cross).all()),
+                      f"self count n={n} m={m} T={num} design={d}: differs "
+                      f"from the cross form by {int((got - cross).abs().max())}")
+            check(bool((again == runs[0]).all()),
+                  f"self count n={n} m={m} T={num}: a second call differs")
+            dcnt = int((runs[0] - want).abs().max())
+            limit = 0 if exact else 1e-6 * n * n
+            check(dcnt <= limit, f"self count n={n} m={m} T={num}: counts "
+                  f"differ from the plain pass by {dcnt} > {limit:.3g}")
+            count_err = max(count_err, dcnt)
+            print(f"phase 27 self count n={n} m={m} offset={off} T={num} "
+                  f"{'grid' if exact else 'gaussian'}: ok self==cross, "
+                  f"designs 0/1/2 equal, repeat equal, count_diff={dcnt} "
+                  f"count_bound={limit:.3g}")
+
     # -- phase 28: times of the chunk kernels and K16 -----------------------
     def chunk_blocks(n, tile, world, rank):
         nb = -(-n // tile)
@@ -1709,24 +1794,64 @@ def main() -> int:
           f"50): world1={t['kernel']:.4f} plain={t['plain']:.4f} "
           f"K3={t['full']:.4f} world2_rank0={ranks[0]:.4f} "
           f"world2_rank1={ranks[1]:.4f} {clock()}")
-    for n in (10000, PATH_A_N):
+    # K16: the self form (the seeds at N = 10,000 and 262,144, and the
+    # 1,048,576 run's) at the hybrid's 17 edges, also against the plain
+    # pass; both designs at T = 3, 17 and 32; the cross form (the sharded
+    # engine's) at 10,000^2; the wide instance at phase 27's shape.
+    for n in (10000, PATH_A_N, PATH_A_SHORT_N):
         x = sweep_inputs(n, 2, 0.0, 303, dev)[0]
         thr = count_thresholds(x, x, 17, False)
+        reps = {10000: 50, PATH_A_N: 10}.get(n, 3)
         t = {"kernel": time_ms(lambda: cuda_phi.count_le_cuda(x, x, thr),
-                               reps=50 if n == 10000 else 10),
-             "plain": plain_ms(lambda: count_le_plain(x, x, thr))}
+                               reps=reps, warmup=2)}
+        if n < PATH_A_SHORT_N:  # the plain pass takes about 50 s at 10^6
+            t["plain"] = plain_ms(lambda: count_le_plain(x, x, thr))
+            dcnt = int((cuda_phi.count_le_cuda(x, x, thr)
+                        - count_le_plain(x, x, thr)).abs().max())
+            check(dcnt <= 1e-6 * n * n, f"count n={n}^2: counts differ by "
+                  f"{dcnt} > {1e-6 * n * n:.3g}")
+            count_err = max(count_err, dcnt)
+        else:
+            t["plain"] = None
+        designs = {}
+        if n < PATH_A_SHORT_N:
+            for num in (3, 17, 32):
+                thr_d = count_thresholds(x, x, num, False)
+                designs[num] = [time_ms(
+                    lambda: cuda_phi.count_le_cuda(x, x, thr_d, design=d),
+                    reps=reps, warmup=2) for d in (1, 2)]
         times28[("count", n, 2)] = t
-        # At the main paths' shapes (the seeds at N = 10,000 and 262,144)
-        # against the plain pass too.
-        dcnt = int((cuda_phi.count_le_cuda(x, x, thr)
-                    - count_le_plain(x, x, thr)).abs().max())
-        check(dcnt <= 1e-6 * n * n,
-              f"count n={n}^2: counts differ by {dcnt} > {1e-6 * n * n:.3g}")
-        count_err = max(count_err, dcnt)
-        print(f"phase 28 times count n={n}^2 m=2 T=17 (ms): "
-              f"kernel={t['kernel']:.4f} plain={t['plain']:.4f} "
+        plain = "not timed" if t["plain"] is None else f"{t['plain']:.4f}"
+        print(f"phase 28 times count self n={n}^2 m=2 T=17 (ms): "
+              f"kernel={t['kernel']:.4f} plain={plain} "
               f"bound={sweep_bound(cuda_phi.COUNT_KERNEL, n, 2, T=17)[0]:.5f} "
-              f"count_diff={dcnt} count_bound={1e-6 * n * n:.3g} {clock()}")
+              f"bound_all_pairs={count_bound_all_pairs(n, 2, 17)[0]:.5f} "
+              f"designs(T: predicated, binned)="
+              f"{json.dumps({k: [round(v, 4) for v in d] for k, d in designs.items()})} "
+              f"{clock()}")
+    x = sweep_inputs(10000, 2, 0.0, 304, dev)[0]
+    xc = x.clone()
+    thr = count_thresholds(x, x, 17, False)
+    times28[("count_cross", 10000, 2)] = {
+        "kernel": time_ms(lambda: cuda_phi.count_le_cuda(x, xc, thr)),
+        "plain": plain_ms(lambda: count_le_plain(x, xc, thr)),
+    }
+    t = times28[("count_cross", 10000, 2)]
+    print(f"phase 28 times count cross n=10000^2 m=2 T=17 (ms): "
+          f"kernel={t['kernel']:.4f} plain={t['plain']:.4f} "
+          f"bound={sweep_bound(cuda_phi.COUNT_KERNEL, 10000, 2, T=17, n_c=10000)[0]:.5f} "
+          f"{clock()}")
+    for m in (65, 100):
+        xr = sweep_inputs(2048, m, 3.0, 305 + m, dev)[0]
+        xc = sweep_inputs(3001, m, 3.0, 306 + m, dev)[0]
+        thr = count_thresholds(xr, xc, 17, False)
+        t = {"kernel": time_ms(lambda: cuda_phi.count_le_cuda(xr, xc, thr)),
+             "plain": plain_ms(lambda: count_le_plain(xr, xc, thr))}
+        times28[("count_wide", 2048, m)] = t
+        print(f"phase 28 times count wide n_r=2048 n_c=3001 m={m} T=17 (ms): "
+              f"kernel={t['kernel']:.4f} plain={t['plain']:.4f} "
+              f"bound={sweep_bound(cuda_phi.COUNT_KERNEL, 2048, m, T=17, n_c=3001)[0]:.6f} "
+              f"{clock()}")
 
     # -- phase 29: the sharded flagship on a one-rank NCCL group ------------
     group = initialize_distributed(f"tcp://localhost:{free_port()}", 1, 0)
@@ -1925,12 +2050,20 @@ def main() -> int:
         k5: [main_path(30, k5, PATH_A_N, 2, main_shard_panel[k5],
                        times28[("sympanel_chunk", PATH_A_N, 2)])],
         # The median seed and the fallbacks of path A (the seed's set-up
-        # at N = 262,144), timed at the hybrid's 17 edges.
+        # at N = 262,144, then 1,048,576; self counts), and the sharded
+        # engine's seed (local rows against the gathered sources), timed at
+        # the hybrid's 17 edges.
         k16: [main_path(22, k16, PATH_A_N, 2, main_panel[k16],
                         times28[("count", PATH_A_N, 2)], T=17),
+              main_path(22, k16, PATH_A_SHORT_N, 2, main_panel_1m[k16],
+                        times28[("count", PATH_A_SHORT_N, 2)], T=17),
               main_path(29, k16, SHARDED_N, 2, main_shard[k16],
-                        times28[("count", 10000, 2)], T=17)],
+                        times28[("count_cross", 10000, 2)], T=17,
+                        n_c=SHARDED_N)],
     }
+    for path in paths[k16]:
+        path["bound_all_pairs_ms"] = count_bound_all_pairs(
+            path["n"], path["m"], 17)[0]
 
     def entry(name, source, replaces, tpu, err):
         first = paths[name][0]

@@ -74,7 +74,7 @@ import torch
 
 from ..kernels.algebra import MAX_RBF_TERMS
 from ..utils.cuda_build import CSRC_DIR, build_library, library_path
-from .median import count_le_plain
+from .median import count_le_plain, count_le_self_plain
 from .phi import (
     panel_index,
     phi_rbf_aniso_terms_fused_counts,
@@ -189,7 +189,9 @@ def load_library() -> ctypes.CDLL:
                     + [ptr] * 3,
                 "svgd_fused_phi_counts_sympanel_chunk":
                     [ptr] * 4 + [i32] * 7 + [ptr] * 3,
-                "svgd_count_le_cross": [ptr] * 3 + [i32] * 4 + [ptr] * 2,
+                "svgd_count_le_cross": [ptr] * 4 + [i32] * 5 + [ptr] * 2,
+                "svgd_count_le_self": [ptr] * 3 + [i32] * 4 + [ptr] * 2,
+                "svgd_count_tile": [i32],
                 "svgd_sym_tile": [i32] * 2,
             }
             for fn, argtypes in signatures.items():
@@ -832,18 +834,47 @@ def phi_rbf_sympanel_chunk_cuda(coords, scores, gamma, thresholds_sq, world,
     return sympanel_scatter(panels, index, nb, n), upper
 
 
-def count_le_cuda(rows_coords, cols_coords, thresholds):
+def count_tile(m):
+    """Rows a tile of the count kernel holds at dimension m (128 threads
+    of 8, 4, 2 or 1 rows; ``svgd_count_tile`` in ``csrc/count_le.cu``), 0
+    past MAX_M, where the wide kernel takes the cross form."""
+    if m > MAX_M:
+        return 0
+    return 128 * (8 if m <= 4 else 4 if m <= 16 else 2 if m <= 32 else 1)
+
+
+def count_batches(thr):
+    """The count kernel's launches over thresholds ``thr``: (t0, the
+    thresholds t0 .. t0 + COUNT_MAX_T - 1 ascending, their places in that
+    slice as int32), sorted on their device (no host read). A launch adds
+    the count of its t-th threshold at ``counts[t0 + order[t]]``."""
+    for t0 in range(0, thr.shape[0], COUNT_MAX_T):
+        part, order = torch.sort(thr[t0:t0 + COUNT_MAX_T])
+        yield t0, part, order.to(torch.int32)
+
+
+def count_le_cuda(rows_coords, cols_coords, thresholds, design=0):
     """int64 counts (T,) of ``||r_i - c_j||^2 <= t`` over all pairs of rows
     and columns, for each threshold t.
 
     Counterpart of ``svgdcpp_tpu.ops.pallas_phi.count_le_pallas`` (K16).
     Both sets are centered on the column mean and the thresholds compared
-    in float32. On CUDA tensors: the kernel count_le_cross at any m
+    in float32. One set passed as both (the same tensor, as the
+    single-device median passes it) takes the self form, the upper
+    triangle of tile pairs (2U + diag); anything else, a clone included,
+    the cross form. On CUDA tensors: the kernel count_le_cross at any m
     (differences up to m = 4, the FP32 Gram identity above, with the
-    dimensions in slices past MAX_M; one launch per COUNT_MAX_T
-    thresholds). On CPU tensors: the plain pass ``ops/median.
-    count_le_plain``."""
+    dimensions in slices past MAX_M), one launch per COUNT_MAX_T
+    thresholds, each launch's thresholds sorted on the device; ``design``
+    0 lets the kernel choose its threshold work by T, 1 and 2 force the
+    predicated or the binned design (for timing both). On CPU tensors the
+    plain versions: ``ops/median.count_le_self_plain`` at
+    ``count_tile(m)`` for one set, else ``count_le_plain``."""
+    same = rows_coords is cols_coords
     if rows_coords.device.type == "cpu":
+        if same and count_tile(rows_coords.shape[1]):
+            return count_le_self_plain(rows_coords, thresholds,
+                                       tile=count_tile(rows_coords.shape[1]))
         return count_le_plain(rows_coords, cols_coords, thresholds)
     _require_cuda(rows_coords)
     if (rows_coords.ndim != 2 or cols_coords.ndim != 2
@@ -867,18 +898,25 @@ def count_le_cuda(rows_coords, cols_coords, thresholds):
         return counts
     cols32 = cols_coords.to(torch.float32)
     center = cols32.mean(dim=0)
-    rows_c = (rows_coords.to(torch.float32) - center).contiguous()
     cols_c = (cols32 - center).contiguous()
+    rows_c = cols_c if same else (
+        rows_coords.to(torch.float32) - center).contiguous()
     lib = load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        for t0 in range(0, thr.shape[0], COUNT_MAX_T):
-            part = thr[t0:t0 + COUNT_MAX_T].contiguous()
+        for t0, part, order in count_batches(thr):
             out = counts[t0:t0 + COUNT_MAX_T]
-            rc = lib.svgd_count_le_cross(
-                rows_c.data_ptr(), cols_c.data_ptr(), part.data_ptr(), n_r,
-                n_c, m, part.shape[0], out.data_ptr(), stream,
-            )
+            if same:
+                rc = lib.svgd_count_le_self(
+                    cols_c.data_ptr(), part.data_ptr(), order.data_ptr(),
+                    n_c, m, part.shape[0], design, out.data_ptr(), stream,
+                )
+            else:
+                rc = lib.svgd_count_le_cross(
+                    rows_c.data_ptr(), cols_c.data_ptr(), part.data_ptr(),
+                    order.data_ptr(), n_r, n_c, m, part.shape[0], design,
+                    out.data_ptr(), stream,
+                )
             _check_launch(rc, COUNT_KERNEL)
             launch_counts[COUNT_KERNEL] += 1
     return counts

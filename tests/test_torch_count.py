@@ -11,7 +11,16 @@
   neither on the CPU nor on a CUDA device it raises: no fallback.
 * More thresholds than one kernel launch takes (COUNT_MAX_T) and unsorted
   ones count as the plain pass does.
+* The self form (one set as rows and columns, the single-device median's
+  every pass): its plain schedule (2U + diag over tile pairs) against the
+  plain pass, brute force and ``count_le_pallas``; the wrapper's dispatch
+  to the self and cross entries through a stand-in library; the sorted
+  launches (``count_batches``) and the bin ending (``counts_from_bins``)
+  giving counts in the caller's order.
 """
+
+from contextlib import nullcontext
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -128,3 +137,168 @@ def test_median_selectors_count_through_count_le_cross(monkeypatch):
     exact = mdt.pairwise_distance_median_exact(x)
     assert abs(float(med) - float(exact)) <= 1e-3 * float(exact)
     assert calls
+
+
+# ----------------------------------------------------------------------
+# The self form (svgd_count_le_self) and the sorted launches
+# ----------------------------------------------------------------------
+
+
+def brute_counts(x, y, thr):
+    """Counts of |x_i - y_j|^2 <= t in float64 by broadcasting, in the
+    order of ``thr``."""
+    sq = ((x[:, None, :].double() - y[None, :, :].double()) ** 2).sum(-1)
+    return torch.stack([(sq <= t).sum() for t in thr.double()])
+
+
+def awkward_thresholds(x, count, seed):
+    """Grid thresholds at pair quantiles, then shuffled, with duplicates,
+    one below 0 and one above the largest sq."""
+    t = grid_thresholds(x, x, count, seed)
+    rng = np.random.default_rng(seed)
+    largest = 4.0 * float(np.max(np.sum((x - x.mean(0)) ** 2, axis=1)))
+    t = np.concatenate([t, t[::3], [-1.5, largest + 1.0]])
+    return torch.from_numpy(rng.permutation(t).astype(np.float32))
+
+
+@pytest.mark.parametrize("n,m,offset,tile", [
+    (1, 2, 0.0, 8), (97, 1, 3.0, 16), (301, 2, 5.0, 64), (257, 4, -2.0, 40),
+    (203, 5, 1.0, 32), (150, 11, 2.0, 64),
+])
+def test_self_schedule_is_two_upper_plus_diagonal(n, m, offset, tile):
+    """count_le_self_plain (the self entry's plain version: the upper
+    triangle of tile pairs, off-diagonal blocks twice, diagonal blocks in
+    full) on ragged n off origin equals the plain pass, the brute-force
+    2U + diag, and the JAX count_le_pallas in interpret mode, with
+    unsorted, duplicate, negative and past-the-largest thresholds."""
+    x = grid_points(n, m, 50 + m, offset)
+    thr = awkward_thresholds(x, 7, 60 + m)
+    xt = torch.from_numpy(x)
+    got = mdt.count_le_self_plain(xt, thr, tile=tile)
+    np.testing.assert_array_equal(got.numpy(),
+                                  mdt.count_le_plain(xt, xt, thr).numpy())
+    sq = ((xt[:, None, :].double() - xt[None, :, :].double()) ** 2).sum(-1)
+    upper = torch.triu(torch.ones(n, n, dtype=torch.bool), diagonal=1)
+    diag = torch.eye(n, dtype=torch.bool)
+    want = torch.stack([2 * ((sq <= t) & upper).sum() + ((sq <= t) & diag).sum()
+                        for t in thr.double()])
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    jax_counts = np.asarray(pj.count_le_pallas(
+        jnp.asarray(x), jnp.asarray(x), jnp.asarray(thr.numpy()),
+        num_thresholds=thr.shape[0], tile_i=64, tile_j=128, interpret=True,
+    )).astype(np.int64)
+    np.testing.assert_array_equal(got.numpy(), jax_counts)
+
+
+@pytest.mark.parametrize("count", [1, 3, 17, 32, 33, 70])
+def test_count_batches_return_the_callers_order(count):
+    """count_batches: COUNT_MAX_T thresholds a launch, each launch's sorted
+    ascending with its int32 order; a launch that adds the count of its
+    t-th threshold at t0 + order[t] (as the kernel does, from per-threshold
+    counters or from a bin histogram, counts_from_bins) gives every count
+    in the caller's order, duplicates and unsorted batches included."""
+    x = torch.from_numpy(grid_points(90, 2, 7, 1.0))
+    rng = np.random.default_rng(count)
+    base = rng.uniform(-0.5, 12.0, size=(count + 1) // 2)
+    thr = torch.from_numpy(rng.permutation(
+        np.concatenate([base, base])[:count]).astype(np.float32))
+    want = brute_counts(x, x, thr)
+    by_counter = torch.zeros(count, dtype=torch.int64)
+    by_bins = torch.zeros(count, dtype=torch.int64)
+    launches = list(cuda_phi.count_batches(thr))
+    assert [t0 for t0, _, _ in launches] == list(
+        range(0, count, cuda_phi.COUNT_MAX_T))
+    sq = ((x[:, None, :].double() - x[None, :, :].double()) ** 2).sum(-1)
+    for t0, part, order in launches:
+        assert order.dtype == torch.int32
+        assert bool((part[1:] >= part[:-1]).all())
+        np.testing.assert_array_equal(
+            part.numpy(), thr[t0:t0 + cuda_phi.COUNT_MAX_T][order.long()])
+        for t in range(part.shape[0]):
+            by_counter[t0 + order[t]] += int((sq <= part[t].double()).sum())
+        bins = torch.bucketize(sq.float(), part)
+        hist = torch.bincount(bins.reshape(-1), minlength=part.shape[0] + 1)
+        by_bins[t0:t0 + part.shape[0]] = mdt.counts_from_bins(hist,
+                                                              order.long())
+    np.testing.assert_array_equal(by_counter.numpy(), want.numpy())
+    np.testing.assert_array_equal(by_bins.numpy(), want.numpy())
+
+
+def _standin_library(monkeypatch):
+    """A library that records which count entry each launch takes (meta
+    tensors stand in for the card)."""
+    launched = []
+
+    class Library:
+        def svgd_count_le_self(self, x, thr, order, n, m, t, design, counts,
+                               stream):
+            launched.append(("self", n, m, t, design))
+            return 0
+
+        def svgd_count_le_cross(self, rows, cols, thr, order, n_r, n_c, m,
+                                t, design, counts, stream):
+            launched.append(("cross", n_r, n_c, m, t, design))
+            return 0
+
+    monkeypatch.setattr(cuda_phi, "_require_cuda", lambda tensor: None)
+    monkeypatch.setattr(cuda_phi, "load_library", Library)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: SimpleNamespace(cuda_stream=0))
+    cuda_phi.reset_launch_counts()
+    return launched
+
+
+@pytest.mark.parametrize("m", [2, 11, 65])
+def test_count_wrapper_takes_the_self_entry_for_one_set(monkeypatch, m):
+    """The same tensor as rows and columns takes svgd_count_le_self (the
+    triangle; the C side keeps the cross form past MAX_M), a clone of it
+    svgd_count_le_cross; 33 thresholds take two launches of 32 and 1."""
+    launched = _standin_library(monkeypatch)
+    x = torch.empty((300, m), device="meta")
+    thr = torch.empty((cuda_phi.COUNT_MAX_T + 1,), device="meta")
+    cuda_phi.count_le_cuda(x, x, thr)
+    cuda_phi.count_le_cuda(x, x.clone(), thr[:5], design=2)
+    assert launched == [("self", 300, m, 32, 0), ("self", 300, m, 1, 0),
+                        ("cross", 300, 300, m, 5, 2)]
+    assert cuda_phi.launch_counts[cuda_phi.COUNT_KERNEL] == 3
+    cuda_phi.reset_launch_counts()
+
+
+def test_the_medians_count_envs_pick_their_entries(monkeypatch):
+    """The single-device median's count env passes its centered set as both
+    rows and columns (the self entry); the sharded engine's env counts the
+    local rows against the gathered sources (the cross entry)."""
+    launched = _standin_library(monkeypatch)
+    x = torch.empty((400, 2), device="meta")
+    thr = torch.empty((17,), device="meta")
+    count_fn, _ = mdt.centered_count_env(x)
+    count_fn(thr)
+    group = SimpleNamespace(all_reduce_sum=lambda v: v,
+                            all_reduce_max=lambda v: v)
+    local = torch.empty((200, 2), device="meta")
+    count_fn, _ = mdt.centered_count_env(local, x, group=group, n_global=400)
+    count_fn(thr)
+    assert launched == [("self", 400, 2, 17, 0),
+                        ("cross", 200, 400, 2, 17, 0)]
+    cuda_phi.reset_launch_counts()
+
+
+def test_count_wrapper_on_cpu_takes_the_self_schedule(monkeypatch):
+    """On CPU tensors the wrapper's self form is the self entry's plain
+    version at count_tile(m), its cross form the plain pass."""
+    calls = []
+    real_self = mdt.count_le_self_plain
+    monkeypatch.setattr(cuda_phi, "count_le_self_plain",
+                        lambda *a, **k: calls.append(k["tile"]) or
+                        real_self(*a, **k))
+    x = torch.from_numpy(grid_points(130, 11, 3, 2.0))
+    thr = awkward_thresholds(x.numpy(), 9, 4)
+    got = cuda_phi.count_le_cuda(x, x, thr)
+    cross = cuda_phi.count_le_cuda(x, x.clone(), thr)
+    assert calls == [cuda_phi.count_tile(11)]
+    np.testing.assert_array_equal(got.numpy(), cross.numpy())
+    np.testing.assert_array_equal(got.numpy(), brute_counts(x, x, thr).numpy())
+    assert [cuda_phi.count_tile(m) for m in (1, 4, 5, 16, 17, 32, 33, 64,
+                                             65)] == [
+        1024, 1024, 512, 512, 256, 256, 128, 128, 0]

@@ -79,9 +79,26 @@ def test_sass_loops_reads_only_the_named_function():
 
 def test_sass_instances_name_paths_a_and_b():
     labels = [label for label, *_ in chip_profile.SASS_INSTANCES]
-    assert labels == ["counts_sympanel<2,1,3>", "terms_sympanel<11,1,3,2>"]
+    assert labels == ["counts_sympanel<2,1,3>", "terms_sympanel<11,1,3,2>",
+                      "count_le<2,1,0,1,5>", "count_le<2,1,0,0,3>",
+                      "count_le<11,1,1,1,5>"]
     for _, kernel, args, per in chip_profile.SASS_INSTANCES:
         assert any(kernel + args[0] in f for f in (
             "_ZN12_GLOBAL__N_132fused_phi_counts_sympanel_kernel"
-            "ILi2ELb1ELi3EEEvPKfS2_S2_S2_iiiiiPfPy", FUNC))
-        assert per in (1, 2)
+            "ILi2ELb1ELi3EEEvPKfS2_S2_S2_iiiiiPfPy", FUNC,
+            COUNT_FUNC.replace("ILi2ELb1ELb0ELb1ELi5E", args[0])))
+        assert per in (1, 2, ("fp32", 5), ("fp32", 15))
+
+
+COUNT_FUNC = ("_ZN12_GLOBAL__N_121count_le_cross_kernel"
+              "ILi2ELb1ELb0ELb1ELi5EEEvPKfS2_S2_PKiiiiibiiiPy")
+
+
+def test_sass_loops_pairs_from_another_class():
+    """The count kernel evaluates no exponential: its pairs are the loop's
+    FP32 instructions over those of one pair's sq (5 at m = 2)."""
+    text = SASS.replace(FUNC, COUNT_FUNC)
+    loop, tail = chip_profile.sass_loops(text, COUNT_FUNC, pairs_per=3,
+                                         pair_class="fp32")
+    assert loop == {**LOOP, "pairs": 1.0, "per_pair": 13.0}
+    assert tail == TAIL

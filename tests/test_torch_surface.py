@@ -85,8 +85,8 @@ def test_count_wrapper_launches_past_max_m(monkeypatch, m):
     launched = []
 
     class Library:
-        def svgd_count_le_cross(self, rows, cols, thr, n_r, n_c, m_, t,
-                                counts, stream):
+        def svgd_count_le_cross(self, rows, cols, thr, order, n_r, n_c, m_,
+                                t, design, counts, stream):
             launched.append((n_r, n_c, m_, t))
             return 0
 
