@@ -503,7 +503,9 @@ def sass_loops(text, function, pairs_per=None, pair_class="mufu"):
 #: binned with 5 search steps (T = 16-31) and predicated at T <= 3, m = 11
 #: binned (in a tree without the designs, its 32-threshold instance at
 #: m = 2), with 5 FP32 instructions a pair for sq by differences at m = 2
-#: and 15 by the Gram identity at m = 11.
+#: and 15 by the Gram identity at m = 11; the one-pass anisotropic kernel's
+#: (K14's port) instance of the anisotropic posterior, <MM=11, one
+#: isotropic term, T=3>, two ex2 a pair.
 SASS_INSTANCES = (
     ("counts_sympanel<2,1,3>", "fused_phi_counts_sympanel_kernel",
      ("ILi2ELb1ELi3E", "ILi2ELb1EE"), 1),
@@ -515,6 +517,8 @@ SASS_INSTANCES = (
      ("ILi2ELb1ELb0ELb0ELi3E",), ("fp32", 5)),
     ("count_le<11,1,1,1,5>", "count_le_cross_kernel",
      ("ILi11ELb1ELb1ELb1ELi5E", "ILi11ELb1ELb1ELi32E"), ("fp32", 15)),
+    ("aniso_terms_sym<11,1,3>", "fused_phi_aniso_terms_sym_kernel",
+     ("ILi11ELi1ELi3E",), 2),
 )
 
 

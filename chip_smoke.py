@@ -43,13 +43,15 @@ thirty-one phases, one line each (several for phases 2, 3, 7-9 and
  14. the anisotropic terms kernel (fused_phi_aniso_terms_sym, K14's port)
      against its plain version: m = 2 (iso + 1 aniso off origin, aniso
      only), m = 11 (the main path's shape (10240, 11), iso + 3 aniso, iso +
-     7 aniso, a negative sign) and m = 50;
+     7 aniso, a negative sign) and m = 50; one anisotropic term at m = 2
+     and 11 takes the one-pass kernel, the others the term-group kernel;
  15. the fixed-P kernel (phi_rbf_square, K15's port) against phi_rbf /
      phi_rbf_blocked: isotropic (1500, 2), the HESSIAN scale of the d = 11
      target at (10240, 11), a full PD P at (1000, 50), an indefinite P with
      psd=False, and an offset of 200;
  16. times, kernel against plain: K14 at (10240, 11) with 2, 4 and 8
-     gradient accumulators, K15 at (10240, 11) and (1500, 2);
+     gradient accumulators (2 with the driver's kept Cholesky factor and
+     factoring each call), K15 at (10240, 11) and (1500, 2);
  17. the anisotropic main path (scripts/check_aniso_posterior.py's
      configuration: d = 11 MVN, median RBF + RBF with a full constant P,
      N = 10240, AdaGrad 0.05), auto picks fused_aniso_terms_cuda, 1000
@@ -438,7 +440,9 @@ def ptxas_summary(log_text):
     the terms panel kernel its term count (0: any), counts_sympanel<2,1,3>
     and terms_sympanel<11,1,3,2>; the count kernel (count_le.cu)
     count_le<MM,exact,gram,binned,P> (P: thresholds held, or binned search
-    steps) and count_le_wide<TT>."""
+    steps) and count_le_wide<TT>; the one-pass anisotropic kernel
+    aniso_terms_sym<MM,NIso,kT> (NIso 0: any number of isotropic terms)
+    beside the term-group one, aniso_terms_groups<MM,exact,1>."""
     import re
 
     out, name = {}, None
@@ -453,11 +457,14 @@ def ptxas_summary(log_text):
             )
             flags = ",".join(g for g in inst.groups()[1:] if g) if inst else ""
             name = f"{inst.group(1)}<{flags}>" if inst else hit.group(1)
-            count = re.search(r"count_le_cross_(wide_)?kernelI((?:L[ib]\d+E)+)",
-                              hit.group(1))
-            if count:
-                args = ",".join(re.findall(r"L[ib](\d+)E", count.group(2)))
-                name = f"count_le{'_wide' if count.group(1) else ''}<{args}>"
+            other = re.search(
+                r"(count_le_cross_wide|count_le_cross|aniso_terms_sym)"
+                r"_kernelI((?:L[ib]\d+E)+)", hit.group(1))
+            if other:
+                args = ",".join(re.findall(r"L[ib](\d+)E", other.group(2)))
+                short = {"count_le_cross": "count_le",
+                         "count_le_cross_wide": "count_le_wide"}
+                name = f"{short.get(other.group(1), other.group(1))}<{args}>"
             spill = "?"
         hit = re.search(r"(\d+) bytes spill stores", line)
         if hit and name:
@@ -1054,16 +1061,23 @@ def main() -> int:
     # -- phase 16: times, K14 and K15 against plain ------------------------
     times16 = {}
     x, s, g, thr = sweep_inputs(10240, 11, 0.0, 160, dev)
+    # n_w = 2 is the main path's (the one-pass kernel), timed as the driver
+    # calls it, with the Cholesky factor it keeps, and factoring each call;
+    # 4 and 8 take the term-group kernel.
     for n_w in (2, 4, 8):
         ps = aniso_ps(g, 11, n_w - 1, 161)
         an_s = (1.0,) * (n_w - 1)
+        lowers = cuda_phi.cholesky_factors(ps, dev)
         kern = time_ms(lambda: cuda_phi.phi_rbf_aniso_terms_fused_cuda(
+            x, s, [g], (1.0,), ps, an_s, thr, lowers=lowers))
+        factored = time_ms(lambda: cuda_phi.phi_rbf_aniso_terms_fused_cuda(
             x, s, [g], (1.0,), ps, an_s, thr))
         plain = time_ms(lambda: phi_rbf_aniso_terms_fused_counts(
             x, s, [g], (1.0,), ps, an_s, thr))
         times16[("aniso", n_w)] = {"kernel": kern, "plain": plain}
         print(f"phase 16 times aniso n=10240 m=11 n_w={n_w} T=3 (ms, median "
-              f"of 50): kernel={kern:.4f} plain={plain:.4f}")
+              f"of 50): kernel={kern:.4f} (kept factor) "
+              f"factored_each_call={factored:.4f} plain={plain:.4f}")
     # As the 'cuda' route calls it: a HESSIAN P decomposed on the host each
     # call, a median's gamma I with its decomposition (diagonal, I).
     for n, m in ((10240, 11), (1500, 2)):
@@ -1707,8 +1721,10 @@ def main() -> int:
             q[4] = q[3]
         return q[torch.as_tensor(rng.permutation(num), device=dev)]
 
+    # A self count moves by 2 for each unordered pair at a threshold, so
+    # the Gaussian cases take n >= 2049, where the gate 1e-6 n^2 is above 2.
     for n, m, off in ((4099, 1, 3.0), (10007, 2, 5.0), (3001, 4, -2.0),
-                      (2049, 11, 3.0), (1031, 65, 3.0)):
+                      (2049, 11, 3.0), (2049, 65, 3.0)):
         exact = m <= 4
         x = (grid_inputs if exact else sweep_inputs)(n, m, off, 310 + m,
                                                      dev)[0]

@@ -10,33 +10,73 @@
 //   d = x_i - x_j, at most 8 gradient accumulators (1 if any isotropic
 //   term, plus one per anisotropic term).
 //
-// One pass gives phi and the counts of the EUCLIDEAN pair squared distances
-// at or below each threshold (the median selection's edges):
+// One sweep gives phi and the counts of the EUCLIDEAN pair squared
+// distances at or below each threshold (the median selection's edges):
 //
-//   phi_i = (KS_i - (sum s) s_i + 2 D_iso_i + sum_t D_t,i (P_t + P_t^T)) / n
+//   phi_i = (KS_i + 2 D_iso_i + sum_t D_t,i (P_t + P_t^T)) / n
 //   KS_i = sum_j k(x_i, x_j) s_j,   D_iso_i = sum_j w_ij (x_i - x_j),
 //   w = sum_iso s gamma exp(-gamma sq),   D_t,i = sum_j s_t k_t (x_i - x_j),
 //
-// the (sum s) s_i term removing the self pair that the triangle enters in
-// both directions (k_t(i, i) = 1 for every term).
+// the sums over every j, the self pair (k_t(i, i) = 1 for every term)
+// included once.
 //
 // Replaces svgdcpp_tpu/ops/pallas_phi.py:_sym_aniso_terms_kernel (K14,
 // called through _phi_rbf_aniso_terms_fused_pallas_sym_impl).
 //
 // The quadratic forms. The TPU kernel builds each anisotropic form with the
 // Gram identity q_i + q_j - 2 x_i (P_sym/2) x_j, which cancels in float32
-// and needs HIGHEST-precision dots and a pinned diagonal. Here the wrapper
-// (ops/cuda_phi.py) factors P_sym/2 = L_t L_t^T once per step (Cholesky;
-// the route's gate proves every term positive definite) and passes
-// z_t = X_c L_t, so d^T P_t d = |z_ti - z_tj|^2: the difference form, exact
-// 0 at the self pair, no cancellation. Since (x_i - x_j) L_t = z_ti - z_tj,
-// the gradient direction follows from the same rows:
-// D_t P_sym = 2 (sum_j s_t k_t (z_ti - z_tj)) L_t^T. The kernel accumulates
-// that sum, D_zt, and the wrapper applies 2 L_t^T. The Euclidean sq is K2's
-// difference form in the plain version's order (sweep_common.cuh), so the
-// counts equal the plain version's at m <= 4.
+// and needs HIGHEST-precision dots and a pinned diagonal. Here the caller
+// factors P_sym/2 = L_t L_t^T (Cholesky, in float64; the route's gate
+// proves every term positive definite; the driver keeps the factors while
+// the step carries the same P), so with z_t = X_c L_t,
+// d^T P_t d = |z_ti - z_tj|^2: the difference form, exact 0 at the self
+// pair, no cancellation. Since (x_i - x_j) L_t = z_ti - z_tj, the gradient
+// direction follows from the same rows:
+// D_t P_sym = 2 (sum_j s_t k_t (z_ti - z_tj)) L_t^T. The kernels accumulate
+// that sum, D_zt, and apply 2 L_t^T (one-pass kernel) or leave it to the
+// wrapper (term-group kernel). The Euclidean sq is K2's difference form in
+// the plain version's order up to m = 4 (sweep_common.cuh), so the counts
+// equal the plain version's there.
 //
-// Work per unordered pair, as this design runs it: each term group
+// Two kernels. The main path's composition, isotropic terms and ONE
+// anisotropic term at m = 2 or 11 (at most two gradient accumulators; the
+// anisotropic posterior's median RBF + RBF(P)), takes the one-pass kernel
+// fused_phi_aniso_terms_sym_kernel; any other (two or more anisotropic
+// terms, other m) the term-group kernel fused_phi_aniso_terms_groups_kernel.
+//
+// The one-pass kernel (svgd_fused_phi_aniso_terms_sym). Every ordered pair
+// (i, j) once, in one pass for both groups: the Euclidean difference d and
+// sq (the counts and the isotropic terms' (k_c, w)), the rows' z_i - z_j
+// and its form (the anisotropic term's k_t), then k_c = sum s k once for
+// KS and the two directions D_iso += w d and D_z += s_t k_t (z_i - z_j),
+// all into row i's sums. It sweeps the square, not the triangle, so no
+// column direction: the triangle would halve the pairs but, at m = 11,
+// carry a column's 33 sums through 33 shuffles or shared-memory records a
+// step and read each column's 33 operands per lane, which the card's
+// shared-memory pipe serves at about a third of the issue rate (the terms
+// panel kernel's measurement, PERF.md section 6); here a warp's lanes all
+// read the same column (broadcast), each lane holds R rows (8 at m = 2, 1
+// at m = 11), and the pair's work is FP32 arithmetic and two ex2 on the
+// special function unit: at m = 11, T = 3 the step loop issues 103
+// instructions an ordered pair, 82 of them FP32 (chip_profile.py --sass).
+// At m = 11 one row a thread (96 registers, 5 blocks an SM) ran faster on
+// the card than two (166 registers) or two at 3 blocks an SM (which
+// spilled), once the projection by L and the epilogue kept L out of
+// registers (PERF.md section 6). The block stages its columns' x and s in
+// shared memory and forms
+// their z = x L there from L (P_sym/2 = L L^T, m x m, cached by the caller
+// for a constant P), so no z array is built on the host; its rows' z are
+// formed the same way. A second grid dimension splits the columns (rows'
+// sums are then partial); at the end each row's n phi contribution,
+// KS + 2 D_iso + 2 D_z L^T, goes to the zeroed (m, n) accumulator with one
+// float32 atomicAdd per coordinate and block (the wrapper divides by n),
+// and the counts of all n^2 ordered pairs (self pairs included) through
+// the deterministic integer flush. Rows past n sit at +inf: their sq is
+// +inf, which no threshold counts, and their sums are never stored.
+// Thresholds are held at a compile-time count (3, or 8 padded with -1).
+//
+// Work per unordered pair, as the term-group kernel runs it:
+// each term group
 // computes its squared distance (3m+1 FP32 ops), one ex2 per term on the
 // special function unit plus 4 ops per term to combine, and 10m for the
 // two contraction directions (4 FMAs and 2 subtractions per coordinate, an
@@ -44,8 +84,11 @@
 // less (KS once, each difference once): chip_smoke.py's sweep_bound counts
 // that. The operands are a few MB, so the sweep is compute-bound.
 //
-// Design: the composed kernels' triangle sweep (terms_sym.cuh, K8/K9's
-// port) with one more grid dimension, the term group. Group 0 sweeps the
+// The term-group kernel: the composed kernels' triangle sweep
+// (terms_sym.cuh, K8/K9's port) with one more grid dimension, the term
+// group, from z_t = X_c L_t that the wrapper forms. The triangle enters the
+// self pair in both directions, so the wrapper subtracts (sum s) s_i once
+// and forms the counts 2U - n. Group 0 sweeps the
 // Euclidean coordinates: the isotropic terms' (k_c, w) and the counts (with
 // no isotropic term, the counts alone). Group 1 + t sweeps z_t with its one
 // term (gamma = 1, sign s_t). Each group flushes into its own (2m, n)
@@ -57,31 +100,323 @@
 // runs once per group instead of once per pair.
 //
 // The iso gammas and the thresholds are read from device memory (the host
-// never reads them); the signs are static and arrive by value. The kernel
-// allocates nothing. The entry point returns cudaGetLastError() after the
+// never reads them); the signs are static and arrive by value. The kernels
+// allocate nothing. The entry points return cudaGetLastError() after the
 // launch.
 
 // The kGroups instances of terms_sym.cuh's sweep, under their own name.
-#define SVGD_TERMS_SYM_KERNEL fused_phi_aniso_terms_sym_kernel
+#define SVGD_TERMS_SYM_KERNEL fused_phi_aniso_terms_groups_kernel
 #include "terms_sym.cuh"
+
+namespace {
+
+using namespace svgd;
+
+constexpr int kAnisoThreads = 128;
+constexpr int kAnisoCols = 128;  // columns a shared stage holds
+
+// Rows a thread holds.
+template <int MM>
+struct AnisoRows {
+  static constexpr int value = MM <= 2 ? 8 : 1;
+};
+
+// A staged column's record [x (MM) | z (MM) | s (MM)], padded to 16 bytes.
+template <int MM>
+struct AnisoRec {
+  static constexpr int value = (3 * MM + 3) / 4 * 4;
+};
+
+// One isotropic term's constants in registers (NIso = 1), or any number of
+// terms from shared memory (NIso = 0; load_terms), for (k_c, w) of sq.
+template <int NIso>
+struct IsoWeights;
+
+template <>
+struct IsoWeights<1> {
+  float ng2, sn, sg;
+  __device__ __forceinline__ void operator()(float sq, float& kc,
+                                             float& w) const {
+    const float e = ex2_ftz(ng2 * sq);
+    kc = sn * e;
+    w = sg * e;
+  }
+};
+
+template <>
+struct IsoWeights<0> {
+  const float* g2;
+  const float* sn;
+  const float* sg;
+  int nterms;
+  __device__ __forceinline__ void operator()(float sq, float& kc,
+                                             float& w) const {
+    kc = 0.0f;
+    w = 0.0f;
+#pragma unroll 1
+    for (int t = 0; t < nterms; ++t) {
+      const float e = ex2_ftz(g2[t] * sq);
+      kc = fmaf(sn[t], e, kc);
+      w = fmaf(sg[t], e, w);
+    }
+  }
+};
+
+// z = x L for one point: z[l] = sum_k x[k] L[k][l], L row-major in shared
+// memory, z in memory. The loop over l stays rolled, so that no more than
+// one column of L is held in registers at a time: unrolled, the compiler
+// loads all m^2 entries at once, and at m = 11 that register peak set the
+// kernel's register count.
+template <int MM>
+__device__ __forceinline__ void project(const float* x, const float* sh_l,
+                                        float* z) {
+#pragma unroll 1
+  for (int l = 0; l < MM; ++l) {
+    float v = 0.0f;
+#pragma unroll
+    for (int k = 0; k < MM; ++k) v = fmaf(x[k], sh_l[k * MM + l], v);
+    z[l] = v;
+  }
+}
+
+template <int MM, int NIso, int kT>
+__global__ void __launch_bounds__(kAnisoThreads)
+    fused_phi_aniso_terms_sym_kernel(
+        const float* __restrict__ coords, const float* __restrict__ scores,
+        const float* __restrict__ lower, const float* __restrict__ gammas,
+        TermSigns iso_signs, int n_iso, float aniso_sign,
+        const float* __restrict__ thr, int n, int T, int split_len,
+        float* __restrict__ acc, unsigned long long* __restrict__ counts) {
+  constexpr int R = AnisoRows<MM>::value;
+  constexpr int kRec = AnisoRec<MM>::value;
+  static_assert(2 * kAnisoThreads * MM <= kAnisoCols * kRec,
+                "sh_col holds each thread's two scratch rows");
+  __shared__ __align__(16) float sh_col[kAnisoCols * kRec];
+  __shared__ float sh_l[MM * MM];
+  __shared__ float sh_g2[kMaxTerms];
+  __shared__ float sh_sn[kMaxTerms];
+  __shared__ float sh_sg[kMaxTerms];
+
+  const int tid = static_cast<int>(threadIdx.x);
+  const int i0 = static_cast<int>(blockIdx.x) * kAnisoThreads * R;
+  const int c_begin = static_cast<int>(blockIdx.y) * split_len;
+  const int c_end = min(n, c_begin + split_len);
+  for (int e = tid; e < MM * MM; e += kAnisoThreads) sh_l[e] = lower[e];
+  IsoWeights<NIso> iso;
+  if constexpr (NIso == 1) {
+    const float g = gammas[0];
+    iso.ng2 = -g * kLog2e;
+    iso.sn = iso_signs.s[0];
+    iso.sg = iso_signs.s[0] * g;
+  } else {
+    load_terms(gammas, iso_signs, n_iso, sh_g2, sh_sn, sh_sg);
+    iso.g2 = sh_g2;
+    iso.sn = sh_sn;
+    iso.sg = sh_sg;
+    iso.nterms = n_iso;
+  }
+  const float nga = -kLog2e;  // the anisotropic term: 2^(-log2(e) form)
+  float th[kT];
+#pragma unroll
+  for (int t = 0; t < kT; ++t) th[t] = t < T ? thr[t] : -1.0f;
+  __syncthreads();  // L and the terms' constants are set
+
+  // Row i = i0 + 128 r + tid: x (+inf past n), z = x L (through the
+  // thread's own slots of sh_col, free until the first stage), and its
+  // sums.
+  float xi[R][MM];
+  float zi[R][MM];
+  float ks[R][MM];
+  float kd[R][MM];
+  float kz[R][MM];
+  float* own = sh_col + tid * MM;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r * kAnisoThreads + tid;
+#pragma unroll
+    for (int k = 0; k < MM; ++k) {
+      xi[r][k] = i < n ? coords[static_cast<size_t>(i) * MM + k]
+                       : __int_as_float(0x7f800000);
+      ks[r][k] = 0.0f;
+      kd[r][k] = 0.0f;
+      kz[r][k] = 0.0f;
+    }
+    project<MM>(xi[r], sh_l, own);
+#pragma unroll
+    for (int k = 0; k < MM; ++k) zi[r][k] = own[k];
+  }
+  unsigned int cnt[kT];
+#pragma unroll
+  for (int t = 0; t < kT; ++t) cnt[t] = 0u;
+
+  for (int j0 = c_begin; j0 < c_end; j0 += kAnisoCols) {
+    const int tile_n = min(kAnisoCols, c_end - j0);
+    __syncthreads();  // the previous stage is consumed
+    for (int e = tid; e < tile_n * MM; e += kAnisoThreads) {
+      const int jj = e / MM, k = e - jj * MM;
+      const size_t at = static_cast<size_t>(j0) * MM + e;
+      sh_col[jj * kRec + k] = coords[at];
+      sh_col[jj * kRec + 2 * MM + k] = scores[at];
+    }
+    __syncthreads();
+    for (int jj = tid; jj < tile_n; jj += kAnisoThreads) {
+      float* rec = sh_col + jj * kRec;
+      project<MM>(rec, sh_l, rec + MM);
+    }
+    __syncthreads();
+    for (int jj = 0; jj < tile_n; ++jj) {
+      float op[kRec];
+      const float4* rec4 = reinterpret_cast<const float4*>(sh_col + jj * kRec);
+#pragma unroll
+      for (int v = 0; v < kRec / 4; ++v) {
+        const float4 a = rec4[v];
+        op[4 * v] = a.x;
+        op[4 * v + 1] = a.y;
+        op[4 * v + 2] = a.z;
+        op[4 * v + 3] = a.w;
+      }
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        float d[MM];
+        float dz[MM];
+        float sq = 0.0f;
+        float form = 0.0f;
+#pragma unroll
+        for (int k = 0; k < MM; ++k) {
+          d[k] = __fsub_rn(xi[r][k], op[k]);
+          dz[k] = zi[r][k] - op[MM + k];
+          form = fmaf(dz[k], dz[k], form);
+        }
+        if (MM <= 4) {
+          sq = pair_sq<MM, true>(xi[r], op, MM);  // the plain order
+        } else {
+#pragma unroll
+          for (int k = 0; k < MM; ++k) sq = fmaf(d[k], d[k], sq);
+        }
+        float kc, w;
+        iso(sq, kc, w);
+        const float wa = aniso_sign * ex2_ftz(nga * form);
+        kc += wa;
+#pragma unroll
+        for (int k = 0; k < MM; ++k) {
+          ks[r][k] = fmaf(kc, op[2 * MM + k], ks[r][k]);
+          kd[r][k] = fmaf(w, d[k], kd[r][k]);
+          kz[r][k] = fmaf(wa, dz[k], kz[r][k]);
+        }
+        count_pair_fixed<kT, false>(sq, th, true, cnt);
+      }
+    }
+  }
+
+  // Row i's n phi contribution KS + 2 D_iso + 2 D_z L^T, through the
+  // thread's own slots of sh_col (the loop over k rolled, as in project).
+  __syncthreads();  // the last stage is consumed
+  float* own_kz = sh_col + kAnisoThreads * MM + tid * MM;
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = i0 + r * kAnisoThreads + tid;
+#pragma unroll
+    for (int k = 0; k < MM; ++k) {
+      own[k] = fmaf(2.0f, kd[r][k], ks[r][k]);
+      own_kz[k] = kz[r][k];
+    }
+    if (i < n) {
+#pragma unroll 1
+      for (int k = 0; k < MM; ++k) {
+        float g = 0.0f;
+#pragma unroll
+        for (int l = 0; l < MM; ++l) g = fmaf(own_kz[l], sh_l[k * MM + l], g);
+        atomicAdd(acc + static_cast<size_t>(k) * n + i, fmaf(2.0f, g, own[k]));
+      }
+    }
+  }
+  flush_counts(cnt, T, counts);
+}
+
+// Blocks a one-pass launch aims for (a few waves on a 132-SM card); the
+// columns are split in multiples of a stage until the grid has about this
+// many.
+constexpr int kAnisoTargetBlocks = 1024;
+
+}  // namespace
 
 extern "C" {
 
-// Anisotropic composed-kernel triangle sweep over one particle set. coords
-// (n, m) centered on their mean, z (n_aniso, n, m) the rows z_t = coords L_t,
-// scores (n, m), iso gammas (n_iso,), thr (T,), all float32 on the device;
+// The one-pass anisotropic sweep (see the top of the file): isotropic terms
+// and ONE anisotropic term. coords (n, m) centered on their mean, scores
+// (n, m), lower (m, m) the factor L of the term's P_sym/2 = L L^T
+// (row-major), iso gammas (n_iso,) and thr (T,), all float32 on the
+// device; iso_signs (n_iso,) a HOST array and aniso_sign a number, passed
+// by value; acc a zeroed (m, n) float32 buffer that receives n phi^T;
+// counts a zeroed int64 (T,) buffer that receives the counts of all n^2
+// ordered pairs. m = 2 or 11, 0 <= n_iso <= 16, 1 <= T <= 8.
+int svgd_fused_phi_aniso_terms_sym(const float* coords, const float* scores,
+                                   const float* lower, const float* gammas,
+                                   const float* iso_signs, int n_iso,
+                                   float aniso_sign, const float* thr, int n,
+                                   int m, int T, float* acc,
+                                   long long* counts, void* stream) {
+  if (n <= 0 || T < 1 || T > kMaxT || n_iso < 0 || n_iso > kMaxTerms ||
+      (m != 2 && m != 11)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const TermSigns si = make_signs(iso_signs, n_iso);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* c = reinterpret_cast<unsigned long long*>(counts);
+  const int rows = kAnisoThreads * (m == 2 ? AnisoRows<2>::value
+                                           : AnisoRows<11>::value);
+  const int row_blocks = (n + rows - 1) / rows;
+  int splits = (kAnisoTargetBlocks + row_blocks - 1) / row_blocks;
+  splits = max(1, min(splits, (n + kAnisoCols - 1) / kAnisoCols));
+  int split_len = (n + splits - 1) / splits;
+  split_len = (split_len + kAnisoCols - 1) / kAnisoCols * kAnisoCols;
+  splits = (n + split_len - 1) / split_len;
+  const dim3 grid(row_blocks, splits);
+#define SVGD_LAUNCH_ONE(MM_, NI_, KT_)                                     \
+  fused_phi_aniso_terms_sym_kernel<MM_, NI_, KT_>                          \
+      <<<grid, kAnisoThreads, 0, s>>>(coords, scores, lower, gammas, si,   \
+                                      n_iso, aniso_sign, thr, n, T,        \
+                                      split_len, acc, c)
+#define SVGD_LAUNCH_ONE_T(MM_, NI_)                                        \
+  if (T <= 3) {                                                            \
+    SVGD_LAUNCH_ONE(MM_, NI_, 3);                                          \
+  } else {                                                                 \
+    SVGD_LAUNCH_ONE(MM_, NI_, kMaxT);                                      \
+  }
+#define SVGD_LAUNCH_ONE_M(MM_)                                             \
+  if (n_iso == 1) {                                                        \
+    SVGD_LAUNCH_ONE_T(MM_, 1)                                              \
+  } else {                                                                 \
+    SVGD_LAUNCH_ONE_T(MM_, 0)                                              \
+  }
+  if (m == 2) {
+    SVGD_LAUNCH_ONE_M(2)
+  } else {
+    SVGD_LAUNCH_ONE_M(11)
+  }
+#undef SVGD_LAUNCH_ONE_M
+#undef SVGD_LAUNCH_ONE_T
+#undef SVGD_LAUNCH_ONE
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The term-group sweep over one particle set: any composition with
+// anisotropic terms. coords (n, m) centered on their mean, z (n_aniso, n,
+// m) the rows z_t = coords L_t, scores (n, m), iso gammas (n_iso,), thr
+// (T,), all float32 on the device;
 // iso_signs (n_iso,) and aniso_signs (n_aniso,) HOST arrays, passed by value
 // to the kernel; acc a zeroed (1 + n_aniso, 2m, n) float32 buffer, group g's
 // [KS_g | D_g]; counts a zeroed int64 (T,) buffer that receives the upper
 // count U of the Euclidean distances (diagonal included). 1 <= m <= 64,
 // 0 <= n_iso <= 16, 1 <= n_aniso <= 8, 1 <= T <= 8.
-int svgd_fused_phi_aniso_terms_sym(const float* coords, const float* z,
-                                   const float* scores, const float* gammas,
-                                   const float* iso_signs, int n_iso,
-                                   const float* aniso_signs, int n_aniso,
-                                   const float* thr, int n, int m, int T,
-                                   float* acc, long long* counts,
-                                   void* stream) {
+int svgd_fused_phi_aniso_terms_groups(const float* coords, const float* z,
+                                      const float* scores,
+                                      const float* gammas,
+                                      const float* iso_signs, int n_iso,
+                                      const float* aniso_signs, int n_aniso,
+                                      const float* thr, int n, int m, int T,
+                                      float* acc, long long* counts,
+                                      void* stream) {
   if (n <= 0 || T < 1 || T > kMaxT || n_iso < 0 || n_iso > kMaxTerms ||
       n_aniso < 1 || n_aniso > kMaxAniso) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -97,7 +432,7 @@ int svgd_fused_phi_aniso_terms_sym(const float* coords, const float* z,
     const long long pairs = upper_pairs(n, tile);                          \
     if (pairs < 0) return static_cast<int>(cudaErrorInvalidValue);        \
     const dim3 grid(static_cast<unsigned int>(pairs), 1 + n_aniso);        \
-    fused_phi_aniso_terms_sym_kernel<MM_, EX_, true><<<grid, tile, 0, s>>>(\
+    fused_phi_aniso_terms_groups_kernel<MM_, EX_, true><<<grid, tile, 0, s>>>(\
         coords, z, scores, gammas, si, n_iso, sa, thr, n, m, T,            \
         (n + tile - 1) / tile, 0LL, acc, c);                               \
   }

@@ -368,15 +368,6 @@ struct PanelStrip {
                                    : PanelTile<MM, kTerms>::value;
 };
 
-// 2^x on the special function unit, subnormal results flushed to zero: a
-// weight below 2^-126 is far below the float32 resolution of a row's KS,
-// which holds the self pair's k = 1.
-__device__ __forceinline__ float ex2_ftz(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // The pair's weights (k_c, w) from its sq: k_c multiplies the scores into
 // KS and w the differences into D. One RBF: k_c = w = 2^(-gamma log2(e) sq)
 // (D is scaled by 2 gamma in the epilogue).

@@ -1,7 +1,8 @@
 // Device helpers shared by the sweeps (fused_phi.cu, fused_phi_terms.cu,
 // counts_sym.cuh, terms_sym.cuh, fused_phi_aniso.cu, phi_rbf.cu,
 // fused_phi_panel.cu, count_le.cu): the pair's squared
-// distance in the plain version's order, threshold counting (at a runtime
+// distance in the plain version's order, the flushed-to-zero ex2 of the
+// weights, threshold counting (at a runtime
 // or a compile-time number of thresholds), the exact
 // count flush, the upper-triangle tile decode, the signed-term combination
 // of the composed kernels, and the dispatch from a runtime dimension m to a
@@ -57,6 +58,15 @@ __device__ __forceinline__ float pair_sq(const float* xi, const float* xj,
     }
   }
   return sq;
+}
+
+// 2^x on the special function unit, subnormal results flushed to zero: a
+// weight below 2^-126 is far below the float32 resolution of a row's KS,
+// which holds the self pair's k = 1.
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ void count_pair(float sq, const float* th, int T,

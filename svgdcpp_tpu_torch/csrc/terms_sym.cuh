@@ -1,8 +1,9 @@
 // The composed kernels' upper-triangle sweep, shared by
 // fused_phi_terms.cu (fused_phi_terms_sym, K8/K9's port: one term group; and
 // fused_phi_terms_sym_chunk, K10/K11's port: one rank's range of the tile
-// list) and fused_phi_aniso.cu (fused_phi_aniso_terms_sym, K14's port: one
-// group per anisotropic term besides the Euclidean one).
+// list) and fused_phi_aniso.cu (the term-group kernel of K14's port, for
+// compositions past the one-pass kernel's: one group per anisotropic term
+// besides the Euclidean one).
 //
 // fused_phi_counts_sym's design (fused_phi.cu) with TWO padded shared
 // tiles, k_c and w, in place of k: one block per upper-triangle tile pair
@@ -19,7 +20,7 @@
 // the kGroups instances (the anisotropic sweep's); without kGroups there
 // is one group and the group logic compiles away. Each source names the
 // kernel by defining SVGD_TERMS_SYM_KERNEL before it includes this header
-// (fused_phi_terms_sym_kernel, fused_phi_aniso_terms_sym_kernel), so a
+// (fused_phi_terms_sym_kernel, fused_phi_aniso_terms_groups_kernel), so a
 // profiler trace tells the two apart; the body stays a __global__ function
 // (as a __device__ one called from two thin entries, the one-group
 // instance ran 3% slower). Group 0 sweeps the Euclidean coordinates with

@@ -16,10 +16,12 @@ Pallas kernels of the package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
     ``_sym_terms_direct_kernel`` and ``_sym_terms_kernel`` (K8, K9): its
     upper-triangle sweep, whose kernel is in ``csrc/terms_sym.cuh``.
   * ``fused_phi_aniso_terms_sym`` (``csrc/fused_phi_aniso.cu``) --
-    ``_sym_aniso_terms_kernel`` (K14): the upper-triangle sweep of a
-    composed kernel with anisotropic (full-P) terms, the terms triangle
-    kernel's body under its own name, with one term group per anisotropic
-    term.
+    ``_sym_aniso_terms_kernel`` (K14): the sweep of a composed kernel with
+    anisotropic (full-P) terms. With one anisotropic term at m = 2 or 11
+    (ONE_PASS_M) a one-pass kernel (every ordered pair once, both term
+    groups in one pass, n phi and all n^2 counts out); otherwise the terms
+    triangle kernel's body under its own name, with one term group per
+    anisotropic term.
   * ``phi_rbf_square``          (``csrc/phi_rbf.cu``) -- ``_phi_kernel``
     (K15): the square sweep of one RBF with a full, fixed P, no counts.
   * ``fused_phi_counts_sympanel`` (``csrc/fused_phi_panel.cu``) --
@@ -55,9 +57,10 @@ Where the wrappers run: a tensor on the CPU goes to the plain version (the
 CPU tests use this); a tensor on a CUDA device launches the kernel or
 raises. There is no fallback from the card to the plain version.
 
-The quadratic forms of K14 and K15 come from rows prepared here in float64
-(``cholesky_rows``, ``eigen_rows``), so each kernel takes the difference
-form of its form. ``eigen_rows`` decomposes an (m, m) matrix on the host
+The quadratic forms of K14 and K15 come from factors prepared in float64
+(``cholesky_factors``, which the driver keeps while a constant P stays the
+same, and ``cholesky_rows``; ``eigen_rows``), so each kernel takes the
+difference form of its form. ``eigen_rows`` decomposes an (m, m) matrix on the host
 (``symmetric_eigen``) unless the caller passes the decomposition: the
 ``cuda`` route reads P on the host once per step for a HESSIAN scale only.
 
@@ -108,6 +111,9 @@ MAX_T = 8
 COUNT_MAX_T = 32
 MAX_TERMS = MAX_RBF_TERMS
 MAX_ANISO_TERMS = 8
+
+#: Dimensions at which one anisotropic term takes the one-pass kernel.
+ONE_PASS_M = (2, 11)
 
 SQUARE_KERNEL = "fused_phi_counts_square"
 SYM_KERNEL = "fused_phi_counts_sym"
@@ -176,6 +182,9 @@ def load_library() -> ctypes.CDLL:
                 "svgd_fused_phi_terms_sym":
                     [ptr] * 4 + [i32, ptr] + [i32] * 3 + [ptr] * 3,
                 "svgd_fused_phi_aniso_terms_sym":
+                    [ptr] * 5 + [i32, ctypes.c_float, ptr] + [i32] * 3
+                    + [ptr] * 3,
+                "svgd_fused_phi_aniso_terms_groups":
                     [ptr] * 5 + [i32, ptr, i32, ptr] + [i32] * 3 + [ptr] * 3,
                 "svgd_phi_rbf_square": [ptr] * 3 + [i32] * 3 + [ptr] * 2,
                 "svgd_fused_phi_counts_sympanel":
@@ -302,20 +311,29 @@ def _centered32(coords):
     return c32 - c32.mean(dim=0)
 
 
-def cholesky_rows(coords_c, p_matrices):
-    """K14's operands: (z (T, n, m), L (T, m, m)) in float64, with
-    P_sym/2 = L_t L_t^T (P_sym = P_t + P_t^T) and z_t = coords_c L_t, so
+def cholesky_factors(p_matrices, device):
+    """K14's factors: L (T, m, m) in float64 on ``device``, with
+    P_sym/2 = L_t L_t^T (P_sym = P_t + P_t^T), so that with z_t = x L_t,
     ``|z_ti - z_tj|^2 = d^T P_t d`` for d = x_i - x_j.
 
     ``torch.linalg.cholesky_ex`` does not read on the host; it does not
     check either, so every P_t must be positive definite (the route's gate,
     kernels/algebra.fused_aniso_terms_supported, proves it)."""
     p = torch.stack([
-        torch.as_tensor(pm, device=coords_c.device).to(torch.float64)
+        torch.as_tensor(pm, device=device).to(torch.float64)
         for pm in p_matrices
     ])
     lower, _ = torch.linalg.cholesky_ex(0.5 * (p + p.transpose(-1, -2)))
-    return coords_c.to(torch.float64) @ lower, lower
+    return lower
+
+
+def cholesky_rows(coords_c, p_matrices, lowers=None):
+    """The term-group kernel's operands: (z (T, n, m), L (T, m, m)) in
+    float64, z_t = coords_c L_t, from ``lowers`` where the caller keeps
+    them, else from :func:`cholesky_factors`."""
+    if lowers is None:
+        lowers = cholesky_factors(p_matrices, coords_c.device)
+    return coords_c.to(torch.float64) @ lowers, lowers
 
 
 def symmetric_eigen(p_matrix):
@@ -484,9 +502,15 @@ def _sympanel_launch(coords, scores, gammas, signs, thresholds_sq,
     return phi.to(coords.dtype), counts
 
 
+def one_pass_aniso(n_aniso, m):
+    """Whether the anisotropic sweep takes the one-pass kernel: one
+    anisotropic term (with any isotropic ones) at m in ONE_PASS_M."""
+    return n_aniso == 1 and m in ONE_PASS_M
+
+
 def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
-                  aniso_signs, thresholds_sq):
-    """K14: the anisotropic terms triangle kernel."""
+                  aniso_signs, thresholds_sq, lowers):
+    """K14: the one-pass kernel, or the term-group triangle kernel."""
     g, thr = _device_operands(coords, scores, iso_gammas, thresholds_sq,
                               min_terms=0)
     n_aniso = len(aniso_ps)
@@ -496,17 +520,35 @@ def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
             f"anisotropic terms, got {n_aniso}"
         )
     n, m = coords.shape
-    coords_c = _centered32(coords)
-    z64, lower = cholesky_rows(coords_c, aniso_ps)
-    coords_c = coords_c.contiguous()
-    z = z64.to(torch.float32).contiguous()
+    if lowers is None:
+        lowers = cholesky_factors(aniso_ps, coords.device)
+    coords_c = _centered32(coords).contiguous()
     sc32 = scores.to(torch.float32).contiguous()
+    lib = load_library()
+    if one_pass_aniso(n_aniso, m):
+        acc = torch.zeros((m, n), dtype=torch.float32, device=coords.device)
+        counts = torch.zeros(thr.shape[0], dtype=torch.int64,
+                             device=coords.device)
+        lower32 = lowers[0].to(torch.float32).contiguous()
+        with torch.cuda.device(coords.device):
+            rc = lib.svgd_fused_phi_aniso_terms_sym(
+                coords_c.data_ptr(), sc32.data_ptr(), lower32.data_ptr(),
+                g.data_ptr(), _host_signs(iso_signs, len(iso_gammas)),
+                len(iso_gammas), float(aniso_signs[0]), thr.data_ptr(), n, m,
+                thr.shape[0], acc.data_ptr(), counts.data_ptr(),
+                torch.cuda.current_stream().cuda_stream,
+            )
+        _check_launch(rc, ANISO_KERNEL)
+        launch_counts[ANISO_KERNEL] += 1
+        # acc = n phi^T: KS + 2 D_iso + 2 D_z L^T over every ordered pair.
+        return (acc.T / n).to(coords.dtype), counts
+    z64, lower = cholesky_rows(coords_c, aniso_ps, lowers)
+    z = z64.to(torch.float32).contiguous()
     acc = torch.zeros((1 + n_aniso, 2 * m, n), dtype=torch.float32,
                       device=coords.device)
     upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=coords.device)
-    lib = load_library()
     with torch.cuda.device(coords.device):
-        rc = lib.svgd_fused_phi_aniso_terms_sym(
+        rc = lib.svgd_fused_phi_aniso_terms_groups(
             coords_c.data_ptr(), z.data_ptr(), sc32.data_ptr(), g.data_ptr(),
             _host_signs(iso_signs, len(iso_gammas)), len(iso_gammas),
             _host_signs(aniso_signs, n_aniso), n_aniso, thr.data_ptr(), n, m,
@@ -649,7 +691,8 @@ def phi_rbf_terms_fused_cuda_cross(targets, sources, source_scores, gammas,
 
 
 def phi_rbf_aniso_terms_fused_cuda(coords, scores, iso_gammas, iso_signs,
-                                   aniso_ps, aniso_signs, thresholds_sq):
+                                   aniso_ps, aniso_signs, thresholds_sq,
+                                   lowers=None):
     """Fused sweep of a composed kernel with anisotropic terms over one
     particle set: phi of ``sum_iso s exp(-gamma sq) + sum_t s_t
     exp(-d^T P_t d)`` and the counts of the Euclidean pair distances.
@@ -658,23 +701,32 @@ def phi_rbf_aniso_terms_fused_cuda(coords, scores, iso_gammas, iso_signs,
     ``svgdcpp_tpu.ops.pallas_phi.phi_rbf_aniso_terms_fused_pallas``, and
     like it a triangle sweep at any n. ``iso_gammas`` are scalars (device
     tensors on the card, never read on the host), ``aniso_ps`` (m, m)
-    precisions, each positive definite; the signs are Python numbers. On a
-    CUDA tensor: the kernel fused_phi_aniso_terms_sym, in float32; with no
-    anisotropic term (a hot-swap may leave none), the terms triangle kernel,
-    which computes the same function. On a CPU tensor: the plain
-    ``phi_rbf_aniso_terms_fused_counts``.
+    precisions, each positive definite; the signs are Python numbers;
+    ``lowers`` the factors ``cholesky_factors(aniso_ps)`` where the caller
+    keeps them (a constant P), else they are factored here. On a CUDA
+    tensor: the kernel fused_phi_aniso_terms_sym, in float32, one pass for
+    one anisotropic term at m in ONE_PASS_M, the term groups otherwise;
+    with no anisotropic term (a hot-swap may leave none), the terms triangle
+    kernel, which computes the same function. On a CPU tensor: the plain
+    ``phi_rbf_aniso_terms_fused_counts``, in the one-pass kernel's factor
+    form (``phi_rbf_factor``) where that kernel would run.
     """
     if coords.device.type == "cpu":
+        if aniso_ps and one_pass_aniso(len(aniso_ps), coords.shape[1]):
+            if lowers is None:
+                lowers = cholesky_factors(aniso_ps, coords.device)
+        else:
+            lowers = None
         return phi_rbf_aniso_terms_fused_counts(
             coords, scores, iso_gammas, iso_signs, aniso_ps, aniso_signs,
-            thresholds_sq,
+            thresholds_sq, lowers=lowers,
         )
     _require_cuda(coords)
     if not aniso_ps:
         return _sym_launch(coords, scores, iso_gammas, iso_signs,
                            thresholds_sq)
     return _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
-                         aniso_signs, thresholds_sq)
+                         aniso_signs, thresholds_sq, lowers)
 
 
 def phi_rbf_cuda(coords, scores, p_matrix, psd=True, eig=None):

@@ -736,9 +736,10 @@ def phi_rbf_aniso_terms_fused_counts(
     aniso_signs,
     thresholds_sq: torch.Tensor,
     row_tile: int = 1024,
+    lowers=None,
 ):
     """phi of a composed kernel with ANISOTROPIC terms and the counts of the
-    Euclidean pair distances: the plain version of the CUDA kernel
+    Euclidean pair distances: the plain version of the CUDA kernels of
     ``fused_phi_aniso_terms_sym`` (ops/cuda_phi.py), the counterpart of
     ``svgdcpp_tpu.ops.pallas_phi.phi_rbf_aniso_terms_fused_pallas``.
 
@@ -747,17 +748,51 @@ def phi_rbf_aniso_terms_fused_counts(
     (:func:`phi_rbf_terms_fused_counts`, which also gives the counts with
     its squared distances) plus each anisotropic term's signed closed-form
     phi (:func:`phi_rbf_cross` with P_t, its form clamped at zero: the
-    route's gate proves every term positive definite). Both stream over row
-    tiles; float32 and float64 both run. Returns (phi (n, m), counts (E,)
-    int64).
+    route's gate proves every term positive definite), or with ``lowers``
+    (the factors L_t of P_t's symmetric half, ``ops/cuda_phi.
+    cholesky_factors``) by :func:`phi_rbf_factor`, the one-pass kernel's
+    arithmetic. All stream over row tiles; float32 and float64 both run.
+    Returns (phi (n, m), counts (E,) int64).
     """
     phi, counts = phi_rbf_terms_fused_counts(
         coords, scores, list(iso_gammas), list(iso_signs), thresholds_sq,
         row_tile,
     )
-    for p, sign in zip(aniso_ps, aniso_signs):
-        p = torch.as_tensor(p, dtype=coords.dtype, device=coords.device)
-        phi = phi + float(sign) * phi_rbf_cross(
-            coords, coords, scores, p, row_tile, psd=True
-        )
+    for t, (p, sign) in enumerate(zip(aniso_ps, aniso_signs)):
+        if lowers is not None:
+            term = phi_rbf_factor(coords, scores, lowers[t], row_tile)
+        else:
+            p = torch.as_tensor(p, dtype=coords.dtype, device=coords.device)
+            term = phi_rbf_cross(coords, coords, scores, p, row_tile,
+                                 psd=True)
+        phi = phi + float(sign) * term
     return phi, counts
+
+
+def phi_rbf_factor(coords, scores, lower, row_tile: int = 1024):
+    """phi of one anisotropic RBF exp(-d^T P d) over one particle set from
+    the factor L of P_sym/2 = L L^T: with z = x_c L (x_c centered), the
+    form is |z_i - z_j|^2 and the gradient direction 2 (z_i - z_j) L^T, so
+
+      n phi_i = sum_j k_ij s_j + 2 (sum_j k_ij (z_i - z_j)) L^T,
+
+    the one-pass CUDA kernel's arithmetic (fused_phi_aniso.cu), its
+    epilogue D_z L^T included; the form by the Gram identity, clamped at 0.
+    Streams over row tiles."""
+    x = coords - coords.mean(dim=0)
+    lower = torch.as_tensor(lower, device=x.device).to(x.dtype)
+    z = sq_matmul(x, lower)
+    n = x.shape[0]
+    norms = torch.sum(z * z, dim=1)
+    row_tile = auto_row_tile(n, row_tile)
+    out = []
+    for start in range(0, n, row_tile):
+        zi = z[start : start + row_tile]
+        form = torch.clamp_min(
+            norms[start : start + row_tile, None] + norms[None, :]
+            - 2.0 * sq_matmul(zi, z.T), 0.0,
+        )
+        k = torch.exp(-form)
+        d_z = torch.sum(k, dim=1, keepdim=True) * zi - sq_matmul(k, z)
+        out.append(sq_matmul(k, scores) + 2.0 * sq_matmul(d_z, lower.T))
+    return torch.cat(out, dim=0) / n

@@ -84,6 +84,7 @@ from .ops.cuda_phi import (
     MAX_ANISO_TERMS,
     SYM_MIN_N,
     check_dimension,
+    cholesky_factors,
     phi_rbf_aniso_terms_fused_cuda,
     phi_rbf_cuda,
     phi_rbf_fused_cuda,
@@ -631,6 +632,26 @@ class SVGD:
             return self._constant_eigen[1]
         return None
 
+    def _aniso_factors(self, kparams, plists):
+        """cholesky_factors of the anisotropic terms' precisions for the
+        fused anisotropic sweep, kept while the step sums the same slot
+        tensors: a constant P is factored once, and a hot-swap or a new
+        run() that brings new tensors renews them. The key is the slots
+        and their signs, not term_precision's result, which may be a new
+        tensor every step. None where a hot-swap left no such term."""
+        if not plists:
+            return None
+        key = [(kparams[idx], sign) for plist in plists for idx, sign in plist]
+        cached = getattr(self, "_aniso_factor_cache", None)
+        if cached is None or len(cached[0]) != len(key) or any(
+            a is not b or sa != sb
+            for (a, sa), (b, sb) in zip(cached[0], key)
+        ):
+            ps = [term_precision(plist, kparams) for plist in plists]
+            self._aniso_factor_cache = (key,
+                                        cholesky_factors(ps, ps[0].device))
+        return self._aniso_factor_cache[1]
+
     def _scale_params(self, coords, mparams, kparams, scale_aux, slot_mparams):
         """Per-step bandwidth adaptation (reference kernel Step(),
         GaussianRBFKernel.hpp:141-156): each adaptive slot is refilled by
@@ -729,14 +750,16 @@ class SVGD:
                     )
                 section("plan")
                 if fused_aniso:
+                    aniso_plists = [term_plists[i] for i in aniso_idx]
                     phi, counts = phi_rbf_aniso_terms_fused_cuda(
                         coords, scores,
                         [gammas[i] for i in iso_idx],
                         [term_signs[i] for i in iso_idx],
-                        [term_precision(term_plists[i], kparams)
-                         for i in aniso_idx],
+                        [term_precision(plist, kparams)
+                         for plist in aniso_plists],
                         [term_signs[i] for i in aniso_idx],
                         thresholds,
+                        lowers=self._aniso_factors(kparams, aniso_plists),
                     )
                 elif fused_terms and on_kernels:
                     phi, counts = phi_rbf_terms_fused_cuda(

@@ -23,6 +23,11 @@
 * auto's rule on a CUDA device at n = 2047 / 2048 and 8 / 9 gradient
   accumulators; the accumulator limit of the CUDA route.
 * The workload of scripts/check_aniso_posterior.py: the same draws.
+* The one-pass kernel's plain version (one anisotropic term at m = 2 and
+  11: the factor form z = x_c L with the epilogue 2 D_z L^T) against the
+  oracle, the closed form and the Pallas kernel; the driver's kept
+  Cholesky factor: equal to a fresh one, computed once while P stays and
+  renewed after a hot-swap.
 """
 
 import numpy as np
@@ -36,6 +41,7 @@ import svgdcpp_tpu_torch as st
 from svgdcpp_tpu.ops.pallas_phi import phi_rbf_aniso_terms_fused_pallas
 from svgdcpp_tpu_torch import svgd as svgd_t
 from svgdcpp_tpu_torch.ops import cuda_phi
+from svgdcpp_tpu_torch.ops.phi import phi_rbf_aniso_terms_fused_counts
 from svgdcpp_tpu_torch.utils.workloads import (
     aniso_mvn_workload,
     build_aniso_svgd,
@@ -263,6 +269,107 @@ def test_validation_and_hot_swap_match_jax():
         _driver(st, x0, div, "fused_aniso_terms_cuda", 1,
                 const_op="/").initialize()
     assert str(err.value) == want
+
+
+# ----------------------------------------------------------------------
+# The one-pass kernel's factor form and the driver's kept factor
+# ----------------------------------------------------------------------
+
+
+def _one_term_case(m, offset, iso):
+    rng = np.random.default_rng(70 + m)
+    n = 257
+    x = (rng.normal(size=(n, m)) * 1.5 + offset).astype(np.float32)
+    s = rng.normal(size=(n, m)).astype(np.float32)
+    p = aniso_p(m, rng, scale=0.2, ridge=0.15)
+    thr = np.array([0.5, 4.0, 30.0], np.float32)
+    return x, s, iso, [(p, 0.8)], thr
+
+
+@pytest.mark.parametrize("m,offset,iso", [
+    (2, 0.0, [(0.7, 1.0)]), (2, 40.0, []), (11, 3.0, [(0.1, 1.0)]),
+    (11, 0.0, [(0.1, 1.0), (0.05, -0.4)]),
+])
+def test_one_pass_plain_version_vs_oracle_and_pallas(m, offset, iso):
+    """Where one anisotropic term takes the one-pass kernel (m in
+    ONE_PASS_M), the wrapper's CPU branch runs its arithmetic, the factor
+    form (phi_rbf_factor: z = x_c L, n phi = K s + 2 (sum_j k (z_i - z_j))
+    L^T, the kernel's in-kernel epilogue): in float64 within 1e-10 of the
+    oracle and of the closed form with P (phi_rbf_cross), counts equal; in
+    float32 within 5e-4 of JAX's fused_aniso_terms_pallas in interpret
+    mode."""
+    x, s, iso, aniso, thr = _one_term_case(m, offset, iso)
+    assert cuda_phi.one_pass_aniso(1, m)
+    phi_ref, cnt_ref = oracle(x, s, iso, aniso, thr)
+    scale = np.abs(phi_ref).max()
+    phi64, cnt64 = _port(x, s, iso, aniso, thr, np.float64)
+    assert np.abs(phi64.numpy() - phi_ref).max() / scale < 1e-10
+    np.testing.assert_array_equal(cnt64.numpy(), cnt_ref)
+    t = lambda a: torch.as_tensor(np.asarray(a, np.float64))  # noqa: E731
+    closed, _ = phi_rbf_aniso_terms_fused_counts(
+        t(x), t(s), [t(g) for g, _ in iso], [sg for _, sg in iso],
+        [t(p) for p, _ in aniso], [sg for _, sg in aniso], t(thr),
+    )
+    assert np.abs(phi64.numpy() - closed.numpy()).max() / scale < 1e-10
+    phi32, _ = _port(x, s, iso, aniso, thr, np.float32)
+    phi_j, _ = phi_rbf_aniso_terms_fused_pallas(
+        jnp.asarray(x), jnp.asarray(s), tuple(jnp.float32(g) for g, _ in iso),
+        tuple(sg for _, sg in iso), tuple(jnp.asarray(p) for p, _ in aniso),
+        tuple(sg for _, sg in aniso), jnp.asarray(thr), tile_i=64,
+        tile_j=128, interpret=True,
+    )
+    phi_j = np.asarray(phi_j)
+    assert np.abs(phi32.numpy() - phi_j).max() / np.abs(phi_j).max() < 5e-4
+
+
+def test_kept_factor_gives_the_fresh_factors_phi():
+    """The driver keeps cholesky_factors of the step's precision (the
+    state's own tensor), and the sweep from the kept factor equals the one
+    that factors afresh."""
+    x0, p_aniso = _driver_inputs(200)
+    svgd = _driver(st, x0, p_aniso, "fused_aniso_terms_cuda", 2).initialize()
+    svgd.run()
+    key, lowers = svgd._aniso_factor_cache
+    (p_state, sign), = key
+    assert p_state is svgd.kernel.parameters[1] and sign == 1
+    np.testing.assert_array_equal(
+        lowers.numpy(), cuda_phi.cholesky_factors([p_state], "cpu").numpy()
+    )
+    x = svgd.store.value
+    s = torch.from_numpy(np.random.default_rng(5).normal(
+        size=x.shape).astype(np.float32))
+    thr = torch.tensor([0.5, 2.0, 8.0])
+    g = [torch.tensor(0.3)]
+    kept = cuda_phi.phi_rbf_aniso_terms_fused_cuda(
+        x, s, g, (1.0,), [p_state], (1.0,), thr, lowers=lowers)
+    fresh = cuda_phi.phi_rbf_aniso_terms_fused_cuda(
+        x, s, g, (1.0,), [p_state], (1.0,), thr)
+    for a, b in zip(kept, fresh):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+
+
+def test_kept_factor_is_renewed_with_a_new_precision(monkeypatch):
+    """The factor is computed once while the state carries the same P (a
+    second run() factors nothing), and renewed on the first step after a
+    hot-swap brings a new one, as the factor of the new P."""
+    calls = []
+    real = svgd_t.cholesky_factors
+    monkeypatch.setattr(svgd_t, "cholesky_factors",
+                        lambda *a: calls.append(1) or real(*a))
+    x0, p_aniso = _driver_inputs(200)
+    svgd = _driver(st, x0, p_aniso, "fused_aniso_terms_cuda", 2).initialize()
+    svgd.run()
+    first = svgd._aniso_factor_cache
+    svgd.run()
+    assert svgd._aniso_factor_cache is first and len(calls) == 1
+    swapped = 1.5 * p_aniso
+    svgd.update_kernel_parameters((svgd.kernel.parameters[0], swapped))
+    svgd.run()
+    second = svgd._aniso_factor_cache
+    assert second is not first and len(calls) == 2
+    lower = second[1][0].double()
+    np.testing.assert_allclose((lower @ lower.T).numpy(), swapped,
+                               rtol=1e-6, atol=1e-7)
 
 
 def _n_const_kernel(n, n_aniso):
