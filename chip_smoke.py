@@ -115,8 +115,7 @@ thirty-one phases, one line each (several for phases 2, 3, 7-9 and
      11 and 65, T = 1, 3, 17, 32 and 33 with shuffled, duplicate, negative
      and past-the-largest thresholds, in both designs: equal to the cross
      form and across designs and calls, equal to the plain pass at m <= 4
-     (grid inputs) and within 1e-6 n^2 above; the library's tile rows
-     against count_tile;
+     (grid inputs) and within 1e-6 n^2 above;
  28. times of the chunk kernels at world 1 against their plain versions
      and the full-width kernels, each rank's at world 2, and K16's self
      form at 10000^2, 262144^2 and 1048576^2 (17 thresholds; also held to
@@ -1728,9 +1727,6 @@ def main() -> int:
         exact = m <= 4
         x = (grid_inputs if exact else sweep_inputs)(n, m, off, 310 + m,
                                                      dev)[0]
-        check(cuda_phi.load_library().svgd_count_tile(m)
-              == cuda_phi.count_tile(m),
-              f"count tile at m={m}: the library's differs from count_tile")
         for num in (1, 3, 17, 32, 33):
             thr = awkward_thresholds(x, num, exact)
             want = count_le_plain(x, x, thr)

@@ -59,6 +59,10 @@
 //     (a tie counts as <=, as torch.bucketize bins it). About 3P + 6
 //     instructions a pair, whatever T.
 //
+// At m = 2 the step loop issues 22.75 instructions a pair binned at P = 5
+// (T = 16-31) and 11.75 predicated at T = 3, 5 of them sq's FP32 ones
+// (chip_profile.py --sass).
+//
 // The entry point picks the design by T (kBinnedMinT); `design` forces one
 // (1 predicated, 2 binned), so that both can be timed on the same inputs.
 // A thread's 32-bit counters see at most R x B pairs of one block (8192),
@@ -94,9 +98,12 @@ constexpr int kCountThreads = 128;
 constexpr int kCountMaxT = 32;  // thresholds per launch (COUNT_MAX_T)
 
 // From this many thresholds a launch takes the binned design; below, the
-// predicated one (design 0, chosen by T). On the card (PERF.md section 6)
-// the predicated design was the faster at T = 3, the binned one at 9, 17
-// and 32.
+// predicated one (design 0, chosen by T). The predicated design's work
+// grows with T (2 instructions a threshold), the binned one's with
+// log2(T + 1) (3 a step, and 6 more a pair): on the card the predicated
+// design was the faster at T = 3 and the binned one at 17 and 32 (PERF.md
+// section 6), and from T = 4 the search's 3 steps cost about what 8
+// compares and adds do.
 constexpr int kBinnedMinT = 4;
 
 // Rows a thread holds.
@@ -617,16 +624,6 @@ int svgd_count_le_self(const float* x, const float* thr, const int* order,
                        void* stream) {
   return dispatch_count(x, x, thr, order, n, n, m, T, m <= kMaxM, design,
                         counts, stream);
-}
-
-// The rows a tile of the count kernel holds at dimension m (B = 128 R), 0
-// past kMaxM (the wide kernel's cross form).
-int svgd_count_tile(int m) {
-  if (m < 1 || m > kMaxM) return 0;
-  if (m <= 4) return kCountThreads * CountRows<4>::value;
-  if (m <= 16) return kCountThreads * CountRows<16>::value;
-  if (m <= 32) return kCountThreads * CountRows<32>::value;
-  return kCountThreads * CountRows<64>::value;
 }
 
 }  // extern "C"

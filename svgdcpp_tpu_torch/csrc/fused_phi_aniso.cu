@@ -52,18 +52,17 @@
 // all into row i's sums. It sweeps the square, not the triangle, so no
 // column direction: the triangle would halve the pairs but, at m = 11,
 // carry a column's 33 sums through 33 shuffles or shared-memory records a
-// step and read each column's 33 operands per lane, which the card's
-// shared-memory pipe serves at about a third of the issue rate (the terms
-// panel kernel's measurement, PERF.md section 6); here a warp's lanes all
+// step and read each column's 33 operands per lane, traffic that bound the
+// terms panel kernel's step by the shared-memory pipe rather than by issue
+// at the same m (PERF.md section 6); here a warp's lanes all
 // read the same column (broadcast), each lane holds R rows (8 at m = 2, 1
 // at m = 11), and the pair's work is FP32 arithmetic and two ex2 on the
 // special function unit: at m = 11, T = 3 the step loop issues 103
-// instructions an ordered pair, 82 of them FP32 (chip_profile.py --sass).
-// At m = 11 one row a thread (96 registers, 5 blocks an SM) ran faster on
-// the card than two (166 registers) or two at 3 blocks an SM (which
-// spilled), once the projection by L and the epilogue kept L out of
-// registers (PERF.md section 6). The block stages its columns' x and s in
-// shared memory and forms
+// instructions an ordered pair, 82 of them FP32 (chip_profile.py --sass),
+// and the instance takes 96 registers (ptxas), 5 blocks an SM. One row a
+// thread at m = 11 keeps it there: two rows amortize the column's shared
+// reads over two pairs but need more registers than leave room for as many
+// blocks. The block stages its columns' x and s in shared memory and forms
 // their z = x L there from L (P_sym/2 = L L^T, m x m, cached by the caller
 // for a constant P), so no z array is built on the host; its rows' z are
 // formed the same way. A second grid dimension splits the columns (rows'
@@ -127,40 +126,20 @@ struct AnisoRec {
   static constexpr int value = (3 * MM + 3) / 4 * 4;
 };
 
-// One isotropic term's constants in registers (NIso = 1), or any number of
-// terms from shared memory (NIso = 0; load_terms), for (k_c, w) of sq.
+// The isotropic terms' (k_c, w): one term's constants in registers
+// (NIso = 1), or any number of terms from shared memory (NIso = 0; the
+// caller has run load_terms into g2, sn, sg).
 template <int NIso>
-struct IsoWeights;
-
-template <>
-struct IsoWeights<1> {
-  float ng2, sn, sg;
-  __device__ __forceinline__ void operator()(float sq, float& kc,
-                                             float& w) const {
-    const float e = ex2_ftz(ng2 * sq);
-    kc = sn * e;
-    w = sg * e;
+__device__ __forceinline__ auto iso_weights(const float* __restrict__ gammas,
+                                            const TermSigns& signs, int n_iso,
+                                            const float* g2, const float* sn,
+                                            const float* sg) {
+  if constexpr (NIso == 1) {
+    return FixedTerms<1>(gammas, signs);
+  } else {
+    return AnyTerms{g2, sn, sg, n_iso};
   }
-};
-
-template <>
-struct IsoWeights<0> {
-  const float* g2;
-  const float* sn;
-  const float* sg;
-  int nterms;
-  __device__ __forceinline__ void operator()(float sq, float& kc,
-                                             float& w) const {
-    kc = 0.0f;
-    w = 0.0f;
-#pragma unroll 1
-    for (int t = 0; t < nterms; ++t) {
-      const float e = ex2_ftz(g2[t] * sq);
-      kc = fmaf(sn[t], e, kc);
-      w = fmaf(sg[t], e, w);
-    }
-  }
-};
+}
 
 // z = x L for one point: z[l] = sum_k x[k] L[k][l], L row-major in shared
 // memory, z in memory. The loop over l stays rolled, so that no more than
@@ -202,19 +181,9 @@ __global__ void __launch_bounds__(kAnisoThreads)
   const int c_begin = static_cast<int>(blockIdx.y) * split_len;
   const int c_end = min(n, c_begin + split_len);
   for (int e = tid; e < MM * MM; e += kAnisoThreads) sh_l[e] = lower[e];
-  IsoWeights<NIso> iso;
-  if constexpr (NIso == 1) {
-    const float g = gammas[0];
-    iso.ng2 = -g * kLog2e;
-    iso.sn = iso_signs.s[0];
-    iso.sg = iso_signs.s[0] * g;
-  } else {
-    load_terms(gammas, iso_signs, n_iso, sh_g2, sh_sn, sh_sg);
-    iso.g2 = sh_g2;
-    iso.sn = sh_sn;
-    iso.sg = sh_sg;
-    iso.nterms = n_iso;
-  }
+  if (NIso == 0) load_terms(gammas, iso_signs, n_iso, sh_g2, sh_sn, sh_sg);
+  const auto iso = iso_weights<NIso>(gammas, iso_signs, n_iso, sh_g2, sh_sn,
+                                     sh_sg);
   const float nga = -kLog2e;  // the anisotropic term: 2^(-log2(e) form)
   float th[kT];
 #pragma unroll

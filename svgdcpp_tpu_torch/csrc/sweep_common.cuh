@@ -234,6 +234,61 @@ __device__ __forceinline__ void combine_terms(float sq, int nterms,
   *w = b;
 }
 
+// The pair's weights (k_c, w) from its sq, for the sweeps that keep them
+// in registers (fused_phi_panel.cu, fused_phi_aniso.cu). NT signed terms: k_c = sum_t s_t k_t, w = sum_t s_t gamma_t k_t,
+// k_t = 2^(-gamma_t log2(e) sq), the terms' constants -gamma_t log2(e),
+// s_t and s_t gamma_t in registers, set once per thread.
+template <int NT>
+struct FixedTerms {
+  float ng2[NT];
+  float sn[NT];
+  float sg[NT];
+
+  __device__ __forceinline__ FixedTerms(const float* __restrict__ gammas,
+                                        const TermSigns& signs) {
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const float g = gammas[t];
+      ng2[t] = -g * kLog2e;
+      sn[t] = signs.s[t];
+      sg[t] = signs.s[t] * g;
+    }
+  }
+
+  __device__ __forceinline__ void operator()(float sq, float& kc,
+                                             float& w) const {
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const float e = ex2_ftz(ng2[t] * sq);
+      kc = t == 0 ? sn[t] * e : fmaf(sn[t], e, kc);
+      w = t == 0 ? sg[t] * e : fmaf(sg[t], e, w);
+    }
+  }
+};
+
+// The same over a runtime number of terms, 0 <= nterms <= kMaxTerms (none:
+// k_c = w = 0), with the constants in shared memory (load_terms).
+struct AnyTerms {
+  const float* g2;
+  const float* sn;
+  const float* sg;
+  int nterms;
+
+  __device__ __forceinline__ void operator()(float sq, float& kc,
+                                             float& w) const {
+    kc = 0.0f;
+    w = 0.0f;
+    // Rolled: the body inlines this loop into every row of every unrolled
+    // step, and a partially unrolled copy spills at MM = 2.
+#pragma unroll 1
+    for (int t = 0; t < nterms; ++t) {
+      const float e = ex2_ftz(g2[t] * sq);
+      kc = fmaf(sn[t], e, kc);
+      w = fmaf(sg[t], e, w);
+    }
+  }
+};
+
 }  // namespace svgd
 
 // LAUNCH(MM, kExact) for the instance that serves dimension m; an m outside

@@ -200,7 +200,6 @@ def load_library() -> ctypes.CDLL:
                     [ptr] * 4 + [i32] * 7 + [ptr] * 3,
                 "svgd_count_le_cross": [ptr] * 4 + [i32] * 5 + [ptr] * 2,
                 "svgd_count_le_self": [ptr] * 3 + [i32] * 4 + [ptr] * 2,
-                "svgd_count_tile": [i32],
                 "svgd_sym_tile": [i32] * 2,
             }
             for fn, argtypes in signatures.items():
@@ -886,15 +885,6 @@ def phi_rbf_sympanel_chunk_cuda(coords, scores, gamma, thresholds_sq, world,
     return sympanel_scatter(panels, index, nb, n), upper
 
 
-def count_tile(m):
-    """Rows a tile of the count kernel holds at dimension m (128 threads
-    of 8, 4, 2 or 1 rows; ``svgd_count_tile`` in ``csrc/count_le.cu``), 0
-    past MAX_M, where the wide kernel takes the cross form."""
-    if m > MAX_M:
-        return 0
-    return 128 * (8 if m <= 4 else 4 if m <= 16 else 2 if m <= 32 else 1)
-
-
 def count_batches(thr):
     """The count kernel's launches over thresholds ``thr``: (t0, the
     thresholds t0 .. t0 + COUNT_MAX_T - 1 ascending, their places in that
@@ -920,13 +910,13 @@ def count_le_cuda(rows_coords, cols_coords, thresholds, design=0):
     thresholds, each launch's thresholds sorted on the device; ``design``
     0 lets the kernel choose its threshold work by T, 1 and 2 force the
     predicated or the binned design (for timing both). On CPU tensors the
-    plain versions: ``ops/median.count_le_self_plain`` at
-    ``count_tile(m)`` for one set, else ``count_le_plain``."""
+    plain versions: ``ops/median.count_le_self_plain`` for one set up to
+    MAX_M (past it the kernel counts one set in the cross form), else
+    ``count_le_plain``."""
     same = rows_coords is cols_coords
     if rows_coords.device.type == "cpu":
-        if same and count_tile(rows_coords.shape[1]):
-            return count_le_self_plain(rows_coords, thresholds,
-                                       tile=count_tile(rows_coords.shape[1]))
+        if same and rows_coords.shape[1] <= MAX_M:
+            return count_le_self_plain(rows_coords, thresholds)
         return count_le_plain(rows_coords, cols_coords, thresholds)
     _require_cuda(rows_coords)
     if (rows_coords.ndim != 2 or cols_coords.ndim != 2

@@ -143,7 +143,7 @@ def counts_from_bins(hist, order):
     return counts
 
 
-def count_le_self_plain(coords, thresholds, *, tile: int):
+def count_le_self_plain(coords, thresholds, *, tile: int = 1024):
     """``count_le_plain(coords, coords, thresholds)`` by the count kernel's
     self schedule (``svgd_count_le_self``), the plain version of that
     entry: the upper triangle of ``tile`` x ``tile`` blocks, an

@@ -284,21 +284,21 @@ def test_the_medians_count_envs_pick_their_entries(monkeypatch):
     cuda_phi.reset_launch_counts()
 
 
-def test_count_wrapper_on_cpu_takes_the_self_schedule(monkeypatch):
+@pytest.mark.parametrize("m,self_form", [(11, True), (64, True),
+                                          (65, False)])
+def test_count_wrapper_on_cpu_takes_the_self_schedule(monkeypatch, m,
+                                                      self_form):
     """On CPU tensors the wrapper's self form is the self entry's plain
-    version at count_tile(m), its cross form the plain pass."""
+    version up to MAX_M (past it the kernel counts one set in the cross
+    form, and so does the plain pass), its cross form the plain pass."""
     calls = []
     real_self = mdt.count_le_self_plain
     monkeypatch.setattr(cuda_phi, "count_le_self_plain",
-                        lambda *a, **k: calls.append(k["tile"]) or
-                        real_self(*a, **k))
-    x = torch.from_numpy(grid_points(130, 11, 3, 2.0))
+                        lambda *a, **k: calls.append(m) or real_self(*a, **k))
+    x = torch.from_numpy(grid_points(130, m, 3, 2.0))
     thr = awkward_thresholds(x.numpy(), 9, 4)
     got = cuda_phi.count_le_cuda(x, x, thr)
     cross = cuda_phi.count_le_cuda(x, x.clone(), thr)
-    assert calls == [cuda_phi.count_tile(11)]
+    assert calls == ([m] if self_form else [])
     np.testing.assert_array_equal(got.numpy(), cross.numpy())
     np.testing.assert_array_equal(got.numpy(), brute_counts(x, x, thr).numpy())
-    assert [cuda_phi.count_tile(m) for m in (1, 4, 5, 16, 17, 32, 33, 64,
-                                             65)] == [
-        1024, 1024, 512, 512, 256, 256, 128, 128, 0]
