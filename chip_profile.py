@@ -19,7 +19,9 @@ Drives one configuration of svgdcpp_tpu_torch at its full width:
     ``fused_cuda`` (square kernel at m=50);
   * ``aniso``: scripts/check_aniso_posterior.py's configuration, MVN d=11,
     N=10240, median RBF + RBF with a full constant P, AdaGrad lr 0.05,
-    route ``fused_aniso_terms_cuda`` (the anisotropic terms kernel);
+    route ``fused_aniso_terms_cuda`` (the anisotropic terms kernel); then
+    that kernel's wrapper with one anisotropic term at m = 2 to 64
+    (``aniso_widths``);
   * ``hessian``: the same target with one RBF whose scale is the HESSIAN
     one, route ``cuda`` (the fixed-P square kernel);
   * ``sharded``: the flagship on the sharded engine (examples/
@@ -343,8 +345,10 @@ def count_pass(st, device):
     against itself at 262,144 and 1,048,576 points, m = 2, 17 thresholds
     at pair-distance quantiles; wrapper ms (CUDA events, median of 10 and 3
     calls after two warm-up calls) and kernel ms (the profiler's
-    count_le_cross_kernel events over 3 calls); then path A's set-up at
-    N = 1,048,576, its driver's construction to the end of the median
+    count_le_cross_kernel events over 3 calls); at 262,144 also the
+    wrapper ms at T = 3, 17 and 32 (the threshold design the kernel takes
+    by T, or, in a tree that forces one, that one); then path A's set-up
+    at N = 1,048,576, its driver's construction to the end of the median
     seed (host seconds, synchronized), and its count-kernel launches."""
     import numpy as np
     import torch
@@ -353,16 +357,27 @@ def count_pass(st, device):
     from svgdcpp_tpu_torch.ops import cuda_phi
     from svgdcpp_tpu_torch.utils.workloads import large_mvn_workload
 
+    def quantiles(x, num):
+        rng = np.random.default_rng(17)
+        n = x.shape[0]
+        i, j = rng.integers(0, n, 4096), rng.integers(0, n, 4096)
+        sq = ((x[i] - x[j]).double() ** 2).sum(dim=1).cpu().numpy()
+        return torch.tensor(np.quantile(sq, np.linspace(0.02, 0.98, num)),
+                            dtype=torch.float32, device=device)
+
     rows = []
     for n, reps in ((262144, 10), (1048576, 3)):
         x = sweep_inputs(n, 2, 0.0, 303, device)[0]
-        rng = np.random.default_rng(17)
-        i, j = rng.integers(0, n, 4096), rng.integers(0, n, 4096)
-        sq = ((x[i] - x[j]).double() ** 2).sum(dim=1).cpu().numpy()
-        thr = torch.tensor(np.quantile(sq, np.linspace(0.02, 0.98, 17)),
-                           dtype=torch.float32, device=device)
+        thr = quantiles(x, 17)
         wrapper_ms = time_ms(lambda: cuda_phi.count_le_cuda(x, x, thr),
                              reps=reps, warmup=2)
+        by_t = {}
+        if n == 262144:
+            for num in (3, 17, 32):
+                thr_t = quantiles(x, num)
+                by_t[num] = time_ms(
+                    lambda: cuda_phi.count_le_cuda(x, x, thr_t), reps=reps,
+                    warmup=2)
         activities = [torch.profiler.ProfilerActivity.CPU,
                       torch.profiler.ProfilerActivity.CUDA]
         torch.cuda.synchronize()
@@ -375,6 +390,7 @@ def count_pass(st, device):
             prof.export_chrome_trace(str(trace))
             timeline = device_timeline(trace, 3, "count_le_cross")
         rows.append({"n": n, "m": 2, "T": 17, "wrapper_ms": wrapper_ms,
+                     "wrapper_ms_by_T": by_t,
                      "kernel_ms": timeline["sweep_kernel_us_per_call"] / 1e3,
                      "kernel_calls": timeline["sweep_kernel_calls"],
                      "counts": [int(c) for c in counts.tolist()]})
@@ -391,6 +407,33 @@ def count_pass(st, device):
             "init_count_launches":
                 cuda_phi.launch_counts[cuda_phi.COUNT_KERNEL],
             "init_form": svgd.fused_sym_form}
+
+
+def aniso_widths(device):
+    """K14's wrapper with one isotropic and one anisotropic term (a full PD
+    P, its factor kept, as the driver calls it) at n = 10240 and m = 2, 5,
+    11, 16, 32, 50 and 64, T = 3: ms, median of 20 calls between CUDA
+    events after 3 warm-up calls. Run from an older tree with this script
+    copied in, it times the kernel that tree takes for one term."""
+    import numpy as np
+    import torch
+
+    from chip_smoke import sweep_inputs, time_ms
+    from svgdcpp_tpu_torch.ops import cuda_phi
+
+    rows = []
+    for m in (2, 5, 11, 16, 32, 50, 64):
+        x, s, g, thr = sweep_inputs(10240, m, 0.0, 400 + m, device)
+        a = np.random.default_rng(500 + m).normal(size=(m, m))
+        p = g * torch.tensor(0.5 * np.eye(m) + a @ a.T / m,
+                             dtype=torch.float32, device=device)
+        lowers = cuda_phi.cholesky_factors([p], device)
+        ms = time_ms(lambda: cuda_phi.phi_rbf_aniso_terms_fused_cuda(
+            x, s, [g], (1.0,), [p], (1.0,), thr, lowers=lowers),
+            reps=20, warmup=3)
+        rows.append({"n": 10240, "m": m, "wrapper_ms": ms})
+        print(json.dumps(rows[-1]), flush=True)
+    return rows
 
 
 def crossover(device):
@@ -504,8 +547,9 @@ def sass_loops(text, function, pairs_per=None, pair_class="mufu"):
 #: binned (in a tree without the designs, its 32-threshold instance at
 #: m = 2), with 5 FP32 instructions a pair for sq by differences at m = 2
 #: and 15 by the Gram identity at m = 11; the one-pass anisotropic kernel's
-#: (K14's port) instance of the anisotropic posterior, <MM=11, one
-#: isotropic term, T=3>, two ex2 a pair.
+#: (K14's port) instance of the anisotropic posterior, <MM=11, exact, one
+#: isotropic term, T=3> (in a tree without runtime-m instances, <11,1,3>),
+#: two ex2 a pair.
 SASS_INSTANCES = (
     ("counts_sympanel<2,1,3>", "fused_phi_counts_sympanel_kernel",
      ("ILi2ELb1ELi3E", "ILi2ELb1EE"), 1),
@@ -517,8 +561,8 @@ SASS_INSTANCES = (
      ("ILi2ELb1ELb0ELb0ELi3E",), ("fp32", 5)),
     ("count_le<11,1,1,1,5>", "count_le_cross_kernel",
      ("ILi11ELb1ELb1ELb1ELi5E", "ILi11ELb1ELb1ELi32E"), ("fp32", 15)),
-    ("aniso_terms_sym<11,1,3>", "fused_phi_aniso_terms_sym_kernel",
-     ("ILi11ELi1ELi3E",), 2),
+    ("aniso_terms_sym<11,1,1,3>", "fused_phi_aniso_terms_sym_kernel",
+     ("ILi11ELb1ELi1ELi3E", "ILi11ELi1ELi3E"), 2),
 )
 
 
@@ -646,6 +690,8 @@ def main() -> int:
         torch.distributed.destroy_process_group()
     if args.large:
         result["large_n"] = [large_n(n, torch.device("cuda")) for n in (100_000, 1_000_000)]
+    if args.config == "aniso":
+        result["one_term_widths"] = aniso_widths(torch.device("cuda"))
     if args.crossover:
         result["crossover"] = crossover(torch.device("cuda"))
     if args.sass:

@@ -43,8 +43,9 @@ thirty-one phases, one line each (several for phases 2, 3, 7-9 and
  14. the anisotropic terms kernel (fused_phi_aniso_terms_sym, K14's port)
      against its plain version: m = 2 (iso + 1 aniso off origin, aniso
      only), m = 11 (the main path's shape (10240, 11), iso + 3 aniso, iso +
-     7 aniso, a negative sign) and m = 50; one anisotropic term at m = 2
-     and 11 takes the one-pass kernel, the others the term-group kernel;
+     7 aniso, a negative sign) and m = 50, and one anisotropic term at
+     m = 1, 3, 5, 16 and 32; one anisotropic term takes the one-pass
+     kernel, more the term-group kernel;
  15. the fixed-P kernel (phi_rbf_square, K15's port) against phi_rbf /
      phi_rbf_blocked: isotropic (1500, 2), the HESSIAN scale of the d = 11
      target at (10240, 11), a full PD P at (1000, 50), an indefinite P with
@@ -112,16 +113,15 @@ thirty-one phases, one line each (several for phases 2, 3, 7-9 and
      the plain pass's and of the float64 exact median, and auto on the
      card raising with the sweeps' item-17 error; the self form (one set
      as rows and columns, the triangle) at odd n off origin, m = 1, 2, 4,
-     11 and 65, T = 1, 3, 17, 32 and 33 with shuffled, duplicate, negative
-     and past-the-largest thresholds, in both designs: equal to the cross
-     form and across designs and calls, equal to the plain pass at m <= 4
+     11 and 65, T = 1, 3, 17, 32 and 33 (both threshold designs) with
+     shuffled, duplicate, negative and past-the-largest thresholds: equal
+     to the cross form and across calls, equal to the plain pass at m <= 4
      (grid inputs) and within 1e-6 n^2 above;
  28. times of the chunk kernels at world 1 against their plain versions
      and the full-width kernels, each rank's at world 2, and K16's self
-     form at 10000^2, 262144^2 and 1048576^2 (17 thresholds; also held to
-     the plain pass below 10^6), both of its designs at T = 3, 17 and 32
-     below 10^6, its cross form at 10000^2 and its wide instance at
-     2048 x 3001 (m = 65 and 100);
+     form at 10000^2, 262144^2 and 1048576^2 (17 thresholds; each also
+     held to the plain pass), at T = 3 and 32 below 10^6, its cross form
+     at 10000^2 and its wide instance at 2048 x 3001 (m = 65 and 100);
  29. the sharded flagship (examples/sharded_example.py's configuration,
      utils/workloads.build_sharded_mvn_svgd) on a one-rank NCCL group,
      N = 10000, 1000 iterations: 1000 K4 launches and no other sweep,
@@ -440,8 +440,8 @@ def ptxas_summary(log_text):
     and terms_sympanel<11,1,3,2>; the count kernel (count_le.cu)
     count_le<MM,exact,gram,binned,P> (P: thresholds held, or binned search
     steps) and count_le_wide<TT>; the one-pass anisotropic kernel
-    aniso_terms_sym<MM,NIso,kT> (NIso 0: any number of isotropic terms)
-    beside the term-group one, aniso_terms_groups<MM,exact,1>."""
+    aniso_terms_sym<MM,exact,NIso,kT> (NIso 0: any number of isotropic
+    terms) beside the term-group one, aniso_terms_groups<MM,exact,1>."""
     import re
 
     out, name = {}, None
@@ -1004,6 +1004,13 @@ def main() -> int:
         (4096, 11, 0.0, (1.0,), (1.0,) * 7),
         (2048, 50, 0.0, (1.0,), (1.0,)),
         (4096, 11, 0.0, (1.0, -0.4), (-0.3,)),
+        # one anisotropic term at the one-pass kernel's runtime-m
+        # instances (MM = 8: m = 1, 3 by differences, 5; 16; 32)
+        (3001, 1, 4.0, (1.0,), (0.8,)),
+        (2048, 3, 0.0, (), (1.0,)),
+        (3001, 5, 2.0, (1.0, -0.4), (0.8,)),
+        (2048, 16, 0.0, (1.0,), (1.0,)),
+        (2048, 32, 0.0, (1.0,), (-0.5,)),
     ]):
         x, s, g, thr = inputs_for(n, m, off, 140 + idx, dev)
         iso_g = [g, 2.0 * g][:len(iso_s)]
@@ -1705,11 +1712,11 @@ def main() -> int:
     # The self form (one set as rows and columns: the single-device
     # median's every pass) on odd and ragged n off origin, at T = 1 to 33
     # with shuffled, duplicate, negative and past-the-largest thresholds,
-    # in the kernel's own design choice and in both forced designs: the
-    # self counts equal the cross counts of a clone and each other exactly
-    # at every m, equal the plain pass at m <= 4 (grid inputs, where both
-    # forms are exact) and lie within 1e-6 n^2 of it above (Gaussian
-    # inputs), and a second call repeats them.
+    # so through both of the kernel's threshold designs (predicated at
+    # T <= 3, binned above): the self counts equal the cross counts of a
+    # clone exactly at every m, equal the plain pass at m <= 4 (grid
+    # inputs, where both forms are exact) and lie within 1e-6 n^2 of it
+    # above (Gaussian inputs), and a second call repeats them.
     def awkward_thresholds(x, num, exact):
         q = count_thresholds(x, x, num, exact)
         rng = np.random.default_rng(1000 + num)
@@ -1730,25 +1737,22 @@ def main() -> int:
         for num in (1, 3, 17, 32, 33):
             thr = awkward_thresholds(x, num, exact)
             want = count_le_plain(x, x, thr)
-            runs = {d: cuda_phi.count_le_cuda(x, x, thr, design=d)
-                    for d in (0, 1, 2)}
+            got = cuda_phi.count_le_cuda(x, x, thr)
             again = cuda_phi.count_le_cuda(x, x, thr)
             cross = cuda_phi.count_le_cuda(x, x.clone(), thr)
-            for d, got in runs.items():
-                check(bool((got == cross).all()),
-                      f"self count n={n} m={m} T={num} design={d}: differs "
-                      f"from the cross form by {int((got - cross).abs().max())}")
-            check(bool((again == runs[0]).all()),
+            check(bool((got == cross).all()),
+                  f"self count n={n} m={m} T={num}: differs from the cross "
+                  f"form by {int((got - cross).abs().max())}")
+            check(bool((again == got).all()),
                   f"self count n={n} m={m} T={num}: a second call differs")
-            dcnt = int((runs[0] - want).abs().max())
+            dcnt = int((got - want).abs().max())
             limit = 0 if exact else 1e-6 * n * n
             check(dcnt <= limit, f"self count n={n} m={m} T={num}: counts "
                   f"differ from the plain pass by {dcnt} > {limit:.3g}")
             count_err = max(count_err, dcnt)
             print(f"phase 27 self count n={n} m={m} offset={off} T={num} "
                   f"{'grid' if exact else 'gaussian'}: ok self==cross, "
-                  f"designs 0/1/2 equal, repeat equal, count_diff={dcnt} "
-                  f"count_bound={limit:.3g}")
+                  f"repeat equal, count_diff={dcnt} count_bound={limit:.3g}")
 
     # -- phase 28: times of the chunk kernels and K16 -----------------------
     def chunk_blocks(n, tile, world, rank):
@@ -1807,40 +1811,46 @@ def main() -> int:
           f"K3={t['full']:.4f} world2_rank0={ranks[0]:.4f} "
           f"world2_rank1={ranks[1]:.4f} {clock()}")
     # K16: the self form (the seeds at N = 10,000 and 262,144, and the
-    # 1,048,576 run's) at the hybrid's 17 edges, also against the plain
-    # pass; both designs at T = 3, 17 and 32; the cross form (the sharded
-    # engine's) at 10,000^2; the wide instance at phase 27's shape.
+    # 1,048,576 run's) at the hybrid's 17 edges, held to the plain pass on
+    # the same inputs (at 10^6 one plain call of about 50 s, timed alone);
+    # at T = 3 and 32 too below 10^6 (the predicated design takes T <= 3,
+    # the binned one above); the cross form (the sharded engine's) at
+    # 10,000^2; the wide instance at phase 27's shape.
     for n in (10000, PATH_A_N, PATH_A_SHORT_N):
         x = sweep_inputs(n, 2, 0.0, 303, dev)[0]
         thr = count_thresholds(x, x, 17, False)
         reps = {10000: 50, PATH_A_N: 10}.get(n, 3)
         t = {"kernel": time_ms(lambda: cuda_phi.count_le_cuda(x, x, thr),
                                reps=reps, warmup=2)}
-        if n < PATH_A_SHORT_N:  # the plain pass takes about 50 s at 10^6
-            t["plain"] = plain_ms(lambda: count_le_plain(x, x, thr))
-            dcnt = int((cuda_phi.count_le_cuda(x, x, thr)
-                        - count_le_plain(x, x, thr)).abs().max())
-            check(dcnt <= 1e-6 * n * n, f"count n={n}^2: counts differ by "
-                  f"{dcnt} > {1e-6 * n * n:.3g}")
-            count_err = max(count_err, dcnt)
-        else:
-            t["plain"] = None
-        designs = {}
         if n < PATH_A_SHORT_N:
-            for num in (3, 17, 32):
-                thr_d = count_thresholds(x, x, num, False)
-                designs[num] = [time_ms(
-                    lambda: cuda_phi.count_le_cuda(x, x, thr_d, design=d),
-                    reps=reps, warmup=2) for d in (1, 2)]
+            t["plain"] = plain_ms(lambda: count_le_plain(x, x, thr))
+            want = count_le_plain(x, x, thr)
+        else:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = count_le_plain(x, x, thr)
+            end.record()
+            end.synchronize()
+            t["plain"] = start.elapsed_time(end)
+        dcnt = int((cuda_phi.count_le_cuda(x, x, thr) - want).abs().max())
+        check(dcnt <= 1e-6 * n * n, f"count n={n}^2: counts differ by "
+              f"{dcnt} > {1e-6 * n * n:.3g}")
+        count_err = max(count_err, dcnt)
+        by_t = {}
+        if n < PATH_A_SHORT_N:
+            for num in (3, 32):
+                thr_t = count_thresholds(x, x, num, False)
+                by_t[num] = round(time_ms(
+                    lambda: cuda_phi.count_le_cuda(x, x, thr_t), reps=reps,
+                    warmup=2), 4)
         times28[("count", n, 2)] = t
-        plain = "not timed" if t["plain"] is None else f"{t['plain']:.4f}"
         print(f"phase 28 times count self n={n}^2 m=2 T=17 (ms): "
-              f"kernel={t['kernel']:.4f} plain={plain} "
+              f"kernel={t['kernel']:.4f} plain={t['plain']:.4f} "
               f"bound={sweep_bound(cuda_phi.COUNT_KERNEL, n, 2, T=17)[0]:.5f} "
               f"bound_all_pairs={count_bound_all_pairs(n, 2, 17)[0]:.5f} "
-              f"designs(T: predicated, binned)="
-              f"{json.dumps({k: [round(v, 4) for v in d] for k, d in designs.items()})} "
-              f"{clock()}")
+              f"count_diff={dcnt} count_bound={1e-6 * n * n:.3g} "
+              f"kernel_at_T={json.dumps(by_t)} {clock()}")
     x = sweep_inputs(10000, 2, 0.0, 304, dev)[0]
     xc = x.clone()
     thr = count_thresholds(x, x, 17, False)

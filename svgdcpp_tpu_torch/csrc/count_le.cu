@@ -42,12 +42,11 @@
 // norm), so their sq is +inf, which no threshold counts: the pair loop is
 // unmasked. The threshold work per pair takes one of two designs:
 //
-//   * predicated (kBinned false): P = kT thresholds in registers, a
-//     compile-time count at or above the launch's T (3, 9, 17 or 32),
+//   * predicated (kBinned false, T <= 3): P = 3 thresholds in registers,
 //     padded with -1, which no sq reaches; per threshold one compare into
 //     a predicate and one predicated add (sweep_common.cuh's add_if_le):
-//     2 kT instructions a pair, no guard.
-//   * binned (kBinned true): the pair's bin #{t : !(sq <= thr_sorted[t])}
+//     6 instructions a pair, no guard.
+//   * binned (kBinned true, T >= 4): the pair's bin #{t : !(sq <= thr_sorted[t])}
 //     by a branch-free search over 2^P - 1 sorted thresholds padded with
 //     +inf (P = ceil(log2(T + 1)) steps, each a compare and a predicated
 //     add to a byte offset; the first two against registers, the rest at
@@ -63,8 +62,8 @@
 // (T = 16-31) and 11.75 predicated at T = 3, 5 of them sq's FP32 ones
 // (chip_profile.py --sass).
 //
-// The entry point picks the design by T (kBinnedMinT); `design` forces one
-// (1 predicated, 2 binned), so that both can be timed on the same inputs.
+// The entry point picks the design by T (kBinnedMinT).
+//
 // A thread's 32-bit counters see at most R x B pairs of one block (8192),
 // then each block flushes: the warps sum by shuffles, the block in shared
 // memory, and one 64-bit atomicAdd per threshold per block adds the count
@@ -98,11 +97,12 @@ constexpr int kCountThreads = 128;
 constexpr int kCountMaxT = 32;  // thresholds per launch (COUNT_MAX_T)
 
 // From this many thresholds a launch takes the binned design; below, the
-// predicated one (design 0, chosen by T). The predicated design's work
+// predicated one. The predicated design's work
 // grows with T (2 instructions a threshold), the binned one's with
 // log2(T + 1) (3 a step, and 6 more a pair): on the card the predicated
 // design was the faster at T = 3 and the binned one at 17 and 32 (PERF.md
-// section 6), and from T = 4 the search's 3 steps cost about what 8
+// section 6, both timed by chip_profile.py --config count in trees that
+// forced one design), and from T = 4 the search's 3 steps cost about what 8
 // compares and adds do.
 constexpr int kBinnedMinT = 4;
 
@@ -502,12 +502,12 @@ int launch_wide(const float* rows, const float* cols, const float* thr,
 }
 
 // Launch of count_le_cross_kernel<MM, kExact, kGram, ...> for T thresholds
-// in the given design (0: by T), over the triangle of n_r = n_c rows
-// (self) or every tile pair.
+// in the design T takes, over the triangle of n_r = n_c rows (self) or
+// every tile pair.
 template <int MM, bool kExact, bool kGram>
 int launch_count(const float* rows, const float* cols, const float* thr,
                  const int* order, int n_r, int n_c, int m, int T, bool self,
-                 int design, unsigned long long* c, cudaStream_t s) {
+                 unsigned long long* c, cudaStream_t s) {
   constexpr int kB = kCountThreads * CountRows<MM>::value;
   const long long nbr = (n_r + kB - 1) / kB;
   const long long nbc = (n_c + kB - 1) / kB;
@@ -522,32 +522,22 @@ int launch_count(const float* rows, const float* cols, const float* thr,
   split_len = (split_len + 63) / 64 * 64;
   splits = (kB + split_len - 1) / split_len;
   const dim3 grid(static_cast<unsigned int>(pairs), splits);
-  const bool binned = design == 2 || (design == 0 && T >= kBinnedMinT);
 #define SVGD_COUNT_GO(BIN_, P_)                                             \
   count_le_cross_kernel<MM, kExact, kGram, BIN_, P_>                        \
       <<<grid, kCountThreads, 0, s>>>(rows, cols, thr, order, n_r, n_c, m,  \
                                       T, self, static_cast<int>(nbr),       \
                                       static_cast<int>(nbc), split_len, c)
-  if (binned) {
-    if (T <= 3) {
-      SVGD_COUNT_GO(true, 2);
-    } else if (T <= 7) {
-      SVGD_COUNT_GO(true, 3);
-    } else if (T <= 15) {
-      SVGD_COUNT_GO(true, 4);
-    } else if (T <= 31) {
-      SVGD_COUNT_GO(true, 5);
-    } else {
-      SVGD_COUNT_GO(true, 6);
-    }
-  } else if (T <= 3) {
+  static_assert(kBinnedMinT == 4, "the instances below follow kBinnedMinT");
+  if (T <= 3) {
     SVGD_COUNT_GO(false, 3);
-  } else if (T <= 9) {
-    SVGD_COUNT_GO(false, 9);
-  } else if (T <= 17) {
-    SVGD_COUNT_GO(false, 17);
+  } else if (T <= 7) {
+    SVGD_COUNT_GO(true, 3);
+  } else if (T <= 15) {
+    SVGD_COUNT_GO(true, 4);
+  } else if (T <= 31) {
+    SVGD_COUNT_GO(true, 5);
   } else {
-    SVGD_COUNT_GO(false, 32);
+    SVGD_COUNT_GO(true, 6);
   }
 #undef SVGD_COUNT_GO
   return static_cast<int>(cudaGetLastError());
@@ -558,9 +548,8 @@ int launch_count(const float* rows, const float* cols, const float* thr,
 // the wide kernel past kMaxM.
 int dispatch_count(const float* rows, const float* cols, const float* thr,
                    const int* order, int n_r, int n_c, int m, int T,
-                   bool self, int design, long long* counts, void* stream) {
-  if (n_r <= 0 || n_c <= 0 || m < 1 || T < 1 || T > kCountMaxT ||
-      design < 0 || design > 2) {
+                   bool self, long long* counts, void* stream) {
+  if (n_r <= 0 || n_c <= 0 || m < 1 || T < 1 || T > kCountMaxT) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -568,32 +557,32 @@ int dispatch_count(const float* rows, const float* cols, const float* thr,
   switch (m) {
     case 1:
       return launch_count<1, true, false>(rows, cols, thr, order, n_r, n_c,
-                                          m, T, self, design, c, s);
+                                          m, T, self, c, s);
     case 2:
       return launch_count<2, true, false>(rows, cols, thr, order, n_r, n_c,
-                                          m, T, self, design, c, s);
+                                          m, T, self, c, s);
     case 3:
       return launch_count<3, true, false>(rows, cols, thr, order, n_r, n_c,
-                                          m, T, self, design, c, s);
+                                          m, T, self, c, s);
     case 4:
       return launch_count<4, true, false>(rows, cols, thr, order, n_r, n_c,
-                                          m, T, self, design, c, s);
+                                          m, T, self, c, s);
     case 11:
       return launch_count<11, true, true>(rows, cols, thr, order, n_r, n_c,
-                                          m, T, self, design, c, s);
+                                          m, T, self, c, s);
     default:
       if (m >= 5 && m <= 8) {
         return launch_count<8, false, true>(rows, cols, thr, order, n_r,
-                                            n_c, m, T, self, design, c, s);
+                                            n_c, m, T, self, c, s);
       } else if (m >= 9 && m <= 16) {
         return launch_count<16, false, true>(rows, cols, thr, order, n_r,
-                                             n_c, m, T, self, design, c, s);
+                                             n_c, m, T, self, c, s);
       } else if (m >= 17 && m <= 32) {
         return launch_count<32, false, true>(rows, cols, thr, order, n_r,
-                                             n_c, m, T, self, design, c, s);
+                                             n_c, m, T, self, c, s);
       } else if (m >= 33 && m <= kMaxM) {
         return launch_count<64, false, true>(rows, cols, thr, order, n_r,
-                                             n_c, m, T, self, design, c, s);
+                                             n_c, m, T, self, c, s);
       }
       return launch_wide(rows, cols, thr, order, n_r, n_c, m, T, c, s);
   }
@@ -607,23 +596,22 @@ extern "C" {
 // (n_r, m) and cols (n_c, m) centered on the column mean, float32 row-major
 // on the device; thr (T,) float32 ascending on the device and order (T,)
 // int32 its places in the caller's batch (count t goes to counts[order[t]]);
-// counts a zeroed int64 buffer. m >= 1, 1 <= T <= 32; design 0 (by T), 1
-// (predicated) or 2 (binned).
+// counts a zeroed int64 buffer. m >= 1, 1 <= T <= 32.
 int svgd_count_le_cross(const float* rows, const float* cols, const float* thr,
                         const int* order, int n_r, int n_c, int m, int T,
-                        int design, long long* counts, void* stream) {
+                        long long* counts, void* stream) {
   return dispatch_count(rows, cols, thr, order, n_r, n_c, m, T, false,
-                        design, counts, stream);
+                        counts, stream);
 }
 
 // svgd_count_le_cross of one set x (n, m) against itself, over the upper
 // triangle of tile pairs (2U + diag; past kMaxM the wide kernel's cross
 // form). The same counts as svgd_count_le_cross(x, x, ...).
 int svgd_count_le_self(const float* x, const float* thr, const int* order,
-                       int n, int m, int T, int design, long long* counts,
+                       int n, int m, int T, long long* counts,
                        void* stream) {
-  return dispatch_count(x, x, thr, order, n, n, m, T, m <= kMaxM, design,
-                        counts, stream);
+  return dispatch_count(x, x, thr, order, n, n, m, T, m <= kMaxM, counts,
+                        stream);
 }
 
 }  // extern "C"

@@ -38,11 +38,13 @@
 // the plain version's order up to m = 4 (sweep_common.cuh), so the counts
 // equal the plain version's there.
 //
-// Two kernels. The main path's composition, isotropic terms and ONE
-// anisotropic term at m = 2 or 11 (at most two gradient accumulators; the
-// anisotropic posterior's median RBF + RBF(P)), takes the one-pass kernel
-// fused_phi_aniso_terms_sym_kernel; any other (two or more anisotropic
-// terms, other m) the term-group kernel fused_phi_aniso_terms_groups_kernel.
+// Two kernels. Isotropic terms and ONE anisotropic term (at most two
+// gradient accumulators; the anisotropic posterior's median RBF + RBF(P))
+// take the one-pass kernel fused_phi_aniso_terms_sym_kernel at any m up to
+// 64 (exact instances at m = 2 and 11, runtime-m ones with MM = 8, 16, 32
+// and 64 for the rest, as SVGD_DISPATCH_M_2_11 picks); two or more
+// anisotropic terms the term-group kernel
+// fused_phi_aniso_terms_groups_kernel.
 //
 // The one-pass kernel (svgd_fused_phi_aniso_terms_sym). Every ordered pair
 // (i, j) once, in one pass for both groups: the Euclidean difference d and
@@ -73,6 +75,11 @@
 // the deterministic integer flush. Rows past n sit at +inf: their sq is
 // +inf, which no threshold counts, and their sums are never stored.
 // Thresholds are held at a compile-time count (3, or 8 padded with -1).
+// A runtime-m instance holds MM coordinates with zeros past m in x, z, s
+// and L, which add nothing to any sum; up to m = 4 its sq takes the plain
+// order as the exact instances do. Past MM = 16 a row's 5 MM sums and
+// coordinates exceed the registers (the compiler spills them) and a block
+// has fewer threads (AnisoShape).
 //
 // Work per unordered pair, as the term-group kernel runs it:
 // each term group
@@ -111,19 +118,17 @@ namespace {
 
 using namespace svgd;
 
-constexpr int kAnisoThreads = 128;
-constexpr int kAnisoCols = 128;  // columns a shared stage holds
-
-// Rows a thread holds.
+// The one-pass kernel's shape at MM: threads a block, rows a thread,
+// columns a shared stage holds, and a staged column's record
+// [x (MM) | z (MM) | s (MM)] padded to 16 bytes. Past MM = 16 fewer
+// threads and columns keep the stage, L (MM x MM) and each thread's two
+// scratch rows within 48 KB of static shared memory.
 template <int MM>
-struct AnisoRows {
-  static constexpr int value = MM <= 2 ? 8 : 1;
-};
-
-// A staged column's record [x (MM) | z (MM) | s (MM)], padded to 16 bytes.
-template <int MM>
-struct AnisoRec {
-  static constexpr int value = (3 * MM + 3) / 4 * 4;
+struct AnisoShape {
+  static constexpr int threads = MM <= 16 ? 128 : (MM <= 32 ? 64 : 32);
+  static constexpr int rows = MM <= 2 ? 8 : 1;
+  static constexpr int cols = MM <= 16 ? 128 : (MM <= 32 ? 64 : 32);
+  static constexpr int rec = (3 * MM + 3) / 4 * 4;
 };
 
 // The isotropic terms' (k_c, w): one term's constants in registers
@@ -158,29 +163,39 @@ __device__ __forceinline__ void project(const float* x, const float* sh_l,
   }
 }
 
-template <int MM, int NIso, int kT>
-__global__ void __launch_bounds__(kAnisoThreads)
+template <int MM, bool kExact, int NIso, int kT>
+__global__ void __launch_bounds__(AnisoShape<MM>::threads)
     fused_phi_aniso_terms_sym_kernel(
         const float* __restrict__ coords, const float* __restrict__ scores,
         const float* __restrict__ lower, const float* __restrict__ gammas,
         TermSigns iso_signs, int n_iso, float aniso_sign,
-        const float* __restrict__ thr, int n, int T, int split_len,
-        float* __restrict__ acc, unsigned long long* __restrict__ counts) {
-  constexpr int R = AnisoRows<MM>::value;
-  constexpr int kRec = AnisoRec<MM>::value;
-  static_assert(2 * kAnisoThreads * MM <= kAnisoCols * kRec,
+        const float* __restrict__ thr, int n, int m_arg, int T,
+        int split_len, float* __restrict__ acc,
+        unsigned long long* __restrict__ counts) {
+  using Shape = AnisoShape<MM>;
+  constexpr int kThreads = Shape::threads;
+  constexpr int R = Shape::rows;
+  constexpr int kCols = Shape::cols;
+  constexpr int kRec = Shape::rec;
+  static_assert(2 * kThreads * MM <= kCols * kRec,
                 "sh_col holds each thread's two scratch rows");
-  __shared__ __align__(16) float sh_col[kAnisoCols * kRec];
+  __shared__ __align__(16) float sh_col[kCols * kRec];
   __shared__ float sh_l[MM * MM];
   __shared__ float sh_g2[kMaxTerms];
   __shared__ float sh_sn[kMaxTerms];
   __shared__ float sh_sg[kMaxTerms];
 
+  // m coordinates of MM: past m, x, z, s and L hold zeros, which add
+  // nothing to any sum (a runtime instance, kExact false).
+  const int m = kExact ? MM : m_arg;
   const int tid = static_cast<int>(threadIdx.x);
-  const int i0 = static_cast<int>(blockIdx.x) * kAnisoThreads * R;
+  const int i0 = static_cast<int>(blockIdx.x) * kThreads * R;
   const int c_begin = static_cast<int>(blockIdx.y) * split_len;
   const int c_end = min(n, c_begin + split_len);
-  for (int e = tid; e < MM * MM; e += kAnisoThreads) sh_l[e] = lower[e];
+  for (int e = tid; e < MM * MM; e += kThreads) {
+    const int k = e / MM, l = e - k * MM;
+    sh_l[e] = (kExact || (k < m && l < m)) ? lower[k * m + l] : 0.0f;
+  }
   if (NIso == 0) load_terms(gammas, iso_signs, n_iso, sh_g2, sh_sn, sh_sg);
   const auto iso = iso_weights<NIso>(gammas, iso_signs, n_iso, sh_g2, sh_sn,
                                      sh_sg);
@@ -190,7 +205,7 @@ __global__ void __launch_bounds__(kAnisoThreads)
   for (int t = 0; t < kT; ++t) th[t] = t < T ? thr[t] : -1.0f;
   __syncthreads();  // L and the terms' constants are set
 
-  // Row i = i0 + 128 r + tid: x (+inf past n), z = x L (through the
+  // Row i = i0 + kThreads r + tid: x (+inf past n), z = x L (through the
   // thread's own slots of sh_col, free until the first stage), and its
   // sums.
   float xi[R][MM];
@@ -201,11 +216,12 @@ __global__ void __launch_bounds__(kAnisoThreads)
   float* own = sh_col + tid * MM;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const int i = i0 + r * kAnisoThreads + tid;
+    const int i = i0 + r * kThreads + tid;
 #pragma unroll
     for (int k = 0; k < MM; ++k) {
-      xi[r][k] = i < n ? coords[static_cast<size_t>(i) * MM + k]
-                       : __int_as_float(0x7f800000);
+      xi[r][k] = i >= n ? __int_as_float(0x7f800000)
+                 : (kExact || k < m) ? coords[static_cast<size_t>(i) * m + k]
+                                     : 0.0f;
       ks[r][k] = 0.0f;
       kd[r][k] = 0.0f;
       kz[r][k] = 0.0f;
@@ -218,17 +234,18 @@ __global__ void __launch_bounds__(kAnisoThreads)
 #pragma unroll
   for (int t = 0; t < kT; ++t) cnt[t] = 0u;
 
-  for (int j0 = c_begin; j0 < c_end; j0 += kAnisoCols) {
-    const int tile_n = min(kAnisoCols, c_end - j0);
+  for (int j0 = c_begin; j0 < c_end; j0 += kCols) {
+    const int tile_n = min(kCols, c_end - j0);
     __syncthreads();  // the previous stage is consumed
-    for (int e = tid; e < tile_n * MM; e += kAnisoThreads) {
+    for (int e = tid; e < tile_n * MM; e += kThreads) {
       const int jj = e / MM, k = e - jj * MM;
-      const size_t at = static_cast<size_t>(j0) * MM + e;
-      sh_col[jj * kRec + k] = coords[at];
-      sh_col[jj * kRec + 2 * MM + k] = scores[at];
+      const bool in = kExact || k < m;
+      const size_t at = static_cast<size_t>(j0 + jj) * m + k;
+      sh_col[jj * kRec + k] = in ? coords[at] : 0.0f;
+      sh_col[jj * kRec + 2 * MM + k] = in ? scores[at] : 0.0f;
     }
     __syncthreads();
-    for (int jj = tid; jj < tile_n; jj += kAnisoThreads) {
+    for (int jj = tid; jj < tile_n; jj += kThreads) {
       float* rec = sh_col + jj * kRec;
       project<MM>(rec, sh_l, rec + MM);
     }
@@ -256,8 +273,8 @@ __global__ void __launch_bounds__(kAnisoThreads)
           dz[k] = zi[r][k] - op[MM + k];
           form = fmaf(dz[k], dz[k], form);
         }
-        if (MM <= 4) {
-          sq = pair_sq<MM, true>(xi[r], op, MM);  // the plain order
+        if ((kExact || MM <= 8) && (kExact ? MM <= 4 : m <= 4)) {
+          sq = pair_sq<MM, kExact>(xi[r], op, m);  // the plain order
         } else {
 #pragma unroll
           for (int k = 0; k < MM; ++k) sq = fmaf(d[k], d[k], sq);
@@ -280,10 +297,10 @@ __global__ void __launch_bounds__(kAnisoThreads)
   // Row i's n phi contribution KS + 2 D_iso + 2 D_z L^T, through the
   // thread's own slots of sh_col (the loop over k rolled, as in project).
   __syncthreads();  // the last stage is consumed
-  float* own_kz = sh_col + kAnisoThreads * MM + tid * MM;
+  float* own_kz = sh_col + kThreads * MM + tid * MM;
 #pragma unroll
   for (int r = 0; r < R; ++r) {
-    const int i = i0 + r * kAnisoThreads + tid;
+    const int i = i0 + r * kThreads + tid;
 #pragma unroll
     for (int k = 0; k < MM; ++k) {
       own[k] = fmaf(2.0f, kd[r][k], ks[r][k]);
@@ -291,7 +308,7 @@ __global__ void __launch_bounds__(kAnisoThreads)
     }
     if (i < n) {
 #pragma unroll 1
-      for (int k = 0; k < MM; ++k) {
+      for (int k = 0; k < m; ++k) {
         float g = 0.0f;
 #pragma unroll
         for (int l = 0; l < MM; ++l) g = fmaf(own_kz[l], sh_l[k * MM + l], g);
@@ -307,6 +324,58 @@ __global__ void __launch_bounds__(kAnisoThreads)
 // many.
 constexpr int kAnisoTargetBlocks = 1024;
 
+// One-pass launches at MM with T <= 3 or up to kMaxT thresholds held.
+template <int MM, bool kExact, int NIso>
+void launch_one_pass_t(dim3 grid, const float* coords, const float* scores,
+                       const float* lower, const float* gammas,
+                       const TermSigns& si, int n_iso, float aniso_sign,
+                       const float* thr, int n, int m, int T, int split_len,
+                       float* acc, unsigned long long* c, cudaStream_t s) {
+  constexpr int kThreads = AnisoShape<MM>::threads;
+  if (T <= 3) {
+    fused_phi_aniso_terms_sym_kernel<MM, kExact, NIso, 3>
+        <<<grid, kThreads, 0, s>>>(coords, scores, lower, gammas, si, n_iso,
+                                   aniso_sign, thr, n, m, T, split_len, acc,
+                                   c);
+  } else {
+    fused_phi_aniso_terms_sym_kernel<MM, kExact, NIso, kMaxT>
+        <<<grid, kThreads, 0, s>>>(coords, scores, lower, gammas, si, n_iso,
+                                   aniso_sign, thr, n, m, T, split_len, acc,
+                                   c);
+  }
+}
+
+// The one-pass launch at MM: with one isotropic term its constants in
+// registers (exact instances), else any number from shared memory.
+template <int MM, bool kExact>
+int launch_one_pass(const float* coords, const float* scores,
+                    const float* lower, const float* gammas,
+                    const TermSigns& si, int n_iso, float aniso_sign,
+                    const float* thr, int n, int m, int T, float* acc,
+                    unsigned long long* c, cudaStream_t s) {
+  using Shape = AnisoShape<MM>;
+  const int rows = Shape::threads * Shape::rows;
+  const int row_blocks = (n + rows - 1) / rows;
+  int splits = (kAnisoTargetBlocks + row_blocks - 1) / row_blocks;
+  splits = max(1, min(splits, (n + Shape::cols - 1) / Shape::cols));
+  int split_len = (n + splits - 1) / splits;
+  split_len = (split_len + Shape::cols - 1) / Shape::cols * Shape::cols;
+  splits = (n + split_len - 1) / split_len;
+  const dim3 grid(row_blocks, splits);
+  if constexpr (kExact) {
+    if (n_iso == 1) {
+      launch_one_pass_t<MM, kExact, 1>(grid, coords, scores, lower, gammas,
+                                       si, n_iso, aniso_sign, thr, n, m, T,
+                                       split_len, acc, c, s);
+      return static_cast<int>(cudaGetLastError());
+    }
+  }
+  launch_one_pass_t<MM, kExact, 0>(grid, coords, scores, lower, gammas, si,
+                                   n_iso, aniso_sign, thr, n, m, T,
+                                   split_len, acc, c, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -318,55 +387,26 @@ extern "C" {
 // device; iso_signs (n_iso,) a HOST array and aniso_sign a number, passed
 // by value; acc a zeroed (m, n) float32 buffer that receives n phi^T;
 // counts a zeroed int64 (T,) buffer that receives the counts of all n^2
-// ordered pairs. m = 2 or 11, 0 <= n_iso <= 16, 1 <= T <= 8.
+// ordered pairs. 1 <= m <= 64, 0 <= n_iso <= 16, 1 <= T <= 8.
 int svgd_fused_phi_aniso_terms_sym(const float* coords, const float* scores,
                                    const float* lower, const float* gammas,
                                    const float* iso_signs, int n_iso,
                                    float aniso_sign, const float* thr, int n,
                                    int m, int T, float* acc,
                                    long long* counts, void* stream) {
-  if (n <= 0 || T < 1 || T > kMaxT || n_iso < 0 || n_iso > kMaxTerms ||
-      (m != 2 && m != 11)) {
+  if (n <= 0 || T < 1 || T > kMaxT || n_iso < 0 || n_iso > kMaxTerms) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const TermSigns si = make_signs(iso_signs, n_iso);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* c = reinterpret_cast<unsigned long long*>(counts);
-  const int rows = kAnisoThreads * (m == 2 ? AnisoRows<2>::value
-                                           : AnisoRows<11>::value);
-  const int row_blocks = (n + rows - 1) / rows;
-  int splits = (kAnisoTargetBlocks + row_blocks - 1) / row_blocks;
-  splits = max(1, min(splits, (n + kAnisoCols - 1) / kAnisoCols));
-  int split_len = (n + splits - 1) / splits;
-  split_len = (split_len + kAnisoCols - 1) / kAnisoCols * kAnisoCols;
-  splits = (n + split_len - 1) / split_len;
-  const dim3 grid(row_blocks, splits);
-#define SVGD_LAUNCH_ONE(MM_, NI_, KT_)                                     \
-  fused_phi_aniso_terms_sym_kernel<MM_, NI_, KT_>                          \
-      <<<grid, kAnisoThreads, 0, s>>>(coords, scores, lower, gammas, si,   \
-                                      n_iso, aniso_sign, thr, n, T,        \
-                                      split_len, acc, c)
-#define SVGD_LAUNCH_ONE_T(MM_, NI_)                                        \
-  if (T <= 3) {                                                            \
-    SVGD_LAUNCH_ONE(MM_, NI_, 3);                                          \
-  } else {                                                                 \
-    SVGD_LAUNCH_ONE(MM_, NI_, kMaxT);                                      \
-  }
-#define SVGD_LAUNCH_ONE_M(MM_)                                             \
-  if (n_iso == 1) {                                                        \
-    SVGD_LAUNCH_ONE_T(MM_, 1)                                              \
-  } else {                                                                 \
-    SVGD_LAUNCH_ONE_T(MM_, 0)                                              \
-  }
-  if (m == 2) {
-    SVGD_LAUNCH_ONE_M(2)
-  } else {
-    SVGD_LAUNCH_ONE_M(11)
-  }
-#undef SVGD_LAUNCH_ONE_M
-#undef SVGD_LAUNCH_ONE_T
+#define SVGD_LAUNCH_ONE(MM_, EX_)                                          \
+  return launch_one_pass<MM_, EX_>(coords, scores, lower, gammas, si,      \
+                                   n_iso, aniso_sign, thr, n, m, T, acc,   \
+                                   c, s)
+  SVGD_DISPATCH_M_2_11(m, SVGD_LAUNCH_ONE)
 #undef SVGD_LAUNCH_ONE
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The term-group sweep over one particle set: any composition with

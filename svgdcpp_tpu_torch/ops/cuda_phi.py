@@ -17,11 +17,10 @@ Pallas kernels of the package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
     upper-triangle sweep, whose kernel is in ``csrc/terms_sym.cuh``.
   * ``fused_phi_aniso_terms_sym`` (``csrc/fused_phi_aniso.cu``) --
     ``_sym_aniso_terms_kernel`` (K14): the sweep of a composed kernel with
-    anisotropic (full-P) terms. With one anisotropic term at m = 2 or 11
-    (ONE_PASS_M) a one-pass kernel (every ordered pair once, both term
-    groups in one pass, n phi and all n^2 counts out); otherwise the terms
-    triangle kernel's body under its own name, with one term group per
-    anisotropic term.
+    anisotropic (full-P) terms. With one anisotropic term a one-pass kernel
+    (every ordered pair once, both term groups in one pass, n phi and all
+    n^2 counts out); with more the terms triangle kernel's body under its
+    own name, with one term group per anisotropic term.
   * ``phi_rbf_square``          (``csrc/phi_rbf.cu``) -- ``_phi_kernel``
     (K15): the square sweep of one RBF with a full, fixed P, no counts.
   * ``fused_phi_counts_sympanel`` (``csrc/fused_phi_panel.cu``) --
@@ -59,8 +58,8 @@ raises. There is no fallback from the card to the plain version.
 
 The quadratic forms of K14 and K15 come from factors prepared in float64
 (``cholesky_factors``, which the driver keeps while a constant P stays the
-same, and ``cholesky_rows``; ``eigen_rows``), so each kernel takes the
-difference form of its form. ``eigen_rows`` decomposes an (m, m) matrix on the host
+same; ``eigen_rows``), so each kernel takes the difference form of its
+form. ``eigen_rows`` decomposes an (m, m) matrix on the host
 (``symmetric_eigen``) unless the caller passes the decomposition: the
 ``cuda`` route reads P on the host once per step for a HESSIAN scale only.
 
@@ -77,7 +76,7 @@ import torch
 
 from ..kernels.algebra import MAX_RBF_TERMS
 from ..utils.cuda_build import CSRC_DIR, build_library, library_path
-from .median import count_le_plain, count_le_self_plain
+from .median import count_le_plain
 from .phi import (
     panel_index,
     phi_rbf_aniso_terms_fused_counts,
@@ -111,9 +110,6 @@ MAX_T = 8
 COUNT_MAX_T = 32
 MAX_TERMS = MAX_RBF_TERMS
 MAX_ANISO_TERMS = 8
-
-#: Dimensions at which one anisotropic term takes the one-pass kernel.
-ONE_PASS_M = (2, 11)
 
 SQUARE_KERNEL = "fused_phi_counts_square"
 SYM_KERNEL = "fused_phi_counts_sym"
@@ -198,8 +194,8 @@ def load_library() -> ctypes.CDLL:
                     + [ptr] * 3,
                 "svgd_fused_phi_counts_sympanel_chunk":
                     [ptr] * 4 + [i32] * 7 + [ptr] * 3,
-                "svgd_count_le_cross": [ptr] * 4 + [i32] * 5 + [ptr] * 2,
-                "svgd_count_le_self": [ptr] * 3 + [i32] * 4 + [ptr] * 2,
+                "svgd_count_le_cross": [ptr] * 4 + [i32] * 4 + [ptr] * 2,
+                "svgd_count_le_self": [ptr] * 3 + [i32] * 3 + [ptr] * 2,
                 "svgd_sym_tile": [i32] * 2,
             }
             for fn, argtypes in signatures.items():
@@ -324,15 +320,6 @@ def cholesky_factors(p_matrices, device):
     ])
     lower, _ = torch.linalg.cholesky_ex(0.5 * (p + p.transpose(-1, -2)))
     return lower
-
-
-def cholesky_rows(coords_c, p_matrices, lowers=None):
-    """The term-group kernel's operands: (z (T, n, m), L (T, m, m)) in
-    float64, z_t = coords_c L_t, from ``lowers`` where the caller keeps
-    them, else from :func:`cholesky_factors`."""
-    if lowers is None:
-        lowers = cholesky_factors(p_matrices, coords_c.device)
-    return coords_c.to(torch.float64) @ lowers, lowers
 
 
 def symmetric_eigen(p_matrix):
@@ -501,18 +488,12 @@ def _sympanel_launch(coords, scores, gammas, signs, thresholds_sq,
     return phi.to(coords.dtype), counts
 
 
-def one_pass_aniso(n_aniso, m):
-    """Whether the anisotropic sweep takes the one-pass kernel: one
-    anisotropic term (with any isotropic ones) at m in ONE_PASS_M."""
-    return n_aniso == 1 and m in ONE_PASS_M
-
-
 def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
                   aniso_signs, thresholds_sq, lowers):
     """K14: the one-pass kernel, or the term-group triangle kernel."""
     g, thr = _device_operands(coords, scores, iso_gammas, thresholds_sq,
                               min_terms=0)
-    n_aniso = len(aniso_ps)
+    n_aniso = len(aniso_signs)
     if not 1 <= n_aniso <= MAX_ANISO_TERMS:
         raise ValueError(
             f"the anisotropic CUDA sweep takes 1 to {MAX_ANISO_TERMS} "
@@ -524,7 +505,7 @@ def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
     coords_c = _centered32(coords).contiguous()
     sc32 = scores.to(torch.float32).contiguous()
     lib = load_library()
-    if one_pass_aniso(n_aniso, m):
+    if n_aniso == 1:
         acc = torch.zeros((m, n), dtype=torch.float32, device=coords.device)
         counts = torch.zeros(thr.shape[0], dtype=torch.int64,
                              device=coords.device)
@@ -541,8 +522,7 @@ def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
         launch_counts[ANISO_KERNEL] += 1
         # acc = n phi^T: KS + 2 D_iso + 2 D_z L^T over every ordered pair.
         return (acc.T / n).to(coords.dtype), counts
-    z64, lower = cholesky_rows(coords_c, aniso_ps, lowers)
-    z = z64.to(torch.float32).contiguous()
+    z = (coords_c.to(torch.float64) @ lowers).to(torch.float32).contiguous()
     acc = torch.zeros((1 + n_aniso, 2 * m, n), dtype=torch.float32,
                       device=coords.device)
     upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=coords.device)
@@ -565,7 +545,7 @@ def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
         float(s) for s in aniso_signs
     )
     grad_aniso = torch.einsum(
-        "tkn,tlk->nl", acc[1:, m:].to(torch.float64), lower
+        "tkn,tlk->nl", acc[1:, m:].to(torch.float64), lowers
     )
     phi = (acc[:, :m].sum(dim=0).T - s_total * sc32 + 2.0 * acc[0, m:].T
            + 2.0 * grad_aniso.to(torch.float32)) / n
@@ -702,26 +682,21 @@ def phi_rbf_aniso_terms_fused_cuda(coords, scores, iso_gammas, iso_signs,
     tensors on the card, never read on the host), ``aniso_ps`` (m, m)
     precisions, each positive definite; the signs are Python numbers;
     ``lowers`` the factors ``cholesky_factors(aniso_ps)`` where the caller
-    keeps them (a constant P), else they are factored here. On a CUDA
-    tensor: the kernel fused_phi_aniso_terms_sym, in float32, one pass for
-    one anisotropic term at m in ONE_PASS_M, the term groups otherwise;
-    with no anisotropic term (a hot-swap may leave none), the terms triangle
-    kernel, which computes the same function. On a CPU tensor: the plain
-    ``phi_rbf_aniso_terms_fused_counts``, in the one-pass kernel's factor
-    form (``phi_rbf_factor``) where that kernel would run.
+    keeps them (a constant P; ``aniso_ps`` may then be None), else they are
+    factored here. On a CUDA tensor, in float32: the kernel
+    fused_phi_aniso_terms_sym, in one pass for one anisotropic term, in
+    term groups for more; with no anisotropic term (a hot-swap may leave
+    none), the terms triangle kernel, which computes the same function. On
+    a CPU tensor: the plain ``phi_rbf_aniso_terms_fused_counts``, in the
+    factor form (``phi_rbf_factor``) where ``lowers`` are given.
     """
     if coords.device.type == "cpu":
-        if aniso_ps and one_pass_aniso(len(aniso_ps), coords.shape[1]):
-            if lowers is None:
-                lowers = cholesky_factors(aniso_ps, coords.device)
-        else:
-            lowers = None
         return phi_rbf_aniso_terms_fused_counts(
             coords, scores, iso_gammas, iso_signs, aniso_ps, aniso_signs,
             thresholds_sq, lowers=lowers,
         )
     _require_cuda(coords)
-    if not aniso_ps:
+    if not aniso_signs:
         return _sym_launch(coords, scores, iso_gammas, iso_signs,
                            thresholds_sq)
     return _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
@@ -895,7 +870,7 @@ def count_batches(thr):
         yield t0, part, order.to(torch.int32)
 
 
-def count_le_cuda(rows_coords, cols_coords, thresholds, design=0):
+def count_le_cuda(rows_coords, cols_coords, thresholds):
     """int64 counts (T,) of ``||r_i - c_j||^2 <= t`` over all pairs of rows
     and columns, for each threshold t.
 
@@ -907,16 +882,9 @@ def count_le_cuda(rows_coords, cols_coords, thresholds, design=0):
     the cross form. On CUDA tensors: the kernel count_le_cross at any m
     (differences up to m = 4, the FP32 Gram identity above, with the
     dimensions in slices past MAX_M), one launch per COUNT_MAX_T
-    thresholds, each launch's thresholds sorted on the device; ``design``
-    0 lets the kernel choose its threshold work by T, 1 and 2 force the
-    predicated or the binned design (for timing both). On CPU tensors the
-    plain versions: ``ops/median.count_le_self_plain`` for one set up to
-    MAX_M (past it the kernel counts one set in the cross form), else
-    ``count_le_plain``."""
-    same = rows_coords is cols_coords
+    thresholds, each launch's thresholds sorted on the device. On CPU
+    tensors: the plain pass ``ops/median.count_le_plain``."""
     if rows_coords.device.type == "cpu":
-        if same and rows_coords.shape[1] <= MAX_M:
-            return count_le_self_plain(rows_coords, thresholds)
         return count_le_plain(rows_coords, cols_coords, thresholds)
     _require_cuda(rows_coords)
     if (rows_coords.ndim != 2 or cols_coords.ndim != 2
@@ -941,6 +909,7 @@ def count_le_cuda(rows_coords, cols_coords, thresholds, design=0):
     cols32 = cols_coords.to(torch.float32)
     center = cols32.mean(dim=0)
     cols_c = (cols32 - center).contiguous()
+    same = rows_coords is cols_coords
     rows_c = cols_c if same else (
         rows_coords.to(torch.float32) - center).contiguous()
     lib = load_library()
@@ -951,12 +920,12 @@ def count_le_cuda(rows_coords, cols_coords, thresholds, design=0):
             if same:
                 rc = lib.svgd_count_le_self(
                     cols_c.data_ptr(), part.data_ptr(), order.data_ptr(),
-                    n_c, m, part.shape[0], design, out.data_ptr(), stream,
+                    n_c, m, part.shape[0], out.data_ptr(), stream,
                 )
             else:
                 rc = lib.svgd_count_le_cross(
                     rows_c.data_ptr(), cols_c.data_ptr(), part.data_ptr(),
-                    order.data_ptr(), n_r, n_c, m, part.shape[0], design,
+                    order.data_ptr(), n_r, n_c, m, part.shape[0],
                     out.data_ptr(), stream,
                 )
             _check_launch(rc, COUNT_KERNEL)

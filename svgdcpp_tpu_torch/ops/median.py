@@ -107,28 +107,24 @@ def count_le_plain(rows_coords, cols_coords, thresholds, *,
     row_tile = auto_row_tile(n_c, row_tile)
     row_norms = torch.sum(rows_coords * rows_coords, dim=1)
     col_norms = torch.sum(cols_coords * cols_coords, dim=1)
-    thr_sorted, order = torch.sort(torch.as_tensor(
-        thresholds, device=rows_coords.device).to(rows_coords.dtype))
-    hist = torch.zeros(thr_sorted.shape[0] + 1, dtype=torch.int64,
-                       device=rows_coords.device)
-    for start in range(0, n_r, row_tile):
-        hist = hist + _bin_histogram(
-            rows_coords[start : start + row_tile],
-            row_norms[start : start + row_tile], cols_coords, col_norms,
-            thr_sorted,
-        )
-    return counts_from_bins(hist, order)
-
-
-def _bin_histogram(rows, row_norms, cols, col_norms, thr_sorted):
-    """int64 histogram (T + 1,) of the rows x cols pairs' bins: bin b holds
-    thr_sorted[b-1] < sq <= thr_sorted[b], sq by the Gram identity."""
-    sq = torch.clamp_min(
-        row_norms[:, None] + col_norms[None, :] - 2.0 * sq_matmul(rows, cols.T),
-        0.0,
+    num_t = thresholds.shape[0]
+    thr = torch.as_tensor(thresholds, device=rows_coords.device).to(
+        rows_coords.dtype
     )
-    bins = torch.bucketize(sq, thr_sorted, out_int32=True)
-    return torch.bincount(bins.reshape(-1), minlength=thr_sorted.shape[0] + 1)
+    thr_sorted, order = torch.sort(thr)
+    hist = torch.zeros(num_t + 1, dtype=torch.int64, device=rows_coords.device)
+    for start in range(0, n_r, row_tile):
+        rows = rows_coords[start : start + row_tile]
+        gram = sq_matmul(rows, cols_coords.T)
+        sq = torch.clamp_min(
+            row_norms[start : start + row_tile, None] + col_norms[None, :]
+            - 2.0 * gram,
+            0.0,
+        )
+        # bin b holds thr_sorted[b-1] < sq <= thr_sorted[b]
+        bins = torch.bucketize(sq, thr_sorted, out_int32=True)
+        hist += torch.bincount(bins.reshape(-1), minlength=num_t + 1)
+    return counts_from_bins(hist, order)
 
 
 def counts_from_bins(hist, order):
@@ -141,31 +137,6 @@ def counts_from_bins(hist, order):
     counts = torch.empty(num_t, dtype=torch.int64, device=order.device)
     counts[order] = torch.cumsum(hist[:num_t], dim=0)
     return counts
-
-
-def count_le_self_plain(coords, thresholds, *, tile: int = 1024):
-    """``count_le_plain(coords, coords, thresholds)`` by the count kernel's
-    self schedule (``svgd_count_le_self``), the plain version of that
-    entry: the upper triangle of ``tile`` x ``tile`` blocks, an
-    off-diagonal block counted once and added twice, a diagonal block
-    counted in full (both orders and the diagonal, whose sq the Gram
-    identity need not make 0), so the counts are 2U + diag. sq is
-    symmetric, so on inputs where the products are exact the counts equal
-    the plain pass's."""
-    x = coords - coords.mean(dim=0)
-    n = x.shape[0]
-    norms = torch.sum(x * x, dim=1)
-    thr_sorted, order = torch.sort(torch.as_tensor(
-        thresholds, device=x.device).to(x.dtype))
-    hist = torch.zeros(thr_sorted.shape[0] + 1, dtype=torch.int64,
-                       device=x.device)
-    for i0 in range(0, n, tile):
-        rows, row_norms = x[i0 : i0 + tile], norms[i0 : i0 + tile]
-        for j0 in range(i0, n, tile):
-            block = _bin_histogram(rows, row_norms, x[j0 : j0 + tile],
-                                   norms[j0 : j0 + tile], thr_sorted)
-            hist = hist + (block if j0 == i0 else 2 * block)
-    return counts_from_bins(hist, order)
 
 
 def _first_true(mask: torch.Tensor, dim: int = -1) -> torch.Tensor:

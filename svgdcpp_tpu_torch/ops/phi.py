@@ -750,19 +750,21 @@ def phi_rbf_aniso_terms_fused_counts(
     phi (:func:`phi_rbf_cross` with P_t, its form clamped at zero: the
     route's gate proves every term positive definite), or with ``lowers``
     (the factors L_t of P_t's symmetric half, ``ops/cuda_phi.
-    cholesky_factors``) by :func:`phi_rbf_factor`, the one-pass kernel's
-    arithmetic. All stream over row tiles; float32 and float64 both run.
-    Returns (phi (n, m), counts (E,) int64).
+    cholesky_factors``; ``aniso_ps`` may then be None) by
+    :func:`phi_rbf_factor`, the one-pass kernel's arithmetic. All stream
+    over row tiles; float32 and float64 both run. Returns (phi (n, m),
+    counts (E,) int64).
     """
     phi, counts = phi_rbf_terms_fused_counts(
         coords, scores, list(iso_gammas), list(iso_signs), thresholds_sq,
         row_tile,
     )
-    for t, (p, sign) in enumerate(zip(aniso_ps, aniso_signs)):
+    for t, sign in enumerate(aniso_signs):
         if lowers is not None:
             term = phi_rbf_factor(coords, scores, lowers[t], row_tile)
         else:
-            p = torch.as_tensor(p, dtype=coords.dtype, device=coords.device)
+            p = torch.as_tensor(aniso_ps[t], dtype=coords.dtype,
+                                device=coords.device)
             term = phi_rbf_cross(coords, coords, scores, p, row_tile,
                                  psd=True)
         phi = phi + float(sign) * term

@@ -174,6 +174,15 @@ def _aniso_accumulators(split) -> int:
     return (1 if iso_idx else 0) + len(aniso_idx)
 
 
+def _same_slots(a, b) -> bool:
+    """Whether two factor keys (per term, its (slot tensor, sign) pairs)
+    name the same tensors with the same signs in the same terms."""
+    return len(a) == len(b) and all(
+        len(ta) == len(tb) and all(
+            pa is pb and sa == sb for (pa, sa), (pb, sb) in zip(ta, tb))
+        for ta, tb in zip(a, b))
+
+
 def _check_aniso_split(split) -> None:
     """Raise for a split the CUDA anisotropic sweep does not take."""
     n_w = _aniso_accumulators(split)
@@ -635,18 +644,17 @@ class SVGD:
     def _aniso_factors(self, kparams, plists):
         """cholesky_factors of the anisotropic terms' precisions for the
         fused anisotropic sweep, kept while the step sums the same slot
-        tensors: a constant P is factored once, and a hot-swap or a new
-        run() that brings new tensors renews them. The key is the slots
-        and their signs, not term_precision's result, which may be a new
-        tensor every step. None where a hot-swap left no such term."""
+        tensors in the same terms: a constant P is factored once, and a
+        hot-swap or a new run() that brings new tensors renews them. The
+        key is each term's slots (the tensors themselves) and signs, not
+        term_precision's result, which may be a new tensor every step. None
+        where a hot-swap left no such term."""
         if not plists:
             return None
-        key = [(kparams[idx], sign) for plist in plists for idx, sign in plist]
+        key = tuple(tuple((kparams[idx], sign) for idx, sign in plist)
+                    for plist in plists)
         cached = getattr(self, "_aniso_factor_cache", None)
-        if cached is None or len(cached[0]) != len(key) or any(
-            a is not b or sa != sb
-            for (a, sa), (b, sb) in zip(cached[0], key)
-        ):
+        if cached is None or not _same_slots(cached[0], key):
             ps = [term_precision(plist, kparams) for plist in plists]
             self._aniso_factor_cache = (key,
                                         cholesky_factors(ps, ps[0].device))
@@ -750,16 +758,16 @@ class SVGD:
                     )
                 section("plan")
                 if fused_aniso:
-                    aniso_plists = [term_plists[i] for i in aniso_idx]
+                    # The kept factors stand for the precisions.
                     phi, counts = phi_rbf_aniso_terms_fused_cuda(
                         coords, scores,
                         [gammas[i] for i in iso_idx],
                         [term_signs[i] for i in iso_idx],
-                        [term_precision(plist, kparams)
-                         for plist in aniso_plists],
+                        None,
                         [term_signs[i] for i in aniso_idx],
                         thresholds,
-                        lowers=self._aniso_factors(kparams, aniso_plists),
+                        lowers=self._aniso_factors(
+                            kparams, [term_plists[i] for i in aniso_idx]),
                     )
                 elif fused_terms and on_kernels:
                     phi, counts = phi_rbf_terms_fused_cuda(

@@ -100,11 +100,16 @@ def _case(name):
     return x, s, iso, aniso, thr
 
 
-def _port(x, s, iso, aniso, thr, dtype):
+def _port(x, s, iso, aniso, thr, dtype, factored=False):
+    """The wrapper on CPU tensors: the closed form with each P, or with
+    ``factored`` the factor form from cholesky_factors, as the driver
+    passes its kept factors."""
     t = lambda a: torch.as_tensor(np.asarray(a, dtype))  # noqa: E731
+    ps = [t(p) for p, _ in aniso]
     return cuda_phi.phi_rbf_aniso_terms_fused_cuda(
-        t(x), t(s), [t(g) for g, _ in iso], [sg for _, sg in iso],
-        [t(p) for p, _ in aniso], [sg for _, sg in aniso], t(thr),
+        t(x), t(s), [t(g) for g, _ in iso], [sg for _, sg in iso], ps,
+        [sg for _, sg in aniso], t(thr),
+        lowers=cuda_phi.cholesky_factors(ps, "cpu") if factored else None,
     )
 
 
@@ -149,7 +154,9 @@ def test_operands_reproduce_the_quadratic_form():
 
     pd = [aniso_p(m, rng).astype(np.float64) for _ in range(2)]
     pd[1] = pd[1] + 0.2 * rng.normal(size=(m, m))  # not symmetric, still PD
-    z, lower = cuda_phi.cholesky_rows(x_c, [torch.from_numpy(p) for p in pd])
+    lower = cuda_phi.cholesky_factors([torch.from_numpy(p) for p in pd],
+                                      x_c.device)
+    z = x_c @ lower
     assert z.dtype == torch.float64 and tuple(z.shape) == (2, n, m)
     for t, p in enumerate(pd):
         want = form(p)
@@ -288,21 +295,20 @@ def _one_term_case(m, offset, iso):
 
 @pytest.mark.parametrize("m,offset,iso", [
     (2, 0.0, [(0.7, 1.0)]), (2, 40.0, []), (11, 3.0, [(0.1, 1.0)]),
-    (11, 0.0, [(0.1, 1.0), (0.05, -0.4)]),
+    (11, 0.0, [(0.1, 1.0), (0.05, -0.4)]), (5, 2.0, [(0.3, 1.0)]),
 ])
 def test_one_pass_plain_version_vs_oracle_and_pallas(m, offset, iso):
-    """Where one anisotropic term takes the one-pass kernel (m in
-    ONE_PASS_M), the wrapper's CPU branch runs its arithmetic, the factor
-    form (phi_rbf_factor: z = x_c L, n phi = K s + 2 (sum_j k (z_i - z_j))
-    L^T, the kernel's in-kernel epilogue): in float64 within 1e-10 of the
+    """Given the factors, as the driver gives its kept ones, the wrapper's
+    CPU branch runs the one-pass kernel's arithmetic, the factor form
+    (phi_rbf_factor: z = x_c L, n phi = K s + 2 (sum_j k (z_i - z_j)) L^T,
+    the kernel's in-kernel epilogue): in float64 within 1e-10 of the
     oracle and of the closed form with P (phi_rbf_cross), counts equal; in
     float32 within 5e-4 of JAX's fused_aniso_terms_pallas in interpret
     mode."""
     x, s, iso, aniso, thr = _one_term_case(m, offset, iso)
-    assert cuda_phi.one_pass_aniso(1, m)
     phi_ref, cnt_ref = oracle(x, s, iso, aniso, thr)
     scale = np.abs(phi_ref).max()
-    phi64, cnt64 = _port(x, s, iso, aniso, thr, np.float64)
+    phi64, cnt64 = _port(x, s, iso, aniso, thr, np.float64, factored=True)
     assert np.abs(phi64.numpy() - phi_ref).max() / scale < 1e-10
     np.testing.assert_array_equal(cnt64.numpy(), cnt_ref)
     t = lambda a: torch.as_tensor(np.asarray(a, np.float64))  # noqa: E731
@@ -311,7 +317,7 @@ def test_one_pass_plain_version_vs_oracle_and_pallas(m, offset, iso):
         [t(p) for p, _ in aniso], [sg for _, sg in aniso], t(thr),
     )
     assert np.abs(phi64.numpy() - closed.numpy()).max() / scale < 1e-10
-    phi32, _ = _port(x, s, iso, aniso, thr, np.float32)
+    phi32, _ = _port(x, s, iso, aniso, thr, np.float32, factored=True)
     phi_j, _ = phi_rbf_aniso_terms_fused_pallas(
         jnp.asarray(x), jnp.asarray(s), tuple(jnp.float32(g) for g, _ in iso),
         tuple(sg for _, sg in iso), tuple(jnp.asarray(p) for p, _ in aniso),
@@ -325,12 +331,12 @@ def test_one_pass_plain_version_vs_oracle_and_pallas(m, offset, iso):
 def test_kept_factor_gives_the_fresh_factors_phi():
     """The driver keeps cholesky_factors of the step's precision (the
     state's own tensor), and the sweep from the kept factor equals the one
-    that factors afresh."""
+    from a fresh factor, and the closed form with P within 1e-5."""
     x0, p_aniso = _driver_inputs(200)
     svgd = _driver(st, x0, p_aniso, "fused_aniso_terms_cuda", 2).initialize()
     svgd.run()
     key, lowers = svgd._aniso_factor_cache
-    (p_state, sign), = key
+    ((p_state, sign),), = key
     assert p_state is svgd.kernel.parameters[1] and sign == 1
     np.testing.assert_array_equal(
         lowers.numpy(), cuda_phi.cholesky_factors([p_state], "cpu").numpy()
@@ -341,11 +347,40 @@ def test_kept_factor_gives_the_fresh_factors_phi():
     thr = torch.tensor([0.5, 2.0, 8.0])
     g = [torch.tensor(0.3)]
     kept = cuda_phi.phi_rbf_aniso_terms_fused_cuda(
-        x, s, g, (1.0,), [p_state], (1.0,), thr, lowers=lowers)
+        x, s, g, (1.0,), None, (1.0,), thr, lowers=lowers)
     fresh = cuda_phi.phi_rbf_aniso_terms_fused_cuda(
-        x, s, g, (1.0,), [p_state], (1.0,), thr)
+        x, s, g, (1.0,), [p_state], (1.0,), thr,
+        lowers=cuda_phi.cholesky_factors([p_state], "cpu"))
     for a, b in zip(kept, fresh):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+    closed = cuda_phi.phi_rbf_aniso_terms_fused_cuda(
+        x, s, g, (1.0,), [p_state], (1.0,), thr)
+    scale = float(closed[0].abs().max())
+    assert float((kept[0] - closed[0]).abs().max()) <= 1e-5 * scale
+    np.testing.assert_array_equal(kept[1].numpy(), closed[1].numpy())
+
+
+def test_kept_factor_key_keeps_the_terms_apart():
+    """One term P1 + P2 and two terms P1, P2 over the same slot tensors are
+    different keys: each composition gets its own factors (one, then two),
+    and the same composition again keeps them."""
+    x0, p_aniso = _driver_inputs(50)
+    svgd = _driver(st, x0, p_aniso, "fused_aniso_terms_cuda", 1)
+    rng = np.random.default_rng(8)
+    p1 = torch.from_numpy(aniso_p(2, rng).astype(np.float64))
+    p2 = torch.from_numpy(aniso_p(2, rng).astype(np.float64))
+    kparams = (None, p1, p2)
+    one = svgd._aniso_factors(kparams, [[(1, 1), (2, 1)]])
+    assert one.shape[0] == 1
+    np.testing.assert_allclose((one[0] @ one[0].T).numpy(),
+                               (p1 + p2).numpy(), rtol=1e-12)
+    two = svgd._aniso_factors(kparams, [[(1, 1)], [(2, 1)]])
+    assert two.shape[0] == 2
+    for lower, p in zip(two, (p1, p2)):
+        np.testing.assert_allclose((lower @ lower.T).numpy(), p.numpy(),
+                                   rtol=1e-12)
+    assert svgd._aniso_factors(kparams, [[(1, 1)], [(2, 1)]]) is two
+    assert svgd._aniso_factors(kparams, [[(1, 1)], [(2, -1)]]) is not two
 
 
 def test_kept_factor_is_renewed_with_a_new_precision(monkeypatch):

@@ -11,12 +11,12 @@
   neither on the CPU nor on a CUDA device it raises: no fallback.
 * More thresholds than one kernel launch takes (COUNT_MAX_T) and unsorted
   ones count as the plain pass does.
-* The self form (one set as rows and columns, the single-device median's
-  every pass): its plain schedule (2U + diag over tile pairs) against the
-  plain pass, brute force and ``count_le_pallas``; the wrapper's dispatch
-  to the self and cross entries through a stand-in library; the sorted
-  launches (``count_batches``) and the bin ending (``counts_from_bins``)
-  giving counts in the caller's order.
+* One set as rows and columns (the single-device median's every pass):
+  the wrapper's CPU branch, the plain pass, against the brute-force
+  2U + diag and ``count_le_pallas`` on ragged n with awkward thresholds;
+  the wrapper's dispatch to the kernel's self and cross entries through a
+  stand-in library; the sorted launches (``count_batches``) and the bin
+  ending (``counts_from_bins``) giving counts in the caller's order.
 """
 
 from contextlib import nullcontext
@@ -140,7 +140,7 @@ def test_median_selectors_count_through_count_le_cross(monkeypatch):
 
 
 # ----------------------------------------------------------------------
-# The self form (svgd_count_le_self) and the sorted launches
+# One set as rows and columns, and the sorted launches
 # ----------------------------------------------------------------------
 
 
@@ -161,22 +161,22 @@ def awkward_thresholds(x, count, seed):
     return torch.from_numpy(rng.permutation(t).astype(np.float32))
 
 
-@pytest.mark.parametrize("n,m,offset,tile", [
+@pytest.mark.parametrize("n,m,offset,row_tile", [
     (1, 2, 0.0, 8), (97, 1, 3.0, 16), (301, 2, 5.0, 64), (257, 4, -2.0, 40),
     (203, 5, 1.0, 32), (150, 11, 2.0, 64),
 ])
-def test_self_schedule_is_two_upper_plus_diagonal(n, m, offset, tile):
-    """count_le_self_plain (the self entry's plain version: the upper
-    triangle of tile pairs, off-diagonal blocks twice, diagonal blocks in
-    full) on ragged n off origin equals the plain pass, the brute-force
-    2U + diag, and the JAX count_le_pallas in interpret mode, with
-    unsorted, duplicate, negative and past-the-largest thresholds."""
+def test_one_set_counts_two_upper_plus_diagonal(n, m, offset, row_tile):
+    """One set as rows and columns, through the wrapper's CPU branch (the
+    plain pass, over row tiles of ``row_tile``) on ragged n off origin:
+    the brute-force 2U + diag, which the kernel's self entry forms, and
+    the JAX count_le_pallas in interpret mode, with unsorted, duplicate,
+    negative and past-the-largest thresholds."""
     x = grid_points(n, m, 50 + m, offset)
     thr = awkward_thresholds(x, 7, 60 + m)
     xt = torch.from_numpy(x)
-    got = mdt.count_le_self_plain(xt, thr, tile=tile)
-    np.testing.assert_array_equal(got.numpy(),
-                                  mdt.count_le_plain(xt, xt, thr).numpy())
+    got = cuda_phi.count_le_cuda(xt, xt, thr)
+    np.testing.assert_array_equal(
+        got.numpy(), mdt.count_le_plain(xt, xt, thr, row_tile=row_tile).numpy())
     sq = ((xt[:, None, :].double() - xt[None, :, :].double()) ** 2).sum(-1)
     upper = torch.triu(torch.ones(n, n, dtype=torch.bool), diagonal=1)
     diag = torch.eye(n, dtype=torch.bool)
@@ -230,14 +230,13 @@ def _standin_library(monkeypatch):
     launched = []
 
     class Library:
-        def svgd_count_le_self(self, x, thr, order, n, m, t, design, counts,
-                               stream):
-            launched.append(("self", n, m, t, design))
+        def svgd_count_le_self(self, x, thr, order, n, m, t, counts, stream):
+            launched.append(("self", n, m, t))
             return 0
 
         def svgd_count_le_cross(self, rows, cols, thr, order, n_r, n_c, m,
-                                t, design, counts, stream):
-            launched.append(("cross", n_r, n_c, m, t, design))
+                                t, counts, stream):
+            launched.append(("cross", n_r, n_c, m, t))
             return 0
 
     monkeypatch.setattr(cuda_phi, "_require_cuda", lambda tensor: None)
@@ -258,9 +257,9 @@ def test_count_wrapper_takes_the_self_entry_for_one_set(monkeypatch, m):
     x = torch.empty((300, m), device="meta")
     thr = torch.empty((cuda_phi.COUNT_MAX_T + 1,), device="meta")
     cuda_phi.count_le_cuda(x, x, thr)
-    cuda_phi.count_le_cuda(x, x.clone(), thr[:5], design=2)
-    assert launched == [("self", 300, m, 32, 0), ("self", 300, m, 1, 0),
-                        ("cross", 300, 300, m, 5, 2)]
+    cuda_phi.count_le_cuda(x, x.clone(), thr[:5])
+    assert launched == [("self", 300, m, 32), ("self", 300, m, 1),
+                        ("cross", 300, 300, m, 5)]
     assert cuda_phi.launch_counts[cuda_phi.COUNT_KERNEL] == 3
     cuda_phi.reset_launch_counts()
 
@@ -279,26 +278,22 @@ def test_the_medians_count_envs_pick_their_entries(monkeypatch):
     local = torch.empty((200, 2), device="meta")
     count_fn, _ = mdt.centered_count_env(local, x, group=group, n_global=400)
     count_fn(thr)
-    assert launched == [("self", 400, 2, 17, 0),
-                        ("cross", 200, 400, 2, 17, 0)]
+    assert launched == [("self", 400, 2, 17), ("cross", 200, 400, 2, 17)]
     cuda_phi.reset_launch_counts()
 
 
-@pytest.mark.parametrize("m,self_form", [(11, True), (64, True),
-                                          (65, False)])
-def test_count_wrapper_on_cpu_takes_the_self_schedule(monkeypatch, m,
-                                                      self_form):
-    """On CPU tensors the wrapper's self form is the self entry's plain
-    version up to MAX_M (past it the kernel counts one set in the cross
-    form, and so does the plain pass), its cross form the plain pass."""
+@pytest.mark.parametrize("m", [11, 64, 65])
+def test_count_wrapper_on_cpu_takes_the_plain_pass(monkeypatch, m):
+    """On CPU tensors the wrapper runs the plain pass for one set and for
+    two alike, at any m; one set counts as its clone does."""
     calls = []
-    real_self = mdt.count_le_self_plain
-    monkeypatch.setattr(cuda_phi, "count_le_self_plain",
-                        lambda *a, **k: calls.append(m) or real_self(*a, **k))
+    real = mdt.count_le_plain
+    monkeypatch.setattr(cuda_phi, "count_le_plain",
+                        lambda *a, **k: calls.append(m) or real(*a, **k))
     x = torch.from_numpy(grid_points(130, m, 3, 2.0))
     thr = awkward_thresholds(x.numpy(), 9, 4)
     got = cuda_phi.count_le_cuda(x, x, thr)
     cross = cuda_phi.count_le_cuda(x, x.clone(), thr)
-    assert calls == ([m] if self_form else [])
+    assert calls == [m, m]
     np.testing.assert_array_equal(got.numpy(), cross.numpy())
     np.testing.assert_array_equal(got.numpy(), brute_counts(x, x, thr).numpy())

@@ -86,7 +86,7 @@ def test_count_wrapper_launches_past_max_m(monkeypatch, m):
 
     class Library:
         def svgd_count_le_cross(self, rows, cols, thr, order, n_r, n_c, m_,
-                                t, design, counts, stream):
+                                t, counts, stream):
             launched.append((n_r, n_c, m_, t))
             return 0
 
