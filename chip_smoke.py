@@ -44,8 +44,8 @@ thirty-one phases, one line each (several for phases 2, 3, 7-9 and
      against its plain version: m = 2 (iso + 1 aniso off origin, aniso
      only), m = 11 (the main path's shape (10240, 11), iso + 3 aniso, iso +
      7 aniso, a negative sign) and m = 50, and one anisotropic term at
-     m = 1, 3, 5, 16 and 32; one anisotropic term takes the one-pass
-     kernel, more the term-group kernel;
+     m = 1, 3, 5, 16 and 32; one anisotropic term up to m = 32 takes the
+     one-pass kernel, the others the term-group kernel;
  15. the fixed-P kernel (phi_rbf_square, K15's port) against phi_rbf /
      phi_rbf_blocked: isotropic (1500, 2), the HESSIAN scale of the d = 11
      target at (10240, 11), a full PD P at (1000, 50), an indefinite P with

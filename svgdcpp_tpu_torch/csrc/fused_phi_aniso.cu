@@ -40,11 +40,13 @@
 //
 // Two kernels. Isotropic terms and ONE anisotropic term (at most two
 // gradient accumulators; the anisotropic posterior's median RBF + RBF(P))
-// take the one-pass kernel fused_phi_aniso_terms_sym_kernel at any m up to
-// 64 (exact instances at m = 2 and 11, runtime-m ones with MM = 8, 16, 32
-// and 64 for the rest, as SVGD_DISPATCH_M_2_11 picks); two or more
-// anisotropic terms the term-group kernel
-// fused_phi_aniso_terms_groups_kernel.
+// take the one-pass kernel fused_phi_aniso_terms_sym_kernel up to m = 32
+// (exact instances at m = 2 and 11, runtime-m ones with MM = 8, 16 and 32
+// for the rest); two or more anisotropic terms, or one past m = 32, the
+// term-group kernel fused_phi_aniso_terms_groups_kernel. At MM = 64 the
+// one-pass kernel's row (5 x 64 sums and coordinates) spilled 3.2 KB and
+// ran 1.6-1.9x slower than the term groups at m = 50 and 64 (PERF.md
+// section 6); at MM = 32 it spills 156-216 B and still ran 1.2x faster.
 //
 // The one-pass kernel (svgd_fused_phi_aniso_terms_sym). Every ordered pair
 // (i, j) once, in one pass for both groups: the Euclidean difference d and
@@ -77,9 +79,9 @@
 // Thresholds are held at a compile-time count (3, or 8 padded with -1).
 // A runtime-m instance holds MM coordinates with zeros past m in x, z, s
 // and L, which add nothing to any sum; up to m = 4 its sq takes the plain
-// order as the exact instances do. Past MM = 16 a row's 5 MM sums and
-// coordinates exceed the registers (the compiler spills them) and a block
-// has fewer threads (AnisoShape).
+// order as the exact instances do. At MM = 32 a row's 5 MM sums and
+// coordinates exceed the registers (the compiler spills some) and a block
+// has 64 threads (AnisoShape).
 //
 // Work per unordered pair, as the term-group kernel runs it:
 // each term group
@@ -120,14 +122,14 @@ using namespace svgd;
 
 // The one-pass kernel's shape at MM: threads a block, rows a thread,
 // columns a shared stage holds, and a staged column's record
-// [x (MM) | z (MM) | s (MM)] padded to 16 bytes. Past MM = 16 fewer
-// threads and columns keep the stage, L (MM x MM) and each thread's two
-// scratch rows within 48 KB of static shared memory.
+// [x (MM) | z (MM) | s (MM)] padded to 16 bytes. At MM = 32 half the
+// threads and columns keep the stage and each thread's two scratch rows
+// within 48 KB of static shared memory.
 template <int MM>
 struct AnisoShape {
-  static constexpr int threads = MM <= 16 ? 128 : (MM <= 32 ? 64 : 32);
+  static constexpr int threads = MM <= 16 ? 128 : 64;
   static constexpr int rows = MM <= 2 ? 8 : 1;
-  static constexpr int cols = MM <= 16 ? 128 : (MM <= 32 ? 64 : 32);
+  static constexpr int cols = MM <= 16 ? 128 : 64;
   static constexpr int rec = (3 * MM + 3) / 4 * 4;
 };
 
@@ -387,7 +389,7 @@ extern "C" {
 // device; iso_signs (n_iso,) a HOST array and aniso_sign a number, passed
 // by value; acc a zeroed (m, n) float32 buffer that receives n phi^T;
 // counts a zeroed int64 (T,) buffer that receives the counts of all n^2
-// ordered pairs. 1 <= m <= 64, 0 <= n_iso <= 16, 1 <= T <= 8.
+// ordered pairs. 1 <= m <= 32, 0 <= n_iso <= 16, 1 <= T <= 8.
 int svgd_fused_phi_aniso_terms_sym(const float* coords, const float* scores,
                                    const float* lower, const float* gammas,
                                    const float* iso_signs, int n_iso,
@@ -404,7 +406,11 @@ int svgd_fused_phi_aniso_terms_sym(const float* coords, const float* scores,
   return launch_one_pass<MM_, EX_>(coords, scores, lower, gammas, si,      \
                                    n_iso, aniso_sign, thr, n, m, T, acc,   \
                                    c, s)
-  SVGD_DISPATCH_M_2_11(m, SVGD_LAUNCH_ONE)
+  if (m == 2) SVGD_LAUNCH_ONE(2, true);
+  if (m == 11) SVGD_LAUNCH_ONE(11, true);
+  if (m >= 1 && m <= 8) SVGD_LAUNCH_ONE(8, false);
+  if (m >= 9 && m <= 16) SVGD_LAUNCH_ONE(16, false);
+  if (m >= 17 && m <= 32) SVGD_LAUNCH_ONE(32, false);
 #undef SVGD_LAUNCH_ONE
   return static_cast<int>(cudaErrorInvalidValue);
 }

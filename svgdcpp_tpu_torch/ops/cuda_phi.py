@@ -17,10 +17,10 @@ Pallas kernels of the package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
     upper-triangle sweep, whose kernel is in ``csrc/terms_sym.cuh``.
   * ``fused_phi_aniso_terms_sym`` (``csrc/fused_phi_aniso.cu``) --
     ``_sym_aniso_terms_kernel`` (K14): the sweep of a composed kernel with
-    anisotropic (full-P) terms. With one anisotropic term a one-pass kernel
-    (every ordered pair once, both term groups in one pass, n phi and all
-    n^2 counts out); with more the terms triangle kernel's body under its
-    own name, with one term group per anisotropic term.
+    anisotropic (full-P) terms. With one anisotropic term up to m = 32 a
+    one-pass kernel (every ordered pair once, both term groups in one pass,
+    n phi and all n^2 counts out); otherwise the terms triangle kernel's
+    body under its own name, with one term group per anisotropic term.
   * ``phi_rbf_square``          (``csrc/phi_rbf.cu``) -- ``_phi_kernel``
     (K15): the square sweep of one RBF with a full, fixed P, no counts.
   * ``fused_phi_counts_sympanel`` (``csrc/fused_phi_panel.cu``) --
@@ -110,6 +110,11 @@ MAX_T = 8
 COUNT_MAX_T = 32
 MAX_TERMS = MAX_RBF_TERMS
 MAX_ANISO_TERMS = 8
+
+#: One anisotropic term takes K14's one-pass kernel up to this m; past it
+#: the term-group kernel, which ran 1.6-1.9x faster at m = 50 and 64, where
+#: the one-pass kernel's rows spill (PERF.md section 6, PR 9).
+ONE_PASS_MAX_M = 32
 
 SQUARE_KERNEL = "fused_phi_counts_square"
 SYM_KERNEL = "fused_phi_counts_sym"
@@ -505,7 +510,7 @@ def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
     coords_c = _centered32(coords).contiguous()
     sc32 = scores.to(torch.float32).contiguous()
     lib = load_library()
-    if n_aniso == 1:
+    if n_aniso == 1 and m <= ONE_PASS_MAX_M:
         acc = torch.zeros((m, n), dtype=torch.float32, device=coords.device)
         counts = torch.zeros(thr.shape[0], dtype=torch.int64,
                              device=coords.device)
@@ -684,8 +689,8 @@ def phi_rbf_aniso_terms_fused_cuda(coords, scores, iso_gammas, iso_signs,
     ``lowers`` the factors ``cholesky_factors(aniso_ps)`` where the caller
     keeps them (a constant P; ``aniso_ps`` may then be None), else they are
     factored here. On a CUDA tensor, in float32: the kernel
-    fused_phi_aniso_terms_sym, in one pass for one anisotropic term, in
-    term groups for more; with no anisotropic term (a hot-swap may leave
+    fused_phi_aniso_terms_sym, in one pass for one anisotropic term up to
+    ONE_PASS_MAX_M, in term groups otherwise; with no anisotropic term (a hot-swap may leave
     none), the terms triangle kernel, which computes the same function. On
     a CPU tensor: the plain ``phi_rbf_aniso_terms_fused_counts``, in the
     factor form (``phi_rbf_factor``) where ``lowers`` are given.

@@ -30,6 +30,9 @@
   renewed after a hot-swap.
 """
 
+from contextlib import nullcontext
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -465,3 +468,38 @@ def test_workload_is_the_scripts_draws():
                             got[3], num_iterations=1)
     assert svgd._phi_impl == "rbf_terms"
     assert svgd._auto_impl(on_cuda=True) == "fused_aniso_terms_cuda"
+
+
+@pytest.mark.parametrize("m,n_aniso,entry", [
+    (2, 1, "one_pass"), (5, 1, "one_pass"), (32, 1, "one_pass"),
+    (33, 1, "groups"), (50, 1, "groups"), (11, 2, "groups"),
+])
+def test_aniso_wrapper_picks_the_one_pass_kernel_up_to_32(monkeypatch, m,
+                                                          n_aniso, entry):
+    """On a CUDA tensor one anisotropic term up to ONE_PASS_MAX_M launches
+    the one-pass entry, anything else the term-group one (a stand-in
+    library; meta tensors stand in for the card)."""
+    launched = []
+
+    class Library:
+        def svgd_fused_phi_aniso_terms_sym(self, *args):
+            launched.append(("one_pass", args[9]))
+            return 0
+
+        def svgd_fused_phi_aniso_terms_groups(self, *args):
+            launched.append(("groups", args[10]))
+            return 0
+
+    monkeypatch.setattr(cuda_phi, "_require_cuda", lambda tensor: None)
+    monkeypatch.setattr(cuda_phi, "load_library", Library)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda: SimpleNamespace(cuda_stream=0))
+    x = torch.empty((300, m), device="meta")
+    lowers = torch.empty((n_aniso, m, m), dtype=torch.float64, device="meta")
+    thr = torch.empty((3,), device="meta")
+    cuda_phi.phi_rbf_aniso_terms_fused_cuda(
+        x, x, [torch.empty((), device="meta")], (1.0,), None,
+        (1.0,) * n_aniso, thr, lowers=lowers)
+    assert launched == [(entry, m)]
+    cuda_phi.reset_launch_counts()
