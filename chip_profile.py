@@ -3,7 +3,7 @@
 
     python3 chip_profile.py [--config mvn|large|hier|blr|aniso|hessian|sharded|count]
                             [--particles N] [--large] [--crossover] [--sass]
-                            [--out PATH]
+                            [--sweeps] [--out PATH]
 
 Drives one configuration of svgdcpp_tpu_torch at its full width:
 
@@ -77,6 +77,18 @@ and m = 5 (n = 131072) with two terms; wrapper ms, median of 5 calls
 between CUDA events after one warm-up call, three thresholds unless
 stated.
 
+With ``--sweeps`` it also times the terms triangle kernel
+(``fused_phi_terms_sym``, K8/K9's port) at n = 10000, two terms, T = 3,
+at m = 5, 11, 16, 32 and 50, and at m = 11 the terms panel kernel forced
+on the same inputs and the chunk kernel (K10/K11's port) at world 1 and
+each rank of world 2; then the fixed-P kernel (K15's port) as the
+``cuda`` route calls it, at the HESSIAN P of the d = 11 target at
+n = 10240 (decomposed in the wrapper) and at a median's gamma I at
+n = 1500, m = 2 (decomposition given): wrapper ms (median of 20 calls
+between CUDA events after 3 warm-up calls) and kernel-only us (the
+profiler's events of the kernel over 10 calls). Run from an older tree
+with this script copied in, it times that tree's kernels the same way.
+
 With ``--sass`` it also reads the machine code of the panel kernels'
 instances that paths A and B launch (one RBF at m = 2, exact, T = 3; the
 terms kernel at m = 11, exact, T = 3, two terms; in a tree without the
@@ -122,6 +134,12 @@ def union_us(intervals):
     return total
 
 
+#: The device functions of a launch counter where they differ from its
+#: name: K15's wrapper runs the triangle kernel phi_rbf_sym at m = 1-8 and
+#: 11 and the square one above.
+TRACE_NAMES = {"phi_rbf_square": ("phi_rbf_square", "phi_rbf_sym")}
+
+
 def device_timeline(trace_path, steps, sweep_name):
     """Busy us/step, idle share, device events/step and the sweep kernel's
     mean us per call from a chrome trace of ``steps`` steps."""
@@ -136,7 +154,8 @@ def device_timeline(trace_path, steps, sweep_name):
     busy = union_us(spans)
     span = max(e for _, e in spans) - min(s for s, _ in spans)
     sweep = [float(ev["dur"]) for ev in dev
-             if sweep_name + "_kernel" in ev.get("name", "")]
+             if any(name + "_kernel" in ev.get("name", "")
+                    for name in TRACE_NAMES.get(sweep_name, (sweep_name,)))]
     return {
         "device_busy_us_per_step": busy / steps,
         "device_span_us_per_step": span / steps,
@@ -477,6 +496,88 @@ def crossover(device):
     return rows
 
 
+def kernel_us(fn, name, calls=10):
+    """Mean device us of the kernels whose name holds ``name`` (the
+    profiler's events) over ``calls`` calls of ``fn``, after one."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    durs = [float(ev["dur"]) for ev in events
+            if ev.get("ph") == "X" and ev.get("cat") == "kernel"
+            and name in ev.get("name", "")]
+    return sum(durs) / calls if durs else None
+
+
+def sweeps(st, device):
+    """The terms triangle kernel over m, the terms panel and chunk kernels
+    at m = 11, and K15 at its main paths' shapes (see the module's
+    docstring)."""
+    import torch
+
+    from chip_smoke import sweep_inputs, time_ms
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.utils.workloads import aniso_mvn_workload
+
+    def timed(label, fn, kernel, **extra):
+        row = {"case": label, **extra,
+               "wrapper_ms": time_ms(fn, reps=20, warmup=3),
+               "kernel_us": kernel_us(fn, kernel)}
+        print(json.dumps(row), flush=True)
+        return row
+
+    rows = []
+    signs = (1.0, 1.0)
+    for m in (5, 11, 16, 32, 50):
+        x, s, g, thr = sweep_inputs(10000, m, 0.0, 600 + m, device)
+        gs = [g, torch.full_like(g, 0.1)]
+        rows.append(timed(
+            "terms_sym", lambda: cuda_phi.phi_rbf_terms_fused_cuda(
+                x, s, gs, signs, thr, sym=True),
+            "fused_phi_terms_sym_kernel", n=10000, m=m))
+        if m != 11:
+            continue
+        rows.append(timed(
+            "terms_sympanel", lambda: cuda_phi.phi_rbf_terms_fused_cuda(
+                x, s, gs, signs, thr, sym="panel"),
+            "fused_phi_terms_sympanel_kernel", n=10000, m=m))
+        for world, rank in ((1, 0), (2, 0), (2, 1)):
+            rows.append(timed(
+                "terms_sym_chunk",
+                lambda: cuda_phi.phi_rbf_terms_fused_sym_chunk_cuda(
+                    x, s, gs, signs, thr, world, rank),
+                "fused_phi_terms_sym_chunk_kernel", n=10000, m=m,
+                world=world, rank=rank))
+    mean, cov, x0, _ = aniso_mvn_workload(10240)
+    x = torch.tensor(x0, device=device)
+    model = st.MultivariateNormal(torch.tensor(mean, dtype=torch.float32),
+                                  torch.tensor(cov, dtype=torch.float32))
+    p_hess = st.GaussianRBFKernel(
+        x, st.ScaleMethod.HESSIAN, model).compute_scale_pure(x)
+    s = sweep_inputs(10240, 11, 0.0, 165, device)[1]
+    rows.append(timed(
+        "phi_rbf_hessian",
+        lambda: cuda_phi.phi_rbf_cuda(x, s, p_hess, psd=False),
+        "phi_rbf", n=10240, m=11))
+    x, s, g, _ = sweep_inputs(1500, 2, 0.0, 165, device)
+    p = g * torch.eye(2, device=device)
+    eig = (p.diagonal(), torch.eye(2, device=device))
+    rows.append(timed(
+        "phi_rbf_median",
+        lambda: cuda_phi.phi_rbf_cuda(x, s, p, psd=True, eig=eig),
+        "phi_rbf", n=1500, m=2))
+    return rows
+
+
 #: SASS opcode classes counted per loop by --sass.
 SASS_CLASSES = {
     "fp32": ("FADD", "FMUL", "FFMA", "FMNMX"),
@@ -549,7 +650,11 @@ def sass_loops(text, function, pairs_per=None, pair_class="mufu"):
 #: and 15 by the Gram identity at m = 11; the one-pass anisotropic kernel's
 #: (K14's port) instance of the anisotropic posterior, <MM=11, exact, one
 #: isotropic term, T=3> (in a tree without runtime-m instances, <11,1,3>),
-#: two ex2 a pair.
+#: two ex2 a pair; the terms triangle kernel's (K8/K9's port) instance of
+#: the hierarchical BLR, <MM=11, exact, T=3, two terms> (in a tree with the
+#: one-row-a-thread body, <11,1,0>: its row pass holds the pairs' ex2),
+#: two ex2 a pair; K15's instance of the HESSIAN cell, m = 11 exact, the
+#: triangle kernel (phi_rbf_sym) or the square one, one ex2 a pair.
 SASS_INSTANCES = (
     ("counts_sympanel<2,1,3>", "fused_phi_counts_sympanel_kernel",
      ("ILi2ELb1ELi3E", "ILi2ELb1EE"), 1),
@@ -563,6 +668,10 @@ SASS_INSTANCES = (
      ("ILi11ELb1ELb1ELb1ELi5E", "ILi11ELb1ELb1ELi32E"), ("fp32", 15)),
     ("aniso_terms_sym<11,1,1,3>", "fused_phi_aniso_terms_sym_kernel",
      ("ILi11ELb1ELi1ELi3E", "ILi11ELi1ELi3E"), 2),
+    ("terms_sym<11,1,3,2>", "fused_phi_terms_sym_kernel",
+     ("ILi11ELb1ELi3ELi2E", "ILi11ELb1ELb0E"), 2),
+    ("phi_rbf_sym<11,1>", "phi_rbf_sym_kernel", ("ILi11ELb1E",), 1),
+    ("phi_rbf_square<11,1>", "phi_rbf_square_kernel", ("ILi11ELb1E",), 1),
 )
 
 
@@ -616,6 +725,9 @@ def main() -> int:
     parser.add_argument("--sass", action="store_true",
                         help="also count the machine code of paths A's and "
                              "B's panel kernel instances, loop by loop")
+    parser.add_argument("--sweeps", action="store_true",
+                        help="also time the terms triangle kernel over m, "
+                             "the terms panel and chunk kernels and K15")
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
     if args.large and args.config != "mvn":
@@ -694,6 +806,8 @@ def main() -> int:
         result["one_term_widths"] = aniso_widths(torch.device("cuda"))
     if args.crossover:
         result["crossover"] = crossover(torch.device("cuda"))
+    if args.sweeps:
+        result["sweeps"] = sweeps(st, torch.device("cuda"))
     if args.sass:
         result["panel_sass"] = panel_sass(Path(args.out).parent)
 

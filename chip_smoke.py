@@ -26,7 +26,10 @@ thirty-one phases, one line each (several for phases 2, 3, 7-9 and
   7. the composed-kernel kernels (fused_phi_terms_square, _sym) against
      their plain version: square and cross at m = 2 and 11 with two and
      three terms, including (1500, 11), the shape phase 10 gives it;
-     triangle at n = 2048, 10000, 10007 and 32768 (m = 11);
+     triangle at n = 2048, 10000, 10007 and 32768 (m = 11), and at
+     n = 10007 off origin every instance of the micro-tile body (m = 1-8
+     and 11) and of the wider body (m = 9, 16, 50), each at T = 1, 3 and
+     8 with signs (1, 1), (1, -1) and three terms, counts equal at m <= 4;
   8. the single-term kernels at m = 11 and 50 (and runtime-m instances),
      including (1000, 50), the flat-BLR shape;
   9. times, kernel against plain: terms-sym (10000, 11) and (32768, 11),
@@ -46,13 +49,19 @@ thirty-one phases, one line each (several for phases 2, 3, 7-9 and
      7 aniso, a negative sign) and m = 50, and one anisotropic term at
      m = 1, 3, 5, 16 and 32; one anisotropic term up to m = 32 takes the
      one-pass kernel, the others the term-group kernel;
- 15. the fixed-P kernel (phi_rbf_square, K15's port) against phi_rbf /
+ 15. the fixed-P kernel (phi_rbf_square, K15's port: the triangle at
+     m = 1-8 and 11, the square sweep above) against phi_rbf /
      phi_rbf_blocked: isotropic (1500, 2), the HESSIAN scale of the d = 11
      target at (10240, 11), a full PD P at (1000, 50), an indefinite P with
-     psd=False, and an offset of 200;
+     psd=False, and an offset of 200; the decomposition on the card
+     (sym_eigen) against torch.linalg.eigh in float64 at m = 2, 3, 11 (the
+     HESSIAN P), 50 and 64, indefinite ones included; the HESSIAN call
+     under torch.cuda.set_sync_debug_mode("error"), which raises on any
+     synchronisation;
  16. times, kernel against plain: K14 at (10240, 11) with 2, 4 and 8
      gradient accumulators (2 with the driver's kept Cholesky factor and
-     factoring each call), K15 at (10240, 11) and (1500, 2);
+     factoring each call), K15 at (10240, 11) and (1500, 2), sym_eigen at
+     m = 11 beside torch.linalg.eigh on the CPU and on the card;
  17. the anisotropic main path (scripts/check_aniso_posterior.py's
      configuration: d = 11 MVN, median RBF + RBF with a full constant P,
      N = 10240, AdaGrad 0.05), auto picks fused_aniso_terms_cuda, 1000
@@ -61,8 +70,9 @@ thirty-one phases, one line each (several for phases 2, 3, 7-9 and
      iterations), the first step against 'rbf_terms' and the posterior
      moments against 'rbf_terms' on the card;
  18. the 'cuda' route: a HESSIAN RBF on the same target at N = 10240, 1000
-     iterations, 1000 K15 launches; 20 steps against 'blocked'; a MEDIAN RBF
-     on the flagship at n = 1500, 50 iterations, 50 K15 launches;
+     iterations, 1000 K15 and 1000 sym_eigen launches; 20 steps against
+     'blocked'; a MEDIAN RBF on the flagship at n = 1500, 50 iterations, 50
+     K15 launches and no decomposition;
  19. the panel triangle kernel of one RBF (fused_phi_counts_sympanel, K3's
      port) against its plain version (the panel schedule in torch): forced
      at n = 10007 with 3 and 8 super-blocks off origin, at (262144, 2) (path
@@ -98,8 +108,10 @@ thirty-one phases, one line each (several for phases 2, 3, 7-9 and
      K4's port; fused_phi_terms_sym_chunk, K10/K11's) against their plain
      chunk versions, every rank's chunk for worlds 1, 2, 4 and 8 summed and
      finished, at (10000, 2), (10007, 2) off origin and (10000, 11) with
-     two and three terms (one negative); the sums also against K2 and the
-     terms triangle kernel (counts equal);
+     two and three terms (one negative), the latter also at world 3, and
+     the composed kernel at (10007, 2) and (10007, 5) off origin at worlds
+     2 and 3; the sums also against K2 and the terms triangle kernel
+     (counts equal);
  26. the panel chunk kernel (fused_phi_counts_sympanel_chunk, K5's port)
      against its plain version at (262144, 2) for worlds 2 and 4 and on
      forced small panels at n = 10007 (worlds 2-8), at T = 1, 3 and 8 and at
@@ -141,9 +153,12 @@ The ``kernels`` line gives, for each kernel, its launches, error against its
 plain version and times on the main path it serves first, and its bound:
 the larger of the FP32 operations its function needs (counted per pair,
 an ex2 or a compare as one; see sweep_bound) over 67 TFLOP/s and the bytes
-of its inputs and outputs over 3.35 TB/s, the published H100 SXM peaks;
-and the TPU kernels it stands for. Every main path resets the launch
-counts just before it runs and checks its sweep kernel's count after.
+of its inputs and outputs over 3.35 TB/s, the published H100 SXM peaks
+(K16's and K15's paths also ``bound_all_pairs_ms``, counted over all n^2
+ordered pairs as before their triangles; sym_eigen, the decomposition
+beside K15, 9 m^3 float64 operations over 34 TFLOP/s); and the TPU kernels
+it stands for. Every main path resets the launch counts just before it
+runs and checks its sweep kernel's count after.
 
 Any failed check raises and the exit code is not 0. Without a CUDA device,
 or without the package beside it, the script exits with an error before
@@ -277,7 +292,7 @@ def bound(flops, nbytes):
 
 
 def sweep_bound(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
-                n_c=None):
+                n_c=None, all_pairs=False):
     """bound() of one kernel call, with the FP32 operations each pair of the
     function needs, whatever the kernel's design runs (an FMA as 2; an ex2,
     a compare and any other operation as 1):
@@ -291,7 +306,9 @@ def sweep_bound(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
       * an anisotropic term its form |z_ti - z_tj|^2 (3m) and 6 to
         combine; one accumulator D_t each; KS once for all terms;
       * K15: the form sum_k lam_k (dz_k)^2 (4m: the difference, a multiply
-        and an FMA), 2 for the exponential, KS and D_z = sum k dz (2m each);
+        and an FMA), 2 for the exponential, KS and D_z = sum k dz (2m each)
+        per direction (``all_pairs``: over the n^2 ordered pairs and one
+        direction, as it was counted before the triangle);
       * the count pass (count_le_cross): the squared distance, 3m by
         differences up to m = 4 and 2m + 3 by the Gram identity above (the
         norms once per point), and ceil(log2(T + 1)) compares, the search
@@ -299,8 +316,9 @@ def sweep_bound(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
         the bins is per block, not per pair).
 
     The square kernels take n^2 ordered pairs and one direction; the triangle
-    kernels, full-width and panel alike, n(n+1)/2 unordered pairs (diagonal
-    included) and both; a chunk kernel the ``pairs`` of its tiles or panels
+    kernels, full-width and panel alike, and K15, whose function is
+    symmetric in the pair, n(n+1)/2 unordered pairs (diagonal included)
+    and both; a chunk kernel the ``pairs`` of its tiles or panels
     (the whole triangle by default); the count pass of one set against
     itself (``n_c`` None: the median's passes on one device) n(n+1)/2
     pairs, since sq is symmetric, and of rows against other columns (the
@@ -330,7 +348,8 @@ def sweep_bound(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
         flops = tri_pairs * (3 * m + T + 6 * n_iso + n_aniso * (3 * m + 6)
                              + 2 * (2 * m + 2 * m * n_w))
     elif kernel == "phi_rbf_square":
-        flops = square_pairs * (4 * m + 2 + contract)
+        flops = (square_pairs * (4 * m + 2 + contract) if all_pairs
+                 else tri_pairs * (4 * m + 2 + 2 * contract))
         T = 0
     elif kernel == "count_le_cross":
         sq_ops = 3 * m if m <= 4 else 2 * m + 3
@@ -361,6 +380,22 @@ def count_bound_all_pairs(n, m, T, n_c=None):
     return bound(flops, 4 * (n + n_c) * m + 12 * T)
 
 
+#: Published H100 SXM float64 peak outside the tensor cores (NVIDIA's data
+#: sheet), for the decomposition's bound.
+PEAK_FP64_FLOPS = 34e12
+
+
+def eigen_bound(m):
+    """(bound_ms, bound_by) of one decomposition of an (m, m) float64
+    matrix with its eigenvectors: about 9 m^3 float64 operations (the
+    symmetric QR algorithm's count, Golub and Van Loan), over the float64
+    peak, against P read and lam and V written once over the memory
+    rate."""
+    ops_ms = 9 * m**3 / PEAK_FP64_FLOPS * 1e3
+    bytes_ms = 8 * (2 * m * m + m) / PEAK_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
 def chunk_pairs(n, side, blocks):
     """Unordered pairs (diagonal included) in ``blocks``, a list of
     (bi, bj) blocks of ``side`` particles a side over n particles: a
@@ -383,16 +418,19 @@ def free_port():
         return sock.getsockname()[1]
 
 
-def require_only(counts, kernel, launches, what, count_launches=0):
+def require_only(counts, kernel, launches, what, count_launches=0,
+                 also=None):
     """The sweep kernels' launches in ``counts`` are ``launches`` of
-    ``kernel`` and none of the others, and the count kernel (K16's port),
-    which runs under every median whichever sweep the path takes, launched
-    at least ``count_launches`` times."""
+    ``kernel``, those of ``also`` ({kernel: launches}, the decomposition
+    beside K15's sweep on the HESSIAN route) and none of the others, and
+    the count kernel (K16's port), which runs under every median whichever
+    sweep the path takes, launched at least ``count_launches`` times."""
     from svgdcpp_tpu_torch.ops.cuda_phi import COUNT_KERNEL
 
     sweeps = {k: v for k, v in counts.items() if k != COUNT_KERNEL}
     want = {k: 0 for k in sweeps}
     want[kernel] = launches
+    want.update(also or {})
     check(sweeps == want, f"{what}: launches {counts}, want {want}")
     check(counts[COUNT_KERNEL] >= count_launches,
           f"{what}: {counts[COUNT_KERNEL]} launches of {COUNT_KERNEL}, "
@@ -824,6 +862,32 @@ def main() -> int:
         print(f"phase 7 terms sym n={n} m={m} offset={off}: ok "
               f"phi_rel={rel:.3e} count_diff={dcnt} "
               f"count_bound={1e-6 * n * n if m > 4 else 0:.3g}")
+    # The micro-tile body's instances (m = 1-8 and 11) and the wider body's
+    # (the runtime instances of 16 at m = 9 and 16, of 64 at 50) at ragged
+    # n = 10007 off origin: T = 3 (the fixed-T instance) and T = 1 and 8
+    # (the runtime-T one), two terms (constants in registers) with signs
+    # (1, 1) and (1, -1), three terms (shared memory); counts equal at
+    # m <= 4 (compare's rule).
+    for m in (1, 2, 3, 4, 5, 6, 7, 8, 11, 9, 16, 50):
+        x, s, g, thr3 = inputs_for(10007, m, 100.0, 700 + m, dev)
+        worst = (0.0, 0)
+        for n_t, signs in ((3, (1.0, 1.0)), (3, (1.0, -1.0)),
+                           (1, (1.0, -1.0)), (8, (1.0, 1.0)),
+                           (3, (1.0, -0.5, 0.3))):
+            thr = thresholds_of(thr3, n_t)
+            gs = terms_gammas(g, signs)
+            got = cuda_phi.phi_rbf_terms_fused_cuda(x, s, gs, signs, thr,
+                                                    sym=True)
+            want = phi_rbf_terms_fused_counts(x, s, gs, signs, thr)
+            rel, abs_err, dcnt = compare(
+                f"terms sym n=10007 m={m} T={n_t} signs={signs}", got, want,
+                10007, m)
+            terms_sym_err = max(terms_sym_err, abs_err)
+            worst = (max(worst[0], rel), max(worst[1], dcnt))
+        print(f"phase 7 terms sym n=10007 m={m} offset=100.0 T=1,3,8 "
+              f"signs=(1,1),(1,-1),(1,-0.5,0.3): ok max_phi_rel="
+              f"{worst[0]:.3e} max_count_diff={worst[1]} count_bound="
+              f"{1e-6 * 10007 * 10007 if m > 4 else 0:.3g}")
 
     # -- phase 8: K1/K2 at m = 11 and 50 vs plain -----------------------
     # (1000, 50) is the flat-BLR shape; m = 13, 20, 37 run the runtime-m
@@ -1063,6 +1127,53 @@ def main() -> int:
         k15_err = max(k15_err, abs_err)
         print(f"phase 15 phi_rbf {label} n={n} m={m} offset={off} psd={psd}: "
               f"ok phi_rel={rel:.3e} plain={plain.__name__}")
+    # The decomposition on the card (sym_eigen) against its plain version,
+    # torch.linalg.eigh in float64: the sorted eigenvalues within 1e-12 of
+    # the largest, V diag(lam) V^T within 1e-12 of P_sym/2 and V^T V of I
+    # (relative to max |P_sym/2|; float64 rounding over 10 sweeps).
+    eigen_err = 0.0
+    for m, kind in ((2, "pd"), (3, "indefinite"), (11, "hessian"),
+                    (11, "indefinite"), (50, "pd"), (64, "pd"),
+                    (64, "indefinite")):
+        rng = np.random.default_rng(190 + m)
+        a = rng.normal(size=(m, m))
+        if kind == "hessian":
+            pm = p_hess.double()
+        elif kind == "pd":
+            pm = torch.tensor(0.5 * np.eye(m) + a @ a.T / m, device=dev)
+        else:
+            pm = torch.tensor(np.diag(np.linspace(1.0, -0.5, m)) + 0.1 * a,
+                              device=dev)
+        lam, v = cuda_phi.symmetric_eigen(pm)
+        ps = 0.5 * (pm + pm.T)
+        lam_ref = torch.linalg.eigh(ps)[0]
+        scale = float(ps.abs().max())
+        d_lam = float((torch.sort(lam)[0] - lam_ref).abs().max()) / scale
+        d_rec = float(((v * lam) @ v.T - ps).abs().max()) / scale
+        d_orth = float((v.T @ v - torch.eye(m, dtype=v.dtype, device=dev))
+                       .abs().max())
+        eigen_err = max(eigen_err, d_lam * scale)
+        check(max(d_lam, d_rec, d_orth) <= 1e-12,
+              f"sym_eigen m={m} {kind}: eigenvalues {d_lam:.2e}, "
+              f"reconstruction {d_rec:.2e}, orthogonality {d_orth:.2e}")
+        print(f"phase 15 sym_eigen m={m} {kind}: ok eig_rel={d_lam:.2e} "
+              f"rec_rel={d_rec:.2e} orth={d_orth:.2e} "
+              f"negative={int((lam < 0).sum())}")
+    # The HESSIAN call as the route makes it reads nothing on the host: any
+    # synchronising call inside the wrapper raises under "error".
+    x, s = x_a, sweep_inputs(10240, 11, 0.0, 171, dev)[1]
+    cuda_phi.phi_rbf_cuda(x, s, p_hess, psd=False)  # warm (cuBLAS, caches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = cuda_phi.phi_rbf_cuda(x, s, p_hess, psd=False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    rel, _ = compare_phi("phi_rbf hessian under sync debug", got,
+                         phi_rbf_blocked(x, s, p_hess, psd=False))
+    print(f"phase 15 phi_rbf hessian n=10240 m=11 under "
+          f"set_sync_debug_mode('error'): ok no synchronisation, "
+          f"phi_rel={rel:.3e}")
 
     # -- phase 16: times, K14 and K15 against plain ------------------------
     times16 = {}
@@ -1084,7 +1195,7 @@ def main() -> int:
         print(f"phase 16 times aniso n=10240 m=11 n_w={n_w} T=3 (ms, median "
               f"of 50): kernel={kern:.4f} (kept factor) "
               f"factored_each_call={factored:.4f} plain={plain:.4f}")
-    # As the 'cuda' route calls it: a HESSIAN P decomposed on the host each
+    # As the 'cuda' route calls it: a HESSIAN P decomposed on the card each
     # call, a median's gamma I with its decomposition (diagonal, I).
     for n, m in ((10240, 11), (1500, 2)):
         x, s, g, _ = sweep_inputs(n, m, 0.0, 165, dev)
@@ -1099,6 +1210,23 @@ def main() -> int:
         times16[("phi_rbf", n, m)] = {"kernel": kern, "plain": plain}
         print(f"phase 16 times phi_rbf n={n} m={m} psd={psd} (ms, median of "
               f"50): kernel={kern:.4f} plain={plain:.4f}")
+    # The decomposition at the HESSIAN P: the kernel, its plain version
+    # (torch.linalg.eigh on the CPU, host clock, median of 50) and the same
+    # call on the card (which checks its result on the host).
+    p_cpu = p_hess.double().cpu()
+    kern = time_ms(lambda: cuda_phi.symmetric_eigen(p_hess))
+    plain_times = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        cuda_phi.symmetric_eigen(p_cpu)
+        plain_times.append((time.perf_counter() - t0) * 1e3)
+    plain = sorted(plain_times)[25]
+    library = time_ms(lambda: torch.linalg.eigh(
+        0.5 * (p_hess.double() + p_hess.double().T)))
+    times16[("sym_eigen", 11)] = {"kernel": kern, "plain": plain,
+                                  "library": library}
+    print(f"phase 16 times sym_eigen m=11 (ms, median of 50): kernel="
+          f"{kern:.4f} plain_cpu={plain:.4f} torch_eigh_on_card={library:.4f}")
 
     # -- phase 17: the anisotropic main path, N = 10240, d = 11 -------------
     def aniso_driver(phi_impl, iters, kernel_scale=None, dtype=torch.float32):
@@ -1174,7 +1302,8 @@ def main() -> int:
     check(bool(out.isfinite().all()) and tuple(out.shape) == (10240, 11),
           "HESSIAN cuda run: bad output")
     require_only(main_k15, cuda_phi.PHI_RBF_KERNEL, segments * seg_len,
-                 "HESSIAN N=10240, 1000 steps")
+                 "HESSIAN N=10240, 1000 steps",
+                 also={cuda_phi.SYM_EIGEN_KERNEL: segments * seg_len})
     rate = 10240 * (segments - 1) * seg_len / timed_s
     print(f"phase 18 HESSIAN cuda N=10240 d=11 1000 iters: ok route=cuda "
           f"launches={json.dumps(main_k15)} updates_per_s={rate:.6g} "
@@ -1518,8 +1647,10 @@ def main() -> int:
     for idx, (n, m, off, signs, worlds) in enumerate([
         (10000, 2, 0.0, None, (1, 2, 4, 8)),
         (10007, 2, 100.0, None, (1, 2, 4, 8)),
-        (10000, 11, 0.0, (1.0, 1.0), (1, 2, 4, 8)),
-        (10000, 11, 0.0, (1.0, -0.5, 0.3), (1, 2, 4, 8)),
+        (10000, 11, 0.0, (1.0, 1.0), (1, 2, 3, 4, 8)),
+        (10000, 11, 0.0, (1.0, -0.5, 0.3), (1, 2, 3, 4, 8)),
+        (10007, 2, 100.0, (1.0, -1.0), (1, 2, 3)),
+        (10007, 5, 100.0, (1.0, 1.0), (2, 3)),
         (3001, 9, 0.0, (1.0, 1.0), every), (3001, 10, 0.0, (1.0, 1.0), every),
         (3001, 12, 0.0, (1.0, -0.5, 0.3), every),
         (3001, 16, 0.0, (1.0, 1.0), every),
@@ -2037,6 +2168,7 @@ def main() -> int:
     sq, sym = cuda_phi.SQUARE_KERNEL, cuda_phi.SYM_KERNEL
     t_sq, t_sym = cuda_phi.TERMS_SQUARE_KERNEL, cuda_phi.TERMS_SYM_KERNEL
     aniso, k15 = cuda_phi.ANISO_KERNEL, cuda_phi.PHI_RBF_KERNEL
+    eig = cuda_phi.SYM_EIGEN_KERNEL
     sp, t_sp = cuda_phi.SYMPANEL_KERNEL, cuda_phi.TERMS_SYMPANEL_KERNEL
     k4, k10 = cuda_phi.SYM_CHUNK_KERNEL, cuda_phi.TERMS_SYM_CHUNK_KERNEL
     k5, k16 = cuda_phi.SYMPANEL_CHUNK_KERNEL, cuda_phi.COUNT_KERNEL
@@ -2086,8 +2218,18 @@ def main() -> int:
     for path in paths[k16]:
         path["bound_all_pairs_ms"] = count_bound_all_pairs(
             path["n"], path["m"], 17)[0]
+    for path in paths[k15]:
+        path["bound_all_pairs_ms"] = sweep_bound(
+            k15, path["n"], path["m"], all_pairs=True)[0]
+    # The decomposition beside K15 on the HESSIAN path, one launch a step.
+    eig_bound = eigen_bound(11)
+    paths[eig] = [{"phase": 18, "n": 10240, "m": 11,
+                   "launches": main_k15[eig],
+                   "ms": times16[("sym_eigen", 11)]["kernel"],
+                   "plain_ms": times16[("sym_eigen", 11)]["plain"],
+                   "bound_ms": eig_bound[0], "bound_by": eig_bound[1]}]
 
-    def entry(name, source, replaces, tpu, err):
+    def entry(name, source, replaces, tpu, err, library_ms=None):
         first = paths[name][0]
         return {"name": name, "route": "cuda",
                 "source": f"svgdcpp_tpu_torch/csrc/{source}",
@@ -2095,7 +2237,7 @@ def main() -> int:
                 "launches": first["launches"],
                 "max_abs_err": err, "ms": first["ms"],
                 "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
-                "bound_by": first["bound_by"], "library_ms": None,
+                "bound_by": first["bound_by"], "library_ms": library_ms,
                 "main_paths": paths[name]}
 
     pallas = "svgdcpp_tpu/ops/pallas_phi.py"
@@ -2110,6 +2252,11 @@ def main() -> int:
         entry(aniso, "fused_phi_aniso.cu", f"{pallas}:3205", ["K14"],
               aniso_err),
         entry(k15, "phi_rbf.cu", f"{pallas}:116", ["K15"], k15_err),
+        # No TPU kernel of its own: K15's wrapper needs the decomposition
+        # that _phi_rbf_pallas_impl's Gram form does without; the library
+        # call is torch.linalg.eigh on the card.
+        entry(eig, "phi_rbf.cu", f"{pallas}:161", ["K15"], eigen_err,
+              library_ms=times16[("sym_eigen", 11)]["library"]),
         entry(sp, "fused_phi_panel.cu", f"{pallas}:860", ["K3"],
               sympanel_err),
         entry(t_sp, "fused_phi_panel.cu", f"{pallas}:2718 {pallas}:2925",

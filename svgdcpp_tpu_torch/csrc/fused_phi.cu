@@ -255,7 +255,7 @@ namespace {
 // The tile side of the triangle instance SVGD_DISPATCH_M picks for m.
 int sym_tile_of(int m, int terms, int* tile) {
 #define SVGD_SYM_TILE(MM_, EX_) \
-  *tile = terms ? SymTermsTile<MM_>::value : SymTile<MM_>::value
+  *tile = terms ? TermsTriTile<MM_>::value : SymTile<MM_>::value
   SVGD_DISPATCH_M(m, SVGD_SYM_TILE)
 #undef SVGD_SYM_TILE
   return 0;

@@ -125,7 +125,7 @@
 
 #include <type_traits>
 
-#include "sweep_common.cuh"
+#include "micro_tile.cuh"
 
 namespace {
 
@@ -323,34 +323,21 @@ __device__ __forceinline__ void sympanel_body(
 // terms kernel (K12/K13's port) at m = 2, 1-8 and 11.
 // ---------------------------------------------------------------------------
 
-// Columns per chunk: one per lane. Steps of a chunk unrolled together.
-constexpr int kPanelChunk = 32;
-constexpr int kPanelUnroll = 2;
-
 // The micro-tile body's shape for an instance of width MM, one RBF or
 // terms (kTerms). It serves one RBF up to MM = 8 and the terms kernel at
 // MM = 2, 8 and 11; wider instances keep sympanel_body, whose registers
 // the micro-tile would spill. A thread holds the coordinates, scores and
 // strip totals of kRows rows, and their chunk partials: 6 kRows MM
-// registers, 8 rows at MM = 2, 2 above (3 rows spill at MM = 11). A
-// column's record in shared memory, [x (MM) | s (MM)] for the operands,
-// [KS (MM) | D (MM)] for the partial sums, is padded to kPad, a multiple
-// of 4 floats for float4 access, and records lie kStride apart: 4 more
-// where kPad is a multiple of 8, so that 8 lanes' 16-byte reads of 8
-// consecutive records fall in distinct banks. Past MM = 8 (kRotate) the
-// column's sums stay in registers and rotate between lanes instead of
-// passing through the records every step.
+// registers, 8 rows at MM = 2, 2 above (3 rows spill at MM = 11); a
+// column's records as micro_tile.cuh's MicroShape lays them out.
 template <int MM, bool kTerms>
-struct MicroPanel {
+struct MicroPanel : MicroShape<MM, (MM <= 2 ? 8 : 2)> {
   static constexpr bool enabled =
       kTerms ? MM == 2 || MM == 8 || MM == 11 : MM <= 8;
-  static constexpr bool kRotate = MM > 8;
-  static constexpr int kRows = MM <= 2 ? 8 : 2;
   static constexpr int kWarps = 4;
   static constexpr int kThreads = 32 * kWarps;
-  static constexpr int kStrip = kThreads * kRows;  // rows of a block
-  static constexpr int kPad = (2 * MM + 3) / 4 * 4;
-  static constexpr int kStride = kPad % 8 == 0 ? kPad + 4 : kPad;
+  static constexpr int kStrip =
+      kThreads * MicroShape<MM, (MM <= 2 ? 8 : 2)>::kRows;  // rows of a block
 };
 
 // Block size and strip height of a panel kernel instance.
@@ -367,169 +354,6 @@ struct PanelStrip {
                                    ? MicroPanel<MM, kTerms>::kStrip
                                    : PanelTile<MM, kTerms>::value;
 };
-
-// The pair's weights (k_c, w) from its sq: k_c multiplies the scores into
-// KS and w the differences into D. One RBF: k_c = w = 2^(-gamma log2(e) sq)
-// (D is scaled by 2 gamma in the epilogue).
-struct OneRbf {
-  float ng2;  // -gamma log2(e)
-
-  __device__ __forceinline__ void operator()(float sq, float& kc,
-                                             float& w) const {
-    kc = ex2_ftz(ng2 * sq);
-    w = kc;
-  }
-};
-
-// A chunk's operand records [x (MM) | s (MM)] of super-block J, STR floats
-// apart in shared memory, zero past n and past m: kCount values a thread
-// of NT, fetched into registers a chunk ahead and stored once the current
-// chunk is swept.
-template <int MM, bool kExact, int NT, int STR>
-struct ChunkStage {
-  static constexpr int kRec = 2 * MM;
-  static constexpr int kCount = (kPanelChunk * kRec + NT - 1) / NT;
-
-  static __device__ __forceinline__ void fetch(
-      const float* __restrict__ coords, const float* __restrict__ scores,
-      int tid, int m, int gj_base, int ncols, int c, float (&v)[kCount]) {
-    const int lj0 = c * kPanelChunk;
-#pragma unroll
-    for (int u = 0; u < kCount; ++u) {
-      const int e = tid + u * NT;
-      const int slot = e / kRec;
-      const int kk = e - slot * kRec;
-      const bool is_s = kk >= MM;
-      const int k = is_s ? kk - MM : kk;
-      v[u] = 0.0f;
-      if (e < kPanelChunk * kRec && lj0 + slot < ncols && (kExact || k < m)) {
-        const size_t at = static_cast<size_t>(gj_base + lj0 + slot) * m + k;
-        v[u] = is_s ? scores[at] : coords[at];
-      }
-    }
-  }
-
-  static __device__ __forceinline__ void store(const float (&v)[kCount],
-                                               int tid, float* buf) {
-#pragma unroll
-    for (int u = 0; u < kCount; ++u) {
-      const int e = tid + u * NT;
-      const int slot = e / kRec;
-      if (e < kPanelChunk * kRec) buf[slot * STR + e - slot * kRec] = v[u];
-    }
-  }
-};
-
-// One warp's sweep of one chunk: lane l holds rows R(l, q), q < RI, and at
-// step s takes column slot (l + s) mod 32, so the warp's 32 lanes hold 32
-// distinct columns at every step. The pair's weights (k_c, w) stay in
-// registers and feed both directions: the rows' chunk partials (k_c s_j
-// and w d, d = x_i - x_j) and the column's running sums (k_c s_i and -w d,
-// which is w (x_j - x_i) exactly: IEEE subtraction is antisymmetric). The
-// column sums live in the warp's own shared records, read and written once
-// per step; __syncwarp orders a slot's write by one lane before the next
-// step's read by its neighbour. Where they rotate (kRotate), lane l takes
-// over lane l + 1's sums after each step, its own column at the next one,
-// so after the 32 steps lane l holds column l's and writes them to the
-// records by plane. kMasked adds the per-pair validity (rows and columns
-// below n, j >= i on a diagonal panel); interior chunks run without it.
-template <int MM, bool kExact, int kT, bool kMasked, bool kTerms,
-          class Weights>
-__device__ __forceinline__ void micro_panel_chunk(
-    const float (&xi)[MicroPanel<MM, kTerms>::kRows][MM],
-    const float (&si)[MicroPanel<MM, kTerms>::kRows][MM],
-    float (&ps)[MicroPanel<MM, kTerms>::kRows][MM],
-    float (&pd)[MicroPanel<MM, kTerms>::kRows][MM], unsigned int* cnt,
-    const float* th, const Weights& weights, int m, const float* sh_op,
-    float* sh_col, int lane, int row0, int nrows, int lj0, int ncols,
-    bool diag) {
-  using P = MicroPanel<MM, kTerms>;
-  constexpr int RI = P::kRows;
-  constexpr int STR = P::kStride;
-  float col[P::kPad];  // the column's sums, carried across steps if rotating
-  if constexpr (P::kRotate) {
-#pragma unroll
-    for (int k = 0; k < P::kPad; ++k) col[k] = 0.0f;
-  }
-#pragma unroll kPanelUnroll
-  for (int s = 0; s < kPanelChunk; ++s) {
-    const int slot = (lane + s) & (kPanelChunk - 1);
-    float op[P::kPad];
-    const float4* op4 = reinterpret_cast<const float4*>(sh_op + slot * STR);
-    float4* col4 = reinterpret_cast<float4*>(sh_col + slot * STR);
-#pragma unroll
-    for (int v = 0; v < P::kPad / 4; ++v) {
-      const float4 a = op4[v];
-      op[4 * v] = a.x;
-      op[4 * v + 1] = a.y;
-      op[4 * v + 2] = a.z;
-      op[4 * v + 3] = a.w;
-      if constexpr (!P::kRotate) {
-        const float4 b = col4[v];
-        col[4 * v] = b.x;
-        col[4 * v + 1] = b.y;
-        col[4 * v + 2] = b.z;
-        col[4 * v + 3] = b.w;
-      }
-    }
-    const int lj = lj0 + slot;
-#pragma unroll
-    for (int q = 0; q < RI; ++q) {
-      float d[MM];
-      float sq = 0.0f;
-#pragma unroll
-      for (int k = 0; k < MM; ++k) {
-        if (kExact || k < m) {
-          d[k] = __fsub_rn(xi[q][k], op[k]);
-          sq = k == 0 ? __fmul_rn(d[k], d[k])
-                      : __fadd_rn(sq, __fmul_rn(d[k], d[k]));
-        }
-      }
-      bool ok = true;
-      if (kMasked) {
-        const int li = row0 + q * 32;
-        ok = li < nrows && lj < ncols && (!diag || lj >= li);
-      }
-      float kc, w;
-      weights(sq, kc, w);
-      if (kMasked) {
-        kc = ok ? kc : 0.0f;
-        w = ok ? w : 0.0f;
-      }
-#pragma unroll
-      for (int k = 0; k < MM; ++k) {
-        if (kExact || k < m) {
-          ps[q][k] = fmaf(kc, op[MM + k], ps[q][k]);
-          pd[q][k] = fmaf(w, d[k], pd[q][k]);
-          col[k] = fmaf(kc, si[q][k], col[k]);
-          col[MM + k] = fmaf(-w, d[k], col[MM + k]);
-        }
-      }
-      count_pair_fixed<kT, kMasked>(sq, th, ok, cnt);
-    }
-    if constexpr (P::kRotate) {
-      const int next = (lane + 1) & (kPanelChunk - 1);
-#pragma unroll
-      for (int k = 0; k < MM; ++k) {
-        if (kExact || k < m) {
-          col[k] = __shfl_sync(0xffffffffu, col[k], next);
-          col[MM + k] = __shfl_sync(0xffffffffu, col[MM + k], next);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int v = 0; v < P::kPad / 4; ++v) {
-        col4[v] = make_float4(col[4 * v], col[4 * v + 1], col[4 * v + 2],
-                              col[4 * v + 3]);
-      }
-      __syncwarp();
-    }
-  }
-  if constexpr (P::kRotate) {
-#pragma unroll
-    for (int k = 0; k < 2 * MM; ++k) sh_col[k * kPanelChunk + lane] = col[k];
-  }
-}
 
 // One block sweeps a strip of kStrip rows of super-block I against all
 // columns of J (on a diagonal panel from the strip's own chunk on), 32
@@ -643,11 +467,11 @@ __device__ __forceinline__ void micro_panel_body(
     const bool masked = !rows_full || lj0 + kPanelChunk > ncols ||
                         (diag && lj0 < li0 + P::kStrip - 1);
     if (masked) {
-      micro_panel_chunk<MM, kExact, kT, true, kTerms>(
+      micro_panel_chunk<P, MM, kExact, kT, true>(
           xi, si, ps, pd, cnt, th, weights, m, op, cols + warp * kColFloats,
           lane, row0, nrows, lj0, ncols, diag);
     } else {
-      micro_panel_chunk<MM, kExact, kT, false, kTerms>(
+      micro_panel_chunk<P, MM, kExact, kT, false>(
           xi, si, ps, pd, cnt, th, weights, m, op, cols + warp * kColFloats,
           lane, row0, nrows, lj0, ncols, diag);
     }

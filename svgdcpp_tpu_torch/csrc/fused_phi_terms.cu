@@ -30,22 +30,41 @@
 //     _fused_terms_kernel (K7), the square/cross sweeps;
 //   * fused_phi_terms_sym replaces _sym_terms_direct_kernel (K8, both of its
 //     masked and unmasked calls) and _sym_terms_kernel (K9), the
-//     upper-triangle sweeps; its kernel, in terms_sym.cuh, also serves the
-//     anisotropic sweep (fused_phi_aniso.cu) with more term groups;
+//     upper-triangle sweeps;
 //   * fused_phi_terms_sym_chunk replaces the same two Pallas kernels as the
 //     sharded engine calls them on one device's chunk of the GLOBAL triangle
 //     (K10 through phi_rbf_terms_fused_pallas_sym_sharded_direct, K11
 //     through _phi_rbf_terms_fused_pallas_sym_sharded_impl; the JAX split by
-//     _terms_direct_fits_npad is a VMEM choice): terms_sym.cuh's body under
-//     its own name over a range [t0, t0 + count) of the tile list
+//     _terms_direct_fits_npad is a VMEM choice): the same body under its
+//     own name over a range [t0, t0 + count) of the tile list
 //     (ops/sym_plan.sym_tile_chunk), whose raw accumulator and upper count
 //     the caller sums over the ranks.
 //
-// Bound on this card: per pair 3m+1 FLOPs for sq, nterms ex2 on the special
-// function unit (a quarter of the FP32 rate) plus 4 FP32 ops per term to
-// combine, 3m FP32 ops for the two contractions and T compares. At m = 11
-// and two terms the SFU and the FP32 pipes share the work; memory traffic
-// is a few hundred KB per sweep, so the sweep is compute-bound.
+// Bound on this card: per unordered pair 3m FP32 operations for the
+// difference and sq (rounded term by term, so that the counts equal the
+// plain version's), one ex2 on the special function unit and 4 FP32
+// operations per term to combine, 4m FMAs into both directions and T
+// compares; the operands are a few hundred KB, so the sweep is bound by
+// instruction issue. At m = 11, T = 3 with two terms the floor is 91
+// instructions a pair (33 for sq, 8 for the terms, 44 FMAs, 6 for the
+// counts).
+//
+// The triangle's body at m = 1-8 and 11 (TermsTriTile) is the micro-tile
+// body of the panel kernels (micro_tile.cuh, micro_tri_body): the triangle
+// is cut into tiles of 128 particles, a block sweeps one tile pair (bi <=
+// bj) of the tile list with 2 warps of 2 rows a thread (one warp of 4 rows
+// up to m = 2), the pair's weights in registers feeding both directions,
+// the terms' constants in registers for two terms (FixedTerms<2>) and in
+// shared memory for any other count (AnyTerms), T compile-time at T = 3
+// (a runtime T <= 8 runs the 8-threshold instance), interior chunks
+// unmasked, the column sums rotating between lanes at m = 11. Rows and
+// columns flush with float32 atomics; a small launch splits a tile pair's
+// chunks over the grid's second dimension (tri_splits). At n = 10,000 the
+// 3160 tile pairs fill 132 SMs about 6 times. At the other widths (m = 9,
+// 10, 12-64, whose rows the micro-tile would spill) the kernel keeps the
+// one-row-a-thread body of terms_sym.cuh in tiles of SymTermsTile, under
+// the same names. The tile side of each instance is svgd_sym_tile's
+// (fused_phi.cu), which the chunk wrappers read.
 //
 // The gammas are read from device memory (they come out of the median
 // update as device scalars; the host never reads them); the signs are
@@ -55,6 +74,10 @@
 // count and accumulator buffers. Each entry point returns cudaGetLastError()
 // after its launch.
 
+#include <type_traits>
+
+#include "micro_tile.cuh"
+
 #define SVGD_TERMS_SYM_KERNEL fused_phi_terms_sym_kernel
 #include "terms_sym.cuh"
 #define SVGD_TERMS_SYM_KERNEL fused_phi_terms_sym_chunk_kernel
@@ -63,6 +86,123 @@
 namespace {
 
 using namespace svgd;
+
+// ---------------------------------------------------------------------------
+// fused_phi_terms_sym and _sym_chunk at m = 1-8 and 11 (K8/K9, K10/K11):
+// micro_tri_body with the terms' weights, kT thresholds (3, or kMaxT for a
+// runtime T) and NTerms terms (2 in registers, or 0 for any count in
+// shared memory). The kernels overload terms_sym.cuh's wider instances, so
+// a trace names both bodies alike.
+// ---------------------------------------------------------------------------
+
+template <int MM, bool kExact, int kT, int NTerms>
+__device__ __forceinline__ void terms_tri(
+    const float* __restrict__ coords, const float* __restrict__ scores,
+    const float* __restrict__ gammas, const TermSigns& signs, int nterms,
+    const float* __restrict__ thr, int n, int m_arg, int T, int nb,
+    long long t0, float* __restrict__ acc,
+    unsigned long long* __restrict__ counts) {
+  if constexpr (NTerms > 0) {
+    const FixedTerms<NTerms> weights(gammas, signs);
+    micro_tri_body<MM, kExact, kT>(coords, scores, weights, thr, n, m_arg, T,
+                                   nb, t0, acc, counts);
+  } else {
+    __shared__ float sh_g2[kMaxTerms];
+    __shared__ float sh_sn[kMaxTerms];
+    __shared__ float sh_sg[kMaxTerms];
+    // The body's first barrier comes before its first pair.
+    load_terms(gammas, signs, nterms, sh_g2, sh_sn, sh_sg);
+    const AnyTerms weights{sh_g2, sh_sn, sh_sg, nterms};
+    micro_tri_body<MM, kExact, kT>(coords, scores, weights, thr, n, m_arg, T,
+                                   nb, t0, acc, counts);
+  }
+}
+
+template <int MM, bool kExact, int kT, int NTerms>
+__global__ void __launch_bounds__(MicroTri<MM>::kThreads)
+    fused_phi_terms_sym_kernel(const float* __restrict__ coords,
+                               const float* __restrict__ scores,
+                               const float* __restrict__ gammas,
+                               TermSigns signs, int nterms,
+                               const float* __restrict__ thr, int n,
+                               int m_arg, int T, int nb, long long t0,
+                               float* __restrict__ acc,
+                               unsigned long long* __restrict__ counts) {
+  terms_tri<MM, kExact, kT, NTerms>(coords, scores, gammas, signs, nterms,
+                                    thr, n, m_arg, T, nb, t0, acc, counts);
+}
+
+template <int MM, bool kExact, int kT, int NTerms>
+__global__ void __launch_bounds__(MicroTri<MM>::kThreads)
+    fused_phi_terms_sym_chunk_kernel(const float* __restrict__ coords,
+                                     const float* __restrict__ scores,
+                                     const float* __restrict__ gammas,
+                                     TermSigns signs, int nterms,
+                                     const float* __restrict__ thr, int n,
+                                     int m_arg, int T, int nb, long long t0,
+                                     float* __restrict__ acc,
+                                     unsigned long long* __restrict__ counts) {
+  terms_tri<MM, kExact, kT, NTerms>(coords, scores, gammas, signs, nterms,
+                                    thr, n, m_arg, T, nb, t0, acc, counts);
+}
+
+// Launch of the terms triangle sweep over tiles [t0, t0 + count) of the
+// tile list (TermsTriTile<MM> particles a side; count > 0): the micro-tile
+// instances where they serve MM, each for T = 3 or any T <= 8 and for two
+// terms or any count; terms_sym.cuh's body otherwise.
+template <int MM, bool kExact>
+void launch_terms_sym(bool chunk, const float* coords, const float* scores,
+                      const float* gammas, const TermSigns& sg, int nterms,
+                      const float* thr, int n, int m, int T, long long t0,
+                      long long count, float* acc,
+                      unsigned long long* counts, cudaStream_t s) {
+  constexpr int tile = TermsTriTile<MM>::value;
+  const int nb = (n + tile - 1) / tile;
+  if constexpr (MicroTri<MM>::enabled) {
+    const dim3 grid(static_cast<unsigned int>(count),
+                    tri_splits<MM>(count));
+    constexpr int threads = MicroTri<MM>::kThreads;
+    auto go = [&](auto kt, auto nt) {
+      constexpr int kT = decltype(kt)::value;
+      constexpr int NTerms = decltype(nt)::value;
+      if (chunk) {
+        fused_phi_terms_sym_chunk_kernel<MM, kExact, kT, NTerms>
+            <<<grid, threads, 0, s>>>(coords, scores, gammas, sg, nterms,
+                                      thr, n, m, T, nb, t0, acc, counts);
+      } else {
+        fused_phi_terms_sym_kernel<MM, kExact, kT, NTerms>
+            <<<grid, threads, 0, s>>>(coords, scores, gammas, sg, nterms,
+                                      thr, n, m, T, nb, t0, acc, counts);
+      }
+    };
+    auto terms = [&](auto kt) {
+      if (nterms == 2) {
+        go(kt, std::integral_constant<int, 2>{});
+      } else {
+        go(kt, std::integral_constant<int, 0>{});
+      }
+    };
+    if (T == 3) {
+      terms(std::integral_constant<int, 3>{});
+    } else {
+      terms(std::integral_constant<int, kMaxT>{});
+    }
+  } else {
+    const AnisoSigns none{};
+    const unsigned int blocks = static_cast<unsigned int>(count);
+    if (chunk) {
+      fused_phi_terms_sym_chunk_kernel<MM, kExact, false>
+          <<<blocks, tile, 0, s>>>(coords, nullptr, scores, gammas, sg,
+                                   nterms, none, thr, n, m, T, nb, t0, acc,
+                                   counts);
+    } else {
+      fused_phi_terms_sym_kernel<MM, kExact, false>
+          <<<blocks, tile, 0, s>>>(coords, nullptr, scores, gammas, sg,
+                                   nterms, none, thr, n, m, T, nb, t0, acc,
+                                   counts);
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // fused_phi_terms_square (K6, K7)
@@ -203,18 +343,14 @@ int svgd_fused_phi_terms_sym(const float* coords, const float* scores,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const TermSigns sg = make_signs(signs, nterms);
-  const AnisoSigns none{};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* c = reinterpret_cast<unsigned long long*>(counts);
 #define SVGD_LAUNCH_TERMS_SYM(MM_, EX_)                                    \
   {                                                                        \
-    constexpr int tile = SymTermsTile<MM_>::value;                         \
-    const long long pairs = upper_pairs(n, tile);                          \
+    const long long pairs = upper_pairs(n, TermsTriTile<MM_>::value);      \
     if (pairs < 0) return static_cast<int>(cudaErrorInvalidValue);        \
-    fused_phi_terms_sym_kernel<MM_, EX_, false>                            \
-        <<<static_cast<unsigned int>(pairs), tile, 0, s>>>(                \
-            coords, nullptr, scores, gammas, sg, nterms, none, thr, n, m,  \
-            T, (n + tile - 1) / tile, 0LL, acc, c);                        \
+    launch_terms_sym<MM_, EX_>(false, coords, scores, gammas, sg, nterms,  \
+                               thr, n, m, T, 0LL, pairs, acc, c, s);       \
   }
   SVGD_DISPATCH_M(m, SVGD_LAUNCH_TERMS_SYM)
 #undef SVGD_LAUNCH_TERMS_SYM
@@ -222,7 +358,7 @@ int svgd_fused_phi_terms_sym(const float* coords, const float* scores,
 }
 
 // One rank's chunk of the composed-kernel triangle sweep: tiles
-// [t0, t0 + count) of the tile list (SymTermsTile<MM> particles a side), the
+// [t0, t0 + count) of the tile list (TermsTriTile<MM> particles a side), the
 // arguments otherwise as svgd_fused_phi_terms_sym's. coords and scores are
 // the GLOBAL set, centered on its mean; acc (2m, n) and counts receive this
 // chunk's raw sums. count = 0 launches nothing.
@@ -236,20 +372,16 @@ int svgd_fused_phi_terms_sym_chunk(const float* coords, const float* scores,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const TermSigns sg = make_signs(signs, nterms);
-  const AnisoSigns none{};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* c = reinterpret_cast<unsigned long long*>(counts);
 #define SVGD_LAUNCH_TERMS_SYM_CHUNK(MM_, EX_)                              \
   {                                                                        \
-    constexpr int tile = SymTermsTile<MM_>::value;                         \
-    if (!tile_range_ok(n, tile, t0, count)) {                              \
+    if (!tile_range_ok(n, TermsTriTile<MM_>::value, t0, count)) {          \
       return static_cast<int>(cudaErrorInvalidValue);                      \
     }                                                                      \
     if (count > 0) {                                                       \
-      fused_phi_terms_sym_chunk_kernel<MM_, EX_, false>                    \
-          <<<static_cast<unsigned int>(count), tile, 0, s>>>(              \
-              coords, nullptr, scores, gammas, sg, nterms, none, thr, n,   \
-              m, T, (n + tile - 1) / tile, t0, acc, c);                    \
+      launch_terms_sym<MM_, EX_>(true, coords, scores, gammas, sg, nterms, \
+                                 thr, n, m, T, t0, count, acc, c, s);      \
     }                                                                      \
   }
   SVGD_DISPATCH_M(m, SVGD_LAUNCH_TERMS_SYM_CHUNK)

@@ -1,5 +1,5 @@
 // RBF phi with one full, fixed precision matrix, for Hopper (sm_90a): the
-// square sweep, no counts.
+// sweep over one particle set, no counts, and the decomposition of P.
 //
 //   k(x_i, x_j) = exp(-d^T P d),  d = x_i - x_j,
 //   phi_i = (1/n) sum_j [k_ij s_j + k_ij (P + P^T)(x_i - x_j)],
@@ -12,34 +12,66 @@
 //
 // The quadratic form. _phi_kernel builds it with the Gram identity
 // q_i + q_j - x_i P_sym x_j. P may be indefinite, so Cholesky does not
-// apply: the wrapper (ops/cuda_phi.py) decomposes P_sym/2 = V diag(lam) V^T
-// and passes z = X_c V and lam, so d^T P d = sum_k lam_k (z_ik - z_jk)^2:
-// the difference form, exact 0 at the self pair, no cancellation. psd != 0
+// apply: P_sym/2 = V diag(lam) V^T is decomposed (svgd_sym_eigen below, or
+// by the caller) and the wrapper (ops/cuda_phi.py) passes z = X_c V and
+// lam, so d^T P d = sum_k lam_k (z_ik - z_jk)^2: the difference form,
+// exact 0 at the self pair, no cancellation. psd != 0
 // clamps it at 0, as _phi_kernel does. Since x_i - x_j = (z_i - z_j) V^T,
 // the gradient direction is
 // sum_j k (x_i - x_j) P_sym = 2 (sum_j k (z_i - z_j)) diag(lam) V^T:
 // the kernel accumulates KS and D_z = sum_j k (z_i - z_j), and the wrapper
 // applies 2 diag(lam) V^T.
 //
-// Work per ordered pair, as this design runs it: 4m FP32 ops for the form
-// (a subtraction, a multiplication and an FMA per coordinate), a clamp and
-// one ex2 on the special function unit, 2m for KS and 3m for D_z (an FMA
-// counted as 2, the difference taken again; the function needs it once,
-// and chip_smoke.py's sweep_bound counts it so). The operands are a few
-// hundred KB, so the sweep is compute-bound.
+// The decomposition (svgd_sym_eigen): P_sym/2 on the card in float64, by
+// the cyclic Jacobi method in one block, so the wrapper reads nothing on
+// the host (the HESSIAN scale brings a new P every step). The symmetric
+// matrix, padded to an even order mp, and V live in shared memory; each
+// sweep runs mp - 1 rounds of the round-robin ordering, whose mp/2 pairs
+// (p, q) are disjoint and rotate together: the pairs' rotations first (one
+// thread each, the textbook t = sgn(theta) / (|theta| + sqrt(theta^2 + 1))
+// that zeroes a_pq), then every 2x2 block of A (J_a^T A J_b, the upper
+// blocks computed and mirrored, so A stays exactly symmetric) and the
+// pairs' columns of V, one barrier after each phase. A pair whose a_pq is
+// negligible beside both a_pp and a_qq (100 |a_pq| vanishes in float64
+// against each) is not rotated but zeroed, and the first sweep with no
+// rotation ends the loop. kJacobiSweeps = 10 bounds it: off-diagonal mass
+// falls quadratically and reaches the float64 rounding level by the
+// seventh sweep at m = 64 on positive definite, indefinite and clustered
+// spectra (a float64 rehearsal of this ordering); m = 11 needs about
+// five. Its plain version is torch.linalg.eigh (ops/cuda_phi.py).
+// Bound: a few hundred KB of float64 arithmetic at m = 64 and a few KB at
+// m = 11, so the kernel is bound by the latency of its 2 (mp - 1) barriers
+// a sweep, not by the card's rates.
 //
-// Design: fused_phi_counts_square's (fused_phi.cu): one thread owns one
-// target row and keeps z_i, KS and D_z (3m values) in registers; a block of
-// kSqThreads targets walks sources in shared-memory tiles (SqTile rows),
-// with lam log2(e) broadcast from shared memory. One block per 128 targets
-// alone would leave most of the card idle (80 blocks for 132 SMs at
-// n = 10240), so the sources are split into chunks of whole tiles over the
-// grid's second dimension, about kTargetBlocks blocks in all; each block
-// adds its partial sums into a zeroed (2m, n) buffer [KS | D_z] with float32
-// atomics (neighbouring threads, neighbouring particles). The entry point
-// returns cudaGetLastError() after the launch.
+// The sweep (svgd_phi_rbf_square) at m = 1-8 and 11 is a triangle sweep on
+// the micro-tile body (micro_tile.cuh, micro_tri_body, with FixedPForm):
+// each unordered pair once, its form sum_k lam_k log2(e) dz_k^2 with
+// lam log2(e) in registers, one ex2 and no counts, adding k s_j and
+// k (z_i - z_j) to row i and k s_i and -k (z_i - z_j) to column j; the
+// self pair enters KS once, so the output is the square sweep's. Tiles of
+// 128 particles, a block per tile pair (2 warps of 2 rows a thread; one
+// warp of 4 rows up to m = 2); a launch of few tile pairs (n = 1500: 78)
+// splits each tile pair's chunks over the grid's second dimension
+// (tri_splits), so the card still fills. Per unordered pair the function
+// needs 4m FP32 operations for the form (the difference, a multiply and an
+// FMA a coordinate), a clamp and one ex2, and 4m for KS and D_z in both
+// directions (an FMA counted as 2 operations, chip_smoke.py's sweep_bound);
+// the operands are a few hundred KB, so the sweep is bound by instruction
+// issue. Where the micro-tile body's rows would spill (m = 12-64, the
+// runtime instances of 16, 32 and 64), the square sweep below runs
+// instead:
+//
+// one thread owns one target row and keeps z_i, KS and D_z (3m values) in
+// registers; a block of kSqThreads targets walks sources in shared-memory
+// tiles (SqTile rows), with lam log2(e) broadcast from shared memory. One
+// block per 128 targets alone would leave most of the card idle, so the
+// sources are split into chunks of whole tiles over the grid's second
+// dimension, about kTargetBlocks blocks in all; each block adds its
+// partial sums into a zeroed (2m, n) buffer [KS | D_z] with float32
+// atomics (neighbouring threads, neighbouring particles). The entry points
+// return cudaGetLastError() after their launches.
 
-#include "sweep_common.cuh"
+#include "micro_tile.cuh"
 
 namespace {
 
@@ -121,9 +153,194 @@ __global__ void __launch_bounds__(kSqThreads)
   }
 }
 
+// The triangle sweep at the micro-tile body's widths.
+template <int MM, bool kExact>
+__global__ void __launch_bounds__(MicroTri<MM>::kThreads)
+    phi_rbf_sym_kernel(const float* __restrict__ z,
+                       const float* __restrict__ scores,
+                       const float* __restrict__ lam, int n, int m_arg,
+                       int psd, int nb, float* __restrict__ out) {
+  const int m = kExact ? MM : m_arg;
+  FixedPForm<MM> form;
+#pragma unroll
+  for (int k = 0; k < MM; ++k) {
+    form.lam2[k] = (kExact || k < m) ? lam[k] * kLog2e : 0.0f;
+  }
+  form.qmin = psd ? 0.0f : -INFINITY;
+  micro_tri_body<MM, kExact, 0>(z, scores, form, nullptr, n, m, 0, nb, 0LL,
+                                out, nullptr);
+}
+
+// The Jacobi decomposition of P_sym/2 (see the top of the file).
+constexpr int kJacobiSweeps = 10;
+constexpr int kJacobiMaxThreads = 1024;
+
+__global__ void __launch_bounds__(kJacobiMaxThreads)
+    sym_eigen_jacobi_kernel(const double* __restrict__ p, int m,
+                            double* __restrict__ lam,
+                            double* __restrict__ v_out) {
+  extern __shared__ double sh[];
+  // The circle ordering's pairs of every round, computed once: round r
+  // pairs mp - 1 with r, and (r + k) mod (mp - 1) with (r - k) mod (mp - 1).
+  __shared__ unsigned char sh_order[kMaxM - 1][kMaxM / 2][2];
+  __shared__ int sh_p[kMaxM / 2];
+  __shared__ int sh_q[kMaxM / 2];
+  __shared__ double sh_c[kMaxM / 2];
+  __shared__ double sh_s[kMaxM / 2];
+  __shared__ int sh_rotated[kJacobiSweeps];  // a rotation in sweep k
+  const int mp = m + (m & 1);  // an odd m gains a decoupled zero row
+  const int half = mp / 2;
+  const int ld = mp + 1;
+  double* a = sh;
+  double* v = sh + mp * ld;
+  const int tid = static_cast<int>(threadIdx.x);
+  const int nt = static_cast<int>(blockDim.x);
+  for (int e = tid; e < mp * mp; e += nt) {
+    const int i = e / mp;
+    const int j = e - i * mp;
+    a[i * ld + j] = (i < m && j < m) ? 0.5 * (p[i * m + j] + p[j * m + i])
+                                     : 0.0;
+    v[i * ld + j] = i == j ? 1.0 : 0.0;
+  }
+  for (int k = tid; k < kJacobiSweeps; k += nt) sh_rotated[k] = 0;
+  for (int e = tid; e < (mp - 1) * half; e += nt) {
+    const int r = e / half;
+    const int k = e - r * half;
+    const int pp = k == 0 ? mp - 1 : (r + k) % (mp - 1);
+    const int qq = k == 0 ? r : (r - k + mp - 1) % (mp - 1);
+    sh_order[r][k][0] = static_cast<unsigned char>(min(pp, qq));
+    sh_order[r][k][1] = static_cast<unsigned char>(max(pp, qq));
+  }
+  __syncthreads();
+  for (int sweep = 0; sweep < kJacobiSweeps; ++sweep) {
+    for (int r = 0; r < mp - 1; ++r) {
+      if (tid < half) {
+        const int pp = sh_order[r][tid][0];
+        const int qq = sh_order[r][tid][1];
+        const double apq = a[pp * ld + qq];
+        const double app = a[pp * ld + pp];
+        const double aqq = a[qq * ld + qq];
+        double c = 1.0;
+        double s = 0.0;
+        // A pair negligible against both diagonal entries at float64
+        // precision is not rotated; its 2x2 block's update zeroes it.
+        const double g = 100.0 * fabs(apq);
+        if (fabs(app) + g != fabs(app) || fabs(aqq) + g != fabs(aqq)) {
+          sh_rotated[sweep] = 1;
+          // t = sgn(theta) / (|theta| + sqrt(theta^2 + 1)) with
+          // theta = tau / (2 a_pq), in one division.
+          const double tau = aqq - app;
+          const double t =
+              (tau >= 0.0 ? 2.0 * apq : -2.0 * apq) /
+              (fabs(tau) + sqrt(fma(tau, tau, 4.0 * apq * apq)));
+          c = rsqrt(fma(t, t, 1.0));
+          s = t * c;
+        }
+        sh_p[tid] = pp;
+        sh_q[tid] = qq;
+        sh_c[tid] = c;
+        sh_s[tid] = s;
+      }
+      __syncthreads();
+      // A <- J^T A J by 2x2 blocks (pair ia's rows, pair ib's columns),
+      // the upper blocks computed and mirrored; V <- V J.
+      for (int e = tid; e < half * half; e += nt) {
+        const int ia = e / half;
+        const int ib = e - ia * half;
+        if (ia > ib) continue;
+        const int pa = sh_p[ia], qa = sh_q[ia], pb = sh_p[ib], qb = sh_q[ib];
+        const double ca = sh_c[ia], sa = sh_s[ia];
+        const double cb = sh_c[ib], sb = sh_s[ib];
+        const double x = a[pa * ld + pb], y = a[pa * ld + qb];
+        const double z = a[qa * ld + pb], w = a[qa * ld + qb];
+        const double x1 = cb * x - sb * y, y1 = sb * x + cb * y;
+        const double z1 = cb * z - sb * w, w1 = sb * z + cb * w;
+        const double x2 = ca * x1 - sa * z1;
+        const double w2 = sa * y1 + ca * w1;
+        const double y2 = ia == ib ? 0.0 : ca * y1 - sa * w1;
+        const double z2 = ia == ib ? 0.0 : sa * x1 + ca * z1;
+        a[pa * ld + pb] = x2;
+        a[pa * ld + qb] = y2;
+        a[qa * ld + pb] = z2;
+        a[qa * ld + qb] = w2;
+        a[pb * ld + pa] = x2;
+        a[qb * ld + pa] = y2;
+        a[pb * ld + qa] = z2;
+        a[qb * ld + qa] = w2;
+      }
+      for (int e = tid; e < mp * half; e += nt) {
+        const int i = e / half;
+        const int ib = e - i * half;
+        const int pb = sh_p[ib], qb = sh_q[ib];
+        const double cb = sh_c[ib], sb = sh_s[ib];
+        const double vp = v[i * ld + pb], vq = v[i * ld + qb];
+        v[i * ld + pb] = cb * vp - sb * vq;
+        v[i * ld + qb] = sb * vp + cb * vq;
+      }
+      __syncthreads();
+    }
+    // Block-uniform: a sweep without a rotation leaves A diagonal to
+    // working precision, and every later sweep would repeat it.
+    if (!sh_rotated[sweep]) break;
+  }
+  for (int e = tid; e < m * m; e += nt) {
+    const int i = e / m;
+    const int k = e - i * m;
+    v_out[e] = v[i * ld + k];
+    if (i == 0) lam[k] = a[k * ld + k];
+  }
+}
+
+// The fixed-P sweep for instance MM: the triangle where the micro-tile
+// body serves MM, the square sweep otherwise.
+template <int MM, bool kExact>
+void launch_phi_rbf(const float* z, const float* scores, const float* lam,
+                    int n, int m, int psd, float* out, cudaStream_t s) {
+  if constexpr (MicroTri<MM>::enabled) {
+    constexpr int tile = MicroTri<MM>::kSide;
+    const int nb = (n + tile - 1) / tile;
+    const long long pairs = static_cast<long long>(nb) * (nb + 1) / 2;
+    const dim3 grid(static_cast<unsigned int>(pairs), tri_splits<MM>(pairs));
+    phi_rbf_sym_kernel<MM, kExact><<<grid, MicroTri<MM>::kThreads, 0, s>>>(
+        z, scores, lam, n, m, psd, nb, out);
+  } else {
+    constexpr int tile = SqTile<MM>::value;
+    const int row_blocks = (n + kSqThreads - 1) / kSqThreads;
+    const int tiles = (n + tile - 1) / tile;
+    const int want = (kTargetBlocks + row_blocks - 1) / row_blocks;
+    const int splits = tiles < want ? tiles : want;
+    const int chunk = tile * ((tiles + splits - 1) / splits);
+    const dim3 grid(row_blocks, (n + chunk - 1) / chunk);
+    phi_rbf_square_kernel<MM, kExact><<<grid, kSqThreads, 0, s>>>(
+        z, scores, lam, n, m, psd, chunk, out);
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// (lam (m,), V (m, m)) with P_sym/2 = V diag(lam) V^T, P_sym = P + P^T,
+// for p (m, m) float64 row-major on the device; lam (m,) and v (m, m)
+// float64 on the device, written by the kernel (any order of the
+// eigenvalues). 1 <= m <= 64.
+int svgd_sym_eigen(const double* p, int m, double* lam, double* v,
+                   void* stream) {
+  if (m < 1 || m > kMaxM) return static_cast<int>(cudaErrorInvalidValue);
+  const int mp = m + (m & 1);
+  const int work = mp * (mp / 2);
+  int threads = (work + 31) / 32 * 32;
+  if (threads > kJacobiMaxThreads) threads = kJacobiMaxThreads;
+  const size_t bytes = 2 * static_cast<size_t>(mp) * (mp + 1) * sizeof(double);
+  cudaError_t err = cudaFuncSetAttribute(
+      sym_eigen_jacobi_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sym_eigen_jacobi_kernel<<<1, threads, bytes,
+                            static_cast<cudaStream_t>(stream)>>>(p, m, lam, v);
+  return static_cast<int>(cudaGetLastError());
+}
+
 
 // [KS | D_z] (2m, n) of the fixed-P square sweep. z (n, m) the rows
 // z = X_c V, scores (n, m), lam (m,) the eigenvalues of P_sym/2, all float32
@@ -132,19 +349,9 @@ extern "C" {
 int svgd_phi_rbf_square(const float* z, const float* scores, const float* lam,
                         int n, int m, int psd, float* out, void* stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int row_blocks = (n + kSqThreads - 1) / kSqThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SVGD_LAUNCH_PHI_RBF(MM_, EX_)                                   \
-  {                                                                     \
-    constexpr int tile = SqTile<MM_>::value;                            \
-    const int tiles = (n + tile - 1) / tile;                            \
-    const int want = (kTargetBlocks + row_blocks - 1) / row_blocks;     \
-    const int splits = tiles < want ? tiles : want;                     \
-    const int chunk = tile * ((tiles + splits - 1) / splits);           \
-    const dim3 grid(row_blocks, (n + chunk - 1) / chunk);               \
-    phi_rbf_square_kernel<MM_, EX_><<<grid, kSqThreads, 0, s>>>(        \
-        z, scores, lam, n, m, psd, chunk, out);                         \
-  }
+  launch_phi_rbf<MM_, EX_>(z, scores, lam, n, m, psd, out, s);
   SVGD_DISPATCH_M_2_11(m, SVGD_LAUNCH_PHI_RBF)
 #undef SVGD_LAUNCH_PHI_RBF
   return static_cast<int>(cudaGetLastError());

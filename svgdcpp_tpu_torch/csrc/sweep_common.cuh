@@ -1,6 +1,6 @@
 // Device helpers shared by the sweeps (fused_phi.cu, fused_phi_terms.cu,
-// counts_sym.cuh, terms_sym.cuh, fused_phi_aniso.cu, phi_rbf.cu,
-// fused_phi_panel.cu, count_le.cu): the pair's squared
+// counts_sym.cuh, terms_sym.cuh, micro_tile.cuh, fused_phi_aniso.cu,
+// phi_rbf.cu, fused_phi_panel.cu, count_le.cu): the pair's squared
 // distance in the plain version's order, the flushed-to-zero ex2 of the
 // weights, threshold counting (at a runtime
 // or a compile-time number of thresholds), the exact
@@ -170,6 +170,17 @@ struct SymTermsTile {
   static constexpr int value = MM <= 12 ? 64 : 32;
 };
 
+// The terms triangle kernels' tiles (fused_phi_terms.cu): 128 particles a
+// side where the micro-tile body serves the instance (micro_tile.cuh,
+// MicroTri: m = 1-8 and 11, whose rows fit the registers), else the
+// one-row-a-thread body's SymTermsTile (terms_sym.cuh). svgd_sym_tile
+// exports it and ops/sym_plan.sym_tile mirrors it.
+template <int MM>
+struct TermsTriTile {
+  static constexpr bool kMicro = MM <= 8 || MM == 11;
+  static constexpr int value = kMicro ? 128 : SymTermsTile<MM>::value;
+};
+
 // The triangle sweeps' launch over tiles [t0, t0 + count) of the tile list:
 // the whole triangle (t0 = 0, count = upper_pairs) or one rank's chunk. An
 // empty chunk launches nothing. Returns false for a range outside the list.
@@ -235,11 +246,13 @@ __device__ __forceinline__ void combine_terms(float sq, int nterms,
 }
 
 // The pair's weights (k_c, w) from its sq, for the sweeps that keep them
-// in registers (fused_phi_panel.cu, fused_phi_aniso.cu). NT signed terms: k_c = sum_t s_t k_t, w = sum_t s_t gamma_t k_t,
-// k_t = 2^(-gamma_t log2(e) sq), the terms' constants -gamma_t log2(e),
-// s_t and s_t gamma_t in registers, set once per thread.
+// in registers (micro_tile.cuh, fused_phi_aniso.cu). NT signed terms:
+// k_c = sum_t s_t k_t, w = sum_t s_t gamma_t k_t, k_t = 2^(-gamma_t
+// log2(e) sq), the terms' constants -gamma_t log2(e), s_t and s_t gamma_t
+// in registers, set once per thread.
 template <int NT>
 struct FixedTerms {
+  static constexpr bool kFixedP = false;  // the Euclidean sq (micro_tile.cuh)
   float ng2[NT];
   float sn[NT];
   float sg[NT];
@@ -269,6 +282,7 @@ struct FixedTerms {
 // The same over a runtime number of terms, 0 <= nterms <= kMaxTerms (none:
 // k_c = w = 0), with the constants in shared memory (load_terms).
 struct AnyTerms {
+  static constexpr bool kFixedP = false;
   const float* g2;
   const float* sn;
   const float* sg;

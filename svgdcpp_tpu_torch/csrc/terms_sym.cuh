@@ -1,7 +1,9 @@
-// The composed kernels' upper-triangle sweep, shared by
+// The composed kernels' one-row-a-thread upper-triangle sweep, shared by
 // fused_phi_terms.cu (fused_phi_terms_sym, K8/K9's port: one term group; and
 // fused_phi_terms_sym_chunk, K10/K11's port: one rank's range of the tile
-// list) and fused_phi_aniso.cu (the term-group kernel of K14's port, for
+// list; both at the widths the micro-tile body would spill, m = 9, 10 and
+// 12-64: fused_phi_terms.cu takes micro_tile.cuh's body at m = 1-8 and 11)
+// and fused_phi_aniso.cu (the term-group kernel of K14's port, for
 // compositions past the one-pass kernel's: one group per anisotropic term
 // besides the Euclidean one).
 //

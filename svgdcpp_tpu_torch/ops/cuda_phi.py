@@ -1,8 +1,9 @@
 """Fused phi sweeps and count passes on the card: wrappers of the CUDA
 kernels.
 
-Twelve hand-written Hopper kernels, built into one library, replace the
-Pallas kernels of the package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
+Twelve hand-written Hopper kernels, built into one library (with a
+thirteenth, ``sym_eigen``, beside K15's), replace the Pallas kernels of the
+package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
 
   * ``fused_phi_counts_square`` (``csrc/fused_phi.cu``) -- ``_fused_kernel``
     (K1), the square/cross sweep (each target row against every source).
@@ -22,7 +23,9 @@ Pallas kernels of the package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
     n phi and all n^2 counts out); otherwise the terms triangle kernel's
     body under its own name, with one term group per anisotropic term.
   * ``phi_rbf_square``          (``csrc/phi_rbf.cu``) -- ``_phi_kernel``
-    (K15): the square sweep of one RBF with a full, fixed P, no counts.
+    (K15): the sweep of one RBF with a full, fixed P, no counts (the
+    triangle at m = 1-8 and 11, the square sweep above); with it
+    ``sym_eigen``, the Jacobi decomposition of P on the card.
   * ``fused_phi_counts_sympanel`` (``csrc/fused_phi_panel.cu``) --
     ``_sym_panel_kernel`` (K3): the triangle sweep of one RBF laid out as
     pairs of super-blocks, each with its own output window, summed by an
@@ -59,9 +62,9 @@ raises. There is no fallback from the card to the plain version.
 The quadratic forms of K14 and K15 come from factors prepared in float64
 (``cholesky_factors``, which the driver keeps while a constant P stays the
 same; ``eigen_rows``), so each kernel takes the difference form of its
-form. ``eigen_rows`` decomposes an (m, m) matrix on the host
-(``symmetric_eigen``) unless the caller passes the decomposition: the
-``cuda`` route reads P on the host once per step for a HESSIAN scale only.
+form. ``eigen_rows`` decomposes an (m, m) matrix (``symmetric_eigen``: on
+the card the kernel ``sym_eigen``, which reads nothing on the host) unless
+the caller passes the decomposition.
 
 Each wrapper counts its kernel's launches in ``launch_counts`` (one plain
 integer per kernel), so a run can show that it went through the kernels.
@@ -80,8 +83,8 @@ from .median import count_le_plain
 from .phi import (
     panel_index,
     phi_rbf_aniso_terms_fused_counts,
-    phi_rbf_blocked,
     phi_rbf_cross_fused_counts,
+    phi_rbf_eigen,
     phi_rbf_fused_counts,
     phi_rbf_sym_chunk_counts,
     phi_rbf_sympanel_chunk_counts,
@@ -122,6 +125,7 @@ TERMS_SQUARE_KERNEL = "fused_phi_terms_square"
 TERMS_SYM_KERNEL = "fused_phi_terms_sym"
 ANISO_KERNEL = "fused_phi_aniso_terms_sym"
 PHI_RBF_KERNEL = "phi_rbf_square"
+SYM_EIGEN_KERNEL = "sym_eigen"
 SYMPANEL_KERNEL = "fused_phi_counts_sympanel"
 TERMS_SYMPANEL_KERNEL = "fused_phi_terms_sympanel"
 SYM_CHUNK_KERNEL = "fused_phi_counts_sym_chunk"
@@ -133,6 +137,7 @@ COUNT_KERNEL = "count_le_cross"
 launch_counts = {
     SQUARE_KERNEL: 0, SYM_KERNEL: 0, TERMS_SQUARE_KERNEL: 0,
     TERMS_SYM_KERNEL: 0, ANISO_KERNEL: 0, PHI_RBF_KERNEL: 0,
+    SYM_EIGEN_KERNEL: 0,
     SYMPANEL_KERNEL: 0, TERMS_SYMPANEL_KERNEL: 0, SYM_CHUNK_KERNEL: 0,
     TERMS_SYM_CHUNK_KERNEL: 0, SYMPANEL_CHUNK_KERNEL: 0, COUNT_KERNEL: 0,
 }
@@ -188,6 +193,7 @@ def load_library() -> ctypes.CDLL:
                 "svgd_fused_phi_aniso_terms_groups":
                     [ptr] * 5 + [i32, ptr, i32, ptr] + [i32] * 3 + [ptr] * 3,
                 "svgd_phi_rbf_square": [ptr] * 3 + [i32] * 3 + [ptr] * 2,
+                "svgd_sym_eigen": [ptr, i32, ptr, ptr, ptr],
                 "svgd_fused_phi_counts_sympanel":
                     [ptr] * 4 + [i32] * 5 + [ptr] * 3,
                 "svgd_fused_phi_terms_sympanel":
@@ -327,12 +333,36 @@ def cholesky_factors(p_matrices, device):
     return lower
 
 
-def symmetric_eigen(p_matrix):
-    """(lam (m,), V (m, m)) in float64 on the host, with
-    P_sym/2 = V diag(lam) V^T. On the card this reads P on the host: one
-    synchronisation."""
-    p = torch.as_tensor(p_matrix).to("cpu", torch.float64)
-    return torch.linalg.eigh(0.5 * (p + p.T))
+def symmetric_eigen(p_matrix, device=None):
+    """(lam (m,), V (m, m)) in float64 on ``device`` (P's own by default),
+    with P_sym/2 = V diag(lam) V^T, in any order of the eigenvalues.
+
+    On a CUDA device the one-block Jacobi kernel ``svgd_sym_eigen``
+    (csrc/phi_rbf.cu), which reads nothing on the host: a HESSIAN scale's
+    new P each step does not synchronise the step. On the CPU its plain
+    version, ``torch.linalg.eigh`` (which checks its result on the host,
+    so it never runs on the card here). P may be indefinite."""
+    p = torch.as_tensor(p_matrix)
+    device = p.device if device is None else torch.device(device)
+    p = p.to(device, torch.float64).contiguous()
+    if p.ndim != 2 or p.shape[0] != p.shape[1]:
+        raise ValueError(f"P must be (m, m), got {tuple(p.shape)}")
+    if device.type == "cpu":
+        return torch.linalg.eigh(0.5 * (p + p.T))
+    _require_cuda(p)
+    m = p.shape[0]
+    check_dimension(m)
+    lam = torch.empty(m, dtype=torch.float64, device=device)
+    v = torch.empty((m, m), dtype=torch.float64, device=device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        rc = lib.svgd_sym_eigen(
+            p.data_ptr(), m, lam.data_ptr(), v.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _check_launch(rc, SYM_EIGEN_KERNEL)
+    launch_counts[SYM_EIGEN_KERNEL] += 1
+    return lam, v
 
 
 def eigen_rows(coords_c, p_matrix, eig=None):
@@ -340,9 +370,12 @@ def eigen_rows(coords_c, p_matrix, eig=None):
     P_sym/2 = V diag(lam) V^T and z = coords_c V, so
     ``sum_k lam_k (z_ik - z_jk)^2 = d^T P d`` for any P, indefinite too.
 
-    ``eig``: the caller's (lam, V) of P_sym/2, used as given (nothing is
-    read on the host); without it, ``symmetric_eigen(p_matrix)``."""
-    lam, v = symmetric_eigen(p_matrix) if eig is None else eig
+    ``eig``: the caller's (lam, V) of P_sym/2, used as given; without it,
+    ``symmetric_eigen(p_matrix)`` on the coordinates' device. Nothing is
+    read on the host either way."""
+    if eig is None:
+        eig = symmetric_eigen(p_matrix, coords_c.device)
+    lam, v = eig
     lam = lam.to(coords_c.device, torch.float64)
     v = v.to(coords_c.device, torch.float64)
     return coords_c.to(torch.float64) @ v, lam, v
@@ -558,7 +591,8 @@ def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
 
 
 def _phi_rbf_launch(coords, scores, p_matrix, psd, eig):
-    """K15: the fixed-P square kernel."""
+    """K15: the fixed-P sweep kernel (the decomposition, where the caller
+    has none, on the card too)."""
     _check_pair(coords, scores)
     n, m = coords.shape
     z64, lam, v = eigen_rows(_centered32(coords), p_matrix, eig)
@@ -714,13 +748,16 @@ def phi_rbf_cuda(coords, scores, p_matrix, psd=True, eig=None):
     Counterpart of ``svgdcpp_tpu.ops.pallas_phi.phi_rbf_pallas``: ``psd``
     clamps the quadratic form at 0 (False for an indefinite P, such as a
     HESSIAN scale). ``eig``: (lam, V) of P_sym/2 where the caller has it
-    (a P fixed over the run, or gamma I); without it the wrapper reads P on
-    the host to decompose it. On a CUDA tensor: the square kernel
-    phi_rbf_square, in float32. On a CPU tensor: the plain
-    ``phi_rbf_blocked`` (``eig`` unused).
+    (a P fixed over the run, or gamma I); without it the wrapper decomposes
+    P on the card (``symmetric_eigen``), with no host read. On a CUDA
+    tensor: the kernel phi_rbf_square (a triangle sweep at m = 1-8 and 11,
+    the square sweep above), in float32. On a CPU tensor: the plain
+    ``phi_rbf_eigen`` from ``eig``, or from the decomposition's plain
+    version (``symmetric_eigen`` on the CPU, ``torch.linalg.eigh``).
     """
     if coords.device.type == "cpu":
-        return phi_rbf_blocked(coords, scores, p_matrix, psd=psd)
+        lam, v = symmetric_eigen(p_matrix, "cpu") if eig is None else eig
+        return phi_rbf_eigen(coords, scores, lam, v, psd=psd)
     _require_cuda(coords)
     return _phi_rbf_launch(coords, scores, p_matrix, psd, eig)
 

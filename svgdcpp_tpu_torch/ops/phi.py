@@ -771,6 +771,42 @@ def phi_rbf_aniso_terms_fused_counts(
     return phi, counts
 
 
+def phi_rbf_eigen(coords, scores, lam, v, psd: bool = True,
+                  row_tile: int = 1024):
+    """phi of one RBF exp(-d^T P d) over one particle set from the
+    decomposition P_sym/2 = V diag(lam) V^T (any P, indefinite too): with
+    z = x_c V (x_c centered; formed in float64, as the wrapper forms it),
+    the form is sum_k lam_k (z_ik - z_jk)^2, clamped at 0 where ``psd``,
+    and the gradient direction 2 (z_i - z_j) diag(lam) V^T, so
+
+      n phi_i = sum_j k_ij s_j + 2 (sum_j k_ij (z_i - z_j)) diag(lam) V^T,
+
+    the fixed-P CUDA kernel's arithmetic (phi_rbf.cu), its float64
+    epilogue included; the form by the Gram identity. Streams over row
+    tiles."""
+    x = coords - coords.mean(dim=0)
+    lam = torch.as_tensor(lam, device=x.device).to(torch.float64)
+    v = torch.as_tensor(v, device=x.device).to(torch.float64)
+    z = (x.to(torch.float64) @ v).to(x.dtype)
+    lam_x = lam.to(x.dtype)
+    zl = z * lam_x
+    norms = torch.sum(zl * z, dim=1)
+    n = x.shape[0]
+    row_tile = auto_row_tile(n, row_tile)
+    out = []
+    for start in range(0, n, row_tile):
+        zi = z[start : start + row_tile]
+        form = (norms[start : start + row_tile, None] + norms[None, :]
+                - 2.0 * sq_matmul(zl[start : start + row_tile], z.T))
+        if psd:
+            form = torch.clamp_min(form, 0.0)
+        k = torch.exp(-form)
+        d_z = torch.sum(k, dim=1, keepdim=True) * zi - sq_matmul(k, z)
+        grad = (d_z.to(torch.float64) * lam) @ v.T
+        out.append(sq_matmul(k, scores.to(x.dtype)) + 2.0 * grad.to(x.dtype))
+    return torch.cat(out, dim=0) / n
+
+
 def phi_rbf_factor(coords, scores, lower, row_tile: int = 1024):
     """phi of one anisotropic RBF exp(-d^T P d) over one particle set from
     the factor L of P_sym/2 = L L^T: with z = x_c L (x_c centered), the

@@ -619,12 +619,12 @@ class SVGD:
         raise ValueError(f"unknown phi_impl {self._phi_impl!r}")
 
     def _fixed_p_eigen(self, p):
-        """(lam, V) of P_sym/2 for the 'cuda' route where it needs no host
-        read each step: a MEDIAN scale is gamma I, so (its diagonal, I) on
-        the device; a CONSTANT P is decomposed once and kept while the step
-        carries the same tensor (a hot-swap or a new run() may bring a new
-        one). None for a HESSIAN scale, which changes every step: the
-        wrapper decomposes it on the host."""
+        """(lam, V) of P_sym/2 for the 'cuda' route where the step can keep
+        it: a MEDIAN scale is gamma I, so (its diagonal, I) on the device;
+        a CONSTANT P is decomposed once, on its device, and kept while the
+        step carries the same tensor (a hot-swap or a new run() may bring a
+        new one). None for a HESSIAN scale, which changes every step: the
+        wrapper decomposes it each call, on the card."""
         method = self.kernel.scale_method
         if method == GaussianRBFKernel.ScaleMethod.MEDIAN:
             return p.diagonal(), torch.eye(
@@ -633,11 +633,7 @@ class SVGD:
         if method == GaussianRBFKernel.ScaleMethod.CONSTANT:
             cached = getattr(self, "_constant_eigen", None)
             if cached is None or cached[0] is not p:
-                # Kept on P's device: a copy from the host each step would
-                # synchronise as the read does.
-                self._constant_eigen = (p, tuple(
-                    t.to(p.device) for t in symmetric_eigen(p)
-                ))
+                self._constant_eigen = (p, symmetric_eigen(p))
             return self._constant_eigen[1]
         return None
 

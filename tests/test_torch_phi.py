@@ -18,8 +18,9 @@
   m=3, signs (1, -1)) square, (n=600, m=11) triangle and a cross case:
   phi rtol 2e-4, atol 2e-6 (tests/test_pallas.py's bound for that kernel);
   counts as above.
-* K15's wrapper phi_rbf_cuda on CPU tensors (phi_rbf_blocked) and the dense
-  phi_rbf against phi_rbf_pallas in interpret mode, float32, on
+* K15's wrapper phi_rbf_cuda on CPU tensors (the eigen form phi_rbf_eigen,
+  the kernel's arithmetic, with the decomposition's plain version) and the
+  dense phi_rbf against phi_rbf_pallas in interpret mode, float32, on
   tests/test_pallas.py's cases: n = 100 and 517, ragged n = 73, and an
   indefinite P with psd=False: rtol 2e-4, atol 2e-5 (5e-4, 5e-6 for the
   indefinite P); off origin (+200) against the f64 dense phi: 2e-3
@@ -349,10 +350,12 @@ def test_resolve_sym_and_launch_counts_on_cpu():
     )
     cuda_phi.count_le_cuda(torch.from_numpy(x), torch.from_numpy(x),
                            torch.tensor([1.0, 2.0]))
+    cuda_phi.symmetric_eigen(p)
     assert set(cuda_phi.launch_counts) == {
         cuda_phi.SQUARE_KERNEL, cuda_phi.SYM_KERNEL,
         cuda_phi.TERMS_SQUARE_KERNEL, cuda_phi.TERMS_SYM_KERNEL,
         cuda_phi.ANISO_KERNEL, cuda_phi.PHI_RBF_KERNEL,
+        cuda_phi.SYM_EIGEN_KERNEL,
         cuda_phi.SYMPANEL_KERNEL, cuda_phi.TERMS_SYMPANEL_KERNEL,
         cuda_phi.SYM_CHUNK_KERNEL, cuda_phi.TERMS_SYM_CHUNK_KERNEL,
         cuda_phi.SYMPANEL_CHUNK_KERNEL, cuda_phi.COUNT_KERNEL,

@@ -81,14 +81,21 @@ def test_sass_instances_name_paths_a_and_b():
     labels = [label for label, *_ in chip_profile.SASS_INSTANCES]
     assert labels == ["counts_sympanel<2,1,3>", "terms_sympanel<11,1,3,2>",
                       "count_le<2,1,0,1,5>", "count_le<2,1,0,0,3>",
-                      "count_le<11,1,1,1,5>", "aniso_terms_sym<11,1,1,3>"]
+                      "count_le<11,1,1,1,5>", "aniso_terms_sym<11,1,1,3>",
+                      "terms_sym<11,1,3,2>", "phi_rbf_sym<11,1>",
+                      "phi_rbf_square<11,1>"]
     for _, kernel, args, per in chip_profile.SASS_INSTANCES:
         assert any(kernel + args[0] in f for f in (
             "_ZN12_GLOBAL__N_132fused_phi_counts_sympanel_kernel"
             "ILi2ELb1ELi3EEEvPKfS2_S2_S2_iiiiiPfPy", FUNC,
             COUNT_FUNC.replace("ILi2ELb1ELb0ELb1ELi5E", args[0]),
             "_ZN12_GLOBAL__N_132fused_phi_aniso_terms_sym_kernel"
-            "ILi11ELb1ELi1ELi3EEEvPKfS2_S2_S2_N4svgd9TermSignsEifS2_iiiiPfPy"))
+            "ILi11ELb1ELi1ELi3EEEvPKfS2_S2_S2_N4svgd9TermSignsEifS2_iiiiPfPy",
+            "_ZN12_GLOBAL__N_126fused_phi_terms_sym_kernel"
+            "ILi11ELb1ELi3ELi2EEEvPKfS2_S2_N4svgd9TermSignsEiS2_iiiixPfPy",
+            "_ZN12_GLOBAL__N_118phi_rbf_sym_kernelILi11ELb1EEEvPKfS2_S2_iiiiPf",
+            "_ZN12_GLOBAL__N_121phi_rbf_square_kernelILi11ELb1EEEv"
+            "PKfS2_S2_iiiiPf"))
         assert per in (1, 2, ("fp32", 5), ("fp32", 15))
 
 

@@ -4,7 +4,8 @@
   ``sym_sharded_plan`` and ``sym_panel_sharded_plan`` equal the JAX
   package's on a grid of (n, m, world); the card's chunks
   (``sym_tile_chunk``, ``panel_chunk``) cover each tile or panel exactly
-  once for worlds 1 to 8.
+  once for worlds 1 to 8, and the composed triangle kernel's tile list at
+  every m = 1-64 each unordered pair exactly once.
 * Chunk sweeps: the plain chunk versions (K4, K10/K11, K5), summed over
   the ranks and finished, against the JAX package's sharded kernels summed
   over their devices in interpret mode (float32, phi within 5e-6 of max
@@ -147,11 +148,49 @@ def test_card_chunks_cover_each_tile_once(world):
             seen += sym_plan.panel_pairs(nb)[p0:p0 + count]
         assert seen == sym_plan.panel_pairs(nb)
     assert sym_plan.sym_tile(16) == 64 and sym_plan.sym_tile(17) == 32
-    # The composed kernels' tile follows the instance that serves m: m = 11
-    # has its own (64), m = 9, 10 and 12 run the instance of 16 (32).
+    # The composed kernels' tile follows the instance that serves m: the
+    # micro-tile body's 128 at m = 1-8 and 11, the instance of 16's 32 at
+    # m = 9, 10 and 12.
     assert [sym_plan.sym_tile(m, terms=True) for m in (8, 9, 10, 11, 12, 13)] \
-        == [64, 32, 32, 64, 32, 32]
+        == [128, 32, 32, 128, 32, 32]
     assert sym_plan.sym_tile(50) == 32 and sym_plan.sym_tile(9) == 64
+
+
+def tile_pairs(n, side, bi, bj):
+    """Unordered pairs (diagonal included) of tile (bi, bj): j >= i on a
+    diagonal tile, rows and columns below n."""
+    rows = max(0, min(side, n - bi * side))
+    cols = max(0, min(side, n - bj * side))
+    return rows * (rows + 1) // 2 if bi == bj else rows * cols
+
+
+@pytest.mark.parametrize("world", range(1, 9))
+def test_terms_chunks_cover_each_pair_once_at_every_m(world):
+    """The composed triangle kernel's work list at every m = 1-64 (128
+    particles a side where the micro-tile body serves m, 32 elsewhere):
+    the ranks' ranges cover each tile pair once, in order, and so each of
+    the n (n + 1) / 2 unordered pairs; ranks differ by at most one tile."""
+    sides = {}
+    for m in range(1, 65):
+        side = sym_plan.sym_tile(m, terms=True)
+        assert side == (128 if m <= 8 or m == 11 else 32), m
+        sides.setdefault(side, []).append(m)
+    assert sorted(sides) == [32, 128]
+    for side in sides:
+        for n in (127, 1000, 10007):
+            nb = -(-n // side)
+            seen, pairs, counts = [], 0, []
+            for rank in range(world):
+                t0, count = sym_plan.sym_tile_chunk(n, world, rank, side)
+                counts.append(count)
+                for bi, first, last in sym_plan.upper_tile_rows(nb, t0,
+                                                                count):
+                    for bj in range(first, last + 1):
+                        seen.append((bi, bj))
+                        pairs += tile_pairs(n, side, bi, bj)
+            assert seen == [(i, j) for i in range(nb) for j in range(i, nb)]
+            assert pairs == n * (n + 1) // 2
+            assert max(counts) - min(counts) <= 1
 
 
 # ----------------------------------------------------------------------

@@ -547,11 +547,13 @@ def test_fused_terms_hot_swap_matches_jax():
             assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dim,scale", [(2, "MEDIAN"), (5, "HESSIAN")])
+@pytest.mark.parametrize("dim,scale", [(2, "MEDIAN"), (5, "HESSIAN"),
+                                       (11, "HESSIAN")])
 def test_cuda_route_on_cpu_vs_pallas_route(dim, scale):
-    """'cuda' (K15's port; phi_rbf_blocked on CPU tensors) against the JAX
-    package's 'pallas' route in interpret mode, float32, 3 AdaGrad steps at
-    n=300: the tolerance the JAX package holds its kernel routes to."""
+    """'cuda' (K15's port; on CPU tensors the eigen form phi_rbf_eigen with
+    the decomposition's plain version) against the JAX package's 'pallas'
+    route in interpret mode, float32, 3 AdaGrad steps at n=300: the
+    tolerance the JAX package holds its kernel routes to."""
     n = 300
     rng = np.random.default_rng(50 + dim)
     x0 = (rng.normal(size=(n, dim)) * 1.5).astype(np.float32)
@@ -582,9 +584,10 @@ def test_cuda_route_decomposes_p_on_the_host_for_hessian_only(
     scale, monkeypatch
 ):
     """The 'cuda' route hands K15's wrapper the eigendecomposition of
-    P_sym/2 where it needs no host read each step: MEDIAN's gamma I as (its
-    diagonal, I), a CONSTANT P decomposed once (again after a hot-swap); a
-    HESSIAN scale gets none, and the wrapper decomposes it."""
+    P_sym/2 where the step can keep it: MEDIAN's gamma I as (its diagonal,
+    I), a CONSTANT P decomposed once (again after a hot-swap); a HESSIAN
+    scale gets none, and the wrapper decomposes it each call (on the card,
+    with no host read)."""
     import svgdcpp_tpu_torch.svgd as driver
 
     n, dim = 40, 3
