@@ -208,7 +208,7 @@ __device__ __forceinline__ void micro_panel_chunk(
         kc = ok ? kc : 0.0f;
         w = ok ? w : 0.0f;
       }
-      const float kc_col = (Weights::kFixedP && kMasked && self) ? 0.0f : kc;
+      const float kc_col = self ? 0.0f : kc;  // the self pair's other half
 #pragma unroll
       for (int k = 0; k < MM; ++k) {
         if (kExact || k < m) {

@@ -37,8 +37,9 @@
 // rotation ends the loop. kJacobiSweeps = 10 bounds it: off-diagonal mass
 // falls quadratically and reaches the float64 rounding level by the
 // seventh sweep at m = 64 on positive definite, indefinite and clustered
-// spectra (a float64 rehearsal of this ordering); m = 11 needs about
-// five. Its plain version is torch.linalg.eigh (ops/cuda_phi.py).
+// spectra (a float64 rehearsal of this ordering); the loop ends after
+// about six sweeps at m = 11 and nine at m = 64, the last without a
+// rotation. Its plain version is torch.linalg.eigh (ops/cuda_phi.py).
 // Bound: a few hundred KB of float64 arithmetic at m = 64 and a few KB at
 // m = 11, so the kernel is bound by the latency of its 2 (mp - 1) barriers
 // a sweep, not by the card's rates.
