@@ -68,7 +68,7 @@ difference.
 
 With ``--crossover`` it also times the full-width triangle kernels
 against the panel kernels on a ladder of n: K2 against K3's port at m = 2
-(one RBF) from n = 32768 to 524288 and at m = 5 (the runtime-m instance)
+(one RBF) from n = 10000 to 262144 and at m = 5 (the runtime-m instance)
 at n = 262144, and the terms triangle kernel against the terms panel
 kernel at m = 11 with two terms (the hierarchical BLR's shape) from
 n = 16384 to 262144, and the terms kernels' other instances: m = 11 at
@@ -77,8 +77,14 @@ and m = 5 (n = 131072) with two terms; wrapper ms, median of 5 calls
 between CUDA events after one warm-up call, three thresholds unless
 stated.
 
-With ``--sweeps`` it also times the terms triangle kernel
-(``fused_phi_terms_sym``, K8/K9's port) at n = 10000, two terms, T = 3,
+With ``--sweeps`` it also times the single-RBF triangle kernel
+(``fused_phi_counts_sym``, K2's port) at n = 10000, m = 2, T = 3, with the
+largest |phi| difference of two calls on one input and of two 20-step runs
+of the flagship's kernel route from one x0 (the float32 atomics'
+run-to-run floor), its chunk kernel (K4's port) at world 1 and each rank
+of world 2, and the square kernel (K1's port) at the flat BLR's (1000, 50)
+and at (1500, 2) beside the plain version's ms; then the terms triangle
+kernel (``fused_phi_terms_sym``, K8/K9's port) at n = 10000, two terms, T = 3,
 at m = 5, 11, 16, 32 and 50, and at m = 11 the terms panel kernel forced
 on the same inputs and the chunk kernel (K10/K11's port) at world 1 and
 each rank of world 2; then the fixed-P kernel (K15's port) as the
@@ -464,8 +470,8 @@ def crossover(device):
     from svgdcpp_tpu_torch.ops import cuda_phi
 
     rows = []
-    ladder = [(2, None, n, 3) for n in (32768, 65536, 131072, 262144,
-                                        524288)]
+    ladder = [(2, None, n, 3) for n in (10000, 16384, 32768, 65536, 131072,
+                                        262144)]
     ladder += [(5, None, 262144, 3)]
     ladder += [(11, (1.0, 1.0), n, 3) for n in (16384, 32768, 65536, 131072,
                                                 262144)]
@@ -519,23 +525,57 @@ def kernel_us(fn, name, calls=10):
 
 
 def sweeps(st, device):
-    """The terms triangle kernel over m, the terms panel and chunk kernels
-    at m = 11, and K15 at its main paths' shapes (see the module's
-    docstring)."""
+    """K2, K4 and K1 at their main paths' shapes, the terms triangle kernel
+    over m, the terms panel and chunk kernels at m = 11, and K15 at its
+    main paths' shapes (see the module's docstring)."""
     import torch
 
-    from chip_smoke import sweep_inputs, time_ms
+    from chip_smoke import make_svgd, sweep_inputs, time_ms
     from svgdcpp_tpu_torch.ops import cuda_phi
-    from svgdcpp_tpu_torch.utils.workloads import aniso_mvn_workload
+    from svgdcpp_tpu_torch.ops.phi import phi_rbf_fused_counts
+    from svgdcpp_tpu_torch.utils.workloads import (
+        aniso_mvn_workload,
+        flagship_mvn,
+    )
 
-    def timed(label, fn, kernel, **extra):
+    def timed(label, fn, kernel, plain=None, **extra):
         row = {"case": label, **extra,
                "wrapper_ms": time_ms(fn, reps=20, warmup=3),
                "kernel_us": kernel_us(fn, kernel)}
+        if plain is not None:
+            row["plain_ms"] = time_ms(plain, reps=20, warmup=3)
         print(json.dumps(row), flush=True)
         return row
 
     rows = []
+    # K2 and K4 at the flagship's shape, with the run-to-run distance of
+    # two calls on one input (float32 atomics) and of two 20-step runs of
+    # the flagship's kernel route from one x0; K1 at the flat BLR's and at
+    # n = 1500 (its kernel name covers any pass of its own).
+    x, s, g, thr = sweep_inputs(10000, 2, 0.0, 602, device)
+    rows.append(timed(
+        "sym", lambda: cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=True),
+        "fused_phi_counts_sym_kernel", n=10000, m=2))
+    first, second = (cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=True)[0]
+                     for _ in range(2))
+    rows[-1]["repeat_max_abs_diff"] = float((first - second).abs().max())
+    mean, cov, x0 = flagship_mvn(10000)
+    first, second = (make_svgd(st, x0, mean, cov, 20).run() for _ in range(2))
+    rows[-1]["route_20_steps_repeat_max_abs_diff"] = float(
+        (first - second).abs().max())
+    for world, rank in ((1, 0), (2, 0), (2, 1)):
+        rows.append(timed(
+            "sym_chunk", lambda: cuda_phi.phi_rbf_fused_sym_chunk_cuda(
+                x, s, g, thr, world, rank),
+            "fused_phi_counts_sym_chunk_kernel", n=10000, m=2, world=world,
+            rank=rank))
+    for n, m in ((1000, 50), (1500, 2)):
+        x, s, g, thr = sweep_inputs(n, m, 0.0, 610 + m, device)
+        rows.append(timed(
+            "square",
+            lambda: cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=False),
+            "fused_phi_counts_square",
+            plain=lambda: phi_rbf_fused_counts(x, s, g, thr), n=n, m=m))
     signs = (1.0, 1.0)
     for m in (5, 11, 16, 32, 50):
         x, s, g, thr = sweep_inputs(10000, m, 0.0, 600 + m, device)
@@ -654,7 +694,9 @@ def sass_loops(text, function, pairs_per=None, pair_class="mufu"):
 #: the hierarchical BLR, <MM=11, exact, T=3, two terms> (in a tree with the
 #: one-row-a-thread body, <11,1,0>: its row pass holds the pairs' ex2),
 #: two ex2 a pair; K15's instance of the HESSIAN cell, m = 11 exact, the
-#: triangle kernel (phi_rbf_sym) or the square one, one ex2 a pair.
+#: triangle kernel (phi_rbf_sym) or the square one, one ex2 a pair; K2's
+#: instance of the flagship, <MM=2, exact, T=3> on the micro-tile body (in
+#: a tree with the one-row-a-thread body, <2,1>), one ex2 a pair.
 SASS_INSTANCES = (
     ("counts_sympanel<2,1,3>", "fused_phi_counts_sympanel_kernel",
      ("ILi2ELb1ELi3E", "ILi2ELb1EE"), 1),
@@ -672,6 +714,8 @@ SASS_INSTANCES = (
      ("ILi11ELb1ELi3ELi2E", "ILi11ELb1ELb0E"), 2),
     ("phi_rbf_sym<11,1>", "phi_rbf_sym_kernel", ("ILi11ELb1E",), 1),
     ("phi_rbf_square<11,1>", "phi_rbf_square_kernel", ("ILi11ELb1E",), 1),
+    ("counts_sym<2,1,3>", "fused_phi_counts_sym_kernel",
+     ("ILi2ELb1ELi3E", "ILi2ELb1EE"), 1),
 )
 
 
@@ -726,8 +770,9 @@ def main() -> int:
                         help="also count the machine code of paths A's and "
                              "B's panel kernel instances, loop by loop")
     parser.add_argument("--sweeps", action="store_true",
-                        help="also time the terms triangle kernel over m, "
-                             "the terms panel and chunk kernels and K15")
+                        help="also time K2, K4 and K1, the terms triangle "
+                             "kernel over m, the terms panel and chunk "
+                             "kernels and K15")
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
     if args.large and args.config != "mvn":

@@ -725,6 +725,23 @@ def main() -> int:
         sym_err = max(sym_err, abs_err)
         print(f"phase 3 sym n={n} m=2 offset=100: ok phi_rel={rel:.3e} "
               f"count_diff={dcnt}")
+    # Every micro-tile instance (m = 1-8 and 11) at ragged n = 10007 off
+    # origin: T = 3 (the fixed-T instance), T = 1 and 8 (the runtime-T
+    # one); counts equal at m <= 4 (compare's rule).
+    for m in (1, 2, 3, 4, 5, 6, 7, 8, 11):
+        x, s, g, thr3 = inputs_for(10007, m, 100.0, 330 + m, dev)
+        worst = (0.0, 0)
+        for n_t in (3, 1, 8):
+            thr = thresholds_of(thr3, n_t)
+            got = cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=True)
+            want = phi_rbf_fused_counts(x, s, g, thr)
+            rel, abs_err, dcnt = compare(f"sym n=10007 m={m} T={n_t}", got,
+                                         want, 10007, m)
+            sym_err = max(sym_err, abs_err)
+            worst = (max(worst[0], rel), max(worst[1], dcnt))
+        print(f"phase 3 sym n=10007 m={m} offset=100.0 T=1,3,8: ok "
+              f"max_phi_rel={worst[0]:.3e} max_count_diff={worst[1]} "
+              f"count_bound={1e-6 * 10007 * 10007 if m > 4 else 0:.3g}")
     times = {}
     for n in (1500, 10000):
         x, s, g, thr = sweep_inputs(n, 2, 0.0, 40, dev)
@@ -797,14 +814,21 @@ def main() -> int:
     # The float64 plain route is printed beside them as the float32 noise
     # floor: AdaGrad divides by sqrt(sum g^2), so where phi is small a
     # rounding difference moves a particle far more than phi's own error.
+    # The kernel route runs twice: its float32 atomics sum in an order that
+    # changes between runs, and the two runs' distance is its run-to-run
+    # floor.
     finals = {}
     for impl, dtype in (("fused_cuda", torch.float32), ("fused", torch.float32),
-                        ("fused", torch.float64)):
-        s6 = make_svgd(st, x0, mean, cov, 20, phi_impl=impl, dtype=dtype)
+                        ("fused", torch.float64), ("again", torch.float32)):
+        s6 = make_svgd(st, x0, mean, cov, 20,
+                       phi_impl="fused_cuda" if impl == "again" else impl,
+                       dtype=dtype)
         finals[(impl, dtype)] = s6.run().double()
     ref = finals[("fused", torch.float64)]
     diff = float((finals[("fused_cuda", torch.float32)]
                   - finals[("fused", torch.float32)]).abs().max())
+    repeat = float((finals[("fused_cuda", torch.float32)]
+                    - finals[("again", torch.float32)]).abs().max())
     floor = {
         impl: float((finals[(impl, torch.float32)] - ref).abs().max())
         for impl in ("fused_cuda", "fused")
@@ -812,7 +836,8 @@ def main() -> int:
     check(diff <= 1e-3, f"fused_cuda vs fused coords differ by {diff:.3e}")
     print(f"phase 6 fused_cuda vs fused n=10000 20 steps: ok "
           f"coords_max_abs_diff={diff:.3e} "
-          f"vs_float64_plain={json.dumps(floor)}")
+          f"vs_float64_plain={json.dumps(floor)} "
+          f"fused_cuda_run_to_run={repeat:.3e}")
 
     # -- phase 7: terms kernels vs plain -------------------------------
     def terms_gammas(g, signs):
@@ -1639,14 +1664,17 @@ def main() -> int:
     print(f"phase 25 tile sides: svgd_sym_tile equals sym_plan.sym_tile for "
           f"m = 1..{cuda_phi.MAX_M}, one RBF and composed")
     sym_chunk_err = terms_chunk_err = 0.0
-    # The main paths' shapes at worlds 1, 2, 4 and 8; then the dimensions
-    # served by a shared instance (m = 9, 10, 12 and 16 run the instance of
-    # 16, whose composed tile is 32; m = 17 that of 32) and m = 50, at
-    # every world of 1-8.
+    # The main paths' shapes (one RBF at every world of 1-8, the composed
+    # kernel at 1, 2, 3, 4 and 8), one RBF's micro-tile instances of m = 5
+    # and 11; then the dimensions served by a shared instance (m = 9, 10,
+    # 12 and 16 run the instance of 16, whose composed tile is 32; m = 17
+    # that of 32) and m = 50, at every world of 1-8.
     every = tuple(range(1, 9))
     for idx, (n, m, off, signs, worlds) in enumerate([
-        (10000, 2, 0.0, None, (1, 2, 4, 8)),
-        (10007, 2, 100.0, None, (1, 2, 4, 8)),
+        (10000, 2, 0.0, None, every),
+        (10007, 2, 100.0, None, every),
+        (10007, 5, 100.0, None, (2, 3, 8)),
+        (3001, 11, 0.0, None, every),
         (10000, 11, 0.0, (1.0, 1.0), (1, 2, 3, 4, 8)),
         (10000, 11, 0.0, (1.0, -0.5, 0.3), (1, 2, 3, 4, 8)),
         (10007, 2, 100.0, (1.0, -1.0), (1, 2, 3)),
@@ -1902,9 +1930,10 @@ def main() -> int:
                                                              sym=True))}
     ranks = [time_ms(lambda: cuda_phi.phi_rbf_fused_sym_chunk_cuda(
         x, s, g, thr, 2, r)) for r in range(2)]
+    side = sym_tile(2)
     bounds = [sweep_bound(cuda_phi.SYM_CHUNK_KERNEL, 10000, 2,
-                          pairs=chunk_pairs(10000, 64,
-                                            chunk_blocks(10000, 64, 2, r)))[0]
+                          pairs=chunk_pairs(10000, side,
+                                            chunk_blocks(10000, side, 2, r)))[0]
               for r in range(2)]
     times28[("sym_chunk", 10000, 2)] = t
     print(f"phase 28 times sym chunk n=10000 m=2 T=3 (ms, median of 50): "

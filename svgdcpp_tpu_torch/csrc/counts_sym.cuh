@@ -1,9 +1,12 @@
-// The single-RBF upper-triangle sweep's body, included by fused_phi.cu twice:
-// as fused_phi_counts_sym_kernel (K2's port, the whole triangle) and as
-// fused_phi_counts_sym_chunk_kernel (K4's port, one rank's range of the
-// tile list). Each include names the kernel by defining
-// SVGD_COUNTS_SYM_KERNEL first; the header undefines it, so a profiler trace
-// tells the two apart and neither carries a flag for the other.
+// The single-RBF upper-triangle sweep's one-row-a-thread body, for the
+// widths whose rows the micro-tile body (micro_tile.cuh) would spill: m = 9,
+// 10 and 12-64 (the instances of 16, 32, 50 and 64). Included by
+// fused_phi.cu twice: as fused_phi_counts_sym_kernel (K2's port, the whole
+// triangle) and as fused_phi_counts_sym_chunk_kernel (K4's port, one rank's
+// range of the tile list), beside the micro-tile instances of the same
+// names. Each include names the kernel by defining SVGD_COUNTS_SYM_KERNEL
+// first; the header undefines it, so a profiler trace tells the two apart
+// and neither carries a flag for the other.
 //
 // One block per upper-triangle tile pair (bi <= bj) of kTile x kTile
 // particles: tile t0 + blockIdx.x of the linear tile list (t0 = 0 for the
@@ -20,7 +23,7 @@
 // (k_ii = 1 exactly). The count buffer receives U, the upper count including
 // the diagonal; the wrapper forms 2U - n once, after any sum over ranks.
 // Float atomics make phi's summation order vary from run to run; the counts
-// are integers and do not. Tiles: SymTile (sweep_common.cuh).
+// are integers and do not. Tiles: SymRowTile (sweep_common.cuh).
 
 #include "sweep_common.cuh"
 
@@ -35,7 +38,7 @@ namespace {
 using namespace svgd;
 
 template <int MM, bool kExact>
-__global__ void __launch_bounds__(SymTile<MM>::value)
+__global__ void __launch_bounds__(SymRowTile<MM>::value)
     SVGD_COUNTS_SYM_KERNEL(const float* __restrict__ coords,
                            const float* __restrict__ scores,
                            const float* __restrict__ gamma,
@@ -43,7 +46,7 @@ __global__ void __launch_bounds__(SymTile<MM>::value)
                            int T, int nb, long long t0,
                            float* __restrict__ acc,
                            unsigned long long* __restrict__ counts) {
-  constexpr int kTile = SymTile<MM>::value;
+  constexpr int kTile = SymRowTile<MM>::value;
   __shared__ float sh_k[kTile][kTile + 1];
   __shared__ float sh_xi[kTile * MM];
   __shared__ float sh_si[kTile * MM];

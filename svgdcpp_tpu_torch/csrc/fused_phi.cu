@@ -32,7 +32,9 @@
 // count and accumulator buffers. Each entry point returns
 // cudaGetLastError() after its launch.
 
-#include "sweep_common.cuh"
+#include <type_traits>
+
+#include "micro_tile.cuh"
 
 namespace {
 
@@ -147,20 +149,111 @@ __global__ void __launch_bounds__(kSqThreads)
 // phi_rbf_fused_pallas_sym_sharded calls it (K4): one device's chunk of the
 // GLOBAL triangle, here a contiguous range [t0, t0 + count) of the tile
 // list (ops/sym_plan.sym_tile_chunk), whose raw accumulator and upper count
-// the caller sums over the ranks before one epilogue. Both are the body in
-// counts_sym.cuh under their own names.
+// the caller sums over the ranks before one epilogue.
 //
 // Bound on this card: the same per-pair work as the square sweep (3m+1
 // FLOPs for sq, one ex2, T compares), paid once per UNORDERED pair, plus
-// 4m FMAs, m subtractions and one shared-memory store and load per pair
-// for the two contraction directions. sq, ex2 and the compares, the
-// SFU-heavy part, halve.
+// 4m FMAs for the two contraction directions from the pair's one
+// difference. The operands are a few hundred KB, so the sweep is bound by
+// instruction issue.
+//
+// Design at m = 1-8 and 11 (MicroWidth): the micro-tile body of the terms
+// triangle kernels (micro_tile.cuh, micro_tri_body) with one RBF's weights
+// (OneRbf: k = 2^(-gamma log2(e) sq), gamma read on the device). The
+// triangle is cut into tiles of 128 particles (SymTile); a block sweeps one
+// tile pair (bi <= bj) of the tile list with 2 warps of 2 rows a thread
+// (one warp of 4 rows up to m = 2); the pair's weight stays in registers
+// and feeds both directions; T is compile-time at T = 3 (a runtime T <= 8
+// runs the 8-threshold instance); interior chunks run unmasked; rows and
+// columns flush with float32 atomics into the (2m, n) accumulator; a launch
+// of fewer than 1056 tile pairs splits each pair's chunks over the grid's
+// second dimension (tri_splits). The conventions are those of the body the
+// wider instances keep (counts_sym.cuh, tiles of SymRowTile): each self
+// pair enters both directions, D is unscaled (the wrapper multiplies it by
+// 2 gamma) and the upper count includes the diagonal. Both bodies go under
+// both names, so a profiler trace tells the whole sweep from a chunk.
 // ---------------------------------------------------------------------------
 
 #define SVGD_COUNTS_SYM_KERNEL fused_phi_counts_sym_kernel
 #include "counts_sym.cuh"
 #define SVGD_COUNTS_SYM_KERNEL fused_phi_counts_sym_chunk_kernel
 #include "counts_sym.cuh"
+
+namespace {
+
+using namespace svgd;
+
+template <int MM, bool kExact, int kT>
+__global__ void __launch_bounds__(MicroTri<MM>::kThreads)
+    fused_phi_counts_sym_kernel(const float* __restrict__ coords,
+                                const float* __restrict__ scores,
+                                const float* __restrict__ gamma,
+                                const float* __restrict__ thr, int n,
+                                int m_arg, int T, int nb, long long t0,
+                                float* __restrict__ acc,
+                                unsigned long long* __restrict__ counts) {
+  const OneRbf weights{-gamma[0] * kLog2e};
+  micro_tri_body<MM, kExact, kT>(coords, scores, weights, thr, n, m_arg, T,
+                                 nb, t0, acc, counts);
+}
+
+template <int MM, bool kExact, int kT>
+__global__ void __launch_bounds__(MicroTri<MM>::kThreads)
+    fused_phi_counts_sym_chunk_kernel(const float* __restrict__ coords,
+                                      const float* __restrict__ scores,
+                                      const float* __restrict__ gamma,
+                                      const float* __restrict__ thr, int n,
+                                      int m_arg, int T, int nb, long long t0,
+                                      float* __restrict__ acc,
+                                      unsigned long long* __restrict__ counts) {
+  const OneRbf weights{-gamma[0] * kLog2e};
+  micro_tri_body<MM, kExact, kT>(coords, scores, weights, thr, n, m_arg, T,
+                                 nb, t0, acc, counts);
+}
+
+// Launch of the single-RBF triangle sweep over tiles [t0, t0 + count) of
+// the tile list (SymTile<MM> particles a side; count > 0): the micro-tile
+// instances where they serve MM, for T = 3 or any T <= 8; counts_sym.cuh's
+// body otherwise.
+template <int MM, bool kExact>
+void launch_counts_sym(bool chunk, const float* coords, const float* scores,
+                       const float* gamma, const float* thr, int n, int m,
+                       int T, long long t0, long long count, float* acc,
+                       unsigned long long* counts, cudaStream_t s) {
+  constexpr int tile = SymTile<MM>::value;
+  const int nb = (n + tile - 1) / tile;
+  if constexpr (MicroWidth<MM>::value) {
+    const dim3 grid(static_cast<unsigned int>(count), tri_splits<MM>(count));
+    constexpr int threads = MicroTri<MM>::kThreads;
+    auto go = [&](auto kt) {
+      constexpr int kT = decltype(kt)::value;
+      if (chunk) {
+        fused_phi_counts_sym_chunk_kernel<MM, kExact, kT>
+            <<<grid, threads, 0, s>>>(coords, scores, gamma, thr, n, m, T, nb,
+                                      t0, acc, counts);
+      } else {
+        fused_phi_counts_sym_kernel<MM, kExact, kT><<<grid, threads, 0, s>>>(
+            coords, scores, gamma, thr, n, m, T, nb, t0, acc, counts);
+      }
+    };
+    if (T == 3) {
+      go(std::integral_constant<int, 3>{});
+    } else {
+      go(std::integral_constant<int, kMaxT>{});
+    }
+  } else {
+    const unsigned int blocks = static_cast<unsigned int>(count);
+    if (chunk) {
+      fused_phi_counts_sym_chunk_kernel<MM, kExact><<<blocks, tile, 0, s>>>(
+          coords, scores, gamma, thr, n, m, T, nb, t0, acc, counts);
+    } else {
+      fused_phi_counts_sym_kernel<MM, kExact><<<blocks, tile, 0, s>>>(
+          coords, scores, gamma, thr, n, m, T, nb, t0, acc, counts);
+    }
+  }
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -202,13 +295,10 @@ int svgd_fused_phi_counts_sym(const float* coords, const float* scores,
   auto* c = reinterpret_cast<unsigned long long*>(counts);
 #define SVGD_LAUNCH_SYM(MM_, EX_)                                          \
   {                                                                        \
-    constexpr int tile = SymTile<MM_>::value;                              \
-    const long long pairs = upper_pairs(n, tile);                          \
+    const long long pairs = upper_pairs(n, SymTile<MM_>::value);           \
     if (pairs < 0) return static_cast<int>(cudaErrorInvalidValue);        \
-    fused_phi_counts_sym_kernel<MM_, EX_>                                  \
-        <<<static_cast<unsigned int>(pairs), tile, 0, s>>>(                \
-            coords, scores, gamma, thr, n, m, T, (n + tile - 1) / tile,    \
-            0LL, acc, c);                                                  \
+    launch_counts_sym<MM_, EX_>(false, coords, scores, gamma, thr, n, m, T, \
+                                0LL, pairs, acc, c, s);                    \
   }
   SVGD_DISPATCH_M(m, SVGD_LAUNCH_SYM)
 #undef SVGD_LAUNCH_SYM
@@ -232,15 +322,12 @@ int svgd_fused_phi_counts_sym_chunk(const float* coords, const float* scores,
   auto* c = reinterpret_cast<unsigned long long*>(counts);
 #define SVGD_LAUNCH_SYM_CHUNK(MM_, EX_)                                    \
   {                                                                        \
-    constexpr int tile = SymTile<MM_>::value;                              \
-    if (!tile_range_ok(n, tile, t0, count)) {                              \
+    if (!tile_range_ok(n, SymTile<MM_>::value, t0, count)) {               \
       return static_cast<int>(cudaErrorInvalidValue);                      \
     }                                                                      \
     if (count > 0) {                                                       \
-      fused_phi_counts_sym_chunk_kernel<MM_, EX_>                          \
-          <<<static_cast<unsigned int>(count), tile, 0, s>>>(              \
-              coords, scores, gamma, thr, n, m, T, (n + tile - 1) / tile,  \
-              t0, acc, c);                                                 \
+      launch_counts_sym<MM_, EX_>(true, coords, scores, gamma, thr, n, m,  \
+                                  T, t0, count, acc, c, s);                \
     }                                                                      \
   }
   SVGD_DISPATCH_M(m, SVGD_LAUNCH_SYM_CHUNK)

@@ -1,5 +1,6 @@
 // The micro-tile body, shared by the panel kernels (fused_phi_panel.cu:
-// K3's, K5's and K12/K13's ports), the terms triangle kernels
+// K3's, K5's and K12/K13's ports), the single-RBF triangle kernels
+// (fused_phi.cu: K2's and K4's), the terms triangle kernels
 // (fused_phi_terms.cu: K8/K9's and K10/K11's) and the fixed-P triangle
 // kernel (phi_rbf.cu: K15's): a chunk's operand staging (ChunkStage), one
 // warp's sweep of one 32-column chunk (micro_panel_chunk), and the
@@ -41,7 +42,7 @@ struct MicroShape {
 };
 
 // The triangle kernels' shape (micro_tri_body): square tiles of kSide =
-// 128 particles (TermsTriTile), a block per tile pair of kWarps warps, each
+// 128 particles (SymTile, TermsTriTile), a block per tile pair of kWarps warps, each
 // warp 32 kRows consecutive rows of the row tile, kRows = 4 up to MM = 2
 // and 2 above (1 and 2 warps a block). At n = 10,000 that is 3160 tile
 // pairs; at m = 11 a block of 2 warps takes up to 255 registers a thread,
@@ -49,7 +50,7 @@ struct MicroShape {
 template <int MM>
 struct MicroTri : MicroShape<MM, (MM <= 2 ? 4 : 2)> {
   using Shape = MicroShape<MM, (MM <= 2 ? 4 : 2)>;
-  static constexpr bool enabled = TermsTriTile<MM>::kMicro;
+  static constexpr bool enabled = MicroWidth<MM>::value;
   static constexpr int kSide = 128;
   static constexpr int kWarps = kSide / (32 * Shape::kRows);
   static constexpr int kThreads = 32 * kWarps;

@@ -154,12 +154,30 @@ inline long long upper_pairs(int n, int tile) {
   return pairs > 0x7fffffffLL ? -1 : pairs;
 }
 
-// The single-RBF triangle sweeps (counts_sym.cuh): tiles of 64 particles up
-// to m = 16 and 32 above, so the padded pair tile and the four
-// coordinate/score tiles stay within 48 KB of static shared memory.
+// The widths whose rows the micro-tile triangle body (micro_tile.cuh,
+// micro_tri_body) keeps in registers: m = 1-8 and 11. Wider rows would
+// spill.
+template <int MM>
+struct MicroWidth {
+  static constexpr bool value = MM <= 8 || MM == 11;
+};
+
+// The single-RBF one-row-a-thread triangle body (counts_sym.cuh): tiles of
+// 64 particles up to m = 16 and 32 above, so the padded pair tile and the
+// four coordinate/score tiles stay within 48 KB of static shared memory.
+template <int MM>
+struct SymRowTile {
+  static constexpr int value = MM <= 16 ? 64 : 32;
+};
+
+// The single-RBF triangle kernels' tiles (fused_phi.cu, K2's and K4's
+// ports): 128 particles a side where the micro-tile body serves the
+// instance, else SymRowTile. svgd_sym_tile exports it and
+// ops/sym_plan.sym_tile mirrors it.
 template <int MM>
 struct SymTile {
-  static constexpr int value = MM <= 16 ? 64 : 32;
+  static constexpr int value = MicroWidth<MM>::value ? 128
+                                                     : SymRowTile<MM>::value;
 };
 
 // The composed kernels' triangle sweeps: tiles of 64 particles up to m = 12
@@ -171,14 +189,14 @@ struct SymTermsTile {
 };
 
 // The terms triangle kernels' tiles (fused_phi_terms.cu): 128 particles a
-// side where the micro-tile body serves the instance (micro_tile.cuh,
-// MicroTri: m = 1-8 and 11, whose rows fit the registers), else the
+// side where the micro-tile body serves the instance (MicroWidth), else the
 // one-row-a-thread body's SymTermsTile (terms_sym.cuh). svgd_sym_tile
 // exports it and ops/sym_plan.sym_tile mirrors it.
 template <int MM>
 struct TermsTriTile {
-  static constexpr bool kMicro = MM <= 8 || MM == 11;
-  static constexpr int value = kMicro ? 128 : SymTermsTile<MM>::value;
+  static constexpr int value = MicroWidth<MM>::value
+                                   ? 128
+                                   : SymTermsTile<MM>::value;
 };
 
 // The triangle sweeps' launch over tiles [t0, t0 + count) of the tile list:

@@ -318,24 +318,27 @@ def dispatch_m(m: int) -> int:
     return 16 if m <= 16 else 32 if m <= 32 else 64
 
 
-#: The composed triangle kernel's tile side where its micro-tile body serves
-#: the instance (``TermsTriTile`` of csrc/sweep_common.cuh: m = 1-8 and 11).
-TERMS_MICRO_TILE = 128
+#: The triangle kernels' tile side where the micro-tile body serves the
+#: instance (``MicroWidth`` of csrc/sweep_common.cuh: m = 1-8 and 11), for
+#: one RBF (``SymTile``) and a composed kernel (``TermsTriTile``) alike.
+MICRO_TILE = 128
 
 
 def sym_tile(m: int, terms: bool = False) -> int:
     """The side of the full-width triangle kernels' tiles for dimension m,
-    from the instance that serves m (:func:`dispatch_m`). One RBF
-    (``SymTile``): 64 particles up to an instance of 16, 32 above. A
-    composed kernel (``TermsTriTile``): TERMS_MICRO_TILE where the
-    micro-tile body serves the instance (m = 1-8 and 11), else
-    ``SymTermsTile``'s 32 (its 64 up to an instance of 12 serves no
-    dimension outside those). The chunk wrappers on the card take the
-    library's own answer (``svgd_sym_tile``); this copy serves the plain
-    chunk sweeps, and the card's smoke test holds it to the library's."""
+    from the instance that serves m (:func:`dispatch_m`): MICRO_TILE where
+    the micro-tile body serves the instance (m = 1-8 and 11), else the
+    one-row-a-thread body's. One RBF (``SymRowTile``): 64 up to an instance
+    of 16, 32 above. A composed kernel (``SymTermsTile``): 32 (its 64 up to
+    an instance of 12 serves no dimension outside the micro ones). The
+    chunk wrappers on the card take the library's own answer
+    (``svgd_sym_tile``); this copy serves the plain chunk sweeps, and the
+    card's smoke test holds it to the library's."""
     inst = dispatch_m(m)
+    if inst <= 8 or inst == 11:
+        return MICRO_TILE
     if terms:
-        return TERMS_MICRO_TILE if inst <= 8 or inst == 11 else 32
+        return 32
     return 64 if inst <= 16 else 32
 
 

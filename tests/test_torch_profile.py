@@ -83,7 +83,7 @@ def test_sass_instances_name_paths_a_and_b():
                       "count_le<2,1,0,1,5>", "count_le<2,1,0,0,3>",
                       "count_le<11,1,1,1,5>", "aniso_terms_sym<11,1,1,3>",
                       "terms_sym<11,1,3,2>", "phi_rbf_sym<11,1>",
-                      "phi_rbf_square<11,1>"]
+                      "phi_rbf_square<11,1>", "counts_sym<2,1,3>"]
     for _, kernel, args, per in chip_profile.SASS_INSTANCES:
         assert any(kernel + args[0] in f for f in (
             "_ZN12_GLOBAL__N_132fused_phi_counts_sympanel_kernel"
@@ -95,7 +95,9 @@ def test_sass_instances_name_paths_a_and_b():
             "ILi11ELb1ELi3ELi2EEEvPKfS2_S2_N4svgd9TermSignsEiS2_iiiixPfPy",
             "_ZN12_GLOBAL__N_118phi_rbf_sym_kernelILi11ELb1EEEvPKfS2_S2_iiiiPf",
             "_ZN12_GLOBAL__N_121phi_rbf_square_kernelILi11ELb1EEEv"
-            "PKfS2_S2_iiiiPf"))
+            "PKfS2_S2_iiiiPf",
+            "_ZN12_GLOBAL__N_127fused_phi_counts_sym_kernel"
+            "ILi2ELb1ELi3EEEvPKfS2_S2_S2_iiiixPfPy"))
         assert per in (1, 2, ("fp32", 5), ("fp32", 15))
 
 

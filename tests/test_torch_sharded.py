@@ -132,7 +132,8 @@ def test_sharded_plans_equal_jax(world):
 
 @pytest.mark.parametrize("world", range(1, 9))
 def test_card_chunks_cover_each_tile_once(world):
-    for n, tile in ((100, 64), (1000, 64), (10000, 64), (2100, 32)):
+    for n, tile in ((100, 64), (1000, 64), (10000, 64), (2100, 32),
+                    (10000, 128)):
         nb = -(-n // tile)
         seen = []
         for rank in range(world):
@@ -154,6 +155,20 @@ def test_card_chunks_cover_each_tile_once(world):
     assert [sym_plan.sym_tile(m, terms=True) for m in (8, 9, 10, 11, 12, 13)] \
         == [128, 32, 32, 128, 32, 32]
     assert sym_plan.sym_tile(50) == 32 and sym_plan.sym_tile(9) == 64
+
+
+@pytest.mark.parametrize("m,side", [
+    (1, 128), (2, 128), (3, 128), (4, 128), (5, 128), (6, 128), (7, 128),
+    (8, 128), (9, 64), (10, 64), (11, 128), (12, 64), (16, 64), (50, 32),
+])
+def test_single_rbf_tile_follows_the_micro_widths(m, side):
+    """One RBF's triangle tile (``SymTile``): the micro-tile body's 128 at
+    m = 1-8 and 11, the one-row-a-thread body's 64 up to the instance of 16
+    and 32 above; the composed kernels' tile is the same at the micro
+    widths."""
+    assert sym_plan.sym_tile(m) == side
+    if side == sym_plan.MICRO_TILE:
+        assert sym_plan.sym_tile(m, terms=True) == side
 
 
 def tile_pairs(n, side, bi, bj):
@@ -253,6 +268,39 @@ def test_k4_chunks_vs_jax_sym_sharded_interpret(world):
     acc, upper = torch_chunks_summed(
         lambda r: pht.phi_rbf_sym_chunk_counts(xt, stt, torch.tensor(g),
                                                thr_t, world, r), world)
+    phi = pht.phi_rbf_fused_sym_finish(acc, stt, torch.tensor(g), n)
+    check_vs_jax(phi, 2 * upper - n, ref_phi, ref_cnt)
+
+
+@pytest.mark.parametrize("m,world", [(2, 3), (2, 8), (3, 5)])
+def test_k4_chunk_wrappers_vs_jax_sym_sharded_interpret(m, world):
+    """K4's wrapper on CPU tensors (its plain chunk over the tile list of
+    128 particles a side), summed over the ranks, against the JAX sharded
+    kernel summed over 4 devices in interpret mode; at n = 1000 the list
+    holds 36 tile pairs, so world 8 cuts tile rows."""
+    n, d = 1000, 4
+    assert sym_plan.sym_tile(m) == 128
+    x, s = f32_inputs(n, m, 10 + m)
+    thr = np.asarray([1.0, 5.0, 2.0 * m], np.float32)
+    g = np.float32(0.4)
+    pi, pj_, n_pad, per = pj.sym_pairs_plan(n, d, 64, 128)
+    acc_j, lanes = jax_chunks_summed(
+        lambda a, b: pj.phi_rbf_fused_pallas_sym_sharded(
+            jnp.asarray(x), jnp.asarray(s), g, jnp.asarray(thr), a, b,
+            n_pad=n_pad, num_thresholds=3, tile_i=64, tile_j=128,
+            interpret=True),
+        d, per, pi, pj_,
+    )
+    center = jnp.mean(jnp.asarray(x), axis=0)
+    ref_phi = pj.phi_rbf_fused_sym_finish(acc_j[:, :n], jnp.asarray(s),
+                                          jnp.asarray(x), center, g, n)
+    ref_cnt = 2.0 * jnp.sum(lanes, axis=1) - n
+    xt, stt, thr_t = (torch.from_numpy(a) for a in (x, s, thr))
+    cuda_phi.reset_launch_counts()
+    acc, upper = torch_chunks_summed(
+        lambda r: cuda_phi.phi_rbf_fused_sym_chunk_cuda(
+            xt, stt, torch.tensor(g), thr_t, world, r), world)
+    assert not any(cuda_phi.launch_counts.values())
     phi = pht.phi_rbf_fused_sym_finish(acc, stt, torch.tensor(g), n)
     check_vs_jax(phi, 2 * upper - n, ref_phi, ref_cnt)
 
