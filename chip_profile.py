@@ -75,7 +75,8 @@ n = 16384 to 262144, and the terms kernels' other instances: m = 11 at
 T = 8 (n = 131072) and with three terms (n = 65536), m = 2 (n = 262144)
 and m = 5 (n = 131072) with two terms; wrapper ms, median of 5 calls
 between CUDA events after one warm-up call, three thresholds unless
-stated.
+stated; and K1's two bodies, forced, at n = 1000 and m = 2-50
+(kernel-only us of the sweep and its finishing pass).
 
 With ``--sweeps`` it also times the single-RBF triangle kernel
 (``fused_phi_counts_sym``, K2's port) at n = 10000, m = 2, T = 3, with the
@@ -103,7 +104,8 @@ count kernel's (K16's port; SASS_INSTANCES) with ``cuobjdump --dump-sass``
 from the built library, and prints every loop of each (each backward
 branch): its instructions, how many of them are FP32 arithmetic,
 special-function (MUFU), compares and selects, integer, shared-memory,
-shuffle, global, barrier and branch instructions, and where the loop
+shuffle, global, barrier, branch and tensor-core (HMMA) instructions, and
+where the loop
 evaluates the function, its pairs (MUFU over the terms; for the count
 kernel, FP32 instructions over those of one pair's sq) and instructions a
 pair. The listing goes to ``chiprun_out/panel_sass.txt``.
@@ -499,6 +501,18 @@ def crossover(device):
                      "panel_over_full": panel / full,
                      "jax_form": cuda_phi.resolve_sym(
                          None, n, m, len(signs) if signs else None)})
+    # K1's two bodies at the flat BLR's n = 1000 around the library's
+    # crossing (the tensor cores from m = 5), kernel-only us of both passes.
+    for m in (2, 3, 4, 5, 6, 8, 11, 16, 32, 50):
+        x, s, g, thr = sweep_inputs(1000, m, 0.0, 700 + m, device)
+        row = {"n": 1000, "m": m, "square_bodies": True}
+        for body, key in ((1, "cuda_cores_us"), (2, "tensor_cores_us")):
+            row[key] = kernel_us(
+                lambda: cuda_phi._square_launch(x, x, s, [g], None, thr,
+                                                body=body),
+                "fused_phi_counts_square")
+        print(json.dumps(row), flush=True)
+        rows.append(row)
     return rows
 
 
@@ -630,6 +644,7 @@ SASS_CLASSES = {
     "global": ("LDG", "STG", "RED", "ATOM", "LD", "ST"),
     "barrier": ("BAR", "WARPSYNC", "BSSY", "BSYNC"),
     "branch": ("BRA", "EXIT", "RET"),
+    "tensor": ("HMMA",),
 }
 
 
@@ -696,7 +711,9 @@ def sass_loops(text, function, pairs_per=None, pair_class="mufu"):
 #: two ex2 a pair; K15's instance of the HESSIAN cell, m = 11 exact, the
 #: triangle kernel (phi_rbf_sym) or the square one, one ex2 a pair; K2's
 #: instance of the flagship, <MM=2, exact, T=3> on the micro-tile body (in
-#: a tree with the one-row-a-thread body, <2,1>), one ex2 a pair.
+#: a tree with the one-row-a-thread body, <2,1>), one ex2 a pair; K1's
+#: instance of the flat BLR, <MM=50, exact, T=3> on the tensor cores (in a
+#: tree with the one-row-a-thread body, <50,1>), one ex2 a pair.
 SASS_INSTANCES = (
     ("counts_sympanel<2,1,3>", "fused_phi_counts_sympanel_kernel",
      ("ILi2ELb1ELi3E", "ILi2ELb1EE"), 1),
@@ -716,6 +733,8 @@ SASS_INSTANCES = (
     ("phi_rbf_square<11,1>", "phi_rbf_square_kernel", ("ILi11ELb1E",), 1),
     ("counts_sym<2,1,3>", "fused_phi_counts_sym_kernel",
      ("ILi2ELb1ELi3E", "ILi2ELb1EE"), 1),
+    ("counts_square<50,1,3>", "fused_phi_counts_square_kernel",
+     ("ILi50ELb1ELi3E", "ILi50ELb1EE"), 1),
 )
 
 

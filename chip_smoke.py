@@ -12,17 +12,23 @@ thirty-one phases, one line each (several for phases 2, 3, 7-9 and
      every kernel instance;
   2. the square kernel (fused_phi_counts_square) against its plain torch
      version on the card, float32, at six shapes including the cross form
-     and the shape phase 4 gives it;
+     and the shape phase 4 gives it; the library's split count
+     (svgd_square_splits) against its Python copy (sym_plan.square_splits)
+     at 630 shapes; each body forced past its own widths (the CUDA cores
+     at m = 8, 11 and 50, the tensor cores at m = 2 and 4);
   3. the triangle kernel (fused_phi_counts_sym) against the plain version
-     at n = 2048, 10000 and 10007, and both kernels' times beside the plain
-     version's (CUDA events, median of 50 calls after warm-up);
+     at n = 2048, 10000 and 10007, every micro-tile instance (m = 1-8 and
+     11) at n = 10007 off origin at T = 1, 3 and 8, counts equal at m <= 4,
+     and both kernels' times beside the plain version's (CUDA events,
+     median of 50 calls after warm-up);
   4. the main path through SVGD(...).initialize().run() at n = 1500 (the
      square kernel's range), 50 iterations;
   5. the flagship: MVN d=2, N=10000, RBF with the median bandwidth,
      AdaGrad lr 0.1, 1000 iterations through the triangle kernel; updates/s
      and the posterior's moment errors;
   6. the kernel route against the plain route ('fused') for 20 steps from
-     the same x0;
+     the same x0, and two kernel routes against each other (the float32
+     atomics' run-to-run floor);
   7. the composed-kernel kernels (fused_phi_terms_square, _sym) against
      their plain version: square and cross at m = 2 and 11 with two and
      three terms, including (1500, 11), the shape phase 10 gives it;
@@ -31,7 +37,10 @@ thirty-one phases, one line each (several for phases 2, 3, 7-9 and
      and 11) and of the wider body (m = 9, 16, 50), each at T = 1, 3 and
      8 with signs (1, 1), (1, -1) and three terms, counts equal at m <= 4;
   8. the single-term kernels at m = 11 and 50 (and runtime-m instances),
-     including (1000, 50), the flat-BLR shape;
+     including (1000, 50), the flat-BLR shape, and the square kernel's
+     cross form at m = 13 and 50; at (1000, 50) on Gaussian inputs the
+     square kernel and the plain version against float64 rows
+     (f64_rows_reference), the kernel within 2.5e-3 of max |phi|;
   9. times, kernel against plain: terms-sym (10000, 11) and (32768, 11),
      terms-square (1500, 11), K1 (1000, 50) and (1000, 11), K2 (10000, 11)
      and (10000, 50);
@@ -40,7 +49,10 @@ thirty-one phases, one line each (several for phases 2, 3, 7-9 and
  11. hierarchical BLR at full width: N = 10000, d = 10 (m = 11), 1000
      iterations, 1000 terms-sym launches; updates/s and training accuracy;
  12. flat BLR at full width: N = 1000, d = 50, 1000 iterations (the bench
-     runs 4000; cut for time), 1000 K1 launches at m = 50;
+     runs 4000; cut for time), 1000 K1 launches at m = 50, training
+     accuracy above 0.5; then the kernel route against the plain route
+     for 20 steps from one x0 (within 1e-3), the float64 plain route
+     printed as the floor;
  13. the hierarchical kernel route against the plain route ('fused_terms')
      for 20 steps at N = 10000;
  14. the anisotropic terms kernel (fused_phi_aniso_terms_sym, K14's port)
@@ -106,12 +118,14 @@ thirty-one phases, one line each (several for phases 2, 3, 7-9 and
      steps from one x0 on both paths;
  25. the sharded engine's triangle chunk kernels (fused_phi_counts_sym_chunk,
      K4's port; fused_phi_terms_sym_chunk, K10/K11's) against their plain
-     chunk versions, every rank's chunk for worlds 1, 2, 4 and 8 summed and
-     finished, at (10000, 2), (10007, 2) off origin and (10000, 11) with
-     two and three terms (one negative), the latter also at world 3, and
-     the composed kernel at (10007, 2) and (10007, 5) off origin at worlds
-     2 and 3; the sums also against K2 and the terms triangle kernel
-     (counts equal);
+     chunk versions, every rank's chunk summed and finished: one RBF at
+     (10000, 2), (10007, 2) off origin and (3001, 11) for every world of
+     1-8 and at (10007, 5) off origin for worlds 2, 3 and 8; the composed
+     kernel at (10000, 11) with two and three terms (one negative) for
+     worlds 1, 2, 3, 4 and 8, at (10007, 2) and (10007, 5) off origin at
+     worlds 2 and 3 and at m = 9, 10, 12 and 16 (n = 3001), one RBF at
+     m = 17 and 50 (n = 3001), these for every world; the sums also
+     against K2 and the terms triangle kernel (counts equal);
  26. the panel chunk kernel (fused_phi_counts_sympanel_chunk, K5's port)
      against its plain version at (262144, 2) for worlds 2 and 4 and on
      forced small panels at n = 10007 (worlds 2-8), at T = 1, 3 and 8 and at
@@ -368,6 +382,28 @@ def sweep_bound(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
     if kernel == "phi_rbf_square":
         nbytes += 4 * m * m
     return bound(flops, nbytes)
+
+
+#: Published H100 SXM dense TF32 tensor-core peak (NVIDIA's data sheet).
+PEAK_TF32_FLOPS = 495e12
+
+
+def square_tensor_bound(n, m, T=3):
+    """(bound_ms, bound_by) of K1's function over one set of n with the work
+    its tensor-core body puts there on the TF32 tensor cores: per ordered
+    pair the Gram product (2m) and the contraction with [S | X | 1]
+    (2 (2m + 1)) at PEAK_TF32_FLOPS, the rest (sq from the Gram tile and
+    the norms, 2; the scale and the ex2, 2; T compares) at the FP32 peak,
+    and sweep_bound's bytes at the memory rate: the largest of the three,
+    each resource busy at once."""
+    pairs = n * n
+    nbytes = 4 * (2 * n * m + 1 + T) + 4 * n * m + 8 * T
+    return max(
+        (pairs * (2 * m + 2 * (2 * m + 1)) / PEAK_TF32_FLOPS * 1e3,
+         "tensor operations"),
+        (pairs * (4 + T) / PEAK_FP32_FLOPS * 1e3, "operations"),
+        (nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
+    )
 
 
 def count_bound_all_pairs(n, m, T, n_c=None):
@@ -655,7 +691,9 @@ def main() -> int:
         phi_rbf_terms_sympanel_fused_counts,
     )
     from svgdcpp_tpu_torch.ops.sym_plan import (
+        SQUARE_TENSOR_MIN_M,
         card_panel_plan,
+        square_splits,
         sym_tile,
         sym_tile_chunk,
         tpu_terms_panel_kernel,
@@ -714,6 +752,38 @@ def main() -> int:
     square_err = max(square_err, abs_err)
     print(f"phase 2 cross n_t=700 n_s=1500 m=2: ok phi_rel={rel:.3e} "
           f"count_diff={dcnt}")
+    # The wrapper sizes its workspace by the library's split count: hold
+    # sym_plan.square_splits, its Python copy, to it.
+    lib = cuda_phi.load_library()
+    shapes = [(n_t, n_s, m, body) for n_t in (1, 64, 700, 1000, 1500, 10007)
+              for n_s in (1, 33, 1000, 1500, 20000)
+              for m in (1, 2, 8, 9, 11, 50, 64) for body in (0, 1, 2)]
+    splits_off = [a for a in shapes
+                  if lib.svgd_square_splits(*a) != square_splits(*a)]
+    check(not splits_off, f"svgd_square_splits and sym_plan.square_splits "
+                          f"differ at (n_t, n_s, m, body) in {splits_off}")
+    print(f"phase 2 splits: svgd_square_splits equals sym_plan.square_splits "
+          f"at {len(shapes)} shapes")
+    # Each body past its own widths, as chip_profile.py's crossover runs
+    # them: the CUDA cores at m = 8, 11 and 50, the tensor cores at m = 2
+    # and 4 (there the Gram sq decides a tie otherwise than the difference
+    # form: phi only).
+    for idx, (n, m, body) in enumerate([(1000, 50, 1), (600, 11, 1),
+                                        (600, 8, 1), (1000, 2, 2),
+                                        (1337, 4, 2)]):
+        x, s, g, thr = inputs_for(n, m, 0.0, 22 + idx, dev)
+        got = cuda_phi._square_launch(x, x, s, [g], None, thr, body=body)
+        want = phi_rbf_fused_counts(x, s, g, thr)
+        if m <= 4:
+            rel, abs_err = compare_phi(f"square body={body} n={n} m={m}",
+                                       got[0], want[0])
+            dcnt = int((got[1] - want[1]).abs().max())
+        else:
+            rel, abs_err, dcnt = compare(f"square body={body} n={n} m={m}",
+                                         got, want, n, m)
+        square_err = max(square_err, abs_err)
+        print(f"phase 2 square forced body={body} n={n} m={m}: ok "
+              f"phi_rel={rel:.3e} count_diff={dcnt}")
 
     # -- phase 3: triangle kernel vs plain, and times ------------------
     sym_err = 0.0
@@ -916,7 +986,37 @@ def main() -> int:
 
     # -- phase 8: K1/K2 at m = 11 and 50 vs plain -----------------------
     # (1000, 50) is the flat-BLR shape; m = 13, 20, 37 run the runtime-m
-    # instances (MM = 16, 32, 64).
+    # instances (MM = 16, 32, 64); the cross form at m = 13 and 50.
+    for idx, m in enumerate((13, 50)):
+        xt, _, _, _ = inputs_for(700, m, 0.0, 80 + idx, dev)
+        xs, ss, g, thr = inputs_for(1500, m, 0.0, 82 + idx, dev)
+        got = cuda_phi.phi_rbf_fused_cuda_cross(xt, xs, ss, g, thr)
+        want = phi_rbf_cross_fused_counts(xt, xs, ss, g, thr)
+        rel, abs_err, dcnt = compare(f"cross 700x1500 m={m}", got, want,
+                                     1500, m, n_t=700)
+        square_err = max(square_err, abs_err)
+        print(f"phase 8 cross n_t=700 n_s=1500 m={m}: ok phi_rel={rel:.3e} "
+              f"count_diff={dcnt} count_bound={1e-6 * 700 * 1500:.3g}")
+    # The tensor-core products against float64 at the flat-BLR shape on
+    # Gaussian inputs: every 7th row of phi in float64 (f64_rows_reference),
+    # the kernel's and the float32 plain version's distance to it over
+    # max |phi|, held to ROADMAP's 2.5e-3 for a TF32 contraction.
+    x, s, g, thr = sweep_inputs(1000, 50, 0.0, 89, dev)
+    rows = torch.arange(0, 1000, 7, device=dev)
+    ref = f64_rows_reference(x, s, [g], (1.0,), thr, rows)
+    scale = float(ref.abs().max())
+    f64_err = {
+        name: float((phi[rows] - ref).abs().max()) / scale
+        for name, phi in (
+            ("kernel", cuda_phi.phi_rbf_fused_cuda(x, s, g, thr,
+                                                   sym=False)[0]),
+            ("plain", phi_rbf_fused_counts(x, s, g, thr)[0]))
+    }
+    check(f64_err["kernel"] <= 2.5e-3,
+          f"square n=1000 m=50: {f64_err['kernel']:.3e} of max |phi| from "
+          f"float64 > 2.5e-3")
+    print(f"phase 8 square n=1000 m=50 vs float64 rows: ok "
+          f"max_rel={json.dumps(f64_err)} (limit 2.5e-3)")
     for idx, (n, m, sym) in enumerate([
         (1000, 50, False), (1000, 11, False), (500, 13, False),
         (400, 20, False), (600, 37, False), (2048, 11, True),
@@ -1041,11 +1141,32 @@ def main() -> int:
     require_only(main_blr, cuda_phi.SQUARE_KERNEL, segments * seg_len,
                  "flat BLR, 1000 steps")
     acc = blr_accuracy(out.cpu().numpy(), feats, labels)
+    check(acc > 0.5, f"flat BLR training accuracy {acc:.4f} <= 0.5")
     rate = 1000 * (segments - 1) * seg_len / timed_s
     print(f"phase 12 flat BLR N=1000 d=50 1000 iters (the bench runs 4000; "
           f"cut for time): ok route=fused_cuda launches={json.dumps(main_blr)} "
           f"fallbacks={svgd.median_fallbacks} updates_per_s={rate:.6g} "
           f"timed_s={timed_s:.4f} train_accuracy={acc:.4f}")
+    # The kernel route against the plain route for 20 steps from one x0,
+    # the float64 plain route printed as the floor (as phases 6 and 13).
+    finals = {}
+    for impl, dtype in (("fused_cuda", torch.float32),
+                        ("fused", torch.float32), ("fused", torch.float64)):
+        s12 = build_blr_svgd(torch.tensor(x0_blr, dtype=dtype, device=dev),
+                             feats, labels, phi_impl=impl, num_iterations=20)
+        finals[(impl, dtype)] = s12.run().double()
+    ref = finals[("fused", torch.float64)]
+    diff = float((finals[("fused_cuda", torch.float32)]
+                  - finals[("fused", torch.float32)]).abs().max())
+    floor = {
+        impl: float((finals[(impl, torch.float32)] - ref).abs().max())
+        for impl in ("fused_cuda", "fused")
+    }
+    check(diff <= 1e-3,
+          f"flat BLR fused_cuda vs fused coords differ by {diff:.3e}")
+    print(f"phase 12 flat BLR fused_cuda vs fused N=1000 20 steps: ok "
+          f"coords_max_abs_diff={diff:.3e} "
+          f"vs_float64_plain={json.dumps(floor)}")
 
     # -- phase 13: hier kernel route vs plain route, 20 steps -----------
     finals = {}
@@ -2250,6 +2371,12 @@ def main() -> int:
     for path in paths[k15]:
         path["bound_all_pairs_ms"] = sweep_bound(
             k15, path["n"], path["m"], all_pairs=True)[0]
+    # K1's tensor-core body (m >= 5) moves most of its work off the FP32
+    # pipes: its least time with that work on the TF32 tensor cores.
+    for path in paths[sq]:
+        if path["m"] >= SQUARE_TENSOR_MIN_M:
+            path["bound_tensor_ms"], path["bound_tensor_by"] = \
+                square_tensor_bound(path["n"], path["m"])
     # The decomposition beside K15 on the HESSIAN path, one launch a step.
     eig_bound = eigen_bound(11)
     paths[eig] = [{"phase": 18, "n": 10240, "m": 11,

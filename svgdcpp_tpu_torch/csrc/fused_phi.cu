@@ -9,32 +9,33 @@
 //   phi_i  = (KS_i + 2 gamma D_i) / n_s
 //   cnt[t] = #{(i, j) : sq_ij <= thr[t]}
 //
-// D is accumulated from the differences, as the plain version does, and not
-// as the Pallas kernels' KX - rowsum * x: that subtraction of two nearly
-// equal O(n) sums cancels in float32.
-//
 // Coordinates arrive centered on the source mean (the wrapper does it in
-// torch), so sq in the difference form is exact in float32 at any offset.
-// gamma and the thresholds are read from device memory: the host never
-// reads them, so a step needs no synchronisation to launch a sweep.
+// torch), so sq is exact in float32 at any offset where it is formed from
+// differences. gamma and the thresholds are read from device memory: the
+// host never reads them, so a step needs no synchronisation to launch a
+// sweep.
 //
-// sq is summed in the plain torch version's order with its roundings
-// (sweep_common.cuh); at m <= 4, where the plain version also uses the
-// difference form, the counts of both are equal.
+// The triangle sweeps, and the square sweep up to m = 4, sum sq from
+// differences in the plain torch version's order with its roundings
+// (sweep_common.cuh), and D from the differences; at m <= 4, where the
+// plain version also uses the difference form, the counts of both are
+// equal. Past m = 4 the square sweep takes the plain version's own forms
+// at those widths, the Gram sq and D = rowsum x - KX, on the tensor cores
+// in 3xTF32 (square_mma.cuh); the centring keeps the subtraction's
+// cancellation at float32 level.
 //
 // Every m from 1 to 64 runs: exact instances for m = 1..8, 11 and 50, a
-// runtime-m instance for the rest (sweep_common.cuh). Each thread keeps its
-// target's coordinates and 2m accumulators in registers, so at m = 50 a
-// thread holds about 150 live floats; ptxas's report (-Xptxas -v, kept in
-// the build log) says whether an instance spills.
+// runtime-m instance for the rest (sweep_common.cuh); ptxas's report
+// (-Xptxas -v, kept in the build log) says whether an instance spills.
 //
 // The kernels allocate nothing: the wrapper (ops/cuda_phi.py) passes zeroed
-// count and accumulator buffers. Each entry point returns
-// cudaGetLastError() after its launch.
+// count and accumulator buffers and the square sweep's workspace. Each
+// entry point returns cudaGetLastError() after its launches.
 
 #include <type_traits>
 
 #include "micro_tile.cuh"
+#include "square_mma.cuh"
 
 namespace {
 
@@ -44,22 +45,64 @@ using namespace svgd;
 // fused_phi_counts_square
 //
 // Replaces svgdcpp_tpu/ops/pallas_phi.py:_fused_kernel (the square/cross
-// sweep, called through _phi_rbf_fused_pallas_cross_impl).
+// sweep, called through _phi_rbf_fused_pallas_cross_impl: K1).
 //
-// Bound on this card: per pair 3m+1 FLOPs for sq, one ex2 on the special
-// function unit (a quarter of the FP32 rate), 3m FP32 ops for the two
-// contractions and T compares; the operands are a few hundred KB, so the
-// sweep is compute-bound on the FP32 pipes and the SFU, not on memory.
+// Bound on this card: per pair 3m FP32 operations for sq, one ex2 on the
+// special function unit, 4m for the two contractions and T compares; the
+// operands are a few hundred KB, so the function is bound by its
+// operations (chip_smoke.py's sweep_bound counts them at the FP32 rate).
+// Past m = 4 the design moves sq's Gram tile and both contractions, 5m of
+// the 7m + 2 + T, onto the tensor cores.
 //
-// Design: one thread owns one target row and keeps KS, D (2m values) and
-// its T counts in registers, so nothing per pair leaves the SM. A block of
-// kSqThreads targets walks all sources in shared-memory tiles (each source
-// is read once per block and broadcast to every thread); the tile is
-// shorter for wide m so that both tiles stay within 48 KB of static shared
-// memory. The epilogue writes phi directly; ragged edges are bounds checks,
-// not padding.
+// Design. The grid is (target blocks, source splits): a block sweeps its
+// targets against one split of the sources (square_chunk: a range of whole
+// 32-source tiles, about kSquareBlocks blocks in all, so that n = 1000
+// still fills the card), writes its partial sums to its slice of the
+// workspace (splits, n_t, 2m + 1) and adds its counts with integer
+// atomics. The finishing pass sums each row's splits in split order: phi
+// is the same from run to run. Bodies:
+//
+//   * m <= 4 (CUDA cores): one thread owns one target row and keeps KS, D
+//     (2m values) and its T counts in registers; a block of kSqThreads
+//     targets walks its split in shared-memory tiles (each source read once
+//     per block and broadcast to every thread). Partials [KS | D].
+//   * m >= 5 (tensor cores, square_mma.cuh): a block of 4 warps owns 64
+//     targets, the Gram tile and K . [S | X | 1] in 3xTF32 mma.sync, the
+//     sources staged by cp.async a tile ahead. Partials [KS | KX | rowsum].
 // ---------------------------------------------------------------------------
 
+// Blocks a square launch aims at: two an SM of the card's 132.
+constexpr int kSquareBlocks = 264;
+// Sources a split holds are a multiple of this: whole tiles of the
+// tensor-core body.
+constexpr int kSquareGrain = kSqMmaCols;
+// The least m that the tensor-core body serves: at n = 1000 on an H100
+// 80GB HBM3 (700 W) it took 11.5 us a call at m = 8 against the CUDA
+// cores' 15.9, 10.4 against 9.0 at m = 2 (chip_profile.py --crossover);
+// m <= 4 keeps the difference form, whose counts equal the plain
+// version's.
+constexpr int kSquareTensorMinM = 5;
+
+// Whether a launch of width m takes the tensor-core body: the library's
+// choice (body 0), or the caller's (1: CUDA cores, 2: tensor cores).
+bool square_tensor(int m, int body) {
+  return body == 2 || (body == 0 && m >= kSquareTensorMinM);
+}
+
+// The sources of one split (a multiple of kSquareGrain) and the number of
+// splits, for n_t targets in blocks of the body's rows.
+int square_chunk(int n_t, int n_s, bool tensor, int* splits) {
+  const int rows = tensor ? kSqMmaRows : kSqThreads;
+  const int row_blocks = (n_t + rows - 1) / rows;
+  const int grains = (n_s + kSquareGrain - 1) / kSquareGrain;
+  const int want = (kSquareBlocks + row_blocks - 1) / row_blocks;
+  const int parts = grains < want ? grains : want;
+  const int chunk = kSquareGrain * ((grains + parts - 1) / parts);
+  *splits = (n_s + chunk - 1) / chunk;
+  return chunk;
+}
+
+// The CUDA-core body.
 template <int MM, bool kExact>
 __global__ void __launch_bounds__(kSqThreads)
     fused_phi_counts_square_kernel(const float* __restrict__ targets,
@@ -67,8 +110,8 @@ __global__ void __launch_bounds__(kSqThreads)
                                    const float* __restrict__ scores,
                                    const float* __restrict__ gamma,
                                    const float* __restrict__ thr, int n_t,
-                                   int n_s, int m_arg, int T,
-                                   float* __restrict__ phi,
+                                   int n_s, int m_arg, int T, int chunk,
+                                   float* __restrict__ work,
                                    unsigned long long* __restrict__ counts) {
   constexpr int kTile = SqTile<MM>::value;
   __shared__ float sh_x[kTile * MM];
@@ -77,8 +120,7 @@ __global__ void __launch_bounds__(kSqThreads)
   const int m = kExact ? MM : m_arg;
   const int i = blockIdx.x * kSqThreads + threadIdx.x;
   const bool row_ok = i < n_t;
-  const float g = gamma[0];
-  const float g2 = g * kLog2e;
+  const float g2 = gamma[0] * kLog2e;
 
   float th[kMaxT];
 #pragma unroll
@@ -99,8 +141,10 @@ __global__ void __launch_bounds__(kSqThreads)
 #pragma unroll
   for (int t = 0; t < kMaxT; ++t) cnt[t] = 0u;
 
-  for (int j0 = 0; j0 < n_s; j0 += kTile) {
-    const int tile_n = min(kTile, n_s - j0);
+  const int j_begin = static_cast<int>(blockIdx.y) * chunk;
+  const int j_end = min(n_s, j_begin + chunk);
+  for (int j0 = j_begin; j0 < j_end; j0 += kTile) {
+    const int tile_n = min(kTile, j_end - j0);
     __syncthreads();  // the previous tile is consumed
     for (int e = threadIdx.x; e < tile_n * m; e += kSqThreads) {
       sh_x[e] = sources[static_cast<size_t>(j0) * m + e];
@@ -126,16 +170,107 @@ __global__ void __launch_bounds__(kSqThreads)
   }
 
   if (row_ok) {
-    const float ns = static_cast<float>(n_s);
+    const int w = 2 * m + 1;
+    float* out = work + (static_cast<size_t>(blockIdx.y) * n_t + i) * w;
 #pragma unroll
     for (int k = 0; k < MM; ++k) {
       if (kExact || k < m) {
-        phi[static_cast<size_t>(i) * m + k] =
-            (acc_s[k] + 2.0f * g * acc_d[k]) / ns;
+        out[k] = acc_s[k];
+        out[m + k] = acc_d[k];
       }
     }
   }
   flush_counts(cnt, T, counts);
+}
+
+// The tensor-core body, kT thresholds (3, or kMaxT for a runtime T).
+template <int MM, bool kExact, int kT>
+__global__ void __launch_bounds__(kSqMmaThreads)
+    fused_phi_counts_square_kernel(const float* __restrict__ targets,
+                                   const float* __restrict__ sources,
+                                   const float* __restrict__ scores,
+                                   const float* __restrict__ gamma,
+                                   const float* __restrict__ thr, int n_t,
+                                   int n_s, int m_arg, int T, int chunk,
+                                   float* __restrict__ work,
+                                   unsigned long long* __restrict__ counts) {
+  const int w = 2 * (kExact ? MM : m_arg) + 1;
+  square_mma_body<MM, kExact, kT>(
+      targets, sources, scores, -gamma[0] * kLog2e, thr, n_t, n_s, m_arg, T,
+      chunk, work + static_cast<size_t>(blockIdx.y) * n_t * w, counts);
+}
+
+// The finishing pass: phi (n_t, m) from the splits' partials, summed in
+// split order. rowsum: the tensor-core body's [KS | KX | rowsum], whose
+// D = rowsum x_i - KX; else [KS | D].
+__global__ void fused_phi_counts_square_finish_kernel(
+    const float* __restrict__ work, int splits, int n_t, int m, int rowsum,
+    const float* __restrict__ gamma, const float* __restrict__ targets,
+    int n_s, float* __restrict__ phi) {
+  const long long e =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (e >= static_cast<long long>(n_t) * m) return;
+  const int i = static_cast<int>(e / m);
+  const int k = static_cast<int>(e - static_cast<long long>(i) * m);
+  const int w = 2 * m + 1;
+  float ks = 0.0f;
+  float d = 0.0f;
+  float r = 0.0f;
+  for (int s = 0; s < splits; ++s) {
+    const float* row = work + (static_cast<size_t>(s) * n_t + i) * w;
+    ks += row[k];
+    d += row[m + k];
+    if (rowsum) r += row[2 * m];
+  }
+  if (rowsum) d = fmaf(r, targets[e], -d);
+  phi[e] = (ks + 2.0f * gamma[0] * d) / static_cast<float>(n_s);
+}
+
+// The tensor-core instance that serves m: MM = 8 (m = 5-8, and m <= 4 when
+// the caller asks for it), the exact ones at m = 11 and 50, else 16, 32,
+// 64.
+#define SVGD_DISPATCH_SQ_MMA(m, LAUNCH)                                 \
+  switch (m) {                                                          \
+    case 11: LAUNCH(11, true); break;                                   \
+    case 50: LAUNCH(50, true); break;                                   \
+    default:                                                            \
+      if (m >= 1 && m <= 8) {                                           \
+        LAUNCH(8, false);                                               \
+      } else if (m >= 9 && m <= 16) {                                   \
+        LAUNCH(16, false);                                              \
+      } else if (m >= 17 && m <= 32) {                                  \
+        LAUNCH(32, false);                                              \
+      } else if (m >= 33 && m <= svgd::kMaxM) {                         \
+        LAUNCH(64, false);                                              \
+      } else {                                                          \
+        return static_cast<int>(cudaErrorInvalidValue);                 \
+      }                                                                 \
+  }
+
+template <int MM, bool kExact>
+int launch_square_mma(const float* targets, const float* sources,
+                      const float* scores, const float* gamma,
+                      const float* thr, int n_t, int n_s, int m, int T,
+                      int chunk, int splits, float* work,
+                      unsigned long long* counts, cudaStream_t s) {
+  constexpr size_t smem = SqMma<MM>::kSmemBytes;
+  const dim3 grid((n_t + kSqMmaRows - 1) / kSqMmaRows, splits);
+  auto go = [&](auto kt) {
+    constexpr int kT = decltype(kt)::value;
+    auto* kernel = &fused_phi_counts_square_kernel<MM, kExact, kT>;
+    if (smem > 48 * 1024) {
+      const cudaError_t rc = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (rc != cudaSuccess) return static_cast<int>(rc);
+    }
+    kernel<<<grid, kSqMmaThreads, smem, s>>>(targets, sources, scores, gamma,
+                                             thr, n_t, n_s, m, T, chunk, work,
+                                             counts);
+    return 0;
+  };
+  return T == 3 ? go(std::integral_constant<int, 3>{})
+                : go(std::integral_constant<int, kMaxT>{});
 }
 
 }  // namespace
@@ -257,26 +392,61 @@ void launch_counts_sym(bool chunk, const float* coords, const float* scores,
 
 extern "C" {
 
+// The number of source splits of a square/cross launch (the workspace's
+// first dimension) for n_t targets, n_s sources, dimension m and body
+// (0: the library's choice, 1: CUDA cores, 2: tensor cores); -1 for
+// arguments the sweep does not take. ops/sym_plan.square_splits mirrors it.
+int svgd_square_splits(int n_t, int n_s, int m, int body) {
+  if (n_t <= 0 || n_s <= 0 || m < 1 || m > kMaxM || body < 0 || body > 2) {
+    return -1;
+  }
+  int splits = 0;
+  square_chunk(n_t, n_s, square_tensor(m, body), &splits);
+  return splits;
+}
+
 // phi (n_t, m) and counts (T,) of the square/cross sweep. targets (n_t, m)
 // and sources (n_s, m) centered on the source mean, scores (n_s, m), all
 // float32 row-major; gamma (1,), thr (T,) float32 on the device; counts
-// zeroed int64. 1 <= m <= 64, 1 <= T <= 8.
+// zeroed int64; work a float32 workspace of (splits, n_t, 2m + 1), splits
+// being svgd_square_splits(n_t, n_s, m, body). 1 <= m <= 64, 1 <= T <= 8.
 int svgd_fused_phi_counts_square(const float* targets, const float* sources,
                                  const float* scores, const float* gamma,
                                  const float* thr, int n_t, int n_s, int m,
                                  int T, float* phi, long long* counts,
+                                 float* work, int splits, int body,
                                  void* stream) {
-  if (n_t <= 0 || n_s <= 0 || T < 1 || T > kMaxT) {
+  if (n_t <= 0 || n_s <= 0 || T < 1 || T > kMaxT || m < 1 || m > kMaxM ||
+      body < 0 || body > 2) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid((n_t + kSqThreads - 1) / kSqThreads);
+  const bool tensor = square_tensor(m, body);
+  int want = 0;
+  const int chunk = square_chunk(n_t, n_s, tensor, &want);
+  if (splits != want) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* c = reinterpret_cast<unsigned long long*>(counts);
+  if (tensor) {
+    int rc = 0;
+#define SVGD_LAUNCH_SQ_MMA(MM_, EX_)                                      \
+  rc = launch_square_mma<MM_, EX_>(targets, sources, scores, gamma, thr,  \
+                                   n_t, n_s, m, T, chunk, splits, work, c, \
+                                   s)
+    SVGD_DISPATCH_SQ_MMA(m, SVGD_LAUNCH_SQ_MMA)
+#undef SVGD_LAUNCH_SQ_MMA
+    if (rc != 0) return rc;
+  } else {
+    const dim3 grid((n_t + kSqThreads - 1) / kSqThreads, splits);
 #define SVGD_LAUNCH_SQUARE(MM_, EX_)                                    \
   fused_phi_counts_square_kernel<MM_, EX_><<<grid, kSqThreads, 0, s>>>( \
-      targets, sources, scores, gamma, thr, n_t, n_s, m, T, phi, c)
-  SVGD_DISPATCH_M(m, SVGD_LAUNCH_SQUARE)
+      targets, sources, scores, gamma, thr, n_t, n_s, m, T, chunk, work, c)
+    SVGD_DISPATCH_M(m, SVGD_LAUNCH_SQUARE)
 #undef SVGD_LAUNCH_SQUARE
+  }
+  const long long outs = static_cast<long long>(n_t) * m;
+  fused_phi_counts_square_finish_kernel<<<
+      static_cast<unsigned int>((outs + 255) / 256), 256, 0, s>>>(
+      work, splits, n_t, m, tensor ? 1 : 0, gamma, targets, n_s, phi);
   return static_cast<int>(cudaGetLastError());
 }
 

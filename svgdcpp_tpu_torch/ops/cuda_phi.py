@@ -6,10 +6,15 @@ thirteenth, ``sym_eigen``, beside K15's), replace the Pallas kernels of the
 package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
 
   * ``fused_phi_counts_square`` (``csrc/fused_phi.cu``) -- ``_fused_kernel``
-    (K1), the square/cross sweep (each target row against every source).
+    (K1), the square/cross sweep (each target row against every source):
+    the sources split over the grid and summed in order by a finishing
+    pass, one row a thread on the CUDA cores up to m = 4, the Gram tile and
+    the contraction on the tensor cores in 3xTF32 above
+    (``csrc/square_mma.cuh``).
   * ``fused_phi_counts_sym``    (``csrc/fused_phi.cu``) -- ``_sym_kernel``
     (K2), the upper-triangle sweep over one particle set (each unordered
-    pair once, both directions).
+    pair once, both directions; on ``csrc/micro_tile.cuh``'s body at
+    m = 1-8 and 11, ``csrc/counts_sym.cuh``'s above).
   * ``fused_phi_terms_square``  (``csrc/fused_phi_terms.cu``) --
     ``_fused_terms_direct_kernel`` and ``_fused_terms_kernel`` (K6, K7):
     the square/cross sweep of a signed sum of isotropic RBF terms.
@@ -181,7 +186,8 @@ def load_library() -> ctypes.CDLL:
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             signatures = {
                 "svgd_fused_phi_counts_square":
-                    [ptr] * 5 + [i32] * 4 + [ptr] * 3,
+                    [ptr] * 5 + [i32] * 4 + [ptr] * 3 + [i32] * 2 + [ptr],
+                "svgd_square_splits": [i32] * 4,
                 "svgd_fused_phi_counts_sym": [ptr] * 4 + [i32] * 3 + [ptr] * 3,
                 "svgd_fused_phi_terms_square":
                     [ptr] * 5 + [i32, ptr] + [i32] * 4 + [ptr] * 3,
@@ -381,8 +387,16 @@ def eigen_rows(coords_c, p_matrix, eig=None):
     return coords_c.to(torch.float64) @ v, lam, v
 
 
-def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq):
-    """K1 (one positive term, ``signs`` None) or the terms square kernel."""
+def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq,
+                   body=0):
+    """K1 (one positive term, ``signs`` None) or the terms square kernel.
+
+    K1 splits the sources over the grid; the library gives the number of
+    splits for its body (``svgd_square_splits``; ``body`` 0: its choice,
+    the tensor cores from m = 5; 1 or 2 force the CUDA cores or the tensor
+    cores, for measurements) and the wrapper allocates the workspace of the
+    splits' partial sums, (splits, n_t, 2m + 1), which the kernel's
+    finishing pass sums in order."""
     g, thr = _device_operands(sources, scores, gammas, thresholds_sq)
     if targets.ndim != 2 or targets.shape[1] != sources.shape[1]:
         raise ValueError("targets must be (n_t, m) with the sources' m")
@@ -403,10 +417,14 @@ def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq):
         stream = torch.cuda.current_stream().cuda_stream
         if signs is None:
             name = SQUARE_KERNEL
+            splits = lib.svgd_square_splits(n_t, n_s, m, body)
+            work = torch.empty((splits, n_t, 2 * m + 1), dtype=torch.float32,
+                               device=targets.device)
             rc = lib.svgd_fused_phi_counts_square(
                 tgt_c.data_ptr(), src_c.data_ptr(), sc32.data_ptr(),
                 g.data_ptr(), thr.data_ptr(), n_t, n_s, m, thr.shape[0],
-                phi.data_ptr(), counts.data_ptr(), stream,
+                phi.data_ptr(), counts.data_ptr(), work.data_ptr(), splits,
+                body, stream,
             )
         else:
             name = TERMS_SQUARE_KERNEL

@@ -342,6 +342,48 @@ def sym_tile(m: int, terms: bool = False) -> int:
     return 64 if inst <= 16 else 32
 
 
+#: The square/cross sweep's launch (K1's port, csrc/fused_phi.cu): the
+#: blocks it aims at (two an SM of 132), the multiple of sources a split
+#: holds (the tensor-core body's tile), the target rows a block of each body
+#: takes, and the least m the tensor-core body serves (``kSquareBlocks``,
+#: ``kSquareGrain``, ``kSqThreads``, ``kSqMmaRows``, ``kSquareTensorMinM``).
+SQUARE_BLOCKS = 264
+SQUARE_GRAIN = 32
+SQUARE_ROWS_CUDA_CORES = 128
+SQUARE_ROWS_TENSOR = 64
+SQUARE_TENSOR_MIN_M = 5
+
+
+def square_tensor(m: int, body: int = 0) -> bool:
+    """Whether the square sweep at width m runs the tensor-core body: the
+    library's choice (``body`` 0: from SQUARE_TENSOR_MIN_M up) or the
+    caller's (1: the CUDA cores, 2: the tensor cores)."""
+    return body == 2 or (body == 0 and m >= SQUARE_TENSOR_MIN_M)
+
+
+def square_chunk(n_t: int, n_s: int, m: int, body: int = 0) -> int:
+    """The sources of one split of a square launch: whole tiles of
+    SQUARE_GRAIN, as few as keep about SQUARE_BLOCKS blocks on the card
+    (``square_chunk`` of csrc/fused_phi.cu)."""
+    rows = SQUARE_ROWS_TENSOR if square_tensor(m, body) \
+        else SQUARE_ROWS_CUDA_CORES
+    row_blocks = -(-n_t // rows)
+    grains = -(-n_s // SQUARE_GRAIN)
+    parts = min(grains, -(-SQUARE_BLOCKS // row_blocks))
+    return SQUARE_GRAIN * -(-grains // parts)
+
+
+def square_splits(n_t: int, n_s: int, m: int, body: int = 0) -> int:
+    """The number of source splits (the grid's y, the workspace's first
+    dimension) of a square launch, or -1 for arguments the sweep does not
+    take: the Python copy of the library's ``svgd_square_splits``, which
+    the wrapper reads on the card and the card's smoke test holds this copy
+    to."""
+    if n_t <= 0 or n_s <= 0 or not 1 <= m <= 64 or body not in (0, 1, 2):
+        return -1
+    return -(-n_s // square_chunk(n_t, n_s, m, body))
+
+
 def balanced_range(total: int, world: int, rank: int):
     """(start, count) of rank's contiguous share of ``total`` items: the
     counts of any two ranks differ by at most one."""

@@ -3,7 +3,7 @@
 ``sass_loops`` finds each backward branch of one function in ``cuobjdump
 --dump-sass`` text and counts the loop's instructions by class (FP32,
 special-function, compare/select, integer, shared memory, shuffle, global,
-barrier, branch), a predicate guard aside; with the MUFU count a pair it
+barrier, branch, tensor-core), a predicate guard aside; with the MUFU count a pair it
 also gives the loop's pairs and instructions a pair. The snippet below has
 one loop with every class, a forward branch that is no loop, a trailing
 self-branch, and a second function whose loop must not be counted.
@@ -47,12 +47,12 @@ SASS = f"""
 LOOP = {
     "start": "0x20", "end": "0xe0", "instructions": 13,
     "fp32": 3, "mufu": 2, "cmp_sel": 1, "int": 1, "shared": 2, "shuffle": 1,
-    "global": 0, "barrier": 1, "branch": 2,
+    "global": 0, "barrier": 1, "branch": 2, "tensor": 0,
 }
 TAIL = {
     "start": "0x110", "end": "0x110", "instructions": 1,
     "fp32": 0, "mufu": 0, "cmp_sel": 0, "int": 0, "shared": 0, "shuffle": 0,
-    "global": 0, "barrier": 0, "branch": 1,
+    "global": 0, "barrier": 0, "branch": 1, "tensor": 0,
 }
 
 
@@ -72,7 +72,7 @@ def test_sass_loops_reads_only_the_named_function():
     assert chip_profile.sass_loops(SASS, other) == [{
         "start": "0x0", "end": "0x10", "instructions": 2,
         "fp32": 1, "mufu": 0, "cmp_sel": 0, "int": 0, "shared": 0,
-        "shuffle": 0, "global": 0, "barrier": 0, "branch": 1,
+        "shuffle": 0, "global": 0, "barrier": 0, "branch": 1, "tensor": 0,
     }]
     assert chip_profile.sass_loops(SASS, "no_such_kernel") == []
 
@@ -83,7 +83,8 @@ def test_sass_instances_name_paths_a_and_b():
                       "count_le<2,1,0,1,5>", "count_le<2,1,0,0,3>",
                       "count_le<11,1,1,1,5>", "aniso_terms_sym<11,1,1,3>",
                       "terms_sym<11,1,3,2>", "phi_rbf_sym<11,1>",
-                      "phi_rbf_square<11,1>", "counts_sym<2,1,3>"]
+                      "phi_rbf_square<11,1>", "counts_sym<2,1,3>",
+                      "counts_square<50,1,3>"]
     for _, kernel, args, per in chip_profile.SASS_INSTANCES:
         assert any(kernel + args[0] in f for f in (
             "_ZN12_GLOBAL__N_132fused_phi_counts_sympanel_kernel"
@@ -97,7 +98,9 @@ def test_sass_instances_name_paths_a_and_b():
             "_ZN12_GLOBAL__N_121phi_rbf_square_kernelILi11ELb1EEEv"
             "PKfS2_S2_iiiiPf",
             "_ZN12_GLOBAL__N_127fused_phi_counts_sym_kernel"
-            "ILi2ELb1ELi3EEEvPKfS2_S2_S2_iiiixPfPy"))
+            "ILi2ELb1ELi3EEEvPKfS2_S2_S2_iiiixPfPy",
+            "_ZN12_GLOBAL__N_130fused_phi_counts_square_kernel"
+            "ILi50ELb1ELi3EEEvPKfS2_S2_S2_S2_iiiiiPfPy"))
         assert per in (1, 2, ("fp32", 5), ("fp32", 15))
 
 
