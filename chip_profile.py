@@ -75,8 +75,9 @@ n = 16384 to 262144, and the terms kernels' other instances: m = 11 at
 T = 8 (n = 131072) and with three terms (n = 65536), m = 2 (n = 262144)
 and m = 5 (n = 131072) with two terms; wrapper ms, median of 5 calls
 between CUDA events after one warm-up call, three thresholds unless
-stated; and K1's two bodies, forced, at n = 1000 and m = 2-50
-(kernel-only us of the sweep and its finishing pass).
+stated; and K1 at n = 1000 and m = 2-50, the body the library picks for
+each m (``square_crossover``: kernel-only us of the sweep and its
+finishing pass; forcing one body is a scratch copy's edit, see there).
 
 With ``--sweeps`` it also times the single-RBF triangle kernel
 (``fused_phi_counts_sym``, K2's port) at n = 10000, m = 2, T = 3, with the
@@ -501,18 +502,26 @@ def crossover(device):
                      "panel_over_full": panel / full,
                      "jax_form": cuda_phi.resolve_sym(
                          None, n, m, len(signs) if signs else None)})
-    # K1's two bodies at the flat BLR's n = 1000 around the library's
-    # crossing (the tensor cores from m = 5), kernel-only us of both passes.
+    return rows + square_crossover(device)
+
+
+def square_crossover(device):
+    """K1 at the flat BLR's n = 1000 around the crossing of its two bodies
+    (the tensor cores from kSquareTensorMinM = 5): kernel-only us of both
+    passes at m = 2-50. To time one body at every m, force
+    kSquareTensorMinM in csrc/fused_phi.cu of a scratch copy and run this
+    there: 1 runs the tensor cores everywhere; 65, with
+    SVGD_DISPATCH_SQ_CUDA_CORES extended to these m, the CUDA cores."""
+    from chip_smoke import sweep_inputs
+    from svgdcpp_tpu_torch.ops import cuda_phi
+
+    rows = []
     for m in (2, 3, 4, 5, 6, 8, 11, 16, 32, 50):
         x, s, g, thr = sweep_inputs(1000, m, 0.0, 700 + m, device)
-        row = {"n": 1000, "m": m, "square_bodies": True}
-        for body, key in ((1, "cuda_cores_us"), (2, "tensor_cores_us")):
-            row[key] = kernel_us(
-                lambda: cuda_phi._square_launch(x, x, s, [g], None, thr,
-                                                body=body),
-                "fused_phi_counts_square")
-        print(json.dumps(row), flush=True)
-        rows.append(row)
+        rows.append({"n": 1000, "m": m, "square_us": kernel_us(
+            lambda: cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=False),
+            "fused_phi_counts_square")})
+        print(json.dumps(rows[-1]), flush=True)
     return rows
 
 

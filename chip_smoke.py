@@ -14,8 +14,8 @@ thirty-one phases, one line each (several for phases 2, 3, 7-9 and
      version on the card, float32, at six shapes including the cross form
      and the shape phase 4 gives it; the library's split count
      (svgd_square_splits) against its Python copy (sym_plan.square_splits)
-     at 630 shapes; each body forced past its own widths (the CUDA cores
-     at m = 8, 11 and 50, the tensor cores at m = 2 and 4);
+     at 330 shapes; scores as a row-slice view off a 16-byte boundary at
+     m = 50, square and cross;
   3. the triangle kernel (fused_phi_counts_sym) against the plain version
      at n = 2048, 10000 and 10007, every micro-tile instance (m = 1-8 and
      11) at n = 10007 off origin at T = 1, 3 and 8, counts equal at m <= 4,
@@ -755,35 +755,35 @@ def main() -> int:
     # The wrapper sizes its workspace by the library's split count: hold
     # sym_plan.square_splits, its Python copy, to it.
     lib = cuda_phi.load_library()
-    shapes = [(n_t, n_s, m, body) for n_t in (1, 64, 700, 1000, 1500, 10007)
+    shapes = [(n_t, n_s, m) for n_t in (1, 64, 700, 1000, 1500, 10007)
               for n_s in (1, 33, 1000, 1500, 20000)
-              for m in (1, 2, 8, 9, 11, 50, 64) for body in (0, 1, 2)]
+              for m in (1, 2, 3, 4, 5, 8, 9, 11, 16, 50, 64)]
     splits_off = [a for a in shapes
                   if lib.svgd_square_splits(*a) != square_splits(*a)]
     check(not splits_off, f"svgd_square_splits and sym_plan.square_splits "
-                          f"differ at (n_t, n_s, m, body) in {splits_off}")
+                          f"differ at (n_t, n_s, m) in {splits_off}")
     print(f"phase 2 splits: svgd_square_splits equals sym_plan.square_splits "
           f"at {len(shapes)} shapes")
-    # Each body past its own widths, as chip_profile.py's crossover runs
-    # them: the CUDA cores at m = 8, 11 and 50, the tensor cores at m = 2
-    # and 4 (there the Gram sq decides a tie otherwise than the difference
-    # form: phi only).
-    for idx, (n, m, body) in enumerate([(1000, 50, 1), (600, 11, 1),
-                                        (600, 8, 1), (1000, 2, 2),
-                                        (1337, 4, 2)]):
-        x, s, g, thr = inputs_for(n, m, 0.0, 22 + idx, dev)
-        got = cuda_phi._square_launch(x, x, s, [g], None, thr, body=body)
-        want = phi_rbf_fused_counts(x, s, g, thr)
-        if m <= 4:
-            rel, abs_err = compare_phi(f"square body={body} n={n} m={m}",
-                                       got[0], want[0])
-            dcnt = int((got[1] - want[1]).abs().max())
-        else:
-            rel, abs_err, dcnt = compare(f"square body={body} n={n} m={m}",
-                                         got, want, n, m)
+    # Scores as a float32 row-slice view, square and cross at m = 50: the
+    # view from row 1 starts 8 bytes past a 16-byte boundary, which the
+    # tensor-core body's 16-byte copies may not read from (the wrapper
+    # copies it).
+    x, s, g, thr = inputs_for(1000, 50, 0.0, 22, dev)
+    s = torch.cat([s[:1], s])[1:]
+    check(s.data_ptr() % 16 != 0, "the scores view starts on a 16-byte "
+                                  "boundary: it tests nothing")
+    for name, got, want in [
+            ("square", cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=False),
+             phi_rbf_fused_counts(x, s, g, thr)),
+            ("cross", cuda_phi.phi_rbf_fused_cuda_cross(x[:700], x, s, g, thr),
+             phi_rbf_cross_fused_counts(x[:700], x, s, g, thr))]:
+        n_t = got[0].shape[0]
+        rel, abs_err, dcnt = compare(f"{name} scores view m=50", got, want,
+                                     1000, 50, n_t=n_t)
         square_err = max(square_err, abs_err)
-        print(f"phase 2 square forced body={body} n={n} m={m}: ok "
-              f"phi_rel={rel:.3e} count_diff={dcnt}")
+        print(f"phase 2 {name} n_t={n_t} n_s=1000 m=50 scores view at a "
+              f"{s.data_ptr() % 16}-byte offset: ok phi_rel={rel:.3e} "
+              f"count_diff={dcnt}")
 
     # -- phase 3: triangle kernel vs plain, and times ------------------
     sym_err = 0.0
@@ -2372,11 +2372,15 @@ def main() -> int:
         path["bound_all_pairs_ms"] = sweep_bound(
             k15, path["n"], path["m"], all_pairs=True)[0]
     # K1's tensor-core body (m >= 5) moves most of its work off the FP32
-    # pipes: its least time with that work on the TF32 tensor cores.
+    # pipes: its least time with that work on the TF32 tensor cores, printed
+    # beside the FP32 bound of the kernels line.
     for path in paths[sq]:
         if path["m"] >= SQUARE_TENSOR_MIN_M:
-            path["bound_tensor_ms"], path["bound_tensor_by"] = \
-                square_tensor_bound(path["n"], path["m"])
+            tensor_ms, tensor_by = square_tensor_bound(path["n"], path["m"])
+            print(f"K1 phase {path['phase']} n={path['n']} m={path['m']}: "
+                  f"bound_ms={path['bound_ms']:.6g} ({path['bound_by']}, "
+                  f"FP32), on the TF32 tensor cores {tensor_ms:.6g} "
+                  f"({tensor_by})")
     # The decomposition beside K15 on the HESSIAN path, one launch a step.
     eig_bound = eigen_bound(11)
     paths[eig] = [{"phase": 18, "n": 10240, "m": 11,

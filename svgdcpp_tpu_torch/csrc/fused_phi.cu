@@ -24,9 +24,12 @@
 // in 3xTF32 (square_mma.cuh); the centring keeps the subtraction's
 // cancellation at float32 level.
 //
-// Every m from 1 to 64 runs: exact instances for m = 1..8, 11 and 50, a
-// runtime-m instance for the rest (sweep_common.cuh); ptxas's report
-// (-Xptxas -v, kept in the build log) says whether an instance spills.
+// Every m from 1 to 64 runs. The triangle sweeps take exact instances for
+// m = 1..8, 11 and 50 and a runtime-m instance for the rest
+// (sweep_common.cuh); the square sweep exact CUDA-core instances for
+// m = 1..4 and tensor-core ones past them (SVGD_DISPATCH_SQ_MMA). ptxas's
+// report (-Xptxas -v, kept in the build log) says whether an instance
+// spills.
 //
 // The kernels allocate nothing: the wrapper (ops/cuda_phi.py) passes zeroed
 // count and accumulator buffers and the square sweep's workspace. Each
@@ -76,18 +79,14 @@ constexpr int kSquareBlocks = 264;
 // Sources a split holds are a multiple of this: whole tiles of the
 // tensor-core body.
 constexpr int kSquareGrain = kSqMmaCols;
-// The least m that the tensor-core body serves: at n = 1000 on an H100
-// 80GB HBM3 (700 W) it took 11.5 us a call at m = 8 against the CUDA
-// cores' 15.9, 10.4 against 9.0 at m = 2 (chip_profile.py --crossover);
-// m <= 4 keeps the difference form, whose counts equal the plain
-// version's.
+// The least m that the tensor-core body serves; the CUDA-core body takes
+// the m below it. At n = 1000 on an H100 80GB HBM3 (700 W) the tensor
+// cores took 11.4-11.5 us a call at m = 8 against the CUDA cores'
+// 16.0-16.1, 10.6-10.8 against 9.0-9.4 at m = 2 and tied at m = 4
+// (chip_profile.square_crossover, each body timed with this constant
+// forced; PERF.md). m <= 4 keeps the difference form, whose counts equal
+// the plain version's.
 constexpr int kSquareTensorMinM = 5;
-
-// Whether a launch of width m takes the tensor-core body: the library's
-// choice (body 0), or the caller's (1: CUDA cores, 2: tensor cores).
-bool square_tensor(int m, int body) {
-  return body == 2 || (body == 0 && m >= kSquareTensorMinM);
-}
 
 // The sources of one split (a multiple of kSquareGrain) and the number of
 // splits, for n_t targets in blocks of the body's rows.
@@ -102,22 +101,22 @@ int square_chunk(int n_t, int n_s, bool tensor, int* splits) {
   return chunk;
 }
 
-// The CUDA-core body.
-template <int MM, bool kExact>
+// The CUDA-core body, at exactly MM coordinates.
+template <int MM>
 __global__ void __launch_bounds__(kSqThreads)
     fused_phi_counts_square_kernel(const float* __restrict__ targets,
                                    const float* __restrict__ sources,
                                    const float* __restrict__ scores,
                                    const float* __restrict__ gamma,
                                    const float* __restrict__ thr, int n_t,
-                                   int n_s, int m_arg, int T, int chunk,
+                                   int n_s, int T, int chunk,
                                    float* __restrict__ work,
                                    unsigned long long* __restrict__ counts) {
   constexpr int kTile = SqTile<MM>::value;
+  constexpr int m = MM;
   __shared__ float sh_x[kTile * MM];
   __shared__ float sh_s[kTile * MM];
 
-  const int m = kExact ? MM : m_arg;
   const int i = blockIdx.x * kSqThreads + threadIdx.x;
   const bool row_ok = i < n_t;
   const float g2 = gamma[0] * kLog2e;
@@ -131,9 +130,7 @@ __global__ void __launch_bounds__(kSqThreads)
   float acc_d[MM];
 #pragma unroll
   for (int k = 0; k < MM; ++k) {
-    xi[k] = (row_ok && (kExact || k < m))
-                ? targets[static_cast<size_t>(i) * m + k]
-                : 0.0f;
+    xi[k] = row_ok ? targets[static_cast<size_t>(i) * m + k] : 0.0f;
     acc_s[k] = 0.0f;
     acc_d[k] = 0.0f;
   }
@@ -155,14 +152,12 @@ __global__ void __launch_bounds__(kSqThreads)
       for (int jj = 0; jj < tile_n; ++jj) {
         const float* xj = sh_x + jj * m;
         const float* sj = sh_s + jj * m;
-        const float sq = pair_sq<MM, kExact>(xi, xj, m);
+        const float sq = pair_sq<MM, true>(xi, xj, m);
         const float kv = exp2f(-g2 * sq);
 #pragma unroll
         for (int k = 0; k < MM; ++k) {
-          if (kExact || k < m) {
-            acc_s[k] = fmaf(kv, sj[k], acc_s[k]);
-            acc_d[k] = fmaf(kv, __fsub_rn(xi[k], xj[k]), acc_d[k]);
-          }
+          acc_s[k] = fmaf(kv, sj[k], acc_s[k]);
+          acc_d[k] = fmaf(kv, __fsub_rn(xi[k], xj[k]), acc_d[k]);
         }
         count_pair(sq, th, T, cnt);
       }
@@ -174,10 +169,8 @@ __global__ void __launch_bounds__(kSqThreads)
     float* out = work + (static_cast<size_t>(blockIdx.y) * n_t + i) * w;
 #pragma unroll
     for (int k = 0; k < MM; ++k) {
-      if (kExact || k < m) {
-        out[k] = acc_s[k];
-        out[m + k] = acc_d[k];
-      }
+      out[k] = acc_s[k];
+      out[m + k] = acc_d[k];
     }
   }
   flush_counts(cnt, T, counts);
@@ -226,15 +219,24 @@ __global__ void fused_phi_counts_square_finish_kernel(
   phi[e] = (ks + 2.0f * gamma[0] * d) / static_cast<float>(n_s);
 }
 
-// The tensor-core instance that serves m: MM = 8 (m = 5-8, and m <= 4 when
-// the caller asks for it), the exact ones at m = 11 and 50, else 16, 32,
-// 64.
+// The CUDA-core instance that serves m < kSquareTensorMinM.
+#define SVGD_DISPATCH_SQ_CUDA_CORES(m, LAUNCH)                          \
+  switch (m) {                                                          \
+    case 1: LAUNCH(1); break;                                           \
+    case 2: LAUNCH(2); break;                                           \
+    case 3: LAUNCH(3); break;                                           \
+    case 4: LAUNCH(4); break;                                           \
+    default: return static_cast<int>(cudaErrorInvalidValue);            \
+  }
+
+// The tensor-core instance that serves m >= kSquareTensorMinM: MM = 8 up to
+// m = 8, the exact ones at m = 11 and 50, else 16, 32, 64.
 #define SVGD_DISPATCH_SQ_MMA(m, LAUNCH)                                 \
   switch (m) {                                                          \
     case 11: LAUNCH(11, true); break;                                   \
     case 50: LAUNCH(50, true); break;                                   \
     default:                                                            \
-      if (m >= 1 && m <= 8) {                                           \
+      if (m >= kSquareTensorMinM && m <= 8) {                           \
         LAUNCH(8, false);                                               \
       } else if (m >= 9 && m <= 16) {                                   \
         LAUNCH(16, false);                                              \
@@ -393,15 +395,12 @@ void launch_counts_sym(bool chunk, const float* coords, const float* scores,
 extern "C" {
 
 // The number of source splits of a square/cross launch (the workspace's
-// first dimension) for n_t targets, n_s sources, dimension m and body
-// (0: the library's choice, 1: CUDA cores, 2: tensor cores); -1 for
+// first dimension) for n_t targets, n_s sources and dimension m; -1 for
 // arguments the sweep does not take. ops/sym_plan.square_splits mirrors it.
-int svgd_square_splits(int n_t, int n_s, int m, int body) {
-  if (n_t <= 0 || n_s <= 0 || m < 1 || m > kMaxM || body < 0 || body > 2) {
-    return -1;
-  }
+int svgd_square_splits(int n_t, int n_s, int m) {
+  if (n_t <= 0 || n_s <= 0 || m < 1 || m > kMaxM) return -1;
   int splits = 0;
-  square_chunk(n_t, n_s, square_tensor(m, body), &splits);
+  square_chunk(n_t, n_s, m >= kSquareTensorMinM, &splits);
   return splits;
 }
 
@@ -409,18 +408,22 @@ int svgd_square_splits(int n_t, int n_s, int m, int body) {
 // and sources (n_s, m) centered on the source mean, scores (n_s, m), all
 // float32 row-major; gamma (1,), thr (T,) float32 on the device; counts
 // zeroed int64; work a float32 workspace of (splits, n_t, 2m + 1), splits
-// being svgd_square_splits(n_t, n_s, m, body). 1 <= m <= 64, 1 <= T <= 8.
+// being svgd_square_splits(n_t, n_s, m). 1 <= m <= 64, 1 <= T <= 8. From
+// m = kSquareTensorMinM the body copies sources and scores 16 bytes at a
+// time (cp.async): both must start on a 16-byte boundary.
 int svgd_fused_phi_counts_square(const float* targets, const float* sources,
                                  const float* scores, const float* gamma,
                                  const float* thr, int n_t, int n_s, int m,
                                  int T, float* phi, long long* counts,
-                                 float* work, int splits, int body,
-                                 void* stream) {
-  if (n_t <= 0 || n_s <= 0 || T < 1 || T > kMaxT || m < 1 || m > kMaxM ||
-      body < 0 || body > 2) {
+                                 float* work, int splits, void* stream) {
+  if (n_t <= 0 || n_s <= 0 || T < 1 || T > kMaxT || m < 1 || m > kMaxM) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const bool tensor = square_tensor(m, body);
+  const bool tensor = m >= kSquareTensorMinM;
+  if (tensor && ((reinterpret_cast<uintptr_t>(sources) |
+                  reinterpret_cast<uintptr_t>(scores)) & 15u) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   int want = 0;
   const int chunk = square_chunk(n_t, n_s, tensor, &want);
   if (splits != want) return static_cast<int>(cudaErrorInvalidValue);
@@ -437,10 +440,10 @@ int svgd_fused_phi_counts_square(const float* targets, const float* sources,
     if (rc != 0) return rc;
   } else {
     const dim3 grid((n_t + kSqThreads - 1) / kSqThreads, splits);
-#define SVGD_LAUNCH_SQUARE(MM_, EX_)                                    \
-  fused_phi_counts_square_kernel<MM_, EX_><<<grid, kSqThreads, 0, s>>>( \
-      targets, sources, scores, gamma, thr, n_t, n_s, m, T, chunk, work, c)
-    SVGD_DISPATCH_M(m, SVGD_LAUNCH_SQUARE)
+#define SVGD_LAUNCH_SQUARE(MM_)                                    \
+  fused_phi_counts_square_kernel<MM_><<<grid, kSqThreads, 0, s>>>( \
+      targets, sources, scores, gamma, thr, n_t, n_s, T, chunk, work, c)
+    SVGD_DISPATCH_SQ_CUDA_CORES(m, SVGD_LAUNCH_SQUARE)
 #undef SVGD_LAUNCH_SQUARE
   }
   const long long outs = static_cast<long long>(n_t) * m;

@@ -186,8 +186,8 @@ def load_library() -> ctypes.CDLL:
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             signatures = {
                 "svgd_fused_phi_counts_square":
-                    [ptr] * 5 + [i32] * 4 + [ptr] * 3 + [i32] * 2 + [ptr],
-                "svgd_square_splits": [i32] * 4,
+                    [ptr] * 5 + [i32] * 4 + [ptr] * 3 + [i32, ptr],
+                "svgd_square_splits": [i32] * 3,
                 "svgd_fused_phi_counts_sym": [ptr] * 4 + [i32] * 3 + [ptr] * 3,
                 "svgd_fused_phi_terms_square":
                     [ptr] * 5 + [i32, ptr] + [i32] * 4 + [ptr] * 3,
@@ -387,16 +387,15 @@ def eigen_rows(coords_c, p_matrix, eig=None):
     return coords_c.to(torch.float64) @ v, lam, v
 
 
-def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq,
-                   body=0):
+def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq):
     """K1 (one positive term, ``signs`` None) or the terms square kernel.
 
     K1 splits the sources over the grid; the library gives the number of
-    splits for its body (``svgd_square_splits``; ``body`` 0: its choice,
-    the tensor cores from m = 5; 1 or 2 force the CUDA cores or the tensor
-    cores, for measurements) and the wrapper allocates the workspace of the
-    splits' partial sums, (splits, n_t, 2m + 1), which the kernel's
-    finishing pass sums in order."""
+    splits (``svgd_square_splits``) and the wrapper allocates the workspace
+    of the splits' partial sums, (splits, n_t, 2m + 1), which the kernel's
+    finishing pass sums in order. K1's tensor-core body copies sources and
+    scores 16 bytes at a time, so a scores view that starts off a 16-byte
+    boundary is copied first."""
     g, thr = _device_operands(sources, scores, gammas, thresholds_sq)
     if targets.ndim != 2 or targets.shape[1] != sources.shape[1]:
         raise ValueError("targets must be (n_t, m) with the sources' m")
@@ -410,6 +409,8 @@ def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq,
     tgt_c = (targets.to(torch.float32) - center).contiguous()
     src_c = (src32 - center).contiguous()
     sc32 = scores.to(torch.float32).contiguous()
+    if sc32.data_ptr() % 16:
+        sc32 = sc32.clone()
     phi = torch.empty((n_t, m), dtype=torch.float32, device=targets.device)
     counts = torch.zeros(thr.shape[0], dtype=torch.int64, device=targets.device)
     lib = load_library()
@@ -417,14 +418,14 @@ def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq,
         stream = torch.cuda.current_stream().cuda_stream
         if signs is None:
             name = SQUARE_KERNEL
-            splits = lib.svgd_square_splits(n_t, n_s, m, body)
+            splits = lib.svgd_square_splits(n_t, n_s, m)
             work = torch.empty((splits, n_t, 2 * m + 1), dtype=torch.float32,
                                device=targets.device)
             rc = lib.svgd_fused_phi_counts_square(
                 tgt_c.data_ptr(), src_c.data_ptr(), sc32.data_ptr(),
                 g.data_ptr(), thr.data_ptr(), n_t, n_s, m, thr.shape[0],
                 phi.data_ptr(), counts.data_ptr(), work.data_ptr(), splits,
-                body, stream,
+                stream,
             )
         else:
             name = TERMS_SQUARE_KERNEL

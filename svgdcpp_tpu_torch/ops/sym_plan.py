@@ -354,34 +354,32 @@ SQUARE_ROWS_TENSOR = 64
 SQUARE_TENSOR_MIN_M = 5
 
 
-def square_tensor(m: int, body: int = 0) -> bool:
-    """Whether the square sweep at width m runs the tensor-core body: the
-    library's choice (``body`` 0: from SQUARE_TENSOR_MIN_M up) or the
-    caller's (1: the CUDA cores, 2: the tensor cores)."""
-    return body == 2 or (body == 0 and m >= SQUARE_TENSOR_MIN_M)
+def square_tensor(m: int) -> bool:
+    """Whether the square sweep at width m runs the tensor-core body (from
+    SQUARE_TENSOR_MIN_M up) rather than the CUDA-core one."""
+    return m >= SQUARE_TENSOR_MIN_M
 
 
-def square_chunk(n_t: int, n_s: int, m: int, body: int = 0) -> int:
+def square_chunk(n_t: int, n_s: int, m: int) -> int:
     """The sources of one split of a square launch: whole tiles of
     SQUARE_GRAIN, as few as keep about SQUARE_BLOCKS blocks on the card
     (``square_chunk`` of csrc/fused_phi.cu)."""
-    rows = SQUARE_ROWS_TENSOR if square_tensor(m, body) \
-        else SQUARE_ROWS_CUDA_CORES
+    rows = SQUARE_ROWS_TENSOR if square_tensor(m) else SQUARE_ROWS_CUDA_CORES
     row_blocks = -(-n_t // rows)
     grains = -(-n_s // SQUARE_GRAIN)
     parts = min(grains, -(-SQUARE_BLOCKS // row_blocks))
     return SQUARE_GRAIN * -(-grains // parts)
 
 
-def square_splits(n_t: int, n_s: int, m: int, body: int = 0) -> int:
+def square_splits(n_t: int, n_s: int, m: int) -> int:
     """The number of source splits (the grid's y, the workspace's first
     dimension) of a square launch, or -1 for arguments the sweep does not
     take: the Python copy of the library's ``svgd_square_splits``, which
     the wrapper reads on the card and the card's smoke test holds this copy
     to."""
-    if n_t <= 0 or n_s <= 0 or not 1 <= m <= 64 or body not in (0, 1, 2):
+    if n_t <= 0 or n_s <= 0 or not 1 <= m <= 64:
         return -1
-    return -(-n_s // square_chunk(n_t, n_s, m, body))
+    return -(-n_s // square_chunk(n_t, n_s, m))
 
 
 def balanced_range(total: int, world: int, rank: int):

@@ -272,12 +272,28 @@ def test_k4_chunks_vs_jax_sym_sharded_interpret(world):
     check_vs_jax(phi, 2 * upper - n, ref_phi, ref_cnt)
 
 
-@pytest.mark.parametrize("m,world", [(2, 3), (2, 8), (3, 5)])
+#: Past DIFF_FORM_MAX_M the JAX sharded kernel in interpret mode builds sq
+#: by its bf16x3 Gram branch, whose sq keeps a residue of about 2^-16 (the
+#: kernel's own note): its phi stands 9.2e-5 (m = 5) and 2.1e-5 (m = 11)
+#: of max |phi| from the float64 plain sweep on these inputs, the plain
+#: chunks 9.7e-7 and 6.4e-7, and its counts 2 off at one threshold (one
+#: pair across it). Twice those readings: the JAX kernel's phi limit and
+#: count slack at those widths.
+JAX_GRAM_PHI_REL = 2e-4
+JAX_GRAM_COUNT_SLACK = 4
+
+
+@pytest.mark.parametrize("m,world", [(2, 3), (2, 8), (3, 5), (5, 3),
+                                     (11, 5)])
 def test_k4_chunk_wrappers_vs_jax_sym_sharded_interpret(m, world):
     """K4's wrapper on CPU tensors (its plain chunk over the tile list of
     128 particles a side), summed over the ranks, against the JAX sharded
     kernel summed over 4 devices in interpret mode; at n = 1000 the list
-    holds 36 tile pairs, so world 8 cuts tile rows."""
+    holds 36 tile pairs, so world 8 cuts tile rows. Both are also held to
+    the float64 plain sweep: the chunks within 5e-6 of max |phi| and with
+    its counts, at every m; past DIFF_FORM_MAX_M, where the two forms of sq
+    differ, the JAX kernel within JAX_GRAM_PHI_REL and JAX_GRAM_COUNT_SLACK
+    of it and of the chunks."""
     n, d = 1000, 4
     assert sym_plan.sym_tile(m) == 128
     x, s = f32_inputs(n, m, 10 + m)
@@ -302,7 +318,20 @@ def test_k4_chunk_wrappers_vs_jax_sym_sharded_interpret(m, world):
             xt, stt, torch.tensor(g), thr_t, world, r), world)
     assert not any(cuda_phi.launch_counts.values())
     phi = pht.phi_rbf_fused_sym_finish(acc, stt, torch.tensor(g), n)
-    check_vs_jax(phi, 2 * upper - n, ref_phi, ref_cnt)
+    phi64, cnt64 = pht.phi_rbf_fused_counts(
+        xt.double(), stt.double(), torch.tensor(float(g), dtype=torch.float64),
+        thr_t.double())
+    scale = phi64.abs().max().item()
+    assert (phi.double() - phi64).abs().max().item() / scale < 5e-6
+    np.testing.assert_array_equal((2 * upper - n).numpy(), cnt64.numpy())
+    if m <= sym_plan.DIFF_FORM_MAX_M:
+        check_vs_jax(phi, 2 * upper - n, ref_phi, ref_cnt)
+        return
+    ref_phi = np.asarray(ref_phi)
+    ref_cnt = np.asarray(ref_cnt).astype(np.int64)
+    assert np.abs(ref_phi - phi64.numpy()).max() / scale < JAX_GRAM_PHI_REL
+    assert np.abs(phi.numpy() - ref_phi).max() / scale < JAX_GRAM_PHI_REL
+    assert np.abs(ref_cnt - cnt64.numpy()).max() <= JAX_GRAM_COUNT_SLACK
 
 
 @pytest.mark.parametrize("impl", ["k11", "k10"])
