@@ -4,6 +4,7 @@
     python3 chip_profile.py [--config mvn|large|hier|blr|aniso|hessian|sharded|count]
                             [--particles N] [--large] [--crossover] [--sass]
                             [--sweeps] [--out PATH]
+    python3 chip_profile.py --square-crossover [--forced] [--out PATH]
 
 Drives one configuration of svgdcpp_tpu_torch at its full width:
 
@@ -75,9 +76,18 @@ n = 16384 to 262144, and the terms kernels' other instances: m = 11 at
 T = 8 (n = 131072) and with three terms (n = 65536), m = 2 (n = 262144)
 and m = 5 (n = 131072) with two terms; wrapper ms, median of 5 calls
 between CUDA events after one warm-up call, three thresholds unless
-stated; and K1 at n = 1000 and m = 2-50, the body the library picks for
-each m (``square_crossover``: kernel-only us of the sweep and its
-finishing pass; forcing one body is a scratch copy's edit, see there).
+stated; and the square kernels at m = 2-50, the body the library picks
+for each m, K1 at n = 1000 and the terms square kernel (K6/K7's port) at
+n = 1500 with two terms (``square_crossover``: kernel-only us of the sweep
+and its finishing pass).
+
+``--square-crossover`` runs ``square_crossover`` alone, with no driver;
+with ``--forced`` it also times each body at every m: it copies the
+package into ``_verify/forced_<min_m>/`` (git-ignored) with the least
+tensor-core width kSquareTensorMinM forced to 65 (the CUDA cores at every
+m, with the instances that needs) and to 1 (the tensor cores at every m)
+(``forced_copy``), and runs ``square_crossover`` in each copy, which builds
+its own library.
 
 With ``--sweeps`` it also times the single-RBF triangle kernel
 (``fused_phi_counts_sym``, K2's port) at n = 10000, m = 2, T = 3, with the
@@ -85,7 +95,9 @@ largest |phi| difference of two calls on one input and of two 20-step runs
 of the flagship's kernel route from one x0 (the float32 atomics'
 run-to-run floor), its chunk kernel (K4's port) at world 1 and each rank
 of world 2, and the square kernel (K1's port) at the flat BLR's (1000, 50)
-and at (1500, 2) beside the plain version's ms; then the terms triangle
+and at (1500, 2) beside the plain version's ms, and the terms square
+kernel (K6/K7's port, two terms) at the hierarchical BLR's (1500, 11), at
+(1500, 2) and at (1000, 50) beside its plain version's; then the terms triangle
 kernel (``fused_phi_terms_sym``, K8/K9's port) at n = 10000, two terms, T = 3,
 at m = 5, 11, 16, 32 and 50, and at m = 11 the terms panel kernel forced
 on the same inputs and the chunk kernel (K10/K11's port) at world 1 and
@@ -100,8 +112,9 @@ with this script copied in, it times that tree's kernels the same way.
 With ``--sass`` it also reads the machine code of the panel kernels'
 instances that paths A and B launch (one RBF at m = 2, exact, T = 3; the
 terms kernel at m = 11, exact, T = 3, two terms; in a tree without the
-compile-time T or term count, the exact instance of that m) and of the
-count kernel's (K16's port; SASS_INSTANCES) with ``cuobjdump --dump-sass``
+compile-time T or term count, the exact instance of that m), of the
+other sweeps' main-path instances and of the count kernel's (K16's port;
+SASS_INSTANCES) with ``cuobjdump --dump-sass``
 from the built library, and prints every loop of each (each backward
 branch): its instructions, how many of them are FP32 arithmetic,
 special-function (MUFU), compares and selects, integer, shared-memory,
@@ -121,11 +134,15 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
 
 
 def union_us(intervals):
@@ -505,24 +522,83 @@ def crossover(device):
     return rows + square_crossover(device)
 
 
+#: The widths square_crossover times.
+CROSSOVER_WIDTHS = (2, 3, 4, 5, 6, 8, 11, 16, 32, 50)
+
+
 def square_crossover(device):
-    """K1 at the flat BLR's n = 1000 around the crossing of its two bodies
-    (the tensor cores from kSquareTensorMinM = 5): kernel-only us of both
-    passes at m = 2-50. To time one body at every m, force
-    kSquareTensorMinM in csrc/fused_phi.cu of a scratch copy and run this
-    there: 1 runs the tensor cores everywhere; 65, with
-    SVGD_DISPATCH_SQ_CUDA_CORES extended to these m, the CUDA cores."""
+    """The square kernels around the crossing of their two bodies (the
+    tensor cores from kSquareTensorMinM = 5): K1 at the flat BLR's
+    n = 1000 and the terms kernel at the hierarchical BLR's n = 1500 (two
+    terms), kernel-only us of both passes at CROSSOVER_WIDTHS. To time one
+    body at every m, run this in a ``forced_copy``."""
+    import torch
+
     from chip_smoke import sweep_inputs
     from svgdcpp_tpu_torch.ops import cuda_phi
 
     rows = []
-    for m in (2, 3, 4, 5, 6, 8, 11, 16, 32, 50):
+    for m in CROSSOVER_WIDTHS:
         x, s, g, thr = sweep_inputs(1000, m, 0.0, 700 + m, device)
         rows.append({"n": 1000, "m": m, "square_us": kernel_us(
             lambda: cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=False),
             "fused_phi_counts_square")})
         print(json.dumps(rows[-1]), flush=True)
+    for m in CROSSOVER_WIDTHS:
+        x, s, g, thr = sweep_inputs(1500, m, 0.0, 750 + m, device)
+        gs = [g, torch.full_like(g, 0.1)]
+        rows.append({"n": 1500, "m": m, "terms": 2, "terms_square_us":
+                     kernel_us(lambda: cuda_phi.phi_rbf_terms_fused_cuda(
+                         x, s, gs, (1.0, 1.0), thr, sym=False),
+                         "fused_phi_terms_square")})
+        print(json.dumps(rows[-1]), flush=True)
     return rows
+
+
+def forced_copy(dest, min_m):
+    """A copy of the package and of these scripts at ``dest`` whose square
+    sweeps take the tensor-core body from m = ``min_m`` on
+    (kSquareTensorMinM in csrc/square_mma.cuh and its Python mirror): at 1
+    the tensor cores at every m; at 65 the CUDA cores at every m, with
+    CUDA-core instances (SVGD_DISPATCH_SQ_CUDA_CORES) for the widths of
+    CROSSOVER_WIDTHS from 5 to min_m - 1."""
+    dest = Path(dest)
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(ROOT / "svgdcpp_tpu_torch", dest / "svgdcpp_tpu_torch",
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    for name in ("chip_smoke.py", "chip_profile.py"):
+        shutil.copy(ROOT / name, dest / name)
+    header = dest / "svgdcpp_tpu_torch" / "csrc" / "square_mma.cuh"
+    text, hits = re.subn(r"constexpr int kSquareTensorMinM = \d+;",
+                         f"constexpr int kSquareTensorMinM = {min_m};",
+                         header.read_text())
+    extra = "".join(f"    case {m}: LAUNCH({m}); break; \\\n"
+                    for m in CROSSOVER_WIDTHS if 4 < m < min_m)
+    text, cases = re.subn(r"(    case 4: LAUNCH\(4\); break;\s*\\\n)",
+                          lambda hit: hit.group(1) + extra, text)
+    if hits != 1 or cases != 1:
+        raise RuntimeError(f"forced_copy: {header} has no kSquareTensorMinM "
+                           "or CUDA-core dispatch to rewrite")
+    header.write_text(text)
+    plan = dest / "svgdcpp_tpu_torch" / "ops" / "sym_plan.py"
+    plan.write_text(re.sub(r"SQUARE_TENSOR_MIN_M = \d+",
+                           f"SQUARE_TENSOR_MIN_M = {min_m}",
+                           plan.read_text()))
+    return dest
+
+
+def forced_crossover():
+    """square_crossover in a forced_copy at kSquareTensorMinM = 65 (CUDA
+    cores) and 1 (tensor cores), each in its own process: {min_m: rows}."""
+    out = {}
+    for min_m in (65, 1):
+        dest = forced_copy(ROOT / "_verify" / f"forced_{min_m}", min_m)
+        rows_file = dest / "square_crossover.json"
+        subprocess.run([sys.executable, str(dest / "chip_profile.py"),
+                        "--square-crossover", "--out", str(rows_file)],
+                       check=True, timeout=1200)
+        out[min_m] = json.loads(rows_file.read_text())["square_crossover"]
+    return out
 
 
 def kernel_us(fn, name, calls=10):
@@ -555,7 +631,10 @@ def sweeps(st, device):
 
     from chip_smoke import make_svgd, sweep_inputs, time_ms
     from svgdcpp_tpu_torch.ops import cuda_phi
-    from svgdcpp_tpu_torch.ops.phi import phi_rbf_fused_counts
+    from svgdcpp_tpu_torch.ops.phi import (
+        phi_rbf_fused_counts,
+        phi_rbf_terms_fused_counts,
+    )
     from svgdcpp_tpu_torch.utils.workloads import (
         aniso_mvn_workload,
         flagship_mvn,
@@ -599,7 +678,19 @@ def sweeps(st, device):
             lambda: cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=False),
             "fused_phi_counts_square",
             plain=lambda: phi_rbf_fused_counts(x, s, g, thr), n=n, m=m))
+    # The terms square kernel (K6/K7's port) at the hierarchical BLR's
+    # (1500, 11) with its pair of terms, on the CUDA cores at (1500, 2) and
+    # at the flat BLR's width (1000, 50).
     signs = (1.0, 1.0)
+    for n, m in ((1500, 11), (1500, 2), (1000, 50)):
+        x, s, g, thr = sweep_inputs(n, m, 0.0, 620 + m, device)
+        gs = [g, torch.full_like(g, 0.1)]
+        rows.append(timed(
+            "terms_square", lambda: cuda_phi.phi_rbf_terms_fused_cuda(
+                x, s, gs, signs, thr, sym=False),
+            "fused_phi_terms_square",
+            plain=lambda: phi_rbf_terms_fused_counts(x, s, gs, signs, thr),
+            n=n, m=m, terms=2))
     for m in (5, 11, 16, 32, 50):
         x, s, g, thr = sweep_inputs(10000, m, 0.0, 600 + m, device)
         gs = [g, torch.full_like(g, 0.1)]
@@ -722,7 +813,11 @@ def sass_loops(text, function, pairs_per=None, pair_class="mufu"):
 #: instance of the flagship, <MM=2, exact, T=3> on the micro-tile body (in
 #: a tree with the one-row-a-thread body, <2,1>), one ex2 a pair; K1's
 #: instance of the flat BLR, <MM=50, exact, T=3> on the tensor cores (in a
-#: tree with the one-row-a-thread body, <50,1>), one ex2 a pair.
+#: tree with the one-row-a-thread body, <50,1>), one ex2 a pair; the terms
+#: square kernel's (K6/K7's port) instances of the hierarchical BLR at
+#: n = 1500 and of the flat BLR's width, <MM=11 or 50, exact, T=3, two
+#: terms> on the tensor cores (in a tree with the one-row-a-thread body,
+#: <11,1> and <50,1>), two ex2 a pair.
 SASS_INSTANCES = (
     ("counts_sympanel<2,1,3>", "fused_phi_counts_sympanel_kernel",
      ("ILi2ELb1ELi3E", "ILi2ELb1EE"), 1),
@@ -744,6 +839,10 @@ SASS_INSTANCES = (
      ("ILi2ELb1ELi3E", "ILi2ELb1EE"), 1),
     ("counts_square<50,1,3>", "fused_phi_counts_square_kernel",
      ("ILi50ELb1ELi3E", "ILi50ELb1EE"), 1),
+    ("terms_square<11,1,3,2>", "fused_phi_terms_square_kernel",
+     ("ILi11ELb1ELi3ELi2E", "ILi11ELb1EE"), 2),
+    ("terms_square<50,1,3,2>", "fused_phi_terms_square_kernel",
+     ("ILi50ELb1ELi3ELi2E", "ILi50ELb1EE"), 2),
 )
 
 
@@ -781,6 +880,35 @@ def panel_sass(out_dir):
     return out
 
 
+def card_name():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+
+
+def square_crossover_main(args) -> int:
+    """--square-crossover: square_crossover in this tree (and with --forced
+    in the two forced copies), JSON to --out."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    card = card_name()
+    print(card)
+    result = {"card": card, "torch": torch.__version__,
+              "square_crossover": square_crossover(torch.device("cuda"))}
+    if args.forced:
+        result["forced"] = forced_crossover()
+    out = Path(args.out or "chiprun_out/square_crossover.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(json.dumps(result, indent=1))
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config",
@@ -798,11 +926,21 @@ def main() -> int:
                         help="also count the machine code of paths A's and "
                              "B's panel kernel instances, loop by loop")
     parser.add_argument("--sweeps", action="store_true",
-                        help="also time K2, K4 and K1, the terms triangle "
-                             "kernel over m, the terms panel and chunk "
-                             "kernels and K15")
+                        help="also time K2, K4, K1 and the terms square "
+                             "kernel, the terms triangle kernel over m, the "
+                             "terms panel and chunk kernels and K15")
+    parser.add_argument("--square-crossover", action="store_true",
+                        help="only time the square kernels' two bodies "
+                             "around their crossing (no driver)")
+    parser.add_argument("--forced", action="store_true",
+                        help="with --square-crossover, also time each body "
+                             "at every m in forced copies")
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
+    if args.forced and not args.square_crossover:
+        parser.error("--forced runs with --square-crossover only")
+    if args.square_crossover:
+        return square_crossover_main(args)
     if args.large and args.config != "mvn":
         parser.error("--large runs with --config mvn only")
     if args.particles is not None and args.config not in ("mvn", "hier",
@@ -822,10 +960,7 @@ def main() -> int:
         return 1
     import svgdcpp_tpu_torch as st
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    card = card_name()
     print(card)
     result = {"card": card, "config": args.config, "torch": torch.__version__,
               "cuda": torch.version.cuda}

@@ -31,8 +31,15 @@ thirty-one phases, one line each (several for phases 2, 3, 7-9 and
      atomics' run-to-run floor);
   7. the composed-kernel kernels (fused_phi_terms_square, _sym) against
      their plain version: square and cross at m = 2 and 11 with two and
-     three terms, including (1500, 11), the shape phase 10 gives it;
-     triangle at n = 2048, 10000, 10007 and 32768 (m = 11), and at
+     three terms, including (1500, 11), the shape phase 10 gives it; the
+     square kernel at every instance, m = 1-4 (CUDA cores) and m = 5, 8,
+     11, 13, 16, 32, 50, 64 (tensor cores), at T = 1, 3 and 8 with signs
+     (1, 1), (1, -1) and three terms, square (n = 1337 off origin) and
+     cross, counts equal (grid inputs above m = 4), a scores view off a
+     16-byte boundary at m = 11 and 50, float64 rows at (1500, 11) and
+     (1000, 50) with two terms (within 2.5e-3 of max |phi|), and two calls
+     on one input equal; triangle at n = 2048, 10000, 10007 and 32768 (m =
+     11), and at
      n = 10007 off origin every instance of the micro-tile body (m = 1-8
      and 11) and of the wider body (m = 9, 16, 50), each at T = 1, 3 and
      8 with signs (1, 1), (1, -1) and three terms, counts equal at m <= 4;
@@ -42,8 +49,8 @@ thirty-one phases, one line each (several for phases 2, 3, 7-9 and
      square kernel and the plain version against float64 rows
      (f64_rows_reference), the kernel within 2.5e-3 of max |phi|;
   9. times, kernel against plain: terms-sym (10000, 11) and (32768, 11),
-     terms-square (1500, 11), K1 (1000, 50) and (1000, 11), K2 (10000, 11)
-     and (10000, 50);
+     terms-square (1500, 11) and (1500, 2), K1 (1000, 50) and (1000, 11),
+     K2 (10000, 11) and (10000, 50);
  10. the hierarchical-BLR main path (median RBF + 0.1 I, Adam) at n = 1500,
      50 iterations: auto picks fused_terms_cuda, 50 terms-square launches;
  11. hierarchical BLR at full width: N = 10000, d = 10 (m = 11), 1000
@@ -388,20 +395,24 @@ def sweep_bound(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
 PEAK_TF32_FLOPS = 495e12
 
 
-def square_tensor_bound(n, m, T=3):
-    """(bound_ms, bound_by) of K1's function over one set of n with the work
-    its tensor-core body puts there on the TF32 tensor cores: per ordered
-    pair the Gram product (2m) and the contraction with [S | X | 1]
-    (2 (2m + 1)) at PEAK_TF32_FLOPS, the rest (sq from the Gram tile and
-    the norms, 2; the scale and the ex2, 2; T compares) at the FP32 peak,
-    and sweep_bound's bytes at the memory rate: the largest of the three,
-    each resource busy at once."""
+def square_tensor_bound(n, m, T=3, n_terms=None):
+    """(bound_ms, bound_by) of a square kernel's function over one set of n
+    with the work its tensor-core body puts there on the TF32 tensor cores:
+    per ordered pair the Gram product (2m) and the contraction, K1's
+    K . [S | X | 1] (2 (2m + 1)) or the terms' k_c . S and w . [X | 1]
+    (2m + 2 (m + 1), the same 6m + 2 in all), at PEAK_TF32_FLOPS; the rest
+    at the FP32 peak: for one RBF (``n_terms`` None) 4 + T (sq from the
+    Gram tile and the norms, 2; the scale and the ex2, 2; T compares), for
+    ``n_terms`` terms 4 + 6 n_terms + T (sq and its clamp at 0, 4; each
+    term as sweep_bound counts one, 6; T compares); and sweep_bound's bytes
+    at the memory rate: the largest of the three, each resource busy at
+    once."""
     pairs = n * n
-    nbytes = 4 * (2 * n * m + 1 + T) + 4 * n * m + 8 * T
+    fp32 = 4 + T if n_terms is None else 4 + 6 * n_terms + T
+    nbytes = 4 * (2 * n * m + (n_terms or 1) + T) + 4 * n * m + 8 * T
     return max(
-        (pairs * (2 * m + 2 * (2 * m + 1)) / PEAK_TF32_FLOPS * 1e3,
-         "tensor operations"),
-        (pairs * (4 + T) / PEAK_FP32_FLOPS * 1e3, "operations"),
+        (pairs * (6 * m + 2) / PEAK_TF32_FLOPS * 1e3, "tensor operations"),
+        (pairs * fp32 / PEAK_FP32_FLOPS * 1e3, "operations"),
         (nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
     )
 
@@ -506,8 +517,10 @@ def compare(name, got, want, n, m, n_t=None):
 
 def ptxas_summary(log_text):
     """{instance: "R regs, S B spill"} from ptxas's -v report, an instance
-    named kernel<MM,exact> (sweep_common.cuh), e.g. counts_square<50,1>
-    or rbf_square<2,1> (phi_rbf_square); the terms triangle sweep
+    named kernel<MM,exact> (sweep_common.cuh), e.g. rbf_square<2,1>
+    (phi_rbf_square); the square kernels' tensor-core instances their
+    thresholds and the terms kernel's its term count (0: any),
+    counts_square<50,1,3> and terms_square<11,1,3,2>; the terms triangle sweep
     (terms_sym.cuh) has a third flag, its term groups: terms_sym<11,1,0>
     and aniso_terms_sym<11,1,1>; the panel kernels their thresholds, and
     the terms panel kernel its term count (0: any), counts_sympanel<2,1,3>
@@ -943,6 +956,102 @@ def main() -> int:
     terms_sq_err = max(terms_sq_err, abs_err)
     print(f"phase 7 terms cross n_t=700 n_s=1500 m=11: ok phi_rel={rel:.3e} "
           f"count_diff={dcnt} count_bound={1e-6 * 700 * 1500:.3g}")
+    # Every instance of the square kernel's two bodies: the CUDA cores at
+    # m = 1-4, the tensor cores at MM = 8 (m = 5, 8), 11, 16 (13, 16), 32,
+    # 50 and 64; T = 3 (the fixed-T instances) and T = 1 and 8 (the
+    # runtime-T ones), two terms (constants in registers) with signs (1, 1)
+    # and (1, -1), three terms (shared memory); square at ragged n = 1337
+    # off origin, cross 700 x 1337. The inputs are on a grid above m = 4,
+    # where both the kernel and the plain version take the Gram sq, so the
+    # counts must be equal at every m.
+    for m in (1, 2, 3, 4, 5, 8, 11, 13, 16, 32, 50, 64):
+        x, s, g, thr3 = inputs_for(1337, m, 100.0, 720 + m, dev)
+        xt = inputs_for(700, m, 100.0, 780 + m, dev)[0]
+        worst = (0.0, 0)
+        for n_t, signs in ((3, (1.0, 1.0)), (3, (1.0, -1.0)),
+                           (1, (1.0, -1.0)), (8, (1.0, 1.0)),
+                           (3, (1.0, -0.5, 0.3))):
+            thr = thresholds_of(thr3, n_t)
+            gs = terms_gammas(g, signs)
+            for form, got, want in (
+                    ("square", cuda_phi.phi_rbf_terms_fused_cuda(
+                        x, s, gs, signs, thr, sym=False),
+                     phi_rbf_terms_fused_counts(x, s, gs, signs, thr)),
+                    ("cross", cuda_phi.phi_rbf_terms_fused_cuda_cross(
+                        xt, x, s, gs, signs, thr),
+                     phi_rbf_terms_cross_fused_counts(xt, x, s, gs, signs,
+                                                      thr))):
+                name = f"terms {form} m={m} T={n_t} signs={signs}"
+                n_rows = got[0].shape[0]
+                rel, abs_err, dcnt = compare(name, got, want, 1337, m,
+                                             n_t=n_rows)
+                check(dcnt == 0, f"{name}: counts differ by {dcnt} on grid "
+                                 f"inputs (must be equal)")
+                terms_sq_err = max(terms_sq_err, abs_err)
+                worst = (max(worst[0], rel), max(worst[1], dcnt))
+        body = "tensor cores" if m >= SQUARE_TENSOR_MIN_M else "CUDA cores"
+        print(f"phase 7 terms square+cross n=1337 (cross 700x1337) m={m} "
+              f"({body}) offset=100.0 T=1,3,8 signs=(1,1),(1,-1),"
+              f"(1,-0.5,0.3): ok max_phi_rel={worst[0]:.3e} "
+              f"max_count_diff={worst[1]}")
+    # Scores as a float32 row-slice view off a 16-byte boundary (the
+    # tensor-core body's 16-byte copies may not read from it; the wrapper
+    # copies it), square and cross.
+    for m in (11, 50):
+        x, s, g, thr = inputs_for(1000, m, 0.0, 760 + m, dev)
+        s = torch.cat([s[:1], s])[1:]
+        check(s.data_ptr() % 16 != 0, "the scores view starts on a 16-byte "
+                                      "boundary: it tests nothing")
+        gs = terms_gammas(g, (1.0, 1.0))
+        for form, got, want in [
+                ("square", cuda_phi.phi_rbf_terms_fused_cuda(
+                    x, s, gs, (1, 1), thr, sym=False),
+                 phi_rbf_terms_fused_counts(x, s, gs, (1, 1), thr)),
+                ("cross", cuda_phi.phi_rbf_terms_fused_cuda_cross(
+                    x[:700], x, s, gs, (1, 1), thr),
+                 phi_rbf_terms_cross_fused_counts(x[:700], x, s, gs, (1, 1),
+                                                  thr))]:
+            n_t = got[0].shape[0]
+            name = f"terms {form} scores view m={m}"
+            rel, abs_err, dcnt = compare(name, got, want, 1000, m, n_t=n_t)
+            check(dcnt == 0, f"{name}: counts differ by {dcnt} on grid "
+                             f"inputs (must be equal)")
+            terms_sq_err = max(terms_sq_err, abs_err)
+            print(f"phase 7 terms {form} n_t={n_t} n_s=1000 m={m} scores "
+                  f"view at a {s.data_ptr() % 16}-byte offset: ok "
+                  f"phi_rel={rel:.3e} count_diff={dcnt}")
+    # The tensor-core products against float64 rows (f64_rows_reference) on
+    # Gaussian inputs, at phase 10's shape and the flat BLR's width, with
+    # the hierarchical pair of terms: the kernel's and the float32 plain
+    # version's distance over max |phi|, held to ROADMAP's 2.5e-3 for a
+    # TF32 contraction; and two calls on one input, which must give the same
+    # phi (the splits are summed in order, with no float atomics).
+    for n, m in ((1500, 11), (1000, 50)):
+        x, s, g, thr = sweep_inputs(n, m, 0.0, 790 + m, dev)
+        gs = terms_gammas(g, (1.0, 1.0))
+        rows = torch.arange(0, n, 7, device=dev)
+        ref = f64_rows_reference(x, s, gs, (1.0, 1.0), thr, rows)
+        scale = float(ref.abs().max())
+        first = cuda_phi.phi_rbf_terms_fused_cuda(x, s, gs, (1, 1), thr,
+                                                  sym=False)[0]
+        second = cuda_phi.phi_rbf_terms_fused_cuda(x, s, gs, (1, 1), thr,
+                                                   sym=False)[0]
+        f64_err = {
+            name: float((phi[rows] - ref).abs().max()) / scale
+            for name, phi in (
+                ("kernel", first),
+                ("plain", phi_rbf_terms_fused_counts(x, s, gs, (1, 1),
+                                                     thr)[0]))
+        }
+        check(f64_err["kernel"] <= 2.5e-3,
+              f"terms square n={n} m={m}: {f64_err['kernel']:.3e} of max "
+              f"|phi| from float64 > 2.5e-3")
+        check(bool((first == second).all()),
+              f"terms square n={n} m={m}: two calls differ by "
+              f"{float((first - second).abs().max()):.3e}")
+        print(f"phase 7 terms square n={n} m={m} vs float64 rows: ok "
+              f"max_rel={json.dumps(f64_err)} (limit 2.5e-3); two calls "
+              f"equal")
     terms_sym_err = 0.0
     for idx, (n, m, off) in enumerate([
         (2048, 11, 100.0), (10000, 11, 100.0), (10007, 11, 100.0),
@@ -1056,6 +1165,7 @@ def main() -> int:
     for label, n, m, (fn_k, fn_p) in (
         ("terms_sym", 10000, 11, terms_fns(True)),
         ("terms_square", 1500, 11, terms_fns(False)),
+        ("terms_square", 1500, 2, terms_fns(False)),
         ("square", 1000, 50, single_fns(False)),
         ("terms_sym", 32768, 11, terms_fns(True)),
         ("square", 1000, 11, single_fns(False)),
@@ -2381,6 +2491,15 @@ def main() -> int:
                   f"bound_ms={path['bound_ms']:.6g} ({path['bound_by']}, "
                   f"FP32), on the TF32 tensor cores {tensor_ms:.6g} "
                   f"({tensor_by})")
+    # The same for the terms square kernel (K6/K7's port) from m = 5.
+    for path in paths[t_sq]:
+        if path["m"] >= SQUARE_TENSOR_MIN_M:
+            tensor_ms, tensor_by = square_tensor_bound(path["n"], path["m"],
+                                                       n_terms=2)
+            print(f"K6/K7 phase {path['phase']} n={path['n']} m={path['m']} "
+                  f"two terms: bound_ms={path['bound_ms']:.6g} "
+                  f"({path['bound_by']}, FP32), on the TF32 tensor cores "
+                  f"{tensor_ms:.6g} ({tensor_by})")
     # The decomposition beside K15 on the HESSIAN path, one launch a step.
     eig_bound = eigen_bound(11)
     paths[eig] = [{"phase": 18, "n": 10240, "m": 11,

@@ -57,49 +57,25 @@ using namespace svgd;
 // Past m = 4 the design moves sq's Gram tile and both contractions, 5m of
 // the 7m + 2 + T, onto the tensor cores.
 //
-// Design. The grid is (target blocks, source splits): a block sweeps its
-// targets against one split of the sources (square_chunk: a range of whole
-// 32-source tiles, about kSquareBlocks blocks in all, so that n = 1000
-// still fills the card), writes its partial sums to its slice of the
-// workspace (splits, n_t, 2m + 1) and adds its counts with integer
-// atomics. The finishing pass sums each row's splits in split order: phi
-// is the same from run to run. Bodies:
-//
-//   * m <= 4 (CUDA cores): one thread owns one target row and keeps KS, D
-//     (2m values) and its T counts in registers; a block of kSqThreads
-//     targets walks its split in shared-memory tiles (each source read once
-//     per block and broadcast to every thread). Partials [KS | D].
-//   * m >= 5 (tensor cores, square_mma.cuh): a block of 4 warps owns 64
-//     targets, the Gram tile and K . [S | X | 1] in 3xTF32 mma.sync, the
-//     sources staged by cp.async a tile ahead. Partials [KS | KX | rowsum].
+// Design: square_mma.cuh's launch plan (sources split over the grid's y,
+// partials in a (splits, n_t, 2m + 1) workspace summed in split order by
+// the finishing pass) and bodies with one RBF's weights: up to m = 4
+// square_cuda_body (a row a thread, partials [KS | D]), from m = 5
+// (kSquareTensorMinM) square_mma_body with K1's one packed band
+// K . [S | X | 1] (partials [KS | KX | rowsum]). The terms kernel
+// (fused_phi_terms.cu) runs the same bodies with two weights.
 // ---------------------------------------------------------------------------
 
-// Blocks a square launch aims at: two an SM of the card's 132.
-constexpr int kSquareBlocks = 264;
-// Sources a split holds are a multiple of this: whole tiles of the
-// tensor-core body.
-constexpr int kSquareGrain = kSqMmaCols;
-// The least m that the tensor-core body serves; the CUDA-core body takes
-// the m below it. At n = 1000 on an H100 80GB HBM3 (700 W) the tensor
-// cores took 11.4-11.5 us a call at m = 8 against the CUDA cores'
-// 16.0-16.1, 10.6-10.8 against 9.0-9.4 at m = 2 and tied at m = 4
-// (chip_profile.square_crossover, each body timed with this constant
-// forced; PERF.md). m <= 4 keeps the difference form, whose counts equal
-// the plain version's.
-constexpr int kSquareTensorMinM = 5;
+// The CUDA-core body's one RBF: k_c = w = 2^(-gamma log2(e) sq) by exp2f.
+struct SquareExp2 {
+  float ng2;  // -gamma log2(e)
 
-// The sources of one split (a multiple of kSquareGrain) and the number of
-// splits, for n_t targets in blocks of the body's rows.
-int square_chunk(int n_t, int n_s, bool tensor, int* splits) {
-  const int rows = tensor ? kSqMmaRows : kSqThreads;
-  const int row_blocks = (n_t + rows - 1) / rows;
-  const int grains = (n_s + kSquareGrain - 1) / kSquareGrain;
-  const int want = (kSquareBlocks + row_blocks - 1) / row_blocks;
-  const int parts = grains < want ? grains : want;
-  const int chunk = kSquareGrain * ((grains + parts - 1) / parts);
-  *splits = (n_s + chunk - 1) / chunk;
-  return chunk;
-}
+  __device__ __forceinline__ void operator()(float sq, float& kc,
+                                             float& w) const {
+    kc = exp2f(ng2 * sq);
+    w = kc;
+  }
+};
 
 // The CUDA-core body, at exactly MM coordinates.
 template <int MM>
@@ -112,68 +88,9 @@ __global__ void __launch_bounds__(kSqThreads)
                                    int n_s, int T, int chunk,
                                    float* __restrict__ work,
                                    unsigned long long* __restrict__ counts) {
-  constexpr int kTile = SqTile<MM>::value;
-  constexpr int m = MM;
-  __shared__ float sh_x[kTile * MM];
-  __shared__ float sh_s[kTile * MM];
-
-  const int i = blockIdx.x * kSqThreads + threadIdx.x;
-  const bool row_ok = i < n_t;
-  const float g2 = gamma[0] * kLog2e;
-
-  float th[kMaxT];
-#pragma unroll
-  for (int t = 0; t < kMaxT; ++t) th[t] = (t < T) ? thr[t] : 0.0f;
-
-  float xi[MM];
-  float acc_s[MM];
-  float acc_d[MM];
-#pragma unroll
-  for (int k = 0; k < MM; ++k) {
-    xi[k] = row_ok ? targets[static_cast<size_t>(i) * m + k] : 0.0f;
-    acc_s[k] = 0.0f;
-    acc_d[k] = 0.0f;
-  }
-  unsigned int cnt[kMaxT];
-#pragma unroll
-  for (int t = 0; t < kMaxT; ++t) cnt[t] = 0u;
-
-  const int j_begin = static_cast<int>(blockIdx.y) * chunk;
-  const int j_end = min(n_s, j_begin + chunk);
-  for (int j0 = j_begin; j0 < j_end; j0 += kTile) {
-    const int tile_n = min(kTile, j_end - j0);
-    __syncthreads();  // the previous tile is consumed
-    for (int e = threadIdx.x; e < tile_n * m; e += kSqThreads) {
-      sh_x[e] = sources[static_cast<size_t>(j0) * m + e];
-      sh_s[e] = scores[static_cast<size_t>(j0) * m + e];
-    }
-    __syncthreads();
-    if (row_ok) {
-      for (int jj = 0; jj < tile_n; ++jj) {
-        const float* xj = sh_x + jj * m;
-        const float* sj = sh_s + jj * m;
-        const float sq = pair_sq<MM, true>(xi, xj, m);
-        const float kv = exp2f(-g2 * sq);
-#pragma unroll
-        for (int k = 0; k < MM; ++k) {
-          acc_s[k] = fmaf(kv, sj[k], acc_s[k]);
-          acc_d[k] = fmaf(kv, __fsub_rn(xi[k], xj[k]), acc_d[k]);
-        }
-        count_pair(sq, th, T, cnt);
-      }
-    }
-  }
-
-  if (row_ok) {
-    const int w = 2 * m + 1;
-    float* out = work + (static_cast<size_t>(blockIdx.y) * n_t + i) * w;
-#pragma unroll
-    for (int k = 0; k < MM; ++k) {
-      out[k] = acc_s[k];
-      out[m + k] = acc_d[k];
-    }
-  }
-  flush_counts(cnt, T, counts);
+  const SquareExp2 weights{-(gamma[0] * kLog2e)};
+  square_cuda_body<MM>(targets, sources, scores, weights, thr, n_t, n_s, T,
+                       chunk, work, counts);
 }
 
 // The tensor-core body, kT thresholds (3, or kMaxT for a runtime T).
@@ -188,66 +105,20 @@ __global__ void __launch_bounds__(kSqMmaThreads)
                                    float* __restrict__ work,
                                    unsigned long long* __restrict__ counts) {
   const int w = 2 * (kExact ? MM : m_arg) + 1;
+  const OneRbf weights{-gamma[0] * kLog2e};
   square_mma_body<MM, kExact, kT>(
-      targets, sources, scores, -gamma[0] * kLog2e, thr, n_t, n_s, m_arg, T,
-      chunk, work + static_cast<size_t>(blockIdx.y) * n_t * w, counts);
+      targets, sources, scores, weights, thr, n_t, n_s, m_arg, T, chunk,
+      work + static_cast<size_t>(blockIdx.y) * n_t * w, counts);
 }
 
-// The finishing pass: phi (n_t, m) from the splits' partials, summed in
-// split order. rowsum: the tensor-core body's [KS | KX | rowsum], whose
-// D = rowsum x_i - KX; else [KS | D].
+// The finishing pass: D scaled by 2 gamma.
 __global__ void fused_phi_counts_square_finish_kernel(
     const float* __restrict__ work, int splits, int n_t, int m, int rowsum,
     const float* __restrict__ gamma, const float* __restrict__ targets,
     int n_s, float* __restrict__ phi) {
-  const long long e =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (e >= static_cast<long long>(n_t) * m) return;
-  const int i = static_cast<int>(e / m);
-  const int k = static_cast<int>(e - static_cast<long long>(i) * m);
-  const int w = 2 * m + 1;
-  float ks = 0.0f;
-  float d = 0.0f;
-  float r = 0.0f;
-  for (int s = 0; s < splits; ++s) {
-    const float* row = work + (static_cast<size_t>(s) * n_t + i) * w;
-    ks += row[k];
-    d += row[m + k];
-    if (rowsum) r += row[2 * m];
-  }
-  if (rowsum) d = fmaf(r, targets[e], -d);
-  phi[e] = (ks + 2.0f * gamma[0] * d) / static_cast<float>(n_s);
+  square_finish(work, splits, n_t, m, rowsum, 2.0f * gamma[0], targets, n_s,
+                phi);
 }
-
-// The CUDA-core instance that serves m < kSquareTensorMinM.
-#define SVGD_DISPATCH_SQ_CUDA_CORES(m, LAUNCH)                          \
-  switch (m) {                                                          \
-    case 1: LAUNCH(1); break;                                           \
-    case 2: LAUNCH(2); break;                                           \
-    case 3: LAUNCH(3); break;                                           \
-    case 4: LAUNCH(4); break;                                           \
-    default: return static_cast<int>(cudaErrorInvalidValue);            \
-  }
-
-// The tensor-core instance that serves m >= kSquareTensorMinM: MM = 8 up to
-// m = 8, the exact ones at m = 11 and 50, else 16, 32, 64.
-#define SVGD_DISPATCH_SQ_MMA(m, LAUNCH)                                 \
-  switch (m) {                                                          \
-    case 11: LAUNCH(11, true); break;                                   \
-    case 50: LAUNCH(50, true); break;                                   \
-    default:                                                            \
-      if (m >= kSquareTensorMinM && m <= 8) {                           \
-        LAUNCH(8, false);                                               \
-      } else if (m >= 9 && m <= 16) {                                   \
-        LAUNCH(16, false);                                              \
-      } else if (m >= 17 && m <= 32) {                                  \
-        LAUNCH(32, false);                                              \
-      } else if (m >= 33 && m <= svgd::kMaxM) {                         \
-        LAUNCH(64, false);                                              \
-      } else {                                                          \
-        return static_cast<int>(cudaErrorInvalidValue);                 \
-      }                                                                 \
-  }
 
 template <int MM, bool kExact>
 int launch_square_mma(const float* targets, const float* sources,
@@ -395,8 +266,9 @@ void launch_counts_sym(bool chunk, const float* coords, const float* scores,
 extern "C" {
 
 // The number of source splits of a square/cross launch (the workspace's
-// first dimension) for n_t targets, n_s sources and dimension m; -1 for
-// arguments the sweep does not take. ops/sym_plan.square_splits mirrors it.
+// first dimension) for n_t targets, n_s sources and dimension m, of K1's
+// and of the terms kernel's alike (square_mma.cuh's plan); -1 for
+// arguments the sweeps do not take. ops/sym_plan.square_splits mirrors it.
 int svgd_square_splits(int n_t, int n_s, int m) {
   if (n_t <= 0 || n_s <= 0 || m < 1 || m > kMaxM) return -1;
   int splits = 0;
@@ -448,8 +320,10 @@ int svgd_fused_phi_counts_square(const float* targets, const float* sources,
   }
   const long long outs = static_cast<long long>(n_t) * m;
   fused_phi_counts_square_finish_kernel<<<
-      static_cast<unsigned int>((outs + 255) / 256), 256, 0, s>>>(
-      work, splits, n_t, m, tensor ? 1 : 0, gamma, targets, n_s, phi);
+      static_cast<unsigned int>((outs + kSqFinishThreads - 1) /
+                                kSqFinishThreads),
+      kSqFinishThreads, 0, s>>>(work, splits, n_t, m, tensor ? 1 : 0, gamma,
+                                targets, n_s, phi);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -16,9 +16,12 @@
 //
 //   phi_i = (KS_i + 2 D_i) / n_s.
 //
-// This is the plain version's form (ops/phi.phi_rbf_terms_cross_fused_counts)
-// with D accumulated from the differences, as fused_phi.cu does: the Pallas
-// kernels' KX - rowsum * x epilogue cancels in float32.
+// The triangle sweeps and the square sweep up to m = 4 accumulate D from
+// the differences, the plain version's form at m <= 4
+// (ops/phi.phi_rbf_terms_cross_fused_counts). From m = 5 the square sweep
+// takes the plain version's form at those widths, the Gram sq and
+// D = rowsum_w x - WX, on the tensor cores in 3xTF32 (square_mma.cuh); the
+// centring keeps the subtraction's cancellation at float32 level.
 //
 // Replaces four Pallas kernels of svgdcpp_tpu/ops/pallas_phi.py. The TPU
 // splits each shape into a "direct" kernel (one accumulator band per term,
@@ -40,7 +43,8 @@
 //     (ops/sym_plan.sym_tile_chunk), whose raw accumulator and upper count
 //     the caller sums over the ranks.
 //
-// Bound on this card: per unordered pair 3m FP32 operations for the
+// Bound of the triangle sweeps on this card (the square sweep's is in
+// square_mma.cuh): per unordered pair 3m FP32 operations for the
 // difference and sq (rounded term by term, so that the counts equal the
 // plain version's), one ex2 on the special function unit and 4 FP32
 // operations per term to combine, 4m FMAs into both directions and T
@@ -71,12 +75,13 @@
 // static and arrive by value in the launch parameters; the thresholds are
 // read from device memory. Coordinates arrive centered on the source mean.
 // The kernels allocate nothing: the wrapper (ops/cuda_phi.py) passes zeroed
-// count and accumulator buffers. Each entry point returns cudaGetLastError()
-// after its launch.
+// count and accumulator buffers and the square sweep's workspace. Each entry
+// point returns cudaGetLastError() after its launches.
 
 #include <type_traits>
 
 #include "micro_tile.cuh"
+#include "square_mma.cuh"
 
 #define SVGD_TERMS_SYM_KERNEL fused_phi_terms_sym_kernel
 #include "terms_sym.cuh"
@@ -207,13 +212,26 @@ void launch_terms_sym(bool chunk, const float* coords, const float* scores,
 // ---------------------------------------------------------------------------
 // fused_phi_terms_square (K6, K7)
 //
-// fused_phi_counts_square's design (fused_phi.cu) with the term
-// combination: one thread owns one target row and keeps KS, D (2m values)
-// and its T counts in registers; a block of kSqThreads targets walks all
-// sources in shared-memory tiles.
+// K1's design (square_mma.cuh) with the terms' weights, k_c for the scores
+// and w for the coordinates: the sources split over the grid's y, each
+// block's partials in the (splits, n_t, 2m + 1) workspace, summed in split
+// order by the finishing pass (D scaled by 2: w carries the gammas). Up to
+// m = 4 square_cuda_body, a row a thread on the CUDA cores, sq and D from
+// differences ([KS | D]; counts equal to the plain version's); from m = 5
+// square_mma_body, the Gram tile and both contractions in 3xTF32 mma.sync,
+// the records in two bands [S | 0..] (A = k_c) and [X | 1 | 0..] (A = w)
+// ([KS | WX | rowsum_w]). This replaces a body that held a row a thread at
+// every m, one 128-thread block per 128 targets with every source (12
+// blocks at n = 1500 for 132 SMs), all 4m FMAs a pair on the CUDA cores.
+// The terms' constants sit in registers for two terms (FixedTerms<2>) and
+// in shared memory for any other count (AnyTerms); tensor-core instances
+// take T = 3 or any T <= 8 (kT 3 or kMaxT), at MM = 8, 11, 16, 32, 50, 64
+// (SVGD_DISPATCH_SQ_MMA).
 // ---------------------------------------------------------------------------
 
-template <int MM, bool kExact>
+// The CUDA-core body, at exactly MM coordinates, NTerms terms (2 in
+// registers, or 0 for any count in shared memory).
+template <int MM, int NTerms>
 __global__ void __launch_bounds__(kSqThreads)
     fused_phi_terms_square_kernel(const float* __restrict__ targets,
                                   const float* __restrict__ sources,
@@ -221,79 +239,99 @@ __global__ void __launch_bounds__(kSqThreads)
                                   const float* __restrict__ gammas,
                                   TermSigns signs, int nterms,
                                   const float* __restrict__ thr, int n_t,
-                                  int n_s, int m_arg, int T,
-                                  float* __restrict__ phi,
+                                  int n_s, int T, int chunk,
+                                  float* __restrict__ work,
                                   unsigned long long* __restrict__ counts) {
-  constexpr int kTile = SqTile<MM>::value;
-  __shared__ float sh_x[kTile * MM];
-  __shared__ float sh_s[kTile * MM];
-  __shared__ float sh_g2[kMaxTerms];
-  __shared__ float sh_sn[kMaxTerms];
-  __shared__ float sh_sg[kMaxTerms];
-
-  load_terms(gammas, signs, nterms, sh_g2, sh_sn, sh_sg);
-
-  const int m = kExact ? MM : m_arg;
-  const int i = blockIdx.x * kSqThreads + threadIdx.x;
-  const bool row_ok = i < n_t;
-
-  float th[kMaxT];
-#pragma unroll
-  for (int t = 0; t < kMaxT; ++t) th[t] = (t < T) ? thr[t] : 0.0f;
-
-  float xi[MM];
-  float acc_s[MM];
-  float acc_d[MM];
-#pragma unroll
-  for (int k = 0; k < MM; ++k) {
-    xi[k] = (row_ok && (kExact || k < m))
-                ? targets[static_cast<size_t>(i) * m + k]
-                : 0.0f;
-    acc_s[k] = 0.0f;
-    acc_d[k] = 0.0f;
+  if constexpr (NTerms > 0) {
+    const FixedTerms<NTerms> weights(gammas, signs);
+    square_cuda_body<MM>(targets, sources, scores, weights, thr, n_t, n_s, T,
+                         chunk, work, counts);
+  } else {
+    __shared__ float sh_g2[kMaxTerms];
+    __shared__ float sh_sn[kMaxTerms];
+    __shared__ float sh_sg[kMaxTerms];
+    // The body's first barrier comes before its first pair.
+    load_terms(gammas, signs, nterms, sh_g2, sh_sn, sh_sg);
+    const AnyTerms weights{sh_g2, sh_sn, sh_sg, nterms};
+    square_cuda_body<MM>(targets, sources, scores, weights, thr, n_t, n_s, T,
+                         chunk, work, counts);
   }
-  unsigned int cnt[kMaxT];
-#pragma unroll
-  for (int t = 0; t < kMaxT; ++t) cnt[t] = 0u;
+}
 
-  for (int j0 = 0; j0 < n_s; j0 += kTile) {
-    const int tile_n = min(kTile, n_s - j0);
-    __syncthreads();  // the previous tile is consumed (and the terms loaded)
-    for (int e = threadIdx.x; e < tile_n * m; e += kSqThreads) {
-      sh_x[e] = sources[static_cast<size_t>(j0) * m + e];
-      sh_s[e] = scores[static_cast<size_t>(j0) * m + e];
-    }
-    __syncthreads();
-    if (row_ok) {
-      for (int jj = 0; jj < tile_n; ++jj) {
-        const float* xj = sh_x + jj * m;
-        const float* sj = sh_s + jj * m;
-        const float sq = pair_sq<MM, kExact>(xi, xj, m);
-        float kc, w;
-        combine_terms(sq, nterms, sh_g2, sh_sn, sh_sg, &kc, &w);
-#pragma unroll
-        for (int k = 0; k < MM; ++k) {
-          if (kExact || k < m) {
-            acc_s[k] = fmaf(kc, sj[k], acc_s[k]);
-            acc_d[k] = fmaf(w, __fsub_rn(xi[k], xj[k]), acc_d[k]);
-          }
-        }
-        count_pair(sq, th, T, cnt);
-      }
-    }
+// The tensor-core body: kT thresholds (3, or kMaxT for a runtime T), NTerms
+// terms as above. The minimum of one block an SM changes ptxas's register
+// target: without it, <MM = 8, T = 8, two terms> spilled 4 bytes at 72
+// registers; with it no instance spills (PERF.md, section 6).
+template <int MM, bool kExact, int kT, int NTerms>
+__global__ void __launch_bounds__(kSqMmaThreads, 1)
+    fused_phi_terms_square_kernel(const float* __restrict__ targets,
+                                  const float* __restrict__ sources,
+                                  const float* __restrict__ scores,
+                                  const float* __restrict__ gammas,
+                                  TermSigns signs, int nterms,
+                                  const float* __restrict__ thr, int n_t,
+                                  int n_s, int m_arg, int T, int chunk,
+                                  float* __restrict__ work,
+                                  unsigned long long* __restrict__ counts) {
+  const int w = 2 * (kExact ? MM : m_arg) + 1;
+  float* part = work + static_cast<size_t>(blockIdx.y) * n_t * w;
+  if constexpr (NTerms > 0) {
+    const FixedTerms<NTerms> weights(gammas, signs);
+    square_mma_body<MM, kExact, kT>(targets, sources, scores, weights, thr,
+                                    n_t, n_s, m_arg, T, chunk, part, counts);
+  } else {
+    __shared__ float sh_g2[kMaxTerms];
+    __shared__ float sh_sn[kMaxTerms];
+    __shared__ float sh_sg[kMaxTerms];
+    // The body's first barrier comes before its first pair.
+    load_terms(gammas, signs, nterms, sh_g2, sh_sn, sh_sg);
+    const AnyTerms weights{sh_g2, sh_sn, sh_sg, nterms};
+    square_mma_body<MM, kExact, kT>(targets, sources, scores, weights, thr,
+                                    n_t, n_s, m_arg, T, chunk, part, counts);
   }
+}
 
-  if (row_ok) {
-    const float ns = static_cast<float>(n_s);
-#pragma unroll
-    for (int k = 0; k < MM; ++k) {
-      if (kExact || k < m) {
-        phi[static_cast<size_t>(i) * m + k] =
-            (acc_s[k] + 2.0f * acc_d[k]) / ns;
-      }
+// The finishing pass: D scaled by 2, the weights w carrying the gammas.
+__global__ void fused_phi_terms_square_finish_kernel(
+    const float* __restrict__ work, int splits, int n_t, int m, int rowsum,
+    const float* __restrict__ targets, int n_s, float* __restrict__ phi) {
+  square_finish(work, splits, n_t, m, rowsum, 2.0f, targets, n_s, phi);
+}
+
+// Static shared memory of the tensor-core kernel beside its dynamic share
+// (the AnyTerms constants).
+constexpr size_t kTermsSmemBytes = 3 * kMaxTerms * sizeof(float);
+
+template <int MM, bool kExact>
+int launch_terms_square_mma(const float* targets, const float* sources,
+                            const float* scores, const float* gammas,
+                            const TermSigns& sg, int nterms,
+                            const float* thr, int n_t, int n_s, int m, int T,
+                            int chunk, int splits, float* work,
+                            unsigned long long* counts, cudaStream_t s) {
+  constexpr size_t smem = SqMma<MM, true>::kSmemBytes;
+  const dim3 grid((n_t + kSqMmaRows - 1) / kSqMmaRows, splits);
+  auto go = [&](auto kt, auto nt) {
+    constexpr int kT = decltype(kt)::value;
+    constexpr int NTerms = decltype(nt)::value;
+    auto* kernel = &fused_phi_terms_square_kernel<MM, kExact, kT, NTerms>;
+    if (smem + kTermsSmemBytes > 48 * 1024) {
+      const cudaError_t rc = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (rc != cudaSuccess) return static_cast<int>(rc);
     }
-  }
-  flush_counts(cnt, T, counts);
+    kernel<<<grid, kSqMmaThreads, smem, s>>>(targets, sources, scores, gammas,
+                                             sg, nterms, thr, n_t, n_s, m, T,
+                                             chunk, work, counts);
+    return 0;
+  };
+  auto terms = [&](auto kt) {
+    return nterms == 2 ? go(kt, std::integral_constant<int, 2>{})
+                       : go(kt, std::integral_constant<int, 0>{});
+  };
+  return T == 3 ? terms(std::integral_constant<int, 3>{})
+                : terms(std::integral_constant<int, kMaxT>{});
 }
 
 }  // namespace
@@ -304,28 +342,62 @@ extern "C" {
 // targets (n_t, m) and sources (n_s, m) centered on the source mean, scores
 // (n_s, m), all float32 row-major on the device; gammas (nterms,) float32 on
 // the device; signs (nterms,) a HOST array, passed by value to the kernel;
-// thr (T,) float32 on the device; counts zeroed int64. 1 <= m <= 64,
-// 1 <= nterms <= 16, 1 <= T <= 8.
+// thr (T,) float32 on the device; counts zeroed int64; work a float32
+// workspace of (splits, n_t, 2m + 1), splits being svgd_square_splits(n_t,
+// n_s, m) (fused_phi.cu). 1 <= m <= 64, 1 <= nterms <= 16, 1 <= T <= 8.
+// From m = kSquareTensorMinM the body copies sources and scores 16 bytes at
+// a time (cp.async): both must start on a 16-byte boundary.
 int svgd_fused_phi_terms_square(const float* targets, const float* sources,
                                 const float* scores, const float* gammas,
                                 const float* signs, int nterms,
                                 const float* thr, int n_t, int n_s, int m,
                                 int T, float* phi, long long* counts,
-                                void* stream) {
-  if (n_t <= 0 || n_s <= 0 || T < 1 || T > kMaxT || nterms < 1 ||
-      nterms > kMaxTerms) {
+                                float* work, int splits, void* stream) {
+  if (n_t <= 0 || n_s <= 0 || T < 1 || T > kMaxT || m < 1 || m > kMaxM ||
+      nterms < 1 || nterms > kMaxTerms) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const bool tensor = m >= kSquareTensorMinM;
+  if (tensor && ((reinterpret_cast<uintptr_t>(sources) |
+                  reinterpret_cast<uintptr_t>(scores)) & 15u) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int want = 0;
+  const int chunk = square_chunk(n_t, n_s, tensor, &want);
+  if (splits != want) return static_cast<int>(cudaErrorInvalidValue);
   const TermSigns sg = make_signs(signs, nterms);
-  const dim3 grid((n_t + kSqThreads - 1) / kSqThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* c = reinterpret_cast<unsigned long long*>(counts);
-#define SVGD_LAUNCH_TERMS_SQUARE(MM_, EX_)                                \
-  fused_phi_terms_square_kernel<MM_, EX_><<<grid, kSqThreads, 0, s>>>(    \
-      targets, sources, scores, gammas, sg, nterms, thr, n_t, n_s, m, T,  \
-      phi, c)
-  SVGD_DISPATCH_M(m, SVGD_LAUNCH_TERMS_SQUARE)
+  if (tensor) {
+    int rc = 0;
+#define SVGD_LAUNCH_TERMS_SQ_MMA(MM_, EX_)                                   \
+  rc = launch_terms_square_mma<MM_, EX_>(targets, sources, scores, gammas,   \
+                                         sg, nterms, thr, n_t, n_s, m, T,    \
+                                         chunk, splits, work, c, s)
+    SVGD_DISPATCH_SQ_MMA(m, SVGD_LAUNCH_TERMS_SQ_MMA)
+#undef SVGD_LAUNCH_TERMS_SQ_MMA
+    if (rc != 0) return rc;
+  } else {
+    const dim3 grid((n_t + kSqThreads - 1) / kSqThreads, splits);
+#define SVGD_LAUNCH_TERMS_SQUARE(MM_)                                        \
+  if (nterms == 2) {                                                         \
+    fused_phi_terms_square_kernel<MM_, 2><<<grid, kSqThreads, 0, s>>>(       \
+        targets, sources, scores, gammas, sg, nterms, thr, n_t, n_s, T,      \
+        chunk, work, c);                                                     \
+  } else {                                                                   \
+    fused_phi_terms_square_kernel<MM_, 0><<<grid, kSqThreads, 0, s>>>(       \
+        targets, sources, scores, gammas, sg, nterms, thr, n_t, n_s, T,      \
+        chunk, work, c);                                                     \
+  }
+    SVGD_DISPATCH_SQ_CUDA_CORES(m, SVGD_LAUNCH_TERMS_SQUARE)
 #undef SVGD_LAUNCH_TERMS_SQUARE
+  }
+  const long long outs = static_cast<long long>(n_t) * m;
+  fused_phi_terms_square_finish_kernel<<<
+      static_cast<unsigned int>((outs + kSqFinishThreads - 1) /
+                                kSqFinishThreads),
+      kSqFinishThreads, 0, s>>>(work, splits, n_t, m, tensor ? 1 : 0,
+                                targets, n_s, phi);
   return static_cast<int>(cudaGetLastError());
 }
 

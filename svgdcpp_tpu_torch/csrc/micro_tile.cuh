@@ -57,20 +57,6 @@ struct MicroTri : MicroShape<MM, (MM <= 2 ? 4 : 2)> {
   static constexpr int kChunks = kSide / kPanelChunk;
 };
 
-// The pair's weights (k_c, w) from its sq: k_c multiplies the scores into
-// KS and w the differences into D. One RBF: k_c = w = 2^(-gamma log2(e) sq)
-// (D is scaled by 2 gamma in the epilogue).
-struct OneRbf {
-  static constexpr bool kFixedP = false;
-  float ng2;  // -gamma log2(e)
-
-  __device__ __forceinline__ void operator()(float sq, float& kc,
-                                             float& w) const {
-    kc = ex2_ftz(ng2 * sq);
-    w = kc;
-  }
-};
-
 // The fixed-P kernel's pair (K15's port): in place of sq the form
 // q = sum_k lam_k log2(e) dz_k^2 over the rows z = X_c V, clamped at 0 when
 // P is taken as positive semidefinite (qmin = 0, else -inf), and

@@ -1,12 +1,12 @@
 // Device helpers shared by the sweeps (fused_phi.cu, fused_phi_terms.cu,
-// counts_sym.cuh, terms_sym.cuh, micro_tile.cuh, fused_phi_aniso.cu,
-// phi_rbf.cu, fused_phi_panel.cu, count_le.cu): the pair's squared
-// distance in the plain version's order, the flushed-to-zero ex2 of the
-// weights, threshold counting (at a runtime
+// counts_sym.cuh, terms_sym.cuh, micro_tile.cuh, square_mma.cuh,
+// fused_phi_aniso.cu, phi_rbf.cu, fused_phi_panel.cu, count_le.cu): the
+// pair's squared distance in the plain version's order, the flushed-to-zero
+// ex2 of the weights, threshold counting (at a runtime
 // or a compile-time number of thresholds), the exact
-// count flush, the upper-triangle tile decode, the signed-term combination
-// of the composed kernels, and the dispatch from a runtime dimension m to a
-// kernel instance.
+// count flush, the upper-triangle tile decode, the pair's weights (one RBF,
+// or the signed-term combination of the composed kernels), and the dispatch
+// from a runtime dimension m to a kernel instance.
 //
 // Kernel instances. A kernel is a template over <MM, kExact>: with kExact
 // the dimension is exactly MM (every loop over the coordinates is unrolled
@@ -263,11 +263,25 @@ __device__ __forceinline__ void combine_terms(float sq, int nterms,
   *w = b;
 }
 
-// The pair's weights (k_c, w) from its sq, for the sweeps that keep them
-// in registers (micro_tile.cuh, fused_phi_aniso.cu). NT signed terms:
-// k_c = sum_t s_t k_t, w = sum_t s_t gamma_t k_t, k_t = 2^(-gamma_t
-// log2(e) sq), the terms' constants -gamma_t log2(e), s_t and s_t gamma_t
-// in registers, set once per thread.
+// The pair's weights (k_c, w) from its sq: k_c multiplies the scores into
+// KS and w the differences into D. One RBF: k_c = w = 2^(-gamma log2(e) sq)
+// (D is scaled by 2 gamma in the epilogue).
+struct OneRbf {
+  static constexpr bool kFixedP = false;
+  float ng2;  // -gamma log2(e)
+
+  __device__ __forceinline__ void operator()(float sq, float& kc,
+                                             float& w) const {
+    kc = ex2_ftz(ng2 * sq);
+    w = kc;
+  }
+};
+
+// The same for a composed kernel, for the sweeps that keep the weights in
+// registers (micro_tile.cuh, square_mma.cuh, fused_phi_aniso.cu). NT
+// signed terms: k_c = sum_t s_t k_t, w = sum_t s_t gamma_t k_t,
+// k_t = 2^(-gamma_t log2(e) sq), the terms' constants -gamma_t log2(e),
+// s_t and s_t gamma_t in registers, set once per thread.
 template <int NT>
 struct FixedTerms {
   static constexpr bool kFixedP = false;  // the Euclidean sq (micro_tile.cuh)

@@ -17,7 +17,9 @@ package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
     m = 1-8 and 11, ``csrc/counts_sym.cuh``'s above).
   * ``fused_phi_terms_square``  (``csrc/fused_phi_terms.cu``) --
     ``_fused_terms_direct_kernel`` and ``_fused_terms_kernel`` (K6, K7):
-    the square/cross sweep of a signed sum of isotropic RBF terms.
+    the square/cross sweep of a signed sum of isotropic RBF terms, on K1's
+    design and bodies (``csrc/square_mma.cuh``) with two weights a pair,
+    k_c and w (two operand bands on the tensor cores).
   * ``fused_phi_terms_sym``     (``csrc/fused_phi_terms.cu``) --
     ``_sym_terms_direct_kernel`` and ``_sym_terms_kernel`` (K8, K9): its
     upper-triangle sweep, whose kernel is in ``csrc/terms_sym.cuh``.
@@ -190,7 +192,8 @@ def load_library() -> ctypes.CDLL:
                 "svgd_square_splits": [i32] * 3,
                 "svgd_fused_phi_counts_sym": [ptr] * 4 + [i32] * 3 + [ptr] * 3,
                 "svgd_fused_phi_terms_square":
-                    [ptr] * 5 + [i32, ptr] + [i32] * 4 + [ptr] * 3,
+                    [ptr] * 5 + [i32, ptr] + [i32] * 4 + [ptr] * 3
+                    + [i32, ptr],
                 "svgd_fused_phi_terms_sym":
                     [ptr] * 4 + [i32, ptr] + [i32] * 3 + [ptr] * 3,
                 "svgd_fused_phi_aniso_terms_sym":
@@ -390,10 +393,11 @@ def eigen_rows(coords_c, p_matrix, eig=None):
 def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq):
     """K1 (one positive term, ``signs`` None) or the terms square kernel.
 
-    K1 splits the sources over the grid; the library gives the number of
-    splits (``svgd_square_splits``) and the wrapper allocates the workspace
-    of the splits' partial sums, (splits, n_t, 2m + 1), which the kernel's
-    finishing pass sums in order. K1's tensor-core body copies sources and
+    Both split the sources over the grid; the library gives the number of
+    splits (``svgd_square_splits``, one rule for both kernels) and the
+    wrapper allocates the workspace of the splits' partial sums,
+    (splits, n_t, 2m + 1), which the kernel's finishing pass sums in
+    order. From m = 5 both kernels' tensor-core body copies sources and
     scores 16 bytes at a time, so a scores view that starts off a 16-byte
     boundary is copied first."""
     g, thr = _device_operands(sources, scores, gammas, thresholds_sq)
@@ -416,11 +420,11 @@ def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq):
     lib = load_library()
     with torch.cuda.device(targets.device):
         stream = torch.cuda.current_stream().cuda_stream
+        splits = lib.svgd_square_splits(n_t, n_s, m)
+        work = torch.empty((splits, n_t, 2 * m + 1), dtype=torch.float32,
+                           device=targets.device)
         if signs is None:
             name = SQUARE_KERNEL
-            splits = lib.svgd_square_splits(n_t, n_s, m)
-            work = torch.empty((splits, n_t, 2 * m + 1), dtype=torch.float32,
-                               device=targets.device)
             rc = lib.svgd_fused_phi_counts_square(
                 tgt_c.data_ptr(), src_c.data_ptr(), sc32.data_ptr(),
                 g.data_ptr(), thr.data_ptr(), n_t, n_s, m, thr.shape[0],
@@ -433,7 +437,7 @@ def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq):
                 tgt_c.data_ptr(), src_c.data_ptr(), sc32.data_ptr(),
                 g.data_ptr(), _host_signs(signs, g.shape[0]), g.shape[0],
                 thr.data_ptr(), n_t, n_s, m, thr.shape[0], phi.data_ptr(),
-                counts.data_ptr(), stream,
+                counts.data_ptr(), work.data_ptr(), splits, stream,
             )
     _check_launch(rc, name)
     launch_counts[name] += 1

@@ -342,8 +342,8 @@ def sym_tile(m: int, terms: bool = False) -> int:
     return 64 if inst <= 16 else 32
 
 
-#: The square/cross sweep's launch (K1's port, csrc/fused_phi.cu): the
-#: blocks it aims at (two an SM of 132), the multiple of sources a split
+#: The square/cross sweeps' launch (K1's port and the terms kernel, K6/K7's,
+#: one rule in csrc/square_mma.cuh): the blocks it aims at (two an SM of 132), the multiple of sources a split
 #: holds (the tensor-core body's tile), the target rows a block of each body
 #: takes, and the least m the tensor-core body serves (``kSquareBlocks``,
 #: ``kSquareGrain``, ``kSqThreads``, ``kSqMmaRows``, ``kSquareTensorMinM``).
@@ -363,7 +363,7 @@ def square_tensor(m: int) -> bool:
 def square_chunk(n_t: int, n_s: int, m: int) -> int:
     """The sources of one split of a square launch: whole tiles of
     SQUARE_GRAIN, as few as keep about SQUARE_BLOCKS blocks on the card
-    (``square_chunk`` of csrc/fused_phi.cu)."""
+    (``square_chunk`` of csrc/square_mma.cuh)."""
     rows = SQUARE_ROWS_TENSOR if square_tensor(m) else SQUARE_ROWS_CUDA_CORES
     row_blocks = -(-n_t // rows)
     grains = -(-n_s // SQUARE_GRAIN)
@@ -373,10 +373,10 @@ def square_chunk(n_t: int, n_s: int, m: int) -> int:
 
 def square_splits(n_t: int, n_s: int, m: int) -> int:
     """The number of source splits (the grid's y, the workspace's first
-    dimension) of a square launch, or -1 for arguments the sweep does not
-    take: the Python copy of the library's ``svgd_square_splits``, which
-    the wrapper reads on the card and the card's smoke test holds this copy
-    to."""
+    dimension) of a square launch, K1's or the terms kernel's, or -1 for
+    arguments the sweeps do not take: the Python copy of the library's
+    ``svgd_square_splits``, which the wrapper reads on the card and the
+    card's smoke test holds this copy to."""
     if n_t <= 0 or n_s <= 0 or not 1 <= m <= 64:
         return -1
     return -(-n_s // square_chunk(n_t, n_s, m))

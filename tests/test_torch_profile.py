@@ -84,7 +84,8 @@ def test_sass_instances_name_paths_a_and_b():
                       "count_le<11,1,1,1,5>", "aniso_terms_sym<11,1,1,3>",
                       "terms_sym<11,1,3,2>", "phi_rbf_sym<11,1>",
                       "phi_rbf_square<11,1>", "counts_sym<2,1,3>",
-                      "counts_square<50,1,3>"]
+                      "counts_square<50,1,3>", "terms_square<11,1,3,2>",
+                      "terms_square<50,1,3,2>"]
     for _, kernel, args, per in chip_profile.SASS_INSTANCES:
         assert any(kernel + args[0] in f for f in (
             "_ZN12_GLOBAL__N_132fused_phi_counts_sympanel_kernel"
@@ -100,7 +101,10 @@ def test_sass_instances_name_paths_a_and_b():
             "_ZN12_GLOBAL__N_127fused_phi_counts_sym_kernel"
             "ILi2ELb1ELi3EEEvPKfS2_S2_S2_iiiixPfPy",
             "_ZN12_GLOBAL__N_130fused_phi_counts_square_kernel"
-            "ILi50ELb1ELi3EEEvPKfS2_S2_S2_S2_iiiiiPfPy"))
+            "ILi50ELb1ELi3EEEvPKfS2_S2_S2_S2_iiiiiPfPy",
+            *(f"_ZN12_GLOBAL__N_129fused_phi_terms_square_kernel"
+              f"ILi{mm}ELb1ELi3ELi2EEEvPKfS2_S2_S2_N4svgd9TermSignsEiS2_"
+              f"iiiiiPfPy" for mm in (11, 50))))
         assert per in (1, 2, ("fp32", 5), ("fp32", 15))
 
 
