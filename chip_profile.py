@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of a step goes, on one CUDA GPU.
 
-    python3 chip_profile.py [--config mvn|large|hier|blr|aniso|hessian|sharded|count]
+    python3 chip_profile.py [--config mvn|large|hier|generic|blr|aniso|hessian|sharded|count]
                             [--particles N] [--large] [--crossover] [--sass]
                             [--sweeps] [--out PATH]
     python3 chip_profile.py --square-crossover [--forced] [--out PATH]
@@ -16,6 +16,10 @@ Drives one configuration of svgdcpp_tpu_torch at its full width:
   * ``hier``: hierarchical BLR, d=10 (m=11), N=10000, median RBF + 0.1 I,
     Adam lr 5e-2, route ``fused_terms_cuda`` (terms triangle kernel; with
     ``--particles 131072``, path B, the terms panel kernel);
+  * ``generic``: the same hierarchical BLR on the generic route
+    (``phi_impl='generic'``, a torch.func VJP per target over row tiles;
+    no sweep kernel, so the profiler table shows where its step goes),
+    with fewer steps (about 0.6 s a step);
   * ``blr``: flat BLR, d=50, N=1000, median RBF, Adam lr 5e-2, route
     ``fused_cuda`` (square kernel at m=50);
   * ``aniso``: scripts/check_aniso_posterior.py's configuration, MVN d=11,
@@ -180,8 +184,9 @@ def device_timeline(trace_path, steps, sweep_name):
     busy = union_us(spans)
     span = max(e for _, e in spans) - min(s for s, _ in spans)
     sweep = [float(ev["dur"]) for ev in dev
-             if any(name + "_kernel" in ev.get("name", "")
-                    for name in TRACE_NAMES.get(sweep_name, (sweep_name,)))]
+             if sweep_name is not None
+             and any(name + "_kernel" in ev.get("name", "")
+                     for name in TRACE_NAMES.get(sweep_name, (sweep_name,)))]
     return {
         "device_busy_us_per_step": busy / steps,
         "device_span_us_per_step": span / steps,
@@ -277,12 +282,14 @@ def make_driver(st, config, iters, particles=None):
         kernel = {"panel": cuda_phi.SYMPANEL_KERNEL, True: cuda_phi.SYM_KERNEL,
                   False: cuda_phi.SQUARE_KERNEL}[svgd.fused_sym_form]
     else:
-        hier = config == "hier"
+        hier = config in ("hier", "generic")
         n, d = ((particles or 10000), 10) if hier else (1000, 50)
         feats, labels, x0 = blr_workload(n, d, hierarchical=hier)
         svgd = build_blr_svgd(torch.tensor(x0, device="cuda"), feats, labels,
-                              hierarchical=hier, num_iterations=iters)
-        route, kernel = (
+                              hierarchical=hier, num_iterations=iters,
+                              phi_impl="generic" if config == "generic"
+                              else "auto")
+        route, kernel = ("generic", None) if config == "generic" else (
             ("fused_terms_cuda", {
                 "panel": cuda_phi.TERMS_SYMPANEL_KERNEL,
                 True: cuda_phi.TERMS_SYM_KERNEL,
@@ -912,8 +919,8 @@ def square_crossover_main(args) -> int:
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config",
-                        choices=("mvn", "large", "hier", "blr", "aniso",
-                                 "hessian", "sharded", "count"),
+                        choices=("mvn", "large", "hier", "generic", "blr",
+                                 "aniso", "hessian", "sharded", "count"),
                         default="mvn")
     parser.add_argument("--particles", type=int, default=None,
                         help="particle count of mvn, hier or sharded")
@@ -979,7 +986,9 @@ def main() -> int:
         return 0
     svgd, sweep_kernel = make_driver(st, args.config, 1, args.particles)
     big = svgd.num_particles >= 100_000
-    warm, host_steps, steps = (5, 30, 5) if big else (20, 200, 20)
+    warm, host_steps, steps = (
+        (2, 5, 2) if args.config == "generic"
+        else (5, 30, 5) if big else (20, 200, 20))
     result.update(particles=svgd.num_particles, form=svgd.fused_sym_form,
                   steps={"warm_up": warm, "host": host_steps,
                          "profiled": steps, "sections": host_steps})

@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the package's CUDA kernels from ``svgdcpp_tpu_torch/csrc`` and runs
-thirty-one phases, one line each (several for phases 2, 3, 7-9 and
-14-31):
+thirty-five phases, one line each (several for phases 2, 3, 7-9 and
+14-35):
 
   1. device and build: the card's name and power limit, torch and CUDA
      versions, nvcc build seconds and ptxas's registers and spill bytes of
@@ -165,7 +165,33 @@ thirty-one phases, one line each (several for phases 2, 3, 7-9 and
  31. two ranks spawned on the one card over gloo, the flagship and the
      hierarchical BLR at N = 10000 for 20 steps from one x0: each rank 20
      chunk launches, the gathered coordinates within 1e-3 of the one-rank
-     run and of the single-device driver's kernel route.
+     run and of the single-device driver's kernel route; and the
+     hierarchical BLR at N = 2000 through the generic (VJP) sweep
+     (kernel_phi='generic') for 5 steps, within 1e-3 of the one-rank run,
+     no sweep kernel and K16's count passes on each rank;
+ 32. the generic (autodiff) route at full width: the hierarchical BLR
+     (bench.py --config hier: d = 10, m = 11, N = 10000, RBF(median) +
+     RBF(0.1 I), Adam 5e-2) for 20 steps with phi_impl='generic' and with
+     'rbf_terms' from one x0, within 1e-3; the first step's phi of both
+     routes from one state; ms a step (CUDA events after 2 warm-up steps),
+     peak memory and K16's launches a step (the adaptive slot's same-step
+     median), K16 timed at that shape; ksd_rbf of an RBF given as a custom
+     kernel_fn (ksd_squared_generic) on the run's particles within 1e-4 of
+     the closed form (float64; float32 printed); then RBF(median) + an
+     inverse-multiquadric leaf on the flat BLR (d = 50, N = 1000), auto ->
+     generic, 100 steps, training accuracy above 0.5;
+ 33. the debug dump (log_intermediate_matrices) at n = 64, m = 2, 3 steps:
+     the driver's K and grad-K stacks within 1e-5 of float64 ones
+     recomputed on the CPU, and its file equal to utils/logging's text of
+     the stacks; the same on the engine with one NCCL rank in gather mode;
+ 34. checkpoints: the flagship at n = 1500 on fused_cuda (K1, no float
+     atomics) for 50 steps against 25, a save, a restore into a fresh
+     driver and 25 more, equal bit for bit; the same for the sharded
+     flagship (N = 10000, one NCCL rank, its cross form through K1) at 20
+     steps;
+ 35. BinomialLikelihood on the card: the JAX test's bounded configuration
+     (tests/test_binomial.py) at N = 10000 through fused_cuda (K2), 400
+     Adam steps, the particle mean within 4 posterior sd of the MLE.
 
 Phase 22 prints the N = 1,048,576 set-up (the median seed, now through
 K16) beside the 239.40 s the plain count pass took.
@@ -619,14 +645,26 @@ def f64_rows_reference(x, s, gammas, signs, thr, rows):
 
 
 SHARDED_N, SHARDED_ITERS, SHARDED_LARGE_ITERS = 10000, 1000, 20
+#: Phase 32: steps of the generic and rbf_terms runs (the first two untimed)
+#: and of the custom-kernel run; phase 33: the debug dump's particles and
+#: steps; phase 34: the checkpointed runs; phase 35: the binomial run.
+GENERIC_STEPS, GENERIC_WARMUP, IMQ_STEPS = 20, 2, 100
+DUMP_N, DUMP_STEPS = 64, 3
+CKPT_N, CKPT_STEPS, SHARDED_CKPT_STEPS = 1500, 50, 20
+BINOMIAL_N, BINOMIAL_STEPS = 10000, 400
+#: Phase 31's generic case: the hierarchical BLR at N = 2,000 through the
+#: generic (VJP) sweep for 5 steps.
+GENERIC_SHARDED_N, GENERIC_SHARDED_STEPS = 2000, 5
 
 
 def sharded_rank(rank, world, port, queue):
     """Phase 31's rank ``rank`` of ``world``, spawned (not forked) once the
     parent's CUDA is up: a gloo world on the one card (NCCL refuses two
     ranks on one device), the sharded flagship and hierarchical BLR at
-    N = 10,000 for COMPARE_STEPS steps from the workloads' x0; puts
-    (rank, {case: (gathered coords, launch counts, form)}) on ``queue``."""
+    N = 10,000 for COMPARE_STEPS steps from the workloads' x0, and the
+    hierarchical BLR at GENERIC_SHARDED_N through the generic sweep
+    (kernel_phi='generic') for GENERIC_SHARDED_STEPS; puts (rank, {case:
+    (gathered coords, launch counts, form)}) on ``queue``."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -646,15 +684,20 @@ def sharded_rank(rank, world, port, queue):
     mean, cov, x0 = flagship_mvn(SHARDED_N)
     x0 = x0.astype(np.float32)
     feats, labels, x0_h = blr_workload(SHARDED_N, 10, hierarchical=True)
-    for case, build, x in (
+    feats_g, labels_g, x0_g = blr_workload(GENERIC_SHARDED_N, 10,
+                                           hierarchical=True)
+    for case, build, x, steps in (
         ("flagship", lambda: build_sharded_mvn_svgd(x0, mean, cov, group),
-         x0),
+         x0, COMPARE_STEPS),
         ("hier", lambda: build_sharded_hier_svgd(x0_h, feats, labels, group),
-         x0_h),
+         x0_h, COMPARE_STEPS),
+        ("hier_generic", lambda: build_sharded_hier_svgd(
+            x0_g, feats_g, labels_g, group, fused_phi=False,
+            kernel_phi="generic"), x0_g, GENERIC_SHARDED_STEPS),
     ):
         engine = build()
         cuda_phi.reset_launch_counts()
-        coords = engine.run(x, COMPARE_STEPS)
+        coords = engine.run(x, steps)
         torch.cuda.synchronize()
         out[case] = (coords.cpu().numpy(), dict(cuda_phi.launch_counts),
                      engine._fused_sym)
@@ -2359,11 +2402,18 @@ def main() -> int:
           f"{clock()}")
     del eng, state, out
     # The one-rank runs phase 31 holds the two-rank runs to.
+    feats_g31, labels_g31, x0_g31 = blr_workload(GENERIC_SHARDED_N, 10,
+                                                 hierarchical=True)
+    k16 = cuda_phi.COUNT_KERNEL
     one_rank = {
         "flagship": build_sharded_mvn_svgd(x0, mean, cov, group).run(
             x0, COMPARE_STEPS).double(),
         "hier": build_sharded_hier_svgd(x0_hier, feats_h, labels_h, group).run(
             x0_hier, COMPARE_STEPS).double(),
+        "hier_generic": build_sharded_hier_svgd(
+            x0_g31, feats_g31, labels_g31, group, fused_phi=False,
+            kernel_phi="generic").run(
+            x0_g31, GENERIC_SHARDED_STEPS).double(),
     }
     torch.distributed.destroy_process_group()
 
@@ -2410,6 +2460,383 @@ def main() -> int:
           f"{json.dumps(apart31)} launches_per_rank="
           f"{json.dumps({c: [results[r][c][1][chunk_kernel[c]] for r in range(2)] for c in chunk_kernel})} "
           f"{clock()}")
+
+    # -- phase 31 (generic): the hierarchical BLR through the generic sweep,
+    # two ranks against one (warm group median; no sweep kernel, K16 counts)
+    gen31 = {}
+    for r in range(2):
+        counts = results[r]["hier_generic"][1]
+        check(not any(v for k, v in counts.items() if k != k16),
+              f"hier_generic rank {r}: a sweep kernel launched: {counts}")
+        check(counts[k16] >= GENERIC_SHARDED_STEPS,
+              f"hier_generic rank {r}: {counts[k16]} K16 launches")
+        check(results[r]["hier_generic"][2] is False,
+              f"hier_generic rank {r}: fused_sym "
+              f"{results[r]['hier_generic'][2]!r}")
+    coords = [torch.tensor(results[r]["hier_generic"][0], device=dev).double()
+              for r in range(2)]
+    check(bool((coords[0] == coords[1]).all()),
+          "hier_generic: the two ranks gathered different coordinates")
+    gen31["vs_one_rank"] = float(
+        (coords[0] - one_rank["hier_generic"]).abs().max())
+    check(gen31["vs_one_rank"] <= 1e-3,
+          f"hier_generic two ranks vs one: {gen31['vs_one_rank']:.3e} > 1e-3")
+    gen_drv = build_blr_svgd(torch.tensor(x0_g31, device=dev), feats_g31,
+                             labels_g31, hierarchical=True,
+                             phi_impl="generic",
+                             num_iterations=GENERIC_SHARDED_STEPS)
+    gen31["vs_driver_generic"] = float(
+        (coords[0] - gen_drv.run().double()).abs().max())
+    print(f"phase 31 two ranks on one card over gloo, hier N="
+          f"{GENERIC_SHARDED_N} kernel_phi=generic {GENERIC_SHARDED_STEPS} "
+          f"steps: ok coords_max_abs_diff={json.dumps(gen31)} "
+          f"k16_launches_per_rank="
+          f"{[results[r]['hier_generic'][1][k16] for r in range(2)]} "
+          f"{clock()}")
+    del gen_drv
+
+    # -- phase 32: the generic (autodiff) route at full width ---------------
+    from torch.func import vmap
+
+    def timed_steps(svgd, steps, warmup):
+        """Run ``steps`` steps of a driver as run() does; ms a step from CUDA
+        events over the steps after ``warmup``."""
+        state = svgd.make_state()
+        for _ in range(warmup):
+            state, _ = svgd._step_fn(state)
+        torch.cuda.synchronize()
+        t_start = torch.cuda.Event(enable_timing=True)
+        t_end = torch.cuda.Event(enable_timing=True)
+        t_start.record()
+        for _ in range(steps - warmup):
+            state, _ = svgd._step_fn(state)
+        t_end.record()
+        t_end.synchronize()
+        svgd._absorb_state(state)
+        return t_start.elapsed_time(t_end) / (steps - warmup)
+
+    def hier_driver(impl, steps):
+        return build_blr_svgd(
+            torch.tensor(x0_hier, dtype=torch.float32, device=dev), feats_h,
+            labels_h, hierarchical=True, phi_impl=impl, num_iterations=steps)
+
+    s_gen = hier_driver("generic", GENERIC_STEPS)
+    s_terms = hier_driver("rbf_terms", GENERIC_STEPS)
+    check(s_gen._phi_impl == "generic" and s_terms._phi_impl == "rbf_terms",
+          f"hier routes {s_gen._phi_impl!r}, {s_terms._phi_impl!r}")
+    # The first step's phi on both routes from one state and one scale.
+    st0 = s_gen.make_state()
+    c0, mp0 = st0["coords"], st0["model_params"]
+    scores0 = vmap(lambda x: s_gen.model.grad_log_density_pure(x, mp0))(c0)
+    kp0, _ = s_gen._scale_params(c0, mp0, st0["kernel_params"],
+                                 st0["scale_aux"], st0["slot_model_params"])
+    phi_gen0 = s_gen._phi(c0, scores0, kp0)
+    phi_terms0 = s_terms._phi(c0, scores0, kp0)
+    phi32_rel = float((phi_gen0 - phi_terms0).abs().max()
+                      / phi_terms0.abs().max())
+    check(bool(phi_gen0.isfinite().all()), "generic phi: non-finite")
+    del st0, c0, scores0, kp0, phi_gen0, phi_terms0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gib = torch.cuda.memory_allocated() / 2**30
+    cuda_phi.reset_launch_counts()
+    gen_ms = timed_steps(s_gen, GENERIC_STEPS, GENERIC_WARMUP)
+    main_generic = dict(cuda_phi.launch_counts)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(not any(v for k, v in main_generic.items() if k != k16),
+          f"generic route launched a sweep kernel: {main_generic}")
+    check(main_generic[k16] >= GENERIC_STEPS,
+          f"generic route: {main_generic[k16]} K16 launches in "
+          f"{GENERIC_STEPS} steps (the slot's same-step median)")
+    cuda_phi.reset_launch_counts()
+    terms_ms = timed_steps(s_terms, GENERIC_STEPS, GENERIC_WARMUP)
+    terms_counts = dict(cuda_phi.launch_counts)
+    out_gen, out_terms = s_gen.store.value, s_terms.store.value
+    check(bool(out_gen.isfinite().all())
+          and tuple(out_gen.shape) == (10000, 11), "generic run: bad output")
+    diff32 = float((out_gen.double() - out_terms.double()).abs().max())
+    check(diff32 <= 1e-3,
+          f"generic vs rbf_terms coords differ by {diff32:.3e} > 1e-3")
+    acc32 = blr_accuracy(out_gen.cpu().numpy(), feats_h, labels_h)
+    print(f"phase 32 hier N=10000 d=10 generic vs rbf_terms {GENERIC_STEPS} "
+          f"steps: ok coords_max_abs_diff={diff32:.3e} "
+          f"first_step_phi_rel={phi32_rel:.3e} generic_ms_per_step="
+          f"{gen_ms:.4f} rbf_terms_ms_per_step={terms_ms:.4f} "
+          f"generic_over_rbf_terms={gen_ms / terms_ms:.3f} (CUDA events, "
+          f"steps {GENERIC_WARMUP + 1}-{GENERIC_STEPS}) peak_memory_gib="
+          f"{peak_gib:.3f} (allocated before {base_gib:.3f}) "
+          f"k16_launches_per_step={main_generic[k16] / GENERIC_STEPS:.3g} "
+          f"launches={json.dumps(main_generic)} rbf_terms_launches="
+          f"{json.dumps(terms_counts)} train_accuracy={acc32:.4f} "
+          f"{card} {clock()}")
+    # K16 at this path's shape: the self count at the warm pass's 9 edges.
+    thr = count_thresholds(out_gen, out_gen, 9, False)
+    times32 = {
+        "kernel": time_ms(lambda: cuda_phi.count_le_cuda(out_gen, out_gen,
+                                                         thr)),
+        "plain": plain_ms(lambda: count_le_plain(out_gen, out_gen, thr)),
+    }
+    dcnt = int((cuda_phi.count_le_cuda(out_gen, out_gen, thr)
+                - count_le_plain(out_gen, out_gen, thr)).abs().max())
+    check(dcnt <= 1e-6 * 10000 * 10000,
+          f"count (10000, 11) T=9: counts differ by {dcnt}")
+    print(f"phase 32 times count self n=10000^2 m=11 T=9 (ms): "
+          f"kernel={times32['kernel']:.4f} plain={times32['plain']:.4f} "
+          f"bound={sweep_bound(k16, 10000, 11, T=9)[0]:.5f} "
+          f"count_diff={dcnt}")
+    # KSD of an RBF given as a custom kernel_fn (the autodiff Stein kernel)
+    # against the closed form, on the generic run's particles.
+    p32 = s_gen.kernel.parameters[0]
+
+    def rbf_fn(x, params, loc):
+        d = x - loc
+        return torch.exp(-(d @ params[0] @ d))
+
+    ksd32 = {}
+    for dtype in (torch.float64, torch.float32):
+        xk = out_gen.to(dtype)
+        pk = p32.to(device=dev, dtype=dtype)
+        custom = st.Kernel(11, rbf_fn, (pk,))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generic_val = float(ksd_rbf(s_gen.model, xk, kernel=custom,
+                                    row_tile=64))
+        torch.cuda.synchronize()
+        ksd_s = time.perf_counter() - t0
+        closed_val = float(ksd_rbf(s_gen.model, xk, p_matrix=pk))
+        ksd32[str(dtype).split(".")[1]] = {
+            "generic": generic_val, "closed": closed_val,
+            "rel": abs(generic_val - closed_val) / abs(closed_val),
+            "generic_s": round(ksd_s, 3)}
+    check(ksd32["float64"]["rel"] <= 1e-4,
+          f"generic KSD vs closed form rel {ksd32['float64']['rel']:.3e}")
+    print(f"phase 32 ksd_rbf(kernel=custom RBF) through ksd_squared_generic "
+          f"on the generic run's particles: ok {json.dumps(ksd32)}")
+    del s_terms, out_terms
+    # A kernel of the user's own that flatten_rbf_terms cannot flatten:
+    # RBF(median) + an inverse-multiquadric leaf, on the flat BLR.
+    xb = torch.tensor(x0_blr, dtype=torch.float32, device=dev)
+    model_b = st.BayesianLogisticRegression(feats, labels, 0.1)
+
+    def imq(x, params, loc):
+        d = x - loc
+        return 1.0 / torch.sqrt(1.0 + params[0] * (d @ d))
+
+    kernel_b = st.GaussianRBFKernel(xb, st.ScaleMethod.MEDIAN, model_b) + (
+        st.Kernel(50, imq, (np.asarray(0.1),)))
+    s_imq = st.SVGD(st.SVGDOptions(
+        dimension=50, num_iterations=IMQ_STEPS, coordinate_matrix=xb,
+        kernel=kernel_b, model=model_b,
+        optimizer=st.Adam(50, 1000, 5e-2, 0.9, 0.999))).initialize()
+    check(s_imq._phi_impl == "generic",
+          f"auto took {s_imq._phi_impl!r} for the custom kernel")
+    cuda_phi.reset_launch_counts()
+    imq_ms = timed_steps(s_imq, IMQ_STEPS, GENERIC_WARMUP)
+    imq_counts = dict(cuda_phi.launch_counts)
+    out = s_imq.store.value
+    check(bool(out.isfinite().all()) and tuple(out.shape) == (1000, 50),
+          "custom kernel run: bad output")
+    check(not any(v for k, v in imq_counts.items() if k != k16)
+          and imq_counts[k16] >= IMQ_STEPS,
+          f"custom kernel run launches {imq_counts}")
+    acc = blr_accuracy(out.cpu().numpy(), feats, labels)
+    check(acc > 0.5, f"custom kernel training accuracy {acc:.4f} <= 0.5")
+    print(f"phase 32 flat BLR N=1000 d=50 RBF(median) + IMQ leaf, auto -> "
+          f"generic, {IMQ_STEPS} steps: ok ms_per_step={imq_ms:.4f} "
+          f"launches={json.dumps(imq_counts)} train_accuracy={acc:.4f} "
+          f"{clock()}")
+    del s_imq, s_gen
+
+    # -- phase 33: the debug dump on the card -------------------------------
+    import tempfile
+    from pathlib import Path
+
+    from svgdcpp_tpu_torch.kernels.gaussian_rbf import (
+        rbf_kernel_fn,
+        scale_from_median,
+    )
+    from svgdcpp_tpu_torch.ops.median import pairwise_distance_median_exact
+    from svgdcpp_tpu_torch.ops.phi import kernel_matrix_and_grad
+    from svgdcpp_tpu_torch.parallel import ShardedSVGD, ShardedSVGDConfig
+    from svgdcpp_tpu_torch.utils.checkpoint import (
+        restore_checkpoint,
+        save_checkpoint,
+    )
+    from svgdcpp_tpu_torch.utils.logging import write_intermediate_matrices
+
+    repo = Path(__file__).resolve().parent
+    mean_d, cov_d, x0_d = flagship_mvn(DUMP_N)
+    xd = torch.tensor(x0_d, dtype=torch.float32, device=dev)
+
+    def dump_error(logs, x_first):
+        """max |K - K64|, |G - G64| over the steps against float64 K and
+        grad-K recomputed on the CPU from each step's coordinates and the
+        exact median's scale."""
+        prev = x_first.double().cpu()
+        err_k = err_g = 0.0
+        for t in range(logs["kernel"].shape[0]):
+            med = pairwise_distance_median_exact(prev)
+            p = scale_from_median(med, DUMP_N, 2, torch.float64)
+            k64, g64 = kernel_matrix_and_grad(prev, rbf_kernel_fn, (p,))
+            err_k = max(err_k, float(np.abs(logs["kernel"][t]
+                                            - k64.numpy()).max()))
+            err_g = max(err_g, float(np.abs(logs["kernel_grad"][t]
+                                            - g64.numpy()).max()))
+            prev = torch.from_numpy(np.asarray(logs["coords"][t])).double()
+        return err_k, err_g
+
+    with tempfile.TemporaryDirectory(dir=repo) as tmp:
+        path = Path(tmp) / "driver.txt"
+        model_d = st.MultivariateNormal(mean_d, cov_d)
+        drv = st.SVGD(st.SVGDOptions(
+            dimension=2, num_iterations=DUMP_STEPS, coordinate_matrix=xd,
+            kernel=st.GaussianRBFKernel(xd, st.ScaleMethod.MEDIAN, model_d),
+            model=model_d, optimizer=st.AdaGrad(2, DUMP_N, 0.1),
+            log_intermediate_matrices=True,
+            intermediate_matrices_output_path=str(path))).initialize()
+        check(drv._phi_impl == "generic", f"dump route {drv._phi_impl!r}")
+        drv.run()
+        logs = drv._intermediate_logs
+        check(logs["kernel"].shape == (DUMP_STEPS, DUMP_N, DUMP_N)
+              and logs["kernel_grad"].shape == (DUMP_STEPS, DUMP_N, DUMP_N, 2),
+              f"dump shapes {[v.shape for v in logs.values()]}")
+        err_k, err_g = dump_error(logs, xd)
+        check(max(err_k, err_g) <= 1e-5,
+              f"dump K err {err_k:.3e}, grad-K err {err_g:.3e} > 1e-5")
+        write_intermediate_matrices(str(Path(tmp) / "again.txt"), logs)
+        check(path.read_bytes() == (Path(tmp) / "again.txt").read_bytes(),
+              "the driver's dump is not the writer's text of its stacks")
+        print(f"phase 33 debug dump n={DUMP_N} m=2 {DUMP_STEPS} steps, "
+              f"driver: ok k_max_abs_err={err_k:.3e} "
+              f"grad_k_max_abs_err={err_g:.3e} (float64 on the CPU) "
+              f"file_bytes={path.stat().st_size} equal to the writer's")
+        # The engine on a one-rank NCCL group, gather mode, a near-exact
+        # group median (4 passes of 1024 bins).
+        group = initialize_distributed(f"tcp://localhost:{free_port()}", 1, 0)
+        check(group.backend == "nccl", f"one-rank group on {group.backend!r}")
+        path = Path(tmp) / "engine.txt"
+        eng = ShardedSVGD(
+            st.MultivariateNormal(mean_d, cov_d), st.AdaGrad(2, DUMP_N, 0.1),
+            DUMP_N, 2, mesh=group, config=ShardedSVGDConfig(
+                median_bins=1024, median_passes=4, warm_start=False,
+                log_intermediate_matrices=True,
+                intermediate_matrices_output_path=str(path)))
+        eng.run(xd, DUMP_STEPS)
+        logs = eng.intermediate_logs
+        err_k, err_g = dump_error(logs, xd)
+        check(max(err_k, err_g) <= 1e-5,
+              f"engine dump K err {err_k:.3e}, grad-K err {err_g:.3e}")
+        write_intermediate_matrices(str(Path(tmp) / "again.txt"), logs)
+        check(path.read_bytes() == (Path(tmp) / "again.txt").read_bytes(),
+              "the engine's dump is not the writer's text of its stacks")
+        print(f"phase 33 debug dump n={DUMP_N} m=2 {DUMP_STEPS} steps, "
+              f"engine on one NCCL rank (gather): ok k_max_abs_err="
+              f"{err_k:.3e} grad_k_max_abs_err={err_g:.3e}")
+
+        # -- phase 34: checkpoints on the card ------------------------------
+        mean_c, cov_c, x0_c = flagship_mvn(CKPT_N)
+        x0_c = x0_c.astype(np.float32)
+        cuda_phi.reset_launch_counts()
+        full = make_svgd(st, x0_c, mean_c, cov_c, CKPT_STEPS,
+                         phi_impl="fused_cuda")
+        check(full.fused_sym_form is False,
+              f"n={CKPT_N} resolved fused_sym {full.fused_sym_form!r}")
+        want = full.run().clone()
+        half = CKPT_STEPS // 2
+        first = make_svgd(st, x0_c, mean_c, cov_c, half, phi_impl="fused_cuda")
+        first.run()
+        save_checkpoint(Path(tmp) / "driver", first.make_state(), step=half)
+        second = make_svgd(st, x0_c, mean_c, cov_c, CKPT_STEPS - half,
+                           phi_impl="fused_cuda")
+        restored, step = restore_checkpoint(Path(tmp) / "driver",
+                                            second.make_state())
+        check(step == half and restored["iteration"] == half,
+              f"restored step {step}, iteration {restored['iteration']}")
+        second._absorb_state(restored)
+        got = second.run()
+        ckpt_counts = dict(cuda_phi.launch_counts)
+        require_only(ckpt_counts, cuda_phi.SQUARE_KERNEL, 2 * CKPT_STEPS,
+                     "checkpoint runs")
+        check(torch.equal(got, want),
+              f"driver resumed run differs by "
+              f"{float((got - want).abs().max()):.3e}")
+        print(f"phase 34 checkpoint flagship n={CKPT_N} fused_cuda (K1): "
+              f"{CKPT_STEPS} steps against {half} + save + restore + "
+              f"{CKPT_STEPS - half}: ok equal bit for bit "
+              f"launches={json.dumps(ckpt_counts)}")
+        # The sharded flagship on its cross form (K1: fused_sym=False; the
+        # triangle chunk kernel adds columns with float atomics, so its
+        # runs are not bit-reproducible).
+        def sharded_flagship():
+            return build_sharded_mvn_svgd(x0, mean, cov, group,
+                                          fused_sym=False)
+
+        cuda_phi.reset_launch_counts()
+        eng = sharded_flagship()
+        check(eng._fused_cuda and eng._fused_sym is False,
+              f"sharded checkpoint case fused_sym {eng._fused_sym!r}")
+        want = eng.run(x0, SHARDED_CKPT_STEPS)
+        half = SHARDED_CKPT_STEPS // 2
+        eng = sharded_flagship()
+        state = eng.run_state(eng.init_state(x0), half)
+        save_checkpoint(Path(tmp) / "engine", state, step=half)
+        eng = sharded_flagship()
+        restored, step = restore_checkpoint(Path(tmp) / "engine",
+                                            eng.init_state(x0))
+        got = group.all_gather_rows(
+            eng.run_state(restored, SHARDED_CKPT_STEPS - half)["coords"])
+        shard_ckpt_counts = dict(cuda_phi.launch_counts)
+        require_only(shard_ckpt_counts, cuda_phi.SQUARE_KERNEL,
+                     2 * SHARDED_CKPT_STEPS, "sharded checkpoint runs",
+                     count_launches=2)
+        check(torch.equal(got, want),
+              f"sharded resumed run differs by "
+              f"{float((got - want).abs().max()):.3e}")
+        print(f"phase 34 checkpoint sharded flagship N={SHARDED_N} one NCCL "
+              f"rank, cross form (K1): {SHARDED_CKPT_STEPS} steps against "
+              f"{half} + save + restore + {SHARDED_CKPT_STEPS - half}: ok "
+              f"equal bit for bit launches={json.dumps(shard_ckpt_counts)} "
+              f"{clock()}")
+        del eng, state, restored, got, want
+        torch.distributed.destroy_process_group()
+
+    # -- phase 35: BinomialLikelihood on the card ---------------------------
+    trials, successes = np.array([200.0, 100.0]), np.array([60.0, 85.0])
+    mle = successes / trials
+    xb = torch.tensor(np.random.default_rng(35).uniform(
+        0.05, 0.95, (BINOMIAL_N, 2)), dtype=torch.float32, device=dev)
+    model_b = st.BinomialLikelihood(trials, successes)
+    svgd = st.SVGD(st.SVGDOptions(
+        dimension=2, num_iterations=BINOMIAL_STEPS, coordinate_matrix=xb,
+        kernel=st.GaussianRBFKernel(xb, st.ScaleMethod.MEDIAN, model_b),
+        model=model_b, optimizer=st.Adam(2, BINOMIAL_N, 0.005, 0.9, 0.999),
+        lower_bound=np.array([1e-3, 1e-3]),
+        upper_bound=np.array([1.0 - 1e-3, 1.0 - 1e-3]))).initialize()
+    check(svgd._phi_impl == "fused_cuda" and svgd.fused_sym_form is True,
+          f"binomial route {svgd._phi_impl!r} form {svgd.fused_sym_form!r}")
+    cuda_phi.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = svgd.run()
+    torch.cuda.synchronize()
+    binom_s = time.perf_counter() - t0
+    binom_counts = dict(cuda_phi.launch_counts)
+    require_only(binom_counts, cuda_phi.SYM_KERNEL, BINOMIAL_STEPS,
+                 f"binomial, {BINOMIAL_STEPS} steps")
+    out = out.double().cpu().numpy()
+    check(bool(np.isfinite(out).all()) and (out > 0).all()
+          and (out < 1).all(), "binomial run left the unit box")
+    sd = np.sqrt(mle * (1 - mle) / trials)
+    mean_err = np.abs(out.mean(axis=0) - mle) / sd
+    check(bool(np.all(mean_err < 4)),
+          f"binomial particle mean {out.mean(axis=0)} not within 4 sd of "
+          f"the MLE {mle}")
+    print(f"phase 35 BinomialLikelihood N={BINOMIAL_N} unit box, Adam 0.005, "
+          f"{BINOMIAL_STEPS} steps, fused_cuda (K2): ok "
+          f"mean={out.mean(axis=0).tolist()} mle={mle.tolist()} "
+          f"err_over_sd={mean_err.tolist()} launches="
+          f"{json.dumps(binom_counts)} fallbacks={svgd.median_fallbacks} "
+          f"run_s={binom_s:.3f} {clock()}")
 
     def main_path(phase, kernel, n, m, launches, times, **work):
         bound_ms, bound_by = sweep_bound(kernel, n, m, **work)
@@ -2469,6 +2896,10 @@ def main() -> int:
         # the hybrid's 17 edges.
         k16: [main_path(22, k16, PATH_A_N, 2, main_panel[k16],
                         times28[("count", PATH_A_N, 2)], T=17),
+              # the adaptive slot's same-step (warm) median on the generic
+              # route: the self count at the warm pass's 9 edges
+              main_path(32, k16, 10000, 11, main_generic[k16], times32,
+                        T=9),
               main_path(22, k16, PATH_A_SHORT_N, 2, main_panel_1m[k16],
                         times28[("count", PATH_A_SHORT_N, 2)], T=17),
               main_path(29, k16, SHARDED_N, 2, main_shard[k16],
@@ -2477,7 +2908,7 @@ def main() -> int:
     }
     for path in paths[k16]:
         path["bound_all_pairs_ms"] = count_bound_all_pairs(
-            path["n"], path["m"], 17)[0]
+            path["n"], path["m"], 9 if path["phase"] == 32 else 17)[0]
     for path in paths[k15]:
         path["bound_all_pairs_ms"] = sweep_bound(
             k15, path["n"], path["m"], all_pairs=True)[0]

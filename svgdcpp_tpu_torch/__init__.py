@@ -3,13 +3,16 @@
 The PyTorch port of ``svgdcpp_tpu`` for an NVIDIA Hopper GPU (H100). It
 keeps the JAX package's public surface, layout and names. It covers the
 main path, the composed-kernel / BLR path, the anisotropic path, the
-large-N paths and the sharded engine: MultivariateNormal and
-(hierarchical) Bayesian logistic regression models (and ``+ - * /`` /
+large-N paths, the generic (autodiff) route and the sharded engine:
+MultivariateNormal, BinomialLikelihood and (hierarchical) Bayesian
+logistic regression models (and ``+ - * /`` /
 ``mixture`` composition), Gaussian-RBF kernels with MEDIAN / HESSIAN /
 CONSTANT bandwidth and their ``+ - * /`` compositions (kernels/algebra.py),
 AdaGrad / Adam / RMSProp, the kernel Stein discrepancy (``ksd_rbf``), the
-SVGD class's dense, blocked, fused, fused_cuda, rbf_terms, fused_terms,
-fused_terms_cuda, fused_aniso_terms_cuda and cuda routes, and
+SVGD class's generic, dense, blocked, fused, fused_cuda, rbf_terms,
+fused_terms, fused_terms_cuda, fused_aniso_terms_cuda and cuda routes
+(with the intermediate-matrix debug dump, utils/logging.py), checkpoints
+(utils/checkpoint.py), and
 ``parallel.ShardedSVGD`` over a torch.distributed group
 (``initialize_distributed``, ``make_particle_mesh``). The CUDA routes run
 hand-written CUDA kernels, one for each Pallas kernel of the JAX package
@@ -31,6 +34,7 @@ from .models.bayesian_logistic_regression import (
     BayesianLogisticRegression,
     HierarchicalBayesianLogisticRegression,
 )
+from .models.binomial_likelihood import BinomialLikelihood
 from .models.model import Model, mixture
 from .models.multivariate_normal import MultivariateNormal
 from .optimizers.adagrad import AdaGrad
@@ -49,6 +53,7 @@ __all__ = [
     "Model",
     "mixture",
     "MultivariateNormal",
+    "BinomialLikelihood",
     "BayesianLogisticRegression",
     "HierarchicalBayesianLogisticRegression",
     "Kernel",

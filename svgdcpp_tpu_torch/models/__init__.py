@@ -1,5 +1,6 @@
 from .model import Model, mixture
 from .multivariate_normal import MultivariateNormal
+from .binomial_likelihood import BinomialLikelihood
 from .bayesian_logistic_regression import (
     BayesianLogisticRegression,
     HierarchicalBayesianLogisticRegression,

@@ -8,6 +8,8 @@ from .median import (
     pairwise_distance_median_bisect,
 )
 from .phi import (
+    phi_generic,
+    phi_generic_cross,
     phi_rbf,
     phi_rbf_blocked,
     phi_rbf_cross,

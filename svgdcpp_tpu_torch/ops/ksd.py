@@ -16,14 +16,14 @@ Plain torch, streamed over row tiles so the n x n matrix never exists
 whole, as the JAX package's XLA code is. Each tile's sum is added in
 float64, so a float32 particle set of 10^5-10^6 particles keeps its digits
 through the n^2 terms; the result is returned in the coordinates' dtype.
-The autodiff Stein kernel (``ksd_squared_generic``) comes with the generic
-route (ROADMAP.md item 9a).
+Any other kernel takes the autodiff Stein kernel (``ksd_squared_generic``),
+streamed over row tiles the same way.
 """
 
 from __future__ import annotations
 
 import torch
-from torch.func import vmap
+from torch.func import grad, jacfwd, vmap
 
 from .pairwise import auto_row_tile
 
@@ -113,15 +113,73 @@ def ksd_squared_rbf_terms(
     return total
 
 
+def ksd_squared_generic(
+    coords: torch.Tensor,
+    scores: torch.Tensor,
+    kernel_fn,
+    params,
+    row_tile: int = 256,
+    ustat: bool = False,
+) -> torch.Tensor:
+    """Squared KSD for an arbitrary kernel by torch.func (the diagnostic
+    twin of ``ops/phi.phi_generic_cross``).
+
+    ``kernel_fn(x, params, location) -> scalar`` is the Kernel contract.
+    Both first gradients come from ``grad`` in each argument and the
+    mixed-Hessian trace from ``jacfwd`` over the y-gradient (m forward
+    passes a pair, so this is a diagnostic, not a hot path). Streamed over
+    row tiles, each tile's sum added in float64; ``ustat`` as in
+    :func:`ksd_squared_rbf`. Floating parameters take the coordinates'
+    device and dtype.
+    """
+    from ..models.model import params_on
+
+    n, m = coords.shape
+    dtype, device = coords.dtype, coords.device
+    scores = scores.to(dtype)
+    row_tile = auto_row_tile(n, row_tile)
+    params = params_on(tuple(torch.as_tensor(p) for p in params), device,
+                       dtype)
+
+    def k_xy(x, y):
+        return torch.as_tensor(kernel_fn(x, params, y)).squeeze()
+
+    grad_x = grad(k_xy, argnums=0)
+    grad_y = grad(k_xy, argnums=1)
+
+    def u_p(x, sx, y, sy):
+        mixed = jacfwd(lambda xx: grad_y(xx, y))(x)  # (m, m)
+        return (
+            (sx @ sy) * k_xy(x, y)
+            + sx @ grad_y(x, y)
+            + grad_x(x, y) @ sy
+            + torch.trace(mixed)
+        )
+
+    pair_rows = vmap(vmap(u_p, in_dims=(None, None, 0, 0)),
+                     in_dims=(0, 0, None, None))
+    total = torch.zeros((), dtype=torch.float64, device=device)
+    for start in range(0, n, row_tile):
+        contrib = pair_rows(coords[start:start + row_tile],
+                            scores[start:start + row_tile], coords, scores)
+        total = total + torch.sum(contrib, dtype=torch.float64)
+    if ustat:
+        diag = torch.sum(vmap(u_p)(coords, scores, coords, scores),
+                         dtype=torch.float64)
+        return ((total - diag) / (float(n) * float(n - 1))).to(dtype)
+    return (total / (float(n) * float(n))).to(dtype)
+
+
 def ksd_rbf(model, coords, p_matrix=None, row_tile: int = 1024,
             ustat: bool = True, kernel=None, device="cuda") -> torch.Tensor:
     """KSD of a particle set against a model's target density.
 
     The model's score at each particle, and when ``p_matrix`` is None the
     median bandwidth (as the SVGD run itself uses). ``kernel=<Kernel>``
-    evaluates the KSD under a `+ - * /` tree of pure RBF kernels (its own
-    parameters, the closed-form signed-term sum); any other kernel needs
-    the generic route's autodiff Stein kernel, not ported yet.
+    evaluates the KSD under that kernel with its own parameters: a
+    `+ - * /` tree of pure RBF kernels by the closed-form signed-term sum,
+    any other (custom kernel_fn leaves, trees that do not flatten) by the
+    autodiff Stein kernel (:func:`ksd_squared_generic`).
 
     Coordinates that are a tensor keep their device; any other go to
     ``device``, the card by default, as the drivers' coordinates do
@@ -144,12 +202,11 @@ def ksd_rbf(model, coords, p_matrix=None, row_tile: int = 1024,
 
         terms = flatten_rbf_terms(kernel)
         if terms is None:
-            raise NotImplementedError(
-                "ksd_rbf for a kernel that is not a `+ - * /` tree of pure "
-                "RBF kernels needs the autodiff Stein kernel "
-                "(ksd_squared_generic), which is not ported to "
-                "svgdcpp_tpu_torch yet (ROADMAP.md: item 9a)."
+            ksd2 = ksd_squared_generic(
+                coords, scores, kernel._kernel_fn, tuple(kernel.parameters),
+                row_tile, ustat=ustat,
             )
+            return torch.sqrt(torch.clamp_min(ksd2, 0.0))
         kparams = tuple(
             torch.as_tensor(p).to(coords.device, coords.dtype)
             for p in kernel.parameters

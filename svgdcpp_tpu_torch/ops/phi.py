@@ -3,9 +3,13 @@
     phi(x_i) = (1/n) sum_j [ k(x_j, x_i) grad_{x_j} log p(x_j)
                              + grad_{x_j} k(x_j, x_i) ]
 
-Port of the closed-form RBF paths of ``svgdcpp_tpu.ops.phi`` (reference hot
-loop SVGD.hpp:407-454):
+Port of ``svgdcpp_tpu.ops.phi`` (reference hot loop SVGD.hpp:407-454):
 
+  * ``phi_generic``     -- any kernel function, by torch.func: per target,
+                           one VJP of the kernel row over the sources with a
+                           ones cotangent sums grad_{x_j} k (the reference's
+                           (m n) x n stack and indexer, SVGD.hpp:453),
+                           streamed over row tiles of targets.
   * ``phi_rbf``         -- dense: K = exp(-quad), then
                            phi = (K S - (K X - rowsum(K) X)(P+P^T)) / n.
   * ``phi_rbf_blocked`` -- the same, streamed over row tiles so the n x n
@@ -39,7 +43,10 @@ from __future__ import annotations
 
 import math
 
+from typing import Callable, Tuple
+
 import torch
+from torch.func import grad, vjp, vmap
 
 from .pairwise import auto_row_tile, sq_matmul, weighted_quadratic_pairwise
 from .sym_plan import (
@@ -51,6 +58,91 @@ from .sym_plan import (
     sym_tile_chunk,
     upper_tile_rows,
 )
+
+
+# ----------------------------------------------------------------------
+# Generic path: any kernel_fn(x, params, location)
+# ----------------------------------------------------------------------
+
+
+def phi_generic_cross(
+    targets: torch.Tensor,
+    sources: torch.Tensor,
+    source_scores: torch.Tensor,
+    kernel_fn: Callable,
+    kernel_params,
+    row_tile: int = 128,
+) -> torch.Tensor:
+    """Tile-streamed phi for an arbitrary composed or user kernel:
+
+    phi_i = (1/n_src) sum_j [ k(s_j, t_i) score_j + grad_{s_j} k(s_j, t_i) ]
+
+    Per target, the kernel row over the sources and one VJP of it with a
+    ones cotangent (rows grad_{s_j} k, summed); targets go through in row
+    tiles, so the live intermediate is (row_tile, n_src, m), never the
+    (n, n, m) stack. ``row_tile`` is clamped to the JAX package's budget
+    (``auto_row_tile`` with 4 m bytes a pair). The cross form (local rows
+    against the gathered sources) is the sharded engine's generic phi; the
+    division is by the number of sources.
+    """
+    n_t, m = targets.shape
+    n_s = sources.shape[0]
+    row_tile = auto_row_tile(n_s, row_tile, elem_bytes=4 * m)
+
+    def per_target(x_i):
+        def k_all(srcs):
+            return vmap(lambda x_j: kernel_fn(x_j, kernel_params, x_i))(srcs)
+
+        k_row, k_vjp = vjp(k_all, sources)
+        (grad_rows,) = k_vjp(torch.ones_like(k_row))
+        return k_row @ source_scores + torch.sum(grad_rows, dim=0)
+
+    per_tile = vmap(per_target)
+    out = [per_tile(targets[start:start + row_tile])
+           for start in range(0, n_t, row_tile)]
+    return torch.cat(out, dim=0) / n_s
+
+
+def phi_generic(
+    coords: torch.Tensor,
+    scores: torch.Tensor,
+    kernel_fn: Callable,
+    kernel_params,
+    row_tile: int = 128,
+) -> torch.Tensor:
+    """phi for an arbitrary composed or user kernel (tile-streamed);
+    coords and scores are (n, m)."""
+    return phi_generic_cross(
+        coords, coords, scores, kernel_fn, kernel_params, row_tile
+    )
+
+
+def kernel_matrix_and_grad(
+    coords: torch.Tensor, kernel_fn: Callable, kernel_params
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full K (n, n) and grad stack G (n, n, m) for the debug dump:
+    K[i, j] = k(x_j, x_i), G[i, j] = grad_{x_j} k(x_j, x_i), the
+    reference's kernel_matrix_ / kernel_grad_matrix_ pair (SVGD.hpp:500-502)
+    in (n, m) layout. Only the intermediate-matrix logging builds them."""
+    return kernel_matrix_and_grad_cross(coords, coords, kernel_fn,
+                                        kernel_params)
+
+
+def kernel_matrix_and_grad_cross(
+    targets: torch.Tensor,
+    sources: torch.Tensor,
+    kernel_fn: Callable,
+    kernel_params,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The target-row band K (n_t, n_s) / G (n_t, n_s, m) of the debug
+    matrices: the sharded engine's rows against the gathered sources."""
+
+    def pair(x_j, x_i):
+        return kernel_fn(x_j, kernel_params, x_i)
+
+    k = vmap(lambda xi: vmap(lambda xj: pair(xj, xi))(sources))(targets)
+    g = vmap(lambda xi: vmap(lambda xj: grad(pair)(xj, xi))(sources))(targets)
+    return k, g
 
 
 # ----------------------------------------------------------------------

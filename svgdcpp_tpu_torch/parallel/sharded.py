@@ -21,12 +21,16 @@ tensors that ``step_state``/``run_state`` call once per step; each
 
 Ported: gather mode (cold and warm median), the fused single sweep
 (``fused_phi``) as the cross sweep, the full-width triangle ("full") and
-the panel triangle ("panel"), the built-in RBF and composed kernels that
-flatten to RBF terms, MEDIAN / HESSIAN / CONSTANT scales, bounds,
-annealing, ``track_stats`` and parameter hot-swap. ``phi_mode='ring'``, the
-generic (VJP) kernel path, intermediate-matrix logging and custom hooks
-raise NotImplementedError naming their ROADMAP.md item; checkpoints are
-the caller's (``init_state``/``run_state`` take and return the state).
+the panel triangle ("panel"), the built-in RBF, composed kernels that
+flatten to RBF terms and any other kernel through the generic (VJP) sweep
+(``ops/phi.phi_generic_cross`` of the local rows against the gathered
+sources), MEDIAN / HESSIAN / CONSTANT scales, bounds, annealing,
+``track_stats``, intermediate-matrix logging (each rank's row bands of K
+and grad-K, gathered into the global matrices), custom model or kernel
+Step hooks (run eagerly before each step), parameter hot-swap and
+checkpoints (the engine's states are ``ShardedState``s, which
+``utils/checkpoint`` gathers and splits). ``phi_mode='ring'`` raises
+NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -48,7 +52,11 @@ from ..kernels.algebra import (
     refill_median_slots,
     term_psd_flags,
 )
-from ..kernels.gaussian_rbf import ScaleMethod, scale_from_median
+from ..kernels.gaussian_rbf import (
+    ScaleMethod,
+    rbf_kernel_fn,
+    scale_from_median,
+)
 from ..models.model import params_on
 from ..ops.cuda_phi import (
     check_dimension,
@@ -69,6 +77,8 @@ from ..ops.median import (
     warm_median_select,
 )
 from ..ops.phi import (
+    kernel_matrix_and_grad_cross,
+    phi_generic_cross,
     phi_rbf_cross,
     phi_rbf_cross_fused_counts,
     phi_rbf_fused_sym_finish,
@@ -77,7 +87,9 @@ from ..ops.phi import (
     phi_rbf_terms_fused_sym_finish,
 )
 from ..ops.sym_plan import sym_panel_sharded_plan, sym_sharded_plan
+from ..optimizers.base import _map_pair
 from ..svgd import SVGD, _not_ported, _skip_section
+from ..utils.logging import write_intermediate_matrices
 from .mesh import ParticleGroup, initialize_distributed, place_replicated
 
 
@@ -230,8 +242,8 @@ class ShardedSVGDConfig:
     fused_dot_dtype: str = "float32"
     fused_cuda: Optional[bool] = None
     fused_sym: Any = None
-    #: 'auto' / 'rbf_terms' (the algebraic terms path) / 'generic' (not
-    #: ported yet).
+    #: 'auto' (RBF terms where the kernel flattens, else the generic VJP
+    #: sweep) / 'rbf_terms' / 'generic'.
     kernel_phi: str = "auto"
     log_intermediate_matrices: bool = False
     intermediate_matrices_output_path: str = "log.txt"
@@ -318,36 +330,30 @@ class ShardedSVGD:
             )
         if cfg.phi_mode == "ring":
             raise _not_ported("phi_mode='ring'",
-                              "item 11 (parallel/ring.py)")
-        if cfg.log_intermediate_matrices:
-            raise _not_ported("log_intermediate_matrices=True",
-                              "item 12 (the debug dump)")
+                              "item 11a (parallel/ring.py)")
         if cfg.fused_dot_dtype != "float32":
             raise _not_ported(f"fused_dot_dtype={cfg.fused_dot_dtype!r}",
                               "item 15 (the bfloat16 operand opt-in)")
         if kernel is not None:
             kernel.initialize()
             self._adaptive_slots = kernel.adaptive_slots()
-            if cfg.kernel_phi == "generic":
-                raise _not_ported("kernel_phi='generic'",
-                                  "item 9a (the generic route)")
-            self._rbf_terms = flatten_rbf_terms(kernel)
-            if self._rbf_terms is None:
-                if cfg.kernel_phi == "rbf_terms":
-                    raise ValueError(
-                        "kernel_phi='rbf_terms' requires a `+ - * /` "
-                        "composition of pure GaussianRBFKernels (see "
-                        "kernels/algebra.py)."
-                    )
-                raise _not_ported("a kernel that is not an RBF composition",
-                                  "item 9a (the generic route)")
+            # `+ - * /` trees of pure RBF kernels flatten to signed
+            # closed-form terms (kernels/algebra.py); any other kernel, or
+            # kernel_phi='generic', takes the generic VJP sweep.
+            self._rbf_terms = (
+                None if cfg.kernel_phi == "generic"
+                else flatten_rbf_terms(kernel)
+            )
+            if cfg.kernel_phi == "rbf_terms" and self._rbf_terms is None:
+                raise ValueError(
+                    "kernel_phi='rbf_terms' requires a `+ - * /` "
+                    "composition of pure GaussianRBFKernels (see "
+                    "kernels/algebra.py)."
+                )
             self._validate_fused_kernel()
         else:
             self._adaptive_slots = []
             self._rbf_terms = None
-        if self._has_custom_hooks():
-            raise _not_ported("custom model or kernel Step hooks",
-                              "item 12 (the eager hook loop)")
         self._refresh_psd()
         if cfg.scale_method == ScaleMethod.HESSIAN:
             self._rbf_psd = False
@@ -357,6 +363,8 @@ class ShardedSVGD:
             self._rbf_psd = True
         self._state = None
         self.stats = None
+        #: Per-call chunks of the debug matrices (see intermediate_logs).
+        self._intermediate_log_chunks = None
         #: Bisection fallbacks taken by the fused median update.
         self.median_fallbacks = 0
         #: Called with each section's name as the step ends it (scores,
@@ -481,6 +489,9 @@ class ShardedSVGD:
         self._fused_cuda = self._resolve_fused_cuda()
         self._fused_sym = self._resolve_fused_sym()
 
+    # Hooks (reference Model::Step / Kernel::Step, Model.hpp:413 /
+    # Kernel.hpp:356): a custom per-step hook runs on the host before each
+    # step, and the state re-reads the parameters it may have changed.
     def _has_custom_hooks(self) -> bool:
         if SVGD._hook_override(self.model, SVGD._MODEL_BASE_HOOKS) is not None:
             return True
@@ -488,6 +499,43 @@ class ShardedSVGD:
             self.kernel is not None
             and SVGD._hook_override(self.kernel, SVGD._KERNEL_BASE_HOOKS)
             is not None
+        )
+
+    def _eager_hooks(self):
+        hook = SVGD._hook_override(self.model, SVGD._MODEL_BASE_HOOKS)
+        if hook is not None:
+            hook()
+        if self.kernel is not None:
+            hook = SVGD._hook_override(self.kernel, SVGD._KERNEL_BASE_HOOKS)
+            if hook is not None:
+                hook()
+
+    def _refresh_component_params(self, state):
+        """The state with the model's and kernel's current parameters
+        (after the hooks ran), the kernel's route flags re-derived."""
+        state = ShardedState(state, self)
+        c = state["coords"]
+        state["model_params"] = params_on(self.model.parameters, c.device,
+                                          c.dtype)
+        if self.kernel is not None:
+            state["kernel_params"] = tuple(
+                as_tensor(p).to(dtype=c.dtype, device=c.device)
+                for p in self.kernel.parameters
+            )
+            self._refresh_trace_flags()
+            state["slot_model_params"] = self._slot_model_params(c.device,
+                                                                 c.dtype)
+        return state
+
+    def _slot_model_params(self, device, dtype):
+        """Foreign-model parameters per adaptive slot (None where the slot
+        has no model or the engine's own)."""
+        return tuple(
+            params_on(owner.target_model.parameters, device, dtype)
+            if getattr(owner, "target_model", None) is not None
+            and owner.target_model is not self.model
+            else None
+            for _, owner in self._adaptive_slots
         )
 
     # ------------------------------------------------------------------
@@ -676,10 +724,16 @@ class ShardedSVGD:
             )
             section("scale")
             scores = group.all_gather_rows(scores_local)
-            phi_local = phi_rbf_terms_cross(
-                coords_local, sources, scores, kparams, self._rbf_terms,
-                cfg.row_tile, psd_flags=self._term_psd,
-            )
+            if self._rbf_terms is not None:
+                phi_local = phi_rbf_terms_cross(
+                    coords_local, sources, scores, kparams, self._rbf_terms,
+                    cfg.row_tile, psd_flags=self._term_psd,
+                )
+            else:
+                phi_local = phi_generic_cross(
+                    coords_local, sources, scores, self.kernel.kernel_pure,
+                    kparams, cfg.row_tile,
+                )
             section("sweep")
         elif cfg.fused_phi:
             phi_local, kparams, scale_aux = self._fused_sweep(
@@ -721,7 +775,18 @@ class ShardedSVGD:
                          + (disp.to(scale_aux[4].dtype),)
                          + tuple(scale_aux[5:]))
         stats = None
-        if cfg.track_stats:
+        if cfg.log_intermediate_matrices:
+            # This rank's row bands of the global K and grad-K at the
+            # step's kernel parameters (reference SVGD.hpp:346-366);
+            # _gather_logs puts the bands together.
+            kfn = (self.kernel.kernel_pure if self.kernel is not None
+                   else rbf_kernel_fn)
+            k_band, g_band = kernel_matrix_and_grad_cross(
+                coords_local, sources, kfn, kparams
+            )
+            stats = {"log_model_grad": scores_local, "kernel": k_band,
+                     "kernel_grad": g_band, "coords": new_coords}
+        elif cfg.track_stats:
             m = coords_local.shape[1]
             phi_rms = torch.sqrt(
                 group.all_reduce_sum(torch.sum(phi_local * phi_local))
@@ -796,21 +861,15 @@ class ShardedSVGD:
                             for p in self.kernel.parameters)
         else:
             kparams = (torch.eye(self.dimension, dtype=dtype, device=device),)
-        return {
+        return ShardedState({
             "coords": local,
             "opt_state": opt_state,
             "model_params": params_on(self.model.parameters, device, dtype),
             "kernel_params": kparams,
-            "slot_model_params": tuple(
-                params_on(owner.target_model.parameters, device, dtype)
-                if getattr(owner, "target_model", None) is not None
-                and owner.target_model is not self.model
-                else None
-                for _, owner in self._adaptive_slots
-            ),
+            "slot_model_params": self._slot_model_params(device, dtype),
             "scale_aux": self._init_scale_aux(coords_global),
             "iteration": 0,
-        }
+        }, self)
 
     def _init_scale_aux(self, coords_global):
         device = coords_global.device
@@ -832,39 +891,87 @@ class ShardedSVGD:
                      for v in (0.0, -1.0, 0.0, -1.0, 0.0))
 
     def step_state(self, state):
-        """One sharded step: state -> state (stats recorded if
-        configured)."""
-        c = state["coords"]
-        self._prepare_step(c.device, c.dtype)
-        state, stats = self._step(state)
-        if stats is not None:
-            self._record_stats([stats])
-        self._state = state
-        return state
+        """One sharded step: state -> state (stats or debug matrices
+        recorded if configured; custom hooks run first)."""
+        return self.run_state(state, 1)
 
     def run_state(self, state, num_steps: int):
         """State-in/state-out run: optimizer moments, the median brackets
-        and the iteration count carry across calls."""
+        and the iteration count carry across calls. Custom model or kernel
+        hooks run before every step (the reference's hook-then-phi order,
+        SVGD.hpp:373-390), the state re-reading the parameters after
+        them."""
         c = state["coords"]
         self._prepare_step(c.device, c.dtype)
+        hooks = self._has_custom_hooks()
         collected = []
         for _ in range(int(num_steps)):
+            if hooks:
+                self._eager_hooks()
+                state = self._refresh_component_params(state)
             state, stats = self._step(state)
             if stats is not None:
                 collected.append(stats)
         if collected:
-            self._record_stats(collected)
+            stacked = {k: torch.stack([s[k] for s in collected])
+                       for k in collected[0]}
+            if self.config.log_intermediate_matrices:
+                self._write_logs(stacked)
+            else:
+                self._record_stats(stacked)
+        state = ShardedState(state, self)
         self._state = state
         return state
 
-    def _record_stats(self, collected):
-        host = {k: torch.stack([s[k] for s in collected]).cpu().numpy()
-                for k in collected[0]}
+    def _record_stats(self, stacked):
+        host = {k: v.cpu().numpy() for k, v in stacked.items()}
         if self.stats is None:
             self.stats = host
         else:
             self.stats = {k: np.concatenate([self.stats[k], host[k]])
                           for k in host}
+
+    @property
+    def intermediate_logs(self):
+        """The stacked (T, ...) global debug matrices of every logged step
+        since the last run(coords) (None before any): log_model_grad,
+        kernel, kernel_grad, coords, as numpy arrays on every rank."""
+        chunks = self._intermediate_log_chunks
+        if chunks is None:
+            return None
+        if len(chunks) > 1:
+            self._intermediate_log_chunks = [
+                {k: np.concatenate([c[k] for c in chunks]) for k in chunks[0]}
+            ]
+        return self._intermediate_log_chunks[0]
+
+    @intermediate_logs.setter
+    def intermediate_logs(self, value):
+        self._intermediate_log_chunks = None if value is None else [value]
+
+    def _write_logs(self, stacked):
+        """Put the ranks' row bands together into the global matrices
+        (rows are the particle axis: dim 1 of the (T, n_local, ...) stacks),
+        keep them, and append the new steps to the file on rank 0 with
+        continuing step numbers (reference SVGD.hpp:460-476)."""
+        group = self.mesh
+        host = {
+            k: group.all_gather_rows(v.transpose(0, 1).contiguous())
+            .transpose(0, 1).cpu().numpy()
+            for k, v in stacked.items()
+        }
+        if self._intermediate_log_chunks is None:
+            prior_steps = 0
+            self._intermediate_log_chunks = [host]
+        else:
+            prior_steps = sum(c["coords"].shape[0]
+                              for c in self._intermediate_log_chunks)
+            self._intermediate_log_chunks.append(host)
+        if group.rank == 0:
+            write_intermediate_matrices(
+                self.config.intermediate_matrices_output_path, host,
+                start_step=prior_steps + 1, append=prior_steps > 0,
+            )
 
     def run(self, coords=None, num_iterations: int = None):
         """Run num_iterations steps and return the gathered GLOBAL (n, m)
@@ -878,9 +985,55 @@ class ShardedSVGD:
         if coords is not None:
             self._state = self.init_state(coords)
             self.stats = None
+            self.intermediate_logs = None
         elif self._state is None:
             raise RuntimeError(
                 "run(coords=None) requires a previous run to continue from."
             )
         final = self.run_state(self._state, int(num_iterations))
         return self.mesh.all_gather_rows(final["coords"])
+
+
+class ShardedState(dict):
+    """A state of :class:`ShardedSVGD`: this rank's rows of the coordinates
+    and of the optimizer's particle-major leaves, the other leaves whole.
+    It knows its engine, so ``utils/checkpoint`` can gather a state into
+    the global arrays the JAX package saves (``to_global``, a collective)
+    and give each rank its rows of a restored one (``from_global``, the
+    split of ``utils/convert.sharded_state_from_numpy``)."""
+
+    def __init__(self, state, engine: ShardedSVGD):
+        super().__init__(state)
+        self.engine = engine
+
+    def _particle_leaves(self):
+        """Which optimizer leaves are particle-major, from a global-shaped
+        zero state of the engine's optimizer."""
+        opt = self.engine.optimizer
+        c = self["coords"]
+        return opt.state_is_particle_sharded(opt.init(c.dtype, c.device))
+
+    def to_global(self) -> dict:
+        group = self.engine.mesh
+        state = dict(self)
+        state["coords"] = group.all_gather_rows(self["coords"])
+        state["opt_state"] = _map_pair(
+            self["opt_state"], self._particle_leaves(),
+            lambda x, rows: group.all_gather_rows(x) if rows else x,
+        )
+        return state
+
+    def from_global(self, state) -> "ShardedState":
+        engine = self.engine
+        rows = engine.mesh.rows(engine.num_particles)
+        state = dict(state)
+        state["coords"] = state["coords"][rows].contiguous()
+        state["opt_state"] = engine.optimizer.shard_state(state["opt_state"],
+                                                          rows)
+        return ShardedState(state, engine)
+
+    def barrier(self):
+        """Wait for every rank of the engine's group (after rank 0 wrote)."""
+        self.engine.mesh.all_reduce_sum(
+            torch.zeros((), device=self["coords"].device))
+

@@ -9,6 +9,11 @@ function ``build_step_fn()`` returns (the JAX package rolls it into one
 
 Routes (``SVGDOptions.phi_impl``):
 
+  * ``generic``    -- any kernel function: phi by torch.func, one VJP per
+                      target over the sources, streamed over row tiles
+                      (``ops/phi.phi_generic``). The route of a custom
+                      kernel, and of ``log_intermediate_matrices``, whose
+                      K and grad-K stacks it builds.
   * ``dense``      -- closed-form RBF phi on the full n x n kernel matrix.
   * ``blocked``    -- the same, streamed over row tiles.
   * ``fused``      -- ONE plain torch sweep per step giving phi (with the
@@ -41,11 +46,19 @@ Routes (``SVGDOptions.phi_impl``):
   * ``auto``       -- the JAX package's rule. On a CUDA device its TPU rule,
                       with CUDA_FUSED_MIN_PARTICLES and the CUDA routes in
                       place of the TPU ones; on the CPU its non-TPU rule.
+                      A kernel that is neither the built-in RBF nor a
+                      composition that flattens to RBF terms takes
+                      ``generic``.
 
-The other routes of the JAX package, ``SVGDOptions.mesh`` and intermediate
-matrix logging raise NotImplementedError naming the ROADMAP.md item that
-ports them; no other route is substituted. A JAX route name whose CUDA
-counterpart has another name raises ValueError naming it.
+With ``log_intermediate_matrices`` every step also returns the step's
+scores, K, grad-K and new coordinates (``ops/phi.kernel_matrix_and_grad``,
+n x n x m, for small debug runs), and ``run()`` writes them through
+``utils/logging.write_intermediate_matrices`` and keeps them as
+``_intermediate_logs``.
+
+``SVGDOptions.mesh`` raises NotImplementedError naming the ROADMAP.md
+item that ports it; no other route is substituted. A JAX route name whose
+CUDA counterpart has another name raises ValueError naming it.
 
 Where it runs: a coordinate matrix that is a tensor keeps its device; any
 other (a numpy array, a list) goes to ``SVGDOptions.device``, the card by
@@ -98,6 +111,8 @@ from .ops.median import (
     fused_median_from_counts,
 )
 from .ops.phi import (
+    kernel_matrix_and_grad,
+    phi_generic,
     phi_rbf,
     phi_rbf_blocked,
     phi_rbf_fused_counts,
@@ -105,6 +120,7 @@ from .ops.phi import (
     phi_rbf_terms_fused_counts,
 )
 from .optimizers.base import Optimizer
+from .utils.logging import write_intermediate_matrices
 
 #: Above this particle count the dense n x n phi switches to the
 #: tile-streamed implementation (the JAX package's rule).
@@ -115,12 +131,6 @@ DENSE_PHI_MAX_PARTICLES = 1024
 #: starting point; the crossover on the card is not measured yet.
 CUDA_FUSED_MIN_PARTICLES = 256
 
-#: Routes of the JAX package that this package does not have yet, with the
-#: ROADMAP.md item that ports each.
-_UNPORTED_ROUTES = {
-    "generic": "item 9a (the generic route and phi_generic)",
-}
-
 #: Routes of the JAX package whose CUDA counterpart has another name.
 _CUDA_NAMES = {
     "fused_pallas": "fused_cuda",
@@ -130,8 +140,8 @@ _CUDA_NAMES = {
 }
 
 _ROUTES = (
-    "dense", "blocked", "fused", "fused_cuda", "rbf_terms", "fused_terms",
-    "fused_terms_cuda", "fused_aniso_terms_cuda", "cuda",
+    "generic", "dense", "blocked", "fused", "fused_cuda", "rbf_terms",
+    "fused_terms", "fused_terms_cuda", "fused_aniso_terms_cuda", "cuda",
 )
 _SINGLE_RBF_ROUTES = ("dense", "blocked", "fused", "fused_cuda", "cuda")
 _TERMS_ROUTES = (
@@ -374,12 +384,7 @@ class SVGD:
         if opts.mesh is not None:
             raise _not_ported(
                 "SVGDOptions.mesh",
-                "item 11 (the sharded engine is parallel.ShardedSVGD)",
-            )
-        if self.log_intermediate_matrices:
-            raise _not_ported(
-                "log_intermediate_matrices=True",
-                "item 9a (it needs the generic route's K and grad-K stacks)",
+                "item 11b (the sharded engine is parallel.ShardedSVGD)",
             )
         self._is_rbf = (
             isinstance(self.kernel, GaussianRBFKernel)
@@ -396,10 +401,13 @@ class SVGD:
         self._refresh_psd()
         on_cuda = self.store.value.device.type == "cuda"
         impl = opts.phi_impl
-        if impl == "auto":
+        if self.log_intermediate_matrices:
+            # The debug dump needs the K and grad-K stacks, which only the
+            # generic route builds (the reference logs them too,
+            # SVGD.hpp:346-358).
+            impl = "generic"
+        elif impl == "auto":
             impl = self._auto_impl(on_cuda)
-        if impl in _UNPORTED_ROUTES:
-            raise _not_ported(f"phi_impl={impl!r}", _UNPORTED_ROUTES[impl])
         if impl not in _ROUTES:
             hint = (
                 f" (its CUDA counterpart is {_CUDA_NAMES[impl]!r})"
@@ -514,10 +522,7 @@ class SVGD:
                 return "fused_aniso_terms_cuda"
             return "rbf_terms"
         if not self._is_rbf:
-            raise _not_ported(
-                "phi_impl='auto' for a custom kernel (the generic route)",
-                _UNPORTED_ROUTES["generic"],
-            )
+            return "generic"
         if (
             self.kernel.scale_method == GaussianRBFKernel.ScaleMethod.MEDIAN
             and n > fused_threshold
@@ -599,6 +604,11 @@ class SVGD:
     # Pure step construction
     # ------------------------------------------------------------------
     def _phi(self, coords, scores, kparams):
+        if self._phi_impl == "generic":
+            return phi_generic(
+                coords, scores, self.kernel.kernel_pure, kparams,
+                self.options.row_tile,
+            )
         if self._phi_impl == "rbf_terms":
             return phi_rbf_terms(
                 coords, scores, kparams, self._rbf_terms,
@@ -680,7 +690,9 @@ class SVGD:
         return tuple(kparams), tuple(new_aux)
 
     def build_step_fn(self):
-        """Return the pure step: state -> (state, stats | None).
+        """Return the pure step: state -> (state, stats | None); with
+        ``log_intermediate_matrices`` the stats are the step's debug
+        matrices (log_model_grad, kernel, kernel_grad, coords).
 
         state = {coords, opt_state, kernel_params, model_params, scale_aux,
         slot_model_params, iteration}, the same keys as the JAX package's
@@ -715,6 +727,7 @@ class SVGD:
             iso_idx, aniso_idx = self._aniso_split
         row_tile = self.options.row_tile
         track_stats = self.options.track_stats
+        collect_debug = self.log_intermediate_matrices
         section = self.section_hook or _skip_section
 
         def step_fn(state, _=None):
@@ -845,7 +858,17 @@ class SVGD:
                 "iteration": state["iteration"] + 1,
             }
             stats = None
-            if track_stats:
+            if collect_debug:
+                k_mat, k_grad = kernel_matrix_and_grad(
+                    coords, self.kernel.kernel_pure, kparams
+                )
+                stats = {
+                    "log_model_grad": scores,
+                    "kernel": k_mat,
+                    "kernel_grad": k_grad,
+                    "coords": new_coords,
+                }
+            elif track_stats:
                 # 'bandwidth' assumes an (m, m) inverse-scale in slot 0; a
                 # custom kernel may carry none: report NaN then.
                 if kparams and getattr(kparams[0], "ndim", 0) == 2:
@@ -958,10 +981,17 @@ class SVGD:
         if state is not None and not hooks:
             self._absorb_state(state)
         if collected:
-            self.stats = {
+            stacked = {
                 key: torch.stack([s[key] for s in collected]).cpu().numpy()
                 for key in collected[0]
             }
+            if self.log_intermediate_matrices:
+                self._intermediate_logs = stacked
+                write_intermediate_matrices(
+                    self.intermediate_matrices_output_path, stacked
+                )
+            else:
+                self.stats = stacked
         return self.store.value
 
     def _eager_hooks(self):

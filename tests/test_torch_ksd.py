@@ -125,7 +125,10 @@ def test_ksd_rbf_hierarchical_blr(with_kernel):
     close(got, want)
 
 
-def test_ksd_rbf_rejects_what_needs_the_generic_route():
+def test_ksd_rbf_of_a_custom_kernel_matches_jax():
+    """p_matrix and kernel together raise; a custom kernel goes through
+    the autodiff Stein kernel and matches the JAX package's (rtol 1e-9)
+    and the closed form of the same RBF."""
     x, _ = mvn_case(20, 3)
     model = st.MultivariateNormal(MVN_MEAN, MVN_COV)
     kernel = st.GaussianRBFKernel(x, st.ScaleMethod.MEDIAN, model)
@@ -133,11 +136,23 @@ def test_ksd_rbf_rejects_what_needs_the_generic_route():
         ksd_t.ksd_rbf(model, torch.from_numpy(x), p_matrix=np.eye(2),
                       kernel=kernel)
     custom = st.Kernel(
-        2, lambda a, params, b: torch.exp(-torch.sum((a - b) ** 2)),
-        (np.eye(2),),
+        2, lambda a, params, b: torch.exp(-(a - b) @ params[0] @ (a - b)),
+        (0.3 * np.eye(2),),
     )
-    with pytest.raises(NotImplementedError, match="9a"):
-        ksd_t.ksd_rbf(model, torch.from_numpy(x), kernel=custom)
+    custom_j = sv.Kernel(
+        2, lambda a, params, b: jnp.exp(-(a - b) @ params[0] @ (a - b)),
+        (0.3 * np.eye(2),),
+    )
+    model_j = sv.MultivariateNormal(MVN_MEAN, MVN_COV)
+    for ustat in (True, False):
+        got = ksd_t.ksd_rbf(model, torch.from_numpy(x), kernel=custom,
+                            ustat=ustat, row_tile=8)
+        want = ksd_j.ksd_rbf(model_j, jnp.asarray(x), kernel=custom_j,
+                             ustat=ustat, row_tile=8)
+        close(got, want)
+        closed = ksd_t.ksd_rbf(model, torch.from_numpy(x),
+                               p_matrix=0.3 * np.eye(2), ustat=ustat)
+        np.testing.assert_allclose(float(got), float(closed), rtol=1e-9)
 
 
 def test_ksd_rbf_places_numpy_coords_on_its_device(monkeypatch):

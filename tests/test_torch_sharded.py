@@ -20,7 +20,15 @@
   the options that raise.
 * Engine, two and four ranks: spawned gloo worlds
   (``tests/torch_sharded_worker.py``), the gathered coordinates against
-  the JAX engine.
+  the JAX engine, the generic kernel sweep and a hooked model among the
+  cases; each world's debug dump against the JAX engine's, and a
+  checkpoint saved by the world and restored on every rank resuming
+  exactly.
+* The generic (VJP) sweep (``kernel_phi='generic'``, and ``auto`` with a
+  kernel that does not flatten), the debug dump and custom Step hooks on
+  one rank against the JAX engine and the single-device driver (float64,
+  rtol 1e-9); a checkpoint of a one-rank state resuming exactly, and
+  restoring in the JAX engine.
 * State: a JAX sharded state split per rank (``sharded_state_from_numpy``)
   steps as the JAX engine does; ``state_from_numpy`` follows the package's
   device rule.
@@ -599,24 +607,10 @@ def test_unported_options_raise_naming_the_roadmap():
         return ShardedSVGD(mdl, st.AdaGrad(2, 16, 0.1), 16, 2, mesh=g,
                            config=config, kernel=kernel)
 
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 11a"):
         build(ShardedSVGDConfig(phi_mode="ring"))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build(ShardedSVGDConfig(log_intermediate_matrices=True))
     with pytest.raises(NotImplementedError, match="item 15"):
         build(ShardedSVGDConfig(fused_dot_dtype="bfloat16"))
-    x0 = np.zeros((16, 2))
-    kernel = st.GaussianRBFKernel(x0, st.ScaleMethod.CONSTANT,
-                                  constant_scale=np.eye(2))
-    with pytest.raises(NotImplementedError, match="item 9a"):
-        build(ShardedSVGDConfig(kernel_phi="generic"), kernel)
-
-    class Hooked(st.MultivariateNormal):
-        def step(self):
-            pass
-
-    with pytest.raises(NotImplementedError, match="item 12"):
-        build(mdl=Hooked(np.zeros(2), np.eye(2)))
 
 
 def test_fused_sym_resolution():
@@ -830,6 +824,145 @@ def test_state_from_numpy_follows_the_device_rule(monkeypatch):
 
 
 # ----------------------------------------------------------------------
+# The generic sweep, the debug dump, hooks and checkpoints
+# ----------------------------------------------------------------------
+
+
+def imq_composed(x0):
+    """RBF(median) + an inverse-multiquadric leaf given as a plain
+    kernel_fn (no RBF terms)."""
+    def build(pkg, mdl):
+        lib = torch if pkg is st else jnp
+
+        def imq(x, params, loc):
+            d = x - loc
+            return 1.0 / lib.sqrt(1.0 + params[0] * (d @ d))
+
+        return pkg.GaussianRBFKernel(
+            x0, pkg.ScaleMethod.MEDIAN, mdl, median_method="exact"
+        ) + pkg.Kernel(x0.shape[1], imq, (np.asarray(0.5),))
+    return build
+
+
+def hooked_model(pkg):
+    """An MVN whose Step hook shrinks its mean each step."""
+    class Hooked(pkg.MultivariateNormal):
+        def step(self):
+            self.update_parameters((self.parameters[0] * 0.9,
+                                    self.parameters[1]))
+    return Hooked(MEAN, COV)
+
+
+GENERIC_CFG = dict(median_bins=1024, median_passes=4, row_tile=4,
+                   warm_start=False)
+
+
+@pytest.mark.parametrize("kernel_phi,kernel", [("generic", "composed"),
+                                               ("auto", "imq")])
+def test_generic_sweep_matches_jax_and_the_driver(group, mesh, kernel_phi,
+                                                  kernel):
+    x0 = np.random.default_rng(12).normal(size=(32, 2)) * 2
+    build = composed(x0) if kernel == "composed" else imq_composed(x0)
+    cfg = dict(GENERIC_CFG, kernel_phi=kernel_phi)
+    got, want = run_both(group, mesh, x0, 6, cfg, kernel=build)
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12)
+    model = st.MultivariateNormal(MEAN, COV)
+    eng = ShardedSVGD(model, st.AdaGrad(2, 32, 0.1), 32, 2, mesh=group,
+                      config=ShardedSVGDConfig(**cfg),
+                      kernel=build(st, model))
+    assert eng._rbf_terms is None
+    drv = st.SVGD(st.SVGDOptions(
+        dimension=2, num_iterations=6, coordinate_matrix=x0.copy(),
+        kernel=build(st, model), model=model,
+        optimizer=st.AdaGrad(2, 32, 0.1), phi_impl="generic",
+        device="cpu")).initialize()
+    np.testing.assert_allclose(drv.run().numpy(), got, rtol=1e-9,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("kernel", [None, "imq"])
+def test_debug_dump_matches_jax(group, mesh, tmp_path, monkeypatch, kernel):
+    import svgdcpp_tpu.utils.native as native_j
+
+    monkeypatch.setattr(native_j, "write_intermediate_log_native",
+                        lambda *a, **k: False)
+    x0 = np.random.default_rng(13).normal(size=(16, 2)) * 2
+    logs = {}
+    for pkg, engine, cfg_cls, where in ((st, ShardedSVGD, ShardedSVGDConfig,
+                                         group),
+                                        (sv, JaxSharded, JaxConfig, mesh)):
+        model = pkg.MultivariateNormal(MEAN, COV)
+        path = tmp_path / f"{pkg.__name__}.txt"
+        eng = engine(model, pkg.AdaGrad(2, 16, 0.1), 16, 2, mesh=where,
+                     kernel=None if kernel is None
+                     else imq_composed(x0)(pkg, model),
+                     config=cfg_cls(**GENERIC_CFG,
+                                    log_intermediate_matrices=True,
+                                    intermediate_matrices_output_path=str(
+                                        path)))
+        eng.run(x0.copy(), 2)
+        eng.step_state(eng._state)  # a third step appended to the file
+        logs[pkg] = eng.intermediate_logs
+    for key, want in logs[sv].items():
+        assert logs[st][key].shape == np.asarray(want).shape, key
+        np.testing.assert_allclose(logs[st][key], np.asarray(want),
+                                   rtol=1e-9, atol=1e-12, err_msg=key)
+    assert logs[st]["kernel"].shape == (3, 16, 16)
+    from svgdcpp_tpu_torch.utils.logging import write_intermediate_matrices
+
+    write_intermediate_matrices(str(tmp_path / "again.txt"), logs[st])
+    assert (tmp_path / "svgdcpp_tpu_torch.txt").read_bytes() == (
+        tmp_path / "again.txt").read_bytes()
+
+
+def test_hooks_match_jax(group, mesh):
+    x0 = np.random.default_rng(14).normal(size=(16, 2)) * 2
+    got, want = run_both(group, mesh, x0, 5, GENERIC_CFG, model=hooked_model)
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12)
+    plain, _ = run_both(group, mesh, x0, 5, GENERIC_CFG)
+    assert not np.allclose(got, plain)
+
+
+def test_sharded_checkpoint_round_trip(group, mesh, tmp_path):
+    """5 steps, save, restore into a fresh engine's state, 5 more: equal to
+    10 uninterrupted; the file restores in the JAX engine too."""
+    from svgdcpp_tpu.utils.checkpoint import (
+        restore_checkpoint as restore_j,
+    )
+    from svgdcpp_tpu_torch.utils.checkpoint import (
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    x0 = np.random.default_rng(15).normal(size=(16, 2)) * 2
+
+    def make():
+        return ShardedSVGD(st.MultivariateNormal(MEAN, COV),
+                           st.Adam(2, 16, 0.1, 0.9, 0.999), 16, 2,
+                           mesh=group, kernel=None,
+                           config=ShardedSVGDConfig(fused_phi=True,
+                                                    row_tile=4))
+
+    full = make().run(x0, 10).numpy()
+    a = make()
+    state = a.run_state(a.init_state(x0), 5)
+    save_checkpoint(tmp_path / "ck", state, step=5)
+    b = make()
+    restored, step = restore_checkpoint(tmp_path / "ck", b.init_state(x0))
+    assert step == 5 and restored["iteration"] == 5
+    out = b.run_state(restored, 5)
+    np.testing.assert_allclose(out["coords"].numpy(), full, rtol=1e-12,
+                               atol=1e-15)
+    j = JaxSharded(sv.MultivariateNormal(MEAN, COV),
+                   sv.Adam(2, 16, 0.1, 0.9, 0.999), 16, 2, mesh=mesh,
+                   config=JaxConfig(fused_phi=True, row_tile=4))
+    state_j, _ = restore_j(tmp_path / "ck", j.init_state(x0))
+    out_j = j.run_state(state_j, 5)
+    np.testing.assert_allclose(np.asarray(out_j["coords"]), full, rtol=1e-9,
+                               atol=1e-12)
+
+
+# ----------------------------------------------------------------------
 # Two and four ranks, spawned
 # ----------------------------------------------------------------------
 
@@ -839,7 +972,8 @@ def jax_reference(name, composed_kernel, cfg, x0):
     the forced triangle forms)."""
     cfg = {k: v for k, v in cfg.items()
            if k not in ("fused_cuda", "fused_sym")}
-    model = sv.MultivariateNormal(MEAN, COV)
+    model = (hooked_model(sv) if name.startswith("hooked")
+             else sv.MultivariateNormal(MEAN, COV))
     kernel = None
     if composed_kernel:
         kernel = composed(x0)(sv, model)
@@ -885,6 +1019,23 @@ def test_spawned_ranks_match_jax_engine(world, tmp_path):
         want = jax_reference(name, composed_kernel, cfg, x0)
         np.testing.assert_allclose(got[name], want, rtol=1e-8, atol=1e-10,
                                    err_msg=name)
+    # the checkpoint the world saved at step 5 resumed exactly on every rank
+    np.testing.assert_array_equal(got["ckpt_resumed"], got["ckpt_full"])
+    # the world's debug dump against the JAX engine's
+    j = JaxSharded(sv.MultivariateNormal(MEAN, COV), sv.AdaGrad(2, 16, 0.1),
+                   16, 2, mesh=make_particle_mesh(),
+                   kernel=composed(x0[:16])(sv, sv.MultivariateNormal(MEAN,
+                                                                      COV)),
+                   config=JaxConfig(**worker.LOG_CFG,
+                                    log_intermediate_matrices=True,
+                                    intermediate_matrices_output_path=str(
+                                        tmp_path / "jax_log.txt")))
+    j.run(x0[:16].copy(), worker.LOG_STEPS)
+    for key, want in j.intermediate_logs.items():
+        np.testing.assert_allclose(got["log_" + key], np.asarray(want),
+                                   rtol=1e-9, atol=1e-12, err_msg=key)
+    assert (tmp_path / f"torch_log_{world}.txt").read_text().count(
+        "========== Step") == worker.LOG_STEPS
 
 
 def test_sharded_builders_match_the_drivers(group):

@@ -33,8 +33,8 @@ from svgdcpp_tpu_torch.parallel import sharded as sharded_t
 torch.set_num_threads(1)
 
 #: Public names of the JAX package the port does not export yet (ROADMAP
-#: items 9b and 12b).
-NOT_PORTED = {"BinomialLikelihood", "OptaxOptimizer"}
+#: item 12b).
+NOT_PORTED = {"OptaxOptimizer"}
 
 
 def free_port() -> int:

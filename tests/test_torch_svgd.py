@@ -291,9 +291,7 @@ def test_constructor_validation_matches_jax():
 
 
 @pytest.mark.parametrize("options", [
-    {"impl": "generic"},
     {"mesh": object()},
-    {"log_intermediate_matrices": True},
     {"impl": "fused_cuda", "fused_dot_dtype": "bfloat16"},
     {"impl": "cuda", "fused_dot_dtype": "bfloat16"},
 ])
@@ -301,6 +299,32 @@ def test_unported_routes_raise_not_implemented(options):
     x0 = x0_for(16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build(st, x0, 1, **options)
+
+
+@pytest.mark.parametrize("options", [
+    {"impl": "generic"},
+    {"log_intermediate_matrices": True},
+])
+def test_generic_and_debug_routes_run_as_jax(options, tmp_path, monkeypatch):
+    """The generic route and the debug dump (which forces it) run and
+    follow the JAX driver for 5 steps (float64)."""
+    import svgdcpp_tpu.utils.native as native_j
+
+    monkeypatch.setattr(native_j, "write_intermediate_log_native",
+                        lambda *a, **k: False)
+    x0 = x0_for(16)
+    runs = {}
+    for pkg in (sv, st):
+        path = tmp_path / f"{pkg.__name__}.txt"
+        runs[pkg] = build(pkg, x0, 5, intermediate_matrices_output_path=str(
+            path), **options)
+        assert runs[pkg]._phi_impl == "generic"
+    np.testing.assert_allclose(runs[st].run().numpy(),
+                               np.asarray(runs[sv].run()), rtol=1e-9,
+                               atol=1e-12)
+    if options.get("log_intermediate_matrices"):
+        assert (tmp_path / "svgdcpp_tpu_torch.txt").read_text().count(
+            "========== Step") == 5
 
 
 @pytest.mark.parametrize("jax_name,cuda_name,composed_kernel", [
@@ -467,13 +491,18 @@ def test_composed_kernel_auto_and_fused_pallas_name():
     s_t = build_composed(st, x0_for(2100), 1, ANISO)
     assert s_t._phi_impl == "rbf_terms"
     assert s_t._auto_impl(on_cuda=True) == "fused_aniso_terms_cuda"
-    # a custom kernel takes the generic route: not ported
-    model = st.MultivariateNormal(MEAN, COV)
+    # a custom kernel takes the generic route, as in the JAX package
     x0 = x0_for(16)
-    custom = st.Kernel(2, lambda x, p, loc: torch.exp(-torch.sum((x - loc) ** 2)))
-    with pytest.raises(NotImplementedError, match="generic"):
-        st.SVGD(2, 1, torch.from_numpy(x0), custom, model,
-                st.AdaGrad(2, 16, 0.1)).initialize()
+    outs = {}
+    for pkg, lib in ((st, torch), (sv, jax.numpy)):
+        custom = pkg.Kernel(
+            2, lambda x, p, loc, lib=lib: lib.exp(-lib.sum((x - loc) ** 2)))
+        drv = pkg.SVGD(2, 2, coords_for(pkg, x0),
+                       custom, pkg.MultivariateNormal(MEAN, COV),
+                       pkg.AdaGrad(2, 16, 0.1)).initialize()
+        assert drv._phi_impl == "generic"
+        outs[pkg] = np.asarray(drv.run())
+    np.testing.assert_allclose(outs[st], outs[sv], rtol=1e-9, atol=1e-12)
     with pytest.raises(ValueError, match="fused_cuda"):
         build(st, x0, 1, impl="fused_pallas")
     with pytest.raises(ValueError, match="'fused_terms_cuda'"):
