@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the package's CUDA kernels from ``svgdcpp_tpu_torch/csrc`` and runs
-thirty-five phases, one line each (several for phases 2, 3, 7-9 and
-14-35):
+thirty-seven phases, one line each (several for phases 2, 3, 7-9 and
+14-37):
 
   1. device and build: the card's name and power limit, torch and CUDA
      versions, nvcc build seconds and ptxas's registers and spill bytes of
@@ -165,10 +165,15 @@ thirty-five phases, one line each (several for phases 2, 3, 7-9 and
  31. two ranks spawned on the one card over gloo, the flagship and the
      hierarchical BLR at N = 10000 for 20 steps from one x0: each rank 20
      chunk launches, the gathered coordinates within 1e-3 of the one-rank
-     run and of the single-device driver's kernel route; and the
+     run and of the single-device driver's kernel route; the
      hierarchical BLR at N = 2000 through the generic (VJP) sweep
      (kernel_phi='generic') for 5 steps, within 1e-3 of the one-rank run,
-     no sweep kernel and K16's count passes on each rank;
+     no sweep kernel and K16's count passes on each rank; and, at N =
+     10000 for 20 steps, the flagship in ring mode (phi_mode='ring', the
+     only place on the card where a rotation moves data between ranks; no
+     sweep kernel, K16's ring count passes) and the flagship driver under
+     SVGDOptions.mesh (the two-rank group, auto: K4's chunk on each rank),
+     each within 1e-3 of its one-rank run;
  32. the generic (autodiff) route at full width: the hierarchical BLR
      (bench.py --config hier: d = 10, m = 11, N = 10000, RBF(median) +
      RBF(0.1 I), Adam 5e-2) for 20 steps with phi_impl='generic' and with
@@ -191,7 +196,22 @@ thirty-five phases, one line each (several for phases 2, 3, 7-9 and
      steps;
  35. BinomialLikelihood on the card: the JAX test's bounded configuration
      (tests/test_binomial.py) at N = 10000 through fused_cuda (K2), 400
-     Adam steps, the particle mean within 4 posterior sd of the MLE.
+     Adam steps, the particle mean within 4 posterior sd of the MLE;
+ 36. the driver under SVGDOptions.mesh on a one-rank NCCL group at full
+     width, 20 steps from the workloads' x0 beside the meshless driver on
+     the same route: the flagship (auto -> fused_cuda, the triangle chunk
+     K4 where the meshless driver runs K2), the hierarchical BLR (auto ->
+     fused_terms_cuda, K10/K11's chunk where it runs K8/K9) and the flat
+     BLR (d = 50, N = 1000, the cross form through K1); coordinates within
+     1e-3, ms a step of both (CUDA events after 2 warm-up steps) beside the
+     engine's (phases 29 and 30), launches a step, only the expected
+     kernel;
+ 37. the ring schedule (phi_mode='ring', warm median) on one NCCL rank at
+     full width: the sharded flagship and hierarchical BLR (fused_phi
+     False; the composed kernel as RBF terms), 20 steps against gather
+     mode on the same engine (within 1e-3); ms a step of both, peak memory,
+     K16's launches a step (the ring's count passes; no sweep kernel) and
+     K16's time at each shape (the self count at the warm pass's 9 edges).
 
 Phase 22 prints the N = 1,048,576 set-up (the median seed, now through
 K16) beside the 239.40 s the plain count pass took.
@@ -661,8 +681,10 @@ def sharded_rank(rank, world, port, queue):
     """Phase 31's rank ``rank`` of ``world``, spawned (not forked) once the
     parent's CUDA is up: a gloo world on the one card (NCCL refuses two
     ranks on one device), the sharded flagship and hierarchical BLR at
-    N = 10,000 for COMPARE_STEPS steps from the workloads' x0, and the
-    hierarchical BLR at GENERIC_SHARDED_N through the generic sweep
+    N = 10,000 for COMPARE_STEPS steps from the workloads' x0, the flagship
+    in ring mode (phi_mode='ring', the blocks rotating between the ranks)
+    and the flagship driver under SVGDOptions.mesh (auto) for as many, and
+    the hierarchical BLR at GENERIC_SHARDED_N through the generic sweep
     (kernel_phi='generic') for GENERIC_SHARDED_STEPS; puts (rank, {case:
     (gathered coords, launch counts, form)}) on ``queue``."""
     import numpy as np
@@ -673,10 +695,21 @@ def sharded_rank(rank, world, port, queue):
     from svgdcpp_tpu_torch.parallel import initialize_distributed
     from svgdcpp_tpu_torch.utils.workloads import (
         blr_workload,
+        build_mvn_svgd,
         build_sharded_hier_svgd,
         build_sharded_mvn_svgd,
         flagship_mvn,
     )
+
+    class DriverRun:
+        """The driver under a mesh with the engines' run(x, steps) and
+        _fused_sym."""
+
+        def __init__(self, svgd):
+            self.svgd, self._fused_sym = svgd, svgd.fused_sym_form
+
+        def run(self, x, steps):
+            return self.svgd.run()
 
     group = initialize_distributed(f"tcp://localhost:{port}", world, rank,
                                    backend="gloo", device="cuda:0")
@@ -694,6 +727,12 @@ def sharded_rank(rank, world, port, queue):
         ("hier_generic", lambda: build_sharded_hier_svgd(
             x0_g, feats_g, labels_g, group, fused_phi=False,
             kernel_phi="generic"), x0_g, GENERIC_SHARDED_STEPS),
+        ("flagship_ring", lambda: build_sharded_mvn_svgd(
+            x0, mean, cov, group, fused_phi=False, phi_mode="ring"),
+         x0, COMPARE_STEPS),
+        ("driver_mesh", lambda: DriverRun(build_mvn_svgd(
+            x0, mean, cov, num_iterations=COMPARE_STEPS, mesh=group)),
+         x0, COMPARE_STEPS),
     ):
         engine = build()
         cuda_phi.reset_launch_counts()
@@ -761,6 +800,7 @@ def main() -> int:
         blr_workload,
         build_aniso_svgd,
         build_blr_svgd,
+        build_mvn_svgd,
         build_sharded_hier_svgd,
         build_sharded_mvn_svgd,
         flagship_mvn,
@@ -2342,6 +2382,8 @@ def main() -> int:
     check(post["cov_rel_err"] <= 0.05,
           f"sharded cov_rel_err {post['cov_rel_err']:.4f} > 0.05")
     rate = SHARDED_N * (SHARDED_ITERS - seg_len) / timed_s
+    # The engine's ms a step, printed again beside phase 36's drivers.
+    engine_ms = {"flagship": 1e3 * timed_s / (SHARDED_ITERS - seg_len)}
     print(f"phase 29 sharded flagship N={SHARDED_N} {SHARDED_ITERS} iters, "
           f"one rank on NCCL: ok fused_sym=full "
           f"launches={json.dumps(main_shard)} "
@@ -2371,6 +2413,7 @@ def main() -> int:
     acc = blr_accuracy(out.cpu().numpy(), feats_h, labels_h)
     check(acc > 0.5, f"sharded hier training accuracy {acc:.4f} <= 0.5")
     rate = SHARDED_N * (SHARDED_ITERS - seg_len) / timed_s
+    engine_ms["hier"] = 1e3 * timed_s / (SHARDED_ITERS - seg_len)
     print(f"phase 30 sharded hier N={SHARDED_N} d=10 {SHARDED_ITERS} iters: "
           f"ok fused_sym=full launches={json.dumps(main_shard_hier)} "
           f"fallbacks={eng.median_fallbacks} updates_per_s={rate:.6g} "
@@ -2414,6 +2457,12 @@ def main() -> int:
             x0_g31, feats_g31, labels_g31, group, fused_phi=False,
             kernel_phi="generic").run(
             x0_g31, GENERIC_SHARDED_STEPS).double(),
+        "flagship_ring": build_sharded_mvn_svgd(
+            x0, mean, cov, group, fused_phi=False, phi_mode="ring").run(
+            x0, COMPARE_STEPS).double(),
+        "driver_mesh": build_mvn_svgd(
+            x0, mean, cov, num_iterations=COMPARE_STEPS,
+            mesh=group).run().double(),
     }
     torch.distributed.destroy_process_group()
 
@@ -2494,6 +2543,38 @@ def main() -> int:
           f"{[results[r]['hier_generic'][1][k16] for r in range(2)]} "
           f"{clock()}")
     del gen_drv
+
+    # -- phase 31 (ring, mesh): the flagship in ring mode, whose blocks
+    # rotate between the two ranks, and the flagship driver under
+    # SVGDOptions.mesh (auto: the triangle chunk K4 on each rank)
+    apart_rm = {}
+    for case, kernel, form in (("flagship_ring", None, False),
+                               ("driver_mesh", cuda_phi.SYM_CHUNK_KERNEL,
+                                "full")):
+        coords = [torch.tensor(results[r][case][0], device=dev).double()
+                  for r in range(2)]
+        check(bool((coords[0] == coords[1]).all()),
+              f"{case}: the two ranks gathered different coordinates")
+        for r in range(2):
+            counts = results[r][case][1]
+            check(results[r][case][2] == form,
+                  f"{case} rank {r}: form {results[r][case][2]!r}")
+            if kernel is None:
+                check(not any(v for k, v in counts.items() if k != k16)
+                      and counts[k16] >= COMPARE_STEPS,
+                      f"{case} rank {r}: launches {counts}")
+            else:
+                require_only(counts, kernel, COMPARE_STEPS,
+                             f"{case} rank {r} of 2")
+        apart_rm[case] = float((coords[0] - one_rank[case]).abs().max())
+        check(apart_rm[case] <= 1e-3,
+              f"{case} two ranks vs one: {apart_rm[case]:.3e} > 1e-3")
+    print(f"phase 31 two ranks on one card over gloo, N={SHARDED_N} "
+          f"{COMPARE_STEPS} steps, ring mode and the driver under a mesh: ok "
+          f"coords_max_abs_diff_vs_one_rank={json.dumps(apart_rm)} "
+          f"launches_per_rank="
+          f"{json.dumps({c: results[0][c][1] for c in apart_rm})} "
+          f"{clock()}")
 
     # -- phase 32: the generic (autodiff) route at full width ---------------
     from torch.func import vmap
@@ -2838,6 +2919,132 @@ def main() -> int:
           f"{json.dumps(binom_counts)} fallbacks={svgd.median_fallbacks} "
           f"run_s={binom_s:.3f} {clock()}")
 
+    # -- phase 36: the driver under SVGDOptions.mesh on one NCCL rank -------
+    group = initialize_distributed(f"tcp://localhost:{free_port()}", 1, 0)
+    check(group.backend == "nccl", f"one-rank group on {group.backend!r}")
+    mean36, cov36, x36 = flagship_mvn(SHARDED_N)
+    x36 = x36.astype(np.float32)
+    feats36, labels36, xb36 = blr_workload(1000, 50)
+    drivers36 = (
+        # name, builder, kernel under the mesh and its form, meshless kernel
+        ("flagship", lambda mesh: build_mvn_svgd(
+            torch.tensor(x36, device=dev), mean36, cov36,
+            num_iterations=COMPARE_STEPS, mesh=mesh),
+         cuda_phi.SYM_CHUNK_KERNEL, "full", cuda_phi.SYM_KERNEL),
+        ("hier", lambda mesh: build_blr_svgd(
+            torch.tensor(x0_hier, device=dev), feats_h, labels_h,
+            hierarchical=True, num_iterations=COMPARE_STEPS, mesh=mesh),
+         cuda_phi.TERMS_SYM_CHUNK_KERNEL, "full", cuda_phi.TERMS_SYM_KERNEL),
+        ("flat_blr", lambda mesh: build_blr_svgd(
+            torch.tensor(xb36, device=dev), feats36, labels36,
+            num_iterations=COMPARE_STEPS, mesh=mesh),
+         cuda_phi.SQUARE_KERNEL, False, cuda_phi.SQUARE_KERNEL),
+    )
+    main36 = {}
+    for name, make, kernel, form, meshless_kernel in drivers36:
+        meshed = make(group)
+        check(meshed.fused_sym_form == form,
+              f"phase 36 {name}: {meshed._phi_impl!r} form "
+              f"{meshed.fused_sym_form!r}, want {form!r}")
+        cuda_phi.reset_launch_counts()
+        mesh_ms = timed_steps(meshed, COMPARE_STEPS, GENERIC_WARMUP)
+        main36[name] = dict(cuda_phi.launch_counts)
+        require_only(main36[name], kernel, COMPARE_STEPS,
+                     f"phase 36 {name} under a mesh")
+        meshless = make(None)
+        cuda_phi.reset_launch_counts()
+        meshless_ms = timed_steps(meshless, COMPARE_STEPS, GENERIC_WARMUP)
+        meshless_counts = dict(cuda_phi.launch_counts)
+        require_only(meshless_counts, meshless_kernel, COMPARE_STEPS,
+                     f"phase 36 {name} without a mesh")
+        got, want = meshed.store.value, meshless.store.value
+        check(bool(got.isfinite().all()) and got.shape == want.shape,
+              f"phase 36 {name}: bad output")
+        diff = float((got.double() - want.double()).abs().max())
+        check(diff <= 1e-3, f"phase 36 {name}: the driver under a mesh is "
+              f"{diff:.3e} from the meshless driver")
+        engine = (f"{engine_ms[name]:.4f} (phase {29 if name == 'flagship' else 30})"
+                  if name in engine_ms else "not run")
+        print(f"phase 36 {name} driver under SVGDOptions.mesh, one NCCL rank, "
+              f"N={got.shape[0]} m={got.shape[1]} {meshed._phi_impl} "
+              f"form={form!r}, {COMPARE_STEPS} steps: ok "
+              f"coords_max_abs_diff_vs_meshless={diff:.3e} mesh_ms_per_step="
+              f"{mesh_ms:.4f} meshless_ms_per_step={meshless_ms:.4f} "
+              f"engine_ms_per_step={engine} (CUDA events, steps "
+              f"{GENERIC_WARMUP + 1}-{COMPARE_STEPS}) "
+              f"{kernel}_launches_per_step="
+              f"{main36[name][kernel] / COMPARE_STEPS:.3g} launches="
+              f"{json.dumps(main36[name])} meshless_launches="
+              f"{json.dumps(meshless_counts)} {card} {clock()}")
+        del meshed, meshless, got, want
+
+    # -- phase 37: the ring schedule on one NCCL rank -----------------------
+    def timed_run(eng, x):
+        """(gathered coords, ms a step from CUDA events after the warm-up
+        steps) of COMPARE_STEPS steps of an engine from x."""
+        state = eng.run_state(eng.init_state(x), GENERIC_WARMUP)
+        torch.cuda.synchronize()
+        t_start = torch.cuda.Event(enable_timing=True)
+        t_end = torch.cuda.Event(enable_timing=True)
+        t_start.record()
+        state = eng.run_state(state, COMPARE_STEPS - GENERIC_WARMUP)
+        t_end.record()
+        t_end.synchronize()
+        return (group.all_gather_rows(state["coords"]),
+                t_start.elapsed_time(t_end) / (COMPARE_STEPS - GENERIC_WARMUP))
+
+    ring37 = {}
+    for name, make, x in (
+        ("flagship", lambda **c: build_sharded_mvn_svgd(
+            x36, mean36, cov36, group, fused_phi=False, **c), x36),
+        ("hier", lambda **c: build_sharded_hier_svgd(
+            x0_hier, feats_h, labels_h, group, fused_phi=False, **c),
+         x0_hier),
+    ):
+        eng = make(phi_mode="ring")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_gib = torch.cuda.memory_allocated() / 2**30
+        cuda_phi.reset_launch_counts()
+        ring_out, ring_ms = timed_run(eng, x)
+        counts = dict(cuda_phi.launch_counts)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        check(not any(v for k, v in counts.items() if k != k16)
+              and counts[k16] >= COMPARE_STEPS,
+              f"phase 37 {name} ring launches {counts}")
+        gather_out, gather_ms = timed_run(make(), x)
+        check(bool(ring_out.isfinite().all())
+              and ring_out.shape == gather_out.shape,
+              f"phase 37 {name}: bad output")
+        diff = float((ring_out.double() - gather_out.double()).abs().max())
+        check(diff <= 1e-3, f"phase 37 {name}: ring is {diff:.3e} from "
+              "gather mode")
+        # K16 at this path's shape: the self count at the warm pass's 9
+        # edges (one rank: every ring count pass is a self count).
+        thr = count_thresholds(ring_out, ring_out, 9, False)
+        t37 = {"kernel": time_ms(lambda: cuda_phi.count_le_cuda(
+                   ring_out, ring_out, thr)),
+               "plain": plain_ms(lambda: count_le_plain(ring_out, ring_out,
+                                                        thr))}
+        n37, m37 = ring_out.shape
+        ring37[name] = {"n": n37, "m": m37, "launches": counts[k16],
+                        "times": t37}
+        tile_gib = eng.config.row_tile * n37 * 4 / 2**30
+        print(f"phase 37 {name} ring schedule (phi_mode='ring', warm median) "
+              f"one NCCL rank, N={n37} m={m37}, {COMPARE_STEPS} steps: ok "
+              f"coords_max_abs_diff_vs_gather={diff:.3e} ring_ms_per_step="
+              f"{ring_ms:.4f} gather_ms_per_step={gather_ms:.4f} (CUDA "
+              f"events, steps {GENERIC_WARMUP + 1}-{COMPARE_STEPS}) "
+              f"peak_memory_gib={peak_gib:.4f} (allocated before "
+              f"{base_gib:.4f}; one (row_tile, n_loc) float32 tile "
+              f"{tile_gib:.4f}) k16_launches_per_step="
+              f"{counts[k16] / COMPARE_STEPS:.3g} launches="
+              f"{json.dumps(counts)} k16 self T=9 kernel_ms="
+              f"{t37['kernel']:.4f} plain_ms={t37['plain']:.4f} {card} "
+              f"{clock()}")
+        del eng, ring_out, gather_out
+    torch.distributed.destroy_process_group()
+
     def main_path(phase, kernel, n, m, launches, times, **work):
         bound_ms, bound_by = sweep_bound(kernel, n, m, **work)
         path = {"phase": phase, "n": n, "m": m, "launches": launches,
@@ -2864,6 +3071,10 @@ def main() -> int:
     paths = {
         sq: [main_path(4, sq, 1500, 2, main_square[sq], k1_1500),
              main_path(12, sq, 1000, 50, main_blr[sq],
+                       times9[("square", 1000, 50)]),
+             # the flat BLR driver under a one-rank mesh: the cross form
+             # at the same shape
+             main_path(36, sq, 1000, 50, main36["flat_blr"][sq],
                        times9[("square", 1000, 50)])],
         sym: [main_path(5, sym, 10000, 2, main_sym[sym], k2_10k)],
         t_sq: [main_path(10, t_sq, 1500, 11, main_terms_sq[t_sq],
@@ -2885,8 +3096,12 @@ def main() -> int:
                          n_iso=2)],
         # One rank: the chunk is the whole triangle or panel list.
         k4: [main_path(29, k4, SHARDED_N, 2, main_shard[k4],
+                       times28[("sym_chunk", 10000, 2)]),
+             main_path(36, k4, SHARDED_N, 2, main36["flagship"][k4],
                        times28[("sym_chunk", 10000, 2)])],
         k10: [main_path(30, k10, SHARDED_N, 11, main_shard_hier[k10],
+                        times28[("terms_sym_chunk", 10000, 11)], n_iso=2),
+              main_path(36, k10, SHARDED_N, 11, main36["hier"][k10],
                         times28[("terms_sym_chunk", 10000, 11)], n_iso=2)],
         k5: [main_path(30, k5, PATH_A_N, 2, main_shard_panel[k5],
                        times28[("sympanel_chunk", PATH_A_N, 2)])],
@@ -2904,11 +3119,15 @@ def main() -> int:
                         times28[("count", PATH_A_SHORT_N, 2)], T=17),
               main_path(29, k16, SHARDED_N, 2, main_shard[k16],
                         times28[("count_cross", 10000, 2)], T=17,
-                        n_c=SHARDED_N)],
+                        n_c=SHARDED_N)]
+        # the ring schedule's count passes (phase 37), at the warm pass's
+        # 9 edges
+        + [main_path(37, k16, r["n"], r["m"], r["launches"], r["times"], T=9)
+           for r in ring37.values()],
     }
     for path in paths[k16]:
         path["bound_all_pairs_ms"] = count_bound_all_pairs(
-            path["n"], path["m"], 9 if path["phase"] == 32 else 17)[0]
+            path["n"], path["m"], 9 if path["phase"] in (32, 37) else 17)[0]
     for path in paths[k15]:
         path["bound_all_pairs_ms"] = sweep_bound(
             k15, path["n"], path["m"], all_pairs=True)[0]

@@ -12,9 +12,10 @@ AdaGrad / Adam / RMSProp, the kernel Stein discrepancy (``ksd_rbf``), the
 SVGD class's generic, dense, blocked, fused, fused_cuda, rbf_terms,
 fused_terms, fused_terms_cuda, fused_aniso_terms_cuda and cuda routes
 (with the intermediate-matrix debug dump, utils/logging.py), checkpoints
-(utils/checkpoint.py), and
-``parallel.ShardedSVGD`` over a torch.distributed group
-(``initialize_distributed``, ``make_particle_mesh``). The CUDA routes run
+(utils/checkpoint.py), the driver's ``SVGDOptions.mesh`` and
+``parallel.ShardedSVGD`` (gather mode and the ring schedule) over a
+torch.distributed group (``initialize_distributed``,
+``make_particle_mesh``). The CUDA routes run
 hand-written CUDA kernels, one for each Pallas kernel of the JAX package
 (``csrc/``), built with nvcc at their first launch.
 

@@ -61,10 +61,13 @@ def scale_from_median(med, n: int, m: int, dtype) -> torch.Tensor:
     return gamma * torch.eye(m, dtype=dtype, device=med.device)
 
 
-def median_scale(coords: torch.Tensor, median_method: str = "auto") -> torch.Tensor:
-    """P = log(n) / median^2 * I (reference GaussianRBFKernel.hpp:179-187)."""
+def median_scale(coords: torch.Tensor, median_method: str = "auto",
+                 count_env=None) -> torch.Tensor:
+    """P = log(n) / median^2 * I (reference GaussianRBFKernel.hpp:179-187);
+    ``count_env`` as in ``ops/median.pairwise_distance_median``."""
     n, m = coords.shape
-    med = pairwise_distance_median(coords, method=median_method)
+    med = pairwise_distance_median(coords, method=median_method,
+                                   count_env=count_env)
     return scale_from_median(med, n, m, coords.dtype)
 
 
@@ -176,14 +179,17 @@ class GaussianRBFKernel(Kernel):
             return fused_median_seed(coords, self.median_method, med=last[2])
         return fused_median_seed(coords, self.median_method)
 
-    def compute_scale_with_aux(self, coords, model_params=None, aux=None):
-        """Scale computation threading warm-start aux through the steps."""
+    def compute_scale_with_aux(self, coords, model_params=None, aux=None,
+                               count_env=None):
+        """Scale computation threading warm-start aux through the steps.
+        ``count_env`` as in :meth:`compute_scale_pure`."""
         if aux is None:
-            return self.compute_scale_pure(coords, model_params), None
+            return self.compute_scale_pure(coords, model_params,
+                                           count_env=count_env), None
         n, m = coords.shape
         med, lo1, hi1, lo2, hi2 = pairwise_distance_median_warm(
             coords, aux["lo1"], aux["hi1"], aux["lo2"], aux["hi2"],
-            aux["disp"],
+            aux["disp"], count_env=count_env,
         )
         scale = scale_from_median(med, n, m, coords.dtype)
         return scale, {
@@ -191,11 +197,15 @@ class GaussianRBFKernel(Kernel):
             "disp": aux["disp"],
         }
 
-    def compute_scale_pure(self, coords: torch.Tensor, model_params=None) -> torch.Tensor:
+    def compute_scale_pure(self, coords: torch.Tensor, model_params=None,
+                           count_env=None) -> torch.Tensor:
         """Pure inverse-scale computation (reference
-        GaussianRBFKernel.hpp:164-214)."""
+        GaussianRBFKernel.hpp:164-214). ``count_env`` (a MEDIAN scale on a
+        particle group): ``coords`` is the gathered global set and the
+        count passes sum the group's rows, see
+        ``ops/median.pairwise_distance_median``."""
         if self.scale_method == ScaleMethod.MEDIAN:
-            return median_scale(coords, self.median_method)
+            return median_scale(coords, self.median_method, count_env)
         if self.scale_method == ScaleMethod.HESSIAN:
             if model_params is None:
                 model_params = params_on(

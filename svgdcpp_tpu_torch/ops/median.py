@@ -299,13 +299,15 @@ def pairwise_distance_median_bisect(
     bins: int = 16,
     passes: int = 6,
     row_tile: int = 2048,
+    count_env=None,
 ) -> torch.Tensor:
     """Near-exact median of all n^2 pairwise distances by count bisection
     of squared distances (each order statistic localized to bins**-passes
-    of the range); even counts average both sqrt'ed middle ranks."""
-    n = coords.shape[0]
+    of the range); even counts average both sqrt'ed middle ranks.
+    ``count_env`` as in :func:`pairwise_distance_median`."""
+    count_fn, hi0, centered = _count_env(coords, row_tile, count_env)
+    n = centered.shape[0]
     total = n * n
-    count_fn, hi0 = centered_count_env(coords, row_tile=row_tile)
     ks = (total // 2, total // 2 + 1) if total % 2 == 0 else ((total + 1) // 2,)
     mids = kth_smallest_bisect(count_fn, ks, 0.0, hi0, bins=bins, passes=passes)
     return torch.mean(torch.sqrt(mids))
@@ -374,15 +376,15 @@ def pairwise_distance_median_hybrid(
     row_tile: int = 2048,
     fallback_bins: int = 16,
     fallback_passes: int = 6,
+    count_env=None,
 ) -> torch.Tensor:
     """Near-exact scalable median: sample bracket + count-verified refine,
-    falling back to the full-range bisection when the check fails."""
-    n = coords.shape[0]
+    falling back to the full-range bisection when the check fails.
+    ``count_env`` as in :func:`pairwise_distance_median`."""
+    count_fn, hi0, centered = _count_env(coords, row_tile, count_env)
+    n = centered.shape[0]
     total = n * n
     k1, k2 = _middle_ranks(total)
-    count_fn, hi0, centered = centered_count_env(
-        coords, row_tile=row_tile, return_centered=True
-    )
     lo_s, hi_s = median_sq_bracket_from_sample(centered, min(num_samples, total))
     fdt = SELECT_DTYPE
     lo_s = lo_s.to(fdt)
@@ -501,14 +503,14 @@ def pairwise_distance_median_warm(
     warm_passes: int = 1,
     warm_bins: int = 8,
     row_tile: int = 2048,
+    count_env=None,
 ):
-    """Single-device warm-started pairwise-distance median (see
-    :func:`warm_median_select`)."""
-    n = coords.shape[0]
+    """Warm-started pairwise-distance median (see
+    :func:`warm_median_select`); ``count_env`` as in
+    :func:`pairwise_distance_median`."""
+    count_fn, hi0, centered = _count_env(coords, row_tile, count_env)
+    n = centered.shape[0]
     total = n * n
-    count_fn, hi0, centered = centered_count_env(
-        coords, row_tile=row_tile, return_centered=True
-    )
 
     def sample_bracket_fn():
         return median_sq_bracket_from_sample(centered, min(num_samples, total))
@@ -591,11 +593,19 @@ def fused_median_from_counts(
 EXACT_MEDIAN_MAX_PARTICLES = 512
 
 
-def pairwise_distance_median(coords: torch.Tensor, method: str = "auto") -> torch.Tensor:
+def pairwise_distance_median(coords: torch.Tensor, method: str = "auto",
+                             count_env=None) -> torch.Tensor:
     """Median pairwise distance with automatic exact/hybrid dispatch.
 
     'warm' behaves like 'auto' for one-shot calls: the warm bracket only
     exists inside the SVGD step loop.
+
+    ``count_env``: None counts pairs of ``coords``; on a particle group
+    ``coords`` is the gathered global set and ``count_env()`` returns the
+    group's ``(count_fn, hi0, centered)`` (:func:`centered_count_env` of
+    this rank's rows with ``return_centered``), so the count passes sum
+    the ranks' rows while the exact median and the pair sample read the
+    global set, the same selection as on one device.
     """
     if method == "warm":
         method = "auto"
@@ -603,9 +613,9 @@ def pairwise_distance_median(coords: torch.Tensor, method: str = "auto") -> torc
     if method == "exact" or (method == "auto" and n <= EXACT_MEDIAN_MAX_PARTICLES):
         return pairwise_distance_median_exact(coords)
     if method in ("hybrid", "auto"):
-        return pairwise_distance_median_hybrid(coords)
+        return pairwise_distance_median_hybrid(coords, count_env=count_env)
     if method == "bisect":
-        return pairwise_distance_median_bisect(coords)
+        return pairwise_distance_median_bisect(coords, count_env=count_env)
     if method == "histogram":
         raise NotImplementedError(
             "median_method='histogram' is not ported yet (ROADMAP.md, "
@@ -685,7 +695,11 @@ def centered_count_env(coords, sources_global=None, *, group=None,
     the center is the global mean (summed over the group), hi0 takes the
     group's max of the local centered norms, and count_fn counts the local
     rows against the centered sources and sums the int64 counts over the
-    group, so every rank gets the same global counts.
+    group, so every rank gets the same global counts. The ring schedule has
+    no gathered set: with ``sources_global`` None the count_fn is None and
+    the caller brings its own (``parallel/ring.ring_count_le``).
+    ``return_centered`` adds the centered set: on a group, the centered
+    global sources.
     """
     if group is None:
         centered = coords - coords.mean(dim=0)
@@ -704,6 +718,8 @@ def centered_count_env(coords, sources_global=None, *, group=None,
     centered_local = coords - center
     local_max = torch.max(torch.sum(centered_local * centered_local, dim=1))
     hi0 = 4.0 * group.all_reduce_max(local_max) * (1.0 + 1e-6) + 1e-30
+    if sources_global is None:
+        return None, hi0
     sources_centered = sources_global - center
 
     def count_fn(thr):
@@ -711,4 +727,14 @@ def centered_count_env(coords, sources_global=None, *, group=None,
             centered_local, sources_centered, thr, row_tile=row_tile
         ))
 
+    if return_centered:
+        return count_fn, hi0, sources_centered
     return count_fn, hi0
+
+
+def _count_env(coords, row_tile, count_env):
+    """(count_fn, hi0, centered): ``count_env()``, or the single-device env
+    of ``coords``."""
+    if count_env is not None:
+        return count_env()
+    return centered_count_env(coords, row_tile=row_tile, return_centered=True)

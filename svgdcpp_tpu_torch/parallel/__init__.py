@@ -1,7 +1,7 @@
 """The sharded engine on torch.distributed (port of svgdcpp_tpu.parallel):
-particle groups (mesh.py) and ShardedSVGD (sharded.py). The ring schedule
-(parallel/ring.py of the JAX package) is not ported yet (ROADMAP.md item
-11)."""
+particle groups (mesh.py), ShardedSVGD in gather mode and the ring schedule
+(sharded.py, ring.py), and the multi-rank dry run on the CPU
+(``python -m svgdcpp_tpu_torch.parallel.dryrun 8``, dryrun.py)."""
 
 from .mesh import (
     ParticleGroup,
@@ -11,9 +11,19 @@ from .mesh import (
     place_replicated,
     place_sharded,
 )
+from .ring import (
+    ring_count_le,
+    ring_median_scale,
+    ring_pairwise_median,
+    ring_phi_generic,
+    ring_phi_rbf,
+    ring_phi_rbf_terms,
+)
 from .sharded import (
     ShardedSVGD,
     ShardedSVGDConfig,
+    resolve_sharded_sym,
+    sharded_fused_sweep,
     sharded_hessian_scale,
     sharded_median_scale,
     sharded_pairwise_median,

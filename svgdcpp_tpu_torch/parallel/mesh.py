@@ -4,8 +4,9 @@ Port of ``svgdcpp_tpu.parallel.mesh``. The JAX package shards the particle
 axis over a 1-D device mesh; here the counterpart is a ``torch.distributed``
 process group in which each rank owns a contiguous block of the particles
 on its own device. A ``ParticleGroup`` carries the process group, this
-rank, the world size, the device and the three collectives the sharded
-engine needs (``parallel/sharded.py``): a row gather, a sum and a max.
+rank, the world size, the device and the collectives the sharded engine
+needs (``parallel/sharded.py``): a row gather, a sum and a max, and the
+ring schedule's rotation (``parallel/ring.py``).
 
 Backends: NCCL for ranks on CUDA devices, one card each; gloo for the CPU,
 and for ranks that share one card (NCCL refuses two ranks on one device).
@@ -77,6 +78,35 @@ class ParticleGroup:
             dist.all_gather(parts, src, group=self.group)
             out = torch.cat(parts, dim=0)
         return out.to(t.device)
+
+    def rotate(self, t: torch.Tensor) -> torch.Tensor:
+        """One step of the ring (the JAX package's ``_rotate``): send ``t``
+        to rank (rank + 1) % world_size and return what rank
+        (rank - 1) % world_size sent, a tensor of the same shape and dtype
+        on t's device. Every rank of the group calls it. The send and the
+        receive go in one batch and both are waited on before the result
+        is read (at world 2 they have the same peer). At world 1 it is
+        ``t`` itself and nothing is sent."""
+        if self.world_size == 1:
+            return t
+        src = t.detach().to("cpu" if self._through_host else t.device)
+        src = src.contiguous()
+        out = torch.empty_like(src)
+        ops = [dist.P2POp(dist.isend, src, self._peer(self.rank + 1),
+                          group=self.group),
+               dist.P2POp(dist.irecv, out, self._peer(self.rank - 1),
+                          group=self.group)]
+        for request in dist.batch_isend_irecv(ops):
+            request.wait()
+        return out.to(t.device)
+
+    def _peer(self, rank: int) -> int:
+        """The global rank of this group's rank ``rank`` modulo its size
+        (what a point-to-point op names)."""
+        rank %= self.world_size
+        if self.group is None:
+            return rank
+        return dist.get_global_rank(self.group, rank)
 
     def rows(self, num_particles: int) -> slice:
         """This rank's rows of a global (num_particles, m) array."""

@@ -9,7 +9,8 @@ group's collectives (``parallel/mesh.ParticleGroup``):
      global set (one all-gather of the coordinates and one of the scores per
      step), or, with ``fused_sym``, this rank's chunk of the GLOBAL upper
      triangle, whose raw accumulators are summed over the group before each
-     rank finishes its band;
+     rank finishes its band, or, with ``phi_mode='ring'``, the other ranks'
+     blocks streamed round the ring with no gather (``parallel/ring.py``);
   2. the global pairwise-distance median: per-rank int64 threshold counts
      summed over the group, then the same deterministic selection on every
      rank.
@@ -27,10 +28,13 @@ flatten to RBF terms and any other kernel through the generic (VJP) sweep
 sources), MEDIAN / HESSIAN / CONSTANT scales, bounds, annealing,
 ``track_stats``, intermediate-matrix logging (each rank's row bands of K
 and grad-K, gathered into the global matrices), custom model or kernel
-Step hooks (run eagerly before each step), parameter hot-swap and
+Step hooks (run eagerly before each step), parameter hot-swap,
 checkpoints (the engine's states are ``ShardedState``s, which
-``utils/checkpoint`` gathers and splits). ``phi_mode='ring'`` raises
-NotImplementedError naming its ROADMAP.md item.
+``utils/checkpoint`` gathers and splits) and the ring schedule
+(``phi_mode='ring'``: the built-in RBF, composed kernels as RBF terms and
+any other kernel through the generic sweep, the median by count bisection
+of ring counts, cold or warm; gather mode is what the fused sweep and the
+debug dump need).
 """
 
 from __future__ import annotations
@@ -91,6 +95,13 @@ from ..optimizers.base import _map_pair
 from ..svgd import SVGD, _not_ported, _skip_section
 from ..utils.logging import write_intermediate_matrices
 from .mesh import ParticleGroup, initialize_distributed, place_replicated
+from .ring import (
+    ring_count_le,
+    ring_median_scale,
+    ring_phi_generic,
+    ring_phi_rbf,
+    ring_phi_rbf_terms,
+)
 
 
 # ----------------------------------------------------------------------
@@ -195,6 +206,95 @@ def sym_panel_sharded_phi(coords_local, scores_local, sources, scores_global,
     return phi.to(coords_local.dtype), 2 * upper - n
 
 
+def resolve_sharded_sym(fused_sym, fused_cuda: bool, n: int, m: int,
+                        world: int, single_rbf: bool):
+    """The form of the fused sweep over ``world`` ranks: "full", "panel"
+    or False (the cross sweep), for ``fused_sym`` None (the JAX decision
+    for the global n, m and the world size: the full-width triangle while
+    the TPU's accumulator budget holds, ops/sym_plan.sym_sharded_plan, else
+    the panel form for one RBF, else the cross sweep), True (that decision,
+    raising where it is the cross sweep), "full" / "panel" (forced at any
+    n) or False. The triangle forms need the CUDA sweep (``fused_cuda``;
+    on CPU tensors its plain chunk versions run). The engine's
+    ``fused_sym`` and the driver's under ``SVGDOptions.mesh`` resolve
+    here."""
+    if fused_sym is False:
+        return False
+    if fused_sym in ("full", "panel"):
+        if not fused_cuda:
+            raise ValueError(
+                f"fused_sym={fused_sym!r} requires the CUDA fused sweep "
+                "(fused_cuda)."
+            )
+        if fused_sym == "panel" and not single_rbf:
+            raise ValueError(
+                "fused_sym='panel' takes the built-in single RBF only "
+                "(the JAX package has no sharded composed panel sweep)."
+            )
+        return fused_sym
+    mode = False
+    if fused_cuda:
+        if sym_sharded_plan(n, m, world) is not None:
+            mode = "full"
+        elif single_rbf and sym_panel_sharded_plan(n, m, world) is not None:
+            mode = "panel"
+    if fused_sym is None:
+        return mode
+    if not mode:
+        raise ValueError(
+            "fused_sym=True requires the CUDA fused sweep (fused_cuda) "
+            "and a global particle count in the triangle regime: "
+            "full-width ((2m+1, n_pad) accumulator within the TPU "
+            "budget, ops/sym_plan.sym_sharded_plan) or the single-RBF "
+            "panel regime (ops/sym_plan.sym_panel_sharded_plan); "
+            "'full' or 'panel' force a form at any n."
+        )
+    return mode
+
+
+def sharded_fused_sweep(coords_local, scores_local, sources, scores_global,
+                        group, thresholds, form, cuda: bool, *, gamma=None,
+                        gammas=None, signs=None, row_tile: int = 1024):
+    """One fused sweep of this rank's rows over the group: phi_local and the
+    GLOBAL int64 selection counts at ``thresholds``. ``form`` as
+    :func:`resolve_sharded_sym` gives it: "panel" (K5's chunk), "full"
+    (K4's chunk for one RBF's ``gamma``, K10/K11's for a composed kernel's
+    ``gammas`` and ``signs``) or False: the local rows against the
+    gathered sources, through K1 / the terms square kernel (K6/K7's port)
+    when ``cuda`` and the plain cross sweeps otherwise, the counts summed
+    over the group. Shared by the engine and the driver under a mesh."""
+    terms = gammas is not None
+    if form == "panel":
+        return sym_panel_sharded_phi(
+            coords_local, scores_local, sources, scores_global, group,
+            thresholds, gamma=gamma,
+        )
+    if form:
+        return sym_sharded_phi(
+            coords_local, scores_local, sources, scores_global, group,
+            thresholds, gamma=None if terms else gamma,
+            gammas=gammas if terms else None, signs=signs if terms else None,
+        )
+    if terms and cuda:
+        phi_local, counts_local = phi_rbf_terms_fused_cuda_cross(
+            coords_local, sources, scores_global, gammas, signs, thresholds,
+        )
+    elif terms:
+        phi_local, counts_local = phi_rbf_terms_cross_fused_counts(
+            coords_local, sources, scores_global, gammas, signs, thresholds,
+            row_tile,
+        )
+    elif cuda:
+        phi_local, counts_local = phi_rbf_fused_cuda_cross(
+            coords_local, sources, scores_global, gamma, thresholds,
+        )
+    else:
+        phi_local, counts_local = phi_rbf_cross_fused_counts(
+            coords_local, sources, scores_global, gamma, thresholds, row_tile,
+        )
+    return phi_local, group.all_reduce_sum(counts_local)
+
+
 # ----------------------------------------------------------------------
 # The engine
 # ----------------------------------------------------------------------
@@ -223,7 +323,8 @@ class ShardedSVGDConfig:
     median_bins: int = 16
     median_passes: int = 6
     row_tile: int = 1024
-    #: 'gather' (one all-gather per step); 'ring' is not ported yet.
+    #: 'gather' (one all-gather per step) or 'ring' (the blocks rotate
+    #: round the group, parallel/ring.py; no rank holds the global set).
     phi_mode: str = "gather"
     #: Carry the median bracket across steps (one verified count pass per
     #: step instead of a full bisection; ops/median.warm_median_select).
@@ -328,9 +429,6 @@ class ShardedSVGD:
                 "duplicates: padded particles participate in phi and the "
                 "median and bias the posterior."
             )
-        if cfg.phi_mode == "ring":
-            raise _not_ported("phi_mode='ring'",
-                              "item 11a (parallel/ring.py)")
         if cfg.fused_dot_dtype != "float32":
             raise _not_ported(f"fused_dot_dtype={cfg.fused_dot_dtype!r}",
                               "item 15 (the bfloat16 operand opt-in)")
@@ -417,44 +515,14 @@ class ShardedSVGD:
 
     def _resolve_fused_sym(self):
         """The form of the fused sweep: "full", "panel" or False (see
-        ShardedSVGDConfig.fused_sym). The JAX decision chunks by the
-        group's world size."""
+        ShardedSVGDConfig.fused_sym and :func:`resolve_sharded_sym`)."""
         cfg = self.config
-        if cfg.fused_sym is False or not cfg.fused_phi:
+        if not cfg.fused_phi:
             return False
-        n, m, world = self.num_particles, self.dimension, self.mesh.world_size
-        if cfg.fused_sym in ("full", "panel"):
-            if not self._fused_cuda:
-                raise ValueError(
-                    f"fused_sym={cfg.fused_sym!r} requires the CUDA fused "
-                    "sweep (fused_cuda)."
-                )
-            if cfg.fused_sym == "panel" and self.kernel is not None:
-                raise ValueError(
-                    "fused_sym='panel' takes the built-in single RBF only "
-                    "(the JAX package has no sharded composed panel sweep)."
-                )
-            return cfg.fused_sym
-        mode = False
-        if self._fused_cuda:
-            if sym_sharded_plan(n, m, world) is not None:
-                mode = "full"
-            elif self.kernel is None and sym_panel_sharded_plan(
-                n, m, world
-            ) is not None:
-                mode = "panel"
-        if cfg.fused_sym is None:
-            return mode
-        if not mode:
-            raise ValueError(
-                "fused_sym=True requires the CUDA fused sweep (fused_cuda) "
-                "and a global particle count in the triangle regime: "
-                "full-width ((2m+1, n_pad) accumulator within the TPU "
-                "budget, ops/sym_plan.sym_sharded_plan) or the single-RBF "
-                "panel regime (ops/sym_plan.sym_panel_sharded_plan); "
-                "'full' or 'panel' force a form at any n."
-            )
-        return mode
+        return resolve_sharded_sym(
+            cfg.fused_sym, self._fused_cuda, self.num_particles,
+            self.dimension, self.mesh.world_size, self.kernel is None,
+        )
 
     def _refresh_psd(self):
         """Per-term PSD clamp flags of a composed kernel (re-run on
@@ -550,13 +618,21 @@ class ShardedSVGD:
     def _warm(self) -> bool:
         return self.config.warm_start and self._has_median
 
+    def _cold_median_scale(self, coords_local, sources):
+        """The group's median scale by full count bisection: gathered
+        sources, or ring counts in ring mode (``sources`` None)."""
+        cfg = self.config
+        kw = dict(bins=cfg.median_bins, passes=cfg.median_passes,
+                  row_tile=cfg.row_tile)
+        if sources is None:
+            return ring_median_scale(coords_local, self.mesh,
+                                     self.num_particles, **kw)
+        return sharded_median_scale(coords_local, sources, self.mesh, **kw)
+
     def _scale(self, coords_local, sources, model_params):
         cfg = self.config
         if cfg.scale_method == ScaleMethod.MEDIAN:
-            return sharded_median_scale(
-                coords_local, sources, self.mesh, bins=cfg.median_bins,
-                passes=cfg.median_passes, row_tile=cfg.row_tile,
-            )
+            return self._cold_median_scale(coords_local, sources)
         if cfg.scale_method == ScaleMethod.HESSIAN:
             return sharded_hessian_scale(
                 coords_local, self.model.hessian_log_density_pure,
@@ -567,7 +643,9 @@ class ShardedSVGD:
         )
 
     def _median_scale_warm(self, coords_local, sources, scale_aux):
-        """Warm-started group median (ops/median.warm_median_select)."""
+        """Warm-started group median (ops/median.warm_median_select). In
+        ring mode (``sources`` None) the counts stream round the ring and
+        there is no sample bracket: sampling pairs needs the global set."""
         cfg = self.config
         n = self.num_particles
         total = n * n
@@ -576,11 +654,18 @@ class ShardedSVGD:
             coords_local, sources, group=self.mesh, n_global=n,
             row_tile=cfg.row_tile,
         )
+        if sources is None:
+            def count_fn(thr):
+                return ring_count_le(coords_local, thr, self.mesh, n,
+                                     row_tile=cfg.row_tile)
 
-        def sample_fn():
-            # The gathered sources are the same on every rank, so is the
-            # sample.
-            return median_sq_bracket_from_sample(sources, min(1 << 16, total))
+            sample_fn = None
+        else:
+            def sample_fn():
+                # The gathered sources are the same on every rank, so is
+                # the sample.
+                return median_sq_bracket_from_sample(sources,
+                                                     min(1 << 16, total))
 
         med, n_lo1, n_hi1, n_lo2, n_hi2 = warm_median_select(
             count_fn, total, hi0, lo1_d, hi1_d, lo2_d, hi2_d, disp,
@@ -604,10 +689,7 @@ class ShardedSVGD:
                     coords_local, sources, scale_aux
                 )
             else:
-                med_scale = sharded_median_scale(
-                    coords_local, sources, self.mesh, bins=cfg.median_bins,
-                    passes=cfg.median_passes, row_tile=cfg.row_tile,
-                )
+                med_scale = self._cold_median_scale(coords_local, sources)
         for i, (idx, owner) in enumerate(self._adaptive_slots):
             if owner.scale_method == ScaleMethod.MEDIAN:
                 kparams[idx] = med_scale.to(kparams[idx].dtype)
@@ -647,38 +729,13 @@ class ShardedSVGD:
                                          device=coords_local.device),)
         section("plan")
         scores = group.all_gather_rows(scores_local)
-        if self._fused_sym == "panel":
-            phi_local, counts = sym_panel_sharded_phi(
-                coords_local, scores_local, sources, scores, group,
-                thresholds, gamma=gamma,
-            )
-        elif self._fused_sym:
-            phi_local, counts = sym_sharded_phi(
-                coords_local, scores_local, sources, scores, group,
-                thresholds, gamma=None if fused_terms else gamma,
-                gammas=gammas if fused_terms else None,
-                signs=signs if fused_terms else None,
-            )
-        else:
-            if fused_terms and self._fused_cuda:
-                phi_local, counts_local = phi_rbf_terms_fused_cuda_cross(
-                    coords_local, sources, scores, gammas, signs, thresholds,
-                )
-            elif fused_terms:
-                phi_local, counts_local = phi_rbf_terms_cross_fused_counts(
-                    coords_local, sources, scores, gammas, signs, thresholds,
-                    cfg.row_tile,
-                )
-            elif self._fused_cuda:
-                phi_local, counts_local = phi_rbf_fused_cuda_cross(
-                    coords_local, sources, scores, gamma, thresholds,
-                )
-            else:
-                phi_local, counts_local = phi_rbf_cross_fused_counts(
-                    coords_local, sources, scores, gamma, thresholds,
-                    cfg.row_tile,
-                )
-            counts = group.all_reduce_sum(counts_local)
+        phi_local, counts = sharded_fused_sweep(
+            coords_local, scores_local, sources, scores, group, thresholds,
+            self._fused_sym, self._fused_cuda,
+            gamma=None if fused_terms else gamma,
+            gammas=gammas if fused_terms else None,
+            signs=signs if fused_terms else None, row_tile=cfg.row_tile,
+        )
         section("sweep")
         med_new, lo1, hi1, lo2, hi2, fell_back = fused_median_from_counts(
             counts, sel, n * n,
@@ -714,8 +771,9 @@ class ShardedSVGD:
                 tau, dtype=scores_local.dtype, device=scores_local.device
             )
         section("scores")
-        # One gather shared by the bandwidth and phi.
-        sources = group.all_gather_rows(coords_local)
+        ring = cfg.phi_mode == "ring"
+        # One gather shared by the bandwidth and phi; none in ring mode.
+        sources = None if ring else group.all_gather_rows(coords_local)
         section("gather")
         if self.kernel is not None and not cfg.fused_phi:
             kparams, scale_aux = self._slot_scales(
@@ -723,16 +781,27 @@ class ShardedSVGD:
                 state["slot_model_params"],
             )
             section("scale")
-            scores = group.all_gather_rows(scores_local)
-            if self._rbf_terms is not None:
+            if ring and self._rbf_terms is not None:
+                phi_local = ring_phi_rbf_terms(
+                    coords_local, scores_local, kparams, self._rbf_terms,
+                    group, n, psd_flags=self._term_psd,
+                    row_tile=cfg.row_tile,
+                )
+            elif ring:
+                phi_local = ring_phi_generic(
+                    coords_local, scores_local, self.kernel.kernel_pure,
+                    kparams, group, n, cfg.row_tile,
+                )
+            elif self._rbf_terms is not None:
                 phi_local = phi_rbf_terms_cross(
-                    coords_local, sources, scores, kparams, self._rbf_terms,
-                    cfg.row_tile, psd_flags=self._term_psd,
+                    coords_local, sources, group.all_gather_rows(scores_local),
+                    kparams, self._rbf_terms, cfg.row_tile,
+                    psd_flags=self._term_psd,
                 )
             else:
                 phi_local = phi_generic_cross(
-                    coords_local, sources, scores, self.kernel.kernel_pure,
-                    kparams, cfg.row_tile,
+                    coords_local, sources, group.all_gather_rows(scores_local),
+                    self.kernel.kernel_pure, kparams, cfg.row_tile,
                 )
             section("sweep")
         elif cfg.fused_phi:
@@ -749,11 +818,16 @@ class ShardedSVGD:
                 p_matrix = self._scale(coords_local, sources, mparams)
             kparams = (p_matrix,)
             section("scale")
-            scores = group.all_gather_rows(scores_local)
-            phi_local = phi_rbf_cross(
-                coords_local, sources, scores, p_matrix, cfg.row_tile,
-                psd=self._rbf_psd,
-            )
+            if ring:
+                phi_local = ring_phi_rbf(
+                    coords_local, scores_local, p_matrix, group, n,
+                    psd=self._rbf_psd, row_tile=cfg.row_tile,
+                )
+            else:
+                phi_local = phi_rbf_cross(
+                    coords_local, sources, group.all_gather_rows(scores_local),
+                    p_matrix, cfg.row_tile, psd=self._rbf_psd,
+                )
             section("sweep")
         if getattr(self.optimizer, "needs_params", False):
             opt_state, inc = self.optimizer.step(

@@ -56,9 +56,22 @@ n x n x m, for small debug runs), and ``run()`` writes them through
 ``utils/logging.write_intermediate_matrices`` and keeps them as
 ``_intermediate_logs``.
 
-``SVGDOptions.mesh`` raises NotImplementedError naming the ROADMAP.md
-item that ports it; no other route is substituted. A JAX route name whose
-CUDA counterpart has another name raises ValueError naming it.
+``SVGDOptions.mesh`` takes a ``parallel.ParticleGroup``
+(``make_particle_mesh()`` or ``make_particle_group()``) and splits the
+particle axis over its ranks, the driver's API and lifecycle unchanged:
+every rank builds the driver with the same options and calls the same
+methods (the collectives pair up), each steps its own rows, and ``run()``
+returns the gathered global coordinates on every rank. The trajectory is
+the one the same route gives without a mesh, up to float summation order.
+The plain routes and the debug dump take this rank's rows against the
+sources and scores gathered once a step (the ``_cross`` sweeps), with the
+route's own median over the group's summed counts; ``fused_cuda`` and
+``fused_terms_cuda`` run the sharded engine's forms (the triangle chunk,
+the panel chunk or the cross sweep, ``parallel/sharded.resolve_sharded_sym``).
+``fused_aniso_terms_cuda`` and ``cuda`` raise under a mesh, as their JAX
+counterparts do, and so does a particle count that does not split evenly.
+A JAX route name whose CUDA counterpart has another name raises ValueError
+naming it.
 
 Where it runs: a coordinate matrix that is a tensor keeps its device; any
 other (a numpy array, a list) goes to ``SVGDOptions.device``, the card by
@@ -112,11 +125,15 @@ from .ops.median import (
 )
 from .ops.phi import (
     kernel_matrix_and_grad,
+    kernel_matrix_and_grad_cross,
     phi_generic,
+    phi_generic_cross,
     phi_rbf,
     phi_rbf_blocked,
+    phi_rbf_cross,
     phi_rbf_fused_counts,
     phi_rbf_terms,
+    phi_rbf_terms_cross,
     phi_rbf_terms_fused_counts,
 )
 from .optimizers.base import Optimizer
@@ -177,6 +194,21 @@ def _coords_store(coords, device) -> ParticleStore:
     )
 
 
+def _check_mesh(mesh):
+    """SVGDOptions.mesh: None or a parallel.ParticleGroup."""
+    if mesh is None:
+        return None
+    from .parallel.mesh import ParticleGroup
+
+    if not isinstance(mesh, ParticleGroup):
+        raise TypeError(
+            SVGD_LOG_PREFIX + "SVGDOptions.mesh takes a parallel."
+            "ParticleGroup (make_particle_mesh() or make_particle_group()), "
+            f"got {type(mesh).__name__}"
+        )
+    return mesh
+
+
 def _aniso_accumulators(split) -> int:
     """Gradient accumulators of an iso/aniso term split: one shared by the
     isotropic terms, one per anisotropic term."""
@@ -227,7 +259,8 @@ class SVGDOptions:
     # --- extensions shared with svgdcpp_tpu ---
     phi_impl: str = "auto"  # 'auto' or one of the routes above
     row_tile: int = 1024
-    mesh: Any = None  # multi-device sharding: not ported yet
+    #: A parallel.ParticleGroup to split the particle axis over.
+    mesh: Any = None
     #: Annealed SVGD: per-iteration temperature tau scaling the scores. A
     #: (num_iterations,) array, or a callable iteration (int) -> tau.
     annealing: Any = None
@@ -309,12 +342,17 @@ class SVGD:
             opts = SVGDOptions(**merged)
 
         self.options = opts
+        #: The ParticleGroup the particle axis is split over, or None.
+        self.mesh = _check_mesh(opts.mesh)
         self.store: ParticleStore = _coords_store(
-            opts.coordinate_matrix, opts.device
+            opts.coordinate_matrix,
+            opts.device if self.mesh is None else self.mesh.device,
         )
         self.dimension = self.store.dimension
         self.num_particles = self.store.num_particles
         self.num_iterations = int(opts.num_iterations)
+        if self.mesh is not None:
+            self._check_mesh_split()
 
         # Dimension check (reference SVGD.hpp:169-173).
         if self.dimension != int(opts.dimension):
@@ -348,7 +386,6 @@ class SVGD:
 
         self.log_intermediate_matrices = bool(opts.log_intermediate_matrices)
         self.intermediate_matrices_output_path = opts.intermediate_matrices_output_path
-        self.mesh = opts.mesh
         #: Called with each section's name as the step ends it (scores,
         #: plan, sweep, median, optimizer on the fused routes; scores,
         #: scale, sweep, optimizer on the others), for a profiler to time
@@ -370,6 +407,9 @@ class SVGD:
         self.kernel.initialize()
         coords = self.store.value
         self._opt_state = self.optimizer.init(coords.dtype, coords.device)
+        if self.mesh is not None:
+            self._opt_state = self.optimizer.shard_state(
+                self._opt_state, self.mesh.rows(self.num_particles))
         self._iteration = 0
         self._scale_aux = None
         #: Bisection fallbacks taken by the fused routes' median update.
@@ -379,13 +419,31 @@ class SVGD:
         self._initialized = True
         return self
 
+    def _check_mesh_split(self):
+        """Under a mesh: the coordinates on the group's device, and a
+        particle count that splits evenly over its ranks."""
+        mesh = self.mesh
+        device = self.store.value.device
+        if device != mesh.device and not (
+            device.type == mesh.device.type == "cuda"
+            and mesh.device.index is None
+        ):
+            raise ValueError(
+                SVGD_LOG_PREFIX + f"the coordinates are on {device}, "
+                f"SVGDOptions.mesh's ranks on {mesh.device}"
+            )
+        if self.num_particles % mesh.world_size:
+            raise DimensionMismatchError(
+                f"num_particles ({self.num_particles}) must divide evenly "
+                f"over the {mesh.world_size} ranks of SVGDOptions.mesh "
+                "(uneven splits are ROADMAP.md item 11e; GSPMD gives them "
+                "to the JAX driver's non-kernel routes). Do NOT pad the "
+                "particle set with duplicates: padded particles participate "
+                "in phi and the median and bias the posterior."
+            )
+
     def _select_impl(self):
         opts = self.options
-        if opts.mesh is not None:
-            raise _not_ported(
-                "SVGDOptions.mesh",
-                "item 11b (the sharded engine is parallel.ShardedSVGD)",
-            )
         self._is_rbf = (
             isinstance(self.kernel, GaussianRBFKernel)
             and self.kernel._kernel_fn is rbf_kernel_fn
@@ -457,6 +515,15 @@ class SVGD:
                     "term gamma to be provably positive (no division terms, "
                     "positive constant scales); use 'fused_terms'."
                 )
+        if self.mesh is not None and impl in ("fused_aniso_terms_cuda",
+                                              "cuda"):
+            raise ValueError(
+                f"phi_impl={impl!r} does not support SVGDOptions.mesh (the "
+                "sweep is single-device); use "
+                + ("'rbf_terms'" if impl == "fused_aniso_terms_cuda"
+                   else "'fused_cuda' or 'blocked'")
+                + " under a mesh."
+            )
         if impl in ("fused", "fused_cuda") and (
             getattr(self.kernel, "scale_method", None)
             != GaussianRBFKernel.ScaleMethod.MEDIAN
@@ -476,10 +543,19 @@ class SVGD:
         self._phi_impl = impl
         #: The form of the sweep the fused kernel routes run: False (square),
         #: True (full-width triangle) or "panel" (ops/cuda_phi.resolve_sym
-        #: of SVGDOptions.fused_sym for this n, m and term count); None on
-        #: the other routes.
+        #: of SVGDOptions.fused_sym for this n, m and term count); under a
+        #: mesh the sharded engine's "full", "panel" or False (the cross
+        #: sweep) for the group's world size; None on the other routes.
         self.fused_sym_form = None
-        if impl == "fused_cuda":
+        if self.mesh is not None and impl in ("fused_cuda",
+                                              "fused_terms_cuda"):
+            from .parallel.sharded import resolve_sharded_sym
+
+            self.fused_sym_form = resolve_sharded_sym(
+                opts.fused_sym, True, self.num_particles, self.dimension,
+                self.mesh.world_size, impl == "fused_cuda",
+            )
+        elif impl == "fused_cuda":
             self.fused_sym_form = resolve_sym(
                 opts.fused_sym, self.num_particles, self.dimension
             )
@@ -534,8 +610,10 @@ class SVGD:
         """Whether the JAX package's TPU rule would take the anisotropic
         fused sweep (``_aniso_terms_auto_ok``): a supported composition
         with at least one anisotropic term and at most 8 gradient
-        accumulators, from SYM_MIN_N particles up. Its VMEM budget has no
-        counterpart on the card and is left out."""
+        accumulators, from SYM_MIN_N particles up, never under a mesh. Its
+        VMEM budget has no counterpart on the card and is left out."""
+        if self.mesh is not None:
+            return False
         params = self.kernel.parameters
         if not fused_aniso_terms_supported(
             self._rbf_terms, self._adaptive_slots, params
@@ -603,7 +681,9 @@ class SVGD:
     # ------------------------------------------------------------------
     # Pure step construction
     # ------------------------------------------------------------------
-    def _phi(self, coords, scores, kparams):
+    def _phi(self, coords, scores, kparams, sources=None, source_scores=None):
+        if self.mesh is not None:
+            return self._phi_cross(coords, sources, source_scores, kparams)
         if self._phi_impl == "generic":
             return phi_generic(
                 coords, scores, self.kernel.kernel_pure, kparams,
@@ -627,6 +707,23 @@ class SVGD:
                 eig=self._fixed_p_eigen(kparams[0]),
             )
         raise ValueError(f"unknown phi_impl {self._phi_impl!r}")
+
+    def _phi_cross(self, coords, sources, source_scores, kparams):
+        """phi of this rank's rows against the gathered sources and scores
+        (the plain routes under a mesh)."""
+        tile = self.options.row_tile
+        if self._phi_impl == "generic":
+            return phi_generic_cross(
+                coords, sources, source_scores, self.kernel.kernel_pure,
+                kparams, tile,
+            )
+        if self._phi_impl == "rbf_terms":
+            return phi_rbf_terms_cross(
+                coords, sources, source_scores, kparams, self._rbf_terms,
+                tile, psd_flags=self._term_psd,
+            )
+        return phi_rbf_cross(coords, sources, source_scores, kparams[0], tile,
+                             psd=self._rbf_psd)
 
     def _fixed_p_eigen(self, p):
         """(lam, V) of P_sym/2 for the 'cuda' route where the step can keep
@@ -666,27 +763,45 @@ class SVGD:
                                         cholesky_factors(ps, ps[0].device))
         return self._aniso_factor_cache[1]
 
-    def _scale_params(self, coords, mparams, kparams, scale_aux, slot_mparams):
+    def _scale_params(self, coords, mparams, kparams, scale_aux, slot_mparams,
+                      sources=None):
         """Per-step bandwidth adaptation (reference kernel Step(),
         GaussianRBFKernel.hpp:141-156): each adaptive slot is refilled by
-        its owning kernel, threading the warm-start aux."""
+        its owning kernel, threading the warm-start aux. Under a mesh a
+        median slot selects on the gathered ``sources`` with the group's
+        summed counts, and a Hessian slot sums the ranks' rows."""
         if not self._adaptive_slots:
             return kparams, scale_aux
         kparams = list(kparams)
         new_aux = list(scale_aux)
+        target, kw = coords, {}
+        if self.mesh is not None:
+            from .parallel.sharded import sharded_hessian_scale
+
+            target = sources
+            kw["count_env"] = lambda: centered_count_env(
+                coords, sources, group=self.mesh,
+                n_global=self.num_particles, return_centered=True,
+            )
         for i, (idx, owner) in enumerate(self._adaptive_slots):
             if owner.target_model is self.model:
                 mp = mparams
             else:
                 mp = slot_mparams[i]  # None when the slot has no model
-            if scale_aux[i] is not None and hasattr(owner, "compute_scale_with_aux"):
+            if (self.mesh is not None and owner.scale_method
+                    == GaussianRBFKernel.ScaleMethod.HESSIAN):
+                kparams[idx] = sharded_hessian_scale(
+                    coords, owner.target_model.hessian_log_density_pure, mp,
+                    self.mesh, self.num_particles,
+                )
+            elif scale_aux[i] is not None and hasattr(owner, "compute_scale_with_aux"):
                 kparams[idx], new_aux[i] = owner.compute_scale_with_aux(
-                    coords, mp, scale_aux[i]
+                    target, mp, scale_aux[i], **kw
                 )
             elif mp is not None:
-                kparams[idx] = owner.compute_scale_pure(coords, mp)
+                kparams[idx] = owner.compute_scale_pure(target, mp, **kw)
             else:
-                kparams[idx] = owner.compute_scale_pure(coords)
+                kparams[idx] = owner.compute_scale_pure(target, **kw)
         return tuple(kparams), tuple(new_aux)
 
     def build_step_fn(self):
@@ -729,6 +844,9 @@ class SVGD:
         track_stats = self.options.track_stats
         collect_debug = self.log_intermediate_matrices
         section = self.section_hook or _skip_section
+        mesh = self.mesh
+        if mesh is not None and fused:
+            from .parallel.sharded import sharded_fused_sweep
 
         def step_fn(state, _=None):
             coords = state["coords"]
@@ -744,10 +862,16 @@ class SVGD:
                     tau, dtype=scores.dtype, device=scores.device
                 )
             section("scores")
+            sources = source_scores = None
+            if mesh is not None:
+                # One gather of each a step, shared by the median and phi.
+                sources = mesh.all_gather_rows(coords)
+                source_scores = mesh.all_gather_rows(scores)
+                section("gather")
             if fused:
                 # ONE O(n^2) sweep: phi with the PREVIOUS step's verified
                 # median (lag-1) + this step's selection counts.
-                n, m = coords.shape
+                n, m = self.num_particles, coords.shape[1]
                 aux = state["scale_aux"][0]
                 fdt = aux["med"].dtype
                 gamma, sel = fused_lag1_plan(aux, n, fused_bins, coords.dtype)
@@ -766,7 +890,16 @@ class SVGD:
                         * torch.eye(m, dtype=coords.dtype, device=coords.device),
                     )
                 section("plan")
-                if fused_aniso:
+                if mesh is not None:
+                    phi, counts = sharded_fused_sweep(
+                        coords, scores, sources, source_scores, mesh,
+                        thresholds, self.fused_sym_form, on_kernels,
+                        gamma=None if fused_terms else gamma,
+                        gammas=gammas if fused_terms else None,
+                        signs=term_signs if fused_terms else None,
+                        row_tile=row_tile,
+                    )
+                elif fused_aniso:
                     # The kept factors stand for the precisions.
                     phi, counts = phi_rbf_aniso_terms_fused_cuda(
                         coords, scores,
@@ -798,9 +931,14 @@ class SVGD:
                         coords, scores, gamma, thresholds, row_tile
                     )
                 section("sweep")
+                # Under a mesh the counts are the group's sums and the
+                # brackets the same on every rank, so every rank takes the
+                # fallback, and its collective count passes, together.
                 med_new, lo1, hi1, lo2, hi2, fell_back = fused_median_from_counts(
                     counts, sel, n * n,
-                    lambda: centered_count_env(coords, row_tile=row_tile),
+                    lambda: centered_count_env(
+                        coords, sources, group=mesh, n_global=n,
+                        row_tile=row_tile),
                     initialized=aux["hi1"] >= aux["lo1"],
                 )
                 if fell_back:
@@ -819,10 +957,11 @@ class SVGD:
             else:
                 kparams, scale_aux = self._scale_params(
                     coords, mparams, state["kernel_params"], state["scale_aux"],
-                    state["slot_model_params"],
+                    state["slot_model_params"], sources,
                 )
                 section("scale")
-                phi = self._phi(coords, scores, kparams)
+                phi = self._phi(coords, scores, kparams, sources,
+                                source_scores)
                 section("sweep")
             # getattr: duck-typed user optimizers need not subclass Optimizer
             if getattr(self.optimizer, "needs_params", False):
@@ -837,11 +976,13 @@ class SVGD:
             if bounds[1] is not None:
                 new_coords = torch.minimum(new_coords, bounds[1])
             if any(a is not None for a in scale_aux):
-                # Max particle displacement of THIS update (clamp included):
-                # next step's bracket expands by 2x this.
-                disp = torch.sqrt(
-                    torch.max(torch.sum((new_coords - coords) ** 2, dim=1))
-                )
+                # Max particle displacement of THIS update (clamp included,
+                # over the group under a mesh): next step's bracket expands
+                # by 2x this.
+                moved = torch.max(torch.sum((new_coords - coords) ** 2, dim=1))
+                if mesh is not None:
+                    moved = mesh.all_reduce_max(moved)
+                disp = torch.sqrt(moved)
                 scale_aux = tuple(
                     {**a, "disp": disp.to(a["disp"].dtype)}
                     if a is not None
@@ -859,9 +1000,15 @@ class SVGD:
             }
             stats = None
             if collect_debug:
-                k_mat, k_grad = kernel_matrix_and_grad(
-                    coords, self.kernel.kernel_pure, kparams
-                )
+                # Under a mesh this rank's row bands; run() gathers them.
+                if mesh is None:
+                    k_mat, k_grad = kernel_matrix_and_grad(
+                        coords, self.kernel.kernel_pure, kparams
+                    )
+                else:
+                    k_mat, k_grad = kernel_matrix_and_grad_cross(
+                        coords, sources, self.kernel.kernel_pure, kparams
+                    )
                 stats = {
                     "log_model_grad": scores,
                     "kernel": k_mat,
@@ -877,11 +1024,19 @@ class SVGD:
                     bandwidth = torch.full(
                         (), float("nan"), dtype=coords.dtype, device=coords.device
                     )
+                if mesh is None:
+                    phi_rms = torch.sqrt(torch.mean(phi * phi))
+                    step_max = torch.max(torch.sqrt(
+                        torch.sum((new_coords - coords) ** 2, dim=1)))
+                else:
+                    phi_rms = torch.sqrt(
+                        mesh.all_reduce_sum(torch.sum(phi * phi))
+                        / (self.num_particles * coords.shape[1]))
+                    step_max = torch.sqrt(mesh.all_reduce_max(torch.max(
+                        torch.sum((new_coords - coords) ** 2, dim=1))))
                 stats = {
-                    "phi_rms": torch.sqrt(torch.mean(phi * phi)),
-                    "step_max": torch.max(
-                        torch.sqrt(torch.sum((new_coords - coords) ** 2, dim=1))
-                    ),
+                    "phi_rms": phi_rms,
+                    "step_max": step_max,
                     "bandwidth": bandwidth,
                 }
             section("optimizer")
@@ -891,9 +1046,10 @@ class SVGD:
 
     def make_state(self):
         """Assemble the state from the current component parameters, on the
-        coordinates' device."""
+        coordinates' device; under a mesh this rank's rows of the
+        coordinates and of the optimizer state."""
         coords = self.store.value
-        return {
+        state = {
             "coords": coords,
             "opt_state": self._opt_state,
             # Kernel params follow the coords dtype: adaptive slots are
@@ -922,6 +1078,14 @@ class SVGD:
             "scale_aux": self._current_scale_aux(coords),
             "iteration": int(getattr(self, "_iteration", 0)),
         }
+        if self.mesh is None:
+            return state
+        # This rank's rows, as the sharded engine's states hold them
+        # (utils/checkpoint gathers and splits a ShardedState).
+        from .parallel.sharded import ShardedState
+
+        state["coords"] = coords[self.mesh.rows(self.num_particles)]
+        return ShardedState(state, self)
 
     def _current_scale_aux(self, coords):
         """Per-adaptive-slot warm-start aux (carried across run() calls)."""
@@ -944,7 +1108,10 @@ class SVGD:
         )
 
     def _absorb_state(self, state):
-        self.store.value = state["coords"]
+        coords = state["coords"]
+        if self.mesh is not None:
+            coords = self.mesh.all_gather_rows(coords)
+        self.store.value = coords
         self._opt_state = state["opt_state"]
         self._scale_aux = state["scale_aux"]
         self._iteration = int(state["iteration"])
@@ -981,15 +1148,23 @@ class SVGD:
         if state is not None and not hooks:
             self._absorb_state(state)
         if collected:
-            stacked = {
-                key: torch.stack([s[key] for s in collected]).cpu().numpy()
-                for key in collected[0]
-            }
+            stacked = {key: torch.stack([s[key] for s in collected])
+                       for key in collected[0]}
+            if self.log_intermediate_matrices and self.mesh is not None:
+                # The ranks' row bands (dim 1 of the (T, n_local, ...)
+                # stacks) put together into the global matrices.
+                stacked = {
+                    key: self.mesh.all_gather_rows(
+                        v.transpose(0, 1).contiguous()).transpose(0, 1)
+                    for key, v in stacked.items()
+                }
+            stacked = {key: v.cpu().numpy() for key, v in stacked.items()}
             if self.log_intermediate_matrices:
                 self._intermediate_logs = stacked
-                write_intermediate_matrices(
-                    self.intermediate_matrices_output_path, stacked
-                )
+                if self.mesh is None or self.mesh.rank == 0:
+                    write_intermediate_matrices(
+                        self.intermediate_matrices_output_path, stacked
+                    )
             else:
                 self.stats = stacked
         return self.store.value

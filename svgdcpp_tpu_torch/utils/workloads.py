@@ -43,13 +43,14 @@ FLAGSHIP_ADAGRAD_LR = 0.1
 
 
 def build_mvn_svgd(x0, mean, cov, phi_impl="auto", num_iterations=100,
-                   device="cuda", fused_sym=None):
+                   device="cuda", fused_sym=None, mesh=None):
     """The flagship driver (``bench.py``'s default configuration and
     examples/large_scale_example.py), initialized: an MVN target with mean
     and cov in x0's dtype, an RBF kernel with the median bandwidth, AdaGrad
     lr 0.1. ``x0`` may be a tensor (its device and dtype are kept) or an
     array (it goes to ``device`` first, so the kernel's median is taken
-    there, once)."""
+    there, once). ``mesh`` is SVGDOptions.mesh (a ParticleGroup on
+    ``device``)."""
     import torch
 
     import svgdcpp_tpu_torch as st
@@ -67,7 +68,7 @@ def build_mvn_svgd(x0, mean, cov, phi_impl="auto", num_iterations=100,
             dimension=dim, num_iterations=num_iterations,
             coordinate_matrix=x0, kernel=kernel, model=model,
             optimizer=st.AdaGrad(dim, n, FLAGSHIP_ADAGRAD_LR),
-            phi_impl=phi_impl, device=device, fused_sym=fused_sym,
+            phi_impl=phi_impl, device=device, fused_sym=fused_sym, mesh=mesh,
         )
     )
     return svgd.initialize()
@@ -118,14 +119,14 @@ def blr_workload(particles: int, dim: int, n_data: int = 1024,
 
 def build_blr_svgd(x0, features, labels, hierarchical=False,
                    phi_impl="auto", num_iterations=100, device="cuda",
-                   fused_sym=None):
+                   fused_sym=None, mesh=None):
     """The bench's BLR / hierarchical-BLR driver (bench.py:383-412), built
     on this package and initialized: flat BLR with prior precision 0.1 and
     a median RBF kernel, or hierarchical BLR with the composed kernel
     median RBF + 0.1 * I; Adam in both. ``x0`` may be a tensor (its device
     and dtype are kept) or an array (it goes to ``device`` first, so the
-    kernel's median is taken there, once). ``fused_sym`` is
-    SVGDOptions.fused_sym."""
+    kernel's median is taken there, once). ``fused_sym`` and ``mesh`` are
+    SVGDOptions.fused_sym and SVGDOptions.mesh."""
     import svgdcpp_tpu_torch as st
 
     from ..core.types import place_coords
@@ -153,7 +154,7 @@ def build_blr_svgd(x0, features, labels, hierarchical=False,
                 full_dim, particles, BLR_ADAM["lr"], BLR_ADAM["beta1"],
                 BLR_ADAM["beta2"],
             ),
-            phi_impl=phi_impl, device=device, fused_sym=fused_sym,
+            phi_impl=phi_impl, device=device, fused_sym=fused_sym, mesh=mesh,
         )
     )
     return svgd.initialize()

@@ -18,12 +18,15 @@
   JAX selection exactly), the forced "full" and "panel" triangle schedules
   against the JAX fused cross engine, the config and form resolution, and
   the options that raise.
-* Engine, two and four ranks: spawned gloo worlds
-  (``tests/torch_sharded_worker.py``), the gathered coordinates against
-  the JAX engine, the generic kernel sweep and a hooked model among the
-  cases; each world's debug dump against the JAX engine's, and a
-  checkpoint saved by the world and restored on every rank resuming
-  exactly.
+* Engine, two, three and four ranks: spawned gloo worlds
+  (``tests/torch_sharded_worker.py``, N = 192), the gathered coordinates
+  against the JAX engine, the generic kernel sweep, a hooked model and the
+  ring schedule among the cases; the driver under SVGDOptions.mesh against
+  the JAX driver under its mesh; the ring primitives, whose rotation moves
+  rows between ranks only here, against JAX's (their counts equal to the
+  gather counts); each world's debug dump against the JAX engine's, and
+  checkpoints of the engine and of the driver under a mesh saved by the
+  world and restored on every rank resuming exactly.
 * The generic (VJP) sweep (``kernel_phi='generic'``, and ``auto`` with a
   kernel that does not flatten), the debug dump and custom Step hooks on
   one rank against the JAX engine and the single-device driver (float64,
@@ -34,6 +37,7 @@
   device rule.
 """
 
+import functools
 import socket
 import subprocess
 import sys
@@ -607,8 +611,6 @@ def test_unported_options_raise_naming_the_roadmap():
         return ShardedSVGD(mdl, st.AdaGrad(2, 16, 0.1), 16, 2, mesh=g,
                            config=config, kernel=kernel)
 
-    with pytest.raises(NotImplementedError, match="item 11a"):
-        build(ShardedSVGDConfig(phi_mode="ring"))
     with pytest.raises(NotImplementedError, match="item 15"):
         build(ShardedSVGDConfig(fused_dot_dtype="bfloat16"))
 
@@ -963,34 +965,91 @@ def test_sharded_checkpoint_round_trip(group, mesh, tmp_path):
 
 
 # ----------------------------------------------------------------------
-# Two and four ranks, spawned
+# Two, three and four ranks, spawned
 # ----------------------------------------------------------------------
 
 
-def jax_reference(name, composed_kernel, cfg, x0):
-    """The JAX engine's run of a worker case (its fused cross engine for
-    the forced triangle forms)."""
-    cfg = {k: v for k, v in cfg.items()
-           if k not in ("fused_cuda", "fused_sym")}
-    model = (hooked_model(sv) if name.startswith("hooked")
-             else sv.MultivariateNormal(MEAN, COV))
-    kernel = None
-    if composed_kernel:
-        kernel = composed(x0)(sv, model)
-    n, dim = x0.shape
-    j = JaxSharded(model, sv.AdaGrad(dim, n, 0.1), n, dim,
-                   mesh=make_particle_mesh(), kernel=kernel,
-                   config=JaxConfig(**cfg))
-    return np.asarray(j.run(x0.copy(), 10))
-
-
-@pytest.mark.parametrize("world", [2, 4])
-def test_spawned_ranks_match_jax_engine(world, tmp_path):
+def load_worker():
     sys.path.insert(0, str(Path(__file__).parent))
     try:
         import torch_sharded_worker as worker
     finally:
         sys.path.pop(0)
+    return worker
+
+
+@functools.lru_cache(maxsize=None)
+def jax_reference(name):
+    """The JAX package's result for a worker case (the same for every
+    world; cached): the engine's run of a ``cases()`` entry (its fused
+    cross engine for the forced triangle forms), the driver's under
+    ``make_particle_mesh()`` for a ``mesh_cases()`` entry (its 'fused' /
+    'fused_terms' for the CUDA routes), or a ring primitive under
+    shard_map."""
+    from jax.sharding import PartitionSpec as P
+
+    from svgdcpp_tpu.kernels.algebra import flatten_rbf_terms
+    from svgdcpp_tpu.parallel import ring as ring_j
+
+    worker = load_worker()
+    x0 = worker.x0()
+    n, dim = x0.shape
+    jmesh = make_particle_mesh()
+    if name in worker.cases():
+        composed_kernel, cfg = worker.cases()[name]
+        cfg = {k: v for k, v in cfg.items()
+               if k not in ("fused_cuda", "fused_sym")}
+        model = (hooked_model(sv) if name.startswith("hooked")
+                 else sv.MultivariateNormal(MEAN, COV))
+        kernel = composed(x0)(sv, model) if composed_kernel else None
+        j = JaxSharded(model, sv.AdaGrad(dim, n, 0.1), n, dim, mesh=jmesh,
+                       kernel=kernel, config=JaxConfig(**cfg))
+        return np.asarray(j.run(x0.copy(), 10))
+    if name in worker.mesh_cases():
+        composed_kernel, impl, options = worker.mesh_cases()[name]
+        model = sv.MultivariateNormal(MEAN, COV)
+        kernel = (composed(x0)(sv, model) if composed_kernel else
+                  sv.GaussianRBFKernel(x0, sv.ScaleMethod.MEDIAN, model))
+        impl = {"fused_cuda": "fused",
+                "fused_terms_cuda": "fused_terms"}.get(impl, impl)
+        options = {k: v for k, v in options.items() if k != "fused_sym"}
+        return np.asarray(sv.SVGD(sv.SVGDOptions(
+            dimension=dim, num_iterations=worker.STEPS,
+            coordinate_matrix=x0.copy(), kernel=kernel, model=model,
+            optimizer=sv.AdaGrad(dim, n, 0.1), phi_impl=impl, mesh=jmesh,
+            **options)).initialize().run())
+    x, s, p = worker.ring_inputs()
+    kernel = worker.ring_kernel(sv, x)
+    params = tuple(jnp.asarray(np.asarray(q)) for q in kernel.parameters)
+    axis = jmesh.axis_names[0]
+    fn, args, rows = {
+        "ring_phi": (lambda c, sc: ring_j.ring_phi_rbf(
+            c, sc, jnp.asarray(p), axis, n, row_tile=16), (x, s), True),
+        "ring_terms_phi": (lambda c, sc: ring_j.ring_phi_rbf_terms(
+            c, sc, params, flatten_rbf_terms(kernel), axis, n, row_tile=16),
+            (x, s), True),
+        "ring_generic_phi": (lambda c, sc: ring_j.ring_phi_generic(
+            c, sc, kernel.kernel_pure, params, axis, n, 16), (x, s), True),
+        "ring_median": (lambda c: ring_j.ring_pairwise_median(
+            c, axis, n, bins=16, passes=8), (x,), False),
+        "ring_counts": (lambda c: ring_j.ring_count_le(
+            c, jnp.asarray(worker.RING_THRESHOLDS), axis, n, row_tile=16),
+            (x,), False),
+    }[name]
+    spec = P(axis, None)
+    return np.asarray(jax.jit(jax.shard_map(
+        fn, mesh=jmesh, in_specs=tuple(spec for _ in args),
+        out_specs=spec if rows else P()))(*[jnp.asarray(a) for a in args]))
+
+
+@pytest.mark.parametrize("world", [2, 3, 4])
+def test_spawned_ranks_match_jax_engine(world, tmp_path):
+    """A world of 2, 3 or 4 gloo ranks: the engine's gather and ring runs,
+    the driver under SVGDOptions.mesh and the ring primitives (the only
+    place the rotation moves data) against the JAX package; ring counts
+    equal the gather counts (checked in the worker) and JAX's; checkpoints
+    resume exactly; the debug dump equals the JAX engine's."""
+    worker = load_worker()
     port = free_port()
     procs = [
         subprocess.Popen(
@@ -1014,23 +1073,32 @@ def test_spawned_ranks_match_jax_engine(world, tmp_path):
         assert p.returncode == 0, f"rank {rank} failed:\n{out}"
         assert f"rank {rank}: OK" in out
     got = np.load(tmp_path / f"torch_sharded_{world}.npz")
-    x0 = worker.x0()
-    for name, (composed_kernel, cfg) in worker.cases().items():
-        want = jax_reference(name, composed_kernel, cfg, x0)
-        np.testing.assert_allclose(got[name], want, rtol=1e-8, atol=1e-10,
-                                   err_msg=name)
-    # the checkpoint the world saved at step 5 resumed exactly on every rank
+    for name in list(worker.cases()) + list(worker.mesh_cases()):
+        np.testing.assert_allclose(got[name], jax_reference(name), rtol=1e-8,
+                                   atol=1e-10, err_msg=name)
+    for name in ("ring_phi", "ring_terms_phi", "ring_generic_phi"):
+        np.testing.assert_allclose(got[name], jax_reference(name), rtol=1e-9,
+                                   atol=1e-12, err_msg=name)
+    assert float(got["ring_median"]) == pytest.approx(
+        float(jax_reference("ring_median")), rel=1e-9)
+    np.testing.assert_array_equal(
+        got["ring_counts"], jax_reference("ring_counts").astype(np.int64))
+    # the checkpoints the world saved at step 5 resumed exactly on every rank
     np.testing.assert_array_equal(got["ckpt_resumed"], got["ckpt_full"])
+    np.testing.assert_array_equal(got["mesh_ckpt_resumed"],
+                                  got["mesh_ckpt_full"])
     # the world's debug dump against the JAX engine's
-    j = JaxSharded(sv.MultivariateNormal(MEAN, COV), sv.AdaGrad(2, 16, 0.1),
-                   16, 2, mesh=make_particle_mesh(),
-                   kernel=composed(x0[:16])(sv, sv.MultivariateNormal(MEAN,
-                                                                      COV)),
+    x0 = worker.x0()[:worker.LOG_N]
+    n_log = worker.LOG_N
+    j = JaxSharded(sv.MultivariateNormal(MEAN, COV),
+                   sv.AdaGrad(2, n_log, 0.1), n_log, 2,
+                   mesh=make_particle_mesh(),
+                   kernel=composed(x0)(sv, sv.MultivariateNormal(MEAN, COV)),
                    config=JaxConfig(**worker.LOG_CFG,
                                     log_intermediate_matrices=True,
                                     intermediate_matrices_output_path=str(
                                         tmp_path / "jax_log.txt")))
-    j.run(x0[:16].copy(), worker.LOG_STEPS)
+    j.run(x0.copy(), worker.LOG_STEPS)
     for key, want in j.intermediate_logs.items():
         np.testing.assert_allclose(got["log_" + key], np.asarray(want),
                                    rtol=1e-9, atol=1e-12, err_msg=key)

@@ -291,7 +291,6 @@ def test_constructor_validation_matches_jax():
 
 
 @pytest.mark.parametrize("options", [
-    {"mesh": object()},
     {"impl": "fused_cuda", "fused_dot_dtype": "bfloat16"},
     {"impl": "cuda", "fused_dot_dtype": "bfloat16"},
 ])
@@ -299,6 +298,13 @@ def test_unported_routes_raise_not_implemented(options):
     x0 = x0_for(16)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build(st, x0, 1, **options)
+
+
+def test_mesh_takes_a_particle_group():
+    """SVGDOptions.mesh is a parallel.ParticleGroup (the driver under a mesh
+    is tests/test_torch_mesh.py); anything else raises TypeError."""
+    with pytest.raises(TypeError, match="ParticleGroup"):
+        build(st, x0_for(16), 1, mesh=object())
 
 
 @pytest.mark.parametrize("options", [

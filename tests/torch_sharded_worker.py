@@ -4,12 +4,15 @@
 
 Joins a gloo world of WORLD ranks over tcp://localhost:PORT, runs
 svgdcpp_tpu_torch's ShardedSVGD (float64, on the CPU) for each case of
-``cases()`` from the same x0, a generic-kernel run with the debug dump
-(written to OUT_DIR/torch_log_<WORLD>.txt) and a checkpoint round trip
-(5 steps, save to OUT_DIR, restore on every rank, 5 more, beside 10
-uninterrupted), and rank 0 writes the gathered coordinates and the debug
-matrices to OUT_DIR/torch_sharded_<WORLD>.npz. Imports torch and the port
-only.
+``cases()`` from the same x0 (gather and ring modes), the driver under
+SVGDOptions.mesh for each case of ``mesh_cases()``, the ring primitives on
+``ring_inputs()`` (their counts checked equal to the gather counts here), a
+generic-kernel run with the debug dump (written to
+OUT_DIR/torch_log_<WORLD>.txt) and checkpoint round trips of the engine
+and of the driver under a mesh (5 steps, save to OUT_DIR, restore on every
+rank, 5 more, beside 10 uninterrupted), and rank 0 writes the gathered
+results to OUT_DIR/torch_sharded_<WORLD>.npz. N = 192 splits evenly over
+2, 3, 4 and 8 ranks. Imports torch and the port only.
 """
 
 import sys
@@ -21,24 +24,28 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import svgdcpp_tpu_torch as st  # noqa: E402
+from svgdcpp_tpu_torch.kernels.algebra import flatten_rbf_terms  # noqa: E402
+from svgdcpp_tpu_torch.ops.median import centered_count_env  # noqa: E402
 from svgdcpp_tpu_torch.parallel import (  # noqa: E402
     ShardedSVGD,
     ShardedSVGDConfig,
     initialize_distributed,
 )
+from svgdcpp_tpu_torch.parallel import ring  # noqa: E402
 from svgdcpp_tpu_torch.utils.checkpoint import (  # noqa: E402
     restore_checkpoint,
     save_checkpoint,
 )
 
-N, DIM, STEPS = 200, 2, 10
+N, DIM, STEPS = 192, 2, 10
 MEAN = np.array([0.5, -1.0])
 COV = np.array([[1.0, 0.2], [0.2, 0.8]])
-#: The debug-dump run: the first 16 particles of x0, the composed kernel
+#: The debug-dump run: the first LOG_N particles of x0, the composed kernel
 #: through the generic sweep.
 LOG_CFG = {"kernel_phi": "generic", "median_bins": 1024, "median_passes": 4,
            "row_tile": 4, "warm_start": False}
 LOG_STEPS = 3
+LOG_N = 24
 
 
 class HookedMVN(st.MultivariateNormal):
@@ -77,7 +84,59 @@ def cases():
         "generic_gather": (True, {"kernel_phi": "generic",
                                   "median_passes": 4, "row_tile": 16}),
         "hooked_gather": (False, {"median_passes": 4, "row_tile": 16}),
+        "ring_cold": (False, {"phi_mode": "ring", "median_bins": 16,
+                              "median_passes": 10, "row_tile": 16,
+                              "warm_start": False}),
+        "ring_warm": (False, {"phi_mode": "ring", "median_passes": 4,
+                              "row_tile": 16}),
+        "ring_terms": (True, {"phi_mode": "ring", "kernel_phi": "rbf_terms",
+                              "median_bins": 16, "median_passes": 10,
+                              "row_tile": 16, "warm_start": False}),
+        "ring_generic": (True, {"phi_mode": "ring", "kernel_phi": "generic",
+                                "median_passes": 4, "row_tile": 16}),
     }
+
+
+def mesh_cases():
+    """name -> (composed, phi_impl, options) of the driver under
+    SVGDOptions.mesh; the fused_cuda routes run their plain forms on the
+    CPU (the triangle chunks forced, the cross sweep at this n)."""
+    return {
+        "mesh_dense": (False, "dense", {}),
+        "mesh_fused": (False, "fused", {}),
+        "mesh_rbf_terms": (True, "rbf_terms", {}),
+        "mesh_generic": (True, "generic", {"row_tile": 16}),
+        "mesh_fused_cross": (False, "fused_cuda", {}),
+        "mesh_fused_full": (False, "fused_cuda", {"fused_sym": "full"}),
+        "mesh_fused_panel": (False, "fused_cuda", {"fused_sym": "panel"}),
+        "mesh_fused_terms_full": (True, "fused_terms_cuda",
+                                  {"fused_sym": "full"}),
+    }
+
+
+def ring_inputs():
+    """(coords (N, 3), scores (N, 3), P (3, 3)) of the ring primitives."""
+    rng = np.random.default_rng(5)
+    return (rng.normal(size=(N, 3)) * 1.5 + 2.0, rng.normal(size=(N, 3)),
+            np.eye(3) * 0.7 + 0.1)
+
+
+def ring_kernel(pkg, x):
+    """A composed kernel of constant RBFs with a negative term."""
+    m = x.shape[1]
+    return pkg.GaussianRBFKernel(
+        x, pkg.ScaleMethod.CONSTANT, constant_scale=0.5 * np.eye(m)
+    ) - pkg.GaussianRBFKernel(
+        x, pkg.ScaleMethod.CONSTANT,
+        constant_scale=np.diag(np.linspace(0.1, 0.3, m)),
+    ) * pkg.GaussianRBFKernel(
+        x, pkg.ScaleMethod.CONSTANT, constant_scale=0.2 * np.eye(m)
+    )
+
+
+#: The ring primitives' thresholds (away from 0, where a self pair counts
+#: by the rounding of the Gram identity).
+RING_THRESHOLDS = np.linspace(0.05, 12.0, 17)
 
 
 def run_case(group, composed, config, hooked=False):
@@ -92,11 +151,65 @@ def run_case(group, composed, config, hooked=False):
     return out.numpy()
 
 
+def run_driver(group, composed, impl, options, iters=STEPS):
+    x = x0()
+    model = st.MultivariateNormal(MEAN, COV)
+    kernel = (composed_kernel(x, model) if composed
+              else st.GaussianRBFKernel(x, st.ScaleMethod.MEDIAN, model))
+    svgd = st.SVGD(st.SVGDOptions(
+        dimension=DIM, num_iterations=iters, coordinate_matrix=x,
+        kernel=kernel, model=model, optimizer=st.AdaGrad(DIM, N, 0.1),
+        phi_impl=impl, mesh=group, **options,
+    )).initialize()
+    return svgd
+
+
+def ring_primitives(group):
+    """The ring functions on this rank's rows of ring_inputs(), gathered;
+    the ring counts equal to the gather counts."""
+    x, s, p = ring_inputs()
+    rows = group.rows(N)
+    xl, sl = torch.from_numpy(x[rows]), torch.from_numpy(s[rows])
+    kernel = ring_kernel(st, x)
+    params = tuple(torch.as_tensor(np.asarray(q)) for q in kernel.parameters)
+    out = {
+        "ring_phi": ring.ring_phi_rbf(xl, sl, torch.from_numpy(p), group, N,
+                                      row_tile=16),
+        "ring_terms_phi": ring.ring_phi_rbf_terms(
+            xl, sl, params, flatten_rbf_terms(kernel), group, N,
+            row_tile=16),
+        "ring_generic_phi": ring.ring_phi_generic(
+            xl, sl, kernel.kernel_pure, params, group, N, row_tile=16),
+    }
+    out = {k: group.all_gather_rows(v).numpy() for k, v in out.items()}
+    out["ring_median"] = ring.ring_pairwise_median(
+        xl, group, N, bins=16, passes=8).numpy()
+    thr = torch.from_numpy(RING_THRESHOLDS)
+    counts = ring.ring_count_le(xl, thr, group, N, row_tile=16)
+    count_fn, _ = centered_count_env(xl, torch.from_numpy(x), group=group,
+                                     n_global=N)
+    assert torch.equal(counts, count_fn(thr)), (counts, count_fn(thr))
+    out["ring_counts"] = counts.numpy()
+    return out
+
+
+def mesh_checkpoint_round_trip(group, path):
+    full = run_driver(group, False, "fused", {}).run()
+    first = run_driver(group, False, "fused", {}, STEPS // 2)
+    first.run()
+    save_checkpoint(path, first.make_state(), step=STEPS // 2)
+    second = run_driver(group, False, "fused", {}, STEPS - STEPS // 2)
+    restored, _ = restore_checkpoint(path, second.make_state())
+    second._absorb_state(restored)
+    return {"mesh_ckpt_full": full.numpy(),
+            "mesh_ckpt_resumed": second.run().numpy()}
+
+
 def logged_run(group, path):
-    x = x0()[:16]
+    x = x0()[:LOG_N]
     model = st.MultivariateNormal(MEAN, COV)
     engine = ShardedSVGD(
-        model, st.AdaGrad(DIM, 16, 0.1), 16, DIM, mesh=group,
+        model, st.AdaGrad(DIM, LOG_N, 0.1), LOG_N, DIM, mesh=group,
         kernel=composed_kernel(x, model),
         config=ShardedSVGDConfig(**LOG_CFG, log_intermediate_matrices=True,
                                  intermediate_matrices_output_path=str(path)),
@@ -133,8 +246,15 @@ def main():
     results = {name: run_case(group, composed, config,
                               hooked=name.startswith("hooked"))
                for name, (composed, config) in cases().items()}
+    for name, (composed, impl, options) in mesh_cases().items():
+        svgd = run_driver(group, composed, impl, options)
+        results[name] = svgd.run().numpy()
+        assert svgd.median_fallbacks == 0
+    results.update(ring_primitives(group))
     results.update(logged_run(group, out_dir / f"torch_log_{world}.txt"))
     results.update(checkpoint_round_trip(group, out_dir / f"ck_{world}"))
+    results.update(mesh_checkpoint_round_trip(group,
+                                              out_dir / f"mesh_ck_{world}"))
     if rank == 0:
         np.savez(out_dir / f"torch_sharded_{world}.npz", **results)
     torch.distributed.destroy_process_group()
