@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the package's CUDA kernels from ``svgdcpp_tpu_torch/csrc`` and runs
-thirty-seven phases, one line each (several for phases 2, 3, 7-9 and
-14-37):
+forty-two phases, one line each (several for phases 2, 3, 7-9 and
+14-42):
 
   1. device and build: the card's name and power limit, torch and CUDA
      versions, nvcc build seconds and ptxas's registers and spill bytes of
@@ -173,7 +173,10 @@ thirty-seven phases, one line each (several for phases 2, 3, 7-9 and
      only place on the card where a rotation moves data between ranks; no
      sweep kernel, K16's ring count passes) and the flagship driver under
      SVGDOptions.mesh (the two-rank group, auto: K4's chunk on each rank),
-     each within 1e-3 of its one-rank run;
+     each within 1e-3 of its one-rank run; the flagship driver under the
+     two-rank mesh at N = 10001 (5001 and 5000 rows): auto takes the plain
+     'fused' sweep, within 1e-3 of the meshless 'fused' driver after 20
+     steps, and a forced 'fused_cuda' raises ValueError;
  32. the generic (autodiff) route at full width: the hierarchical BLR
      (bench.py --config hier: d = 10, m = 11, N = 10000, RBF(median) +
      RBF(0.1 I), Adam 5e-2) for 20 steps with phi_impl='generic' and with
@@ -211,7 +214,30 @@ thirty-seven phases, one line each (several for phases 2, 3, 7-9 and
      False; the composed kernel as RBF terms), 20 steps against gather
      mode on the same engine (within 1e-3); ms a step of both, peak memory,
      K16's launches a step (the ring's count passes; no sweep kernel) and
-     K16's time at each shape (the self count at the warm pass's 9 edges).
+     K16's time at each shape (the self count at the warm pass's 9 edges);
+ 38. the histogram median (median_method='histogram') at N = 10000 on the
+     flagship's x0 (m = 2) and the hier bench's (m = 11) against 'exact'
+     on the card and float64 on the host (within 1e-5 relative), ms of
+     both (median of 10); the cuda route (K15) with a MEDIAN RBF on
+     'histogram' at n = 1500 for 50 steps against the same route on
+     'exact' (within 1e-3);
+ 39. TorchOptimizer(torch.optim.Adam, lr=5e-2) on the flat BLR (K1) and
+     the hierarchical BLR at N = 10000 (K8/K9) for 20 steps against the
+     port's Adam(5e-2): coordinates within 1e-3, ms a step of both;
+ 40. utils/profiling: step_timer on the flagship's step (N = 10000, K2),
+     a trace() of 3 steps written under chiprun_out/chip_smoke_trace/
+     whose kernel events name K2's kernel, and speed_of_light(10000, 2)
+     equal to K2's bound;
+ 41. utils/native: the C++ oracle (float64 on the host, exact median every
+     step) against the cuda route (K15, median_method='exact') at n = 1500
+     for 15 steps from one x0, within 1e-3;
+ 42. every examples/torch_*_example.py run() on the card at its defaults
+     (EXAMPLE_ARGS; nothing cut): mvn and gmm (dense, their moment and
+     mode checks), blr (K1, label agreement above 0.8), hierarchical
+     (rbf_terms, no sweep kernel), large_scale (K2 at 100000 particles,
+     the KSD falls) and sharded (K4 on a one-rank NCCL world, the KSD
+     halves), and the large-scale and sharded kernels timed at their
+     shapes.
 
 Phase 22 prints the N = 1,048,576 set-up (the median seed, now through
 K16) beside the 239.40 s the plain count pass took.
@@ -240,6 +266,14 @@ import math
 import subprocess
 import sys
 import time
+
+from svgdcpp_tpu_torch.utils.profiling import (
+    bound,
+    count_bound_all_pairs,
+    eigen_bound,
+    square_tensor_bound,
+    sweep_bound,
+)
 
 
 def check(cond, message):
@@ -342,152 +376,6 @@ def thresholds_of(thr, count):
 PATH_A_N, PATH_A_SHORT_N, PATH_B_N = 262144, 1048576, 131072
 PATH_A_ITERS, PATH_A_SHORT_ITERS, PATH_B_ITERS = 100, 4, 50
 COMPARE_STEPS = 20
-
-#: Published H100 SXM peaks at 700 W: FP32 outside the tensor cores, and
-#: HBM3 bandwidth (NVIDIA's data sheet).
-PEAK_FP32_FLOPS = 67e12
-PEAK_BYTES_PER_S = 3.35e12
-
-
-def bound(flops, nbytes):
-    """(bound_ms, bound_by): the least time the card could take, the larger
-    of the operations over the FP32 peak and the bytes over the memory
-    rate."""
-    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-
-
-def sweep_bound(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
-                n_c=None, all_pairs=False):
-    """bound() of one kernel call, with the FP32 operations each pair of the
-    function needs, whatever the kernel's design runs (an FMA as 2; an ex2,
-    a compare and any other operation as 1):
-
-      * the difference x_i - x_j once (m) and its square sum (2m);
-      * an isotropic term 6 (scale, ex2, the FMAs into k_c and into w);
-        one RBF 2 (scale, ex2);
-      * per direction, KS = sum k s_j (2m) and each gradient accumulator
-        D = sum w (x_i - x_j) from that same difference (2m);
-      * T compares;
-      * an anisotropic term its form |z_ti - z_tj|^2 (3m) and 6 to
-        combine; one accumulator D_t each; KS once for all terms;
-      * K15: the form sum_k lam_k (dz_k)^2 (4m: the difference, a multiply
-        and an FMA), 2 for the exponential, KS and D_z = sum k dz (2m each)
-        per direction (``all_pairs``: over the n^2 ordered pairs and one
-        direction, as it was counted before the triangle);
-      * the count pass (count_le_cross): the squared distance, 3m by
-        differences up to m = 4 and 2m + 3 by the Gram identity above (the
-        norms once per point), and ceil(log2(T + 1)) compares, the search
-        of a pair's bin among the sorted thresholds (the prefix sum over
-        the bins is per block, not per pair).
-
-    The square kernels take n^2 ordered pairs and one direction; the triangle
-    kernels, full-width and panel alike, and K15, whose function is
-    symmetric in the pair, n(n+1)/2 unordered pairs (diagonal included)
-    and both; a chunk kernel the ``pairs`` of its tiles or panels
-    (the whole triangle by default); the count pass of one set against
-    itself (``n_c`` None: the median's passes on one device) n(n+1)/2
-    pairs, since sq is symmetric, and of rows against other columns (the
-    sharded engine's) n x n_c. count_bound_all_pairs gives the count
-    pass's bound as it was counted before the triangle and the bins. Bytes:
-    the function's inputs read once (coordinates, scores, precisions,
-    thresholds) and its outputs written once (phi, or a chunk's raw (2m, n)
-    accumulator; the int64 counts). One particle set of n, as on every main
-    path."""
-    square_pairs = n * n
-    tri_pairs = n * (n + 1) / 2 if pairs is None else pairs
-    contract = 4 * m  # KS and one D, one direction
-    out_floats = n * m
-    if kernel == "fused_phi_counts_square":
-        flops = square_pairs * (3 * m + 2 + T + contract)
-    elif kernel in ("fused_phi_counts_sym", "fused_phi_counts_sympanel",
-                    "fused_phi_counts_sym_chunk",
-                    "fused_phi_counts_sympanel_chunk"):
-        flops = tri_pairs * (3 * m + 2 + T + 2 * contract)
-    elif kernel == "fused_phi_terms_square":
-        flops = square_pairs * (3 * m + 6 * n_iso + T + contract)
-    elif kernel in ("fused_phi_terms_sym", "fused_phi_terms_sympanel",
-                    "fused_phi_terms_sym_chunk"):
-        flops = tri_pairs * (3 * m + 6 * n_iso + T + 2 * contract)
-    elif kernel == "fused_phi_aniso_terms_sym":
-        n_w = (1 if n_iso else 0) + n_aniso
-        flops = tri_pairs * (3 * m + T + 6 * n_iso + n_aniso * (3 * m + 6)
-                             + 2 * (2 * m + 2 * m * n_w))
-    elif kernel == "phi_rbf_square":
-        flops = (square_pairs * (4 * m + 2 + contract) if all_pairs
-                 else tri_pairs * (4 * m + 2 + 2 * contract))
-        T = 0
-    elif kernel == "count_le_cross":
-        sq_ops = 3 * m if m <= 4 else 2 * m + 3
-        compares = math.ceil(math.log2(T + 1))
-        if n_c is None:  # a self count: one set, the triangle and diagonal
-            flops = n * (n + 1) / 2 * (sq_ops + compares)
-            return bound(flops, 4 * n * m + 12 * T)
-        flops = n * n_c * (sq_ops + compares)
-        return bound(flops, 4 * (n + n_c) * m + 12 * T)
-    else:
-        raise ValueError(kernel)
-    if kernel.endswith("_chunk"):
-        out_floats = 2 * n * m
-    nbytes = (4 * (2 * n * m + n_aniso * m * m + n_iso + T) + 4 * out_floats
-              + 8 * T)
-    if kernel == "phi_rbf_square":
-        nbytes += 4 * m * m
-    return bound(flops, nbytes)
-
-
-#: Published H100 SXM dense TF32 tensor-core peak (NVIDIA's data sheet).
-PEAK_TF32_FLOPS = 495e12
-
-
-def square_tensor_bound(n, m, T=3, n_terms=None):
-    """(bound_ms, bound_by) of a square kernel's function over one set of n
-    with the work its tensor-core body puts there on the TF32 tensor cores:
-    per ordered pair the Gram product (2m) and the contraction, K1's
-    K . [S | X | 1] (2 (2m + 1)) or the terms' k_c . S and w . [X | 1]
-    (2m + 2 (m + 1), the same 6m + 2 in all), at PEAK_TF32_FLOPS; the rest
-    at the FP32 peak: for one RBF (``n_terms`` None) 4 + T (sq from the
-    Gram tile and the norms, 2; the scale and the ex2, 2; T compares), for
-    ``n_terms`` terms 4 + 6 n_terms + T (sq and its clamp at 0, 4; each
-    term as sweep_bound counts one, 6; T compares); and sweep_bound's bytes
-    at the memory rate: the largest of the three, each resource busy at
-    once."""
-    pairs = n * n
-    fp32 = 4 + T if n_terms is None else 4 + 6 * n_terms + T
-    nbytes = 4 * (2 * n * m + (n_terms or 1) + T) + 4 * n * m + 8 * T
-    return max(
-        (pairs * (6 * m + 2) / PEAK_TF32_FLOPS * 1e3, "tensor operations"),
-        (pairs * fp32 / PEAK_FP32_FLOPS * 1e3, "operations"),
-        (nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
-    )
-
-
-def count_bound_all_pairs(n, m, T, n_c=None):
-    """bound() of the count pass over all n x n_c ordered pairs with T
-    compares a pair (n_c = n by default): the count sweep_bound took before
-    it counted a self count's triangle and the sorted bins' search, kept
-    beside it so that ratios to the bound stay comparable."""
-    n_c = n if n_c is None else n_c
-    flops = n * n_c * ((3 * m if m <= 4 else 2 * m + 3) + T)
-    return bound(flops, 4 * (n + n_c) * m + 12 * T)
-
-
-#: Published H100 SXM float64 peak outside the tensor cores (NVIDIA's data
-#: sheet), for the decomposition's bound.
-PEAK_FP64_FLOPS = 34e12
-
-
-def eigen_bound(m):
-    """(bound_ms, bound_by) of one decomposition of an (m, m) float64
-    matrix with its eigenvectors: about 9 m^3 float64 operations (the
-    symmetric QR algorithm's count, Golub and Van Loan), over the float64
-    peak, against P read and lam and V written once over the memory
-    rate."""
-    ops_ms = 9 * m**3 / PEAK_FP64_FLOPS * 1e3
-    bytes_ms = 8 * (2 * m * m + m) / PEAK_BYTES_PER_S * 1e3
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
-
 
 def chunk_pairs(n, side, blocks):
     """Unordered pairs (diagonal included) in ``blocks``, a list of
@@ -740,8 +628,445 @@ def sharded_rank(rank, world, port, queue):
         torch.cuda.synchronize()
         out[case] = (coords.cpu().numpy(), dict(cuda_phi.launch_counts),
                      engine._fused_sym)
+    # UNEVEN_N particles over the two ranks (5001 and 5000 rows): auto takes
+    # the plain fused sweep, and a forced kernel route raises.
+    mean_u, cov_u, x0_u = flagship_mvn(UNEVEN_N)
+    svgd = build_mvn_svgd(x0_u.astype(np.float32), mean_u, cov_u,
+                          num_iterations=COMPARE_STEPS, mesh=group)
+    cuda_phi.reset_launch_counts()
+    coords = svgd.run()
+    torch.cuda.synchronize()
+    counts = dict(cuda_phi.launch_counts)
+    try:
+        build_mvn_svgd(x0_u.astype(np.float32), mean_u, cov_u,
+                       phi_impl="fused_cuda", num_iterations=1, mesh=group)
+        refused = ""
+    except ValueError as e:
+        refused = str(e)
+    out["driver_uneven"] = (coords.cpu().numpy(), counts, svgd._phi_impl,
+                            refused, group.share(UNEVEN_N))
     queue.put((rank, out))
     dist.destroy_process_group()
+
+
+# ----------------------------------------------------------------------
+# Phases 38-42: the histogram selector, the torch.optim adapter, the
+# profiling module, the native helpers and the examples
+# ----------------------------------------------------------------------
+
+#: Phase 38: the histogram selector at N = 10,000 (the flagship's and the
+#: hier bench's x0; ms the median of HIST_REPS calls), its relative gate
+#: against the exact median on the card and the float64 one on the host
+#: (the float32 squared distances' rounding; one final bucket is about
+#: 1e-9), and the cuda route (K15) at phase 18's n = 1500.
+HIST_N, HIST_REPS, HIST_REL_GATE = 10000, 10, 1e-5
+HIST_ROUTE_N, HIST_ROUTE_STEPS = 1500, 50
+#: Phase 39: the torch.optim adapter on the flat BLR (N = 1000, d = 50, K1)
+#: and the hier bench (N = 10,000, d = 10, K8/K9) against the port's Adam:
+#: {path: (N, d, hierarchical)}.
+ADAPTER_STEPS, ADAPTER_LR = 20, 5e-2
+ADAPTER_PATHS = {"flat_blr": (1000, 50, False), "hier": (10000, 10, True)}
+#: Phase 40: the flagship's step under step_timer, and the steps traced.
+TIMER_N, TIMER_WARMUP, TIMER_STEPS, TIMER_CHUNK, TRACE_STEPS = (
+    10000, 2, 20, 5, 3)
+#: Phase 41: the C++ oracle against the cuda route (K15, exact median).
+ORACLE_N, ORACLE_STEPS = 1500, 15
+#: Phase 31's uneven case: the flagship driver under the two-rank mesh at a
+#: particle count two ranks do not divide.
+UNEVEN_N = 10001
+#: Phase 42: each example's run() arguments on the card: the defaults
+#: (large_scale 100,000 particles, 100 iterations run twice; sharded 4,096
+#: particles, 200 iterations); nothing is cut.
+EXAMPLE_ARGS = {"mvn": {}, "gmm": {}, "blr": {}, "hierarchical": {},
+                "large_scale": {}, "sharded": {}}
+
+
+def host_f64_median(x):
+    """The median of all n^2 pairwise distances of ``x`` (self-zeros
+    included) in float64 on the host: the distances by differences
+    (torch.cdist without the Gram form) and the reference's median of them
+    through the native helper (std::nth_element; NumPy without it)."""
+    import torch
+
+    from svgdcpp_tpu_torch.utils.native import host_median
+
+    xh = x.detach().cpu().double()
+    d = torch.cdist(xh, xh, compute_mode="donot_use_mm_for_euclid_dist")
+    return host_median(d.numpy())
+
+
+def phase_histogram(dev, card, clock):
+    """Phase 38; returns the cuda route's launch counts."""
+    import torch
+
+    import svgdcpp_tpu_torch as st
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.median import pairwise_distance_median
+    from svgdcpp_tpu_torch.utils.workloads import blr_workload, flagship_mvn
+
+    _, _, x_flag = flagship_mvn(HIST_N)
+    _, _, x_hier = blr_workload(HIST_N, 10, hierarchical=True)
+    for name, x0 in (("flagship", x_flag), ("hier", x_hier)):
+        x = torch.tensor(x0, dtype=torch.float32, device=dev)
+        hist = float(pairwise_distance_median(x, "histogram"))
+        exact = float(pairwise_distance_median(x, "exact"))
+        ref = host_f64_median(x)
+        c = x.double() - x.double().mean(dim=0)
+        hi0 = float(4.0 * torch.max(torch.sum(c * c, dim=1)) * (1 + 1e-6))
+        bucket = hi0 / 1024**3 / ref  # one final bucket near the median
+        rel = {"vs_exact_card": abs(hist - exact) / exact,
+               "vs_float64_host": abs(hist - ref) / ref,
+               "exact_card_vs_float64_host": abs(exact - ref) / ref}
+        check(rel["vs_exact_card"] <= HIST_REL_GATE
+              and rel["vs_float64_host"] <= HIST_REL_GATE,
+              f"phase 38 {name} histogram median: {rel}")
+        ms = {m: time_ms(lambda: pairwise_distance_median(x, m),
+                         reps=HIST_REPS, warmup=1)
+              for m in ("histogram", "exact")}
+        print(f"phase 38 histogram median {name} N={HIST_N} m={x.shape[1]}: "
+              f"ok histogram={hist:.9g} exact_card={exact:.9g} "
+              f"float64_host={ref:.9g} rel_diff={json.dumps(rel)} "
+              f"(gate {HIST_REL_GATE:g}; one final bucket {bucket:.3g}) "
+              f"histogram_ms={ms['histogram']:.4f} exact_ms={ms['exact']:.4f} "
+              f"(median of {HIST_REPS}) {card} {clock()}")
+        del x, c
+
+    mean, cov, x0 = flagship_mvn(HIST_ROUTE_N)
+    runs = {}
+    for method in ("histogram", "exact"):
+        x = torch.tensor(x0, dtype=torch.float32, device=dev)
+        model = st.MultivariateNormal(torch.tensor(mean).float(),
+                                      torch.tensor(cov).float())
+        kernel = st.GaussianRBFKernel(x, st.ScaleMethod.MEDIAN, model,
+                                      median_method=method)
+        svgd = st.SVGD(st.SVGDOptions(
+            dimension=2, num_iterations=HIST_ROUTE_STEPS,
+            coordinate_matrix=x.clone(), kernel=kernel, model=model,
+            optimizer=st.AdaGrad(2, HIST_ROUTE_N, 0.1),
+            phi_impl="cuda")).initialize()
+        cuda_phi.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = svgd.run()
+        end.record()
+        end.synchronize()
+        counts = dict(cuda_phi.launch_counts)
+        check(bool(out.isfinite().all()), f"phase 38 cuda {method}: bad output")
+        require_only(counts, cuda_phi.PHI_RBF_KERNEL, HIST_ROUTE_STEPS,
+                     f"phase 38 cuda route, median_method={method!r}")
+        runs[method] = (out.double(), counts,
+                        start.elapsed_time(end) / HIST_ROUTE_STEPS)
+    diff = float((runs["histogram"][0] - runs["exact"][0]).abs().max())
+    check(diff <= 1e-3, f"phase 38 cuda route histogram vs exact: {diff:.3e}")
+    print(f"phase 38 MEDIAN cuda n={HIST_ROUTE_N} m=2 {HIST_ROUTE_STEPS} iters "
+          f"median_method='histogram': ok coords_max_abs_diff_vs_exact="
+          f"{diff:.3e} histogram_ms_per_step={runs['histogram'][2]:.4f} "
+          f"exact_ms_per_step={runs['exact'][2]:.4f} (CUDA events) "
+          f"launches={json.dumps(runs['histogram'][1])} {card} {clock()}")
+    return runs["histogram"][1]
+
+
+def phase_adapter(dev, card, clock):
+    """Phase 39; returns {path: launch counts} of the adapter's runs."""
+    import torch
+
+    import svgdcpp_tpu_torch as st
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.utils.workloads import blr_workload, build_blr_svgd
+
+    launches = {}
+    for name, (n, d, hier) in ADAPTER_PATHS.items():
+        kernel = (cuda_phi.TERMS_SYM_KERNEL if hier
+                  else cuda_phi.SQUARE_KERNEL)
+        feats, labels, x0 = blr_workload(n, d, hierarchical=hier)
+        runs = {}
+        for opt_name in ("TorchOptimizer(torch.optim.Adam)", "Adam"):
+            m = x0.shape[1]
+            opt = (st.TorchOptimizer(torch.optim.Adam, m, n, lr=ADAPTER_LR)
+                   if opt_name != "Adam"
+                   else st.Adam(m, n, ADAPTER_LR, 0.9, 0.999))
+            svgd = build_blr_svgd(torch.tensor(x0, device=dev), feats, labels,
+                                  hierarchical=hier,
+                                  num_iterations=ADAPTER_STEPS, optimizer=opt)
+            cuda_phi.reset_launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = svgd.run()
+            end.record()
+            end.synchronize()
+            counts = dict(cuda_phi.launch_counts)
+            check(bool(out.isfinite().all()),
+                  f"phase 39 {name} {opt_name}: bad output")
+            require_only(counts, kernel, ADAPTER_STEPS,
+                         f"phase 39 {name} {opt_name}")
+            runs[opt_name] = (out.double(), counts,
+                              start.elapsed_time(end) / ADAPTER_STEPS,
+                              svgd._phi_impl)
+        (a, ca, ms_a, route), (b, _, ms_b, _) = runs.values()
+        diff = float((a - b).abs().max())
+        check(diff <= 1e-3, f"phase 39 {name}: adapter {diff:.3e} from Adam")
+        launches[name] = ca
+        print(f"phase 39 {name} N={n} m={x0.shape[1]} route={route} "
+              f"{ADAPTER_STEPS} steps: ok TorchOptimizer(torch.optim.Adam, "
+              f"lr={ADAPTER_LR}) vs Adam({ADAPTER_LR}) coords_max_abs_diff="
+              f"{diff:.3e} adapter_ms_per_step={ms_a:.4f} adam_ms_per_step="
+              f"{ms_b:.4f} adapter_host_overhead_ms_per_step="
+              f"{ms_a - ms_b:.4f} (CUDA events over the run) launches="
+              f"{json.dumps(ca)} {card} {clock()}")
+    return launches
+
+
+def phase_profiling(dev, card, clock, k2_ms):
+    """Phase 40; returns step_timer's launch counts."""
+    from pathlib import Path
+
+    import svgdcpp_tpu_torch as st
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.utils.profiling import (
+        speed_of_light,
+        step_timer,
+        trace,
+    )
+    from svgdcpp_tpu_torch.utils.workloads import flagship_mvn
+
+    mean, cov, x0 = flagship_mvn(TIMER_N)
+    svgd = make_svgd(st, x0, mean, cov, 1)
+    check(svgd._phi_impl == "fused_cuda" and svgd.fused_sym_form is True,
+          f"phase 40 flagship on {svgd._phi_impl!r} {svgd.fused_sym_form!r}")
+
+    def step(state):
+        return svgd._step_fn(state)[0]
+
+    cuda_phi.reset_launch_counts()
+    timing = step_timer(step, svgd.make_state(), steps=TIMER_STEPS,
+                        warmup=TIMER_WARMUP, chunk=TIMER_CHUNK)
+    counts = dict(cuda_phi.launch_counts)
+    require_only(counts, cuda_phi.SYM_KERNEL, TIMER_WARMUP + TIMER_STEPS,
+                 "phase 40 step_timer on the flagship")
+    trace_dir = Path(__file__).resolve().parent / "chiprun_out" / "chip_smoke_trace"
+    state = svgd.make_state()
+    with trace(str(trace_dir)) as log_dir:
+        for _ in range(TRACE_STEPS):
+            state = step(state)
+    events = json.loads((Path(log_dir) / "trace.json").read_text())[
+        "traceEvents"]
+    k2_events = [e for e in events if e.get("cat") == "kernel"
+                 and "fused_phi_counts_sym_kernel" in e.get("name", "")]
+    check(len(k2_events) == TRACE_STEPS,
+          f"phase 40 trace: {len(k2_events)} K2 kernel events, want "
+          f"{TRACE_STEPS}")
+    k2_us = sum(float(e["dur"]) for e in k2_events) / max(1, len(k2_events))
+    sol_ms = speed_of_light(TIMER_N, 2) * 1e3
+    bound_ms = sweep_bound(cuda_phi.SYM_KERNEL, TIMER_N, 2)[0]
+    check(sol_ms == bound_ms,
+          f"speed_of_light {sol_ms} != K2's bound {bound_ms}")
+    print(f"phase 40 profiling: step_timer flagship N={TIMER_N} "
+          f"({TIMER_WARMUP} warm-up, {TIMER_STEPS} steps in chunks of "
+          f"{TIMER_CHUNK}, CUDA events): ok mean_ms={timing.mean_s * 1e3:.4f} "
+          f"p50_ms={timing.p50_s * 1e3:.4f} p90_ms={timing.p90_s * 1e3:.4f} "
+          f"steps_per_s={timing.steps_per_s:.6g}; trace {TRACE_STEPS} steps "
+          f"-> {Path(log_dir).name}/trace.json, {len(k2_events)} K2 events "
+          f"(fused_phi_counts_sym_kernel) of {k2_us:.2f} us each; "
+          f"speed_of_light({TIMER_N}, 2) = {sol_ms:.6g} ms = K2's bound, "
+          f"K2 wrapper {k2_ms:.4f} ms ({k2_ms / sol_ms:.3g}x) {card} "
+          f"{clock()}")
+    return counts
+
+
+def phase_native(dev, card, clock):
+    """Phase 41; returns the cuda route's launch counts."""
+    import numpy as np
+    import torch
+
+    import svgdcpp_tpu_torch as st
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.utils import native
+    from svgdcpp_tpu_torch.utils.workloads import flagship_mvn
+
+    t0 = time.perf_counter()
+    check(native.native_available(), "phase 41: the native helpers did not "
+          "build (g++ -O3 -std=c++17 -fPIC -shared native/svgd_host.cpp)")
+    build_s = time.perf_counter() - t0
+    mean, cov, x0 = flagship_mvn(ORACLE_N)
+    t0 = time.perf_counter()
+    cpp = native.cpp_oracle_mvn_rbf_adagrad(
+        x0, mean, np.linalg.inv(cov), gamma=None, lr=0.1, iters=ORACLE_STEPS)
+    cpp_s = time.perf_counter() - t0
+    x = torch.tensor(x0, dtype=torch.float32, device=dev)
+    model = st.MultivariateNormal(torch.tensor(mean).float(),
+                                  torch.tensor(cov).float())
+    kernel = st.GaussianRBFKernel(x, st.ScaleMethod.MEDIAN, model,
+                                  median_method="exact")
+    svgd = st.SVGD(st.SVGDOptions(
+        dimension=2, num_iterations=ORACLE_STEPS,
+        coordinate_matrix=x.clone(), kernel=kernel, model=model,
+        optimizer=st.AdaGrad(2, ORACLE_N, 0.1), phi_impl="cuda")).initialize()
+    cuda_phi.reset_launch_counts()
+    out = svgd.run()
+    torch.cuda.synchronize()
+    counts = dict(cuda_phi.launch_counts)
+    require_only(counts, cuda_phi.PHI_RBF_KERNEL, ORACLE_STEPS,
+                 "phase 41 cuda route against the C++ oracle")
+    diff = float(np.abs(out.double().cpu().numpy() - cpp).max())
+    moved = float(np.abs(cpp - x0).max())
+    check(diff <= 1e-3 and moved > 1e-2,
+          f"phase 41: the cuda route is {diff:.3e} from the C++ oracle "
+          f"(the oracle moved {moved:.3e})")
+    print(f"phase 41 native: C++ oracle (float64, host, exact median every "
+          f"step) vs cuda route (K15, float32, median_method='exact') "
+          f"n={ORACLE_N} m=2 {ORACLE_STEPS} steps: ok coords_max_abs_diff="
+          f"{diff:.3e} (max move {moved:.3e}) oracle_s={cpp_s:.3f} "
+          f"native_build_s={build_s:.2f} launches={json.dumps(counts)} "
+          f"{card} {clock()}")
+    return counts
+
+
+def phase_examples(dev, card, clock, plain_ms):
+    """Phase 42: every examples/torch_*_example.py run() on the card at
+    EXAMPLE_ARGS; returns {example: (launch counts, main-path times or
+    None)}."""
+    import inspect
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.cuda_phi import resolve_sym
+    from svgdcpp_tpu_torch.ops.phi import (
+        phi_rbf_fused_counts,
+        phi_rbf_sym_chunk_counts,
+    )
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "examples"))
+    import torch_blr_example
+    import torch_gmm_example
+    import torch_hierarchical_example
+    import torch_large_scale_example
+    import torch_mvn_example
+    import torch_sharded_example
+
+    k16 = cuda_phi.COUNT_KERNEL
+    out = {}
+
+    def default(fn, name):
+        return inspect.signature(fn).parameters[name].default
+
+    def launched(fn):
+        cuda_phi.reset_launch_counts()
+        t0 = time.perf_counter()
+        ret = fn()
+        torch.cuda.synchronize()
+        return ret, dict(cuda_phi.launch_counts), time.perf_counter() - t0
+
+    def no_sweep(counts, what):
+        check(not any(v for k, v in counts.items() if k != k16),
+              f"{what}: a sweep kernel launched: {counts}")
+
+    (x0, final, mean, cov), counts, sec = launched(
+        lambda: torch_mvn_example.run(**EXAMPLE_ARGS["mvn"]))
+    no_sweep(counts, "phase 42 mvn")
+    tol = 2.0 * np.sqrt(np.diag(cov) / x0.shape[0])
+    err = np.abs(final.mean(axis=0) - mean)
+    check(bool(np.all(err < tol))
+          and bool(np.all(final.std(axis=0) > 0.3 * np.sqrt(np.diag(cov)))),
+          f"phase 42 mvn moments: mean error {err}, tol {tol}")
+    print(f"phase 42 example mvn ({x0.shape[0]} particles, dense): ok "
+          f"mean={final.mean(axis=0).tolist()} target={mean.tolist()} "
+          f"cov={np.cov(final.T).ravel().tolist()} "
+          f"target_cov={cov.ravel().tolist()} s={sec:.2f} {clock()}")
+    out["mvn"] = (counts, None)
+
+    (x0, final, (m1, _), (m2, _)), counts, sec = launched(
+        lambda: torch_gmm_example.run(**EXAMPLE_ARGS["gmm"]))
+    no_sweep(counts, "phase 42 gmm")
+    near1 = (np.linalg.norm(final - m1, axis=1)
+             < np.linalg.norm(final - m2, axis=1))
+    c1, c2 = final[near1].mean(axis=0), final[~near1].mean(axis=0)
+    check(0 < near1.sum() < len(near1)
+          and np.linalg.norm(c1 - m1) < 1.5 and np.linalg.norm(c2 - m2) < 1.5,
+          f"phase 42 gmm modes: {near1.sum()} near mode 1, centers {c1} {c2}")
+    print(f"phase 42 example gmm ({x0.shape[0]} particles, dense): ok "
+          f"mode1 {int(near1.sum())} particles mean={c1.tolist()} "
+          f"target={m1.tolist()}; mode2 {int((~near1).sum())} mean="
+          f"{c2.tolist()} target={m2.tolist()} s={sec:.2f} {clock()}")
+    out["gmm"] = (counts, None)
+
+    iters = default(torch_blr_example.run, "num_iterations")
+    (final, agreement, _), counts, sec = launched(
+        lambda: torch_blr_example.run(**EXAMPLE_ARGS["blr"]))
+    require_only(counts, cuda_phi.SQUARE_KERNEL,
+                 EXAMPLE_ARGS["blr"].get("num_iterations", iters),
+                 "phase 42 blr example")
+    check(agreement > 0.8, f"phase 42 blr agreement {agreement}")
+    print(f"phase 42 example blr ({final.shape[0]} particles, d="
+          f"{final.shape[1]}, fused_cuda K1): ok label_agreement="
+          f"{agreement:.3f} launches={json.dumps(counts)} s={sec:.2f} "
+          f"{clock()}")
+    out["blr"] = (counts, None)
+
+    (final, agreement, alpha, _), counts, sec = launched(
+        lambda: torch_hierarchical_example.run(
+            **EXAMPLE_ARGS["hierarchical"]))
+    no_sweep(counts, "phase 42 hierarchical")
+    check(agreement > 0.8 and np.isfinite(alpha),
+          f"phase 42 hierarchical agreement {agreement}, alpha {alpha}")
+    print(f"phase 42 example hierarchical ({final.shape[0]} particles, d="
+          f"{final.shape[1]}, rbf_terms below CUDA_FUSED_MIN_PARTICLES): ok "
+          f"label_agreement={agreement:.3f} posterior_alpha={alpha:.4f} "
+          f"launches={json.dumps(counts)} s={sec:.2f} {clock()}")
+    out["hierarchical"] = (counts, None)
+
+    n = EXAMPLE_ARGS["large_scale"].get(
+        "num_particles", default(torch_large_scale_example.run,
+                                 "num_particles"))
+    iters = EXAMPLE_ARGS["large_scale"].get(
+        "num_iterations", default(torch_large_scale_example.run,
+                                  "num_iterations"))
+    form = resolve_sym(None, n, 2)
+    kernel = {True: cuda_phi.SYM_KERNEL,
+              "panel": cuda_phi.SYMPANEL_KERNEL}[form]
+    (final, ksd0, ksd1), counts, sec = launched(
+        lambda: torch_large_scale_example.run(**EXAMPLE_ARGS["large_scale"]))
+    require_only(counts, kernel, 2 * iters, "phase 42 large_scale example")
+    check(ksd1 < ksd0, f"phase 42 large_scale KSD {ksd0} -> {ksd1}")
+    x, s, g, thr = sweep_inputs(n, 2, 0.0, 420, dev)
+    t_large = {"kernel": time_ms(lambda: cuda_phi.phi_rbf_fused_cuda(
+                   x, s, g, thr, sym=form), reps=10, warmup=2),
+               "plain": plain_ms(lambda: phi_rbf_fused_counts(x, s, g, thr))}
+    print(f"phase 42 example large_scale ({n} particles, {iters} iterations "
+          f"run twice, {kernel}): ok KSD {ksd0:.4f} -> {ksd1:.4f} mean="
+          f"{final.mean(axis=0).tolist()} launches={json.dumps(counts)} "
+          f"s={sec:.2f}; {kernel} at ({n}, 2) kernel_ms={t_large['kernel']:.4f}"
+          f" plain_ms={t_large['plain']:.4f} {card} {clock()}")
+    out["large_scale"] = (counts, t_large, kernel, n)
+    del x, s, g, thr
+
+    n = EXAMPLE_ARGS["sharded"].get(
+        "num_particles", default(torch_sharded_example.run, "num_particles"))
+    iters = EXAMPLE_ARGS["sharded"].get(
+        "num_iterations", default(torch_sharded_example.run,
+                                  "num_iterations"))
+    (x0, final, ksd0, ksd1), counts, sec = launched(
+        lambda: torch_sharded_example.run(**EXAMPLE_ARGS["sharded"]))
+    require_only(counts, cuda_phi.SYM_CHUNK_KERNEL, iters,
+                 "phase 42 sharded example")
+    check(ksd1 < 0.5 * ksd0, f"phase 42 sharded KSD {ksd0} -> {ksd1}")
+    x, s, g, thr = sweep_inputs(n, 2, 0.0, 421, dev)
+    t_shard = {"kernel": time_ms(lambda: cuda_phi.phi_rbf_fused_sym_chunk_cuda(
+                   x, s, g, thr, 1, 0)),
+               "plain": plain_ms(lambda: phi_rbf_sym_chunk_counts(
+                   x, s, g, thr, 1, 0))}
+    print(f"phase 42 example sharded ({n} particles, {iters} iterations, one "
+          f"NCCL rank, K4): ok KSD {ksd0:.4f} -> {ksd1:.4f} mean="
+          f"{final.mean(axis=0).tolist()} launches={json.dumps(counts)} "
+          f"s={sec:.2f}; K4 at ({n}, 2) world 1 kernel_ms="
+          f"{t_shard['kernel']:.4f} plain_ms={t_shard['plain']:.4f} {card} "
+          f"{clock()}")
+    out["sharded"] = (counts, t_shard, cuda_phi.SYM_CHUNK_KERNEL, n)
+    return out
 
 
 def main() -> int:
@@ -2576,6 +2901,37 @@ def main() -> int:
           f"{json.dumps({c: results[0][c][1] for c in apart_rm})} "
           f"{clock()}")
 
+    # -- phase 31 (uneven): the flagship driver under the two-rank mesh at
+    # UNEVEN_N particles, auto on the plain fused sweep, against the
+    # meshless 'fused' driver on the card; fused_cuda raises there
+    mean_u, cov_u, x0_u = flagship_mvn(UNEVEN_N)
+    meshless_u = make_svgd(st, x0_u, mean_u, cov_u, COMPARE_STEPS,
+                           phi_impl="fused").run().double()
+    coords = [torch.tensor(results[r]["driver_uneven"][0], device=dev).double()
+              for r in range(2)]
+    check(bool((coords[0] == coords[1]).all()),
+          "driver_uneven: the two ranks gathered different coordinates")
+    for r in range(2):
+        _, counts, route, refused, share = results[r]["driver_uneven"]
+        check(route == "fused", f"driver_uneven rank {r}: auto took {route!r}")
+        check("duplicates" in refused,
+              f"driver_uneven rank {r}: fused_cuda did not raise ({refused!r})")
+        check(not any(v for k, v in counts.items() if k != k16),
+              f"driver_uneven rank {r}: a sweep kernel launched: {counts}")
+    diff_u = float((coords[0] - meshless_u).abs().max())
+    check(diff_u <= 1e-3, f"driver_uneven vs the meshless fused driver: "
+          f"{diff_u:.3e}")
+    print(f"phase 31 two ranks on one card over gloo, the flagship driver "
+          f"under a mesh at N={UNEVEN_N} (rows "
+          f"{[results[r]['driver_uneven'][4] for r in range(2)]}) "
+          f"{COMPARE_STEPS} steps: ok auto='fused' "
+          f"coords_max_abs_diff_vs_meshless_fused={diff_u:.3e} fused_cuda "
+          f"raises ValueError ({results[0]['driver_uneven'][3][:60]!r}...) "
+          f"launches_per_rank="
+          f"{json.dumps([results[r]['driver_uneven'][1] for r in range(2)])} "
+          f"{clock()}")
+    del meshless_u
+
     # -- phase 32: the generic (autodiff) route at full width ---------------
     from torch.func import vmap
 
@@ -3045,6 +3401,13 @@ def main() -> int:
         del eng, ring_out, gather_out
     torch.distributed.destroy_process_group()
 
+    # -- phases 38-42: the utilities and the examples -----------------------
+    main38 = phase_histogram(dev, card, clock)
+    main39 = phase_adapter(dev, card, clock)
+    main40 = phase_profiling(dev, card, clock, times[10000]["sym"])
+    main41 = phase_native(dev, card, clock)
+    main42 = phase_examples(dev, card, clock, plain_ms)
+
     def main_path(phase, kernel, n, m, launches, times, **work):
         bound_ms, bound_by = sweep_bound(kernel, n, m, **work)
         path = {"phase": phase, "n": n, "m": m, "launches": launches,
@@ -3125,6 +3488,24 @@ def main() -> int:
         + [main_path(37, k16, r["n"], r["m"], r["launches"], r["times"], T=9)
            for r in ring37.values()],
     }
+    # Phases 38-42's paths: the histogram median on the cuda route, the
+    # torch.optim adapter (K1's flat BLR, the hier bench's triangle), the
+    # flagship under step_timer, the cuda route beside the C++ oracle and
+    # the examples (the large-scale and sharded ones at their own shapes).
+    k15_1500 = times16[("phi_rbf", 1500, 2)]
+    paths[k15] += [main_path(38, k15, HIST_ROUTE_N, 2, main38[k15], k15_1500),
+                   main_path(41, k15, ORACLE_N, 2, main41[k15], k15_1500)]
+    paths[sq] += [main_path(39, sq, 1000, 50, main39["flat_blr"][sq],
+                            times9[("square", 1000, 50)]),
+                  main_path(42, sq, 1000, 50, main42["blr"][0][sq],
+                            times9[("square", 1000, 50)])]
+    paths[t_sym].append(main_path(39, t_sym, 10000, 11, main39["hier"][t_sym],
+                                  times9[("terms_sym", 10000, 11)], n_iso=2))
+    paths[sym].append(main_path(40, sym, TIMER_N, 2, main40[sym], k2_10k))
+    for name in ("large_scale", "sharded"):
+        counts, t42, kernel, n42 = main42[name]
+        paths[kernel].append(main_path(42, kernel, n42, 2, counts[kernel],
+                                       t42))
     for path in paths[k16]:
         path["bound_all_pairs_ms"] = count_bound_all_pairs(
             path["n"], path["m"], 9 if path["phase"] in (32, 37) else 17)[0]

@@ -8,7 +8,8 @@ MultivariateNormal, BinomialLikelihood and (hierarchical) Bayesian
 logistic regression models (and ``+ - * /`` /
 ``mixture`` composition), Gaussian-RBF kernels with MEDIAN / HESSIAN /
 CONSTANT bandwidth and their ``+ - * /`` compositions (kernels/algebra.py),
-AdaGrad / Adam / RMSProp, the kernel Stein discrepancy (``ksd_rbf``), the
+AdaGrad / Adam / RMSProp and ``TorchOptimizer`` (any ``torch.optim``
+class, the counterpart of ``OptaxOptimizer``), the kernel Stein discrepancy (``ksd_rbf``), the
 SVGD class's generic, dense, blocked, fused, fused_cuda, rbf_terms,
 fused_terms, fused_terms_cuda, fused_aniso_terms_cuda and cuda routes
 (with the intermediate-matrix debug dump, utils/logging.py), checkpoints
@@ -41,6 +42,7 @@ from .models.multivariate_normal import MultivariateNormal
 from .optimizers.adagrad import AdaGrad
 from .optimizers.adam import Adam
 from .optimizers.base import Optimizer
+from .optimizers.optax_adapter import TorchOptimizer
 from .optimizers.rmsprop import RMSProp
 from .ops.ksd import ksd_rbf
 from .parallel.mesh import initialize_distributed, make_particle_mesh
@@ -64,6 +66,7 @@ __all__ = [
     "Adam",
     "AdaGrad",
     "RMSProp",
+    "TorchOptimizer",
     "ParticleStore",
     "PrecisionPolicy",
     "as_coords",

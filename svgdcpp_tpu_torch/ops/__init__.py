@@ -6,6 +6,7 @@ from .median import (
     kth_smallest_bisect,
     count_le_cross,
     pairwise_distance_median_bisect,
+    pairwise_distance_median_histogram,
 )
 from .phi import (
     phi_generic,

@@ -12,6 +12,8 @@ n^2 pairwise distances, INCLUDING the n zero self-distances
   * warm   -- last step's per-rank brackets, padded by the movement bound.
   * fused  -- the post-processing half of a warm pass whose counts came
               out of the phi sweep (fused_lag1_plan/fused_median_from_counts).
+  * histogram -- bucket-count refinement over [0, hi0) (parity-only:
+              a cross-check of the selectors above).
 
 Deviations from the JAX package, both deliberate:
 
@@ -83,6 +85,27 @@ def count_le_cross(rows_coords, cols_coords, thresholds, *, row_tile: int = 2048
     return count_le_cuda(rows_coords, cols_coords, thresholds)
 
 
+def _centered_sq_tiles(rows_coords, cols_coords, row_tile: int):
+    """The squared distances of every (row, column) pair, one (row_tile,
+    n_cols) tile at a time: both sets shifted by the COLUMN mean, the Gram
+    identity through :func:`~.pairwise.sq_matmul` (never TF32 on the card,
+    whatever the process-wide matmul precision says), clamped at zero.
+    The plain count pass and the histogram pass both take their sq here."""
+    center = cols_coords.mean(dim=0)
+    rows_coords = rows_coords - center
+    cols_coords = cols_coords - center
+    row_tile = auto_row_tile(cols_coords.shape[0], row_tile)
+    row_norms = torch.sum(rows_coords * rows_coords, dim=1)
+    col_norms = torch.sum(cols_coords * cols_coords, dim=1)
+    for start in range(0, rows_coords.shape[0], row_tile):
+        gram = sq_matmul(rows_coords[start : start + row_tile], cols_coords.T)
+        yield torch.clamp_min(
+            row_norms[start : start + row_tile, None] + col_norms[None, :]
+            - 2.0 * gram,
+            0.0,
+        )
+
+
 def count_le_plain(rows_coords, cols_coords, thresholds, *,
                    row_tile: int = 2048):
     """count_le_cross in plain torch: the count kernel's plain version.
@@ -99,28 +122,13 @@ def count_le_plain(rows_coords, cols_coords, thresholds, *,
     thresholds are compared in the coordinates' dtype, as ``sq <= t`` with
     a 0-d threshold tensor compares them.
     """
-    center = cols_coords.mean(dim=0)
-    rows_coords = rows_coords - center
-    cols_coords = cols_coords - center
-    n_r = rows_coords.shape[0]
-    n_c = cols_coords.shape[0]
-    row_tile = auto_row_tile(n_c, row_tile)
-    row_norms = torch.sum(rows_coords * rows_coords, dim=1)
-    col_norms = torch.sum(cols_coords * cols_coords, dim=1)
     num_t = thresholds.shape[0]
     thr = torch.as_tensor(thresholds, device=rows_coords.device).to(
         rows_coords.dtype
     )
     thr_sorted, order = torch.sort(thr)
     hist = torch.zeros(num_t + 1, dtype=torch.int64, device=rows_coords.device)
-    for start in range(0, n_r, row_tile):
-        rows = rows_coords[start : start + row_tile]
-        gram = sq_matmul(rows, cols_coords.T)
-        sq = torch.clamp_min(
-            row_norms[start : start + row_tile, None] + col_norms[None, :]
-            - 2.0 * gram,
-            0.0,
-        )
+    for sq in _centered_sq_tiles(rows_coords, cols_coords, row_tile):
         # bin b holds thr_sorted[b-1] < sq <= thr_sorted[b]
         bins = torch.bucketize(sq, thr_sorted, out_int32=True)
         hist += torch.bincount(bins.reshape(-1), minlength=num_t + 1)
@@ -583,6 +591,92 @@ def fused_median_from_counts(
 
 
 # ----------------------------------------------------------------------
+# Histogram-refinement selection (the parity-only selector)
+# ----------------------------------------------------------------------
+
+
+def kth_smallest_hist(hist_fn, k, lo, hi, *, bins: int = 1024,
+                      passes: int = 3):
+    """The k-th smallest value (1-indexed rank) by histogram refinement.
+
+    ``hist_fn(lo, hi)`` gives the int64 counts of the values in each of
+    ``bins`` equal buckets of [lo, hi), values outside uncounted (on a
+    particle group: the group's sums, so the refinement is the same on
+    every rank). Each pass keeps the bucket where the running count
+    reaches the rank; after ``passes`` the value lies in a bucket of width
+    (hi - lo) / bins**passes, whose midpoint is returned. The bounds are
+    float64 (``SELECT_DTYPE``), the rank an int64 on the device."""
+    device = _device_of(lo, hi)
+    k = torch.as_tensor(k, dtype=torch.int64, device=device)
+    lo = torch.as_tensor(lo, device=device).to(SELECT_DTYPE)
+    hi = torch.as_tensor(hi, device=device).to(SELECT_DTYPE)
+    for _ in range(passes):
+        cum = torch.cumsum(hist_fn(lo, hi), dim=0)
+        b = _first_true(cum >= k)  # the first bucket reaching rank k
+        width = (hi - lo) / bins
+        below = torch.where(b > 0, cum[torch.clamp_min(b - 1, 0)], 0)
+        k = k - below
+        lo = lo + b.to(SELECT_DTYPE) * width
+        hi = lo + width
+    return 0.5 * (lo + hi)
+
+
+def cross_sq_hist(rows_coords, cols_coords, lo, hi, *, bins: int,
+                  row_tile: int = 512):
+    """int64 histogram of ||r_i - c_j||^2 over all (row, column) pairs in
+    ``bins`` equal buckets of [lo, hi), values outside uncounted.
+
+    The squared distances are the plain count pass's
+    (:func:`_centered_sq_tiles`, one row tile at a time, so memory stays
+    O(row_tile * n_cols)); each is bucketed in float64 as
+    floor((sq - lo) / width), clamped into range, and added at its bucket
+    by ``index_add_`` (integer adds, so the counts are the same from run to
+    run on the card too)."""
+    device = rows_coords.device
+    lo = torch.as_tensor(lo, device=device).to(SELECT_DTYPE)
+    hi = torch.as_tensor(hi, device=device).to(SELECT_DTYPE)
+    width = (hi - lo) / bins
+    hist = torch.zeros(bins, dtype=torch.int64, device=device)
+    for sq in _centered_sq_tiles(rows_coords, cols_coords, row_tile):
+        v = sq.reshape(-1).to(SELECT_DTYPE)
+        inside = (v >= lo) & (v < hi)
+        idx = torch.clamp(torch.floor((v - lo) / width), 0, bins - 1)
+        hist.index_add_(0, idx.to(torch.int64), inside.to(torch.int64))
+    return hist
+
+
+def pairwise_distance_median_histogram(coords, *, bins: int = 1024,
+                                       passes: int = 3, row_tile: int = 512,
+                                       count_env=None):
+    """Median of all n^2 pairwise distances by histogram refinement (the
+    JAX package's parity-only selector, kept to cross-check the others).
+
+    All n^2 squared distances, self-zeros included, over [0, hi0) with
+    ``hi0 = 4 * max||x - mean||^2 * (1 + 1e-6) + 1e-30``. An even count
+    refines its two middle ranks independently (2 * ``passes`` sweeps) and
+    averages their square roots, the reference's even-count rule
+    (GaussianRBFKernel.hpp:224-245); an odd count takes the root of the
+    middle rank. Each value is its final bucket's midpoint. ``count_env``
+    as in :func:`pairwise_distance_median`: on a group each rank makes the
+    histogram of its own rows and the group sums them."""
+    if count_env is None:
+        hist_fn, hi0, _ = centered_count_env(
+            coords, row_tile=row_tile, return_centered=True, hist_bins=bins)
+    else:
+        hist_fn, hi0, _ = count_env(hist_bins=bins)
+    total = coords.shape[0] ** 2
+
+    def kth(k):
+        return kth_smallest_hist(hist_fn, k, 0.0, hi0, bins=bins,
+                                 passes=passes)
+
+    if total % 2 == 0:
+        return 0.5 * (torch.sqrt(kth(total // 2))
+                      + torch.sqrt(kth(total // 2 + 1)))
+    return torch.sqrt(kth((total + 1) // 2))
+
+
+# ----------------------------------------------------------------------
 # Dispatch
 # ----------------------------------------------------------------------
 
@@ -603,9 +697,10 @@ def pairwise_distance_median(coords: torch.Tensor, method: str = "auto",
     ``count_env``: None counts pairs of ``coords``; on a particle group
     ``coords`` is the gathered global set and ``count_env()`` returns the
     group's ``(count_fn, hi0, centered)`` (:func:`centered_count_env` of
-    this rank's rows with ``return_centered``), so the count passes sum
-    the ranks' rows while the exact median and the pair sample read the
-    global set, the same selection as on one device.
+    this rank's rows with ``return_centered``; ``count_env(hist_bins=b)``
+    the histogram selector's), so the count passes sum the ranks' rows
+    while the exact median and the pair sample read the global set, the
+    same selection as on one device.
     """
     if method == "warm":
         method = "auto"
@@ -617,10 +712,7 @@ def pairwise_distance_median(coords: torch.Tensor, method: str = "auto",
     if method == "bisect":
         return pairwise_distance_median_bisect(coords, count_env=count_env)
     if method == "histogram":
-        raise NotImplementedError(
-            "median_method='histogram' is not ported yet (ROADMAP.md, "
-            "slice 6, item 12: the parity-only histogram selector)."
-        )
+        return pairwise_distance_median_histogram(coords, count_env=count_env)
     raise ValueError(f"unknown median method: {method!r}")
 
 
@@ -681,7 +773,7 @@ def fused_lag1_plan(aux, n_total, fused_bins, compute_dtype):
 
 def centered_count_env(coords, sources_global=None, *, group=None,
                        n_global=None, row_tile: int = 2048,
-                       return_centered: bool = False):
+                       return_centered: bool = False, hist_bins=None):
     """(count_fn, hi0) for pairwise-distance selection on ``coords``.
 
     Single definition of two float32 guards: global-mean centering of the
@@ -699,7 +791,10 @@ def centered_count_env(coords, sources_global=None, *, group=None,
     no gathered set: with ``sources_global`` None the count_fn is None and
     the caller brings its own (``parallel/ring.ring_count_le``).
     ``return_centered`` adds the centered set: on a group, the centered
-    global sources.
+    global sources. With ``hist_bins`` the first entry is the histogram
+    selector's ``hist_fn(lo, hi)`` in place of count_fn: the int64
+    :func:`cross_sq_hist` of ``hist_bins`` buckets, summed over the group
+    in the same way.
     """
     if group is None:
         centered = coords - coords.mean(dim=0)
@@ -707,28 +802,30 @@ def centered_count_env(coords, sources_global=None, *, group=None,
             4.0 * torch.max(torch.sum(centered * centered, dim=1))
             * (1.0 + 1e-6) + 1e-30
         )
+        rows = sources = centered
 
+        def reduce(counts):
+            return counts
+    else:
+        center = group.all_reduce_sum(torch.sum(coords, dim=0)) / n_global
+        rows = coords - center
+        local_max = torch.max(torch.sum(rows * rows, dim=1))
+        hi0 = 4.0 * group.all_reduce_max(local_max) * (1.0 + 1e-6) + 1e-30
+        if sources_global is None:
+            return None, hi0
+        sources = sources_global - center
+        reduce = group.all_reduce_sum
+    if hist_bins is None:
         def count_fn(thr):
-            return count_le_cross(centered, centered, thr, row_tile=row_tile)
-
-        if return_centered:
-            return count_fn, hi0, centered
-        return count_fn, hi0
-    center = group.all_reduce_sum(torch.sum(coords, dim=0)) / n_global
-    centered_local = coords - center
-    local_max = torch.max(torch.sum(centered_local * centered_local, dim=1))
-    hi0 = 4.0 * group.all_reduce_max(local_max) * (1.0 + 1e-6) + 1e-30
-    if sources_global is None:
-        return None, hi0
-    sources_centered = sources_global - center
-
-    def count_fn(thr):
-        return group.all_reduce_sum(count_le_cross(
-            centered_local, sources_centered, thr, row_tile=row_tile
-        ))
+            return reduce(count_le_cross(rows, sources, thr,
+                                         row_tile=row_tile))
+    else:
+        def count_fn(lo, hi):
+            return reduce(cross_sq_hist(rows, sources, lo, hi,
+                                        bins=hist_bins, row_tile=row_tile))
 
     if return_centered:
-        return count_fn, hi0, sources_centered
+        return count_fn, hi0, sources
     return count_fn, hi0
 
 

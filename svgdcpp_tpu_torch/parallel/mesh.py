@@ -63,20 +63,40 @@ class ParticleGroup:
         dist.all_reduce(out, op=op, group=self.group)
         return out.to(t.device)
 
-    def all_gather_rows(self, t: torch.Tensor) -> torch.Tensor:
-        """Every rank's ``t`` (n_local, ...) stacked in rank order: the
-        global (world_size * n_local, ...) array."""
+    def all_gather_rows(self, t: torch.Tensor,
+                        num_particles: Optional[int] = None) -> torch.Tensor:
+        """Every rank's ``t`` (its rows, ...) stacked in rank order: the
+        global (num_particles, ...) array. ``num_particles`` None: every
+        rank holds as many rows as this one. Otherwise the ranks hold
+        their :meth:`rows` of it, which may differ by one: the transport
+        buffer is padded to the largest share and each part is trimmed to
+        its rank's rows (the padding never reaches the result)."""
         src = t.detach().to("cpu" if self._through_host else t.device)
         src = src.contiguous()
+        shares = [src.shape[0]] * self.world_size
+        if num_particles is not None:
+            shares = [self.share(num_particles, r)
+                      for r in range(self.world_size)]
+            if src.shape[0] != shares[self.rank]:
+                raise ValueError(
+                    f"rank {self.rank} holds {src.shape[0]} rows, its share "
+                    f"of {num_particles} is {shares[self.rank]}")
+        width = max(shares)
+        if src.shape[0] < width:
+            pad = src.new_zeros((width - src.shape[0],) + tuple(src.shape[1:]))
+            src = torch.cat([src, pad], dim=0)
         if self.backend == "nccl":
-            out = torch.empty((self.world_size * src.shape[0],)
+            out = torch.empty((self.world_size * width,)
                               + tuple(src.shape[1:]),
                               dtype=src.dtype, device=src.device)
             dist.all_gather_into_tensor(out, src, group=self.group)
+            parts = out.split(width, dim=0)
         else:
             parts = [torch.empty_like(src) for _ in range(self.world_size)]
             dist.all_gather(parts, src, group=self.group)
-            out = torch.cat(parts, dim=0)
+            out = None
+        if out is None or min(shares) < width:
+            out = torch.cat([p[:k] for p, k in zip(parts, shares)], dim=0)
         return out.to(t.device)
 
     def rotate(self, t: torch.Tensor) -> torch.Tensor:
@@ -108,10 +128,26 @@ class ParticleGroup:
             return rank
         return dist.get_global_rank(self.group, rank)
 
+    def share(self, num_particles: int, rank: Optional[int] = None) -> int:
+        """How many rows of ``num_particles`` a rank (this one by default)
+        holds: the split of :meth:`rows`."""
+        rank = self.rank if rank is None else rank
+        base, extra = divmod(num_particles, self.world_size)
+        return base + (rank < extra)
+
     def rows(self, num_particles: int) -> slice:
-        """This rank's rows of a global (num_particles, m) array."""
-        local = num_particles // self.world_size
-        return slice(self.rank * local, (self.rank + 1) * local)
+        """This rank's rows of a global (num_particles, m) array.
+
+        The one split of every row placement (``place_sharded``, the
+        driver's state under ``SVGDOptions.mesh``, ``Optimizer.shard_state``,
+        sharded checkpoints, the debug dump's gather): contiguous blocks in
+        rank order, the first ``num_particles % world_size`` ranks one row
+        more than the others (``numpy.array_split``'s rule), so no rank
+        is left empty while another has two rows more. An even count
+        gives every rank ``num_particles // world_size`` rows."""
+        base, extra = divmod(num_particles, self.world_size)
+        start = self.rank * base + min(self.rank, extra)
+        return slice(start, start + self.share(num_particles))
 
 
 def local_rank(rank: int) -> int:
@@ -204,6 +240,9 @@ def initialize_distributed(init_method: Optional[str] = None,
     if device is None:
         device = torch.device("cuda", local_rank(rank))
     device = check_device(device, "the particle group's device")
+    if device.type == "cuda" and device.index is None:
+        # "cuda" names this rank's card, as the default does.
+        device = torch.device("cuda", local_rank(rank))
     if backend is None:
         backend = "nccl" if device.type == "cuda" else "gloo"
     if device.type == "cuda":
@@ -226,12 +265,7 @@ def place_replicated(x, group: ParticleGroup, dtype=None) -> torch.Tensor:
 
 def place_sharded(x, group: ParticleGroup, dtype=None) -> torch.Tensor:
     """This rank's rows of a global (n, m) array on the group's device (the
-    counterpart of ``place_sharded``); n must divide evenly over the
-    group."""
+    counterpart of ``place_sharded``), split by ``ParticleGroup.rows``
+    (any n)."""
     x = place_replicated(x, group, dtype)
-    n = x.shape[0]
-    if n % group.world_size:
-        raise ValueError(
-            f"{n} particles do not divide evenly over {group.world_size} ranks"
-        )
-    return x[group.rows(n)].contiguous()
+    return x[group.rows(x.shape[0])].contiguous()

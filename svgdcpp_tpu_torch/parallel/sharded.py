@@ -1088,12 +1088,12 @@ class ShardedState(dict):
         return opt.state_is_particle_sharded(opt.init(c.dtype, c.device))
 
     def to_global(self) -> dict:
-        group = self.engine.mesh
+        group, n = self.engine.mesh, self.engine.num_particles
         state = dict(self)
-        state["coords"] = group.all_gather_rows(self["coords"])
+        state["coords"] = group.all_gather_rows(self["coords"], n)
         state["opt_state"] = _map_pair(
             self["opt_state"], self._particle_leaves(),
-            lambda x, rows: group.all_gather_rows(x) if rows else x,
+            lambda x, rows: group.all_gather_rows(x, n) if rows else x,
         )
         return state
 

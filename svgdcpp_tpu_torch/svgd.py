@@ -420,8 +420,9 @@ class SVGD:
         return self
 
     def _check_mesh_split(self):
-        """Under a mesh: the coordinates on the group's device, and a
-        particle count that splits evenly over its ranks."""
+        """Under a mesh: the coordinates on the group's device. Any particle
+        count splits (``ParticleGroup.rows``); an uneven one takes the plain
+        routes only (``_select_impl``)."""
         mesh = self.mesh
         device = self.store.value.device
         if device != mesh.device and not (
@@ -432,15 +433,13 @@ class SVGD:
                 SVGD_LOG_PREFIX + f"the coordinates are on {device}, "
                 f"SVGDOptions.mesh's ranks on {mesh.device}"
             )
-        if self.num_particles % mesh.world_size:
-            raise DimensionMismatchError(
-                f"num_particles ({self.num_particles}) must divide evenly "
-                f"over the {mesh.world_size} ranks of SVGDOptions.mesh "
-                "(uneven splits are ROADMAP.md item 11e; GSPMD gives them "
-                "to the JAX driver's non-kernel routes). Do NOT pad the "
-                "particle set with duplicates: padded particles participate "
-                "in phi and the median and bias the posterior."
-            )
+
+    def _mesh_even(self) -> bool:
+        """Whether the particles split evenly over SVGDOptions.mesh (no
+        mesh: trivially). The kernel routes' sharded forms need it, as the
+        JAX driver's Mosaic sweep does (``_mesh_pallas_ok``)."""
+        return (self.mesh is None
+                or self.num_particles % self.mesh.world_size == 0)
 
     def _select_impl(self):
         opts = self.options
@@ -465,7 +464,9 @@ class SVGD:
             # SVGD.hpp:346-358).
             impl = "generic"
         elif impl == "auto":
-            impl = self._auto_impl(on_cuda)
+            # An uneven split under a mesh takes the plain routes, as the
+            # JAX driver's auto does off its Mosaic sweep.
+            impl = self._auto_impl(on_cuda and self._mesh_even())
         if impl not in _ROUTES:
             hint = (
                 f" (its CUDA counterpart is {_CUDA_NAMES[impl]!r})"
@@ -523,6 +524,15 @@ class SVGD:
                 + ("'rbf_terms'" if impl == "fused_aniso_terms_cuda"
                    else "'fused_cuda' or 'blocked'")
                 + " under a mesh."
+            )
+        if impl in ("fused_cuda", "fused_terms_cuda") and not self._mesh_even():
+            raise ValueError(
+                f"phi_impl={impl!r} with SVGDOptions.mesh requires "
+                f"num_particles ({self.num_particles}) to divide evenly "
+                f"over the {self.mesh.world_size} ranks of the group; use "
+                "'fused'/'fused_terms' (the plain sweeps take any n), or "
+                "phi_impl='auto'. Do NOT pad the particle set with "
+                "duplicates: padded rows would bias phi and the n^2 median."
             )
         if impl in ("fused", "fused_cuda") and (
             getattr(self.kernel, "scale_method", None)
@@ -779,9 +789,9 @@ class SVGD:
             from .parallel.sharded import sharded_hessian_scale
 
             target = sources
-            kw["count_env"] = lambda: centered_count_env(
+            kw["count_env"] = lambda **env: centered_count_env(
                 coords, sources, group=self.mesh,
-                n_global=self.num_particles, return_centered=True,
+                n_global=self.num_particles, return_centered=True, **env,
             )
         for i, (idx, owner) in enumerate(self._adaptive_slots):
             if owner.target_model is self.model:
@@ -865,8 +875,9 @@ class SVGD:
             sources = source_scores = None
             if mesh is not None:
                 # One gather of each a step, shared by the median and phi.
-                sources = mesh.all_gather_rows(coords)
-                source_scores = mesh.all_gather_rows(scores)
+                sources = mesh.all_gather_rows(coords, self.num_particles)
+                source_scores = mesh.all_gather_rows(scores,
+                                                     self.num_particles)
                 section("gather")
             if fused:
                 # ONE O(n^2) sweep: phi with the PREVIOUS step's verified
@@ -1110,7 +1121,7 @@ class SVGD:
     def _absorb_state(self, state):
         coords = state["coords"]
         if self.mesh is not None:
-            coords = self.mesh.all_gather_rows(coords)
+            coords = self.mesh.all_gather_rows(coords, self.num_particles)
         self.store.value = coords
         self._opt_state = state["opt_state"]
         self._scale_aux = state["scale_aux"]
@@ -1155,7 +1166,8 @@ class SVGD:
                 # stacks) put together into the global matrices.
                 stacked = {
                     key: self.mesh.all_gather_rows(
-                        v.transpose(0, 1).contiguous()).transpose(0, 1)
+                        v.transpose(0, 1).contiguous(),
+                        self.num_particles).transpose(0, 1)
                     for key, v in stacked.items()
                 }
             stacked = {key: v.cpu().numpy() for key, v in stacked.items()}

@@ -16,6 +16,7 @@ command that was run.
 
 from __future__ import annotations
 
+import contextlib
 import fcntl
 import hashlib
 import os
@@ -70,6 +71,18 @@ def library_path(name: str, sources: Sequence[Path]) -> Path:
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def build_lock(name: str):
+    """Hold ``_build/lib<name>.lock`` exclusively, so that one process at
+    a time builds the library ``name``; the others wait, then find it
+    built. The CUDA kernels' build and the native helpers' build
+    (``utils/native.py``) take it."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"lib{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        yield
+
+
 def build_library(name: str, sources: Sequence[Path]) -> Path:
     """Compile ``sources`` into ``lib<name>_<hash>.so`` unless it exists.
 
@@ -81,9 +94,7 @@ def build_library(name: str, sources: Sequence[Path]) -> Path:
     lib_path = library_path(name, sources)
     if lib_path.exists():
         return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with open(BUILD_DIR / f"lib{name}.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
+    with build_lock(name):
         if lib_path.exists():  # built by another process meanwhile
             return lib_path
         stem = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}")

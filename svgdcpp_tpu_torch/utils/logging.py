@@ -4,8 +4,9 @@ Port of ``svgdcpp_tpu.utils.logging`` (the reference's per-iteration
 matrix snapshots, SVGD.hpp:346-366, 460-476): with
 ``log_intermediate_matrices`` the drivers stack LogModelGrad / Kernel /
 KernelGrad / CoordMat per iteration, and this module writes them to a text
-file in the reference's layout after the run. The text is the JAX
-package's writer's, byte for byte.
+file in the reference's layout after the run, through the native writer
+(``utils/native.py``) where it builds and in Python otherwise. The text is
+the JAX package's writer's, byte for byte.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.exceptions import SVGD_LOG_PREFIX
+from .native import write_intermediate_log_native
 
 
 def _host(x) -> np.ndarray:
@@ -43,6 +45,40 @@ def write_intermediate_matrices(path: str, logs: dict, *,
     ker = _host(logs["kernel"])
     kgrad = _host(logs["kernel_grad"])
     coords = _host(logs["coords"])
+    num_steps = lmg.shape[0]
+    n, m = lmg.shape[1], lmg.shape[2]
+
+    # The native writer (utils/native.py) writes the same text faster.
+    try:
+        wrote = write_intermediate_log_native(
+            path,
+            lmg.transpose(0, 2, 1),
+            ker.transpose(0, 2, 1),
+            kgrad.transpose(0, 2, 3, 1).reshape(num_steps, n * m, n),
+            coords.transpose(0, 2, 1),
+            start_step=start_step,
+            append=append,
+        )
+    except RuntimeError as e:
+        # The native writer's failure modes; an open failure (rc 1) keeps
+        # the reference's exact message (SVGD.hpp:466).
+        if getattr(e, "rc", 1) == 1:
+            raise RuntimeError(
+                SVGD_LOG_PREFIX
+                + f"[Runtime Error] Cannot open {path} for writing."
+            ) from e
+        raise RuntimeError(SVGD_LOG_PREFIX + f"[Runtime Error] {e}") from e
+    if wrote:
+        return
+    write_intermediate_matrices_python(path, lmg, ker, kgrad, coords,
+                                       start_step=start_step, append=append)
+
+
+def write_intermediate_matrices_python(path, lmg, ker, kgrad, coords, *,
+                                       start_step: int = 1,
+                                       append: bool = False):
+    """The Python writer of :func:`write_intermediate_matrices`'s text,
+    for host arrays in the (n, m) layout; the native writer's fallback."""
     num_steps = lmg.shape[0]
     n, m = lmg.shape[1], lmg.shape[2]
     try:

@@ -119,14 +119,15 @@ def blr_workload(particles: int, dim: int, n_data: int = 1024,
 
 def build_blr_svgd(x0, features, labels, hierarchical=False,
                    phi_impl="auto", num_iterations=100, device="cuda",
-                   fused_sym=None, mesh=None):
+                   fused_sym=None, mesh=None, optimizer=None):
     """The bench's BLR / hierarchical-BLR driver (bench.py:383-412), built
     on this package and initialized: flat BLR with prior precision 0.1 and
     a median RBF kernel, or hierarchical BLR with the composed kernel
     median RBF + 0.1 * I; Adam in both. ``x0`` may be a tensor (its device
     and dtype are kept) or an array (it goes to ``device`` first, so the
     kernel's median is taken there, once). ``fused_sym`` and ``mesh`` are
-    SVGDOptions.fused_sym and SVGDOptions.mesh."""
+    SVGDOptions.fused_sym and SVGDOptions.mesh; ``optimizer`` replaces the
+    bench's Adam."""
     import svgdcpp_tpu_torch as st
 
     from ..core.types import place_coords
@@ -150,7 +151,7 @@ def build_blr_svgd(x0, features, labels, hierarchical=False,
         st.SVGDOptions(
             dimension=full_dim, num_iterations=num_iterations,
             coordinate_matrix=x0, kernel=kernel, model=model,
-            optimizer=st.Adam(
+            optimizer=optimizer or st.Adam(
                 full_dim, particles, BLR_ADAM["lr"], BLR_ADAM["beta1"],
                 BLR_ADAM["beta2"],
             ),

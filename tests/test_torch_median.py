@@ -186,7 +186,71 @@ def test_dispatch_and_unported_methods():
     x = torch.from_numpy(make("unimodal", 64))
     assert_close(mt.pairwise_distance_median(x, "warm"),
                  mt.pairwise_distance_median(x, "exact"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mt.pairwise_distance_median(x, "histogram")
+    # The histogram selector: the JAX package's dispatch to it.
+    assert_close(mt.pairwise_distance_median(x, "histogram"),
+                 mj.pairwise_distance_median(jnp.asarray(x.numpy()),
+                                             "histogram"))
     with pytest.raises(ValueError, match="unknown median method"):
         mt.pairwise_distance_median(x, "nope")
+
+
+# ----------------------------------------------------------------------
+# The histogram selector
+# ----------------------------------------------------------------------
+
+
+def final_bucket(x, bins, passes=3):
+    """One final bucket of the histogram selector, in distance units near
+    the median: its squared width hi0 / bins**passes over the exact
+    median (|sqrt(a) - sqrt(s)| <= |a - s| / sqrt(s))."""
+    c = x - x.mean(axis=0)
+    hi0 = 4.0 * np.max(np.sum(c * c, axis=1)) * (1.0 + 1e-6) + 1e-30
+    exact = float(mt.pairwise_distance_median_exact(torch.from_numpy(x)))
+    return hi0 / bins**passes / exact, exact
+
+
+@pytest.mark.parametrize("n", [7, 64, 65, 200])  # n^2 odd and even
+@pytest.mark.parametrize("m", [2, 11])
+@pytest.mark.parametrize("bins", [1024, 16])
+@pytest.mark.parametrize("shift", [0.0, 1e4])
+def test_histogram_median_matches_jax_and_exact(n, m, bins, shift):
+    x = np.random.default_rng(n * m + bins).normal(size=(n, m)) + shift
+    got = float(mt.pairwise_distance_median_histogram(torch.from_numpy(x),
+                                                      bins=bins))
+    want = float(mj.pairwise_distance_median_histogram(jnp.asarray(x),
+                                                       bins=bins))
+    width, exact = final_bucket(x, bins)
+    assert abs(got - want) <= width, (got, want, width)
+    assert abs(got - exact) <= width, (got, exact, width)
+    # The same buckets as the JAX selector: the midpoints agree to the
+    # rounding of the centered coordinates (about 1e-12 at +1e4).
+    np.testing.assert_allclose(got, want, rtol=1e-10)
+
+
+def test_histogram_median_off_center_f32():
+    """float32 coordinates at +1e4 (JAX tests/test_median.py:346-352): the
+    tiles center on the column mean like every count pass."""
+    x = (np.random.default_rng(3).normal(size=(300, 2)) + 1e4).astype(
+        np.float32)
+    exact = float(mt.pairwise_distance_median_exact(
+        torch.from_numpy(x.astype(np.float64))))
+    got = float(mt.pairwise_distance_median_histogram(torch.from_numpy(x),
+                                                      row_tile=128))
+    assert abs(got - exact) <= 1e-3 * exact, (got, exact)
+
+
+def test_histogram_counts_every_pair_once():
+    """cross_sq_hist over [0, hi0) counts all n_r * n_c pairs, int64, in
+    any row tile; the kth pass localizes each rank inside its bucket."""
+    x = torch.from_numpy(make("bimodal", 50))
+    hist_fn, hi0, _ = mt.centered_count_env(x, return_centered=True,
+                                            hist_bins=64)
+    for tile in (8, 512):
+        h = mt.cross_sq_hist(x, x, 0.0, hi0, bins=64, row_tile=tile)
+        assert h.dtype == torch.int64 and int(h.sum()) == 50 * 50
+        assert torch.equal(h, hist_fn(torch.tensor(0.0), hi0))
+    sq = np.sort(mt.squared_pairwise_distances(x).numpy().ravel())
+    for k in (1, 1250, 1251, 2500):
+        mid = float(mt.kth_smallest_hist(hist_fn, k, 0.0, hi0, bins=64,
+                                         passes=3))
+        assert abs(mid - sq[k - 1]) <= float(hi0) / 64**3

@@ -176,9 +176,11 @@ def test_bad_meshes_raise(group):
     with pytest.raises(TypeError, match="ParticleGroup"):
         build(st, x0_for(16), 1, "auto", object())
     fake = ParticleGroup(None, 0, 3, torch.device("cpu"), "gloo")
-    with pytest.raises(st.DimensionMismatchError, match="11e"):
-        build(st, x0_for(16), 1, "dense", fake)
-    with pytest.raises(st.DimensionMismatchError, match="duplicates"):
+    # 16 particles over 3 ranks: the plain routes take it, the kernel
+    # routes' sharded forms raise (uneven_split tests below).
+    assert build(st, x0_for(16), 1, "dense", fake).make_state()[
+        "coords"].shape == (6, 2)
+    with pytest.raises(ValueError, match="duplicates"):
         build(st, x0_for(16), 1, "fused_cuda", fake)
     with pytest.raises(ValueError, match="fused_sym=True requires"):
         build(st, x0_for(64), 1, "fused_cuda", group, fused_sym=True)
@@ -295,3 +297,98 @@ def test_dryrun_multichip(n_ranks, capfd):
 
     dryrun_multichip(n_ranks)
     assert f"dryrun_multichip({n_ranks}): OK" in capfd.readouterr().out
+
+
+# ----------------------------------------------------------------------
+# Uneven splits (any n over the group)
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("world,n", [(1, 7), (2, 13), (3, 13), (4, 13),
+                                     (3, 2), (8, 192)])
+def test_rows_split_any_count_in_order(world, n):
+    """ParticleGroup.rows: contiguous blocks in rank order, the first
+    n % world ranks one row more (numpy.array_split's rule)."""
+    groups = [ParticleGroup(None, r, world, torch.device("cpu"), "gloo")
+              for r in range(world)]
+    rows = [g.rows(n) for g in groups]
+    assert [r.stop - r.start for r in rows] == [
+        len(a) for a in np.array_split(np.arange(n), world)]
+    assert [g.share(n) for g in groups] == [r.stop - r.start for r in rows]
+    assert rows[0].start == 0 and rows[-1].stop == n
+    assert all(a.stop == b.start for a, b in zip(rows, rows[1:]))
+
+
+@pytest.mark.parametrize("impl", ["dense", "blocked", "fused", "rbf_terms",
+                                  "fused_terms", "generic", "auto"])
+def test_uneven_split_takes_the_plain_routes(impl):
+    """13 particles over 3 ranks (rank 1 of a group made by hand: nothing
+    is exchanged until the driver steps): every plain route builds with
+    this rank's rows, ``auto`` takes the plain rule."""
+    fake = ParticleGroup(None, 1, 3, torch.device("cpu"), "gloo")
+    kernel = {"rbf_terms": composed, "fused_terms": composed,
+              "generic": imq}.get(impl, rbf)
+    s = build(st, x0_for(13), 1, impl, fake, kernel)
+    assert not s._mesh_even()
+    state = s.make_state()
+    np.testing.assert_array_equal(state["coords"].numpy(),
+                                  x0_for(13)[slice(5, 9)])
+    assert state["opt_state"]["s"].shape == (4, 2)
+    if impl == "auto":
+        assert s._phi_impl == build(st, x0_for(13), 1, "auto")._phi_impl
+
+
+@pytest.mark.parametrize("impl,kernel", [("fused_cuda", rbf),
+                                         ("fused_terms_cuda", composed)])
+def test_uneven_split_refuses_the_kernel_routes(impl, kernel):
+    fake = ParticleGroup(None, 0, 2, torch.device("cpu"), "gloo")
+    with pytest.raises(ValueError, match="divide evenly.*duplicates"):
+        build(st, x0_for(13), 1, impl, fake, kernel)
+    # An even count keeps them.
+    assert build(st, x0_for(12), 1, impl, fake, kernel)._mesh_even()
+
+
+def test_jax_driver_refuses_an_uneven_mesh():
+    """Why the uneven worlds (test_torch_sharded.py) hold the port to the
+    meshless JAX driver: under a CPU mesh of 2 devices the JAX driver's
+    placement of 13 rows raises in jax.device_put."""
+    x0 = x0_for(13)
+    with pytest.raises(ValueError, match="divisible"):
+        build(sv, x0, 2, "dense",
+              make_particle_mesh(jax.devices()[:2])).run()
+
+
+def test_histogram_median_under_a_group(group):
+    """The histogram selector through a one-rank group's count env (the
+    ranks' histograms summed) equals the selector on the set, and JAX's."""
+    from svgdcpp_tpu.ops import median as mj
+    from svgdcpp_tpu_torch.ops import median as mt
+
+    x = torch.from_numpy(x0_for(65, seed=12))
+    want = mt.pairwise_distance_median_histogram(x)
+
+    def env(**kw):
+        return mt.centered_count_env(x, x.clone(), group=group, n_global=65,
+                                     return_centered=True, **kw)
+
+    got = mt.pairwise_distance_median(x, "histogram", count_env=env)
+    assert float(got) == float(want)
+    np.testing.assert_allclose(
+        float(got), float(mj.pairwise_distance_median_histogram(
+            jnp.asarray(x.numpy()))), rtol=1e-12)
+
+
+def test_histogram_median_driver_under_a_group(group, mesh):
+    """A MEDIAN kernel with median_method='histogram' on the dense route
+    under a one-rank mesh, against the meshless driver and the JAX
+    driver."""
+    x0 = x0_for(40, seed=13)
+
+    def hist(pkg, x, model):
+        return rbf(pkg, x, model, median_method="histogram")
+
+    got = build(st, x0, 5, "dense", group, hist).run().numpy()
+    plain = build(st, x0, 5, "dense", None, hist).run().numpy()
+    np.testing.assert_allclose(got, plain, rtol=1e-12, atol=1e-14)
+    want = np.asarray(build(sv, x0, 5, "dense", mesh, hist).run())
+    np.testing.assert_allclose(got, want, rtol=1e-8, atol=1e-10)

@@ -1042,10 +1042,33 @@ def jax_reference(name):
         out_specs=spec if rows else P()))(*[jnp.asarray(a) for a in args]))
 
 
+@functools.lru_cache(maxsize=None)
+def jax_uneven_reference(name):
+    """The JAX driver's run of an ``uneven_cases()`` entry, without a mesh
+    (the same for every world; cached). Under a CPU mesh that does not
+    divide the 13 rows the JAX driver cannot start: jax.device_put refuses
+    a NamedSharding of uneven shares (its "should be divisible" error), so
+    the reference is the computation GSPMD would partition."""
+    worker = load_worker()
+    composed_kernel, impl, options, method = worker.uneven_cases()[name]
+    x0 = worker.x0()[:worker.N_UNEVEN]
+    n, dim = x0.shape
+    model = sv.MultivariateNormal(MEAN, COV)
+    kernel = (composed(x0)(sv, model) if composed_kernel else
+              sv.GaussianRBFKernel(x0, sv.ScaleMethod.MEDIAN, model,
+                                   median_method=method))
+    return np.asarray(sv.SVGD(sv.SVGDOptions(
+        dimension=dim, num_iterations=worker.STEPS,
+        coordinate_matrix=x0.copy(), kernel=kernel, model=model,
+        optimizer=sv.AdaGrad(dim, n, 0.1), phi_impl=impl,
+        **options)).initialize().run())
+
+
 @pytest.mark.parametrize("world", [2, 3, 4])
 def test_spawned_ranks_match_jax_engine(world, tmp_path):
     """A world of 2, 3 or 4 gloo ranks: the engine's gather and ring runs,
-    the driver under SVGDOptions.mesh and the ring primitives (the only
+    the driver under SVGDOptions.mesh (also at 13 particles, an uneven
+    split) and the ring primitives (the only
     place the rotation moves data) against the JAX package; ring counts
     equal the gather counts (checked in the worker) and JAX's; checkpoints
     resume exactly; the debug dump equals the JAX engine's."""
@@ -1083,6 +1106,16 @@ def test_spawned_ranks_match_jax_engine(world, tmp_path):
         float(jax_reference("ring_median")), rel=1e-9)
     np.testing.assert_array_equal(
         got["ring_counts"], jax_reference("ring_counts").astype(np.int64))
+    # the driver at 13 particles, split unevenly over the world, against
+    # the JAX driver (jax_uneven_reference); the gather trims the padded
+    # shares
+    for name in worker.uneven_cases():
+        np.testing.assert_allclose(got[name], jax_uneven_reference(name),
+                                   rtol=0, atol=1e-10, err_msg=name)
+    np.testing.assert_array_equal(got["uneven_gather"],
+                                  2.0 * worker.x0()[:worker.N_UNEVEN])
+    np.testing.assert_array_equal(got["uneven_ckpt_resumed"],
+                                  got["uneven_ckpt_full"])
     # the checkpoints the world saved at step 5 resumed exactly on every rank
     np.testing.assert_array_equal(got["ckpt_resumed"], got["ckpt_full"])
     np.testing.assert_array_equal(got["mesh_ckpt_resumed"],

@@ -9,8 +9,8 @@
   one-rank world (torchrun's ``env://`` where its variables are set), a
   second call returns the existing group, ``make_particle_mesh`` and
   ``ShardedSVGD(mesh=None)`` need no set-up, as the JAX package's do.
-* The top-level ``__all__`` is the JAX package's, less the names not
-  ported yet.
+* The top-level ``__all__`` is the JAX package's, with ``OptaxOptimizer``
+  as ``TorchOptimizer``.
 """
 
 import socket
@@ -32,9 +32,9 @@ from svgdcpp_tpu_torch.parallel import sharded as sharded_t
 
 torch.set_num_threads(1)
 
-#: Public names of the JAX package the port does not export yet (ROADMAP
-#: item 12b).
-NOT_PORTED = {"OptaxOptimizer"}
+#: Public names of the JAX package that the port exports under another
+#: name: optax is JAX-only, so its adapter's counterpart wraps torch.optim.
+RENAMED = {"OptaxOptimizer": "TorchOptimizer"}
 
 
 def free_port() -> int:
@@ -188,6 +188,28 @@ def test_a_larger_world_needs_a_rendezvous(no_group, monkeypatch):
     assert not dist.is_initialized()
 
 
+def test_cuda_without_an_index_names_this_ranks_card(no_group, monkeypatch):
+    """initialize_distributed(device="cuda") (the sharded example's call on
+    the card) selects this rank's card, as the default does: an unindexed
+    device would make torch.cuda.set_device raise. Stubbed here, where
+    there is no card: the device check, set_device and the group's start."""
+    class Started(Exception):
+        pass
+
+    selected = []
+    monkeypatch.setattr(mesh_t, "check_device", lambda d, _: torch.device(d))
+    monkeypatch.setattr(torch.cuda, "set_device", selected.append)
+    monkeypatch.setattr(mesh_t, "local_rank", lambda rank: 3)
+
+    def start(backend, **kw):
+        raise Started(backend)
+
+    monkeypatch.setattr(dist, "init_process_group", start)
+    with pytest.raises(Started, match="nccl"):
+        mesh_t.initialize_distributed(device="cuda")
+    assert selected == [torch.device("cuda", 3)]
+
+
 def test_make_particle_mesh_needs_no_set_up(no_group):
     group = st.make_particle_mesh(device="cpu")
     assert group.world_size == 1 and dist.is_initialized()
@@ -225,7 +247,7 @@ def test_sharded_engine_without_a_mesh(no_group, monkeypatch):
 
 
 def test_all_is_the_jax_packages_less_the_unported():
-    assert set(st.__all__) == set(sv.__all__) - NOT_PORTED
+    assert set(st.__all__) == {RENAMED.get(name, name) for name in sv.__all__}
     assert len(st.__all__) == len(set(st.__all__))
     for name in st.__all__:
         assert getattr(st, name) is not None, name

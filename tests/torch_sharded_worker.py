@@ -12,7 +12,11 @@ OUT_DIR/torch_log_<WORLD>.txt) and checkpoint round trips of the engine
 and of the driver under a mesh (5 steps, save to OUT_DIR, restore on every
 rank, 5 more, beside 10 uninterrupted), and rank 0 writes the gathered
 results to OUT_DIR/torch_sharded_<WORLD>.npz. N = 192 splits evenly over
-2, 3, 4 and 8 ranks. Imports torch and the port only.
+2, 3, 4 and 8 ranks. The driver also runs under the mesh at N_UNEVEN = 13
+particles, which no world of 2, 3 or 4 divides (``uneven_cases()``, a
+checkpoint round trip, the debug dump against the meshless driver's, the
+row placement and gather, and the forced kernel routes' raise). Imports
+torch and the port only.
 """
 
 import sys
@@ -30,6 +34,7 @@ from svgdcpp_tpu_torch.parallel import (  # noqa: E402
     ShardedSVGD,
     ShardedSVGDConfig,
     initialize_distributed,
+    place_sharded,
 )
 from svgdcpp_tpu_torch.parallel import ring  # noqa: E402
 from svgdcpp_tpu_torch.utils.checkpoint import (  # noqa: E402
@@ -114,6 +119,23 @@ def mesh_cases():
     }
 
 
+#: A particle count that no world of 2, 3 or 4 ranks divides.
+N_UNEVEN = 13
+
+
+def uneven_cases():
+    """name -> (composed, phi_impl, options, median_method) of the driver
+    under SVGDOptions.mesh at N_UNEVEN particles (the plain routes; the
+    histogram selector sums the ranks' histograms)."""
+    return {
+        "uneven_dense": (False, "dense", {}, "auto"),
+        "uneven_fused": (False, "fused", {}, "auto"),
+        "uneven_blocked": (False, "blocked", {"row_tile": 8}, "auto"),
+        "uneven_generic": (True, "generic", {"row_tile": 8}, "auto"),
+        "uneven_histogram": (False, "dense", {}, "histogram"),
+    }
+
+
 def ring_inputs():
     """(coords (N, 3), scores (N, 3), P (3, 3)) of the ring primitives."""
     rng = np.random.default_rng(5)
@@ -151,17 +173,72 @@ def run_case(group, composed, config, hooked=False):
     return out.numpy()
 
 
-def run_driver(group, composed, impl, options, iters=STEPS):
-    x = x0()
+def run_driver(group, composed, impl, options, iters=STEPS, n=N,
+               median_method="auto"):
+    x = x0()[:n]
     model = st.MultivariateNormal(MEAN, COV)
     kernel = (composed_kernel(x, model) if composed
-              else st.GaussianRBFKernel(x, st.ScaleMethod.MEDIAN, model))
+              else st.GaussianRBFKernel(x, st.ScaleMethod.MEDIAN, model,
+                                        median_method=median_method))
     svgd = st.SVGD(st.SVGDOptions(
         dimension=DIM, num_iterations=iters, coordinate_matrix=x,
-        kernel=kernel, model=model, optimizer=st.AdaGrad(DIM, N, 0.1),
+        kernel=kernel, model=model, optimizer=st.AdaGrad(DIM, n, 0.1),
         phi_impl=impl, mesh=group, **options,
     )).initialize()
     return svgd
+
+
+def uneven_runs(group, path, log_path):
+    """The driver under the mesh at N_UNEVEN: uneven_cases(), a checkpoint
+    round trip on 'fused', the debug dump (equal to the meshless
+    driver's), the split and the gather of place_sharded, and the forced
+    kernel routes' raise."""
+    out = {}
+    for name, (composed, impl, options, method) in uneven_cases().items():
+        svgd = run_driver(group, composed, impl, options, n=N_UNEVEN,
+                          median_method=method)
+        assert svgd._phi_impl == impl
+        out[name] = svgd.run().numpy()
+    auto = run_driver(group, False, "auto", {}, n=N_UNEVEN)
+    assert auto._phi_impl == "dense", auto._phi_impl
+    for impl in ("fused_cuda", "fused_terms_cuda"):
+        try:
+            run_driver(group, impl == "fused_terms_cuda", impl, {},
+                       n=N_UNEVEN)
+        except ValueError as e:
+            assert "duplicates" in str(e), e
+        else:
+            raise AssertionError(f"{impl} ran at an uneven split")
+    x = torch.from_numpy(x0()[:N_UNEVEN])
+    local = place_sharded(x, group)
+    assert local.shape[0] == group.share(N_UNEVEN)
+    assert torch.equal(local, x[group.rows(N_UNEVEN)])
+    assert torch.equal(group.all_gather_rows(local, N_UNEVEN), x)
+    out["uneven_gather"] = group.all_gather_rows(local * 2.0,
+                                                 N_UNEVEN).numpy()
+    full = run_driver(group, False, "fused", {}, n=N_UNEVEN).run()
+    first = run_driver(group, False, "fused", {}, STEPS // 2, n=N_UNEVEN)
+    first.run()
+    save_checkpoint(path, first.make_state(), step=STEPS // 2)
+    second = run_driver(group, False, "fused", {}, STEPS - STEPS // 2,
+                        n=N_UNEVEN)
+    restored, _ = restore_checkpoint(path, second.make_state())
+    second._absorb_state(restored)
+    out["uneven_ckpt_full"] = full.numpy()
+    out["uneven_ckpt_resumed"] = second.run().numpy()
+    logs = []
+    for where in (group, None):
+        svgd = run_driver(where, False, "auto",
+                          {"log_intermediate_matrices": True,
+                           "intermediate_matrices_output_path": str(
+                               log_path), "device": "cpu"},
+                          iters=LOG_STEPS, n=N_UNEVEN)
+        svgd.run()
+        logs.append(svgd._intermediate_logs)
+    for key, want in logs[1].items():
+        np.testing.assert_allclose(logs[0][key], want, rtol=1e-12,
+                                   atol=1e-14, err_msg=key)
+    return out
 
 
 def ring_primitives(group):
@@ -255,6 +332,8 @@ def main():
     results.update(checkpoint_round_trip(group, out_dir / f"ck_{world}"))
     results.update(mesh_checkpoint_round_trip(group,
                                               out_dir / f"mesh_ck_{world}"))
+    results.update(uneven_runs(group, out_dir / f"uneven_ck_{world}",
+                               out_dir / f"uneven_log_{rank}_{world}.txt"))
     if rank == 0:
         np.savez(out_dir / f"torch_sharded_{world}.npz", **results)
     torch.distributed.destroy_process_group()
