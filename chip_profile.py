@@ -5,6 +5,7 @@
                             [--particles N] [--large] [--crossover] [--sass]
                             [--sweeps] [--out PATH]
     python3 chip_profile.py --square-crossover [--forced] [--out PATH]
+    python3 chip_profile.py --wide-drift [--out PATH]
 
 Drives one configuration of svgdcpp_tpu_torch at its full width:
 
@@ -93,6 +94,13 @@ m, with the instances that needs) and to 1 (the tensor cores at every m)
 (``forced_copy``), and runs ``square_crossover`` in each copy, which builds
 its own library.
 
+``--wide-drift`` runs ``wide_drift`` alone, with no driver profile: how
+far the float32 routes move from float64 at d = 123 and N = 10,000 in
+chip_smoke.py phase 43c's steps, step by step with each step's median,
+every sweep call of the float64 run replayed in float32 through the plain
+version and the kernel, and phase 43c's engine gates across seeds
+(default output ``chiprun_out/wide_drift.json``).
+
 With ``--sweeps`` it also times the single-RBF triangle kernel
 (``fused_phi_counts_sym``, K2's port) at n = 10000, m = 2, T = 3, with the
 largest |phi| difference of two calls on one input and of two 20-step runs
@@ -108,10 +116,14 @@ on the same inputs and the chunk kernel (K10/K11's port) at world 1 and
 each rank of world 2; then the fixed-P kernel (K15's port) as the
 ``cuda`` route calls it, at the HESSIAN P of the d = 11 target at
 n = 10240 (decomposed in the wrapper) and at a median's gamma I at
-n = 1500, m = 2 (decomposition given): wrapper ms (median of 20 calls
-between CUDA events after 3 warm-up calls) and kernel-only us (the
-profiler's events of the kernel over 10 calls). Run from an older tree
-with this script copied in, it times that tree's kernels the same way.
+n = 1500, m = 2 (decomposition given); and the wide instances past
+m = 64 at chip_smoke.py phase 43a's shapes (``wide_cases``: K1 square and
+cross, the terms square kernel, K2, the terms triangle and the chunk
+kernels at worlds 1 and 2, m = 65, 123, 256 and 512): wrapper ms (median
+of 20 calls between CUDA events after 3 warm-up calls) and kernel-only us
+(the profiler's events of the kernel over 10 calls). Run from an older
+tree with this script copied in, it times that tree's kernels the same
+way.
 
 With ``--sass`` it also reads the machine code of the panel kernels'
 instances that paths A and B launch (one RBF at m = 2, exact, T = 3; the
@@ -541,7 +553,7 @@ def square_crossover(device):
     body at every m, run this in a ``forced_copy``."""
     import torch
 
-    from chip_smoke import sweep_inputs
+    from chip_smoke import kernel_us, sweep_inputs
     from svgdcpp_tpu_torch.ops import cuda_phi
 
     rows = []
@@ -608,35 +620,19 @@ def forced_crossover():
     return out
 
 
-def kernel_us(fn, name, calls=10):
-    """Mean device us of the kernels whose name holds ``name`` (the
-    profiler's events) over ``calls`` calls of ``fn``, after one."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        trace = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(trace))
-        events = json.loads(trace.read_text())["traceEvents"]
-    durs = [float(ev["dur"]) for ev in events
-            if ev.get("ph") == "X" and ev.get("cat") == "kernel"
-            and name in ev.get("name", "")]
-    return sum(durs) / calls if durs else None
-
-
 def sweeps(st, device):
     """K2, K4 and K1 at their main paths' shapes, the terms triangle kernel
     over m, the terms panel and chunk kernels at m = 11, and K15 at its
     main paths' shapes (see the module's docstring)."""
     import torch
 
-    from chip_smoke import make_svgd, sweep_inputs, time_ms
+    from chip_smoke import (
+        kernel_us,
+        make_svgd,
+        sweep_inputs,
+        time_ms,
+        wide_cases,
+    )
     from svgdcpp_tpu_torch.ops import cuda_phi
     from svgdcpp_tpu_torch.ops.phi import (
         phi_rbf_fused_counts,
@@ -736,6 +732,12 @@ def sweeps(st, device):
         "phi_rbf_median",
         lambda: cuda_phi.phi_rbf_cuda(x, s, p, psd=True, eig=eig),
         "phi_rbf", n=1500, m=2))
+    # The wide instances (m > 64) at chip_smoke.py phase 43a's shapes and
+    # inputs; a chunk row's call runs every rank of its world.
+    for case in wide_cases(device):
+        rows.append(timed(f"wide {case.label}", case.kern, case.kernel,
+                          n=case.n, n_t=case.n_t or case.n, m=case.m,
+                          terms=len(case.terms) if case.terms else 1))
     return rows
 
 
@@ -916,6 +918,189 @@ def square_crossover_main(args) -> int:
     return 0
 
 
+def wide_drift(device):
+    """The float32 routes' distance from float64 at a9a's width (d = 123)
+    and N = 10,000 over chip_smoke.py phase 43c's COMPARE_STEPS steps, and
+    what makes it:
+
+      * hierarchical BLR (m = 124, median RBF + 0.1 I, Adam lr 5e-2) on the
+        plain route ``fused_terms`` in float64 and in float32 and on the
+        kernel route ``fused_terms_cuda`` in float32, a step at a time:
+        each step's median and fallbacks, and each float32 run's max
+        |dcoords| from float64 with the row and column where it lies;
+      * every sweep call of the float64 run replayed in float32 on the same
+        inputs, through the plain version and through the kernel (the
+        triangle): max |dphi| from float64, the largest over the columns of
+        a column's max |dphi| over that column's RMS, and the counts'
+        largest distance from float64's;
+      * the 1e-3 gates of phase 43c across seeds: the one-rank NCCL engine
+        (fused_sym="full") against the driver and the driver against a
+        second run of itself, for MVN d = 123 (wide_mvn seeds 490-494) and
+        the hierarchical BLR (workload seeds 0-2), beside each float32
+        route's distance from the float64 plain route."""
+    import torch
+
+    import svgdcpp_tpu_torch.svgd as driver_module
+    from chip_smoke import (
+        COMPARE_STEPS,
+        WIDE_BIG_N,
+        WIDE_D,
+        free_port,
+        wide_mvn,
+    )
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.parallel import initialize_distributed
+    from svgdcpp_tpu_torch.utils.workloads import (
+        blr_workload,
+        build_blr_svgd,
+        build_mvn_svgd,
+        build_sharded_hier_svgd,
+        build_sharded_mvn_svgd,
+    )
+
+    n, d, steps = WIDE_BIG_N, WIDE_D, COMPARE_STEPS
+
+    def dist(a, b):
+        return float((a.double() - b.double()).abs().max())
+
+    def hier(x0, feats, labels, dtype, impl):
+        return build_blr_svgd(torch.tensor(x0, dtype=dtype, device=device),
+                              feats, labels, hierarchical=True,
+                              phi_impl=impl, num_iterations=steps)
+
+    def stepped(svgd):
+        traj = []
+        for _ in range(steps):
+            svgd.step()
+            traj.append((svgd.store.value.double().clone(),
+                         float(svgd._scale_aux[0]["med"]),
+                         svgd.median_fallbacks))
+        return traj
+
+    feats, labels, x0 = blr_workload(n, d, hierarchical=True)
+    plain = driver_module.phi_rbf_terms_fused_counts
+    calls = []
+
+    def recorder(coords, scores, gammas, signs, thresholds, row_tile=1024):
+        out = plain(coords, scores, gammas, signs, thresholds, row_tile)
+        calls.append((coords.clone(), scores.clone(),
+                      [torch.as_tensor(g).clone() for g in gammas],
+                      [float(sg) for sg in signs],
+                      torch.as_tensor(thresholds).clone(), out))
+        return out
+
+    driver_module.phi_rbf_terms_fused_counts = recorder
+    try:
+        traj64 = stepped(hier(x0, feats, labels, torch.float64,
+                              "fused_terms"))
+    finally:
+        driver_module.phi_rbf_terms_fused_counts = plain
+    result = {"hier": {"n": n, "m": d + 1, "steps": steps,
+                       "float64_median": [t[1] for t in traj64],
+                       "float64_fallbacks": traj64[-1][2]}}
+    for name, dtype, impl in (("float32_plain", torch.float32, "fused_terms"),
+                              ("float32_kernel", torch.float32,
+                               "fused_terms_cuda")):
+        svgd = hier(x0, feats, labels, dtype, impl)
+        traj = stepped(svgd)
+        rows = []
+        for (c, med, falls), (c64, med64, _) in zip(traj, traj64):
+            diff = (c - c64).abs()
+            flat = int(diff.argmax())
+            rows.append({"max_abs": float(diff.max()),
+                         "row": flat // diff.shape[1],
+                         "column": flat % diff.shape[1],
+                         "median_rel": abs(med - med64) / med64,
+                         "fallbacks": falls})
+        run_final = hier(x0, feats, labels, dtype, impl).run()
+        result["hier"][name] = {
+            "form": svgd.fused_sym_form, "per_step": rows,
+            "run_vs_step_max_abs": dist(run_final, traj[-1][0])}
+        print(f"wide drift hier {name}: final {rows[-1]}", flush=True)
+    replay = []
+    for coords, scores, gammas, signs, thr, (phi64, cnt64) in calls:
+        args32 = (coords.float(), scores.float(), [g.float() for g in gammas],
+                  signs, thr.float())
+        rms = phi64.pow(2).mean(dim=0).sqrt()
+        row = {}
+        for name, (phi, cnt) in (
+                ("plain", plain(*args32)),
+                ("kernel", cuda_phi.phi_rbf_terms_fused_cuda(*args32,
+                                                             sym=True))):
+            err = (phi.double() - phi64).abs()
+            col_rel = err.max(dim=0).values / rms
+            row[name] = {"max_abs": float(err.max()),
+                         "column_of_max_abs": int(err.max(dim=0).values
+                                                  .argmax()),
+                         "max_column_rel": float(col_rel.max()),
+                         "column_of_max_rel": int(col_rel.argmax()),
+                         "count_diff": int((cnt - cnt64).abs().max())}
+        row["phi_abs_max"] = float(phi64.abs().max())
+        row["gammas"] = [float(g) for g in gammas]
+        replay.append(row)
+    result["hier"]["replay"] = replay
+    print(f"wide drift hier replay: step 1 {replay[0]}, last {replay[-1]}",
+          flush=True)
+
+    group = initialize_distributed(f"tcp://localhost:{free_port()}", 1, 0,
+                                   device=device)
+    gates = []
+    for seed in range(490, 495):
+        mean, cov, xm = wide_mvn(n, d, seed)
+
+        def mvn(dtype, impl="auto", mean=mean, cov=cov, xm=xm):
+            return build_mvn_svgd(torch.tensor(xm, dtype=dtype,
+                                               device=device), mean, cov,
+                                  phi_impl=impl,
+                                  num_iterations=steps).run()
+        first, second = mvn(torch.float32), mvn(torch.float32)
+        eng = build_sharded_mvn_svgd(xm, mean, cov, group,
+                                     fused_sym="full").run(xm, steps)
+        ref = mvn(torch.float64, "fused")
+        gates.append({"target": "mvn", "seed": seed,
+                      "engine_vs_driver": dist(eng, first),
+                      "driver_vs_driver": dist(second, first),
+                      "driver_vs_float64_plain": dist(first, ref),
+                      "engine_vs_float64_plain": dist(eng, ref)})
+        print(f"wide drift gate {gates[-1]}", flush=True)
+    for seed in range(3):
+        feats, labels, xh = blr_workload(n, d, hierarchical=True, seed=seed)
+        first = hier(xh, feats, labels, torch.float32, "auto").run()
+        second = hier(xh, feats, labels, torch.float32, "auto").run()
+        eng = build_sharded_hier_svgd(xh, feats, labels, group,
+                                      fused_sym="full").run(xh, steps)
+        ref = hier(xh, feats, labels, torch.float64, "fused_terms").run()
+        plain32 = hier(xh, feats, labels, torch.float32,
+                       "fused_terms").run()
+        gates.append({"target": "hier", "seed": seed,
+                      "engine_vs_driver": dist(eng, first),
+                      "driver_vs_driver": dist(second, first),
+                      "driver_vs_float64_plain": dist(first, ref),
+                      "engine_vs_float64_plain": dist(eng, ref),
+                      "float32_plain_vs_float64_plain": dist(plain32, ref)})
+        print(f"wide drift gate {gates[-1]}", flush=True)
+    torch.distributed.destroy_process_group()
+    result["gates"] = gates
+    return result
+
+
+def wide_drift_main(args) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: torch.cuda.is_available() is False", file=sys.stderr)
+        return 1
+    card = card_name()
+    print(card)
+    result = {"card": card, "torch": torch.__version__,
+              "wide_drift": wide_drift(torch.device("cuda"))}
+    out = Path(args.out or "chiprun_out/wide_drift.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(json.dumps(result["wide_drift"]["gates"], indent=1))
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config",
@@ -942,8 +1127,14 @@ def main() -> int:
     parser.add_argument("--forced", action="store_true",
                         help="with --square-crossover, also time each body "
                              "at every m in forced copies")
+    parser.add_argument("--wide-drift", action="store_true",
+                        help="only measure the float32 routes' distance "
+                             "from float64 at d = 123 and the engine's "
+                             "gates across seeds (no driver profile)")
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
+    if args.wide_drift:
+        return wide_drift_main(args)
     if args.forced and not args.square_crossover:
         parser.error("--forced runs with --square-crossover only")
     if args.square_crossover:

@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the package's CUDA kernels from ``svgdcpp_tpu_torch/csrc`` and runs
-forty-two phases, one line each (several for phases 2, 3, 7-9 and
-14-42):
+forty-three phases, one line each (several for phases 2, 3, 7-9 and
+14-43):
 
   1. device and build: the card's name and power limit, torch and CUDA
      versions, nvcc build seconds and ptxas's registers and spill bytes of
@@ -144,7 +144,7 @@ forty-two phases, one line each (several for phases 2, 3, 7-9 and
      the sweeps' 64 dimensions (m = 65 and 100, 2048 x 3001) the wide
      instance the same way, the hybrid median through it within 1e-3 of
      the plain pass's and of the float64 exact median, and auto on the
-     card raising with the sweeps' item-17 error; the self form (one set
+     card running 3 steps through the wide triangle (K2); the self form (one set
      as rows and columns, the triangle) at odd n off origin, m = 1, 2, 4,
      11 and 65, T = 1, 3, 17, 32 and 33 (both threshold designs) with
      shuffled, duplicate, negative and past-the-largest thresholds: equal
@@ -237,7 +237,30 @@ forty-two phases, one line each (several for phases 2, 3, 7-9 and
      (rbf_terms, no sweep kernel), large_scale (K2 at 100000 particles,
      the KSD falls) and sharded (K4 on a one-rank NCCL world, the KSD
      halves), and the large-scale and sharded kernels timed at their
-     shapes.
+     shapes;
+ 43. the sweeps past m = 64 (the wide bodies): 43a K1 (square (1000, m),
+     cross 700 x 1500), K6/K7 ((1500, m), two terms), K2 and K8/K9 at
+     n = 4096 and K4 and K10/K11 at worlds 1 and 2 (ranks summed), at
+     m = 65, 123, 256 and 512 on grid inputs, K2 and K8/K9 again at
+     (10000, 123) (three terms, one negative): phi within 2.5e-3 of max
+     |phi| of the float64 plain version, counts equal to the float64 and
+     float32 plain versions'; each instance's kernel us (profiler),
+     wrapper ms, FP32 and tensor-core bounds, registers, spills and shared
+     memory; 43d the library's svgd_square_splits and svgd_sym_tile
+     against sym_plan's at m = 65-512; 43b each kernel at 43c's shapes
+     on grid inputs, held to its plain versions as in 43a (K1 at
+     (1000, 123), K6/K7 at (1500, 124) two terms, and the triangle, the
+     square form and the world-1 chunk at (10000, 123) one RBF and
+     (10000, 124) two terms), and the triangle against the square form
+     there, resolve_sym(None) taking the faster (the triangle on a 5%
+     tie);
+     43c the slice on auto at a9a's width (d = 123): flat BLR N = 1000
+     (500 K1 launches, training accuracy above 0.5), flat and
+     hierarchical BLR at N = 10000 (the rule's kernels, 20 launches) and
+     hierarchical BLR at N = 1500 (the square form, K6/K7), each
+     within 1e-3 of its float64 plain route after 20 steps, and the
+     engine on a one-rank NCCL group (hier, K10/K11; MVN d = 123 with
+     fused_sym="full", K4) within 1e-3 of the driver after 20 steps.
 
 Phase 22 prints the N = 1,048,576 set-up (the median seed, now through
 K16) beside the 239.40 s the plain count pass took.
@@ -266,6 +289,7 @@ import math
 import subprocess
 import sys
 import time
+from typing import Callable, NamedTuple
 
 from svgdcpp_tpu_torch.utils.profiling import (
     bound,
@@ -679,6 +703,624 @@ UNEVEN_N = 10001
 #: particles, 200 iterations); nothing is cut.
 EXAMPLE_ARGS = {"mvn": {}, "gmm": {}, "blr": {}, "hierarchical": {},
                 "large_scale": {}, "sharded": {}}
+
+
+#: Phase 43: the wide sweeps (m > 64). 43a: each widened kernel at every
+#: width of WIDE_MS against its float64 plain version on grid inputs (K1
+#: square at WIDE_SQUARE_N and cross at WIDE_CROSS, the terms square kernel
+#: at WIDE_TERMS_SQUARE_N with two terms, the triangles and chunks at
+#: WIDE_TRI_N, the triangles again at WIDE_TRI_BIG_N for m = 123); 43b: the
+#: form rule's shapes, (N, m, signs) with signs None for one RBF; 43c: the
+#: slice's paths on auto, the flat BLR (WIDE_BLR_N particles,
+#: WIDE_BLR_STEPS steps), the N = WIDE_BIG_N flat and hierarchical BLR and
+#: engine runs and the hierarchical BLR at WIDE_TERMS_SQUARE_N particles,
+#: of COMPARE_STEPS steps, at d = WIDE_D (a9a's 123 features).
+WIDE_MS = (65, 123, 256, 512)
+WIDE_SQUARE_N, WIDE_CROSS, WIDE_TERMS_SQUARE_N = 1000, (700, 1500), 1500
+WIDE_TRI_N, WIDE_TRI_BIG_N = 4096, 10000
+WIDE_PHI_GATE = 2.5e-3
+WIDE_RULE = ((10000, 123, None), (10000, 124, (1.0, 1.0)))
+#: Phase 43b: the triangle is the card's form past 64 where its time is
+#: within this share of the square sweep's (sym_plan.card_resolve_sym).
+WIDE_SYM_TIE = 0.05
+WIDE_D, WIDE_BLR_N, WIDE_BLR_STEPS, WIDE_BIG_N = 123, 1000, 500, 10000
+
+
+def kernel_us(fn, name, calls=10, tries=2):
+    """Mean device us of the kernels whose name holds ``name`` (the
+    profiler's events) over ``calls`` calls of ``fn``, after one; a trace
+    that holds none of them (on an H100, once in a run of phase 43a's 38
+    cases) is taken again, up to ``tries`` times, else None."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = Path(tmp) / "trace.json"
+            prof.export_chrome_trace(str(trace))
+            events = json.loads(trace.read_text())["traceEvents"]
+        durs = [float(ev["dur"]) for ev in events
+                if ev.get("ph") == "X" and ev.get("cat") == "kernel"
+                and name in ev.get("name", "")]
+        if durs:
+            return sum(durs) / calls
+    return None
+
+
+class WideCase(NamedTuple):
+    """One of phase 43a's calls: the kernel's call, its plain float64 call
+    and its plain float32 call each return (phi, counts); ``n_t`` is the
+    cross form's target count (None: one set of n)."""
+    label: str
+    kernel: str
+    n: int
+    m: int
+    terms: tuple | None
+    kern: Callable
+    want64: Callable
+    want32: Callable
+    n_t: int | None = None
+
+
+def ranks_summed(fn, world, n, finish):
+    """(phi, counts) of a chunk sweep over every rank of ``world``:
+    ``fn(world, rank)``'s raw accumulators and upper counts summed and
+    finished as the engine does."""
+    acc = upper = None
+    for rank in range(world):
+        a, u = fn(world, rank)
+        acc = a if acc is None else acc + a
+        upper = u if upper is None else upper + u
+    return finish(acc), 2 * upper - n
+
+
+def wide_cases(dev):
+    """Phase 43a's calls (WideCase); the chunk kernels' calls sum every
+    rank of a world and finish the sum as the engine does."""
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import (
+        phi_rbf_cross_fused_counts,
+        phi_rbf_fused_counts,
+        phi_rbf_fused_sym_finish,
+        phi_rbf_sym_chunk_counts,
+        phi_rbf_terms_fused_counts,
+        phi_rbf_terms_fused_sym_finish,
+        phi_rbf_terms_sym_chunk_counts,
+    )
+
+    def f64(*ts):
+        return [t.double() for t in ts]
+
+    cases = []
+    for idx, m in enumerate(WIDE_MS):
+        off = 100.0 if m == 123 else 0.0
+        n = WIDE_SQUARE_N
+        x, s, g, thr = grid_inputs(n, m, off, 430 + idx, dev)
+        cases.append(WideCase(
+            f"K1 square ({n}, {m}) offset={off}", cuda_phi.SQUARE_KERNEL, n,
+            m, None,
+            lambda x=x, s=s, g=g, thr=thr:
+            cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=False),
+            lambda x=x, s=s, g=g, thr=thr:
+            phi_rbf_fused_counts(*f64(x, s, g, thr)),
+            lambda x=x, s=s, g=g, thr=thr:
+            phi_rbf_fused_counts(x, s, g, thr)))
+        n_t, n_s = WIDE_CROSS
+        xs, ss, g, thr = grid_inputs(n_s, m, 0.0, 440 + idx, dev)
+        xt = grid_inputs(n_t, m, 0.0, 450 + idx, dev)[0]
+        cases.append(WideCase(
+            f"K1 cross ({n_t} x {n_s}, {m})", cuda_phi.SQUARE_KERNEL, n_s, m,
+            None,
+            lambda xt=xt, xs=xs, ss=ss, g=g, thr=thr:
+            cuda_phi.phi_rbf_fused_cuda_cross(xt, xs, ss, g, thr),
+            lambda xt=xt, xs=xs, ss=ss, g=g, thr=thr:
+            phi_rbf_cross_fused_counts(*f64(xt, xs, ss, g, thr)),
+            lambda xt=xt, xs=xs, ss=ss, g=g, thr=thr:
+            phi_rbf_cross_fused_counts(xt, xs, ss, g, thr),
+            n_t=n_t))
+        n = WIDE_TERMS_SQUARE_N
+        x, s, g, thr = grid_inputs(n, m, 0.0, 460 + idx, dev)
+        signs = (1.0, 1.0)
+        gs = [g, 0.5 * g]
+        cases.append(WideCase(
+            f"K6/K7 terms square ({n}, {m}) two terms",
+            cuda_phi.TERMS_SQUARE_KERNEL, n, m, signs,
+            lambda x=x, s=s, gs=gs, thr=thr, signs=signs:
+            cuda_phi.phi_rbf_terms_fused_cuda(x, s, gs, signs, thr,
+                                              sym=False),
+            lambda x=x, s=s, gs=gs, thr=thr, signs=signs:
+            phi_rbf_terms_fused_counts(*f64(x, s), f64(*gs), signs,
+                                       thr.double()),
+            lambda x=x, s=s, gs=gs, thr=thr, signs=signs:
+            phi_rbf_terms_fused_counts(x, s, gs, signs, thr)))
+        tri_ns = (WIDE_TRI_N, WIDE_TRI_BIG_N) if m == 123 else (WIDE_TRI_N,)
+        for n in tri_ns:
+            x, s, g, thr = grid_inputs(n, m, 0.0, 470 + idx + n, dev)
+            gs = [g, 0.5 * g]
+            # Three terms with a negative sign at m = 123 (the instance
+            # of any term count), two at the other widths.
+            signs = (1.0, -0.5, 1.0) if m == 123 else (1.0, 1.0)
+            if len(signs) == 3:
+                gs = [g, 0.5 * g, 2.0 * g]
+            cases.append(WideCase(
+                f"K2 triangle ({n}, {m})", cuda_phi.SYM_KERNEL, n, m, None,
+                lambda x=x, s=s, g=g, thr=thr:
+                cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=True),
+                lambda x=x, s=s, g=g, thr=thr:
+                phi_rbf_fused_counts(*f64(x, s, g, thr)),
+                lambda x=x, s=s, g=g, thr=thr:
+                phi_rbf_fused_counts(x, s, g, thr)))
+            cases.append(WideCase(
+                f"K8/K9 terms triangle ({n}, {m}) signs={signs}",
+                cuda_phi.TERMS_SYM_KERNEL, n, m, signs,
+                lambda x=x, s=s, gs=gs, thr=thr, signs=signs:
+                cuda_phi.phi_rbf_terms_fused_cuda(
+                    x, s, gs, signs, thr, sym=True),
+                lambda x=x, s=s, gs=gs, thr=thr, signs=signs:
+                phi_rbf_terms_fused_counts(
+                    *f64(x, s), f64(*gs), signs, thr.double()),
+                lambda x=x, s=s, gs=gs, thr=thr, signs=signs:
+                phi_rbf_terms_fused_counts(x, s, gs, signs, thr)))
+            if n != WIDE_TRI_N:
+                continue
+            for world in (1, 2):
+                cases.append(WideCase(
+                    f"K4 chunks ({n}, {m}) world={world}",
+                    cuda_phi.SYM_CHUNK_KERNEL, n, m, None,
+                    lambda x=x, s=s, g=g, thr=thr, n=n, world=world:
+                    ranks_summed(
+                        lambda w, r: cuda_phi.phi_rbf_fused_sym_chunk_cuda(
+                            x, s, g, thr, w, r), world, n,
+                        lambda acc: phi_rbf_fused_sym_finish(acc, s, g, n)),
+                    lambda x=x, s=s, g=g, thr=thr:
+                    phi_rbf_fused_counts(*f64(x, s, g, thr)),
+                    lambda x=x, s=s, g=g, thr=thr, n=n, world=world:
+                    ranks_summed(
+                        lambda w, r: phi_rbf_sym_chunk_counts(
+                            x, s, g, thr, w, r), world, n,
+                        lambda acc: phi_rbf_fused_sym_finish(acc, s, g, n))))
+                cases.append(WideCase(
+                    f"K10/K11 terms chunks ({n}, {m}) signs={signs} "
+                    f"world={world}",
+                    cuda_phi.TERMS_SYM_CHUNK_KERNEL, n, m, signs,
+                    lambda x=x, s=s, gs=gs, thr=thr, n=n, world=world,
+                    signs=signs: ranks_summed(
+                        lambda w, r: cuda_phi.phi_rbf_terms_fused_sym_chunk_cuda(
+                            x, s, gs, signs, thr, w, r), world, n,
+                        lambda acc: phi_rbf_terms_fused_sym_finish(
+                            acc, s, signs, n)),
+                    lambda x=x, s=s, gs=gs, thr=thr, signs=signs:
+                    phi_rbf_terms_fused_counts(*f64(x, s), f64(*gs), signs,
+                                               thr.double()),
+                    lambda x=x, s=s, gs=gs, thr=thr, n=n, world=world,
+                    signs=signs: ranks_summed(
+                        lambda w, r: phi_rbf_terms_sym_chunk_counts(
+                            x, s, gs, signs, thr, w, r), world, n,
+                        lambda acc: phi_rbf_terms_fused_sym_finish(
+                            acc, s, signs, n))))
+    return cases
+
+
+#: The wide bodies' shared memory (csrc/square_mma.cuh SqWide, static;
+#: csrc/wide_tri.cuh WideTri, dynamic), in bytes: the square body's union
+#: of 2 x 4224 floats and 32 norms (+ 48 term constants for any count of
+#: terms), the triangle's 9216-float union, 8704 floats a weight tile and
+#: 256 norms and sums.
+WIDE_SMEM = {"fused_phi_counts_square": 4 * (2 * 4224 + 32),
+             "fused_phi_terms_square": 4 * (2 * 4224 + 32),
+             "fused_phi_counts_sym": 4 * (9216 + 8704 + 256),
+             "fused_phi_counts_sym_chunk": 4 * (9216 + 8704 + 256),
+             "fused_phi_terms_sym": 4 * (9216 + 2 * 8704 + 256),
+             "fused_phi_terms_sym_chunk": 4 * (9216 + 2 * 8704 + 256)}
+
+#: Each wide kernel's ptxas instance names (chip_smoke.ptxas_summary) at
+#: T = 3, MM = 0 being the wide instance.
+WIDE_INSTANCES = {"fused_phi_counts_square": ("counts_square<0,0,3>",),
+                  "fused_phi_terms_square": ("terms_square<0,0,3,2>",
+                                             "terms_square<0,0,3,0>"),
+                  "fused_phi_counts_sym": ("counts_sym<0,0,3>",),
+                  "fused_phi_counts_sym_chunk": ("counts_sym_chunk<0,0,3>",),
+                  "fused_phi_terms_sym": ("terms_sym<0,0,3,2>",
+                                          "terms_sym<0,0,3,0>"),
+                  "fused_phi_terms_sym_chunk": ("terms_sym_chunk<0,0,3,2>",
+                                                "terms_sym_chunk<0,0,3,0>")}
+
+
+def wide_bounds(kernel, n, m, terms, pairs=None, n_t=None):
+    """(FP32 bound, tensor-core bound) of a wide kernel's call, each
+    (ms, bound_by); ``n_t``: a square kernel's cross form, n_t targets
+    against the n sources."""
+    from svgdcpp_tpu_torch.utils.profiling import tri_tensor_bound
+
+    n_iso = len(terms) if terms else 1
+    n_terms = len(terms) if terms else None
+    fp32 = sweep_bound(kernel, n, m, n_iso=n_iso, pairs=pairs, n_t=n_t)
+    if "square" in kernel:
+        return fp32, square_tensor_bound(n, m, n_terms=n_terms, n_t=n_t)
+    return fp32, tri_tensor_bound(n, m, n_terms=n_terms, pairs=pairs)
+
+
+def wide_held(label, got, want64, want32):
+    """Hold a wide kernel's (phi, counts) to its plain versions' on grid
+    inputs: phi finite and within WIDE_PHI_GATE (max relative) of the
+    float64 plain version's, the counts equal to both plain versions'.
+    Returns (max |dphi|, that relative error)."""
+    import torch
+
+    phi_k, cnt_k = got
+    phi_w, cnt_w = want64
+    cnt_32 = want32[1]
+    torch.cuda.synchronize()
+    check(bool(phi_k.isfinite().all()), f"phase 43 {label}: non-finite")
+    abs_err = float((phi_k.double() - phi_w).abs().max())
+    rel = abs_err / float(phi_w.abs().max())
+    check(rel <= WIDE_PHI_GATE,
+          f"phase 43 {label}: phi rel err {rel:.3e} > {WIDE_PHI_GATE}")
+    # Grid inputs: every sq is exact in both forms.
+    d64 = int((cnt_k - cnt_w).abs().max())
+    d32 = int((cnt_k - cnt_32).abs().max())
+    check(d64 == 0 and d32 == 0,
+          f"phase 43 {label}: counts differ from the float64 plain "
+          f"version's by {d64}, the float32 one's by {d32}")
+    return abs_err, rel
+
+
+def phase_wide_kernels(dev, card, clock, ptxas):
+    """Phase 43a (kernels against their plain versions at m > 64, their
+    times and bounds) and 43d (the library's plan against sym_plan's past
+    64). Returns ({kernel: max |dphi|}, {(label, n, m): times}) for the
+    kernels line."""
+    from svgdcpp_tpu_torch.ops import cuda_phi, sym_plan
+
+    errs, times = {}, {}
+    for case in wide_cases(dev):
+        label, kernel, n, m, terms = case[:5]
+        abs_err, rel = wide_held(label, case.kern(), case.want64(),
+                                 case.want32())
+        errs[kernel] = max(errs.get(kernel, 0.0), abs_err)
+        k_us = kernel_us(case.kern, kernel, calls=5)
+        wrapper = time_ms(case.kern, reps=10, warmup=2)
+        pairs = None
+        if "chunk" in kernel:  # rank 0's share when the world is 2
+            world = int(label.rsplit("=", 1)[1])
+            tile = sym_plan.sym_tile(m, terms is not None)
+            t0, count = sym_plan.sym_tile_chunk(n, world, 0, tile)
+            pairs = chunk_pairs(n, tile, [
+                (bi, bj) for bi, b0, b1 in sym_plan.upper_tile_rows(
+                    -(-n // tile), t0, count) for bj in range(b0, b1 + 1)])
+        (fp_ms, fp_by), (tc_ms, tc_by) = wide_bounds(kernel, n, m, terms,
+                                                     pairs, case.n_t)
+        times[(label, n, m)] = {"kernel": wrapper, "kernel_us": k_us}
+        regs = {inst: ptxas.get(inst, "?") for inst in WIDE_INSTANCES[kernel]}
+        print(f"phase 43a {label}: ok phi_rel={rel:.3e} count_diff=0 "
+              f"kernel_us={k_us} wrapper_ms={wrapper:.4f} "
+              f"bound_fp32_ms={fp_ms:.6g} ({fp_by}) bound_tensor_ms="
+              f"{tc_ms:.6g} ({tc_by}) ptxas={json.dumps(regs)} "
+              f"smem_bytes={WIDE_SMEM[kernel]} {card} {clock()}")
+    # 43d: the library's split count and tile side against sym_plan's.
+    lib = cuda_phi.load_library()
+    widths = (65, 66, 100, 123, 124, 127, 128, 129, 200, 256, 300, 511, 512)
+    shapes = [(n_t, n_s, m) for n_t in (1, 64, 700, 1000, 10007)
+              for n_s in (1, 33, 1500, 20000) for m in widths]
+    off = [a for a in shapes
+           if lib.svgd_square_splits(*a) != sym_plan.square_splits(*a)]
+    check(not off, f"phase 43d: svgd_square_splits and sym_plan."
+                   f"square_splits differ at {off}")
+    off = [(m, t) for m in widths for t in (0, 1)
+           if lib.svgd_sym_tile(m, t) != sym_plan.sym_tile(m, bool(t))]
+    check(not off, f"phase 43d: svgd_sym_tile and sym_plan.sym_tile differ "
+                   f"at {off}")
+    print(f"phase 43d mirrors: ok svgd_square_splits at {len(shapes)} shapes "
+          f"and svgd_sym_tile at m = {list(widths)} equal sym_plan's")
+    return errs, times
+
+
+def phase_wide_rule(dev, card, clock, plain_ms, errs):
+    """Phase 43b, at the shapes of phase 43c's paths on grid inputs: K1 at
+    the flat BLR's (WIDE_BLR_N, WIDE_D), the terms square kernel at the
+    small hierarchical BLR's (WIDE_TERMS_SQUARE_N, WIDE_D + 1) with two
+    terms, and at WIDE_RULE's shapes the full-width triangle, the square
+    form and the chunk kernel at world 1 (the one-rank engine's), each
+    call held to its plain versions (wide_held; its max |dphi| into
+    ``errs``) and timed beside them. The triangle must be the form
+    resolve_sym(None, ...) returns where it is within WIDE_SYM_TIE of the
+    square's time, the square elsewhere. Returns {(name, n, m): {"kernel":
+    ms, "plain": ms}} for phase 43c's paths."""
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import (
+        phi_rbf_fused_counts,
+        phi_rbf_fused_sym_finish,
+        phi_rbf_sym_chunk_counts,
+        phi_rbf_terms_fused_counts,
+        phi_rbf_terms_fused_sym_finish,
+        phi_rbf_terms_sym_chunk_counts,
+    )
+
+    def f64(*ts):
+        return [t.double() for t in ts]
+
+    def held(label, kernel, kern, want64, want32):
+        abs_err, rel = wide_held(f"43b {label}", kern(), want64, want32)
+        errs[kernel] = max(errs.get(kernel, 0.0), abs_err)
+        return rel
+
+    out = {}
+    # K1 at the flat BLR's shape and the terms square kernel at the small
+    # hierarchical BLR's (phase 43c's square paths).
+    n, m = WIDE_BLR_N, WIDE_D
+    x, s, g, thr = grid_inputs(n, m, 0.0, 479, dev)
+
+    def k1():
+        return cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=False)
+
+    def plain():
+        return phi_rbf_fused_counts(x, s, g, thr)
+    rel = held(f"K1 square ({n}, {m})", cuda_phi.SQUARE_KERNEL, k1,
+               phi_rbf_fused_counts(*f64(x, s, g, thr)), plain())
+    out[(cuda_phi.SQUARE_KERNEL, n, m)] = {
+        "kernel": time_ms(k1, reps=20, warmup=3), "plain": plain_ms(plain)}
+    print(f"phase 43b K1 square ({n}, {m}): ok phi_rel={rel:.3e} "
+          f"wrapper_ms={out[(cuda_phi.SQUARE_KERNEL, n, m)]['kernel']:.4f} "
+          f"{card} {clock()}")
+    n, m = WIDE_TERMS_SQUARE_N, WIDE_D + 1
+    x, s, g, thr = grid_inputs(n, m, 0.0, 478, dev)
+    gs, signs = [g, 0.5 * g], (1.0, 1.0)
+
+    def k67():
+        return cuda_phi.phi_rbf_terms_fused_cuda(x, s, gs, signs, thr,
+                                                 sym=False)
+
+    def plain():
+        return phi_rbf_terms_fused_counts(x, s, gs, signs, thr)
+    rel = held(f"K6/K7 terms square ({n}, {m}) two terms",
+               cuda_phi.TERMS_SQUARE_KERNEL, k67,
+               phi_rbf_terms_fused_counts(*f64(x, s), f64(*gs), signs,
+                                          thr.double()), plain())
+    out[(cuda_phi.TERMS_SQUARE_KERNEL, n, m)] = {
+        "kernel": time_ms(k67, reps=20, warmup=3), "plain": plain_ms(plain)}
+    print(f"phase 43b K6/K7 terms square ({n}, {m}) two terms: ok "
+          f"phi_rel={rel:.3e} wrapper_ms="
+          f"{out[(cuda_phi.TERMS_SQUARE_KERNEL, n, m)]['kernel']:.4f} "
+          f"{card} {clock()}")
+    for idx, (n, m, signs) in enumerate(WIDE_RULE):
+        x, s, g, thr = grid_inputs(n, m, 0.0, 480 + idx, dev)
+        if signs is None:
+            def sweep(form):
+                return lambda: cuda_phi.phi_rbf_fused_cuda(x, s, g, thr,
+                                                           sym=form)
+
+            def chunk():
+                return cuda_phi.phi_rbf_fused_sym_chunk_cuda(x, s, g, thr, 1,
+                                                             0)
+
+            def finish(acc):
+                return phi_rbf_fused_sym_finish(acc, s, g, n)
+
+            def plain():
+                return phi_rbf_fused_counts(x, s, g, thr)
+
+            def plain_chunk():
+                return phi_rbf_sym_chunk_counts(x, s, g, thr, 1, 0)
+            want64 = phi_rbf_fused_counts(*f64(x, s, g, thr))
+            names = (cuda_phi.SYM_KERNEL, cuda_phi.SQUARE_KERNEL,
+                     cuda_phi.SYM_CHUNK_KERNEL)
+            rule = cuda_phi.resolve_sym(None, n, m)
+        else:
+            gs = [g, 0.5 * g]
+
+            def sweep(form):
+                return lambda: cuda_phi.phi_rbf_terms_fused_cuda(
+                    x, s, gs, signs, thr, sym=form)
+
+            def chunk():
+                return cuda_phi.phi_rbf_terms_fused_sym_chunk_cuda(
+                    x, s, gs, signs, thr, 1, 0)
+
+            def finish(acc):
+                return phi_rbf_terms_fused_sym_finish(acc, s, signs, n)
+
+            def plain():
+                return phi_rbf_terms_fused_counts(x, s, gs, signs, thr)
+
+            def plain_chunk():
+                return phi_rbf_terms_sym_chunk_counts(x, s, gs, signs, thr,
+                                                      1, 0)
+            want64 = phi_rbf_terms_fused_counts(*f64(x, s), f64(*gs), signs,
+                                                thr.double())
+            names = (cuda_phi.TERMS_SYM_KERNEL, cuda_phi.TERMS_SQUARE_KERNEL,
+                     cuda_phi.TERMS_SYM_CHUNK_KERNEL)
+            rule = cuda_phi.resolve_sym(None, n, m, len(signs))
+        what = "one RBF" if signs is None else f"{len(signs)} terms"
+        want32 = plain()
+        rels = [
+            held(f"{names[0]} ({n}, {m}) {what}", names[0], sweep(True),
+                 want64, want32),
+            held(f"{names[1]} ({n}, {m}) {what}", names[1], sweep(False),
+                 want64, want32),
+            held(f"{names[2]} ({n}, {m}) {what} world=1", names[2],
+                 lambda: ranks_summed(lambda w, r: chunk(), 1, n, finish),
+                 want64, want32)]
+        # Triangle, square, square, triangle, the median of each.
+        t_tri = [time_ms(sweep(True), reps=10, warmup=2)]
+        t_sq = [time_ms(sweep(False), reps=10, warmup=2)]
+        t_sq.append(time_ms(sweep(False), reps=10, warmup=2))
+        t_tri.append(time_ms(sweep(True), reps=10, warmup=2))
+        tri_ms, sq_ms = min(t_tri), min(t_sq)
+        want = tri_ms <= (1.0 + WIDE_SYM_TIE) * sq_ms
+        check(rule is want,
+              f"phase 43b ({n}, {m}) {what}: triangle {tri_ms:.4f} ms, "
+              f"square {sq_ms:.4f} ms, but resolve_sym(None) gives {rule!r}")
+        t_plain = plain_ms(plain)
+        out[(names[0], n, m)] = {"kernel": tri_ms, "plain": t_plain}
+        out[(names[1], n, m)] = {"kernel": sq_ms, "plain": t_plain}
+        out[(names[2], n, m)] = {"kernel": time_ms(chunk, reps=10, warmup=2),
+                                 "plain": plain_ms(plain_chunk)}
+        print(f"phase 43b form rule ({n}, {m}) {what}: ok triangle_ms="
+              f"{t_tri} square_ms={t_sq} resolve_sym(None)={rule} "
+              f"(tie within {WIDE_SYM_TIE:g} -> triangle) plain_ms="
+              f"{t_plain:.4f} chunk_world1_ms="
+              f"{out[(names[2], n, m)]['kernel']:.4f} chunk_plain_ms="
+              f"{out[(names[2], n, m)]['plain']:.4f}; against the plain "
+              f"versions (triangle, square, chunk) phi_rel="
+              f"{[f'{r:.3e}' for r in rels]} counts equal "
+              f"{card} {clock()}")
+    return out
+
+
+def wide_mvn(n, d, seed):
+    """An MVN target at width d (mean ~ N(0, 1), a diagonal covariance
+    from 0.5 to 2) and x0 ~ N(0, 1) in float32, from a numpy seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mean = rng.normal(size=d)
+    cov = np.diag(np.linspace(0.5, 2.0, d))
+    return mean, cov, rng.normal(size=(n, d)).astype(np.float32)
+
+
+def phase_wide_paths(dev, card, clock):
+    """Phase 43c: the slice on auto at a9a's width (d = WIDE_D): the flat
+    BLR at N = WIDE_BLR_N (K1, WIDE_BLR_STEPS steps, then the plain route
+    beside it), the flat and hierarchical BLR at N = WIDE_BIG_N and the
+    hierarchical BLR at N = WIDE_TERMS_SQUARE_N (the square form, K6/K7)
+    against their plain routes, and the sharded engine on a one-rank NCCL
+    group (hier, K10/K11; MVN with fused_sym="full", K4) against the
+    driver, each for COMPARE_STEPS steps within 1e-3. The plain routes run
+    in float64:
+    at these widths the float32 plain route is the farther of the two from
+    it (hier at N = 10,000: 6.06e-3 against the kernel route's 2.12e-4 on
+    an H100, PERF.md), so its distance is printed beside the kernel's.
+    Returns {path: (launch counts, kernel, n, m)}."""
+    import torch
+
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.parallel import initialize_distributed
+    from svgdcpp_tpu_torch.utils.workloads import (
+        blr_workload,
+        build_blr_svgd,
+        build_mvn_svgd,
+        build_sharded_hier_svgd,
+        build_sharded_mvn_svgd,
+    )
+
+    out = {}
+
+    def launched(build, steps):
+        cuda_phi.reset_launch_counts()
+        t0 = time.perf_counter()
+        svgd = build()
+        final = svgd.run(*steps).double()
+        torch.cuda.synchronize()
+        return svgd, final, dict(cuda_phi.launch_counts), \
+            time.perf_counter() - t0
+
+    def against(label, got, want):
+        diff = float((got - want).abs().max())
+        check(bool(got.isfinite().all()) and diff <= 1e-3,
+              f"phase 43c {label}: coords differ by {diff:.3e}")
+        return diff
+
+    def plain_routes(x0, feats, labels, hier, impl):
+        """The float64 plain route's coordinates after COMPARE_STEPS steps
+        and the float32 plain route's distance from them."""
+        runs = [build_blr_svgd(torch.tensor(x0, dtype=dt, device=dev), feats,
+                               labels, hierarchical=hier, phi_impl=impl,
+                               num_iterations=COMPARE_STEPS).run().double()
+                for dt in (torch.float64, torch.float32)]
+        return runs[0], float((runs[1] - runs[0]).abs().max())
+
+    d = WIDE_D
+    feats, labels, x0 = blr_workload(WIDE_BLR_N, d)
+    svgd, final, counts, sec = launched(lambda: build_blr_svgd(
+        torch.tensor(x0, device=dev), feats, labels,
+        num_iterations=WIDE_BLR_STEPS), ())
+    check(svgd._phi_impl == "fused_cuda",
+          f"phase 43c flat BLR N={WIDE_BLR_N} routed to {svgd._phi_impl!r}")
+    require_only(counts, cuda_phi.SQUARE_KERNEL, WIDE_BLR_STEPS,
+                 f"phase 43c flat BLR N={WIDE_BLR_N}")
+    acc = blr_accuracy(final.cpu().numpy(), feats, labels)
+    check(acc > 0.5, f"phase 43c flat BLR training accuracy {acc:.4f}")
+    kernel_run = build_blr_svgd(torch.tensor(x0, device=dev), feats, labels,
+                                phi_impl="fused_cuda",
+                                num_iterations=COMPARE_STEPS).run().double()
+    plain64, plain32 = plain_routes(x0, feats, labels, False, "fused")
+    diff = against("flat BLR N=1000", kernel_run, plain64)
+    print(f"phase 43c flat BLR N={WIDE_BLR_N} d={d} {WIDE_BLR_STEPS} iters "
+          f"auto: ok route=fused_cuda launches={json.dumps(counts)} "
+          f"train_accuracy={acc:.4f} s={sec:.2f}; vs float64 fused "
+          f"{COMPARE_STEPS} steps coords_max_abs_diff={diff:.3e} (float32 "
+          f"fused {plain32:.3e}) {clock()}")
+    out["flat_blr"] = (counts, cuda_phi.SQUARE_KERNEL, WIDE_BLR_N, d)
+
+    for hier, n in ((False, WIDE_BIG_N), (True, WIDE_BIG_N),
+                    (True, WIDE_TERMS_SQUARE_N)):
+        m = d + 1 if hier else d
+        feats, labels, x0 = blr_workload(n, d, hierarchical=hier)
+        kernel_impl, plain_impl = (("fused_terms_cuda", "fused_terms")
+                                   if hier else ("fused_cuda", "fused"))
+        form = cuda_phi.resolve_sym(None, n, m, 2 if hier else None)
+        kernel = {(False, True): cuda_phi.SYM_KERNEL,
+                  (False, False): cuda_phi.SQUARE_KERNEL,
+                  (True, True): cuda_phi.TERMS_SYM_KERNEL,
+                  (True, False): cuda_phi.TERMS_SQUARE_KERNEL}[(hier, form)]
+        svgd, final, counts, sec = launched(lambda: build_blr_svgd(
+            torch.tensor(x0, device=dev), feats, labels, hierarchical=hier,
+            num_iterations=COMPARE_STEPS), ())
+        check(svgd._phi_impl == kernel_impl and svgd.fused_sym_form is form,
+              f"phase 43c BLR hier={hier} N={n}: route "
+              f"{svgd._phi_impl!r}, form {svgd.fused_sym_form!r}")
+        require_only(counts, kernel, COMPARE_STEPS,
+                     f"phase 43c BLR hier={hier} N={n}")
+        plain64, plain32 = plain_routes(x0, feats, labels, hier, plain_impl)
+        diff = against(f"BLR hier={hier} N={n}", final, plain64)
+        name = (("hier" if n == WIDE_BIG_N else "hier_small") if hier
+                else "flat_blr_big")
+        print(f"phase 43c {name} N={n} m={m} auto: ok "
+              f"route={kernel_impl} form={form} kernel={kernel} launches="
+              f"{json.dumps(counts)} s={sec:.2f}; vs float64 {plain_impl} "
+              f"{COMPARE_STEPS} steps coords_max_abs_diff={diff:.3e} "
+              f"(float32 {plain_impl} {plain32:.3e}) {clock()}")
+        out[name] = (counts, kernel, n, m)
+        if name == "hier":
+            x0_hier, feats_h, labels_h, driver_hier = x0, feats, labels, final
+
+    group = initialize_distributed(f"tcp://localhost:{free_port()}", 1, 0)
+    check(group.backend == "nccl", f"one-rank group on {group.backend!r}")
+    mean, cov, x0_mvn = wide_mvn(WIDE_BIG_N, d, 490)
+    driver_mvn = build_mvn_svgd(torch.tensor(x0_mvn, device=dev), mean, cov,
+                                num_iterations=COMPARE_STEPS).run().double()
+    for name, kernel, build, x0, driver in (
+            ("engine_hier", cuda_phi.TERMS_SYM_CHUNK_KERNEL,
+             lambda: build_sharded_hier_svgd(x0_hier, feats_h, labels_h,
+                                             group, fused_sym="full"),
+             x0_hier, driver_hier),
+            ("engine_mvn", cuda_phi.SYM_CHUNK_KERNEL,
+             lambda: build_sharded_mvn_svgd(x0_mvn, mean, cov, group,
+                                            fused_sym="full"),
+             x0_mvn, driver_mvn)):
+        eng, final, counts, sec = launched(build, (x0, COMPARE_STEPS))
+        check(eng._fused_cuda and eng._fused_sym == "full",
+              f"phase 43c {name}: fused_cuda={eng._fused_cuda} "
+              f"fused_sym={eng._fused_sym!r}")
+        require_only(counts, kernel, COMPARE_STEPS, f"phase 43c {name}")
+        diff = against(name, final, driver)
+        print(f"phase 43c {name} N={WIDE_BIG_N} m={x0.shape[1]} one NCCL "
+              f"rank fused_sym=full: ok kernel={kernel} launches="
+              f"{json.dumps(counts)} s={sec:.2f}; vs the driver "
+              f"{COMPARE_STEPS} steps coords_max_abs_diff={diff:.3e} "
+              f"{clock()}")
+        out[name] = (counts, kernel, WIDE_BIG_N, x0.shape[1])
+    torch.distributed.destroy_process_group()
+    return out
 
 
 def host_f64_median(x):
@@ -2461,7 +3103,8 @@ def main() -> int:
     # counts against the plain pass as above, the hybrid median through it
     # against the plain pass's and the float64 exact median (the hybrid's
     # resolution gate, 1e-3), and auto on the card keeps the kernel route,
-    # which raises there (ROADMAP item 17) instead of running plain torch.
+    # which runs there since the wide sweeps (phase 43): at n = 2048 the
+    # card's rule takes K2's wide triangle, never plain torch.
     for m in (65, 100):
         for exact in (True, False):
             fn = grid_inputs if exact else sweep_inputs
@@ -2495,17 +3138,22 @@ def main() -> int:
               f"hybrid median at m={m}: {med_c} vs plain {med_p} (rel "
               f"{rel_p:.3e}) and float64 {med_x} (rel {rel_x:.3e}), "
               f"{launched} K16 launches")
-        try:
-            make_svgd(st, x_w.cpu().numpy(), np.zeros(m), np.eye(m), 3)
-            raised = "no error"
-        except ValueError as err:
-            raised = str(err)
-        check("item 17" in raised,
-              f"auto at m={m} on the card: {raised!r}, not item 17's error")
+        svgd = make_svgd(st, x_w.cpu().numpy(), np.zeros(m), np.eye(m), 3)
+        form = cuda_phi.resolve_sym(None, 2048, m)
+        check(svgd._phi_impl == "fused_cuda" and svgd.fused_sym_form is form,
+              f"auto at m={m} on the card: {svgd._phi_impl!r}, form "
+              f"{svgd.fused_sym_form!r}")
+        cuda_phi.reset_launch_counts()
+        out = svgd.run()
+        kernel = cuda_phi.SYM_KERNEL if form else cuda_phi.SQUARE_KERNEL
+        require_only(dict(cuda_phi.launch_counts), kernel, 3,
+                     f"auto at m={m}, n=2048, 3 steps")
+        check(bool(out.isfinite().all()), f"auto at m={m}: non-finite")
         print(f"phase 27 hybrid median n=2048 m={m} (past MAX_M): ok "
               f"k16={med_c:.9g} plain={med_p:.9g} float64_exact={med_x:.9g} "
               f"rel_plain={rel_p:.3e} rel_float64={rel_x:.3e} "
-              f"k16_launches={launched}; auto raises (item 17) {clock()}")
+              f"k16_launches={launched}; auto runs {kernel} (form {form}) "
+              f"{clock()}")
 
     # The self form (one set as rows and columns: the single-device
     # median's every pass) on odd and ragged n off origin, at T = 1 to 33
@@ -3408,6 +4056,11 @@ def main() -> int:
     main41 = phase_native(dev, card, clock)
     main42 = phase_examples(dev, card, clock, plain_ms)
 
+    # -- phase 43: the wide sweeps (m > 64) -----------------------------------
+    wide_errs, _ = phase_wide_kernels(dev, card, clock, ptxas)
+    times43 = phase_wide_rule(dev, card, clock, plain_ms, wide_errs)
+    main43 = phase_wide_paths(dev, card, clock)
+
     def main_path(phase, kernel, n, m, launches, times, **work):
         bound_ms, bound_by = sweep_bound(kernel, n, m, **work)
         path = {"phase": phase, "n": n, "m": m, "launches": launches,
@@ -3506,6 +4159,24 @@ def main() -> int:
         counts, t42, kernel, n42 = main42[name]
         paths[kernel].append(main_path(42, kernel, n42, 2, counts[kernel],
                                        t42))
+    # Phase 43's paths at a9a's width: K1 at the flat BLR's N = 1000, the
+    # form the card's rule picks at N = 10,000 (flat and hierarchical BLR),
+    # the engine's chunks; timed in phase 43b.
+    # The square kernels' tensor-core bounds are printed with their other
+    # paths' below; the triangles' here.
+    for counts, kernel, n43, m43 in main43.values():
+        single = kernel in (sq, sym, k4)
+        path = main_path(43, kernel, n43, m43, counts[kernel],
+                         times43[(kernel, n43, m43)],
+                         **({} if single else {"n_iso": 2}))
+        paths[kernel].append(path)
+        if kernel in (sq, t_sq):
+            continue
+        tensor_ms, tensor_by = wide_bounds(kernel, n43, m43,
+                                           None if single else (1, 1))[1]
+        print(f"{kernel} phase 43 n={n43} m={m43}: bound_ms="
+              f"{path['bound_ms']:.6g} ({path['bound_by']}, FP32), on the "
+              f"TF32 tensor cores {tensor_ms:.6g} ({tensor_by})")
     for path in paths[k16]:
         path["bound_all_pairs_ms"] = count_bound_all_pairs(
             path["n"], path["m"], 9 if path["phase"] in (32, 37) else 17)[0]
@@ -3550,6 +4221,13 @@ def main() -> int:
                 "bound_by": first["bound_by"], "library_ms": library_ms,
                 "main_paths": paths[name]}
 
+    # The widened kernels' errors include phase 43a's.
+    square_err = max(square_err, wide_errs[sq])
+    sym_err = max(sym_err, wide_errs[sym])
+    terms_sq_err = max(terms_sq_err, wide_errs[t_sq])
+    terms_sym_err = max(terms_sym_err, wide_errs[t_sym])
+    sym_chunk_err = max(sym_chunk_err, wide_errs[k4])
+    terms_chunk_err = max(terms_chunk_err, wide_errs[k10])
     pallas = "svgdcpp_tpu/ops/pallas_phi.py"
     print(card)  # again beside the numbers, at the end of the output
     print(json.dumps({"kernels": [

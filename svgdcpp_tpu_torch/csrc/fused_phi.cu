@@ -24,12 +24,14 @@
 // in 3xTF32 (square_mma.cuh); the centring keeps the subtraction's
 // cancellation at float32 level.
 //
-// Every m from 1 to 64 runs. The triangle sweeps take exact instances for
-// m = 1..8, 11 and 50 and a runtime-m instance for the rest
-// (sweep_common.cuh); the square sweep exact CUDA-core instances for
-// m = 1..4 and tensor-core ones past them (SVGD_DISPATCH_SQ_MMA). ptxas's
-// report (-Xptxas -v, kept in the build log) says whether an instance
-// spills.
+// Every m >= 1 runs. Up to m = 64 (kMaxM) the triangle sweeps take exact
+// instances for m = 1..8, 11 and 50 and a runtime-m instance for the rest
+// (sweep_common.cuh), the square sweep exact CUDA-core instances for
+// m = 1..4 and tensor-core ones past them (SVGD_DISPATCH_SQ_MMA); past
+// m = 64 both take their wide instance (MM = kWideMM), whose body holds
+// nothing sized by m: square_wide_body (square_mma.cuh) and wide_tri_body
+// (wide_tri.cuh), both on the tensor cores. ptxas's report (-Xptxas -v,
+// kept in the build log) says whether an instance spills.
 //
 // The kernels allocate nothing: the wrapper (ops/cuda_phi.py) passes zeroed
 // count and accumulator buffers and the square sweep's workspace. Each
@@ -39,6 +41,7 @@
 
 #include "micro_tile.cuh"
 #include "square_mma.cuh"
+#include "wide_tri.cuh"
 
 namespace {
 
@@ -93,7 +96,8 @@ __global__ void __launch_bounds__(kSqThreads)
                        chunk, work, counts);
 }
 
-// The tensor-core body, kT thresholds (3, or kMaxT for a runtime T).
+// The tensor-core body, kT thresholds (3, or kMaxT for a runtime T); the
+// wide body (square_wide_body) at MM = kWideMM, any m past kMaxM.
 template <int MM, bool kExact, int kT>
 __global__ void __launch_bounds__(kSqMmaThreads)
     fused_phi_counts_square_kernel(const float* __restrict__ targets,
@@ -106,9 +110,14 @@ __global__ void __launch_bounds__(kSqMmaThreads)
                                    unsigned long long* __restrict__ counts) {
   const int w = 2 * (kExact ? MM : m_arg) + 1;
   const OneRbf weights{-gamma[0] * kLog2e};
-  square_mma_body<MM, kExact, kT>(
-      targets, sources, scores, weights, thr, n_t, n_s, m_arg, T, chunk,
-      work + static_cast<size_t>(blockIdx.y) * n_t * w, counts);
+  float* part = work + static_cast<size_t>(blockIdx.y) * n_t * w;
+  if constexpr (MM == kWideMM) {
+    square_wide_body<kT>(targets, sources, scores, weights, thr, n_t, n_s,
+                         m_arg, T, chunk, part, counts);
+  } else {
+    square_mma_body<MM, kExact, kT>(targets, sources, scores, weights, thr,
+                                    n_t, n_s, m_arg, T, chunk, part, counts);
+  }
 }
 
 // The finishing pass: D scaled by 2 gamma.
@@ -126,8 +135,12 @@ int launch_square_mma(const float* targets, const float* sources,
                       const float* thr, int n_t, int n_s, int m, int T,
                       int chunk, int splits, float* work,
                       unsigned long long* counts, cudaStream_t s) {
-  constexpr size_t smem = SqMma<MM>::kSmemBytes;
-  const dim3 grid((n_t + kSqMmaRows - 1) / kSqMmaRows, splits);
+  // The wide body's shared memory is static; its column chunks go along
+  // the grid's z.
+  constexpr bool wide = MM == kWideMM;
+  constexpr size_t smem = wide ? 0 : SqMma<MM>::kSmemBytes;
+  const dim3 grid((n_t + kSqMmaRows - 1) / kSqMmaRows, splits,
+                  wide ? wide_square_chunks(m, false) : 1);
   auto go = [&](auto kt) {
     constexpr int kT = decltype(kt)::value;
     auto* kernel = &fused_phi_counts_square_kernel<MM, kExact, kT>;
@@ -175,11 +188,13 @@ int launch_square_mma(const float* targets, const float* sources,
 // runs the 8-threshold instance); interior chunks run unmasked; rows and
 // columns flush with float32 atomics into the (2m, n) accumulator; a launch
 // of fewer than 1056 tile pairs splits each pair's chunks over the grid's
-// second dimension (tri_splits). The conventions are those of the body the
-// wider instances keep (counts_sym.cuh, tiles of SymRowTile): each self
-// pair enters both directions, D is unscaled (the wrapper multiplies it by
-// 2 gamma) and the upper count includes the diagonal. Both bodies go under
-// both names, so a profiler trace tells the whole sweep from a chunk.
+// second dimension (tri_splits). Past m = 64 the wide instance runs
+// wide_tri.cuh's tensor-core body in tiles of 64 (kWideTile). The
+// conventions are those of the body the m = 9, 10, 12-64 instances keep
+// (counts_sym.cuh, tiles of SymRowTile): each self pair enters both
+// directions, D is unscaled (the wrapper multiplies it by 2 gamma) and the
+// upper count includes the diagonal. Every body goes under both names, so
+// a profiler trace tells the whole sweep from a chunk.
 // ---------------------------------------------------------------------------
 
 #define SVGD_COUNTS_SYM_KERNEL fused_phi_counts_sym_kernel
@@ -192,7 +207,23 @@ namespace {
 using namespace svgd;
 
 template <int MM, bool kExact, int kT>
-__global__ void __launch_bounds__(MicroTri<MM>::kThreads)
+__device__ __forceinline__ void counts_tri(
+    const float* __restrict__ coords, const float* __restrict__ scores,
+    const float* __restrict__ gamma, const float* __restrict__ thr, int n,
+    int m_arg, int T, int nb, long long t0, float* __restrict__ acc,
+    unsigned long long* __restrict__ counts) {
+  const OneRbf weights{-gamma[0] * kLog2e};
+  if constexpr (MM == kWideMM) {
+    wide_tri_body<kT>(coords, scores, weights, thr, n, m_arg, T, nb, t0, acc,
+                      counts);
+  } else {
+    micro_tri_body<MM, kExact, kT>(coords, scores, weights, thr, n, m_arg, T,
+                                   nb, t0, acc, counts);
+  }
+}
+
+template <int MM, bool kExact, int kT>
+__global__ void __launch_bounds__(TriThreads<MM>::value)
     fused_phi_counts_sym_kernel(const float* __restrict__ coords,
                                 const float* __restrict__ scores,
                                 const float* __restrict__ gamma,
@@ -200,13 +231,12 @@ __global__ void __launch_bounds__(MicroTri<MM>::kThreads)
                                 int m_arg, int T, int nb, long long t0,
                                 float* __restrict__ acc,
                                 unsigned long long* __restrict__ counts) {
-  const OneRbf weights{-gamma[0] * kLog2e};
-  micro_tri_body<MM, kExact, kT>(coords, scores, weights, thr, n, m_arg, T,
-                                 nb, t0, acc, counts);
+  counts_tri<MM, kExact, kT>(coords, scores, gamma, thr, n, m_arg, T, nb, t0,
+                             acc, counts);
 }
 
 template <int MM, bool kExact, int kT>
-__global__ void __launch_bounds__(MicroTri<MM>::kThreads)
+__global__ void __launch_bounds__(TriThreads<MM>::value)
     fused_phi_counts_sym_chunk_kernel(const float* __restrict__ coords,
                                       const float* __restrict__ scores,
                                       const float* __restrict__ gamma,
@@ -214,15 +244,14 @@ __global__ void __launch_bounds__(MicroTri<MM>::kThreads)
                                       int m_arg, int T, int nb, long long t0,
                                       float* __restrict__ acc,
                                       unsigned long long* __restrict__ counts) {
-  const OneRbf weights{-gamma[0] * kLog2e};
-  micro_tri_body<MM, kExact, kT>(coords, scores, weights, thr, n, m_arg, T,
-                                 nb, t0, acc, counts);
+  counts_tri<MM, kExact, kT>(coords, scores, gamma, thr, n, m_arg, T, nb, t0,
+                             acc, counts);
 }
 
 // Launch of the single-RBF triangle sweep over tiles [t0, t0 + count) of
-// the tile list (SymTile<MM> particles a side; count > 0): the micro-tile
-// instances where they serve MM, for T = 3 or any T <= 8; counts_sym.cuh's
-// body otherwise.
+// the tile list (SymTile<MM> particles a side; count > 0): the wide body's
+// instances past kMaxM and the micro-tile ones where they serve MM, each
+// for T = 3 or any T <= 8; counts_sym.cuh's body otherwise.
 template <int MM, bool kExact>
 void launch_counts_sym(bool chunk, const float* coords, const float* scores,
                        const float* gamma, const float* thr, int n, int m,
@@ -230,7 +259,23 @@ void launch_counts_sym(bool chunk, const float* coords, const float* scores,
                        unsigned long long* counts, cudaStream_t s) {
   constexpr int tile = SymTile<MM>::value;
   const int nb = (n + tile - 1) / tile;
-  if constexpr (MicroWidth<MM>::value) {
+  if constexpr (MM == kWideMM) {
+    const unsigned int blocks = static_cast<unsigned int>(count);
+    const size_t smem = WideTri::smem_bytes(1);
+    auto go = [&](auto kt) {
+      constexpr int kT = decltype(kt)::value;
+      auto* kernel = chunk ? &fused_phi_counts_sym_chunk_kernel<MM, false, kT>
+                           : &fused_phi_counts_sym_kernel<MM, false, kT>;
+      wide_tri_prepare(kernel, 1);
+      kernel<<<blocks, kWideTriThreads, smem, s>>>(
+          coords, scores, gamma, thr, n, m, T, nb, t0, acc, counts);
+    };
+    if (T == 3) {
+      go(std::integral_constant<int, 3>{});
+    } else {
+      go(std::integral_constant<int, kMaxT>{});
+    }
+  } else if constexpr (MicroWidth<MM>::value) {
     const dim3 grid(static_cast<unsigned int>(count), tri_splits<MM>(count));
     constexpr int threads = MicroTri<MM>::kThreads;
     auto go = [&](auto kt) {
@@ -270,7 +315,7 @@ extern "C" {
 // and of the terms kernel's alike (square_mma.cuh's plan); -1 for
 // arguments the sweeps do not take. ops/sym_plan.square_splits mirrors it.
 int svgd_square_splits(int n_t, int n_s, int m) {
-  if (n_t <= 0 || n_s <= 0 || m < 1 || m > kMaxM) return -1;
+  if (n_t <= 0 || n_s <= 0 || m < 1) return -1;
   int splits = 0;
   square_chunk(n_t, n_s, m >= kSquareTensorMinM, &splits);
   return splits;
@@ -280,7 +325,7 @@ int svgd_square_splits(int n_t, int n_s, int m) {
 // and sources (n_s, m) centered on the source mean, scores (n_s, m), all
 // float32 row-major; gamma (1,), thr (T,) float32 on the device; counts
 // zeroed int64; work a float32 workspace of (splits, n_t, 2m + 1), splits
-// being svgd_square_splits(n_t, n_s, m). 1 <= m <= 64, 1 <= T <= 8. From
+// being svgd_square_splits(n_t, n_s, m). m >= 1, 1 <= T <= 8. From
 // m = kSquareTensorMinM the body copies sources and scores 16 bytes at a
 // time (cp.async): both must start on a 16-byte boundary.
 int svgd_fused_phi_counts_square(const float* targets, const float* sources,
@@ -288,7 +333,7 @@ int svgd_fused_phi_counts_square(const float* targets, const float* sources,
                                  const float* thr, int n_t, int n_s, int m,
                                  int T, float* phi, long long* counts,
                                  float* work, int splits, void* stream) {
-  if (n_t <= 0 || n_s <= 0 || T < 1 || T > kMaxT || m < 1 || m > kMaxM) {
+  if (n_t <= 0 || n_s <= 0 || T < 1 || T > kMaxT || m < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool tensor = m >= kSquareTensorMinM;
@@ -330,7 +375,7 @@ int svgd_fused_phi_counts_square(const float* targets, const float* sources,
 // Upper-triangle sweep over one particle set. coords (n, m) centered,
 // scores (n, m), gamma (1,), thr (T,) float32 on the device; acc a zeroed
 // (2m, n) float32 accumulator [KS | D]; counts a zeroed int64 (T,) buffer that
-// receives the upper count U (diagonal included). 1 <= m <= 64.
+// receives the upper count U (diagonal included). m >= 1.
 int svgd_fused_phi_counts_sym(const float* coords, const float* scores,
                               const float* gamma, const float* thr, int n,
                               int m, int T, float* acc, long long* counts,
@@ -402,7 +447,7 @@ extern "C" {
 // The side of the tiles in the triangle chunk kernels' tile list for
 // dimension m: svgd_fused_phi_counts_sym_chunk's (terms = 0) or
 // svgd_fused_phi_terms_sym_chunk's (terms = 1). A rank's [t0, t0 + count)
-// is a range of this list. -1 for an m outside 1..64.
+// is a range of this list. -1 for an m below 1.
 int svgd_sym_tile(int m, int terms) {
   int tile = -1;
   sym_tile_of(m, terms, &tile);

@@ -66,9 +66,10 @@
 // chunks over the grid's second dimension (tri_splits). At n = 10,000 the
 // 3160 tile pairs fill 132 SMs about 6 times. At the other widths (m = 9,
 // 10, 12-64, whose rows the micro-tile would spill) the kernel keeps the
-// one-row-a-thread body of terms_sym.cuh in tiles of SymTermsTile, under
-// the same names. The tile side of each instance is svgd_sym_tile's
-// (fused_phi.cu), which the chunk wrappers read.
+// one-row-a-thread body of terms_sym.cuh in tiles of SymTermsTile, and
+// past m = 64 wide_tri.cuh's tensor-core body in tiles of 64 (two weight
+// tiles, k_c and w), under the same names. The tile side of each instance
+// is svgd_sym_tile's (fused_phi.cu), which the chunk wrappers read.
 //
 // The gammas are read from device memory (they come out of the median
 // update as device scalars; the host never reads them); the signs are
@@ -82,6 +83,7 @@
 
 #include "micro_tile.cuh"
 #include "square_mma.cuh"
+#include "wide_tri.cuh"
 
 #define SVGD_TERMS_SYM_KERNEL fused_phi_terms_sym_kernel
 #include "terms_sym.cuh"
@@ -107,24 +109,29 @@ __device__ __forceinline__ void terms_tri(
     const float* __restrict__ thr, int n, int m_arg, int T, int nb,
     long long t0, float* __restrict__ acc,
     unsigned long long* __restrict__ counts) {
+  auto body = [&](const auto& weights) {
+    if constexpr (MM == kWideMM) {
+      wide_tri_body<kT>(coords, scores, weights, thr, n, m_arg, T, nb, t0,
+                        acc, counts);
+    } else {
+      micro_tri_body<MM, kExact, kT>(coords, scores, weights, thr, n, m_arg,
+                                     T, nb, t0, acc, counts);
+    }
+  };
   if constexpr (NTerms > 0) {
-    const FixedTerms<NTerms> weights(gammas, signs);
-    micro_tri_body<MM, kExact, kT>(coords, scores, weights, thr, n, m_arg, T,
-                                   nb, t0, acc, counts);
+    body(FixedTerms<NTerms>(gammas, signs));
   } else {
     __shared__ float sh_g2[kMaxTerms];
     __shared__ float sh_sn[kMaxTerms];
     __shared__ float sh_sg[kMaxTerms];
     // The body's first barrier comes before its first pair.
     load_terms(gammas, signs, nterms, sh_g2, sh_sn, sh_sg);
-    const AnyTerms weights{sh_g2, sh_sn, sh_sg, nterms};
-    micro_tri_body<MM, kExact, kT>(coords, scores, weights, thr, n, m_arg, T,
-                                   nb, t0, acc, counts);
+    body(AnyTerms{sh_g2, sh_sn, sh_sg, nterms});
   }
 }
 
 template <int MM, bool kExact, int kT, int NTerms>
-__global__ void __launch_bounds__(MicroTri<MM>::kThreads)
+__global__ void __launch_bounds__(TriThreads<MM>::value)
     fused_phi_terms_sym_kernel(const float* __restrict__ coords,
                                const float* __restrict__ scores,
                                const float* __restrict__ gammas,
@@ -138,7 +145,7 @@ __global__ void __launch_bounds__(MicroTri<MM>::kThreads)
 }
 
 template <int MM, bool kExact, int kT, int NTerms>
-__global__ void __launch_bounds__(MicroTri<MM>::kThreads)
+__global__ void __launch_bounds__(TriThreads<MM>::value)
     fused_phi_terms_sym_chunk_kernel(const float* __restrict__ coords,
                                      const float* __restrict__ scores,
                                      const float* __restrict__ gammas,
@@ -163,7 +170,33 @@ void launch_terms_sym(bool chunk, const float* coords, const float* scores,
                       unsigned long long* counts, cudaStream_t s) {
   constexpr int tile = TermsTriTile<MM>::value;
   const int nb = (n + tile - 1) / tile;
-  if constexpr (MicroTri<MM>::enabled) {
+  if constexpr (MM == kWideMM) {
+    const unsigned int blocks = static_cast<unsigned int>(count);
+    const size_t smem = WideTri::smem_bytes(2);
+    auto go = [&](auto kt, auto nt) {
+      constexpr int kT = decltype(kt)::value;
+      constexpr int NTerms = decltype(nt)::value;
+      auto* kernel =
+          chunk ? &fused_phi_terms_sym_chunk_kernel<MM, false, kT, NTerms>
+                : &fused_phi_terms_sym_kernel<MM, false, kT, NTerms>;
+      wide_tri_prepare(kernel, 2);
+      kernel<<<blocks, kWideTriThreads, smem, s>>>(
+          coords, scores, gammas, sg, nterms, thr, n, m, T, nb, t0, acc,
+          counts);
+    };
+    auto terms = [&](auto kt) {
+      if (nterms == 2) {
+        go(kt, std::integral_constant<int, 2>{});
+      } else {
+        go(kt, std::integral_constant<int, 0>{});
+      }
+    };
+    if (T == 3) {
+      terms(std::integral_constant<int, 3>{});
+    } else {
+      terms(std::integral_constant<int, kMaxT>{});
+    }
+  } else if constexpr (MicroTri<MM>::enabled) {
     const dim3 grid(static_cast<unsigned int>(count),
                     tri_splits<MM>(count));
     constexpr int threads = MicroTri<MM>::kThreads;
@@ -259,7 +292,8 @@ __global__ void __launch_bounds__(kSqThreads)
 }
 
 // The tensor-core body: kT thresholds (3, or kMaxT for a runtime T), NTerms
-// terms as above. The minimum of one block an SM changes ptxas's register
+// terms as above; the wide body (square_wide_body) at MM = kWideMM, any m
+// past kMaxM. The minimum of one block an SM changes ptxas's register
 // target: without it, <MM = 8, T = 8, two terms> spilled 4 bytes at 72
 // registers; with it no instance spills (PERF.md, section 6).
 template <int MM, bool kExact, int kT, int NTerms>
@@ -275,19 +309,25 @@ __global__ void __launch_bounds__(kSqMmaThreads, 1)
                                   unsigned long long* __restrict__ counts) {
   const int w = 2 * (kExact ? MM : m_arg) + 1;
   float* part = work + static_cast<size_t>(blockIdx.y) * n_t * w;
+  auto body = [&](const auto& weights) {
+    if constexpr (MM == kWideMM) {
+      square_wide_body<kT>(targets, sources, scores, weights, thr, n_t, n_s,
+                           m_arg, T, chunk, part, counts);
+    } else {
+      square_mma_body<MM, kExact, kT>(targets, sources, scores, weights,
+                                      thr, n_t, n_s, m_arg, T, chunk, part,
+                                      counts);
+    }
+  };
   if constexpr (NTerms > 0) {
-    const FixedTerms<NTerms> weights(gammas, signs);
-    square_mma_body<MM, kExact, kT>(targets, sources, scores, weights, thr,
-                                    n_t, n_s, m_arg, T, chunk, part, counts);
+    body(FixedTerms<NTerms>(gammas, signs));
   } else {
     __shared__ float sh_g2[kMaxTerms];
     __shared__ float sh_sn[kMaxTerms];
     __shared__ float sh_sg[kMaxTerms];
     // The body's first barrier comes before its first pair.
     load_terms(gammas, signs, nterms, sh_g2, sh_sn, sh_sg);
-    const AnyTerms weights{sh_g2, sh_sn, sh_sg, nterms};
-    square_mma_body<MM, kExact, kT>(targets, sources, scores, weights, thr,
-                                    n_t, n_s, m_arg, T, chunk, part, counts);
+    body(AnyTerms{sh_g2, sh_sn, sh_sg, nterms});
   }
 }
 
@@ -309,8 +349,12 @@ int launch_terms_square_mma(const float* targets, const float* sources,
                             const float* thr, int n_t, int n_s, int m, int T,
                             int chunk, int splits, float* work,
                             unsigned long long* counts, cudaStream_t s) {
-  constexpr size_t smem = SqMma<MM, true>::kSmemBytes;
-  const dim3 grid((n_t + kSqMmaRows - 1) / kSqMmaRows, splits);
+  // The wide body's shared memory is static; its column chunks go along
+  // the grid's z.
+  constexpr bool wide = MM == kWideMM;
+  constexpr size_t smem = wide ? 0 : SqMma<MM, true>::kSmemBytes;
+  const dim3 grid((n_t + kSqMmaRows - 1) / kSqMmaRows, splits,
+                  wide ? wide_square_chunks(m, true) : 1);
   auto go = [&](auto kt, auto nt) {
     constexpr int kT = decltype(kt)::value;
     constexpr int NTerms = decltype(nt)::value;
@@ -344,7 +388,7 @@ extern "C" {
 // the device; signs (nterms,) a HOST array, passed by value to the kernel;
 // thr (T,) float32 on the device; counts zeroed int64; work a float32
 // workspace of (splits, n_t, 2m + 1), splits being svgd_square_splits(n_t,
-// n_s, m) (fused_phi.cu). 1 <= m <= 64, 1 <= nterms <= 16, 1 <= T <= 8.
+// n_s, m) (fused_phi.cu). m >= 1, 1 <= nterms <= 16, 1 <= T <= 8.
 // From m = kSquareTensorMinM the body copies sources and scores 16 bytes at
 // a time (cp.async): both must start on a 16-byte boundary.
 int svgd_fused_phi_terms_square(const float* targets, const float* sources,
@@ -353,7 +397,7 @@ int svgd_fused_phi_terms_square(const float* targets, const float* sources,
                                 const float* thr, int n_t, int n_s, int m,
                                 int T, float* phi, long long* counts,
                                 float* work, int splits, void* stream) {
-  if (n_t <= 0 || n_s <= 0 || T < 1 || T > kMaxT || m < 1 || m > kMaxM ||
+  if (n_t <= 0 || n_s <= 0 || T < 1 || T > kMaxT || m < 1 ||
       nterms < 1 || nterms > kMaxTerms) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -405,7 +449,7 @@ int svgd_fused_phi_terms_square(const float* targets, const float* sources,
 // centered, scores (n, m), gammas (nterms,), thr (T,) float32 on the device;
 // signs (nterms,) a host array; acc a zeroed (2m, n) float32 accumulator
 // [KS | D]; counts a zeroed int64 (T,) buffer that receives the upper count
-// U (diagonal included). 1 <= m <= 64, 1 <= nterms <= 16, 1 <= T <= 8.
+// U (diagonal included). m >= 1, 1 <= nterms <= 16, 1 <= T <= 8.
 int svgd_fused_phi_terms_sym(const float* coords, const float* scores,
                              const float* gammas, const float* signs,
                              int nterms, const float* thr, int n, int m,

@@ -1,12 +1,12 @@
 // Device helpers shared by the sweeps (fused_phi.cu, fused_phi_terms.cu,
 // counts_sym.cuh, terms_sym.cuh, micro_tile.cuh, square_mma.cuh,
-// fused_phi_aniso.cu, phi_rbf.cu, fused_phi_panel.cu, count_le.cu): the
-// pair's squared distance in the plain version's order, the flushed-to-zero
-// ex2 of the weights, threshold counting (at a runtime
-// or a compile-time number of thresholds), the exact
-// count flush, the upper-triangle tile decode, the pair's weights (one RBF,
-// or the signed-term combination of the composed kernels), and the dispatch
-// from a runtime dimension m to a kernel instance.
+// wide_tri.cuh, fused_phi_aniso.cu, phi_rbf.cu, fused_phi_panel.cu,
+// count_le.cu): the pair's squared distance in the plain version's order,
+// the flushed-to-zero ex2 of the weights, threshold counting (at a runtime
+// or a compile-time number of thresholds), the exact count flush, the
+// upper-triangle tile decode, the pair's weights (one RBF, or the
+// signed-term combination of the composed kernels), and the dispatch from
+// a runtime dimension m to a kernel instance.
 //
 // Kernel instances. A kernel is a template over <MM, kExact>: with kExact
 // the dimension is exactly MM (every loop over the coordinates is unrolled
@@ -14,10 +14,14 @@
 // coordinate k >= m is skipped by a guard that the unrolled loop folds into
 // predicates. Per-thread vectors are MM-long register arrays either way.
 // SVGD_DISPATCH_M picks the exact instance for m = 1..8, 11 and 50 (the
-// flagship, hierarchical-BLR and flat-BLR widths) and the runtime instance
-// with MM = 16, 32 or 64 for every other m up to 64. SVGD_DISPATCH_M_2_11,
-// for the kernels with fewer main paths, has exact instances for m = 2 and
-// 11 only and runtime ones with MM = 8, 16, 32 or 64.
+// flagship, hierarchical-BLR and flat-BLR widths), the runtime instance
+// with MM = 16, 32 or 64 for every other m up to 64 (kMaxM), and past it
+// the wide instance, MM = kWideMM, whose body holds no per-coordinate
+// array (square_mma.cuh's square_wide_body, wide_tri.cuh's
+// wide_tri_body). SVGD_DISPATCH_M_2_11, for the kernels with fewer main
+// paths (the panels, K14's term groups, K15), has exact instances for
+// m = 2 and 11 only and runtime ones with MM = 8, 16, 32 or 64, and
+// refuses m past kMaxM.
 
 #pragma once
 
@@ -29,7 +33,11 @@
 namespace svgd {
 
 constexpr int kMaxT = 8;  // thresholds held in registers
-constexpr int kMaxM = 64;  // largest dimension any instance takes
+// The largest dimension of the instances whose rows live in MM-long
+// register arrays; past it the wide instance, MM = kWideMM (0: no
+// dimension fixed at compile time), serves any m.
+constexpr int kMaxM = 64;
+constexpr int kWideMM = 0;
 constexpr float kLog2e = 1.4426950408889634f;
 
 // The square sweeps: one thread per target row, kSqThreads rows a block,
@@ -159,8 +167,12 @@ inline long long upper_pairs(int n, int tile) {
 // spill.
 template <int MM>
 struct MicroWidth {
-  static constexpr bool value = MM <= 8 || MM == 11;
+  static constexpr bool value = MM >= 1 && (MM <= 8 || MM == 11);
 };
+
+// The wide triangle body's tiles (wide_tri.cuh): 64 particles a side, for
+// one RBF and for terms alike.
+constexpr int kWideTile = 64;
 
 // The single-RBF one-row-a-thread triangle body (counts_sym.cuh): tiles of
 // 64 particles up to m = 16 and 32 above, so the padded pair tile and the
@@ -176,8 +188,9 @@ struct SymRowTile {
 // ops/sym_plan.sym_tile mirrors it.
 template <int MM>
 struct SymTile {
-  static constexpr int value = MicroWidth<MM>::value ? 128
-                                                     : SymRowTile<MM>::value;
+  static constexpr int value =
+      MM == kWideMM ? kWideTile
+                    : (MicroWidth<MM>::value ? 128 : SymRowTile<MM>::value);
 };
 
 // The composed kernels' triangle sweeps: tiles of 64 particles up to m = 12
@@ -194,9 +207,9 @@ struct SymTermsTile {
 // exports it and ops/sym_plan.sym_tile mirrors it.
 template <int MM>
 struct TermsTriTile {
-  static constexpr int value = MicroWidth<MM>::value
-                                   ? 128
-                                   : SymTermsTile<MM>::value;
+  static constexpr int value =
+      MM == kWideMM ? kWideTile
+                    : (MicroWidth<MM>::value ? 128 : SymTermsTile<MM>::value);
 };
 
 // The triangle sweeps' launch over tiles [t0, t0 + count) of the tile list:
@@ -337,8 +350,9 @@ struct AnyTerms {
 
 }  // namespace svgd
 
-// LAUNCH(MM, kExact) for the instance that serves dimension m; an m outside
-// 1..64 returns cudaErrorInvalidValue from the enclosing function.
+// LAUNCH(MM, kExact) for the instance that serves dimension m, the wide
+// one (kWideMM) past kMaxM; an m below 1 returns cudaErrorInvalidValue from
+// the enclosing function.
 #define SVGD_DISPATCH_M(m, LAUNCH)                                      \
   switch (m) {                                                          \
     case 1: LAUNCH(1, true); break;                                     \
@@ -358,11 +372,15 @@ struct AnyTerms {
         LAUNCH(32, false);                                              \
       } else if (m >= 33 && m <= svgd::kMaxM) {                         \
         LAUNCH(64, false);                                              \
+      } else if (m > svgd::kMaxM) {                                     \
+        LAUNCH(svgd::kWideMM, false);                                   \
       } else {                                                          \
         return static_cast<int>(cudaErrorInvalidValue);                 \
       }                                                                 \
   }
 
+// As SVGD_DISPATCH_M with fewer exact instances; an m outside 1..kMaxM
+// returns cudaErrorInvalidValue (ROADMAP item 17b).
 #define SVGD_DISPATCH_M_2_11(m, LAUNCH)                                 \
   switch (m) {                                                          \
     case 2: LAUNCH(2, true); break;                                     \

@@ -1,0 +1,347 @@
+// The upper-triangle sweep's body past kMaxM (m > 64), shared by the
+// single-RBF triangle kernels (fused_phi.cu: K2's and K4's ports) and the
+// terms triangle kernels (fused_phi_terms.cu: K8/K9's and K10/K11's), under
+// their names as the instance MM = kWideMM. The bodies below it hold a row
+// of m coordinates, scores and sums in registers (micro_tile.cuh,
+// counts_sym.cuh, terms_sym.cuh); past m = 64 they would spill, so this one
+// holds nothing sized by m and runs on the tensor cores.
+//
+// One block (4 warps) works through one tile pair (I, J), I <= J, of
+// kWideTile = 64 particles a side: tile t0 + blockIdx.x of the linear tile
+// list (t0 = 0 for the whole triangle, a rank's first tile for a chunk).
+//
+//   1. Gram tile G = X_I X_J^T (64 x 64; warp w rows 16w..16w+15 of I
+//      against the 64 columns of J) in 3xTF32 mma.sync m16n8k8 over slices
+//      of kWideK coordinates, each slice of both tiles staged as TF32 pairs
+//      in shared memory;
+//   2. sq = max(0, |x_i|^2 + |x_j|^2 - 2 G) (the self pair pinned to 0, as
+//      the plain version pins it), the pair's weights and its counts, ONCE
+//      a pair, into shared memory as TF32 pairs: W (k_c) and, for terms, a
+//      second tile (w). On the diagonal tile only j >= i is kept (the self
+//      pair included), the rest gets weight 0 and no count;
+//   3. the row sums of the D weight over J and its column sums over I;
+//   4. both contractions on the tensor cores, 64 columns of the operands
+//      at a time (the scores' columns with k_c, then the coordinates' with
+//      w): row i of I takes W [S_J | X_J], column j of J takes
+//      W^T [S_I | X_I], W^T reaching the A operand by reading W's shared
+//      tile transposed. D comes from the sums: D_i += rowsum_i x_i - (W X_J)_i,
+//      D_j += colsum_j x_j - (W^T X_I)_j, as the plain version forms it at
+//      these widths (ops/phi._pair_block);
+//   5. each chunk is flushed with float32 atomics into the zeroed (2m, n)
+//      accumulator [KS | D], as the narrower bodies flush.
+//
+// The conventions are the narrower bodies': each self pair enters both
+// directions (k = 1 exactly: the wrapper subtracts s_i once), D is
+// unscaled for one RBF (the wrapper multiplies it by 2 gamma) and weighted
+// by w for terms, and the counts receive U, the upper count with the
+// diagonal (the wrapper forms 2U - n).
+//
+// Shared memory (dynamic): 9216 floats for the Gram slices or the
+// contraction's records, 8704 for each weight tile, 256 for norms and
+// sums: 72.7 KB for one RBF, 107.5 KB for terms, at any m. Registers: the
+// warp's 16 x 64 Gram values (64 a thread) during the Gram tile, 32
+// accumulators during a contraction.
+
+#pragma once
+
+#include "micro_tile.cuh"
+#include "square_mma.cuh"
+
+namespace svgd {
+
+constexpr int kWideTriThreads = 128;        // 4 warps of 16 rows
+constexpr int kWideLdW = kWideTile + 4;     // weight tiles' stride
+constexpr int kWideTriCols = 64;            // operand columns of a chunk
+constexpr int kWideTriLdR = kWideTriCols + 4;
+
+struct WideTri {
+  // floats: the union of the Gram slices ([2 tiles][64][kWideLdK], big and
+  // small) and the records ([64][kWideTriLdR], big and small)
+  static constexpr int kSlices = 4 * kWideTile * kWideLdK;
+  static constexpr int kRecords = 2 * kWideTile * kWideTriLdR;
+  static constexpr int kUnion = kSlices > kRecords ? kSlices : kRecords;
+  static constexpr int kWeight = 2 * kWideTile * kWideLdW;  // big, small
+  static constexpr int kSums = 4 * kWideTile;  // norms and sums of I, J
+
+  static constexpr size_t smem_bytes(int weights) {
+    return sizeof(float) * (kUnion + weights * kWeight + kSums);
+  }
+};
+
+// The body (see the top of the file). kT thresholds (3, or kMaxT for a
+// runtime T); weights(sq, k_c, w) the pair's weights: one tile of them
+// where W is OneRbf (k_c = w), two otherwise. Composed kernels' constants
+// in shared memory (AnyTerms) must be stored before the call: the body's
+// first barrier comes before its first pair.
+template <int kT, class W>
+__device__ __forceinline__ void wide_tri_body(
+    const float* __restrict__ coords, const float* __restrict__ scores,
+    const W& weights, const float* __restrict__ thr, int n, int m, int T,
+    int nb, long long t0, float* __restrict__ acc,
+    unsigned long long* __restrict__ counts) {
+  constexpr int NW = kTwoBands<W> ? 2 : 1;
+  constexpr int S = kWideTile;
+  extern __shared__ __align__(16) float sh[];
+  float* un = sh;                              // slices or records
+  float* wt = sh + WideTri::kUnion;            // [NW][big | small][S][LdW]
+  float* norm = wt + NW * WideTri::kWeight;    // [I | J]
+  float* sums = norm + 2 * S;                  // [rows of I | columns of J]
+
+  int bi, bj;
+  decode_upper_pair(t0 + static_cast<long long>(blockIdx.x), nb, &bi, &bj);
+  const int i0 = bi * S;
+  const int j0 = bj * S;
+  const bool diag = bi == bj;
+  const int tid = static_cast<int>(threadIdx.x);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  float th[kT];
+#pragma unroll
+  for (int q = 0; q < kT; ++q) th[q] = thr[q < T ? q : 0];
+
+  // Squared norms of the 64 + 64 particles, 4 threads each.
+  for (int e = tid; e < 2 * S * 4; e += kWideTriThreads) {
+    const int p = e >> 2;
+    const int part = p < S ? i0 + p : j0 + p - S;
+    float q = 0.0f;
+    if (part < n) {
+      for (int k = e & 3; k < m; k += 4) {
+        const float v = coords[static_cast<size_t>(part) * m + k];
+        q = fmaf(v, v, q);
+      }
+    }
+    q += __shfl_xor_sync(0xffffffffu, q, 1);
+    q += __shfl_xor_sync(0xffffffffu, q, 2);
+    if ((e & 3) == 0) norm[p] = q;
+  }
+
+  // 1. The Gram tile: slices [I | J][64][kWideLdK], big then small.
+  float gb[8][4];
+  float gs[8][4];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      gb[c][q] = 0.0f;
+      gs[c][q] = 0.0f;
+    }
+  }
+  constexpr int kTileK = S * kWideLdK;      // floats of one tile's slice
+  float* sl_big = un;
+  float* sl_small = un + 2 * kTileK;
+#pragma unroll 1
+  for (int k0 = 0; k0 < m; k0 += kWideK) {
+    const int kn = min(kWideK, m - k0);
+    __syncthreads();  // the union is free
+    for (int e = tid; e < 2 * S * kWideK; e += kWideTriThreads) {
+      const int r = e / kWideK;  // 0..127: I's rows, then J's
+      const int k = e - r * kWideK;
+      const int part = r < S ? i0 + r : j0 + r - S;
+      const float v = part < n && k < kn
+                          ? coords[static_cast<size_t>(part) * m + k0 + k]
+                          : 0.0f;
+      uint32_t hi, lo;
+      tf32_split(v, hi, lo);
+      sl_big[r * kWideLdK + k] = __uint_as_float(hi);
+      sl_small[r * kWideLdK + k] = __uint_as_float(lo);
+    }
+    __syncthreads();  // the slices are complete
+#pragma unroll
+    for (int ks = 0; ks < kWideK / 8; ++ks) {
+      if (8 * ks < kn) {
+        const int ar = (16 * warp + g) * kWideLdK + 8 * ks + t;
+        const uint32_t ab[4] = {
+            __float_as_uint(sl_big[ar]),
+            __float_as_uint(sl_big[ar + 8 * kWideLdK]),
+            __float_as_uint(sl_big[ar + 4]),
+            __float_as_uint(sl_big[ar + 8 * kWideLdK + 4])};
+        const uint32_t as[4] = {
+            __float_as_uint(sl_small[ar]),
+            __float_as_uint(sl_small[ar + 8 * kWideLdK]),
+            __float_as_uint(sl_small[ar + 4]),
+            __float_as_uint(sl_small[ar + 8 * kWideLdK + 4])};
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int br = kTileK + (8 * c + g) * kWideLdK + 8 * ks + t;
+          const uint32_t bb0 = __float_as_uint(sl_big[br]);
+          const uint32_t bb1 = __float_as_uint(sl_big[br + 4]);
+          mma_tf32(gs[c], as, bb0, bb1);
+          mma_tf32(gs[c], ab, __float_as_uint(sl_small[br]),
+                   __float_as_uint(sl_small[br + 4]));
+          mma_tf32(gb[c], ab, bb0, bb1);
+        }
+      }
+    }
+  }
+
+  // 2. sq, the weights and the counts, once a pair; the weights into the
+  // tiles W[il][jl] (row il of I, column jl of J).
+  unsigned int cnt[kMaxT];
+#pragma unroll
+  for (int q = 0; q < kMaxT; ++q) cnt[q] = 0u;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int il = 16 * warp + g + (q >> 1) * 8;
+      const int jl = 8 * c + 2 * t + (q & 1);
+      const bool ok = i0 + il < n && j0 + jl < n && (!diag || jl >= il);
+      float sq = fmaxf(__fsub_rn(__fadd_rn(norm[il], norm[S + jl]),
+                                 2.0f * (gb[c][q] + gs[c][q])),
+                       0.0f);
+      if (diag && il == jl) sq = 0.0f;
+      float a, b;
+      weights(sq, a, b);
+      count_pair_fixed<kT, true>(sq, th, ok, cnt);
+      uint32_t hi, lo;
+      tf32_split(ok ? a : 0.0f, hi, lo);
+      wt[il * kWideLdW + jl] = __uint_as_float(hi);
+      wt[S * kWideLdW + il * kWideLdW + jl] = __uint_as_float(lo);
+      if constexpr (NW == 2) {
+        float* w1 = wt + WideTri::kWeight;
+        tf32_split(ok ? b : 0.0f, hi, lo);
+        w1[il * kWideLdW + jl] = __uint_as_float(hi);
+        w1[S * kWideLdW + il * kWideLdW + jl] = __uint_as_float(lo);
+      }
+    }
+  }
+  flush_counts(cnt, T, counts);
+  __syncthreads();  // the weight tiles are complete
+
+  // 3. The D weight's row sums (threads 0-63, row tid of I) and column sums
+  // (threads 64-127, column tid - 64 of J), from its TF32 pairs.
+  {
+    const float* wd_big = wt + (NW - 1) * WideTri::kWeight;
+    const float* wd_small = wd_big + S * kWideLdW;
+    const int p = tid & (S - 1);
+    float sum = 0.0f;
+    for (int s = 0; s < S; ++s) {
+      // Rows walk their columns rotated by p, so that the 32 lanes of a
+      // warp read 32 distinct banks.
+      const int at = tid < S ? p * kWideLdW + ((s + p) & (S - 1))
+                             : s * kWideLdW + p;
+      sum += wd_big[at] + wd_small[at];
+    }
+    sums[tid] = sum;
+  }
+
+  // 4-5. The contractions, chunk by chunk: the scores' columns c0 .. c0 +
+  // 63 with k_c, then the coordinates' with w.
+  const int nch = (m + kWideTriCols - 1) / kWideTriCols;
+  float* rec_big = un;
+  float* rec_small = un + S * kWideTriLdR;
+#pragma unroll 1
+  for (int ch = 0; ch < 2 * nch; ++ch) {
+    const bool xband = ch >= nch;
+    const int c0 = (xband ? ch - nch : ch) * kWideTriCols;
+    const int cn = min(kWideTriCols, m - c0);
+    const float* w_big = wt + (xband ? NW - 1 : 0) * WideTri::kWeight;
+    const float* w_small = w_big + S * kWideLdW;
+    const float* src = xband ? coords : scores;
+#pragma unroll 1
+    for (int dir = 0; dir < 2; ++dir) {
+      // dir 0: the rows of I take W [S_J | X_J]; dir 1: the columns of J
+      // take W^T [S_I | X_I].
+      const int p0 = dir == 0 ? j0 : i0;  // the operand tile
+      const int o0 = dir == 0 ? i0 : j0;  // the output tile
+      __syncthreads();  // the union is free (and the sums are stored)
+      for (int e = tid; e < S * kWideTriCols; e += kWideTriThreads) {
+        const int p = e / kWideTriCols;
+        const int c = e - p * kWideTriCols;
+        const float v = p0 + p < n && c < cn
+                            ? src[static_cast<size_t>(p0 + p) * m + c0 + c]
+                            : 0.0f;
+        uint32_t hi, lo;
+        tf32_split(v, hi, lo);
+        rec_big[p * kWideTriLdR + c] = __uint_as_float(hi);
+        rec_small[p * kWideTriLdR + c] = __uint_as_float(lo);
+      }
+      __syncthreads();  // the records are complete
+      float out[8][4];
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) out[b][q] = 0.0f;
+      }
+#pragma unroll
+      for (int ks = 0; ks < S / 8; ++ks) {
+        // A: rows 16 warp + g (+ 8) of W (dir 0) or of W^T (dir 1),
+        // columns 8 ks + t (+ 4).
+        const int ra = 16 * warp + g;
+        const int ka = 8 * ks + t;
+        int at[4];
+        if (dir == 0) {
+          at[0] = ra * kWideLdW + ka;
+          at[1] = (ra + 8) * kWideLdW + ka;
+          at[2] = ra * kWideLdW + ka + 4;
+          at[3] = (ra + 8) * kWideLdW + ka + 4;
+        } else {
+          at[0] = ka * kWideLdW + ra;
+          at[1] = ka * kWideLdW + ra + 8;
+          at[2] = (ka + 4) * kWideLdW + ra;
+          at[3] = (ka + 4) * kWideLdW + ra + 8;
+        }
+        uint32_t ab[4], as[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          ab[q] = __float_as_uint(w_big[at[q]]);
+          as[q] = __float_as_uint(w_small[at[q]]);
+        }
+        const int bk = ka * kWideTriLdR + g;
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          if (8 * b < cn) {
+            mma_3xtf32(out[b], ab, as, rec_big, rec_small, bk + 8 * b,
+                       bk + 4 * kWideTriLdR + 8 * b);
+          }
+        }
+      }
+      // Flush: row (dir 0) or column (dir 1) o0 + ol, operand column
+      // c0 + cl, into KS (scores) or D = sum x - W X (coordinates).
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int ol = 16 * warp + g + (q >> 1) * 8;
+          const int cl = 8 * b + 2 * t + (q & 1);
+          const int o = o0 + ol;
+          if (o < n && cl < cn) {
+            const int k = c0 + cl;
+            if (xband) {
+              const float x = coords[static_cast<size_t>(o) * m + k];
+              atomicAdd(acc + static_cast<size_t>(m + k) * n + o,
+                        fmaf(sums[dir * S + ol], x, -out[b][q]));
+            } else {
+              atomicAdd(acc + static_cast<size_t>(k) * n + o, out[b][q]);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// The threads of a triangle kernel's block for instance MM: the wide
+// body's at MM = kWideMM, any m past kMaxM, else the micro-tile body's.
+template <int MM>
+struct TriThreads {
+  static constexpr int value =
+      MM == kWideMM ? kWideTriThreads : MicroTri<MM>::kThreads;
+};
+
+// Allow a kernel on the wide body with `weights` weight tiles its dynamic
+// shared memory, where that passes the default 48 KB. A refusal also fails
+// the launch, which the entry's cudaGetLastError() reports.
+template <class Kernel>
+inline cudaError_t wide_tri_prepare(Kernel* kernel, int weights) {
+  const size_t smem = WideTri::smem_bytes(weights);
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+}  // namespace svgd

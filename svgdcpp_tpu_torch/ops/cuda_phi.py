@@ -9,12 +9,13 @@ package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
     (K1), the square/cross sweep (each target row against every source):
     the sources split over the grid and summed in order by a finishing
     pass, one row a thread on the CUDA cores up to m = 4, the Gram tile and
-    the contraction on the tensor cores in 3xTF32 above
-    (``csrc/square_mma.cuh``).
+    the contraction on the tensor cores in 3xTF32 above, past m = 64 in
+    slices of coordinates and chunks of columns (``csrc/square_mma.cuh``).
   * ``fused_phi_counts_sym``    (``csrc/fused_phi.cu``) -- ``_sym_kernel``
     (K2), the upper-triangle sweep over one particle set (each unordered
     pair once, both directions; on ``csrc/micro_tile.cuh``'s body at
-    m = 1-8 and 11, ``csrc/counts_sym.cuh``'s above).
+    m = 1-8 and 11, ``csrc/counts_sym.cuh``'s up to 64 and
+    ``csrc/wide_tri.cuh``'s tensor-core body past it).
   * ``fused_phi_terms_square``  (``csrc/fused_phi_terms.cu``) --
     ``_fused_terms_direct_kernel`` and ``_fused_terms_kernel`` (K6, K7):
     the square/cross sweep of a signed sum of isotropic RBF terms, on K1's
@@ -22,7 +23,8 @@ package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
     k_c and w (two operand bands on the tensor cores).
   * ``fused_phi_terms_sym``     (``csrc/fused_phi_terms.cu``) --
     ``_sym_terms_direct_kernel`` and ``_sym_terms_kernel`` (K8, K9): its
-    upper-triangle sweep, whose kernel is in ``csrc/terms_sym.cuh``.
+    upper-triangle sweep (the micro-tile body, ``csrc/terms_sym.cuh``'s up
+    to 64, ``csrc/wide_tri.cuh``'s past it).
   * ``fused_phi_aniso_terms_sym`` (``csrc/fused_phi_aniso.cu``) --
     ``_sym_aniso_terms_kernel`` (K14): the sweep of a composed kernel with
     anisotropic (full-P) terms. With one anisotropic term up to m = 32 a
@@ -56,11 +58,16 @@ distances at or below each threshold, like
 ``phi_rbf_aniso_terms_fused_counts`` and the panel schedules
 ``phi_rbf_sympanel_fused_counts`` / ``phi_rbf_terms_sympanel_fused_counts``,
 their plain versions; ``phi_rbf_square`` returns phi, like
-``ops/phi.phi_rbf_blocked``. The sweeps take every dimension 1 <= m <= MAX_M
-and raise above it (ROADMAP.md item 17); the count kernel takes any m.
+``ops/phi.phi_rbf_blocked``. The square sweeps (K1, K6/K7) and the
+full-width triangle sweeps (K2/K4, K8-K11) take any m >= 1: past MAX_M = 64
+they run wide bodies that hold nothing sized by m (``csrc/square_mma.cuh``'s
+``square_wide_body``, ``csrc/wide_tri.cuh``). The panel sweeps (K3/K5,
+K12/K13), K14, K15 and ``sym_eigen`` take 1 <= m <= MAX_M and raise above
+it (ROADMAP.md item 17b); the count kernel takes any m.
 
-Which form sweeps one particle set is ``resolve_sym``: the JAX package's
-decision by default (``ops/sym_plan.jax_resolve_sym``), or the caller's.
+Which form sweeps one particle set is ``resolve_sym``: by default the JAX
+package's decision up to MAX_M and the card's own past it
+(``ops/sym_plan.card_resolve_sym``), or the caller's.
 
 Where the wrappers run: a tensor on the CPU goes to the plain version (the
 CPU tests use this); a tensor on a CUDA device launches the kernel or
@@ -104,17 +111,20 @@ from .phi import (
     sympanel_scatter,
 )
 from .sym_plan import (
+    KERNEL_MAX_M,
     SYM_MIN_N,
     card_panel_plan,
-    jax_resolve_sym,
+    card_resolve_sym,
     panel_chunk,
     sym_tile_chunk,
 )
 
-#: Largest dimension, threshold count and term count the kernels take, and
-#: the most anisotropic terms (gradient accumulators) K14's kernel takes:
-#: the JAX package's _ANISO_MAX_W.
-MAX_M = 64
+#: Largest dimension the panel, anisotropic and fixed-P sweeps and
+#: sym_eigen take (the square and full-width triangle sweeps take any m),
+#: threshold count and term count the kernels take, and the most
+#: anisotropic terms (gradient accumulators) K14's kernel takes: the JAX
+#: package's _ANISO_MAX_W.
+MAX_M = KERNEL_MAX_M
 MAX_T = 8
 #: Thresholds one count-kernel launch takes; more go in several launches.
 COUNT_MAX_T = 32
@@ -231,19 +241,22 @@ def resolve_sym(sym, n: int, m: int, num_terms: int | None = None):
     triangle kernel), for one RBF (``num_terms`` None) or a composed kernel
     of ``num_terms`` terms.
 
-    ``None`` gives the JAX package's decision (``_resolve_sym`` at its
-    default tiles, ``sym_plan.jax_resolve_sym``): the square sweep below
-    SYM_MIN_N, the full-width triangle while its accumulator fits the TPU's
-    VMEM budget, the panel form past it where its eligibility rules admit
-    the shape, else the square sweep. Those are TPU numbers, taken as the
-    starting point as SYM_MIN_N is; the crossovers on the card are
-    measured in PERF.md. ``True`` forces the full-width kernel at any n,
-    where the JAX package's True is advisory (it takes the panel or the
-    square form past the budget): on the card the accumulator lives in
-    device memory and no shape is too wide for it. ``False`` and
+    ``None`` gives, up to MAX_M, the JAX package's decision
+    (``_resolve_sym`` at its default tiles, ``sym_plan.jax_resolve_sym``):
+    the square sweep below SYM_MIN_N, the full-width triangle while its
+    accumulator fits the TPU's VMEM budget, the panel form past it where
+    its eligibility rules admit the shape, else the square sweep. Those are
+    TPU numbers, taken as the starting point as SYM_MIN_N is; the
+    crossovers on the card are measured in PERF.md. Past MAX_M it gives the
+    card's own rule (``sym_plan.card_resolve_sym``): the square sweep below
+    SYM_MIN_N, from there the form measured faster on the card, never the
+    panel (whose kernels stop at MAX_M). ``True`` forces the full-width
+    kernel at any n, where the JAX package's True is advisory (it takes the
+    panel or the square form past the budget): on the card the accumulator
+    lives in device memory and no shape is too wide for it. ``False`` and
     ``"panel"`` force the square and the panel kernel."""
     if sym is None:
-        return jax_resolve_sym(n, m, num_terms)
+        return card_resolve_sym(n, m, num_terms)
     if sym is True or sym is False or sym == "panel":
         return sym
     raise ValueError(
@@ -259,31 +272,39 @@ def _check_launch(rc: int, kernel: str) -> None:
         )
 
 
-def check_dimension(m: int) -> None:
-    """Raise for a dimension the kernels do not take."""
-    if not 1 <= m <= MAX_M:
+def check_dimension(m: int, *, wide: bool) -> None:
+    """Raise for a dimension the kernels do not take: the square and
+    full-width triangle sweeps (``wide``) take any m >= 1; the panel,
+    anisotropic and fixed-P sweeps and sym_eigen 1 <= m <= MAX_M."""
+    if m < 1:
+        raise ValueError(f"the CUDA sweeps take m >= 1 dimensions, got m={m}")
+    if not wide and m > MAX_M:
         raise ValueError(
-            f"the CUDA sweeps take 1 <= m <= {MAX_M} dimensions, got m={m} "
-            "(ROADMAP.md item 17: wider sweeps)"
+            f"the CUDA panel, anisotropic and fixed-P sweeps and sym_eigen "
+            f"take 1 <= m <= {MAX_M} dimensions, got m={m} (ROADMAP.md item "
+            "17b: their wide bodies; the square and full-width triangle "
+            "sweeps take any m)"
         )
 
 
-def _check_pair(coords, scores):
+def _check_pair(coords, scores, *, wide):
     if coords.ndim != 2 or scores.shape != coords.shape:
         raise ValueError(
             f"coords and scores must both be (n, m); got {tuple(coords.shape)}"
             f" and {tuple(scores.shape)}"
         )
-    check_dimension(coords.shape[1])
+    check_dimension(coords.shape[1], wide=wide)
     if scores.device != coords.device:
         raise ValueError("coords and scores must share one device")
 
 
-def _device_operands(coords, scores, gammas, thresholds_sq, min_terms=1):
+def _device_operands(coords, scores, gammas, thresholds_sq, min_terms=1, *,
+                     wide):
     """Validate the CUDA path's inputs and return float32 device operands
     (gammas (nterms,), or one zero for no term; thresholds (T,)) without
-    any host read."""
-    _check_pair(coords, scores)
+    any host read. ``wide``: the sweep takes any m (the square and
+    full-width triangle kernels), else m <= MAX_M."""
+    _check_pair(coords, scores, wide=wide)
     t = thresholds_sq.shape[0]
     if not 1 <= t <= MAX_T:
         raise ValueError(
@@ -360,7 +381,7 @@ def symmetric_eigen(p_matrix, device=None):
         return torch.linalg.eigh(0.5 * (p + p.T))
     _require_cuda(p)
     m = p.shape[0]
-    check_dimension(m)
+    check_dimension(m, wide=False)
     lam = torch.empty(m, dtype=torch.float64, device=device)
     v = torch.empty((m, m), dtype=torch.float64, device=device)
     lib = load_library()
@@ -400,7 +421,8 @@ def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq):
     order. From m = 5 both kernels' tensor-core body copies sources and
     scores 16 bytes at a time, so a scores view that starts off a 16-byte
     boundary is copied first."""
-    g, thr = _device_operands(sources, scores, gammas, thresholds_sq)
+    g, thr = _device_operands(sources, scores, gammas, thresholds_sq,
+                              wide=True)
     if targets.ndim != 2 or targets.shape[1] != sources.shape[1]:
         raise ValueError("targets must be (n_t, m) with the sources' m")
     if targets.device != sources.device:
@@ -446,7 +468,8 @@ def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq):
 
 def _sym_launch(coords, scores, gammas, signs, thresholds_sq):
     """K2 (one positive term, ``signs`` None) or the terms triangle kernel."""
-    g, thr = _device_operands(coords, scores, gammas, thresholds_sq)
+    g, thr = _device_operands(coords, scores, gammas, thresholds_sq,
+                              wide=True)
     n, m = coords.shape
     coords_c = _centered32(coords).contiguous()
     sc32 = scores.to(torch.float32).contiguous()
@@ -502,7 +525,8 @@ def _sympanel_launch(coords, scores, gammas, signs, thresholds_sq,
                      panel_blocks):
     """K3's port (one positive term, ``signs`` None) or the terms panel
     kernel (K12/K13's), on the card's panel plan."""
-    g, thr = _device_operands(coords, scores, gammas, thresholds_sq)
+    g, thr = _device_operands(coords, scores, gammas, thresholds_sq,
+                              wide=False)
     n, m = coords.shape
     nb, w, _ = card_panel_plan(n, panel_blocks)
     num_p = nb * (nb + 1) // 2
@@ -553,7 +577,7 @@ def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
                   aniso_signs, thresholds_sq, lowers):
     """K14: the one-pass kernel, or the term-group triangle kernel."""
     g, thr = _device_operands(coords, scores, iso_gammas, thresholds_sq,
-                              min_terms=0)
+                              min_terms=0, wide=False)
     n_aniso = len(aniso_signs)
     if not 1 <= n_aniso <= MAX_ANISO_TERMS:
         raise ValueError(
@@ -616,7 +640,7 @@ def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
 def _phi_rbf_launch(coords, scores, p_matrix, psd, eig):
     """K15: the fixed-P sweep kernel (the decomposition, where the caller
     has none, on the card too)."""
-    _check_pair(coords, scores)
+    _check_pair(coords, scores, wide=False)
     n, m = coords.shape
     z64, lam, v = eigen_rows(_centered32(coords), p_matrix, eig)
     z = z64.to(torch.float32).contiguous()
@@ -798,7 +822,8 @@ def _check_chunk(world, rank):
 def _sym_chunk_launch(coords, scores, gammas, signs, thresholds_sq, world,
                       rank):
     """K4 (one positive term, ``signs`` None) or K10/K11's chunk kernel."""
-    g, thr = _device_operands(coords, scores, gammas, thresholds_sq)
+    g, thr = _device_operands(coords, scores, gammas, thresholds_sq,
+                              wide=True)
     n, m = coords.shape
     lib = load_library()
     # The range is one of the kernel's own tile list, whose tile side the
@@ -896,7 +921,8 @@ def phi_rbf_sympanel_chunk_cuda(coords, scores, gamma, thresholds_sq, world,
             coords, scores, gamma, thresholds_sq, world, rank, panel_blocks
         )
     _require_cuda(coords)
-    g, thr = _device_operands(coords, scores, [gamma], thresholds_sq)
+    g, thr = _device_operands(coords, scores, [gamma], thresholds_sq,
+                              wide=False)
     n, m = coords.shape
     nb, w, _ = card_panel_plan(n, panel_blocks)
     if nb * (nb + 1) // 2 > MAX_PANELS:

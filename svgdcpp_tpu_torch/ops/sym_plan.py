@@ -178,6 +178,36 @@ def jax_resolve_sym(n: int, m: int, num_terms: int | None = None):
     return "panel" if panel_ok else False
 
 
+# ----------------------------------------------------------------------
+# The card's form past the register-sized instances
+# ----------------------------------------------------------------------
+
+#: The largest m of the kernels' register-sized instances (``kMaxM`` of
+#: csrc/sweep_common.cuh); past it the square and full-width triangle
+#: sweeps take their wide instances, and the panel, anisotropic and fixed-P
+#: sweeps refuse the shape (ROADMAP item 17b).
+KERNEL_MAX_M = 64
+
+
+def card_resolve_sym(n: int, m: int, num_terms: int | None = None):
+    """The card's automatic form for n particles of dimension m, one RBF
+    (``num_terms`` None) or a composed kernel: the JAX package's decision
+    (``jax_resolve_sym``) up to KERNEL_MAX_M; past it the square sweep
+    below SYM_MIN_N and the full-width triangle from there up, never
+    "panel".
+
+    Past KERNEL_MAX_M the triangle is what chip_smoke.py's phase 43b
+    measured faster on an H100 80GB HBM3 at 700 W: 3.91-4.00 ms against the
+    square sweep's 11.92-12.40 ms at (10000, 123) with one RBF, 5.05-5.35
+    against 12.32-12.81 ms at (10000, 124) with two terms (PERF.md). The
+    TPU's panel form, and its square form past the budget, exist for its
+    8 MiB VMEM accumulator budget, which the card does not have, so the JAX
+    rule is not repeated past KERNEL_MAX_M."""
+    if m <= KERNEL_MAX_M:
+        return jax_resolve_sym(n, m, num_terms)
+    return n >= SYM_MIN_N
+
+
 def tpu_terms_panel_kernel(n: int, m: int, num_terms: int) -> str:
     """'K12' or 'K13': the composed panel kernel the JAX package runs for
     the shape (its direct plan where one exists, else the legacy one)."""
@@ -309,19 +339,28 @@ def sym_panel_sharded_plan(n: int, m: int, num_chunks: int,
     )
 
 
+#: The wide instance's MM (``kWideMM``): no dimension fixed at compile
+#: time, any m past KERNEL_MAX_M.
+WIDE_MM = 0
+
+
 def dispatch_m(m: int) -> int:
     """The kernels' instance for dimension m (``SVGD_DISPATCH_M`` of
-    csrc/sweep_common.cuh): m itself for m = 1..8, 11 and 50, else the
-    next of 16, 32 and 64."""
+    csrc/sweep_common.cuh): m itself for m = 1..8, 11 and 50, the next of
+    16, 32 and 64 up to KERNEL_MAX_M, and WIDE_MM past it."""
+    if m > KERNEL_MAX_M:
+        return WIDE_MM
     if m <= 8 or m in (11, 50):
         return m
     return 16 if m <= 16 else 32 if m <= 32 else 64
 
 
 #: The triangle kernels' tile side where the micro-tile body serves the
-#: instance (``MicroWidth`` of csrc/sweep_common.cuh: m = 1-8 and 11), for
-#: one RBF (``SymTile``) and a composed kernel (``TermsTriTile``) alike.
+#: instance (``MicroWidth`` of csrc/sweep_common.cuh: m = 1-8 and 11), and
+#: where the wide body does (``kWideTile``: m past KERNEL_MAX_M), for one
+#: RBF (``SymTile``) and a composed kernel (``TermsTriTile``) alike.
 MICRO_TILE = 128
+WIDE_TILE = 64
 
 
 def sym_tile(m: int, terms: bool = False) -> int:
@@ -330,11 +369,14 @@ def sym_tile(m: int, terms: bool = False) -> int:
     the micro-tile body serves the instance (m = 1-8 and 11), else the
     one-row-a-thread body's. One RBF (``SymRowTile``): 64 up to an instance
     of 16, 32 above. A composed kernel (``SymTermsTile``): 32 (its 64 up to
-    an instance of 12 serves no dimension outside the micro ones). The
-    chunk wrappers on the card take the library's own answer
-    (``svgd_sym_tile``); this copy serves the plain chunk sweeps, and the
-    card's smoke test holds it to the library's."""
+    an instance of 12 serves no dimension outside the micro ones). Past
+    KERNEL_MAX_M the wide body's WIDE_TILE, for both. The chunk wrappers on
+    the card take the library's own answer (``svgd_sym_tile``); this copy
+    serves the plain chunk sweeps, and the card's smoke test holds it to
+    the library's."""
     inst = dispatch_m(m)
+    if inst == WIDE_MM:
+        return WIDE_TILE
     if inst <= 8 or inst == 11:
         return MICRO_TILE
     if terms:
@@ -376,8 +418,9 @@ def square_splits(n_t: int, n_s: int, m: int) -> int:
     dimension) of a square launch, K1's or the terms kernel's, or -1 for
     arguments the sweeps do not take: the Python copy of the library's
     ``svgd_square_splits``, which the wrapper reads on the card and the
-    card's smoke test holds this copy to."""
-    if n_t <= 0 or n_s <= 0 or not 1 <= m <= 64:
+    card's smoke test holds this copy to. Past KERNEL_MAX_M the wide body
+    keeps the tensor-core body's plan."""
+    if n_t <= 0 or n_s <= 0 or m < 1:
         return -1
     return -(-n_s // square_chunk(n_t, n_s, m))
 

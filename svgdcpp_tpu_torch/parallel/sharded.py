@@ -63,7 +63,6 @@ from ..kernels.gaussian_rbf import (
 )
 from ..models.model import params_on
 from ..ops.cuda_phi import (
-    check_dimension,
     phi_rbf_fused_cuda_cross,
     phi_rbf_fused_sym_chunk_cuda,
     phi_rbf_sympanel_chunk_cuda,
@@ -90,7 +89,12 @@ from ..ops.phi import (
     phi_rbf_terms_cross_fused_counts,
     phi_rbf_terms_fused_sym_finish,
 )
-from ..ops.sym_plan import sym_panel_sharded_plan, sym_sharded_plan
+from ..ops.sym_plan import (
+    KERNEL_MAX_M,
+    card_resolve_sym,
+    sym_panel_sharded_plan,
+    sym_sharded_plan,
+)
 from ..optimizers.base import _map_pair
 from ..svgd import SVGD, _not_ported, _skip_section
 from ..utils.logging import write_intermediate_matrices
@@ -207,7 +211,7 @@ def sym_panel_sharded_phi(coords_local, scores_local, sources, scores_global,
 
 
 def resolve_sharded_sym(fused_sym, fused_cuda: bool, n: int, m: int,
-                        world: int, single_rbf: bool):
+                        world: int, single_rbf: bool, num_terms=None):
     """The form of the fused sweep over ``world`` ranks: "full", "panel"
     or False (the cross sweep), for ``fused_sym`` None (the JAX decision
     for the global n, m and the world size: the full-width triangle while
@@ -217,7 +221,13 @@ def resolve_sharded_sym(fused_sym, fused_cuda: bool, n: int, m: int,
     n) or False. The triangle forms need the CUDA sweep (``fused_cuda``;
     on CPU tensors its plain chunk versions run). The engine's
     ``fused_sym`` and the driver's under ``SVGDOptions.mesh`` resolve
-    here."""
+    here.
+
+    Past MAX_M (64) the panel kernels stop and the TPU's budget, which
+    sends wide shapes to the panel or the cross sweep, is not the card's:
+    a forced "panel" raises, and under None the card's rule for one RBF or
+    ``num_terms`` terms (``sym_plan.card_resolve_sym``) picks "full" or the
+    cross sweep."""
     if fused_sym is False:
         return False
     if fused_sym in ("full", "panel"):
@@ -231,10 +241,18 @@ def resolve_sharded_sym(fused_sym, fused_cuda: bool, n: int, m: int,
                 "fused_sym='panel' takes the built-in single RBF only "
                 "(the JAX package has no sharded composed panel sweep)."
             )
+        if fused_sym == "panel" and m > KERNEL_MAX_M:
+            raise ValueError(
+                f"fused_sym='panel' takes m <= {KERNEL_MAX_M} dimensions, "
+                f"got m={m} (ROADMAP.md item 17b: the panel kernels' wide "
+                "bodies); 'full' takes any m."
+            )
         return fused_sym
     mode = False
     if fused_cuda:
-        if sym_sharded_plan(n, m, world) is not None:
+        if m > KERNEL_MAX_M:
+            mode = "full" if card_resolve_sym(n, m, num_terms) else False
+        elif sym_sharded_plan(n, m, world) is not None:
             mode = "full"
         elif single_rbf and sym_panel_sharded_plan(n, m, world) is not None:
             mode = "panel"
@@ -509,8 +527,6 @@ class ShardedSVGD:
             )
         else:
             use = True
-        if use and on_cuda:
-            check_dimension(self.dimension)
         return use
 
     def _resolve_fused_sym(self):
@@ -522,6 +538,8 @@ class ShardedSVGD:
         return resolve_sharded_sym(
             cfg.fused_sym, self._fused_cuda, self.num_particles,
             self.dimension, self.mesh.world_size, self.kernel is None,
+            num_terms=(None if self._rbf_terms is None
+                       else len(self._rbf_terms)),
         )
 
     def _refresh_psd(self):

@@ -548,8 +548,6 @@ class SVGD:
                     f"fused_dot_dtype={opts.fused_dot_dtype!r}",
                     "item 15 (the bfloat16 operand opt-in)",
                 )
-            if on_cuda:
-                check_dimension(self.dimension)
         self._phi_impl = impl
         #: The form of the sweep the fused kernel routes run: False (square),
         #: True (full-width triangle) or "panel" (ops/cuda_phi.resolve_sym
@@ -564,6 +562,8 @@ class SVGD:
             self.fused_sym_form = resolve_sharded_sym(
                 opts.fused_sym, True, self.num_particles, self.dimension,
                 self.mesh.world_size, impl == "fused_cuda",
+                num_terms=(None if impl == "fused_cuda"
+                           else len(self._rbf_terms)),
             )
         elif impl == "fused_cuda":
             self.fused_sym_form = resolve_sym(
@@ -573,6 +573,14 @@ class SVGD:
             self.fused_sym_form = resolve_sym(
                 opts.fused_sym, self.num_particles, self.dimension,
                 len(self._rbf_terms),
+            )
+        if on_cuda and impl in _KERNEL_ROUTES:
+            # The square and full-width triangle sweeps take any m; the
+            # panel, anisotropic and fixed-P ones raise past MAX_M.
+            check_dimension(
+                self.dimension,
+                wide=impl in ("fused_cuda", "fused_terms_cuda")
+                and self.fused_sym_form != "panel",
             )
 
     def _auto_impl(self, on_cuda: bool) -> str:

@@ -159,14 +159,14 @@ def bound(flops, nbytes):
 
 
 def sweep_bound(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
-                n_c=None, all_pairs=False):
+                n_c=None, all_pairs=False, n_t=None):
     """bound() of one kernel call: :func:`bound` of :func:`sweep_work`."""
     return bound(*sweep_work(kernel, n, m, T, n_iso, n_aniso, pairs, n_c,
-                             all_pairs))
+                             all_pairs, n_t))
 
 
 def sweep_work(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
-               n_c=None, all_pairs=False):
+               n_c=None, all_pairs=False, n_t=None):
     """(flops, nbytes) of one kernel call, with the FP32 operations each
     pair of the function needs, whatever the kernel's design runs (an FMA
     as 2; an ex2, a compare and any other operation as 1):
@@ -201,8 +201,12 @@ def sweep_work(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
     the function's inputs read once (coordinates, scores, precisions,
     thresholds) and its outputs written once (phi, or a chunk's raw (2m, n)
     accumulator; the int64 counts). One particle set of n, as on every main
-    path."""
-    square_pairs = n * n
+    path; a square kernel's cross form takes ``n_t`` targets against the n
+    sources (n_t x n ordered pairs, the targets read and their phi written
+    once)."""
+    cross = n_t is not None
+    n_t = n if n_t is None else n_t
+    square_pairs = n_t * n
     tri_pairs = n * (n + 1) / 2 if pairs is None else pairs
     contract = 4 * m  # KS and one D, one direction
     out_floats = n * m
@@ -237,8 +241,10 @@ def sweep_work(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
         raise ValueError(kernel)
     if kernel.endswith("_chunk"):
         out_floats = 2 * n * m
-    nbytes = (4 * (2 * n * m + n_aniso * m * m + n_iso + T) + 4 * out_floats
-              + 8 * T)
+    if cross:
+        out_floats = (2 if kernel.endswith("_chunk") else 1) * n_t * m
+    nbytes = (4 * (2 * n * m + (n_t * m if cross else 0) + n_aniso * m * m
+                   + n_iso + T) + 4 * out_floats + 8 * T)
     if kernel == "phi_rbf_square":
         nbytes += 4 * m * m
     return flops, nbytes
@@ -248,7 +254,7 @@ def sweep_work(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
 PEAK_TF32_FLOPS = 495e12
 
 
-def square_tensor_bound(n, m, T=3, n_terms=None):
+def square_tensor_bound(n, m, T=3, n_terms=None, n_t=None):
     """(bound_ms, bound_by) of a square kernel's function over one set of n
     with the work its tensor-core body puts there on the TF32 tensor cores:
     per ordered pair the Gram product (2m) and the contraction, K1's
@@ -259,13 +265,38 @@ def square_tensor_bound(n, m, T=3, n_terms=None):
     ``n_terms`` terms 4 + 6 n_terms + T (sq and its clamp at 0, 4; each
     term as sweep_bound counts one, 6; T compares); and sweep_bound's bytes
     at the memory rate: the largest of the three, each resource busy at
-    once."""
-    pairs = n * n
+    once. ``n_t``: the cross form's targets against the n sources."""
+    kernel = ("fused_phi_counts_square" if n_terms is None
+              else "fused_phi_terms_square")
+    _, nbytes = sweep_work(kernel, n, m, T, n_iso=n_terms or 1, n_t=n_t)
+    pairs = n * (n if n_t is None else n_t)
     fp32 = 4 + T if n_terms is None else 4 + 6 * n_terms + T
-    nbytes = 4 * (2 * n * m + (n_terms or 1) + T) + 4 * n * m + 8 * T
     return max(
         (pairs * (6 * m + 2) / PEAK_TF32_FLOPS * 1e3, "tensor operations"),
         (pairs * fp32 / PEAK_FP32_FLOPS * 1e3, "operations"),
+        (nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
+    )
+
+
+def tri_tensor_bound(n, m, T=3, n_terms=None, pairs=None):
+    """(bound_ms, bound_by) of a triangle kernel's function with the work
+    its wide body (csrc/wide_tri.cuh, m > 64) puts on the TF32 tensor
+    cores: per unordered pair (``pairs``, the whole triangle n(n + 1)/2 by
+    default) the Gram product (2m) and both directions' contractions,
+    W [S | X] and W^T [S | X] (2 x 4m), at PEAK_TF32_FLOPS; the rest at
+    the FP32 peak: sq and its clamp (4), the weights (one RBF, ``n_terms``
+    None: 2; else 6 a term), T compares and the D weight's row and column
+    sums (2); and the bytes of sweep_work at the memory rate: the largest
+    of the three."""
+    tri = n * (n + 1) / 2 if pairs is None else pairs
+    fp32 = 4 + (2 if n_terms is None else 6 * n_terms) + T + 2
+    kernel = "fused_phi_counts_sym" if n_terms is None else "fused_phi_terms_sym"
+    if pairs is not None:
+        kernel += "_chunk"
+    _, nbytes = sweep_work(kernel, n, m, T, n_iso=n_terms or 1, pairs=pairs)
+    return max(
+        (tri * 10 * m / PEAK_TF32_FLOPS * 1e3, "tensor operations"),
+        (tri * fp32 / PEAK_FP32_FLOPS * 1e3, "operations"),
         (nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
     )
 

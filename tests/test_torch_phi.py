@@ -292,12 +292,19 @@ def test_phi_rbf_cuda_on_cpu_off_origin():
 
 
 def test_dimension_limit_names_the_roadmap():
+    """The square and full-width triangle sweeps (``wide``) take any
+    m >= 1; the panel, anisotropic and fixed-P sweeps and sym_eigen stop at
+    MAX_M = 64, naming the ROADMAP item that widens them."""
     for m in (1, 11, 50, cuda_phi.MAX_M):
-        cuda_phi.check_dimension(m)
+        cuda_phi.check_dimension(m, wide=False)
+    for m in (1, 64, 65, 123, 512, 4096):
+        cuda_phi.check_dimension(m, wide=True)
     assert cuda_phi.MAX_M == 64
-    for m in (0, cuda_phi.MAX_M + 1):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            cuda_phi.check_dimension(m)
+    for wide in (False, True):
+        with pytest.raises(ValueError, match="m >= 1"):
+            cuda_phi.check_dimension(0, wide=wide)
+    with pytest.raises(ValueError, match="ROADMAP.*item 17b"):
+        cuda_phi.check_dimension(cuda_phi.MAX_M + 1, wide=False)
 
 
 def test_resolve_sym_and_launch_counts_on_cpu():

@@ -65,3 +65,26 @@ def test_chip_smoke_takes_its_bounds_from_the_package():
         assert getattr(module, name) is getattr(profiling, name), name
     source = (REPO / "chip_smoke.py").read_text()
     assert "def sweep_bound" not in source and "PEAK_FP32_FLOPS =" not in source
+
+
+def test_square_bounds_count_the_cross_forms_pairs():
+    """A square kernel's cross form (n_t targets against n sources) counts
+    n_t x n ordered pairs, reads the targets once and writes their phi;
+    without n_t the bounds are the one-set form's."""
+    n_t, n, m, T = 700, 1500, 123, 3
+    for kernel, n_iso in (("fused_phi_counts_square", 1),
+                          ("fused_phi_terms_square", 2)):
+        one = profiling.sweep_work(kernel, n, m, T, n_iso=n_iso)
+        assert profiling.sweep_work(kernel, n, m, T, n_iso=n_iso,
+                                    n_t=None) == one
+        flops, nbytes = profiling.sweep_work(kernel, n, m, T, n_iso=n_iso,
+                                             n_t=n_t)
+        assert flops * n == one[0] * n_t
+        assert nbytes == 4 * ((n_t + 2 * n) * m + n_iso + T) + 4 * n_t * m \
+            + 8 * T
+    ms, by = profiling.square_tensor_bound(n, m, T, n_t=n_t)
+    assert by == "tensor operations"
+    assert math.isclose(ms, n_t * n * (6 * m + 2)
+                        / profiling.PEAK_TF32_FLOPS * 1e3, rel_tol=1e-12)
+    assert profiling.square_tensor_bound(n, m, T) == \
+        profiling.square_tensor_bound(n, m, T, n_t=None)

@@ -75,7 +75,10 @@ def test_square_splits_cover_the_sources(n_t, n_s, m):
 def test_square_body_follows_the_width():
     assert [sym_plan.square_tensor(m) for m in (1, 4, 5, 8, 11, 50, 64)] == \
         [False, False, True, True, True, True, True]
-    assert sym_plan.square_splits(10, 10, 65) == -1
+    # Past m = 64 the wide body keeps the tensor-core body's plan.
+    assert sym_plan.square_splits(10, 10, 65) == 1
+    assert sym_plan.square_splits(1000, 1000, 123) == \
+        sym_plan.square_splits(1000, 1000, 50)
     assert sym_plan.square_splits(10, 10, 0) == -1
     assert sym_plan.square_splits(0, 10, 2) == -1
 

@@ -4,7 +4,9 @@
   the count kernel (K16's port) at any m, as the JAX package counts at any
   m; ``auto`` on a CUDA device keeps the JAX package's TPU rule past
   ``cuda_phi.MAX_M`` (the kernel route, as the TPU takes its Mosaic one),
-  and that route raises there, naming the item that widens the sweeps.
+  whose square and full-width triangle sweeps take any m; the panel,
+  anisotropic and fixed-P sweeps still raise past MAX_M, naming the item
+  that widens them (17b).
 * Process groups: ``initialize_distributed`` without a rendezvous makes a
   one-rank world (torchrun's ``env://`` where its variables are set), a
   second call returns the existing group, ``make_particle_mesh`` and
@@ -135,10 +137,10 @@ def _drivers(n, m, seed=0):
 ])
 def test_auto_rule_on_cuda_past_max_m(n, m, route):
     """Auto on a CUDA device takes the kernel route at any m, as the JAX
-    package's auto takes its Mosaic route on the TPU; the driver's
-    dimension check then raises past MAX_M (next test) rather than
-    running the plain route on the card. On the CPU both packages take
-    the same route."""
+    package's auto takes its Mosaic route on the TPU; past MAX_M its
+    square and full-width triangle sweeps run there (next test), never the
+    plain route on the card. On the CPU both packages take the same
+    route."""
     port, jax_svgd = _drivers(n, m)
     assert port._auto_impl(on_cuda=True) == route
     assert port._auto_impl(on_cuda=False) == jax_svgd._phi_impl
@@ -146,11 +148,15 @@ def test_auto_rule_on_cuda_past_max_m(n, m, route):
 
 
 def test_the_kernel_routes_keep_their_dimension_check():
-    """A forced kernel route past MAX_M still raises on a CUDA device (the
-    driver calls check_dimension there), naming the item that widens it."""
-    cuda_phi.check_dimension(cuda_phi.MAX_M)
-    with pytest.raises(ValueError, match=r"1 <= m <= 64.*item 17"):
-        cuda_phi.check_dimension(cuda_phi.MAX_M + 1)
+    """Past MAX_M the square and full-width triangle sweeps take any m
+    (``wide``), as auto's kernel route needs; the panel, anisotropic and
+    fixed-P sweeps still raise on a CUDA device (the driver calls
+    check_dimension there), naming the item that widens them."""
+    cuda_phi.check_dimension(cuda_phi.MAX_M, wide=False)
+    for m in (cuda_phi.MAX_M + 1, 100, 123, 512):
+        cuda_phi.check_dimension(m, wide=True)
+    with pytest.raises(ValueError, match=r"1 <= m <= 64.*item 17b"):
+        cuda_phi.check_dimension(cuda_phi.MAX_M + 1, wide=False)
 
 
 # ----------------------------------------------------------------------
