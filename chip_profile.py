@@ -119,8 +119,11 @@ n = 10240 (decomposed in the wrapper) and at a median's gamma I at
 n = 1500, m = 2 (decomposition given); and the wide instances past
 m = 64 at chip_smoke.py phase 43a's shapes (``wide_cases``: K1 square and
 cross, the terms square kernel, K2, the terms triangle and the chunk
-kernels at worlds 1 and 2, m = 65, 123, 256 and 512): wrapper ms (median
-of 20 calls between CUDA events after 3 warm-up calls) and kernel-only us
+kernels at worlds 1 and 2, m = 65, 123, 256 and 512), and K14's wide
+term groups and K15's wide sweep at phase 44a's shapes (``wide_p_cases``)
+and at the paths' (10240, 123) beside their float32 plain versions:
+wrapper ms (median of 20 calls between CUDA events after 3 warm-up
+calls) and kernel-only us
 (the profiler's events of the kernel over 10 calls). Run from an older
 tree with this script copied in, it times that tree's kernels the same
 way.
@@ -627,11 +630,17 @@ def sweeps(st, device):
     import torch
 
     from chip_smoke import (
+        WIDE_D,
+        WIDE_P_BIG_N,
+        grid_inputs,
         kernel_us,
         make_svgd,
         sweep_inputs,
         time_ms,
         wide_cases,
+        wide_p_call,
+        wide_p_cases,
+        wide_p_ps,
     )
     from svgdcpp_tpu_torch.ops import cuda_phi
     from svgdcpp_tpu_torch.ops.phi import (
@@ -738,6 +747,21 @@ def sweeps(st, device):
         rows.append(timed(f"wide {case.label}", case.kern, case.kernel,
                           n=case.n, n_t=case.n_t or case.n, m=case.m,
                           terms=len(case.terms) if case.terms else 1))
+    # K14's wide term groups and K15's wide sweep at phase 44a's shapes and
+    # inputs, and at phase 44b's, the paths' (10240, 123).
+    x, s, g, thr = grid_inputs(WIDE_P_BIG_N, WIDE_D, 0.0, 449, device)
+    shapes = [(f"K14 wide ({WIDE_P_BIG_N}, {WIDE_D}) iso+1",
+               cuda_phi.ANISO_WIDE_KERNEL, WIDE_P_BIG_N, WIDE_D, "iso+1",
+               x, s, g, thr),
+              (f"K15 wide ({WIDE_P_BIG_N}, {WIDE_D}) indefinite",
+               cuda_phi.PHI_RBF_WIDE_KERNEL, WIDE_P_BIG_N, WIDE_D,
+               ("indefinite", wide_p_ps("indefinite", WIDE_D, 1, 448, g,
+                                        device)[0]), x, s, g, thr)]
+    for label, kernel, n, m, spec, x, s, g, thr in (wide_p_cases(device)
+                                                    + shapes):
+        kern, _, plain = wide_p_call(kernel, x, s, g, thr, spec)
+        rows.append(timed(f"wide {label}", kern, kernel, plain=plain, n=n,
+                          m=m))
     return rows
 
 

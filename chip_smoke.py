@@ -297,6 +297,7 @@ from svgdcpp_tpu_torch.utils.profiling import (
     eigen_bound,
     square_tensor_bound,
     sweep_bound,
+    tri_tensor_bound,
 )
 
 
@@ -486,7 +487,8 @@ def ptxas_summary(log_text):
     count_le<MM,exact,gram,binned,P> (P: thresholds held, or binned search
     steps) and count_le_wide<TT>; the one-pass anisotropic kernel
     aniso_terms_sym<MM,exact,NIso,kT> (NIso 0: any number of isotropic
-    terms) beside the term-group one, aniso_terms_groups<MM,exact,1>."""
+    terms) beside the term-group one, aniso_terms_groups<MM,exact,1>, and
+    the wide ones past m = 64, aniso_terms_wide<kT> and rbf_wide."""
     import re
 
     out, name = {}, None
@@ -502,13 +504,15 @@ def ptxas_summary(log_text):
             flags = ",".join(g for g in inst.groups()[1:] if g) if inst else ""
             name = f"{inst.group(1)}<{flags}>" if inst else hit.group(1)
             other = re.search(
-                r"(count_le_cross_wide|count_le_cross|aniso_terms_sym)"
-                r"_kernelI((?:L[ib]\d+E)+)", hit.group(1))
+                r"(count_le_cross_wide|count_le_cross|aniso_terms_sym|"
+                r"aniso_terms_wide)_kernelI((?:L[ib]\d+E)+)", hit.group(1))
             if other:
                 args = ",".join(re.findall(r"L[ib](\d+)E", other.group(2)))
                 short = {"count_le_cross": "count_le",
                          "count_le_cross_wide": "count_le_wide"}
                 name = f"{short.get(other.group(1), other.group(1))}<{args}>"
+            if "phi_rbf_wide_kernel" in hit.group(1):
+                name = "rbf_wide"
             spill = "?"
         hit = re.search(r"(\d+) bytes spill stores", line)
         if hit and name:
@@ -914,16 +918,19 @@ def wide_cases(dev):
 #: csrc/wide_tri.cuh WideTri, dynamic), in bytes: the square body's union
 #: of 2 x 4224 floats and 32 norms (+ 48 term constants for any count of
 #: terms), the triangle's 9216-float union, 8704 floats a weight tile and
-#: 256 norms and sums.
+#: 256 norms and sums (two tiles for K14's term groups, one for K15).
 WIDE_SMEM = {"fused_phi_counts_square": 4 * (2 * 4224 + 32),
              "fused_phi_terms_square": 4 * (2 * 4224 + 32),
              "fused_phi_counts_sym": 4 * (9216 + 8704 + 256),
              "fused_phi_counts_sym_chunk": 4 * (9216 + 8704 + 256),
              "fused_phi_terms_sym": 4 * (9216 + 2 * 8704 + 256),
-             "fused_phi_terms_sym_chunk": 4 * (9216 + 2 * 8704 + 256)}
+             "fused_phi_terms_sym_chunk": 4 * (9216 + 2 * 8704 + 256),
+             "fused_phi_aniso_terms_wide": 4 * (9216 + 2 * 8704 + 256),
+             "phi_rbf_wide": 4 * (9216 + 8704 + 256)}
 
 #: Each wide kernel's ptxas instance names (chip_smoke.ptxas_summary) at
-#: T = 3, MM = 0 being the wide instance.
+#: T = 3, MM = 0 being the wide instance (K14's and K15's wide kernels
+#: have instances of their own).
 WIDE_INSTANCES = {"fused_phi_counts_square": ("counts_square<0,0,3>",),
                   "fused_phi_terms_square": ("terms_square<0,0,3,2>",
                                              "terms_square<0,0,3,0>"),
@@ -932,15 +939,15 @@ WIDE_INSTANCES = {"fused_phi_counts_square": ("counts_square<0,0,3>",),
                   "fused_phi_terms_sym": ("terms_sym<0,0,3,2>",
                                           "terms_sym<0,0,3,0>"),
                   "fused_phi_terms_sym_chunk": ("terms_sym_chunk<0,0,3,2>",
-                                                "terms_sym_chunk<0,0,3,0>")}
+                                                "terms_sym_chunk<0,0,3,0>"),
+                  "fused_phi_aniso_terms_wide": ("aniso_terms_wide<3>",),
+                  "phi_rbf_wide": ("rbf_wide",)}
 
 
 def wide_bounds(kernel, n, m, terms, pairs=None, n_t=None):
     """(FP32 bound, tensor-core bound) of a wide kernel's call, each
     (ms, bound_by); ``n_t``: a square kernel's cross form, n_t targets
     against the n sources."""
-    from svgdcpp_tpu_torch.utils.profiling import tri_tensor_bound
-
     n_iso = len(terms) if terms else 1
     n_terms = len(terms) if terms else None
     fp32 = sweep_bound(kernel, n, m, n_iso=n_iso, pairs=pairs, n_t=n_t)
@@ -952,7 +959,8 @@ def wide_bounds(kernel, n, m, terms, pairs=None, n_t=None):
 def wide_held(label, got, want64, want32):
     """Hold a wide kernel's (phi, counts) to its plain versions' on grid
     inputs: phi finite and within WIDE_PHI_GATE (max relative) of the
-    float64 plain version's, the counts equal to both plain versions'.
+    float64 plain version's, the counts (None for K15, which has none)
+    equal to both plain versions'. ``label`` starts with its phase.
     Returns (max |dphi|, that relative error)."""
     import torch
 
@@ -960,17 +968,18 @@ def wide_held(label, got, want64, want32):
     phi_w, cnt_w = want64
     cnt_32 = want32[1]
     torch.cuda.synchronize()
-    check(bool(phi_k.isfinite().all()), f"phase 43 {label}: non-finite")
+    check(bool(phi_k.isfinite().all()), f"phase {label}: non-finite")
     abs_err = float((phi_k.double() - phi_w).abs().max())
     rel = abs_err / float(phi_w.abs().max())
     check(rel <= WIDE_PHI_GATE,
-          f"phase 43 {label}: phi rel err {rel:.3e} > {WIDE_PHI_GATE}")
-    # Grid inputs: every sq is exact in both forms.
-    d64 = int((cnt_k - cnt_w).abs().max())
-    d32 = int((cnt_k - cnt_32).abs().max())
-    check(d64 == 0 and d32 == 0,
-          f"phase 43 {label}: counts differ from the float64 plain "
-          f"version's by {d64}, the float32 one's by {d32}")
+          f"phase {label}: phi rel err {rel:.3e} > {WIDE_PHI_GATE}")
+    if cnt_k is not None:
+        # Grid inputs: every sq is exact in both forms.
+        d64 = int((cnt_k - cnt_w).abs().max())
+        d32 = int((cnt_k - cnt_32).abs().max())
+        check(d64 == 0 and d32 == 0,
+              f"phase {label}: counts differ from the float64 plain "
+              f"version's by {d64}, the float32 one's by {d32}")
     return abs_err, rel
 
 
@@ -984,7 +993,7 @@ def phase_wide_kernels(dev, card, clock, ptxas):
     errs, times = {}, {}
     for case in wide_cases(dev):
         label, kernel, n, m, terms = case[:5]
-        abs_err, rel = wide_held(label, case.kern(), case.want64(),
+        abs_err, rel = wide_held(f"43a {label}", case.kern(), case.want64(),
                                  case.want32())
         errs[kernel] = max(errs.get(kernel, 0.0), abs_err)
         k_us = kernel_us(case.kern, kernel, calls=5)
@@ -1189,17 +1198,20 @@ def wide_mvn(n, d, seed):
 
 def phase_wide_paths(dev, card, clock):
     """Phase 43c: the slice on auto at a9a's width (d = WIDE_D): the flat
-    BLR at N = WIDE_BLR_N (K1, WIDE_BLR_STEPS steps, then the plain route
-    beside it), the flat and hierarchical BLR at N = WIDE_BIG_N and the
-    hierarchical BLR at N = WIDE_TERMS_SQUARE_N (the square form, K6/K7)
-    against their plain routes, and the sharded engine on a one-rank NCCL
-    group (hier, K10/K11; MVN with fused_sym="full", K4) against the
-    driver, each for COMPARE_STEPS steps within 1e-3. The plain routes run
-    in float64:
-    at these widths the float32 plain route is the farther of the two from
-    it (hier at N = 10,000: 6.06e-3 against the kernel route's 2.12e-4 on
-    an H100, PERF.md), so its distance is printed beside the kernel's.
-    Returns {path: (launch counts, kernel, n, m)}."""
+    BLR at N = WIDE_BLR_N (K1, WIDE_BLR_STEPS steps), the flat and
+    hierarchical BLR at N = WIDE_BIG_N and the hierarchical BLR at
+    N = WIDE_TERMS_SQUARE_N (the square form, K6/K7), and the sharded
+    engine on a one-rank NCCL group (hier, K10/K11; MVN with
+    fused_sym="full", K4) against the driver for COMPARE_STEPS steps within
+    1e-3. Each BLR kernel route is gated per call: the float64 run of its
+    route (its sweeps in their float64 plain versions, recorded_run) for
+    COMPARE_STEPS steps, each of those sweep calls replayed in float32
+    through the kernel (replay_gate). The COMPARE_STEPS-step trajectories'
+    distances from that float64 run, the kernel route's and the float32
+    plain route's, are printed readings: a 20-step Adam trajectory moves
+    with the seed where a coordinate's phi is near 1e-7 (hier seeds 0-2:
+    2.35e-4, 4.79e-4 and 2.00e-3 on an H100, PERF.md). Returns {path:
+    (launch counts, kernel, n, m)}."""
     import torch
 
     from svgdcpp_tpu_torch.ops import cuda_phi
@@ -1229,14 +1241,26 @@ def phase_wide_paths(dev, card, clock):
               f"phase 43c {label}: coords differ by {diff:.3e}")
         return diff
 
-    def plain_routes(x0, feats, labels, hier, impl):
-        """The float64 plain route's coordinates after COMPARE_STEPS steps
-        and the float32 plain route's distance from them."""
-        runs = [build_blr_svgd(torch.tensor(x0, dtype=dt, device=dev), feats,
-                               labels, hierarchical=hier, phi_impl=impl,
-                               num_iterations=COMPARE_STEPS).run().double()
-                for dt in (torch.float64, torch.float32)]
-        return runs[0], float((runs[1] - runs[0]).abs().max())
+    def replayed(label, x0, feats, labels, hier, kernel_impl, plain_impl):
+        """The kernel route's float64 run (COMPARE_STEPS steps), its sweep
+        calls replayed in float32 through the kernel and gated per call,
+        and the float32 plain route's distance from that run: (float64
+        coordinates, max phi_rel, max count_diff, float32 plain distance)."""
+        wrapper = ("phi_rbf_terms_fused_cuda" if hier
+                   else "phi_rbf_fused_cuda")
+
+        def build(dt, impl):
+            return build_blr_svgd(torch.tensor(x0, dtype=dt, device=dev),
+                                  feats, labels, hierarchical=hier,
+                                  phi_impl=impl,
+                                  num_iterations=COMPARE_STEPS)
+        final64, calls = recorded_run(
+            lambda: build(torch.float64, kernel_impl), wrapper,
+            COMPARE_STEPS)
+        rel, dcnt = replay_gate(f"phase 43c {label}", wrapper, calls)
+        plain32 = build(torch.float32, plain_impl).run().double()
+        return (final64, rel, dcnt,
+                float((plain32 - final64).abs().max()))
 
     d = WIDE_D
     feats, labels, x0 = blr_workload(WIDE_BLR_N, d)
@@ -1252,13 +1276,17 @@ def phase_wide_paths(dev, card, clock):
     kernel_run = build_blr_svgd(torch.tensor(x0, device=dev), feats, labels,
                                 phi_impl="fused_cuda",
                                 num_iterations=COMPARE_STEPS).run().double()
-    plain64, plain32 = plain_routes(x0, feats, labels, False, "fused")
-    diff = against("flat BLR N=1000", kernel_run, plain64)
+    plain64, rel, dcnt, plain32 = replayed(
+        f"flat BLR N={WIDE_BLR_N}", x0, feats, labels, False, "fused_cuda",
+        "fused")
+    diff = float((kernel_run - plain64).abs().max())
     print(f"phase 43c flat BLR N={WIDE_BLR_N} d={d} {WIDE_BLR_STEPS} iters "
           f"auto: ok route=fused_cuda launches={json.dumps(counts)} "
-          f"train_accuracy={acc:.4f} s={sec:.2f}; vs float64 fused "
-          f"{COMPARE_STEPS} steps coords_max_abs_diff={diff:.3e} (float32 "
-          f"fused {plain32:.3e}) {clock()}")
+          f"train_accuracy={acc:.4f} s={sec:.2f}; per-call replay of the "
+          f"float64 run's {COMPARE_STEPS} sweeps: max phi_rel={rel:.3e} "
+          f"(gate {WIDE_PHI_GATE}) max count_diff={dcnt}; not gated: "
+          f"{COMPARE_STEPS} steps coords_max_abs_diff from float64="
+          f"{diff:.3e} (float32 fused {plain32:.3e}) {clock()}")
     out["flat_blr"] = (counts, cuda_phi.SQUARE_KERNEL, WIDE_BLR_N, d)
 
     for hier, n in ((False, WIDE_BIG_N), (True, WIDE_BIG_N),
@@ -1280,15 +1308,20 @@ def phase_wide_paths(dev, card, clock):
               f"{svgd._phi_impl!r}, form {svgd.fused_sym_form!r}")
         require_only(counts, kernel, COMPARE_STEPS,
                      f"phase 43c BLR hier={hier} N={n}")
-        plain64, plain32 = plain_routes(x0, feats, labels, hier, plain_impl)
-        diff = against(f"BLR hier={hier} N={n}", final, plain64)
+        plain64, rel, dcnt, plain32 = replayed(
+            f"BLR hier={hier} N={n}", x0, feats, labels, hier, kernel_impl,
+            plain_impl)
+        diff = float((final - plain64).abs().max())
         name = (("hier" if n == WIDE_BIG_N else "hier_small") if hier
                 else "flat_blr_big")
         print(f"phase 43c {name} N={n} m={m} auto: ok "
               f"route={kernel_impl} form={form} kernel={kernel} launches="
-              f"{json.dumps(counts)} s={sec:.2f}; vs float64 {plain_impl} "
-              f"{COMPARE_STEPS} steps coords_max_abs_diff={diff:.3e} "
-              f"(float32 {plain_impl} {plain32:.3e}) {clock()}")
+              f"{json.dumps(counts)} s={sec:.2f}; per-call replay of the "
+              f"float64 run's {COMPARE_STEPS} sweeps: max phi_rel={rel:.3e} "
+              f"(gate {WIDE_PHI_GATE}) max count_diff={dcnt}; not gated: "
+              f"{COMPARE_STEPS} steps coords_max_abs_diff from float64 "
+              f"{kernel_impl}={diff:.3e} (float32 {plain_impl} "
+              f"{plain32:.3e}) {clock()}")
         out[name] = (counts, kernel, n, m)
         if name == "hier":
             x0_hier, feats_h, labels_h, driver_hier = x0, feats, labels, final
@@ -1320,6 +1353,382 @@ def phase_wide_paths(dev, card, clock):
               f"{clock()}")
         out[name] = (counts, kernel, WIDE_BIG_N, x0.shape[1])
     torch.distributed.destroy_process_group()
+    return out
+
+
+#: Phase 44: K14 and K15 past m = 64. 44a: K14's wide term groups
+#: (WIDE_P_TERMS: isotropic and anisotropic signs) and K15's wide sweep
+#: (WIDE_P_FORMS) at every width of WIDE_MS on WIDE_P_N particles of grid
+#: inputs (m = 123 also at +100), each P scaled by 1/m so that every term
+#: is alive; 44b: both at the paths' shape (WIDE_P_BIG_N, WIDE_D); 44c:
+#: the anisotropic MVN on auto for WIDE_P_STEPS steps and phase 18's
+#: HESSIAN target on 'cuda' for WIDE_P_HESS_STEPS, at d = WIDE_D and
+#: N = WIDE_P_BIG_N, each route gated per call (replay_gate).
+WIDE_P_N, WIDE_P_BIG_N = 4096, 10240
+WIDE_P_STEPS, WIDE_P_HESS_STEPS = 20, 5
+WIDE_P_TERMS = {"iso+1": ((1.0,), (1.0,)), "iso+2": ((1.0,), (1.0, -0.5)),
+                "0+1": ((), (1.0,))}
+WIDE_P_FORMS = ("pd", "indefinite", "gamma_i")
+#: replay_gate's least count slack: one pair on the other side of a
+#: threshold in both orders, twice over (as tests/test_torch_wide.py's
+#: COUNT_SLACK).
+REPLAY_COUNT_SLACK = 4
+
+
+
+def to32(value):
+    """A float tensor (or a list or tuple of them) in float32; anything
+    else as it is."""
+    import torch
+
+    if isinstance(value, torch.Tensor) and value.is_floating_point():
+        return value.to(torch.float32)
+    if isinstance(value, (list, tuple)):
+        return type(value)(to32(v) for v in value)
+    return value
+
+
+def f64_sweep(name):
+    """The float64 plain version of the driver's kernel wrapper ``name``
+    (ops/cuda_phi), under the wrapper's signature: what the kernel route
+    computes, in float64 on the card."""
+    from svgdcpp_tpu_torch.ops import phi as ph
+
+    if name == "phi_rbf_fused_cuda":
+        return lambda c, s, g, thr, sym=None: ph.phi_rbf_fused_counts(
+            c, s, g, thr)
+    if name == "phi_rbf_terms_fused_cuda":
+        return lambda c, s, gs, signs, thr, sym=None: (
+            ph.phi_rbf_terms_fused_counts(c, s, gs, signs, thr))
+    if name == "phi_rbf_aniso_terms_fused_cuda":
+        return lambda c, s, ig, isg, ps, asg, thr, lowers=None: (
+            ph.phi_rbf_aniso_terms_fused_counts(c, s, ig, isg, ps, asg, thr,
+                                                lowers=lowers))
+    if name == "phi_rbf_cuda":
+        def fixed_p(c, s, p, psd=True, eig=None):
+            if eig is None:
+                half = 0.5 * (p + p.T).double()
+            else:
+                lam, v = (t.double() for t in eig)
+                half = (v * lam) @ v.T
+            return ph.phi_rbf_gram(c, s, half, psd=psd)
+        return fixed_p
+    raise ValueError(name)
+
+
+def recorded_run(build, wrapper, steps):
+    """Run the float64 driver ``build()`` (of ``steps`` steps) with the
+    driver's kernel wrapper ``wrapper`` (its name in svgdcpp_tpu_torch.svgd)
+    replaced by its float64 plain version (f64_sweep), and return (the
+    final coordinates, every call as (args, kwargs, output)): the float64
+    run's own sweep calls."""
+    import torch
+
+    import svgdcpp_tpu_torch.svgd as driver_module
+
+    real, plain = getattr(driver_module, wrapper), f64_sweep(wrapper)
+    calls = []
+
+    def recorder(*args, **kwargs):
+        out = plain(*args, **kwargs)
+        calls.append((args, kwargs, out))
+        return out
+
+    setattr(driver_module, wrapper, recorder)
+    try:
+        final = build().run().double()
+        torch.cuda.synchronize()
+    finally:
+        setattr(driver_module, wrapper, real)
+    check(len(calls) == steps, f"{wrapper}: {len(calls)} recorded sweeps "
+                               f"in {steps} steps")
+    return final, calls
+
+
+def replay_gate(label, wrapper, calls):
+    """Hold the kernel route per call: each recorded float64 sweep call
+    (recorded_run) replayed in float32 through the kernel wrapper
+    ``wrapper`` (ops/cuda_phi; the Cholesky factors and decompositions the
+    driver keeps stay in float64, as the float32 driver passes them). phi
+    must be finite and within WIDE_PHI_GATE of max |phi| of the float64
+    call, the counts within REPLAY_COUNT_SLACK or 1e-6 n^2 of its counts,
+    the larger (continuous inputs: a pair within rounding of a threshold
+    may go either way, in both orders). Returns the largest relative phi
+    error and count difference over the calls."""
+    import torch
+
+    from svgdcpp_tpu_torch.ops import cuda_phi
+
+    kernel = getattr(cuda_phi, wrapper)
+    worst_rel, worst_cnt = 0.0, 0
+    for idx, (args, kwargs, out) in enumerate(calls):
+        kw32 = {k: (v if k in ("lowers", "eig") else to32(v))
+                for k, v in kwargs.items()}
+        got = kernel(*to32(tuple(args)), **kw32)
+        phi64, cnt64 = out if isinstance(out, tuple) else (out, None)
+        phi = got[0] if isinstance(got, tuple) else got
+        torch.cuda.synchronize()
+        rel = float((phi.double() - phi64).abs().max()) / float(
+            phi64.abs().max())
+        check(bool(phi.isfinite().all()) and rel <= WIDE_PHI_GATE,
+              f"{label} call {idx}: phi rel err {rel:.3e} > {WIDE_PHI_GATE}")
+        worst_rel = max(worst_rel, rel)
+        if cnt64 is not None:
+            n = phi.shape[0]
+            bound = max(REPLAY_COUNT_SLACK, 1e-6 * n * n)
+            dcnt = int((got[1] - cnt64).abs().max())
+            check(dcnt <= bound, f"{label} call {idx}: counts differ by "
+                                 f"{dcnt} > {bound:g}")
+            worst_cnt = max(worst_cnt, dcnt)
+    return worst_rel, worst_cnt
+
+
+def wide_p_ps(kind, m, count, seed, g, device):
+    """``count`` (m, m) precisions for phase 44: "pd" (0.5 I + A A^T/m)/m,
+    "indefinite" (diag(1 .. -0.3) + 0.05 A)/m, "gamma_i" the median gamma
+    g times I; A ~ N(0, 1) from a numpy seed."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(count):
+        a = rng.normal(size=(m, m))
+        if kind == "pd":
+            pm = (0.5 * np.eye(m) + a @ a.T / m) / m
+        elif kind == "indefinite":
+            pm = (np.diag(np.linspace(1.0, -0.3, m)) + 0.05 * a) / m
+        else:
+            pm = float(g) * np.eye(m)
+        out.append(torch.tensor(pm, dtype=torch.float32, device=device))
+    return out
+
+
+def wide_p_call(kernel, x, s, g, thr, spec):
+    """(the kernel's call, its float64 plain call, its float32 plain call)
+    of a phase 44 case: K14's wide groups with WIDE_P_TERMS[spec] (P as
+    wide_p_ps's "pd"), or K15's wide sweep with the precision ``spec``
+    ((kind, P)); each returns (phi, counts or None)."""
+    import torch
+
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import (
+        phi_rbf_aniso_terms_fused_counts,
+        phi_rbf_blocked,
+    )
+
+    if kernel == cuda_phi.ANISO_WIDE_KERNEL:
+        iso_s, an_s = WIDE_P_TERMS[spec]
+        iso_g = [g, 2.0 * g][:len(iso_s)]
+        ps = wide_p_ps("pd", x.shape[1], len(an_s), 445, g, x.device)
+
+        def plain(dt):
+            return lambda: phi_rbf_aniso_terms_fused_counts(
+                x.to(dt), s.to(dt), [v.to(dt) for v in iso_g], iso_s,
+                [p.to(dt) for p in ps], an_s, thr.to(dt))
+        return (lambda: cuda_phi.phi_rbf_aniso_terms_fused_cuda(
+            x, s, iso_g, iso_s, ps, an_s, thr),
+            plain(torch.float64), plain(x.dtype))
+    kind, p = spec
+    psd = kind != "indefinite"
+    eig = None
+    if kind == "gamma_i":  # as the driver hands a median's gamma I
+        eig = (p.diagonal(), torch.eye(p.shape[0], device=p.device))
+
+    def plain(dt):
+        return lambda: (phi_rbf_blocked(x.to(dt), s.to(dt), p.to(dt),
+                                        psd=psd), None)
+    return (lambda: (cuda_phi.phi_rbf_cuda(x, s, p, psd=psd, eig=eig), None),
+            plain(torch.float64), plain(x.dtype))
+
+
+def wide_p_bounds(kernel, n, m, spec):
+    """(FP32 bound, tensor-core bound) of a phase 44 call, each
+    (ms, bound_by)."""
+    from svgdcpp_tpu_torch.ops import cuda_phi
+
+    if kernel == cuda_phi.ANISO_WIDE_KERNEL:
+        iso_s, an_s = WIDE_P_TERMS[spec]
+        return (sweep_bound(kernel, n, m, n_iso=len(iso_s),
+                            n_aniso=len(an_s)),
+                tri_tensor_bound(n, m, n_terms=len(iso_s),
+                                 n_aniso=len(an_s)))
+    return sweep_bound(kernel, n, m), tri_tensor_bound(n, m, fixed_p=True)
+
+
+def wide_p_cases(dev):
+    """Phase 44a's cases: (label, kernel, n, m, spec, x, s, g, thr)."""
+    from svgdcpp_tpu_torch.ops import cuda_phi
+
+    cases = []
+    for idx, m in enumerate(WIDE_MS):
+        for off in ((0.0, 100.0) if m == 123 else (0.0,)):
+            n = WIDE_P_N
+            x, s, g, thr = grid_inputs(n, m, off, 440 + idx, dev)
+            for terms in WIDE_P_TERMS:
+                cases.append((f"K14 wide ({n}, {m}) offset={off} {terms}",
+                              cuda_phi.ANISO_WIDE_KERNEL, n, m, terms, x, s,
+                              g, thr))
+            for kind in WIDE_P_FORMS:
+                p = wide_p_ps(kind, m, 1, 446, g, dev)[0]
+                cases.append((f"K15 wide ({n}, {m}) offset={off} {kind}",
+                              cuda_phi.PHI_RBF_WIDE_KERNEL, n, m, (kind, p),
+                              x, s, g, thr))
+    return cases
+
+
+def phase_wide_p_kernels(dev, card, clock, ptxas):
+    """Phase 44a: the wide K14 groups and the wide K15 against their
+    float64 plain versions at m > 64 on grid inputs (wide_held), with
+    kernel us (profiler), wrapper ms, FP32 and tensor-core bounds,
+    registers, spills and shared memory. Returns {kernel: max |dphi|}."""
+    errs = {}
+    for label, kernel, n, m, spec, x, s, g, thr in wide_p_cases(dev):
+        kern, want64, want32 = wide_p_call(kernel, x, s, g, thr, spec)
+        abs_err, rel = wide_held(f"44a {label}", kern(), want64(), want32())
+        errs[kernel] = max(errs.get(kernel, 0.0), abs_err)
+        k_us = kernel_us(kern, kernel, calls=5)
+        wrapper = time_ms(kern, reps=10, warmup=2)
+        (fp_ms, fp_by), (tc_ms, tc_by) = wide_p_bounds(kernel, n, m, spec)
+        regs = {inst: ptxas.get(inst, "?")
+                for inst in WIDE_INSTANCES[kernel]}
+        print(f"phase 44a {label}: ok phi_rel={rel:.3e}"
+              f"{' count_diff=0' if kernel.startswith('fused') else ''} "
+              f"kernel_us={k_us} wrapper_ms={wrapper:.4f} "
+              f"bound_fp32_ms={fp_ms:.6g} ({fp_by}) bound_tensor_ms="
+              f"{tc_ms:.6g} ({tc_by}) ptxas={json.dumps(regs)} "
+              f"smem_bytes={WIDE_SMEM[kernel]} {card} {clock()}")
+    return errs
+
+
+def phase_wide_p_shapes(dev, card, clock, plain_ms, errs):
+    """Phase 44b: both wide kernels at the paths' shape (WIDE_P_BIG_N,
+    WIDE_D) on grid inputs, held as in 44a (their max |dphi| into
+    ``errs``): K14 with the anisotropic MVN's terms (iso + 1), beside the
+    'rbf_terms' route's sweep (ops/phi.phi_rbf_terms) on the same inputs,
+    and K15 with an indefinite P (psd=False, the HESSIAN route's flag).
+    Returns {kernel: {"kernel": ms, "plain": ms, "kernel_us": us, ...}}."""
+    import torch
+
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import phi_rbf_terms
+
+    n, m = WIDE_P_BIG_N, WIDE_D
+    x, s, g, thr = grid_inputs(n, m, 0.0, 449, dev)
+    out = {}
+    for kernel, spec in ((cuda_phi.ANISO_WIDE_KERNEL, "iso+1"),
+                         (cuda_phi.PHI_RBF_WIDE_KERNEL,
+                          ("indefinite",
+                           wide_p_ps("indefinite", m, 1, 448, g, dev)[0]))):
+        kern, want64, want32 = wide_p_call(kernel, x, s, g, thr, spec)
+        abs_err, rel = wide_held(f"44b {kernel} ({n}, {m})", kern(),
+                                   want64(), want32())
+        errs[kernel] = max(errs.get(kernel, 0.0), abs_err)
+        t = {"kernel": time_ms(kern, reps=20, warmup=3),
+             "kernel_us": kernel_us(kern, kernel, calls=5),
+             "plain": plain_ms(want32)}
+        (fp_ms, fp_by), (tc_ms, tc_by) = wide_p_bounds(kernel, n, m, spec)
+        extra = ""
+        if kernel == cuda_phi.ANISO_WIDE_KERNEL:
+            # The rbf_terms route's sweep over the same two terms, the
+            # median RBF (gamma I) + RBF(P): the flattened terms of slots 0
+            # and 1 (kernels/algebra.flatten_rbf_terms), each positive.
+            p = wide_p_ps("pd", m, 1, 445, g, dev)[0]
+            terms = [(1, ((0, 1),)), (1, ((1, 1),))]
+            kparams = (g * torch.eye(m, device=dev), p)
+            t["rbf_terms"] = plain_ms(lambda: phi_rbf_terms(
+                x, s, kparams, terms, 1024, psd_flags=[True, True]))
+            extra = f" rbf_terms_ms={t['rbf_terms']:.4f}"
+        out[kernel] = t
+        what = spec if isinstance(spec, str) else spec[0]
+        print(f"phase 44b {kernel} ({n}, {m}) {what}: ok "
+              f"phi_rel={rel:.3e} wrapper_ms={t['kernel']:.4f} kernel_us="
+              f"{t['kernel_us']} plain_ms={t['plain']:.4f}{extra} "
+              f"bound_fp32_ms={fp_ms:.6g} ({fp_by}) bound_tensor_ms="
+              f"{tc_ms:.6g} ({tc_by}) {card} {clock()}")
+    return out
+
+
+def mean_pair_weight(coords, p_matrix, rows=2048):
+    """The mean of exp(-d^T P d) over the pairs of the first ``rows``
+    particles with every particle, in float64: near 0 where the term is
+    dead at these coordinates."""
+    import torch
+
+    x = coords.double()
+    half = 0.5 * (p_matrix + p_matrix.T).double()
+    y = x @ half
+    q = (x * y).sum(dim=1)
+    form = q[:rows, None] + q[None, :] - 2.0 * x[:rows] @ y.T
+    return float(torch.exp(-form.clamp_min(0.0)).mean())
+
+
+def phase_wide_p_paths(dev, card, clock):
+    """Phase 44c: the slice on the card at d = WIDE_D, N = WIDE_P_BIG_N.
+    The anisotropic MVN (aniso_mvn_workload(..., dim=WIDE_D)) on auto for
+    WIDE_P_STEPS steps, which must route to fused_aniso_terms_cuda and
+    launch K14's wide instance only; phase 18's HESSIAN target on 'cuda'
+    for WIDE_P_HESS_STEPS steps, K15's wide instance only (no sym_eigen).
+    Each route is gated per call (replay_gate on the float64 run's own
+    sweep calls); the float32 run's distance from the float64 one after
+    its steps is a printed reading, as is the mean kernel weight a pair of
+    each anisotropic term (mean_pair_weight), where a dead term shows.
+    Returns {path: (launch counts, kernel, n, m)}."""
+    import torch
+
+    import svgdcpp_tpu_torch as st
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.utils.workloads import (
+        aniso_mvn_workload,
+        build_aniso_svgd,
+    )
+
+    n, d = WIDE_P_BIG_N, WIDE_D
+    mean, cov, x0, p_aniso = aniso_mvn_workload(n, dim=d)
+    out = {}
+    for name, impl, scale, steps, wrapper, kernel in (
+            ("aniso", "auto", None, WIDE_P_STEPS,
+             "phi_rbf_aniso_terms_fused_cuda", cuda_phi.ANISO_WIDE_KERNEL),
+            ("hessian", "cuda", st.ScaleMethod.HESSIAN, WIDE_P_HESS_STEPS,
+             "phi_rbf_cuda", cuda_phi.PHI_RBF_WIDE_KERNEL)):
+        def build(dtype, impl=impl, scale=scale, steps=steps):
+            return build_aniso_svgd(
+                torch.tensor(x0, dtype=dtype, device=dev), mean, cov,
+                p_aniso, phi_impl=impl, num_iterations=steps,
+                kernel_scale=scale)
+        cuda_phi.reset_launch_counts()
+        t0 = time.perf_counter()
+        svgd = build(torch.float32)
+        final = svgd.run().double()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        counts = dict(cuda_phi.launch_counts)
+        route = "fused_aniso_terms_cuda" if name == "aniso" else "cuda"
+        check(svgd._phi_impl == route,
+              f"phase 44c {name}: routed to {svgd._phi_impl!r}")
+        check(bool(final.isfinite().all()) and tuple(final.shape) == (n, d),
+              f"phase 44c {name}: bad output")
+        require_only(counts, kernel, steps, f"phase 44c {name}")
+        final64, calls = recorded_run(
+            lambda: build(torch.float64, impl=route), wrapper, steps)
+        rel, dcnt = replay_gate(f"phase 44c {name}", wrapper, calls)
+        if name == "aniso":
+            p = torch.tensor(p_aniso, dtype=torch.float64, device=dev)
+            weights = {"start": mean_pair_weight(torch.tensor(
+                x0, device=dev), p), "end": mean_pair_weight(final, p)}
+        else:
+            p = svgd.kernel.parameters[0]
+            weights = {"end": mean_pair_weight(final, p)}
+        print(f"phase 44c {name} N={n} d={d} {impl} {steps} steps: ok "
+              f"route={route} kernel={kernel} launches={json.dumps(counts)} "
+              f"s={sec:.2f}; per-call replay of the float64 run's "
+              f"{len(calls)} sweeps in float32: max phi_rel={rel:.3e} "
+              f"(gate {WIDE_PHI_GATE}) max count_diff={dcnt}; not gated: "
+              f"{steps}-step coords_max_abs_diff from float64="
+              f"{float((final - final64).abs().max()):.3e}, mean "
+              f"anisotropic kernel weight a pair={json.dumps(weights)} "
+              f"{card} {clock()}")
+        out[name] = (counts, kernel, n, d)
     return out
 
 
@@ -4061,6 +4470,11 @@ def main() -> int:
     times43 = phase_wide_rule(dev, card, clock, plain_ms, wide_errs)
     main43 = phase_wide_paths(dev, card, clock)
 
+    # -- phase 44: K14 and K15 past m = 64 ------------------------------------
+    wide_p_errs = phase_wide_p_kernels(dev, card, clock, ptxas)
+    times44 = phase_wide_p_shapes(dev, card, clock, plain_ms, wide_p_errs)
+    main44 = phase_wide_p_paths(dev, card, clock)
+
     def main_path(phase, kernel, n, m, launches, times, **work):
         bound_ms, bound_by = sweep_bound(kernel, n, m, **work)
         path = {"phase": phase, "n": n, "m": m, "launches": launches,
@@ -4202,6 +4616,24 @@ def main() -> int:
                   f"two terms: bound_ms={path['bound_ms']:.6g} "
                   f"({path['bound_by']}, FP32), on the TF32 tensor cores "
                   f"{tensor_ms:.6g} ({tensor_by})")
+    # Phase 44's paths: K14's wide groups (the anisotropic MVN, iso + 1
+    # anisotropic term) and K15's wide sweep (HESSIAN) at (10240, 123),
+    # timed in phase 44b; their tensor-core bounds beside the FP32 ones.
+    k14w, k15w = cuda_phi.ANISO_WIDE_KERNEL, cuda_phi.PHI_RBF_WIDE_KERNEL
+    for name, (counts, kernel, n44, m44) in main44.items():
+        work = {"n_iso": 1, "n_aniso": 1} if kernel == k14w else {}
+        path = main_path(44, kernel, n44, m44, counts[kernel],
+                         times44[kernel], **work)
+        path["kernel_us"] = times44[kernel]["kernel_us"]
+        if kernel == k14w:
+            path["rbf_terms_ms"] = times44[kernel]["rbf_terms"]
+            tensor = tri_tensor_bound(n44, m44, n_terms=1, n_aniso=1)
+        else:
+            tensor = tri_tensor_bound(n44, m44, fixed_p=True)
+        paths[kernel] = [path]
+        print(f"{kernel} phase 44 {name} n={n44} m={m44}: bound_ms="
+              f"{path['bound_ms']:.6g} ({path['bound_by']}, FP32), on the "
+              f"TF32 tensor cores {tensor[0]:.6g} ({tensor[1]})")
     # The decomposition beside K15 on the HESSIAN path, one launch a step.
     eig_bound = eigen_bound(11)
     paths[eig] = [{"phase": 18, "n": 10240, "m": 11,
@@ -4240,6 +4672,11 @@ def main() -> int:
         entry(aniso, "fused_phi_aniso.cu", f"{pallas}:3205", ["K14"],
               aniso_err),
         entry(k15, "phi_rbf.cu", f"{pallas}:116", ["K15"], k15_err),
+        # The wide instances past m = 64 (phase 44), on wide_tri.cuh's body.
+        entry(k14w, "fused_phi_aniso.cu", f"{pallas}:3205", ["K14"],
+              wide_p_errs[k14w]),
+        entry(k15w, "phi_rbf.cu", f"{pallas}:116", ["K15"],
+              wide_p_errs[k15w]),
         # No TPU kernel of its own: K15's wrapper needs the decomposition
         # that _phi_rbf_pallas_impl's Gram form does without; the library
         # call is torch.linalg.eigh on the card.

@@ -107,6 +107,20 @@
 // a thread has at n_w = 8 and m = 11. The cost is that the KS contraction
 // runs once per group instead of once per pair.
 //
+// Past m = 64 (kMaxM), where terms_sym.cuh's rows would spill, the term
+// groups take the wide kernel fused_phi_aniso_terms_wide_kernel: the same
+// groups along the grid's y, the same operands and the same
+// (1 + n_aniso, 2m, n) accumulator and upper counts, on wide_tri.cuh's
+// tensor-core body (tiles of 64 particles, the Gram tile and both
+// contractions in 3xTF32, the weights once a pair into shared memory, two
+// weight tiles, 107.5 KB of dynamic shared memory, one block an SM). Each
+// group sweeps the triangle of its own rows with its own terms in shared
+// memory (AnyTerms): group 0 the isotropic terms on x, which also counts
+// the Euclidean sq (with no isotropic term it only counts: the contraction
+// is left out); group 1 + t one term of gamma 1 and sign s_t on z_t, with
+// T = 0 (no counts). The self pair enters both directions, as in the
+// narrower groups, so the wrapper's epilogue is the same.
+//
 // The iso gammas and the thresholds are read from device memory (the host
 // never reads them); the signs are static and arrive by value. The kernels
 // allocate nothing. The entry points return cudaGetLastError() after the
@@ -115,6 +129,7 @@
 // The kGroups instances of terms_sym.cuh's sweep, under their own name.
 #define SVGD_TERMS_SYM_KERNEL fused_phi_aniso_terms_groups_kernel
 #include "terms_sym.cuh"
+#include "wide_tri.cuh"
 
 namespace {
 
@@ -378,6 +393,66 @@ int launch_one_pass(const float* coords, const float* scores,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The term groups past kMaxM (see the top of the file): group blockIdx.y,
+// tile pair blockIdx.x of the upper triangle of tiles of kWideTile.
+template <int kT>
+__global__ void __launch_bounds__(kWideTriThreads)
+    fused_phi_aniso_terms_wide_kernel(
+        const float* __restrict__ coords, const float* __restrict__ z,
+        const float* __restrict__ scores, const float* __restrict__ gammas,
+        TermSigns iso_signs, int n_iso, AnisoSigns aniso_signs,
+        const float* __restrict__ thr, int n, int m, int T, int nb,
+        float* __restrict__ acc, unsigned long long* __restrict__ counts) {
+  __shared__ float sh_g2[kMaxTerms];
+  __shared__ float sh_sn[kMaxTerms];
+  __shared__ float sh_sg[kMaxTerms];
+  const int group = static_cast<int>(blockIdx.y);
+  const bool euclid = group == 0;
+  // The body's first barrier comes before its first pair.
+  if (euclid) {
+    load_terms(gammas, iso_signs, n_iso, sh_g2, sh_sn, sh_sg);
+  } else if (threadIdx.x == 0) {
+    const float sign = aniso_signs.s[group - 1];
+    sh_g2[0] = -kLog2e;
+    sh_sn[0] = sign;
+    sh_sg[0] = sign;
+  }
+  const float* rows =
+      euclid ? coords : z + static_cast<size_t>(group - 1) * n * m;
+  WideForm form;
+  form.phi = !euclid || n_iso > 0;
+  wide_tri_body<kT>(rows, scores,
+                    AnyTerms{sh_g2, sh_sn, sh_sg, euclid ? n_iso : 1}, thr, n,
+                    m, euclid ? T : 0, nb, 0LL,
+                    acc + static_cast<size_t>(group) * 2 * m * n, counts,
+                    form);
+}
+
+// The wide launch: one block per tile pair and group, kT = 3 or kMaxT.
+int launch_aniso_wide(const float* coords, const float* z,
+                      const float* scores, const float* gammas,
+                      const TermSigns& si, int n_iso, const AnisoSigns& sa,
+                      int n_aniso, const float* thr, int n, int m, int T,
+                      float* acc, unsigned long long* c, cudaStream_t s) {
+  const long long pairs = upper_pairs(n, kWideTile);
+  if (pairs < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned int>(pairs), 1 + n_aniso);
+  const int nb = (n + kWideTile - 1) / kWideTile;
+  const size_t smem = WideTri::smem_bytes(2);
+  auto go = [&](auto* kernel) {
+    wide_tri_prepare(kernel, 2);
+    kernel<<<grid, kWideTriThreads, smem, s>>>(coords, z, scores, gammas, si,
+                                               n_iso, sa, thr, n, m, T, nb,
+                                               acc, c);
+  };
+  if (T == 3) {
+    go(&fused_phi_aniso_terms_wide_kernel<3>);
+  } else {
+    go(&fused_phi_aniso_terms_wide_kernel<kMaxT>);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -422,8 +497,8 @@ int svgd_fused_phi_aniso_terms_sym(const float* coords, const float* scores,
 // iso_signs (n_iso,) and aniso_signs (n_aniso,) HOST arrays, passed by value
 // to the kernel; acc a zeroed (1 + n_aniso, 2m, n) float32 buffer, group g's
 // [KS_g | D_g]; counts a zeroed int64 (T,) buffer that receives the upper
-// count U of the Euclidean distances (diagonal included). 1 <= m <= 64,
-// 0 <= n_iso <= 16, 1 <= n_aniso <= 8, 1 <= T <= 8.
+// count U of the Euclidean distances (diagonal included). m >= 1 (the
+// wide kernel past 64), 0 <= n_iso <= 16, 1 <= n_aniso <= 8, 1 <= T <= 8.
 int svgd_fused_phi_aniso_terms_groups(const float* coords, const float* z,
                                       const float* scores,
                                       const float* gammas,
@@ -441,6 +516,10 @@ int svgd_fused_phi_aniso_terms_groups(const float* coords, const float* z,
   for (int t = 0; t < n_aniso; ++t) sa.s[t] = aniso_signs[t];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* c = reinterpret_cast<unsigned long long*>(counts);
+  if (m > kMaxM) {
+    return launch_aniso_wide(coords, z, scores, gammas, si, n_iso, sa,
+                             n_aniso, thr, n, m, T, acc, c, s);
+  }
 #define SVGD_LAUNCH_ANISO(MM_, EX_)                                        \
   {                                                                        \
     constexpr int tile = SymTermsTile<MM_>::value;                         \

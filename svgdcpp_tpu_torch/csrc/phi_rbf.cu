@@ -69,10 +69,28 @@
 // sources are split into chunks of whole tiles over the grid's second
 // dimension, about kTargetBlocks blocks in all; each block adds its
 // partial sums into a zeroed (2m, n) buffer [KS | D_z] with float32
-// atomics (neighbouring threads, neighbouring particles). The entry points
-// return cudaGetLastError() after their launches.
+// atomics (neighbouring threads, neighbouring particles).
+//
+// Past m = 64 (kMaxM) neither body holds a row in registers without
+// spilling, and the decomposition would not fit one block (its order table
+// alone takes 260 KB at m = 512), so the wide sweep (svgd_phi_rbf_wide)
+// takes P itself, in _phi_kernel's own form: the wrapper forms
+// Y = X_c (P_sym/2) and q_i = x_i . y_i in float64 on the device and casts
+// them to float32 (the product the JAX package forms outside its kernel),
+// and wide_tri.cuh's tensor-core body sweeps the triangle of tiles of 64
+// with the Gram tile G = X_I Y_J^T in 3xTF32 (symmetric in the pair, since
+// P_sym is, so one weight tile serves both directions), sq =
+// q_i + q_j - 2 G clamped at 0 only where psd, the self pair pinned to 0,
+// k = exp(-sq) (above 1 for an indefinite P) and no thresholds; then both
+// contractions W [S | X] into the zeroed (2m, n) accumulator [KS | D],
+// D = sum_j k (x_i - x_j) from the sums as the body forms it. The self
+// pair enters KS in both directions; the wrapper subtracts s_i once and
+// applies 2 D (P_sym/2) in float64. 72.7 KB of dynamic shared memory (one
+// weight tile). The entry points return cudaGetLastError() after their
+// launches.
 
 #include "micro_tile.cuh"
+#include "wide_tri.cuh"
 
 namespace {
 
@@ -170,6 +188,22 @@ __global__ void __launch_bounds__(MicroTri<MM>::kThreads)
   form.qmin = psd ? 0.0f : -INFINITY;
   micro_tri_body<MM, kExact, 0>(z, scores, form, nullptr, n, m, 0, nb, 0LL,
                                 out, nullptr);
+}
+
+// The wide sweep (see the top of the file): tile pair blockIdx.x of the
+// upper triangle of tiles of kWideTile, no counts.
+__global__ void __launch_bounds__(kWideTriThreads)
+    phi_rbf_wide_kernel(const float* __restrict__ coords,
+                        const float* __restrict__ y,
+                        const float* __restrict__ q,
+                        const float* __restrict__ scores, int n, int m,
+                        int psd, int nb, float* __restrict__ out) {
+  WideForm form;
+  form.y = y;
+  form.q = q;
+  form.clamp = psd != 0;
+  wide_tri_body<0>(coords, scores, OneRbf{-kLog2e}, nullptr, n, m, 0, nb,
+                   0LL, out, nullptr, form);
 }
 
 // The Jacobi decomposition of P_sym/2 (see the top of the file).
@@ -342,6 +376,27 @@ int svgd_sym_eigen(const double* p, int m, double* lam, double* v,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// [KS | D] (2m, n) of the wide fixed-P sweep (m > 64 in the port; any
+// m >= 1 here). coords (n, m) the centered x_c, y (n, m) the rows
+// x_c (P_sym/2), q (n,) the norms q_i = x_i . y_i, scores (n, m), all
+// float32 row-major on the device; psd != 0 clamps the form at 0; out a
+// zeroed (2m, n) float32 buffer, KS with each self pair twice.
+int svgd_phi_rbf_wide(const float* coords, const float* y, const float* q,
+                      const float* scores, int n, int m, int psd, float* out,
+                      void* stream) {
+  if (n <= 0 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long pairs = upper_pairs(n, kWideTile);
+  if (pairs < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = (n + kWideTile - 1) / kWideTile;
+  const cudaError_t err = wide_tri_prepare(phi_rbf_wide_kernel, 1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  phi_rbf_wide_kernel<<<static_cast<unsigned int>(pairs), kWideTriThreads,
+                        WideTri::smem_bytes(1),
+                        static_cast<cudaStream_t>(stream)>>>(
+      coords, y, q, scores, n, m, psd, nb, out);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // [KS | D_z] (2m, n) of the fixed-P square sweep. z (n, m) the rows
 // z = X_c V, scores (n, m), lam (m,) the eigenvalues of P_sym/2, all float32

@@ -380,7 +380,9 @@ struct AnyTerms {
   }
 
 // As SVGD_DISPATCH_M with fewer exact instances; an m outside 1..kMaxM
-// returns cudaErrorInvalidValue (ROADMAP item 17b).
+// returns cudaErrorInvalidValue (the panels: ROADMAP item 17b; K14's
+// entry takes its wide kernel past kMaxM before the dispatch, and K15's
+// wide sweep has an entry of its own, svgd_phi_rbf_wide).
 #define SVGD_DISPATCH_M_2_11(m, LAUNCH)                                 \
   switch (m) {                                                          \
     case 2: LAUNCH(2, true); break;                                     \

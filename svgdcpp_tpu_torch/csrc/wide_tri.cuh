@@ -1,10 +1,12 @@
 // The upper-triangle sweep's body past kMaxM (m > 64), shared by the
-// single-RBF triangle kernels (fused_phi.cu: K2's and K4's ports) and the
+// single-RBF triangle kernels (fused_phi.cu: K2's and K4's ports), the
 // terms triangle kernels (fused_phi_terms.cu: K8/K9's and K10/K11's), under
-// their names as the instance MM = kWideMM. The bodies below it hold a row
-// of m coordinates, scores and sums in registers (micro_tile.cuh,
-// counts_sym.cuh, terms_sym.cuh); past m = 64 they would spill, so this one
-// holds nothing sized by m and runs on the tensor cores.
+// their names as the instance MM = kWideMM, and the wide kernels of K14's
+// term groups (fused_phi_aniso.cu) and of K15 (phi_rbf.cu). The bodies
+// below it hold a row of m coordinates, scores and sums in registers
+// (micro_tile.cuh, counts_sym.cuh, terms_sym.cuh); past m = 64 they would
+// spill, so this one holds nothing sized by m and runs on the tensor
+// cores.
 //
 // One block (4 warps) works through one tile pair (I, J), I <= J, of
 // kWideTile = 64 particles a side: tile t0 + blockIdx.x of the linear tile
@@ -15,10 +17,11 @@
 //      of kWideK coordinates, each slice of both tiles staged as TF32 pairs
 //      in shared memory;
 //   2. sq = max(0, |x_i|^2 + |x_j|^2 - 2 G) (the self pair pinned to 0, as
-//      the plain version pins it), the pair's weights and its counts, ONCE
-//      a pair, into shared memory as TF32 pairs: W (k_c) and, for terms, a
-//      second tile (w). On the diagonal tile only j >= i is kept (the self
-//      pair included), the rest gets weight 0 and no count;
+//      the plain version pins it; WideForm below gives K15's form), the
+//      pair's weights and its counts, ONCE a pair, into shared memory as
+//      TF32 pairs: W (k_c) and, for terms, a second tile (w). On the
+//      diagonal tile only j >= i is kept (the self pair included), the rest
+//      gets weight 0 and no count;
 //   3. the row sums of the D weight over J and its column sums over I;
 //   4. both contractions on the tensor cores, 64 columns of the operands
 //      at a time (the scores' columns with k_c, then the coordinates' with
@@ -34,7 +37,8 @@
 // directions (k = 1 exactly: the wrapper subtracts s_i once), D is
 // unscaled for one RBF (the wrapper multiplies it by 2 gamma) and weighted
 // by w for terms, and the counts receive U, the upper count with the
-// diagonal (the wrapper forms 2U - n).
+// diagonal (the wrapper forms 2U - n). kT = 0 (with T = 0) counts nothing;
+// T = 0 with kT > 0 counts nothing either (a term group past K14's first).
 //
 // Shared memory (dynamic): 9216 floats for the Gram slices or the
 // contraction's records, 8704 for each weight tile, 256 for norms and
@@ -68,17 +72,33 @@ struct WideTri {
   }
 };
 
+// The Gram tile's operands and the form of sq. The default is the
+// Euclidean form: G = X_I X_J^T, the norms |x|^2 of the coordinates, sq
+// clamped at 0. K15's fixed-P form (the JAX kernel's, pallas_phi.py:116)
+// pairs X_I with Y_J, the rows of Y = X_c (P_sym/2), so G_ij = x_i^T
+// (P_sym/2) x_j = G_ji and one weight tile serves both directions; its norms
+// are q_i = x_i . y_i, so sq = q_i + q_j - 2 G = d^T P d, clamped only for a
+// P taken as positive semidefinite. The contraction takes the coordinates
+// either way. `phi` false leaves the contraction out (K14's Euclidean group
+// with no isotropic term, which only counts).
+struct WideForm {
+  const float* y = nullptr;  // J's Gram operand (null: the coordinates)
+  const float* q = nullptr;  // the norms (null: |x|^2 of the coordinates)
+  bool clamp = true;         // sq = max(sq, 0)
+  bool phi = true;           // the contraction and its flush
+};
+
 // The body (see the top of the file). kT thresholds (3, or kMaxT for a
-// runtime T); weights(sq, k_c, w) the pair's weights: one tile of them
-// where W is OneRbf (k_c = w), two otherwise. Composed kernels' constants
-// in shared memory (AnyTerms) must be stored before the call: the body's
-// first barrier comes before its first pair.
+// runtime T, or 0 for none); weights(sq, k_c, w) the pair's weights: one
+// tile of them where W is OneRbf (k_c = w), two otherwise. Composed
+// kernels' constants in shared memory (AnyTerms) must be stored before the
+// call: the body's first barrier comes before its first pair.
 template <int kT, class W>
 __device__ __forceinline__ void wide_tri_body(
     const float* __restrict__ coords, const float* __restrict__ scores,
     const W& weights, const float* __restrict__ thr, int n, int m, int T,
     int nb, long long t0, float* __restrict__ acc,
-    unsigned long long* __restrict__ counts) {
+    unsigned long long* __restrict__ counts, const WideForm& form = {}) {
   constexpr int NW = kTwoBands<W> ? 2 : 1;
   constexpr int S = kWideTile;
   extern __shared__ __align__(16) float sh[];
@@ -98,25 +118,34 @@ __device__ __forceinline__ void wide_tri_body(
   const int g = lane >> 2;
   const int t = lane & 3;
 
-  float th[kT];
+  float th[kT > 0 ? kT : 1];
 #pragma unroll
   for (int q = 0; q < kT; ++q) th[q] = thr[q < T ? q : 0];
 
-  // Squared norms of the 64 + 64 particles, 4 threads each.
-  for (int e = tid; e < 2 * S * 4; e += kWideTriThreads) {
-    const int p = e >> 2;
-    const int part = p < S ? i0 + p : j0 + p - S;
-    float q = 0.0f;
-    if (part < n) {
-      for (int k = e & 3; k < m; k += 4) {
-        const float v = coords[static_cast<size_t>(part) * m + k];
-        q = fmaf(v, v, q);
-      }
+  // The norms of the 64 + 64 particles: the caller's, or the squared
+  // norms, 4 threads each.
+  if (form.q != nullptr) {
+    for (int p = tid; p < 2 * S; p += kWideTriThreads) {
+      const int part = p < S ? i0 + p : j0 + p - S;
+      norm[p] = part < n ? form.q[part] : 0.0f;
     }
-    q += __shfl_xor_sync(0xffffffffu, q, 1);
-    q += __shfl_xor_sync(0xffffffffu, q, 2);
-    if ((e & 3) == 0) norm[p] = q;
+  } else {
+    for (int e = tid; e < 2 * S * 4; e += kWideTriThreads) {
+      const int p = e >> 2;
+      const int part = p < S ? i0 + p : j0 + p - S;
+      float q = 0.0f;
+      if (part < n) {
+        for (int k = e & 3; k < m; k += 4) {
+          const float v = coords[static_cast<size_t>(part) * m + k];
+          q = fmaf(v, v, q);
+        }
+      }
+      q += __shfl_xor_sync(0xffffffffu, q, 1);
+      q += __shfl_xor_sync(0xffffffffu, q, 2);
+      if ((e & 3) == 0) norm[p] = q;
+    }
   }
+  const float* gram_j = form.y != nullptr ? form.y : coords;
 
   // 1. The Gram tile: slices [I | J][64][kWideLdK], big then small.
   float gb[8][4];
@@ -140,8 +169,9 @@ __device__ __forceinline__ void wide_tri_body(
       const int r = e / kWideK;  // 0..127: I's rows, then J's
       const int k = e - r * kWideK;
       const int part = r < S ? i0 + r : j0 + r - S;
+      const float* src = r < S ? coords : gram_j;
       const float v = part < n && k < kn
-                          ? coords[static_cast<size_t>(part) * m + k0 + k]
+                          ? src[static_cast<size_t>(part) * m + k0 + k]
                           : 0.0f;
       uint32_t hi, lo;
       tf32_split(v, hi, lo);
@@ -189,9 +219,9 @@ __device__ __forceinline__ void wide_tri_body(
       const int il = 16 * warp + g + (q >> 1) * 8;
       const int jl = 8 * c + 2 * t + (q & 1);
       const bool ok = i0 + il < n && j0 + jl < n && (!diag || jl >= il);
-      float sq = fmaxf(__fsub_rn(__fadd_rn(norm[il], norm[S + jl]),
-                                 2.0f * (gb[c][q] + gs[c][q])),
-                       0.0f);
+      float sq = __fsub_rn(__fadd_rn(norm[il], norm[S + jl]),
+                           2.0f * (gb[c][q] + gs[c][q]));
+      if (form.clamp) sq = fmaxf(sq, 0.0f);
       if (diag && il == jl) sq = 0.0f;
       float a, b;
       weights(sq, a, b);
@@ -209,7 +239,8 @@ __device__ __forceinline__ void wide_tri_body(
     }
   }
   flush_counts(cnt, T, counts);
-  __syncthreads();  // the weight tiles are complete
+  if (!form.phi) return;  // uniform over the block: no barrier is skipped
+  __syncthreads();        // the weight tiles are complete
 
   // 3. The D weight's row sums (threads 0-63, row tid of I) and column sums
   // (threads 64-127, column tid - 64 of J), from its TF32 pairs.

@@ -30,11 +30,16 @@ package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
     anisotropic (full-P) terms. With one anisotropic term up to m = 32 a
     one-pass kernel (every ordered pair once, both term groups in one pass,
     n phi and all n^2 counts out); otherwise the terms triangle kernel's
-    body under its own name, with one term group per anisotropic term.
+    body under its own name, with one term group per anisotropic term;
+    past m = 64 the same groups on ``csrc/wide_tri.cuh``'s tensor-core
+    body (``fused_phi_aniso_terms_wide``).
   * ``phi_rbf_square``          (``csrc/phi_rbf.cu``) -- ``_phi_kernel``
     (K15): the sweep of one RBF with a full, fixed P, no counts (the
-    triangle at m = 1-8 and 11, the square sweep above); with it
-    ``sym_eigen``, the Jacobi decomposition of P on the card.
+    triangle at m = 1-8 and 11, the square sweep up to 64); with it
+    ``sym_eigen``, the Jacobi decomposition of P on the card. Past m = 64
+    ``phi_rbf_wide``: the JAX kernel's own form, the Gram tile of X
+    against Y = X (P_sym/2) on ``csrc/wide_tri.cuh``'s body, with P itself
+    and no decomposition.
   * ``fused_phi_counts_sympanel`` (``csrc/fused_phi_panel.cu``) --
     ``_sym_panel_kernel`` (K3): the triangle sweep of one RBF laid out as
     pairs of super-blocks, each with its own output window, summed by an
@@ -58,12 +63,13 @@ distances at or below each threshold, like
 ``phi_rbf_aniso_terms_fused_counts`` and the panel schedules
 ``phi_rbf_sympanel_fused_counts`` / ``phi_rbf_terms_sympanel_fused_counts``,
 their plain versions; ``phi_rbf_square`` returns phi, like
-``ops/phi.phi_rbf_blocked``. The square sweeps (K1, K6/K7) and the
-full-width triangle sweeps (K2/K4, K8-K11) take any m >= 1: past MAX_M = 64
-they run wide bodies that hold nothing sized by m (``csrc/square_mma.cuh``'s
-``square_wide_body``, ``csrc/wide_tri.cuh``). The panel sweeps (K3/K5,
-K12/K13), K14, K15 and ``sym_eigen`` take 1 <= m <= MAX_M and raise above
-it (ROADMAP.md item 17b); the count kernel takes any m.
+``ops/phi.phi_rbf_blocked``. The square sweeps (K1, K6/K7), the
+full-width triangle sweeps (K2/K4, K8-K11), K14 and K15 take any m >= 1:
+past MAX_M = 64 they run wide bodies that hold nothing sized by m
+(``csrc/square_mma.cuh``'s ``square_wide_body``, ``csrc/wide_tri.cuh``).
+The panel sweeps (K3/K5, K12/K13) and ``sym_eigen`` take
+1 <= m <= MAX_M and raise above it (ROADMAP.md item 17b); the count
+kernel takes any m.
 
 Which form sweeps one particle set is ``resolve_sym``: by default the JAX
 package's decision up to MAX_M and the card's own past it
@@ -73,12 +79,15 @@ Where the wrappers run: a tensor on the CPU goes to the plain version (the
 CPU tests use this); a tensor on a CUDA device launches the kernel or
 raises. There is no fallback from the card to the plain version.
 
-The quadratic forms of K14 and K15 come from factors prepared in float64
-(``cholesky_factors``, which the driver keeps while a constant P stays the
-same; ``eigen_rows``), so each kernel takes the difference form of its
-form. ``eigen_rows`` decomposes an (m, m) matrix (``symmetric_eigen``: on
-the card the kernel ``sym_eigen``, which reads nothing on the host) unless
-the caller passes the decomposition.
+The quadratic forms of K14 and K15 up to MAX_M come from factors
+prepared in float64 (``cholesky_factors``, which the driver keeps while a
+constant P stays the same; ``eigen_rows``), so each kernel takes the
+difference form of its form. ``eigen_rows`` decomposes an (m, m) matrix
+(``symmetric_eigen``: on the card the kernel ``sym_eigen``, which reads
+nothing on the host) unless the caller passes the decomposition. Past
+MAX_M, K14's groups take the same factors' rows z_t = x L_t by the Gram
+identity, and K15 takes P itself (``ops/phi.gram_operands``), so nothing
+is decomposed there.
 
 Each wrapper counts its kernel's launches in ``launch_counts`` (one plain
 integer per kernel), so a run can show that it went through the kernels.
@@ -95,6 +104,7 @@ from ..kernels.algebra import MAX_RBF_TERMS
 from ..utils.cuda_build import CSRC_DIR, build_library, library_path
 from .median import count_le_plain
 from .phi import (
+    gram_operands,
     panel_index,
     phi_rbf_aniso_terms_fused_counts,
     phi_rbf_cross_fused_counts,
@@ -119,8 +129,8 @@ from .sym_plan import (
     sym_tile_chunk,
 )
 
-#: Largest dimension the panel, anisotropic and fixed-P sweeps and
-#: sym_eigen take (the square and full-width triangle sweeps take any m),
+#: Largest dimension the panel sweeps and sym_eigen take (the square,
+#: full-width triangle, anisotropic and fixed-P sweeps take any m),
 #: threshold count and term count the kernels take, and the most
 #: anisotropic terms (gradient accumulators) K14's kernel takes: the JAX
 #: package's _ANISO_MAX_W.
@@ -141,7 +151,11 @@ SYM_KERNEL = "fused_phi_counts_sym"
 TERMS_SQUARE_KERNEL = "fused_phi_terms_square"
 TERMS_SYM_KERNEL = "fused_phi_terms_sym"
 ANISO_KERNEL = "fused_phi_aniso_terms_sym"
+#: K14's term groups past MAX_M (csrc/fused_phi_aniso.cu, the wide body).
+ANISO_WIDE_KERNEL = "fused_phi_aniso_terms_wide"
 PHI_RBF_KERNEL = "phi_rbf_square"
+#: K15 past MAX_M (csrc/phi_rbf.cu, P itself on the wide body).
+PHI_RBF_WIDE_KERNEL = "phi_rbf_wide"
 SYM_EIGEN_KERNEL = "sym_eigen"
 SYMPANEL_KERNEL = "fused_phi_counts_sympanel"
 TERMS_SYMPANEL_KERNEL = "fused_phi_terms_sympanel"
@@ -153,8 +167,8 @@ COUNT_KERNEL = "count_le_cross"
 #: Launches of each kernel since the last reset_launch_counts().
 launch_counts = {
     SQUARE_KERNEL: 0, SYM_KERNEL: 0, TERMS_SQUARE_KERNEL: 0,
-    TERMS_SYM_KERNEL: 0, ANISO_KERNEL: 0, PHI_RBF_KERNEL: 0,
-    SYM_EIGEN_KERNEL: 0,
+    TERMS_SYM_KERNEL: 0, ANISO_KERNEL: 0, ANISO_WIDE_KERNEL: 0,
+    PHI_RBF_KERNEL: 0, PHI_RBF_WIDE_KERNEL: 0, SYM_EIGEN_KERNEL: 0,
     SYMPANEL_KERNEL: 0, TERMS_SYMPANEL_KERNEL: 0, SYM_CHUNK_KERNEL: 0,
     TERMS_SYM_CHUNK_KERNEL: 0, SYMPANEL_CHUNK_KERNEL: 0, COUNT_KERNEL: 0,
 }
@@ -212,6 +226,7 @@ def load_library() -> ctypes.CDLL:
                 "svgd_fused_phi_aniso_terms_groups":
                     [ptr] * 5 + [i32, ptr, i32, ptr] + [i32] * 3 + [ptr] * 3,
                 "svgd_phi_rbf_square": [ptr] * 3 + [i32] * 3 + [ptr] * 2,
+                "svgd_phi_rbf_wide": [ptr] * 4 + [i32] * 3 + [ptr] * 2,
                 "svgd_sym_eigen": [ptr, i32, ptr, ptr, ptr],
                 "svgd_fused_phi_counts_sympanel":
                     [ptr] * 4 + [i32] * 5 + [ptr] * 3,
@@ -273,17 +288,19 @@ def _check_launch(rc: int, kernel: str) -> None:
 
 
 def check_dimension(m: int, *, wide: bool) -> None:
-    """Raise for a dimension the kernels do not take: the square and
-    full-width triangle sweeps (``wide``) take any m >= 1; the panel,
-    anisotropic and fixed-P sweeps and sym_eigen 1 <= m <= MAX_M."""
+    """Raise for a dimension the kernels do not take: every sweep but the
+    panels (``wide``: the square, full-width triangle, anisotropic and
+    fixed-P sweeps) takes any m >= 1; the panel sweeps and sym_eigen
+    (``wide`` False) 1 <= m <= MAX_M."""
     if m < 1:
         raise ValueError(f"the CUDA sweeps take m >= 1 dimensions, got m={m}")
     if not wide and m > MAX_M:
         raise ValueError(
-            f"the CUDA panel, anisotropic and fixed-P sweeps and sym_eigen "
-            f"take 1 <= m <= {MAX_M} dimensions, got m={m} (ROADMAP.md item "
-            "17b: their wide bodies; the square and full-width triangle "
-            "sweeps take any m)"
+            f"the CUDA panel sweeps and sym_eigen take 1 <= m <= {MAX_M} "
+            f"dimensions, got m={m} (ROADMAP.md item 17b: the panels' wide "
+            "bodies; the square, full-width triangle, anisotropic and "
+            "fixed-P sweeps take any m, and past it the fixed-P sweep takes "
+            "P itself, with no decomposition)"
         )
 
 
@@ -302,8 +319,8 @@ def _device_operands(coords, scores, gammas, thresholds_sq, min_terms=1, *,
                      wide):
     """Validate the CUDA path's inputs and return float32 device operands
     (gammas (nterms,), or one zero for no term; thresholds (T,)) without
-    any host read. ``wide``: the sweep takes any m (the square and
-    full-width triangle kernels), else m <= MAX_M."""
+    any host read. ``wide``: the sweep takes any m (every kernel but the
+    panels), else m <= MAX_M."""
     _check_pair(coords, scores, wide=wide)
     t = thresholds_sq.shape[0]
     if not 1 <= t <= MAX_T:
@@ -369,9 +386,12 @@ def symmetric_eigen(p_matrix, device=None):
 
     On a CUDA device the one-block Jacobi kernel ``svgd_sym_eigen``
     (csrc/phi_rbf.cu), which reads nothing on the host: a HESSIAN scale's
-    new P each step does not synchronise the step. On the CPU its plain
-    version, ``torch.linalg.eigh`` (which checks its result on the host,
-    so it never runs on the card here). P may be indefinite."""
+    new P each step does not synchronise the step. It takes m <= MAX_M
+    (its matrix and order table live in one block's shared memory); past
+    it K15 takes P itself, so nothing on the card calls it there. On the
+    CPU its plain version, ``torch.linalg.eigh`` (which checks its result
+    on the host, so it never runs on the card here), at any m. P may be
+    indefinite."""
     p = torch.as_tensor(p_matrix)
     device = p.device if device is None else torch.device(device)
     p = p.to(device, torch.float64).contiguous()
@@ -575,9 +595,10 @@ def _sympanel_launch(coords, scores, gammas, signs, thresholds_sq,
 
 def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
                   aniso_signs, thresholds_sq, lowers):
-    """K14: the one-pass kernel, or the term-group triangle kernel."""
+    """K14: the one-pass kernel, or the term-group triangle kernel (its
+    wide instance past MAX_M)."""
     g, thr = _device_operands(coords, scores, iso_gammas, thresholds_sq,
-                              min_terms=0, wide=False)
+                              min_terms=0, wide=True)
     n_aniso = len(aniso_signs)
     if not 1 <= n_aniso <= MAX_ANISO_TERMS:
         raise ValueError(
@@ -619,8 +640,9 @@ def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
             thr.shape[0], acc.data_ptr(), upper.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
-    _check_launch(rc, ANISO_KERNEL)
-    launch_counts[ANISO_KERNEL] += 1
+    name = ANISO_WIDE_KERNEL if m > MAX_M else ANISO_KERNEL
+    _check_launch(rc, name)
+    launch_counts[name] += 1
     # Epilogue: acc[g] = [KS_g | D_g]. The groups' KS add up; the self pairs
     # (k = 1 for every term) entered KS in both directions, so subtract
     # (sum s) s_i once. D_0 is the isotropic direction (weights already
@@ -639,9 +661,11 @@ def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
 
 def _phi_rbf_launch(coords, scores, p_matrix, psd, eig):
     """K15: the fixed-P sweep kernel (the decomposition, where the caller
-    has none, on the card too)."""
-    _check_pair(coords, scores, wide=False)
+    has none, on the card too); past MAX_M its wide instance on P itself."""
+    _check_pair(coords, scores, wide=True)
     n, m = coords.shape
+    if m > MAX_M:
+        return _phi_rbf_wide_launch(coords, scores, p_matrix, psd, eig)
     z64, lam, v = eigen_rows(_centered32(coords), p_matrix, eig)
     z = z64.to(torch.float32).contiguous()
     lam32 = lam.to(torch.float32).contiguous()
@@ -658,6 +682,40 @@ def _phi_rbf_launch(coords, scores, p_matrix, psd, eig):
     # out = [KS | D_z]; D P_sym = 2 D_z diag(lam) V^T (float64).
     grad = (out[m:].T.to(torch.float64) * lam) @ v.T
     phi = (out[:m].T + 2.0 * grad.to(torch.float32)) / n
+    return phi.to(coords.dtype)
+
+
+def _phi_rbf_wide_launch(coords, scores, p_matrix, psd, eig):
+    """K15 past MAX_M (``phi_rbf_wide``): the JAX kernel's form on
+    H = P_sym/2 itself, from P or from the caller's (lam, V) (a MEDIAN's
+    gamma I, a kept decomposition), formed on the device in float64; the
+    operands Y = X_c H and q from ``ops/phi.gram_operands``."""
+    n, m = coords.shape
+    device = coords.device
+    if eig is not None:
+        lam, v = (t.to(device, torch.float64) for t in eig)
+        half = (v * lam) @ v.T
+    else:
+        p = torch.as_tensor(p_matrix).to(device, torch.float64)
+        half = 0.5 * (p + p.T)
+    coords_c = _centered32(coords).contiguous()
+    y, q = gram_operands(coords_c, half)
+    sc32 = scores.to(torch.float32).contiguous()
+    out = torch.zeros((2 * m, n), dtype=torch.float32, device=device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        rc = lib.svgd_phi_rbf_wide(
+            coords_c.data_ptr(), y.data_ptr(), q.data_ptr(), sc32.data_ptr(),
+            n, m, int(psd), out.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _check_launch(rc, PHI_RBF_WIDE_KERNEL)
+    launch_counts[PHI_RBF_WIDE_KERNEL] += 1
+    # out = [KS | D], D = sum_j k (x_i - x_j); the self pairs (k = 1)
+    # entered KS in both directions, so subtract s_i once.
+    # D P_sym = 2 D H (float64).
+    grad = out[m:].T.to(torch.float64) @ half
+    phi = (out[:m].T - sc32 + 2.0 * grad.to(torch.float32)) / n
     return phi.to(coords.dtype)
 
 
@@ -769,9 +827,11 @@ def phi_rbf_aniso_terms_fused_cuda(coords, scores, iso_gammas, iso_signs,
     precisions, each positive definite; the signs are Python numbers;
     ``lowers`` the factors ``cholesky_factors(aniso_ps)`` where the caller
     keeps them (a constant P; ``aniso_ps`` may then be None), else they are
-    factored here. On a CUDA tensor, in float32: the kernel
+    factored here. On a CUDA tensor, in float32, at any m: the kernel
     fused_phi_aniso_terms_sym, in one pass for one anisotropic term up to
-    ONE_PASS_MAX_M, in term groups otherwise; with no anisotropic term (a hot-swap may leave
+    ONE_PASS_MAX_M, in term groups otherwise, past MAX_M the groups' wide
+    instance fused_phi_aniso_terms_wide (``launch_counts`` under
+    ANISO_WIDE_KERNEL); with no anisotropic term (a hot-swap may leave
     none), the terms triangle kernel, which computes the same function. On
     a CPU tensor: the plain ``phi_rbf_aniso_terms_fused_counts``, in the
     factor form (``phi_rbf_factor``) where ``lowers`` are given.
@@ -797,8 +857,11 @@ def phi_rbf_cuda(coords, scores, p_matrix, psd=True, eig=None):
     HESSIAN scale). ``eig``: (lam, V) of P_sym/2 where the caller has it
     (a P fixed over the run, or gamma I); without it the wrapper decomposes
     P on the card (``symmetric_eigen``), with no host read. On a CUDA
-    tensor: the kernel phi_rbf_square (a triangle sweep at m = 1-8 and 11,
-    the square sweep above), in float32. On a CPU tensor: the plain
+    tensor, in float32: the kernel phi_rbf_square up to MAX_M (a triangle
+    sweep at m = 1-8 and 11, the square sweep above); past it phi_rbf_wide
+    (``launch_counts`` under PHI_RBF_WIDE_KERNEL), which takes P_sym/2
+    itself (from ``eig`` where given) in the JAX kernel's Gram form, so
+    nothing is decomposed. On a CPU tensor, at any m: the plain
     ``phi_rbf_eigen`` from ``eig``, or from the decomposition's plain
     version (``symmetric_eigen`` on the CPU, ``torch.linalg.eigh``).
     """

@@ -23,6 +23,10 @@ Port of ``svgdcpp_tpu.ops.phi`` (reference hot loop SVGD.hpp:407-454):
                            ``ops/cuda_phi.py``, which hold themselves to it.
   * ``phi_rbf_aniso_terms_fused_counts`` -- the same for a composed kernel
                            with anisotropic (full-P) terms.
+  * ``phi_rbf_eigen`` / ``phi_rbf_gram`` -- one RBF with a full, fixed P:
+                           the fixed-P CUDA kernel's forms up to m = 64 (the
+                           eigen basis) and past it (P itself, the Gram
+                           operands of ``gram_operands``).
   * ``phi_rbf_sympanel_fused_counts`` / ``phi_rbf_terms_sympanel_fused_counts``
                         -- the same function as the fused sweeps, computed
                            on the panel kernels' schedule (super-block pairs,
@@ -925,4 +929,51 @@ def phi_rbf_factor(coords, scores, lower, row_tile: int = 1024):
         k = torch.exp(-form)
         d_z = torch.sum(k, dim=1, keepdim=True) * zi - sq_matmul(k, z)
         out.append(sq_matmul(k, scores) + 2.0 * sq_matmul(d_z, lower.T))
+    return torch.cat(out, dim=0) / n
+
+
+def gram_operands(coords_c, half):
+    """K15's operands past m = 64, the JAX kernel's own (pallas_phi.py:
+    189-190): Y = x_c H and q_i = x_i . y_i for H = P_sym/2 and centered
+    coordinates x_c, both formed in float64 and returned in x_c's dtype,
+    so that q_i + q_j - 2 x_i . y_j = d^T P d for d = x_i - x_j, for any P,
+    indefinite too."""
+    x64 = coords_c.to(torch.float64)
+    y64 = x64 @ torch.as_tensor(half, device=x64.device).to(torch.float64)
+    q64 = torch.sum(x64 * y64, dim=1)
+    return (y64.to(coords_c.dtype).contiguous(),
+            q64.to(coords_c.dtype).contiguous())
+
+
+def phi_rbf_gram(coords, scores, half, psd: bool = True,
+                 row_tile: int = 1024):
+    """phi of one RBF exp(-d^T P d) over one particle set from H = P_sym/2
+    itself (any P, indefinite too), in the wide fixed-P CUDA kernel's form
+    (phi_rbf.cu, ``phi_rbf_wide``): with x_c centered and (Y, q) =
+    ``gram_operands(x_c, H)``, the form q_i + q_j - 2 x_i . y_j, clamped at
+    0 where ``psd``, the self pair pinned to 0, and
+
+      n phi_i = sum_j k_ij s_j + 2 (sum_j k_ij (x_i - x_j)) H,
+
+    the gradient direction in float64, as the wrapper applies it. Streams
+    over row tiles."""
+    x = coords - coords.mean(dim=0)
+    half = torch.as_tensor(half, device=x.device).to(torch.float64)
+    y, q = gram_operands(x, half)
+    scores = scores.to(x.dtype)
+    n = x.shape[0]
+    row_tile = auto_row_tile(n, row_tile)
+    out = []
+    for start in range(0, n, row_tile):
+        xi = x[start : start + row_tile]
+        rows = torch.arange(xi.shape[0], device=x.device)
+        form = (q[start : start + row_tile, None] + q[None, :]
+                - 2.0 * sq_matmul(xi, y.T))
+        if psd:
+            form = torch.clamp_min(form, 0.0)
+        form[rows, start + rows] = 0.0
+        k = torch.exp(-form)
+        d = torch.sum(k, dim=1, keepdim=True) * xi - sq_matmul(k, x)
+        grad = d.to(torch.float64) @ half
+        out.append(sq_matmul(k, scores) + 2.0 * grad.to(x.dtype))
     return torch.cat(out, dim=0) / n

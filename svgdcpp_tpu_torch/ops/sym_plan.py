@@ -183,8 +183,8 @@ def jax_resolve_sym(n: int, m: int, num_terms: int | None = None):
 # ----------------------------------------------------------------------
 
 #: The largest m of the kernels' register-sized instances (``kMaxM`` of
-#: csrc/sweep_common.cuh); past it the square and full-width triangle
-#: sweeps take their wide instances, and the panel, anisotropic and fixed-P
+#: csrc/sweep_common.cuh); past it the square, full-width triangle,
+#: anisotropic and fixed-P sweeps take their wide instances, and the panel
 #: sweeps refuse the shape (ROADMAP item 17b).
 KERNEL_MAX_M = 64
 

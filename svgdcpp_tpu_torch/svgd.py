@@ -108,6 +108,7 @@ from .kernels.kernel import Kernel, _as_param_tuple
 from .models.model import Model, params_on
 from .ops.cuda_phi import (
     MAX_ANISO_TERMS,
+    MAX_M,
     SYM_MIN_N,
     check_dimension,
     cholesky_factors,
@@ -575,13 +576,10 @@ class SVGD:
                 len(self._rbf_terms),
             )
         if on_cuda and impl in _KERNEL_ROUTES:
-            # The square and full-width triangle sweeps take any m; the
-            # panel, anisotropic and fixed-P ones raise past MAX_M.
-            check_dimension(
-                self.dimension,
-                wide=impl in ("fused_cuda", "fused_terms_cuda")
-                and self.fused_sym_form != "panel",
-            )
+            # Every kernel route takes any m but the panels, which raise
+            # past MAX_M.
+            check_dimension(self.dimension,
+                            wide=self.fused_sym_form != "panel")
 
     def _auto_impl(self, on_cuda: bool) -> str:
         """phi_impl='auto': the JAX package's rule, its TPU branch on a CUDA
@@ -748,14 +746,16 @@ class SVGD:
         it: a MEDIAN scale is gamma I, so (its diagonal, I) on the device;
         a CONSTANT P is decomposed once, on its device, and kept while the
         step carries the same tensor (a hot-swap or a new run() may bring a
-        new one). None for a HESSIAN scale, which changes every step: the
-        wrapper decomposes it each call, on the card."""
+        new one), up to MAX_M: past it K15 takes P itself, so nothing is
+        decomposed. None for a HESSIAN scale, which changes every step: the
+        wrapper decomposes it each call, on the card, up to MAX_M."""
         method = self.kernel.scale_method
         if method == GaussianRBFKernel.ScaleMethod.MEDIAN:
             return p.diagonal(), torch.eye(
                 p.shape[0], dtype=p.dtype, device=p.device
             )
-        if method == GaussianRBFKernel.ScaleMethod.CONSTANT:
+        if (method == GaussianRBFKernel.ScaleMethod.CONSTANT
+                and p.shape[0] <= MAX_M):
             cached = getattr(self, "_constant_eigen", None)
             if cached is None or cached[0] is not p:
                 self._constant_eigen = (p, symmetric_eigen(p))

@@ -182,7 +182,11 @@ def sweep_work(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
       * K15: the form sum_k lam_k (dz_k)^2 (4m: the difference, a multiply
         and an FMA), 2 for the exponential, KS and D_z = sum k dz (2m each)
         per direction (``all_pairs``: over the n^2 ordered pairs and one
-        direction, as it was counted before the triangle);
+        direction, as it was counted before the triangle); its wide
+        instance (``phi_rbf_wide``, m > 64) the JAX kernel's form, the dot
+        x_i . y_j (2m) and q_i + q_j - 2G (3), with the same exponential
+        and contractions, and it reads the operand Y = X P_sym/2 and the
+        norms q besides;
       * the count pass (count_le_cross): the squared distance, 3m by
         differences up to m = 4 and 2m + 3 by the Gram identity above (the
         norms once per point), and ceil(log2(T + 1)) compares, the search
@@ -221,13 +225,17 @@ def sweep_work(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
     elif kernel in ("fused_phi_terms_sym", "fused_phi_terms_sympanel",
                     "fused_phi_terms_sym_chunk"):
         flops = tri_pairs * (3 * m + 6 * n_iso + T + 2 * contract)
-    elif kernel == "fused_phi_aniso_terms_sym":
+    elif kernel in ("fused_phi_aniso_terms_sym",
+                    "fused_phi_aniso_terms_wide"):
         n_w = (1 if n_iso else 0) + n_aniso
         flops = tri_pairs * (3 * m + T + 6 * n_iso + n_aniso * (3 * m + 6)
                              + 2 * (2 * m + 2 * m * n_w))
     elif kernel == "phi_rbf_square":
         flops = (square_pairs * (4 * m + 2 + contract) if all_pairs
                  else tri_pairs * (4 * m + 2 + 2 * contract))
+        T = 0
+    elif kernel == "phi_rbf_wide":
+        flops = tri_pairs * (2 * m + 3 + 2 + 2 * contract)
         T = 0
     elif kernel == "count_le_cross":
         sq_ops = 3 * m if m <= 4 else 2 * m + 3
@@ -247,6 +255,8 @@ def sweep_work(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
                    + n_iso + T) + 4 * out_floats + 8 * T)
     if kernel == "phi_rbf_square":
         nbytes += 4 * m * m
+    if kernel == "phi_rbf_wide":  # P, and the operands Y and q
+        nbytes += 4 * (m * m + n * m + n)
     return flops, nbytes
 
 
@@ -278,7 +288,8 @@ def square_tensor_bound(n, m, T=3, n_terms=None, n_t=None):
     )
 
 
-def tri_tensor_bound(n, m, T=3, n_terms=None, pairs=None):
+def tri_tensor_bound(n, m, T=3, n_terms=None, pairs=None, n_aniso=0,
+                     fixed_p=False):
     """(bound_ms, bound_by) of a triangle kernel's function with the work
     its wide body (csrc/wide_tri.cuh, m > 64) puts on the TF32 tensor
     cores: per unordered pair (``pairs``, the whole triangle n(n + 1)/2 by
@@ -287,15 +298,37 @@ def tri_tensor_bound(n, m, T=3, n_terms=None, pairs=None):
     the FP32 peak: sq and its clamp (4), the weights (one RBF, ``n_terms``
     None: 2; else 6 a term), T compares and the D weight's row and column
     sums (2); and the bytes of sweep_work at the memory rate: the largest
-    of the three."""
+    of the three.
+
+    ``n_aniso`` > 0: K14's wide term groups (``n_terms`` isotropic terms,
+    None or 0 for none), each group a sweep of its own: group 0 the Gram
+    product, sq, its terms, the counts and, with a term, the contractions
+    and sums; each of the n_aniso groups the Gram product, sq, one term
+    and the contractions and sums, no counts. ``fixed_p``: K15's wide
+    sweep, one RBF's work with no counts (its Gram product pairs X with
+    Y = X P_sym/2)."""
     tri = n * (n + 1) / 2 if pairs is None else pairs
-    fp32 = 4 + (2 if n_terms is None else 6 * n_terms) + T + 2
-    kernel = "fused_phi_counts_sym" if n_terms is None else "fused_phi_terms_sym"
-    if pairs is not None:
-        kernel += "_chunk"
-    _, nbytes = sweep_work(kernel, n, m, T, n_iso=n_terms or 1, pairs=pairs)
+    if n_aniso:
+        n_iso = n_terms or 0
+        tensor = 2 * m + (8 * m if n_iso else 0) + n_aniso * 10 * m
+        fp32 = (4 + 6 * n_iso + T + (2 if n_iso else 0)
+                + n_aniso * (4 + 6 + 2))
+        _, nbytes = sweep_work("fused_phi_aniso_terms_wide", n, m, T,
+                               n_iso=n_iso, n_aniso=n_aniso)
+    elif fixed_p:
+        tensor, fp32 = 10 * m, 4 + 2 + 2
+        _, nbytes = sweep_work("phi_rbf_wide", n, m)
+    else:
+        tensor = 10 * m
+        fp32 = 4 + (2 if n_terms is None else 6 * n_terms) + T + 2
+        kernel = ("fused_phi_counts_sym" if n_terms is None
+                  else "fused_phi_terms_sym")
+        if pairs is not None:
+            kernel += "_chunk"
+        _, nbytes = sweep_work(kernel, n, m, T, n_iso=n_terms or 1,
+                               pairs=pairs)
     return max(
-        (tri * 10 * m / PEAK_TF32_FLOPS * 1e3, "tensor operations"),
+        (tri * tensor / PEAK_TF32_FLOPS * 1e3, "tensor operations"),
         (tri * fp32 / PEAK_FP32_FLOPS * 1e3, "operations"),
         (nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
     )

@@ -292,9 +292,9 @@ def test_phi_rbf_cuda_on_cpu_off_origin():
 
 
 def test_dimension_limit_names_the_roadmap():
-    """The square and full-width triangle sweeps (``wide``) take any
-    m >= 1; the panel, anisotropic and fixed-P sweeps and sym_eigen stop at
-    MAX_M = 64, naming the ROADMAP item that widens them."""
+    """Every sweep but the panels (``wide``) takes any m >= 1; the panel
+    sweeps and sym_eigen stop at MAX_M = 64, naming the ROADMAP item that
+    widens them."""
     for m in (1, 11, 50, cuda_phi.MAX_M):
         cuda_phi.check_dimension(m, wide=False)
     for m in (1, 64, 65, 123, 512, 4096):
@@ -361,7 +361,8 @@ def test_resolve_sym_and_launch_counts_on_cpu():
     assert set(cuda_phi.launch_counts) == {
         cuda_phi.SQUARE_KERNEL, cuda_phi.SYM_KERNEL,
         cuda_phi.TERMS_SQUARE_KERNEL, cuda_phi.TERMS_SYM_KERNEL,
-        cuda_phi.ANISO_KERNEL, cuda_phi.PHI_RBF_KERNEL,
+        cuda_phi.ANISO_KERNEL, cuda_phi.ANISO_WIDE_KERNEL,
+        cuda_phi.PHI_RBF_KERNEL, cuda_phi.PHI_RBF_WIDE_KERNEL,
         cuda_phi.SYM_EIGEN_KERNEL,
         cuda_phi.SYMPANEL_KERNEL, cuda_phi.TERMS_SYMPANEL_KERNEL,
         cuda_phi.SYM_CHUNK_KERNEL, cuda_phi.TERMS_SYM_CHUNK_KERNEL,

@@ -4,9 +4,9 @@
   the count kernel (K16's port) at any m, as the JAX package counts at any
   m; ``auto`` on a CUDA device keeps the JAX package's TPU rule past
   ``cuda_phi.MAX_M`` (the kernel route, as the TPU takes its Mosaic one),
-  whose square and full-width triangle sweeps take any m; the panel,
-  anisotropic and fixed-P sweeps still raise past MAX_M, naming the item
-  that widens them (17b).
+  whose square, full-width triangle, anisotropic and fixed-P sweeps take
+  any m; the panel sweeps still raise past MAX_M, naming the item that
+  widens them (17b).
 * Process groups: ``initialize_distributed`` without a rendezvous makes a
   one-rank world (torchrun's ``env://`` where its variables are set), a
   second call returns the existing group, ``make_particle_mesh`` and
@@ -148,10 +148,10 @@ def test_auto_rule_on_cuda_past_max_m(n, m, route):
 
 
 def test_the_kernel_routes_keep_their_dimension_check():
-    """Past MAX_M the square and full-width triangle sweeps take any m
-    (``wide``), as auto's kernel route needs; the panel, anisotropic and
-    fixed-P sweeps still raise on a CUDA device (the driver calls
-    check_dimension there), naming the item that widens them."""
+    """Past MAX_M every sweep but the panels takes any m (``wide``), as
+    auto's kernel routes need; the panel sweeps and sym_eigen still raise
+    on a CUDA device (the driver calls check_dimension there), naming the
+    item that widens them."""
     cuda_phi.check_dimension(cuda_phi.MAX_M, wide=False)
     for m in (cuda_phi.MAX_M + 1, 100, 123, 512):
         cuda_phi.check_dimension(m, wide=True)

@@ -14,14 +14,15 @@ full-width triangles K2/K4 and K8-K11), on the CPU.
   wide tile list covering every unordered pair once at worlds 1-8.
 * The wrappers on a stand-in library (meta tensors stand in for the card)
   at m = 65, 123 and 512: each widened wrapper hands m to the library,
-  allocates its workspace or accumulator and counts one launch; the panel,
-  anisotropic and fixed-P wrappers and ``symmetric_eigen`` still raise
-  past 64, naming ROADMAP item 17b.
+  allocates its workspace or accumulator and counts one launch; the panel
+  wrappers and ``symmetric_eigen`` still raise past 64, naming ROADMAP
+  item 17b, and the anisotropic and fixed-P wrappers launch their wide
+  instances (tests/test_torch_wide_p.py holds those).
 * The form rules past 64: ``resolve_sym(None, ...)`` never "panel",
   ``resolve_sharded_sym`` never "panel" under None and refusing a forced
   one; the CPU route against the JAX driver's; with the card stood in,
   the driver and the engine at m = 123 take the kernel routes without the
-  old dimension error.
+  old dimension error, the 'cuda' route included.
 * The slice as a whole: the flat (m = 123) and hierarchical (m = 124) BLR
   drivers on ``auto``, 5 Adam steps in float64 against the JAX drivers,
   rtol 1e-9.
@@ -414,8 +415,9 @@ def test_widened_wrappers_launch_past_64(monkeypatch, m):
 
 @pytest.mark.parametrize("m", [65, 123, 512])
 def test_narrow_families_still_refuse_past_64(monkeypatch, m):
-    """The panel, anisotropic and fixed-P sweeps and sym_eigen keep m <=
-    64 on the card, naming ROADMAP item 17b; nothing is launched."""
+    """The panel sweeps and sym_eigen keep m <= 64 on the card, naming
+    ROADMAP item 17b, and launch nothing; the anisotropic and fixed-P
+    sweeps launch their wide instances, one launch each."""
     calls = []
     _stand_in(monkeypatch, calls)
     x, g, thr = _meta(300, m), _meta(), _meta(3)
@@ -424,17 +426,29 @@ def test_narrow_families_still_refuse_past_64(monkeypatch, m):
         lambda: cuda_phi.phi_rbf_terms_fused_cuda(x, x, [g, g], (1.0, 1.0),
                                                   thr, sym="panel"),
         lambda: cuda_phi.phi_rbf_sympanel_chunk_cuda(x, x, g, thr, 2, 0),
-        lambda: cuda_phi.phi_rbf_aniso_terms_fused_cuda(
-            x, x, [g], (1.0,), None, (1.0,), thr,
-            lowers=_meta(1, m, m)),
-        lambda: cuda_phi.phi_rbf_cuda(x, x, None,
-                                      eig=(_meta(m), _meta(m, m))),
         lambda: cuda_phi.symmetric_eigen(_meta(m, m)),
     ]
     for call in refusals:
         with pytest.raises(ValueError, match=r"m <= 64.*item 17b"):
             call()
     assert not [c for c in calls if c[0] not in ("svgd_sym_tile",)]
+    cuda_phi.reset_launch_counts()
+    launches = [
+        ("svgd_fused_phi_aniso_terms_groups", cuda_phi.ANISO_WIDE_KERNEL,
+         lambda: cuda_phi.phi_rbf_aniso_terms_fused_cuda(
+             x, x, [g], (1.0,), None, (1.0,), thr,
+             lowers=_meta(1, m, m).double())),
+        ("svgd_phi_rbf_wide", cuda_phi.PHI_RBF_WIDE_KERNEL,
+         lambda: cuda_phi.phi_rbf_cuda(x, x, None,
+                                       eig=(_meta(m), _meta(m, m)))),
+    ]
+    for entry, kernel, call in launches:
+        del calls[:]
+        call()
+        assert [c[0] for c in calls] == [entry]
+        assert m in calls[0][1]
+        assert cuda_phi.launch_counts[kernel] == 1
+    cuda_phi.reset_launch_counts()
     cuda_phi.check_dimension(64, wide=False)
     cuda_phi.check_dimension(m, wide=True)
     with pytest.raises(ValueError, match="m >= 1"):
@@ -518,8 +532,9 @@ def _on_card(svgd):
 @pytest.mark.parametrize("n,m", [(1500, 123), (2100, 123), (200, 65)])
 def test_driver_routes_past_64(n, m):
     """On the CPU both packages take the same route; with the card stood
-    in, auto takes the kernel route and its form by the card's rule, and a
-    forced panel or the fixed-P route still raise naming item 17b."""
+    in, auto takes the kernel route and its form by the card's rule, the
+    fixed-P route ('cuda') runs, and a forced panel still raises naming
+    item 17b."""
     port, jax_svgd = _mvn_drivers(n, m)
     assert port._auto_impl(on_cuda=False) == jax_svgd._phi_impl
     assert port._phi_impl == jax_svgd._phi_impl
@@ -532,10 +547,11 @@ def test_driver_routes_past_64(n, m):
     for impl, sym in (("fused_cuda", True), ("fused_cuda", False)):
         port.options.phi_impl, port.options.fused_sym = impl, sym
         assert _on_card(port).fused_sym_form is sym
-    for impl, sym in (("fused_cuda", "panel"), ("cuda", None)):
-        port.options.phi_impl, port.options.fused_sym = impl, sym
-        with pytest.raises(ValueError, match="item 17b"):
-            _on_card(port)
+    port.options.phi_impl, port.options.fused_sym = "cuda", None
+    assert _on_card(port)._phi_impl == "cuda"
+    port.options.phi_impl, port.options.fused_sym = "fused_cuda", "panel"
+    with pytest.raises(ValueError, match="item 17b"):
+        _on_card(port)
 
 
 def test_driver_terms_route_past_64():
