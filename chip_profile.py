@@ -121,7 +121,12 @@ m = 64 at chip_smoke.py phase 43a's shapes (``wide_cases``: K1 square and
 cross, the terms square kernel, K2, the terms triangle and the chunk
 kernels at worlds 1 and 2, m = 65, 123, 256 and 512), and K14's wide
 term groups and K15's wide sweep at phase 44a's shapes (``wide_p_cases``)
-and at the paths' (10240, 123) beside their float32 plain versions:
+and at the paths' (10240, 123) beside their float32 plain versions; the
+panels' wide instances (K3, K12/K13, K5's chunks at worlds 1 and 2) at
+chip_smoke.py phase 45a's shapes (``wide_panel_cases``) beside the wide
+triangle at the same shape; and the bfloat16 instances (K1 square and
+cross, K2, K3, K15) at phase 46a's shapes (``bf16_cases``) beside the
+float32 instance and the bf16 plain version at the same shape:
 wrapper ms (median of 20 calls between CUDA events after 3 warm-up
 calls) and kernel-only us
 (the profiler's events of the kernel over 10 calls). Run from an older
@@ -632,6 +637,7 @@ def sweeps(st, device):
     from chip_smoke import (
         WIDE_D,
         WIDE_P_BIG_N,
+        bf16_cases,
         grid_inputs,
         kernel_us,
         make_svgd,
@@ -641,6 +647,7 @@ def sweeps(st, device):
         wide_p_call,
         wide_p_cases,
         wide_p_ps,
+        wide_panel_cases,
     )
     from svgdcpp_tpu_torch.ops import cuda_phi
     from svgdcpp_tpu_torch.ops.phi import (
@@ -762,6 +769,23 @@ def sweeps(st, device):
         kern, _, plain = wide_p_call(kernel, x, s, g, thr, spec)
         rows.append(timed(f"wide {label}", kern, kernel, plain=plain, n=n,
                           m=m))
+    # The panels' wide instances (phase 45a), each beside the full-width
+    # triangle on the same inputs (K5's rows run every rank of the world).
+    for label, kernel, n, m, terms, kern, tri, _, _ in wide_panel_cases(
+            device):
+        row = timed(f"wide panel {label}", kern, kernel, n=n, m=m,
+                    terms=len(terms) if terms else 1)
+        if tri is not None:
+            row["full_width_ms"] = time_ms(tri, reps=20, warmup=3)
+        rows.append(row)
+    # The bfloat16 instances (phase 46a) beside the float32 instance and
+    # the bf16 plain version on the same inputs.
+    for label, kernel, n, m, n_t, kern, kern32, plain, _ in bf16_cases(
+            device):
+        row = timed(f"bf16 {label}", kern, kernel, plain=plain, n=n, m=m,
+                    n_t=n_t or n)
+        row["float32_instance_ms"] = time_ms(kern32, reps=20, warmup=3)
+        rows.append(row)
     return rows
 
 

@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the package's CUDA kernels from ``svgdcpp_tpu_torch/csrc`` and runs
-forty-three phases, one line each (several for phases 2, 3, 7-9 and
-14-43):
+forty-six phases, one line each (several for phases 2, 3, 7-9 and
+14-46):
 
   1. device and build: the card's name and power limit, torch and CUDA
      versions, nvcc build seconds and ptxas's registers and spill bytes of
@@ -260,7 +260,36 @@ forty-three phases, one line each (several for phases 2, 3, 7-9 and
      hierarchical BLR at N = 1500 (the square form, K6/K7), each
      within 1e-3 of its float64 plain route after 20 steps, and the
      engine on a one-rank NCCL group (hier, K10/K11; MVN d = 123 with
-     fused_sym="full", K4) within 1e-3 of the driver after 20 steps.
+     fused_sym="full", K4) within 1e-3 of the driver after 20 steps;
+ 44. K14 and K15 past m = 64: 44a K14's wide term groups and K15's wide
+     sweep at m = 65, 123, 256 and 512 (n = 4096, grid inputs) against
+     float64, 44b both at (10240, 123), 44c the anisotropic MVN on auto
+     and the HESSIAN 'cuda' route at d = 123, gated per call;
+ 45. the panel sweeps past m = 64 (the wide instances, MM = 0): 45a K3 and
+     K12/K13 (two terms) at (4096, 65 / 123 / 256), K3 and K5's chunks
+     (worlds 1 and 2) at (10000, 123) and K12/K13 at (10000, 124), on
+     grid inputs within 2.5e-3 of max |phi| of float64, counts equal, each
+     timed beside the full-width triangle at the same shape; 45b the flat
+     BLR driver at (10000, 123) and the hierarchical one at (10000, 124)
+     with fused_sym="panel" for 20 steps, each sweep call replayed
+     against float64 (replay_gate), and the engine with fused_sym="panel"
+     on a one-rank NCCL group at (10000, 123) (K5), each chunk call held
+     to its float64 plain chunk and the coordinates within 1e-3 of the
+     driver's; ms a step of each;
+ 46. the bfloat16 opt-in (fused_dot_dtype='bfloat16'): 46a K1 at
+     (1000, 50) and its cross form at 5000 of 10000 (m = 2), K2 at
+     (10000, 2) and (10000, 123), K3 forced at (32768, 2) and
+     (10000, 123), K15 at (1500, 2) and (10240, 123), each against its
+     bf16 plain version on the card within 1e-3 of max |phi| (counts
+     within 1e-6 n_t n) and against the float32 plain version within
+     3e-2, with times beside the float32 instance's and bounds at the
+     bf16 tensor peak; 46b the flagship on auto (K2's bf16 instance) for
+     1000 iterations, 20 of its sweep calls held to the bf16 plain
+     version, its moment errors beside the float32 route's (not gated);
+     the flat BLR (K1), the flagship with fused_sym="panel" at N = 32768
+     (K3) and the flagship driver under a one-rank NCCL mesh (K1's cross
+     form; forced triangles raise), 20 steps each, every call held; ms a
+     step of each.
 
 Phase 22 prints the N = 1,048,576 set-up (the median seed, now through
 K16) beside the 239.40 s the plain count pass took.
@@ -487,8 +516,11 @@ def ptxas_summary(log_text):
     count_le<MM,exact,gram,binned,P> (P: thresholds held, or binned search
     steps) and count_le_wide<TT>; the one-pass anisotropic kernel
     aniso_terms_sym<MM,exact,NIso,kT> (NIso 0: any number of isotropic
-    terms) beside the term-group one, aniso_terms_groups<MM,exact,1>, and
-    the wide ones past m = 64, aniso_terms_wide<kT> and rbf_wide."""
+    terms) beside the term-group one, aniso_terms_groups<MM,exact,1>, the
+    wide ones past m = 64, aniso_terms_wide<kT> and rbf_wide (the panels'
+    wide instances are MM = 0: counts_sympanel<0,0,3>), and the bfloat16
+    instances counts_square_bf16<kT>, counts_sym_bf16<kT>,
+    counts_sympanel_bf16<kT> and rbf_wide_bf16."""
     import re
 
     out, name = {}, None
@@ -513,6 +545,12 @@ def ptxas_summary(log_text):
                 name = f"{short.get(other.group(1), other.group(1))}<{args}>"
             if "phi_rbf_wide_kernel" in hit.group(1):
                 name = "rbf_wide"
+            bf16 = re.search(
+                r"(?<=\d)(?:fused_)?phi_([a-z_]+_bf16)_kernel(?:ILi(\d+)E)?",
+                hit.group(1))
+            if bf16:
+                name = bf16.group(1) + (f"<{bf16.group(2)}>"
+                                        if bf16.group(2) else "")
             spill = "?"
         hit = re.search(r"(\d+) bytes spill stores", line)
         if hit and name:
@@ -1024,12 +1062,20 @@ def phase_wide_kernels(dev, card, clock, ptxas):
            if lib.svgd_square_splits(*a) != sym_plan.square_splits(*a)]
     check(not off, f"phase 43d: svgd_square_splits and sym_plan."
                    f"square_splits differ at {off}")
+    # K1's bf16 instance keeps the tensor-core plan at every m.
+    bf16_shapes = [(n_t, n_s, m) for n_t in (1, 64, 1000, 10007)
+                   for n_s in (1, 33, 10000) for m in (1, 2, 4, 5, 50, 123)]
+    off = [a for a in bf16_shapes if lib.svgd_square_bf16_splits(*a)
+           != sym_plan.square_splits(*a, bf16=True)]
+    check(not off, f"phase 43d: svgd_square_bf16_splits and sym_plan."
+                   f"square_splits(bf16=True) differ at {off}")
     off = [(m, t) for m in widths for t in (0, 1)
            if lib.svgd_sym_tile(m, t) != sym_plan.sym_tile(m, bool(t))]
     check(not off, f"phase 43d: svgd_sym_tile and sym_plan.sym_tile differ "
                    f"at {off}")
     print(f"phase 43d mirrors: ok svgd_square_splits at {len(shapes)} shapes "
-          f"and svgd_sym_tile at m = {list(widths)} equal sym_plan's")
+          f"(svgd_square_bf16_splits at {len(bf16_shapes)}) and svgd_sym_tile "
+          f"at m = {list(widths)} equal sym_plan's")
     return errs, times
 
 
@@ -1395,8 +1441,8 @@ def f64_sweep(name):
     from svgdcpp_tpu_torch.ops import phi as ph
 
     if name == "phi_rbf_fused_cuda":
-        return lambda c, s, g, thr, sym=None: ph.phi_rbf_fused_counts(
-            c, s, g, thr)
+        return lambda c, s, g, thr, sym=None, dot_dtype="float32": (
+            ph.phi_rbf_fused_counts(c, s, g, thr))
     if name == "phi_rbf_terms_fused_cuda":
         return lambda c, s, gs, signs, thr, sym=None: (
             ph.phi_rbf_terms_fused_counts(c, s, gs, signs, thr))
@@ -1729,6 +1775,608 @@ def phase_wide_p_paths(dev, card, clock):
               f"anisotropic kernel weight a pair={json.dumps(weights)} "
               f"{card} {clock()}")
         out[name] = (counts, kernel, n, d)
+    return out
+
+
+#: Phase 45: the panel sweeps past m = 64 (the wide instances of K3,
+#: K12/K13 and K5, MM = 0). 45a: K3 and K12/K13 (two terms) at
+#: WIDE_PANEL_N particles of grid inputs at each width of WIDE_PANEL_MS,
+#: and K3 and K5's chunks (summed over worlds 1 and 2) at
+#: (WIDE_BIG_N, WIDE_D) and K12/K13 at (WIDE_BIG_N, WIDE_D + 1), each held
+#: to float64 (wide_held) and timed beside the wide triangle at the same
+#: shape; 45b: the main paths with fused_sym="panel" at a9a's width for
+#: COMPARE_STEPS steps each, every sweep call gated against float64.
+WIDE_PANEL_MS = (65, 123, 256)
+WIDE_PANEL_N = 4096
+WIDE_PANEL_INSTANCES = {
+    "fused_phi_counts_sympanel": ("counts_sympanel<0,0,3>",),
+    "fused_phi_terms_sympanel": ("terms_sympanel<0,0,3,0>",),
+    "fused_phi_counts_sympanel_chunk": ("counts_sympanel_chunk<0,0,3>",)}
+
+
+def wide_panel_cases(dev):
+    """Phase 45a's calls: (label, kernel, n, m, terms, the panel call, the
+    wide triangle's call at the same shape (None for K5), the float64 and
+    float32 plain calls); each call returns (phi, counts)."""
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import (
+        phi_rbf_fused_counts,
+        phi_rbf_fused_sym_finish,
+        phi_rbf_terms_fused_counts,
+    )
+
+    def f64(*ts):
+        return [t.double() for t in ts]
+
+    shapes = [(WIDE_PANEL_N, m) for m in WIDE_PANEL_MS] + [(WIDE_BIG_N,
+                                                            WIDE_D)]
+    cases = []
+    for idx, (n, m) in enumerate(shapes):
+        x, s, g, thr = grid_inputs(n, m, 0.0, 451 + idx, dev)
+        cases.append((
+            f"K3 wide ({n}, {m})", cuda_phi.SYMPANEL_KERNEL, n, m, None,
+            lambda x=x, s=s, g=g, thr=thr:
+            cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym="panel"),
+            lambda x=x, s=s, g=g, thr=thr:
+            cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=True),
+            lambda x=x, s=s, g=g, thr=thr:
+            phi_rbf_fused_counts(*f64(x, s, g, thr)),
+            lambda x=x, s=s, g=g, thr=thr: phi_rbf_fused_counts(x, s, g,
+                                                                thr)))
+        mt = m + 1 if n == WIDE_BIG_N else m
+        xt, st_, g, thr = (grid_inputs(n, mt, 0.0, 461 + idx, dev)
+                           if mt != m else (x, s, g, thr))
+        gs, signs = [g, 0.5 * g], (1.0, 1.0)
+        cases.append((
+            f"K12/K13 wide ({n}, {mt}) two terms",
+            cuda_phi.TERMS_SYMPANEL_KERNEL, n, mt, signs,
+            lambda x=xt, s=st_, gs=gs, thr=thr, signs=signs:
+            cuda_phi.phi_rbf_terms_fused_cuda(x, s, gs, signs, thr,
+                                              sym="panel"),
+            lambda x=xt, s=st_, gs=gs, thr=thr, signs=signs:
+            cuda_phi.phi_rbf_terms_fused_cuda(x, s, gs, signs, thr,
+                                              sym=True),
+            lambda x=xt, s=st_, gs=gs, thr=thr, signs=signs:
+            phi_rbf_terms_fused_counts(*f64(x, s), f64(*gs), signs,
+                                       thr.double()),
+            lambda x=xt, s=st_, gs=gs, thr=thr, signs=signs:
+            phi_rbf_terms_fused_counts(x, s, gs, signs, thr)))
+        if n != WIDE_BIG_N:
+            continue
+        for world in (1, 2):
+            cases.append((
+                f"K5 wide chunks ({n}, {m}) world={world}",
+                cuda_phi.SYMPANEL_CHUNK_KERNEL, n, m, None,
+                lambda x=x, s=s, g=g, thr=thr, n=n, world=world:
+                ranks_summed(
+                    lambda w, r: cuda_phi.phi_rbf_sympanel_chunk_cuda(
+                        x, s, g, thr, w, r), world, n,
+                    lambda acc: phi_rbf_fused_sym_finish(acc, s, g, n)),
+                None,
+                lambda x=x, s=s, g=g, thr=thr:
+                phi_rbf_fused_counts(*f64(x, s, g, thr)),
+                lambda x=x, s=s, g=g, thr=thr: phi_rbf_fused_counts(
+                    x, s, g, thr)))
+    return cases
+
+
+def phase_wide_panels(dev, card, clock, ptxas, plain_ms):
+    """Phase 45a (see WIDE_PANEL_MS). Returns ({kernel: max |dphi|},
+    {(kernel, n, m): {"kernel": ms, "kernel_us": us, "full": the wide
+    triangle's ms, "plain": the float32 plain version's ms}})."""
+    errs, times = {}, {}
+    for label, kernel, n, m, terms, kern, tri, want64, want32 in (
+            wide_panel_cases(dev)):
+        abs_err, rel = wide_held(f"45a {label}", kern(), want64(), want32())
+        errs[kernel] = max(errs.get(kernel, 0.0), abs_err)
+        k_us = kernel_us(kern, kernel, calls=5)
+        wrapper = time_ms(kern, reps=10, warmup=2)
+        tri_ms = time_ms(tri, reps=10, warmup=2) if tri else None
+        (fp_ms, fp_by), (tc_ms, tc_by) = wide_bounds(kernel, n, m, terms)
+        if "chunk" not in label or label.endswith("world=1"):
+            times[(kernel, n, m)] = {"kernel": wrapper, "kernel_us": k_us,
+                                     "full": tri_ms,
+                                     "plain": plain_ms(want32)}
+        regs = {inst: ptxas.get(inst, "?")
+                for inst in WIDE_PANEL_INSTANCES[kernel]}
+        beside = (f" full_width_triangle_ms={tri_ms:.4f}" if tri_ms
+                  else "")
+        print(f"phase 45a {label}: ok phi_rel={rel:.3e} count_diff=0 "
+              f"kernel_us={k_us} wrapper_ms={wrapper:.4f}{beside} "
+              f"bound_fp32_ms={fp_ms:.6g} ({fp_by}) bound_tensor_ms="
+              f"{tc_ms:.6g} ({tc_by}) ptxas={json.dumps(regs)} "
+              f"smem_bytes={4 * (9216 + (2 if terms else 1) * 8704 + 256)} "
+              f"{card} {clock()}")
+    return errs, times
+
+
+class CallGate:
+    """Keeps every ``every``-th call of the kernel wrapper ``name`` of
+    ``module`` (its args, kwargs and output) while in a ``with`` block, the
+    wrapper itself still running; ``held(label, plain, phi_gate)`` then
+    holds each kept call to ``plain(*args, **kwargs)`` on the same inputs:
+    phi within ``phi_gate`` of max |phi| (phi may be finished from a raw
+    chunk by ``finish``), the counts within REPLAY_COUNT_SLACK or
+    1e-6 n^2. Returns (calls, max phi_rel, max count_diff)."""
+
+    def __init__(self, module, name, every=1):
+        self.module, self.name, self.every = module, name, every
+        self.calls, self.seen = [], 0
+
+    def __enter__(self):
+        real = self.real = getattr(self.module, self.name)
+
+        def keep(*args, **kwargs):
+            out = real(*args, **kwargs)
+            if self.seen % self.every == 0:
+                self.calls.append((args, kwargs, out))
+            self.seen += 1
+            return out
+        setattr(self.module, self.name, keep)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.real)
+
+    def held(self, label, plain, phi_gate, finish=None):
+        import torch
+
+        worst_rel, worst_cnt = 0.0, 0
+        for idx, (args, kwargs, out) in enumerate(self.calls):
+            want = plain(*args, **kwargs)
+            got, want = ((finish(out, args), finish(want, args)) if finish
+                         else (out, want))
+            torch.cuda.synchronize()
+            phi, phi_w = got[0].double(), want[0].double()
+            rel = float((phi - phi_w).abs().max() / phi_w.abs().max())
+            check(bool(got[0].isfinite().all()) and rel <= phi_gate,
+                  f"{label} call {idx}: phi rel err {rel:.3e} > {phi_gate}")
+            n = args[0].shape[0]
+            bound = max(REPLAY_COUNT_SLACK, 1e-6 * n * n)
+            dcnt = int((got[1] - want[1]).abs().max())
+            check(dcnt <= bound, f"{label} call {idx}: counts differ by "
+                                 f"{dcnt} > {bound:g}")
+            worst_rel, worst_cnt = max(worst_rel, rel), max(worst_cnt, dcnt)
+        return len(self.calls), worst_rel, worst_cnt
+
+
+def phase_wide_panel_paths(dev, card, clock):
+    """Phase 45b: the main paths with fused_sym="panel" past m = 64, at
+    full width, COMPARE_STEPS steps each: the flat BLR driver at
+    (WIDE_BIG_N, WIDE_D) (K3's wide instance only) and the hierarchical
+    BLR at (WIDE_BIG_N, WIDE_D + 1) (K12/K13's), each gated per call
+    (recorded_run and replay_gate: the float64 run's sweep calls replayed
+    in float32 through the kernel); the engine on a one-rank NCCL group on
+    phase 43c's MVN at d = WIDE_D (K5's, every chunk call held to its
+    float64 plain chunk on the same inputs, CallGate), against the driver
+    with fused_sym="panel" within 1e-3. ms a step of each. Returns {path:
+    (launch counts, kernel, n, m, ms a step)}."""
+    import torch
+
+    import svgdcpp_tpu_torch.parallel.sharded as sharded_module
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import (
+        phi_rbf_fused_sym_finish,
+        phi_rbf_sympanel_chunk_counts,
+    )
+    from svgdcpp_tpu_torch.parallel import initialize_distributed
+    from svgdcpp_tpu_torch.utils.workloads import (
+        blr_workload,
+        build_blr_svgd,
+        build_mvn_svgd,
+        build_sharded_mvn_svgd,
+    )
+
+    out = {}
+    n, d = WIDE_BIG_N, WIDE_D
+    for hier in (False, True):
+        m = d + 1 if hier else d
+        feats, labels, x0 = blr_workload(n, d, hierarchical=hier)
+        impl = "fused_terms_cuda" if hier else "fused_cuda"
+        kernel = (cuda_phi.TERMS_SYMPANEL_KERNEL if hier
+                  else cuda_phi.SYMPANEL_KERNEL)
+        wrapper = ("phi_rbf_terms_fused_cuda" if hier
+                   else "phi_rbf_fused_cuda")
+
+        def build(dt, hier=hier, impl=impl, feats=feats, labels=labels,
+                  x0=x0):
+            return build_blr_svgd(torch.tensor(x0, dtype=dt, device=dev),
+                                  feats, labels, hierarchical=hier,
+                                  phi_impl=impl, fused_sym="panel",
+                                  num_iterations=COMPARE_STEPS)
+        cuda_phi.reset_launch_counts()
+        svgd = build(torch.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = svgd.run().double()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / COMPARE_STEPS
+        counts = dict(cuda_phi.launch_counts)
+        check(svgd.fused_sym_form == "panel" and bool(final.isfinite().all()),
+              f"phase 45b BLR hier={hier}: form {svgd.fused_sym_form!r}")
+        require_only(counts, kernel, COMPARE_STEPS,
+                     f"phase 45b BLR hier={hier}")
+        final64, calls = recorded_run(lambda: build(torch.float64), wrapper,
+                                      COMPARE_STEPS)
+        rel, dcnt = replay_gate(f"phase 45b BLR hier={hier}", wrapper, calls)
+        name = "hier" if hier else "flat_blr"
+        print(f"phase 45b {name} N={n} m={m} {impl} fused_sym=panel "
+              f"{COMPARE_STEPS} steps: ok kernel={kernel} launches="
+              f"{json.dumps(counts)} ms_per_step={ms:.4f} (host clock, "
+              f"synced); per-call replay of the float64 run's {len(calls)} "
+              f"sweeps: max phi_rel={rel:.3e} (gate {WIDE_PHI_GATE}) max "
+              f"count_diff={dcnt}; not gated: coords_max_abs_diff from "
+              f"float64={float((final - final64).abs().max()):.3e} {card} "
+              f"{clock()}")
+        out[name] = (counts, kernel, n, m, ms)
+
+    group = initialize_distributed(f"tcp://localhost:{free_port()}", 1, 0)
+    check(group.backend == "nccl", f"one-rank group on {group.backend!r}")
+    mean, cov, x0 = wide_mvn(n, d, 490)
+    driver = build_mvn_svgd(torch.tensor(x0, device=dev), mean, cov,
+                            phi_impl="fused_cuda", fused_sym="panel",
+                            num_iterations=COMPARE_STEPS).run().double()
+    eng = build_sharded_mvn_svgd(x0, mean, cov, group, fused_sym="panel")
+    check(eng._fused_cuda and eng._fused_sym == "panel",
+          f"phase 45b engine: fused_cuda={eng._fused_cuda} fused_sym="
+          f"{eng._fused_sym!r}")
+    cuda_phi.reset_launch_counts()
+    with CallGate(sharded_module, "phi_rbf_sympanel_chunk_cuda") as gate:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = eng.run(x0, COMPARE_STEPS).double()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / COMPARE_STEPS
+    counts = dict(cuda_phi.launch_counts)
+    kernel = cuda_phi.SYMPANEL_CHUNK_KERNEL
+    require_only(counts, kernel, COMPARE_STEPS, "phase 45b engine")
+    diff = float((final - driver).abs().max())
+    check(bool(final.isfinite().all()) and diff <= 1e-3,
+          f"phase 45b engine: {diff:.3e} from the driver")
+
+    def plain64(c, s, g, thr, world, rank):
+        acc, upper = phi_rbf_sympanel_chunk_counts(
+            c.double(), s.double(), g.double(), thr.double(), world, rank)
+        return acc, upper
+
+    def finish(out_, args):
+        c, s, g = args[0], args[1], args[2]
+        acc, upper = out_
+        return (phi_rbf_fused_sym_finish(acc.double(), s.double(),
+                                         g.double(), c.shape[0]),
+                2 * upper - c.shape[0])
+    kept, rel, dcnt = gate.held("phase 45b engine", plain64, WIDE_PHI_GATE,
+                                finish)
+    print(f"phase 45b engine N={n} m={d} one NCCL rank fused_sym=panel "
+          f"{COMPARE_STEPS} steps: ok kernel={kernel} launches="
+          f"{json.dumps(counts)} ms_per_step={ms:.4f} (host clock, synced); "
+          f"each of its {kept} chunk calls against its float64 plain chunk: "
+          f"max phi_rel={rel:.3e} (gate {WIDE_PHI_GATE}) max count_diff="
+          f"{dcnt}; vs the driver (fused_sym=panel) coords_max_abs_diff="
+          f"{diff:.3e} {card} {clock()}")
+    out["engine"] = (counts, kernel, n, d, ms)
+    torch.distributed.destroy_process_group()
+    return out
+
+
+#: Phase 46: the bfloat16 operand opt-in. 46a: each bf16 instance at
+#: BF16_SHAPES (K1's cross form at a two-rank mesh's 5000 rows and at the
+#: one-rank mesh's 10,000 of 46b) against its bf16 plain version on the card (float32 with
+#: the same roundings) within BF16_GATE of max |phi|, counts within
+#: REPLAY_COUNT_SLACK or 1e-6 n_t n, and against the float32 plain
+#: version within BF16_F32_GATE (the JAX package's bf16 bound,
+#: tests/test_pallas.py:289, at its fixed gamma = 0.6 and n = 200-300) or,
+#: where the bf16 function itself (its plain version) stands farther from
+#: float32, within that distance plus BF16_GATE: at the median bandwidth
+#: of N = 10,000, gamma = log(n) / med = 3.3 at m = 2, the bf16 rounding of
+#: sq (2^-8 of |x_i| |x_j|) moves k by up to 5%, and the function stood
+#: 3.3e-2 from float32 at (5000 x 10000, 2) on an H100; 46b: the flagship
+#: on auto (K2's bf16
+#: instance) for BF16_FLAGSHIP_STEPS iterations, the flat BLR (K1's), the
+#: flagship with fused_sym="panel" at BF16_PANEL_N (K3's) and the flagship
+#: driver under a one-rank NCCL mesh (K1's cross form), COMPARE_STEPS
+#: steps each, every sweep call (every BF16_EVERY-th on the flagship, every
+#: fourth on the panel path) held to its bf16 plain version as in 46a.
+BF16_GATE = 1e-3
+BF16_F32_GATE = 3e-2
+BF16_SHAPES = {"K1": ((1000, 50),),
+               "K1 cross": ((5000, 10000, 2), (10000, 10000, 2)),
+               "K2": ((10000, 2), (10000, 123)),
+               "K3": ((32768, 2), (10000, 123)),
+               "K15": ((1500, 2), (10240, 123))}
+BF16_FLAGSHIP_STEPS, BF16_EVERY, BF16_PANEL_N = 1000, 50, 32768
+BF16 = "bfloat16"
+
+
+def bf16_plain(name):
+    """The bf16 plain version (ops/phi) of the kernel wrapper ``name``
+    under the wrapper's signature, on the card."""
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops import phi as ph
+
+    if name == "phi_rbf_fused_cuda":
+        def fused(c, s, g, thr, sym=None, panel_blocks=None,
+                  dot_dtype="float32"):
+            form = cuda_phi.resolve_sym(sym, c.shape[0], c.shape[1])
+            if form == "panel":
+                return ph.phi_rbf_sympanel_fused_counts(
+                    c, s, g, thr, panel_blocks, dot_dtype=dot_dtype)
+            if form:
+                return ph.phi_rbf_sym_fused_counts(c, s, g, thr, dot_dtype)
+            return ph.phi_rbf_fused_counts(c, s, g, thr, dot_dtype=dot_dtype)
+        return fused
+    if name == "phi_rbf_fused_cuda_cross":
+        return lambda t, c, s, g, thr, dot_dtype="float32": (
+            ph.phi_rbf_cross_fused_counts(t, c, s, g, thr,
+                                          dot_dtype=dot_dtype))
+    raise ValueError(name)
+
+
+def bf16_cases(dev):
+    """Phase 46a's calls: (label, kernel, n, m, n_t, the bf16 kernel's call,
+    the float32 kernel's call, the bf16 plain call, the float32 plain
+    call); each returns (phi, counts or None)."""
+    import torch
+
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops import phi as ph
+
+    fused, cross = bf16_plain("phi_rbf_fused_cuda"), bf16_plain(
+        "phi_rbf_fused_cuda_cross")
+    cases = []
+    for key, shapes in BF16_SHAPES.items():
+        for idx, shape in enumerate(shapes):
+            n, m = shape[-2:]
+            x, s, g, thr = inputs_for(n, m, 0.0, 470 + 7 * idx + m, dev)
+            if key == "K1 cross":
+                n_t = shape[0]
+                xt = x[:n_t].contiguous()
+                cases.append((
+                    f"K1 bf16 cross ({n_t} x {n}, {m})",
+                    cuda_phi.SQUARE_BF16_KERNEL, n, m, n_t,
+                    *[(lambda f, dd, xt=xt, x=x, s=s, g=g, thr=thr:
+                       (lambda: f(xt, x, s, g, thr, dot_dtype=dd)))(f, dd)
+                      for f, dd in ((cuda_phi.phi_rbf_fused_cuda_cross, BF16),
+                                    (cuda_phi.phi_rbf_fused_cuda_cross,
+                                     "float32"), (cross, BF16),
+                                    (cross, "float32"))]))
+                continue
+            if key == "K15":
+                p = (torch.eye(m, device=dev) * g if m <= 4
+                     else wide_p_ps("pd", m, 1, 471, g, dev)[0])
+                half = 0.5 * (p + p.T).double()
+                cases.append((
+                    f"K15 bf16 ({n}, {m})", cuda_phi.PHI_RBF_WIDE_BF16_KERNEL,
+                    n, m, None,
+                    lambda x=x, s=s, p=p: (cuda_phi.phi_rbf_cuda(
+                        x, s, p, dot_dtype=BF16), None),
+                    lambda x=x, s=s, p=p: (cuda_phi.phi_rbf_cuda(x, s, p),
+                                           None),
+                    lambda x=x, s=s, half=half: (ph.phi_rbf_gram(
+                        x, s, half, dot_dtype=BF16), None),
+                    lambda x=x, s=s, half=half: (ph.phi_rbf_gram(x, s, half),
+                                                 None)))
+                continue
+            sym = {"K1": False, "K2": True, "K3": "panel"}[key]
+            kernel = {"K1": cuda_phi.SQUARE_BF16_KERNEL,
+                      "K2": cuda_phi.SYM_BF16_KERNEL,
+                      "K3": cuda_phi.SYMPANEL_BF16_KERNEL}[key]
+            cases.append((
+                f"{key} bf16 ({n}, {m}){' forced panel' if key == 'K3' else ''}",
+                kernel, n, m, None,
+                *[(lambda f, dd, x=x, s=s, g=g, thr=thr, sym=sym:
+                   (lambda: f(x, s, g, thr, sym=sym, dot_dtype=dd)))(f, dd)
+                  for f, dd in ((cuda_phi.phi_rbf_fused_cuda, BF16),
+                                (cuda_phi.phi_rbf_fused_cuda, "float32"),
+                                (fused, BF16), (fused, "float32"))]))
+    return cases
+
+
+def bf16_bounds(kernel, n, m, n_t=None):
+    """(FP32 bound, tensor-core bound at the bf16 peak) of a bf16
+    instance's call, each (ms, bound_by)."""
+    from svgdcpp_tpu_torch.ops import cuda_phi
+
+    fp32 = sweep_bound(kernel, n, m, n_t=n_t)
+    if kernel == cuda_phi.SQUARE_BF16_KERNEL:
+        return fp32, square_tensor_bound(n, m, n_t=n_t, bf16=True)
+    return fp32, tri_tensor_bound(
+        n, m, fixed_p=kernel == cuda_phi.PHI_RBF_WIDE_BF16_KERNEL, bf16=True)
+
+
+def phase_bf16_kernels(dev, card, clock, ptxas, plain_ms):
+    """Phase 46a (see BF16_GATE). Returns ({kernel: max |dphi| against the
+    bf16 plain version}, {(kernel, n, m): times}, {kernel: launches of the
+    phase's own calls})."""
+    import torch
+
+    from svgdcpp_tpu_torch.ops import cuda_phi
+
+    errs, times, launched = {}, {}, {}
+    for label, kernel, n, m, n_t, kern, kern32, plain, plain32 in (
+            bf16_cases(dev)):
+        cuda_phi.reset_launch_counts()
+        got = kern()
+        launched[kernel] = launched.get(kernel, 0) + cuda_phi.launch_counts[
+            kernel]
+        want, want32 = plain(), plain32()
+        torch.cuda.synchronize()
+        phi, phi_w, phi_32 = got[0].double(), want[0].double(), \
+            want32[0].double()
+        check(bool(got[0].isfinite().all()), f"phase 46a {label}: non-finite")
+        abs_err = float((phi - phi_w).abs().max())
+        rel = abs_err / float(phi_w.abs().max())
+        rel32 = float((phi - phi_32).abs().max() / phi_32.abs().max())
+        rel_fn = float((phi_w - phi_32).abs().max() / phi_32.abs().max())
+        gate32 = max(BF16_F32_GATE, rel_fn + BF16_GATE)
+        check(rel <= BF16_GATE, f"phase 46a {label}: phi rel err {rel:.3e} "
+                                f"from the bf16 plain version > {BF16_GATE}")
+        check(rel32 <= gate32,
+              f"phase 46a {label}: phi rel err {rel32:.3e} from the float32 "
+              f"plain version > {gate32:.3e}")
+        cnt = ""
+        if got[1] is not None:
+            bound = max(REPLAY_COUNT_SLACK, 1e-6 * (n_t or n) * n)
+            dcnt = int((got[1] - want[1]).abs().max())
+            d32 = int((got[1] - want32[1]).abs().max())
+            check(dcnt <= bound, f"phase 46a {label}: counts differ by "
+                                 f"{dcnt} > {bound:g}")
+            cnt = f" count_diff={dcnt} count_diff_vs_float32={d32}"
+        errs[kernel] = max(errs.get(kernel, 0.0), abs_err)
+        t = {"kernel": time_ms(kern, reps=10, warmup=2),
+             "kernel_us": kernel_us(kern, kernel, calls=5),
+             "f32": time_ms(kern32, reps=10, warmup=2),
+             "plain": plain_ms(plain)}
+        times[(kernel, n, m)] = t
+        (fp_ms, fp_by), (tc_ms, tc_by) = bf16_bounds(kernel, n, m, n_t)
+        regs = {k: v for k, v in ptxas.items()
+                if k.startswith(kernel.removeprefix("fused_phi_")
+                                .removeprefix("phi_"))}
+        print(f"phase 46a {label}: ok phi_rel={rel:.3e} (gate {BF16_GATE}) "
+              f"phi_rel_vs_float32={rel32:.3e} (gate {gate32:.3e}; the bf16 "
+              f"plain version's own {rel_fn:.3e}){cnt} "
+              f"wrapper_ms={t['kernel']:.4f} kernel_us={t['kernel_us']} "
+              f"float32_instance_ms={t['f32']:.4f} bf16_plain_ms="
+              f"{t['plain']:.4f} bound_fp32_ms={fp_ms:.6g} ({fp_by}) "
+              f"bound_bf16_tensor_ms={tc_ms:.6g} ({tc_by}) "
+              f"ptxas={json.dumps(regs)} {card} {clock()}")
+    return errs, times, launched
+
+
+def phase_bf16_paths(dev, card, clock):
+    """Phase 46b (see BF16_GATE). Returns {path: (launch counts, kernel, n,
+    m, ms a step)}."""
+    import torch
+
+    import numpy as np
+    import torch
+
+    import svgdcpp_tpu_torch.parallel.sharded as sharded_module
+    import svgdcpp_tpu_torch.svgd as driver_module
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.parallel import initialize_distributed
+    from svgdcpp_tpu_torch.utils.workloads import (
+        blr_workload,
+        build_blr_svgd,
+        build_mvn_svgd,
+        flagship_mvn,
+    )
+
+    def steps_run(svgd, steps):
+        """(final coordinates, launch counts, ms a step by the host clock
+        around synchronised runs)."""
+        cuda_phi.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = svgd.run().double()
+        torch.cuda.synchronize()
+        return (final, dict(cuda_phi.launch_counts),
+                (time.perf_counter() - t0) * 1e3 / steps)
+
+    out = {}
+    n = SHARDED_N
+    mean, cov, x0 = flagship_mvn(n, dtype=np.float32)
+    metrics = {}
+    for dd in ("float32", BF16):
+        svgd = build_mvn_svgd(torch.tensor(x0, device=dev), mean, cov,
+                              num_iterations=BF16_FLAGSHIP_STEPS,
+                              fused_dot_dtype=dd)
+        check(svgd._phi_impl == "fused_cuda" and svgd.fused_sym_form is True,
+              f"phase 46b flagship {dd}: {svgd._phi_impl!r} "
+              f"{svgd.fused_sym_form!r}")
+        if dd == BF16:
+            with CallGate(driver_module, "phi_rbf_fused_cuda",
+                          BF16_EVERY) as gate:
+                final, counts, ms = steps_run(svgd, BF16_FLAGSHIP_STEPS)
+        else:
+            final, counts, ms32 = steps_run(svgd, BF16_FLAGSHIP_STEPS)
+        check(bool(final.isfinite().all()), f"phase 46b flagship {dd}")
+        metrics[dd] = posterior_metrics(final.cpu().numpy(), mean, cov)
+    require_only(counts, cuda_phi.SYM_BF16_KERNEL, BF16_FLAGSHIP_STEPS,
+                 "phase 46b flagship bf16")
+    kept, rel, dcnt = gate.held("phase 46b flagship",
+                                bf16_plain("phi_rbf_fused_cuda"), BF16_GATE)
+    print(f"phase 46b flagship N={n} d=2 auto fused_dot_dtype=bfloat16 "
+          f"{BF16_FLAGSHIP_STEPS} iters: ok kernel={cuda_phi.SYM_BF16_KERNEL} "
+          f"launches={json.dumps(counts)} ms_per_step={ms:.4f} "
+          f"(float32 route {ms32:.4f}; host clock, synced); {kept} sweep "
+          f"calls against the bf16 plain version: max phi_rel={rel:.3e} "
+          f"(gate {BF16_GATE}) max count_diff={dcnt}; not gated: bf16 "
+          f"{json.dumps(metrics[BF16])} float32 "
+          f"{json.dumps(metrics['float32'])} {card} {clock()}")
+    out["flagship"] = (counts, cuda_phi.SYM_BF16_KERNEL, n, 2, ms)
+
+    feats, labels, xb = blr_workload(1000, 50)
+    svgd = build_blr_svgd(torch.tensor(xb, device=dev), feats, labels,
+                          num_iterations=COMPARE_STEPS, fused_dot_dtype=BF16)
+    with CallGate(driver_module, "phi_rbf_fused_cuda") as gate:
+        final, counts, ms = steps_run(svgd, COMPARE_STEPS)
+    check(bool(final.isfinite().all()) and svgd.fused_sym_form is False,
+          "phase 46b flat BLR bf16")
+    require_only(counts, cuda_phi.SQUARE_BF16_KERNEL, COMPARE_STEPS,
+                 "phase 46b flat BLR bf16")
+    kept, rel, dcnt = gate.held("phase 46b flat BLR",
+                                bf16_plain("phi_rbf_fused_cuda"), BF16_GATE)
+    acc = blr_accuracy(final.cpu().numpy(), feats, labels)
+    print(f"phase 46b flat BLR N=1000 d=50 fused_dot_dtype=bfloat16 "
+          f"{COMPARE_STEPS} steps: ok kernel={cuda_phi.SQUARE_BF16_KERNEL} "
+          f"launches={json.dumps(counts)} ms_per_step={ms:.4f} (host "
+          f"clock, synced); {kept} calls against the bf16 plain version: "
+          f"max phi_rel={rel:.3e} max count_diff={dcnt}; train_accuracy="
+          f"{acc:.4f} {card} {clock()}")
+    out["flat_blr"] = (counts, cuda_phi.SQUARE_BF16_KERNEL, 1000, 50, ms)
+
+    mean_p, cov_p, xp = flagship_mvn(BF16_PANEL_N, dtype=np.float32)
+    svgd = build_mvn_svgd(torch.tensor(xp, device=dev), mean_p, cov_p,
+                          fused_sym="panel", num_iterations=COMPARE_STEPS,
+                          fused_dot_dtype=BF16)
+    with CallGate(driver_module, "phi_rbf_fused_cuda", 4) as gate:
+        final, counts, ms = steps_run(svgd, COMPARE_STEPS)
+    check(bool(final.isfinite().all()) and svgd.fused_sym_form == "panel",
+          "phase 46b flagship panel bf16")
+    require_only(counts, cuda_phi.SYMPANEL_BF16_KERNEL, COMPARE_STEPS,
+                 "phase 46b flagship panel bf16")
+    kept, rel, dcnt = gate.held("phase 46b flagship panel",
+                                bf16_plain("phi_rbf_fused_cuda"), BF16_GATE)
+    print(f"phase 46b flagship N={BF16_PANEL_N} fused_sym=panel "
+          f"fused_dot_dtype=bfloat16 {COMPARE_STEPS} steps: ok kernel="
+          f"{cuda_phi.SYMPANEL_BF16_KERNEL} launches={json.dumps(counts)} "
+          f"ms_per_step={ms:.4f} (host clock, synced); {kept} calls against "
+          f"the bf16 plain version: max phi_rel={rel:.3e} max count_diff="
+          f"{dcnt} {card} {clock()}")
+    out["flagship_panel"] = (counts, cuda_phi.SYMPANEL_BF16_KERNEL,
+                             BF16_PANEL_N, 2, ms)
+
+    group = initialize_distributed(f"tcp://localhost:{free_port()}", 1, 0)
+    check(group.backend == "nccl", f"one-rank group on {group.backend!r}")
+    for sym in (True, "full", "panel"):
+        try:
+            build_mvn_svgd(torch.tensor(x0, device=dev), mean, cov,
+                           mesh=group, fused_sym=sym, fused_dot_dtype=BF16)
+        except ValueError:
+            continue
+        check(False, f"phase 46b mesh: fused_sym={sym!r} under bf16 ran")
+    svgd = build_mvn_svgd(torch.tensor(x0, device=dev), mean, cov,
+                          mesh=group, num_iterations=COMPARE_STEPS,
+                          fused_dot_dtype=BF16)
+    with CallGate(sharded_module, "phi_rbf_fused_cuda_cross") as gate:
+        final, counts, ms = steps_run(svgd, COMPARE_STEPS)
+    check(bool(final.isfinite().all()) and svgd.fused_sym_form is False,
+          "phase 46b mesh bf16")
+    require_only(counts, cuda_phi.SQUARE_BF16_KERNEL, COMPARE_STEPS,
+                 "phase 46b flagship under a mesh bf16")
+    kept, rel, dcnt = gate.held("phase 46b mesh",
+                                bf16_plain("phi_rbf_fused_cuda_cross"),
+                                BF16_GATE)
+    print(f"phase 46b flagship N={n} under a one-rank NCCL mesh "
+          f"fused_dot_dtype=bfloat16 {COMPARE_STEPS} steps: ok form=False "
+          f"(the cross sweep; forced triangles raise) kernel="
+          f"{cuda_phi.SQUARE_BF16_KERNEL} launches={json.dumps(counts)} "
+          f"ms_per_step={ms:.4f} (host clock, synced); {kept} calls against "
+          f"the bf16 plain version: max phi_rel={rel:.3e} max count_diff="
+          f"{dcnt} {card} {clock()}")
+    out["mesh"] = (counts, cuda_phi.SQUARE_BF16_KERNEL, n, 2, ms)
+    torch.distributed.destroy_process_group()
     return out
 
 
@@ -4475,6 +5123,16 @@ def main() -> int:
     times44 = phase_wide_p_shapes(dev, card, clock, plain_ms, wide_p_errs)
     main44 = phase_wide_p_paths(dev, card, clock)
 
+    # -- phase 45: the panel sweeps past m = 64 -------------------------------
+    panel_errs, times45 = phase_wide_panels(dev, card, clock, ptxas,
+                                            plain_ms)
+    main45 = phase_wide_panel_paths(dev, card, clock)
+
+    # -- phase 46: the bfloat16 operand opt-in --------------------------------
+    bf16_errs, times46, launched46 = phase_bf16_kernels(dev, card, clock,
+                                                        ptxas, plain_ms)
+    main46 = phase_bf16_paths(dev, card, clock)
+
     def main_path(phase, kernel, n, m, launches, times, **work):
         bound_ms, bound_by = sweep_bound(kernel, n, m, **work)
         path = {"phase": phase, "n": n, "m": m, "launches": launches,
@@ -4634,6 +5292,36 @@ def main() -> int:
         print(f"{kernel} phase 44 {name} n={n44} m={m44}: bound_ms="
               f"{path['bound_ms']:.6g} ({path['bound_by']}, FP32), on the "
               f"TF32 tensor cores {tensor[0]:.6g} ({tensor[1]})")
+    # Phase 45's paths: the panels' wide instances at a9a's width, forced
+    # (fused_sym="panel"), timed in phase 45a beside the wide triangles.
+    for counts, kernel, n45, m45, ms45 in main45.values():
+        n_iso = 2 if kernel == t_sp else 1
+        path = main_path(45, kernel, n45, m45, counts[kernel],
+                         times45[(kernel, n45, m45)], n_iso=n_iso)
+        path["kernel_us"] = times45[(kernel, n45, m45)]["kernel_us"]
+        path["ms_per_step"] = ms45
+        tensor = tri_tensor_bound(n45, m45,
+                                  n_terms=2 if kernel == t_sp else None)
+        path["tensor_bound_ms"] = tensor[0]
+        paths[kernel].append(path)
+    # Phase 46's paths: the bf16 instances (K15's has no driver route, as
+    # in the JAX package: its launches are phase 46a's own calls).
+    sq16, sym16 = cuda_phi.SQUARE_BF16_KERNEL, cuda_phi.SYM_BF16_KERNEL
+    sp16, k15_16 = (cuda_phi.SYMPANEL_BF16_KERNEL,
+                    cuda_phi.PHI_RBF_WIDE_BF16_KERNEL)
+    for name in ("flat_blr", "mesh", "flagship", "flagship_panel"):
+        counts, kernel, n46, m46, ms46 = main46[name]
+        path = main_path(46, kernel, n46, m46, counts[kernel],
+                         times46[(kernel, n46, m46)])
+        path["ms_per_step"] = ms46
+        path["tensor_bound_ms"] = bf16_bounds(kernel, n46, m46)[1][0]
+        paths.setdefault(kernel, []).append(path)
+    t15 = times46[(k15_16, 10240, WIDE_D)]
+    paths[k15_16] = [main_path(46, k15_16, 10240, WIDE_D, launched46[k15_16],
+                               t15)]
+    paths[k15_16][0]["launches_from"] = (
+        "phase 46a's direct calls of phi_rbf_cuda(..., dot_dtype="
+        "'bfloat16'): no driver route passes the option to K15")
     # The decomposition beside K15 on the HESSIAN path, one launch a step.
     eig_bound = eigen_bound(11)
     paths[eig] = [{"phase": 18, "n": 10240, "m": 11,
@@ -4660,6 +5348,10 @@ def main() -> int:
     terms_sym_err = max(terms_sym_err, wide_errs[t_sym])
     sym_chunk_err = max(sym_chunk_err, wide_errs[k4])
     terms_chunk_err = max(terms_chunk_err, wide_errs[k10])
+    # The panels' errors include phase 45a's (their wide instances).
+    sympanel_err = max(sympanel_err, panel_errs[sp])
+    terms_panel_err = max(terms_panel_err, panel_errs[t_sp])
+    panel_chunk_err = max(panel_chunk_err, panel_errs[k5])
     pallas = "svgdcpp_tpu/ops/pallas_phi.py"
     print(card)  # again beside the numbers, at the end of the output
     print(json.dumps({"kernels": [
@@ -4693,6 +5385,16 @@ def main() -> int:
               panel_chunk_err),
         entry(k16, "count_le.cu", f"{pallas}:1839", ["K16"],
               float(count_err)),
+        # The bfloat16 opt-in's instances (phase 46; the error against
+        # their bf16 plain versions).
+        entry(sq16, "fused_phi.cu", f"{pallas}:365", ["K1"],
+              bf16_errs[sq16]),
+        entry(sym16, "fused_phi.cu", f"{pallas}:546", ["K2"],
+              bf16_errs[sym16]),
+        entry(sp16, "fused_phi_panel.cu", f"{pallas}:860", ["K3"],
+              bf16_errs[sp16]),
+        entry(k15_16, "phi_rbf.cu", f"{pallas}:116", ["K15"],
+              bf16_errs[k15_16]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

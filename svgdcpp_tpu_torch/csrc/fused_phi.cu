@@ -33,6 +33,15 @@
 // (wide_tri.cuh), both on the tensor cores. ptxas's report (-Xptxas -v,
 // kept in the build log) says whether an instance spills.
 //
+// The bfloat16 operand opt-in (the JAX package's dot_dtype='bfloat16',
+// pallas_phi.py:406 and :619) has instances of its own, at every m >= 1:
+// K1's on square_wide_body and K2's on wide_tri_body, each with kBf16
+// (Gram operands, weights and records rounded to bf16, one TF32 pass a
+// product, the norms and the epilogue's x_i in float32; square_mma.cuh).
+// The JAX kernels take the Gram form under bf16 at every m, so the
+// CUDA-core and micro-tile bodies, which form sq from differences, have
+// no bf16 instance.
+//
 // The kernels allocate nothing: the wrapper (ops/cuda_phi.py) passes zeroed
 // count and accumulator buffers and the square sweep's workspace. Each
 // entry point returns cudaGetLastError() after its launches.
@@ -120,6 +129,21 @@ __global__ void __launch_bounds__(kSqMmaThreads)
   }
 }
 
+// K1's bf16 instance (every m): the wide body with kBf16, kT thresholds.
+template <int kT>
+__global__ void __launch_bounds__(kSqMmaThreads)
+    fused_phi_counts_square_bf16_kernel(
+        const float* __restrict__ targets, const float* __restrict__ sources,
+        const float* __restrict__ scores, const float* __restrict__ gamma,
+        const float* __restrict__ thr, int n_t, int n_s, int m, int T,
+        int chunk, float* __restrict__ work,
+        unsigned long long* __restrict__ counts) {
+  const OneRbf weights{-gamma[0] * kLog2e};
+  float* part = work + static_cast<size_t>(blockIdx.y) * n_t * (2 * m + 1);
+  square_wide_body<kT, true>(targets, sources, scores, weights, thr, n_t,
+                             n_s, m, T, chunk, part, counts);
+}
+
 // The finishing pass: D scaled by 2 gamma.
 __global__ void fused_phi_counts_square_finish_kernel(
     const float* __restrict__ work, int splits, int n_t, int m, int rowsum,
@@ -127,6 +151,18 @@ __global__ void fused_phi_counts_square_finish_kernel(
     int n_s, float* __restrict__ phi) {
   square_finish(work, splits, n_t, m, rowsum, 2.0f * gamma[0], targets, n_s,
                 phi);
+}
+
+void launch_square_finish(const float* work, int splits, int n_t, int m,
+                          int rowsum, const float* gamma,
+                          const float* targets, int n_s, float* phi,
+                          cudaStream_t s) {
+  const long long outs = static_cast<long long>(n_t) * m;
+  fused_phi_counts_square_finish_kernel<<<
+      static_cast<unsigned int>((outs + kSqFinishThreads - 1) /
+                                kSqFinishThreads),
+      kSqFinishThreads, 0, s>>>(work, splits, n_t, m, rowsum, gamma, targets,
+                                n_s, phi);
 }
 
 template <int MM, bool kExact>
@@ -220,6 +256,21 @@ __device__ __forceinline__ void counts_tri(
     micro_tri_body<MM, kExact, kT>(coords, scores, weights, thr, n, m_arg, T,
                                    nb, t0, acc, counts);
   }
+}
+
+// K2's bf16 instance (every m): the wide body with kBf16, the whole
+// triangle of tiles of kWideTile.
+template <int kT>
+__global__ void __launch_bounds__(kWideTriThreads)
+    fused_phi_counts_sym_bf16_kernel(const float* __restrict__ coords,
+                                     const float* __restrict__ scores,
+                                     const float* __restrict__ gamma,
+                                     const float* __restrict__ thr, int n,
+                                     int m, int T, int nb,
+                                     float* __restrict__ acc,
+                                     unsigned long long* __restrict__ counts) {
+  wide_tri_body<kT, true>(coords, scores, OneRbf{-gamma[0] * kLog2e}, thr, n,
+                          m, T, nb, 0LL, acc, counts);
 }
 
 template <int MM, bool kExact, int kT>
@@ -363,12 +414,51 @@ int svgd_fused_phi_counts_square(const float* targets, const float* sources,
     SVGD_DISPATCH_SQ_CUDA_CORES(m, SVGD_LAUNCH_SQUARE)
 #undef SVGD_LAUNCH_SQUARE
   }
-  const long long outs = static_cast<long long>(n_t) * m;
-  fused_phi_counts_square_finish_kernel<<<
-      static_cast<unsigned int>((outs + kSqFinishThreads - 1) /
-                                kSqFinishThreads),
-      kSqFinishThreads, 0, s>>>(work, splits, n_t, m, tensor ? 1 : 0, gamma,
-                                targets, n_s, phi);
+  launch_square_finish(work, splits, n_t, m, tensor ? 1 : 0, gamma, targets,
+                       n_s, phi, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The split count of K1's bf16 instance (svgd_fused_phi_counts_square_bf16),
+// whose wide body keeps the tensor-core plan at every m; -1 as
+// svgd_square_splits. ops/sym_plan.square_splits(..., bf16=True) mirrors
+// it.
+int svgd_square_bf16_splits(int n_t, int n_s, int m) {
+  if (n_t <= 0 || n_s <= 0 || m < 1) return -1;
+  int splits = 0;
+  square_chunk(n_t, n_s, true, &splits);
+  return splits;
+}
+
+// K1's bf16 instance: the arguments as svgd_fused_phi_counts_square's, at
+// any m >= 1, splits = svgd_square_bf16_splits(n_t, n_s, m). No alignment
+// is required (the wide body reads device memory directly).
+int svgd_fused_phi_counts_square_bf16(const float* targets,
+                                      const float* sources,
+                                      const float* scores, const float* gamma,
+                                      const float* thr, int n_t, int n_s,
+                                      int m, int T, float* phi,
+                                      long long* counts, float* work,
+                                      int splits, void* stream) {
+  if (n_t <= 0 || n_s <= 0 || T < 1 || T > kMaxT || m < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int want = 0;
+  const int chunk = square_chunk(n_t, n_s, true, &want);
+  if (splits != want) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* c = reinterpret_cast<unsigned long long*>(counts);
+  const dim3 grid((n_t + kSqMmaRows - 1) / kSqMmaRows, splits,
+                  wide_square_chunks(m, false));
+  if (T == 3) {
+    fused_phi_counts_square_bf16_kernel<3><<<grid, kSqMmaThreads, 0, s>>>(
+        targets, sources, scores, gamma, thr, n_t, n_s, m, T, chunk, work, c);
+  } else {
+    fused_phi_counts_square_bf16_kernel<kMaxT>
+        <<<grid, kSqMmaThreads, 0, s>>>(targets, sources, scores, gamma, thr,
+                                        n_t, n_s, m, T, chunk, work, c);
+  }
+  launch_square_finish(work, splits, n_t, m, 1, gamma, targets, n_s, phi, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -395,6 +485,33 @@ int svgd_fused_phi_counts_sym(const float* coords, const float* scores,
   SVGD_DISPATCH_M(m, SVGD_LAUNCH_SYM)
 #undef SVGD_LAUNCH_SYM
   return static_cast<int>(cudaGetLastError());
+}
+
+// K2's bf16 instance: the arguments as svgd_fused_phi_counts_sym's, at any
+// m >= 1, the whole triangle in tiles of kWideTile.
+int svgd_fused_phi_counts_sym_bf16(const float* coords, const float* scores,
+                                   const float* gamma, const float* thr,
+                                   int n, int m, int T, float* acc,
+                                   long long* counts, void* stream) {
+  if (n <= 0 || m < 1 || T < 1 || T > kMaxT) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long pairs = upper_pairs(n, kWideTile);
+  if (pairs < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = (n + kWideTile - 1) / kWideTile;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* c = reinterpret_cast<unsigned long long*>(counts);
+  const unsigned int blocks = static_cast<unsigned int>(pairs);
+  const size_t smem = WideTri::smem_bytes(1);
+  auto go = [&](auto* kernel) {
+    const cudaError_t err = wide_tri_prepare(kernel, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<blocks, kWideTriThreads, smem, s>>>(coords, scores, gamma, thr,
+                                                 n, m, T, nb, acc, c);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return T == 3 ? go(&fused_phi_counts_sym_bf16_kernel<3>)
+                : go(&fused_phi_counts_sym_bf16_kernel<kMaxT>);
 }
 
 // One rank's chunk of the upper-triangle sweep: tiles [t0, t0 + count) of

@@ -119,6 +119,25 @@
 // chunks before it hold no pair j >= i) and masks j < i on it; the self
 // pairs enter both halves. Rows and columns past n are bounds checks.
 //
+// The wide panel body (m > 64, kMaxM, the instance MM = kWideMM of every
+// panel kernel; and the bfloat16 opt-in's K3 instance at any m): the rows
+// above hold m values in registers and would spill past 64, so the panels
+// there run the wide triangles' tensor-core body (wide_tri.cuh,
+// wide_pair_body: 4 warps on one 64 x 64 tile pair, the Gram tile by
+// slices of coordinates, the weights once a pair, both contractions,
+// nothing sized by m) on the tile pairs of a panel. What differs from the
+// triangles is where a block works and where it flushes, the body's
+// WideSpot, which panel_spot below gives: the grid is (tile pairs of a
+// panel, panels); an off-diagonal panel takes all (W/64)^2 tile pairs
+// (a, b), a diagonal one only a <= b, in the triangle's order (the blocks
+// past them return at once), with the self pairs pinned to 0 on its
+// diagonal tile pairs only; rows of I flush into half 0 of the panel's
+// window and columns of J into half 1, each at its offset in its
+// super-block. Tiles wholly past n return at once. One RBF takes one
+// weight tile (72.7 KB of dynamic shared memory), terms two (107.5 KB).
+// On a diagonal panel about half the blocks return at once, 1/(2 nb) of
+// all: the wide panel does the triangle's work plus that launch waste.
+//
 // Each entry point returns cudaGetLastError() after its launch.
 
 #include <limits.h>
@@ -126,6 +145,7 @@
 #include <type_traits>
 
 #include "micro_tile.cuh"
+#include "wide_tri.cuh"
 
 namespace {
 
@@ -333,19 +353,22 @@ __device__ __forceinline__ void sympanel_body(
 template <int MM, bool kTerms>
 struct MicroPanel : MicroShape<MM, (MM <= 2 ? 8 : 2)> {
   static constexpr bool enabled =
-      kTerms ? MM == 2 || MM == 8 || MM == 11 : MM <= 8;
+      MM != kWideMM && (kTerms ? MM == 2 || MM == 8 || MM == 11 : MM <= 8);
   static constexpr int kWarps = 4;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kStrip =
       kThreads * MicroShape<MM, (MM <= 2 ? 8 : 2)>::kRows;  // rows of a block
 };
 
-// Block size and strip height of a panel kernel instance.
+// Block size and strip height of a panel kernel instance (the wide
+// instance's blocks are wide_tri.cuh's).
 template <int MM, bool kTerms>
 struct PanelThreads {
-  static constexpr int value = MicroPanel<MM, kTerms>::enabled
-                                   ? MicroPanel<MM, kTerms>::kThreads
-                                   : PanelTile<MM, kTerms>::value;
+  static constexpr int value =
+      MM == kWideMM ? kWideTriThreads
+                    : (MicroPanel<MM, kTerms>::enabled
+                           ? MicroPanel<MM, kTerms>::kThreads
+                           : PanelTile<MM, kTerms>::value);
 };
 
 template <int MM, bool kTerms>
@@ -533,15 +556,77 @@ __device__ __forceinline__ void micro_panel_body(
   flush_counts(cnt, T, counts);
 }
 
+// ---------------------------------------------------------------------------
+// The wide panel body (see the top of the file)
+// ---------------------------------------------------------------------------
+
+// The spot of tile pair x of window p, panel p0 + p of the list, its
+// super-blocks (I, J) of w particles (w a multiple of kWideTile): false
+// where the block has no pair (past a diagonal panel's a <= b, or a tile
+// wholly past n). Block-uniform.
+__device__ __forceinline__ bool panel_spot(int x, int p, int p0, int nb,
+                                           int w, int n, int m,
+                                           float* panels, WideSpot* spot) {
+  int bi, bj;
+  panel_blocks(p0 + p, nb, &bi, &bj);
+  const int tw = w / kWideTile;
+  int a, b;
+  if (bi == bj) {
+    if (x >= tw * (tw + 1) / 2) return false;
+    decode_upper_pair(x, tw, &a, &b);
+  } else {
+    a = x / tw;
+    b = x - a * tw;
+  }
+  spot->i0 = bi * w + a * kWideTile;
+  spot->j0 = bj * w + b * kWideTile;
+  if (spot->i0 >= n || spot->j0 >= n) return false;
+  spot->diag = bi == bj && a == b;
+  const size_t plane = static_cast<size_t>(2) * m * w;
+  spot->out0 = panels + static_cast<size_t>(p) * 2 * plane;
+  spot->out1 = spot->out0 + plane;
+  spot->base0 = bi * w;
+  spot->base1 = bj * w;
+  spot->ld = w;
+  return true;
+}
+
+// One RBF's wide panel body at kT thresholds; kBf16 the bfloat16 opt-in.
+template <int kT, bool kBf16>
+__device__ __forceinline__ void counts_sympanel_wide(
+    const float* __restrict__ coords, const float* __restrict__ scores,
+    const float* __restrict__ gamma, const float* __restrict__ thr, int n,
+    int m, int T, int nb, int w, int p0, float* __restrict__ panels,
+    unsigned long long* __restrict__ counts) {
+  WideSpot spot;
+  if (!panel_spot(static_cast<int>(blockIdx.x), static_cast<int>(blockIdx.y),
+                  p0, nb, w, n, m, panels, &spot)) {
+    return;
+  }
+  wide_pair_body<kT, kBf16, false>(coords, scores,
+                                   OneRbf{-gamma[0] * kLog2e}, thr, n, m, T,
+                                   spot, counts, WideForm{});
+}
+
+// The grid of a wide panel launch over num_p panels of w particles.
+inline dim3 wide_panel_grid(int w, unsigned int num_p) {
+  const int tw = w / kWideTile;
+  return dim3(static_cast<unsigned int>(tw) * tw, num_p);
+}
+
 // The single-RBF kernels' body: the micro-tile body up to MM = 8 at kT
-// thresholds (3, or kMaxT for a runtime T), sympanel_body above.
+// thresholds (3, or kMaxT for a runtime T), sympanel_body above, the wide
+// body at MM = kWideMM.
 template <int MM, bool kExact, int kT>
 __device__ __forceinline__ void counts_sympanel(
     const float* __restrict__ coords, const float* __restrict__ scores,
     const float* __restrict__ gamma, const float* __restrict__ thr, int n,
     int m_arg, int T, int nb, int w, int p0, float* __restrict__ panels,
     unsigned long long* __restrict__ counts) {
-  if constexpr (MicroPanel<MM, false>::enabled) {
+  if constexpr (MM == kWideMM) {
+    counts_sympanel_wide<kT, false>(coords, scores, gamma, thr, n, m_arg, T,
+                                    nb, w, p0, panels, counts);
+  } else if constexpr (MicroPanel<MM, false>::enabled) {
     const OneRbf weights{-gamma[0] * kLog2e};
     micro_panel_body<MM, kExact, kT, false>(coords, scores, weights, thr, n,
                                             m_arg, T, nb, w, p0, panels,
@@ -577,38 +662,75 @@ __global__ void __launch_bounds__(PanelThreads<MM, false>::value)
                                   w, p0, panels, counts);
 }
 
+// K3's bf16 instance (every m): the wide panel body with kBf16, the whole
+// panel list.
+template <int kT>
+__global__ void __launch_bounds__(kWideTriThreads)
+    fused_phi_counts_sympanel_bf16_kernel(
+        const float* __restrict__ coords, const float* __restrict__ scores,
+        const float* __restrict__ gamma, const float* __restrict__ thr, int n,
+        int m, int T, int nb, int w, float* __restrict__ panels,
+        unsigned long long* __restrict__ counts) {
+  counts_sympanel_wide<kT, true>(coords, scores, gamma, thr, n, m, T, nb, w,
+                                 0, panels, counts);
+}
+
 // Launch of the single-RBF panel sweep over panels [p0, p0 + num_p) of the
 // list (p0 = 0 and the whole list for fused_phi_counts_sympanel): the
-// instance for T = 3 where the micro-tile body serves MM, else the one
-// that takes a runtime T.
+// instance for T = 3 where the micro-tile or the wide body serves MM, else
+// the one that takes a runtime T.
 template <int MM, bool kExact>
 void launch_counts_sympanel(bool chunk, const float* coords,
                             const float* scores, const float* gamma,
                             const float* thr, int n, int m, int T, int nb,
                             int w, int p0, unsigned int num_p, float* panels,
                             unsigned long long* counts, cudaStream_t s) {
-  constexpr int strip = PanelStrip<MM, false>::value;
-  const dim3 grid((w + strip - 1) / strip, num_p);
-  const int threads = PanelThreads<MM, false>::value;
-  auto go = [&](auto kt) {
-    constexpr int kT = decltype(kt)::value;
-    if (chunk) {
-      fused_phi_counts_sympanel_chunk_kernel<MM, kExact, kT>
-          <<<grid, threads, 0, s>>>(coords, scores, gamma, thr, n, m, T, nb,
-                                    w, p0, panels, counts);
-    } else {
-      fused_phi_counts_sympanel_kernel<MM, kExact, kT>
-          <<<grid, threads, 0, s>>>(coords, scores, gamma, thr, n, m, T, nb,
-                                    w, panels, counts);
-    }
-  };
-  if constexpr (MicroPanel<MM, false>::enabled) {
+  if constexpr (MM == kWideMM) {
+    const dim3 grid = wide_panel_grid(w, num_p);
+    const size_t smem = WideTri::smem_bytes(1);
+    auto go = [&](auto kt) {
+      constexpr int kT = decltype(kt)::value;
+      if (chunk) {
+        auto* kernel = &fused_phi_counts_sympanel_chunk_kernel<MM, false, kT>;
+        wide_tri_prepare(kernel, 1);
+        kernel<<<grid, kWideTriThreads, smem, s>>>(
+            coords, scores, gamma, thr, n, m, T, nb, w, p0, panels, counts);
+      } else {
+        auto* kernel = &fused_phi_counts_sympanel_kernel<MM, false, kT>;
+        wide_tri_prepare(kernel, 1);
+        kernel<<<grid, kWideTriThreads, smem, s>>>(
+            coords, scores, gamma, thr, n, m, T, nb, w, panels, counts);
+      }
+    };
     if (T == 3) {
       go(std::integral_constant<int, 3>{});
-      return;
+    } else {
+      go(std::integral_constant<int, kMaxT>{});
     }
+  } else {
+    constexpr int strip = PanelStrip<MM, false>::value;
+    const dim3 grid((w + strip - 1) / strip, num_p);
+    const int threads = PanelThreads<MM, false>::value;
+    auto go = [&](auto kt) {
+      constexpr int kT = decltype(kt)::value;
+      if (chunk) {
+        fused_phi_counts_sympanel_chunk_kernel<MM, kExact, kT>
+            <<<grid, threads, 0, s>>>(coords, scores, gamma, thr, n, m, T, nb,
+                                      w, p0, panels, counts);
+      } else {
+        fused_phi_counts_sympanel_kernel<MM, kExact, kT>
+            <<<grid, threads, 0, s>>>(coords, scores, gamma, thr, n, m, T, nb,
+                                      w, panels, counts);
+      }
+    };
+    if constexpr (MicroPanel<MM, false>::enabled) {
+      if (T == 3) {
+        go(std::integral_constant<int, 3>{});
+        return;
+      }
+    }
+    go(std::integral_constant<int, kMaxT>{});
   }
-  go(std::integral_constant<int, kMaxT>{});
 }
 
 // The terms kernel: the micro-tile body where it serves MM, at kT
@@ -624,7 +746,23 @@ __global__ void __launch_bounds__(PanelThreads<MM, true>::value)
                                     int m_arg, int T, int nb, int w,
                                     float* __restrict__ panels,
                                     unsigned long long* __restrict__ counts) {
-  if constexpr (!MicroPanel<MM, true>::enabled) {
+  if constexpr (MM == kWideMM) {
+    __shared__ float sh_g2[kMaxTerms];
+    __shared__ float sh_sn[kMaxTerms];
+    __shared__ float sh_sg[kMaxTerms];
+    WideSpot spot;
+    if (!panel_spot(static_cast<int>(blockIdx.x),
+                    static_cast<int>(blockIdx.y), 0, nb, w, n, m_arg, panels,
+                    &spot)) {
+      return;
+    }
+    // The body's first barrier comes before its first pair.
+    load_terms(gammas, signs, nterms, sh_g2, sh_sn, sh_sg);
+    wide_pair_body<kT, false, false>(coords, scores,
+                                     AnyTerms{sh_g2, sh_sn, sh_sg, nterms},
+                                     thr, n, m_arg, T, spot, counts,
+                                     WideForm{});
+  } else if constexpr (!MicroPanel<MM, true>::enabled) {
     sympanel_body<MM, kExact, true>(coords, scores, gammas, signs, nterms,
                                     thr, n, m_arg, T, nb, w, 0, panels,
                                     counts);
@@ -646,43 +784,70 @@ __global__ void __launch_bounds__(PanelThreads<MM, true>::value)
 
 // Launch of the terms panel sweep: where the micro-tile body serves MM, the
 // instance for T = 3 or any T <= 8, each for two terms (the hierarchical
-// BLR's kernel) or any count; else sympanel_body's.
+// BLR's kernel) or any count; the wide body's for T = 3 or any T <= 8, any
+// count of terms (two weight tiles); else sympanel_body's.
 template <int MM, bool kExact>
 void launch_terms_sympanel(const float* coords, const float* scores,
                            const float* gammas, const TermSigns& signs,
                            int nterms, const float* thr, int n, int m, int T,
                            int nb, int w, unsigned int num_p, float* panels,
                            unsigned long long* counts, cudaStream_t s) {
-  constexpr int strip = PanelStrip<MM, true>::value;
-  const dim3 grid((w + strip - 1) / strip, num_p);
-  const int threads = PanelThreads<MM, true>::value;
-  auto go = [&](auto kt, auto nt) {
-    fused_phi_terms_sympanel_kernel<MM, kExact, decltype(kt)::value,
-                                    decltype(nt)::value>
-        <<<grid, threads, 0, s>>>(coords, scores, gammas, signs, nterms, thr,
-                                  n, m, T, nb, w, panels, counts);
-  };
-  if constexpr (MicroPanel<MM, true>::enabled) {
-    auto terms = [&](auto kt) {
-      if (nterms == 2) {
-        go(kt, std::integral_constant<int, 2>{});
-      } else {
-        go(kt, std::integral_constant<int, 0>{});
-      }
+  if constexpr (MM == kWideMM) {
+    const dim3 grid = wide_panel_grid(w, num_p);
+    const size_t smem = WideTri::smem_bytes(2);
+    auto go = [&](auto* kernel) {
+      wide_tri_prepare(kernel, 2);
+      kernel<<<grid, kWideTriThreads, smem, s>>>(coords, scores, gammas,
+                                                 signs, nterms, thr, n, m, T,
+                                                 nb, w, panels, counts);
     };
     if (T == 3) {
-      terms(std::integral_constant<int, 3>{});
+      go(&fused_phi_terms_sympanel_kernel<MM, false, 3, 0>);
     } else {
-      terms(std::integral_constant<int, kMaxT>{});
+      go(&fused_phi_terms_sympanel_kernel<MM, false, kMaxT, 0>);
     }
   } else {
-    go(std::integral_constant<int, kMaxT>{}, std::integral_constant<int, 0>{});
+    constexpr int strip = PanelStrip<MM, true>::value;
+    const dim3 grid((w + strip - 1) / strip, num_p);
+    const int threads = PanelThreads<MM, true>::value;
+    auto go = [&](auto kt, auto nt) {
+      fused_phi_terms_sympanel_kernel<MM, kExact, decltype(kt)::value,
+                                      decltype(nt)::value>
+          <<<grid, threads, 0, s>>>(coords, scores, gammas, signs, nterms, thr,
+                                    n, m, T, nb, w, panels, counts);
+    };
+    if constexpr (MicroPanel<MM, true>::enabled) {
+      auto terms = [&](auto kt) {
+        if (nterms == 2) {
+          go(kt, std::integral_constant<int, 2>{});
+        } else {
+          go(kt, std::integral_constant<int, 0>{});
+        }
+      };
+      if (T == 3) {
+        terms(std::integral_constant<int, 3>{});
+      } else {
+        terms(std::integral_constant<int, kMaxT>{});
+      }
+    } else {
+      go(std::integral_constant<int, kMaxT>{},
+         std::integral_constant<int, 0>{});
+    }
   }
 }
 
 // The plan's checks, shared by both entry points: nb super-blocks of w
 // particles (w a positive multiple of 64) covering n, at most 65535 panels
 // (the grid's y limit) and nb * w within an int.
+// The panel kernels' instance for dimension m: SVGD_DISPATCH_M_2_11's up to
+// kMaxM, the wide body's (MM = kWideMM) past it.
+#define SVGD_DISPATCH_PANEL_M(m, LAUNCH)                                 \
+  if ((m) > svgd::kMaxM) {                                              \
+    LAUNCH(svgd::kWideMM, false);                                       \
+  } else {                                                              \
+    SVGD_DISPATCH_M_2_11(m, LAUNCH)                                     \
+  }
+
 bool plan_ok(int n, int nb, int w) {
   if (n <= 0 || nb < 1 || w < kPanelAlign || w % kPanelAlign) return false;
   const long long n_pad = static_cast<long long>(nb) * w;
@@ -697,8 +862,8 @@ extern "C" {
 // Panel triangle sweep of one RBF. coords (n, m) centered, scores (n, m),
 // gamma (1,), thr (T,) float32 on the device; panels a zeroed float32
 // (nb (nb + 1) / 2, 2, 2m, w) buffer; counts a zeroed int64 (T,) buffer
-// that receives the upper count U (diagonal included). 1 <= m <= 64,
-// 1 <= T <= 8.
+// that receives the upper count U (diagonal included). m >= 1 (the wide
+// instance past 64), 1 <= T <= 8.
 int svgd_fused_phi_counts_sympanel(const float* coords, const float* scores,
                                    const float* gamma, const float* thr,
                                    int n, int m, int T, int nb, int w,
@@ -713,9 +878,36 @@ int svgd_fused_phi_counts_sympanel(const float* coords, const float* scores,
 #define SVGD_LAUNCH_SYMPANEL(MM_, EX_)                                  \
   launch_counts_sympanel<MM_, EX_>(false, coords, scores, gamma, thr, n, m, \
                                    T, nb, w, 0, num_p, panels, c, s);
-  SVGD_DISPATCH_M_2_11(m, SVGD_LAUNCH_SYMPANEL)
+  SVGD_DISPATCH_PANEL_M(m, SVGD_LAUNCH_SYMPANEL)
 #undef SVGD_LAUNCH_SYMPANEL
   return static_cast<int>(cudaGetLastError());
+}
+
+// K3's bf16 instance (the bfloat16 opt-in): the arguments as
+// svgd_fused_phi_counts_sympanel's, at any m >= 1, on the wide panel body.
+int svgd_fused_phi_counts_sympanel_bf16(const float* coords,
+                                        const float* scores,
+                                        const float* gamma, const float* thr,
+                                        int n, int m, int T, int nb, int w,
+                                        float* panels, long long* counts,
+                                        void* stream) {
+  if (!plan_ok(n, nb, w) || m < 1 || T < 1 || T > kMaxT) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* c = reinterpret_cast<unsigned long long*>(counts);
+  const unsigned int num_p = static_cast<unsigned int>(nb) * (nb + 1) / 2;
+  const dim3 grid = wide_panel_grid(w, num_p);
+  const size_t smem = WideTri::smem_bytes(1);
+  auto go = [&](auto* kernel) {
+    const cudaError_t err = wide_tri_prepare(kernel, 1);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<grid, kWideTriThreads, smem, s>>>(coords, scores, gamma, thr, n,
+                                               m, T, nb, w, panels, c);
+    return static_cast<int>(cudaGetLastError());
+  };
+  return T == 3 ? go(&fused_phi_counts_sympanel_bf16_kernel<3>)
+                : go(&fused_phi_counts_sympanel_bf16_kernel<kMaxT>);
 }
 
 // One rank's chunk of the panel triangle sweep of one RBF: panels
@@ -743,7 +935,7 @@ int svgd_fused_phi_counts_sympanel_chunk(const float* coords,
                                    nb, w, p0,                                 \
                                    static_cast<unsigned int>(count), panels,  \
                                    c, s);
-  SVGD_DISPATCH_M_2_11(m, SVGD_LAUNCH_SYMPANEL_CHUNK)
+  SVGD_DISPATCH_PANEL_M(m, SVGD_LAUNCH_SYMPANEL_CHUNK)
 #undef SVGD_LAUNCH_SYMPANEL_CHUNK
   return static_cast<int>(cudaGetLastError());
 }
@@ -767,7 +959,7 @@ int svgd_fused_phi_terms_sympanel(const float* coords, const float* scores,
 #define SVGD_LAUNCH_TERMS_SYMPANEL(MM_, EX_)                             \
   launch_terms_sympanel<MM_, EX_>(coords, scores, gammas, sg, nterms, thr, \
                                   n, m, T, nb, w, num_p, panels, c, s);
-  SVGD_DISPATCH_M_2_11(m, SVGD_LAUNCH_TERMS_SYMPANEL)
+  SVGD_DISPATCH_PANEL_M(m, SVGD_LAUNCH_TERMS_SYMPANEL)
 #undef SVGD_LAUNCH_TERMS_SYMPANEL
   return static_cast<int>(cudaGetLastError());
 }

@@ -86,8 +86,25 @@
 // D = sum_j k (x_i - x_j) from the sums as the body forms it. The self
 // pair enters KS in both directions; the wrapper subtracts s_i once and
 // applies 2 D (P_sym/2) in float64. 72.7 KB of dynamic shared memory (one
-// weight tile). The entry points return cudaGetLastError() after their
-// launches.
+// weight tile).
+//
+// The bfloat16 operand opt-in (phi_rbf_pallas(..., dot_dtype='bfloat16'),
+// pallas_phi.py:169-201): svgd_phi_rbf_wide_bf16 runs the same wide sweep
+// at any m >= 1 with wide_tri.cuh's kBf16, the Gram operands X and Y, the
+// weights exp(-sq) and the records [S | X] rounded to bf16 (Y's rounding
+// is exactly half that of the JAX kernel's x_c P_sym), q and the D term's
+// x_i in float32, one TF32 pass a product. The JAX kernel sweeps the
+// square, and its rounded Gram is not symmetric in the pair
+// (bf16(x_i) . bf16(y_j) against bf16(x_j) . bf16(y_i)), so this instance
+// forms both (wide_tri.cuh's kAsym: a second Gram tile and a second
+// weight tile, 107.5 KB), the rows' weights from the first and the
+// columns' from the second. Nor does the JAX kernel pin the self pair,
+// whose form sits visibly off 0 under bf16, so this instance pins nothing
+// (WideForm.pin false): the self pair's weight is formed like any other
+// and enters each direction at half, once in all, and the wrapper
+// subtracts nothing.
+//
+// The entry points return cudaGetLastError() after their launches.
 
 #include "micro_tile.cuh"
 #include "wide_tri.cuh"
@@ -204,6 +221,40 @@ __global__ void __launch_bounds__(kWideTriThreads)
   form.clamp = psd != 0;
   wide_tri_body<0>(coords, scores, OneRbf{-kLog2e}, nullptr, n, m, 0, nb,
                    0LL, out, nullptr, form);
+}
+
+// K15's bf16 instance (every m): the wide sweep with kBf16.
+__global__ void __launch_bounds__(kWideTriThreads)
+    phi_rbf_wide_bf16_kernel(const float* __restrict__ coords,
+                             const float* __restrict__ y,
+                             const float* __restrict__ q,
+                             const float* __restrict__ scores, int n, int m,
+                             int psd, int nb, float* __restrict__ out) {
+  WideForm form;
+  form.y = y;
+  form.q = q;
+  form.clamp = psd != 0;
+  form.pin = false;
+  wide_tri_body<0, true, true>(coords, scores, OneRbf{-kLog2e}, nullptr, n,
+                               m, 0, nb, 0LL, out, nullptr, form);
+}
+
+// The launch of a wide sweep kernel over the whole triangle, with
+// `weights` weight tiles (the f32 kernel one, the bf16 one two).
+template <class Kernel>
+int launch_phi_rbf_wide(Kernel* kernel, int weights, const float* coords,
+                        const float* y, const float* q, const float* scores,
+                        int n, int m, int psd, float* out, void* stream) {
+  if (n <= 0 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const long long pairs = upper_pairs(n, kWideTile);
+  if (pairs < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = (n + kWideTile - 1) / kWideTile;
+  const cudaError_t err = wide_tri_prepare(kernel, weights);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned int>(pairs), kWideTriThreads,
+           WideTri::smem_bytes(weights), static_cast<cudaStream_t>(stream)>>>(
+      coords, y, q, scores, n, m, psd, nb, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The Jacobi decomposition of P_sym/2 (see the top of the file).
@@ -385,17 +436,17 @@ int svgd_sym_eigen(const double* p, int m, double* lam, double* v,
 int svgd_phi_rbf_wide(const float* coords, const float* y, const float* q,
                       const float* scores, int n, int m, int psd, float* out,
                       void* stream) {
-  if (n <= 0 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const long long pairs = upper_pairs(n, kWideTile);
-  if (pairs < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int nb = (n + kWideTile - 1) / kWideTile;
-  const cudaError_t err = wide_tri_prepare(phi_rbf_wide_kernel, 1);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  phi_rbf_wide_kernel<<<static_cast<unsigned int>(pairs), kWideTriThreads,
-                        WideTri::smem_bytes(1),
-                        static_cast<cudaStream_t>(stream)>>>(
-      coords, y, q, scores, n, m, psd, nb, out);
-  return static_cast<int>(cudaGetLastError());
+  return launch_phi_rbf_wide(phi_rbf_wide_kernel, 1, coords, y, q, scores, n,
+                             m, psd, out, stream);
+}
+
+// K15's bf16 instance: the arguments as svgd_phi_rbf_wide's, at any
+// m >= 1 (the bfloat16 opt-in).
+int svgd_phi_rbf_wide_bf16(const float* coords, const float* y,
+                           const float* q, const float* scores, int n, int m,
+                           int psd, float* out, void* stream) {
+  return launch_phi_rbf_wide(phi_rbf_wide_bf16_kernel, 2, coords, y, q,
+                             scores, n, m, psd, out, stream);
 }
 
 // [KS | D_z] (2m, n) of the fixed-P square sweep. z (n, m) the rows

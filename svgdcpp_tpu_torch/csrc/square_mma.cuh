@@ -82,6 +82,8 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
+
 #include <type_traits>
 
 #include "sweep_common.cuh"
@@ -269,16 +271,61 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, ab, bb0, bb1);
 }
 
+// The bfloat16 operand opt-in (the JAX package's dot_dtype='bfloat16') of
+// the Gram-form bodies (square_wide_body, wide_tri.cuh). The JAX kernels
+// round their dot operands to bf16 (round to nearest, ties to even) and
+// accumulate the products in float32. Here the same function runs as ONE
+// TF32 pass on operands pre-rounded to bf16, in the 3xTF32 bodies' own
+// fragment layouts: a bf16 value is exact in TF32 (8 of TF32's 11
+// significant bits) and the product of two is exact in float32, so the
+// pass computes what a bf16 mma.sync computes, and the bodies need no
+// second set of fragment layouts. The pass is a third of 3xTF32's tensor
+// work, at TF32's rate (half of bf16's): simple first, fast later.
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// An operand's TF32 pair: (tf32(v), tf32(v - big)), or under kBf16
+// (bf16(v), 0), the small product of which the pass leaves out.
+template <bool kBf16>
+__device__ __forceinline__ void operand_split(float v, uint32_t& big,
+                                              uint32_t& small) {
+  if constexpr (kBf16) {
+    big = __float_as_uint(bf16_round(v));
+    small = 0u;
+  } else {
+    tf32_split(v, big, small);
+  }
+}
+
+// d += a b: 3xTF32, or under kBf16 the one pass of the rounded operands.
+template <bool kBf16>
+__device__ __forceinline__ void mma_pass(float (&d)[4],
+                                         const uint32_t (&ab)[4],
+                                         const uint32_t (&as)[4],
+                                         const float* rec_big,
+                                         const float* rec_small, int off0,
+                                         int off1) {
+  if constexpr (kBf16) {
+    mma_tf32(d, ab, __float_as_uint(rec_big[off0]),
+             __float_as_uint(rec_big[off1]));
+  } else {
+    mma_3xtf32(d, ab, as, rec_big, rec_small, off0, off1);
+  }
+}
+
 // A fragment of TF32 pairs from one weight a pair: (g, t) <- source 2t,
 // (g, t + 4) <- source 2t + 1, rows g and g + 8 (v: the pairs (g, 2t),
-// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)).
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)); under kBf16 the weights
+// rounded to bf16, as the JAX kernels round k before the contraction.
+template <bool kBf16 = false>
 __device__ __forceinline__ void weight_fragment(const float (&v)[4],
                                                 uint32_t (&big)[4],
                                                 uint32_t (&small)[4]) {
-  tf32_split(v[0], big[0], small[0]);
-  tf32_split(v[2], big[1], small[1]);
-  tf32_split(v[1], big[2], small[2]);
-  tf32_split(v[3], big[3], small[3]);
+  operand_split<kBf16>(v[0], big[0], small[0]);
+  operand_split<kBf16>(v[2], big[1], small[1]);
+  operand_split<kBf16>(v[1], big[2], small[2]);
+  operand_split<kBf16>(v[3], big[3], small[3]);
 }
 
 // 16 bytes from global to shared memory, the bytes past `valid` (0-16)
@@ -580,6 +627,14 @@ __device__ __forceinline__ void square_mma_body(
 // Static shared memory: 2 x 4224 floats of records or slices and 32 source
 // norms, 33.9 KB at any m. Registers: 16 x 4 accumulators, 2 x 4 x 4 Gram
 // values, the weights' fragments and the counts.
+//
+// kBf16 (the bfloat16 opt-in, K1's bf16 instance at every m): the Gram
+// slices' coordinates, the weights and the records rounded to bf16, each
+// product one TF32 pass (operand_split, mma_pass); the norms stay those of
+// the float32 coordinates and the finishing pass's D = rowsum x_i - KX
+// takes the float32 x_i, as the JAX kernel's epilogue does
+// (pallas_phi.py:429-433, :379, :707). No self pair is pinned: the square
+// form has none (the JAX kernel pins none either).
 
 constexpr int kWideK = 32;                // coordinates of one Gram slice
 constexpr int kWideLdK = kWideK + 4;      // slice rows' stride (4 mod 32)
@@ -608,7 +663,7 @@ __host__ __device__ inline int wide_square_chunks(int m, bool two) {
 // The block body past kMaxM (see above). part: this split's (n_t, 2m + 1)
 // slice of the workspace; the block writes the columns of its chunk
 // (blockIdx.z). Arguments as square_mma_body's.
-template <int kT, class W>
+template <int kT, bool kBf16 = false, class W>
 __device__ __forceinline__ void square_wide_body(
     const float* __restrict__ targets, const float* __restrict__ sources,
     const float* __restrict__ scores, const W& weights,
@@ -711,7 +766,7 @@ __device__ __forceinline__ void square_wide_body(
           }
         }
         uint32_t hi, lo;
-        tf32_split(v, hi, lo);
+        operand_split<kBf16>(v, hi, lo);
         big[r * kWideLdK + k] = __uint_as_float(hi);
         small[r * kWideLdK + k] = __uint_as_float(lo);
       }
@@ -741,9 +796,11 @@ __device__ __forceinline__ void square_wide_body(
             const int br = kSrc + (8 * nb + g) * kWideLdK + 8 * ks + t;
             const uint32_t bb0 = __float_as_uint(big[br]);
             const uint32_t bb1 = __float_as_uint(big[br + 4]);
-            mma_tf32(gs[nb], as, bb0, bb1);
-            mma_tf32(gs[nb], ab, __float_as_uint(small[br]),
-                     __float_as_uint(small[br + 4]));
+            if constexpr (!kBf16) {
+              mma_tf32(gs[nb], as, bb0, bb1);
+              mma_tf32(gs[nb], ab, __float_as_uint(small[br]),
+                       __float_as_uint(small[br + 4]));
+            }
             mma_tf32(gb[nb], ab, bb0, bb1);
           }
         }
@@ -771,7 +828,7 @@ __device__ __forceinline__ void square_wide_body(
         }
       }
       uint32_t hi, lo;
-      tf32_split(v, hi, lo);
+      operand_split<kBf16>(v, hi, lo);
       big[j * kWideLdR + cq] = __uint_as_float(hi);
       small[j * kWideLdR + cq] = __uint_as_float(lo);
     }
@@ -803,8 +860,8 @@ __device__ __forceinline__ void square_wide_body(
         }
       }
       uint32_t k_big[4], k_small[4], w_big[4], w_small[4];
-      weight_fragment(kc, k_big, k_small);
-      if constexpr (kTwo) weight_fragment(kw, w_big, w_small);
+      weight_fragment<kBf16>(kc, k_big, k_small);
+      if constexpr (kTwo) weight_fragment<kBf16>(kw, w_big, w_small);
       const int bk = jl * kWideLdR + g;
 #pragma unroll
       for (int b = 0; b < kWideCB; ++b) {
@@ -816,8 +873,8 @@ __device__ __forceinline__ void square_wide_body(
             ab[q] = use_w ? w_big[q] : k_big[q];
             as[q] = use_w ? w_small[q] : k_small[q];
           }
-          mma_3xtf32(acc[b], ab, as, big, small, bk + 8 * b,
-                     bk + kWideLdR + 8 * b);
+          mma_pass<kBf16>(acc[b], ab, as, big, small, bk + 8 * b,
+                          bk + kWideLdR + 8 * b);
         }
       }
     }

@@ -21,7 +21,8 @@
 // wide_tri_body). SVGD_DISPATCH_M_2_11, for the kernels with fewer main
 // paths (the panels, K14's term groups, K15), has exact instances for
 // m = 2 and 11 only and runtime ones with MM = 8, 16, 32 or 64, and
-// refuses m past kMaxM.
+// refuses m past kMaxM: each of those kernels takes its wide instance
+// before it.
 
 #pragma once
 
@@ -380,9 +381,9 @@ struct AnyTerms {
   }
 
 // As SVGD_DISPATCH_M with fewer exact instances; an m outside 1..kMaxM
-// returns cudaErrorInvalidValue (the panels: ROADMAP item 17b; K14's
-// entry takes its wide kernel past kMaxM before the dispatch, and K15's
-// wide sweep has an entry of its own, svgd_phi_rbf_wide).
+// returns cudaErrorInvalidValue (the panels' SVGD_DISPATCH_PANEL_M and
+// K14's entry take their wide instances past kMaxM before this dispatch,
+// and K15's wide sweep has an entry of its own, svgd_phi_rbf_wide).
 #define SVGD_DISPATCH_M_2_11(m, LAUNCH)                                 \
   switch (m) {                                                          \
     case 2: LAUNCH(2, true); break;                                     \

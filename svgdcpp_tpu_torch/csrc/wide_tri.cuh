@@ -8,16 +8,19 @@
 // spill, so this one holds nothing sized by m and runs on the tensor
 // cores.
 //
-// One block (4 warps) works through one tile pair (I, J), I <= J, of
-// kWideTile = 64 particles a side: tile t0 + blockIdx.x of the linear tile
-// list (t0 = 0 for the whole triangle, a rank's first tile for a chunk).
+// One block (4 warps) works through one tile pair (I, J) of kWideTile = 64
+// particles a side, the block's WideSpot: for the triangle kernels tile
+// t0 + blockIdx.x of the upper triangle's linear tile list (t0 = 0 for the
+// whole triangle, a rank's first tile for a chunk; tri_spot), for the
+// panel kernels a tile pair of one panel (fused_phi_panel.cu's
+// panel_spot). The spot also says where each direction flushes.
 //
 //   1. Gram tile G = X_I X_J^T (64 x 64; warp w rows 16w..16w+15 of I
 //      against the 64 columns of J) in 3xTF32 mma.sync m16n8k8 over slices
 //      of kWideK coordinates, each slice of both tiles staged as TF32 pairs
 //      in shared memory;
 //   2. sq = max(0, |x_i|^2 + |x_j|^2 - 2 G) (the self pair pinned to 0, as
-//      the plain version pins it; WideForm below gives K15's form), the
+//      the plain version pins it; WideForm below gives K15's forms), the
 //      pair's weights and its counts, ONCE a pair, into shared memory as
 //      TF32 pairs: W (k_c) and, for terms, a second tile (w). On the
 //      diagonal tile only j >= i is kept (the self pair included), the rest
@@ -30,8 +33,9 @@
 //      tile transposed. D comes from the sums: D_i += rowsum_i x_i - (W X_J)_i,
 //      D_j += colsum_j x_j - (W^T X_I)_j, as the plain version forms it at
 //      these widths (ops/phi._pair_block);
-//   5. each chunk is flushed with float32 atomics into the zeroed (2m, n)
-//      accumulator [KS | D], as the narrower bodies flush.
+//   5. each chunk is flushed with float32 atomics into the spot's zeroed
+//      [KS | D] planes, the (2m, n) accumulator for the triangles, as the
+//      narrower bodies flush.
 //
 // The conventions are the narrower bodies': each self pair enters both
 // directions (k = 1 exactly: the wrapper subtracts s_i once), D is
@@ -45,6 +49,23 @@
 // sums: 72.7 KB for one RBF, 107.5 KB for terms, at any m. Registers: the
 // warp's 16 x 64 Gram values (64 a thread) during the Gram tile, 32
 // accumulators during a contraction.
+//
+// kBf16 (the bfloat16 opt-in: K2's and K3's bf16 instances, K15's, at any
+// m): the Gram operands, the weights and the contraction's records
+// rounded to bf16, each product one TF32 pass (square_mma.cuh,
+// operand_split and mma_pass); the norms stay those of the float32
+// coordinates (or the caller's q), the self pair is pinned as above, and
+// D_i = rowsum_i x_i - (W X_J)_i takes the float32 x_i beside the rounded
+// X_J, as the JAX kernels' epilogue forms rowsum x - KX from the float32
+// coordinates (pallas_phi.py:636-640, :707, :956-960).
+//
+// kAsym (with kBf16: K15's bf16 instance): bf16(x_i) . bf16(y_j) is not
+// bf16(x_j) . bf16(y_i), as x_i^T (P_sym/2) x_j is in float32, so one
+// weight tile cannot serve both directions: the rows of I take the JAX
+// kernel's k(i <- j) from G = X_I Y_J^T and the columns of J k(j <- i)
+// from G' = Y_I X_J^T, a second Gram tile (in the registers and the
+// shared slices that 3xTF32's small parts take otherwise) and a second
+// weight tile (107.5 KB).
 
 #pragma once
 
@@ -80,26 +101,59 @@ struct WideTri {
 // are q_i = x_i . y_i, so sq = q_i + q_j - 2 G = d^T P d, clamped only for a
 // P taken as positive semidefinite. The contraction takes the coordinates
 // either way. `phi` false leaves the contraction out (K14's Euclidean group
-// with no isotropic term, which only counts).
+// with no isotropic term, which only counts). `pin` false (K15's bf16
+// instance) forms the self pair's sq like any other pair's and halves its
+// weights, exactly, so that it enters once over both directions: the
+// square sweep's self pair, as the JAX kernel forms it (there the bf16
+// Gram moves it off 0 visibly); the triangles pin it to sq = 0 and their
+// wrappers take its second entry out.
 struct WideForm {
   const float* y = nullptr;  // J's Gram operand (null: the coordinates)
   const float* q = nullptr;  // the norms (null: |x|^2 of the coordinates)
   bool clamp = true;         // sq = max(sq, 0)
   bool phi = true;           // the contraction and its flush
+  bool pin = true;           // the self pair's sq = 0
 };
 
-// The body (see the top of the file). kT thresholds (3, or kMaxT for a
-// runtime T, or 0 for none); weights(sq, k_c, w) the pair's weights: one
-// tile of them where W is OneRbf (k_c = w), two otherwise. Composed
-// kernels' constants in shared memory (AnyTerms) must be stored before the
-// call: the body's first barrier comes before its first pair.
-template <int kT, class W>
-__device__ __forceinline__ void wide_tri_body(
+// A block's tile pair and where it flushes: the first particles i0 of I's
+// tile and j0 of J's; whether the pair lies on the diagonal (j >= i only,
+// the self pair pinned to 0); and, for each direction (0: the rows of I,
+// 1: the columns of J), the [KS | D] planes it adds to, 2m rows of ld
+// floats whose column 0 is particle base.
+struct WideSpot {
+  int i0, j0;
+  bool diag;
+  float* out0;
+  float* out1;
+  int base0, base1;
+  int ld;
+};
+
+// The triangles' spot: tile pair t of the upper triangle of nb tiles, both
+// directions into the (2m, n) accumulator.
+__device__ __forceinline__ WideSpot tri_spot(long long t, int nb, int n,
+                                             float* acc) {
+  int bi, bj;
+  decode_upper_pair(t, nb, &bi, &bj);
+  return WideSpot{bi * kWideTile, bj * kWideTile, bi == bj, acc, acc, 0, 0,
+                  n};
+}
+
+// The body (see the top of the file) on the block's tile pair ``spot``.
+// kT thresholds (3, or kMaxT for a runtime T, or 0 for none);
+// weights(sq, k_c, w) the pair's weights: one tile of them where W is
+// OneRbf (k_c = w), two otherwise. Composed kernels' constants in shared
+// memory (AnyTerms) must be stored before the call: the body's first
+// barrier comes before its first pair.
+template <int kT, bool kBf16, bool kAsym, class W>
+__device__ __forceinline__ void wide_pair_body(
     const float* __restrict__ coords, const float* __restrict__ scores,
     const W& weights, const float* __restrict__ thr, int n, int m, int T,
-    int nb, long long t0, float* __restrict__ acc,
-    unsigned long long* __restrict__ counts, const WideForm& form = {}) {
-  constexpr int NW = kTwoBands<W> ? 2 : 1;
+    const WideSpot& spot, unsigned long long* __restrict__ counts,
+    const WideForm& form) {
+  static_assert(!kAsym || (kBf16 && !kTwoBands<W>),
+                "the second Gram tile takes the small parts' room");
+  constexpr int NW = kTwoBands<W> || kAsym ? 2 : 1;
   constexpr int S = kWideTile;
   extern __shared__ __align__(16) float sh[];
   float* un = sh;                              // slices or records
@@ -107,11 +161,9 @@ __device__ __forceinline__ void wide_tri_body(
   float* norm = wt + NW * WideTri::kWeight;    // [I | J]
   float* sums = norm + 2 * S;                  // [rows of I | columns of J]
 
-  int bi, bj;
-  decode_upper_pair(t0 + static_cast<long long>(blockIdx.x), nb, &bi, &bj);
-  const int i0 = bi * S;
-  const int j0 = bj * S;
-  const bool diag = bi == bj;
+  const int i0 = spot.i0;
+  const int j0 = spot.j0;
+  const bool diag = spot.diag;
   const int tid = static_cast<int>(threadIdx.x);
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -147,7 +199,8 @@ __device__ __forceinline__ void wide_tri_body(
   }
   const float* gram_j = form.y != nullptr ? form.y : coords;
 
-  // 1. The Gram tile: slices [I | J][64][kWideLdK], big then small.
+  // 1. The Gram tile: slices [I | J][64][kWideLdK], big then small (under
+  // kAsym G's operands X_I, Y_J, then G''s, Y_I, X_J).
   float gb[8][4];
   float gs[8][4];
 #pragma unroll
@@ -170,11 +223,15 @@ __device__ __forceinline__ void wide_tri_body(
       const int k = e - r * kWideK;
       const int part = r < S ? i0 + r : j0 + r - S;
       const float* src = r < S ? coords : gram_j;
-      const float v = part < n && k < kn
-                          ? src[static_cast<size_t>(part) * m + k0 + k]
-                          : 0.0f;
+      const bool in = part < n && k < kn;
+      const size_t at = static_cast<size_t>(part) * m + k0 + k;
+      const float v = in ? src[at] : 0.0f;
       uint32_t hi, lo;
-      tf32_split(v, hi, lo);
+      operand_split<kBf16>(v, hi, lo);
+      if constexpr (kAsym) {
+        const float* other = r < S ? gram_j : coords;
+        lo = __float_as_uint(bf16_round(in ? other[at] : 0.0f));
+      }
       sl_big[r * kWideLdK + k] = __uint_as_float(hi);
       sl_small[r * kWideLdK + k] = __uint_as_float(lo);
     }
@@ -198,9 +255,14 @@ __device__ __forceinline__ void wide_tri_body(
           const int br = kTileK + (8 * c + g) * kWideLdK + 8 * ks + t;
           const uint32_t bb0 = __float_as_uint(sl_big[br]);
           const uint32_t bb1 = __float_as_uint(sl_big[br + 4]);
-          mma_tf32(gs[c], as, bb0, bb1);
-          mma_tf32(gs[c], ab, __float_as_uint(sl_small[br]),
-                   __float_as_uint(sl_small[br + 4]));
+          if constexpr (kAsym) {
+            mma_tf32(gs[c], as, __float_as_uint(sl_small[br]),
+                     __float_as_uint(sl_small[br + 4]));
+          } else if constexpr (!kBf16) {
+            mma_tf32(gs[c], as, bb0, bb1);
+            mma_tf32(gs[c], ab, __float_as_uint(sl_small[br]),
+                     __float_as_uint(sl_small[br + 4]));
+          }
           mma_tf32(gb[c], ab, bb0, bb1);
         }
       }
@@ -219,22 +281,32 @@ __device__ __forceinline__ void wide_tri_body(
       const int il = 16 * warp + g + (q >> 1) * 8;
       const int jl = 8 * c + 2 * t + (q & 1);
       const bool ok = i0 + il < n && j0 + jl < n && (!diag || jl >= il);
-      float sq = __fsub_rn(__fadd_rn(norm[il], norm[S + jl]),
-                           2.0f * (gb[c][q] + gs[c][q]));
+      const float nij = __fadd_rn(norm[il], norm[S + jl]);
+      float sq = kAsym ? __fsub_rn(nij, 2.0f * gb[c][q])
+                       : __fsub_rn(nij, 2.0f * (gb[c][q] + gs[c][q]));
       if (form.clamp) sq = fmaxf(sq, 0.0f);
-      if (diag && il == jl) sq = 0.0f;
+      const bool self = diag && il == jl;
+      if (self && form.pin) sq = 0.0f;
+      // The unpinned self pair's weights enter each direction at half.
+      const float half = self && !form.pin ? 0.5f : 1.0f;
       float a, b;
       weights(sq, a, b);
+      if constexpr (kAsym) {  // the columns' weight, k(j <- i), from G'
+        float sq2 = __fsub_rn(nij, 2.0f * gs[c][q]);
+        if (form.clamp) sq2 = fmaxf(sq2, 0.0f);
+        float a2;
+        weights(sq2, b, a2);
+      }
       count_pair_fixed<kT, true>(sq, th, ok, cnt);
       uint32_t hi, lo;
-      tf32_split(ok ? a : 0.0f, hi, lo);
-      wt[il * kWideLdW + jl] = __uint_as_float(hi);
-      wt[S * kWideLdW + il * kWideLdW + jl] = __uint_as_float(lo);
+      operand_split<kBf16>(ok ? a : 0.0f, hi, lo);
+      wt[il * kWideLdW + jl] = half * __uint_as_float(hi);
+      wt[S * kWideLdW + il * kWideLdW + jl] = half * __uint_as_float(lo);
       if constexpr (NW == 2) {
         float* w1 = wt + WideTri::kWeight;
-        tf32_split(ok ? b : 0.0f, hi, lo);
-        w1[il * kWideLdW + jl] = __uint_as_float(hi);
-        w1[S * kWideLdW + il * kWideLdW + jl] = __uint_as_float(lo);
+        operand_split<kBf16>(ok ? b : 0.0f, hi, lo);
+        w1[il * kWideLdW + jl] = half * __uint_as_float(hi);
+        w1[S * kWideLdW + il * kWideLdW + jl] = half * __uint_as_float(lo);
       }
     }
   }
@@ -243,9 +315,11 @@ __device__ __forceinline__ void wide_tri_body(
   __syncthreads();        // the weight tiles are complete
 
   // 3. The D weight's row sums (threads 0-63, row tid of I) and column sums
-  // (threads 64-127, column tid - 64 of J), from its TF32 pairs.
+  // (threads 64-127, column tid - 64 of J), from its TF32 pairs (under
+  // kAsym the rows' from the first tile, the columns' from the second).
   {
-    const float* wd_big = wt + (NW - 1) * WideTri::kWeight;
+    const float* wd_big =
+        wt + (kAsym ? (tid < S ? 0 : 1) : NW - 1) * WideTri::kWeight;
     const float* wd_small = wd_big + S * kWideLdW;
     const int p = tid & (S - 1);
     float sum = 0.0f;
@@ -269,11 +343,12 @@ __device__ __forceinline__ void wide_tri_body(
     const bool xband = ch >= nch;
     const int c0 = (xband ? ch - nch : ch) * kWideTriCols;
     const int cn = min(kWideTriCols, m - c0);
-    const float* w_big = wt + (xband ? NW - 1 : 0) * WideTri::kWeight;
-    const float* w_small = w_big + S * kWideLdW;
     const float* src = xband ? coords : scores;
 #pragma unroll 1
     for (int dir = 0; dir < 2; ++dir) {
+      const int tile = kAsym ? dir : (xband ? NW - 1 : 0);
+      const float* w_big = wt + tile * WideTri::kWeight;
+      const float* w_small = w_big + S * kWideLdW;
       // dir 0: the rows of I take W [S_J | X_J]; dir 1: the columns of J
       // take W^T [S_I | X_I].
       const int p0 = dir == 0 ? j0 : i0;  // the operand tile
@@ -286,7 +361,7 @@ __device__ __forceinline__ void wide_tri_body(
                             ? src[static_cast<size_t>(p0 + p) * m + c0 + c]
                             : 0.0f;
         uint32_t hi, lo;
-        tf32_split(v, hi, lo);
+        operand_split<kBf16>(v, hi, lo);
         rec_big[p * kWideTriLdR + c] = __uint_as_float(hi);
         rec_small[p * kWideTriLdR + c] = __uint_as_float(lo);
       }
@@ -325,13 +400,16 @@ __device__ __forceinline__ void wide_tri_body(
 #pragma unroll
         for (int b = 0; b < 8; ++b) {
           if (8 * b < cn) {
-            mma_3xtf32(out[b], ab, as, rec_big, rec_small, bk + 8 * b,
-                       bk + 4 * kWideTriLdR + 8 * b);
+            mma_pass<kBf16>(out[b], ab, as, rec_big, rec_small, bk + 8 * b,
+                            bk + 4 * kWideTriLdR + 8 * b);
           }
         }
       }
       // Flush: row (dir 0) or column (dir 1) o0 + ol, operand column
-      // c0 + cl, into KS (scores) or D = sum x - W X (coordinates).
+      // c0 + cl, into KS (scores) or D = sum x - W X (coordinates), at the
+      // spot's planes of that direction.
+      float* dst = dir == 0 ? spot.out0 : spot.out1;
+      const int base = dir == 0 ? spot.base0 : spot.base1;
 #pragma unroll
       for (int b = 0; b < 8; ++b) {
 #pragma unroll
@@ -343,16 +421,32 @@ __device__ __forceinline__ void wide_tri_body(
             const int k = c0 + cl;
             if (xband) {
               const float x = coords[static_cast<size_t>(o) * m + k];
-              atomicAdd(acc + static_cast<size_t>(m + k) * n + o,
-                        fmaf(sums[dir * S + ol], x, -out[b][q]));
+              atomicAdd(
+                  dst + static_cast<size_t>(m + k) * spot.ld + (o - base),
+                  fmaf(sums[dir * S + ol], x, -out[b][q]));
             } else {
-              atomicAdd(acc + static_cast<size_t>(k) * n + o, out[b][q]);
+              atomicAdd(dst + static_cast<size_t>(k) * spot.ld + (o - base),
+                        out[b][q]);
             }
           }
         }
       }
     }
   }
+}
+
+// The triangle sweeps' body: tile t0 + blockIdx.x of the upper triangle of
+// nb tiles, into the (2m, n) accumulator acc (see wide_pair_body).
+template <int kT, bool kBf16 = false, bool kAsym = false, class W>
+__device__ __forceinline__ void wide_tri_body(
+    const float* __restrict__ coords, const float* __restrict__ scores,
+    const W& weights, const float* __restrict__ thr, int n, int m, int T,
+    int nb, long long t0, float* __restrict__ acc,
+    unsigned long long* __restrict__ counts, const WideForm& form = {}) {
+  wide_pair_body<kT, kBf16, kAsym>(
+      coords, scores, weights, thr, n, m, T,
+      tri_spot(t0 + static_cast<long long>(blockIdx.x), nb, n, acc), counts,
+      form);
 }
 
 // The threads of a triangle kernel's block for instance MM: the wide

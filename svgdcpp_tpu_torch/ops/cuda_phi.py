@@ -63,13 +63,23 @@ distances at or below each threshold, like
 ``phi_rbf_aniso_terms_fused_counts`` and the panel schedules
 ``phi_rbf_sympanel_fused_counts`` / ``phi_rbf_terms_sympanel_fused_counts``,
 their plain versions; ``phi_rbf_square`` returns phi, like
-``ops/phi.phi_rbf_blocked``. The square sweeps (K1, K6/K7), the
-full-width triangle sweeps (K2/K4, K8-K11), K14 and K15 take any m >= 1:
-past MAX_M = 64 they run wide bodies that hold nothing sized by m
-(``csrc/square_mma.cuh``'s ``square_wide_body``, ``csrc/wide_tri.cuh``).
-The panel sweeps (K3/K5, K12/K13) and ``sym_eigen`` take
-1 <= m <= MAX_M and raise above it (ROADMAP.md item 17b); the count
-kernel takes any m.
+``ops/phi.phi_rbf_blocked``. Every sweep and the count kernel take any
+m >= 1: past MAX_M = 64 the sweeps run wide bodies that hold nothing sized
+by m (``csrc/square_mma.cuh``'s ``square_wide_body``,
+``csrc/wide_tri.cuh``'s triangle body, which the panels run on the tile
+pairs of a panel). ``sym_eigen`` alone takes 1 <= m <= MAX_M: its matrix
+and its order table live in one block's shared memory, and past MAX_M
+K15 takes P itself, so nothing calls it there.
+
+The bfloat16 operand opt-in (``dot_dtype='bfloat16'``, the JAX package's
+``fused_dot_dtype``) runs instances of their own, at every m, on the
+Gram-form bodies: K1's (square and cross, ``fused_phi_counts_square_bf16``),
+K2's (``fused_phi_counts_sym_bf16``), K3's
+(``fused_phi_counts_sympanel_bf16``) and K15's (``phi_rbf_wide_bf16``).
+They round the Gram operands, the pair weights and the contraction's
+records to bf16 where the JAX kernels do; the norms and the epilogue's
+coordinates stay float32. The plain versions in ``ops/phi`` take the same
+``dot_dtype`` and round at the same points.
 
 Which form sweeps one particle set is ``resolve_sym``: by default the JAX
 package's decision up to MAX_M and the card's own past it
@@ -104,13 +114,16 @@ from ..kernels.algebra import MAX_RBF_TERMS
 from ..utils.cuda_build import CSRC_DIR, build_library, library_path
 from .median import count_le_plain
 from .phi import (
+    dot_bf16,
     gram_operands,
     panel_index,
     phi_rbf_aniso_terms_fused_counts,
     phi_rbf_cross_fused_counts,
     phi_rbf_eigen,
     phi_rbf_fused_counts,
+    phi_rbf_gram,
     phi_rbf_sym_chunk_counts,
+    phi_rbf_sym_fused_counts,
     phi_rbf_sympanel_chunk_counts,
     phi_rbf_sympanel_fused_counts,
     phi_rbf_terms_cross_fused_counts,
@@ -129,9 +142,8 @@ from .sym_plan import (
     sym_tile_chunk,
 )
 
-#: Largest dimension the panel sweeps and sym_eigen take (the square,
-#: full-width triangle, anisotropic and fixed-P sweeps take any m),
-#: threshold count and term count the kernels take, and the most
+#: Largest dimension sym_eigen takes (every sweep takes any m), threshold
+#: count and term count the kernels take, and the most
 #: anisotropic terms (gradient accumulators) K14's kernel takes: the JAX
 #: package's _ANISO_MAX_W.
 MAX_M = KERNEL_MAX_M
@@ -163,14 +175,22 @@ SYM_CHUNK_KERNEL = "fused_phi_counts_sym_chunk"
 TERMS_SYM_CHUNK_KERNEL = "fused_phi_terms_sym_chunk"
 SYMPANEL_CHUNK_KERNEL = "fused_phi_counts_sympanel_chunk"
 COUNT_KERNEL = "count_le_cross"
+#: The bfloat16 operand opt-in's instances (K1, K2, K3, K15).
+SQUARE_BF16_KERNEL = "fused_phi_counts_square_bf16"
+SYM_BF16_KERNEL = "fused_phi_counts_sym_bf16"
+SYMPANEL_BF16_KERNEL = "fused_phi_counts_sympanel_bf16"
+PHI_RBF_WIDE_BF16_KERNEL = "phi_rbf_wide_bf16"
 
-#: Launches of each kernel since the last reset_launch_counts().
+#: Launches of each kernel since the last reset_launch_counts(). A panel
+#: kernel's wide instance (m > MAX_M) counts under its family's key.
 launch_counts = {
     SQUARE_KERNEL: 0, SYM_KERNEL: 0, TERMS_SQUARE_KERNEL: 0,
     TERMS_SYM_KERNEL: 0, ANISO_KERNEL: 0, ANISO_WIDE_KERNEL: 0,
     PHI_RBF_KERNEL: 0, PHI_RBF_WIDE_KERNEL: 0, SYM_EIGEN_KERNEL: 0,
     SYMPANEL_KERNEL: 0, TERMS_SYMPANEL_KERNEL: 0, SYM_CHUNK_KERNEL: 0,
     TERMS_SYM_CHUNK_KERNEL: 0, SYMPANEL_CHUNK_KERNEL: 0, COUNT_KERNEL: 0,
+    SQUARE_BF16_KERNEL: 0, SYM_BF16_KERNEL: 0, SYMPANEL_BF16_KERNEL: 0,
+    PHI_RBF_WIDE_BF16_KERNEL: 0,
 }
 
 LIBRARY = "svgd_fused_phi"
@@ -213,8 +233,13 @@ def load_library() -> ctypes.CDLL:
             signatures = {
                 "svgd_fused_phi_counts_square":
                     [ptr] * 5 + [i32] * 4 + [ptr] * 3 + [i32, ptr],
+                "svgd_fused_phi_counts_square_bf16":
+                    [ptr] * 5 + [i32] * 4 + [ptr] * 3 + [i32, ptr],
                 "svgd_square_splits": [i32] * 3,
+                "svgd_square_bf16_splits": [i32] * 3,
                 "svgd_fused_phi_counts_sym": [ptr] * 4 + [i32] * 3 + [ptr] * 3,
+                "svgd_fused_phi_counts_sym_bf16":
+                    [ptr] * 4 + [i32] * 3 + [ptr] * 3,
                 "svgd_fused_phi_terms_square":
                     [ptr] * 5 + [i32, ptr] + [i32] * 4 + [ptr] * 3
                     + [i32, ptr],
@@ -227,8 +252,11 @@ def load_library() -> ctypes.CDLL:
                     [ptr] * 5 + [i32, ptr, i32, ptr] + [i32] * 3 + [ptr] * 3,
                 "svgd_phi_rbf_square": [ptr] * 3 + [i32] * 3 + [ptr] * 2,
                 "svgd_phi_rbf_wide": [ptr] * 4 + [i32] * 3 + [ptr] * 2,
+                "svgd_phi_rbf_wide_bf16": [ptr] * 4 + [i32] * 3 + [ptr] * 2,
                 "svgd_sym_eigen": [ptr, i32, ptr, ptr, ptr],
                 "svgd_fused_phi_counts_sympanel":
+                    [ptr] * 4 + [i32] * 5 + [ptr] * 3,
+                "svgd_fused_phi_counts_sympanel_bf16":
                     [ptr] * 4 + [i32] * 5 + [ptr] * 3,
                 "svgd_fused_phi_terms_sympanel":
                     [ptr] * 4 + [i32, ptr] + [i32] * 5 + [ptr] * 3,
@@ -265,7 +293,9 @@ def resolve_sym(sym, n: int, m: int, num_terms: int | None = None):
     crossovers on the card are measured in PERF.md. Past MAX_M it gives the
     card's own rule (``sym_plan.card_resolve_sym``): the square sweep below
     SYM_MIN_N, from there the form measured faster on the card, never the
-    panel (whose kernels stop at MAX_M). ``True`` forces the full-width
+    panel (its wide instance does the triangle's work and more, and the
+    TPU's VMEM budget, the JAX rule's reason for it, does not bind on the
+    card). ``True`` forces the full-width
     kernel at any n, where the JAX package's True is advisory (it takes the
     panel or the square form past the budget): on the card the accumulator
     lives in device memory and no shape is too wide for it. ``False`` and
@@ -287,41 +317,37 @@ def _check_launch(rc: int, kernel: str) -> None:
         )
 
 
-def check_dimension(m: int, *, wide: bool) -> None:
-    """Raise for a dimension the kernels do not take: every sweep but the
-    panels (``wide``: the square, full-width triangle, anisotropic and
-    fixed-P sweeps) takes any m >= 1; the panel sweeps and sym_eigen
-    (``wide`` False) 1 <= m <= MAX_M."""
+def check_dimension(m: int, *, eigen: bool = False) -> None:
+    """Raise for a dimension the kernels do not take: every sweep takes any
+    m >= 1; the decomposition sym_eigen (``eigen``) 1 <= m <= MAX_M."""
     if m < 1:
         raise ValueError(f"the CUDA sweeps take m >= 1 dimensions, got m={m}")
-    if not wide and m > MAX_M:
+    if eigen and m > MAX_M:
         raise ValueError(
-            f"the CUDA panel sweeps and sym_eigen take 1 <= m <= {MAX_M} "
-            f"dimensions, got m={m} (ROADMAP.md item 17b: the panels' wide "
-            "bodies; the square, full-width triangle, anisotropic and "
-            "fixed-P sweeps take any m, and past it the fixed-P sweep takes "
-            "P itself, with no decomposition)"
+            f"sym_eigen takes 1 <= m <= {MAX_M} dimensions, got m={m}: the "
+            "one-block Jacobi kernel holds the matrix, the eigenvectors and "
+            "its order table in one block's shared memory (the table alone "
+            "would take 260 KB at m = 512); past it the fixed-P sweep takes "
+            "P itself, with no decomposition"
         )
 
 
-def _check_pair(coords, scores, *, wide):
+def _check_pair(coords, scores):
     if coords.ndim != 2 or scores.shape != coords.shape:
         raise ValueError(
             f"coords and scores must both be (n, m); got {tuple(coords.shape)}"
             f" and {tuple(scores.shape)}"
         )
-    check_dimension(coords.shape[1], wide=wide)
+    check_dimension(coords.shape[1])
     if scores.device != coords.device:
         raise ValueError("coords and scores must share one device")
 
 
-def _device_operands(coords, scores, gammas, thresholds_sq, min_terms=1, *,
-                     wide):
+def _device_operands(coords, scores, gammas, thresholds_sq, min_terms=1):
     """Validate the CUDA path's inputs and return float32 device operands
     (gammas (nterms,), or one zero for no term; thresholds (T,)) without
-    any host read. ``wide``: the sweep takes any m (every kernel but the
-    panels), else m <= MAX_M."""
-    _check_pair(coords, scores, wide=wide)
+    any host read."""
+    _check_pair(coords, scores)
     t = thresholds_sq.shape[0]
     if not 1 <= t <= MAX_T:
         raise ValueError(
@@ -401,7 +427,7 @@ def symmetric_eigen(p_matrix, device=None):
         return torch.linalg.eigh(0.5 * (p + p.T))
     _require_cuda(p)
     m = p.shape[0]
-    check_dimension(m, wide=False)
+    check_dimension(m, eigen=True)
     lam = torch.empty(m, dtype=torch.float64, device=device)
     v = torch.empty((m, m), dtype=torch.float64, device=device)
     lib = load_library()
@@ -431,18 +457,20 @@ def eigen_rows(coords_c, p_matrix, eig=None):
     return coords_c.to(torch.float64) @ v, lam, v
 
 
-def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq):
-    """K1 (one positive term, ``signs`` None) or the terms square kernel.
+def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq,
+                   bf16=False):
+    """K1 (one positive term, ``signs`` None; ``bf16`` its bfloat16
+    instance) or the terms square kernel.
 
     Both split the sources over the grid; the library gives the number of
-    splits (``svgd_square_splits``, one rule for both kernels) and the
-    wrapper allocates the workspace of the splits' partial sums,
+    splits (``svgd_square_splits``, one rule for both kernels;
+    ``svgd_square_bf16_splits`` for K1's bf16 instance) and the wrapper
+    allocates the workspace of the splits' partial sums,
     (splits, n_t, 2m + 1), which the kernel's finishing pass sums in
     order. From m = 5 both kernels' tensor-core body copies sources and
     scores 16 bytes at a time, so a scores view that starts off a 16-byte
     boundary is copied first."""
-    g, thr = _device_operands(sources, scores, gammas, thresholds_sq,
-                              wide=True)
+    g, thr = _device_operands(sources, scores, gammas, thresholds_sq)
     if targets.ndim != 2 or targets.shape[1] != sources.shape[1]:
         raise ValueError("targets must be (n_t, m) with the sources' m")
     if targets.device != sources.device:
@@ -462,10 +490,19 @@ def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq):
     lib = load_library()
     with torch.cuda.device(targets.device):
         stream = torch.cuda.current_stream().cuda_stream
-        splits = lib.svgd_square_splits(n_t, n_s, m)
+        splits = (lib.svgd_square_bf16_splits if bf16
+                  else lib.svgd_square_splits)(n_t, n_s, m)
         work = torch.empty((splits, n_t, 2 * m + 1), dtype=torch.float32,
                            device=targets.device)
-        if signs is None:
+        if bf16:
+            name = SQUARE_BF16_KERNEL
+            rc = lib.svgd_fused_phi_counts_square_bf16(
+                tgt_c.data_ptr(), src_c.data_ptr(), sc32.data_ptr(),
+                g.data_ptr(), thr.data_ptr(), n_t, n_s, m, thr.shape[0],
+                phi.data_ptr(), counts.data_ptr(), work.data_ptr(), splits,
+                stream,
+            )
+        elif signs is None:
             name = SQUARE_KERNEL
             rc = lib.svgd_fused_phi_counts_square(
                 tgt_c.data_ptr(), src_c.data_ptr(), sc32.data_ptr(),
@@ -486,10 +523,10 @@ def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq):
     return phi.to(targets.dtype), counts
 
 
-def _sym_launch(coords, scores, gammas, signs, thresholds_sq):
-    """K2 (one positive term, ``signs`` None) or the terms triangle kernel."""
-    g, thr = _device_operands(coords, scores, gammas, thresholds_sq,
-                              wide=True)
+def _sym_launch(coords, scores, gammas, signs, thresholds_sq, bf16=False):
+    """K2 (one positive term, ``signs`` None; ``bf16`` its bfloat16
+    instance) or the terms triangle kernel."""
+    g, thr = _device_operands(coords, scores, gammas, thresholds_sq)
     n, m = coords.shape
     coords_c = _centered32(coords).contiguous()
     sc32 = scores.to(torch.float32).contiguous()
@@ -499,8 +536,10 @@ def _sym_launch(coords, scores, gammas, signs, thresholds_sq):
     with torch.cuda.device(coords.device):
         stream = torch.cuda.current_stream().cuda_stream
         if signs is None:
-            name = SYM_KERNEL
-            rc = lib.svgd_fused_phi_counts_sym(
+            name = SYM_BF16_KERNEL if bf16 else SYM_KERNEL
+            entry = (lib.svgd_fused_phi_counts_sym_bf16 if bf16
+                     else lib.svgd_fused_phi_counts_sym)
+            rc = entry(
                 coords_c.data_ptr(), sc32.data_ptr(), g.data_ptr(),
                 thr.data_ptr(), n, m, thr.shape[0], acc.data_ptr(),
                 upper.data_ptr(), stream,
@@ -541,13 +580,9 @@ def _panel_index(nb, device, p0=0, count=None):
     return _panel_index_cache[key]
 
 
-def _sympanel_launch(coords, scores, gammas, signs, thresholds_sq,
-                     panel_blocks):
-    """K3's port (one positive term, ``signs`` None) or the terms panel
-    kernel (K12/K13's), on the card's panel plan."""
-    g, thr = _device_operands(coords, scores, gammas, thresholds_sq,
-                              wide=False)
-    n, m = coords.shape
+def _panel_plan(n, panel_blocks):
+    """(nb, w, number of panels) of the card's panel plan for n particles,
+    whose panels fill the grid's y (at most MAX_PANELS)."""
     nb, w, _ = card_panel_plan(n, panel_blocks)
     num_p = nb * (nb + 1) // 2
     if num_p > MAX_PANELS:
@@ -555,17 +590,48 @@ def _sympanel_launch(coords, scores, gammas, signs, thresholds_sq,
             f"the panel kernels take at most {MAX_PANELS} panels, got "
             f"{num_p} ({nb} super-blocks)"
         )
+    return nb, w, num_p
+
+
+def _panel_windows(num_p, m, w, device):
+    """The zeroed (num_p, 2, 2m, w) float32 window buffer of a panel
+    launch. Past m = 64 it grows with m (about 2.3 GB at N = 262,144,
+    m = 123): a buffer larger than the card's memory raises here, with its
+    size, before anything is allocated or launched."""
+    shape = (num_p, 2, 2 * m, w)
+    if device.type == "cuda":
+        nbytes = 4 * num_p * 2 * 2 * m * w
+        total = torch.cuda.get_device_properties(device).total_memory
+        if nbytes > total:
+            raise ValueError(
+                f"the panel windows {shape} take {nbytes} bytes, more than "
+                f"the {total} bytes of {torch.cuda.get_device_name(device)};"
+                " take more super-blocks (panel_blocks) or the full-width "
+                "triangle (sym=True)"
+            )
+    return torch.zeros(shape, dtype=torch.float32, device=device)
+
+
+def _sympanel_launch(coords, scores, gammas, signs, thresholds_sq,
+                     panel_blocks, bf16=False):
+    """K3's port (one positive term, ``signs`` None; ``bf16`` its bfloat16
+    instance) or the terms panel kernel (K12/K13's), on the card's panel
+    plan; past m = 64 the library runs their wide instances."""
+    g, thr = _device_operands(coords, scores, gammas, thresholds_sq)
+    n, m = coords.shape
+    nb, w, num_p = _panel_plan(n, panel_blocks)
+    panels = _panel_windows(num_p, m, w, coords.device)
     coords_c = _centered32(coords).contiguous()
     sc32 = scores.to(torch.float32).contiguous()
-    panels = torch.zeros((num_p, 2, 2 * m, w), dtype=torch.float32,
-                         device=coords.device)
     upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=coords.device)
     lib = load_library()
     with torch.cuda.device(coords.device):
         stream = torch.cuda.current_stream().cuda_stream
         if signs is None:
-            name = SYMPANEL_KERNEL
-            rc = lib.svgd_fused_phi_counts_sympanel(
+            name = SYMPANEL_BF16_KERNEL if bf16 else SYMPANEL_KERNEL
+            entry = (lib.svgd_fused_phi_counts_sympanel_bf16 if bf16
+                     else lib.svgd_fused_phi_counts_sympanel)
+            rc = entry(
                 coords_c.data_ptr(), sc32.data_ptr(), g.data_ptr(),
                 thr.data_ptr(), n, m, thr.shape[0], nb, w, panels.data_ptr(),
                 upper.data_ptr(), stream,
@@ -598,7 +664,7 @@ def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
     """K14: the one-pass kernel, or the term-group triangle kernel (its
     wide instance past MAX_M)."""
     g, thr = _device_operands(coords, scores, iso_gammas, thresholds_sq,
-                              min_terms=0, wide=True)
+                              min_terms=0)
     n_aniso = len(aniso_signs)
     if not 1 <= n_aniso <= MAX_ANISO_TERMS:
         raise ValueError(
@@ -659,13 +725,14 @@ def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
     return phi.to(coords.dtype), 2 * upper - n
 
 
-def _phi_rbf_launch(coords, scores, p_matrix, psd, eig):
+def _phi_rbf_launch(coords, scores, p_matrix, psd, eig, bf16=False):
     """K15: the fixed-P sweep kernel (the decomposition, where the caller
-    has none, on the card too); past MAX_M its wide instance on P itself."""
-    _check_pair(coords, scores, wide=True)
+    has none, on the card too); past MAX_M, and for the bfloat16 opt-in at
+    any m, its wide instance on P itself."""
+    _check_pair(coords, scores)
     n, m = coords.shape
-    if m > MAX_M:
-        return _phi_rbf_wide_launch(coords, scores, p_matrix, psd, eig)
+    if m > MAX_M or bf16:
+        return _phi_rbf_wide_launch(coords, scores, p_matrix, psd, eig, bf16)
     z64, lam, v = eigen_rows(_centered32(coords), p_matrix, eig)
     z = z64.to(torch.float32).contiguous()
     lam32 = lam.to(torch.float32).contiguous()
@@ -685,82 +752,107 @@ def _phi_rbf_launch(coords, scores, p_matrix, psd, eig):
     return phi.to(coords.dtype)
 
 
-def _phi_rbf_wide_launch(coords, scores, p_matrix, psd, eig):
-    """K15 past MAX_M (``phi_rbf_wide``): the JAX kernel's form on
+def _half_of(p_matrix, eig, device=None):
+    """H = P_sym/2 in float64 on ``device`` (the coordinates'): from the
+    caller's (lam, V) where given, else from P."""
+    if eig is not None:
+        lam, v = (torch.as_tensor(t).to(device, torch.float64) for t in eig)
+        return (v * lam) @ v.T
+    p = torch.as_tensor(p_matrix).to(device, torch.float64)
+    return 0.5 * (p + p.T)
+
+
+def _phi_rbf_wide_launch(coords, scores, p_matrix, psd, eig, bf16=False):
+    """K15 past MAX_M (``phi_rbf_wide``; ``bf16`` its bfloat16 instance,
+    ``phi_rbf_wide_bf16``, at any m): the JAX kernel's form on
     H = P_sym/2 itself, from P or from the caller's (lam, V) (a MEDIAN's
     gamma I, a kept decomposition), formed on the device in float64; the
     operands Y = X_c H and q from ``ops/phi.gram_operands``."""
     n, m = coords.shape
     device = coords.device
-    if eig is not None:
-        lam, v = (t.to(device, torch.float64) for t in eig)
-        half = (v * lam) @ v.T
-    else:
-        p = torch.as_tensor(p_matrix).to(device, torch.float64)
-        half = 0.5 * (p + p.T)
+    half = _half_of(p_matrix, eig, device)
     coords_c = _centered32(coords).contiguous()
     y, q = gram_operands(coords_c, half)
     sc32 = scores.to(torch.float32).contiguous()
     out = torch.zeros((2 * m, n), dtype=torch.float32, device=device)
     lib = load_library()
+    name = PHI_RBF_WIDE_BF16_KERNEL if bf16 else PHI_RBF_WIDE_KERNEL
+    entry = lib.svgd_phi_rbf_wide_bf16 if bf16 else lib.svgd_phi_rbf_wide
     with torch.cuda.device(device):
-        rc = lib.svgd_phi_rbf_wide(
+        rc = entry(
             coords_c.data_ptr(), y.data_ptr(), q.data_ptr(), sc32.data_ptr(),
             n, m, int(psd), out.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
-    _check_launch(rc, PHI_RBF_WIDE_KERNEL)
-    launch_counts[PHI_RBF_WIDE_KERNEL] += 1
-    # out = [KS | D], D = sum_j k (x_i - x_j); the self pairs (k = 1)
-    # entered KS in both directions, so subtract s_i once.
-    # D P_sym = 2 D H (float64).
+    _check_launch(rc, name)
+    launch_counts[name] += 1
+    # out = [KS | D], D = sum_j k (x_i - x_j). In float32 the self pairs
+    # (pinned, k = 1) entered KS in both directions, so subtract s_i once;
+    # the bf16 instance enters each self pair once, unpinned, as the JAX
+    # kernel's square sweep does. D P_sym = 2 D H (float64).
     grad = out[m:].T.to(torch.float64) @ half
-    phi = (out[:m].T - sc32 + 2.0 * grad.to(torch.float32)) / n
-    return phi.to(coords.dtype)
+    phi = out[:m].T + 2.0 * grad.to(torch.float32)
+    if not bf16:
+        phi = phi - sc32
+    return (phi / n).to(coords.dtype)
 
 
 def phi_rbf_fused_cuda(coords, scores, gamma, thresholds_sq, sym=None,
-                       panel_blocks=None):
+                       panel_blocks=None, dot_dtype="float32"):
     """Fused sweep over one particle set: (phi (n, m), counts (T,) int64).
 
     Counterpart of ``svgdcpp_tpu.ops.pallas_phi.phi_rbf_fused_pallas``. The
     form is ``resolve_sym(sym, n, m)``. On a CUDA tensor: the panel kernel
     for "panel" (``panel_blocks`` forces its super-block count), the
     full-width triangle kernel for True, else the square kernel, in float32
-    (phi is returned in the coords' dtype). On a CPU tensor the plain
+    (phi is returned in the coords' dtype); ``dot_dtype='bfloat16'`` (the
+    JAX package's opt-in; 'float32' by default, any other value raises)
+    takes each form's bfloat16 instance. On a CPU tensor the plain
     versions: the panel schedule ``phi_rbf_sympanel_fused_counts`` for
     "panel", else ``phi_rbf_fused_counts`` (its square sweep gives the same
-    phi and counts as either other kernel).
+    phi and counts as either other kernel in float32); under bf16 the
+    triangle's own, ``phi_rbf_sym_fused_counts`` (the self pair pinned, as
+    the triangle kernels pin it), for True.
     """
+    bf16 = dot_bf16(dot_dtype)
     form = resolve_sym(sym, coords.shape[0], coords.shape[1])
     if coords.device.type == "cpu":
         if form == "panel":
             return phi_rbf_sympanel_fused_counts(
-                coords, scores, gamma, thresholds_sq, panel_blocks
+                coords, scores, gamma, thresholds_sq, panel_blocks,
+                dot_dtype=dot_dtype,
             )
-        return phi_rbf_fused_counts(coords, scores, gamma, thresholds_sq)
+        if form and bf16:
+            return phi_rbf_sym_fused_counts(coords, scores, gamma,
+                                            thresholds_sq, dot_dtype)
+        return phi_rbf_fused_counts(coords, scores, gamma, thresholds_sq,
+                                    dot_dtype=dot_dtype)
     _require_cuda(coords)
     if form == "panel":
         return _sympanel_launch(coords, scores, [gamma], None, thresholds_sq,
-                                panel_blocks)
+                                panel_blocks, bf16)
     if form:
-        return _sym_launch(coords, scores, [gamma], None, thresholds_sq)
-    return _square_launch(coords, coords, scores, [gamma], None, thresholds_sq)
+        return _sym_launch(coords, scores, [gamma], None, thresholds_sq, bf16)
+    return _square_launch(coords, coords, scores, [gamma], None, thresholds_sq,
+                          bf16)
 
 
 def phi_rbf_fused_cuda_cross(targets, sources, source_scores, gamma,
-                             thresholds_sq):
+                             thresholds_sq, dot_dtype="float32"):
     """Cross form: ``targets`` against ``sources``, phi normalized by the
     source count; counts cover all n_t x n_s pairs. Counterpart of
-    ``svgdcpp_tpu.ops.pallas_phi.phi_rbf_fused_pallas_cross``; CPU tensors
-    go to the plain ``phi_rbf_cross_fused_counts``."""
+    ``svgdcpp_tpu.ops.pallas_phi.phi_rbf_fused_pallas_cross``
+    (``dot_dtype`` as in :func:`phi_rbf_fused_cuda`); CPU tensors go to
+    the plain ``phi_rbf_cross_fused_counts``."""
+    bf16 = dot_bf16(dot_dtype)
     if targets.device.type == "cpu":
         return phi_rbf_cross_fused_counts(
-            targets, sources, source_scores, gamma, thresholds_sq
+            targets, sources, source_scores, gamma, thresholds_sq,
+            dot_dtype=dot_dtype,
         )
     _require_cuda(targets)
     return _square_launch(
-        targets, sources, source_scores, [gamma], None, thresholds_sq
+        targets, sources, source_scores, [gamma], None, thresholds_sq, bf16
     )
 
 
@@ -849,7 +941,8 @@ def phi_rbf_aniso_terms_fused_cuda(coords, scores, iso_gammas, iso_signs,
                          aniso_signs, thresholds_sq, lowers)
 
 
-def phi_rbf_cuda(coords, scores, p_matrix, psd=True, eig=None):
+def phi_rbf_cuda(coords, scores, p_matrix, psd=True, eig=None,
+                 dot_dtype="float32"):
     """RBF phi with one full (m, m) precision P over one particle set.
 
     Counterpart of ``svgdcpp_tpu.ops.pallas_phi.phi_rbf_pallas``: ``psd``
@@ -864,12 +957,23 @@ def phi_rbf_cuda(coords, scores, p_matrix, psd=True, eig=None):
     nothing is decomposed. On a CPU tensor, at any m: the plain
     ``phi_rbf_eigen`` from ``eig``, or from the decomposition's plain
     version (``symmetric_eigen`` on the CPU, ``torch.linalg.eigh``).
+
+    ``dot_dtype='bfloat16'`` (the JAX kernel's ``dot_dtype``; 'float32' by
+    default, any other value raises): on a CUDA tensor phi_rbf_wide_bf16
+    at any m (``launch_counts`` under PHI_RBF_WIDE_BF16_KERNEL), on a CPU
+    tensor its plain version ``phi_rbf_gram(..., dot_dtype)``. No driver
+    route passes it: the JAX package's 'pallas' route, which the 'cuda'
+    route stands for, does not read the option.
     """
+    bf16 = dot_bf16(dot_dtype)
     if coords.device.type == "cpu":
+        if bf16:
+            return phi_rbf_gram(coords, scores, _half_of(p_matrix, eig),
+                                psd=psd, dot_dtype=dot_dtype)
         lam, v = symmetric_eigen(p_matrix, "cpu") if eig is None else eig
         return phi_rbf_eigen(coords, scores, lam, v, psd=psd)
     _require_cuda(coords)
-    return _phi_rbf_launch(coords, scores, p_matrix, psd, eig)
+    return _phi_rbf_launch(coords, scores, p_matrix, psd, eig, bf16)
 
 
 # ----------------------------------------------------------------------
@@ -885,8 +989,7 @@ def _check_chunk(world, rank):
 def _sym_chunk_launch(coords, scores, gammas, signs, thresholds_sq, world,
                       rank):
     """K4 (one positive term, ``signs`` None) or K10/K11's chunk kernel."""
-    g, thr = _device_operands(coords, scores, gammas, thresholds_sq,
-                              wide=True)
+    g, thr = _device_operands(coords, scores, gammas, thresholds_sq)
     n, m = coords.shape
     lib = load_library()
     # The range is one of the kernel's own tile list, whose tile side the
@@ -984,20 +1087,13 @@ def phi_rbf_sympanel_chunk_cuda(coords, scores, gamma, thresholds_sq, world,
             coords, scores, gamma, thresholds_sq, world, rank, panel_blocks
         )
     _require_cuda(coords)
-    g, thr = _device_operands(coords, scores, [gamma], thresholds_sq,
-                              wide=False)
+    g, thr = _device_operands(coords, scores, [gamma], thresholds_sq)
     n, m = coords.shape
-    nb, w, _ = card_panel_plan(n, panel_blocks)
-    if nb * (nb + 1) // 2 > MAX_PANELS:
-        raise ValueError(
-            f"the panel kernels take at most {MAX_PANELS} panels, got "
-            f"{nb * (nb + 1) // 2} ({nb} super-blocks)"
-        )
+    nb, w, _ = _panel_plan(n, panel_blocks)
     p0, count = panel_chunk(nb, world, rank)
     coords_c = _centered32(coords).contiguous()
     sc32 = scores.to(torch.float32).contiguous()
-    panels = torch.zeros((count, 2, 2 * m, w), dtype=torch.float32,
-                         device=coords.device)
+    panels = _panel_windows(count, m, w, coords.device)
     upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=coords.device)
     lib = load_library()
     with torch.cuda.device(coords.device):

@@ -39,6 +39,13 @@ Port of ``svgdcpp_tpu.ops.phi`` (reference hot loop SVGD.hpp:407-454):
                            counts that the sharded engine sums over the
                            ranks and finishes (``sym_finish``): the plain
                            versions of the CUDA chunk kernels.
+  * ``dot_dtype='bfloat16'`` -- the JAX package's operand opt-in, on the
+                           single-RBF sweeps (``phi_rbf_fused_counts``,
+                           ``phi_rbf_cross_fused_counts``,
+                           ``phi_rbf_sym_fused_counts``, the panel
+                           schedules) and ``phi_rbf_gram``: the plain
+                           versions of the kernels' bf16 instances, rounding
+                           where the JAX kernels round (``round_bf16``).
 
 Index convention: K[i, j] = k(x_j, x_i), row i is the target particle.
 """
@@ -62,6 +69,42 @@ from .sym_plan import (
     sym_tile_chunk,
     upper_tile_rows,
 )
+
+
+# ----------------------------------------------------------------------
+# The bfloat16 operand opt-in
+# ----------------------------------------------------------------------
+
+#: log2(e), by which the JAX kernels scale gamma (``_LOG2E``).
+LOG2E = 1.4426950408889634
+
+#: The operand dtypes of the fused kernel sweeps (the JAX package's
+#: ``dot_dtype`` and ``SVGDOptions.fused_dot_dtype``).
+DOT_DTYPES = ("float32", "bfloat16")
+
+
+def dot_bf16(dot_dtype) -> bool:
+    """Whether ``dot_dtype`` asks for the bfloat16 operand opt-in:
+    'float32' or 'bfloat16'; any other value raises ValueError."""
+    if not isinstance(dot_dtype, str) or dot_dtype not in DOT_DTYPES:
+        raise ValueError(
+            f"dot_dtype must be one of {DOT_DTYPES}, got {dot_dtype!r}"
+        )
+    return dot_dtype == "bfloat16"
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 (to nearest, ties to even) through float32,
+    as the JAX kernels round their float32 operands (``astype``), returned
+    in t's dtype. Under the opt-in the sweeps round their Gram operands,
+    their pair weights and the contractions' records [S | X | 1]; the
+    squared norms and the epilogue's x_i stay unrounded
+    (pallas_phi.py:409-433, :379, :707)."""
+    return t.to(torch.float32).to(torch.bfloat16).to(t.dtype)
+
+
+def _rounding(bf16: bool):
+    return round_bf16 if bf16 else (lambda t: t)
 
 
 # ----------------------------------------------------------------------
@@ -332,6 +375,7 @@ def phi_rbf_terms_cross_fused_counts(
     signs,
     thresholds_sq: torch.Tensor,
     row_tile: int = 1024,
+    dot_dtype: str = "float32",
 ):
     """ONE O(n_t * n_s) sweep: phi of a signed sum of ISOTROPIC RBF terms
     AND the median-selection threshold counts, in cross form.
@@ -353,8 +397,15 @@ def phi_rbf_terms_cross_fused_counts(
 
     With no term at all, phi is zero and the sweep gives the counts alone.
 
+    ``dot_dtype='bfloat16'`` (one positive term only, as the JAX kernels
+    take it): the Gram form at every m, its operands, the weights and the
+    record [S | X | 1] rounded to bf16 (:func:`round_bf16`), the norms and
+    the epilogue's targets unrounded: the plain version of K1's bf16
+    instance.
+
     Returns (phi (n_t, m) normalized by n_s, counts (E,) int64).
     """
+    bf16 = dot_bf16(dot_dtype)
     center = sources.mean(dim=0)
     targets = targets - center
     sources = sources - center
@@ -367,6 +418,12 @@ def phi_rbf_terms_cross_fused_counts(
     signs = [float(s) for s in signs]
     thresholds_sq = torch.as_tensor(thresholds_sq, dtype=dtype, device=device)
     single = len(gammas) == 1 and signs[0] == 1.0
+    if bf16 and not single:
+        raise ValueError(
+            "dot_dtype='bfloat16' takes one positive RBF term (as the JAX "
+            f"package's fused kernels), got signs {signs}"
+        )
+    rnd = _rounding(bf16)
     counts = torch.zeros(thresholds_sq.shape[0], dtype=torch.int64, device=device)
     ones = torch.ones((n_s, 1), dtype=dtype, device=device)
 
@@ -389,7 +446,7 @@ def phi_rbf_terms_cross_fused_counts(
         return k_c, w
 
     out = []
-    if m <= DIFF_FORM_MAX_M:
+    if m <= DIFF_FORM_MAX_M and not bf16:
         for start in range(0, n_t, row_tile):
             rows = targets[start : start + row_tile]
             diffs = [rows[:, a, None] - sources[None, :, a] for a in range(m)]
@@ -416,18 +473,23 @@ def phi_rbf_terms_cross_fused_counts(
 
     q_src = torch.sum(sources * sources, dim=1)
     q_tgt = torch.sum(targets * targets, dim=1)
+    src_g = rnd(sources)
     if single:
-        b = torch.cat([source_scores, sources, ones], dim=1)
+        b = rnd(torch.cat([source_scores, sources, ones], dim=1))
     else:
         xs1 = torch.cat([sources, ones], dim=1)
     for start in range(0, n_t, row_tile):
         rows = targets[start : start + row_tile]
-        gram = sq_matmul(rows, sources.T)
+        gram = sq_matmul(rnd(rows), src_g.T)
         sq = torch.clamp_min(
             q_tgt[start : start + row_tile, None] + q_src[None, :] - 2.0 * gram,
             0.0,
         )
-        if single:
+        if bf16:
+            # The JAX kernel's own weight, exp2(-gamma log2(e) sq), whose
+            # last bits decide the bf16 rounding of k.
+            out.append(rnd(torch.exp2(-(gammas[0] * LOG2E) * sq)) @ b)
+        elif single:
             out.append(torch.exp(-gammas[0] * sq) @ b)
         else:
             k_c, w = combine(sq)
@@ -452,10 +514,12 @@ def phi_rbf_cross_fused_counts(
     gamma,
     thresholds_sq: torch.Tensor,
     row_tile: int = 1024,
+    dot_dtype: str = "float32",
 ):
     """Single-term cross fused sweep (see phi_rbf_terms_cross_fused_counts)."""
     return phi_rbf_terms_cross_fused_counts(
         targets, sources, source_scores, [gamma], [1], thresholds_sq, row_tile,
+        dot_dtype,
     )
 
 
@@ -479,24 +543,57 @@ def phi_rbf_fused_counts(
     gamma,
     thresholds_sq: torch.Tensor,
     row_tile: int = 1024,
+    dot_dtype: str = "float32",
 ):
     """Single-set single-term fused sweep: ONE O(n^2) pass giving the RBF
     phi (P = gamma I) and the median-selection counts, the main path's
-    plain sweep (see phi_rbf_terms_cross_fused_counts)."""
+    plain sweep (see phi_rbf_terms_cross_fused_counts); under
+    ``dot_dtype='bfloat16'`` the square form of K1's bf16 instance (no self
+    pair pinned)."""
     return phi_rbf_terms_cross_fused_counts(
-        coords, coords, scores, [gamma], [1], thresholds_sq, row_tile
+        coords, coords, scores, [gamma], [1], thresholds_sq, row_tile,
+        dot_dtype,
     )
 
 
-def _pair_weights(gammas, signs, single, dtype, device):
+def phi_rbf_sym_fused_counts(coords, scores, gamma, thresholds_sq,
+                             dot_dtype: str = "float32"):
+    """One RBF's full-width triangle sweep over one particle set in plain
+    torch, the plain version of K2 (``fused_phi_counts_sym``) and of its
+    bf16 instance: every unordered pair once, both directions, the self
+    pairs pinned to sq = 0 past the difference form and taken out once by
+    :func:`sym_finish`, counts 2U - n; the single-rank chunk
+    (:func:`phi_rbf_terms_sym_chunk_counts`) finished. In float32 it is
+    the function of :func:`phi_rbf_fused_counts`; under bf16 the self
+    pair's rounded records stay, as in the JAX triangle's epilogue
+    (pallas_phi.py:701-708). Returns (phi (n, m), counts (E,) int64)."""
+    n = coords.shape[0]
+    acc, upper = phi_rbf_terms_sym_chunk_counts(
+        coords, scores, [gamma], [1.0], thresholds_sq, 1, 0, single=True,
+        dot_dtype=dot_dtype,
+    )
+    phi = phi_rbf_fused_sym_finish(acc, scores.to(acc.dtype), gamma, n)
+    return phi, 2 * upper - n
+
+
+def _pair_weights(gammas, signs, single, dtype, device, bf16=False):
     """sq -> (k_c, w): the pair weights of KS and D. One RBF (``single``):
-    k = exp(-gamma sq) for both (the epilogue multiplies D by gamma); a
-    composed kernel: k_c = sum s exp(-gamma sq), w = sum s gamma exp(-gamma
-    sq)."""
+    k = exp(-gamma sq) for both (the epilogue multiplies D by gamma; under
+    ``bf16`` the JAX kernel's exp2(-gamma log2(e) sq), rounded by the
+    caller); a composed kernel: k_c = sum s exp(-gamma sq),
+    w = sum s gamma exp(-gamma sq)."""
     gammas = [torch.as_tensor(g, dtype=dtype, device=device) for g in gammas]
     signs = [float(s) for s in signs]
+    if bf16 and not single:
+        raise ValueError(
+            "dot_dtype='bfloat16' takes one positive RBF term (as the JAX "
+            f"package's fused kernels), got signs {signs}"
+        )
 
     def weights(sq):
+        if bf16:
+            k = torch.exp2(-(gammas[0] * LOG2E) * sq)
+            return k, k
         if single:
             k = torch.exp(-gammas[0] * sq)
             return k, k
@@ -510,7 +607,8 @@ def _pair_weights(gammas, signs, single, dtype, device):
     return weights
 
 
-def _pair_block(coords_c, scores, q, r0, r1, c0, c1, diag, weights, thr):
+def _pair_block(coords_c, scores, q, r0, r1, c0, c1, diag, weights, thr,
+                bf16=False):
     """Both directions of the pairs (i, j), i in [r0, r1), j in [c0, c1); on
     a ``diag`` block only j >= i, the self pairs included: (KS_row (r, m),
     D_row (r, m), KS_col (c, m), D_col (c, m), hits (E,) int64), as the
@@ -519,9 +617,12 @@ def _pair_block(coords_c, scores, q, r0, r1, c0, c1, diag, weights, thr):
     or below each threshold. sq comes from differences up to
     DIFF_FORM_MAX_M, as in phi_rbf_terms_cross_fused_counts, else from the
     Gram identity on the squared norms ``q`` with the self pairs pinned to
-    0."""
+    0. ``bf16`` (the opt-in): the Gram form at every m, its operands, the
+    weights and the records s and x of the contractions rounded
+    (:func:`round_bf16`), D's own x unrounded."""
     m = coords_c.shape[1]
     dtype, device = coords_c.dtype, coords_c.device
+    rnd = _rounding(bf16)
     xr, sr = coords_c[r0:r1], scores[r0:r1]
     xc, sc = coords_c[c0:c1], scores[c0:c1]
     keep = None
@@ -529,18 +630,20 @@ def _pair_block(coords_c, scores, q, r0, r1, c0, c1, diag, weights, thr):
         gi = torch.arange(r0, r1, device=device)[:, None]
         gj = torch.arange(c0, c1, device=device)[None, :]
         keep = gj >= gi
-    if m <= DIFF_FORM_MAX_M:
+    diff_form = m <= DIFF_FORM_MAX_M and not bf16
+    if diff_form:
         diffs = [xr[:, a, None] - xc[None, :, a] for a in range(m)]
         sq = torch.zeros((r1 - r0, c1 - c0), dtype=dtype, device=device)
         for a in range(m):
             sq = sq + diffs[a] * diffs[a]
     else:
         sq = torch.clamp_min(
-            q[r0:r1, None] + q[None, c0:c1] - 2.0 * sq_matmul(xr, xc.T), 0.0,
+            q[r0:r1, None] + q[None, c0:c1]
+            - 2.0 * sq_matmul(rnd(xr), rnd(xc).T), 0.0,
         )
         if keep is not None:
             sq = torch.where(gj == gi, torch.zeros_like(sq), sq)
-    k_c, w_ = weights(sq)
+    k_c, w_ = (rnd(v) for v in weights(sq))
     if keep is not None:
         k_c = torch.where(keep, k_c, torch.zeros_like(k_c))
         w_ = torch.where(keep, w_, torch.zeros_like(w_))
@@ -549,7 +652,7 @@ def _pair_block(coords_c, scores, q, r0, r1, c0, c1, diag, weights, thr):
         )
     else:
         hits = torch.sum(sq[None, :, :] <= thr[:, None, None], dim=(1, 2))
-    if m <= DIFF_FORM_MAX_M:
+    if diff_form:
         d_row = torch.stack(
             [torch.sum(w_ * diffs[a], dim=1) for a in range(m)], dim=1
         )
@@ -557,13 +660,13 @@ def _pair_block(coords_c, scores, q, r0, r1, c0, c1, diag, weights, thr):
             [torch.sum(w_ * diffs[a], dim=0) for a in range(m)], dim=1
         )
     else:
-        d_row = torch.sum(w_, dim=1)[:, None] * xr - w_ @ xc
-        d_col = torch.sum(w_, dim=0)[:, None] * xc - w_.T @ xr
-    return k_c @ sc, d_row, k_c.T @ sr, d_col, hits
+        d_row = torch.sum(w_, dim=1)[:, None] * xr - w_ @ rnd(xc)
+        d_col = torch.sum(w_, dim=0)[:, None] * xc - w_.T @ rnd(xr)
+    return k_c @ rnd(sc), d_row, k_c.T @ rnd(sr), d_col, hits
 
 
 def _sympanel_halves(coords_c, scores, gammas, signs, thresholds_sq, nb, w,
-                     single, row_tile, p0=0, count=None):
+                     single, row_tile, p0=0, count=None, bf16=False):
     """The panel windows of the triangle sweep, computed as the CUDA panel
     kernels lay them out: (panels (P, 2, 2m, W), upper (E,) int64).
 
@@ -576,7 +679,7 @@ def _sympanel_halves(coords_c, scores, gammas, signs, thresholds_sq, nb, w,
     both halves. ``upper`` counts the kept pairs at or below each
     threshold. D is weighted by w = sum s gamma k for a composed kernel and
     by k alone for one RBF (``single``; the epilogue multiplies by gamma);
-    the pairs are ``_pair_block``'s."""
+    the pairs are ``_pair_block``'s (``bf16``: the opt-in's roundings)."""
     n, m = coords_c.shape
     dtype, device = coords_c.dtype, coords_c.device
     thr = torch.as_tensor(thresholds_sq, dtype=dtype, device=device)
@@ -586,7 +689,7 @@ def _sympanel_halves(coords_c, scores, gammas, signs, thresholds_sq, nb, w,
     upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=device)
     q = torch.sum(coords_c * coords_c, dim=1)
     row_tile = auto_row_tile(w, row_tile)
-    weights = _pair_weights(gammas, signs, single, dtype, device)
+    weights = _pair_weights(gammas, signs, single, dtype, device, bf16)
 
     for p, (bi, bj) in enumerate(pairs):
         c0, c_end = bj * w, min(bj * w + w, n)
@@ -599,7 +702,7 @@ def _sympanel_halves(coords_c, scores, gammas, signs, thresholds_sq, nb, w,
                 continue
             ks_row, d_row, ks_col, d_col, hits = _pair_block(
                 coords_c, scores, q, r0, r1, cs, c_end, bi == bj, weights,
-                thr,
+                thr, bf16,
             )
             upper += hits
             li, lj = r0 - bi * w, cs - c0
@@ -684,6 +787,7 @@ def phi_rbf_terms_sym_chunk_counts(
     world: int,
     rank: int,
     single: bool = False,
+    dot_dtype: str = "float32",
 ):
     """One rank's chunk of the full-width triangle sweep, in plain torch: the
     plain version of the CUDA chunk kernels ``fused_phi_counts_sym_chunk``
@@ -698,7 +802,10 @@ def phi_rbf_terms_sym_chunk_counts(
     raw accumulator (2m, n) = [KS | D] and the upper counts (E,) int64
     (diagonal included), as the kernels do: summed over the ranks, they are
     the whole triangle's, which ``sym_finish`` and 2U - n finish. Centered
-    on the coordinates' mean."""
+    on the coordinates' mean. ``dot_dtype='bfloat16'`` (one RBF): the
+    opt-in's roundings (:func:`_pair_block`), the plain version of K2's
+    bf16 instance at world 1."""
+    bf16 = dot_bf16(dot_dtype)
     n, m = coords.shape
     dtype, device = coords.dtype, coords.device
     tile = sym_tile(m, terms=not single)
@@ -710,12 +817,13 @@ def phi_rbf_terms_sym_chunk_counts(
     acc = torch.zeros((2 * m, n), dtype=dtype, device=device)
     upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=device)
     q = torch.sum(coords_c * coords_c, dim=1)
-    weights = _pair_weights(gammas, signs, single, dtype, device)
+    weights = _pair_weights(gammas, signs, single, dtype, device, bf16)
     for bi, bj_first, bj_last in upper_tile_rows(nb, t0, count):
         r0, r1 = bi * tile, min(bi * tile + tile, n)
         c0, c1 = bj_first * tile, min(bj_last * tile + tile, n)
         ks_row, d_row, ks_col, d_col, hits = _pair_block(
             coords_c, scores, q, r0, r1, c0, c1, bj_first == bi, weights, thr,
+            bf16,
         )
         upper += hits
         acc[:m, r0:r1] += ks_row.T
@@ -737,7 +845,8 @@ def phi_rbf_sym_chunk_counts(coords, scores, gamma, thresholds_sq, world,
 
 def phi_rbf_sympanel_chunk_counts(coords, scores, gamma, thresholds_sq,
                                   world, rank, panel_blocks=None,
-                                  row_tile: int = 1024):
+                                  row_tile: int = 1024,
+                                  dot_dtype: str = "float32"):
     """One rank's chunk of one RBF's panel triangle sweep in plain torch:
     the plain version of the CUDA kernel ``fused_phi_counts_sympanel_chunk``
     (K5's port), the counterpart of the JAX package's
@@ -747,7 +856,8 @@ def phi_rbf_sympanel_chunk_counts(coords, scores, gamma, thresholds_sq,
     Returns the chunk's windows scattered onto the raw (2m, n) accumulator
     (``sympanel_scatter``) and its upper counts (E,) int64; summed over the
     ranks they are the whole panel sweep's. Centered on the coordinates'
-    mean."""
+    mean. ``dot_dtype`` as in :func:`phi_rbf_sympanel_fused_counts`."""
+    bf16 = dot_bf16(dot_dtype)
     n = coords.shape[0]
     nb, w, _ = card_panel_plan(n, panel_blocks)
     p0, count = panel_chunk(nb, world, rank)
@@ -755,7 +865,7 @@ def phi_rbf_sympanel_chunk_counts(coords, scores, gamma, thresholds_sq,
     scores = scores.to(coords.dtype)
     panels, upper = _sympanel_halves(
         coords_c, scores, [gamma], [1.0], thresholds_sq, nb, w, True,
-        row_tile, p0, count,
+        row_tile, p0, count, bf16,
     )
     index = panel_index(nb, coords.device, p0, count)
     return sympanel_scatter(panels, index, nb, n), upper
@@ -803,18 +913,23 @@ def phi_rbf_sympanel_fused_counts(
     thresholds_sq: torch.Tensor,
     panel_blocks=None,
     row_tile: int = 1024,
+    dot_dtype: str = "float32",
 ):
     """One RBF's panel triangle sweep in plain torch: the plain version of
     the CUDA kernel ``fused_phi_counts_sympanel`` (ops/cuda_phi.py), the
     counterpart of ``_phi_rbf_fused_pallas_sympanel_impl``. The same
-    function as :func:`phi_rbf_fused_counts` (see
-    :func:`phi_rbf_terms_sympanel_fused_counts`)."""
+    function as :func:`phi_rbf_fused_counts` in float32 (see
+    :func:`phi_rbf_terms_sympanel_fused_counts`), and as
+    :func:`phi_rbf_sym_fused_counts` under ``dot_dtype='bfloat16'``, the
+    plain version of its bf16 instance (``fused_phi_counts_sympanel_bf16``)."""
+    bf16 = dot_bf16(dot_dtype)
     n = coords.shape[0]
     nb, w, _ = card_panel_plan(n, panel_blocks)
     coords_c = coords - coords.mean(dim=0)
     scores = scores.to(coords.dtype)
     panels, upper = _sympanel_halves(
-        coords_c, scores, [gamma], [1.0], thresholds_sq, nb, w, True, row_tile
+        coords_c, scores, [gamma], [1.0], thresholds_sq, nb, w, True,
+        row_tile, bf16=bf16,
     )
     gamma = torch.as_tensor(gamma, dtype=coords.dtype, device=coords.device)
     return sympanel_epilogue(
@@ -946,7 +1061,7 @@ def gram_operands(coords_c, half):
 
 
 def phi_rbf_gram(coords, scores, half, psd: bool = True,
-                 row_tile: int = 1024):
+                 row_tile: int = 1024, dot_dtype: str = "float32"):
     """phi of one RBF exp(-d^T P d) over one particle set from H = P_sym/2
     itself (any P, indefinite too), in the wide fixed-P CUDA kernel's form
     (phi_rbf.cu, ``phi_rbf_wide``): with x_c centered and (Y, q) =
@@ -956,11 +1071,21 @@ def phi_rbf_gram(coords, scores, half, psd: bool = True,
       n phi_i = sum_j k_ij s_j + 2 (sum_j k_ij (x_i - x_j)) H,
 
     the gradient direction in float64, as the wrapper applies it. Streams
-    over row tiles."""
+    over row tiles.
+
+    ``dot_dtype='bfloat16'`` (the JAX kernel's opt-in, pallas_phi.py:
+    189-201): the Gram operands x and y, the weights k and the records s
+    and x of the contractions rounded (:func:`round_bf16`), q and the D
+    term's x_i unrounded, and the self pair's form left as it comes, as
+    the JAX kernel leaves it (the rounded Gram moves it off 0): the plain
+    version of ``phi_rbf_wide_bf16``."""
+    bf16 = dot_bf16(dot_dtype)
+    rnd = _rounding(bf16)
     x = coords - coords.mean(dim=0)
     half = torch.as_tensor(half, device=x.device).to(torch.float64)
     y, q = gram_operands(x, half)
-    scores = scores.to(x.dtype)
+    y_g, x_rec = rnd(y), rnd(x)
+    scores = rnd(scores.to(x.dtype))
     n = x.shape[0]
     row_tile = auto_row_tile(n, row_tile)
     out = []
@@ -968,12 +1093,13 @@ def phi_rbf_gram(coords, scores, half, psd: bool = True,
         xi = x[start : start + row_tile]
         rows = torch.arange(xi.shape[0], device=x.device)
         form = (q[start : start + row_tile, None] + q[None, :]
-                - 2.0 * sq_matmul(xi, y.T))
+                - 2.0 * sq_matmul(rnd(xi), y_g.T))
         if psd:
             form = torch.clamp_min(form, 0.0)
-        form[rows, start + rows] = 0.0
-        k = torch.exp(-form)
-        d = torch.sum(k, dim=1, keepdim=True) * xi - sq_matmul(k, x)
+        if not bf16:
+            form[rows, start + rows] = 0.0
+        k = rnd(torch.exp(-form))
+        d = torch.sum(k, dim=1, keepdim=True) * xi - sq_matmul(k, x_rec)
         grad = d.to(torch.float64) @ half
         out.append(sq_matmul(k, scores) + 2.0 * grad.to(x.dtype))
     return torch.cat(out, dim=0) / n

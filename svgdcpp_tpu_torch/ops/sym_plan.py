@@ -183,9 +183,8 @@ def jax_resolve_sym(n: int, m: int, num_terms: int | None = None):
 # ----------------------------------------------------------------------
 
 #: The largest m of the kernels' register-sized instances (``kMaxM`` of
-#: csrc/sweep_common.cuh); past it the square, full-width triangle,
-#: anisotropic and fixed-P sweeps take their wide instances, and the panel
-#: sweeps refuse the shape (ROADMAP item 17b).
+#: csrc/sweep_common.cuh); past it every sweep, the panels included, takes
+#: its wide instance.
 KERNEL_MAX_M = 64
 
 
@@ -194,7 +193,8 @@ def card_resolve_sym(n: int, m: int, num_terms: int | None = None):
     (``num_terms`` None) or a composed kernel: the JAX package's decision
     (``jax_resolve_sym``) up to KERNEL_MAX_M; past it the square sweep
     below SYM_MIN_N and the full-width triangle from there up, never
-    "panel".
+    "panel" (which a caller may still force: its wide instance runs at any
+    m).
 
     Past KERNEL_MAX_M the triangle is what chip_smoke.py's phase 43b
     measured faster on an H100 80GB HBM3 at 700 W: 3.91-4.00 ms against the
@@ -396,33 +396,36 @@ SQUARE_ROWS_TENSOR = 64
 SQUARE_TENSOR_MIN_M = 5
 
 
-def square_tensor(m: int) -> bool:
-    """Whether the square sweep at width m runs the tensor-core body (from
-    SQUARE_TENSOR_MIN_M up) rather than the CUDA-core one."""
-    return m >= SQUARE_TENSOR_MIN_M
+def square_tensor(m: int, bf16: bool = False) -> bool:
+    """Whether the square sweep at width m runs a tensor-core body (from
+    SQUARE_TENSOR_MIN_M up, and K1's bf16 instance at every m) rather than
+    the CUDA-core one."""
+    return bf16 or m >= SQUARE_TENSOR_MIN_M
 
 
-def square_chunk(n_t: int, n_s: int, m: int) -> int:
+def square_chunk(n_t: int, n_s: int, m: int, bf16: bool = False) -> int:
     """The sources of one split of a square launch: whole tiles of
     SQUARE_GRAIN, as few as keep about SQUARE_BLOCKS blocks on the card
     (``square_chunk`` of csrc/square_mma.cuh)."""
-    rows = SQUARE_ROWS_TENSOR if square_tensor(m) else SQUARE_ROWS_CUDA_CORES
+    rows = (SQUARE_ROWS_TENSOR if square_tensor(m, bf16)
+            else SQUARE_ROWS_CUDA_CORES)
     row_blocks = -(-n_t // rows)
     grains = -(-n_s // SQUARE_GRAIN)
     parts = min(grains, -(-SQUARE_BLOCKS // row_blocks))
     return SQUARE_GRAIN * -(-grains // parts)
 
 
-def square_splits(n_t: int, n_s: int, m: int) -> int:
+def square_splits(n_t: int, n_s: int, m: int, bf16: bool = False) -> int:
     """The number of source splits (the grid's y, the workspace's first
     dimension) of a square launch, K1's or the terms kernel's, or -1 for
     arguments the sweeps do not take: the Python copy of the library's
-    ``svgd_square_splits``, which the wrapper reads on the card and the
-    card's smoke test holds this copy to. Past KERNEL_MAX_M the wide body
-    keeps the tensor-core body's plan."""
+    ``svgd_square_splits`` (``bf16``: ``svgd_square_bf16_splits``, K1's
+    bf16 instance), which the wrapper reads on the card and the card's
+    smoke test holds this copy to. Past KERNEL_MAX_M the wide body keeps
+    the tensor-core body's plan, as the bf16 instance does at every m."""
     if n_t <= 0 or n_s <= 0 or m < 1:
         return -1
-    return -(-n_s // square_chunk(n_t, n_s, m))
+    return -(-n_s // square_chunk(n_t, n_s, m, bf16))
 
 
 def balanced_range(total: int, world: int, rank: int):

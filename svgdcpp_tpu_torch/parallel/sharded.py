@@ -80,6 +80,7 @@ from ..ops.median import (
     warm_median_select,
 )
 from ..ops.phi import (
+    dot_bf16,
     kernel_matrix_and_grad_cross,
     phi_generic_cross,
     phi_rbf_cross,
@@ -96,7 +97,7 @@ from ..ops.sym_plan import (
     sym_sharded_plan,
 )
 from ..optimizers.base import _map_pair
-from ..svgd import SVGD, _not_ported, _skip_section
+from ..svgd import SVGD, _skip_section
 from ..utils.logging import write_intermediate_matrices
 from .mesh import ParticleGroup, initialize_distributed, place_replicated
 from .ring import (
@@ -211,25 +212,36 @@ def sym_panel_sharded_phi(coords_local, scores_local, sources, scores_global,
 
 
 def resolve_sharded_sym(fused_sym, fused_cuda: bool, n: int, m: int,
-                        world: int, single_rbf: bool, num_terms=None):
+                        world: int, single_rbf: bool, num_terms=None,
+                        dot_dtype: str = "float32"):
     """The form of the fused sweep over ``world`` ranks: "full", "panel"
     or False (the cross sweep), for ``fused_sym`` None (the JAX decision
     for the global n, m and the world size: the full-width triangle while
     the TPU's accumulator budget holds, ops/sym_plan.sym_sharded_plan, else
     the panel form for one RBF, else the cross sweep), True (that decision,
     raising where it is the cross sweep), "full" / "panel" (forced at any
-    n) or False. The triangle forms need the CUDA sweep (``fused_cuda``;
-    on CPU tensors its plain chunk versions run). The engine's
-    ``fused_sym`` and the driver's under ``SVGDOptions.mesh`` resolve
-    here.
+    n and m) or False. The triangle forms need the CUDA sweep
+    (``fused_cuda``; on CPU tensors its plain chunk versions run) and
+    ``dot_dtype`` 'float32': under 'bfloat16' None takes the cross sweep
+    and a forced form raises, as the JAX package's triangle chunks have no
+    bf16 form (``sym_ok``, svgd.py:615; ``base_ok``, sharded.py:410). The
+    engine's ``fused_sym`` and the driver's under ``SVGDOptions.mesh``
+    resolve here.
 
-    Past MAX_M (64) the panel kernels stop and the TPU's budget, which
-    sends wide shapes to the panel or the cross sweep, is not the card's:
-    a forced "panel" raises, and under None the card's rule for one RBF or
-    ``num_terms`` terms (``sym_plan.card_resolve_sym``) picks "full" or the
-    cross sweep."""
+    Past MAX_M (64) the TPU's budget, which sends wide shapes to the panel
+    or the cross sweep, is not the card's: under None the card's rule for
+    one RBF or ``num_terms`` terms (``sym_plan.card_resolve_sym``) picks
+    "full" or the cross sweep; a forced "panel" runs K5's wide instance."""
+    bf16 = dot_bf16(dot_dtype)
     if fused_sym is False:
         return False
+    if bf16 and fused_sym is not None:
+        raise ValueError(
+            f"fused_sym={fused_sym!r} requires fused_dot_dtype='float32': "
+            "the triangle chunks have no bfloat16 form (the JAX package's "
+            "neither), so the bfloat16 opt-in takes the cross sweep; pass "
+            "fused_sym=None or False."
+        )
     if fused_sym in ("full", "panel"):
         if not fused_cuda:
             raise ValueError(
@@ -241,15 +253,9 @@ def resolve_sharded_sym(fused_sym, fused_cuda: bool, n: int, m: int,
                 "fused_sym='panel' takes the built-in single RBF only "
                 "(the JAX package has no sharded composed panel sweep)."
             )
-        if fused_sym == "panel" and m > KERNEL_MAX_M:
-            raise ValueError(
-                f"fused_sym='panel' takes m <= {KERNEL_MAX_M} dimensions, "
-                f"got m={m} (ROADMAP.md item 17b: the panel kernels' wide "
-                "bodies); 'full' takes any m."
-            )
         return fused_sym
     mode = False
-    if fused_cuda:
+    if fused_cuda and not bf16:
         if m > KERNEL_MAX_M:
             mode = "full" if card_resolve_sym(n, m, num_terms) else False
         elif sym_sharded_plan(n, m, world) is not None:
@@ -272,7 +278,8 @@ def resolve_sharded_sym(fused_sym, fused_cuda: bool, n: int, m: int,
 
 def sharded_fused_sweep(coords_local, scores_local, sources, scores_global,
                         group, thresholds, form, cuda: bool, *, gamma=None,
-                        gammas=None, signs=None, row_tile: int = 1024):
+                        gammas=None, signs=None, row_tile: int = 1024,
+                        dot_dtype: str = "float32"):
     """One fused sweep of this rank's rows over the group: phi_local and the
     GLOBAL int64 selection counts at ``thresholds``. ``form`` as
     :func:`resolve_sharded_sym` gives it: "panel" (K5's chunk), "full"
@@ -280,7 +287,10 @@ def sharded_fused_sweep(coords_local, scores_local, sources, scores_global,
     ``gammas`` and ``signs``) or False: the local rows against the
     gathered sources, through K1 / the terms square kernel (K6/K7's port)
     when ``cuda`` and the plain cross sweeps otherwise, the counts summed
-    over the group. Shared by the engine and the driver under a mesh."""
+    over the group. ``dot_dtype`` reaches K1's cross form (its bf16
+    instance, or on CPU tensors its plain version), as the JAX package
+    passes it to ``phi_rbf_fused_pallas_cross`` alone. Shared by the engine
+    and the driver under a mesh."""
     terms = gammas is not None
     if form == "panel":
         return sym_panel_sharded_phi(
@@ -305,6 +315,7 @@ def sharded_fused_sweep(coords_local, scores_local, sources, scores_global,
     elif cuda:
         phi_local, counts_local = phi_rbf_fused_cuda_cross(
             coords_local, sources, scores_global, gamma, thresholds,
+            dot_dtype=dot_dtype,
         )
     else:
         phi_local, counts_local = phi_rbf_cross_fused_counts(
@@ -357,7 +368,10 @@ class ShardedSVGDConfig:
     #: with a composed kernel, the fused-terms form.
     fused_phi: bool = False
     fused_bins: int = 2
-    #: 'float32' only (the bfloat16 opt-in is not ported).
+    #: SVGDOptions.fused_dot_dtype: 'float32' (default) or 'bfloat16', the
+    #: cross sweep's K1 bf16 instance for the built-in RBF (the triangle
+    #: forms have none: fused_sym None takes the cross sweep under it, a
+    #: forced form raises).
     fused_dot_dtype: str = "float32"
     fused_cuda: Optional[bool] = None
     fused_sym: Any = None
@@ -388,6 +402,7 @@ class ShardedSVGDConfig:
             raise ValueError(
                 "ScaleMethod.CONSTANT requires constant_scale to be set."
             )
+        dot_bf16(self.fused_dot_dtype)
         if self.fused_sym not in (None, False, True, "full", "panel"):
             raise ValueError(
                 "fused_sym must be None, False, True, 'full' or 'panel', "
@@ -447,9 +462,6 @@ class ShardedSVGD:
                 "duplicates: padded particles participate in phi and the "
                 "median and bias the posterior."
             )
-        if cfg.fused_dot_dtype != "float32":
-            raise _not_ported(f"fused_dot_dtype={cfg.fused_dot_dtype!r}",
-                              "item 15 (the bfloat16 operand opt-in)")
         if kernel is not None:
             kernel.initialize()
             self._adaptive_slots = kernel.adaptive_slots()
@@ -540,6 +552,7 @@ class ShardedSVGD:
             self.dimension, self.mesh.world_size, self.kernel is None,
             num_terms=(None if self._rbf_terms is None
                        else len(self._rbf_terms)),
+            dot_dtype=cfg.fused_dot_dtype,
         )
 
     def _refresh_psd(self):
@@ -753,6 +766,7 @@ class ShardedSVGD:
             gamma=None if fused_terms else gamma,
             gammas=gammas if fused_terms else None,
             signs=signs if fused_terms else None, row_tile=cfg.row_tile,
+            dot_dtype=cfg.fused_dot_dtype,
         )
         section("sweep")
         med_new, lo1, hi1, lo2, hi2, fell_back = fused_median_from_counts(

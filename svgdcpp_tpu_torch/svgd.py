@@ -110,7 +110,6 @@ from .ops.cuda_phi import (
     MAX_ANISO_TERMS,
     MAX_M,
     SYM_MIN_N,
-    check_dimension,
     cholesky_factors,
     phi_rbf_aniso_terms_fused_cuda,
     phi_rbf_cuda,
@@ -125,6 +124,7 @@ from .ops.median import (
     fused_median_from_counts,
 )
 from .ops.phi import (
+    dot_bf16,
     kernel_matrix_and_grad,
     kernel_matrix_and_grad_cross,
     phi_generic,
@@ -176,12 +176,6 @@ _KERNEL_ROUTES = (
 
 def _skip_section(name: str) -> None:
     """SVGD.section_hook's stand-in when no one times the sections."""
-
-
-def _not_ported(what: str, where: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to svgdcpp_tpu_torch yet (ROADMAP.md: {where})."
-    )
 
 
 def _coords_store(coords, device) -> ParticleStore:
@@ -272,8 +266,14 @@ class SVGDOptions:
     #: compares per pair. The count-verified bracket and its bisection
     #: fallback hold for any value.
     fused_bins: int = 2
-    #: Operand dtype of the fused kernel sweep: 'float32' only here (the
-    #: JAX package's bfloat16 opt-in is not ported).
+    #: Operand dtype of the single-RBF fused kernel sweep ('fused_cuda',
+    #: and 'auto' where it takes that route): 'float32' (default) or
+    #: 'bfloat16', the JAX package's opt-in: K1's, K2's and K3's bf16
+    #: instances (Gram operands, pair weights and the contraction's records
+    #: rounded to bf16, float32 accumulation; the norms and the epilogue's
+    #: coordinates float32). Under ``mesh`` it turns the triangle schedule
+    #: off for the cross sweep, whose single-RBF form takes it, as the JAX
+    #: driver's does. The other routes ignore it. Any other value raises.
     fused_dot_dtype: str = "float32"
     #: Which form of the sweep the 'fused_cuda' and 'fused_terms_cuda'
     #: routes run (ops/cuda_phi.resolve_sym): None (default) the JAX
@@ -444,6 +444,7 @@ class SVGD:
 
     def _select_impl(self):
         opts = self.options
+        dot_bf16(opts.fused_dot_dtype)
         self._is_rbf = (
             isinstance(self.kernel, GaussianRBFKernel)
             and self.kernel._kernel_fn is rbf_kernel_fn
@@ -543,12 +544,6 @@ class SVGD:
                 "phi_impl='fused' requires ScaleMethod.MEDIAN (the fused "
                 "sweep produces median-selection counts)."
             )
-        if impl in _KERNEL_ROUTES:
-            if opts.fused_dot_dtype != "float32":
-                raise _not_ported(
-                    f"fused_dot_dtype={opts.fused_dot_dtype!r}",
-                    "item 15 (the bfloat16 operand opt-in)",
-                )
         self._phi_impl = impl
         #: The form of the sweep the fused kernel routes run: False (square),
         #: True (full-width triangle) or "panel" (ops/cuda_phi.resolve_sym
@@ -565,6 +560,7 @@ class SVGD:
                 self.mesh.world_size, impl == "fused_cuda",
                 num_terms=(None if impl == "fused_cuda"
                            else len(self._rbf_terms)),
+                dot_dtype=opts.fused_dot_dtype,
             )
         elif impl == "fused_cuda":
             self.fused_sym_form = resolve_sym(
@@ -575,11 +571,6 @@ class SVGD:
                 opts.fused_sym, self.num_particles, self.dimension,
                 len(self._rbf_terms),
             )
-        if on_cuda and impl in _KERNEL_ROUTES:
-            # Every kernel route takes any m but the panels, which raise
-            # past MAX_M.
-            check_dimension(self.dimension,
-                            wide=self.fused_sym_form != "panel")
 
     def _auto_impl(self, on_cuda: bool) -> str:
         """phi_impl='auto': the JAX package's rule, its TPU branch on a CUDA
@@ -847,6 +838,7 @@ class SVGD:
         fused_aniso = self._phi_impl == "fused_aniso_terms_cuda"
         on_kernels = self._phi_impl in _KERNEL_ROUTES
         fused_bins = int(self.options.fused_bins)
+        dot_dtype = self.options.fused_dot_dtype
         if fused_terms:
             median_slot_idx = [idx for idx, _ in self._adaptive_slots]
             term_signs = [s for s, _ in self._rbf_terms]
@@ -916,7 +908,7 @@ class SVGD:
                         gamma=None if fused_terms else gamma,
                         gammas=gammas if fused_terms else None,
                         signs=term_signs if fused_terms else None,
-                        row_tile=row_tile,
+                        row_tile=row_tile, dot_dtype=dot_dtype,
                     )
                 elif fused_aniso:
                     # The kept factors stand for the precisions.
@@ -943,7 +935,7 @@ class SVGD:
                 elif on_kernels:
                     phi, counts = phi_rbf_fused_cuda(
                         coords, scores, gamma, thresholds,
-                        sym=self.fused_sym_form,
+                        sym=self.fused_sym_form, dot_dtype=dot_dtype,
                     )
                 else:
                     phi, counts = phi_rbf_fused_counts(

@@ -207,7 +207,9 @@ def sweep_work(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
     accumulator; the int64 counts). One particle set of n, as on every main
     path; a square kernel's cross form takes ``n_t`` targets against the n
     sources (n_t x n ordered pairs, the targets read and their phi written
-    once)."""
+    once). A bf16 instance (``..._bf16``) computes its family's function:
+    the same count."""
+    kernel = kernel.removesuffix("_bf16")
     cross = n_t is not None
     n_t = n if n_t is None else n_t
     square_pairs = n_t * n
@@ -260,11 +262,14 @@ def sweep_work(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
     return flops, nbytes
 
 
-#: Published H100 SXM dense TF32 tensor-core peak (NVIDIA's data sheet).
+#: Published H100 SXM dense TF32 and bf16 tensor-core peaks (NVIDIA's data
+#: sheet); the bf16 peak bounds the bfloat16 opt-in's instances, whose
+#: products are bf16 x bf16 (run as one TF32 pass, csrc/square_mma.cuh).
 PEAK_TF32_FLOPS = 495e12
+PEAK_BF16_FLOPS = 989e12
 
 
-def square_tensor_bound(n, m, T=3, n_terms=None, n_t=None):
+def square_tensor_bound(n, m, T=3, n_terms=None, n_t=None, bf16=False):
     """(bound_ms, bound_by) of a square kernel's function over one set of n
     with the work its tensor-core body puts there on the TF32 tensor cores:
     per ordered pair the Gram product (2m) and the contraction, K1's
@@ -275,21 +280,23 @@ def square_tensor_bound(n, m, T=3, n_terms=None, n_t=None):
     ``n_terms`` terms 4 + 6 n_terms + T (sq and its clamp at 0, 4; each
     term as sweep_bound counts one, 6; T compares); and sweep_bound's bytes
     at the memory rate: the largest of the three, each resource busy at
-    once. ``n_t``: the cross form's targets against the n sources."""
+    once. ``n_t``: the cross form's targets against the n sources.
+    ``bf16``: the tensor work at PEAK_BF16_FLOPS (K1's bf16 instance)."""
     kernel = ("fused_phi_counts_square" if n_terms is None
               else "fused_phi_terms_square")
     _, nbytes = sweep_work(kernel, n, m, T, n_iso=n_terms or 1, n_t=n_t)
     pairs = n * (n if n_t is None else n_t)
     fp32 = 4 + T if n_terms is None else 4 + 6 * n_terms + T
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS
     return max(
-        (pairs * (6 * m + 2) / PEAK_TF32_FLOPS * 1e3, "tensor operations"),
+        (pairs * (6 * m + 2) / peak * 1e3, "tensor operations"),
         (pairs * fp32 / PEAK_FP32_FLOPS * 1e3, "operations"),
         (nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
     )
 
 
 def tri_tensor_bound(n, m, T=3, n_terms=None, pairs=None, n_aniso=0,
-                     fixed_p=False):
+                     fixed_p=False, bf16=False):
     """(bound_ms, bound_by) of a triangle kernel's function with the work
     its wide body (csrc/wide_tri.cuh, m > 64) puts on the TF32 tensor
     cores: per unordered pair (``pairs``, the whole triangle n(n + 1)/2 by
@@ -306,7 +313,9 @@ def tri_tensor_bound(n, m, T=3, n_terms=None, pairs=None, n_aniso=0,
     and sums; each of the n_aniso groups the Gram product, sq, one term
     and the contractions and sums, no counts. ``fixed_p``: K15's wide
     sweep, one RBF's work with no counts (its Gram product pairs X with
-    Y = X P_sym/2)."""
+    Y = X P_sym/2). The panels (K3/K5, K12/K13) do the triangle's work.
+    ``bf16``: the tensor work at PEAK_BF16_FLOPS (the bfloat16 opt-in's
+    K2, K3 and K15 instances)."""
     tri = n * (n + 1) / 2 if pairs is None else pairs
     if n_aniso:
         n_iso = n_terms or 0
@@ -327,8 +336,9 @@ def tri_tensor_bound(n, m, T=3, n_terms=None, pairs=None, n_aniso=0,
             kernel += "_chunk"
         _, nbytes = sweep_work(kernel, n, m, T, n_iso=n_terms or 1,
                                pairs=pairs)
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_TF32_FLOPS
     return max(
-        (tri * tensor / PEAK_TF32_FLOPS * 1e3, "tensor operations"),
+        (tri * tensor / peak * 1e3, "tensor operations"),
         (tri * fp32 / PEAK_FP32_FLOPS * 1e3, "operations"),
         (nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
     )

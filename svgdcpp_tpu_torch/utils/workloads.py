@@ -43,14 +43,15 @@ FLAGSHIP_ADAGRAD_LR = 0.1
 
 
 def build_mvn_svgd(x0, mean, cov, phi_impl="auto", num_iterations=100,
-                   device="cuda", fused_sym=None, mesh=None):
+                   device="cuda", fused_sym=None, mesh=None,
+                   fused_dot_dtype="float32"):
     """The flagship driver (``bench.py``'s default configuration and
     examples/large_scale_example.py), initialized: an MVN target with mean
     and cov in x0's dtype, an RBF kernel with the median bandwidth, AdaGrad
     lr 0.1. ``x0`` may be a tensor (its device and dtype are kept) or an
     array (it goes to ``device`` first, so the kernel's median is taken
     there, once). ``mesh`` is SVGDOptions.mesh (a ParticleGroup on
-    ``device``)."""
+    ``device``), ``fused_dot_dtype`` SVGDOptions.fused_dot_dtype."""
     import torch
 
     import svgdcpp_tpu_torch as st
@@ -69,6 +70,7 @@ def build_mvn_svgd(x0, mean, cov, phi_impl="auto", num_iterations=100,
             coordinate_matrix=x0, kernel=kernel, model=model,
             optimizer=st.AdaGrad(dim, n, FLAGSHIP_ADAGRAD_LR),
             phi_impl=phi_impl, device=device, fused_sym=fused_sym, mesh=mesh,
+            fused_dot_dtype=fused_dot_dtype,
         )
     )
     return svgd.initialize()
@@ -119,14 +121,15 @@ def blr_workload(particles: int, dim: int, n_data: int = 1024,
 
 def build_blr_svgd(x0, features, labels, hierarchical=False,
                    phi_impl="auto", num_iterations=100, device="cuda",
-                   fused_sym=None, mesh=None, optimizer=None):
+                   fused_sym=None, mesh=None, optimizer=None,
+                   fused_dot_dtype="float32"):
     """The bench's BLR / hierarchical-BLR driver (bench.py:383-412), built
     on this package and initialized: flat BLR with prior precision 0.1 and
     a median RBF kernel, or hierarchical BLR with the composed kernel
     median RBF + 0.1 * I; Adam in both. ``x0`` may be a tensor (its device
     and dtype are kept) or an array (it goes to ``device`` first, so the
-    kernel's median is taken there, once). ``fused_sym`` and ``mesh`` are
-    SVGDOptions.fused_sym and SVGDOptions.mesh; ``optimizer`` replaces the
+    kernel's median is taken there, once). ``fused_sym``, ``mesh`` and
+    ``fused_dot_dtype`` are SVGDOptions'; ``optimizer`` replaces the
     bench's Adam."""
     import svgdcpp_tpu_torch as st
 
@@ -156,6 +159,7 @@ def build_blr_svgd(x0, features, labels, hierarchical=False,
                 BLR_ADAM["beta2"],
             ),
             phi_impl=phi_impl, device=device, fused_sym=fused_sym, mesh=mesh,
+            fused_dot_dtype=fused_dot_dtype,
         )
     )
     return svgd.initialize()

@@ -292,19 +292,21 @@ def test_phi_rbf_cuda_on_cpu_off_origin():
 
 
 def test_dimension_limit_names_the_roadmap():
-    """Every sweep but the panels (``wide``) takes any m >= 1; the panel
-    sweeps and sym_eigen stop at MAX_M = 64, naming the ROADMAP item that
-    widens them."""
+    """Every sweep takes any m >= 1; sym_eigen (``eigen``) alone stops at
+    MAX_M = 64, naming its own reason (one block's shared memory) and
+    that the fixed-P sweep takes P itself past it; no message names a
+    ROADMAP item any more."""
     for m in (1, 11, 50, cuda_phi.MAX_M):
-        cuda_phi.check_dimension(m, wide=False)
+        cuda_phi.check_dimension(m, eigen=True)
     for m in (1, 64, 65, 123, 512, 4096):
-        cuda_phi.check_dimension(m, wide=True)
+        cuda_phi.check_dimension(m)
     assert cuda_phi.MAX_M == 64
-    for wide in (False, True):
+    for eigen in (False, True):
         with pytest.raises(ValueError, match="m >= 1"):
-            cuda_phi.check_dimension(0, wide=wide)
-    with pytest.raises(ValueError, match="ROADMAP.*item 17b"):
-        cuda_phi.check_dimension(cuda_phi.MAX_M + 1, wide=False)
+            cuda_phi.check_dimension(0, eigen=eigen)
+    with pytest.raises(ValueError, match="shared memory.*P itself") as err:
+        cuda_phi.check_dimension(cuda_phi.MAX_M + 1, eigen=True)
+    assert "ROADMAP" not in str(err.value)
 
 
 def test_resolve_sym_and_launch_counts_on_cpu():
@@ -367,5 +369,7 @@ def test_resolve_sym_and_launch_counts_on_cpu():
         cuda_phi.SYMPANEL_KERNEL, cuda_phi.TERMS_SYMPANEL_KERNEL,
         cuda_phi.SYM_CHUNK_KERNEL, cuda_phi.TERMS_SYM_CHUNK_KERNEL,
         cuda_phi.SYMPANEL_CHUNK_KERNEL, cuda_phi.COUNT_KERNEL,
+        cuda_phi.SQUARE_BF16_KERNEL, cuda_phi.SYM_BF16_KERNEL,
+        cuda_phi.SYMPANEL_BF16_KERNEL, cuda_phi.PHI_RBF_WIDE_BF16_KERNEL,
     }
     assert all(v == 0 for v in cuda_phi.launch_counts.values())

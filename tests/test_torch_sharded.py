@@ -611,8 +611,21 @@ def test_unported_options_raise_naming_the_roadmap():
         return ShardedSVGD(mdl, st.AdaGrad(2, 16, 0.1), 16, 2, mesh=g,
                            config=config, kernel=kernel)
 
-    with pytest.raises(NotImplementedError, match="item 15"):
-        build(ShardedSVGDConfig(fused_dot_dtype="bfloat16"))
+    # The bfloat16 opt-in is ported: the engine builds with it, and its
+    # fused sweep takes the cross form (the triangle chunks have no bf16
+    # form); a forced triangle raises, as does an unknown dtype.
+    eng = build(ShardedSVGDConfig(fused_dot_dtype="bfloat16"))
+    assert eng._fused_sym is False
+    eng = build(ShardedSVGDConfig(fused_phi=True, fused_cuda=True,
+                                  fused_dot_dtype="bfloat16"))
+    assert eng._fused_cuda is True and eng._fused_sym is False
+    for sym in (True, "full", "panel"):
+        with pytest.raises(ValueError, match="fused_dot_dtype='float32'"):
+            build(ShardedSVGDConfig(fused_phi=True, fused_cuda=True,
+                                    fused_sym=sym,
+                                    fused_dot_dtype="bfloat16"))
+    with pytest.raises(ValueError, match="float32.*bfloat16"):
+        ShardedSVGDConfig(fused_dot_dtype="float16")
 
 
 def test_fused_sym_resolution():

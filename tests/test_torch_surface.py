@@ -4,9 +4,8 @@
   the count kernel (K16's port) at any m, as the JAX package counts at any
   m; ``auto`` on a CUDA device keeps the JAX package's TPU rule past
   ``cuda_phi.MAX_M`` (the kernel route, as the TPU takes its Mosaic one),
-  whose square, full-width triangle, anisotropic and fixed-P sweeps take
-  any m; the panel sweeps still raise past MAX_M, naming the item that
-  widens them (17b).
+  whose sweeps, the panels included, take any m; sym_eigen alone still
+  stops at MAX_M, naming its one block's shared memory.
 * Process groups: ``initialize_distributed`` without a rendezvous makes a
   one-rank world (torchrun's ``env://`` where its variables are set), a
   second call returns the existing group, ``make_particle_mesh`` and
@@ -148,15 +147,15 @@ def test_auto_rule_on_cuda_past_max_m(n, m, route):
 
 
 def test_the_kernel_routes_keep_their_dimension_check():
-    """Past MAX_M every sweep but the panels takes any m (``wide``), as
-    auto's kernel routes need; the panel sweeps and sym_eigen still raise
-    on a CUDA device (the driver calls check_dimension there), naming the
-    item that widens them."""
-    cuda_phi.check_dimension(cuda_phi.MAX_M, wide=False)
+    """Past MAX_M every sweep, the panels included, takes any m, as auto's
+    kernel routes and a forced panel need; sym_eigen alone still stops at
+    MAX_M (``eigen``), with its own reason: its one block's shared
+    memory."""
+    cuda_phi.check_dimension(cuda_phi.MAX_M, eigen=True)
     for m in (cuda_phi.MAX_M + 1, 100, 123, 512):
-        cuda_phi.check_dimension(m, wide=True)
-    with pytest.raises(ValueError, match=r"1 <= m <= 64.*item 17b"):
-        cuda_phi.check_dimension(cuda_phi.MAX_M + 1, wide=False)
+        cuda_phi.check_dimension(m)
+    with pytest.raises(ValueError, match=r"1 <= m <= 64.*shared memory"):
+        cuda_phi.check_dimension(cuda_phi.MAX_M + 1, eigen=True)
 
 
 # ----------------------------------------------------------------------

@@ -295,9 +295,15 @@ def test_constructor_validation_matches_jax():
     {"impl": "cuda", "fused_dot_dtype": "bfloat16"},
 ])
 def test_unported_routes_raise_not_implemented(options):
+    """The bfloat16 opt-in is ported: both kernel routes build and step
+    with it (fused_cuda through its bf16 plain sweep on the CPU, 'cuda'
+    ignoring it, as the JAX package's 'pallas' route does); a dtype other
+    than 'float32' or 'bfloat16' raises ValueError naming the two."""
     x0 = x0_for(16)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(st, x0, 1, **options)
+    out = build(st, x0, 2, **options).run()
+    assert out.shape == (16, 2) and bool(torch.isfinite(out).all())
+    with pytest.raises(ValueError, match="float32.*bfloat16"):
+        build(st, x0, 1, **{**options, "fused_dot_dtype": "float16"})
 
 
 def test_mesh_takes_a_particle_group():

@@ -14,15 +14,16 @@ full-width triangles K2/K4 and K8-K11), on the CPU.
   wide tile list covering every unordered pair once at worlds 1-8.
 * The wrappers on a stand-in library (meta tensors stand in for the card)
   at m = 65, 123 and 512: each widened wrapper hands m to the library,
-  allocates its workspace or accumulator and counts one launch; the panel
-  wrappers and ``symmetric_eigen`` still raise past 64, naming ROADMAP
-  item 17b, and the anisotropic and fixed-P wrappers launch their wide
-  instances (tests/test_torch_wide_p.py holds those).
+  allocates its workspace or accumulator and counts one launch; so do the
+  panel wrappers and the anisotropic and fixed-P ones
+  (tests/test_torch_wide_panel.py and tests/test_torch_wide_p.py hold
+  those), and ``symmetric_eigen`` alone still raises past 64, naming its
+  one block's shared memory.
 * The form rules past 64: ``resolve_sym(None, ...)`` never "panel",
-  ``resolve_sharded_sym`` never "panel" under None and refusing a forced
+  ``resolve_sharded_sym`` never "panel" under None and taking a forced
   one; the CPU route against the JAX driver's; with the card stood in,
   the driver and the engine at m = 123 take the kernel routes without the
-  old dimension error, the 'cuda' route included.
+  old dimension error, the 'cuda' route and a forced panel included.
 * The slice as a whole: the flat (m = 123) and hierarchical (m = 124) BLR
   drivers on ``auto``, 5 Adam steps in float64 against the JAX drivers,
   rtol 1e-9.
@@ -415,25 +416,26 @@ def test_widened_wrappers_launch_past_64(monkeypatch, m):
 
 @pytest.mark.parametrize("m", [65, 123, 512])
 def test_narrow_families_still_refuse_past_64(monkeypatch, m):
-    """The panel sweeps and sym_eigen keep m <= 64 on the card, naming
-    ROADMAP item 17b, and launch nothing; the anisotropic and fixed-P
-    sweeps launch their wide instances, one launch each."""
+    """Of the families that stopped at 64 only sym_eigen still does, with
+    its own reason (one block's shared memory), and launches nothing; the
+    panel sweeps (K3, K12/K13, K5's chunk), the anisotropic and the
+    fixed-P sweeps launch their wide instances, one launch each with m."""
     calls = []
     _stand_in(monkeypatch, calls)
     x, g, thr = _meta(300, m), _meta(), _meta(3)
-    refusals = [
-        lambda: cuda_phi.phi_rbf_fused_cuda(x, x, g, thr, sym="panel"),
-        lambda: cuda_phi.phi_rbf_terms_fused_cuda(x, x, [g, g], (1.0, 1.0),
-                                                  thr, sym="panel"),
-        lambda: cuda_phi.phi_rbf_sympanel_chunk_cuda(x, x, g, thr, 2, 0),
-        lambda: cuda_phi.symmetric_eigen(_meta(m, m)),
-    ]
-    for call in refusals:
-        with pytest.raises(ValueError, match=r"m <= 64.*item 17b"):
-            call()
-    assert not [c for c in calls if c[0] not in ("svgd_sym_tile",)]
+    with pytest.raises(ValueError, match=r"m <= 64.*shared memory"):
+        cuda_phi.symmetric_eigen(_meta(m, m))
+    assert not calls
     cuda_phi.reset_launch_counts()
     launches = [
+        ("svgd_fused_phi_counts_sympanel", cuda_phi.SYMPANEL_KERNEL,
+         lambda: cuda_phi.phi_rbf_fused_cuda(x, x, g, thr, sym="panel")),
+        ("svgd_fused_phi_terms_sympanel", cuda_phi.TERMS_SYMPANEL_KERNEL,
+         lambda: cuda_phi.phi_rbf_terms_fused_cuda(x, x, [g, g], (1.0, 1.0),
+                                                   thr, sym="panel")),
+        ("svgd_fused_phi_counts_sympanel_chunk",
+         cuda_phi.SYMPANEL_CHUNK_KERNEL,
+         lambda: cuda_phi.phi_rbf_sympanel_chunk_cuda(x, x, g, thr, 2, 0)),
         ("svgd_fused_phi_aniso_terms_groups", cuda_phi.ANISO_WIDE_KERNEL,
          lambda: cuda_phi.phi_rbf_aniso_terms_fused_cuda(
              x, x, [g], (1.0,), None, (1.0,), thr,
@@ -449,10 +451,10 @@ def test_narrow_families_still_refuse_past_64(monkeypatch, m):
         assert m in calls[0][1]
         assert cuda_phi.launch_counts[kernel] == 1
     cuda_phi.reset_launch_counts()
-    cuda_phi.check_dimension(64, wide=False)
-    cuda_phi.check_dimension(m, wide=True)
+    cuda_phi.check_dimension(64, eigen=True)
+    cuda_phi.check_dimension(m)
     with pytest.raises(ValueError, match="m >= 1"):
-        cuda_phi.check_dimension(0, wide=True)
+        cuda_phi.check_dimension(0)
 
 
 # ----------------------------------------------------------------------
@@ -483,8 +485,8 @@ def test_card_rule_past_64_is_never_the_panel(num_terms):
 
 def test_sharded_rule_past_64():
     """Past 64 the engine's None follows the card's rule (never the panel,
-    where the JAX decision takes it), a forced "panel" raises naming item
-    17b, and "full" runs at any m."""
+    where the JAX decision takes it), and a forced "panel" and "full" run
+    at any m."""
     for m in (65, 123, 124, 512):
         for n in RULE_N:
             for world in (1, 2, 4, 8):
@@ -494,8 +496,8 @@ def test_sharded_rule_past_64():
                     want = cuda_phi.resolve_sym(None, n, m, terms)
                     assert got == ("full" if want else False)
         assert resolve_sharded_sym("full", True, 100, m, 2, True) == "full"
-        with pytest.raises(ValueError, match="item 17b"):
-            resolve_sharded_sym("panel", True, 262144, m, 4, True)
+        assert resolve_sharded_sym("panel", True, 262144, m, 4,
+                                   True) == "panel"
     # The JAX rule up to 64: the panel at path A's shape.
     assert resolve_sharded_sym(None, True, 262144, 2, 4, True) == "panel"
     assert resolve_sharded_sym(None, True, 262144, 64, 4, True) in (
@@ -533,8 +535,8 @@ def _on_card(svgd):
 def test_driver_routes_past_64(n, m):
     """On the CPU both packages take the same route; with the card stood
     in, auto takes the kernel route and its form by the card's rule, the
-    fixed-P route ('cuda') runs, and a forced panel still raises naming
-    item 17b."""
+    fixed-P route ('cuda') runs, and a forced panel takes the panel form
+    (its wide instance)."""
     port, jax_svgd = _mvn_drivers(n, m)
     assert port._auto_impl(on_cuda=False) == jax_svgd._phi_impl
     assert port._phi_impl == jax_svgd._phi_impl
@@ -550,8 +552,7 @@ def test_driver_routes_past_64(n, m):
     port.options.phi_impl, port.options.fused_sym = "cuda", None
     assert _on_card(port)._phi_impl == "cuda"
     port.options.phi_impl, port.options.fused_sym = "fused_cuda", "panel"
-    with pytest.raises(ValueError, match="item 17b"):
-        _on_card(port)
+    assert _on_card(port).fused_sym_form == "panel"
 
 
 def test_driver_terms_route_past_64():
@@ -573,7 +574,8 @@ def _fake_group(device, world=1):
 @pytest.mark.parametrize("composed", [False, True])
 def test_engine_routes_past_64(composed):
     """The engine at m = 123 with the card stood in: the CUDA sweep and the
-    card's form, no dimension error; a forced panel raises."""
+    card's form, no dimension error; a forced panel takes the panel form
+    (K5's wide instance)."""
     n, m = 4096, 123
     model = st.MultivariateNormal(np.zeros(m), np.eye(m))
     kernel = None
@@ -594,8 +596,7 @@ def test_engine_routes_past_64(composed):
     assert eng._resolve_fused_sym() == ("full" if want else False)
     if not composed:
         eng.config = ShardedSVGDConfig(fused_phi=True, fused_sym="panel")
-        with pytest.raises(ValueError, match="item 17b"):
-            eng._resolve_fused_sym()
+        assert eng._resolve_fused_sym() == "panel"
 
 
 # ----------------------------------------------------------------------

@@ -20,7 +20,8 @@ fixed P) past m = 64, on the CPU.
   (1 + n_aniso, 2m, n) accumulator and counts one launch of the wide
   instance; K15's hands m to ``svgd_phi_rbf_wide`` with P, or with a
   caller's (lam, V), allocates (2m, n) and counts one launch, and never
-  calls ``svgd_sym_eigen``, which still refuses past 64 naming item 17b.
+  calls ``svgd_sym_eigen``, which still refuses past 64 with its own
+  reason (one block's shared memory).
 * The driver with the card stood in at m = 123: auto on an anisotropic
   composition takes fused_aniso_terms_cuda; the 'cuda' route runs with a
   MEDIAN, CONSTANT or HESSIAN scale, and keeps no decomposition of a
@@ -244,7 +245,7 @@ def test_k15_wide_wrapper_launches_past_64(monkeypatch, m):
     """With P (a HESSIAN scale, each call) and with a caller's (lam, V) (a
     MEDIAN's gamma I): one launch of svgd_phi_rbf_wide with m and psd, the
     (2m, n) accumulator, and no svgd_sym_eigen, which still refuses past
-    64 naming item 17b."""
+    64, naming its one block's shared memory."""
     calls, shapes = [], []
     _stand_in(monkeypatch, calls, shapes)
     n = 300
@@ -260,7 +261,8 @@ def test_k15_wide_wrapper_launches_past_64(monkeypatch, m):
         assert tuple(phi.shape) == (n, m)
         assert cuda_phi.launch_counts[cuda_phi.PHI_RBF_WIDE_KERNEL] == 1
         assert sum(cuda_phi.launch_counts.values()) == 1
-    with pytest.raises(ValueError, match=r"m <= 64.*item 17b.*P itself"):
+    with pytest.raises(ValueError,
+                       match=r"m <= 64.*shared memory.*P itself"):
         cuda_phi.symmetric_eigen(_meta(m, m))
     cuda_phi.reset_launch_counts()
 
