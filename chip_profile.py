@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of a step goes, on one CUDA GPU.
 
-    python3 chip_profile.py [--config mvn|large|hier|generic|blr|aniso|hessian|sharded|count]
+    python3 chip_profile.py [--config mvn|large|hier|generic|blr|aniso|hessian|sharded|count|wide]
                             [--particles N] [--large] [--crossover] [--sass]
                             [--sweeps] [--out PATH]
     python3 chip_profile.py --square-crossover [--forced] [--out PATH]
     python3 chip_profile.py --wide-drift [--out PATH]
+    python3 chip_profile.py --wide-breakdown [--out PATH]
 
 Drives one configuration of svgdcpp_tpu_torch at its full width:
 
@@ -36,6 +37,13 @@ Drives one configuration of svgdcpp_tpu_torch at its full width:
     triangle's chunk kernel (K4's port), the gathers and sums of the group,
     the same lag-1 median; its sections (``ShardedSVGD.section_hook``)
     add the gather of the coordinates;
+  * ``wide``: two cells at a9a's width, one after the other: flat BLR at
+    d = 123 (``fused_cuda``; the card's rule takes K2's triangle at
+    N = 10,000) and hierarchical BLR at d = 123, m = 124
+    (``fused_terms_cuda``, K8/K9's triangle), N = 10,000, the bench's
+    models and constants on ``utils/workloads.blr_workload``'s synthetic
+    data; each cell's numbers below, and the sweep's share of the busy
+    time (``sweep_share_of_busy``);
   * ``count``: no driver's step, only the count kernel (K16's port) at the
     median seed's shapes and path A's set-up at N=1048576 (``count_pass``;
     with ``--sass``, its instances' loops too). Run from an older tree
@@ -94,6 +102,22 @@ m, with the instances that needs) and to 1 (the tensor cores at every m)
 (``forced_copy``), and runs ``square_crossover`` in each copy, which builds
 its own library.
 
+``--wide-breakdown`` runs ``wide_breakdown`` alone, with no driver
+profile: where the wide triangle bodies' time goes. Each variant rewrites
+a copy of csrc/ under ``_verify/wide_breakdown/`` (git-ignored; no switch
+in the sources) to take one part out (the flush's atomics, the
+contraction, its mma, the Gram tile's mma, ...), builds a small harness
+of the body on one RBF (and two terms) with nvcc, and times it with CUDA
+events: ``wide_tri.cuh``'s ``wide_pair_body`` over tiles of 64 (the
+design K2's wide instance had before ``wide_tri_sm90.cuh``) at (10000,
+123) and ``wide_tri_sm90.cuh``'s body at (10000, 124), the width the
+wrappers hand it for m = 123. Then the new body at m = 33, 50 and 64 (run at the padded
+widths 36, 52, 64) beside the library's K2 and K8/K9 at those m, which
+run the narrower instances: where the new body should begin; and
+``mma.sync``'s own TF32 rate (m16n8k8 products from registers at 8, 16
+and 32 warps an SM), the floor of both bodies (default output
+``chiprun_out/wide_breakdown.json``).
+
 ``--wide-drift`` runs ``wide_drift`` alone, with no driver profile: how
 far the float32 routes move from float64 at d = 123 and N = 10,000 in
 chip_smoke.py phase 43c's steps, step by step with each step's median,
@@ -116,7 +140,9 @@ on the same inputs and the chunk kernel (K10/K11's port) at world 1 and
 each rank of world 2; then the fixed-P kernel (K15's port) as the
 ``cuda`` route calls it, at the HESSIAN P of the d = 11 target at
 n = 10240 (decomposed in the wrapper) and at a median's gamma I at
-n = 1500, m = 2 (decomposition given); and the wide instances past
+n = 1500, m = 2 (decomposition given); the wide triangles at their main
+paths' shapes, K2 and K4 (world 1) at (10000, 123) and K8/K9 and K10/K11
+(world 1) at (10000, 124) with two terms; and the wide instances past
 m = 64 at chip_smoke.py phase 43a's shapes (``wide_cases``: K1 square and
 cross, the terms square kernel, K2, the terms triangle and the chunk
 kernels at worlds 1 and 2, m = 65, 123, 256 and 512), and K14's wide
@@ -301,6 +327,22 @@ def make_driver(st, config, iters, particles=None):
         route = "fused_cuda"
         kernel = {"panel": cuda_phi.SYMPANEL_KERNEL, True: cuda_phi.SYM_KERNEL,
                   False: cuda_phi.SQUARE_KERNEL}[svgd.fused_sym_form]
+    elif config in WIDE_CELLS:
+        from chip_smoke import WIDE_BIG_N, WIDE_D
+
+        hier = config == "wide_hier"
+        feats, labels, x0 = blr_workload(particles or WIDE_BIG_N, WIDE_D,
+                                         hierarchical=hier)
+        svgd = build_blr_svgd(torch.tensor(x0, device="cuda"), feats, labels,
+                              hierarchical=hier, num_iterations=iters)
+        route = "fused_terms_cuda" if hier else "fused_cuda"
+        kernel = {
+            "panel": cuda_phi.TERMS_SYMPANEL_KERNEL if hier
+            else cuda_phi.SYMPANEL_KERNEL,
+            True: cuda_phi.TERMS_SYM_KERNEL if hier else cuda_phi.SYM_KERNEL,
+            False: cuda_phi.TERMS_SQUARE_KERNEL if hier
+            else cuda_phi.SQUARE_KERNEL,
+        }[svgd.fused_sym_form]
     else:
         hier = config in ("hier", "generic")
         n, d = ((particles or 10000), 10) if hier else (1000, 50)
@@ -320,6 +362,55 @@ def make_driver(st, config, iters, particles=None):
     if svgd._phi_impl != route:
         raise RuntimeError(f"{config} routed to {svgd._phi_impl!r}, not {route!r}")
     return svgd, kernel
+
+
+#: ``--config wide``'s cells: flat BLR at d = 123 and hierarchical BLR at
+#: m = 124 (chip_smoke.WIDE_D), N = 10,000 unless --particles says.
+WIDE_CELLS = ("wide_blr", "wide_hier")
+
+
+def profile_cell(st, config, particles):
+    """One configuration's step profile (the module's docstring): host ms a
+    step, the device timeline of a profiled window, the sweep's share of
+    the busy time, the driver's sections and the profiler's table."""
+    import torch
+
+    svgd, sweep_kernel = make_driver(st, config, 1, particles)
+    big = svgd.num_particles >= 100_000
+    warm, host_steps, steps = (
+        (2, 5, 2) if config == "generic"
+        else (5, 30, 5) if big else (20, 200, 20))
+    result = {"particles": svgd.num_particles, "form": svgd.fused_sym_form,
+              "steps": {"warm_up": warm, "host": host_steps,
+                        "profiled": steps, "sections": host_steps}}
+    svgd.num_iterations = warm
+    svgd.run()  # warm-up: builds the kernels and fills the allocator
+    result["host_ms_per_step"] = host_ms_per_step(svgd, host_steps)
+
+    svgd.num_iterations = steps
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        svgd.run()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        result.update(device_timeline(trace, steps, sweep_kernel))
+    result["device_idle_share_of_step"] = (
+        1.0 - result["device_busy_us_per_step"] / (1e3 * result["host_ms_per_step"])
+    )
+    if result["sweep_kernel_us_per_call"] is not None:
+        result["sweep_share_of_busy"] = (
+            result["sweep_kernel_us_per_call"] * result["sweep_kernel_calls"]
+            / steps / result["device_busy_us_per_step"])
+    result["profiler_table"] = prof.key_averages().table(
+        sort_by="self_cuda_time_total", row_limit=15
+    )
+    result["sections_ms_per_step"] = sections_ms(svgd, host_steps)
+    result["fallbacks"] = svgd.median_fallbacks
+    return result
 
 
 def host_ms_per_step(svgd, steps):
@@ -635,6 +726,7 @@ def sweeps(st, device):
     import torch
 
     from chip_smoke import (
+        WIDE_BIG_N,
         WIDE_D,
         WIDE_P_BIG_N,
         bf16_cases,
@@ -748,6 +840,31 @@ def sweeps(st, device):
         "phi_rbf_median",
         lambda: cuda_phi.phi_rbf_cuda(x, s, p, psd=True, eig=eig),
         "phi_rbf", n=1500, m=2))
+    # The wide triangles at their main paths' shapes (chip_smoke.py phase
+    # 43c's): K2 and K4 (world 1) at the flat BLR's (10000, 123), K8/K9 and
+    # K10/K11 (world 1) at the hierarchical BLR's (10000, 124) with its two
+    # terms, on grid inputs.
+    n = WIDE_BIG_N
+    x, s, g, thr = grid_inputs(n, WIDE_D, 0.0, 631, device)
+    rows.append(timed(
+        "wide main K2", lambda: cuda_phi.phi_rbf_fused_cuda(
+            x, s, g, thr, sym=True),
+        "fused_phi_counts_sym_kernel", n=n, m=WIDE_D))
+    rows.append(timed(
+        "wide main K4 world=1", lambda: cuda_phi.phi_rbf_fused_sym_chunk_cuda(
+            x, s, g, thr, 1, 0),
+        "fused_phi_counts_sym_chunk_kernel", n=n, m=WIDE_D))
+    x, s, g, thr = grid_inputs(n, WIDE_D + 1, 0.0, 632, device)
+    gs = [g, torch.full_like(g, 0.1)]
+    rows.append(timed(
+        "wide main K8/K9", lambda: cuda_phi.phi_rbf_terms_fused_cuda(
+            x, s, gs, signs, thr, sym=True),
+        "fused_phi_terms_sym_kernel", n=n, m=WIDE_D + 1, terms=2))
+    rows.append(timed(
+        "wide main K10/K11 world=1",
+        lambda: cuda_phi.phi_rbf_terms_fused_sym_chunk_cuda(
+            x, s, gs, signs, thr, 1, 0),
+        "fused_phi_terms_sym_chunk_kernel", n=n, m=WIDE_D + 1, terms=2))
     # The wide instances (m > 64) at chip_smoke.py phase 43a's shapes and
     # inputs; a chunk row's call runs every rank of its world.
     for case in wide_cases(device):
@@ -966,6 +1083,340 @@ def square_crossover_main(args) -> int:
     return 0
 
 
+#: --wide-breakdown's harness: the wide triangle bodies on one RBF
+#: (``BODY`` 0: wide_tri.cuh's wide_pair_body over tiles of 64, the
+#: parent design of K2's wide instance, which still serves K2's bf16
+#: instance, K14, K15 and the panels; 1: wide_tri_sm90.cuh's body, K2/K4's
+#: and K8-K11's, also with two terms), built from a copy of
+#: csrc/ whose header a variant rewrote. Not a kernel of the package.
+WIDE_BREAKDOWN_SOURCE = r"""
+#include "wide_tri.cuh"
+#include "wide_tri_sm90.cuh"
+using namespace svgd;
+template <int NT>
+__global__ void __launch_bounds__(BODY ? kWideSymThreads : kWideTriThreads)
+    sweep(const float* __restrict__ x, const float* __restrict__ s,
+          const float* __restrict__ gamma, const float* __restrict__ thr,
+          int n, int m, int nb, long long count, float* __restrict__ acc,
+          unsigned long long* __restrict__ counts) {
+  if constexpr (BODY == 0) {
+    wide_tri_body<3>(x, s, OneRbf{-gamma[0] * kLog2e}, thr, n, m, 3, nb, 0LL,
+                     acc, counts);
+  } else if constexpr (NT == 0) {
+    wide_tri_sm90_body<3>(x, s, OneRbf{-gamma[0] * kLog2e}, thr, n, m, 3,
+                          nb, 0LL, count, acc, counts);
+  } else {
+    TermSigns sg{};
+    sg.s[0] = 1.0f;
+    sg.s[1] = 1.0f;
+    wide_tri_sm90_body<3>(x, s, FixedTerms<2>(gamma, sg), thr, n, m, 3, nb,
+                          0LL, count, acc, counts);
+  }
+}
+template <int NT>
+int go(const float* x, const float* s, const float* gamma, const float* thr,
+       int n, int m, float* acc, long long* counts, cudaStream_t st) {
+  auto* k = &sweep<NT>;
+  const int tile = BODY ? kWideSymTile : kWideTile;
+  const int nb = (n + tile - 1) / tile;
+  const long long pairs = upper_pairs(n, tile);
+  unsigned int blocks = static_cast<unsigned int>(pairs);
+  size_t smem = WideTri::smem_bytes(1);
+  if constexpr (BODY) {
+    blocks = wide_sym_prepare<NT != 0>(k, pairs);
+    smem = WideSym<NT != 0>::kSmemBytes;
+  } else {
+    wide_tri_prepare(k, 1);
+  }
+  k<<<blocks, BODY ? kWideSymThreads : kWideTriThreads, smem, st>>>(
+      x, s, gamma, thr, n, m, nb, pairs, acc,
+      reinterpret_cast<unsigned long long*>(counts));
+  return static_cast<int>(cudaGetLastError());
+}
+// The mma.sync rate of the wide bodies' products: every warp of 132
+// blocks of `warps` warps issues `iters` x 8 independent m16n8k8 TF32
+// products from registers.
+__global__ void mma_rate(float* out, int iters) {
+  float d[8][4] = {};
+  const uint32_t a[4] = {threadIdx.x, threadIdx.x * 3u, 7u, 9u};
+  const uint32_t b0 = threadIdx.x ^ 5u;
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) mma_tf32(d[c], a, b0, 11u);
+  }
+  float z = 0.0f;
+  for (int c = 0; c < 8; ++c) z += d[c][0] + d[c][1] + d[c][2] + d[c][3];
+  if (z == 1234.5f) out[0] = z;
+}
+extern "C" int breakdown_mma_rate(int warps, int iters, float* out,
+                                  void* stream) {
+  mma_rate<<<132, 32 * warps, 0, static_cast<cudaStream_t>(stream)>>>(
+      out, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int breakdown_sweep(int terms, const float* x, const float* s,
+                               const float* gamma, const float* thr, int n,
+                               int m, float* acc, long long* counts,
+                               void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  return terms ? go<2>(x, s, gamma, thr, n, m, acc, counts, st)
+               : go<0>(x, s, gamma, thr, n, m, acc, counts, st);
+}
+"""
+
+_KEEP_G = ("    if (z == 1234.5f) counts[0] = 7;\n    return;\n  }\n")
+#: The variants of wide_pair_body (csrc/wide_tri.cuh): (old, new) rewrites
+#: of the header, each timing what is left when a part is taken out.
+WIDE_PAIR_VARIANTS = {
+    "full": [],
+    "no flush atomics": [
+        ("              atomicAdd(\n                  dst + static_cast<size_t>"
+         "(m + k) * spot.ld + (o - base),",
+         "              if (__float_as_uint(x) == 0x7fbadbadu) atomicAdd(\n"
+         "                  dst + static_cast<size_t>(m + k) * spot.ld + "
+         "(o - base),"),
+        ("              atomicAdd(dst + static_cast<size_t>(k) * spot.ld + "
+         "(o - base),",
+         "              if (__float_as_uint(out[b][q]) == 0x7fbadbadu)\n"
+         "              atomicAdd(dst + static_cast<size_t>(k) * spot.ld + "
+         "(o - base),")],
+    "no contraction": [("  if (!form.phi) return;", "  return;")],
+    "norms and Gram only": [
+        ("  // 2. sq, the weights and the counts, once a pair; the weights",
+         "  {\n    float z = 0.0f;\n    for (int c = 0; c < 8; ++c)\n"
+         "      for (int q = 0; q < 4; ++q) z += gb[c][q] + gs[c][q];\n"
+         + _KEEP_G + "  // 2. sq, the weights and the counts, once a pair; "
+         "the weights")],
+    "norms and Gram staging only": [
+        ("    __syncthreads();  // the slices are complete\n",
+         "    __syncthreads();  // the slices are complete\n    continue;\n"),
+        ("  // 2. sq, the weights and the counts, once a pair; the weights",
+         "  {\n    float z = gb[0][0] + gs[0][0];\n" + _KEEP_G
+         + "  // 2. sq, the weights and the counts, once a pair; the weights")],
+    "norms only": [
+        ("  const float* gram_j = form.y != nullptr ? form.y : coords;\n",
+         "  const float* gram_j = form.y != nullptr ? form.y : coords;\n"
+         "  __syncthreads();\n  if (norm[tid] == 1234.5f) counts[0] = 7;\n"
+         "  return;\n")],
+    "no record staging": [
+        ("      for (int e = tid; e < S * kWideTriCols; e += kWideTriThreads)",
+         "      for (int e = tid; e < 0; e += kWideTriThreads)")],
+}
+
+_FAKE_MMA = ("{0}[0] += __uint_as_float(as[h][0] ^ bb0 ^ ab[h][1] ^ bs0);\n"
+             "            {0}[1] += __uint_as_float(as[h][2] ^ bb1 ^ ab[h][3] "
+             "^ bs1);")
+#: The variants of wide_tri_sm90_body (csrc/wide_tri_sm90.cuh).
+WIDE_SYM_VARIANTS = {
+    "full": [],
+    "no flush atomics": [
+        ("                atomicAdd(acc + static_cast<size_t>(col) * n + o, "
+         "v);",
+         "                if (__float_as_uint(v) == 0x7fbadbadu)\n"
+         "                atomicAdd(acc + static_cast<size_t>(col) * n + o, "
+         "v);")],
+    "no contraction": [
+        ("      const float* slot1 = slot0 + L::kSlot;\n      // 3.",
+         "      const float* slot1 = slot0 + L::kSlot;\n      continue;\n"
+         "      // 3.")],
+    "contraction without mma": [
+        ("mma_3x(out[h][b], ab[h], as[h], bb0, bs0, bb1, bs1);",
+         _FAKE_MMA.format("out[h][b]"))],
+    "no Gram mma": [
+        ("mma_3x(acc_g[h][c], ab[h], as[h], bb0, bs0, bb1, bs1);",
+         _FAKE_MMA.format("acc_g[h][c]"))],
+    "one mma a product (timing only)": [
+        ("  mma_tf32(d, as, bb0, bb1);\n  mma_tf32(d, ab, bs0, bs1);\n", "")],
+    "rounded split (cvt.rna.tf32)": [
+        ("  big = __float_as_uint(x) & 0xffffe000u;\n"
+         "  small = __float_as_uint(x - __uint_as_float(big));\n",
+         "  tf32_split(x, big, small);\n")],
+}
+
+#: --wide-breakdown's shapes: the parent body at K2's main path (10000,
+#: 123); the new body at the width the wrappers hand it there (124, m
+#: padded to 4), one RBF and two terms; and, for where the new body should
+#: begin, m = 33, 50 and 64 (run at their padded widths 36, 52, 64) beside
+#: the library's narrower instances at the same m.
+WIDE_BREAKDOWN_N = 10000
+WIDE_BEGIN_MS = (33, 50, 64)
+
+
+def wide_breakdown_copy(dest, body, rewrites):
+    """A copy of csrc/ under ``dest`` with ``rewrites`` applied to the
+    body's header and the harness source written beside it."""
+    dest = Path(dest)
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(ROOT / "svgdcpp_tpu_torch" / "csrc", dest)
+    header = dest / ("wide_tri_sm90.cuh" if body else "wide_tri.cuh")
+    text = header.read_text()
+    for old, new in rewrites:
+        if text.count(old) != 1:
+            raise RuntimeError(f"wide_breakdown_copy: {header.name} holds "
+                               f"{text.count(old)} copies of {old!r}")
+        text = text.replace(old, new)
+    header.write_text(text)
+    (dest / "breakdown.cu").write_text(
+        f"#define BODY {body}\n" + WIDE_BREAKDOWN_SOURCE)
+    return dest
+
+
+def wide_breakdown(device):
+    """--wide-breakdown: each variant of each wide triangle body, built in
+    a copy under _verify/wide_breakdown/ (no switch in the sources) and
+    timed with CUDA events (median of 3 runs of 10 launches after 3); then
+    the new body at m = 33, 50, 64 beside the library's K2 and K8/K9 there
+    (kernel-only us, the profiler's events)."""
+    import ctypes
+
+    import torch
+
+    from chip_smoke import kernel_us
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.utils.cuda_build import ARCH_FLAGS, find_nvcc
+
+    base = ROOT / "_verify" / "wide_breakdown"
+    jobs = [(body, name, rewrites)
+            for body, table in ((0, WIDE_PAIR_VARIANTS),
+                                (1, WIDE_SYM_VARIANTS))
+            for name, rewrites in table.items()]
+    procs = []
+    for idx, (body, name, rewrites) in enumerate(jobs):
+        dest = wide_breakdown_copy(base / f"v{idx}", body, rewrites)
+        cmd = [find_nvcc() or "nvcc", *ARCH_FLAGS, "-std=c++17", "-O3",
+               "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v", "-o",
+               str(dest / "libbreakdown.so"), str(dest / "breakdown.cu")]
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    spills = []
+    for (body, name, _), proc in zip(jobs, procs):
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"wide breakdown build {body}/{name}:\n{out}")
+        spills.append(re.findall(r"(\d+) bytes spill stores", out))
+
+    def inputs(n, m, width, seed):
+        gen = torch.Generator().manual_seed(seed)
+        x = torch.randn(n, m, generator=gen)
+        x = x - x.mean(dim=0)
+        s = torch.randn(n, m, generator=gen)
+        pad = (0, width - m)
+        return (torch.nn.functional.pad(x, pad).contiguous().to(device),
+                torch.nn.functional.pad(s, pad).contiguous().to(device))
+
+    def timed(lib, terms, n, m, width):
+        x, s = inputs(n, m, width, n + m)
+        gamma = torch.tensor([0.5 / m, 0.25 / m], device=device)
+        thr = torch.tensor([1.5 * m, 2.0 * m, 2.5 * m], device=device)
+        acc = torch.zeros((2 * width, n), device=device)
+        counts = torch.zeros(3, dtype=torch.int64, device=device)
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def call():
+            rc = lib.breakdown_sweep(terms, x.data_ptr(), s.data_ptr(),
+                                     gamma.data_ptr(), thr.data_ptr(), n,
+                                     width, acc.data_ptr(),
+                                     counts.data_ptr(), stream)
+            if rc:
+                raise RuntimeError(f"breakdown_sweep returned {rc}")
+        for _ in range(3):
+            call()
+        runs = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(10):
+                call()
+            end.record()
+            end.synchronize()
+            runs.append(start.elapsed_time(end) / 10)
+        return sorted(runs)[1]
+
+    rows = []
+    n = WIDE_BREAKDOWN_N
+    for idx, ((body, name, _), spill) in enumerate(zip(jobs, spills)):
+        lib = ctypes.CDLL(str(base / f"v{idx}" / "libbreakdown.so"))
+        lib.breakdown_sweep.argtypes = ([ctypes.c_int]
+                                        + [ctypes.c_void_p] * 4
+                                        + [ctypes.c_int] * 2
+                                        + [ctypes.c_void_p] * 3)
+        shapes = ([(0, 123, 123)] if body == 0
+                  else [(0, 123, 124)] + ([(1, 124, 124)] if name == "full"
+                                          else []))
+        if body == 1 and name == "full":
+            shapes += [(terms, m, -(-m // 4) * 4) for m in WIDE_BEGIN_MS
+                       for terms in (0, 1)]
+        for terms, m, width in shapes:
+            row = {"body": "wide_pair_body" if body == 0
+                   else "wide_tri_sm90_body", "variant": name, "n": n,
+                   "m": m, "width": width, "terms": 2 if terms else 1,
+                   "ms": timed(lib, terms, n, m, width),
+                   "spill_bytes": [int(b) for b in spill]}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    # mma.sync's own rate: TF32 m16n8k8 products from registers.
+    lib = ctypes.CDLL(str(base / "v0" / "libbreakdown.so"))
+    lib.breakdown_mma_rate.argtypes = [ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_void_p, ctypes.c_void_p]
+    sink = torch.zeros(1, device=device)
+    stream = torch.cuda.current_stream().cuda_stream
+    for warps in (8, 16, 32):
+        iters = 4096
+        lib.breakdown_mma_rate(warps, iters, sink.data_ptr(), stream)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = lib.breakdown_mma_rate(warps, iters, sink.data_ptr(), stream)
+        end.record()
+        end.synchronize()
+        if rc:
+            raise RuntimeError(f"breakdown_mma_rate returned {rc}")
+        ms = start.elapsed_time(end)
+        flops = 132 * warps * iters * 8 * (16 * 8 * 8 * 2)
+        row = {"body": "mma.sync m16n8k8 tf32", "warps_per_sm": warps,
+               "ms": ms, "tflops": flops / ms / 1e9}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    # The library's narrower instances at the same m (kernel-only).
+    for m in WIDE_BEGIN_MS:
+        x, s = inputs(n, m, m, n + m)
+        gamma = torch.tensor(0.5 / m, device=device)
+        thr = torch.tensor([1.5 * m, 2.0 * m, 2.5 * m], device=device)
+        gs = [gamma, torch.tensor(0.25 / m, device=device)]
+        for name, fn, kernel in (
+                ("K2", lambda: cuda_phi.phi_rbf_fused_cuda(
+                    x, s, gamma, thr, sym=True),
+                 "fused_phi_counts_sym_kernel"),
+                ("K8/K9", lambda: cuda_phi.phi_rbf_terms_fused_cuda(
+                    x, s, gs, (1.0, 1.0), thr, sym=True),
+                 "fused_phi_terms_sym_kernel")):
+            us = kernel_us(fn, kernel)
+            row = {"body": "library", "variant": name, "n": n, "m": m,
+                   "ms": None if us is None else us / 1e3}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    return rows
+
+
+def wide_breakdown_main(args) -> int:
+    """--wide-breakdown: wide_breakdown's rows, JSON to --out."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    card = card_name()
+    print(card)
+    result = {"card": card, "torch": torch.__version__,
+              "wide_breakdown": wide_breakdown(torch.device("cuda"))}
+    out = Path(args.out or "chiprun_out/wide_breakdown.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    return 0
+
+
 def wide_drift(device):
     """The float32 routes' distance from float64 at a9a's width (d = 123)
     and N = 10,000 over chip_smoke.py phase 43c's COMPARE_STEPS steps, and
@@ -1153,10 +1604,11 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config",
                         choices=("mvn", "large", "hier", "generic", "blr",
-                                 "aniso", "hessian", "sharded", "count"),
+                                 "aniso", "hessian", "sharded", "count",
+                                 "wide"),
                         default="mvn")
     parser.add_argument("--particles", type=int, default=None,
-                        help="particle count of mvn, hier or sharded")
+                        help="particle count of mvn, hier, sharded or wide")
     parser.add_argument("--large", action="store_true",
                         help="also run the triangle kernel at n = 1e5 and 1e6")
     parser.add_argument("--crossover", action="store_true",
@@ -1179,10 +1631,16 @@ def main() -> int:
                         help="only measure the float32 routes' distance "
                              "from float64 at d = 123 and the engine's "
                              "gates across seeds (no driver profile)")
+    parser.add_argument("--wide-breakdown", action="store_true",
+                        help="only time the wide triangle bodies' variants "
+                             "and where the new body should begin (no "
+                             "driver profile)")
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
     if args.wide_drift:
         return wide_drift_main(args)
+    if args.wide_breakdown:
+        return wide_breakdown_main(args)
     if args.forced and not args.square_crossover:
         parser.error("--forced runs with --square-crossover only")
     if args.square_crossover:
@@ -1190,9 +1648,9 @@ def main() -> int:
     if args.large and args.config != "mvn":
         parser.error("--large runs with --config mvn only")
     if args.particles is not None and args.config not in ("mvn", "hier",
-                                                          "sharded"):
-        parser.error("--particles sets mvn's, hier's or sharded's particle "
-                     "count")
+                                                          "sharded", "wide"):
+        parser.error("--particles sets mvn's, hier's, sharded's or wide's "
+                     "particle count")
     if args.out is None:
         suffix = "" if args.config == "mvn" else f"_{args.config}"
         if args.particles is not None:
@@ -1223,37 +1681,17 @@ def main() -> int:
         out.write_text(json.dumps(result, indent=1))
         print(json.dumps(result, indent=1))
         return 0
-    svgd, sweep_kernel = make_driver(st, args.config, 1, args.particles)
-    big = svgd.num_particles >= 100_000
-    warm, host_steps, steps = (
-        (2, 5, 2) if args.config == "generic"
-        else (5, 30, 5) if big else (20, 200, 20))
-    result.update(particles=svgd.num_particles, form=svgd.fused_sym_form,
-                  steps={"warm_up": warm, "host": host_steps,
-                         "profiled": steps, "sections": host_steps})
-    svgd.num_iterations = warm
-    svgd.run()  # warm-up: builds the kernels and fills the allocator
-    result["host_ms_per_step"] = host_ms_per_step(svgd, host_steps)
-
-    svgd.num_iterations = steps
-    activities = [torch.profiler.ProfilerActivity.CPU,
-                  torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=activities) as prof:
-        svgd.run()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as tmp:
-        trace = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(trace))
-        result.update(device_timeline(trace, steps, sweep_kernel))
-    result["device_idle_share_of_step"] = (
-        1.0 - result["device_busy_us_per_step"] / (1e3 * result["host_ms_per_step"])
-    )
-    result["profiler_table"] = prof.key_averages().table(
-        sort_by="self_cuda_time_total", row_limit=15
-    )
-    result["sections_ms_per_step"] = sections_ms(svgd, host_steps)
-    result["fallbacks"] = svgd.median_fallbacks
+    if args.config == "wide":
+        # The flat and the hierarchical BLR at a9a's width, one after the
+        # other; the profiler tables of both are printed.
+        tables = []
+        for cell in WIDE_CELLS:
+            row = profile_cell(st, cell, args.particles)
+            tables.append(f"{cell}:\n{row.pop('profiler_table')}")
+            result[cell] = row
+        result["profiler_table"] = "\n".join(tables)
+    else:
+        result.update(profile_cell(st, args.config, args.particles))
     if args.config == "sharded":
         torch.distributed.destroy_process_group()
     if args.large:

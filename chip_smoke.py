@@ -952,19 +952,44 @@ def wide_cases(dev):
     return cases
 
 
+#: The float32 wide triangle body's dynamic shared memory
+#: (csrc/wide_tri_sm90.cuh WideSym), one block an SM: for one RBF (K2/K4
+#: past m = 64) a 3-stage ring of two 128 x 40-float slots, the 128 x
+#: 136-float weight tile and 1032 floats of norms, partial sums and
+#: thresholds; for terms (K8-K11) a 2-stage ring and two weight tiles (+ 192
+#: B of static term constants for any count of terms).
+WIDE_SYM_SMEM = 4 * (3 * 2 * 128 * 40 + 128 * 136 + 1032)
+WIDE_SYM_TERMS_SMEM = 4 * (2 * 2 * 128 * 40 + 2 * 128 * 136 + 1032)
+
 #: The wide bodies' shared memory (csrc/square_mma.cuh SqWide, static;
-#: csrc/wide_tri.cuh WideTri, dynamic), in bytes: the square body's union
-#: of 2 x 4224 floats and 32 norms (+ 48 term constants for any count of
-#: terms), the triangle's 9216-float union, 8704 floats a weight tile and
-#: 256 norms and sums (two tiles for K14's term groups, one for K15).
+#: csrc/wide_tri.cuh WideTri and WIDE_SYM_SMEM, dynamic), in bytes: the
+#: square body's union of 2 x 4224 floats and 32 norms (+ 48 term constants
+#: for any count of terms); wide_pair_body's 9216-float union, 8704 floats
+#: a weight tile and 256 norms and sums (two tiles for K14's term groups,
+#: one for K15).
 WIDE_SMEM = {"fused_phi_counts_square": 4 * (2 * 4224 + 32),
              "fused_phi_terms_square": 4 * (2 * 4224 + 32),
-             "fused_phi_counts_sym": 4 * (9216 + 8704 + 256),
-             "fused_phi_counts_sym_chunk": 4 * (9216 + 8704 + 256),
-             "fused_phi_terms_sym": 4 * (9216 + 2 * 8704 + 256),
-             "fused_phi_terms_sym_chunk": 4 * (9216 + 2 * 8704 + 256),
+             "fused_phi_counts_sym": WIDE_SYM_SMEM,
+             "fused_phi_counts_sym_chunk": WIDE_SYM_SMEM,
+             "fused_phi_terms_sym": WIDE_SYM_TERMS_SMEM,
+             "fused_phi_terms_sym_chunk": WIDE_SYM_TERMS_SMEM,
              "fused_phi_aniso_terms_wide": 4 * (9216 + 2 * 8704 + 256),
              "phi_rbf_wide": 4 * (9216 + 8704 + 256)}
+
+#: The float32 wide triangle body's instances (ptxas names): K2, K4, K8/K9
+#: and K10/K11 at MM = 0, T = 3 or any T <= 8 (kT 8), two terms or any
+#: count (0).
+WIDE_SYM_INSTANCES = tuple(
+    f"{k}<0,0,{t}{nt}>"
+    for k, nts in (("counts_sym", ("",)), ("counts_sym_chunk", ("",)),
+                   ("terms_sym", (",2", ",0")),
+                   ("terms_sym_chunk", (",2", ",0")))
+    for t in (3, 8) for nt in nts)
+
+#: Phase 43e: the new tile's edges (n = 127, 128, 129 and 257) at these m,
+#: and the chunk kernels summed over worlds 1 to WIDE_EDGE_WORLDS.
+WIDE_EDGE_NS, WIDE_EDGE_MS, WIDE_EDGE_WORLDS = (127, 128, 129, 257), \
+    (65, 123), 3
 
 #: Each wide kernel's ptxas instance names (chip_smoke.ptxas_summary) at
 #: T = 3, MM = 0 being the wide instance (K14's and K15's wide kernels
@@ -1077,6 +1102,101 @@ def phase_wide_kernels(dev, card, clock, ptxas):
           f"(svgd_square_bf16_splits at {len(bf16_shapes)}) and svgd_sym_tile "
           f"at m = {list(widths)} equal sym_plan's")
     return errs, times
+
+
+def phase_wide_edges(dev, card, clock, ptxas, errs):
+    """Phase 43e: the float32 wide triangle body (csrc/wide_tri_sm90.cuh,
+    tiles of 128) at its tiles' edges, n = WIDE_EDGE_NS at m =
+    WIDE_EDGE_MS on grid inputs: K2 (T = 3 and, through the runtime-T
+    instance, 5), K8/K9 with two terms and with three (a negative sign),
+    and K4 and K10/K11 summed over worlds 1 to WIDE_EDGE_WORLDS, each held
+    to its float64 and float32 plain versions (wide_held; its max |dphi|
+    into ``errs``). Then ptxas's registers, spill and shared memory of
+    every instance of the body (WIDE_SYM_INSTANCES), none of which may
+    spill."""
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import (
+        phi_rbf_fused_counts,
+        phi_rbf_fused_sym_finish,
+        phi_rbf_sym_chunk_counts,
+        phi_rbf_terms_fused_counts,
+        phi_rbf_terms_fused_sym_finish,
+        phi_rbf_terms_sym_chunk_counts,
+    )
+
+    def f64(*ts):
+        return [t.double() for t in ts]
+
+    def held(label, kernel, got, want64, want32):
+        abs_err, rel = wide_held(f"43e {label}", got, want64, want32)
+        errs[kernel] = max(errs.get(kernel, 0.0), abs_err)
+        return rel
+
+    worst, calls = 0.0, 0
+    for m in WIDE_EDGE_MS:
+        for n in WIDE_EDGE_NS:
+            x, s, g, thr = grid_inputs(n, m, 0.0, 4300 + n + m, dev)
+            for th in (thr, thresholds_of(thr, 5)):
+                worst = max(worst, held(
+                    f"K2 ({n}, {m}) T={th.shape[0]}", cuda_phi.SYM_KERNEL,
+                    cuda_phi.phi_rbf_fused_cuda(x, s, g, th, sym=True),
+                    phi_rbf_fused_counts(*f64(x, s, g, th)),
+                    phi_rbf_fused_counts(x, s, g, th)))
+            for signs, gs in (((1.0, 1.0), [g, 0.5 * g]),
+                              ((1.0, -0.5, 1.0), [g, 0.5 * g, 2.0 * g])):
+                worst = max(worst, held(
+                    f"K8/K9 ({n}, {m}) signs={signs}",
+                    cuda_phi.TERMS_SYM_KERNEL,
+                    cuda_phi.phi_rbf_terms_fused_cuda(x, s, gs, signs, thr,
+                                                      sym=True),
+                    phi_rbf_terms_fused_counts(*f64(x, s), f64(*gs), signs,
+                                               thr.double()),
+                    phi_rbf_terms_fused_counts(x, s, gs, signs, thr)))
+            signs, gs = (1.0, 1.0), [g, 0.5 * g]
+            for world in range(1, WIDE_EDGE_WORLDS + 1):
+                worst = max(worst, held(
+                    f"K4 ({n}, {m}) world={world}",
+                    cuda_phi.SYM_CHUNK_KERNEL,
+                    ranks_summed(
+                        lambda w, r: cuda_phi.phi_rbf_fused_sym_chunk_cuda(
+                            x, s, g, thr, w, r), world, n,
+                        lambda acc: phi_rbf_fused_sym_finish(acc, s, g, n)),
+                    phi_rbf_fused_counts(*f64(x, s, g, thr)),
+                    ranks_summed(
+                        lambda w, r: phi_rbf_sym_chunk_counts(
+                            x, s, g, thr, w, r), world, n,
+                        lambda acc: phi_rbf_fused_sym_finish(acc, s, g, n))))
+                worst = max(worst, held(
+                    f"K10/K11 ({n}, {m}) world={world}",
+                    cuda_phi.TERMS_SYM_CHUNK_KERNEL,
+                    ranks_summed(
+                        lambda w, r:
+                        cuda_phi.phi_rbf_terms_fused_sym_chunk_cuda(
+                            x, s, gs, signs, thr, w, r), world, n,
+                        lambda acc: phi_rbf_terms_fused_sym_finish(
+                            acc, s, signs, n)),
+                    phi_rbf_terms_fused_counts(*f64(x, s), f64(*gs), signs,
+                                               thr.double()),
+                    ranks_summed(
+                        lambda w, r: phi_rbf_terms_sym_chunk_counts(
+                            x, s, gs, signs, thr, w, r), world, n,
+                        lambda acc: phi_rbf_terms_fused_sym_finish(
+                            acc, s, signs, n))))
+                calls += 2
+            calls += 4
+    print(f"phase 43e edges: ok {calls} calls at n = {list(WIDE_EDGE_NS)}, "
+          f"m = {list(WIDE_EDGE_MS)} (chunks over worlds 1-"
+          f"{WIDE_EDGE_WORLDS}) within {worst:.3e} of max |phi| from "
+          f"float64, counts equal {card} {clock()}")
+    report = {inst: ptxas.get(inst, "?") for inst in WIDE_SYM_INSTANCES}
+    spilled = [inst for inst, text in report.items()
+               if not text.endswith(" 0 B spill")]
+    check(not spilled, f"phase 43e: the wide triangle body's instances "
+                       f"spill or were not found in the build log: "
+                       f"{ {i: report[i] for i in spilled} }")
+    print(f"phase 43e ptxas: ok {json.dumps(report)} dynamic smem_bytes="
+          f"{WIDE_SYM_SMEM} (one RBF), {WIDE_SYM_TERMS_SMEM} (terms); one "
+          f"block of 288 threads an SM")
 
 
 def phase_wide_rule(dev, card, clock, plain_ms, errs):
@@ -5115,6 +5235,7 @@ def main() -> int:
 
     # -- phase 43: the wide sweeps (m > 64) -----------------------------------
     wide_errs, _ = phase_wide_kernels(dev, card, clock, ptxas)
+    phase_wide_edges(dev, card, clock, ptxas, wide_errs)
     times43 = phase_wide_rule(dev, card, clock, plain_ms, wide_errs)
     main43 = phase_wide_paths(dev, card, clock)
 

@@ -29,8 +29,8 @@
 // (sweep_common.cuh), the square sweep exact CUDA-core instances for
 // m = 1..4 and tensor-core ones past them (SVGD_DISPATCH_SQ_MMA); past
 // m = 64 both take their wide instance (MM = kWideMM), whose body holds
-// nothing sized by m: square_wide_body (square_mma.cuh) and wide_tri_body
-// (wide_tri.cuh), both on the tensor cores. ptxas's report (-Xptxas -v,
+// nothing sized by m: square_wide_body (square_mma.cuh) and
+// wide_tri_sm90_body (wide_tri_sm90.cuh), both on the tensor cores. ptxas's report (-Xptxas -v,
 // kept in the build log) says whether an instance spills.
 //
 // The bfloat16 operand opt-in (the JAX package's dot_dtype='bfloat16',
@@ -51,6 +51,7 @@
 #include "micro_tile.cuh"
 #include "square_mma.cuh"
 #include "wide_tri.cuh"
+#include "wide_tri_sm90.cuh"
 
 namespace {
 
@@ -225,7 +226,8 @@ int launch_square_mma(const float* targets, const float* sources,
 // columns flush with float32 atomics into the (2m, n) accumulator; a launch
 // of fewer than 1056 tile pairs splits each pair's chunks over the grid's
 // second dimension (tri_splits). Past m = 64 the wide instance runs
-// wide_tri.cuh's tensor-core body in tiles of 64 (kWideTile). The
+// wide_tri_sm90.cuh's tensor-core body in tiles of 128 (kWideSymTile), one
+// persistent block an SM walking the tile list. The
 // conventions are those of the body the m = 9, 10, 12-64 instances keep
 // (counts_sym.cuh, tiles of SymRowTile): each self pair enters both
 // directions, D is unscaled (the wrapper multiplies it by 2 gamma) and the
@@ -246,12 +248,12 @@ template <int MM, bool kExact, int kT>
 __device__ __forceinline__ void counts_tri(
     const float* __restrict__ coords, const float* __restrict__ scores,
     const float* __restrict__ gamma, const float* __restrict__ thr, int n,
-    int m_arg, int T, int nb, long long t0, float* __restrict__ acc,
-    unsigned long long* __restrict__ counts) {
+    int m_arg, int T, int nb, long long t0, long long count,
+    float* __restrict__ acc, unsigned long long* __restrict__ counts) {
   const OneRbf weights{-gamma[0] * kLog2e};
   if constexpr (MM == kWideMM) {
-    wide_tri_body<kT>(coords, scores, weights, thr, n, m_arg, T, nb, t0, acc,
-                      counts);
+    wide_tri_sm90_body<kT>(coords, scores, weights, thr, n, m_arg, T, nb, t0,
+                           count, acc, counts);
   } else {
     micro_tri_body<MM, kExact, kT>(coords, scores, weights, thr, n, m_arg, T,
                                    nb, t0, acc, counts);
@@ -280,10 +282,10 @@ __global__ void __launch_bounds__(TriThreads<MM>::value)
                                 const float* __restrict__ gamma,
                                 const float* __restrict__ thr, int n,
                                 int m_arg, int T, int nb, long long t0,
-                                float* __restrict__ acc,
+                                long long count, float* __restrict__ acc,
                                 unsigned long long* __restrict__ counts) {
   counts_tri<MM, kExact, kT>(coords, scores, gamma, thr, n, m_arg, T, nb, t0,
-                             acc, counts);
+                             count, acc, counts);
 }
 
 template <int MM, bool kExact, int kT>
@@ -293,16 +295,18 @@ __global__ void __launch_bounds__(TriThreads<MM>::value)
                                       const float* __restrict__ gamma,
                                       const float* __restrict__ thr, int n,
                                       int m_arg, int T, int nb, long long t0,
+                                      long long count,
                                       float* __restrict__ acc,
                                       unsigned long long* __restrict__ counts) {
   counts_tri<MM, kExact, kT>(coords, scores, gamma, thr, n, m_arg, T, nb, t0,
-                             acc, counts);
+                             count, acc, counts);
 }
 
 // Launch of the single-RBF triangle sweep over tiles [t0, t0 + count) of
 // the tile list (SymTile<MM> particles a side; count > 0): the wide body's
-// instances past kMaxM and the micro-tile ones where they serve MM, each
-// for T = 3 or any T <= 8; counts_sym.cuh's body otherwise.
+// instances past kMaxM (one persistent block an SM) and the micro-tile
+// ones where they serve MM, each for T = 3 or any T <= 8; counts_sym.cuh's
+// body otherwise.
 template <int MM, bool kExact>
 void launch_counts_sym(bool chunk, const float* coords, const float* scores,
                        const float* gamma, const float* thr, int n, int m,
@@ -311,15 +315,13 @@ void launch_counts_sym(bool chunk, const float* coords, const float* scores,
   constexpr int tile = SymTile<MM>::value;
   const int nb = (n + tile - 1) / tile;
   if constexpr (MM == kWideMM) {
-    const unsigned int blocks = static_cast<unsigned int>(count);
-    const size_t smem = WideTri::smem_bytes(1);
     auto go = [&](auto kt) {
       constexpr int kT = decltype(kt)::value;
       auto* kernel = chunk ? &fused_phi_counts_sym_chunk_kernel<MM, false, kT>
                            : &fused_phi_counts_sym_kernel<MM, false, kT>;
-      wide_tri_prepare(kernel, 1);
-      kernel<<<blocks, kWideTriThreads, smem, s>>>(
-          coords, scores, gamma, thr, n, m, T, nb, t0, acc, counts);
+      const unsigned int blocks = wide_sym_prepare<false>(kernel, count);
+      kernel<<<blocks, kWideSymThreads, WideSym<false>::kSmemBytes, s>>>(
+          coords, scores, gamma, thr, n, m, T, nb, t0, count, acc, counts);
     };
     if (T == 3) {
       go(std::integral_constant<int, 3>{});
@@ -334,10 +336,10 @@ void launch_counts_sym(bool chunk, const float* coords, const float* scores,
       if (chunk) {
         fused_phi_counts_sym_chunk_kernel<MM, kExact, kT>
             <<<grid, threads, 0, s>>>(coords, scores, gamma, thr, n, m, T, nb,
-                                      t0, acc, counts);
+                                      t0, count, acc, counts);
       } else {
         fused_phi_counts_sym_kernel<MM, kExact, kT><<<grid, threads, 0, s>>>(
-            coords, scores, gamma, thr, n, m, T, nb, t0, acc, counts);
+            coords, scores, gamma, thr, n, m, T, nb, t0, count, acc, counts);
       }
     };
     if (T == 3) {
@@ -465,12 +467,15 @@ int svgd_fused_phi_counts_square_bf16(const float* targets,
 // Upper-triangle sweep over one particle set. coords (n, m) centered,
 // scores (n, m), gamma (1,), thr (T,) float32 on the device; acc a zeroed
 // (2m, n) float32 accumulator [KS | D]; counts a zeroed int64 (T,) buffer that
-// receives the upper count U (diagonal included). m >= 1.
+// receives the upper count U (diagonal included). m >= 1; past m = 64 (the
+// wide body's 16-byte copies) m a multiple of 4 and coords and scores on a
+// 16-byte boundary (the wrappers pad the rows with zero columns).
 int svgd_fused_phi_counts_sym(const float* coords, const float* scores,
                               const float* gamma, const float* thr, int n,
                               int m, int T, float* acc, long long* counts,
                               void* stream) {
-  if (n <= 0 || T < 1 || T > kMaxT) {
+  if (n <= 0 || T < 1 || T > kMaxT ||
+      (m > kMaxM && !wide_rows_ok(m, coords, scores))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -524,7 +529,8 @@ int svgd_fused_phi_counts_sym_chunk(const float* coords, const float* scores,
                                     int n, int m, int T, long long t0,
                                     long long count, float* acc,
                                     long long* counts, void* stream) {
-  if (n <= 0 || T < 1 || T > kMaxT) {
+  if (n <= 0 || T < 1 || T > kMaxT ||
+      (m > kMaxM && !wide_rows_ok(m, coords, scores))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

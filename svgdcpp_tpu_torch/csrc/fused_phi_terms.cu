@@ -67,8 +67,9 @@
 // 3160 tile pairs fill 132 SMs about 6 times. At the other widths (m = 9,
 // 10, 12-64, whose rows the micro-tile would spill) the kernel keeps the
 // one-row-a-thread body of terms_sym.cuh in tiles of SymTermsTile, and
-// past m = 64 wide_tri.cuh's tensor-core body in tiles of 64 (two weight
-// tiles, k_c and w), under the same names. The tile side of each instance
+// past m = 64 wide_tri_sm90.cuh's tensor-core body in tiles of 128 (one
+// persistent block an SM; k_c in the weight tile for the scores, then w
+// for the coordinates), under the same names. The tile side of each instance
 // is svgd_sym_tile's (fused_phi.cu), which the chunk wrappers read.
 //
 // The gammas are read from device memory (they come out of the median
@@ -83,7 +84,7 @@
 
 #include "micro_tile.cuh"
 #include "square_mma.cuh"
-#include "wide_tri.cuh"
+#include "wide_tri_sm90.cuh"
 
 #define SVGD_TERMS_SYM_KERNEL fused_phi_terms_sym_kernel
 #include "terms_sym.cuh"
@@ -107,12 +108,12 @@ __device__ __forceinline__ void terms_tri(
     const float* __restrict__ coords, const float* __restrict__ scores,
     const float* __restrict__ gammas, const TermSigns& signs, int nterms,
     const float* __restrict__ thr, int n, int m_arg, int T, int nb,
-    long long t0, float* __restrict__ acc,
+    long long t0, long long count, float* __restrict__ acc,
     unsigned long long* __restrict__ counts) {
   auto body = [&](const auto& weights) {
     if constexpr (MM == kWideMM) {
-      wide_tri_body<kT>(coords, scores, weights, thr, n, m_arg, T, nb, t0,
-                        acc, counts);
+      wide_tri_sm90_body<kT>(coords, scores, weights, thr, n, m_arg, T, nb,
+                             t0, count, acc, counts);
     } else {
       micro_tri_body<MM, kExact, kT>(coords, scores, weights, thr, n, m_arg,
                                      T, nb, t0, acc, counts);
@@ -138,10 +139,11 @@ __global__ void __launch_bounds__(TriThreads<MM>::value)
                                TermSigns signs, int nterms,
                                const float* __restrict__ thr, int n,
                                int m_arg, int T, int nb, long long t0,
-                               float* __restrict__ acc,
+                               long long count, float* __restrict__ acc,
                                unsigned long long* __restrict__ counts) {
   terms_tri<MM, kExact, kT, NTerms>(coords, scores, gammas, signs, nterms,
-                                    thr, n, m_arg, T, nb, t0, acc, counts);
+                                    thr, n, m_arg, T, nb, t0, count, acc,
+                                    counts);
 }
 
 template <int MM, bool kExact, int kT, int NTerms>
@@ -152,16 +154,19 @@ __global__ void __launch_bounds__(TriThreads<MM>::value)
                                      TermSigns signs, int nterms,
                                      const float* __restrict__ thr, int n,
                                      int m_arg, int T, int nb, long long t0,
+                                     long long count,
                                      float* __restrict__ acc,
                                      unsigned long long* __restrict__ counts) {
   terms_tri<MM, kExact, kT, NTerms>(coords, scores, gammas, signs, nterms,
-                                    thr, n, m_arg, T, nb, t0, acc, counts);
+                                    thr, n, m_arg, T, nb, t0, count, acc,
+                                    counts);
 }
 
 // Launch of the terms triangle sweep over tiles [t0, t0 + count) of the
-// tile list (TermsTriTile<MM> particles a side; count > 0): the micro-tile
-// instances where they serve MM, each for T = 3 or any T <= 8 and for two
-// terms or any count; terms_sym.cuh's body otherwise.
+// tile list (TermsTriTile<MM> particles a side; count > 0): the wide
+// body's instances past kMaxM (one persistent block an SM) and the
+// micro-tile ones where they serve MM, each for T = 3 or any T <= 8 and for
+// two terms or any count; terms_sym.cuh's body otherwise.
 template <int MM, bool kExact>
 void launch_terms_sym(bool chunk, const float* coords, const float* scores,
                       const float* gammas, const TermSigns& sg, int nterms,
@@ -171,18 +176,16 @@ void launch_terms_sym(bool chunk, const float* coords, const float* scores,
   constexpr int tile = TermsTriTile<MM>::value;
   const int nb = (n + tile - 1) / tile;
   if constexpr (MM == kWideMM) {
-    const unsigned int blocks = static_cast<unsigned int>(count);
-    const size_t smem = WideTri::smem_bytes(2);
     auto go = [&](auto kt, auto nt) {
       constexpr int kT = decltype(kt)::value;
       constexpr int NTerms = decltype(nt)::value;
       auto* kernel =
           chunk ? &fused_phi_terms_sym_chunk_kernel<MM, false, kT, NTerms>
                 : &fused_phi_terms_sym_kernel<MM, false, kT, NTerms>;
-      wide_tri_prepare(kernel, 2);
-      kernel<<<blocks, kWideTriThreads, smem, s>>>(
-          coords, scores, gammas, sg, nterms, thr, n, m, T, nb, t0, acc,
-          counts);
+      const unsigned int blocks = wide_sym_prepare<true>(kernel, count);
+      kernel<<<blocks, kWideSymThreads, WideSym<true>::kSmemBytes, s>>>(
+          coords, scores, gammas, sg, nterms, thr, n, m, T, nb, t0, count,
+          acc, counts);
     };
     auto terms = [&](auto kt) {
       if (nterms == 2) {
@@ -206,11 +209,13 @@ void launch_terms_sym(bool chunk, const float* coords, const float* scores,
       if (chunk) {
         fused_phi_terms_sym_chunk_kernel<MM, kExact, kT, NTerms>
             <<<grid, threads, 0, s>>>(coords, scores, gammas, sg, nterms,
-                                      thr, n, m, T, nb, t0, acc, counts);
+                                      thr, n, m, T, nb, t0, count, acc,
+                                      counts);
       } else {
         fused_phi_terms_sym_kernel<MM, kExact, kT, NTerms>
             <<<grid, threads, 0, s>>>(coords, scores, gammas, sg, nterms,
-                                      thr, n, m, T, nb, t0, acc, counts);
+                                      thr, n, m, T, nb, t0, count, acc,
+                                      counts);
       }
     };
     auto terms = [&](auto kt) {
@@ -449,13 +454,17 @@ int svgd_fused_phi_terms_square(const float* targets, const float* sources,
 // centered, scores (n, m), gammas (nterms,), thr (T,) float32 on the device;
 // signs (nterms,) a host array; acc a zeroed (2m, n) float32 accumulator
 // [KS | D]; counts a zeroed int64 (T,) buffer that receives the upper count
-// U (diagonal included). m >= 1, 1 <= nterms <= 16, 1 <= T <= 8.
+// U (diagonal included). m >= 1, 1 <= nterms <= 16, 1 <= T <= 8; past
+// m = 64 (the wide body's 16-byte copies) m a multiple of 4 and coords and
+// scores on a 16-byte boundary (the wrappers pad the rows with zero
+// columns).
 int svgd_fused_phi_terms_sym(const float* coords, const float* scores,
                              const float* gammas, const float* signs,
                              int nterms, const float* thr, int n, int m,
                              int T, float* acc, long long* counts,
                              void* stream) {
-  if (n <= 0 || T < 1 || T > kMaxT || nterms < 1 || nterms > kMaxTerms) {
+  if (n <= 0 || T < 1 || T > kMaxT || nterms < 1 || nterms > kMaxTerms ||
+      (m > kMaxM && !wide_rows_ok(m, coords, scores))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const TermSigns sg = make_signs(signs, nterms);
@@ -484,7 +493,8 @@ int svgd_fused_phi_terms_sym_chunk(const float* coords, const float* scores,
                                    int T, long long t0, long long count,
                                    float* acc, long long* counts,
                                    void* stream) {
-  if (n <= 0 || T < 1 || T > kMaxT || nterms < 1 || nterms > kMaxTerms) {
+  if (n <= 0 || T < 1 || T > kMaxT || nterms < 1 || nterms > kMaxTerms ||
+      (m > kMaxM && !wide_rows_ok(m, coords, scores))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const TermSigns sg = make_signs(signs, nterms);

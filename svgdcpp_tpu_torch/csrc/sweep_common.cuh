@@ -17,8 +17,9 @@
 // flagship, hierarchical-BLR and flat-BLR widths), the runtime instance
 // with MM = 16, 32 or 64 for every other m up to 64 (kMaxM), and past it
 // the wide instance, MM = kWideMM, whose body holds no per-coordinate
-// array (square_mma.cuh's square_wide_body, wide_tri.cuh's
-// wide_tri_body). SVGD_DISPATCH_M_2_11, for the kernels with fewer main
+// array (square_mma.cuh's square_wide_body; the triangles'
+// wide_tri_sm90.cuh, their bf16 instance wide_tri.cuh's wide_tri_body).
+// SVGD_DISPATCH_M_2_11, for the kernels with fewer main
 // paths (the panels, K14's term groups, K15), has exact instances for
 // m = 2 and 11 only and runtime ones with MM = 8, 16, 32 or 64, and
 // refuses m past kMaxM: each of those kernels takes its wide instance
@@ -171,9 +172,15 @@ struct MicroWidth {
   static constexpr bool value = MM >= 1 && (MM <= 8 || MM == 11);
 };
 
-// The wide triangle body's tiles (wide_tri.cuh): 64 particles a side, for
-// one RBF and for terms alike.
+// The wide triangle body's tiles (wide_tri.cuh's wide_pair_body): 64
+// particles a side, for its users (K2's bf16 instance, K14's groups, K15,
+// the panels).
 constexpr int kWideTile = 64;
+
+// The float32 triangle sweeps' tiles past kMaxM (wide_tri_sm90.cuh: K2/K4
+// and K8-K11 at MM = kWideMM): 128 particles a side, for one RBF and for
+// terms alike.
+constexpr int kWideSymTile = 128;
 
 // The single-RBF one-row-a-thread triangle body (counts_sym.cuh): tiles of
 // 64 particles up to m = 16 and 32 above, so the padded pair tile and the
@@ -185,12 +192,12 @@ struct SymRowTile {
 
 // The single-RBF triangle kernels' tiles (fused_phi.cu, K2's and K4's
 // ports): 128 particles a side where the micro-tile body serves the
-// instance, else SymRowTile. svgd_sym_tile exports it and
+// instance and past kMaxM (kWideSymTile), else SymRowTile. svgd_sym_tile exports it and
 // ops/sym_plan.sym_tile mirrors it.
 template <int MM>
 struct SymTile {
   static constexpr int value =
-      MM == kWideMM ? kWideTile
+      MM == kWideMM ? kWideSymTile
                     : (MicroWidth<MM>::value ? 128 : SymRowTile<MM>::value);
 };
 
@@ -203,13 +210,14 @@ struct SymTermsTile {
 };
 
 // The terms triangle kernels' tiles (fused_phi_terms.cu): 128 particles a
-// side where the micro-tile body serves the instance (MicroWidth), else the
-// one-row-a-thread body's SymTermsTile (terms_sym.cuh). svgd_sym_tile
+// side where the micro-tile body serves the instance (MicroWidth) and past
+// kMaxM (kWideSymTile), else the one-row-a-thread body's SymTermsTile
+// (terms_sym.cuh). svgd_sym_tile
 // exports it and ops/sym_plan.sym_tile mirrors it.
 template <int MM>
 struct TermsTriTile {
   static constexpr int value =
-      MM == kWideMM ? kWideTile
+      MM == kWideMM ? kWideSymTile
                     : (MicroWidth<MM>::value ? 128 : SymTermsTile<MM>::value);
 };
 

@@ -1,8 +1,8 @@
-// The upper-triangle sweep's body past kMaxM (m > 64), shared by the
-// single-RBF triangle kernels (fused_phi.cu: K2's and K4's ports), the
-// terms triangle kernels (fused_phi_terms.cu: K8/K9's and K10/K11's), under
-// their names as the instance MM = kWideMM, and the wide kernels of K14's
-// term groups (fused_phi_aniso.cu) and of K15 (phi_rbf.cu). The bodies
+// The upper-triangle sweep's body past kMaxM (m > 64), shared by K2's
+// bfloat16 instance (fused_phi.cu), the wide kernels of K14's term groups
+// (fused_phi_aniso.cu) and of K15 (phi_rbf.cu) and the panels' wide
+// instances (fused_phi_panel.cu). The float32 triangle kernels (K2/K4,
+// K8-K11) run wide_tri_sm90.cuh's body past kMaxM instead. The bodies
 // below it hold a row of m coordinates, scores and sums in registers
 // (micro_tile.cuh, counts_sym.cuh, terms_sym.cuh); past m = 64 they would
 // spill, so this one holds nothing sized by m and runs on the tensor
@@ -448,14 +448,6 @@ __device__ __forceinline__ void wide_tri_body(
       tri_spot(t0 + static_cast<long long>(blockIdx.x), nb, n, acc), counts,
       form);
 }
-
-// The threads of a triangle kernel's block for instance MM: the wide
-// body's at MM = kWideMM, any m past kMaxM, else the micro-tile body's.
-template <int MM>
-struct TriThreads {
-  static constexpr int value =
-      MM == kWideMM ? kWideTriThreads : MicroTri<MM>::kThreads;
-};
 
 // Allow a kernel on the wide body with `weights` weight tiles its dynamic
 // shared memory, where that passes the default 48 KB. A refusal also fails

@@ -140,6 +140,7 @@ from .sym_plan import (
     card_resolve_sym,
     panel_chunk,
     sym_tile_chunk,
+    wide_row_width,
 )
 
 #: Largest dimension sym_eigen takes (every sweep takes any m), threshold
@@ -390,6 +391,27 @@ def _centered32(coords):
     return c32 - c32.mean(dim=0)
 
 
+def _tri_operands(coords_c, sc32, m, bf16=False):
+    """(coordinates, scores, width) as the float32 triangle kernels take
+    them: past MAX_M padded with zero columns to ``wide_row_width(m)``, so
+    that the wide body's 16-byte copies start every row on a 16-byte
+    boundary, which the library requires there (zero columns add nothing
+    to sq, KS or D; the accumulator has 2 x width rows, of which the
+    wrappers keep [0, m) and [width, width + m)); a scores view off a
+    16-byte boundary is copied. ``coords_c`` is a fresh tensor. The bf16
+    instance and m <= MAX_M take them as they are."""
+    if bf16 or m <= MAX_M:
+        return coords_c, sc32, m
+    width = wide_row_width(m)
+    if width != m:
+        pad = (0, width - m)
+        return (torch.nn.functional.pad(coords_c, pad),
+                torch.nn.functional.pad(sc32, pad), width)
+    if sc32.data_ptr() % 16:
+        sc32 = sc32.clone()
+    return coords_c, sc32, m
+
+
 def cholesky_factors(p_matrices, device):
     """K14's factors: L (T, m, m) in float64 on ``device``, with
     P_sym/2 = L_t L_t^T (P_sym = P_t + P_t^T), so that with z_t = x L_t,
@@ -530,7 +552,9 @@ def _sym_launch(coords, scores, gammas, signs, thresholds_sq, bf16=False):
     n, m = coords.shape
     coords_c = _centered32(coords).contiguous()
     sc32 = scores.to(torch.float32).contiguous()
-    acc = torch.zeros((2 * m, n), dtype=torch.float32, device=coords.device)
+    xk, sk, width = _tri_operands(coords_c, sc32, m, bf16)
+    acc = torch.zeros((2 * width, n), dtype=torch.float32,
+                      device=coords.device)
     upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=coords.device)
     lib = load_library()
     with torch.cuda.device(coords.device):
@@ -540,16 +564,17 @@ def _sym_launch(coords, scores, gammas, signs, thresholds_sq, bf16=False):
             entry = (lib.svgd_fused_phi_counts_sym_bf16 if bf16
                      else lib.svgd_fused_phi_counts_sym)
             rc = entry(
-                coords_c.data_ptr(), sc32.data_ptr(), g.data_ptr(),
-                thr.data_ptr(), n, m, thr.shape[0], acc.data_ptr(),
+                xk.data_ptr(), sk.data_ptr(), g.data_ptr(),
+                thr.data_ptr(), n, width, thr.shape[0], acc.data_ptr(),
                 upper.data_ptr(), stream,
             )
         else:
             name = TERMS_SYM_KERNEL
             rc = lib.svgd_fused_phi_terms_sym(
-                coords_c.data_ptr(), sc32.data_ptr(), g.data_ptr(),
+                xk.data_ptr(), sk.data_ptr(), g.data_ptr(),
                 _host_signs(signs, g.shape[0]), g.shape[0], thr.data_ptr(),
-                n, m, thr.shape[0], acc.data_ptr(), upper.data_ptr(), stream,
+                n, width, thr.shape[0], acc.data_ptr(), upper.data_ptr(),
+                stream,
             )
     _check_launch(rc, name)
     launch_counts[name] += 1
@@ -559,11 +584,11 @@ def _sym_launch(coords, scores, gammas, signs, thresholds_sq, bf16=False):
     # so subtract sum_t s_t * s_i once; their D term is 0. The kernel counted
     # the upper triangle with its diagonal, so counts = 2U - n.
     a = acc.T
+    ks, d = a[:, :m], a[:, width:width + m]
     if signs is None:
-        phi = (a[:, :m] - sc32 + 2.0 * g[0] * a[:, m:]) / n
+        phi = (ks - sc32 + 2.0 * g[0] * d) / n
     else:
-        phi = (a[:, :m] - sum(float(s) for s in signs) * sc32
-               + 2.0 * a[:, m:]) / n
+        phi = (ks - sum(float(s) for s in signs) * sc32 + 2.0 * d) / n
     return phi.to(coords.dtype), 2 * upper - n
 
 
@@ -999,28 +1024,32 @@ def _sym_chunk_launch(coords, scores, gammas, signs, thresholds_sq, world,
     # Every rank centers on the mean of the gathered global set.
     coords_c = _centered32(coords).contiguous()
     sc32 = scores.to(torch.float32).contiguous()
-    acc = torch.zeros((2 * m, n), dtype=torch.float32, device=coords.device)
+    xk, sk, width = _tri_operands(coords_c, sc32, m)
+    acc = torch.zeros((2 * width, n), dtype=torch.float32,
+                      device=coords.device)
     upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=coords.device)
     with torch.cuda.device(coords.device):
         stream = torch.cuda.current_stream().cuda_stream
         if signs is None:
             name = SYM_CHUNK_KERNEL
             rc = lib.svgd_fused_phi_counts_sym_chunk(
-                coords_c.data_ptr(), sc32.data_ptr(), g.data_ptr(),
-                thr.data_ptr(), n, m, thr.shape[0], t0, count,
+                xk.data_ptr(), sk.data_ptr(), g.data_ptr(),
+                thr.data_ptr(), n, width, thr.shape[0], t0, count,
                 acc.data_ptr(), upper.data_ptr(), stream,
             )
         else:
             name = TERMS_SYM_CHUNK_KERNEL
             rc = lib.svgd_fused_phi_terms_sym_chunk(
-                coords_c.data_ptr(), sc32.data_ptr(), g.data_ptr(),
+                xk.data_ptr(), sk.data_ptr(), g.data_ptr(),
                 _host_signs(signs, g.shape[0]), g.shape[0], thr.data_ptr(),
-                n, m, thr.shape[0], t0, count, acc.data_ptr(),
+                n, width, thr.shape[0], t0, count, acc.data_ptr(),
                 upper.data_ptr(), stream,
             )
     _check_launch(rc, name)
     if count:
         launch_counts[name] += 1
+    if width != m:  # the (2m, n) accumulator [KS | D] of the m columns
+        acc = torch.cat((acc[:m], acc[width:width + m]))
     return acc, upper
 
 

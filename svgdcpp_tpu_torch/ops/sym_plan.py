@@ -39,6 +39,8 @@ super-block width its CUDA panel kernels use, is ``card_panel_plan``.
 
 from __future__ import annotations
 
+import math
+
 #: The triangle forms from this many particles up (``_SYM_MIN_N``).
 SYM_MIN_N = 2048
 
@@ -221,7 +223,8 @@ def tpu_terms_panel_kernel(n: int, m: int, num_terms: int) -> str:
 # The card's panel plan
 # ----------------------------------------------------------------------
 
-#: The CUDA panel kernels' tile: super-block widths are multiples of it.
+#: The CUDA panel kernels' tile: super-block widths are multiples of it
+#: (their wide instances' tile pairs, WIDE_PAIR_TILE).
 CARD_PANEL_ALIGN = 64
 
 #: The card's plan: at least this many super-blocks, and super-blocks of
@@ -357,10 +360,69 @@ def dispatch_m(m: int) -> int:
 
 #: The triangle kernels' tile side where the micro-tile body serves the
 #: instance (``MicroWidth`` of csrc/sweep_common.cuh: m = 1-8 and 11), and
-#: where the wide body does (``kWideTile``: m past KERNEL_MAX_M), for one
-#: RBF (``SymTile``) and a composed kernel (``TermsTriTile``) alike.
+#: where the float32 wide body does (``kWideSymTile``, csrc/
+#: wide_tri_sm90.cuh: m past KERNEL_MAX_M), for one RBF (``SymTile``) and a
+#: composed kernel (``TermsTriTile``) alike. WIDE_PAIR_TILE is the other
+#: wide body's tile pair (``kWideTile``, csrc/wide_tri.cuh's
+#: wide_pair_body), which the panels' wide instances (CARD_PANEL_ALIGN),
+#: K14's groups, K15 and K2's bf16 instance keep.
 MICRO_TILE = 128
-WIDE_TILE = 64
+WIDE_TILE = 128
+WIDE_PAIR_TILE = 64
+
+#: The float32 wide triangle body's launch: one persistent block an SM
+#: (the H100's 132), never more blocks than tile pairs.
+WIDE_SYM_SMS = 132
+
+#: The float32 wide triangle body copies 16 bytes at a time: its wrappers
+#: hand it rows of a multiple of this many floats.
+WIDE_ROW_ALIGN = 4
+
+
+def wide_row_width(m: int) -> int:
+    """The row width the float32 triangle wrappers hand the library for
+    dimension m: past KERNEL_MAX_M, m rounded up to WIDE_ROW_ALIGN (the
+    coordinates and scores padded with zero columns, which add nothing to
+    sq, KS or D, so that every row starts on a 16-byte boundary); m
+    itself below."""
+    if m <= KERNEL_MAX_M:
+        return m
+    return -(-m // WIDE_ROW_ALIGN) * WIDE_ROW_ALIGN
+
+
+def upper_pair(t: int, nb: int):
+    """(bi, bj), bi <= bj, of tile t of the nb-wide upper triangle's
+    row-major tile list: the kernels' ``decode_upper_pair`` (a float
+    estimate of the row, corrected by integer steps)."""
+    b = 2.0 * nb + 1.0
+    i = int(math.floor((b - math.sqrt(b * b - 8.0 * t)) * 0.5))
+    i = min(max(i, 0), nb - 1)
+
+    def off(r):
+        return r * nb - r * (r - 1) // 2
+
+    while i > 0 and off(i) > t:
+        i -= 1
+    while i + 1 < nb and off(i + 1) <= t:
+        i += 1
+    return i, i + (t - off(i))
+
+
+def wide_sym_blocks(count: int, sms: int = WIDE_SYM_SMS) -> int:
+    """The grid of the float32 wide triangle body over ``count`` tile
+    pairs (``wide_sym_prepare``): one block an SM, at most one a pair."""
+    return min(count, sms)
+
+
+def wide_sym_walk(n: int, t0: int, count: int, block: int,
+                  sms: int = WIDE_SYM_SMS):
+    """The tile pairs (bi, bj) that block ``block`` of the float32 wide
+    triangle body visits, in order, over tiles [t0, t0 + count) of the
+    WIDE_TILE-sided tile list of n particles: t0 + block, then every
+    ``wide_sym_blocks(count)``-th tile after it (``wide_tri_sm90_body``)."""
+    nb = -(-n // WIDE_TILE)
+    step = wide_sym_blocks(count, sms)
+    return [upper_pair(t0 + p, nb) for p in range(block, count, step)]
 
 
 def sym_tile(m: int, terms: bool = False) -> int:
@@ -370,7 +432,7 @@ def sym_tile(m: int, terms: bool = False) -> int:
     one-row-a-thread body's. One RBF (``SymRowTile``): 64 up to an instance
     of 16, 32 above. A composed kernel (``SymTermsTile``): 32 (its 64 up to
     an instance of 12 serves no dimension outside the micro ones). Past
-    KERNEL_MAX_M the wide body's WIDE_TILE, for both. The chunk wrappers on
+    KERNEL_MAX_M the float32 wide body's WIDE_TILE, for both. The chunk wrappers on
     the card take the library's own answer (``svgd_sym_tile``); this copy
     serves the plain chunk sweeps, and the card's smoke test holds it to
     the library's."""

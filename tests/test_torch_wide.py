@@ -201,7 +201,7 @@ def _port_chunks(fn, world):
 @pytest.mark.parametrize("kernel", ["K4", "K11", "K10"])
 def test_chunks_wide_vs_jax_sharded_interpret(kernel, m):
     """The chunk wrappers on CPU tensors (their plain chunks over the wide
-    tile list of 64 particles a side), summed over the port's worlds 1 and
+    tile list of 128 particles a side), summed over the port's worlds 1 and
     2, against the JAX sharded kernel summed over 3 chunks in interpret
     mode, both finished as the engines finish them."""
     n, d = 300, 3
@@ -278,11 +278,11 @@ PLAN_WIDTHS = (65, 100, 123, 128, 256, 512)
 @pytest.mark.parametrize("m", PLAN_WIDTHS)
 def test_wide_plan_mirrors_pinned(m):
     """Past 64 one wide instance (MM = 0) serves every m, in triangle
-    tiles of 64 for one RBF and terms alike; the square launch keeps the
-    tensor-core body's plan (64 target rows a block, whole tiles of 32
-    sources)."""
+    tiles of 128 for one RBF and terms alike (the float32 triangles' body,
+    csrc/wide_tri_sm90.cuh); the square launch keeps the tensor-core body's
+    plan (64 target rows a block, whole tiles of 32 sources)."""
     assert sym_plan.dispatch_m(m) == sym_plan.WIDE_MM == 0
-    assert sym_plan.sym_tile(m) == sym_plan.sym_tile(m, True) == 64
+    assert sym_plan.sym_tile(m) == sym_plan.sym_tile(m, True) == 128
     assert sym_plan.square_tensor(m)
     assert sym_plan.square_chunk(1000, 1000, m) == 64
     assert sym_plan.square_splits(1000, 1000, m) == 16
@@ -355,9 +355,12 @@ def _meta(*shape):
 
 @pytest.mark.parametrize("m", [65, 123, 512])
 def test_widened_wrappers_launch_past_64(monkeypatch, m):
-    """K1, K6/K7, K2, K8/K9, K4 and K10/K11 hand m to the library, size
-    the square workspace by its splits and the triangles' accumulator
-    (2m, n), and count one launch each."""
+    """K1, K6/K7, K2, K8/K9, K4 and K10/K11 hand m to the library (the
+    triangles its row width ``sym_plan.wide_row_width(m)``, m rounded up
+    to 4 with zero columns, so that the wide body's 16-byte copies start
+    every row aligned), size the square workspace by its splits and the
+    triangles' accumulator (2 x that width, n), and count one launch
+    each."""
     calls = []
     _stand_in(monkeypatch, calls)
     shapes = []
@@ -398,16 +401,20 @@ def test_widened_wrappers_launch_past_64(monkeypatch, m):
         launches = [a for name, a in calls if name == entry]
         assert len(launches) == 1, (entry, calls)
         args = launches[0]
-        assert m in args and n in args
+        width = m if "square" in entry else sym_plan.wide_row_width(m)
+        assert width % (1 if "square" in entry else 4) == 0
+        assert width in args and n in args
         assert tuple(counts.shape) == (3,)
         if "square" in entry:
             assert tuple(phi.shape) == (n, m)
             assert args[-2] == splits
             assert (splits, n, 2 * m + 1) in shapes
         else:
-            assert (2 * m, n) in shapes
+            assert (2 * width, n) in shapes
+            assert tuple(phi.shape) == ((n, m) if "chunk" not in entry
+                                        else (2 * m, n))
         if "chunk" in entry:  # rank 1 of 2 on the wide tile list
-            t0, count = sym_plan.sym_tile_chunk(n, 2, 1, 64)
+            t0, count = sym_plan.sym_tile_chunk(n, 2, 1, 128)
             assert (t0, count) == args[-5:-3]
             assert ("svgd_sym_tile", (m, int("terms" in entry))) in calls
         assert cuda_phi.launch_counts[kernel] == 1
