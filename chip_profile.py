@@ -7,6 +7,8 @@
     python3 chip_profile.py --square-crossover [--forced] [--out PATH]
     python3 chip_profile.py --wide-drift [--out PATH]
     python3 chip_profile.py --wide-breakdown [--out PATH]
+    python3 chip_profile.py --bf16 [--out PATH]
+    python3 chip_profile.py --float32-check [--out PATH]
 
 Drives one configuration of svgdcpp_tpu_torch at its full width:
 
@@ -117,6 +119,25 @@ run the narrower instances: where the new body should begin; and
 ``mma.sync``'s own TF32 rate (m16n8k8 products from registers at 8, 16
 and 32 warps an SM), the floor of both bodies (default output
 ``chiprun_out/wide_breakdown.json``).
+
+``--bf16`` runs ``bf16_breakdown`` alone, with no driver profile: K2's
+and K3's bfloat16 instances on the parent's design (wide_tri.cuh's
+``wide_pair_body`` with kBf16, the body those instances ran before
+``bf16_tri_sm90.cuh``, which still serves K15's bf16 instance) and on the
+new body, each variant built from a copy of csrc/ under
+``_verify/bf16_breakdown/`` with one part taken out (``WIDE_PAIR_VARIANTS``
+and ``BF16_VARIANTS``): both bodies' parts at (10000, 2) and (10000, 123)
+for K2, (32768, 2) and (10000, 123) for K3; both on a ladder of m at
+n = 4096; the pack kernel alone; bf16 ``mma.sync``'s own rate; then, in
+the package's library, the bf16 instances beside the float32 K2 at
+(10000, 2) and the float32 wide triangle at (10000, 123), kernel-only
+(default output ``chiprun_out/bf16_breakdown.json``; the card's name and
+power limit first and last).
+
+``--float32-check`` runs ``float32_check`` alone: the float32 instances at
+their main-path shapes, kernel-only, through wrappers older trees have
+too, so that this script, copied into an older tree's archive, times it
+the same way in the same call.
 
 ``--wide-drift`` runs ``wide_drift`` alone, with no driver profile: how
 far the float32 routes move from float64 at d = 123 and N = 10,000 in
@@ -1417,6 +1438,484 @@ def wide_breakdown_main(args) -> int:
     return 0
 
 
+#: --bf16's harness: K2's and K3's bf16 instances on their bodies, built
+#: from a copy of csrc/ whose header a variant rewrote. The parent's design
+#: (wide_tri.cuh's wide_pair_body with kBf16: 64 x 64 tile pairs, a block
+#: each, over the triangle or a panel's tile pairs, whose spot is a copy of
+#: fused_phi_panel.cu's panel_spot) and bf16_tri_sm90.cuh's body (the pack
+#: kernel, then the persistent sweep). Not a kernel of the package.
+BF16_BREAKDOWN_SOURCE = r"""
+#include "bf16_tri_sm90.cuh"
+#include "wide_tri.cuh"
+using namespace svgd;
+__device__ bool parent_spot(int x, int p, int nb, int w, int n, int m,
+                            float* panels, WideSpot* spot) {
+  const int n_off = nb * (nb - 1) / 2;
+  int bi, bj;
+  if (p < n_off) {
+    decode_upper_pair(p, nb - 1, &bi, &bj);
+    ++bj;
+  } else {
+    bi = bj = p - n_off;
+  }
+  const int tw = w / kWideTile;
+  int a, b;
+  if (bi == bj) {
+    if (x >= tw * (tw + 1) / 2) return false;
+    decode_upper_pair(x, tw, &a, &b);
+  } else {
+    a = x / tw;
+    b = x - a * tw;
+  }
+  spot->i0 = bi * w + a * kWideTile;
+  spot->j0 = bj * w + b * kWideTile;
+  if (spot->i0 >= n || spot->j0 >= n) return false;
+  spot->diag = bi == bj && a == b;
+  const size_t plane = static_cast<size_t>(2) * m * w;
+  spot->out0 = panels + static_cast<size_t>(p) * 2 * plane;
+  spot->out1 = spot->out0 + plane;
+  spot->base0 = bi * w;
+  spot->base1 = bj * w;
+  spot->ld = w;
+  return true;
+}
+__global__ void __launch_bounds__(kWideTriThreads)
+    parent_tri(const float* x, const float* s, const float* gamma,
+               const float* thr, int n, int m, int nb, float* acc,
+               unsigned long long* counts) {
+  wide_tri_body<3, true>(x, s, OneRbf{-gamma[0] * kLog2e}, thr, n, m, 3, nb,
+                         0LL, acc, counts);
+}
+__global__ void __launch_bounds__(kWideTriThreads)
+    parent_panel(const float* x, const float* s, const float* gamma,
+                 const float* thr, int n, int m, int nb, int w,
+                 float* panels, unsigned long long* counts) {
+  WideSpot spot;
+  if (!parent_spot(blockIdx.x, blockIdx.y, nb, w, n, m, panels, &spot)) {
+    return;
+  }
+  wide_pair_body<3, true, false>(x, s, OneRbf{-gamma[0] * kLog2e}, thr, n,
+                                 m, 3, spot, counts, WideForm{});
+}
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    new_tri(Bf16Operands ops, const float* gamma, const float* thr, int n,
+            int m, int nb, long long items, float* acc,
+            unsigned long long* counts) {
+  bf16_tri_body<3>(ops.q, ops.xg, ops.rec, -gamma[0] * kLog2e, thr, n, m, 3,
+                   items, Bf16TriWork{nb, n, acc}, counts);
+}
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    new_panel(Bf16Operands ops, const float* gamma, const float* thr, int n,
+              int m, long long items, Bf16PanelWork wk,
+              unsigned long long* counts) {
+  bf16_tri_body<3>(ops.q, ops.xg, ops.rec, -gamma[0] * kLog2e, thr, n, m, 3,
+                   items, wk, counts);
+}
+extern "C" int bd_parent(int panel, const float* x, const float* s,
+                         const float* gamma, const float* thr, int n, int m,
+                         int nb, int w, float* out, long long* counts,
+                         void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* c = reinterpret_cast<unsigned long long*>(counts);
+  const size_t smem = WideTri::smem_bytes(1);
+  if (panel) {
+    wide_tri_prepare(&parent_panel, 1);
+    const int tw = w / kWideTile;
+    parent_panel<<<dim3(tw * tw, nb * (nb + 1) / 2), kWideTriThreads, smem,
+                   st>>>(x, s, gamma, thr, n, m, nb, w, out, c);
+  } else {
+    wide_tri_prepare(&parent_tri, 1);
+    const int nbt = (n + kWideTile - 1) / kWideTile;
+    parent_tri<<<static_cast<unsigned int>(upper_pairs(n, kWideTile)),
+                 kWideTriThreads, smem, st>>>(x, s, gamma, thr, n, m, nbt,
+                                              out, c);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int bd_new(int panel, int sweep, const float* x, const float* s,
+                      const float* gamma, const float* thr, int n, int m,
+                      int nb, int w, void* work, float* out,
+                      long long* counts, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* c = reinterpret_cast<unsigned long long*>(counts);
+  const Bf16Operands ops = sweep == 1 ? bf16_operands(work, n, m)
+                                      : bf16_tri_pack(x, s, n, m, work, st);
+  if (sweep < 0) return static_cast<int>(cudaGetLastError());
+  if (panel) {
+    const int tw = w / kBf16Tile;
+    const long long off = static_cast<long long>(nb) * (nb - 1) / 2 * tw * tw;
+    const long long items = off + static_cast<long long>(nb) * tw * (tw + 1) / 2;
+    const Bf16PanelWork wk{nb, tw, w, n, off, out};
+    new_panel<<<bf16_tri_prepare(&new_panel, items), kBf16Threads,
+                Bf16Tri::kSmemBytes, st>>>(ops, gamma, thr, n, m, items, wk,
+                                           c);
+  } else {
+    const long long items = upper_pairs(n, kBf16Tile);
+    new_tri<<<bf16_tri_prepare(&new_tri, items), kBf16Threads,
+              Bf16Tri::kSmemBytes, st>>>(ops, gamma, thr, n, m,
+                                         (n + kBf16Tile - 1) / kBf16Tile,
+                                         items, out, c);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+// The mma.sync rate of the new body's products: every warp of 132 blocks
+// of `warps` warps issues `iters` x 8 independent bf16 m16n8k16 products
+// from registers.
+__global__ void bf16_mma_rate(float* out, int iters) {
+  float d[8][4] = {};
+  const uint32_t a[4] = {threadIdx.x, threadIdx.x * 3u, 7u, 9u};
+  const uint32_t b0 = threadIdx.x ^ 5u;
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) mma_bf16(d[c], a, b0, 11u);
+  }
+  float z = 0.0f;
+  for (int c = 0; c < 8; ++c) z += d[c][0] + d[c][1] + d[c][2] + d[c][3];
+  if (z == 1234.5f) out[0] = z;
+}
+extern "C" int bd_mma_rate(int warps, int iters, float* out, void* stream) {
+  bf16_mma_rate<<<132, 32 * warps, 0, static_cast<cudaStream_t>(stream)>>>(
+      out, iters);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+#: The variants of bf16_tri_sm90.cuh's body: (old, new) rewrites of the
+#: header, each timing what is left when a part is taken out (the parent's
+#: are WIDE_PAIR_VARIANTS, rewrites of wide_tri.cuh).
+_BF16_SINK = (
+    "      {\n        float z = 0.0f;\n#pragma unroll\n"
+    "        for (int c = 0; c < 16; ++c) {\n#pragma unroll\n"
+    "          for (int e = 0; e < 4; ++e) z += acc[c][e];\n        }\n"
+    "        if (z == 1234.5f) counts[0] = 7;\n#pragma unroll\n"
+    "        for (int kk = 0; kk < 8; ++kk) {\n#pragma unroll\n"
+    "          for (int e = 0; e < 4; ++e) kf[kk][e] = 0u;\n        }\n"
+    "      }\n")
+_BF16_WEIGH = ("      if (guarded) {\n        weigh(std::true_type{});\n"
+               "      } else {\n        weigh(std::false_type{});\n      }\n")
+_BF16_NTV = ("      const int ntv = min(cw >> 3, (2 * m + 1 - c0 + 7) >> 3);\n")
+BF16_VARIANTS = {
+    "full": [],
+    "no flush atomics": [
+        ("            atomicAdd(dst + static_cast<size_t>(col) * ld + "
+         "(o - base),",
+         "            if (__float_as_uint(out[nt][e]) == 0x7fbadbadu)\n"
+         "            atomicAdd(dst + static_cast<size_t>(col) * ld + "
+         "(o - base),")],
+    "no contraction": [(_BF16_NTV, "      const int ntv = 0;\n")],
+    # The other staging design, consumers rounding float32 slots, stages
+    # twice the bytes: its lower bound, every copy issued twice (the
+    # conversion at each fragment load left out).
+    "every copy twice": [
+        ("          cp_async16_shared(\n"
+         "              dst + 16u * kBf16Producers * i,",
+         "          for (int twice = 0; twice < 2; ++twice)\n"
+         "          cp_async16_shared(\n"
+         "              dst + 16u * kBf16Producers * i,")],
+    "staging, Gram and weights": [
+        (_BF16_NTV, "      const int ntv = 0;\n"),
+        ("      const int ntv = 0;\n", "      const int ntv = 0;\n")],
+    "staging and Gram only": [
+        (_BF16_NTV, "      const int ntv = 0;\n"),
+        (_BF16_WEIGH, _BF16_SINK)],
+    "staging only": [
+        (_BF16_NTV, "      const int ntv = 0;\n"),
+        (_BF16_WEIGH, _BF16_SINK),
+        ("        const int kv = min(sl >> 4, (m - s * sl + 15) >> 4);\n",
+         "        const int kv = 0;\n")],
+}
+del BF16_VARIANTS["staging, Gram and weights"]
+
+#: --bf16's shapes: the four of the parts (K2 at the flagship's (10000, 2)
+#: and at a9a's (10000, 123); K3 at phase 46b's forced panel (32768, 2) and
+#: at (10000, 123)), and the ladder at n = 4096.
+BF16_PART_SHAPES = (("K2", 10000, 2), ("K2", 10000, 123), ("K3", 32768, 2),
+                    ("K3", 10000, 123))
+BF16_LADDER_N = 4096
+BF16_LADDER_MS = (2, 11, 16, 17, 65, 123, 256)
+
+
+def bf16_breakdown_copy(dest, parent, rewrites):
+    """A copy of csrc/ under ``dest`` with ``rewrites`` applied to the
+    parent's header (wide_tri.cuh) or the new body's (bf16_tri_sm90.cuh),
+    and the harness source beside it."""
+    dest = Path(dest)
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(ROOT / "svgdcpp_tpu_torch" / "csrc", dest)
+    header = dest / ("wide_tri.cuh" if parent else "bf16_tri_sm90.cuh")
+    text = header.read_text()
+    for old, new in rewrites:
+        if text.count(old) != 1:
+            raise RuntimeError(f"bf16_breakdown_copy: {header.name} holds "
+                               f"{text.count(old)} copies of {old!r}")
+        text = text.replace(old, new)
+    header.write_text(text)
+    (dest / "breakdown.cu").write_text(BF16_BREAKDOWN_SOURCE)
+    return dest
+
+
+def bf16_breakdown(device):
+    """--bf16: K2's and K3's bf16 instances, the parent's body
+    (wide_pair_body with kBf16) and the new one (bf16_tri_sm90.cuh), each
+    variant built in a copy under _verify/bf16_breakdown/ (no switch in the
+    sources) and timed with CUDA events (median of 3 runs of 10 launches
+    after 3; the new body's time is its pack kernel's and its sweep's):
+    both bodies' parts at BF16_PART_SHAPES, both on the ladder
+    (BF16_LADDER_N, BF16_LADDER_MS), the pack kernel alone, bf16
+    mma.sync's own rate; then, kernel-only (the profiler's events) in the
+    package's library, the bf16 instances and the float32 K2 at (10000, 2)
+    and the float32 wide triangle at (10000, 123)."""
+    import ctypes
+
+    import torch
+
+    from chip_smoke import kernel_us
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops import sym_plan
+    from svgdcpp_tpu_torch.utils.cuda_build import ARCH_FLAGS, find_nvcc
+
+    base = ROOT / "_verify" / "bf16_breakdown"
+    jobs = ([(True, name, rw) for name, rw in WIDE_PAIR_VARIANTS.items()]
+            + [(False, name, rw) for name, rw in BF16_VARIANTS.items()])
+    procs = []
+    for idx, (parent, name, rewrites) in enumerate(jobs):
+        dest = bf16_breakdown_copy(base / f"v{idx}", parent, rewrites)
+        cmd = [find_nvcc() or "nvcc", *ARCH_FLAGS, "-std=c++17", "-O3",
+               "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v", "-o",
+               str(dest / "libbreakdown.so"), str(dest / "breakdown.cu")]
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    libs, spills = [], []
+    for idx, ((parent, name, _), proc) in enumerate(zip(jobs, procs)):
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"bf16 breakdown build {name}:\n{out}")
+        spills.append([int(b) for b in
+                       re.findall(r"(\d+) bytes spill stores", out)])
+        lib = ctypes.CDLL(str(base / f"v{idx}" / "libbreakdown.so"))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.bd_parent.argtypes = [i32] + [ptr] * 4 + [i32] * 4 + [ptr] * 3
+        lib.bd_new.argtypes = [i32] * 2 + [ptr] * 4 + [i32] * 4 + [ptr] * 4
+        lib.bd_mma_rate.argtypes = [i32, i32, ptr, ptr]
+        libs.append(lib)
+
+    def inputs(n, m, seed):
+        gen = torch.Generator().manual_seed(seed)
+        x = torch.randn(n, m, generator=gen)
+        x = (x - x.mean(dim=0)).contiguous().to(device)
+        s = torch.randn(n, m, generator=gen).contiguous().to(device)
+        gamma = torch.tensor([0.5 / m], device=device)
+        thr = torch.tensor([1.5 * m, 2.0 * m, 2.5 * m], device=device)
+        return x, s, gamma, thr
+
+    def events(call):
+        for _ in range(3):
+            call()
+        runs = []
+        for _ in range(3):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(10):
+                call()
+            end.record()
+            end.synchronize()
+            runs.append(start.elapsed_time(end) / 10)
+        return sorted(runs)[1]
+
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def timed(lib, parent, kernel, n, m, sweep=0):
+        """ms of one call: the parent's sweep, or the new body's pack and
+        sweep (sweep 0), its sweep alone (1) or its pack alone (-1)."""
+        x, s, gamma, thr = inputs(n, m, n + m)
+        counts = torch.zeros(3, dtype=torch.int64, device=device)
+        panel = kernel == "K3"
+        nb, w, _ = sym_plan.card_panel_plan(n, bf16=not parent)
+        num_p = nb * (nb + 1) // 2
+        out = torch.zeros((num_p, 2, 2 * m, w) if panel and parent
+                          else (2 * m if parent else 2 * m + 1, n),
+                          device=device)
+        work = torch.empty(sym_plan.bf16_work_bytes(n, m), dtype=torch.uint8,
+                           device=device)
+        if not parent and sweep == 1:  # the operands, packed once
+            lib.bd_new(int(panel), -1, x.data_ptr(), s.data_ptr(),
+                       gamma.data_ptr(), thr.data_ptr(), n, m, nb, w,
+                       work.data_ptr(), out.data_ptr(), counts.data_ptr(),
+                       stream)
+
+        def call():
+            if parent:
+                rc = lib.bd_parent(int(panel), x.data_ptr(), s.data_ptr(),
+                                   gamma.data_ptr(), thr.data_ptr(), n, m,
+                                   nb, w, out.data_ptr(), counts.data_ptr(),
+                                   stream)
+            else:
+                rc = lib.bd_new(int(panel), sweep, x.data_ptr(),
+                                s.data_ptr(), gamma.data_ptr(),
+                                thr.data_ptr(), n, m, nb, w, work.data_ptr(),
+                                out.data_ptr(), counts.data_ptr(), stream)
+            if rc:
+                raise RuntimeError(f"bf16 breakdown launch returned {rc}")
+        return events(call)
+
+    rows = []
+
+    def emit(row):
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+
+    for idx, (parent, name, _) in enumerate(jobs):
+        body = "wide_pair_body (kBf16)" if parent else "bf16_tri_sm90_body"
+        for kernel, n, m in BF16_PART_SHAPES:
+            emit({"body": body, "variant": name, "kernel": kernel, "n": n,
+                  "m": m, "ms": timed(libs[idx], parent, kernel, n, m),
+                  "spill_bytes": spills[idx]})
+    full_parent = jobs.index((True, "full", []))
+    full_new = jobs.index((False, "full", []))
+    for kernel, n, m in BF16_PART_SHAPES:
+        emit({"body": "bf16_tri_sm90_body", "variant": "sweep alone (operands "
+              "packed before)", "kernel": kernel, "n": n, "m": m,
+              "ms": timed(libs[full_new], False, kernel, n, m, sweep=1)})
+        emit({"body": "bf16_tri_pack", "variant": "pack alone",
+              "kernel": kernel, "n": n, "m": m,
+              "ms": timed(libs[full_new], False, kernel, n, m, sweep=-1)})
+    for m in BF16_LADDER_MS:
+        for kernel in ("K2", "K3"):
+            p_ms = timed(libs[full_parent], True, kernel, BF16_LADDER_N, m)
+            n_ms = timed(libs[full_new], False, kernel, BF16_LADDER_N, m)
+            emit({"ladder": kernel, "n": BF16_LADDER_N, "m": m,
+                  "parent_ms": p_ms, "new_ms": n_ms,
+                  "speedup": p_ms / n_ms})
+    sink = torch.zeros(1, device=device)
+    for warps in (8, 16, 32):
+        iters = 4096
+        lib = libs[full_new]
+        lib.bd_mma_rate(warps, iters, sink.data_ptr(), stream)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = lib.bd_mma_rate(warps, iters, sink.data_ptr(), stream)
+        end.record()
+        end.synchronize()
+        if rc:
+            raise RuntimeError(f"bd_mma_rate returned {rc}")
+        ms = start.elapsed_time(end)
+        flops = 132 * warps * iters * 8 * (16 * 8 * 16 * 2)
+        emit({"body": "mma.sync m16n8k16 bf16", "warps_per_sm": warps,
+              "ms": ms, "tflops": flops / ms / 1e9})
+    # The package's library: the bf16 instances (pack and sweep events)
+    # beside the float32 K2 and the float32 wide triangle.
+    cuda_phi.load_library()
+    for kernel, n, m in BF16_PART_SHAPES:
+        x, s, gamma, thr = inputs(n, m, n + m)
+        sym = "panel" if kernel == "K3" else True
+        name = ("fused_phi_counts_sympanel_bf16" if kernel == "K3"
+                else "fused_phi_counts_sym_bf16")
+        fn = (lambda x=x, s=s, g=gamma[0], thr=thr, sym=sym:
+              cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=sym,
+                                          dot_dtype="bfloat16"))
+        row = {"library": kernel + " bf16", "n": n, "m": m,
+               "kernel_us": kernel_us(fn, name),
+               "pack_us": kernel_us(fn, "bf16_tri_pack")}
+        if kernel == "K2":
+            row["float32_kernel_us"] = kernel_us(
+                lambda x=x, s=s, g=gamma[0], thr=thr:
+                cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=True),
+                "fused_phi_counts_sym_kernel")
+        emit(row)
+    return rows
+
+
+def bf16_main(args) -> int:
+    """--bf16: bf16_breakdown's rows, JSON to --out."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    card = card_name()
+    print(card)
+    result = {"card": card, "torch": torch.__version__,
+              "bf16": bf16_breakdown(torch.device("cuda"))}
+    out = Path(args.out or "chiprun_out/bf16_breakdown.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(card)
+    return 0
+
+
+#: --float32-check's calls: the float32 instances at their PERF.md
+#: main-path shapes (and K1's and K15's bf16 instances, which keep their
+#: bodies), (label, kernel name, n, m, form) with form "square", "tri",
+#: "panel", "terms" (two terms, the triangle) or "k15 bf16".
+FLOAT32_CHECK_CASES = (
+    ("K1", "fused_phi_counts_square", 1000, 50, "square"),
+    ("K2", "fused_phi_counts_sym_kernel", 10000, 2, "tri"),
+    ("K2 wide", "fused_phi_counts_sym_kernel", 10000, 123, "tri"),
+    ("K3", "fused_phi_counts_sympanel_kernel", 32768, 2, "panel"),
+    ("K3 wide", "fused_phi_counts_sympanel_kernel", 10000, 123, "panel"),
+    ("K8/K9", "fused_phi_terms_sym_kernel", 10000, 11, "terms"),
+    ("K8/K9 wide", "fused_phi_terms_sym_kernel", 10000, 124, "terms"),
+    ("K1 bf16", "fused_phi_counts_square_bf16", 1000, 50, "square bf16"),
+    ("K15 bf16", "phi_rbf_wide_bf16", 10240, 123, "k15 bf16"),
+)
+
+
+def float32_check(device):
+    """--float32-check: kernel-only us (the profiler's events, 10 calls
+    after one) of FLOAT32_CHECK_CASES through the package's wrappers, on
+    chip_smoke's inputs. It uses only wrappers that trees before the bf16
+    triangle body have too, so that a copy of this script times an older
+    tree the same way (parent, change, change, parent in one call)."""
+    import torch
+
+    from chip_smoke import inputs_for, kernel_us
+    from svgdcpp_tpu_torch.ops import cuda_phi
+
+    rows = []
+    for label, name, n, m, form in FLOAT32_CHECK_CASES:
+        x, s, g, thr = inputs_for(n, m, 0.0, 60 + m, device)
+        if form == "terms":
+            gs = [g, 0.5 * g]
+            fn = (lambda: cuda_phi.phi_rbf_terms_fused_cuda(
+                x, s, gs, (1.0, 1.0), thr, sym=True))
+        elif form == "k15 bf16":
+            p = torch.eye(m, device=device) * g
+            fn = (lambda: cuda_phi.phi_rbf_cuda(x, s, p,
+                                                dot_dtype="bfloat16"))
+        else:
+            sym = {"square": False, "square bf16": False, "tri": True,
+                   "panel": "panel"}[form]
+            dd = "bfloat16" if form.endswith("bf16") else "float32"
+            fn = (lambda sym=sym, dd=dd: cuda_phi.phi_rbf_fused_cuda(
+                x, s, g, thr, sym=sym, dot_dtype=dd))
+        row = {"case": label, "n": n, "m": m,
+               "kernel_us": kernel_us(fn, name)}
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return rows
+
+
+def float32_check_main(args) -> int:
+    """--float32-check: float32_check's rows, JSON to --out."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    card = card_name()
+    print(card)
+    result = {"card": card, "root": str(ROOT),
+              "float32_check": float32_check(torch.device("cuda"))}
+    out = Path(args.out or "chiprun_out/float32_check.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    return 0
+
+
 def wide_drift(device):
     """The float32 routes' distance from float64 at a9a's width (d = 123)
     and N = 10,000 over chip_smoke.py phase 43c's COMPARE_STEPS steps, and
@@ -1635,8 +2134,20 @@ def main() -> int:
                         help="only time the wide triangle bodies' variants "
                              "and where the new body should begin (no "
                              "driver profile)")
+    parser.add_argument("--bf16", action="store_true",
+                        help="only time K2's and K3's bf16 instances, the "
+                             "parent's body and the new one, by parts and "
+                             "on a ladder of m (no driver profile)")
+    parser.add_argument("--float32-check", action="store_true",
+                        help="only time the float32 instances at their "
+                             "main-path shapes, kernel-only (no driver "
+                             "profile)")
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
+    if args.bf16:
+        return bf16_main(args)
+    if args.float32_check:
+        return float32_check_main(args)
     if args.wide_drift:
         return wide_drift_main(args)
     if args.wide_breakdown:

@@ -278,12 +278,15 @@ forty-six phases, one line each (several for phases 2, 3, 7-9 and
      driver's; ms a step of each;
  46. the bfloat16 opt-in (fused_dot_dtype='bfloat16'): 46a K1 at
      (1000, 50) and its cross form at 5000 of 10000 (m = 2), K2 at
-     (10000, 2) and (10000, 123), K3 forced at (32768, 2) and
-     (10000, 123), K15 at (1500, 2) and (10240, 123), each against its
+     (10000, 2), (10000, 123), (10000, 16) and (10000, 17), K3 forced at
+     (32768, 2), (10000, 123), (8192, 16) and (8192, 17) (K2 and K3 on
+     bf16_tri_sm90.cuh's body, whose Gram tile steps k16 at a time), K15
+     at (1500, 2) and (10240, 123), each against its
      bf16 plain version on the card within 1e-3 of max |phi| (counts
      within 1e-6 n_t n) and against the float32 plain version within
      3e-2, with times beside the float32 instance's and bounds at the
-     bf16 tensor peak; 46b the flagship on auto (K2's bf16 instance) for
+     bf16 tensor peak, then 0 bytes of spill of the new body's instances
+     and its pack kernel; 46b the flagship on auto (K2's bf16 instance) for
      1000 iterations, 20 of its sweep calls held to the bf16 plain
      version, its moment errors beside the float32 route's (not gated);
      the flat BLR (K1), the flagship with fused_sym="panel" at N = 32768
@@ -520,7 +523,8 @@ def ptxas_summary(log_text):
     wide ones past m = 64, aniso_terms_wide<kT> and rbf_wide (the panels'
     wide instances are MM = 0: counts_sympanel<0,0,3>), and the bfloat16
     instances counts_square_bf16<kT>, counts_sym_bf16<kT>,
-    counts_sympanel_bf16<kT> and rbf_wide_bf16."""
+    counts_sympanel_bf16<kT> and rbf_wide_bf16, and the bf16 triangle
+    body's pack kernel, bf16_tri_pack."""
     import re
 
     out, name = {}, None
@@ -545,6 +549,8 @@ def ptxas_summary(log_text):
                 name = f"{short.get(other.group(1), other.group(1))}<{args}>"
             if "phi_rbf_wide_kernel" in hit.group(1):
                 name = "rbf_wide"
+            if "bf16_tri_pack_kernel" in hit.group(1):
+                name = "bf16_tri_pack"
             bf16 = re.search(
                 r"(?<=\d)(?:fused_)?phi_([a-z_]+_bf16)_kernel(?:ILi(\d+)E)?",
                 hit.group(1))
@@ -769,10 +775,12 @@ WIDE_D, WIDE_BLR_N, WIDE_BLR_STEPS, WIDE_BIG_N = 123, 1000, 500, 10000
 
 
 def kernel_us(fn, name, calls=10, tries=2):
-    """Mean device us of the kernels whose name holds ``name`` (the
-    profiler's events) over ``calls`` calls of ``fn``, after one; a trace
-    that holds none of them (on an H100, once in a run of phase 43a's 38
-    cases) is taken again, up to ``tries`` times, else None."""
+    """Mean device us of the kernels whose name holds ``name`` (or any
+    name of a tuple: a call's several kernels) (the profiler's events) over
+    ``calls`` calls of ``fn``, after one; a trace that holds none of them
+    (on an H100, once in a run of phase 43a's 38 cases) is taken again, up
+    to ``tries`` times, else None."""
+    names = (name,) if isinstance(name, str) else tuple(name)
     import tempfile
     from pathlib import Path
 
@@ -792,7 +800,7 @@ def kernel_us(fn, name, calls=10, tries=2):
             events = json.loads(trace.read_text())["traceEvents"]
         durs = [float(ev["dur"]) for ev in events
                 if ev.get("ph") == "X" and ev.get("cat") == "kernel"
-                and name in ev.get("name", "")]
+                and any(nm in ev.get("name", "") for nm in names)]
         if durs:
             return sum(durs) / calls
     return None
@@ -2197,13 +2205,24 @@ def phase_wide_panel_paths(dev, card, clock):
 #: driver under a one-rank NCCL mesh (K1's cross form), COMPARE_STEPS
 #: steps each, every sweep call (every BF16_EVERY-th on the flagship, every
 #: fourth on the panel path) held to its bf16 plain version as in 46a.
+#: K2's and K3's bf16 instances run csrc/bf16_tri_sm90.cuh's body (its
+#: pack kernel, then the sweep; kernel-only times are both's), whose Gram
+#: tile steps k16 at a time: BF16_SHAPES holds them at m = 16 and 17 too,
+#: and 46a requires 0 bytes of spill of BF16_TRI_INSTANCES.
 BF16_GATE = 1e-3
 BF16_F32_GATE = 3e-2
 BF16_SHAPES = {"K1": ((1000, 50),),
                "K1 cross": ((5000, 10000, 2), (10000, 10000, 2)),
-               "K2": ((10000, 2), (10000, 123)),
-               "K3": ((32768, 2), (10000, 123)),
+               "K2": ((10000, 2), (10000, 123), (10000, 16), (10000, 17)),
+               "K3": ((32768, 2), (10000, 123), (8192, 16), (8192, 17)),
                "K15": ((1500, 2), (10240, 123))}
+BF16_TRI_INSTANCES = ("counts_sym_bf16<3>", "counts_sym_bf16<8>",
+                      "counts_sympanel_bf16<3>", "counts_sympanel_bf16<8>",
+                      "bf16_tri_pack")
+BF16_PACK = "bf16_tri_pack"
+#: The bf16 triangle body's shared memory (Bf16Tri::kSmemBytes): 5 stages
+#: of two 16 KB slots and 1 KB of norms, and the 32 KB weight tile.
+BF16_TRI_SMEM = 5 * (2 * 16384 + 1024) + 32768
 BF16_FLAGSHIP_STEPS, BF16_EVERY, BF16_PANEL_N = 1000, 50, 32768
 BF16 = "bfloat16"
 
@@ -2343,8 +2362,11 @@ def phase_bf16_kernels(dev, card, clock, ptxas, plain_ms):
                                  f"{dcnt} > {bound:g}")
             cnt = f" count_diff={dcnt} count_diff_vs_float32={d32}"
         errs[kernel] = max(errs.get(kernel, 0.0), abs_err)
+        names = ((kernel, BF16_PACK) if kernel in (
+            cuda_phi.SYM_BF16_KERNEL, cuda_phi.SYMPANEL_BF16_KERNEL)
+            else kernel)
         t = {"kernel": time_ms(kern, reps=10, warmup=2),
-             "kernel_us": kernel_us(kern, kernel, calls=5),
+             "kernel_us": kernel_us(kern, names, calls=5),
              "f32": time_ms(kern32, reps=10, warmup=2),
              "plain": plain_ms(plain)}
         times[(kernel, n, m)] = t
@@ -2360,6 +2382,14 @@ def phase_bf16_kernels(dev, card, clock, ptxas, plain_ms):
               f"{t['plain']:.4f} bound_fp32_ms={fp_ms:.6g} ({fp_by}) "
               f"bound_bf16_tensor_ms={tc_ms:.6g} ({tc_by}) "
               f"ptxas={json.dumps(regs)} {card} {clock()}")
+    report = {inst: ptxas.get(inst, "?") for inst in BF16_TRI_INSTANCES}
+    spilled = [inst for inst, text in report.items()
+               if not text.endswith(" 0 B spill")]
+    check(not spilled, f"phase 46a: the bf16 triangle body's instances "
+                       f"spill or were not found in the build log: "
+                       f"{ {i: report[i] for i in spilled} }")
+    print(f"phase 46a ptxas: ok {json.dumps(report)} dynamic smem_bytes="
+          f"{BF16_TRI_SMEM}; one block of 384 threads an SM {card}")
     return errs, times, launched
 
 
@@ -5451,10 +5481,11 @@ def main() -> int:
                    "plain_ms": times16[("sym_eigen", 11)]["plain"],
                    "bound_ms": eig_bound[0], "bound_by": eig_bound[1]}]
 
-    def entry(name, source, replaces, tpu, err, library_ms=None):
+    def entry(name, source, replaces, tpu, err, library_ms=None, body=None):
         first = paths[name][0]
+        extra = {"body": f"svgdcpp_tpu_torch/csrc/{body}"} if body else {}
         return {"name": name, "route": "cuda",
-                "source": f"svgdcpp_tpu_torch/csrc/{source}",
+                "source": f"svgdcpp_tpu_torch/csrc/{source}", **extra,
                 "replaces": replaces, "tpu_kernels": tpu,
                 "launches": first["launches"],
                 "max_abs_err": err, "ms": first["ms"],
@@ -5511,9 +5542,9 @@ def main() -> int:
         entry(sq16, "fused_phi.cu", f"{pallas}:365", ["K1"],
               bf16_errs[sq16]),
         entry(sym16, "fused_phi.cu", f"{pallas}:546", ["K2"],
-              bf16_errs[sym16]),
+              bf16_errs[sym16], body="bf16_tri_sm90.cuh"),
         entry(sp16, "fused_phi_panel.cu", f"{pallas}:860", ["K3"],
-              bf16_errs[sp16]),
+              bf16_errs[sp16], body="bf16_tri_sm90.cuh"),
         entry(k15_16, "phi_rbf.cu", f"{pallas}:116", ["K15"],
               bf16_errs[k15_16]),
     ]}))

@@ -35,12 +35,14 @@
 //
 // The bfloat16 operand opt-in (the JAX package's dot_dtype='bfloat16',
 // pallas_phi.py:406 and :619) has instances of its own, at every m >= 1:
-// K1's on square_wide_body and K2's on wide_tri_body, each with kBf16
-// (Gram operands, weights and records rounded to bf16, one TF32 pass a
-// product, the norms and the epilogue's x_i in float32; square_mma.cuh).
-// The JAX kernels take the Gram form under bf16 at every m, so the
-// CUDA-core and micro-tile bodies, which form sq from differences, have
-// no bf16 instance.
+// K1's on square_wide_body with kBf16 (Gram operands, weights and records
+// rounded to bf16, one TF32 pass a product, the norms and the epilogue's
+// x_i in float32; square_mma.cuh) and K2's on bf16_tri_sm90.cuh's body
+// (the operands rounded once by its pack kernel, bf16 mma.sync m16n8k16,
+// the accumulator [KS | KX | rowsum] whose D the wrapper forms in
+// float32). The JAX kernels take the Gram form under bf16 at every m, so
+// the CUDA-core and micro-tile bodies, which form sq from differences,
+// have no bf16 instance.
 //
 // The kernels allocate nothing: the wrapper (ops/cuda_phi.py) passes zeroed
 // count and accumulator buffers and the square sweep's workspace. Each
@@ -50,6 +52,7 @@
 
 #include "micro_tile.cuh"
 #include "square_mma.cuh"
+#include "bf16_tri_sm90.cuh"
 #include "wide_tri.cuh"
 #include "wide_tri_sm90.cuh"
 
@@ -260,19 +263,19 @@ __device__ __forceinline__ void counts_tri(
   }
 }
 
-// K2's bf16 instance (every m): the wide body with kBf16, the whole
-// triangle of tiles of kWideTile.
+// K2's bf16 instance (every m): bf16_tri_sm90.cuh's body over the whole
+// triangle of tiles of kBf16Tile, on the packed operands, into the
+// (2m + 1, n) accumulator [KS | KX | rowsum].
 template <int kT>
-__global__ void __launch_bounds__(kWideTriThreads)
-    fused_phi_counts_sym_bf16_kernel(const float* __restrict__ coords,
-                                     const float* __restrict__ scores,
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    fused_phi_counts_sym_bf16_kernel(Bf16Operands ops,
                                      const float* __restrict__ gamma,
                                      const float* __restrict__ thr, int n,
-                                     int m, int T, int nb,
+                                     int m, int T, int nb, long long items,
                                      float* __restrict__ acc,
                                      unsigned long long* __restrict__ counts) {
-  wide_tri_body<kT, true>(coords, scores, OneRbf{-gamma[0] * kLog2e}, thr, n,
-                          m, T, nb, 0LL, acc, counts);
+  bf16_tri_body<kT>(ops.q, ops.xg, ops.rec, -gamma[0] * kLog2e, thr, n, m, T,
+                    items, Bf16TriWork{nb, n, acc}, counts);
 }
 
 template <int MM, bool kExact, int kT>
@@ -492,27 +495,32 @@ int svgd_fused_phi_counts_sym(const float* coords, const float* scores,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2's bf16 instance: the arguments as svgd_fused_phi_counts_sym's, at any
-// m >= 1, the whole triangle in tiles of kWideTile.
+// K2's bf16 instance, at any m >= 1: coords (n, m) centered and scores
+// (n, m) float32 on the device, as svgd_fused_phi_counts_sym's (any
+// alignment); work a 16-byte-aligned workspace of sym_plan.bf16_work_bytes
+// (n, m) bytes, which the pack kernel fills with the rounded operands; acc
+// a zeroed (2m + 1, n) float32 accumulator that receives [KS | KX |
+// rowsum] (each self pair in both directions); counts the upper count U.
+// Two launches: the pack, then the triangle in tiles of kBf16Tile.
 int svgd_fused_phi_counts_sym_bf16(const float* coords, const float* scores,
                                    const float* gamma, const float* thr,
-                                   int n, int m, int T, float* acc,
-                                   long long* counts, void* stream) {
-  if (n <= 0 || m < 1 || T < 1 || T > kMaxT) {
+                                   int n, int m, int T, void* work,
+                                   float* acc, long long* counts,
+                                   void* stream) {
+  if (n <= 0 || m < 1 || T < 1 || T > kMaxT ||
+      (reinterpret_cast<uintptr_t>(work) & 15u) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long pairs = upper_pairs(n, kWideTile);
-  if (pairs < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int nb = (n + kWideTile - 1) / kWideTile;
+  const long long items = upper_pairs(n, kBf16Tile);
+  if (items < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = (n + kBf16Tile - 1) / kBf16Tile;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* c = reinterpret_cast<unsigned long long*>(counts);
-  const unsigned int blocks = static_cast<unsigned int>(pairs);
-  const size_t smem = WideTri::smem_bytes(1);
+  const Bf16Operands ops = bf16_tri_pack(coords, scores, n, m, work, s);
   auto go = [&](auto* kernel) {
-    const cudaError_t err = wide_tri_prepare(kernel, 1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<blocks, kWideTriThreads, smem, s>>>(coords, scores, gamma, thr,
-                                                 n, m, T, nb, acc, c);
+    const unsigned int blocks = bf16_tri_prepare(kernel, items);
+    kernel<<<blocks, kBf16Threads, Bf16Tri::kSmemBytes, s>>>(
+        ops, gamma, thr, n, m, T, nb, items, acc, c);
     return static_cast<int>(cudaGetLastError());
   };
   return T == 3 ? go(&fused_phi_counts_sym_bf16_kernel<3>)

@@ -120,7 +120,7 @@
 // pairs enter both halves. Rows and columns past n are bounds checks.
 //
 // The wide panel body (m > 64, kMaxM, the instance MM = kWideMM of every
-// panel kernel; and the bfloat16 opt-in's K3 instance at any m): the rows
+// panel kernel): the rows
 // above hold m values in registers and would spill past 64, so the panels
 // there run the wide triangles' tensor-core body (wide_tri.cuh,
 // wide_pair_body: 4 warps on one 64 x 64 tile pair, the Gram tile by
@@ -138,12 +138,21 @@
 // On a diagonal panel about half the blocks return at once, 1/(2 nb) of
 // all: the wide panel does the triangle's work plus that launch waste.
 //
+// The bfloat16 opt-in's K3 instance (fused_phi_counts_sympanel_bf16, any
+// m) runs bf16_tri_sm90.cuh's body: persistent blocks walk the tile pairs
+// of every panel (Bf16PanelWork: 128 x 128 tile pairs, so the plan's
+// super-blocks are multiples of 128, sym_plan.card_panel_plan(...,
+// bf16=True)), and flush [KS | KX | rowsum] into the (2m + 1, n)
+// accumulator, as K2's bf16 instance does (the windows would only be
+// scattered onto it); the wrapper forms D = rowsum x - KX in float32.
+//
 // Each entry point returns cudaGetLastError() after its launch.
 
 #include <limits.h>
 
 #include <type_traits>
 
+#include "bf16_tri_sm90.cuh"
 #include "micro_tile.cuh"
 #include "wide_tri.cuh"
 
@@ -591,8 +600,8 @@ __device__ __forceinline__ bool panel_spot(int x, int p, int p0, int nb,
   return true;
 }
 
-// One RBF's wide panel body at kT thresholds; kBf16 the bfloat16 opt-in.
-template <int kT, bool kBf16>
+// One RBF's wide panel body at kT thresholds.
+template <int kT>
 __device__ __forceinline__ void counts_sympanel_wide(
     const float* __restrict__ coords, const float* __restrict__ scores,
     const float* __restrict__ gamma, const float* __restrict__ thr, int n,
@@ -603,7 +612,7 @@ __device__ __forceinline__ void counts_sympanel_wide(
                   p0, nb, w, n, m, panels, &spot)) {
     return;
   }
-  wide_pair_body<kT, kBf16, false>(coords, scores,
+  wide_pair_body<kT, false, false>(coords, scores,
                                    OneRbf{-gamma[0] * kLog2e}, thr, n, m, T,
                                    spot, counts, WideForm{});
 }
@@ -624,7 +633,7 @@ __device__ __forceinline__ void counts_sympanel(
     int m_arg, int T, int nb, int w, int p0, float* __restrict__ panels,
     unsigned long long* __restrict__ counts) {
   if constexpr (MM == kWideMM) {
-    counts_sympanel_wide<kT, false>(coords, scores, gamma, thr, n, m_arg, T,
+    counts_sympanel_wide<kT>(coords, scores, gamma, thr, n, m_arg, T,
                                     nb, w, p0, panels, counts);
   } else if constexpr (MicroPanel<MM, false>::enabled) {
     const OneRbf weights{-gamma[0] * kLog2e};
@@ -662,17 +671,17 @@ __global__ void __launch_bounds__(PanelThreads<MM, false>::value)
                                   w, p0, panels, counts);
 }
 
-// K3's bf16 instance (every m): the wide panel body with kBf16, the whole
-// panel list.
+// K3's bf16 instance (every m): bf16_tri_sm90.cuh's body over the tile
+// pairs of the whole panel list (Bf16PanelWork), on the packed operands,
+// into the (2m + 1, n) accumulator [KS | KX | rowsum].
 template <int kT>
-__global__ void __launch_bounds__(kWideTriThreads)
+__global__ void __launch_bounds__(kBf16Threads, 1)
     fused_phi_counts_sympanel_bf16_kernel(
-        const float* __restrict__ coords, const float* __restrict__ scores,
-        const float* __restrict__ gamma, const float* __restrict__ thr, int n,
-        int m, int T, int nb, int w, float* __restrict__ panels,
-        unsigned long long* __restrict__ counts) {
-  counts_sympanel_wide<kT, true>(coords, scores, gamma, thr, n, m, T, nb, w,
-                                 0, panels, counts);
+        Bf16Operands ops, const float* __restrict__ gamma,
+        const float* __restrict__ thr, int n, int m, int T, long long items,
+        Bf16PanelWork work, unsigned long long* __restrict__ counts) {
+  bf16_tri_body<kT>(ops.q, ops.xg, ops.rec, -gamma[0] * kLog2e, thr, n, m, T,
+                    items, work, counts);
 }
 
 // Launch of the single-RBF panel sweep over panels [p0, p0 + num_p) of the
@@ -883,27 +892,35 @@ int svgd_fused_phi_counts_sympanel(const float* coords, const float* scores,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3's bf16 instance (the bfloat16 opt-in): the arguments as
-// svgd_fused_phi_counts_sympanel's, at any m >= 1, on the wide panel body.
+// K3's bf16 instance (the bfloat16 opt-in), at any m >= 1: coords, scores,
+// gamma, thr, n, T, nb and counts as svgd_fused_phi_counts_sympanel's, the
+// plan's w a multiple of kBf16Tile (sym_plan.card_panel_plan(...,
+// bf16=True)); work, the pack and acc, a zeroed (2m + 1, n) float32
+// accumulator that receives [KS | KX | rowsum], as
+// svgd_fused_phi_counts_sym_bf16's.
 int svgd_fused_phi_counts_sympanel_bf16(const float* coords,
                                         const float* scores,
                                         const float* gamma, const float* thr,
                                         int n, int m, int T, int nb, int w,
-                                        float* panels, long long* counts,
-                                        void* stream) {
-  if (!plan_ok(n, nb, w) || m < 1 || T < 1 || T > kMaxT) {
+                                        void* work, float* acc,
+                                        long long* counts, void* stream) {
+  if (!plan_ok(n, nb, w) || w % kBf16Tile || m < 1 || T < 1 || T > kMaxT ||
+      (reinterpret_cast<uintptr_t>(work) & 15u) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* c = reinterpret_cast<unsigned long long*>(counts);
-  const unsigned int num_p = static_cast<unsigned int>(nb) * (nb + 1) / 2;
-  const dim3 grid = wide_panel_grid(w, num_p);
-  const size_t smem = WideTri::smem_bytes(1);
+  const int tw = w / kBf16Tile;
+  const long long off_items =
+      static_cast<long long>(nb) * (nb - 1) / 2 * tw * tw;
+  const long long items =
+      off_items + static_cast<long long>(nb) * tw * (tw + 1) / 2;
+  const Bf16PanelWork wk{nb, tw, w, n, off_items, acc};
+  const Bf16Operands ops = bf16_tri_pack(coords, scores, n, m, work, s);
   auto go = [&](auto* kernel) {
-    const cudaError_t err = wide_tri_prepare(kernel, 1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<grid, kWideTriThreads, smem, s>>>(coords, scores, gamma, thr, n,
-                                               m, T, nb, w, panels, c);
+    const unsigned int blocks = bf16_tri_prepare(kernel, items);
+    kernel<<<blocks, kBf16Threads, Bf16Tri::kSmemBytes, s>>>(
+        ops, gamma, thr, n, m, T, items, wk, c);
     return static_cast<int>(cudaGetLastError());
   };
   return T == 3 ? go(&fused_phi_counts_sympanel_bf16_kernel<3>)

@@ -18,7 +18,8 @@
 // with MM = 16, 32 or 64 for every other m up to 64 (kMaxM), and past it
 // the wide instance, MM = kWideMM, whose body holds no per-coordinate
 // array (square_mma.cuh's square_wide_body; the triangles'
-// wide_tri_sm90.cuh, their bf16 instance wide_tri.cuh's wide_tri_body).
+// wide_tri_sm90.cuh). The bf16 instances of K2 and K3 take no MM: they run
+// bf16_tri_sm90.cuh's body at every m.
 // SVGD_DISPATCH_M_2_11, for the kernels with fewer main
 // paths (the panels, K14's term groups, K15), has exact instances for
 // m = 2 and 11 only and runtime ones with MM = 8, 16, 32 or 64, and
@@ -173,8 +174,9 @@ struct MicroWidth {
 };
 
 // The wide triangle body's tiles (wide_tri.cuh's wide_pair_body): 64
-// particles a side, for its users (K2's bf16 instance, K14's groups, K15,
-// the panels).
+// particles a side, for its users (K14's groups, K15 and its bf16
+// instance, the panels). The bf16 triangle body's are kBf16Tile = 128
+// (bf16_tri_sm90.cuh).
 constexpr int kWideTile = 64;
 
 // The float32 triangle sweeps' tiles past kMaxM (wide_tri_sm90.cuh: K2/K4

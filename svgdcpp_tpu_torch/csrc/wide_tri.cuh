@@ -1,8 +1,9 @@
-// The upper-triangle sweep's body past kMaxM (m > 64), shared by K2's
-// bfloat16 instance (fused_phi.cu), the wide kernels of K14's term groups
-// (fused_phi_aniso.cu) and of K15 (phi_rbf.cu) and the panels' wide
-// instances (fused_phi_panel.cu). The float32 triangle kernels (K2/K4,
-// K8-K11) run wide_tri_sm90.cuh's body past kMaxM instead. The bodies
+// The upper-triangle sweep's body past kMaxM (m > 64), shared by the wide
+// kernels of K14's term groups (fused_phi_aniso.cu) and of K15 (phi_rbf.cu,
+// its bfloat16 instance at any m too) and the panels' wide instances
+// (fused_phi_panel.cu). The float32 triangle kernels (K2/K4, K8-K11) run
+// wide_tri_sm90.cuh's body past kMaxM instead, and K2's and K3's bfloat16
+// instances bf16_tri_sm90.cuh's at any m. The bodies
 // below it hold a row of m coordinates, scores and sums in registers
 // (micro_tile.cuh, counts_sym.cuh, terms_sym.cuh); past m = 64 they would
 // spill, so this one holds nothing sized by m and runs on the tensor
@@ -50,8 +51,10 @@
 // warp's 16 x 64 Gram values (64 a thread) during the Gram tile, 32
 // accumulators during a contraction.
 //
-// kBf16 (the bfloat16 opt-in: K2's and K3's bf16 instances, K15's, at any
-// m): the Gram operands, the weights and the contraction's records
+// kBf16 (the bfloat16 opt-in: K15's bf16 instance, at any m; K2's and
+// K3's ran it until bf16_tri_sm90.cuh, and chip_profile.py --bf16 still
+// times it as their parent design): the Gram operands, the weights and the
+// contraction's records
 // rounded to bf16, each product one TF32 pass (square_mma.cuh,
 // operand_split and mma_pass); the norms stay those of the float32
 // coordinates (or the caller's q), the self pair is pinned as above, and

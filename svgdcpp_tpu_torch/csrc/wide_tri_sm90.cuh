@@ -7,8 +7,9 @@
 // in both directions and pinned to sq = 0, the upper count U with the
 // diagonal), with the Gram tile and both contractions in 3xTF32 on the
 // tensor cores, and is laid out for Hopper's shared memory. wide_pair_body
-// keeps serving the other wide users (K2's bf16 instance, K14's term groups,
-// K15, the panels).
+// keeps serving the other wide users (K14's term groups, K15 and its bf16
+// instance, the panels); K2's and K3's bf16 instances run
+// bf16_tri_sm90.cuh's body, built on this one's loop structure.
 //
 // What bounds it. At (10000, 123) the parent body took 3.65 ms, of which
 // the contraction's fragment loads took about 1.9 ms: 64 x 64 tile pairs

@@ -66,20 +66,24 @@ their plain versions; ``phi_rbf_square`` returns phi, like
 ``ops/phi.phi_rbf_blocked``. Every sweep and the count kernel take any
 m >= 1: past MAX_M = 64 the sweeps run wide bodies that hold nothing sized
 by m (``csrc/square_mma.cuh``'s ``square_wide_body``,
-``csrc/wide_tri.cuh``'s triangle body, which the panels run on the tile
-pairs of a panel). ``sym_eigen`` alone takes 1 <= m <= MAX_M: its matrix
-and its order table live in one block's shared memory, and past MAX_M
-K15 takes P itself, so nothing calls it there.
+``csrc/wide_tri_sm90.cuh``'s body for the float32 triangles,
+``csrc/wide_tri.cuh``'s for K14's groups and K15, and which the panels run
+on the tile pairs of a panel). ``sym_eigen`` alone takes 1 <= m <= MAX_M:
+its matrix and its order table live in one block's shared memory, and
+past MAX_M K15 takes P itself, so nothing calls it there.
 
 The bfloat16 operand opt-in (``dot_dtype='bfloat16'``, the JAX package's
-``fused_dot_dtype``) runs instances of their own, at every m, on the
-Gram-form bodies: K1's (square and cross, ``fused_phi_counts_square_bf16``),
-K2's (``fused_phi_counts_sym_bf16``), K3's
-(``fused_phi_counts_sympanel_bf16``) and K15's (``phi_rbf_wide_bf16``).
-They round the Gram operands, the pair weights and the contraction's
-records to bf16 where the JAX kernels do; the norms and the epilogue's
-coordinates stay float32. The plain versions in ``ops/phi`` take the same
-``dot_dtype`` and round at the same points.
+``fused_dot_dtype``) runs instances of their own, at every m: K1's (square
+and cross, ``fused_phi_counts_square_bf16``, on ``square_wide_body``) and
+K15's (``phi_rbf_wide_bf16``, on ``wide_tri.cuh``'s body) in one TF32 pass
+on bf16-rounded values; K2's (``fused_phi_counts_sym_bf16``) and K3's
+(``fused_phi_counts_sympanel_bf16``) on ``csrc/bf16_tri_sm90.cuh``'s body,
+bf16 ``mma.sync`` on operands its pack kernel rounds once into a
+workspace, the accumulator [KS | KX | rowsum] finished by
+``ops/phi.bf16_sym_finish``. They round the Gram operands, the pair
+weights and the contraction's records to bf16 where the JAX kernels do;
+the norms and the epilogue's coordinates stay float32. The plain versions
+in ``ops/phi`` take the same ``dot_dtype`` and round at the same points.
 
 Which form sweeps one particle set is ``resolve_sym``: by default the JAX
 package's decision up to MAX_M and the card's own past it
@@ -114,6 +118,7 @@ from ..kernels.algebra import MAX_RBF_TERMS
 from ..utils.cuda_build import CSRC_DIR, build_library, library_path
 from .median import count_le_plain
 from .phi import (
+    bf16_sym_finish,
     dot_bf16,
     gram_operands,
     panel_index,
@@ -136,6 +141,7 @@ from .phi import (
 from .sym_plan import (
     KERNEL_MAX_M,
     SYM_MIN_N,
+    bf16_work_bytes,
     card_panel_plan,
     card_resolve_sym,
     panel_chunk,
@@ -240,7 +246,7 @@ def load_library() -> ctypes.CDLL:
                 "svgd_square_bf16_splits": [i32] * 3,
                 "svgd_fused_phi_counts_sym": [ptr] * 4 + [i32] * 3 + [ptr] * 3,
                 "svgd_fused_phi_counts_sym_bf16":
-                    [ptr] * 4 + [i32] * 3 + [ptr] * 3,
+                    [ptr] * 4 + [i32] * 3 + [ptr] * 4,
                 "svgd_fused_phi_terms_square":
                     [ptr] * 5 + [i32, ptr] + [i32] * 4 + [ptr] * 3
                     + [i32, ptr],
@@ -258,7 +264,7 @@ def load_library() -> ctypes.CDLL:
                 "svgd_fused_phi_counts_sympanel":
                     [ptr] * 4 + [i32] * 5 + [ptr] * 3,
                 "svgd_fused_phi_counts_sympanel_bf16":
-                    [ptr] * 4 + [i32] * 5 + [ptr] * 3,
+                    [ptr] * 4 + [i32] * 5 + [ptr] * 4,
                 "svgd_fused_phi_terms_sympanel":
                     [ptr] * 4 + [i32, ptr] + [i32] * 5 + [ptr] * 3,
                 "svgd_fused_phi_counts_sym_chunk":
@@ -391,16 +397,16 @@ def _centered32(coords):
     return c32 - c32.mean(dim=0)
 
 
-def _tri_operands(coords_c, sc32, m, bf16=False):
+def _tri_operands(coords_c, sc32, m):
     """(coordinates, scores, width) as the float32 triangle kernels take
     them: past MAX_M padded with zero columns to ``wide_row_width(m)``, so
     that the wide body's 16-byte copies start every row on a 16-byte
     boundary, which the library requires there (zero columns add nothing
     to sq, KS or D; the accumulator has 2 x width rows, of which the
     wrappers keep [0, m) and [width, width + m)); a scores view off a
-    16-byte boundary is copied. ``coords_c`` is a fresh tensor. The bf16
-    instance and m <= MAX_M take them as they are."""
-    if bf16 or m <= MAX_M:
+    16-byte boundary is copied. ``coords_c`` is a fresh tensor. m <= MAX_M
+    takes them as they are."""
+    if m <= MAX_M:
         return coords_c, sc32, m
     width = wide_row_width(m)
     if width != m:
@@ -545,14 +551,71 @@ def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq,
     return phi.to(targets.dtype), counts
 
 
-def _sym_launch(coords, scores, gammas, signs, thresholds_sq, bf16=False):
-    """K2 (one positive term, ``signs`` None; ``bf16`` its bfloat16
-    instance) or the terms triangle kernel."""
+def _bf16_operands(coords, scores, panel=False, panel_blocks=None):
+    """What K2's and K3's bfloat16 entries take besides gamma and the
+    thresholds: (coordinates centred in float32 (n, m), scores in float32
+    (n, m), both contiguous at any alignment; the workspace their pack
+    kernel fills, ``sym_plan.bf16_work_bytes(n, m)`` bytes; the zeroed
+    (2m + 1, n) accumulator [KS | KX | rowsum], into which K3's instance
+    too flushes its panels' tile pairs; with ``panel``, the plan
+    ``card_panel_plan(n, panel_blocks, bf16=True)``'s (nb, w), else
+    None)."""
+    n, m = coords.shape
+    device = coords.device
+    coords_c = _centered32(coords).contiguous()
+    sc32 = scores.to(torch.float32).contiguous()
+    work = torch.empty(bf16_work_bytes(n, m), dtype=torch.uint8,
+                       device=device)
+    plan = _panel_plan(n, panel_blocks, bf16=True)[:2] if panel else None
+    acc = torch.zeros((2 * m + 1, n), dtype=torch.float32, device=device)
+    return coords_c, sc32, work, acc, plan
+
+
+def _bf16_tri_launch(coords, scores, gamma, thresholds_sq, panel=False,
+                     panel_blocks=None):
+    """K2's bfloat16 instance (``fused_phi_counts_sym_bf16``) or, with
+    ``panel``, K3's (``fused_phi_counts_sympanel_bf16``): both on
+    ``csrc/bf16_tri_sm90.cuh``'s body, whose entry first rounds the
+    operands into the workspace with its pack kernel, then sweeps into
+    [KS | KX | rowsum] (``_bf16_operands``), which
+    ``ops/phi.bf16_sym_finish`` finishes."""
+    g, thr = _device_operands(coords, scores, [gamma], thresholds_sq)
+    n, m = coords.shape
+    device = coords.device
+    coords_c, sc32, work, acc, plan = _bf16_operands(coords, scores, panel,
+                                                     panel_blocks)
+    upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if panel:
+            name = SYMPANEL_BF16_KERNEL
+            rc = lib.svgd_fused_phi_counts_sympanel_bf16(
+                coords_c.data_ptr(), sc32.data_ptr(), g.data_ptr(),
+                thr.data_ptr(), n, m, thr.shape[0], *plan, work.data_ptr(),
+                acc.data_ptr(), upper.data_ptr(), stream,
+            )
+        else:
+            name = SYM_BF16_KERNEL
+            rc = lib.svgd_fused_phi_counts_sym_bf16(
+                coords_c.data_ptr(), sc32.data_ptr(), g.data_ptr(),
+                thr.data_ptr(), n, m, thr.shape[0], work.data_ptr(),
+                acc.data_ptr(), upper.data_ptr(), stream,
+            )
+    _check_launch(rc, name)
+    launch_counts[name] += 1
+    return (bf16_sym_finish(acc, coords_c, sc32, g[0], n).to(coords.dtype),
+            2 * upper - n)
+
+
+def _sym_launch(coords, scores, gammas, signs, thresholds_sq):
+    """K2 (one positive term, ``signs`` None) or the terms triangle
+    kernel."""
     g, thr = _device_operands(coords, scores, gammas, thresholds_sq)
     n, m = coords.shape
     coords_c = _centered32(coords).contiguous()
     sc32 = scores.to(torch.float32).contiguous()
-    xk, sk, width = _tri_operands(coords_c, sc32, m, bf16)
+    xk, sk, width = _tri_operands(coords_c, sc32, m)
     acc = torch.zeros((2 * width, n), dtype=torch.float32,
                       device=coords.device)
     upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=coords.device)
@@ -560,10 +623,8 @@ def _sym_launch(coords, scores, gammas, signs, thresholds_sq, bf16=False):
     with torch.cuda.device(coords.device):
         stream = torch.cuda.current_stream().cuda_stream
         if signs is None:
-            name = SYM_BF16_KERNEL if bf16 else SYM_KERNEL
-            entry = (lib.svgd_fused_phi_counts_sym_bf16 if bf16
-                     else lib.svgd_fused_phi_counts_sym)
-            rc = entry(
+            name = SYM_KERNEL
+            rc = lib.svgd_fused_phi_counts_sym(
                 xk.data_ptr(), sk.data_ptr(), g.data_ptr(),
                 thr.data_ptr(), n, width, thr.shape[0], acc.data_ptr(),
                 upper.data_ptr(), stream,
@@ -605,10 +666,11 @@ def _panel_index(nb, device, p0=0, count=None):
     return _panel_index_cache[key]
 
 
-def _panel_plan(n, panel_blocks):
-    """(nb, w, number of panels) of the card's panel plan for n particles,
-    whose panels fill the grid's y (at most MAX_PANELS)."""
-    nb, w, _ = card_panel_plan(n, panel_blocks)
+def _panel_plan(n, panel_blocks, bf16=False):
+    """(nb, w, number of panels) of the card's panel plan for n particles
+    (``bf16``: K3's bf16 instance's), whose panels fill the grid's y (at
+    most MAX_PANELS)."""
+    nb, w, _ = card_panel_plan(n, panel_blocks, bf16)
     num_p = nb * (nb + 1) // 2
     if num_p > MAX_PANELS:
         raise ValueError(
@@ -638,10 +700,10 @@ def _panel_windows(num_p, m, w, device):
 
 
 def _sympanel_launch(coords, scores, gammas, signs, thresholds_sq,
-                     panel_blocks, bf16=False):
-    """K3's port (one positive term, ``signs`` None; ``bf16`` its bfloat16
-    instance) or the terms panel kernel (K12/K13's), on the card's panel
-    plan; past m = 64 the library runs their wide instances."""
+                     panel_blocks):
+    """K3's port (one positive term, ``signs`` None) or the terms panel
+    kernel (K12/K13's), on the card's panel plan; past m = 64 the library
+    runs their wide instances."""
     g, thr = _device_operands(coords, scores, gammas, thresholds_sq)
     n, m = coords.shape
     nb, w, num_p = _panel_plan(n, panel_blocks)
@@ -653,10 +715,8 @@ def _sympanel_launch(coords, scores, gammas, signs, thresholds_sq,
     with torch.cuda.device(coords.device):
         stream = torch.cuda.current_stream().cuda_stream
         if signs is None:
-            name = SYMPANEL_BF16_KERNEL if bf16 else SYMPANEL_KERNEL
-            entry = (lib.svgd_fused_phi_counts_sympanel_bf16 if bf16
-                     else lib.svgd_fused_phi_counts_sympanel)
-            rc = entry(
+            name = SYMPANEL_KERNEL
+            rc = lib.svgd_fused_phi_counts_sympanel(
                 coords_c.data_ptr(), sc32.data_ptr(), g.data_ptr(),
                 thr.data_ptr(), n, m, thr.shape[0], nb, w, panels.data_ptr(),
                 upper.data_ptr(), stream,
@@ -853,11 +913,14 @@ def phi_rbf_fused_cuda(coords, scores, gamma, thresholds_sq, sym=None,
         return phi_rbf_fused_counts(coords, scores, gamma, thresholds_sq,
                                     dot_dtype=dot_dtype)
     _require_cuda(coords)
+    if bf16 and form:
+        return _bf16_tri_launch(coords, scores, gamma, thresholds_sq,
+                                form == "panel", panel_blocks)
     if form == "panel":
         return _sympanel_launch(coords, scores, [gamma], None, thresholds_sq,
-                                panel_blocks, bf16)
+                                panel_blocks)
     if form:
-        return _sym_launch(coords, scores, [gamma], None, thresholds_sq, bf16)
+        return _sym_launch(coords, scores, [gamma], None, thresholds_sq)
     return _square_launch(coords, coords, scores, [gamma], None, thresholds_sq,
                           bf16)
 

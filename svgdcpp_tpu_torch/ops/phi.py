@@ -767,6 +767,18 @@ def phi_rbf_terms_fused_sym_finish(acc_band, scores_band, signs, n: int):
                       sum(float(s) for s in signs), 2.0)
 
 
+def bf16_sym_finish(acc, coords, scores, gamma, n: int):
+    """phi (n, m) of the bf16 triangle kernels' accumulator (2m + 1, n) =
+    [KS | KX | rowsum] (K2's and K3's bf16 instances, the panels' windows
+    scattered): D = rowsum x - KX with the float32 x, as the JAX epilogue
+    forms it (pallas_phi.py:636-640); each self pair entered KS in both
+    directions, so s_i comes off once; phi = (KS - s + 2 gamma D) / n."""
+    m = coords.shape[1]
+    a = acc.T
+    d = a[:, 2 * m:2 * m + 1] * coords - a[:, m:2 * m]
+    return (a[:, :m] - scores + 2.0 * gamma * d) / n
+
+
 def sympanel_epilogue(panels, upper, index, n, scores, s_total, d_scale):
     """(phi (n, m), counts (E,) int64) from the panel windows of the whole
     panel list: ``sympanel_scatter`` onto the (2m, n) accumulator, then
@@ -921,10 +933,11 @@ def phi_rbf_sympanel_fused_counts(
     function as :func:`phi_rbf_fused_counts` in float32 (see
     :func:`phi_rbf_terms_sympanel_fused_counts`), and as
     :func:`phi_rbf_sym_fused_counts` under ``dot_dtype='bfloat16'``, the
-    plain version of its bf16 instance (``fused_phi_counts_sympanel_bf16``)."""
+    plain version of its bf16 instance (``fused_phi_counts_sympanel_bf16``),
+    on that instance's plan (``card_panel_plan(..., bf16=True)``)."""
     bf16 = dot_bf16(dot_dtype)
     n = coords.shape[0]
-    nb, w, _ = card_panel_plan(n, panel_blocks)
+    nb, w, _ = card_panel_plan(n, panel_blocks, bf16=bf16)
     coords_c = coords - coords.mean(dim=0)
     scores = scores.to(coords.dtype)
     panels, upper = _sympanel_halves(

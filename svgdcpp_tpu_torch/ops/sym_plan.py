@@ -227,14 +227,21 @@ def tpu_terms_panel_kernel(n: int, m: int, num_terms: int) -> str:
 #: (their wide instances' tile pairs, WIDE_PAIR_TILE).
 CARD_PANEL_ALIGN = 64
 
+#: The bfloat16 panel instance's tile (K3's bf16 instance on the bf16
+#: triangle body, BF16_TILE): its plan's super-blocks are multiples of it.
+BF16_PANEL_ALIGN = 128
+
 #: The card's plan: at least this many super-blocks, and super-blocks of
 #: at most CARD_PANEL_MAX_W particles (see card_panel_plan).
 CARD_PANEL_MIN_BLOCKS = 8
 CARD_PANEL_MAX_W = 65536
 
 
-def card_panel_plan(n: int, panel_blocks: int | None = None):
-    """(nb, W, n_pad) of the CUDA panel kernels and their plain versions.
+def card_panel_plan(n: int, panel_blocks: int | None = None,
+                    bf16: bool = False):
+    """(nb, W, n_pad) of the CUDA panel kernels and their plain versions
+    (``bf16``: K3's bfloat16 instance, whose W is a multiple of
+    BF16_PANEL_ALIGN; CARD_PANEL_ALIGN otherwise).
 
     On the card the window lives in device memory, so no budget bounds W.
     One thread block sweeps one 64-row strip of super-block I against all W
@@ -249,7 +256,7 @@ def card_panel_plan(n: int, panel_blocks: int | None = None):
         nb = int(panel_blocks)
         if nb < 1:
             raise ValueError(f"panel_blocks must be >= 1, got {nb}")
-    w = ceil_mult(-(-n // nb), CARD_PANEL_ALIGN)
+    w = ceil_mult(-(-n // nb), BF16_PANEL_ALIGN if bf16 else CARD_PANEL_ALIGN)
     return nb, w, nb * w
 
 
@@ -365,13 +372,15 @@ def dispatch_m(m: int) -> int:
 #: composed kernel (``TermsTriTile``) alike. WIDE_PAIR_TILE is the other
 #: wide body's tile pair (``kWideTile``, csrc/wide_tri.cuh's
 #: wide_pair_body), which the panels' wide instances (CARD_PANEL_ALIGN),
-#: K14's groups, K15 and K2's bf16 instance keep.
+#: K14's groups and K15 keep; K2's and K3's bf16 instances take BF16_TILE
+#: (csrc/bf16_tri_sm90.cuh, below).
 MICRO_TILE = 128
 WIDE_TILE = 128
 WIDE_PAIR_TILE = 64
 
-#: The float32 wide triangle body's launch: one persistent block an SM
-#: (the H100's 132), never more blocks than tile pairs.
+#: The float32 wide triangle body's launch and the bf16 triangle body's:
+#: one persistent block an SM (the H100's 132), never more blocks than
+#: tile pairs.
 WIDE_SYM_SMS = 132
 
 #: The float32 wide triangle body copies 16 bytes at a time: its wrappers
@@ -423,6 +432,108 @@ def wide_sym_walk(n: int, t0: int, count: int, block: int,
     nb = -(-n // WIDE_TILE)
     step = wide_sym_blocks(count, sms)
     return [upper_pair(t0 + p, nb) for p in range(block, count, step)]
+
+
+# ----------------------------------------------------------------------
+# The bfloat16 triangle body (csrc/bf16_tri_sm90.cuh): K2's and K3's
+# bf16 instances
+# ----------------------------------------------------------------------
+
+#: Its tile pairs' side (``kBf16Tile``).
+BF16_TILE = 128
+
+
+def bf16_gram_width(m: int) -> int:
+    """The packed Gram operand's row: m bf16 padded to a k16 step."""
+    return 16 * -(-m // 16)
+
+
+def bf16_record_width(m: int) -> int:
+    """The packed record's row [S | X | 1 | 0...]: 2m + 1 bf16 padded
+    to an n8 tile."""
+    return 8 * -(-(2 * m + 1) // 8)
+
+
+def bf16_work_bytes(n: int, m: int) -> int:
+    """The bytes of the workspace the bf16 entries' pack kernel fills:
+    q (n float32, to a 16-byte boundary), then X (n x
+    bf16_gram_width(m)) and R (n x bf16_record_width(m)) in bf16."""
+    q = -(-4 * n // 16) * 16
+    return q + 2 * n * (bf16_gram_width(m) + bf16_record_width(m))
+
+
+def bf16_tri_items(n: int) -> int:
+    """K2's bf16 work items: the tile pairs of the upper triangle of
+    ceil(n / BF16_TILE) tiles."""
+    nb = -(-n // BF16_TILE)
+    return nb * (nb + 1) // 2
+
+
+def bf16_panel_items(nb: int, w: int) -> int:
+    """K3's bf16 work items over nb super-blocks of w: tw^2 tile pairs a
+    panel off the diagonal, tw (tw + 1) / 2 on it (tw = w / BF16_TILE)."""
+    tw = w // BF16_TILE
+    return nb * (nb - 1) // 2 * tw * tw + nb * tw * (tw + 1) // 2
+
+
+def bf16_panel_item(u: int, nb: int, w: int):
+    """(panel, i0, j0) of K3's bf16 work item u (``Bf16PanelWork``): the
+    panels in panel_pairs(nb) order, an off-diagonal panel's tile pairs
+    (a, b) row-major, a diagonal one's a <= b in the triangle's order;
+    i0 and j0 the first particles of the pair's tiles."""
+    tw = w // BF16_TILE
+    off_items = nb * (nb - 1) // 2 * tw * tw
+    if u < off_items:
+        p, x = divmod(u, tw * tw)
+        a, b = divmod(x, tw)
+        bi, bj = upper_pair(p, nb - 1)
+        bj += 1
+    else:
+        d, x = divmod(u - off_items, tw * (tw + 1) // 2)
+        a, b = upper_pair(x, tw)
+        bi = bj = d
+        p = nb * (nb - 1) // 2 + d
+    return p, bi * w + a * BF16_TILE, bj * w + b * BF16_TILE
+
+
+def bf16_range(items: int, block: int, sms: int = WIDE_SYM_SMS):
+    """(first, count) of block ``block``'s contiguous share of ``items``
+    work items on the bf16 triangle body's grid, ``wide_sym_blocks(items,
+    sms)`` blocks: [b items / grid, (b + 1) items / grid)."""
+    grid = wide_sym_blocks(items, sms)
+    lo = items * block // grid
+    return lo, items * (block + 1) // grid - lo
+
+
+def bf16_walk(n: int, block: int, panel_blocks=None, panel: bool = False,
+              sms: int = WIDE_SYM_SMS):
+    """The tile pairs (i0, j0), i0 <= j0 their first particles, that
+    block ``block`` of the bf16 triangle body visits, in order: its
+    contiguous range (``bf16_range``) of K2's list (the upper triangle's
+    tile pairs, ``upper_pair``) or, with ``panel``, of K3's over
+    ``card_panel_plan(n, panel_blocks, bf16=True)`` (``bf16_panel_item``),
+    leaving out the items with a tile wholly past n, which the body
+    skips."""
+    if panel:
+        nb, w, _ = card_panel_plan(n, panel_blocks, bf16=True)
+        items = bf16_panel_items(nb, w)
+
+        def spot(u):
+            return bf16_panel_item(u, nb, w)[1:]
+    else:
+        nb = -(-n // BF16_TILE)
+        items = bf16_tri_items(n)
+
+        def spot(u):
+            bi, bj = upper_pair(u, nb)
+            return bi * BF16_TILE, bj * BF16_TILE
+    lo, count = bf16_range(items, block, sms)
+    out = []
+    for u in range(lo, lo + count):
+        i0, j0 = spot(u)
+        if i0 < n and j0 < n:
+            out.append((i0, j0))
+    return out
 
 
 def sym_tile(m: int, terms: bool = False) -> int:

@@ -6,8 +6,9 @@ on the CPU.
   CPU tensors, against the JAX package's bf16 Pallas kernels in interpret
   mode on the same float32 inputs (n = 300, off origin): K1 square and
   cross (``phi_rbf_fused_pallas`` with sym=False,
-  ``phi_rbf_fused_pallas_cross``) at m = 2, 11 and 65, K2 (sym=True) at
-  m = 2, 11 and 65, K3 (sym="panel") at m = 2 and 11, K15
+  ``phi_rbf_fused_pallas_cross``) at m = 2, 11 and 65, K2 (sym=True) and
+  K3 (sym="panel") at m = 2, 11, 16, 17 (the edges of a k16 step of their
+  bf16 body's Gram tile) and 65, K15
   (``phi_rbf_pallas``) at m = 2 and 11 with a positive definite and an
   indefinite P. phi within PHI_TOL = 1e-3 of max |phi| of JAX's bf16
   result (measured up to 4.2e-4, the cross form at m = 65: the two
@@ -143,7 +144,7 @@ def test_k1_bf16_vs_jax(m, cross):
     _held(got, jax_run(BF16), jax_run("float32"))
 
 
-@pytest.mark.parametrize("m", [2, 11, 65])
+@pytest.mark.parametrize("m", [2, 11, 16, 17, 65])
 def test_k2_bf16_vs_jax(m):
     x, s = _inputs(300, m, -1.0, 920 + m)
     g, thr = np.float32(0.5 / m), _thresholds(m)
@@ -159,7 +160,7 @@ def test_k2_bf16_vs_jax(m):
     np.testing.assert_array_equal(got[0].numpy(), want[0].numpy())
 
 
-@pytest.mark.parametrize("m", [2, 11])
+@pytest.mark.parametrize("m", [2, 11, 16, 17, 65])
 def test_k3_bf16_vs_jax(m):
     x, s = _inputs(300, m, 0.5, 930 + m)
     g, thr = np.float32(0.5 / m), _thresholds(m)
