@@ -9,6 +9,7 @@
     python3 chip_profile.py --wide-breakdown [--out PATH]
     python3 chip_profile.py --bf16 [--out PATH]
     python3 chip_profile.py --float32-check [--out PATH]
+    python3 chip_profile.py --aniso-wide [--out PATH]
 
 Drives one configuration of svgdcpp_tpu_torch at its full width:
 
@@ -1916,6 +1917,236 @@ def float32_check_main(args) -> int:
     return 0
 
 
+#: --aniso-wide: the parent's K14 wide term groups (csrc/fused_phi_aniso.cu
+#: before they moved to wide_tri_sm90.cuh's body: every group on
+#: wide_tri.cuh's wide_tri_body, two weight tiles, tiles of 64), as that
+#: file had them, under another kernel name and a C entry of their own;
+#: built from a copy of csrc/ (wide_tri.cuh is unchanged since).
+ANISO_WIDE_PARENT_SOURCE = r"""
+#include "wide_tri.cuh"
+using namespace svgd;
+template <int kT>
+__global__ void __launch_bounds__(kWideTriThreads)
+    parent_aniso_terms_wide_kernel(
+        const float* __restrict__ coords, const float* __restrict__ z,
+        const float* __restrict__ scores, const float* __restrict__ gammas,
+        TermSigns iso_signs, int n_iso, AnisoSigns aniso_signs,
+        const float* __restrict__ thr, int n, int m, int T, int nb,
+        float* __restrict__ acc, unsigned long long* __restrict__ counts) {
+  __shared__ float sh_g2[kMaxTerms];
+  __shared__ float sh_sn[kMaxTerms];
+  __shared__ float sh_sg[kMaxTerms];
+  const int group = static_cast<int>(blockIdx.y);
+  const bool euclid = group == 0;
+  if (euclid) {
+    load_terms(gammas, iso_signs, n_iso, sh_g2, sh_sn, sh_sg);
+  } else if (threadIdx.x == 0) {
+    const float sign = aniso_signs.s[group - 1];
+    sh_g2[0] = -kLog2e;
+    sh_sn[0] = sign;
+    sh_sg[0] = sign;
+  }
+  const float* rows =
+      euclid ? coords : z + static_cast<size_t>(group - 1) * n * m;
+  WideForm form;
+  form.phi = !euclid || n_iso > 0;
+  wide_tri_body<kT>(rows, scores,
+                    AnyTerms{sh_g2, sh_sn, sh_sg, euclid ? n_iso : 1}, thr, n,
+                    m, euclid ? T : 0, nb, 0LL,
+                    acc + static_cast<size_t>(group) * 2 * m * n, counts,
+                    form);
+}
+extern "C" int parent_aniso_wide(const float* coords, const float* z,
+                                 const float* scores, const float* gammas,
+                                 const float* iso_signs, int n_iso,
+                                 const float* aniso_signs, int n_aniso,
+                                 const float* thr, int n, int m, int T,
+                                 float* acc, long long* counts,
+                                 void* stream) {
+  const TermSigns si = make_signs(iso_signs, n_iso);
+  AnisoSigns sa{};
+  for (int t = 0; t < n_aniso; ++t) sa.s[t] = aniso_signs[t];
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* c = reinterpret_cast<unsigned long long*>(counts);
+  const long long pairs = upper_pairs(n, kWideTile);
+  if (pairs < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned int>(pairs), 1 + n_aniso);
+  const int nb = (n + kWideTile - 1) / kWideTile;
+  const size_t smem = WideTri::smem_bytes(2);
+  auto go = [&](auto* kernel) {
+    wide_tri_prepare(kernel, 2);
+    kernel<<<grid, kWideTriThreads, smem, s>>>(coords, z, scores, gammas, si,
+                                               n_iso, sa, thr, n, m, T, nb,
+                                               acc, c);
+  };
+  if (T == 3) {
+    go(&parent_aniso_terms_wide_kernel<3>);
+  } else {
+    go(&parent_aniso_terms_wide_kernel<kMaxT>);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+#: --aniso-wide's shapes: the anisotropic MVN's (10240, 123) and the
+#: ladder n = 4096, m = 65, 123, 256, 512, each with chip_smoke.py's
+#: WIDE_P_TERMS iso+1, iso+2 and 0+1.
+ANISO_WIDE_SHAPES = ((10240, 123), (4096, 65), (4096, 123), (4096, 256),
+                     (4096, 512))
+ANISO_WIDE_TERMS = ("iso+1", "iso+2", "0+1")
+
+
+def aniso_wide(device):
+    """--aniso-wide: K14's wide term groups, the parent's kernel (built
+    from ANISO_WIDE_PARENT_SOURCE in a copy under _verify/aniso_wide/) and
+    the package's, in one process at ANISO_WIDE_SHAPES x ANISO_WIDE_TERMS
+    on chip_smoke.py's grid inputs and P (wide_p_call's): kernel-only us
+    (the profiler's events, 10 calls after one; the new call's count
+    kernel apart for 0 + 1), wrapper ms (CUDA events, chip_smoke.time_ms;
+    the parent's wrapper is its epilogue as it stood, the Cholesky factors
+    kept as the driver keeps them), the 'rbf_terms' sweep of the same
+    terms (ops/phi.phi_rbf_terms, each term's closed form), and both
+    results' distance from each other and from the float64 plain
+    version."""
+    import ctypes
+
+    import torch
+
+    from chip_smoke import (
+        WIDE_P_TERMS,
+        grid_inputs,
+        kernel_us,
+        time_ms,
+        wide_p_ps,
+    )
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import (
+        phi_rbf_aniso_terms_fused_counts,
+        phi_rbf_terms,
+    )
+    from svgdcpp_tpu_torch.utils.cuda_build import ARCH_FLAGS, find_nvcc
+
+    dest = ROOT / "_verify" / "aniso_wide"
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(ROOT / "svgdcpp_tpu_torch" / "csrc", dest)
+    (dest / "parent.cu").write_text(ANISO_WIDE_PARENT_SOURCE)
+    proc = subprocess.Popen(
+        [find_nvcc() or "nvcc", *ARCH_FLAGS, "-std=c++17", "-O3",
+         "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v", "-o",
+         str(dest / "libparent.so"), str(dest / "parent.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    cuda_phi.load_library()  # built meanwhile
+    out, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"the parent's K14 wide build:\n{out}")
+    lib = ctypes.CDLL(str(dest / "libparent.so"))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.parent_aniso_wide.argtypes = ([ptr] * 5 + [i32, ptr, i32, ptr]
+                                      + [i32] * 3 + [ptr] * 3)
+    lib.parent_aniso_wide.restype = i32
+    regs = re.findall(r"Used (\d+) registers", out)
+
+    def host(values):
+        return (ctypes.c_float * max(1, len(values)))(*map(float, values))
+
+    rows = []
+    for n, m in ANISO_WIDE_SHAPES:
+        x, s, g, thr = grid_inputs(n, m, 0.0, 449 if n > 4096 else 440 + m,
+                                   device)
+        for spec in ANISO_WIDE_TERMS:
+            iso_s, an_s = WIDE_P_TERMS[spec]
+            iso_g = [g, 2.0 * g][:len(iso_s)]
+            ps = wide_p_ps("pd", m, len(an_s), 445, g, device)
+            lowers = cuda_phi.cholesky_factors(ps, device)
+
+            def new_call():
+                return cuda_phi.phi_rbf_aniso_terms_fused_cuda(
+                    x, s, iso_g, iso_s, ps, an_s, thr, lowers=lowers)
+
+            def parent_call():
+                """The parent's wrapper past 64, as it stood."""
+                g32 = (torch.stack([v.reshape(()) for v in iso_g]) if iso_g
+                       else torch.zeros(1, device=device))
+                coords_c = (x - x.mean(dim=0)).contiguous()
+                z = (coords_c.double() @ lowers).float().contiguous()
+                acc = torch.zeros((1 + len(an_s), 2 * m, n), device=device)
+                upper = torch.zeros(thr.shape[0], dtype=torch.int64,
+                                    device=device)
+                rc = lib.parent_aniso_wide(
+                    coords_c.data_ptr(), z.data_ptr(), s.data_ptr(),
+                    g32.data_ptr(), host(iso_s), len(iso_s), host(an_s),
+                    len(an_s), thr.data_ptr(), n, m, thr.shape[0],
+                    acc.data_ptr(), upper.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"parent_aniso_wide returned {rc}")
+                s_total = sum(map(float, iso_s)) + sum(map(float, an_s))
+                grad = torch.einsum("tkn,tlk->nl", acc[1:, m:].double(),
+                                    lowers)
+                phi = (acc[:, :m].sum(dim=0).T - s_total * s
+                       + 2.0 * acc[0, m:].T + 2.0 * grad.float()) / n
+                return phi, 2 * upper - n
+
+            # The rbf_terms route's sweep over the same terms: the median
+            # RBF's gamma I (and 2 gamma I) and each P, signs +-1.
+            kparams = ([v * torch.eye(m, device=device) for v in iso_g]
+                       + list(ps))
+            signs = [*iso_s, *an_s]
+            terms = [(1 if sg > 0 else -1, ((k, 1),))
+                     for k, sg in enumerate(signs)]
+            new_phi, new_cnt = new_call()
+            old_phi, old_cnt = parent_call()
+            ref_phi, ref_cnt = phi_rbf_aniso_terms_fused_counts(
+                x.double(), s.double(), [v.double() for v in iso_g], iso_s,
+                [p.double() for p in ps], an_s, thr.double())
+            scale = float(ref_phi.abs().max())
+            row = {
+                "n": n, "m": m, "terms": spec,
+                "parent_kernel_us": kernel_us(
+                    parent_call, "parent_aniso_terms_wide_kernel"),
+                "new_kernel_us": kernel_us(
+                    new_call, cuda_phi.ANISO_WIDE_KERNEL),
+                "new_count_kernel_us": (
+                    None if iso_s else kernel_us(new_call,
+                                                 cuda_phi.COUNT_KERNEL)),
+                "parent_wrapper_ms": time_ms(parent_call, reps=20, warmup=3),
+                "new_wrapper_ms": time_ms(new_call, reps=20, warmup=3),
+                "rbf_terms_ms": time_ms(
+                    lambda: phi_rbf_terms(x, s, kparams, terms, 1024,
+                                          psd_flags=[True] * len(terms)),
+                    reps=5, warmup=1),
+                "new_rel_err_f64": float(
+                    (new_phi.double() - ref_phi).abs().max()) / scale,
+                "parent_rel_err_f64": float(
+                    (old_phi.double() - ref_phi).abs().max()) / scale,
+                "counts_new_parent_f64": [new_cnt.tolist(),
+                                          old_cnt.tolist(),
+                                          ref_cnt.tolist()],
+            }
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    return {"parent_registers": regs, "rows": rows}
+
+
+def aniso_wide_main(args) -> int:
+    """--aniso-wide: aniso_wide's rows, JSON to --out."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    card = card_name()
+    print(card)
+    result = {"card": card, "torch": torch.__version__,
+              "aniso_wide": aniso_wide(torch.device("cuda"))}
+    out = Path(args.out or "chiprun_out/aniso_wide.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(card)
+    return 0
+
+
 def wide_drift(device):
     """The float32 routes' distance from float64 at a9a's width (d = 123)
     and N = 10,000 over chip_smoke.py phase 43c's COMPARE_STEPS steps, and
@@ -2138,6 +2369,10 @@ def main() -> int:
                         help="only time K2's and K3's bf16 instances, the "
                              "parent's body and the new one, by parts and "
                              "on a ladder of m (no driver profile)")
+    parser.add_argument("--aniso-wide", action="store_true",
+                        help="only time K14's wide term groups, the "
+                             "parent's kernel and the new one, beside the "
+                             "rbf_terms sweep (no driver profile)")
     parser.add_argument("--float32-check", action="store_true",
                         help="only time the float32 instances at their "
                              "main-path shapes, kernel-only (no driver "
@@ -2146,6 +2381,8 @@ def main() -> int:
     args = parser.parse_args()
     if args.bf16:
         return bf16_main(args)
+    if args.aniso_wide:
+        return aniso_wide_main(args)
     if args.float32_check:
         return float32_check_main(args)
     if args.wide_drift:

@@ -261,10 +261,14 @@ forty-six phases, one line each (several for phases 2, 3, 7-9 and
      within 1e-3 of its float64 plain route after 20 steps, and the
      engine on a one-rank NCCL group (hier, K10/K11; MVN d = 123 with
      fused_sym="full", K4) within 1e-3 of the driver after 20 steps;
- 44. K14 and K15 past m = 64: 44a K14's wide term groups and K15's wide
-     sweep at m = 65, 123, 256 and 512 (n = 4096, grid inputs) against
-     float64, 44b both at (10240, 123), 44c the anisotropic MVN on auto
-     and the HESSIAN 'cuda' route at d = 123, gated per call;
+ 44. K14 and K15 past m = 64: 44a K14's wide term groups (iso + 1,
+     iso + 2 with a negative sign, 0 + 1 and two isotropic terms + 1;
+     each group's raw slab against its plain per-group version too) and
+     K15's wide sweep at m = 65, 123, 256 and 512 (n = 4096, grid inputs)
+     against float64, 44e K14's groups at the tile-128 edges n = 127,
+     128, 129 and 257 (m = 65, 123) and their instances' 0 bytes of spill,
+     44b both at (10240, 123), 44c the anisotropic MVN on auto and the
+     HESSIAN 'cuda' route at d = 123, gated per call;
  45. the panel sweeps past m = 64 (the wide instances, MM = 0): 45a K3 and
      K12/K13 (two terms) at (4096, 65 / 123 / 256), K3 and K5's chunks
      (worlds 1 and 2) at (10000, 123) and K12/K13 at (10000, 124), on
@@ -520,7 +524,8 @@ def ptxas_summary(log_text):
     steps) and count_le_wide<TT>; the one-pass anisotropic kernel
     aniso_terms_sym<MM,exact,NIso,kT> (NIso 0: any number of isotropic
     terms) beside the term-group one, aniso_terms_groups<MM,exact,1>, the
-    wide ones past m = 64, aniso_terms_wide<kT> and rbf_wide (the panels'
+    wide ones past m = 64, aniso_wide_groups<kT>, aniso_wide_iso<kT> and
+    rbf_wide (the panels'
     wide instances are MM = 0: counts_sympanel<0,0,3>), and the bfloat16
     instances counts_square_bf16<kT>, counts_sym_bf16<kT>,
     counts_sympanel_bf16<kT> and rbf_wide_bf16, and the bf16 triangle
@@ -541,11 +546,14 @@ def ptxas_summary(log_text):
             name = f"{inst.group(1)}<{flags}>" if inst else hit.group(1)
             other = re.search(
                 r"(count_le_cross_wide|count_le_cross|aniso_terms_sym|"
-                r"aniso_terms_wide)_kernelI((?:L[ib]\d+E)+)", hit.group(1))
+                r"aniso_terms_wide_groups|aniso_terms_wide_iso)_kernelI"
+                r"((?:L[ib]\d+E)+)", hit.group(1))
             if other:
                 args = ",".join(re.findall(r"L[ib](\d+)E", other.group(2)))
                 short = {"count_le_cross": "count_le",
-                         "count_le_cross_wide": "count_le_wide"}
+                         "count_le_cross_wide": "count_le_wide",
+                         "aniso_terms_wide_groups": "aniso_wide_groups",
+                         "aniso_terms_wide_iso": "aniso_wide_iso"}
                 name = f"{short.get(other.group(1), other.group(1))}<{args}>"
             if "phi_rbf_wide_kernel" in hit.group(1):
                 name = "rbf_wide"
@@ -973,15 +981,17 @@ WIDE_SYM_TERMS_SMEM = 4 * (2 * 2 * 128 * 40 + 2 * 128 * 136 + 1032)
 #: csrc/wide_tri.cuh WideTri and WIDE_SYM_SMEM, dynamic), in bytes: the
 #: square body's union of 2 x 4224 floats and 32 norms (+ 48 term constants
 #: for any count of terms); wide_pair_body's 9216-float union, 8704 floats
-#: a weight tile and 256 norms and sums (two tiles for K14's term groups,
-#: one for K15).
+#: a weight tile and 256 norms and sums (K15's one tile); K14's single-term
+#: groups on the float32 wide triangle body's one-weight layout (its group
+#: 0 of two or more isotropic terms on the terms layout,
+#: WIDE_SYM_TERMS_SMEM + 192 B of static term constants).
 WIDE_SMEM = {"fused_phi_counts_square": 4 * (2 * 4224 + 32),
              "fused_phi_terms_square": 4 * (2 * 4224 + 32),
              "fused_phi_counts_sym": WIDE_SYM_SMEM,
              "fused_phi_counts_sym_chunk": WIDE_SYM_SMEM,
              "fused_phi_terms_sym": WIDE_SYM_TERMS_SMEM,
              "fused_phi_terms_sym_chunk": WIDE_SYM_TERMS_SMEM,
-             "fused_phi_aniso_terms_wide": 4 * (9216 + 2 * 8704 + 256),
+             "fused_phi_aniso_terms_wide": WIDE_SYM_SMEM,
              "phi_rbf_wide": 4 * (9216 + 8704 + 256)}
 
 #: The float32 wide triangle body's instances (ptxas names): K2, K4, K8/K9
@@ -1011,7 +1021,8 @@ WIDE_INSTANCES = {"fused_phi_counts_square": ("counts_square<0,0,3>",),
                                           "terms_sym<0,0,3,0>"),
                   "fused_phi_terms_sym_chunk": ("terms_sym_chunk<0,0,3,2>",
                                                 "terms_sym_chunk<0,0,3,0>"),
-                  "fused_phi_aniso_terms_wide": ("aniso_terms_wide<3>",),
+                  "fused_phi_aniso_terms_wide": ("aniso_wide_groups<3>",
+                                                 "aniso_wide_iso<3>"),
                   "phi_rbf_wide": ("rbf_wide",)}
 
 
@@ -1534,14 +1545,22 @@ def phase_wide_paths(dev, card, clock):
 #: (WIDE_P_TERMS: isotropic and anisotropic signs) and K15's wide sweep
 #: (WIDE_P_FORMS) at every width of WIDE_MS on WIDE_P_N particles of grid
 #: inputs (m = 123 also at +100), each P scaled by 1/m so that every term
-#: is alive; 44b: both at the paths' shape (WIDE_P_BIG_N, WIDE_D); 44c:
+#: is alive, K14's raw group slabs also against their plain per-group
+#: version; 44e: K14's groups at the tile-128 edges (WIDE_EDGE_NS,
+#: WIDE_EDGE_MS); 44b: both at the paths' shape (WIDE_P_BIG_N, WIDE_D); 44c:
 #: the anisotropic MVN on auto for WIDE_P_STEPS steps and phase 18's
 #: HESSIAN target on 'cuda' for WIDE_P_HESS_STEPS, at d = WIDE_D and
 #: N = WIDE_P_BIG_N, each route gated per call (replay_gate).
 WIDE_P_N, WIDE_P_BIG_N = 4096, 10240
 WIDE_P_STEPS, WIDE_P_HESS_STEPS = 20, 5
 WIDE_P_TERMS = {"iso+1": ((1.0,), (1.0,)), "iso+2": ((1.0,), (1.0, -0.5)),
-                "0+1": ((), (1.0,))}
+                "0+1": ((), (1.0,)), "2iso+1": ((1.0, -0.5), (1.0,))}
+#: K14's wide instances (ptxas names): the single-term groups
+#: (fused_phi_aniso_terms_wide_groups_kernel, one weight tile) and group 0
+#: of two or more isotropic terms (fused_phi_aniso_terms_wide_iso_kernel,
+#: two), at T = 3 and any T <= 8; none may spill (phase 44e).
+ANISO_WIDE_INSTANCES = ("aniso_wide_groups<3>", "aniso_wide_groups<8>",
+                        "aniso_wide_iso<3>", "aniso_wide_iso<8>")
 WIDE_P_FORMS = ("pd", "indefinite", "gamma_i")
 #: replay_gate's least count slack: one pair on the other side of a
 #: threshold in both orders, twice over (as tests/test_torch_wide.py's
@@ -1756,23 +1775,125 @@ def phase_wide_p_kernels(dev, card, clock, ptxas):
     float64 plain versions at m > 64 on grid inputs (wide_held), with
     kernel us (profiler), wrapper ms, FP32 and tensor-core bounds,
     registers, spills and shared memory. Returns {kernel: max |dphi|}."""
+    from svgdcpp_tpu_torch.ops import cuda_phi
+
     errs = {}
     for label, kernel, n, m, spec, x, s, g, thr in wide_p_cases(dev):
         kern, want64, want32 = wide_p_call(kernel, x, s, g, thr, spec)
         abs_err, rel = wide_held(f"44a {label}", kern(), want64(), want32())
         errs[kernel] = max(errs.get(kernel, 0.0), abs_err)
+        extra = ""
+        if kernel == cuda_phi.ANISO_WIDE_KERNEL:
+            slab_rel = aniso_slabs_held(f"44a {label}", x, s, g, thr, spec)
+            extra = f" slab_rel={slab_rel:.3e}"
+            if not WIDE_P_TERMS[spec][0]:  # the counts' own launch
+                extra += (f" count_kernel_us="
+                          f"{kernel_us(kern, cuda_phi.COUNT_KERNEL, calls=5)}")
         k_us = kernel_us(kern, kernel, calls=5)
         wrapper = time_ms(kern, reps=10, warmup=2)
         (fp_ms, fp_by), (tc_ms, tc_by) = wide_p_bounds(kernel, n, m, spec)
         regs = {inst: ptxas.get(inst, "?")
                 for inst in WIDE_INSTANCES[kernel]}
         print(f"phase 44a {label}: ok phi_rel={rel:.3e}"
-              f"{' count_diff=0' if kernel.startswith('fused') else ''} "
-              f"kernel_us={k_us} wrapper_ms={wrapper:.4f} "
+              f"{' count_diff=0' if kernel.startswith('fused') else ''}"
+              f"{extra} kernel_us={k_us} wrapper_ms={wrapper:.4f} "
               f"bound_fp32_ms={fp_ms:.6g} ({fp_by}) bound_tensor_ms="
               f"{tc_ms:.6g} ({tc_by}) ptxas={json.dumps(regs)} "
               f"smem_bytes={WIDE_SMEM[kernel]} {card} {clock()}")
     return errs
+
+
+def aniso_slabs_held(label, x, s, g, thr, spec):
+    """Hold K14's wide groups' raw slabs (cuda_phi.aniso_wide_groups_cuda,
+    one launch of the wide entry) to their float64 plain per-group
+    version (ops/phi.aniso_groups_plain) for WIDE_P_TERMS[spec] (P as
+    wide_p_call's): each group's KS and D, before any sign or scale,
+    within WIDE_PHI_GATE of that part's max |.| (a group that does not
+    sweep, exactly 0), the padded columns exactly 0, and the upper counts
+    equal to the plain version's on grid inputs (none with no isotropic
+    term). ``label`` starts with its phase. Returns the largest relative
+    error."""
+    import torch
+
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import aniso_groups_plain
+
+    iso_s, an_s = WIDE_P_TERMS[spec]
+    iso_g = [g, 2.0 * g][:len(iso_s)]
+    m = x.shape[1]
+    ps = wide_p_ps("pd", m, len(an_s), 445, g, x.device)
+    lowers = cuda_phi.cholesky_factors(ps, x.device)
+    acc, upper = cuda_phi.aniso_wide_groups_cuda(x, s, iso_g, iso_s, an_s,
+                                                 thr, lowers)
+    want, want_upper = aniso_groups_plain(
+        x.double(), s.double(), [v.double() for v in iso_g], iso_s, an_s,
+        thr.double(), lowers)
+    torch.cuda.synchronize()
+    w = acc.shape[1] // 2
+    check(not acc[:, m:w].any() and not acc[:, w + m:].any(),
+          f"phase {label}: the slabs' padded columns are not 0")
+    got = torch.cat([acc[:, :m], acc[:, w:w + m]], dim=1).double()
+    worst = 0.0
+    for grp in range(got.shape[0]):
+        for part, cols in (("KS", slice(0, m)), ("D", slice(m, 2 * m))):
+            ref, have = want[grp, cols], got[grp, cols]
+            scale = float(ref.abs().max())
+            if scale == 0.0:
+                check(not have.any(), f"phase {label}: group {grp}'s {part}"
+                                      f" is not 0")
+                continue
+            rel = float((have - ref).abs().max()) / scale
+            check(bool(have.isfinite().all()) and rel <= WIDE_PHI_GATE,
+                  f"phase {label}: group {grp}'s {part} rel err {rel:.3e} "
+                  f"> {WIDE_PHI_GATE}")
+            worst = max(worst, rel)
+    if iso_s:
+        diff = int((upper - want_upper).abs().max())
+        check(diff == 0, f"phase {label}: upper counts differ by {diff}")
+    else:
+        check(not upper.any(), f"phase {label}: counts without group 0")
+    return worst
+
+
+def phase_wide_p_edges(dev, card, clock, ptxas, errs):
+    """Phase 44e: K14's wide groups (wide_tri_sm90.cuh's body, tiles of
+    128) at the tiles' edges, n = WIDE_EDGE_NS at m = WIDE_EDGE_MS on grid
+    inputs, every WIDE_P_TERMS set: phi and counts held to the float64 and
+    float32 plain versions (wide_held; its max |dphi| into ``errs``), each
+    group's slab to its plain version (aniso_slabs_held). Then ptxas's
+    registers, spill and shared memory of ANISO_WIDE_INSTANCES, none of
+    which may spill."""
+    from svgdcpp_tpu_torch.ops import cuda_phi
+
+    kernel = cuda_phi.ANISO_WIDE_KERNEL
+    worst, worst_slab, calls = 0.0, 0.0, 0
+    for m in WIDE_EDGE_MS:
+        for n in WIDE_EDGE_NS:
+            x, s, g, thr = grid_inputs(n, m, 0.0, 4400 + n + m, dev)
+            for spec in WIDE_P_TERMS:
+                label = f"44e K14 wide ({n}, {m}) {spec}"
+                kern, want64, want32 = wide_p_call(kernel, x, s, g, thr,
+                                                   spec)
+                abs_err, rel = wide_held(label, kern(), want64(), want32())
+                errs[kernel] = max(errs.get(kernel, 0.0), abs_err)
+                worst = max(worst, rel)
+                worst_slab = max(worst_slab,
+                                 aniso_slabs_held(label, x, s, g, thr, spec))
+                calls += 1
+    print(f"phase 44e edges: ok {calls} calls of K14's wide groups at n = "
+          f"{list(WIDE_EDGE_NS)}, m = {list(WIDE_EDGE_MS)}, terms "
+          f"{list(WIDE_P_TERMS)} within {worst:.3e} of max |phi| from "
+          f"float64, counts equal, slabs within {worst_slab:.3e} of their "
+          f"plain versions {card} {clock()}")
+    report = {inst: ptxas.get(inst, "?") for inst in ANISO_WIDE_INSTANCES}
+    spilled = [inst for inst, text in report.items()
+               if not text.endswith(" 0 B spill")]
+    check(not spilled, f"phase 44e: K14's wide instances spill or were not "
+                       f"found in the build log: "
+                       f"{ {i: report[i] for i in spilled} }")
+    print(f"phase 44e ptxas: ok {json.dumps(report)} dynamic smem_bytes="
+          f"{WIDE_SYM_SMEM} (single-term groups), {WIDE_SYM_TERMS_SMEM} "
+          f"+ 192 static (group 0's terms); one block of 288 threads an SM")
 
 
 def phase_wide_p_shapes(dev, card, clock, plain_ms, errs):
@@ -5271,6 +5392,7 @@ def main() -> int:
 
     # -- phase 44: K14 and K15 past m = 64 ------------------------------------
     wide_p_errs = phase_wide_p_kernels(dev, card, clock, ptxas)
+    phase_wide_p_edges(dev, card, clock, ptxas, wide_p_errs)
     times44 = phase_wide_p_shapes(dev, card, clock, plain_ms, wide_p_errs)
     main44 = phase_wide_p_paths(dev, card, clock)
 
@@ -5516,9 +5638,10 @@ def main() -> int:
         entry(aniso, "fused_phi_aniso.cu", f"{pallas}:3205", ["K14"],
               aniso_err),
         entry(k15, "phi_rbf.cu", f"{pallas}:116", ["K15"], k15_err),
-        # The wide instances past m = 64 (phase 44), on wide_tri.cuh's body.
+        # The wide instances past m = 64 (phase 44): K14's groups on
+        # wide_tri_sm90.cuh's body, K15's on wide_tri.cuh's.
         entry(k14w, "fused_phi_aniso.cu", f"{pallas}:3205", ["K14"],
-              wide_p_errs[k14w]),
+              wide_p_errs[k14w], body="wide_tri_sm90.cuh"),
         entry(k15w, "phi_rbf.cu", f"{pallas}:116", ["K15"],
               wide_p_errs[k15w]),
         # No TPU kernel of its own: K15's wrapper needs the decomposition

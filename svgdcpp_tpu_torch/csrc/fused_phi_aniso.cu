@@ -108,18 +108,27 @@
 // runs once per group instead of once per pair.
 //
 // Past m = 64 (kMaxM), where terms_sym.cuh's rows would spill, the term
-// groups take the wide kernel fused_phi_aniso_terms_wide_kernel: the same
-// groups along the grid's y, the same operands and the same
-// (1 + n_aniso, 2m, n) accumulator and upper counts, on wide_tri.cuh's
-// tensor-core body (tiles of 64 particles, the Gram tile and both
-// contractions in 3xTF32, the weights once a pair into shared memory, two
-// weight tiles, 107.5 KB of dynamic shared memory, one block an SM). Each
-// group sweeps the triangle of its own rows with its own terms in shared
-// memory (AnyTerms): group 0 the isotropic terms on x, which also counts
-// the Euclidean sq (with no isotropic term it only counts: the contraction
-// is left out); group 1 + t one term of gamma 1 and sign s_t on z_t, with
-// T = 0 (no counts). The self pair enters both directions, as in the
-// narrower groups, so the wrapper's epilogue is the same.
+// groups run on wide_tri_sm90.cuh's tensor-core body (K2's and K8/K9's
+// past 64: tiles of 128 particles, one persistent block an SM walking the
+// triangle, a producer warp feeding a cp.async ring, the Gram tile and
+// both contractions in 3xTF32), each group a sweep of its own rows into
+// its own (2w, n) slab of the (1 + n_aniso, 2w, n) accumulator, w the
+// rows' width padded to a multiple of 4 by the wrapper (the body's 16-byte
+// copies; z_t's columns past m are exact zeros, from L_t padded with zero
+// rows and columns). A group of one term is K2's single-RBF form, one
+// weight tile a pair (OneRbf, WideSym<false>, 196,640 B):
+// fused_phi_aniso_terms_wide_groups_kernel sweeps every anisotropic group
+// (z_t with gamma 1, T = 0: no counts) and, with exactly one isotropic
+// term, group 0 (x with its gamma, read on the device, and the counts),
+// the group along the grid's y. Its KS and D are unsigned and D carries k
+// alone: the wrapper applies s and 2 gamma s to group 0, s_t to group
+// 1 + t (ops/phi.aniso_groups_finish). Two or more isotropic terms take
+// group 0 through fused_phi_aniso_terms_wide_iso_kernel, K8/K9's
+// two-weight instance (AnyTerms, WideSym<true>, 225,312 B), a launch of
+// its own before the groups'. With no isotropic term group 0 does not
+// sweep, and the wrapper takes the counts from the count kernel's self
+// form (K16). The self pair enters both directions at sq = 0, k = 1, as
+// in the narrower groups, so the wrapper subtracts (sum s) s_i once.
 //
 // The iso gammas and the thresholds are read from device memory (the host
 // never reads them); the signs are static and arrive by value. The kernels
@@ -129,7 +138,7 @@
 // The kGroups instances of terms_sym.cuh's sweep, under their own name.
 #define SVGD_TERMS_SYM_KERNEL fused_phi_aniso_terms_groups_kernel
 #include "terms_sym.cuh"
-#include "wide_tri.cuh"
+#include "wide_tri_sm90.cuh"
 
 namespace {
 
@@ -393,62 +402,91 @@ int launch_one_pass(const float* coords, const float* scores,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The term groups past kMaxM (see the top of the file): group blockIdx.y,
-// tile pair blockIdx.x of the upper triangle of tiles of kWideTile.
+// The single-term groups past kMaxM (see the top of the file): group
+// g0 + blockIdx.y, whose blocks walk the whole triangle of tiles of
+// kWideSymTile, one weight tile (OneRbf, k_c = w = k). Group 0 (g0 = 0,
+// one isotropic term) sweeps x with k = 2^(-gamma log2(e) sq), gamma read
+// on the device, and counts; group 1 + t sweeps z_t with k =
+// 2^(-|z_i - z_j|^2 log2(e)) and T = 0 (no counts). The signs and group
+// 0's 2 gamma are the wrapper's.
 template <int kT>
-__global__ void __launch_bounds__(kWideTriThreads)
-    fused_phi_aniso_terms_wide_kernel(
+__global__ void __launch_bounds__(kWideSymThreads)
+    fused_phi_aniso_terms_wide_groups_kernel(
         const float* __restrict__ coords, const float* __restrict__ z,
-        const float* __restrict__ scores, const float* __restrict__ gammas,
-        TermSigns iso_signs, int n_iso, AnisoSigns aniso_signs,
-        const float* __restrict__ thr, int n, int m, int T, int nb,
-        float* __restrict__ acc, unsigned long long* __restrict__ counts) {
+        const float* __restrict__ scores, const float* __restrict__ gamma,
+        const float* __restrict__ thr, int n, int w, int T, int nb, int g0,
+        long long count, float* __restrict__ acc,
+        unsigned long long* __restrict__ counts) {
+  const int group = g0 + static_cast<int>(blockIdx.y);
+  const bool euclid = group == 0;
+  const float* rows =
+      euclid ? coords : z + static_cast<size_t>(group - 1) * n * w;
+  const OneRbf weights{euclid ? -gamma[0] * kLog2e : -kLog2e};
+  wide_tri_sm90_body<kT>(rows, scores, weights, thr, n, w, euclid ? T : 0,
+                         nb, 0LL, count,
+                         acc + static_cast<size_t>(group) * 2 * w * n,
+                         counts);
+}
+
+// Group 0 past kMaxM with two or more isotropic terms: K8/K9's two-weight
+// instance of the body (AnyTerms: k_c = sum s k in one weight tile, w =
+// sum s gamma k in the other) on x, with the counts, into group 0's slab.
+template <int kT>
+__global__ void __launch_bounds__(kWideSymThreads)
+    fused_phi_aniso_terms_wide_iso_kernel(
+        const float* __restrict__ coords, const float* __restrict__ scores,
+        const float* __restrict__ gammas, TermSigns iso_signs, int n_iso,
+        const float* __restrict__ thr, int n, int w, int T, int nb,
+        long long count, float* __restrict__ acc,
+        unsigned long long* __restrict__ counts) {
   __shared__ float sh_g2[kMaxTerms];
   __shared__ float sh_sn[kMaxTerms];
   __shared__ float sh_sg[kMaxTerms];
-  const int group = static_cast<int>(blockIdx.y);
-  const bool euclid = group == 0;
   // The body's first barrier comes before its first pair.
-  if (euclid) {
-    load_terms(gammas, iso_signs, n_iso, sh_g2, sh_sn, sh_sg);
-  } else if (threadIdx.x == 0) {
-    const float sign = aniso_signs.s[group - 1];
-    sh_g2[0] = -kLog2e;
-    sh_sn[0] = sign;
-    sh_sg[0] = sign;
-  }
-  const float* rows =
-      euclid ? coords : z + static_cast<size_t>(group - 1) * n * m;
-  WideForm form;
-  form.phi = !euclid || n_iso > 0;
-  wide_tri_body<kT>(rows, scores,
-                    AnyTerms{sh_g2, sh_sn, sh_sg, euclid ? n_iso : 1}, thr, n,
-                    m, euclid ? T : 0, nb, 0LL,
-                    acc + static_cast<size_t>(group) * 2 * m * n, counts,
-                    form);
+  load_terms(gammas, iso_signs, n_iso, sh_g2, sh_sn, sh_sg);
+  wide_tri_sm90_body<kT>(coords, scores,
+                         AnyTerms{sh_g2, sh_sn, sh_sg, n_iso}, thr, n, w, T,
+                         nb, 0LL, count, acc, counts);
 }
 
-// The wide launch: one block per tile pair and group, kT = 3 or kMaxT.
+// The wide launches (width w, a multiple of 4): group 0's terms kernel
+// where n_iso >= 2, then the single-term groups, group 0 among them where
+// n_iso = 1 and not at all where n_iso = 0; each one persistent block an
+// SM and group (wide_sym_prepare), kT = 3 or kMaxT.
 int launch_aniso_wide(const float* coords, const float* z,
                       const float* scores, const float* gammas,
-                      const TermSigns& si, int n_iso, const AnisoSigns& sa,
-                      int n_aniso, const float* thr, int n, int m, int T,
-                      float* acc, unsigned long long* c, cudaStream_t s) {
-  const long long pairs = upper_pairs(n, kWideTile);
+                      const TermSigns& si, int n_iso, int n_aniso,
+                      const float* thr, int n, int w, int T, float* acc,
+                      unsigned long long* c, cudaStream_t s) {
+  const long long pairs = upper_pairs(n, kWideSymTile);
   if (pairs < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(static_cast<unsigned int>(pairs), 1 + n_aniso);
-  const int nb = (n + kWideTile - 1) / kWideTile;
-  const size_t smem = WideTri::smem_bytes(2);
+  const int nb = (n + kWideSymTile - 1) / kWideSymTile;
+  if (n_iso >= 2) {
+    auto go = [&](auto* kernel) {
+      const unsigned int blocks = wide_sym_prepare<true>(kernel, pairs);
+      kernel<<<blocks, kWideSymThreads, WideSym<true>::kSmemBytes, s>>>(
+          coords, scores, gammas, si, n_iso, thr, n, w, T, nb, pairs, acc,
+          c);
+    };
+    if (T == 3) {
+      go(&fused_phi_aniso_terms_wide_iso_kernel<3>);
+    } else {
+      go(&fused_phi_aniso_terms_wide_iso_kernel<kMaxT>);
+    }
+  }
+  const int g0 = n_iso == 1 ? 0 : 1;
   auto go = [&](auto* kernel) {
-    wide_tri_prepare(kernel, 2);
-    kernel<<<grid, kWideTriThreads, smem, s>>>(coords, z, scores, gammas, si,
-                                               n_iso, sa, thr, n, m, T, nb,
-                                               acc, c);
+    const unsigned int blocks = wide_sym_prepare<false>(kernel, pairs);
+    const dim3 grid(blocks, 1 + n_aniso - g0);
+    kernel<<<grid, kWideSymThreads, WideSym<false>::kSmemBytes, s>>>(
+        coords, z, scores, gammas, thr, n, w, T, nb, g0, pairs, acc, c);
   };
-  if (T == 3) {
-    go(&fused_phi_aniso_terms_wide_kernel<3>);
+  // Without group 0 no group counts, and the 3-threshold instance
+  // compares least.
+  if (T == 3 || g0 == 1) {
+    go(&fused_phi_aniso_terms_wide_groups_kernel<3>);
   } else {
-    go(&fused_phi_aniso_terms_wide_kernel<kMaxT>);
+    go(&fused_phi_aniso_terms_wide_groups_kernel<kMaxT>);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -497,8 +535,13 @@ int svgd_fused_phi_aniso_terms_sym(const float* coords, const float* scores,
 // iso_signs (n_iso,) and aniso_signs (n_aniso,) HOST arrays, passed by value
 // to the kernel; acc a zeroed (1 + n_aniso, 2m, n) float32 buffer, group g's
 // [KS_g | D_g]; counts a zeroed int64 (T,) buffer that receives the upper
-// count U of the Euclidean distances (diagonal included). m >= 1 (the
-// wide kernel past 64), 0 <= n_iso <= 16, 1 <= n_aniso <= 8, 1 <= T <= 8.
+// count U of the Euclidean distances (diagonal included). m >= 1,
+// 0 <= n_iso <= 16, 1 <= n_aniso <= 8, 1 <= T <= 8. Past m = 64 (the wide
+// kernels) m is the rows' padded width, a multiple of 4, coords, z and
+// scores start on 16-byte boundaries, group 1 + t's KS_g and D_g carry
+// neither s_t nor, with one isotropic term, group 0's s and 2 gamma
+// (see the top of the file), and with no isotropic term counts is left
+// as it is.
 int svgd_fused_phi_aniso_terms_groups(const float* coords, const float* z,
                                       const float* scores,
                                       const float* gammas,
@@ -517,8 +560,11 @@ int svgd_fused_phi_aniso_terms_groups(const float* coords, const float* z,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* c = reinterpret_cast<unsigned long long*>(counts);
   if (m > kMaxM) {
-    return launch_aniso_wide(coords, z, scores, gammas, si, n_iso, sa,
-                             n_aniso, thr, n, m, T, acc, c, s);
+    if (!wide_rows_ok(m, coords, scores) || !wide_rows_ok(m, z, z)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_aniso_wide(coords, z, scores, gammas, si, n_iso, n_aniso,
+                             thr, n, m, T, acc, c, s);
   }
 #define SVGD_LAUNCH_ANISO(MM_, EX_)                                        \
   {                                                                        \

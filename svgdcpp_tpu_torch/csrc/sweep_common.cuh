@@ -174,14 +174,14 @@ struct MicroWidth {
 };
 
 // The wide triangle body's tiles (wide_tri.cuh's wide_pair_body): 64
-// particles a side, for its users (K14's groups, K15 and its bf16
-// instance, the panels). The bf16 triangle body's are kBf16Tile = 128
+// particles a side, for its users (K15 and its bf16 instance, the
+// panels). The bf16 triangle body's are kBf16Tile = 128
 // (bf16_tri_sm90.cuh).
 constexpr int kWideTile = 64;
 
 // The float32 triangle sweeps' tiles past kMaxM (wide_tri_sm90.cuh: K2/K4
-// and K8-K11 at MM = kWideMM): 128 particles a side, for one RBF and for
-// terms alike.
+// and K8-K11 at MM = kWideMM, and K14's term groups): 128 particles a
+// side, for one RBF and for terms alike.
 constexpr int kWideSymTile = 128;
 
 // The single-RBF one-row-a-thread triangle body (counts_sym.cuh): tiles of

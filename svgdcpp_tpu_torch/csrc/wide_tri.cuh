@@ -1,9 +1,9 @@
 // The upper-triangle sweep's body past kMaxM (m > 64), shared by the wide
-// kernels of K14's term groups (fused_phi_aniso.cu) and of K15 (phi_rbf.cu,
-// its bfloat16 instance at any m too) and the panels' wide instances
-// (fused_phi_panel.cu). The float32 triangle kernels (K2/K4, K8-K11) run
-// wide_tri_sm90.cuh's body past kMaxM instead, and K2's and K3's bfloat16
-// instances bf16_tri_sm90.cuh's at any m. The bodies
+// kernels of K15 (phi_rbf.cu, its bfloat16 instance at any m too) and the
+// panels' wide instances (fused_phi_panel.cu). The float32 triangle
+// kernels (K2/K4, K8-K11) and K14's term groups run wide_tri_sm90.cuh's
+// body past kMaxM instead, and K2's and K3's bfloat16 instances
+// bf16_tri_sm90.cuh's at any m. The bodies
 // below it hold a row of m coordinates, scores and sums in registers
 // (micro_tile.cuh, counts_sym.cuh, terms_sym.cuh); past m = 64 they would
 // spill, so this one holds nothing sized by m and runs on the tensor
@@ -43,7 +43,7 @@
 // unscaled for one RBF (the wrapper multiplies it by 2 gamma) and weighted
 // by w for terms, and the counts receive U, the upper count with the
 // diagonal (the wrapper forms 2U - n). kT = 0 (with T = 0) counts nothing;
-// T = 0 with kT > 0 counts nothing either (a term group past K14's first).
+// T = 0 with kT > 0 counts nothing either.
 //
 // Shared memory (dynamic): 9216 floats for the Gram slices or the
 // contraction's records, 8704 for each weight tile, 256 for norms and
@@ -103,8 +103,10 @@ struct WideTri {
 // (P_sym/2) x_j = G_ji and one weight tile serves both directions; its norms
 // are q_i = x_i . y_i, so sq = q_i + q_j - 2 G = d^T P d, clamped only for a
 // P taken as positive semidefinite. The contraction takes the coordinates
-// either way. `phi` false leaves the contraction out (K14's Euclidean group
-// with no isotropic term, which only counts). `pin` false (K15's bf16
+// either way. `phi` false leaves the contraction out (no kernel of the
+// library sets it since K14's groups left this body; chip_profile.py
+// --aniso-wide builds their earlier kernel, whose Euclidean group with no
+// isotropic term only counted, against it). `pin` false (K15's bf16
 // instance) forms the self pair's sq like any other pair's and halves its
 // weights, exactly, so that it enters once over both directions: the
 // square sweep's self pair, as the JAX kernel forms it (there the bf16

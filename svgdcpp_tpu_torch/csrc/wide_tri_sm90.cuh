@@ -1,14 +1,16 @@
 // The upper-triangle sweep's float32 body past kMaxM (m > 64) for the
 // single-RBF triangle kernels (fused_phi.cu: K2's and K4's ports) and the
 // terms triangle kernels (fused_phi_terms.cu: K8/K9's and K10/K11's), the
-// instance MM = kWideMM of each. It computes what wide_tri.cuh's
+// instance MM = kWideMM of each, and for K14's term groups
+// (fused_phi_aniso.cu: one RBF a single-term group, terms for group 0 of
+// two or more isotropic terms). It computes what wide_tri.cuh's
 // wide_pair_body computes for them (the (2m, n) accumulator [KS | D], D
 // unscaled for one RBF and weighted by w for terms, each self pair entered
 // in both directions and pinned to sq = 0, the upper count U with the
 // diagonal), with the Gram tile and both contractions in 3xTF32 on the
 // tensor cores, and is laid out for Hopper's shared memory. wide_pair_body
-// keeps serving the other wide users (K14's term groups, K15 and its bf16
-// instance, the panels); K2's and K3's bf16 instances run
+// keeps serving the other wide users (K15 and its bf16 instance, the
+// panels); K2's and K3's bf16 instances run
 // bf16_tri_sm90.cuh's body, built on this one's loop structure.
 //
 // What bounds it. At (10000, 123) the parent body took 3.65 ms, of which

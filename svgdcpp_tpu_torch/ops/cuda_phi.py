@@ -31,8 +31,10 @@ package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
     one-pass kernel (every ordered pair once, both term groups in one pass,
     n phi and all n^2 counts out); otherwise the terms triangle kernel's
     body under its own name, with one term group per anisotropic term;
-    past m = 64 the same groups on ``csrc/wide_tri.cuh``'s tensor-core
-    body (``fused_phi_aniso_terms_wide``).
+    past m = 64 the same groups on ``csrc/wide_tri_sm90.cuh``'s tensor-core
+    body (``fused_phi_aniso_terms_wide``: a single-term group, each
+    anisotropic one and group 0 of one isotropic term, on one weight tile;
+    group 0 of more on two; with none, the counts from K16's self form).
   * ``phi_rbf_square``          (``csrc/phi_rbf.cu``) -- ``_phi_kernel``
     (K15): the sweep of one RBF with a full, fixed P, no counts (the
     triangle at m = 1-8 and 11, the square sweep up to 64); with it
@@ -66,9 +68,9 @@ their plain versions; ``phi_rbf_square`` returns phi, like
 ``ops/phi.phi_rbf_blocked``. Every sweep and the count kernel take any
 m >= 1: past MAX_M = 64 the sweeps run wide bodies that hold nothing sized
 by m (``csrc/square_mma.cuh``'s ``square_wide_body``,
-``csrc/wide_tri_sm90.cuh``'s body for the float32 triangles,
-``csrc/wide_tri.cuh``'s for K14's groups and K15, and which the panels run
-on the tile pairs of a panel). ``sym_eigen`` alone takes 1 <= m <= MAX_M:
+``csrc/wide_tri_sm90.cuh``'s body for the float32 triangles and K14's
+groups, ``csrc/wide_tri.cuh``'s for K15, and which the panels run on the
+tile pairs of a panel). ``sym_eigen`` alone takes 1 <= m <= MAX_M:
 its matrix and its order table live in one block's shared memory, and
 past MAX_M K15 takes P itself, so nothing calls it there.
 
@@ -100,7 +102,8 @@ difference form of its form. ``eigen_rows`` decomposes an (m, m) matrix
 (``symmetric_eigen``: on the card the kernel ``sym_eigen``, which reads
 nothing on the host) unless the caller passes the decomposition. Past
 MAX_M, K14's groups take the same factors' rows z_t = x L_t by the Gram
-identity, and K15 takes P itself (``ops/phi.gram_operands``), so nothing
+identity (``aniso_group_operands``: L_t padded with zeros to the rows'
+width), and K15 takes P itself (``ops/phi.gram_operands``), so nothing
 is decomposed there.
 
 Each wrapper counts its kernel's launches in ``launch_counts`` (one plain
@@ -118,6 +121,7 @@ from ..kernels.algebra import MAX_RBF_TERMS
 from ..utils.cuda_build import CSRC_DIR, build_library, library_path
 from .median import count_le_plain
 from .phi import (
+    aniso_groups_finish,
     bf16_sym_finish,
     dot_bf16,
     gram_operands,
@@ -170,7 +174,10 @@ SYM_KERNEL = "fused_phi_counts_sym"
 TERMS_SQUARE_KERNEL = "fused_phi_terms_square"
 TERMS_SYM_KERNEL = "fused_phi_terms_sym"
 ANISO_KERNEL = "fused_phi_aniso_terms_sym"
-#: K14's term groups past MAX_M (csrc/fused_phi_aniso.cu, the wide body).
+#: K14's term groups past MAX_M (csrc/fused_phi_aniso.cu on
+#: csrc/wide_tri_sm90.cuh's body: fused_phi_aniso_terms_wide_groups_kernel,
+#: and fused_phi_aniso_terms_wide_iso_kernel for two or more isotropic
+#: terms), one launch a call of the entry.
 ANISO_WIDE_KERNEL = "fused_phi_aniso_terms_wide"
 PHI_RBF_KERNEL = "phi_rbf_square"
 #: K15 past MAX_M (csrc/phi_rbf.cu, P itself on the wide body).
@@ -747,7 +754,7 @@ def _sympanel_launch(coords, scores, gammas, signs, thresholds_sq,
 def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
                   aniso_signs, thresholds_sq, lowers):
     """K14: the one-pass kernel, or the term-group triangle kernel (its
-    wide instance past MAX_M)."""
+    wide instances past MAX_M, finished by ``ops/phi.aniso_groups_finish``)."""
     g, thr = _device_operands(coords, scores, iso_gammas, thresholds_sq,
                               min_terms=0)
     n_aniso = len(aniso_signs)
@@ -761,8 +768,8 @@ def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
         lowers = cholesky_factors(aniso_ps, coords.device)
     coords_c = _centered32(coords).contiguous()
     sc32 = scores.to(torch.float32).contiguous()
-    lib = load_library()
     if n_aniso == 1 and m <= ONE_PASS_MAX_M:
+        lib = load_library()
         acc = torch.zeros((m, n), dtype=torch.float32, device=coords.device)
         counts = torch.zeros(thr.shape[0], dtype=torch.int64,
                              device=coords.device)
@@ -779,26 +786,22 @@ def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
         launch_counts[ANISO_KERNEL] += 1
         # acc = n phi^T: KS + 2 D_iso + 2 D_z L^T over every ordered pair.
         return (acc.T / n).to(coords.dtype), counts
-    z = (coords_c.to(torch.float64) @ lowers).to(torch.float32).contiguous()
-    acc = torch.zeros((1 + n_aniso, 2 * m, n), dtype=torch.float32,
-                      device=coords.device)
-    upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=coords.device)
-    with torch.cuda.device(coords.device):
-        rc = lib.svgd_fused_phi_aniso_terms_groups(
-            coords_c.data_ptr(), z.data_ptr(), sc32.data_ptr(), g.data_ptr(),
-            _host_signs(iso_signs, len(iso_gammas)), len(iso_gammas),
-            _host_signs(aniso_signs, n_aniso), n_aniso, thr.data_ptr(), n, m,
-            thr.shape[0], acc.data_ptr(), upper.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    name = ANISO_WIDE_KERNEL if m > MAX_M else ANISO_KERNEL
-    _check_launch(rc, name)
-    launch_counts[name] += 1
-    # Epilogue: acc[g] = [KS_g | D_g]. The groups' KS add up; the self pairs
-    # (k = 1 for every term) entered KS in both directions, so subtract
-    # (sum s) s_i once. D_0 is the isotropic direction (weights already
-    # carry gamma); D_1+t = sum_j s_t k_t (z_ti - z_tj), and
-    # D_t P_sym = 2 D_1+t L_t^T (float64, never TF32).
+    acc, upper = _aniso_groups(coords_c, sc32, g, thr, len(iso_gammas),
+                               iso_signs, aniso_signs, lowers)
+    if m > MAX_M:
+        phi = aniso_groups_finish(acc, sc32, g[0], iso_signs, aniso_signs,
+                                  lowers, n)
+        # With no isotropic term no group counted: the count kernel's self
+        # form (the same tensor as rows and columns) counts all n^2 pairs.
+        counts = (2 * upper - n if len(iso_gammas)
+                  else count_le_cuda(coords_c, coords_c, thr))
+        return phi.to(coords.dtype), counts
+    # Up to MAX_M: acc[g] = [KS_g | D_g] with the signs in the weights. The
+    # groups' KS add up; the self pairs (k = 1 for every term) entered KS
+    # in both directions, so subtract (sum s) s_i once. D_0 is the
+    # isotropic direction (weights already carry gamma);
+    # D_1+t = sum_j s_t k_t (z_ti - z_tj), and D_t P_sym = 2 D_1+t L_t^T
+    # (float64, never TF32).
     s_total = sum(float(s) for s in iso_signs) + sum(
         float(s) for s in aniso_signs
     )
@@ -808,6 +811,75 @@ def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
     phi = (acc[:, :m].sum(dim=0).T - s_total * sc32 + 2.0 * acc[0, m:].T
            + 2.0 * grad_aniso.to(torch.float32)) / n
     return phi.to(coords.dtype), 2 * upper - n
+
+
+def aniso_group_operands(coords_c, sc32, lowers):
+    """K14's term-group operands: (x, scores, z, width) with z
+    (n_aniso, n, width) = x L_t formed in float64 and rounded to float32.
+    Past MAX_M x and the scores come from ``_tri_operands`` (zero columns
+    to ``wide_row_width(m)``) and each L_t is padded with zero rows and
+    columns, so that z's columns past m are exact zeros (a product of
+    zeros, not a float32 product padded after); up to MAX_M all stay at
+    width m."""
+    m = coords_c.shape[1]
+    x, s, width = _tri_operands(coords_c, sc32, m)
+    if width != m:
+        pad = torch.zeros((lowers.shape[0], width, width),
+                          dtype=torch.float64, device=coords_c.device)
+        pad[:, :m, :m] = lowers
+        lowers = pad
+    z = (x.to(torch.float64) @ lowers).to(torch.float32).contiguous()
+    return x, s, z, width
+
+
+def _aniso_groups(coords_c, sc32, g, thr, n_iso, iso_signs, aniso_signs,
+                  lowers):
+    """One call of K14's term-group entry on centered float32 coordinates:
+    the raw accumulator (1 + n_aniso, 2 width, n) of [KS_g | D_g] a group
+    and the upper counts (T,). Past MAX_M its wide kernels leave each
+    group's slab as ``ops/phi.aniso_groups_plain`` gives it (at width m
+    there) and, with no isotropic term, the counts at 0."""
+    n, m = coords_c.shape
+    n_aniso = len(aniso_signs)
+    x, s, z, width = aniso_group_operands(coords_c, sc32, lowers)
+    acc = torch.zeros((1 + n_aniso, 2 * width, n), dtype=torch.float32,
+                      device=coords_c.device)
+    upper = torch.zeros(thr.shape[0], dtype=torch.int64,
+                        device=coords_c.device)
+    lib = load_library()
+    with torch.cuda.device(coords_c.device):
+        rc = lib.svgd_fused_phi_aniso_terms_groups(
+            x.data_ptr(), z.data_ptr(), s.data_ptr(), g.data_ptr(),
+            _host_signs(iso_signs, n_iso), n_iso,
+            _host_signs(aniso_signs, n_aniso), n_aniso, thr.data_ptr(), n,
+            width, thr.shape[0], acc.data_ptr(), upper.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    name = ANISO_WIDE_KERNEL if m > MAX_M else ANISO_KERNEL
+    _check_launch(rc, name)
+    launch_counts[name] += 1
+    return acc, upper
+
+
+def aniso_wide_groups_cuda(coords, scores, iso_gammas, iso_signs,
+                           aniso_signs, thresholds_sq, lowers):
+    """K14's wide term groups past MAX_M, unfinished: (acc
+    (1 + n_aniso, 2 width, n), upper (T,)) of one launch of the wide entry
+    on CUDA tensors (``lowers`` the float64 factors, ``cholesky_factors``),
+    the counterpart of ``ops/phi.aniso_groups_plain``, whose slabs are
+    acc's columns [0, m) and [width, width + m). The kernels' check
+    (chip_smoke.py) reads it; the sweep's wrapper is
+    ``phi_rbf_aniso_terms_fused_cuda``."""
+    _require_cuda(coords)
+    g, thr = _device_operands(coords, scores, iso_gammas, thresholds_sq,
+                              min_terms=0)
+    if coords.shape[1] <= MAX_M:
+        raise ValueError(f"the wide groups take m > {MAX_M}, got "
+                         f"m={coords.shape[1]}")
+    return _aniso_groups(
+        _centered32(coords).contiguous(),
+        scores.to(torch.float32).contiguous(), g, thr, len(iso_gammas),
+        iso_signs, aniso_signs, lowers)
 
 
 def _phi_rbf_launch(coords, scores, p_matrix, psd, eig, bf16=False):
@@ -1011,7 +1083,9 @@ def phi_rbf_aniso_terms_fused_cuda(coords, scores, iso_gammas, iso_signs,
     fused_phi_aniso_terms_sym, in one pass for one anisotropic term up to
     ONE_PASS_MAX_M, in term groups otherwise, past MAX_M the groups' wide
     instance fused_phi_aniso_terms_wide (``launch_counts`` under
-    ANISO_WIDE_KERNEL); with no anisotropic term (a hot-swap may leave
+    ANISO_WIDE_KERNEL; with no isotropic term the counts take one launch
+    of the count kernel, ``count_le_cuda`` on the coordinates as rows and
+    columns); with no anisotropic term (a hot-swap may leave
     none), the terms triangle kernel, which computes the same function. On
     a CPU tensor: the plain ``phi_rbf_aniso_terms_fused_counts``, in the
     factor form (``phi_rbf_factor``) where ``lowers`` are given.

@@ -22,7 +22,9 @@ Port of ``svgdcpp_tpu.ops.phi`` (reference hot loop SVGD.hpp:407-454):
                            is the plain version of the CUDA kernels in
                            ``ops/cuda_phi.py``, which hold themselves to it.
   * ``phi_rbf_aniso_terms_fused_counts`` -- the same for a composed kernel
-                           with anisotropic (full-P) terms.
+                           with anisotropic (full-P) terms; past m = 64
+                           the term groups' slabs, ``aniso_groups_plain``,
+                           and their epilogue, ``aniso_groups_finish``.
   * ``phi_rbf_eigen`` / ``phi_rbf_gram`` -- one RBF with a full, fixed P:
                            the fixed-P CUDA kernel's forms up to m = 64 (the
                            eigen basis) and past it (P itself, the Gram
@@ -993,6 +995,84 @@ def phi_rbf_aniso_terms_fused_counts(
                                  psd=True)
         phi = phi + float(sign) * term
     return phi, counts
+
+
+def aniso_groups_plain(coords, scores, iso_gammas, iso_signs, aniso_signs,
+                       thresholds_sq, lowers):
+    """What K14's wide term groups (``fused_phi_aniso_terms_wide``, past
+    m = 64) leave in each group's slab, in plain torch: (acc
+    (1 + n_aniso, 2m, n), upper (E,) int64 or None).
+
+    Each slab [KS_g | D_g] is the full-width triangle's raw accumulator
+    (:func:`phi_rbf_terms_sym_chunk_counts` at world 1: every unordered
+    pair once, both directions, the self pair at sq = 0) of one group in
+    that group's convention. Group 0 sweeps the centered coordinates: with
+    one isotropic term the single-RBF form (k = exp(-gamma sq) for KS and
+    D, neither signed nor scaled by gamma), with more the terms form (k_c =
+    sum s k, w = sum s gamma k), and with none it is not swept (zeros).
+    Group 1 + t sweeps z_t = x_c L_t (formed in float64, rounded to the
+    coordinates' dtype) with k = exp(-|z_i - z_j|^2), unsigned. ``upper``
+    counts the Euclidean pairs of the upper triangle with its diagonal,
+    group 0's alone; None with no isotropic term. ``lowers``: the factors
+    L_t of P_t's symmetric half (``ops/cuda_phi.cholesky_factors``).
+    :func:`aniso_groups_finish` turns the slabs into phi."""
+    n, m = coords.shape
+    dtype, device = coords.dtype, coords.device
+    x = coords - coords.mean(dim=0)
+    thr = torch.as_tensor(thresholds_sq, dtype=dtype, device=device)
+    upper = None
+    if len(iso_signs) == 1:
+        slab0, upper = phi_rbf_terms_sym_chunk_counts(
+            x, scores, [iso_gammas[0]], [1.0], thr, 1, 0, single=True)
+    elif iso_signs:
+        slab0, upper = phi_rbf_terms_sym_chunk_counts(
+            x, scores, list(iso_gammas), list(iso_signs), thr, 1, 0)
+    else:
+        slab0 = torch.zeros((2 * m, n), dtype=dtype, device=device)
+    slabs = [slab0]
+    for t in range(len(aniso_signs)):
+        lower = torch.as_tensor(lowers[t], device=device).to(torch.float64)
+        z = (x.to(torch.float64) @ lower).to(dtype)
+        slabs.append(phi_rbf_terms_sym_chunk_counts(
+            z, scores, [1.0], [1.0], thr[:0], 1, 0, single=True)[0])
+    return torch.stack(slabs), upper
+
+
+def aniso_groups_finish(acc, scores, gamma, iso_signs, aniso_signs, lowers,
+                        n: int):
+    """phi (n, m) of K14's wide term groups' accumulator ``acc``
+    (1 + n_aniso, 2 width, n), width >= m = scores' columns (the kernel's
+    padded rows; :func:`aniso_groups_plain`'s width m): the wrapper's
+    epilogue, shared with the tests. Each group's KS and D are its
+    columns [0, m) and [width, width + m), scaled by the group's
+    convention:
+
+      * group 0 with one isotropic term: KS by s, D by 2 gamma s
+        (``gamma`` its device scalar: nothing is read on the host);
+      * group 0 with more: KS by 1, D by 2 (its weights carry s and gamma);
+        with none, nothing (not swept);
+      * group 1 + t: KS and D_zt by s_t, then 2 D_zt L_t^T in float64.
+
+    The self pairs (k = 1 for every term) entered KS in both directions,
+    so (sum of all signs) s_i comes off once."""
+    m = scores.shape[1]
+    width = acc.shape[1] // 2
+    ks, d = acc[:, :m], acc[:, width:width + m]
+    phi = -sum(float(s) for s in (*iso_signs, *aniso_signs)) * scores
+    if len(iso_signs) == 1:
+        s0 = float(iso_signs[0])
+        phi = phi + s0 * ks[0].T + (2.0 * s0) * gamma * d[0].T
+    elif iso_signs:
+        phi = phi + ks[0].T + 2.0 * d[0].T
+    # The signs stay Python numbers: a tensor of them would be a copy from
+    # the host, which waits for the sweep.
+    grad = 0.0
+    for t, sign in enumerate(aniso_signs):
+        lower = torch.as_tensor(lowers[t], device=acc.device)
+        phi = phi + float(sign) * ks[1 + t].T
+        grad = grad + float(sign) * (d[1 + t].T.to(torch.float64)
+                                     @ lower.to(torch.float64).T)
+    return (phi + 2.0 * grad.to(acc.dtype)) / n
 
 
 def phi_rbf_eigen(coords, scores, lam, v, psd: bool = True,

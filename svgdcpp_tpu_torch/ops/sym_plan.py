@@ -371,8 +371,8 @@ def dispatch_m(m: int) -> int:
 #: wide_tri_sm90.cuh: m past KERNEL_MAX_M), for one RBF (``SymTile``) and a
 #: composed kernel (``TermsTriTile``) alike. WIDE_PAIR_TILE is the other
 #: wide body's tile pair (``kWideTile``, csrc/wide_tri.cuh's
-#: wide_pair_body), which the panels' wide instances (CARD_PANEL_ALIGN),
-#: K14's groups and K15 keep; K2's and K3's bf16 instances take BF16_TILE
+#: wide_pair_body), which the panels' wide instances (CARD_PANEL_ALIGN)
+#: and K15 keep; K2's and K3's bf16 instances take BF16_TILE
 #: (csrc/bf16_tri_sm90.cuh, below).
 MICRO_TILE = 128
 WIDE_TILE = 128

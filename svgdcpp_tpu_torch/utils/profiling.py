@@ -300,7 +300,8 @@ def square_tensor_bound(n, m, T=3, n_terms=None, n_t=None, bf16=False):
 def tri_tensor_bound(n, m, T=3, n_terms=None, pairs=None, n_aniso=0,
                      fixed_p=False, bf16=False):
     """(bound_ms, bound_by) of a triangle kernel's function with the work
-    its wide body (csrc/wide_tri.cuh, m > 64) puts on the TF32 tensor
+    its wide body (m > 64: csrc/wide_tri_sm90.cuh, K15's csrc/wide_tri.cuh)
+    puts on the TF32 tensor
     cores: per unordered pair (``pairs``, the whole triangle n(n + 1)/2 by
     default) the Gram product (2m) and both directions' contractions,
     W [S | X] and W^T [S | X] (2 x 4m), at PEAK_TF32_FLOPS; the rest at
@@ -312,7 +313,8 @@ def tri_tensor_bound(n, m, T=3, n_terms=None, pairs=None, n_aniso=0,
     ``n_aniso`` > 0: K14's wide term groups (``n_terms`` isotropic terms,
     None or 0 for none), each group a sweep of its own: group 0 the Gram
     product, sq, its terms, the counts and, with a term, the contractions
-    and sums; each of the n_aniso groups the Gram product, sq, one term
+    and sums (with none, the count kernel's pass does its Gram product
+    and counts); each of the n_aniso groups the Gram product, sq, one term
     and the contractions and sums, no counts. ``fixed_p``: K15's wide
     sweep, one RBF's work with no counts (its Gram product pairs X with
     Y = X P_sym/2). The panels (K3/K5, K12/K13) do the triangle's work.

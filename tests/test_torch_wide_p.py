@@ -15,10 +15,11 @@ fixed P) past m = 64, on the CPU.
 * The wide K15's operands: q_i + q_j - 2 x_i . y_j from ``gram_operands``
   is d^T P d in float64 (1e-12 relative), for an indefinite P too.
 * The wrappers on a stand-in library (meta tensors stand in for the card)
-  at m = 65, 123 and 512: K14's hands m to ``svgd_fused_phi_aniso_terms_
-  groups`` (whose wide kernel takes m past 64), allocates its
-  (1 + n_aniso, 2m, n) accumulator and counts one launch of the wide
-  instance; K15's hands m to ``svgd_phi_rbf_wide`` with P, or with a
+  at m = 65, 123 and 512: K14's hands the padded width
+  ``wide_row_width(m)`` to ``svgd_fused_phi_aniso_terms_groups`` (whose
+  wide kernels take it past 64), allocates its (1 + n_aniso, 2 width, n)
+  accumulator and counts one launch of the wide instance (and, with no
+  isotropic term, one of the count kernel's self form); K15's hands m to ``svgd_phi_rbf_wide`` with P, or with a
   caller's (lam, V), allocates (2m, n) and counts one launch, and never
   calls ``svgd_sym_eigen``, which still refuses past 64 with its own
   reason (one block's shared memory).
@@ -58,6 +59,7 @@ from svgdcpp_tpu.ops import pallas_phi as pj
 from svgdcpp_tpu.ops import phi as phj
 from svgdcpp_tpu_torch.ops import cuda_phi
 from svgdcpp_tpu_torch.ops import phi as pht
+from svgdcpp_tpu_torch.ops.sym_plan import wide_row_width
 from svgdcpp_tpu_torch.utils.workloads import (
     ANISO_ADAGRAD_LR,
     aniso_mvn_workload,
@@ -217,26 +219,35 @@ def _meta(*shape):
 @pytest.mark.parametrize("m", [65, 123, 512])
 def test_k14_wide_wrapper_launches_past_64(monkeypatch, m):
     """One and two anisotropic terms, with and without an isotropic term:
-    the groups' entry gets m, the wrapper allocates (1 + n_aniso, 2m, n)
-    and counts one launch of the wide instance, none of the narrow one."""
+    the groups' entry gets the rows' padded width (wide_row_width(m)), the
+    wrapper allocates (1 + n_aniso, 2 width, n) and counts one launch of
+    the wide instance, none of the narrow one; with no isotropic term one
+    launch of the count kernel's self form follows, for the counts."""
     calls, shapes = [], []
     _stand_in(monkeypatch, calls, shapes)
     n, thr, g = 300, _meta(3), _meta()
     x = _meta(n, m)
+    width = wide_row_width(m)
     for iso_s, an_s in TERMS.values():
         del calls[:], shapes[:]
         cuda_phi.reset_launch_counts()
         phi, counts = cuda_phi.phi_rbf_aniso_terms_fused_cuda(
             x, x, [g] * len(iso_s), iso_s, None, an_s, thr,
             lowers=_meta(len(an_s), m, m).double())
-        assert [c[0] for c in calls] == ["svgd_fused_phi_aniso_terms_groups"]
+        entries = ["svgd_fused_phi_aniso_terms_groups"]
+        if not iso_s:
+            entries.append("svgd_count_le_self")
+        assert [c[0] for c in calls] == entries
         args = calls[0][1]
         assert args[5] == len(iso_s) and args[7] == len(an_s)
-        assert (args[9], args[10], args[11]) == (n, m, 3)
-        assert (1 + len(an_s), 2 * m, n) in shapes
+        assert (args[9], args[10], args[11]) == (n, width, 3)
+        assert (1 + len(an_s), 2 * width, n) in shapes
+        assert (len(an_s), width, width) in shapes
         assert tuple(phi.shape) == (n, m) and tuple(counts.shape) == (3,)
         assert cuda_phi.launch_counts[cuda_phi.ANISO_WIDE_KERNEL] == 1
-        assert sum(cuda_phi.launch_counts.values()) == 1
+        assert cuda_phi.launch_counts[cuda_phi.COUNT_KERNEL] == (
+            0 if iso_s else 1)
+        assert sum(cuda_phi.launch_counts.values()) == 1 + (not iso_s)
     cuda_phi.reset_launch_counts()
 
 
