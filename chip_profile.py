@@ -10,6 +10,8 @@
     python3 chip_profile.py --bf16 [--out PATH]
     python3 chip_profile.py --float32-check [--out PATH]
     python3 chip_profile.py --aniso-wide [--out PATH]
+    python3 chip_profile.py --square-wide [--out PATH]
+    python3 chip_profile.py --square-wide-breakdown [--out PATH]
 
 Drives one configuration of svgdcpp_tpu_torch at its full width:
 
@@ -2147,6 +2149,520 @@ def aniso_wide_main(args) -> int:
     return 0
 
 
+#: --square-wide: the parent's float32 wide square body (csrc/
+#: square_mma.cuh's square_wide_body with kBf16 = false, as K1's and the
+#: terms kernel's MM = 0 instances ran it: 4 warps of 16 target rows,
+#: tiles of 32 sources, the 2m + 1 columns in 128-column chunks along the
+#: grid's z, square_chunk's plan) under kernel names and a C entry of their
+#: own; built from a copy of csrc/ (square_mma.cuh keeps that body for K1's
+#: bf16 instance).
+SQUARE_WIDE_PARENT_SOURCE = r"""
+#include "square_mma.cuh"
+using namespace svgd;
+template <int kT>
+__global__ void __launch_bounds__(kSqMmaThreads)
+    parent_counts_square_wide_kernel(
+        const float* __restrict__ targets, const float* __restrict__ sources,
+        const float* __restrict__ scores, const float* __restrict__ gamma,
+        const float* __restrict__ thr, int n_t, int n_s, int m, int T,
+        int chunk, float* __restrict__ work,
+        unsigned long long* __restrict__ counts) {
+  const OneRbf weights{-gamma[0] * kLog2e};
+  float* part = work + static_cast<size_t>(blockIdx.y) * n_t * (2 * m + 1);
+  square_wide_body<kT>(targets, sources, scores, weights, thr, n_t, n_s, m,
+                       T, chunk, part, counts);
+}
+template <int kT>
+__global__ void __launch_bounds__(kSqMmaThreads, 1)
+    parent_terms_square_wide_kernel(
+        const float* __restrict__ targets, const float* __restrict__ sources,
+        const float* __restrict__ scores, const float* __restrict__ gammas,
+        TermSigns signs, const float* __restrict__ thr, int n_t, int n_s,
+        int m, int T, int chunk, float* __restrict__ work,
+        unsigned long long* __restrict__ counts) {
+  float* part = work + static_cast<size_t>(blockIdx.y) * n_t * (2 * m + 1);
+  square_wide_body<kT>(targets, sources, scores,
+                       FixedTerms<2>(gammas, signs), thr, n_t, n_s, m, T,
+                       chunk, part, counts);
+}
+__global__ void parent_square_wide_finish_kernel(
+    const float* __restrict__ work, int splits, int n_t, int m,
+    const float* __restrict__ gamma, int terms,
+    const float* __restrict__ targets, int n_s, float* __restrict__ phi) {
+  square_finish(work, splits, n_t, m, 1, terms ? 2.0f : 2.0f * gamma[0],
+                targets, n_s, phi);
+}
+extern "C" int parent_square_splits(int n_t, int n_s) {
+  int splits = 0;
+  square_chunk(n_t, n_s, true, &splits);
+  return splits;
+}
+// nterms 0: K1 (gammas[0] its gamma); 2: the terms kernel's two terms.
+extern "C" int parent_square_wide(const float* targets, const float* sources,
+                                  const float* scores, const float* gammas,
+                                  const float* signs, int nterms,
+                                  const float* thr, int n_t, int n_s, int m,
+                                  int T, float* phi, long long* counts,
+                                  float* work, void* stream) {
+  int splits = 0;
+  const int chunk = square_chunk(n_t, n_s, true, &splits);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* c = reinterpret_cast<unsigned long long*>(counts);
+  const bool terms = nterms == 2;
+  const dim3 grid((n_t + kSqMmaRows - 1) / kSqMmaRows, splits,
+                  wide_square_chunks(m, terms));
+  if (terms) {
+    const TermSigns sg = make_signs(signs, 2);
+    if (T == 3) {
+      parent_terms_square_wide_kernel<3><<<grid, kSqMmaThreads, 0, s>>>(
+          targets, sources, scores, gammas, sg, thr, n_t, n_s, m, T, chunk,
+          work, c);
+    } else {
+      parent_terms_square_wide_kernel<kMaxT><<<grid, kSqMmaThreads, 0, s>>>(
+          targets, sources, scores, gammas, sg, thr, n_t, n_s, m, T, chunk,
+          work, c);
+    }
+  } else if (T == 3) {
+    parent_counts_square_wide_kernel<3><<<grid, kSqMmaThreads, 0, s>>>(
+        targets, sources, scores, gammas, thr, n_t, n_s, m, T, chunk, work,
+        c);
+  } else {
+    parent_counts_square_wide_kernel<kMaxT><<<grid, kSqMmaThreads, 0, s>>>(
+        targets, sources, scores, gammas, thr, n_t, n_s, m, T, chunk, work,
+        c);
+  }
+  const long long outs = static_cast<long long>(n_t) * m;
+  parent_square_wide_finish_kernel<<<
+      static_cast<unsigned int>((outs + kSqFinishThreads - 1) /
+                                kSqFinishThreads),
+      kSqFinishThreads, 0, s>>>(work, splits, n_t, m, gammas, terms ? 1 : 0,
+                                targets, n_s, phi);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+#: --square-wide's shapes: (label, n_t, n_s, m, terms, offset), terms None
+#: for K1 and 2 for the terms kernel with two terms, the grid inputs about
+#: offset; K1 at the flat BLR's (1000, 123) (also about 100, chip_smoke.py
+#: phase 43a's input), the terms kernel at the small hierarchical BLR's
+#: (1500, 124) and at (1500, 123), the ladder m = 65, 256, 512, K1's cross
+#: form at 10000 x 10000 and the square form at 2047 particles (the largest
+#: n the card's rule sends to it past 64).
+SQUARE_WIDE_SHAPES = (
+    ("K1", 1000, 1000, 123, None, 0.0), ("K1", 1000, 1000, 123, None, 100.0),
+    ("K1", 1000, 1000, 65, None, 0.0), ("K1", 1000, 1000, 256, None, 0.0),
+    ("K1", 1000, 1000, 512, None, 0.0), ("K6/K7", 1500, 1500, 124, 2, 0.0),
+    ("K6/K7", 1500, 1500, 123, 2, 0.0), ("K6/K7", 1500, 1500, 65, 2, 0.0),
+    ("K6/K7", 1500, 1500, 256, 2, 0.0), ("K6/K7", 1500, 1500, 512, 2, 0.0),
+    ("K1 cross", 10000, 10000, 123, None, 0.0),
+    ("K1", 2047, 2047, 123, None, 0.0), ("K6/K7", 2047, 2047, 124, 2, 0.0),
+)
+
+
+def square_wide(device):
+    """--square-wide: the float32 wide square body, the parent's (built
+    from SQUARE_WIDE_PARENT_SOURCE in a copy under _verify/square_wide/)
+    and the package's, in one process at SQUARE_WIDE_SHAPES on
+    chip_smoke.py's grid inputs: kernel-only us of the sweep and of the
+    finishing pass apart (the profiler's events, 10 calls after one),
+    wrapper ms (CUDA events, chip_smoke.time_ms; the parent's wrapper is
+    the centring, the workspace and the launch as they stood), the
+    workspace's bytes, and both results' distance from the float64 plain
+    version, with their counts."""
+    import ctypes
+
+    import torch
+
+    from chip_smoke import grid_inputs, kernel_us, time_ms
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import (
+        phi_rbf_cross_fused_counts,
+        phi_rbf_terms_cross_fused_counts,
+    )
+    from svgdcpp_tpu_torch.utils.cuda_build import ARCH_FLAGS, find_nvcc
+
+    dest = ROOT / "_verify" / "square_wide"
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(ROOT / "svgdcpp_tpu_torch" / "csrc", dest)
+    (dest / "parent.cu").write_text(SQUARE_WIDE_PARENT_SOURCE)
+    proc = subprocess.Popen(
+        [find_nvcc() or "nvcc", *ARCH_FLAGS, "-std=c++17", "-O3",
+         "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v", "-o",
+         str(dest / "libparent.so"), str(dest / "parent.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    cuda_phi.load_library()  # built meanwhile
+    out, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"the parent's wide square build:\n{out}")
+    lib = ctypes.CDLL(str(dest / "libparent.so"))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.parent_square_wide.argtypes = ([ptr] * 5 + [i32, ptr] + [i32] * 4
+                                       + [ptr] * 4)
+    lib.parent_square_wide.restype = i32
+    lib.parent_square_splits.argtypes = [i32, i32]
+    lib.parent_square_splits.restype = i32
+    regs = re.findall(r"Used (\d+) registers", out)
+
+    rows = []
+    for label, n_t, n_s, m, terms, offset in SQUARE_WIDE_SHAPES:
+        x, s, g, thr = grid_inputs(n_s, m, offset, 470 + m + n_s, device)
+        xt = (x if n_t == n_s and "cross" not in label
+              else grid_inputs(n_t, m, offset, 480 + m, device)[0])
+        gs = [g, 0.5 * g] if terms else [g]
+        signs = (1.0, 1.0)
+        if terms:
+            def new_call():
+                return cuda_phi.phi_rbf_terms_fused_cuda_cross(
+                    xt, x, s, gs, signs, thr)
+            name = cuda_phi.TERMS_SQUARE_KERNEL
+            parent_name = "parent_terms_square_wide_kernel"
+        else:
+            def new_call():
+                return cuda_phi.phi_rbf_fused_cuda_cross(xt, x, s, g, thr)
+            name = cuda_phi.SQUARE_KERNEL
+            parent_name = "parent_counts_square_wide_kernel"
+        host_signs = (ctypes.c_float * 2)(*signs)
+        splits = lib.parent_square_splits(n_t, n_s)
+
+        def parent_call():
+            """The parent's wrapper past 64, as it stood."""
+            g32 = torch.stack([v.reshape(()) for v in gs])
+            center = x.mean(dim=0)
+            tgt_c = (xt - center).contiguous()
+            src_c = (x - center).contiguous()
+            phi = torch.empty((n_t, m), device=device)
+            counts = torch.zeros(thr.shape[0], dtype=torch.int64,
+                                 device=device)
+            work = torch.empty((splits, n_t, 2 * m + 1), device=device)
+            rc = lib.parent_square_wide(
+                tgt_c.data_ptr(), src_c.data_ptr(), s.data_ptr(),
+                g32.data_ptr(), host_signs, terms or 0, thr.data_ptr(), n_t,
+                n_s, m, thr.shape[0], phi.data_ptr(), counts.data_ptr(),
+                work.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"parent_square_wide returned {rc}")
+            return phi, counts
+
+        new_phi, new_cnt = new_call()
+        old_phi, old_cnt = parent_call()
+        if terms:
+            ref_phi, ref_cnt = phi_rbf_terms_cross_fused_counts(
+                xt.double(), x.double(), s.double(),
+                [v.double() for v in gs], signs, thr.double())
+        else:
+            ref_phi, ref_cnt = phi_rbf_cross_fused_counts(
+                xt.double(), x.double(), s.double(), g.double(),
+                thr.double())
+        scale = float(ref_phi.abs().max())
+        from svgdcpp_tpu_torch.ops import sym_plan
+        width = sym_plan.wide_row_width(m)
+        new_splits = sym_plan.square_splits(n_t, n_s, m)
+        row = {
+            "kernel": label, "n_t": n_t, "n_s": n_s, "m": m,
+            "offset": offset,
+            "parent_kernel_us": kernel_us(parent_call, parent_name),
+            "parent_finish_us": kernel_us(parent_call,
+                                          "parent_square_wide_finish"),
+            "new_kernel_us": kernel_us(new_call, name + "_kernel"),
+            "new_finish_us": kernel_us(new_call, name + "_finish"),
+            "parent_wrapper_ms": time_ms(parent_call, reps=20, warmup=3),
+            "new_wrapper_ms": time_ms(new_call, reps=20, warmup=3),
+            "parent_splits": splits, "new_splits": new_splits,
+            "parent_work_bytes": 4 * splits * n_t * (2 * m + 1),
+            "new_work_bytes": 4 * new_splits * n_t * (2 * width + 1),
+            "new_rel_err_f64": float(
+                (new_phi.double() - ref_phi).abs().max()) / scale,
+            "parent_rel_err_f64": float(
+                (old_phi.double() - ref_phi).abs().max()) / scale,
+            "counts_new_parent_f64": [new_cnt.tolist(), old_cnt.tolist(),
+                                      ref_cnt.tolist()],
+        }
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return {"parent_registers": regs, "rows": rows}
+
+
+def square_wide_main(args) -> int:
+    """--square-wide: square_wide's rows, JSON to --out."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    card = card_name()
+    print(card)
+    result = {"card": card, "torch": torch.__version__,
+              "square_wide": square_wide(torch.device("cuda"))}
+    out = Path(args.out or "chiprun_out/square_wide.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(card)
+    return 0
+
+
+#: --square-wide-breakdown's harness: the float32 wide square body
+#: (csrc/square_wide_sm90.cuh) under kernels of its own, K1's one RBF and
+#: the terms' FixedTerms<2> and AnyTerms at T = 3 and 8, launched on the
+#: package's plan without the finishing pass; built from a copy of csrc/
+#: whose header a variant rewrote. Not a kernel of the package.
+SQUARE_WIDE_BREAKDOWN_SOURCE = r"""
+#include "square_wide_sm90.cuh"
+using namespace svgd;
+template <int kT>
+__global__ void __launch_bounds__(kSqWideThreads)
+    bk_k1(const float* __restrict__ targets, const float* __restrict__ sources,
+          const float* __restrict__ scores, const float* __restrict__ gammas,
+          TermSigns sg, int nterms, const float* __restrict__ thr, int n_t,
+          int n_s, int w, int T, int chunk, float* __restrict__ work,
+          unsigned long long* __restrict__ counts) {
+  const OneRbf weights{-gammas[0] * kLog2e};
+  float* part = work + static_cast<size_t>(blockIdx.y) * n_t * (2 * w + 1);
+  square_wide_sm90_body<kT>(targets, sources, scores, weights, thr, n_t, n_s,
+                            w, T, chunk, part, counts);
+}
+template <int kT>
+__global__ void __launch_bounds__(kSqWideThreads, 1)
+    bk_terms(const float* __restrict__ targets,
+             const float* __restrict__ sources,
+             const float* __restrict__ scores,
+             const float* __restrict__ gammas, TermSigns sg, int nterms,
+             const float* __restrict__ thr, int n_t, int n_s, int w, int T,
+             int chunk, float* __restrict__ work,
+             unsigned long long* __restrict__ counts) {
+  float* part = work + static_cast<size_t>(blockIdx.y) * n_t * (2 * w + 1);
+  square_wide_sm90_body<kT>(targets, sources, scores,
+                            FixedTerms<2>(gammas, sg), thr, n_t, n_s, w, T,
+                            chunk, part, counts);
+}
+template <int kT>
+__global__ void __launch_bounds__(kSqWideThreads, 1)
+    bk_any(const float* __restrict__ targets,
+           const float* __restrict__ sources,
+           const float* __restrict__ scores,
+           const float* __restrict__ gammas, TermSigns sg, int nterms,
+           const float* __restrict__ thr, int n_t, int n_s, int w, int T,
+           int chunk, float* __restrict__ work,
+           unsigned long long* __restrict__ counts) {
+  __shared__ float sh_g2[kMaxTerms];
+  __shared__ float sh_sn[kMaxTerms];
+  __shared__ float sh_sg[kMaxTerms];
+  load_terms(gammas, sg, nterms, sh_g2, sh_sn, sh_sg);
+  float* part = work + static_cast<size_t>(blockIdx.y) * n_t * (2 * w + 1);
+  square_wide_sm90_body<kT>(targets, sources, scores,
+                            AnyTerms{sh_g2, sh_sn, sh_sg, nterms}, thr, n_t,
+                            n_s, w, T, chunk, part, counts);
+}
+using Kernel = void (*)(const float*, const float*, const float*,
+                        const float*, TermSigns, int, const float*, int, int,
+                        int, int, int, float*, unsigned long long*);
+// form 0: one RBF, 1: two terms (FixedTerms<2>), 2: any count (AnyTerms).
+extern "C" int bk_run(int form, int t8, const float* targets,
+                      const float* sources, const float* scores,
+                      const float* gammas, const float* thr, int n_t,
+                      int n_s, int w, int T, float* work, long long* counts,
+                      void* stream) {
+  const Kernel kernels[3][2] = {{bk_k1<3>, bk_k1<kMaxT>},
+                                {bk_terms<3>, bk_terms<kMaxT>},
+                                {bk_any<3>, bk_any<kMaxT>}};
+  int splits = 0;
+  const int chunk = sq_wide_chunk(n_t, n_s, w, &splits);
+  const SqWidePlan p = sq_wide_plan(w, form != 0);
+  const dim3 grid((n_t + p.rows - 1) / p.rows, splits, p.passes);
+  const float sv[2] = {1.0f, 1.0f};
+  const TermSigns sg = make_signs(sv, 2);
+  const Kernel kernel = kernels[form][t8];
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       p.smem);
+  kernel<<<grid, kSqWideThreads, p.smem, static_cast<cudaStream_t>(stream)>>>(
+      targets, sources, scores, gammas, sg, 2, thr, n_t, n_s, w, T, chunk,
+      work, reinterpret_cast<unsigned long long*>(counts));
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int bk_splits(int n_t, int n_s, int w) {
+  int splits = 0;
+  sq_wide_chunk(n_t, n_s, w, &splits);
+  return splits;
+}
+"""
+
+#: --square-wide-breakdown's variants of square_wide_sm90.cuh, (old, new)
+#: rewrites: the body as it is; its operands split by truncation (the
+#: float32 wide triangle's split_tf32) in place of the rounded split; every
+#: mma.sync under a guard of its block's validity (the form whose fences
+#: the body avoids); the Gram k-steps unrolled by two; and, one at a time,
+#: the contraction's products, the Gram tile's products and the copies
+#: taken out (results wrong; times only).
+SQUARE_WIDE_VARIANTS = {
+    "body": [],
+    "truncated split": [
+        ("big = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;",
+         "big = __float_as_uint(x) & 0xffffe000u;")],
+    "guarded mma": [
+        ("mma_3x(acc[i], kb, ks, bb0, bs0, bb1, bs1);",
+         "if (i < nbw) mma_3x(acc[i], kb, ks, bb0, bs0, bb1, bs1);"),
+        ("mma_3x(acc[i], ab, as, bb0, bs0, bb1, bs1);",
+         "if (i < nbw) mma_3x(acc[i], ab, as, bb0, bs0, bb1, bs1);"),
+        ("mma_tf32(acc_g[b], as, bb[b][0], bb[b][1]);",
+         "if (b < gcb) mma_tf32(acc_g[b], as, bb[b][0], bb[b][1]);"),
+        ("mma_tf32(acc_g[b], ab, bs[b][0], bs[b][1]);",
+         "if (b < gcb) mma_tf32(acc_g[b], ab, bs[b][0], bs[b][1]);"),
+        ("mma_tf32(acc_g[b], ab, bb[b][0], bb[b][1]);",
+         "if (b < gcb) mma_tf32(acc_g[b], ab, bb[b][0], bb[b][1]);")],
+    "gram unrolled by two": [
+        ("#pragma unroll 1\n        for (int ks = 0; 8 * ks < kn; ++ks)",
+         "#pragma unroll 2\n        for (int ks = 0; 8 * ks < kn; ++ks)")],
+    "no contraction mma": [
+        ("mma_3x(acc[i], kb, ks, bb0, bs0, bb1, bs1);",
+         "acc[i][0] += __uint_as_float(bb0 ^ bs1 ^ kb[0] ^ ks[1]);"),
+        ("mma_3x(acc[i], ab, as, bb0, bs0, bb1, bs1);",
+         "acc[i][0] += __uint_as_float(bb0 ^ bs1 ^ ab[0] ^ as[1]);")],
+    "no gram mma": [
+        ("mma_tf32(acc_g[b], as, bb[b][0], bb[b][1]);",
+         "acc_g[b][0] += __uint_as_float(bb[b][0] ^ as[1]);"),
+        ("mma_tf32(acc_g[b], ab, bs[b][0], bs[b][1]);",
+         "acc_g[b][1] += __uint_as_float(bs[b][0] ^ ab[1]);"),
+        ("mma_tf32(acc_g[b], ab, bb[b][0], bb[b][1]);",
+         "acc_g[b][2] += __uint_as_float(bb[b][1] ^ ab[2]);")],
+    "no copies": [
+        ("if (q + S - 1 < total) issue(q + S - 1);", ""),
+        ("if (q < total) issue(q);", "")],
+}
+
+#: --square-wide-breakdown's calls: (label, n, m, form), form 0 K1 (one
+#: RBF), 1 the terms kernel with two terms; the grid inputs about 100 at
+#: (1000, 123), where the split's rounding shows.
+SQUARE_WIDE_BREAKDOWN_CASES = (("K1", 1000, 123, 0), ("K1", 10000, 123, 0),
+                               ("K6/K7", 1500, 124, 1), ("K1", 1000, 256, 0),
+                               ("K1", 1000, 512, 0))
+
+
+def square_wide_breakdown(device):
+    """--square-wide-breakdown: each of SQUARE_WIDE_VARIANTS built in a
+    copy under _verify/square_wide_breakdown/ (all at once), its kernels'
+    registers and spill from ptxas, and its kernel-only us (CUDA events
+    over 30 launches after 3; 5 at n = 10,000) at
+    SQUARE_WIDE_BREAKDOWN_CASES, with K1's phi (the workspace finished in
+    float64) against the float64 plain version for the body and the
+    truncated split."""
+    import ctypes
+
+    import torch
+
+    from chip_smoke import grid_inputs
+    from svgdcpp_tpu_torch.ops.phi import phi_rbf_fused_counts
+    from svgdcpp_tpu_torch.utils.cuda_build import ARCH_FLAGS, find_nvcc
+
+    procs = {}
+    for name, rewrites in SQUARE_WIDE_VARIANTS.items():
+        dest = ROOT / "_verify" / "square_wide_breakdown" / re.sub(
+            r"\W+", "_", name)
+        shutil.rmtree(dest, ignore_errors=True)
+        shutil.copytree(ROOT / "svgdcpp_tpu_torch" / "csrc", dest)
+        header = dest / "square_wide_sm90.cuh"
+        text = header.read_text()
+        for old, new in rewrites:
+            if not text.count(old):
+                raise RuntimeError(f"square_wide_breakdown: {name}: no "
+                                   f"{old!r} in {header.name}")
+            text = text.replace(old, new)
+        header.write_text(text)
+        (dest / "breakdown.cu").write_text(SQUARE_WIDE_BREAKDOWN_SOURCE)
+        procs[name] = (dest, subprocess.Popen(
+            [find_nvcc() or "nvcc", *ARCH_FLAGS, "-std=c++17", "-O3",
+             "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v", "-o",
+             str(dest / "libbreakdown.so"), str(dest / "breakdown.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs, ptxas = {}, {}
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    for name, (dest, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"square_wide_breakdown: {name}:\n{out}")
+        ptxas[name] = {
+            f"{k}<{t}>": f"{regs} regs, {spill} B spill"
+            for k, t, spill, regs in re.findall(
+                r"Compiling entry function '_Z\d+(bk_\w+?)ILi(\d+)E.*?"
+                r"(\d+) bytes spill stores.*?Used (\d+) registers", out,
+                re.S)}
+        lib = ctypes.CDLL(str(dest / "libbreakdown.so"))
+        lib.bk_run.argtypes = [i32, i32] + [ptr] * 5 + [i32] * 4 + [ptr] * 3
+        lib.bk_run.restype = i32
+        lib.bk_splits.argtypes = [i32] * 3
+        libs[name] = lib
+        print(json.dumps({"variant": name, "ptxas": ptxas[name]}), flush=True)
+
+    rows = []
+    for label, n, m, form in SQUARE_WIDE_BREAKDOWN_CASES:
+        offset = 100.0 if (n, m) == (1000, 123) else 0.0
+        w = -(-m // 4) * 4
+        x, s, g, thr = grid_inputs(n, m, offset, 470 + m + n, device)
+        pad = (0, w - m)
+        xc = torch.nn.functional.pad(x - x.mean(dim=0), pad).contiguous()
+        sc = torch.nn.functional.pad(s, pad).contiguous()
+        gs = torch.stack([g.reshape(()), 0.5 * g.reshape(())])
+        splits = libs["body"].bk_splits(n, n, w)
+        work = torch.zeros((splits, n, 2 * w + 1), device=device)
+        counts = torch.zeros(thr.shape[0], dtype=torch.int64, device=device)
+        ref = None if form else phi_rbf_fused_counts(
+            x.double(), s.double(), g.double(), thr.double())[0]
+        row = {"kernel": label, "n": n, "m": m, "offset": offset,
+               "splits": splits, "kernel_us": {}, "rel_err_f64": {}}
+        for name, lib in libs.items():
+            def call():
+                rc = lib.bk_run(form, 0, xc.data_ptr(), xc.data_ptr(),
+                                sc.data_ptr(), gs.data_ptr(), thr.data_ptr(),
+                                n, n, w, thr.shape[0], work.data_ptr(),
+                                counts.data_ptr(),
+                                torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"{name}: bk_run returned {rc}")
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+            reps = 5 if n >= 10000 else 30
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(reps):
+                call()
+            end.record()
+            end.synchronize()
+            row["kernel_us"][name] = 1000.0 * start.elapsed_time(end) / reps
+            if ref is not None and name in ("body", "truncated split"):
+                work.zero_()
+                call()
+                acc = work.double().sum(dim=0)
+                d = acc[:, 2 * w:] * xc.double() - acc[:, w:2 * w]
+                phi = (acc[:, :w] + 2.0 * float(g) * d)[:, :m] / n
+                row["rel_err_f64"][name] = float(
+                    (phi - ref).abs().max() / ref.abs().max())
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return {"ptxas": ptxas, "rows": rows}
+
+
+def square_wide_breakdown_main(args) -> int:
+    """--square-wide-breakdown: square_wide_breakdown's rows, JSON to
+    --out."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    card = card_name()
+    print(card)
+    result = {"card": card, "torch": torch.__version__,
+              "square_wide_breakdown": square_wide_breakdown(
+                  torch.device("cuda"))}
+    out = Path(args.out or "chiprun_out/square_wide_breakdown.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(card)
+    return 0
+
+
 def wide_drift(device):
     """The float32 routes' distance from float64 at a9a's width (d = 123)
     and N = 10,000 over chip_smoke.py phase 43c's COMPARE_STEPS steps, and
@@ -2373,6 +2889,14 @@ def main() -> int:
                         help="only time K14's wide term groups, the "
                              "parent's kernel and the new one, beside the "
                              "rbf_terms sweep (no driver profile)")
+    parser.add_argument("--square-wide", action="store_true",
+                        help="only time the float32 wide square body (K1 "
+                             "and the terms square kernel past m = 64), the "
+                             "parent's and the new one (no driver profile)")
+    parser.add_argument("--square-wide-breakdown", action="store_true",
+                        help="only time variants of the float32 wide square "
+                             "body, each with one part changed (no driver "
+                             "profile)")
     parser.add_argument("--float32-check", action="store_true",
                         help="only time the float32 instances at their "
                              "main-path shapes, kernel-only (no driver "
@@ -2383,6 +2907,10 @@ def main() -> int:
         return bf16_main(args)
     if args.aniso_wide:
         return aniso_wide_main(args)
+    if args.square_wide:
+        return square_wide_main(args)
+    if args.square_wide_breakdown:
+        return square_wide_breakdown_main(args)
     if args.float32_check:
         return float32_check_main(args)
     if args.wide_drift:

@@ -246,7 +246,12 @@ forty-six phases, one line each (several for phases 2, 3, 7-9 and
      |phi| of the float64 plain version, counts equal to the float64 and
      float32 plain versions'; each instance's kernel us (profiler),
      wrapper ms, FP32 and tensor-core bounds, registers, spills and shared
-     memory; 43d the library's svgd_square_splits and svgd_sym_tile
+     memory; then the float32 wide square body (csrc/square_wide_sm90.cuh)
+     at m = 65, 123, 124, 256 and 512: K1 square at n = 127, 129, 1000 and
+     1500 and cross (700 x 1500), K6/K7 with two terms (FixedTerms<2>) and
+     three (AnyTerms) square and two cross, each held as above and called
+     twice, bit-identical, the same at (300, 600), in two passes, and its
+     instances' 0 bytes of spill; 43d the library's svgd_square_splits and svgd_sym_tile
      against sym_plan's at m = 65-512; 43b each kernel at 43c's shapes
      on grid inputs, held to its plain versions as in 43a (K1 at
      (1000, 123), K6/K7 at (1500, 124) two terms, and the triangle, the
@@ -977,17 +982,14 @@ def wide_cases(dev):
 WIDE_SYM_SMEM = 4 * (3 * 2 * 128 * 40 + 128 * 136 + 1032)
 WIDE_SYM_TERMS_SMEM = 4 * (2 * 2 * 128 * 40 + 2 * 128 * 136 + 1032)
 
-#: The wide bodies' shared memory (csrc/square_mma.cuh SqWide, static;
-#: csrc/wide_tri.cuh WideTri and WIDE_SYM_SMEM, dynamic), in bytes: the
-#: square body's union of 2 x 4224 floats and 32 norms (+ 48 term constants
-#: for any count of terms); wide_pair_body's 9216-float union, 8704 floats
-#: a weight tile and 256 norms and sums (K15's one tile); K14's single-term
-#: groups on the float32 wide triangle body's one-weight layout (its group
-#: 0 of two or more isotropic terms on the terms layout,
-#: WIDE_SYM_TERMS_SMEM + 192 B of static term constants).
-WIDE_SMEM = {"fused_phi_counts_square": 4 * (2 * 4224 + 32),
-             "fused_phi_terms_square": 4 * (2 * 4224 + 32),
-             "fused_phi_counts_sym": WIDE_SYM_SMEM,
+#: The wide bodies' shared memory (csrc/wide_tri.cuh WideTri and
+#: WIDE_SYM_SMEM, dynamic), in bytes: wide_pair_body's 9216-float union,
+#: 8704 floats a weight tile and 256 norms and sums (K15's one tile); K14's
+#: single-term groups on the float32 wide triangle body's one-weight layout
+#: (its group 0 of two or more isotropic terms on the terms layout,
+#: WIDE_SYM_TERMS_SMEM + 192 B of static term constants). The square
+#: kernels' (csrc/square_wide_sm90.cuh, dynamic) follows m: wide_smem.
+WIDE_SMEM = {"fused_phi_counts_sym": WIDE_SYM_SMEM,
              "fused_phi_counts_sym_chunk": WIDE_SYM_SMEM,
              "fused_phi_terms_sym": WIDE_SYM_TERMS_SMEM,
              "fused_phi_terms_sym_chunk": WIDE_SYM_TERMS_SMEM,
@@ -1024,6 +1026,19 @@ WIDE_INSTANCES = {"fused_phi_counts_square": ("counts_square<0,0,3>",),
                   "fused_phi_aniso_terms_wide": ("aniso_wide_groups<3>",
                                                  "aniso_wide_iso<3>"),
                   "phi_rbf_wide": ("rbf_wide",)}
+
+
+def wide_smem(kernel, m):
+    """A wide kernel's shared memory in bytes at dimension m: the square
+    kernels' from their plan (sym_plan.square_wide_plan; + 192 B of static
+    term constants for any count of terms), the others' WIDE_SMEM."""
+    from svgdcpp_tpu_torch.ops import sym_plan
+
+    if kernel == "fused_phi_counts_square":
+        return sym_plan.square_wide_plan(m).smem
+    if kernel == "fused_phi_terms_square":
+        return sym_plan.square_wide_plan(m).smem_terms
+    return WIDE_SMEM[kernel]
 
 
 def wide_bounds(kernel, n, m, terms, pairs=None, n_t=None):
@@ -1096,7 +1111,7 @@ def phase_wide_kernels(dev, card, clock, ptxas):
               f"kernel_us={k_us} wrapper_ms={wrapper:.4f} "
               f"bound_fp32_ms={fp_ms:.6g} ({fp_by}) bound_tensor_ms="
               f"{tc_ms:.6g} ({tc_by}) ptxas={json.dumps(regs)} "
-              f"smem_bytes={WIDE_SMEM[kernel]} {card} {clock()}")
+              f"smem_bytes={wide_smem(kernel, m)} {card} {clock()}")
     # 43d: the library's split count and tile side against sym_plan's.
     lib = cuda_phi.load_library()
     widths = (65, 66, 100, 123, 124, 127, 128, 129, 200, 256, 300, 511, 512)
@@ -1121,6 +1136,141 @@ def phase_wide_kernels(dev, card, clock, ptxas):
           f"(svgd_square_bf16_splits at {len(bf16_shapes)}) and svgd_sym_tile "
           f"at m = {list(widths)} equal sym_plan's")
     return errs, times
+
+
+#: Phase 43a's float32 wide square body (csrc/square_wide_sm90.cuh):
+#: K1 (square and the cross form WIDE_CROSS) and K6/K7 (FixedTerms<2>,
+#: and AnyTerms through three terms, one negative) at these m and n on grid
+#: inputs; its ptxas instances (T = 3 and any T <= 8; two terms and any
+#: count), none of which may spill; and the distance from float64 its
+#: parent body (square_wide_body) showed at (1000, 123), PR 16.
+WIDE_SQUARE_MS = (65, 123, 124, 256, 512)
+WIDE_SQUARE_NS = (127, 129, 1000, 1500)
+#: ... and past 128 column blocks (m > 512), where the body cuts the
+#: columns into passes along the grid's z and streams the target rows: n,
+#: m and the cross form's n_t.
+WIDE_SQUARE_PASSES = (300, 600, 100)
+WIDE_SQUARE_INSTANCES = ("counts_square<0,0,3>", "counts_square<0,0,8>",
+                         "terms_square<0,0,3,2>", "terms_square<0,0,3,0>",
+                         "terms_square<0,0,8,2>", "terms_square<0,0,8,0>")
+WIDE_SQUARE_PARENT_ERR = 8.8e-7
+
+
+def phase_wide_square(dev, card, clock, ptxas, errs):
+    """Phase 43a's float32 wide square body: K1 square at n =
+    WIDE_SQUARE_NS and cross (WIDE_CROSS), K6/K7 with two terms (the
+    FixedTerms<2> instance) and three (AnyTerms) square at the same n and
+    two terms cross, at m = WIDE_SQUARE_MS (T = 3; at n = 129 also T = 5,
+    the runtime-T instance), each held to its float64 and float32 plain
+    versions (wide_held: phi within WIDE_PHI_GATE of max |phi|, counts
+    equal; its max |dphi| into ``errs``) and called twice, bit-identical;
+    the same at WIDE_SQUARE_PASSES, past 128 column blocks (K1 square and
+    cross, K6/K7 with three terms). Then ptxas's registers, spill and
+    shared memory of each instance (WIDE_SQUARE_INSTANCES), none of which
+    may spill."""
+    import torch
+
+    from svgdcpp_tpu_torch.ops import cuda_phi, sym_plan
+    from svgdcpp_tpu_torch.ops.phi import (
+        phi_rbf_cross_fused_counts,
+        phi_rbf_fused_counts,
+        phi_rbf_terms_cross_fused_counts,
+        phi_rbf_terms_fused_counts,
+    )
+
+    def f64(*ts):
+        return [t.double() for t in ts]
+
+    worst, calls, at_123 = 0.0, 0, None
+
+    def held(label, kernel, call, want64, want32):
+        nonlocal worst, calls
+        got = call()
+        abs_err, rel = wide_held(f"43a {label}", got, want64, want32)
+        again = call()
+        torch.cuda.synchronize()
+        check(torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]),
+              f"phase 43a {label}: two calls differ")
+        errs[kernel] = max(errs.get(kernel, 0.0), abs_err)
+        worst = max(worst, rel)
+        calls += 1
+        return rel
+
+    k1, k67 = cuda_phi.SQUARE_KERNEL, cuda_phi.TERMS_SQUARE_KERNEL
+    for m in WIDE_SQUARE_MS:
+        for n in WIDE_SQUARE_NS:
+            x, s, g, thr = grid_inputs(n, m, 0.0, 4400 + n + m, dev)
+            ths = (thr, thresholds_of(thr, 5)) if n == 129 else (thr,)
+            for th in ths:
+                rel = held(
+                    f"K1 square ({n}, {m}) T={th.shape[0]}", k1,
+                    lambda: cuda_phi.phi_rbf_fused_cuda(x, s, g, th,
+                                                        sym=False),
+                    phi_rbf_fused_counts(*f64(x, s, g, th)),
+                    phi_rbf_fused_counts(x, s, g, th))
+                if (n, m) == (1000, 123):
+                    at_123 = f"{rel:.3e}"
+            for signs, gs in (((1.0, 1.0), [g, 0.5 * g]),
+                              ((1.0, -0.5, 1.0), [g, 0.5 * g, 2.0 * g])):
+                held(f"K6/K7 square ({n}, {m}) signs={signs}", k67,
+                     lambda: cuda_phi.phi_rbf_terms_fused_cuda(
+                         x, s, gs, signs, thr, sym=False),
+                     phi_rbf_terms_fused_counts(*f64(x, s), f64(*gs), signs,
+                                                thr.double()),
+                     phi_rbf_terms_fused_counts(x, s, gs, signs, thr))
+        n_t, n_s = WIDE_CROSS
+        xs, ss, g, thr = grid_inputs(n_s, m, 0.0, 4500 + m, dev)
+        xt = grid_inputs(n_t, m, 0.0, 4600 + m, dev)[0]
+        held(f"K1 cross ({n_t} x {n_s}, {m})", k1,
+             lambda: cuda_phi.phi_rbf_fused_cuda_cross(xt, xs, ss, g, thr),
+             phi_rbf_cross_fused_counts(*f64(xt, xs, ss, g, thr)),
+             phi_rbf_cross_fused_counts(xt, xs, ss, g, thr))
+        signs, gs = (1.0, 1.0), [g, 0.5 * g]
+        held(f"K6/K7 cross ({n_t} x {n_s}, {m})", k67,
+             lambda: cuda_phi.phi_rbf_terms_fused_cuda_cross(
+                 xt, xs, ss, gs, signs, thr),
+             phi_rbf_terms_cross_fused_counts(*f64(xt, xs, ss), f64(*gs),
+                                              signs, thr.double()),
+             phi_rbf_terms_cross_fused_counts(xt, xs, ss, gs, signs, thr))
+    n, m, n_t = WIDE_SQUARE_PASSES
+    x, s, g, thr = grid_inputs(n, m, 0.0, 4700, dev)
+    xt = grid_inputs(n_t, m, 0.0, 4701, dev)[0]
+    signs, gs = (1.0, -0.5, 1.0), [g, 0.5 * g, 2.0 * g]
+    held(f"K1 square ({n}, {m}), {sym_plan.square_wide_plan(m).passes} "
+         f"passes", k1,
+         lambda: cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=False),
+         phi_rbf_fused_counts(*f64(x, s, g, thr)),
+         phi_rbf_fused_counts(x, s, g, thr))
+    held(f"K1 cross ({n_t} x {n}, {m})", k1,
+         lambda: cuda_phi.phi_rbf_fused_cuda_cross(xt, x, s, g, thr),
+         phi_rbf_cross_fused_counts(*f64(xt, x, s, g, thr)),
+         phi_rbf_cross_fused_counts(xt, x, s, g, thr))
+    held(f"K6/K7 square ({n}, {m}) signs={signs}", k67,
+         lambda: cuda_phi.phi_rbf_terms_fused_cuda(x, s, gs, signs, thr,
+                                                   sym=False),
+         phi_rbf_terms_fused_counts(*f64(x, s), f64(*gs), signs,
+                                    thr.double()),
+         phi_rbf_terms_fused_counts(x, s, gs, signs, thr))
+    print(f"phase 43a square: ok {calls} calls of the float32 wide square "
+          f"body (K1 square and cross, K6/K7 two and three terms) at "
+          f"m = {list(WIDE_SQUARE_MS)}, n = {list(WIDE_SQUARE_NS)} and "
+          f"{WIDE_CROSS[0]} x {WIDE_CROSS[1]}, and in passes at "
+          f"({n}, {m}): within {worst:.3e} of max "
+          f"|phi| from float64 (K1 (1000, 123): {at_123}; the parent "
+          f"body's {WIDE_SQUARE_PARENT_ERR:.1e}), counts equal, two calls "
+          f"bit-identical {card} {clock()}")
+    report = {inst: ptxas.get(inst, "?") for inst in WIDE_SQUARE_INSTANCES}
+    spilled = [inst for inst, text in report.items()
+               if not text.endswith(" 0 B spill")]
+    check(not spilled, f"phase 43a: the wide square body's instances spill "
+                       f"or were not found in the build log: "
+                       f"{ {i: report[i] for i in spilled} }")
+    smem = {m: (sym_plan.square_wide_plan(m).smem,
+                sym_plan.square_wide_plan(m).smem_terms)
+            for m in WIDE_SQUARE_MS}
+    print(f"phase 43a square ptxas: ok {json.dumps(report)} dynamic "
+          f"smem_bytes (one RBF, terms) by m {json.dumps(smem)}; one block "
+          f"of 512 threads an SM")
 
 
 def phase_wide_edges(dev, card, clock, ptxas, errs):
@@ -1799,7 +1949,7 @@ def phase_wide_p_kernels(dev, card, clock, ptxas):
               f"{extra} kernel_us={k_us} wrapper_ms={wrapper:.4f} "
               f"bound_fp32_ms={fp_ms:.6g} ({fp_by}) bound_tensor_ms="
               f"{tc_ms:.6g} ({tc_by}) ptxas={json.dumps(regs)} "
-              f"smem_bytes={WIDE_SMEM[kernel]} {card} {clock()}")
+              f"smem_bytes={wide_smem(kernel, m)} {card} {clock()}")
     return errs
 
 
@@ -5386,6 +5536,7 @@ def main() -> int:
 
     # -- phase 43: the wide sweeps (m > 64) -----------------------------------
     wide_errs, _ = phase_wide_kernels(dev, card, clock, ptxas)
+    phase_wide_square(dev, card, clock, ptxas, wide_errs)
     phase_wide_edges(dev, card, clock, ptxas, wide_errs)
     times43 = phase_wide_rule(dev, card, clock, plain_ms, wide_errs)
     main43 = phase_wide_paths(dev, card, clock)

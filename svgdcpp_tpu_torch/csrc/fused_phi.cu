@@ -29,9 +29,10 @@
 // (sweep_common.cuh), the square sweep exact CUDA-core instances for
 // m = 1..4 and tensor-core ones past them (SVGD_DISPATCH_SQ_MMA); past
 // m = 64 both take their wide instance (MM = kWideMM), whose body holds
-// nothing sized by m: square_wide_body (square_mma.cuh) and
-// wide_tri_sm90_body (wide_tri_sm90.cuh), both on the tensor cores. ptxas's report (-Xptxas -v,
-// kept in the build log) says whether an instance spills.
+// nothing sized by m: square_wide_sm90_body (square_wide_sm90.cuh) and
+// wide_tri_sm90_body (wide_tri_sm90.cuh), both on the tensor cores, their
+// rows padded by the wrappers to a multiple of 4 floats. ptxas's report
+// (-Xptxas -v, kept in the build log) says whether an instance spills.
 //
 // The bfloat16 operand opt-in (the JAX package's dot_dtype='bfloat16',
 // pallas_phi.py:406 and :619) has instances of its own, at every m >= 1:
@@ -53,6 +54,7 @@
 #include "micro_tile.cuh"
 #include "square_mma.cuh"
 #include "bf16_tri_sm90.cuh"
+#include "square_wide_sm90.cuh"
 #include "wide_tri.cuh"
 #include "wide_tri_sm90.cuh"
 
@@ -78,7 +80,10 @@ using namespace svgd;
 // the finishing pass) and bodies with one RBF's weights: up to m = 4
 // square_cuda_body (a row a thread, partials [KS | D]), from m = 5
 // (kSquareTensorMinM) square_mma_body with K1's one packed band
-// K . [S | X | 1] (partials [KS | KX | rowsum]). The terms kernel
+// K . [S | X | 1] (partials [KS | KX | rowsum]), past m = 64
+// square_wide_sm90_body (square_wide_sm90.cuh: the target rows resident,
+// the sources through a cp.async ring, every accumulator column in
+// registers over the block's source range). The terms kernel
 // (fused_phi_terms.cu) runs the same bodies with two weights.
 // ---------------------------------------------------------------------------
 
@@ -110,9 +115,10 @@ __global__ void __launch_bounds__(kSqThreads)
 }
 
 // The tensor-core body, kT thresholds (3, or kMaxT for a runtime T); the
-// wide body (square_wide_body) at MM = kWideMM, any m past kMaxM.
+// wide body (square_wide_sm90_body, 512 threads) at MM = kWideMM, any m
+// past kMaxM, m_arg being the padded row width there.
 template <int MM, bool kExact, int kT>
-__global__ void __launch_bounds__(kSqMmaThreads)
+__global__ void __launch_bounds__(SqThreads<MM>::value)
     fused_phi_counts_square_kernel(const float* __restrict__ targets,
                                    const float* __restrict__ sources,
                                    const float* __restrict__ scores,
@@ -125,8 +131,8 @@ __global__ void __launch_bounds__(kSqMmaThreads)
   const OneRbf weights{-gamma[0] * kLog2e};
   float* part = work + static_cast<size_t>(blockIdx.y) * n_t * w;
   if constexpr (MM == kWideMM) {
-    square_wide_body<kT>(targets, sources, scores, weights, thr, n_t, n_s,
-                         m_arg, T, chunk, part, counts);
+    square_wide_sm90_body<kT>(targets, sources, scores, weights, thr, n_t,
+                              n_s, m_arg, T, chunk, part, counts);
   } else {
     square_mma_body<MM, kExact, kT>(targets, sources, scores, weights, thr,
                                     n_t, n_s, m_arg, T, chunk, part, counts);
@@ -175,12 +181,13 @@ int launch_square_mma(const float* targets, const float* sources,
                       const float* thr, int n_t, int n_s, int m, int T,
                       int chunk, int splits, float* work,
                       unsigned long long* counts, cudaStream_t s) {
-  // The wide body's shared memory is static; its column chunks go along
-  // the grid's z.
+  // The wide body's plan: its rows a block, its passes along the grid's z
+  // (1 up to m = 512) and its dynamic shared memory.
   constexpr bool wide = MM == kWideMM;
-  constexpr size_t smem = wide ? 0 : SqMma<MM>::kSmemBytes;
-  const dim3 grid((n_t + kSqMmaRows - 1) / kSqMmaRows, splits,
-                  wide ? wide_square_chunks(m, false) : 1);
+  const SqWidePlan wp = sq_wide_plan(wide ? m : 4, false);
+  const size_t smem = wide ? wp.smem : SqMma<MM>::kSmemBytes;
+  const int rows = wide ? wp.rows : kSqMmaRows;
+  const dim3 grid((n_t + rows - 1) / rows, splits, wide ? wp.passes : 1);
   auto go = [&](auto kt) {
     constexpr int kT = decltype(kt)::value;
     auto* kernel = &fused_phi_counts_square_kernel<MM, kExact, kT>;
@@ -190,9 +197,9 @@ int launch_square_mma(const float* targets, const float* sources,
           static_cast<int>(smem));
       if (rc != cudaSuccess) return static_cast<int>(rc);
     }
-    kernel<<<grid, kSqMmaThreads, smem, s>>>(targets, sources, scores, gamma,
-                                             thr, n_t, n_s, m, T, chunk, work,
-                                             counts);
+    kernel<<<grid, SqThreads<MM>::value, smem, s>>>(
+        targets, sources, scores, gamma, thr, n_t, n_s, m, T, chunk, work,
+        counts);
     return 0;
   };
   return T == 3 ? go(std::integral_constant<int, 3>{})
@@ -368,12 +375,14 @@ extern "C" {
 
 // The number of source splits of a square/cross launch (the workspace's
 // first dimension) for n_t targets, n_s sources and dimension m, of K1's
-// and of the terms kernel's alike (square_mma.cuh's plan); -1 for
-// arguments the sweeps do not take. ops/sym_plan.square_splits mirrors it.
+// and of the terms kernel's alike (square_mma.cuh's plan up to kMaxM,
+// square_wide_sm90.cuh's past it, at the row width m padded to a multiple
+// of 4); -1 for arguments the sweeps do not take. ops/sym_plan.square_splits
+// mirrors it.
 int svgd_square_splits(int n_t, int n_s, int m) {
   if (n_t <= 0 || n_s <= 0 || m < 1) return -1;
   int splits = 0;
-  square_chunk(n_t, n_s, m >= kSquareTensorMinM, &splits);
+  square_plan_chunk(n_t, n_s, m, &splits);
   return splits;
 }
 
@@ -383,7 +392,9 @@ int svgd_square_splits(int n_t, int n_s, int m) {
 // zeroed int64; work a float32 workspace of (splits, n_t, 2m + 1), splits
 // being svgd_square_splits(n_t, n_s, m). m >= 1, 1 <= T <= 8. From
 // m = kSquareTensorMinM the body copies sources and scores 16 bytes at a
-// time (cp.async): both must start on a 16-byte boundary.
+// time (cp.async): both must start on a 16-byte boundary; past m = 64 the
+// targets too, and m must be a multiple of 4 (the wrappers pad the rows
+// with zero columns; phi then has the padded width, its padded columns 0).
 int svgd_fused_phi_counts_square(const float* targets, const float* sources,
                                  const float* scores, const float* gamma,
                                  const float* thr, int n_t, int n_s, int m,
@@ -397,8 +408,12 @@ int svgd_fused_phi_counts_square(const float* targets, const float* sources,
                   reinterpret_cast<uintptr_t>(scores)) & 15u) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (m > kMaxM && (!wide_rows_ok(m, sources, scores) ||
+                    (reinterpret_cast<uintptr_t>(targets) & 15u) != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   int want = 0;
-  const int chunk = square_chunk(n_t, n_s, tensor, &want);
+  const int chunk = square_plan_chunk(n_t, n_s, m, &want);
   if (splits != want) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* c = reinterpret_cast<unsigned long long*>(counts);

@@ -84,6 +84,7 @@
 
 #include "micro_tile.cuh"
 #include "square_mma.cuh"
+#include "square_wide_sm90.cuh"
 #include "wide_tri_sm90.cuh"
 
 #define SVGD_TERMS_SYM_KERNEL fused_phi_terms_sym_kernel
@@ -264,7 +265,9 @@ void launch_terms_sym(bool chunk, const float* coords, const float* scores,
 // The terms' constants sit in registers for two terms (FixedTerms<2>) and
 // in shared memory for any other count (AnyTerms); tensor-core instances
 // take T = 3 or any T <= 8 (kT 3 or kMaxT), at MM = 8, 11, 16, 32, 50, 64
-// (SVGD_DISPATCH_SQ_MMA).
+// (SVGD_DISPATCH_SQ_MMA). Past m = 64 square_wide_sm90_body
+// (square_wide_sm90.cuh) with a weight tile each for k_c and w, the record
+// [S | 0.. | X | 0..] in two bands and the row sum of w from the weights.
 // ---------------------------------------------------------------------------
 
 // The CUDA-core body, at exactly MM coordinates, NTerms terms (2 in
@@ -297,12 +300,13 @@ __global__ void __launch_bounds__(kSqThreads)
 }
 
 // The tensor-core body: kT thresholds (3, or kMaxT for a runtime T), NTerms
-// terms as above; the wide body (square_wide_body) at MM = kWideMM, any m
-// past kMaxM. The minimum of one block an SM changes ptxas's register
-// target: without it, <MM = 8, T = 8, two terms> spilled 4 bytes at 72
-// registers; with it no instance spills (PERF.md, section 6).
+// terms as above; the wide body (square_wide_sm90_body, 512 threads) at
+// MM = kWideMM, any m past kMaxM, m_arg being the padded row width there.
+// The minimum of one block an SM changes ptxas's register target: without
+// it, <MM = 8, T = 8, two terms> spilled 4 bytes at 72 registers; with it
+// no instance spills (PERF.md, section 6).
 template <int MM, bool kExact, int kT, int NTerms>
-__global__ void __launch_bounds__(kSqMmaThreads, 1)
+__global__ void __launch_bounds__(SqThreads<MM>::value, 1)
     fused_phi_terms_square_kernel(const float* __restrict__ targets,
                                   const float* __restrict__ sources,
                                   const float* __restrict__ scores,
@@ -316,8 +320,8 @@ __global__ void __launch_bounds__(kSqMmaThreads, 1)
   float* part = work + static_cast<size_t>(blockIdx.y) * n_t * w;
   auto body = [&](const auto& weights) {
     if constexpr (MM == kWideMM) {
-      square_wide_body<kT>(targets, sources, scores, weights, thr, n_t, n_s,
-                           m_arg, T, chunk, part, counts);
+      square_wide_sm90_body<kT>(targets, sources, scores, weights, thr, n_t,
+                                n_s, m_arg, T, chunk, part, counts);
     } else {
       square_mma_body<MM, kExact, kT>(targets, sources, scores, weights,
                                       thr, n_t, n_s, m_arg, T, chunk, part,
@@ -354,12 +358,13 @@ int launch_terms_square_mma(const float* targets, const float* sources,
                             const float* thr, int n_t, int n_s, int m, int T,
                             int chunk, int splits, float* work,
                             unsigned long long* counts, cudaStream_t s) {
-  // The wide body's shared memory is static; its column chunks go along
-  // the grid's z.
+  // The wide body's plan: its rows a block, its passes along the grid's z
+  // (1 up to m = 512) and its dynamic shared memory.
   constexpr bool wide = MM == kWideMM;
-  constexpr size_t smem = wide ? 0 : SqMma<MM, true>::kSmemBytes;
-  const dim3 grid((n_t + kSqMmaRows - 1) / kSqMmaRows, splits,
-                  wide ? wide_square_chunks(m, true) : 1);
+  const SqWidePlan wp = sq_wide_plan(wide ? m : 4, true);
+  const size_t smem = wide ? wp.smem : SqMma<MM, true>::kSmemBytes;
+  const int rows = wide ? wp.rows : kSqMmaRows;
+  const dim3 grid((n_t + rows - 1) / rows, splits, wide ? wp.passes : 1);
   auto go = [&](auto kt, auto nt) {
     constexpr int kT = decltype(kt)::value;
     constexpr int NTerms = decltype(nt)::value;
@@ -370,9 +375,9 @@ int launch_terms_square_mma(const float* targets, const float* sources,
           static_cast<int>(smem));
       if (rc != cudaSuccess) return static_cast<int>(rc);
     }
-    kernel<<<grid, kSqMmaThreads, smem, s>>>(targets, sources, scores, gammas,
-                                             sg, nterms, thr, n_t, n_s, m, T,
-                                             chunk, work, counts);
+    kernel<<<grid, SqThreads<MM>::value, smem, s>>>(
+        targets, sources, scores, gammas, sg, nterms, thr, n_t, n_s, m, T,
+        chunk, work, counts);
     return 0;
   };
   auto terms = [&](auto kt) {
@@ -395,7 +400,9 @@ extern "C" {
 // workspace of (splits, n_t, 2m + 1), splits being svgd_square_splits(n_t,
 // n_s, m) (fused_phi.cu). m >= 1, 1 <= nterms <= 16, 1 <= T <= 8.
 // From m = kSquareTensorMinM the body copies sources and scores 16 bytes at
-// a time (cp.async): both must start on a 16-byte boundary.
+// a time (cp.async): both must start on a 16-byte boundary; past m = 64 the
+// targets too, and m must be a multiple of 4 (the wrappers pad the rows
+// with zero columns; phi then has the padded width, its padded columns 0).
 int svgd_fused_phi_terms_square(const float* targets, const float* sources,
                                 const float* scores, const float* gammas,
                                 const float* signs, int nterms,
@@ -411,8 +418,12 @@ int svgd_fused_phi_terms_square(const float* targets, const float* sources,
                   reinterpret_cast<uintptr_t>(scores)) & 15u) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (m > kMaxM && (!wide_rows_ok(m, sources, scores) ||
+                    (reinterpret_cast<uintptr_t>(targets) & 15u) != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   int want = 0;
-  const int chunk = square_chunk(n_t, n_s, tensor, &want);
+  const int chunk = square_plan_chunk(n_t, n_s, m, &want);
   if (splits != want) return static_cast<int>(cudaErrorInvalidValue);
   const TermSigns sg = make_signs(signs, nterms);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -73,9 +73,11 @@
 //     The accumulators stay in MMA fragments, 4 floats a thread per 8
 //     columns, the target rows in A fragments (TF32 pairs), so no thread
 //     holds the 3m floats of a row.
-//   * m > 64 (kMaxM), square_wide_body: the same arithmetic with nothing
-//     sized by m, the Gram tile over slices of coordinates and the
-//     accumulator in column chunks along the grid's z (see its section).
+//   * m > 64 (kMaxM), square_wide_sm90.cuh's square_wide_sm90_body: the
+//     same arithmetic laid out for Hopper, with a launch plan of its own
+//     (square_plan_chunk). square_wide_body below, the Gram tile over
+//     slices of coordinates and the accumulator in column chunks along the
+//     grid's z, serves K1's bfloat16 instance at every m.
 //
 // The body copies sources and scores 16 bytes at a time: both must start
 // on a 16-byte boundary (the C entries refuse others).
@@ -597,8 +599,13 @@ __device__ __forceinline__ void square_mma_body(
 }
 
 // ---------------------------------------------------------------------------
-// The wide body (m > kMaxM)
+// The Gram-form body of K1's bfloat16 instance
 // ---------------------------------------------------------------------------
+//
+// Past kMaxM the float32 instances run square_wide_sm90.cuh's body; this
+// one serves K1's bf16 instance (kBf16) at every m. Its float32 form
+// (kBf16 = false) is what those instances ran before, which
+// chip_profile.py --square-wide builds as the parent to time beside them.
 //
 // square_mma_body holds a warp's 16 target rows as A fragments (8 registers
 // for each of ceil(m/8) k-steps) and 4 accumulator registers for each of
@@ -953,7 +960,7 @@ constexpr int kSqFinishThreads = 256;
 
 // The tensor-core instance that serves m >= kSquareTensorMinM: MM = 8 up to
 // m = 8, the exact ones at m = 11 and 50, 16, 32, 64 up to kMaxM, and the
-// wide body's (MM = kWideMM) past it.
+// wide one (MM = kWideMM, square_wide_sm90.cuh's body) past it.
 #define SVGD_DISPATCH_SQ_MMA(m, LAUNCH)                                 \
   switch (m) {                                                          \
     case 11: LAUNCH(11, true); break;                                   \

@@ -9,8 +9,10 @@ package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
     (K1), the square/cross sweep (each target row against every source):
     the sources split over the grid and summed in order by a finishing
     pass, one row a thread on the CUDA cores up to m = 4, the Gram tile and
-    the contraction on the tensor cores in 3xTF32 above, past m = 64 in
-    slices of coordinates and chunks of columns (``csrc/square_mma.cuh``).
+    the contraction on the tensor cores in 3xTF32 above
+    (``csrc/square_mma.cuh``), past m = 64 a block's target rows resident,
+    the sources through a ``cp.async`` ring and every accumulator column in
+    registers over its source range (``csrc/square_wide_sm90.cuh``).
   * ``fused_phi_counts_sym``    (``csrc/fused_phi.cu``) -- ``_sym_kernel``
     (K2), the upper-triangle sweep over one particle set (each unordered
     pair once, both directions; on ``csrc/micro_tile.cuh``'s body at
@@ -67,7 +69,7 @@ distances at or below each threshold, like
 their plain versions; ``phi_rbf_square`` returns phi, like
 ``ops/phi.phi_rbf_blocked``. Every sweep and the count kernel take any
 m >= 1: past MAX_M = 64 the sweeps run wide bodies that hold nothing sized
-by m (``csrc/square_mma.cuh``'s ``square_wide_body``,
+by m (``csrc/square_wide_sm90.cuh``'s for the float32 square sweeps,
 ``csrc/wide_tri_sm90.cuh``'s body for the float32 triangles and K14's
 groups, ``csrc/wide_tri.cuh``'s for K15, and which the panels run on the
 tile pairs of a panel). ``sym_eigen`` alone takes 1 <= m <= MAX_M:
@@ -501,10 +503,14 @@ def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq,
     splits (``svgd_square_splits``, one rule for both kernels;
     ``svgd_square_bf16_splits`` for K1's bf16 instance) and the wrapper
     allocates the workspace of the splits' partial sums,
-    (splits, n_t, 2m + 1), which the kernel's finishing pass sums in
+    (splits, n_t, 2w + 1), which the kernel's finishing pass sums in
     order. From m = 5 both kernels' tensor-core body copies sources and
     scores 16 bytes at a time, so a scores view that starts off a 16-byte
-    boundary is copied first."""
+    boundary is copied first. Past MAX_M the float32 instances take rows of
+    ``w = wide_row_width(m)`` floats (targets, sources and scores padded
+    with zero columns, which add nothing to sq, KS or KX, so that every row
+    of the wide body's 16-byte copies starts aligned), and phi is cut back
+    to m columns; elsewhere w = m."""
     g, thr = _device_operands(sources, scores, gammas, thresholds_sq)
     if targets.ndim != 2 or targets.shape[1] != sources.shape[1]:
         raise ValueError("targets must be (n_t, m) with the sources' m")
@@ -518,16 +524,22 @@ def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq,
     tgt_c = (targets.to(torch.float32) - center).contiguous()
     src_c = (src32 - center).contiguous()
     sc32 = scores.to(torch.float32).contiguous()
+    width = m if bf16 else wide_row_width(m)
+    if width != m:
+        pad = (0, width - m)
+        tgt_c, src_c, sc32 = (torch.nn.functional.pad(v, pad)
+                              for v in (tgt_c, src_c, sc32))
     if sc32.data_ptr() % 16:
         sc32 = sc32.clone()
-    phi = torch.empty((n_t, m), dtype=torch.float32, device=targets.device)
+    phi = torch.empty((n_t, width), dtype=torch.float32,
+                      device=targets.device)
     counts = torch.zeros(thr.shape[0], dtype=torch.int64, device=targets.device)
     lib = load_library()
     with torch.cuda.device(targets.device):
         stream = torch.cuda.current_stream().cuda_stream
         splits = (lib.svgd_square_bf16_splits if bf16
-                  else lib.svgd_square_splits)(n_t, n_s, m)
-        work = torch.empty((splits, n_t, 2 * m + 1), dtype=torch.float32,
+                  else lib.svgd_square_splits)(n_t, n_s, width)
+        work = torch.empty((splits, n_t, 2 * width + 1), dtype=torch.float32,
                            device=targets.device)
         if bf16:
             name = SQUARE_BF16_KERNEL
@@ -541,7 +553,7 @@ def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq,
             name = SQUARE_KERNEL
             rc = lib.svgd_fused_phi_counts_square(
                 tgt_c.data_ptr(), src_c.data_ptr(), sc32.data_ptr(),
-                g.data_ptr(), thr.data_ptr(), n_t, n_s, m, thr.shape[0],
+                g.data_ptr(), thr.data_ptr(), n_t, n_s, width, thr.shape[0],
                 phi.data_ptr(), counts.data_ptr(), work.data_ptr(), splits,
                 stream,
             )
@@ -550,12 +562,12 @@ def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq,
             rc = lib.svgd_fused_phi_terms_square(
                 tgt_c.data_ptr(), src_c.data_ptr(), sc32.data_ptr(),
                 g.data_ptr(), _host_signs(signs, g.shape[0]), g.shape[0],
-                thr.data_ptr(), n_t, n_s, m, thr.shape[0], phi.data_ptr(),
+                thr.data_ptr(), n_t, n_s, width, thr.shape[0], phi.data_ptr(),
                 counts.data_ptr(), work.data_ptr(), splits, stream,
             )
     _check_launch(rc, name)
     launch_counts[name] += 1
-    return phi.to(targets.dtype), counts
+    return phi[:, :m].to(targets.dtype).contiguous(), counts
 
 
 def _bf16_operands(coords, scores, panel=False, panel_blocks=None):

@@ -40,6 +40,7 @@ super-block width its CUDA panel kernels use, is ``card_panel_plan``.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 #: The triangle forms from this many particles up (``_SYM_MIN_N``).
 SYM_MIN_N = 2048
@@ -579,7 +580,10 @@ def square_tensor(m: int, bf16: bool = False) -> bool:
 def square_chunk(n_t: int, n_s: int, m: int, bf16: bool = False) -> int:
     """The sources of one split of a square launch: whole tiles of
     SQUARE_GRAIN, as few as keep about SQUARE_BLOCKS blocks on the card
-    (``square_chunk`` of csrc/square_mma.cuh)."""
+    (``square_chunk`` of csrc/square_mma.cuh); past KERNEL_MAX_M the
+    float32 wide body's rule (:func:`square_wide_chunk`)."""
+    if m > KERNEL_MAX_M and not bf16:
+        return square_wide_chunk(n_t, n_s, m)
     rows = (SQUARE_ROWS_TENSOR if square_tensor(m, bf16)
             else SQUARE_ROWS_CUDA_CORES)
     row_blocks = -(-n_t // rows)
@@ -594,11 +598,103 @@ def square_splits(n_t: int, n_s: int, m: int, bf16: bool = False) -> int:
     arguments the sweeps do not take: the Python copy of the library's
     ``svgd_square_splits`` (``bf16``: ``svgd_square_bf16_splits``, K1's
     bf16 instance), which the wrapper reads on the card and the card's
-    smoke test holds this copy to. Past KERNEL_MAX_M the wide body keeps
-    the tensor-core body's plan, as the bf16 instance does at every m."""
+    smoke test holds this copy to. Past KERNEL_MAX_M the float32 wide
+    body's plan (:func:`square_wide_chunk`, at the padded row width); the
+    bf16 instance keeps the tensor-core body's plan at every m."""
     if n_t <= 0 or n_s <= 0 or m < 1:
         return -1
     return -(-n_s // square_chunk(n_t, n_s, m, bf16))
+
+
+# ----------------------------------------------------------------------
+# The float32 wide square body (csrc/square_wide_sm90.cuh): K1 and the
+# terms square kernel (K6/K7's port) past KERNEL_MAX_M
+# ----------------------------------------------------------------------
+
+#: Its sources a tile (the split grain, ``kSqWideTile``), its ring's stages
+#: (``kSqWideStages``), the SMs whose waves its split rule fills
+#: (``kSqWideSms``), its Gram slices' and weight tiles' strides
+#: (``kSqWideSliceLd``, ``kSqWideWLd``), its accumulator blocks a warp
+#: (``kSqWideAcc``) and its warps (``kSqWideWarps``).
+SQUARE_WIDE_TILE = 64
+SQUARE_WIDE_STAGES = 4
+SQUARE_WIDE_SMS = 132
+SQUARE_WIDE_SLICE_LD = 68
+SQUARE_WIDE_W_LD = 68
+SQUARE_WIDE_ACC = 8
+SQUARE_WIDE_WARPS = 16
+
+
+class SquareWidePlan(NamedTuple):
+    """The float32 wide square body's layout at row width ``width``
+    (``sq_wide_plan``): the coordinates' first record column ``xo`` (the
+    record [S | 0.. | X | 0..]), its 8-column blocks ``blocks``, the target
+    rows a block ``rows``, the blocks a pass ``cap`` and the passes along
+    the grid's z, whether the target rows stream with the Gram slices
+    (``streamed``: past one pass) and the dynamic shared memory in bytes
+    with one weight tile (``smem``) or two (``smem_terms``)."""
+    width: int
+    xo: int
+    blocks: int
+    rows: int
+    cap: int
+    passes: int
+    streamed: bool
+    smem: int
+    smem_terms: int
+
+
+def square_wide_plan(m: int) -> SquareWidePlan:
+    """The float32 wide square body's layout for dimension m (its row
+    width ``wide_row_width(m)``): 64 target rows a block up to 32 column
+    blocks of the record, 32 up to 64, 16 above, every column's
+    accumulator in registers over the block's source range, in one pass up
+    to 128 blocks (m <= 512)."""
+    w = -(-m // WIDE_ROW_ALIGN) * WIDE_ROW_ALIGN
+    xo = 8 * -(-w // 8)
+    blocks = -(-(xo + w) // 8)
+    rows = 64 if blocks <= 32 else 32 if blocks <= 64 else 16
+    cap = SQUARE_WIDE_WARPS * SQUARE_WIDE_ACC * 16 // rows
+    passes = -(-blocks // cap)
+    streamed = passes > 1
+    cols = 8 * min(cap, blocks)
+    slab = 16 if cols <= 256 else 8
+    ldr = 16 * -(-cols // 16) + 8
+    lt = xo + (4 - xo) % 32
+    stage = max((SQUARE_WIDE_TILE + (rows if streamed else 0))
+                * SQUARE_WIDE_SLICE_LD, slab * ldr)
+    # Floats: the ring, the resident targets, the row sums' 256 partials
+    # and the kMaxT = 8 thresholds; then a weight tile each; bytes: each
+    # warp's 8 64-bit counts.
+    base = (SQUARE_WIDE_STAGES * stage + (0 if streamed else rows * lt)
+            + 256 + 8)
+    tile = rows * SQUARE_WIDE_W_LD
+    counts = 8 * SQUARE_WIDE_WARPS * 8
+    return SquareWidePlan(w, xo, blocks, rows, cap, passes, streamed,
+                          4 * (base + tile) + counts,
+                          4 * (base + 2 * tile) + counts)
+
+
+def square_wide_chunk(n_t: int, n_s: int, m: int) -> int:
+    """The sources of one split of the float32 wide square launch
+    (``sq_wide_chunk``): whole tiles of SQUARE_WIDE_TILE, the count per
+    split that minimises the waves of SQUARE_WIDE_SMS blocks (target
+    blocks x splits x passes) times the tiles a block sweeps plus one, the
+    fewest splits among equals."""
+    plan = square_wide_plan(m)
+    row_blocks = -(-n_t // plan.rows)
+    tiles = -(-n_s // SQUARE_WIDE_TILE)
+    best = None
+    for s in range(1, min(tiles, SQUARE_WIDE_SMS) + 1):
+        per = -(-tiles // s)
+        splits = -(-tiles // per)
+        if splits != s:
+            continue
+        blocks = row_blocks * splits * plan.passes
+        est = -(-blocks // SQUARE_WIDE_SMS) * (per + 1)
+        if best is None or est < best[0]:
+            best = (est, per)
+    return SQUARE_WIDE_TILE * best[1]
 
 
 def balanced_range(total: int, world: int, rank: int):

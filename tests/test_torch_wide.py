@@ -272,23 +272,89 @@ def test_chunks_wide_vs_jax_sharded_interpret(kernel, m):
 # The plan mirrors past 64
 # ----------------------------------------------------------------------
 
-PLAN_WIDTHS = (65, 100, 123, 128, 256, 512)
+PLAN_WIDTHS = (65, 100, 123, 124, 128, 256, 512)
+
+#: The float32 wide square body's plan (csrc/square_wide_sm90.cuh): per m,
+#: the sources a split at (1000, 1000) and the split counts at (1000,
+#: 1000), (1500, 1500), the cross form (700, 1500) and (10000, 10000).
+#: Up to m = 128 a block holds 64 target rows (16 x 8 = 128 blocks at
+#: n = 1000, 24 x 5 = 120 at 1500), at 256 it holds 32, at 512 16.
+WIDE_SQUARE_PINS = {
+    65: (128, 8, 5, 12, 5), 100: (128, 8, 5, 12, 5),
+    123: (128, 8, 5, 12, 5), 124: (128, 8, 5, 12, 5),
+    128: (128, 8, 5, 12, 5), 256: (256, 4, 5, 6, 5), 512: (512, 2, 4, 3, 4),
+}
 
 
 @pytest.mark.parametrize("m", PLAN_WIDTHS)
 def test_wide_plan_mirrors_pinned(m):
     """Past 64 one wide instance (MM = 0) serves every m, in triangle
     tiles of 128 for one RBF and terms alike (the float32 triangles' body,
-    csrc/wide_tri_sm90.cuh); the square launch keeps the tensor-core body's
-    plan (64 target rows a block, whole tiles of 32 sources)."""
+    csrc/wide_tri_sm90.cuh); the square launch takes the float32 wide
+    square body's plan (csrc/square_wide_sm90.cuh: whole tiles of 64
+    sources, the split count that fills whole waves of 132 blocks), the
+    bf16 instance the tensor-core body's (64 target rows a block, whole
+    tiles of 32 sources)."""
     assert sym_plan.dispatch_m(m) == sym_plan.WIDE_MM == 0
     assert sym_plan.sym_tile(m) == sym_plan.sym_tile(m, True) == 128
     assert sym_plan.square_tensor(m)
-    assert sym_plan.square_chunk(1000, 1000, m) == 64
-    assert sym_plan.square_splits(1000, 1000, m) == 16
-    assert sym_plan.square_splits(700, 1500, m) == 24
-    assert sym_plan.square_splits(10000, 10000, m) == 2
+    chunk, *splits = WIDE_SQUARE_PINS[m]
+    assert sym_plan.square_chunk(1000, 1000, m) == chunk
+    assert [sym_plan.square_splits(n_t, n_s, m) for n_t, n_s in (
+        (1000, 1000), (1500, 1500), (700, 1500), (10000, 10000))] == splits
+    assert sym_plan.square_chunk(1000, 1000, m, bf16=True) == 64
+    assert sym_plan.square_splits(10000, 10000, m, bf16=True) == 2
     assert sym_plan.dispatch_m(64) == 64 and sym_plan.sym_tile(64) == 32
+
+
+@pytest.mark.parametrize("m,rows,passes", [
+    (65, 64, 1), (123, 64, 1), (124, 64, 1), (128, 64, 1), (129, 32, 1),
+    (256, 32, 1), (257, 16, 1), (512, 16, 1), (513, 16, 2), (2000, 16, 4),
+])
+def test_wide_square_body_layout(m, rows, passes):
+    """The float32 wide square body's layout (sq_wide_plan's mirror): the
+    record [S | 0.. | X | 0..] of the padded width w, X from the first
+    multiple of 8 at or past w; the block's target rows the most whose
+    accumulators of every record column fit 16 warps of 8 blocks of
+    16 x 8 (64 rows up to 32 blocks, 32 up to 64, 16 up to 128); one
+    pass up to m = 512, the target rows resident; past it passes of 128
+    blocks along the grid's z, the target rows streamed; the dynamic
+    shared memory within the H100's 227 KB a block with either weight
+    tile count."""
+    plan = sym_plan.square_wide_plan(m)
+    w = sym_plan.wide_row_width(m)
+    assert plan.width == w and plan.xo == 8 * -(-w // 8)
+    assert plan.blocks == -(-(plan.xo + w) // 8)
+    assert (plan.rows, plan.passes) == (rows, passes)
+    assert plan.rows // 16 * plan.cap == 16 * 8
+    assert plan.blocks <= plan.passes * plan.cap
+    assert plan.streamed == (passes > 1)
+    assert plan.smem < plan.smem_terms <= 232448 - 192
+
+
+@pytest.mark.parametrize("n", [1, 33, 127, 129, 1000, 1001, 10007])
+@pytest.mark.parametrize("m", [65, 123, 124, 512])
+def test_wide_square_plan_covers_each_source_once(n, m):
+    """Every source lies in exactly one split of whole 64-source tiles
+    (the square and the cross forms: n targets against n sources, and 700
+    against n), no split is empty, and the grid (target blocks x splits x
+    passes) never leaves a wave of 132 blocks emptier than the fewest
+    splits would."""
+    for n_t in (n, 700):
+        splits = sym_plan.square_splits(n_t, n, m)
+        chunk = sym_plan.square_chunk(n_t, n, m)
+        assert chunk % sym_plan.SQUARE_WIDE_TILE == 0
+        owner = [j // chunk for j in range(n)]
+        assert sorted(set(owner)) == list(range(splits))
+        assert (splits - 1) * chunk < n <= splits * chunk
+        plan = sym_plan.square_wide_plan(m)
+        row_blocks = -(-n_t // plan.rows)
+        tiles = -(-n // sym_plan.SQUARE_WIDE_TILE)
+
+        def cost(s):
+            return -(-row_blocks * s * plan.passes // 132) * (
+                -(-tiles // s) + 1)
+        assert cost(splits) <= cost(1)
 
 
 @pytest.mark.parametrize("n_t,n_s", [(1, 1), (130, 230), (1000, 1000),
@@ -355,12 +421,12 @@ def _meta(*shape):
 
 @pytest.mark.parametrize("m", [65, 123, 512])
 def test_widened_wrappers_launch_past_64(monkeypatch, m):
-    """K1, K6/K7, K2, K8/K9, K4 and K10/K11 hand m to the library (the
-    triangles its row width ``sym_plan.wide_row_width(m)``, m rounded up
-    to 4 with zero columns, so that the wide body's 16-byte copies start
-    every row aligned), size the square workspace by its splits and the
-    triangles' accumulator (2 x that width, n), and count one launch
-    each."""
+    """K1, K6/K7, K2, K8/K9, K4 and K10/K11 hand the library the row width
+    ``sym_plan.wide_row_width(m)`` (m rounded up to 4 with zero columns,
+    so that the wide bodies' 16-byte copies start every row aligned), size
+    the square workspace by its splits (splits, n, 2 x that width + 1) and
+    the triangles' accumulator (2 x that width, n), return phi of m
+    columns, and count one launch each."""
     calls = []
     _stand_in(monkeypatch, calls)
     shapes = []
@@ -401,14 +467,14 @@ def test_widened_wrappers_launch_past_64(monkeypatch, m):
         launches = [a for name, a in calls if name == entry]
         assert len(launches) == 1, (entry, calls)
         args = launches[0]
-        width = m if "square" in entry else sym_plan.wide_row_width(m)
-        assert width % (1 if "square" in entry else 4) == 0
+        width = sym_plan.wide_row_width(m)
+        assert width % 4 == 0
         assert width in args and n in args
         assert tuple(counts.shape) == (3,)
         if "square" in entry:
             assert tuple(phi.shape) == (n, m)
             assert args[-2] == splits
-            assert (splits, n, 2 * m + 1) in shapes
+            assert (splits, n, 2 * width + 1) in shapes
         else:
             assert (2 * width, n) in shapes
             assert tuple(phi.shape) == ((n, m) if "chunk" not in entry
