@@ -12,6 +12,7 @@
     python3 chip_profile.py --aniso-wide [--out PATH]
     python3 chip_profile.py --square-wide [--out PATH]
     python3 chip_profile.py --square-wide-breakdown [--out PATH]
+    python3 chip_profile.py --wide-panel [--out PATH]
 
 Drives one configuration of svgdcpp_tpu_torch at its full width:
 
@@ -141,6 +142,15 @@ power limit first and last).
 their main-path shapes, kernel-only, through wrappers older trees have
 too, so that this script, copied into an older tree's archive, times it
 the same way in the same call.
+
+``--wide-panel`` runs ``wide_panel`` alone: the panels' float32 wide
+instances (K3, K12/K13, K5's chunks) on the package's body
+(``wide_tri_sm90.cuh``, the panel list's tile pairs into the triangle's
+accumulator) against the parent's design (``wide_pair_body`` on 64 x 64
+tile pairs of a panel into per-panel windows, built from a copy under
+``_verify/wide_panel/``), kernel-only and through the wrapper, each beside
+the wide triangle at the same shape, and the triangle's order against the
+panels' at (131072, 123) (default output ``chiprun_out/wide_panel.json``).
 
 ``--wide-drift`` runs ``wide_drift`` alone, with no driver profile: how
 far the float32 routes move from float64 at d = 123 and N = 10,000 in
@@ -1852,15 +1862,21 @@ def bf16_main(args) -> int:
 #: --float32-check's calls: the float32 instances at their PERF.md
 #: main-path shapes (and K1's and K15's bf16 instances, which keep their
 #: bodies), (label, kernel name, n, m, form) with form "square", "tri",
-#: "panel", "terms" (two terms, the triangle) or "k15 bf16".
+#: "panel", "terms" (two terms, the triangle), "chunk" (K4, world 1),
+#: "aniso" (K14's wide groups, iso + 1, P as chip_smoke.wide_p_ps's "pd")
+#: or "k15 bf16". K3 wide's name holds the whole sweep's kernel under both
+#: designs (fused_phi_counts_sympanel_kernel before the panels' wide
+#: entries, fused_phi_counts_sympanel_wide_kernel since).
 FLOAT32_CHECK_CASES = (
     ("K1", "fused_phi_counts_square", 1000, 50, "square"),
     ("K2", "fused_phi_counts_sym_kernel", 10000, 2, "tri"),
     ("K2 wide", "fused_phi_counts_sym_kernel", 10000, 123, "tri"),
+    ("K4 wide", "fused_phi_counts_sym_chunk_kernel", 10000, 123, "chunk"),
     ("K3", "fused_phi_counts_sympanel_kernel", 32768, 2, "panel"),
-    ("K3 wide", "fused_phi_counts_sympanel_kernel", 10000, 123, "panel"),
+    ("K3 wide", "fused_phi_counts_sympanel", 10000, 123, "panel"),
     ("K8/K9", "fused_phi_terms_sym_kernel", 10000, 11, "terms"),
     ("K8/K9 wide", "fused_phi_terms_sym_kernel", 10000, 124, "terms"),
+    ("K14 wide", "fused_phi_aniso_terms_wide", 10240, 123, "aniso"),
     ("K1 bf16", "fused_phi_counts_square_bf16", 1000, 50, "square bf16"),
     ("K15 bf16", "phi_rbf_wide_bf16", 10240, 123, "k15 bf16"),
 )
@@ -1874,7 +1890,7 @@ def float32_check(device):
     tree the same way (parent, change, change, parent in one call)."""
     import torch
 
-    from chip_smoke import inputs_for, kernel_us
+    from chip_smoke import inputs_for, kernel_us, wide_p_ps
     from svgdcpp_tpu_torch.ops import cuda_phi
 
     rows = []
@@ -1884,6 +1900,15 @@ def float32_check(device):
             gs = [g, 0.5 * g]
             fn = (lambda: cuda_phi.phi_rbf_terms_fused_cuda(
                 x, s, gs, (1.0, 1.0), thr, sym=True))
+        elif form == "chunk":
+            fn = (lambda: cuda_phi.phi_rbf_fused_sym_chunk_cuda(
+                x, s, g, thr, 1, 0))
+        elif form == "aniso":
+            ps = wide_p_ps("pd", m, 1, 445, g, device)
+            lowers = cuda_phi.cholesky_factors(ps, device)
+            fn = (lambda ps=ps, lowers=lowers:
+                  cuda_phi.phi_rbf_aniso_terms_fused_cuda(
+                      x, s, [g], (1.0,), ps, (1.0,), thr, lowers=lowers))
         elif form == "k15 bf16":
             p = torch.eye(m, device=device) * g
             fn = (lambda: cuda_phi.phi_rbf_cuda(x, s, p,
@@ -2143,6 +2168,346 @@ def aniso_wide_main(args) -> int:
     result = {"card": card, "torch": torch.__version__,
               "aniso_wide": aniso_wide(torch.device("cuda"))}
     out = Path(args.out or "chiprun_out/aniso_wide.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(card)
+    return 0
+
+
+#: --wide-panel: the parent's float32 wide panels (csrc/fused_phi_panel.cu
+#: before they moved to wide_tri_sm90.cuh's body: wide_tri.cuh's
+#: wide_pair_body on one 64 x 64 tile pair of a panel a block, the grid
+#: (tile pairs of a panel, panels), a diagonal panel's blocks past a <= b
+#: returning at once, rows of I into half 0 and columns of J into half 1 of
+#: the panel's window), as that file had them, under kernel names and a C
+#: entry of their own; built from a copy of csrc/ (wide_tri.cuh keeps the
+#: body for K15).
+WIDE_PANEL_PARENT_SOURCE = r"""
+#include "wide_tri.cuh"
+using namespace svgd;
+__device__ __forceinline__ bool parent_panel_spot(int x, int p, int p0,
+                                                  int nb, int w, int n,
+                                                  int m, float* panels,
+                                                  WideSpot* spot) {
+  int bi, bj;
+  const int n_off = nb * (nb - 1) / 2;
+  if (p0 + p < n_off) {
+    decode_upper_pair(p0 + p, nb - 1, &bi, &bj);
+    ++bj;
+  } else {
+    bi = bj = p0 + p - n_off;
+  }
+  const int tw = w / kWideTile;
+  int a, b;
+  if (bi == bj) {
+    if (x >= tw * (tw + 1) / 2) return false;
+    decode_upper_pair(x, tw, &a, &b);
+  } else {
+    a = x / tw;
+    b = x - a * tw;
+  }
+  spot->i0 = bi * w + a * kWideTile;
+  spot->j0 = bj * w + b * kWideTile;
+  if (spot->i0 >= n || spot->j0 >= n) return false;
+  spot->diag = bi == bj && a == b;
+  const size_t plane = static_cast<size_t>(2) * m * w;
+  spot->out0 = panels + static_cast<size_t>(p) * 2 * plane;
+  spot->out1 = spot->out0 + plane;
+  spot->base0 = bi * w;
+  spot->base1 = bj * w;
+  spot->ld = w;
+  return true;
+}
+template <int kT>
+__global__ void __launch_bounds__(kWideTriThreads)
+    parent_counts_sympanel_wide_kernel(
+        const float* __restrict__ coords, const float* __restrict__ scores,
+        const float* __restrict__ gamma, const float* __restrict__ thr,
+        int n, int m, int T, int nb, int w, int p0,
+        float* __restrict__ panels, unsigned long long* __restrict__ counts) {
+  WideSpot spot;
+  if (!parent_panel_spot(static_cast<int>(blockIdx.x),
+                         static_cast<int>(blockIdx.y), p0, nb, w, n, m,
+                         panels, &spot)) {
+    return;
+  }
+  wide_pair_body<kT, false, false>(coords, scores,
+                                   OneRbf{-gamma[0] * kLog2e}, thr, n, m, T,
+                                   spot, counts, WideForm{});
+}
+template <int kT>
+__global__ void __launch_bounds__(kWideTriThreads)
+    parent_terms_sympanel_wide_kernel(
+        const float* __restrict__ coords, const float* __restrict__ scores,
+        const float* __restrict__ gammas, TermSigns signs, int nterms,
+        const float* __restrict__ thr, int n, int m, int T, int nb, int w,
+        float* __restrict__ panels, unsigned long long* __restrict__ counts) {
+  __shared__ float sh_g2[kMaxTerms];
+  __shared__ float sh_sn[kMaxTerms];
+  __shared__ float sh_sg[kMaxTerms];
+  WideSpot spot;
+  if (!parent_panel_spot(static_cast<int>(blockIdx.x),
+                         static_cast<int>(blockIdx.y), 0, nb, w, n, m,
+                         panels, &spot)) {
+    return;
+  }
+  load_terms(gammas, signs, nterms, sh_g2, sh_sn, sh_sg);
+  wide_pair_body<kT, false, false>(coords, scores,
+                                   AnyTerms{sh_g2, sh_sn, sh_sg, nterms},
+                                   thr, n, m, T, spot, counts, WideForm{});
+}
+// nterms 0: one RBF over panels [p0, p0 + num_p) (K3's whole list, or K5's
+// chunk); else the terms kernel over the whole list (p0 = 0).
+extern "C" int parent_sympanel_wide(const float* coords, const float* scores,
+                                    const float* gammas, const float* signs,
+                                    int nterms, const float* thr, int n,
+                                    int m, int T, int nb, int w, int p0,
+                                    int num_p, float* panels,
+                                    long long* counts, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* c = reinterpret_cast<unsigned long long*>(counts);
+  const int tw = w / kWideTile;
+  const dim3 grid(static_cast<unsigned int>(tw) * tw,
+                  static_cast<unsigned int>(num_p));
+  if (nterms == 0) {
+    const size_t smem = WideTri::smem_bytes(1);
+    auto go = [&](auto* kernel) {
+      wide_tri_prepare(kernel, 1);
+      kernel<<<grid, kWideTriThreads, smem, s>>>(coords, scores, gammas, thr,
+                                                 n, m, T, nb, w, p0, panels,
+                                                 c);
+    };
+    if (T == 3) {
+      go(&parent_counts_sympanel_wide_kernel<3>);
+    } else {
+      go(&parent_counts_sympanel_wide_kernel<kMaxT>);
+    }
+  } else {
+    const TermSigns sg = make_signs(signs, nterms);
+    const size_t smem = WideTri::smem_bytes(2);
+    auto go = [&](auto* kernel) {
+      wide_tri_prepare(kernel, 2);
+      kernel<<<grid, kWideTriThreads, smem, s>>>(coords, scores, gammas, sg,
+                                                 nterms, thr, n, m, T, nb, w,
+                                                 panels, c);
+    };
+    if (T == 3) {
+      go(&parent_terms_sympanel_wide_kernel<3>);
+    } else {
+      go(&parent_terms_sympanel_wide_kernel<kMaxT>);
+    }
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+#: --wide-panel's calls: (label, n, m, form, world, rank, parent), form
+#: "k3" (one RBF, the whole list), "k12" (two terms) or "k5" (rank's
+#: chunk); each beside the wide triangle at the same shape (K2, K8/K9 or
+#: K4's chunk at the same world and rank); parent False skips the parent
+#: (the triangle's order against the panels' at (131072, 123)).
+WIDE_PANEL_CASES = (
+    ("K3", 10000, 123, "k3", 1, 0, True),
+    ("K12/K13", 10000, 124, "k12", 1, 0, True),
+    ("K5", 10000, 123, "k5", 1, 0, True),
+    ("K5", 10000, 123, "k5", 2, 0, True),
+    ("K5", 10000, 123, "k5", 2, 1, True),
+    ("K3", 4096, 65, "k3", 1, 0, True),
+    ("K3", 4096, 123, "k3", 1, 0, True),
+    ("K3", 4096, 256, "k3", 1, 0, True),
+    ("K3", 131072, 123, "k3", 1, 0, False),
+)
+
+
+def wide_panel(device):
+    """--wide-panel: the panels' float32 wide instances, the parent's
+    (built from WIDE_PANEL_PARENT_SOURCE in a copy under
+    _verify/wide_panel/) and the package's, in one process at
+    WIDE_PANEL_CASES on chip_smoke.py's grid inputs: kernel-only us (the
+    profiler's events, 10 calls after one; 3 at 131072), wrapper ms (CUDA
+    events, chip_smoke.time_ms; the parent's wrapper is the centring, the
+    zeroed windows, the launch and the scatter as they stood, on its plan
+    of 64-particle multiples), the window buffer's bytes, and at world 1
+    each result's distance from the float64 plain version (at 131072 the
+    panel's from the triangle's), with the counts."""
+    import ctypes
+
+    import torch
+
+    from chip_smoke import grid_inputs, kernel_us, time_ms
+    from svgdcpp_tpu_torch.ops import cuda_phi, sym_plan
+    from svgdcpp_tpu_torch.ops.phi import (
+        panel_index,
+        phi_rbf_fused_counts,
+        phi_rbf_fused_sym_finish,
+        phi_rbf_terms_fused_counts,
+        sympanel_epilogue,
+        sympanel_scatter,
+    )
+    from svgdcpp_tpu_torch.utils.cuda_build import ARCH_FLAGS, find_nvcc
+
+    dest = ROOT / "_verify" / "wide_panel"
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(ROOT / "svgdcpp_tpu_torch" / "csrc", dest)
+    (dest / "parent.cu").write_text(WIDE_PANEL_PARENT_SOURCE)
+    proc = subprocess.Popen(
+        [find_nvcc() or "nvcc", *ARCH_FLAGS, "-std=c++17", "-O3",
+         "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v", "-o",
+         str(dest / "libparent.so"), str(dest / "parent.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    cuda_phi.load_library()  # built meanwhile
+    out, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"the parent's wide panel build:\n{out}")
+    lib = ctypes.CDLL(str(dest / "libparent.so"))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.parent_sympanel_wide.argtypes = ([ptr] * 4 + [i32, ptr] + [i32] * 7
+                                         + [ptr] * 3)
+    lib.parent_sympanel_wide.restype = i32
+    regs = re.findall(r"Used (\d+) registers", out)
+    signs = (1.0, 1.0)
+    host_signs = (ctypes.c_float * 2)(*signs)
+
+    rows = []
+    for label, n, m, form, world, rank, with_parent in WIDE_PANEL_CASES:
+        x, s, g, thr = grid_inputs(n, m, 0.0, 451 + m + n % 7, device)
+        gs = [g, 0.5 * g]
+        nb, w, _ = sym_plan.card_panel_plan(n)  # the parent's plan
+        num_p = nb * (nb + 1) // 2
+        p0, count = ((0, num_p) if form != "k5"
+                     else sym_plan.panel_chunk(nb, world, rank))
+        index = panel_index(nb, device, p0, count)  # the parent's, cached
+        if form == "k3":
+            def new_call():
+                return cuda_phi.phi_rbf_fused_cuda(x, s, g, thr,
+                                                   sym="panel")
+
+            def tri_call():
+                return cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=True)
+            names = ("fused_phi_counts_sympanel_wide_kernel",
+                     "fused_phi_counts_sym_kernel")
+        elif form == "k12":
+            def new_call():
+                return cuda_phi.phi_rbf_terms_fused_cuda(x, s, gs, signs,
+                                                         thr, sym="panel")
+
+            def tri_call():
+                return cuda_phi.phi_rbf_terms_fused_cuda(x, s, gs, signs,
+                                                         thr, sym=True)
+            names = ("fused_phi_terms_sympanel_wide_kernel",
+                     "fused_phi_terms_sym_kernel")
+        else:
+            def new_call():
+                return cuda_phi.phi_rbf_sympanel_chunk_cuda(x, s, g, thr,
+                                                            world, rank)
+
+            def tri_call():
+                return cuda_phi.phi_rbf_fused_sym_chunk_cuda(x, s, g, thr,
+                                                             world, rank)
+            names = ("fused_phi_counts_sympanel_chunk_wide_kernel",
+                     "fused_phi_counts_sym_chunk_kernel")
+
+        def parent_call():
+            """The parent's wrapper past 64, as it stood: its plan, zeroed
+            windows, the launch and the scatter (and, for the whole list,
+            the epilogue)."""
+            g32 = torch.stack([v.reshape(()) for v in
+                               (gs if form == "k12" else [g])])
+            coords_c = (x - x.mean(dim=0)).contiguous()
+            panels = torch.zeros((count, 2, 2 * m, w), device=device)
+            upper = torch.zeros(thr.shape[0], dtype=torch.int64,
+                                device=device)
+            rc = lib.parent_sympanel_wide(
+                coords_c.data_ptr(), s.data_ptr(), g32.data_ptr(), host_signs,
+                2 if form == "k12" else 0, thr.data_ptr(), n, m,
+                thr.shape[0], nb, w, p0, count, panels.data_ptr(),
+                upper.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"parent_sympanel_wide returned {rc}")
+            if form == "k5":
+                return sympanel_scatter(panels, index, nb, n), upper
+            s_total, d_scale = ((2.0, 2.0) if form == "k12"
+                                else (1.0, 2.0 * g))
+            return sympanel_epilogue(panels, upper, index, n, s, s_total,
+                                     d_scale)
+
+        def phi_of(result):
+            """phi and counts of a call (a chunk's raw accumulator
+            finished, its counts as 2U - n)."""
+            if form != "k5":
+                return result
+            acc, upper = result
+            return phi_rbf_fused_sym_finish(acc, s, g, n), 2 * upper - n
+
+        calls = 3 if n > 100000 else 10
+        new_phi, new_cnt = phi_of(new_call())
+        tri_phi, tri_cnt = phi_of(tri_call())
+        row = {
+            "kernel": label, "n": n, "m": m, "world": world, "rank": rank,
+            "new_kernel_us": kernel_us(new_call, names[0], calls=calls),
+            "triangle_kernel_us": kernel_us(tri_call, names[1], calls=calls),
+            "new_wrapper_ms": time_ms(new_call, reps=calls, warmup=2),
+            "triangle_wrapper_ms": time_ms(tri_call, reps=calls, warmup=2),
+            "new_plan": list(sym_plan.card_panel_plan(n, None, True)[:2]),
+        }
+        if with_parent:
+            old_phi, old_cnt = phi_of(parent_call())
+            row.update({
+                "parent_kernel_us": kernel_us(
+                    parent_call, ("parent_counts_sympanel_wide",
+                                  "parent_terms_sympanel_wide"),
+                    calls=calls),
+                "parent_wrapper_ms": time_ms(parent_call, reps=calls,
+                                             warmup=2),
+                "parent_plan": [nb, w],
+                "parent_window_bytes": 4 * count * 2 * 2 * m * w,
+            })
+        if not with_parent:
+            # No float64 sweep at this size: the panels' order against the
+            # triangle's on the same inputs.
+            scale = float(tri_phi.abs().max())
+            row.update({
+                "new_rel_diff_triangle": float(
+                    (new_phi - tri_phi).abs().max()) / scale,
+                "counts_new_triangle": [new_cnt.tolist(), tri_cnt.tolist()],
+            })
+        elif world == 1:  # a rank's share of two is no function of its own
+            if form == "k12":
+                ref_phi, ref_cnt = phi_rbf_terms_fused_counts(
+                    x.double(), s.double(), [v.double() for v in gs], signs,
+                    thr.double())
+            else:
+                ref_phi, ref_cnt = phi_rbf_fused_counts(
+                    x.double(), s.double(), g.double(), thr.double())
+            scale = float(ref_phi.abs().max())
+            row.update({
+                "new_rel_err_f64": float(
+                    (new_phi.double() - ref_phi).abs().max()) / scale,
+                "parent_rel_err_f64": float(
+                    (old_phi.double() - ref_phi).abs().max()) / scale,
+                "triangle_rel_err_f64": float(
+                    (tri_phi.double() - ref_phi).abs().max()) / scale,
+                "counts_new_parent_f64": [new_cnt.tolist(), old_cnt.tolist(),
+                                          ref_cnt.tolist()],
+            })
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return {"parent_registers": regs, "rows": rows}
+
+
+def wide_panel_main(args) -> int:
+    """--wide-panel: wide_panel's rows, JSON to --out."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    card = card_name()
+    print(card)
+    result = {"card": card, "torch": torch.__version__,
+              "wide_panel": wide_panel(torch.device("cuda"))}
+    out = Path(args.out or "chiprun_out/wide_panel.json")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
     print(card)
@@ -2901,8 +3266,14 @@ def main() -> int:
                         help="only time the float32 instances at their "
                              "main-path shapes, kernel-only (no driver "
                              "profile)")
+    parser.add_argument("--wide-panel", action="store_true",
+                        help="only time the panels' float32 wide instances "
+                             "against the parent's design (no driver "
+                             "profile)")
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
+    if args.wide_panel:
+        return wide_panel_main(args)
     if args.bf16:
         return bf16_main(args)
     if args.aniso_wide:

@@ -274,11 +274,15 @@ forty-six phases, one line each (several for phases 2, 3, 7-9 and
      128, 129 and 257 (m = 65, 123) and their instances' 0 bytes of spill,
      44b both at (10240, 123), 44c the anisotropic MVN on auto and the
      HESSIAN 'cuda' route at d = 123, gated per call;
- 45. the panel sweeps past m = 64 (the wide instances, MM = 0): 45a K3 and
+ 45. the panel sweeps past m = 64 (their float32 wide entries on
+     wide_tri_sm90.cuh's body, into the triangle's accumulator): 45a K3 and
      K12/K13 (two terms) at (4096, 65 / 123 / 256), K3 and K5's chunks
      (worlds 1 and 2) at (10000, 123) and K12/K13 at (10000, 124), on
      grid inputs within 2.5e-3 of max |phi| of float64, counts equal, each
-     timed beside the full-width triangle at the same shape; 45b the flat
+     timed beside the full-width triangle at the same shape; then at the
+     tile-128 edges n = 127, 128, 129 and 257 (m = 65, 123) and on a forced
+     plan of 2 super-blocks at n = 600 whose last is ragged (K5 over worlds
+     1-3), and their instances' 0 bytes of spill; 45b the flat
      BLR driver at (10000, 123) and the hierarchical one at (10000, 124)
      with fused_sym="panel" for 20 steps, each sweep call replayed
      against float64 (replay_gate), and the engine with fused_sym="panel"
@@ -530,9 +534,10 @@ def ptxas_summary(log_text):
     aniso_terms_sym<MM,exact,NIso,kT> (NIso 0: any number of isotropic
     terms) beside the term-group one, aniso_terms_groups<MM,exact,1>, the
     wide ones past m = 64, aniso_wide_groups<kT>, aniso_wide_iso<kT> and
-    rbf_wide (the panels'
-    wide instances are MM = 0: counts_sympanel<0,0,3>), and the bfloat16
-    instances counts_square_bf16<kT>, counts_sym_bf16<kT>,
+    rbf_wide, the panels' float32 ones past m = 64 (kernels of their own,
+    on the float32 wide triangle body) counts_sympanel_wide<kT>,
+    counts_sympanel_chunk_wide<kT> and terms_sympanel_wide<kT,NTerms>, and
+    the bfloat16 instances counts_square_bf16<kT>, counts_sym_bf16<kT>,
     counts_sympanel_bf16<kT> and rbf_wide_bf16, and the bf16 triangle
     body's pack kernel, bf16_tri_pack."""
     import re
@@ -570,6 +575,11 @@ def ptxas_summary(log_text):
             if bf16:
                 name = bf16.group(1) + (f"<{bf16.group(2)}>"
                                         if bf16.group(2) else "")
+            panel = re.search(r"(?<=\d)fused_phi_(\w+?_wide)_kernelI"
+                              r"((?:Li\d+E)+)", hit.group(1))
+            if panel:
+                args = ",".join(re.findall(r"Li(\d+)E", panel.group(2)))
+                name = f"{panel.group(1)}<{args}>"
             spill = "?"
         hit = re.search(r"(\d+) bytes spill stores", line)
         if hit and name:
@@ -2177,20 +2187,37 @@ def phase_wide_p_paths(dev, card, clock):
     return out
 
 
-#: Phase 45: the panel sweeps past m = 64 (the wide instances of K3,
-#: K12/K13 and K5, MM = 0). 45a: K3 and K12/K13 (two terms) at
-#: WIDE_PANEL_N particles of grid inputs at each width of WIDE_PANEL_MS,
-#: and K3 and K5's chunks (summed over worlds 1 and 2) at
-#: (WIDE_BIG_N, WIDE_D) and K12/K13 at (WIDE_BIG_N, WIDE_D + 1), each held
-#: to float64 (wide_held) and timed beside the wide triangle at the same
-#: shape; 45b: the main paths with fused_sym="panel" at a9a's width for
-#: COMPARE_STEPS steps each, every sweep call gated against float64.
+#: Phase 45: the panel sweeps past m = 64 (the float32 wide instances of
+#: K3, K12/K13 and K5: entries of their own on csrc/wide_tri_sm90.cuh's
+#: body, over the panel list's tile pairs into the triangle's
+#: accumulator). 45a: K3 and K12/K13 (two terms) at WIDE_PANEL_N particles
+#: of grid inputs at each width of WIDE_PANEL_MS, and K3 and K5's chunks
+#: (summed over worlds 1 and 2) at (WIDE_BIG_N, WIDE_D) and K12/K13 at
+#: (WIDE_BIG_N, WIDE_D + 1), each held to float64 (wide_held) and timed
+#: beside the wide triangle at the same shape, then the same kernels at the
+#: tile's edges (WIDE_PANEL_EDGE_NS at WIDE_EDGE_MS, and WIDE_PANEL_RAGGED's
+#: forced plan) and ptxas's spill of WIDE_PANEL_INSTANCES; 45b: the main
+#: paths with fused_sym="panel" at a9a's width for COMPARE_STEPS steps
+#: each, every sweep call gated against float64.
 WIDE_PANEL_MS = (65, 123, 256)
 WIDE_PANEL_N = 4096
 WIDE_PANEL_INSTANCES = {
-    "fused_phi_counts_sympanel": ("counts_sympanel<0,0,3>",),
-    "fused_phi_terms_sympanel": ("terms_sympanel<0,0,3,0>",),
-    "fused_phi_counts_sympanel_chunk": ("counts_sympanel_chunk<0,0,3>",)}
+    "fused_phi_counts_sympanel": ("counts_sympanel_wide<3>",
+                                  "counts_sympanel_wide<8>"),
+    "fused_phi_terms_sympanel": ("terms_sympanel_wide<3,2>",
+                                 "terms_sympanel_wide<3,0>",
+                                 "terms_sympanel_wide<8,2>",
+                                 "terms_sympanel_wide<8,0>"),
+    "fused_phi_counts_sympanel_chunk": ("counts_sympanel_chunk_wide<3>",
+                                        "counts_sympanel_chunk_wide<8>")}
+#: Phase 45a's edges: the default plan of 128-particle tiles at n = 127-257
+#: (one or two super-blocks hold particles, the other six's items have a
+#: tile wholly past n), and a forced plan of 2 super-blocks of
+#: 384 at n = 600, whose last tile lies wholly past n and whose last
+#: particle tile is ragged; K5's chunks summed over worlds 1 to
+#: WIDE_EDGE_WORLDS.
+WIDE_PANEL_EDGE_NS = (127, 128, 129, 257)
+WIDE_PANEL_RAGGED = (600, 2)
 
 
 def wide_panel_cases(dev):
@@ -2284,9 +2311,92 @@ def phase_wide_panels(dev, card, clock, ptxas, plain_ms):
               f"kernel_us={k_us} wrapper_ms={wrapper:.4f}{beside} "
               f"bound_fp32_ms={fp_ms:.6g} ({fp_by}) bound_tensor_ms="
               f"{tc_ms:.6g} ({tc_by}) ptxas={json.dumps(regs)} "
-              f"smem_bytes={4 * (9216 + (2 if terms else 1) * 8704 + 256)} "
+              f"smem_bytes="
+              f"{WIDE_SYM_TERMS_SMEM if terms else WIDE_SYM_SMEM} "
               f"{card} {clock()}")
     return errs, times
+
+
+def phase_wide_panel_edges(dev, card, clock, ptxas, errs):
+    """Phase 45a's edges: the panels' float32 wide entries at the edges of
+    their 128-particle tiles and plans (WIDE_PANEL_EDGE_NS at WIDE_EDGE_MS
+    on the default plan, WIDE_PANEL_RAGGED's forced plan at the same m): K3
+    (T = 3 and, through the runtime-T instance, 5), K12/K13 with two terms and
+    with three (a negative sign), K5's chunks summed over worlds 1 to
+    WIDE_EDGE_WORLDS, each held to its float64 and float32 plain versions
+    (wide_held; its max |dphi| into ``errs``). Then ptxas's registers and
+    spill of every instance (WIDE_PANEL_INSTANCES), none of which may
+    spill."""
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import (
+        phi_rbf_fused_counts,
+        phi_rbf_fused_sym_finish,
+        phi_rbf_sympanel_chunk_counts,
+        phi_rbf_terms_fused_counts,
+    )
+
+    def f64(*ts):
+        return [t.double() for t in ts]
+
+    def held(label, kernel, got, want64, want32):
+        abs_err, rel = wide_held(f"45a edges {label}", got, want64, want32)
+        errs[kernel] = max(errs.get(kernel, 0.0), abs_err)
+        return rel
+
+    shapes = [(n, None) for n in WIDE_PANEL_EDGE_NS] + [WIDE_PANEL_RAGGED]
+    worst, calls = 0.0, 0
+    for m in WIDE_EDGE_MS:
+        for n, blocks in shapes:
+            x, s, g, thr = grid_inputs(n, m, 0.0, 4500 + n + m, dev)
+            tag = f"({n}, {m}) panel_blocks={blocks}"
+            for th in (thr, thresholds_of(thr, 5)):
+                worst = max(worst, held(
+                    f"K3 {tag} T={th.shape[0]}", cuda_phi.SYMPANEL_KERNEL,
+                    cuda_phi.phi_rbf_fused_cuda(x, s, g, th, sym="panel",
+                                                panel_blocks=blocks),
+                    phi_rbf_fused_counts(*f64(x, s, g, th)),
+                    phi_rbf_fused_counts(x, s, g, th)))
+            for signs, gs in (((1.0, 1.0), [g, 0.5 * g]),
+                              ((1.0, -0.5, 1.0), [g, 0.5 * g, 2.0 * g])):
+                worst = max(worst, held(
+                    f"K12/K13 {tag} signs={signs}",
+                    cuda_phi.TERMS_SYMPANEL_KERNEL,
+                    cuda_phi.phi_rbf_terms_fused_cuda(
+                        x, s, gs, signs, thr, sym="panel",
+                        panel_blocks=blocks),
+                    phi_rbf_terms_fused_counts(*f64(x, s), f64(*gs), signs,
+                                               thr.double()),
+                    phi_rbf_terms_fused_counts(x, s, gs, signs, thr)))
+            for world in range(1, WIDE_EDGE_WORLDS + 1):
+                worst = max(worst, held(
+                    f"K5 {tag} world={world}", cuda_phi.SYMPANEL_CHUNK_KERNEL,
+                    ranks_summed(
+                        lambda w, r: cuda_phi.phi_rbf_sympanel_chunk_cuda(
+                            x, s, g, thr, w, r, blocks), world, n,
+                        lambda acc: phi_rbf_fused_sym_finish(acc, s, g, n)),
+                    phi_rbf_fused_counts(*f64(x, s, g, thr)),
+                    ranks_summed(
+                        lambda w, r: phi_rbf_sympanel_chunk_counts(
+                            x, s, g, thr, w, r, blocks), world, n,
+                        lambda acc: phi_rbf_fused_sym_finish(acc, s, g, n))))
+                calls += 1
+            calls += 4
+    print(f"phase 45a edges: ok {calls} calls at n = "
+          f"{list(WIDE_PANEL_EDGE_NS)} (default plan) and "
+          f"(n, panel_blocks) = {WIDE_PANEL_RAGGED}, m = "
+          f"{list(WIDE_EDGE_MS)} (K5 over worlds 1-{WIDE_EDGE_WORLDS}) "
+          f"within {worst:.3e} of max |phi| from float64, counts equal "
+          f"{card} {clock()}")
+    report = {inst: ptxas.get(inst, "?")
+              for insts in WIDE_PANEL_INSTANCES.values() for inst in insts}
+    spilled = [inst for inst, text in report.items()
+               if not text.endswith(" 0 B spill")]
+    check(not spilled, f"phase 45a: the wide panel instances spill or were "
+                       f"not found in the build log: "
+                       f"{ {i: report[i] for i in spilled} }")
+    print(f"phase 45a ptxas: ok {json.dumps(report)} dynamic smem_bytes="
+          f"{WIDE_SYM_SMEM} (one RBF), {WIDE_SYM_TERMS_SMEM} (terms); one "
+          f"block of 288 threads an SM")
 
 
 class CallGate:
@@ -5550,6 +5660,7 @@ def main() -> int:
     # -- phase 45: the panel sweeps past m = 64 -------------------------------
     panel_errs, times45 = phase_wide_panels(dev, card, clock, ptxas,
                                             plain_ms)
+    phase_wide_panel_edges(dev, card, clock, ptxas, panel_errs)
     main45 = phase_wide_panel_paths(dev, card, clock)
 
     # -- phase 46: the bfloat16 operand opt-in --------------------------------
@@ -5727,6 +5838,7 @@ def main() -> int:
         tensor = tri_tensor_bound(n45, m45,
                                   n_terms=2 if kernel == t_sp else None)
         path["tensor_bound_ms"] = tensor[0]
+        path["body"] = "svgdcpp_tpu_torch/csrc/wide_tri_sm90.cuh"
         paths[kernel].append(path)
     # Phase 46's paths: the bf16 instances (K15's has no driver route, as
     # in the JAX package: its launches are phase 46a's own calls).

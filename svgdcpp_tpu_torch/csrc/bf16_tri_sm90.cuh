@@ -189,9 +189,7 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 // A block decodes its first item once (start) and steps from item to item
 // (advance), so that neither the producer nor the consumers decode an item
 // from its index on the way.
-struct Bf16Cursor {
-  int bi, bj, a, b;
-};
+using Bf16Cursor = PanelTilePair;
 
 // K2's work list: tile pair u of the upper triangle of nb tiles in
 // row-major order, both directions into the (2m + 1, n) accumulator.
@@ -217,9 +215,8 @@ struct Bf16TriWork {
 };
 
 // K3's work list: the tile pairs of every panel, panel by panel in the
-// order of sym_plan.panel_pairs (the off-diagonal super-block pairs row by
-// row, tw x tw tile pairs each, row-major; then the diagonal ones, the
-// upper triangle of tw tiles each; sym_plan.bf16_panel_item mirrors it),
+// order of sym_plan.panel_pairs (decode_panel_item, sweep_common.cuh, which
+// the float32 panels past kMaxM share; sym_plan.bf16_panel_item mirrors it),
 // both directions into the (2m + 1, n) accumulator, as K2's: the panels'
 // windows, which the TPU's VMEM budget called for, would only be
 // scattered onto it (at (10000, 123) 91 MB of windows, past the card's
@@ -227,27 +224,10 @@ struct Bf16TriWork {
 // has no spot: it adds nothing.
 struct Bf16PanelWork {
   int nb, tw, w, n;
-  long long off_items;   // nb (nb - 1) / 2 tw^2
   float* acc;
 
   __device__ __forceinline__ Bf16Cursor start(long long u) const {
-    Bf16Cursor c;
-    if (u < off_items) {
-      const long long per = static_cast<long long>(tw) * tw;
-      const long long p = u / per;
-      const int x = static_cast<int>(u - p * per);
-      c.a = x / tw;
-      c.b = x - c.a * tw;
-      decode_upper_pair(p, nb - 1, &c.bi, &c.bj);
-      ++c.bj;
-    } else {
-      const long long per = static_cast<long long>(tw) * (tw + 1) / 2;
-      const long long v = u - off_items;
-      const long long d = v / per;
-      decode_upper_pair(v - d * per, tw, &c.a, &c.b);
-      c.bi = c.bj = static_cast<int>(d);
-    }
-    return c;
+    return decode_panel_item(u, nb, tw);
   }
   __device__ __forceinline__ void advance(Bf16Cursor& c) const {
     if (c.bi != c.bj) {  // tw x tw, row-major

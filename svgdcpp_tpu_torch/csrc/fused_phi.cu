@@ -262,8 +262,8 @@ __device__ __forceinline__ void counts_tri(
     float* __restrict__ acc, unsigned long long* __restrict__ counts) {
   const OneRbf weights{-gamma[0] * kLog2e};
   if constexpr (MM == kWideMM) {
-    wide_tri_sm90_body<kT>(coords, scores, weights, thr, n, m_arg, T, nb, t0,
-                           count, acc, counts);
+    wide_tri_sm90_body<kT>(coords, scores, weights, thr, n, m_arg, T,
+                           WideTriWork{nb, t0, count}, acc, counts);
   } else {
     micro_tri_body<MM, kExact, kT>(coords, scores, weights, thr, n, m_arg, T,
                                    nb, t0, acc, counts);

@@ -423,7 +423,7 @@ __global__ void __launch_bounds__(kWideSymThreads)
       euclid ? coords : z + static_cast<size_t>(group - 1) * n * w;
   const OneRbf weights{euclid ? -gamma[0] * kLog2e : -kLog2e};
   wide_tri_sm90_body<kT>(rows, scores, weights, thr, n, w, euclid ? T : 0,
-                         nb, 0LL, count,
+                         WideTriWork{nb, 0LL, count},
                          acc + static_cast<size_t>(group) * 2 * w * n,
                          counts);
 }
@@ -446,7 +446,7 @@ __global__ void __launch_bounds__(kWideSymThreads)
   load_terms(gammas, iso_signs, n_iso, sh_g2, sh_sn, sh_sg);
   wide_tri_sm90_body<kT>(coords, scores,
                          AnyTerms{sh_g2, sh_sn, sh_sg, n_iso}, thr, n, w, T,
-                         nb, 0LL, count, acc, counts);
+                         WideTriWork{nb, 0LL, count}, acc, counts);
 }
 
 // The wide launches (width w, a multiple of 4): group 0's terms kernel

@@ -119,24 +119,26 @@
 // chunks before it hold no pair j >= i) and masks j < i on it; the self
 // pairs enter both halves. Rows and columns past n are bounds checks.
 //
-// The wide panel body (m > 64, kMaxM, the instance MM = kWideMM of every
-// panel kernel): the rows
-// above hold m values in registers and would spill past 64, so the panels
-// there run the wide triangles' tensor-core body (wide_tri.cuh,
-// wide_pair_body: 4 warps on one 64 x 64 tile pair, the Gram tile by
-// slices of coordinates, the weights once a pair, both contractions,
-// nothing sized by m) on the tile pairs of a panel. What differs from the
-// triangles is where a block works and where it flushes, the body's
-// WideSpot, which panel_spot below gives: the grid is (tile pairs of a
-// panel, panels); an off-diagonal panel takes all (W/64)^2 tile pairs
-// (a, b), a diagonal one only a <= b, in the triangle's order (the blocks
-// past them return at once), with the self pairs pinned to 0 on its
-// diagonal tile pairs only; rows of I flush into half 0 of the panel's
-// window and columns of J into half 1, each at its offset in its
-// super-block. Tiles wholly past n return at once. One RBF takes one
-// weight tile (72.7 KB of dynamic shared memory), terms two (107.5 KB).
-// On a diagonal panel about half the blocks return at once, 1/(2 nb) of
-// all: the wide panel does the triangle's work plus that launch waste.
+// Past m = 64 (kMaxM) the bodies above would hold m values a row in
+// registers and spill, so the three kernels take entries of their own,
+// svgd_fused_phi_counts_sympanel_wide, ..._chunk_wide and
+// svgd_fused_phi_terms_sympanel_wide, on the float32 wide triangles' body
+// (wide_tri_sm90.cuh's wide_tri_sm90_body: tiles of 128, persistent blocks
+// one an SM, a producer warp feeding a cp.async ring, 3xTF32 mma.sync, the
+// norms from the staged Gram slices; one weight tile for one RBF, 196,640
+// B of shared memory, two for terms, 225,312 B, with K8/K9's weights). With
+// super-blocks a multiple of 128 (sym_plan.card_panel_plan(...,
+// tile128=True)) the panels' tile pairs are the triangle's in another
+// order: the blocks walk them (WidePanelWork: the whole list, or the
+// panels [p0, p0 + count) of a rank's chunk; decode_panel_item, which K3's
+// bf16 instance shares), the self pairs pinned on a diagonal panel's a == b
+// only, tiles wholly past n skipped, and flush both directions into the
+// (2m, n) accumulator [KS | D], as K2's wide instance does. The per-panel
+// windows of the bodies above, which the TPU's VMEM budget called for,
+// would only be scattered onto it: at (10000, 123) they took 91 MB, past
+// the card's 50 MB L2, and at N = 262,144 2.3 GB. The rows must pass
+// wide_rows_ok (16-byte aligned, m % 4 == 0: the wrapper pads them); the
+// old entries refuse m > 64.
 //
 // The bfloat16 opt-in's K3 instance (fused_phi_counts_sympanel_bf16, any
 // m) runs bf16_tri_sm90.cuh's body: persistent blocks walk the tile pairs
@@ -154,7 +156,7 @@
 
 #include "bf16_tri_sm90.cuh"
 #include "micro_tile.cuh"
-#include "wide_tri.cuh"
+#include "wide_tri_sm90.cuh"
 
 namespace {
 
@@ -362,22 +364,19 @@ __device__ __forceinline__ void sympanel_body(
 template <int MM, bool kTerms>
 struct MicroPanel : MicroShape<MM, (MM <= 2 ? 8 : 2)> {
   static constexpr bool enabled =
-      MM != kWideMM && (kTerms ? MM == 2 || MM == 8 || MM == 11 : MM <= 8);
+      kTerms ? MM == 2 || MM == 8 || MM == 11 : MM <= 8;
   static constexpr int kWarps = 4;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kStrip =
       kThreads * MicroShape<MM, (MM <= 2 ? 8 : 2)>::kRows;  // rows of a block
 };
 
-// Block size and strip height of a panel kernel instance (the wide
-// instance's blocks are wide_tri.cuh's).
+// Block size and strip height of a panel kernel instance.
 template <int MM, bool kTerms>
 struct PanelThreads {
-  static constexpr int value =
-      MM == kWideMM ? kWideTriThreads
-                    : (MicroPanel<MM, kTerms>::enabled
-                           ? MicroPanel<MM, kTerms>::kThreads
-                           : PanelTile<MM, kTerms>::value);
+  static constexpr int value = MicroPanel<MM, kTerms>::enabled
+                                   ? MicroPanel<MM, kTerms>::kThreads
+                                   : PanelTile<MM, kTerms>::value;
 };
 
 template <int MM, bool kTerms>
@@ -565,77 +564,15 @@ __device__ __forceinline__ void micro_panel_body(
   flush_counts(cnt, T, counts);
 }
 
-// ---------------------------------------------------------------------------
-// The wide panel body (see the top of the file)
-// ---------------------------------------------------------------------------
-
-// The spot of tile pair x of window p, panel p0 + p of the list, its
-// super-blocks (I, J) of w particles (w a multiple of kWideTile): false
-// where the block has no pair (past a diagonal panel's a <= b, or a tile
-// wholly past n). Block-uniform.
-__device__ __forceinline__ bool panel_spot(int x, int p, int p0, int nb,
-                                           int w, int n, int m,
-                                           float* panels, WideSpot* spot) {
-  int bi, bj;
-  panel_blocks(p0 + p, nb, &bi, &bj);
-  const int tw = w / kWideTile;
-  int a, b;
-  if (bi == bj) {
-    if (x >= tw * (tw + 1) / 2) return false;
-    decode_upper_pair(x, tw, &a, &b);
-  } else {
-    a = x / tw;
-    b = x - a * tw;
-  }
-  spot->i0 = bi * w + a * kWideTile;
-  spot->j0 = bj * w + b * kWideTile;
-  if (spot->i0 >= n || spot->j0 >= n) return false;
-  spot->diag = bi == bj && a == b;
-  const size_t plane = static_cast<size_t>(2) * m * w;
-  spot->out0 = panels + static_cast<size_t>(p) * 2 * plane;
-  spot->out1 = spot->out0 + plane;
-  spot->base0 = bi * w;
-  spot->base1 = bj * w;
-  spot->ld = w;
-  return true;
-}
-
-// One RBF's wide panel body at kT thresholds.
-template <int kT>
-__device__ __forceinline__ void counts_sympanel_wide(
-    const float* __restrict__ coords, const float* __restrict__ scores,
-    const float* __restrict__ gamma, const float* __restrict__ thr, int n,
-    int m, int T, int nb, int w, int p0, float* __restrict__ panels,
-    unsigned long long* __restrict__ counts) {
-  WideSpot spot;
-  if (!panel_spot(static_cast<int>(blockIdx.x), static_cast<int>(blockIdx.y),
-                  p0, nb, w, n, m, panels, &spot)) {
-    return;
-  }
-  wide_pair_body<kT, false, false>(coords, scores,
-                                   OneRbf{-gamma[0] * kLog2e}, thr, n, m, T,
-                                   spot, counts, WideForm{});
-}
-
-// The grid of a wide panel launch over num_p panels of w particles.
-inline dim3 wide_panel_grid(int w, unsigned int num_p) {
-  const int tw = w / kWideTile;
-  return dim3(static_cast<unsigned int>(tw) * tw, num_p);
-}
-
 // The single-RBF kernels' body: the micro-tile body up to MM = 8 at kT
-// thresholds (3, or kMaxT for a runtime T), sympanel_body above, the wide
-// body at MM = kWideMM.
+// thresholds (3, or kMaxT for a runtime T), sympanel_body above.
 template <int MM, bool kExact, int kT>
 __device__ __forceinline__ void counts_sympanel(
     const float* __restrict__ coords, const float* __restrict__ scores,
     const float* __restrict__ gamma, const float* __restrict__ thr, int n,
     int m_arg, int T, int nb, int w, int p0, float* __restrict__ panels,
     unsigned long long* __restrict__ counts) {
-  if constexpr (MM == kWideMM) {
-    counts_sympanel_wide<kT>(coords, scores, gamma, thr, n, m_arg, T,
-                                    nb, w, p0, panels, counts);
-  } else if constexpr (MicroPanel<MM, false>::enabled) {
+  if constexpr (MicroPanel<MM, false>::enabled) {
     const OneRbf weights{-gamma[0] * kLog2e};
     micro_panel_body<MM, kExact, kT, false>(coords, scores, weights, thr, n,
                                             m_arg, T, nb, w, p0, panels,
@@ -686,60 +623,36 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
 
 // Launch of the single-RBF panel sweep over panels [p0, p0 + num_p) of the
 // list (p0 = 0 and the whole list for fused_phi_counts_sympanel): the
-// instance for T = 3 where the micro-tile or the wide body serves MM, else
-// the one that takes a runtime T.
+// instance for T = 3 where the micro-tile body serves MM, else the one that
+// takes a runtime T.
 template <int MM, bool kExact>
 void launch_counts_sympanel(bool chunk, const float* coords,
                             const float* scores, const float* gamma,
                             const float* thr, int n, int m, int T, int nb,
                             int w, int p0, unsigned int num_p, float* panels,
                             unsigned long long* counts, cudaStream_t s) {
-  if constexpr (MM == kWideMM) {
-    const dim3 grid = wide_panel_grid(w, num_p);
-    const size_t smem = WideTri::smem_bytes(1);
-    auto go = [&](auto kt) {
-      constexpr int kT = decltype(kt)::value;
-      if (chunk) {
-        auto* kernel = &fused_phi_counts_sympanel_chunk_kernel<MM, false, kT>;
-        wide_tri_prepare(kernel, 1);
-        kernel<<<grid, kWideTriThreads, smem, s>>>(
-            coords, scores, gamma, thr, n, m, T, nb, w, p0, panels, counts);
-      } else {
-        auto* kernel = &fused_phi_counts_sympanel_kernel<MM, false, kT>;
-        wide_tri_prepare(kernel, 1);
-        kernel<<<grid, kWideTriThreads, smem, s>>>(
-            coords, scores, gamma, thr, n, m, T, nb, w, panels, counts);
-      }
-    };
+  constexpr int strip = PanelStrip<MM, false>::value;
+  const dim3 grid((w + strip - 1) / strip, num_p);
+  const int threads = PanelThreads<MM, false>::value;
+  auto go = [&](auto kt) {
+    constexpr int kT = decltype(kt)::value;
+    if (chunk) {
+      fused_phi_counts_sympanel_chunk_kernel<MM, kExact, kT>
+          <<<grid, threads, 0, s>>>(coords, scores, gamma, thr, n, m, T, nb,
+                                    w, p0, panels, counts);
+    } else {
+      fused_phi_counts_sympanel_kernel<MM, kExact, kT>
+          <<<grid, threads, 0, s>>>(coords, scores, gamma, thr, n, m, T, nb,
+                                    w, panels, counts);
+    }
+  };
+  if constexpr (MicroPanel<MM, false>::enabled) {
     if (T == 3) {
       go(std::integral_constant<int, 3>{});
-    } else {
-      go(std::integral_constant<int, kMaxT>{});
+      return;
     }
-  } else {
-    constexpr int strip = PanelStrip<MM, false>::value;
-    const dim3 grid((w + strip - 1) / strip, num_p);
-    const int threads = PanelThreads<MM, false>::value;
-    auto go = [&](auto kt) {
-      constexpr int kT = decltype(kt)::value;
-      if (chunk) {
-        fused_phi_counts_sympanel_chunk_kernel<MM, kExact, kT>
-            <<<grid, threads, 0, s>>>(coords, scores, gamma, thr, n, m, T, nb,
-                                      w, p0, panels, counts);
-      } else {
-        fused_phi_counts_sympanel_kernel<MM, kExact, kT>
-            <<<grid, threads, 0, s>>>(coords, scores, gamma, thr, n, m, T, nb,
-                                      w, panels, counts);
-      }
-    };
-    if constexpr (MicroPanel<MM, false>::enabled) {
-      if (T == 3) {
-        go(std::integral_constant<int, 3>{});
-        return;
-      }
-    }
-    go(std::integral_constant<int, kMaxT>{});
   }
+  go(std::integral_constant<int, kMaxT>{});
 }
 
 // The terms kernel: the micro-tile body where it serves MM, at kT
@@ -755,23 +668,7 @@ __global__ void __launch_bounds__(PanelThreads<MM, true>::value)
                                     int m_arg, int T, int nb, int w,
                                     float* __restrict__ panels,
                                     unsigned long long* __restrict__ counts) {
-  if constexpr (MM == kWideMM) {
-    __shared__ float sh_g2[kMaxTerms];
-    __shared__ float sh_sn[kMaxTerms];
-    __shared__ float sh_sg[kMaxTerms];
-    WideSpot spot;
-    if (!panel_spot(static_cast<int>(blockIdx.x),
-                    static_cast<int>(blockIdx.y), 0, nb, w, n, m_arg, panels,
-                    &spot)) {
-      return;
-    }
-    // The body's first barrier comes before its first pair.
-    load_terms(gammas, signs, nterms, sh_g2, sh_sn, sh_sg);
-    wide_pair_body<kT, false, false>(coords, scores,
-                                     AnyTerms{sh_g2, sh_sn, sh_sg, nterms},
-                                     thr, n, m_arg, T, spot, counts,
-                                     WideForm{});
-  } else if constexpr (!MicroPanel<MM, true>::enabled) {
+  if constexpr (!MicroPanel<MM, true>::enabled) {
     sympanel_body<MM, kExact, true>(coords, scores, gammas, signs, nterms,
                                     thr, n, m_arg, T, nb, w, 0, panels,
                                     counts);
@@ -793,70 +690,117 @@ __global__ void __launch_bounds__(PanelThreads<MM, true>::value)
 
 // Launch of the terms panel sweep: where the micro-tile body serves MM, the
 // instance for T = 3 or any T <= 8, each for two terms (the hierarchical
-// BLR's kernel) or any count; the wide body's for T = 3 or any T <= 8, any
-// count of terms (two weight tiles); else sympanel_body's.
+// BLR's kernel) or any count; else sympanel_body's.
 template <int MM, bool kExact>
 void launch_terms_sympanel(const float* coords, const float* scores,
                            const float* gammas, const TermSigns& signs,
                            int nterms, const float* thr, int n, int m, int T,
                            int nb, int w, unsigned int num_p, float* panels,
                            unsigned long long* counts, cudaStream_t s) {
-  if constexpr (MM == kWideMM) {
-    const dim3 grid = wide_panel_grid(w, num_p);
-    const size_t smem = WideTri::smem_bytes(2);
-    auto go = [&](auto* kernel) {
-      wide_tri_prepare(kernel, 2);
-      kernel<<<grid, kWideTriThreads, smem, s>>>(coords, scores, gammas,
-                                                 signs, nterms, thr, n, m, T,
-                                                 nb, w, panels, counts);
+  constexpr int strip = PanelStrip<MM, true>::value;
+  const dim3 grid((w + strip - 1) / strip, num_p);
+  const int threads = PanelThreads<MM, true>::value;
+  auto go = [&](auto kt, auto nt) {
+    fused_phi_terms_sympanel_kernel<MM, kExact, decltype(kt)::value,
+                                    decltype(nt)::value>
+        <<<grid, threads, 0, s>>>(coords, scores, gammas, signs, nterms, thr,
+                                  n, m, T, nb, w, panels, counts);
+  };
+  if constexpr (MicroPanel<MM, true>::enabled) {
+    auto terms = [&](auto kt) {
+      if (nterms == 2) {
+        go(kt, std::integral_constant<int, 2>{});
+      } else {
+        go(kt, std::integral_constant<int, 0>{});
+      }
     };
     if (T == 3) {
-      go(&fused_phi_terms_sympanel_kernel<MM, false, 3, 0>);
+      terms(std::integral_constant<int, 3>{});
     } else {
-      go(&fused_phi_terms_sympanel_kernel<MM, false, kMaxT, 0>);
+      terms(std::integral_constant<int, kMaxT>{});
     }
   } else {
-    constexpr int strip = PanelStrip<MM, true>::value;
-    const dim3 grid((w + strip - 1) / strip, num_p);
-    const int threads = PanelThreads<MM, true>::value;
-    auto go = [&](auto kt, auto nt) {
-      fused_phi_terms_sympanel_kernel<MM, kExact, decltype(kt)::value,
-                                      decltype(nt)::value>
-          <<<grid, threads, 0, s>>>(coords, scores, gammas, signs, nterms, thr,
-                                    n, m, T, nb, w, panels, counts);
-    };
-    if constexpr (MicroPanel<MM, true>::enabled) {
-      auto terms = [&](auto kt) {
-        if (nterms == 2) {
-          go(kt, std::integral_constant<int, 2>{});
-        } else {
-          go(kt, std::integral_constant<int, 0>{});
-        }
-      };
-      if (T == 3) {
-        terms(std::integral_constant<int, 3>{});
-      } else {
-        terms(std::integral_constant<int, kMaxT>{});
-      }
-    } else {
-      go(std::integral_constant<int, kMaxT>{},
-         std::integral_constant<int, 0>{});
-    }
+    go(std::integral_constant<int, kMaxT>{},
+       std::integral_constant<int, 0>{});
   }
 }
 
-// The plan's checks, shared by both entry points: nb super-blocks of w
+// ---------------------------------------------------------------------------
+// Past kMaxM: wide_tri_sm90.cuh's body over the panel list's tile pairs
+// (see the top of the file).
+// ---------------------------------------------------------------------------
+
+// K3's and K5's float32 instance past kMaxM: one RBF, kT thresholds (3, or
+// kMaxT for a runtime T). The whole sweep and a rank's chunk run the same
+// body under two names, so a profiler trace tells them apart.
+template <int kT>
+__global__ void __launch_bounds__(kWideSymThreads)
+    fused_phi_counts_sympanel_wide_kernel(
+        const float* __restrict__ coords, const float* __restrict__ scores,
+        const float* __restrict__ gamma, const float* __restrict__ thr, int n,
+        int m, int T, WidePanelWork work, float* __restrict__ acc,
+        unsigned long long* __restrict__ counts) {
+  wide_tri_sm90_body<kT>(coords, scores, OneRbf{-gamma[0] * kLog2e}, thr, n,
+                         m, T, work, acc, counts);
+}
+
+template <int kT>
+__global__ void __launch_bounds__(kWideSymThreads)
+    fused_phi_counts_sympanel_chunk_wide_kernel(
+        const float* __restrict__ coords, const float* __restrict__ scores,
+        const float* __restrict__ gamma, const float* __restrict__ thr, int n,
+        int m, int T, WidePanelWork work, float* __restrict__ acc,
+        unsigned long long* __restrict__ counts) {
+  wide_tri_sm90_body<kT>(coords, scores, OneRbf{-gamma[0] * kLog2e}, thr, n,
+                         m, T, work, acc, counts);
+}
+
+// K12/K13's float32 instance past kMaxM, with K8/K9's wide weights: two
+// terms in registers (NTerms = 2) or any count in shared memory (0).
+template <int kT, int NTerms>
+__global__ void __launch_bounds__(kWideSymThreads)
+    fused_phi_terms_sympanel_wide_kernel(
+        const float* __restrict__ coords, const float* __restrict__ scores,
+        const float* __restrict__ gammas, TermSigns signs, int nterms,
+        const float* __restrict__ thr, int n, int m, int T,
+        WidePanelWork work, float* __restrict__ acc,
+        unsigned long long* __restrict__ counts) {
+  if constexpr (NTerms > 0) {
+    wide_tri_sm90_body<kT>(coords, scores, FixedTerms<NTerms>(gammas, signs),
+                           thr, n, m, T, work, acc, counts);
+  } else {
+    __shared__ float sh_g2[kMaxTerms];
+    __shared__ float sh_sn[kMaxTerms];
+    __shared__ float sh_sg[kMaxTerms];
+    // The body's first barrier comes before its first pair.
+    load_terms(gammas, signs, nterms, sh_g2, sh_sn, sh_sg);
+    wide_tri_sm90_body<kT>(coords, scores,
+                           AnyTerms{sh_g2, sh_sn, sh_sg, nterms}, thr, n, m,
+                           T, work, acc, counts);
+  }
+}
+
+// The wide panels' work: the tile pairs of panels [p0, p0 + num_p) of the
+// list of nb super-blocks of w particles (w a multiple of kWideSymTile).
+WidePanelWork wide_panel_work(int nb, int w, long long p0, long long num_p) {
+  const int tw = w / kWideSymTile;
+  const long long u0 = panel_first_item(p0, nb, tw);
+  return WidePanelWork{nb, tw, u0,
+                       panel_first_item(p0 + num_p, nb, tw) - u0};
+}
+
+// One persistent block an SM (wide_sym_prepare) over the work's items,
+// with kTwo weight tiles.
+template <bool kTwo, class Kernel, class... Args>
+void launch_wide_panel(Kernel* kernel, const WidePanelWork& work,
+                       cudaStream_t s, Args... args) {
+  const unsigned int blocks = wide_sym_prepare<kTwo>(kernel, work.count);
+  kernel<<<blocks, kWideSymThreads, WideSym<kTwo>::kSmemBytes, s>>>(args...);
+}
+
+// The plan's checks, shared by every entry point: nb super-blocks of w
 // particles (w a positive multiple of 64) covering n, at most 65535 panels
 // (the grid's y limit) and nb * w within an int.
-// The panel kernels' instance for dimension m: SVGD_DISPATCH_M_2_11's up to
-// kMaxM, the wide body's (MM = kWideMM) past it.
-#define SVGD_DISPATCH_PANEL_M(m, LAUNCH)                                 \
-  if ((m) > svgd::kMaxM) {                                              \
-    LAUNCH(svgd::kWideMM, false);                                       \
-  } else {                                                              \
-    SVGD_DISPATCH_M_2_11(m, LAUNCH)                                     \
-  }
-
 bool plan_ok(int n, int nb, int w) {
   if (n <= 0 || nb < 1 || w < kPanelAlign || w % kPanelAlign) return false;
   const long long n_pad = static_cast<long long>(nb) * w;
@@ -871,8 +815,8 @@ extern "C" {
 // Panel triangle sweep of one RBF. coords (n, m) centered, scores (n, m),
 // gamma (1,), thr (T,) float32 on the device; panels a zeroed float32
 // (nb (nb + 1) / 2, 2, 2m, w) buffer; counts a zeroed int64 (T,) buffer
-// that receives the upper count U (diagonal included). m >= 1 (the wide
-// instance past 64), 1 <= T <= 8.
+// that receives the upper count U (diagonal included). 1 <= m <= 64 (past
+// it svgd_fused_phi_counts_sympanel_wide), 1 <= T <= 8.
 int svgd_fused_phi_counts_sympanel(const float* coords, const float* scores,
                                    const float* gamma, const float* thr,
                                    int n, int m, int T, int nb, int w,
@@ -887,15 +831,49 @@ int svgd_fused_phi_counts_sympanel(const float* coords, const float* scores,
 #define SVGD_LAUNCH_SYMPANEL(MM_, EX_)                                  \
   launch_counts_sympanel<MM_, EX_>(false, coords, scores, gamma, thr, n, m, \
                                    T, nb, w, 0, num_p, panels, c, s);
-  SVGD_DISPATCH_PANEL_M(m, SVGD_LAUNCH_SYMPANEL)
+  SVGD_DISPATCH_M_2_11(m, SVGD_LAUNCH_SYMPANEL)
 #undef SVGD_LAUNCH_SYMPANEL
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K3's float32 instance past m = 64 (see the top of the file): coords,
+// scores, gamma, thr, n, T, nb and counts as
+// svgd_fused_phi_counts_sympanel's; m > 64 a multiple of 4, coords and
+// scores on 16-byte boundaries (wide_rows_ok: the wrapper pads the rows
+// with zero columns); w a multiple of 128 (sym_plan.card_panel_plan(...,
+// tile128=True)); acc a zeroed float32 (2m, n) accumulator that receives
+// [KS | D] of the whole triangle, as svgd_fused_phi_counts_sym's.
+int svgd_fused_phi_counts_sympanel_wide(const float* coords,
+                                        const float* scores,
+                                        const float* gamma, const float* thr,
+                                        int n, int m, int T, int nb, int w,
+                                        float* acc, long long* counts,
+                                        void* stream) {
+  if (!plan_ok(n, nb, w) || w % kWideSymTile ||
+      w / kWideSymTile > kPanelMaxTiles || m <= kMaxM || T < 1 ||
+      T > kMaxT || !wide_rows_ok(m, coords, scores)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* c = reinterpret_cast<unsigned long long*>(counts);
+  const WidePanelWork work =
+      wide_panel_work(nb, w, 0, static_cast<long long>(nb) * (nb + 1) / 2);
+  auto go = [&](auto* kernel) {
+    launch_wide_panel<false>(kernel, work, s, coords, scores, gamma, thr, n,
+                             m, T, work, acc, c);
+  };
+  if (T == 3) {
+    go(&fused_phi_counts_sympanel_wide_kernel<3>);
+  } else {
+    go(&fused_phi_counts_sympanel_wide_kernel<kMaxT>);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // K3's bf16 instance (the bfloat16 opt-in), at any m >= 1: coords, scores,
 // gamma, thr, n, T, nb and counts as svgd_fused_phi_counts_sympanel's, the
 // plan's w a multiple of kBf16Tile (sym_plan.card_panel_plan(...,
-// bf16=True)); work, the pack and acc, a zeroed (2m + 1, n) float32
+// tile128=True)); work, the pack and acc, a zeroed (2m + 1, n) float32
 // accumulator that receives [KS | KX | rowsum], as
 // svgd_fused_phi_counts_sym_bf16's.
 int svgd_fused_phi_counts_sympanel_bf16(const float* coords,
@@ -904,18 +882,17 @@ int svgd_fused_phi_counts_sympanel_bf16(const float* coords,
                                         int n, int m, int T, int nb, int w,
                                         void* work, float* acc,
                                         long long* counts, void* stream) {
-  if (!plan_ok(n, nb, w) || w % kBf16Tile || m < 1 || T < 1 || T > kMaxT ||
+  if (!plan_ok(n, nb, w) || w % kBf16Tile ||
+      w / kBf16Tile > kPanelMaxTiles || m < 1 || T < 1 || T > kMaxT ||
       (reinterpret_cast<uintptr_t>(work) & 15u) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* c = reinterpret_cast<unsigned long long*>(counts);
   const int tw = w / kBf16Tile;
-  const long long off_items =
-      static_cast<long long>(nb) * (nb - 1) / 2 * tw * tw;
   const long long items =
-      off_items + static_cast<long long>(nb) * tw * (tw + 1) / 2;
-  const Bf16PanelWork wk{nb, tw, w, n, off_items, acc};
+      panel_first_item(static_cast<long long>(nb) * (nb + 1) / 2, nb, tw);
+  const Bf16PanelWork wk{nb, tw, w, n, acc};
   const Bf16Operands ops = bf16_tri_pack(coords, scores, n, m, work, s);
   auto go = [&](auto* kernel) {
     const unsigned int blocks = bf16_tri_prepare(kernel, items);
@@ -931,8 +908,8 @@ int svgd_fused_phi_counts_sympanel_bf16(const float* coords,
 // [p0, p0 + count) of the nb super-blocks' panel list, one window each in
 // panels, a zeroed float32 (count, 2, 2m, w) buffer; the arguments otherwise
 // as svgd_fused_phi_counts_sympanel's (coords and scores are the GLOBAL set,
-// centered on its mean). counts receives this chunk's upper count. count = 0
-// launches nothing.
+// centered on its mean; 1 <= m <= 64). counts receives this chunk's upper
+// count. count = 0 launches nothing.
 int svgd_fused_phi_counts_sympanel_chunk(const float* coords,
                                          const float* scores,
                                          const float* gamma, const float* thr,
@@ -941,7 +918,7 @@ int svgd_fused_phi_counts_sympanel_chunk(const float* coords,
                                          long long* counts, void* stream) {
   const long long num_p = static_cast<long long>(nb) * (nb + 1) / 2;
   if (!plan_ok(n, nb, w) || T < 1 || T > kMaxT || p0 < 0 || count < 0 ||
-      p0 + static_cast<long long>(count) > num_p) {
+      p0 + static_cast<long long>(count) > num_p || m < 1 || m > kMaxM) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (count == 0) return static_cast<int>(cudaGetLastError());
@@ -952,14 +929,47 @@ int svgd_fused_phi_counts_sympanel_chunk(const float* coords,
                                    nb, w, p0,                                 \
                                    static_cast<unsigned int>(count), panels,  \
                                    c, s);
-  SVGD_DISPATCH_PANEL_M(m, SVGD_LAUNCH_SYMPANEL_CHUNK)
+  SVGD_DISPATCH_M_2_11(m, SVGD_LAUNCH_SYMPANEL_CHUNK)
 #undef SVGD_LAUNCH_SYMPANEL_CHUNK
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K5's float32 instance past m = 64: the tile pairs of panels
+// [p0, p0 + count) of the list, the arguments otherwise as
+// svgd_fused_phi_counts_sympanel_wide's (coords and scores the GLOBAL set,
+// centered on its mean); acc, a zeroed (2m, n) accumulator, receives this
+// chunk's share of [KS | D], counts its upper count. count = 0 launches
+// nothing.
+int svgd_fused_phi_counts_sympanel_chunk_wide(
+    const float* coords, const float* scores, const float* gamma,
+    const float* thr, int n, int m, int T, int nb, int w, int p0, int count,
+    float* acc, long long* counts, void* stream) {
+  const long long num_p = static_cast<long long>(nb) * (nb + 1) / 2;
+  if (!plan_ok(n, nb, w) || w % kWideSymTile ||
+      w / kWideSymTile > kPanelMaxTiles || m <= kMaxM || T < 1 ||
+      T > kMaxT || !wide_rows_ok(m, coords, scores) || p0 < 0 || count < 0 ||
+      p0 + static_cast<long long>(count) > num_p) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (count == 0) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* c = reinterpret_cast<unsigned long long*>(counts);
+  const WidePanelWork work = wide_panel_work(nb, w, p0, count);
+  auto go = [&](auto* kernel) {
+    launch_wide_panel<false>(kernel, work, s, coords, scores, gamma, thr, n,
+                             m, T, work, acc, c);
+  };
+  if (T == 3) {
+    go(&fused_phi_counts_sympanel_chunk_wide_kernel<3>);
+  } else {
+    go(&fused_phi_counts_sympanel_chunk_wide_kernel<kMaxT>);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // Panel triangle sweep of a composed kernel: as above, with gammas
 // (nterms,) float32 on the device and signs (nterms,) a HOST array, passed
-// by value to the kernel. 1 <= nterms <= 16.
+// by value to the kernel. 1 <= nterms <= 16, 1 <= m <= 64.
 int svgd_fused_phi_terms_sympanel(const float* coords, const float* scores,
                                   const float* gammas, const float* signs,
                                   int nterms, const float* thr, int n, int m,
@@ -976,8 +986,51 @@ int svgd_fused_phi_terms_sympanel(const float* coords, const float* scores,
 #define SVGD_LAUNCH_TERMS_SYMPANEL(MM_, EX_)                             \
   launch_terms_sympanel<MM_, EX_>(coords, scores, gammas, sg, nterms, thr, \
                                   n, m, T, nb, w, num_p, panels, c, s);
-  SVGD_DISPATCH_PANEL_M(m, SVGD_LAUNCH_TERMS_SYMPANEL)
+  SVGD_DISPATCH_M_2_11(m, SVGD_LAUNCH_TERMS_SYMPANEL)
 #undef SVGD_LAUNCH_TERMS_SYMPANEL
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K12/K13's float32 instance past m = 64: gammas, signs and nterms as
+// svgd_fused_phi_terms_sympanel's, the rest as
+// svgd_fused_phi_counts_sympanel_wide's; D in acc weighted by
+// w = sum s gamma k.
+int svgd_fused_phi_terms_sympanel_wide(const float* coords,
+                                       const float* scores,
+                                       const float* gammas,
+                                       const float* signs, int nterms,
+                                       const float* thr, int n, int m, int T,
+                                       int nb, int w, float* acc,
+                                       long long* counts, void* stream) {
+  if (!plan_ok(n, nb, w) || w % kWideSymTile ||
+      w / kWideSymTile > kPanelMaxTiles || m <= kMaxM || T < 1 ||
+      T > kMaxT || nterms < 1 || nterms > kMaxTerms ||
+      !wide_rows_ok(m, coords, scores)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const TermSigns sg = make_signs(signs, nterms);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* c = reinterpret_cast<unsigned long long*>(counts);
+  const WidePanelWork work =
+      wide_panel_work(nb, w, 0, static_cast<long long>(nb) * (nb + 1) / 2);
+  auto go = [&](auto kt, auto nt) {
+    auto* kernel = &fused_phi_terms_sympanel_wide_kernel<decltype(kt)::value,
+                                                         decltype(nt)::value>;
+    launch_wide_panel<true>(kernel, work, s, coords, scores, gammas, sg,
+                            nterms, thr, n, m, T, work, acc, c);
+  };
+  auto terms = [&](auto kt) {
+    if (nterms == 2) {
+      go(kt, std::integral_constant<int, 2>{});
+    } else {
+      go(kt, std::integral_constant<int, 0>{});
+    }
+  };
+  if (T == 3) {
+    terms(std::integral_constant<int, 3>{});
+  } else {
+    terms(std::integral_constant<int, kMaxT>{});
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

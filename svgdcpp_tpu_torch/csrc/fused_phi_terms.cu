@@ -113,8 +113,8 @@ __device__ __forceinline__ void terms_tri(
     unsigned long long* __restrict__ counts) {
   auto body = [&](const auto& weights) {
     if constexpr (MM == kWideMM) {
-      wide_tri_sm90_body<kT>(coords, scores, weights, thr, n, m_arg, T, nb,
-                             t0, count, acc, counts);
+      wide_tri_sm90_body<kT>(coords, scores, weights, thr, n, m_arg, T,
+                             WideTriWork{nb, t0, count}, acc, counts);
     } else {
       micro_tri_body<MM, kExact, kT>(coords, scores, weights, thr, n, m_arg,
                                      T, nb, t0, acc, counts);

@@ -157,6 +157,53 @@ __device__ __forceinline__ void decode_upper_pair(long long t, int nb, int* bi,
   *bj = static_cast<int>(i + (t - off(i)));
 }
 
+// The panel list's tile pairs, the work of the panel kernels' bodies on
+// tiles of 128 (K3's bf16 instance, bf16_tri_sm90.cuh's Bf16PanelWork; K3/K5
+// and K12/K13 past kMaxM, wide_tri_sm90.cuh's WidePanelWork): nb
+// super-blocks of tw tiles, panel by panel in the order of
+// sym_plan.panel_pairs (the off-diagonal super-block pairs row by row,
+// tw x tw tile pairs each, row-major; then the diagonal ones, the upper
+// triangle of tw tiles each). Item u is the tile pair (a, b) of super-blocks
+// (bi, bj); sym_plan.panel_tile_pair mirrors the decode.
+struct PanelTilePair {
+  int bi, bj, a, b;
+};
+
+// A panel's tiles a side at most: a panel's tw^2 items stay within an int.
+constexpr int kPanelMaxTiles = 46340;
+
+// The first item of panel p (p = nb (nb + 1) / 2: the list's length).
+__host__ __device__ inline long long panel_first_item(long long p, int nb,
+                                                      int tw) {
+  const long long n_off = static_cast<long long>(nb) * (nb - 1) / 2;
+  const long long sq = static_cast<long long>(tw) * tw;
+  return p <= n_off ? p * sq
+                    : n_off * sq + (p - n_off) * tw * (tw + 1) / 2;
+}
+
+__device__ __forceinline__ PanelTilePair decode_panel_item(long long u,
+                                                           int nb, int tw) {
+  PanelTilePair c;
+  const long long off_items = panel_first_item(
+      static_cast<long long>(nb) * (nb - 1) / 2, nb, tw);
+  if (u < off_items) {
+    const long long per = static_cast<long long>(tw) * tw;
+    const long long p = u / per;
+    const int x = static_cast<int>(u - p * per);
+    c.a = x / tw;
+    c.b = x - c.a * tw;
+    decode_upper_pair(p, nb - 1, &c.bi, &c.bj);
+    ++c.bj;
+  } else {
+    const long long per = static_cast<long long>(tw) * (tw + 1) / 2;
+    const long long v = u - off_items;
+    const long long d = v / per;
+    decode_upper_pair(v - d * per, tw, &c.a, &c.b);
+    c.bi = c.bj = static_cast<int>(d);
+  }
+  return c;
+}
+
 // Number of blocks of an upper-triangle launch over n particles in tiles of
 // `tile`, or -1 when it does not fit a one-dimensional grid.
 inline long long upper_pairs(int n, int tile) {
@@ -174,14 +221,13 @@ struct MicroWidth {
 };
 
 // The wide triangle body's tiles (wide_tri.cuh's wide_pair_body): 64
-// particles a side, for its users (K15 and its bf16 instance, the
-// panels). The bf16 triangle body's are kBf16Tile = 128
-// (bf16_tri_sm90.cuh).
+// particles a side, for its users (K15 and its bf16 instance). The bf16
+// triangle body's are kBf16Tile = 128 (bf16_tri_sm90.cuh).
 constexpr int kWideTile = 64;
 
 // The float32 triangle sweeps' tiles past kMaxM (wide_tri_sm90.cuh: K2/K4
-// and K8-K11 at MM = kWideMM, and K14's term groups): 128 particles a
-// side, for one RBF and for terms alike.
+// and K8-K11 at MM = kWideMM, K14's term groups, and the panels K3/K5 and
+// K12/K13): 128 particles a side, for one RBF and for terms alike.
 constexpr int kWideSymTile = 128;
 
 // The single-RBF one-row-a-thread triangle body (counts_sym.cuh): tiles of
@@ -391,9 +437,9 @@ struct AnyTerms {
   }
 
 // As SVGD_DISPATCH_M with fewer exact instances; an m outside 1..kMaxM
-// returns cudaErrorInvalidValue (the panels' SVGD_DISPATCH_PANEL_M and
-// K14's entry take their wide instances past kMaxM before this dispatch,
-// and K15's wide sweep has an entry of its own, svgd_phi_rbf_wide).
+// returns cudaErrorInvalidValue (K14's entry takes its wide instance past
+// kMaxM before this dispatch; the panels' and K15's wide sweeps have entries
+// of their own, svgd_fused_phi_*_sympanel*_wide and svgd_phi_rbf_wide).
 #define SVGD_DISPATCH_M_2_11(m, LAUNCH)                                 \
   switch (m) {                                                          \
     case 2: LAUNCH(2, true); break;                                     \

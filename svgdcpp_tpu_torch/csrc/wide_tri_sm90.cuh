@@ -1,17 +1,18 @@
 // The upper-triangle sweep's float32 body past kMaxM (m > 64) for the
 // single-RBF triangle kernels (fused_phi.cu: K2's and K4's ports) and the
 // terms triangle kernels (fused_phi_terms.cu: K8/K9's and K10/K11's), the
-// instance MM = kWideMM of each, and for K14's term groups
-// (fused_phi_aniso.cu: one RBF a single-term group, terms for group 0 of
-// two or more isotropic terms). It computes what wide_tri.cuh's
-// wide_pair_body computes for them (the (2m, n) accumulator [KS | D], D
-// unscaled for one RBF and weighted by w for terms, each self pair entered
-// in both directions and pinned to sq = 0, the upper count U with the
-// diagonal), with the Gram tile and both contractions in 3xTF32 on the
-// tensor cores, and is laid out for Hopper's shared memory. wide_pair_body
-// keeps serving the other wide users (K15 and its bf16 instance, the
-// panels); K2's and K3's bf16 instances run
-// bf16_tri_sm90.cuh's body, built on this one's loop structure.
+// instance MM = kWideMM of each, for K14's term groups (fused_phi_aniso.cu:
+// one RBF a single-term group, terms for group 0 of two or more isotropic
+// terms), and for the panel kernels' float32 instances past kMaxM
+// (fused_phi_panel.cu: K3's and K5's one RBF, K12/K13's terms). It computes
+// what wide_tri.cuh's wide_pair_body computes for them (the (2m, n)
+// accumulator [KS | D], D unscaled for one RBF and weighted by w for terms,
+// each self pair entered in both directions and pinned to sq = 0, the upper
+// count U with the diagonal), with the Gram tile and both contractions in
+// 3xTF32 on the tensor cores, and is laid out for Hopper's shared memory.
+// wide_pair_body keeps serving the other wide users (K15 and its bf16
+// instance); K2's and K3's bf16 instances run bf16_tri_sm90.cuh's body,
+// built on this one's loop structure.
 //
 // What bounds it. At (10000, 123) the parent body took 3.65 ms, of which
 // the contraction's fragment loads took about 1.9 ms: 64 x 64 tile pairs
@@ -27,16 +28,26 @@
 //   * Tiles of kWideSymTile = 128 particles a side: twice the work per
 //     staged byte of 64 x 64 and half the atomics per pair of particles.
 //   * Persistent blocks, one an SM (the launcher's grid is the SM count),
-//     each walking its tile pairs t0 + blockIdx.x + k gridDim.x of the
-//     upper triangle's row-major tile list, so that the next pair's first
-//     slices load while this pair finishes.
+//     each walking items blockIdx.x + k gridDim.x of a work list, so that
+//     the next pair's first slices load while this pair finishes: the
+//     triangles' is the upper triangle's row-major tile list from t0
+//     (WideTriWork), the panels' a range of the panel list's tile pairs
+//     (WidePanelWork). With super-blocks a multiple of 128 wide, the tile
+//     pairs of all panels are those of the upper triangle of tiles, in
+//     another order, and both flush into the same (2m, n) accumulator:
+//     the panels' per-panel windows (the TPU's VMEM budget) would only be
+//     scattered onto it.
 //   * Warp specialisation: 8 consumer warps compute; a ninth, the
 //     producer, issues every cp.async, kStages - 1 stages ahead, into a
 //     ring of stages of two 128 x 32 slots: a pair is KG = ceil(m / 32)
 //     Gram slices (slot 0 = X_I, slot 1 = X_J), then KG chunks of the
 //     scores and KG of the coordinates (slot 0 = the J rows, dir 0's
-//     records; slot 1 = the I rows, dir 1's). Nothing is staged
-//     synchronously and no slot is single-buffered. The copies are 16
+//     records; slot 1 = the I rows, dir 1's). The producer alone decodes
+//     an item (a tile pair's first particles), once, and leaves it in the
+//     padding of its first stage: a decode in the consumers, whose
+//     compiler-hoisted state the panels' decode enlarges, spilled the
+//     panels' instances at the 168 registers of nine warps. Nothing is
+//     staged synchronously and no slot is single-buffered. The copies are 16
 //     bytes: the rows must start on 16-byte boundaries (wide_rows_ok; the
 //     wrappers pad them to a multiple of 4 floats past 64,
 //     ops/sym_plan.wide_row_width), since 4-byte copies of odd m's rows,
@@ -90,6 +101,11 @@ constexpr int kWideSymThreads = kWideSymConsumers + 32;  // + the producer
 constexpr int kWideSymCols = 32;      // columns of a slice or chunk
 constexpr int kSlotLd = 40;           // slot rows' stride (8 mod 32)
 constexpr int kWLd = 136;             // W's stride (8 mod 32)
+// Where the producer leaves an item for the consumers: row 0's padding of
+// slot 0 in the item's first stage (no copy and no fragment load reaches
+// the columns past kWideSymCols): i0, j0 and its flags.
+constexpr int kItemCol = kWideSymCols;
+static_assert(kSlotLd - kWideSymCols >= 3, "the item needs 3 columns");
 
 // The shared memory of the body with kTwo weights a pair (terms: k_c and
 // w, a weight tile each) or one (OneRbf): a ring of kStages stages of two
@@ -165,18 +181,59 @@ __device__ __forceinline__ void mma_3x(float (&d)[4], const uint32_t (&ab)[4],
   mma_tf32(d, ab, bb0, bb1);
 }
 
-// The body: tile pairs [t0, t0 + count) of the upper triangle of nb tiles
-// of kWideSymTile, block b taking t0 + b, t0 + b + gridDim.x, ...; kT
-// thresholds (3, or kMaxT for a runtime T); weights(sq, k_c, w) the pair's
-// weights (one weight where W is OneRbf, k_c = w). Composed kernels'
-// constants in shared memory (AnyTerms) must be stored before the call:
-// the body's first barrier comes before its first pair. Warps 0-7 compute;
-// warp 8, the producer, issues every stage's copies.
-template <int kT, class Wt>
+// A tile pair of the body's work: the first particles of its tiles of I
+// and J, and whether it is a diagonal tile pair (j >= i kept, the self
+// pairs pinned to sq = 0).
+struct WideItem {
+  int i0, j0;
+  bool diag;
+};
+
+// The triangles' work: tile pairs [t0, t0 + count) of the upper triangle
+// of nb tiles in row-major order (sym_plan.wide_sym_walk).
+struct WideTriWork {
+  int nb;
+  long long t0, count;
+
+  __device__ __forceinline__ WideItem at(long long u) const {
+    int bi, bj;
+    decode_upper_pair(t0 + u, nb, &bi, &bj);
+    return WideItem{bi * kWideSymTile, bj * kWideSymTile, bi == bj};
+  }
+};
+
+// The panels' work: items [u0, u0 + count) of the panel list's tile pairs
+// over nb super-blocks of tw tiles (decode_panel_item; the whole list, or
+// the panels of one rank's chunk; sym_plan.wide_panel_walk). A diagonal
+// tile pair is a diagonal panel's a == b, and only that.
+struct WidePanelWork {
+  int nb, tw;
+  long long u0, count;
+
+  __device__ __forceinline__ WideItem at(long long u) const {
+    const PanelTilePair c = decode_panel_item(u0 + u, nb, tw);
+    return WideItem{(c.bi * tw + c.a) * kWideSymTile,
+                    (c.bj * tw + c.b) * kWideSymTile,
+                    c.bi == c.bj && c.a == c.b};
+  }
+};
+
+// The body: the work's items [0, work.count), block b taking b,
+// b + gridDim.x, ...; the producer decodes each item once, at its first
+// stage, and leaves it in that stage (kItemCol) for the consumers, who hold
+// no decode's state in their registers; an item with a tile wholly past n
+// (a panel's last super-block) adds nothing, its stages only pass their
+// barriers; kT thresholds (3, or
+// kMaxT for a runtime T); weights(sq, k_c, w) the pair's weights (one weight
+// where W is OneRbf, k_c = w). Composed kernels' constants in shared memory
+// (AnyTerms) must be stored before the call: the body's first barrier comes
+// before its first pair. Warps 0-7 compute; warp 8, the producer, issues
+// every stage's copies.
+template <int kT, class Wt, class Work>
 __device__ __forceinline__ void wide_tri_sm90_body(
     const float* __restrict__ coords, const float* __restrict__ scores,
     const Wt& weights, const float* __restrict__ thr, int n, int m, int T,
-    int nb, long long t0, long long count, float* __restrict__ acc,
+    const Work& work, float* __restrict__ acc,
     unsigned long long* __restrict__ counts) {
   constexpr bool kTwo = kTwoBands<Wt>;
   using L = WideSym<kTwo>;
@@ -201,29 +258,39 @@ __device__ __forceinline__ void wide_tri_sm90_body(
   const int kg = (m + C - 1) / C;  // Gram slices = chunks of a band
   const int ns = 3 * kg;           // stages a pair
   const long long first = blockIdx.x;
+  const long long count = work.count;
   const long long pairs =
       count > first ? (count - first + gridDim.x - 1) / gridDim.x : 0;
   const long long total = pairs * ns;
 
-  auto spot = [&](long long k, int* bi, int* bj) {
-    decode_upper_pair(t0 + first + k * gridDim.x, nb, bi, bj);
-  };
-
   if (warp == kWideSymWarps) {
     // The producer: stage q of the block's stream into ring slot
-    // q % kStages, kStages - 1 stages ahead of the consumers.
+    // q % kStages, kStages - 1 stages ahead of the consumers; at an item's
+    // first stage it decodes the item (live where both tiles hold
+    // particles) and leaves it there for the consumers.
+    WideItem it{};
+    bool live = false;
     auto issue = [&](long long q) {
       const long long k = q / ns;
       const int s = static_cast<int>(q - k * ns);
-      int bi, bj;
-      spot(k, &bi, &bj);
+      float* stage = ring + static_cast<int>(q % kStages) * L::kStage;
+      if (s == 0) {
+        it = work.at(first + k * gridDim.x);
+        live = it.i0 < n && it.j0 < n;
+        if (lane == 0) {
+          int* slot = reinterpret_cast<int*>(stage + kItemCol);
+          slot[0] = it.i0;
+          slot[1] = it.j0;
+          slot[2] = (it.diag ? 1 : 0) | (live ? 2 : 0);
+        }
+      }
+      if (!live) return;
       const bool gram = s < kg;
       const int c0 = (gram ? s : (s - kg) % kg) * C;
       const float* src = gram || s >= 2 * kg ? coords : scores;
       // Slot 0: X_I (Gram) or the J rows (chunks); slot 1: X_J or the I
       // rows.
-      const int rows[2] = {(gram ? bi : bj) * S, (gram ? bj : bi) * S};
-      float* stage = ring + static_cast<int>(q % kStages) * L::kStage;
+      const int rows[2] = {gram ? it.i0 : it.j0, gram ? it.j0 : it.i0};
       // 16 bytes a copy: lane -> 4 columns of every fourth row.
       const int k4 = 4 * (lane & 7);
       const int left = min(max(m - c0 - k4, 0), 4);
@@ -355,11 +422,18 @@ __device__ __forceinline__ void wide_tri_sm90_body(
 
 #pragma unroll 1
   for (long long k = 0; k < pairs; ++k) {
-    int bi, bj;
-    spot(k, &bi, &bj);
-    const int i0 = bi * S;
-    const int j0 = bj * S;
-    const bool diag = bi == bj;
+    // The item's first stage, and the item the producer left in it.
+    const float* stage0 = next_stage();
+    const int* item = reinterpret_cast<const int*>(stage0 + kItemCol);
+    const int i0 = item[0];
+    const int j0 = item[1];
+    const int flags = item[2];
+    if (!(flags & 2)) {
+#pragma unroll 1
+      for (int s = 1; s < ns; ++s) next_stage();
+      continue;
+    }
+    const bool diag = flags & 1;
     {
       float acc_g[2][8][4];  // the Gram tile, live until the weights
 #pragma unroll
@@ -373,7 +447,7 @@ __device__ __forceinline__ void wide_tri_sm90_body(
       float nacc = 0.0f;  // this thread's norm: row tid of I, or of J
 #pragma unroll 1
       for (int s = 0; s < kg; ++s) {
-        const float* slot0 = next_stage();
+        const float* slot0 = s == 0 ? stage0 : next_stage();
         const float* slot1 = slot0 + L::kSlot;
         // 1. The Gram tile's slice s, and this thread's norm over it (the
         // row's 32 columns in a lane-rotated order: conflict-free).

@@ -47,7 +47,9 @@ package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
   * ``fused_phi_counts_sympanel`` (``csrc/fused_phi_panel.cu``) --
     ``_sym_panel_kernel`` (K3): the triangle sweep of one RBF laid out as
     pairs of super-blocks, each with its own output window, summed by an
-    epilogue (``ops/phi.sympanel_epilogue``).
+    epilogue (``ops/phi.sympanel_epilogue``); past m = 64 on
+    ``csrc/wide_tri_sm90.cuh``'s body, which walks the panels' tile pairs
+    into the triangle's accumulator, with no windows.
   * ``fused_phi_terms_sympanel`` (``csrc/fused_phi_panel.cu``) --
     ``_sym_panel_terms_direct_kernel`` and ``_sym_panel_terms_kernel``
     (K12, K13): the same for a signed sum of isotropic RBF terms.
@@ -70,9 +72,9 @@ their plain versions; ``phi_rbf_square`` returns phi, like
 ``ops/phi.phi_rbf_blocked``. Every sweep and the count kernel take any
 m >= 1: past MAX_M = 64 the sweeps run wide bodies that hold nothing sized
 by m (``csrc/square_wide_sm90.cuh``'s for the float32 square sweeps,
-``csrc/wide_tri_sm90.cuh``'s body for the float32 triangles and K14's
-groups, ``csrc/wide_tri.cuh``'s for K15, and which the panels run on the
-tile pairs of a panel). ``sym_eigen`` alone takes 1 <= m <= MAX_M:
+``csrc/wide_tri_sm90.cuh``'s body for the float32 triangles, the panels
+and K14's groups, ``csrc/wide_tri.cuh``'s for K15). ``sym_eigen`` alone
+takes 1 <= m <= MAX_M:
 its matrix and its order table live in one block's shared memory, and
 past MAX_M K15 takes P itself, so nothing calls it there.
 
@@ -151,6 +153,7 @@ from .sym_plan import (
     card_panel_plan,
     card_resolve_sym,
     panel_chunk,
+    panel_tile128,
     sym_tile_chunk,
     wide_row_width,
 )
@@ -198,7 +201,9 @@ SYMPANEL_BF16_KERNEL = "fused_phi_counts_sympanel_bf16"
 PHI_RBF_WIDE_BF16_KERNEL = "phi_rbf_wide_bf16"
 
 #: Launches of each kernel since the last reset_launch_counts(). A panel
-#: kernel's wide instance (m > MAX_M) counts under its family's key.
+#: kernel's wide instance (m > MAX_M, an entry of its own:
+#: ``svgd_fused_phi_counts_sympanel_wide``, ...) counts under its family's
+#: key.
 launch_counts = {
     SQUARE_KERNEL: 0, SYM_KERNEL: 0, TERMS_SQUARE_KERNEL: 0,
     TERMS_SYM_KERNEL: 0, ANISO_KERNEL: 0, ANISO_WIDE_KERNEL: 0,
@@ -272,9 +277,13 @@ def load_library() -> ctypes.CDLL:
                 "svgd_sym_eigen": [ptr, i32, ptr, ptr, ptr],
                 "svgd_fused_phi_counts_sympanel":
                     [ptr] * 4 + [i32] * 5 + [ptr] * 3,
+                "svgd_fused_phi_counts_sympanel_wide":
+                    [ptr] * 4 + [i32] * 5 + [ptr] * 3,
                 "svgd_fused_phi_counts_sympanel_bf16":
                     [ptr] * 4 + [i32] * 5 + [ptr] * 4,
                 "svgd_fused_phi_terms_sympanel":
+                    [ptr] * 4 + [i32, ptr] + [i32] * 5 + [ptr] * 3,
+                "svgd_fused_phi_terms_sympanel_wide":
                     [ptr] * 4 + [i32, ptr] + [i32] * 5 + [ptr] * 3,
                 "svgd_fused_phi_counts_sym_chunk":
                     [ptr] * 4 + [i32] * 3 + [i64] * 2 + [ptr] * 3,
@@ -282,6 +291,8 @@ def load_library() -> ctypes.CDLL:
                     [ptr] * 4 + [i32, ptr] + [i32] * 3 + [i64] * 2
                     + [ptr] * 3,
                 "svgd_fused_phi_counts_sympanel_chunk":
+                    [ptr] * 4 + [i32] * 7 + [ptr] * 3,
+                "svgd_fused_phi_counts_sympanel_chunk_wide":
                     [ptr] * 4 + [i32] * 7 + [ptr] * 3,
                 "svgd_count_le_cross": [ptr] * 4 + [i32] * 4 + [ptr] * 2,
                 "svgd_count_le_self": [ptr] * 3 + [i32] * 3 + [ptr] * 2,
@@ -577,7 +588,7 @@ def _bf16_operands(coords, scores, panel=False, panel_blocks=None):
     kernel fills, ``sym_plan.bf16_work_bytes(n, m)`` bytes; the zeroed
     (2m + 1, n) accumulator [KS | KX | rowsum], into which K3's instance
     too flushes its panels' tile pairs; with ``panel``, the plan
-    ``card_panel_plan(n, panel_blocks, bf16=True)``'s (nb, w), else
+    ``card_panel_plan(n, panel_blocks, tile128=True)``'s (nb, w), else
     None)."""
     n, m = coords.shape
     device = coords.device
@@ -585,7 +596,7 @@ def _bf16_operands(coords, scores, panel=False, panel_blocks=None):
     sc32 = scores.to(torch.float32).contiguous()
     work = torch.empty(bf16_work_bytes(n, m), dtype=torch.uint8,
                        device=device)
-    plan = _panel_plan(n, panel_blocks, bf16=True)[:2] if panel else None
+    plan = _panel_plan(n, panel_blocks, tile128=True)[:2] if panel else None
     acc = torch.zeros((2 * m + 1, n), dtype=torch.float32, device=device)
     return coords_c, sc32, work, acc, plan
 
@@ -658,18 +669,30 @@ def _sym_launch(coords, scores, gammas, signs, thresholds_sq):
             )
     _check_launch(rc, name)
     launch_counts[name] += 1
-    # Epilogue (the JAX one, pallas_phi.py:701-708 and :2514-2528, on the
-    # columns kept): acc = [KS | D] with D = sum_j w (x_i - x_j), w = gamma k
-    # for one term. The self pairs (k_t = 1) entered KS in both directions,
-    # so subtract sum_t s_t * s_i once; their D term is 0. The kernel counted
-    # the upper triangle with its diagonal, so counts = 2U - n.
-    a = acc.T
-    ks, d = a[:, :m], a[:, width:width + m]
-    if signs is None:
-        phi = (ks - sc32 + 2.0 * g[0] * d) / n
-    else:
-        phi = (ks - sum(float(s) for s in signs) * sc32 + 2.0 * d) / n
+    phi = _tri_finish(acc, width, sc32, g, signs, n)
     return phi.to(coords.dtype), 2 * upper - n
+
+
+def _finish_scales(g, signs):
+    """(s_total, d_scale) of the triangle's epilogue: one RBF's D is
+    unweighted, so phi takes 2 gamma D; the terms kernels' D carries the
+    weights w = sum s gamma k."""
+    if signs is None:
+        return 1.0, 2.0 * g[0]
+    return sum(float(s) for s in signs), 2.0
+
+
+def _tri_finish(acc, width, sc32, g, signs, n):
+    """phi of the float32 triangles' (2 width, n) accumulator [KS | D] (the
+    JAX epilogue, pallas_phi.py:701-708 and :2514-2528, on the columns
+    kept): D = sum_j w (x_i - x_j); the self pairs (k_t = 1) entered KS in
+    both directions, so sum_t s_t s_i comes off once, their D term being 0.
+    (The kernels count the upper triangle with its diagonal: the callers'
+    counts are 2U - n.)"""
+    m = sc32.shape[1]
+    s_total, d_scale = _finish_scales(g, signs)
+    a = acc.T
+    return (a[:, :m] - s_total * sc32 + d_scale * a[:, width:width + m]) / n
 
 
 _panel_index_cache = {}
@@ -685,11 +708,12 @@ def _panel_index(nb, device, p0=0, count=None):
     return _panel_index_cache[key]
 
 
-def _panel_plan(n, panel_blocks, bf16=False):
+def _panel_plan(n, panel_blocks, tile128=False):
     """(nb, w, number of panels) of the card's panel plan for n particles
-    (``bf16``: K3's bf16 instance's), whose panels fill the grid's y (at
-    most MAX_PANELS)."""
-    nb, w, _ = card_panel_plan(n, panel_blocks, bf16)
+    (``tile128``: the instances on the 128-tile bodies,
+    ``sym_plan.panel_tile128``), whose panels fill the grid's y up to
+    MAX_M (at most MAX_PANELS)."""
+    nb, w, _ = card_panel_plan(n, panel_blocks, tile128)
     num_p = nb * (nb + 1) // 2
     if num_p > MAX_PANELS:
         raise ValueError(
@@ -701,9 +725,10 @@ def _panel_plan(n, panel_blocks, bf16=False):
 
 def _panel_windows(num_p, m, w, device):
     """The zeroed (num_p, 2, 2m, w) float32 window buffer of a panel
-    launch. Past m = 64 it grows with m (about 2.3 GB at N = 262,144,
-    m = 123): a buffer larger than the card's memory raises here, with its
-    size, before anything is allocated or launched."""
+    launch up to m = 64 (past it the kernels flush into the accumulator).
+    It grows with m (about 1.2 GB at N = 262,144, m = 64): a buffer larger
+    than the card's memory raises here, with its size, before anything is
+    allocated or launched."""
     shape = (num_p, 2, 2 * m, w)
     if device.type == "cuda":
         nbytes = 4 * num_p * 2 * 2 * m * w
@@ -718,47 +743,62 @@ def _panel_windows(num_p, m, w, device):
     return torch.zeros(shape, dtype=torch.float32, device=device)
 
 
+def _panel_operands(coords, sc32, wide, num_p, w):
+    """(coordinates, scores, width, output) of a panel launch: centred;
+    past m = 64 (``wide``) the triangles' padded rows (``_tri_operands``)
+    and their zeroed (2 width, n) accumulator, else the rows as they are
+    and ``num_p`` zeroed windows of w (``_panel_windows``)."""
+    n, m = coords.shape
+    if not wide:
+        windows = _panel_windows(num_p, m, w, coords.device)
+        return _centered32(coords).contiguous(), sc32, m, windows
+    xk, sk, width = _tri_operands(_centered32(coords).contiguous(), sc32, m)
+    return xk, sk, width, torch.zeros((2 * width, n), dtype=torch.float32,
+                                      device=coords.device)
+
+
 def _sympanel_launch(coords, scores, gammas, signs, thresholds_sq,
                      panel_blocks):
     """K3's port (one positive term, ``signs`` None) or the terms panel
-    kernel (K12/K13's), on the card's panel plan; past m = 64 the library
-    runs their wide instances."""
+    kernel (K12/K13's), on the card's panel plan: up to m = 64 into one
+    window a panel, scattered by the epilogue; past it their wide entries,
+    on the rows padded as the triangles' (``_tri_operands``) and the plan
+    of 128-particle tiles, into the triangle's (2 width, n) accumulator,
+    finished by the triangle's epilogue."""
     g, thr = _device_operands(coords, scores, gammas, thresholds_sq)
     n, m = coords.shape
-    nb, w, num_p = _panel_plan(n, panel_blocks)
-    panels = _panel_windows(num_p, m, w, coords.device)
-    coords_c = _centered32(coords).contiguous()
+    wide = panel_tile128(m)
+    nb, w, num_p = _panel_plan(n, panel_blocks, wide)
     sc32 = scores.to(torch.float32).contiguous()
+    xk, sk, width, out = _panel_operands(coords, sc32, wide, num_p, w)
     upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=coords.device)
     lib = load_library()
+    suffix = "_wide" if wide else ""
     with torch.cuda.device(coords.device):
         stream = torch.cuda.current_stream().cuda_stream
         if signs is None:
             name = SYMPANEL_KERNEL
-            rc = lib.svgd_fused_phi_counts_sympanel(
-                coords_c.data_ptr(), sc32.data_ptr(), g.data_ptr(),
-                thr.data_ptr(), n, m, thr.shape[0], nb, w, panels.data_ptr(),
-                upper.data_ptr(), stream,
+            rc = getattr(lib, "svgd_fused_phi_counts_sympanel" + suffix)(
+                xk.data_ptr(), sk.data_ptr(), g.data_ptr(),
+                thr.data_ptr(), n, width, thr.shape[0], nb, w,
+                out.data_ptr(), upper.data_ptr(), stream,
             )
         else:
             name = TERMS_SYMPANEL_KERNEL
-            rc = lib.svgd_fused_phi_terms_sympanel(
-                coords_c.data_ptr(), sc32.data_ptr(), g.data_ptr(),
+            rc = getattr(lib, "svgd_fused_phi_terms_sympanel" + suffix)(
+                xk.data_ptr(), sk.data_ptr(), g.data_ptr(),
                 _host_signs(signs, g.shape[0]), g.shape[0], thr.data_ptr(),
-                n, m, thr.shape[0], nb, w, panels.data_ptr(),
+                n, width, thr.shape[0], nb, w, out.data_ptr(),
                 upper.data_ptr(), stream,
             )
     _check_launch(rc, name)
     launch_counts[name] += 1
-    # One RBF: D is unweighted, so phi takes 2 gamma D; the terms kernel's
-    # D carries the weights w = sum s gamma k.
-    if signs is None:
-        s_total, d_scale = 1.0, 2.0 * g[0]
-    else:
-        s_total, d_scale = sum(float(s) for s in signs), 2.0
+    if wide:
+        phi = _tri_finish(out, width, sc32, g, signs, n)
+        return phi.to(coords.dtype), 2 * upper - n
     phi, counts = sympanel_epilogue(
-        panels, upper, _panel_index(nb, coords.device), n, sc32, s_total,
-        d_scale,
+        out, upper, _panel_index(nb, coords.device), n, sc32,
+        *_finish_scales(g, signs),
     )
     return phi.to(coords.dtype), counts
 
@@ -1254,9 +1294,11 @@ def phi_rbf_sympanel_chunk_cuda(coords, scores, gamma, thresholds_sq, world,
     Counterpart of ``svgdcpp_tpu.ops.pallas_phi.
     phi_rbf_fused_pallas_sympanel_sharded`` (K5). The chunk is rank's
     balanced range of the card's panel list (``sym_plan.panel_chunk`` of
-    ``card_panel_plan(n, panel_blocks)``); its windows are scattered onto
-    acc (``ops/phi.sympanel_scatter``), so that the sum over the ranks is
-    the whole sweep's accumulator. On a CUDA tensor: the kernel
+    ``card_panel_plan(n, panel_blocks, panel_tile128(m))``); up to m = 64
+    its windows are scattered onto acc (``ops/phi.sympanel_scatter``), past
+    it the kernel flushes into the accumulator (rows [0, m) and [width,
+    width + m) of the padded one), so that the sum over the ranks is the
+    whole sweep's accumulator. On a CUDA tensor: the kernel
     fused_phi_counts_sympanel_chunk, in float32. On a CPU tensor: the plain
     ``phi_rbf_sympanel_chunk_counts``."""
     _check_chunk(world, rank)
@@ -1267,25 +1309,31 @@ def phi_rbf_sympanel_chunk_cuda(coords, scores, gamma, thresholds_sq, world,
     _require_cuda(coords)
     g, thr = _device_operands(coords, scores, [gamma], thresholds_sq)
     n, m = coords.shape
-    nb, w, _ = _panel_plan(n, panel_blocks)
+    wide = panel_tile128(m)
+    nb, w, _ = _panel_plan(n, panel_blocks, wide)
     p0, count = panel_chunk(nb, world, rank)
-    coords_c = _centered32(coords).contiguous()
     sc32 = scores.to(torch.float32).contiguous()
-    panels = _panel_windows(count, m, w, coords.device)
+    xk, sk, width, out = _panel_operands(coords, sc32, wide, count, w)
     upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=coords.device)
     lib = load_library()
+    entry = ("svgd_fused_phi_counts_sympanel_chunk"
+             + ("_wide" if wide else ""))
     with torch.cuda.device(coords.device):
-        rc = lib.svgd_fused_phi_counts_sympanel_chunk(
-            coords_c.data_ptr(), sc32.data_ptr(), g.data_ptr(),
-            thr.data_ptr(), n, m, thr.shape[0], nb, w, p0, count,
-            panels.data_ptr(), upper.data_ptr(),
+        rc = getattr(lib, entry)(
+            xk.data_ptr(), sk.data_ptr(), g.data_ptr(),
+            thr.data_ptr(), n, width, thr.shape[0], nb, w, p0, count,
+            out.data_ptr(), upper.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     _check_launch(rc, SYMPANEL_CHUNK_KERNEL)
     if count:
         launch_counts[SYMPANEL_CHUNK_KERNEL] += 1
+    if wide:
+        if width != m:  # the (2m, n) accumulator [KS | D] of the m columns
+            out = torch.cat((out[:m], out[width:width + m]))
+        return out, upper
     index = _panel_index(nb, coords.device, p0, count)
-    return sympanel_scatter(panels, index, nb, n), upper
+    return sympanel_scatter(out, index, nb, n), upper
 
 
 def count_batches(thr):

@@ -67,6 +67,7 @@ from .sym_plan import (
     card_panel_plan,
     panel_chunk,
     panel_pairs,
+    panel_tile128,
     sym_tile,
     sym_tile_chunk,
     upper_tile_rows,
@@ -866,14 +867,15 @@ def phi_rbf_sympanel_chunk_counts(coords, scores, gamma, thresholds_sq,
     (K5's port), the counterpart of the JAX package's
     ``phi_rbf_fused_pallas_sympanel_sharded``. ``coords`` and ``scores`` are
     the GLOBAL set, the chunk rank's range of the card's panel list
-    (``sym_plan.panel_chunk`` of ``card_panel_plan(n, panel_blocks)``).
+    (``sym_plan.panel_chunk`` of the kernel's plan, ``card_panel_plan(n,
+    panel_blocks, panel_tile128(m))``: a rank sweeps the kernel's panels).
     Returns the chunk's windows scattered onto the raw (2m, n) accumulator
     (``sympanel_scatter``) and its upper counts (E,) int64; summed over the
     ranks they are the whole panel sweep's. Centered on the coordinates'
     mean. ``dot_dtype`` as in :func:`phi_rbf_sympanel_fused_counts`."""
     bf16 = dot_bf16(dot_dtype)
-    n = coords.shape[0]
-    nb, w, _ = card_panel_plan(n, panel_blocks)
+    n, m = coords.shape
+    nb, w, _ = card_panel_plan(n, panel_blocks, panel_tile128(m))
     p0, count = panel_chunk(nb, world, rank)
     coords_c = coords - coords.mean(dim=0)
     scores = scores.to(coords.dtype)
@@ -903,12 +905,12 @@ def phi_rbf_terms_sympanel_fused_counts(
     The same function as :func:`phi_rbf_terms_fused_counts`: phi of
     ``sum_t signs[t] exp(-gammas[t] sq)`` and the counts over all n^2
     pairs, here from each panel's windows (``_sympanel_halves``) and the
-    kernel path's epilogue (:func:`sympanel_epilogue`), on the card's plan
-    (``sym_plan.card_panel_plan``; ``panel_blocks`` forces its super-block
-    count). Centered on the coordinates' mean. Returns (phi (n, m),
-    counts (E,) int64)."""
-    n = coords.shape[0]
-    nb, w, _ = card_panel_plan(n, panel_blocks)
+    kernel path's epilogue (:func:`sympanel_epilogue`), on the kernel's
+    plan (``sym_plan.card_panel_plan`` with ``panel_tile128(m)``;
+    ``panel_blocks`` forces its super-block count). Centered on the
+    coordinates' mean. Returns (phi (n, m), counts (E,) int64)."""
+    n, m = coords.shape
+    nb, w, _ = card_panel_plan(n, panel_blocks, panel_tile128(m))
     coords_c = coords - coords.mean(dim=0)
     scores = scores.to(coords.dtype)
     panels, upper = _sympanel_halves(
@@ -935,11 +937,12 @@ def phi_rbf_sympanel_fused_counts(
     function as :func:`phi_rbf_fused_counts` in float32 (see
     :func:`phi_rbf_terms_sympanel_fused_counts`), and as
     :func:`phi_rbf_sym_fused_counts` under ``dot_dtype='bfloat16'``, the
-    plain version of its bf16 instance (``fused_phi_counts_sympanel_bf16``),
-    on that instance's plan (``card_panel_plan(..., bf16=True)``)."""
+    plain version of its bf16 instance (``fused_phi_counts_sympanel_bf16``);
+    each on its kernel's plan (``card_panel_plan(..., tile128=True)`` for
+    the bf16 instance and past KERNEL_MAX_M, ``panel_tile128``)."""
     bf16 = dot_bf16(dot_dtype)
-    n = coords.shape[0]
-    nb, w, _ = card_panel_plan(n, panel_blocks, bf16=bf16)
+    n, m = coords.shape
+    nb, w, _ = card_panel_plan(n, panel_blocks, panel_tile128(m, bf16))
     coords_c = coords - coords.mean(dim=0)
     scores = scores.to(coords.dtype)
     panels, upper = _sympanel_halves(

@@ -224,13 +224,15 @@ def tpu_terms_panel_kernel(n: int, m: int, num_terms: int) -> str:
 # The card's panel plan
 # ----------------------------------------------------------------------
 
-#: The CUDA panel kernels' tile: super-block widths are multiples of it
-#: (their wide instances' tile pairs, WIDE_PAIR_TILE).
+#: The CUDA panel kernels' strips up to KERNEL_MAX_M (``kPanelAlign`` of
+#: csrc/fused_phi_panel.cu): their super-block widths are multiples of it.
 CARD_PANEL_ALIGN = 64
 
-#: The bfloat16 panel instance's tile (K3's bf16 instance on the bf16
-#: triangle body, BF16_TILE): its plan's super-blocks are multiples of it.
-BF16_PANEL_ALIGN = 128
+#: The panel instances on tiles of 128 (K3's bf16 instance on the bf16
+#: triangle body, BF16_TILE; the float32 panels past KERNEL_MAX_M on the
+#: float32 wide triangle body, WIDE_TILE): their plan's super-blocks are
+#: multiples of it, so that the panels' tile pairs are the triangle's.
+TILE128_PANEL_ALIGN = 128
 
 #: The card's plan: at least this many super-blocks, and super-blocks of
 #: at most CARD_PANEL_MAX_W particles (see card_panel_plan).
@@ -239,26 +241,38 @@ CARD_PANEL_MAX_W = 65536
 
 
 def card_panel_plan(n: int, panel_blocks: int | None = None,
-                    bf16: bool = False):
+                    tile128: bool = False):
     """(nb, W, n_pad) of the CUDA panel kernels and their plain versions
-    (``bf16``: K3's bfloat16 instance, whose W is a multiple of
-    BF16_PANEL_ALIGN; CARD_PANEL_ALIGN otherwise).
+    (``tile128``: the instances on the 128-tile bodies, whose W is a
+    multiple of TILE128_PANEL_ALIGN, ``panel_tile128``; CARD_PANEL_ALIGN
+    otherwise).
 
     On the card the window lives in device memory, so no budget bounds W.
-    One thread block sweeps one 64-row strip of super-block I against all W
-    columns of super-block J, so W is the longest work item: at least
-    CARD_PANEL_MIN_BLOCKS super-blocks keep the last blocks' tail short
-    against the whole sweep, and W <= CARD_PANEL_MAX_W past that. The panel
-    buffer is (nb + 1) * n_pad * 2m float32 values, so fewer super-blocks
-    also mean less memory. ``panel_blocks`` forces nb."""
+    Up to KERNEL_MAX_M one thread block sweeps one 64-row strip of
+    super-block I against all W columns of super-block J, so W is the
+    longest work item: at least CARD_PANEL_MIN_BLOCKS super-blocks keep the
+    last blocks' tail short against the whole sweep, and W <=
+    CARD_PANEL_MAX_W past that. The panel buffer is (nb + 1) * n_pad * 2m
+    float32 values, so fewer super-blocks also mean less memory. The
+    128-tile bodies walk the panels' tile pairs into one accumulator and
+    keep no windows. ``panel_blocks`` forces nb."""
     if panel_blocks is None:
         nb = max(CARD_PANEL_MIN_BLOCKS, -(-n // CARD_PANEL_MAX_W))
     else:
         nb = int(panel_blocks)
         if nb < 1:
             raise ValueError(f"panel_blocks must be >= 1, got {nb}")
-    w = ceil_mult(-(-n // nb), BF16_PANEL_ALIGN if bf16 else CARD_PANEL_ALIGN)
+    w = ceil_mult(-(-n // nb),
+                  TILE128_PANEL_ALIGN if tile128 else CARD_PANEL_ALIGN)
     return nb, w, nb * w
+
+
+def panel_tile128(m: int, bf16: bool = False) -> bool:
+    """Whether the panel sweep at width m runs on a body of 128-particle
+    tiles, and so takes ``card_panel_plan(..., tile128=True)``: K3's bf16
+    instance at every m, the float32 panels (K3/K5, K12/K13) past
+    KERNEL_MAX_M."""
+    return bf16 or m > KERNEL_MAX_M
 
 
 def panel_pairs(nb: int):
@@ -369,15 +383,12 @@ def dispatch_m(m: int) -> int:
 #: The triangle kernels' tile side where the micro-tile body serves the
 #: instance (``MicroWidth`` of csrc/sweep_common.cuh: m = 1-8 and 11), and
 #: where the float32 wide body does (``kWideSymTile``, csrc/
-#: wide_tri_sm90.cuh: m past KERNEL_MAX_M), for one RBF (``SymTile``) and a
-#: composed kernel (``TermsTriTile``) alike. WIDE_PAIR_TILE is the other
-#: wide body's tile pair (``kWideTile``, csrc/wide_tri.cuh's
-#: wide_pair_body), which the panels' wide instances (CARD_PANEL_ALIGN)
-#: and K15 keep; K2's and K3's bf16 instances take BF16_TILE
+#: wide_tri_sm90.cuh: m past KERNEL_MAX_M, the panels' float32 instances
+#: too), for one RBF (``SymTile``) and a composed kernel (``TermsTriTile``)
+#: alike. K2's and K3's bf16 instances take BF16_TILE
 #: (csrc/bf16_tri_sm90.cuh, below).
 MICRO_TILE = 128
 WIDE_TILE = 128
-WIDE_PAIR_TILE = 64
 
 #: The float32 wide triangle body's launch and the bf16 triangle body's:
 #: one persistent block an SM (the H100's 132), never more blocks than
@@ -429,10 +440,86 @@ def wide_sym_walk(n: int, t0: int, count: int, block: int,
     """The tile pairs (bi, bj) that block ``block`` of the float32 wide
     triangle body visits, in order, over tiles [t0, t0 + count) of the
     WIDE_TILE-sided tile list of n particles: t0 + block, then every
-    ``wide_sym_blocks(count)``-th tile after it (``wide_tri_sm90_body``)."""
+    ``wide_sym_blocks(count)``-th tile after it (``wide_tri_sm90_body``
+    with ``WideTriWork``)."""
     nb = -(-n // WIDE_TILE)
     step = wide_sym_blocks(count, sms)
     return [upper_pair(t0 + p, nb) for p in range(block, count, step)]
+
+
+# ----------------------------------------------------------------------
+# The panel list's tile pairs on the 128-tile bodies: the float32 panels
+# past KERNEL_MAX_M (csrc/wide_tri_sm90.cuh, ``WidePanelWork``) and K3's
+# bf16 instance (csrc/bf16_tri_sm90.cuh, ``Bf16PanelWork``)
+# ----------------------------------------------------------------------
+
+
+def panel_first_item(p: int, nb: int, tw: int) -> int:
+    """The first item of panel p of the panel list's tile pairs over nb
+    super-blocks of tw tiles (``panel_first_item`` of
+    csrc/sweep_common.cuh): tw^2 items an off-diagonal panel, tw (tw + 1)
+    / 2 a diagonal one; p = nb (nb + 1) / 2 gives the list's length."""
+    n_off = nb * (nb - 1) // 2
+    if p <= n_off:
+        return p * tw * tw
+    return n_off * tw * tw + (p - n_off) * tw * (tw + 1) // 2
+
+
+def panel_tile_pair(u: int, nb: int, tw: int):
+    """(panel, bi, bj, a, b) of item u of that list (``decode_panel_item``):
+    the panels in panel_pairs(nb) order, an off-diagonal panel's tile pairs
+    (a, b) row-major, a diagonal one's a <= b in the triangle's order;
+    (bi, bj) the panel's super-blocks."""
+    off_items = panel_first_item(nb * (nb - 1) // 2, nb, tw)
+    if u < off_items:
+        p, x = divmod(u, tw * tw)
+        a, b = divmod(x, tw)
+        bi, bj = upper_pair(p, nb - 1)
+        return p, bi, bj + 1, a, b
+    d, x = divmod(u - off_items, tw * (tw + 1) // 2)
+    a, b = upper_pair(x, tw)
+    return nb * (nb - 1) // 2 + d, d, d, a, b
+
+
+def wide_panel_item(u: int, nb: int, w: int):
+    """(i0, j0, diag) of the float32 wide panels' item u over nb
+    super-blocks of w particles (``WidePanelWork::at``): the first
+    particles of its tiles, (bi tw + a) and (bj tw + b) tiles of WIDE_TILE
+    in, and whether it is a diagonal tile pair (a diagonal panel's
+    a == b)."""
+    tw = w // WIDE_TILE
+    _, bi, bj, a, b = panel_tile_pair(u, nb, tw)
+    return ((bi * tw + a) * WIDE_TILE, (bj * tw + b) * WIDE_TILE,
+            bi == bj and a == b)
+
+
+def wide_panel_range(nb: int, w: int, p0: int, count: int):
+    """(u0, items): the items of panels [p0, p0 + count) of the list, the
+    work of the float32 wide panel entries (``wide_panel_work`` of
+    csrc/fused_phi_panel.cu; the whole list, or K5's chunk of a rank)."""
+    tw = w // WIDE_TILE
+    u0 = panel_first_item(p0, nb, tw)
+    return u0, panel_first_item(p0 + count, nb, tw) - u0
+
+
+def wide_panel_walk(n: int, block: int, panel_blocks=None, p0: int = 0,
+                    count: int | None = None, sms: int = WIDE_SYM_SMS):
+    """The tile pairs (i0, j0, diag) that block ``block`` of the float32
+    wide body visits, in order, over the panels [p0, p0 + count) (all of
+    them by default) of ``card_panel_plan(n, panel_blocks, tile128=True)``:
+    items u0 + block, then every ``wide_sym_blocks(items)``-th after it
+    (``wide_tri_sm90_body`` with ``WidePanelWork``), leaving out the items
+    with a tile wholly past n, which the body skips."""
+    nb, w, _ = card_panel_plan(n, panel_blocks, tile128=True)
+    if count is None:
+        count = nb * (nb + 1) // 2 - p0
+    u0, items = wide_panel_range(nb, w, p0, count)
+    out = []
+    for u in range(block, items, wide_sym_blocks(items, sms)):
+        i0, j0, diag = wide_panel_item(u0 + u, nb, w)
+        if i0 < n and j0 < n:
+            out.append((i0, j0, diag))
+    return out
 
 
 # ----------------------------------------------------------------------
@@ -473,27 +560,14 @@ def bf16_tri_items(n: int) -> int:
 def bf16_panel_items(nb: int, w: int) -> int:
     """K3's bf16 work items over nb super-blocks of w: tw^2 tile pairs a
     panel off the diagonal, tw (tw + 1) / 2 on it (tw = w / BF16_TILE)."""
-    tw = w // BF16_TILE
-    return nb * (nb - 1) // 2 * tw * tw + nb * tw * (tw + 1) // 2
+    return panel_first_item(nb * (nb + 1) // 2, nb, w // BF16_TILE)
 
 
 def bf16_panel_item(u: int, nb: int, w: int):
-    """(panel, i0, j0) of K3's bf16 work item u (``Bf16PanelWork``): the
-    panels in panel_pairs(nb) order, an off-diagonal panel's tile pairs
-    (a, b) row-major, a diagonal one's a <= b in the triangle's order;
-    i0 and j0 the first particles of the pair's tiles."""
-    tw = w // BF16_TILE
-    off_items = nb * (nb - 1) // 2 * tw * tw
-    if u < off_items:
-        p, x = divmod(u, tw * tw)
-        a, b = divmod(x, tw)
-        bi, bj = upper_pair(p, nb - 1)
-        bj += 1
-    else:
-        d, x = divmod(u - off_items, tw * (tw + 1) // 2)
-        a, b = upper_pair(x, tw)
-        bi = bj = d
-        p = nb * (nb - 1) // 2 + d
+    """(panel, i0, j0) of K3's bf16 work item u (``Bf16PanelWork``, on
+    ``panel_tile_pair``); i0 and j0 the first particles of the pair's
+    tiles."""
+    p, bi, bj, a, b = panel_tile_pair(u, nb, w // BF16_TILE)
     return p, bi * w + a * BF16_TILE, bj * w + b * BF16_TILE
 
 
@@ -512,11 +586,11 @@ def bf16_walk(n: int, block: int, panel_blocks=None, panel: bool = False,
     block ``block`` of the bf16 triangle body visits, in order: its
     contiguous range (``bf16_range``) of K2's list (the upper triangle's
     tile pairs, ``upper_pair``) or, with ``panel``, of K3's over
-    ``card_panel_plan(n, panel_blocks, bf16=True)`` (``bf16_panel_item``),
+    ``card_panel_plan(n, panel_blocks, tile128=True)`` (``bf16_panel_item``),
     leaving out the items with a tile wholly past n, which the body
     skips."""
     if panel:
-        nb, w, _ = card_panel_plan(n, panel_blocks, bf16=True)
+        nb, w, _ = card_panel_plan(n, panel_blocks, tile128=True)
         items = bf16_panel_items(nb, w)
 
         def spot(u):

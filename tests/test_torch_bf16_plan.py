@@ -5,7 +5,7 @@ instances on csrc/bf16_tri_sm90.cuh), on the CPU.
   (``wide_sym_blocks``), block b taking the contiguous range ``bf16_range``
   of the work list, K2's the upper triangle's tile pairs of
   ``BF16_TILE`` = 128 (``upper_pair``), K3's the tile pairs of every panel
-  of the bf16 plan (``card_panel_plan(..., bf16=True)``, super-blocks a
+  of the bf16 plan (``card_panel_plan(..., tile128=True)``, super-blocks a
   multiple of 128; ``bf16_panel_item``), the items with a tile wholly past
   n left out as the body leaves them out: every unordered pair of
   particles (the diagonal included) exactly once at n = 1, 63, 64, 65,
@@ -52,7 +52,7 @@ def _pairs_of(n, visited):
 
 def _walk(n, panel, panel_blocks=None, sms=sym_plan.WIDE_SYM_SMS):
     if panel:
-        nb, w, _ = sym_plan.card_panel_plan(n, panel_blocks, bf16=True)
+        nb, w, _ = sym_plan.card_panel_plan(n, panel_blocks, tile128=True)
         items = sym_plan.bf16_panel_items(nb, w)
     else:
         items = sym_plan.bf16_tri_items(n)
@@ -143,9 +143,9 @@ def test_cursor_steps_through_the_panel_list(nb, tw):
 @pytest.mark.parametrize("panel_blocks", [None, 1, 5])
 def test_bf16_panel_plan_takes_the_tile(n, panel_blocks):
     """The bf16 plan's super-blocks are multiples of BF16_TILE = 128 and
-    cover n; the float32 plan keeps CARD_PANEL_ALIGN = 64."""
-    nb, w, n_pad = sym_plan.card_panel_plan(n, panel_blocks, bf16=True)
-    assert sym_plan.BF16_PANEL_ALIGN == sym_plan.BF16_TILE == 128
+    cover n; the float32 plan up to m = 64 keeps CARD_PANEL_ALIGN = 64."""
+    nb, w, n_pad = sym_plan.card_panel_plan(n, panel_blocks, tile128=True)
+    assert sym_plan.TILE128_PANEL_ALIGN == sym_plan.BF16_TILE == 128
     assert w % 128 == 0 and n_pad == nb * w >= n
     assert sym_plan.card_panel_plan(n, panel_blocks)[1] % 64 == 0
 
@@ -169,8 +169,8 @@ def test_k3_bf16_plain_version_follows_the_plan(monkeypatch):
         del plans[:]
         pht.phi_rbf_sympanel_fused_counts(x, s, 0.3, thr, panel_blocks=3,
                                           dot_dtype=dd)
-        assert plans == [sym_plan.card_panel_plan(500, 3, bf16=bf16)[:2]]
-    assert sym_plan.card_panel_plan(500, 3, bf16=True)[1] == 256
+        assert plans == [sym_plan.card_panel_plan(500, 3, tile128=bf16)[:2]]
+    assert sym_plan.card_panel_plan(500, 3, tile128=True)[1] == 256
     assert sym_plan.card_panel_plan(500, 3)[1] == 192
 
 
@@ -223,7 +223,7 @@ def test_wrappers_hand_the_entries_their_operands(monkeypatch, m, panel):
     assert (2 * n * mk) % 16 == 0  # R starts on a 16-byte boundary too
     assert out.dtype == torch.float32 and out.shape == (2 * m + 1, n)
     if panel:
-        nb, w, _ = cuda_phi._panel_plan(n, None, bf16=True)
+        nb, w, _ = cuda_phi._panel_plan(n, None, tile128=True)
         assert plan == (nb, w) and w % sym_plan.BF16_TILE == 0
     else:
         assert plan is None
@@ -240,7 +240,7 @@ def test_wrappers_hand_the_entries_their_operands(monkeypatch, m, panel):
     args = calls[0][1]
     assert args[4:7] == (n, m, 3)
     if panel:
-        assert args[7:9] == sym_plan.card_panel_plan(n, bf16=True)[:2]
+        assert args[7:9] == sym_plan.card_panel_plan(n, tile128=True)[:2]
     kernel = (cuda_phi.SYMPANEL_BF16_KERNEL if panel
               else cuda_phi.SYM_BF16_KERNEL)
     assert cuda_phi.launch_counts[kernel] == 1

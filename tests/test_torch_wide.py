@@ -491,10 +491,11 @@ def test_widened_wrappers_launch_past_64(monkeypatch, m):
 def test_narrow_families_still_refuse_past_64(monkeypatch, m):
     """Of the families that stopped at 64 only sym_eigen still does, with
     its own reason (one block's shared memory), and launches nothing; the
-    panel sweeps (K3, K12/K13, K5's chunk), the anisotropic and the
-    fixed-P sweeps launch their wide instances, one launch each with m
-    (the anisotropic groups, on the float32 wide triangle body, with the
-    rows' padded width wide_row_width(m))."""
+    panel sweeps (K3, K12/K13, K5's chunk: their wide entries), the
+    anisotropic and the fixed-P sweeps launch their wide instances, one
+    launch each with m (the panels and the anisotropic groups, on the
+    float32 wide triangle body, with the rows' padded width
+    wide_row_width(m))."""
     calls = []
     _stand_in(monkeypatch, calls)
     x, g, thr = _meta(300, m), _meta(), _meta(3)
@@ -503,12 +504,13 @@ def test_narrow_families_still_refuse_past_64(monkeypatch, m):
     assert not calls
     cuda_phi.reset_launch_counts()
     launches = [
-        ("svgd_fused_phi_counts_sympanel", cuda_phi.SYMPANEL_KERNEL,
+        ("svgd_fused_phi_counts_sympanel_wide", cuda_phi.SYMPANEL_KERNEL,
          lambda: cuda_phi.phi_rbf_fused_cuda(x, x, g, thr, sym="panel")),
-        ("svgd_fused_phi_terms_sympanel", cuda_phi.TERMS_SYMPANEL_KERNEL,
+        ("svgd_fused_phi_terms_sympanel_wide",
+         cuda_phi.TERMS_SYMPANEL_KERNEL,
          lambda: cuda_phi.phi_rbf_terms_fused_cuda(x, x, [g, g], (1.0, 1.0),
                                                    thr, sym="panel")),
-        ("svgd_fused_phi_counts_sympanel_chunk",
+        ("svgd_fused_phi_counts_sympanel_chunk_wide",
          cuda_phi.SYMPANEL_CHUNK_KERNEL,
          lambda: cuda_phi.phi_rbf_sympanel_chunk_cuda(x, x, g, thr, 2, 0)),
         ("svgd_fused_phi_aniso_terms_groups", cuda_phi.ANISO_WIDE_KERNEL,
@@ -523,8 +525,8 @@ def test_narrow_families_still_refuse_past_64(monkeypatch, m):
         del calls[:]
         call()
         assert [c[0] for c in calls] == [entry]
-        width = (sym_plan.wide_row_width(m)
-                 if kernel == cuda_phi.ANISO_WIDE_KERNEL else m)
+        width = (m if kernel == cuda_phi.PHI_RBF_WIDE_KERNEL
+                 else sym_plan.wide_row_width(m))
         assert width in calls[0][1]
         assert cuda_phi.launch_counts[kernel] == 1
     cuda_phi.reset_launch_counts()

@@ -19,9 +19,12 @@ the CPU.
   in exactly one rank, in order.
 * The wrappers on a stand-in library (meta tensors stand in for the card)
   at m = 65, 123 and 512: K3, K12/K13 and K5 (every rank of worlds 1-4)
-  hand m and the card's panel plan (nb, w) to their entries, allocate the
-  (panels, 2, 2m, w) windows and count one launch each; a window buffer
-  larger than the card's memory raises before anything is launched.
+  call their wide entries (``..._wide``, on csrc/wide_tri_sm90.cuh's body)
+  with the rows' padded width ``wide_row_width(m)`` and the plan of
+  128-particle tiles (nb, w), allocate the (2 width, n) accumulator and no
+  windows, and count one launch each; up to m = 64, where the windows
+  remain, a window buffer larger than the card's memory raises before
+  anything is launched.
 * The drivers with fused_sym="panel" at m = 65 for 3 AdaGrad steps in
   float32: one RBF ('fused_cuda') against the JAX driver's
   'fused_pallas', and a composed kernel ('fused_terms_cuda') against
@@ -239,23 +242,35 @@ def _meta(*shape):
     return torch.empty(shape, device="meta")
 
 
+def _panel_buffers(shapes, num_p, m, w):
+    """The window buffers (num_p, 2, 2m, w) among the allocations."""
+    return [sh for sh in shapes if len(sh) == 4 and sh[1:] == (2, 2 * m, w)
+            and sh[0] == num_p]
+
+
 @pytest.mark.parametrize("m", [65, 123, 512])
 def test_wide_panel_wrappers_launch_once_on_the_plan(monkeypatch, m):
     """K3 and K12/K13 (sym="panel", forced and default super-block counts)
-    and K5 (every rank of worlds 1-4) past 64: one launch each, with m and
-    the card's plan (nb, w), into (panels, 2, 2m, w) windows."""
+    and K5 (every rank of worlds 1-4) past 64: one launch each of their
+    wide entries, with the rows' padded width wide_row_width(m) and the
+    plan of 128-particle tiles (nb, w; K5 its rank's panels of that plan),
+    into a zeroed (2 width, n) accumulator, no window buffer."""
     calls, shapes = [], []
     _stand_in(monkeypatch, calls, shapes)
     n, g, thr = 1000, _meta(), _meta(3)
     x = _meta(n, m)
+    width = sym_plan.wide_row_width(m)
+    assert width % 4 == 0 and width - 4 < m <= width
     for blocks in (None, 3):
-        nb, w, _ = sym_plan.card_panel_plan(n, blocks)
+        nb, w, _ = sym_plan.card_panel_plan(n, blocks, tile128=True)
+        assert w % 128 == 0 and w % sym_plan.WIDE_TILE == 0
         num_p = nb * (nb + 1) // 2
         for kernel, entry, call in (
-            (cuda_phi.SYMPANEL_KERNEL, "svgd_fused_phi_counts_sympanel",
+            (cuda_phi.SYMPANEL_KERNEL, "svgd_fused_phi_counts_sympanel_wide",
              lambda: cuda_phi.phi_rbf_fused_cuda(
                  x, x, g, thr, sym="panel", panel_blocks=blocks)),
-            (cuda_phi.TERMS_SYMPANEL_KERNEL, "svgd_fused_phi_terms_sympanel",
+            (cuda_phi.TERMS_SYMPANEL_KERNEL,
+             "svgd_fused_phi_terms_sympanel_wide",
              lambda: cuda_phi.phi_rbf_terms_fused_cuda(
                  x, x, [g, g], (1.0, -0.5), thr, sym="panel",
                  panel_blocks=blocks)),
@@ -265,14 +280,16 @@ def test_wide_panel_wrappers_launch_once_on_the_plan(monkeypatch, m):
             phi, counts = call()
             assert [c[0] for c in calls] == [entry]
             args = calls[0][1]
-            # (n, m, T, nb, w) right after the pointers (and the signs)
+            # (n, width, T, nb, w) right after the pointers (and the signs)
             at = 4 if "counts" in entry else 6
-            assert args[at:at + 5] == (n, m, 3, nb, w)
-            assert (num_p, 2, 2 * m, w) in shapes
+            assert args[at:at + 5] == (n, width, 3, nb, w)
+            assert (2 * width, n) in shapes
+            assert not _panel_buffers(shapes, num_p, m, w)
+            assert not _panel_buffers(shapes, num_p, width, w)
             assert tuple(phi.shape) == (n, m) and tuple(counts.shape) == (3,)
             assert cuda_phi.launch_counts[kernel] == 1
             assert sum(cuda_phi.launch_counts.values()) == 1
-    nb, w, _ = sym_plan.card_panel_plan(n)
+    nb, w, _ = sym_plan.card_panel_plan(n, tile128=True)
     for world in (1, 2, 3, 4):
         for rank in range(world):
             p0, count = sym_plan.panel_chunk(nb, world, rank)
@@ -281,9 +298,11 @@ def test_wide_panel_wrappers_launch_once_on_the_plan(monkeypatch, m):
             acc, upper = cuda_phi.phi_rbf_sympanel_chunk_cuda(
                 x, x, g, thr, world, rank)
             assert [c[0] for c in calls] == [
-                "svgd_fused_phi_counts_sympanel_chunk"]
-            assert calls[0][1][4:11] == (n, m, 3, nb, w, p0, count)
-            assert (count, 2, 2 * m, w) in shapes
+                "svgd_fused_phi_counts_sympanel_chunk_wide"]
+            assert calls[0][1][4:11] == (n, width, 3, nb, w, p0, count)
+            assert (2 * width, n) in shapes
+            assert not _panel_buffers(shapes, count, m, w)
+            assert not _panel_buffers(shapes, count, width, w)
             assert tuple(acc.shape) == (2 * m, n)
             assert cuda_phi.launch_counts[
                 cuda_phi.SYMPANEL_CHUNK_KERNEL] == (1 if count else 0)
@@ -291,18 +310,22 @@ def test_wide_panel_wrappers_launch_once_on_the_plan(monkeypatch, m):
 
 
 def test_panel_windows_past_the_cards_memory_raise(monkeypatch):
-    """The window buffer is checked against the card's memory before it is
-    allocated: (nb (nb + 1) / 2, 2, 2m, w) float32 at N = 262,144,
-    m = 123 and the plan's 8 super-blocks is 2.3 GB, which a card of
-    1 GB stood in refuses, naming the size."""
+    """The window buffer, which the panels keep up to m = 64, is checked
+    against the card's memory before it is allocated: (nb (nb + 1) / 2, 2,
+    2m, w) float32 at N = 262,144, m = 64 and the plan's 8 super-blocks of
+    32,768 is 1.21 GB, which a card of 1 GB stood in refuses, naming the
+    size."""
     monkeypatch.setattr(torch.cuda, "get_device_properties",
                         lambda device: SimpleNamespace(total_memory=2**30))
     monkeypatch.setattr(torch.cuda, "get_device_name",
                         lambda device=None: "a stand-in card")
     nb, w, _ = sym_plan.card_panel_plan(262144)
+    assert (nb, w) == (8, 32768)
     num_p = nb * (nb + 1) // 2
-    with pytest.raises(ValueError, match=str(4 * num_p * 2 * 2 * 123 * w)):
-        cuda_phi._panel_windows(num_p, 123, w, torch.device("cuda", 0))
+    nbytes = 4 * num_p * 2 * 2 * 64 * w
+    assert 1.2e9 < nbytes < 1.22e9
+    with pytest.raises(ValueError, match=str(nbytes)):
+        cuda_phi._panel_windows(num_p, 64, w, torch.device("cuda", 0))
     with pytest.raises(ValueError, match="at most 65535 panels"):
         cuda_phi._panel_plan(10**6, 362)
 
