@@ -12,6 +12,7 @@
     python3 chip_profile.py --aniso-wide [--out PATH]
     python3 chip_profile.py --square-wide [--out PATH]
     python3 chip_profile.py --square-wide-breakdown [--out PATH]
+    python3 chip_profile.py --square-bf16 [--out PATH]
     python3 chip_profile.py --wide-panel [--out PATH]
 
 Drives one configuration of svgdcpp_tpu_torch at its full width:
@@ -142,6 +143,15 @@ power limit first and last).
 their main-path shapes, kernel-only, through wrappers older trees have
 too, so that this script, copied into an older tree's archive, times it
 the same way in the same call.
+
+``--square-bf16`` runs ``square_bf16`` alone: K1's bfloat16 instance
+(square and cross) on the package's body (``square_bf16_sm90.cuh``)
+against the parent's (``square_wide_body`` with kBf16, built from
+``SQUARE_WIDE_PARENT_SOURCE`` in a copy under ``_verify/square_bf16/``)
+and the float32 instance, kernel-only (the sweep and the finishing pass
+apart) and through the wrapper, with both results'
+distance from the bf16 and float32 plain versions and each build's
+registers and spill (default output ``chiprun_out/square_bf16.json``).
 
 ``--wide-panel`` runs ``wide_panel`` alone: the panels' float32 wide
 instances (K3, K12/K13, K5's chunks) on the package's body
@@ -1860,11 +1870,13 @@ def bf16_main(args) -> int:
 
 
 #: --float32-check's calls: the float32 instances at their PERF.md
-#: main-path shapes (and K1's and K15's bf16 instances, which keep their
-#: bodies), (label, kernel name, n, m, form) with form "square", "tri",
-#: "panel", "terms" (two terms, the triangle), "chunk" (K4, world 1),
-#: "aniso" (K14's wide groups, iso + 1, P as chip_smoke.wide_p_ps's "pd")
-#: or "k15 bf16". K3 wide's name holds the whole sweep's kernel under both
+#: main-path shapes (and the bf16 instances of K1, K2 and K15: a body a
+#: PR moves is timed here beside those it leaves), (label, kernel name,
+#: n, m, form) with form "square", "tri", "panel", "terms" (two terms, the
+#: triangle), "chunk" (K4, world 1), "aniso" (K14's wide groups, iso + 1,
+#: P as chip_smoke.wide_p_ps's "pd"), "square bf16", "tri bf16" or
+#: "k15 bf16". K1 bf16's name holds its sweep's kernel alone (its pack and
+#: finishing pass apart). K3 wide's name holds the whole sweep's kernel under both
 #: designs (fused_phi_counts_sympanel_kernel before the panels' wide
 #: entries, fused_phi_counts_sympanel_wide_kernel since).
 FLOAT32_CHECK_CASES = (
@@ -1877,7 +1889,9 @@ FLOAT32_CHECK_CASES = (
     ("K8/K9", "fused_phi_terms_sym_kernel", 10000, 11, "terms"),
     ("K8/K9 wide", "fused_phi_terms_sym_kernel", 10000, 124, "terms"),
     ("K14 wide", "fused_phi_aniso_terms_wide", 10240, 123, "aniso"),
+    ("K1 wide", "fused_phi_counts_square_kernel", 1000, 123, "square"),
     ("K1 bf16", "fused_phi_counts_square_bf16", 1000, 50, "square bf16"),
+    ("K2 bf16", "fused_phi_counts_sym_bf16", 10000, 2, "tri bf16"),
     ("K15 bf16", "phi_rbf_wide_bf16", 10240, 123, "k15 bf16"),
 )
 
@@ -1915,7 +1929,7 @@ def float32_check(device):
                                                 dot_dtype="bfloat16"))
         else:
             sym = {"square": False, "square bf16": False, "tri": True,
-                   "panel": "panel"}[form]
+                   "tri bf16": True, "panel": "panel"}[form]
             dd = "bfloat16" if form.endswith("bf16") else "float32"
             fn = (lambda sym=sym, dd=dd: cuda_phi.phi_rbf_fused_cuda(
                 x, s, g, thr, sym=sym, dot_dtype=dd))
@@ -2514,16 +2528,332 @@ def wide_panel_main(args) -> int:
     return 0
 
 
-#: --square-wide: the parent's float32 wide square body (csrc/
-#: square_mma.cuh's square_wide_body with kBf16 = false, as K1's and the
-#: terms kernel's MM = 0 instances ran it: 4 warps of 16 target rows,
-#: tiles of 32 sources, the 2m + 1 columns in 128-column chunks along the
-#: grid's z, square_chunk's plan) under kernel names and a C entry of their
-#: own; built from a copy of csrc/ (square_mma.cuh keeps that body for K1's
-#: bf16 instance).
+#: --square-wide's and --square-bf16's parents: the wide square body that
+#: csrc/square_mma.cuh held until K1's bf16 instance left it (its text
+#: moved here whole: square_wide_body, SqWide, wide_square_blocks and
+#: wide_square_chunks), with kBf16 = false as K1's and the terms kernel's
+#: MM = 0 instances ran it and with kBf16 as K1's bf16 instance ran it: 4
+#: warps of 16 target rows, tiles of 32 sources, the 2m + 1 columns in
+#: 128-column chunks along the grid's z, square_chunk's plan; under kernel
+#: names and C entries of their own, built from a copy of csrc/ (which
+#: keeps the helpers it calls: operand_split, mma_pass, weight_fragment,
+#: kWideK and kWideLdK, and the finishing pass).
 SQUARE_WIDE_PARENT_SOURCE = r"""
 #include "square_mma.cuh"
 using namespace svgd;
+// ---------------------------------------------------------------------------
+// The Gram-form body square_wide_body, moved here from csrc/square_mma.cuh
+// ---------------------------------------------------------------------------
+//
+// Its float32 form (kBf16 = false) ran K1's and the terms kernel's
+// instances past kMaxM before square_wide_sm90.cuh's body, and its bf16
+// form (kBf16) K1's bf16 instance before square_bf16_sm90.cuh's body:
+// --square-wide and --square-bf16 build them as the parents.
+//
+// square_mma_body holds a warp's 16 target rows as A fragments (8 registers
+// for each of ceil(m/8) k-steps) and 4 accumulator registers for each of
+// ceil((2m + 1)/8) column blocks, and stages raw tiles of m floats a
+// source: past m = 64 its registers pass 255 and its shared memory grows
+// with m. square_wide_body keeps the same block (4 warps of 16 target
+// rows), tile (32 sources), 3xTF32 mma.sync arithmetic, launch plan and
+// finishing pass, with nothing sized by m:
+//
+//   * the Gram tile G = X_t X_s^T (16 x 32 a warp) runs over slices of
+//     kWideK coordinates: per slice the block stages the 64 target rows'
+//     and the 32 sources' coordinates as TF32 pairs in shared memory and
+//     each warp reads its A and B fragments from there;
+//   * the accumulator columns are cut into chunks of kWideCB column blocks
+//     (128 columns), one chunk a block along the grid's z. Each chunk
+//     recomputes the Gram tile and the weights of its pairs; only chunk 0
+//     counts them, so each pair is counted once. At m = 123 one RBF has
+//     ceil(247 / 128) = 2 chunks and two terms ceil(256 / 128) = 2: the
+//     Gram tile (m-deep) is formed twice beside the two chunks' 128-column
+//     contractions (PERF.md gives the cost).
+//   * the chunk's records, the 32 sources' values at its 128 columns of
+//     [S | X | 1] (one RBF) or [S | 0..][X | 1 | 0..] (terms), are staged
+//     as TF32 pairs in the same shared memory as the Gram slices, read from
+//     device memory after the Gram tile.
+//
+// Static shared memory: 2 x 4224 floats of records or slices and 32 source
+// norms, 33.9 KB at any m. Registers: 16 x 4 accumulators, 2 x 4 x 4 Gram
+// values, the weights' fragments and the counts.
+//
+// kBf16 (the bfloat16 opt-in, K1's bf16 instance at every m): the Gram
+// slices' coordinates, the weights and the records rounded to bf16, each
+// product one TF32 pass (operand_split, mma_pass); the norms stay those of
+// the float32 coordinates and the finishing pass's D = rowsum x_i - KX
+// takes the float32 x_i, as the JAX kernel's epilogue does
+// (pallas_phi.py:429-433, :379, :707). No self pair is pinned: the square
+// form has none (the JAX kernel pins none either).
+
+constexpr int kWideCB = 16;               // column blocks of one chunk
+constexpr int kWideCols = 8 * kWideCB;    // columns of one chunk
+constexpr int kWideLdR = kWideCols + 4;   // records' stride (4 mod 32)
+
+struct SqWide {
+  static constexpr int kSlice = (kSqMmaRows + kSqMmaCols) * kWideLdK;
+  static constexpr int kRecs = kSqMmaCols * kWideLdR;
+  // floats of one half (big or small) of the shared union
+  static constexpr int kHalf = kSlice > kRecs ? kSlice : kRecs;
+};
+
+// Record columns of a wide square launch at width m: [S | X | 1] for one
+// RBF, [S | 0..][X | 1 | 0..] in two bands for terms; their column blocks,
+// and the chunks (the grid's z) that cover them.
+__host__ __device__ inline int wide_square_blocks(int m, bool two) {
+  return two ? (m + 7) / 8 + (m + 1 + 7) / 8 : (2 * m + 1 + 7) / 8;
+}
+
+__host__ __device__ inline int wide_square_chunks(int m, bool two) {
+  return (wide_square_blocks(m, two) + kWideCB - 1) / kWideCB;
+}
+
+// The block body past kMaxM (see above). part: this split's (n_t, 2m + 1)
+// slice of the workspace; the block writes the columns of its chunk
+// (blockIdx.z). Arguments as square_mma_body's.
+template <int kT, bool kBf16 = false, class W>
+__device__ __forceinline__ void square_wide_body(
+    const float* __restrict__ targets, const float* __restrict__ sources,
+    const float* __restrict__ scores, const W& weights,
+    const float* __restrict__ thr, int n_t, int n_s, int m, int T, int chunk,
+    float* __restrict__ part, unsigned long long* __restrict__ counts) {
+  constexpr bool kTwo = kTwoBands<W>;
+  __shared__ __align__(16) float sh[2 * SqWide::kHalf];
+  __shared__ float norm_s[kSqMmaCols];
+  float* big = sh;
+  float* small = sh + SqWide::kHalf;
+  // Gram slices: the block's targets [64][kWideLdK], then the sources
+  // [32][kWideLdK]; records: [32][kWideLdR].
+  constexpr int kSrc = kSqMmaRows * kWideLdK;
+
+  const int nbs = (m + 7) / 8;
+  const int xo = kTwo ? 8 * nbs : m;  // the record's column of x_0
+  const int one = xo + m;             // the record's column of the 1
+  const int b0 = static_cast<int>(blockIdx.z) * kWideCB;
+  const int nbc = min(kWideCB, wide_square_blocks(m, kTwo) - b0);
+  const bool counting = blockIdx.z == 0;
+  const int tid = static_cast<int>(threadIdx.x);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int rb = static_cast<int>(blockIdx.x) * kSqMmaRows;
+  const int j_begin = static_cast<int>(blockIdx.y) * chunk;
+  const int j_end = min(n_s, j_begin + chunk);
+  const int tiles = (j_end - j_begin + kSqMmaCols - 1) / kSqMmaCols;
+
+  float th[kT];
+#pragma unroll
+  for (int q = 0; q < kT; ++q) th[q] = thr[q < T ? q : 0];
+
+  // The warp's rows g and g + 8 and their squared norms (the quad's four
+  // threads each sum every fourth coordinate).
+  const int r0 = rb + 16 * warp + g;
+  const bool ok0 = r0 < n_t;
+  const bool ok1 = r0 + 8 < n_t;
+  float nt0 = 0.0f;
+  float nt1 = 0.0f;
+  for (int k = t; k < m; k += 4) {
+    const float v0 = ok0 ? targets[static_cast<size_t>(r0) * m + k] : 0.0f;
+    const float v1 =
+        ok1 ? targets[static_cast<size_t>(r0 + 8) * m + k] : 0.0f;
+    nt0 = fmaf(v0, v0, nt0);
+    nt1 = fmaf(v1, v1, nt1);
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    nt0 += __shfl_xor_sync(0xffffffffu, nt0, off);
+    nt1 += __shfl_xor_sync(0xffffffffu, nt1, off);
+  }
+
+  float acc[kWideCB][4];
+#pragma unroll
+  for (int b = 0; b < kWideCB; ++b) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[b][q] = 0.0f;
+  }
+  unsigned int cnt[kMaxT];
+#pragma unroll
+  for (int q = 0; q < kMaxT; ++q) cnt[q] = 0u;
+
+#pragma unroll 1
+  for (int c = 0; c < tiles; ++c) {
+    const int j0 = j_begin + c * kSqMmaCols;
+    // Gram tile: gb = big * big, gs = big * small + small * big.
+    float gb[4][4];
+    float gs[4][4];
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        gb[nb][q] = 0.0f;
+        gs[nb][q] = 0.0f;
+      }
+    }
+    // The sources' squared norms, 4 threads a source, summed over slices.
+    const int js = tid >> 2;
+    const bool js_ok = j0 + js < n_s;
+    float qn = 0.0f;
+#pragma unroll 1
+    for (int k0 = 0; k0 < m; k0 += kWideK) {
+      const int kn = min(kWideK, m - k0);
+      __syncthreads();  // the shared union is free
+      for (int e = tid; e < (kSqMmaRows + kSqMmaCols) * kWideK;
+           e += kSqMmaThreads) {
+        const int r = e / kWideK;
+        const int k = e - r * kWideK;
+        float v = 0.0f;
+        if (k < kn) {
+          if (r < kSqMmaRows) {
+            if (rb + r < n_t) {
+              v = targets[static_cast<size_t>(rb + r) * m + k0 + k];
+            }
+          } else if (j0 + r - kSqMmaRows < n_s) {
+            v = sources[static_cast<size_t>(j0 + r - kSqMmaRows) * m + k0 +
+                        k];
+          }
+        }
+        uint32_t hi, lo;
+        operand_split<kBf16>(v, hi, lo);
+        big[r * kWideLdK + k] = __uint_as_float(hi);
+        small[r * kWideLdK + k] = __uint_as_float(lo);
+      }
+      if (js_ok) {
+        for (int k = k0 + (tid & 3); k < k0 + kn; k += 4) {
+          const float v = sources[static_cast<size_t>(j0 + js) * m + k];
+          qn = fmaf(v, v, qn);
+        }
+      }
+      __syncthreads();  // the slices are complete
+#pragma unroll
+      for (int ks = 0; ks < kWideK / 8; ++ks) {
+        if (8 * ks < kn) {
+          const int ar = (16 * warp + g) * kWideLdK + 8 * ks + t;
+          const uint32_t ab[4] = {
+              __float_as_uint(big[ar]),
+              __float_as_uint(big[ar + 8 * kWideLdK]),
+              __float_as_uint(big[ar + 4]),
+              __float_as_uint(big[ar + 8 * kWideLdK + 4])};
+          const uint32_t as[4] = {
+              __float_as_uint(small[ar]),
+              __float_as_uint(small[ar + 8 * kWideLdK]),
+              __float_as_uint(small[ar + 4]),
+              __float_as_uint(small[ar + 8 * kWideLdK + 4])};
+#pragma unroll
+          for (int nb = 0; nb < 4; ++nb) {
+            const int br = kSrc + (8 * nb + g) * kWideLdK + 8 * ks + t;
+            const uint32_t bb0 = __float_as_uint(big[br]);
+            const uint32_t bb1 = __float_as_uint(big[br + 4]);
+            if constexpr (!kBf16) {
+              mma_tf32(gs[nb], as, bb0, bb1);
+              mma_tf32(gs[nb], ab, __float_as_uint(small[br]),
+                       __float_as_uint(small[br + 4]));
+            }
+            mma_tf32(gb[nb], ab, bb0, bb1);
+          }
+        }
+      }
+    }
+    qn += __shfl_xor_sync(0xffffffffu, qn, 1);
+    qn += __shfl_xor_sync(0xffffffffu, qn, 2);
+    if ((tid & 3) == 0) norm_s[js] = qn;
+    __syncthreads();  // the slices are consumed; the norms are stored
+
+    // The chunk's records: column 8 b0 + cq of each source's record.
+    for (int e = tid; e < kSqMmaCols * kWideCols; e += kSqMmaThreads) {
+      const int j = e / kWideCols;
+      const int cq = e - j * kWideCols;
+      const int q = 8 * b0 + cq;
+      const size_t row = static_cast<size_t>(j0 + j) * m;
+      float v = 0.0f;
+      if (j0 + j < n_s) {
+        if (q < m) {
+          v = scores[row + q];
+        } else if (q >= xo && q < one) {
+          v = sources[row + q - xo];
+        } else if (q == one) {
+          v = 1.0f;
+        }
+      }
+      uint32_t hi, lo;
+      operand_split<kBf16>(v, hi, lo);
+      big[j * kWideLdR + cq] = __uint_as_float(hi);
+      small[j * kWideLdR + cq] = __uint_as_float(lo);
+    }
+    __syncthreads();  // the records are complete
+
+#pragma unroll
+    for (int nb = 0; nb < 4; ++nb) {
+      const int jl = 8 * nb + 2 * t;  // sources jl, jl + 1 of the fragment
+      const float ns0 = norm_s[jl];
+      const float ns1 = norm_s[jl + 1];
+      const bool c0 = j0 + jl < n_s;
+      const bool c1 = j0 + jl + 1 < n_s;
+      float kc[4], kw[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float gr = gb[nb][q] + gs[nb][q];
+        const float nt = q < 2 ? nt0 : nt1;
+        const float ns = q & 1 ? ns1 : ns0;
+        const float sq =
+            fmaxf(__fsub_rn(__fadd_rn(nt, ns), 2.0f * gr), 0.0f);
+        const bool cq = q & 1 ? c1 : c0;
+        float a, b;
+        weights(sq, a, b);
+        kc[q] = cq ? a : 0.0f;
+        kw[q] = cq ? b : 0.0f;
+        if (counting) {
+          const bool ok = (q < 2 ? ok0 : ok1) && cq;
+          count_pair_fixed<kT, true>(sq, th, ok, cnt);
+        }
+      }
+      uint32_t k_big[4], k_small[4], w_big[4], w_small[4];
+      weight_fragment<kBf16>(kc, k_big, k_small);
+      if constexpr (kTwo) weight_fragment<kBf16>(kw, w_big, w_small);
+      const int bk = jl * kWideLdR + g;
+#pragma unroll
+      for (int b = 0; b < kWideCB; ++b) {
+        if (b < nbc) {
+          uint32_t ab[4], as[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const bool use_w = kTwo && b0 + b >= nbs;
+            ab[q] = use_w ? w_big[q] : k_big[q];
+            as[q] = use_w ? w_small[q] : k_small[q];
+          }
+          mma_pass<kBf16>(acc[b], ab, as, big, small, bk + 8 * b,
+                          bk + kWideLdR + 8 * b);
+        }
+      }
+    }
+  }
+
+  // The chunk's columns of the split's partial [KS | KX | rowsum], mapped
+  // as square_mma_body maps its columns.
+  const int wd = 2 * m + 1;
+#pragma unroll
+  for (int b = 0; b < kWideCB; ++b) {
+    if (b < nbc) {
+      const int bg = b0 + b;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = r0 + (q >> 1) * 8;
+        const int cr = 8 * bg + 2 * t + (q & 1);
+        int col = cr;
+        bool keep = cr < wd;
+        if constexpr (kTwo) {
+          col = bg < nbs ? cr : m + (cr - xo);
+          keep = bg < nbs ? cr < m : cr - xo <= m;
+        }
+        if (row < n_t && keep) {
+          part[static_cast<size_t>(row) * wd + col] = acc[b][q];
+        }
+      }
+    }
+  }
+  if (counting) flush_counts(cnt, T, counts);
+}
+
 template <int kT>
 __global__ void __launch_bounds__(kSqMmaThreads)
     parent_counts_square_wide_kernel(
@@ -2602,6 +2932,49 @@ extern "C" int parent_square_wide(const float* targets, const float* sources,
                                 kSqFinishThreads),
       kSqFinishThreads, 0, s>>>(work, splits, n_t, m, gammas, terms ? 1 : 0,
                                 targets, n_s, phi);
+  return static_cast<int>(cudaGetLastError());
+}
+// K1's bf16 instance as it ran before square_bf16_sm90.cuh: the body with
+// kBf16, the parent's entry (any alignment, the tensor-core plan).
+template <int kT>
+__global__ void __launch_bounds__(kSqMmaThreads)
+    parent_counts_square_bf16_kernel(
+        const float* __restrict__ targets, const float* __restrict__ sources,
+        const float* __restrict__ scores, const float* __restrict__ gamma,
+        const float* __restrict__ thr, int n_t, int n_s, int m, int T,
+        int chunk, float* __restrict__ work,
+        unsigned long long* __restrict__ counts) {
+  const OneRbf weights{-gamma[0] * kLog2e};
+  float* part = work + static_cast<size_t>(blockIdx.y) * n_t * (2 * m + 1);
+  square_wide_body<kT, true>(targets, sources, scores, weights, thr, n_t,
+                             n_s, m, T, chunk, part, counts);
+}
+extern "C" int parent_square_bf16(const float* targets, const float* sources,
+                                  const float* scores, const float* gamma,
+                                  const float* thr, int n_t, int n_s, int m,
+                                  int T, float* phi, long long* counts,
+                                  float* work, void* stream) {
+  int splits = 0;
+  const int chunk = square_chunk(n_t, n_s, true, &splits);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* c = reinterpret_cast<unsigned long long*>(counts);
+  const dim3 grid((n_t + kSqMmaRows - 1) / kSqMmaRows, splits,
+                  wide_square_chunks(m, false));
+  if (T == 3) {
+    parent_counts_square_bf16_kernel<3><<<grid, kSqMmaThreads, 0, s>>>(
+        targets, sources, scores, gamma, thr, n_t, n_s, m, T, chunk, work,
+        c);
+  } else {
+    parent_counts_square_bf16_kernel<kMaxT><<<grid, kSqMmaThreads, 0, s>>>(
+        targets, sources, scores, gamma, thr, n_t, n_s, m, T, chunk, work,
+        c);
+  }
+  const long long outs = static_cast<long long>(n_t) * m;
+  parent_square_wide_finish_kernel<<<
+      static_cast<unsigned int>((outs + kSqFinishThreads - 1) /
+                                kSqFinishThreads),
+      kSqFinishThreads, 0, s>>>(work, splits, n_t, m, gamma, 0, targets,
+                                n_s, phi);
   return static_cast<int>(cudaGetLastError());
 }
 """
@@ -2760,6 +3133,378 @@ def square_wide_main(args) -> int:
     result = {"card": card, "torch": torch.__version__,
               "square_wide": square_wide(torch.device("cuda"))}
     out = Path(args.out or "chiprun_out/square_wide.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(card)
+    return 0
+
+
+#: --square-bf16's shapes: (form, n_t, n_s, m); the cross form's targets
+#: are its sources' first n_t, as a two-rank mesh's rank 0 holds them. The
+#: cross form at the flagship under a one-rank mesh (10000 x 10000, 2) and
+#: at a two-rank mesh's rows (5000 x 10000, 2), the square form at the
+#: flat BLR's (1000, 50), at a9a's width (1000, 123) and at (1000, 2), and
+#: the cross form at (10000 x 10000, 123).
+SQUARE_BF16_SHAPES = (
+    ("cross", 10000, 10000, 2), ("cross", 5000, 10000, 2),
+    ("square", 1000, 1000, 50), ("square", 1000, 1000, 123),
+    ("square", 1000, 1000, 2), ("cross", 10000, 10000, 123),
+)
+
+
+def square_bf16(device):
+    """--square-bf16: K1's bfloat16 instance, the parent's (square_wide_body
+    with kBf16, built from SQUARE_WIDE_PARENT_SOURCE in a copy under
+    _verify/square_bf16/) and the package's (square_bf16_sm90.cuh's body),
+    in one process at SQUARE_BF16_SHAPES on chip_smoke.py's inputs:
+    kernel-only us (the profiler's events, 10 calls after one) of the
+    pack, the norms' sums, the sweep and the finishing pass apart and of
+    all four (BF16_SQUARE_NAMES), and of every kernel that the bf16
+    launcher runs from the centred operands (``launcher_us``, which holds
+    the names to the launches); the sweep and the finishing pass of the
+    parent (which formed the norms and rounded the operands inside its
+    sweep) and of the float32 instance; wrapper ms (CUDA events,
+    chip_smoke.time_ms; the parent's wrapper is the centring, the workspace
+    and the launch as they stood); both results' distance from the bf16
+    and the float32 plain versions (a share of max |phi|) with their
+    counts' largest difference; the split counts, the workspace's bytes,
+    the dynamic shared memory, and each build's registers and spill (the
+    parent's static shared memory is 33,920 B)."""
+    import ctypes
+
+    import torch
+
+    from chip_smoke import (BF16_SQUARE_NAMES, inputs_for, kernel_us,
+                            ptxas_summary, time_ms)
+    from svgdcpp_tpu_torch.ops import cuda_phi, sym_plan
+    from svgdcpp_tpu_torch.ops.phi import phi_rbf_cross_fused_counts
+    from svgdcpp_tpu_torch.utils.cuda_build import ARCH_FLAGS, find_nvcc
+
+    bf16 = "bfloat16"
+    dest = ROOT / "_verify" / "square_bf16"
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(ROOT / "svgdcpp_tpu_torch" / "csrc", dest)
+    (dest / "parent.cu").write_text(SQUARE_WIDE_PARENT_SOURCE)
+    proc = subprocess.Popen(
+        [find_nvcc() or "nvcc", *ARCH_FLAGS, "-std=c++17", "-O3",
+         "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v", "-o",
+         str(dest / "libparent.so"), str(dest / "parent.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    cuda_phi.load_library()  # built meanwhile
+    out, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"the parent's square build:\n{out}")
+    lib = ctypes.CDLL(str(dest / "libparent.so"))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.parent_square_bf16.argtypes = [ptr] * 5 + [i32] * 4 + [ptr] * 4
+    lib.parent_square_bf16.restype = i32
+    lib.parent_square_splits.argtypes = [i32, i32]
+    lib.parent_square_splits.restype = i32
+    builds = {
+        "parent": {k: v for k, v in ptxas_summary(out).items()
+                   if "parent_counts_square_bf16" in k},
+        "new": {k: v for k, v in ptxas_summary(
+            cuda_phi.build_log_path().read_text()).items()
+            if k.startswith(("counts_square_bf16", "square_bf16_pack"))},
+    }
+    print(json.dumps(builds), flush=True)
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max())
+
+    rows = []
+    for form, n_t, n_s, m in SQUARE_BF16_SHAPES:
+        x, s, g, thr = inputs_for(n_s, m, 0.0, 470 + m + n_t, device)
+        xt = x if form == "square" else x[:n_t].contiguous()
+
+        def new_call(dd=bf16):
+            if form == "square":
+                return cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=False,
+                                                   dot_dtype=dd)
+            return cuda_phi.phi_rbf_fused_cuda_cross(xt, x, s, g, thr,
+                                                     dot_dtype=dd)
+
+        splits = lib.parent_square_splits(n_t, n_s)
+
+        def parent_call():
+            """The parent's bf16 wrapper, as it stood."""
+            center = x.mean(dim=0)
+            tgt_c = (xt - center).contiguous()
+            src_c = (x - center).contiguous()
+            phi = torch.empty((n_t, m), device=device)
+            counts = torch.zeros(thr.shape[0], dtype=torch.int64,
+                                 device=device)
+            work = torch.empty((splits, n_t, 2 * m + 1), device=device)
+            rc = lib.parent_square_bf16(
+                tgt_c.data_ptr(), src_c.data_ptr(), s.data_ptr(),
+                g.reshape(1).data_ptr(), thr.data_ptr(), n_t, n_s, m,
+                thr.shape[0], phi.data_ptr(), counts.data_ptr(),
+                work.data_ptr(), torch.cuda.current_stream().cuda_stream)
+            if rc:
+                raise RuntimeError(f"parent_square_bf16 returned {rc}")
+            return phi, counts
+
+        got = {"new": new_call(), "parent": parent_call()}
+        want16 = phi_rbf_cross_fused_counts(xt, x, s, g, thr, dot_dtype=bf16)
+        want32 = phi_rbf_cross_fused_counts(xt, x, s, g, thr)
+        torch.cuda.synchronize()
+        new_splits = sym_plan.square_splits(n_t, n_s, m, bf16=True)
+        plan = sym_plan.square_bf16_plan(m)
+        row = {"form": form, "n_t": n_t, "n_s": n_s, "m": m,
+               "tiles": plan.tiles, "chunks": plan.chunks,
+               "splits": new_splits, "parent_splits": splits,
+               "work_bytes": sym_plan.square_bf16_work(
+                   n_t, n_s, m, form == "square").bytes,
+               "parent_work_bytes": 4 * splits * n_t * (2 * m + 1),
+               "smem_bytes": plan.smem}
+        for name, names in (("pack", BF16_SQUARE_NAMES[0]),
+                            ("sum", BF16_SQUARE_NAMES[1]),
+                            ("sweep", "fused_phi_counts_square_bf16_kernel"),
+                            ("finish", "fused_phi_counts_square_finish"),
+                            ("total", BF16_SQUARE_NAMES)):
+            row[f"new_{name}_us"] = kernel_us(new_call, names)
+        g_dev, thr_dev = cuda_phi._device_operands(x, s, [g], thr)
+        center = x.mean(dim=0)
+        src_c = (x - center).contiguous()
+        tgt_c = src_c if form == "square" else (xt - center).contiguous()
+        row["new_launcher_us"] = kernel_us(
+            lambda: cuda_phi._square_bf16_launch(
+                tgt_c, src_c, s, g_dev, thr_dev, form == "square",
+                torch.float32), "")
+        row["parent_sweep_us"] = kernel_us(parent_call,
+                                           "parent_counts_square_bf16")
+        row["parent_finish_us"] = kernel_us(parent_call,
+                                            "parent_square_wide_finish")
+        f32 = lambda: new_call("float32")  # noqa: E731
+        row["float32_sweep_us"] = kernel_us(f32,
+                                            "fused_phi_counts_square_kernel")
+        row["float32_finish_us"] = kernel_us(f32,
+                                             "fused_phi_counts_square_finish")
+        for name, fn in (("new", new_call), ("parent", parent_call),
+                         ("float32", f32)):
+            row[f"{name}_wrapper_ms"] = time_ms(fn, reps=20, warmup=3)
+        for name, (phi, cnt) in got.items():
+            row[f"{name}_rel_bf16_plain"] = rel(phi, want16[0])
+            row[f"{name}_rel_float32_plain"] = rel(phi, want32[0])
+            row[f"{name}_count_diff"] = int((cnt - want16[1]).abs().max())
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+    return {"builds": builds, "rows": rows}
+
+
+def square_bf16_main(args) -> int:
+    """--square-bf16: square_bf16's rows, JSON to --out."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    card = card_name()
+    print(card)
+    result = {"card": card, "torch": torch.__version__,
+              "square_bf16": square_bf16(torch.device("cuda"))}
+    out = Path(args.out or "chiprun_out/square_bf16.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(card)
+    return 0
+
+
+#: --wrapper-ab's child: K1's bf16 instance through the package's public
+#: wrappers at SQUARE_BF16_SHAPES (chip_smoke.time_ms, CUDA events, the
+#: median of 50 calls) and the flat BLR driver under the bf16 opt-in (N =
+#: 1000, d = 50, chip_smoke.py phase 46b's configuration, ms a step by the
+#: host clock over 100 steps after a run of 20), one JSON line. It uses
+#: only what the trees before and after K1's bf16 redesign share.
+WRAPPER_AB_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from svgdcpp_tpu_torch.ops import cuda_phi
+from svgdcpp_tpu_torch.utils.workloads import blr_workload, build_blr_svgd
+dev = torch.device("cuda")
+shapes = json.loads(sys.argv[1])
+out = {}
+for form, n_t, n_s, m in shapes:
+    x, s, g, thr = cs.inputs_for(n_s, m, 0.0, 470 + m + n_t, dev)
+    xt = x[:n_t].contiguous()
+    if form == "square":
+        fn = lambda: cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=False,
+                                                 dot_dtype="bfloat16")
+    else:
+        fn = lambda: cuda_phi.phi_rbf_fused_cuda_cross(
+            xt, x, s, g, thr, dot_dtype="bfloat16")
+    out[f"{form} {n_t} x {n_s}, {m}"] = cs.time_ms(fn, reps=50, warmup=5)
+feats, labels, xb = blr_workload(1000, 50)
+for steps in (20, 100):
+    svgd = build_blr_svgd(torch.tensor(xb, device=dev), feats, labels,
+                          num_iterations=steps, fused_dot_dtype="bfloat16")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svgd.run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+out["flat BLR bf16 ms a step"] = ms
+print(json.dumps(out), flush=True)
+"""
+
+
+def wrapper_ab(parent: Path) -> dict:
+    """--wrapper-ab DIR: WRAPPER_AB_CHILD in the tree DIR (the parent's
+    checkout), in this one, in this one and in DIR, one process each, so
+    that the wrappers and the flat BLR step of two trees are compared on
+    one card; each tree builds its library on its first run."""
+    runs = []
+    shapes = json.dumps(SQUARE_BF16_SHAPES)
+    for label, tree in (("parent", parent), ("change", ROOT),
+                        ("change", ROOT), ("parent", parent)):
+        proc = subprocess.run(
+            [sys.executable, "-c", WRAPPER_AB_CHILD, shapes], cwd=tree,
+            capture_output=True, text=True, timeout=1800)
+        if proc.returncode:
+            raise RuntimeError(f"--wrapper-ab in {tree}:\n"
+                               f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+        row = {"tree": label, **json.loads(proc.stdout.strip()
+                                           .splitlines()[-1])}
+        runs.append(row)
+        print(json.dumps(row), flush=True)
+    return {"runs": runs}
+
+
+def wrapper_ab_main(args) -> int:
+    """--wrapper-ab: wrapper_ab's rows, JSON to --out."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    card = card_name()
+    print(card)
+    result = {"card": card, "wrapper_ab": wrapper_ab(Path(args.wrapper_ab))}
+    out = Path(args.out or "chiprun_out/wrapper_ab.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(card)
+    return 0
+
+
+def bf16_parity(device):
+    """--bf16-parity: how far K1's bf16 result moves with the order of the
+    sums that form sq. The flat BLR driver (N = 1000, d = 50, the bf16
+    opt-in, chip_smoke.py phase 46b's run) for COMPARE_STEPS steps; each
+    call of the sweep is replayed in plain torch on the card with sq from
+    q_i + q_j - 2 G as the bf16 plain version forms it, then with one sum
+    in another order: q in K2's pack's order (bf16_tri_pack: a lane's
+    fused multiply-adds over coordinates lane, lane + 32, ..., then a
+    butterfly over the warp), the Gram's dot in reverse coordinate order,
+    or the Gram in float64 rounded once. Per call and variant: the
+    distance of phi from the bf16 plain version's (a share of max |phi|,
+    chip_smoke.py's BF16_GATE is 1e-3) and the weights k whose bf16
+    rounding moved; the kernel's own distance beside them."""
+    import torch
+
+    import chip_smoke as cs
+    import svgdcpp_tpu_torch.svgd as driver_module
+    from svgdcpp_tpu_torch.ops.pairwise import sq_matmul
+    from svgdcpp_tpu_torch.ops.phi import LOG2E, round_bf16
+    from svgdcpp_tpu_torch.utils.workloads import blr_workload, build_blr_svgd
+
+    def plain_q(c):
+        return torch.sum(c * c, dim=1)
+
+    def warp_q(c):
+        n, m = c.shape
+        acc = torch.zeros((n, 32), dtype=torch.float64, device=c.device)
+        for k0 in range(0, m, 32):
+            v = torch.zeros((n, 32), dtype=torch.float64, device=c.device)
+            v[:, :min(32, m - k0)] = c[:, k0:k0 + 32].double()
+            acc = (v * v + acc).float().double()  # one fused rounding
+        acc = acc.float()
+        lane = torch.arange(32, device=c.device)
+        for off in (16, 8, 4, 2, 1):
+            acc = acc + acc[:, lane ^ off]
+        return acc[:, 0]
+
+    def seq_gram(a, b, order):
+        acc = torch.zeros((a.shape[0], b.shape[0]), dtype=torch.float32,
+                          device=a.device)
+        for c in order:
+            acc = acc + a[:, c:c + 1] * b[None, :, c]
+        return acc
+
+    variants = {
+        "plain": (plain_q, lambda a, b: sq_matmul(a, b.T)),
+        "pack_q": (warp_q, lambda a, b: sq_matmul(a, b.T)),
+        "gram_reversed": (plain_q, lambda a, b: seq_gram(
+            a, b, range(a.shape[1] - 1, -1, -1))),
+        "gram_exact": (plain_q, lambda a, b: (a.double() @ b.double().T)
+                       .float()),
+    }
+
+    def replay(x, s, g, q_fn, gram_fn):
+        center = x.mean(dim=0)
+        t = x - center
+        q = q_fn(t)
+        ones = torch.ones((x.shape[0], 1), dtype=x.dtype, device=x.device)
+        b = round_bf16(torch.cat([s, t, ones], dim=1))
+        gram = gram_fn(round_bf16(t), round_bf16(t))
+        sq = torch.clamp_min(q[:, None] + q[None, :] - 2.0 * gram, 0.0)
+        k = round_bf16(torch.exp2(-(g * LOG2E) * sq))
+        a = sq_matmul(k, b)
+        m = x.shape[1]
+        d = a[:, m:2 * m] - a[:, 2 * m, None] * t
+        return (a[:, :m] - 2.0 * g * d) / x.shape[0], k
+
+    feats, labels, xb = blr_workload(1000, 50)
+    svgd = build_blr_svgd(torch.tensor(xb, device=device), feats, labels,
+                          num_iterations=cs.COMPARE_STEPS,
+                          fused_dot_dtype="bfloat16")
+    with cs.CallGate(driver_module, "phi_rbf_fused_cuda") as gate:
+        svgd.run()
+    torch.cuda.synchronize()
+
+    def rel(a, b):
+        return float((a.double() - b.double()).abs().max()
+                     / b.double().abs().max())
+
+    rows, worst = [], {}
+    for idx, (args, kwargs, out) in enumerate(gate.calls):
+        x, s, g = (torch.as_tensor(v, dtype=torch.float32, device=device)
+                   for v in args[:3])
+        want = cs.bf16_plain("phi_rbf_fused_cuda")(*args, **kwargs)[0]
+        row = {"call": idx, "kernel": rel(out[0], want)}
+        k0 = None
+        for name, (q_fn, gram_fn) in variants.items():
+            phi, k = replay(x, s, g, q_fn, gram_fn)
+            k0 = k if k0 is None else k0
+            row[name] = rel(phi, want)
+            row[f"{name}_k_moved"] = int((k != k0).sum())
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        for key, v in row.items():
+            if key != "call":
+                worst[key] = max(worst.get(key, 0), v)
+    print("worst", json.dumps(worst), flush=True)
+    return {"calls": rows, "worst": worst}
+
+
+def bf16_parity_main(args) -> int:
+    """--bf16-parity: bf16_parity's rows, JSON to --out."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    card = card_name()
+    print(card)
+    result = {"card": card, "torch": torch.__version__,
+              "bf16_parity": bf16_parity(torch.device("cuda"))}
+    out = Path(args.out or "chiprun_out/bf16_parity.json")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
     print(card)
@@ -3258,6 +4003,18 @@ def main() -> int:
                         help="only time the float32 wide square body (K1 "
                              "and the terms square kernel past m = 64), the "
                              "parent's and the new one (no driver profile)")
+    parser.add_argument("--square-bf16", action="store_true",
+                        help="only time K1's bf16 instance, the parent's "
+                             "body and the new one, beside the float32 "
+                             "instance (no driver profile)")
+    parser.add_argument("--wrapper-ab", default=None, metavar="DIR",
+                        help="only time K1's bf16 wrappers and the flat BLR "
+                             "bf16 step in the tree DIR and in this one, "
+                             "DIR / here / here / DIR (no driver profile)")
+    parser.add_argument("--bf16-parity", action="store_true",
+                        help="only replay the flat BLR driver's bf16 sweeps "
+                             "with sq's sums in other orders (no driver "
+                             "profile)")
     parser.add_argument("--square-wide-breakdown", action="store_true",
                         help="only time variants of the float32 wide square "
                              "body, each with one part changed (no driver "
@@ -3280,6 +4037,12 @@ def main() -> int:
         return aniso_wide_main(args)
     if args.square_wide:
         return square_wide_main(args)
+    if args.square_bf16:
+        return square_bf16_main(args)
+    if args.bf16_parity:
+        return bf16_parity_main(args)
+    if args.wrapper_ab:
+        return wrapper_ab_main(args)
     if args.square_wide_breakdown:
         return square_wide_breakdown_main(args)
     if args.float32_check:

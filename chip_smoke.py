@@ -290,16 +290,21 @@ forty-six phases, one line each (several for phases 2, 3, 7-9 and
      to its float64 plain chunk and the coordinates within 1e-3 of the
      driver's; ms a step of each;
  46. the bfloat16 opt-in (fused_dot_dtype='bfloat16'): 46a K1 at
-     (1000, 50) and its cross form at 5000 of 10000 (m = 2), K2 at
-     (10000, 2), (10000, 123), (10000, 16) and (10000, 17), K3 forced at
-     (32768, 2), (10000, 123), (8192, 16) and (8192, 17) (K2 and K3 on
-     bf16_tri_sm90.cuh's body, whose Gram tile steps k16 at a time), K15
-     at (1500, 2) and (10240, 123), each against its
+     (1000, 50), (1000, 16), (1000, 17), (1000, 63), (1000, 64),
+     (1000, 65), (1000, 123) and the source edges (1, 2), (33, 17) and
+     (10007, 2), its cross form at 5000 and 10000 of 10000 (m = 2), at
+     10000 of 10000 (m = 123) and at the edges 33 of 10007 (m = 65) and
+     129 of 1 (m = 2) (K1 on square_bf16_sm90.cuh's body, whose record
+     columns past 16 n8 tiles, m >= 64, go in chunks along the grid's z),
+     K2 at (10000, 2), (10000, 123), (10000, 16) and (10000, 17), K3
+     forced at (32768, 2), (10000, 123), (8192, 16) and (8192, 17) (K2
+     and K3 on bf16_tri_sm90.cuh's body, whose Gram tile steps k16 at a
+     time), K15 at (1500, 2) and (10240, 123), each against its
      bf16 plain version on the card within 1e-3 of max |phi| (counts
      within 1e-6 n_t n) and against the float32 plain version within
      3e-2, with times beside the float32 instance's and bounds at the
-     bf16 tensor peak, then 0 bytes of spill of the new body's instances
-     and its pack kernel; 46b the flagship on auto (K2's bf16 instance) for
+     bf16 tensor peak, then 0 bytes of spill of both bodies' instances
+     and the pack kernel; 46b the flagship on auto (K2's bf16 instance) for
      1000 iterations, 20 of its sweep calls held to the bf16 plain
      version, its moment errors beside the float32 route's (not gated);
      the flat BLR (K1), the flagship with fused_sym="panel" at N = 32768
@@ -537,9 +542,10 @@ def ptxas_summary(log_text):
     rbf_wide, the panels' float32 ones past m = 64 (kernels of their own,
     on the float32 wide triangle body) counts_sympanel_wide<kT>,
     counts_sympanel_chunk_wide<kT> and terms_sympanel_wide<kT,NTerms>, and
-    the bfloat16 instances counts_square_bf16<kT>, counts_sym_bf16<kT>,
-    counts_sympanel_bf16<kT> and rbf_wide_bf16, and the bf16 triangle
-    body's pack kernel, bf16_tri_pack."""
+    the bfloat16 instances counts_square_bf16<kT,NT> (NT accumulator
+    tiles), counts_sym_bf16<kT>, counts_sympanel_bf16<kT> and
+    rbf_wide_bf16, and the bf16 bodies' pack kernels, bf16_tri_pack and
+    square_bf16_pack."""
     import re
 
     out, name = {}, None
@@ -569,12 +575,14 @@ def ptxas_summary(log_text):
                 name = "rbf_wide"
             if "bf16_tri_pack_kernel" in hit.group(1):
                 name = "bf16_tri_pack"
+            if "square_bf16_pack_kernel" in hit.group(1):
+                name = "square_bf16_pack"
             bf16 = re.search(
-                r"(?<=\d)(?:fused_)?phi_([a-z_]+_bf16)_kernel(?:ILi(\d+)E)?",
-                hit.group(1))
+                r"(?<=\d)(?:fused_)?phi_([a-z_]+_bf16)_kernel"
+                r"(?:I((?:Li\d+E)+))?", hit.group(1))
             if bf16:
-                name = bf16.group(1) + (f"<{bf16.group(2)}>"
-                                        if bf16.group(2) else "")
+                args = ",".join(re.findall(r"Li(\d+)E", bf16.group(2) or ""))
+                name = bf16.group(1) + (f"<{args}>" if args else "")
             panel = re.search(r"(?<=\d)fused_phi_(\w+?_wide)_kernelI"
                               r"((?:Li\d+E)+)", hit.group(1))
             if panel:
@@ -797,12 +805,13 @@ WIDE_SYM_TIE = 0.05
 WIDE_D, WIDE_BLR_N, WIDE_BLR_STEPS, WIDE_BIG_N = 123, 1000, 500, 10000
 
 
-def kernel_us(fn, name, calls=10, tries=2):
+def kernel_us(fn, name, calls=10, tries=3):
     """Mean device us of the kernels whose name holds ``name`` (or any
     name of a tuple: a call's several kernels) (the profiler's events) over
-    ``calls`` calls of ``fn``, after one; a trace that holds none of them
-    (on an H100, once in a run of phase 43a's 38 cases) is taken again, up
-    to ``tries`` times, else None."""
+    ``calls`` calls of ``fn``, after one; a trace that lacks any of the
+    names (on an H100, a trace held none of a call's kernels once in a run
+    of phase 43a's 38 cases, and once lacked one of two) is taken again,
+    up to ``tries`` times, else None."""
     names = (name,) if isinstance(name, str) else tuple(name)
     import tempfile
     from pathlib import Path
@@ -821,11 +830,11 @@ def kernel_us(fn, name, calls=10, tries=2):
             trace = Path(tmp) / "trace.json"
             prof.export_chrome_trace(str(trace))
             events = json.loads(trace.read_text())["traceEvents"]
-        durs = [float(ev["dur"]) for ev in events
+        hits = [ev for ev in events
                 if ev.get("ph") == "X" and ev.get("cat") == "kernel"
                 and any(nm in ev.get("name", "") for nm in names)]
-        if durs:
-            return sum(durs) / calls
+        if all(any(nm in ev["name"] for ev in hits) for nm in names):
+            return sum(float(ev["dur"]) for ev in hits) / calls
     return None
 
 
@@ -1131,19 +1140,27 @@ def phase_wide_kernels(dev, card, clock, ptxas):
            if lib.svgd_square_splits(*a) != sym_plan.square_splits(*a)]
     check(not off, f"phase 43d: svgd_square_splits and sym_plan."
                    f"square_splits differ at {off}")
-    # K1's bf16 instance keeps the tensor-core plan at every m.
-    bf16_shapes = [(n_t, n_s, m) for n_t in (1, 64, 1000, 10007)
-                   for n_s in (1, 33, 10000) for m in (1, 2, 4, 5, 50, 123)]
+    # K1's bf16 instance on its own body's plan (square_bf16_sm90.cuh).
+    bf16_shapes = [(n_t, n_s, m) for n_t in (1, 64, 1000, 5000, 10007)
+                   for n_s in (1, 33, 1000, 10000)
+                   for m in (1, 2, 4, 5, 16, 17, 50, 63, 64, 65, 123, 512)]
     off = [a for a in bf16_shapes if lib.svgd_square_bf16_splits(*a)
            != sym_plan.square_splits(*a, bf16=True)]
     check(not off, f"phase 43d: svgd_square_bf16_splits and sym_plan."
                    f"square_splits(bf16=True) differ at {off}")
+    off = [(*a, sq) for a in bf16_shapes for sq in (0, 1)
+           if not (sq and a[0] != a[1])
+           and lib.svgd_square_bf16_work_bytes(*a, sq)
+           != sym_plan.square_bf16_work(*a, bool(sq)).bytes]
+    check(not off, f"phase 43d: svgd_square_bf16_work_bytes and sym_plan."
+                   f"square_bf16_work differ at {off}")
     off = [(m, t) for m in widths for t in (0, 1)
            if lib.svgd_sym_tile(m, t) != sym_plan.sym_tile(m, bool(t))]
     check(not off, f"phase 43d: svgd_sym_tile and sym_plan.sym_tile differ "
                    f"at {off}")
     print(f"phase 43d mirrors: ok svgd_square_splits at {len(shapes)} shapes "
-          f"(svgd_square_bf16_splits at {len(bf16_shapes)}) and svgd_sym_tile "
+          f"(svgd_square_bf16_splits and svgd_square_bf16_work_bytes at "
+          f"{len(bf16_shapes)}) and svgd_sym_tile "
           f"at m = {list(widths)} equal sym_plan's")
     return errs, times
 
@@ -2589,11 +2606,26 @@ def phase_wide_panel_paths(dev, card, clock):
 #: K2's and K3's bf16 instances run csrc/bf16_tri_sm90.cuh's body (its
 #: pack kernel, then the sweep; kernel-only times are both's), whose Gram
 #: tile steps k16 at a time: BF16_SHAPES holds them at m = 16 and 17 too,
-#: and 46a requires 0 bytes of spill of BF16_TRI_INSTANCES.
+#: and 46a requires 0 bytes of spill of BF16_TRI_INSTANCES. K1's runs
+#: csrc/square_bf16_sm90.cuh's pack, the sum of its squares into the norms
+#: (torch.sum, the plain version's reduction), the sweep and the finishing
+#: pass (kernel-only times are all four's; 46a holds the pack's operands
+#: to their plain version, cuda_phi.square_bf16_operands, bit for bit),
+#: the sweep in instances of 2, 4, 8 and 16
+#: accumulator tiles, its Gram tile in slices of 32 coordinates and the
+#: record's columns past 16 tiles (m >= 64) in chunks along the grid's z:
+#: BF16_SHAPES holds it at m = 16 and 17, the chunk edges m = 63, 64 and
+#: 65, at m = 123 and at the edges of its 64-source tiles and 128-row
+#: blocks (n_s = 1, 33, 10007), and 46a requires 0 bytes of spill of
+#: BF16_SQUARE_INSTANCES.
 BF16_GATE = 1e-3
 BF16_F32_GATE = 3e-2
-BF16_SHAPES = {"K1": ((1000, 50),),
-               "K1 cross": ((5000, 10000, 2), (10000, 10000, 2)),
+BF16_SHAPES = {"K1": ((1000, 50), (1000, 16), (1000, 17), (1000, 63),
+                      (1000, 64), (1000, 65), (1000, 123), (1, 2), (33, 17),
+                      (10007, 2)),
+               "K1 cross": ((5000, 10000, 2), (10000, 10000, 2),
+                            (10000, 10000, 123), (33, 10007, 65),
+                            (129, 1, 2)),
                "K2": ((10000, 2), (10000, 123), (10000, 16), (10000, 17)),
                "K3": ((32768, 2), (10000, 123), (8192, 16), (8192, 17)),
                "K15": ((1500, 2), (10240, 123))}
@@ -2601,6 +2633,16 @@ BF16_TRI_INSTANCES = ("counts_sym_bf16<3>", "counts_sym_bf16<8>",
                       "counts_sympanel_bf16<3>", "counts_sympanel_bf16<8>",
                       "bf16_tri_pack")
 BF16_PACK = "bf16_tri_pack"
+BF16_SQUARE_INSTANCES = tuple(f"counts_square_bf16<{kt},{nt}>"
+                              for kt in (3, 8) for nt in (2, 4, 8, 16)) + (
+                                  "square_bf16_pack",)
+#: The names of K1's bf16 call's kernels: the pack, the norms' sums
+#: (torch.sum's reduce kernel, whose name holds its functor's), the sweep
+#: and the finishing pass.
+BF16_SQUARE_PACK, BF16_SQUARE_SUM = "square_bf16_pack", "sum_functor"
+BF16_SQUARE_NAMES = (BF16_SQUARE_PACK, BF16_SQUARE_SUM,
+                     "fused_phi_counts_square_bf16",
+                     "fused_phi_counts_square_finish")
 #: The bf16 triangle body's shared memory (Bf16Tri::kSmemBytes): 5 stages
 #: of two 16 KB slots and 1 KB of norms, and the 32 KB weight tile.
 BF16_TRI_SMEM = 5 * (2 * 16384 + 1024) + 32768
@@ -2647,10 +2689,14 @@ def bf16_cases(dev):
     for key, shapes in BF16_SHAPES.items():
         for idx, shape in enumerate(shapes):
             n, m = shape[-2:]
-            x, s, g, thr = inputs_for(n, m, 0.0, 470 + 7 * idx + m, dev)
+            # The first n rows of at least 64 (the median's sample) and of
+            # the cross form's targets, which are its first n_t.
+            rows = max(n, shape[0], 64)
+            x, s, g, thr = inputs_for(rows, m, 0.0, 470 + 7 * idx + m, dev)
+            xt = x[:shape[0]].contiguous()
+            x, s = x[:n].contiguous(), s[:n].contiguous()
             if key == "K1 cross":
                 n_t = shape[0]
-                xt = x[:n_t].contiguous()
                 cases.append((
                     f"K1 bf16 cross ({n_t} x {n}, {m})",
                     cuda_phi.SQUARE_BF16_KERNEL, n, m, n_t,
@@ -2704,15 +2750,62 @@ def bf16_bounds(kernel, n, m, n_t=None):
         n, m, fixed_p=kernel == cuda_phi.PHI_RBF_WIDE_BF16_KERNEL, bf16=True)
 
 
+def phase_square_bf16_pack(dev, card):
+    """Phase 46a's check of K1's bf16 pack at BF16_SHAPES' K1 shapes: the
+    pack's squares summed into q, its rounded rows and record (views of the
+    workspace) equal their plain version (cuda_phi.square_bf16_operands)
+    bit for bit, on the wrapper's centred operands; the pack's and the
+    sums' kernel-only us at the last shape."""
+    import torch
+
+    from svgdcpp_tpu_torch.ops import cuda_phi
+
+    shapes = ([(n, n, m, True) for n, m in BF16_SHAPES["K1"]]
+              + [(*a, False) for a in BF16_SHAPES["K1 cross"]])
+    for n_t, n_s, m, square in shapes:
+        x, s, _, thr = inputs_for(max(n_t, n_s, 64), m, 0.0, 490 + m, dev)
+        src = x[:n_s]
+        center = src.mean(dim=0)
+        src_c = (src - center).contiguous()
+        tgt_c = src_c if square else (x[:n_t] - center).contiguous()
+        sc = s[:n_s].contiguous()
+        splits = cuda_phi.load_library().svgd_square_bf16_splits(n_t, n_s, m)
+        counts = torch.full((thr.shape[0],), 7, dtype=torch.int64,
+                            device=dev)
+
+        def pack():
+            return cuda_phi.square_bf16_pack(tgt_c, src_c, sc, square, counts,
+                                             splits)
+
+        q_t, q_s, work = pack()
+        x_t, x_s, rec = cuda_phi.square_bf16_views(work, n_t, n_s, m, square,
+                                                   splits)
+        got = (q_t, x_t, q_s, x_s, rec)
+        want = cuda_phi.square_bf16_operands(tgt_c, src_c, sc, square)
+        torch.cuda.synchronize()
+        off = [name for name, a, b in zip(("q_t", "x_t", "q_s", "x_s", "rec"),
+                                          got, want)
+               if not torch.equal(a, b)]
+        check(not off and not counts.any(),
+              f"phase 46a K1 bf16 pack ({n_t} x {n_s}, {m}): {off} differ "
+              f"from the plain version, counts {counts.tolist()}")
+    us = {name: kernel_us(pack, name, calls=5)
+          for name in (BF16_SQUARE_PACK, BF16_SQUARE_SUM)}
+    print(f"phase 46a K1 bf16 pack: ok q, the rounded rows and the record "
+          f"equal their plain version bit for bit at {len(shapes)} shapes; "
+          f"kernel_us at the last {json.dumps(us)} {card}")
+
+
 def phase_bf16_kernels(dev, card, clock, ptxas, plain_ms):
     """Phase 46a (see BF16_GATE). Returns ({kernel: max |dphi| against the
     bf16 plain version}, {(kernel, n, m): times}, {kernel: launches of the
     phase's own calls})."""
     import torch
 
-    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops import cuda_phi, sym_plan
 
     errs, times, launched = {}, {}, {}
+    phase_square_bf16_pack(dev, card)
     for label, kernel, n, m, n_t, kern, kern32, plain, plain32 in (
             bf16_cases(dev)):
         cuda_phi.reset_launch_counts()
@@ -2745,6 +2838,7 @@ def phase_bf16_kernels(dev, card, clock, ptxas, plain_ms):
         errs[kernel] = max(errs.get(kernel, 0.0), abs_err)
         names = ((kernel, BF16_PACK) if kernel in (
             cuda_phi.SYM_BF16_KERNEL, cuda_phi.SYMPANEL_BF16_KERNEL)
+            else BF16_SQUARE_NAMES if kernel == cuda_phi.SQUARE_BF16_KERNEL
             else kernel)
         t = {"kernel": time_ms(kern, reps=10, warmup=2),
              "kernel_us": kernel_us(kern, names, calls=5),
@@ -2763,14 +2857,19 @@ def phase_bf16_kernels(dev, card, clock, ptxas, plain_ms):
               f"{t['plain']:.4f} bound_fp32_ms={fp_ms:.6g} ({fp_by}) "
               f"bound_bf16_tensor_ms={tc_ms:.6g} ({tc_by}) "
               f"ptxas={json.dumps(regs)} {card} {clock()}")
-    report = {inst: ptxas.get(inst, "?") for inst in BF16_TRI_INSTANCES}
+    report = {inst: ptxas.get(inst, "?")
+              for inst in BF16_TRI_INSTANCES + BF16_SQUARE_INSTANCES}
     spilled = [inst for inst, text in report.items()
                if not text.endswith(" 0 B spill")]
-    check(not spilled, f"phase 46a: the bf16 triangle body's instances "
+    check(not spilled, f"phase 46a: the bf16 bodies' instances "
                        f"spill or were not found in the build log: "
                        f"{ {i: report[i] for i in spilled} }")
-    print(f"phase 46a ptxas: ok {json.dumps(report)} dynamic smem_bytes="
-          f"{BF16_TRI_SMEM}; one block of 384 threads an SM {card}")
+    square_smem = {m: sym_plan.square_bf16_plan(m).smem
+                   for m in sorted({s[-1] for s in BF16_SHAPES["K1"]
+                                    + BF16_SHAPES["K1 cross"]})}
+    print(f"phase 46a ptxas: ok {json.dumps(report)} dynamic smem_bytes: "
+          f"the triangle {BF16_TRI_SMEM} (one block of 384 threads an SM), "
+          f"K1's by m {json.dumps(square_smem)} {card}")
     return errs, times, launched
 
 
@@ -5926,7 +6025,7 @@ def main() -> int:
         # The bfloat16 opt-in's instances (phase 46; the error against
         # their bf16 plain versions).
         entry(sq16, "fused_phi.cu", f"{pallas}:365", ["K1"],
-              bf16_errs[sq16]),
+              bf16_errs[sq16], body="square_bf16_sm90.cuh"),
         entry(sym16, "fused_phi.cu", f"{pallas}:546", ["K2"],
               bf16_errs[sym16], body="bf16_tri_sm90.cuh"),
         entry(sp16, "fused_phi_panel.cu", f"{pallas}:860", ["K3"],

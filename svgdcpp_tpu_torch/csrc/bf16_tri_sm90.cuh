@@ -640,6 +640,17 @@ inline unsigned int bf16_tri_prepare(Kernel* kernel, long long items) {
   return static_cast<unsigned int>(items < sms ? items : sms);
 }
 
+// Column c of a particle's bf16 record R = [S | X | 1 | 0...] from its
+// float32 scores s and centred coordinates x: the pack kernels' (K2's and
+// K3's here, K1's in square_bf16_sm90.cuh).
+__device__ __forceinline__ __nv_bfloat16 bf16_record_value(const float* x,
+                                                           const float* s,
+                                                           int m, int c) {
+  const float v = c < m ? s[c]
+                        : (c < 2 * m ? x[c - m] : (c == 2 * m ? 1.0f : 0.0f));
+  return __float2bfloat16_rn(v);
+}
+
 // The operands' one rounding: a warp a particle (kRows particles a block)
 // reads its float32 centred coordinates and scores and writes q (the
 // float32 norm), X (bf16, zero past m) and R = [S | X | 1 | 0...] (bf16).
@@ -664,9 +675,7 @@ __global__ void __launch_bounds__(32 * kRows)
     ops.xg[static_cast<size_t>(i) * mk + c] = __float2bfloat16_rn(v);
   }
   for (int c = lane; c < rw; c += 32) {
-    const float v = c < m ? s[c]
-                          : (c < 2 * m ? x[c - m] : (c == 2 * m ? 1.0f : 0.0f));
-    ops.rec[static_cast<size_t>(i) * rw + c] = __float2bfloat16_rn(v);
+    ops.rec[static_cast<size_t>(i) * rw + c] = bf16_record_value(x, s, m, c);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {

@@ -35,18 +35,22 @@
 // (-Xptxas -v, kept in the build log) says whether an instance spills.
 //
 // The bfloat16 operand opt-in (the JAX package's dot_dtype='bfloat16',
-// pallas_phi.py:406 and :619) has instances of its own, at every m >= 1:
-// K1's on square_wide_body with kBf16 (Gram operands, weights and records
-// rounded to bf16, one TF32 pass a product, the norms and the epilogue's
-// x_i in float32; square_mma.cuh) and K2's on bf16_tri_sm90.cuh's body
-// (the operands rounded once by its pack kernel, bf16 mma.sync m16n8k16,
-// the accumulator [KS | KX | rowsum] whose D the wrapper forms in
+// pallas_phi.py:406 and :619) has instances of its own, at every m >= 1,
+// their contractions on bf16 mma.sync m16n8k16, the norms and the
+// epilogue's x_i in float32: K1's on square_bf16_sm90.cuh's body (its
+// pack kernel's rounded operands and the norms the wrapper sums from the
+// pack's squares, the Gram tile by float32 FMA in the plain version's
+// order, the target rows resident, the weights from registers, the
+// splits' partials [KS | KX | rowsum] summed by the finishing pass)
+// and K2's on bf16_tri_sm90.cuh's (operands rounded once by its pack
+// kernel, the accumulator [KS | KX | rowsum] whose D the wrapper forms in
 // float32). The JAX kernels take the Gram form under bf16 at every m, so
 // the CUDA-core and micro-tile bodies, which form sq from differences,
 // have no bf16 instance.
 //
 // The kernels allocate nothing: the wrapper (ops/cuda_phi.py) passes zeroed
-// count and accumulator buffers and the square sweep's workspace. Each
+// count and accumulator buffers (K1's bf16 pack zeroes its counts itself)
+// and the square sweep's workspace. Each
 // entry point returns cudaGetLastError() after its launches.
 
 #include <type_traits>
@@ -54,6 +58,7 @@
 #include "micro_tile.cuh"
 #include "square_mma.cuh"
 #include "bf16_tri_sm90.cuh"
+#include "square_bf16_sm90.cuh"
 #include "square_wide_sm90.cuh"
 #include "wide_tri.cuh"
 #include "wide_tri_sm90.cuh"
@@ -139,19 +144,25 @@ __global__ void __launch_bounds__(SqThreads<MM>::value)
   }
 }
 
-// K1's bf16 instance (every m): the wide body with kBf16, kT thresholds.
-template <int kT>
-__global__ void __launch_bounds__(kSqMmaThreads)
+// K1's bf16 instance (every m): square_bf16_sm90.cuh's body at NT
+// accumulator tiles and kT thresholds, on the packed operands; work holds
+// the splits' partials (splits, n_t, 2m + 1). The runtime-T instances
+// (kT = kMaxT, which no driver path takes) ask for one block an SM: the
+// 16 registers of their thresholds and counts would spill under two. The
+// split plan (sq_bf16_chunk) does not know T and sizes its waves for the
+// T = 3 instance's blocks an SM, so at NT = 2 a runtime-T launch runs its
+// splits in two waves where the plan counted one: slower, never wrong.
+template <int kT, int NT>
+__global__ void __launch_bounds__(SqBf16<NT>::kThreads,
+                                  kT == 3 ? SqBf16<NT>::kMinBlocks : 1)
     fused_phi_counts_square_bf16_kernel(
-        const float* __restrict__ targets, const float* __restrict__ sources,
-        const float* __restrict__ scores, const float* __restrict__ gamma,
+        SqBf16Operands ops, const float* __restrict__ gamma,
         const float* __restrict__ thr, int n_t, int n_s, int m, int T,
         int chunk, float* __restrict__ work,
         unsigned long long* __restrict__ counts) {
-  const OneRbf weights{-gamma[0] * kLog2e};
   float* part = work + static_cast<size_t>(blockIdx.y) * n_t * (2 * m + 1);
-  square_wide_body<kT, true>(targets, sources, scores, weights, thr, n_t,
-                             n_s, m, T, chunk, part, counts);
+  square_bf16_body<kT, NT>(ops, -gamma[0] * kLog2e, thr, n_t, n_s, m, T,
+                           chunk, part, counts);
 }
 
 // The finishing pass: D scaled by 2 gamma.
@@ -439,46 +450,122 @@ int svgd_fused_phi_counts_square(const float* targets, const float* sources,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The split count of K1's bf16 instance (svgd_fused_phi_counts_square_bf16),
-// whose wide body keeps the tensor-core plan at every m; -1 as
-// svgd_square_splits. ops/sym_plan.square_splits(..., bf16=True) mirrors
-// it.
+// The split count of K1's bf16 instance (svgd_fused_phi_counts_square_bf16):
+// square_bf16_sm90.cuh's plan (sq_bf16_chunk); -1 as svgd_square_splits.
+// ops/sym_plan.square_splits(..., bf16=True) mirrors it.
 int svgd_square_bf16_splits(int n_t, int n_s, int m) {
   if (n_t <= 0 || n_s <= 0 || m < 1) return -1;
   int splits = 0;
-  square_chunk(n_t, n_s, true, &splits);
+  sq_bf16_chunk(n_t, n_s, m, &splits);
   return splits;
 }
 
-// K1's bf16 instance: the arguments as svgd_fused_phi_counts_square's, at
-// any m >= 1, splits = svgd_square_bf16_splits(n_t, n_s, m). No alignment
-// is required (the wide body reads device memory directly).
-int svgd_fused_phi_counts_square_bf16(const float* targets,
-                                      const float* sources,
-                                      const float* scores, const float* gamma,
-                                      const float* thr, int n_t, int n_s,
-                                      int m, int T, float* phi,
-                                      long long* counts, float* work,
-                                      int splits, void* stream) {
-  if (n_t <= 0 || n_s <= 0 || T < 1 || T > kMaxT || m < 1) {
+// The bytes of K1's bf16 workspace (sq_bf16_work: the splits' partials,
+// the rounded rows, the record) for svgd_square_bf16_splits' split count;
+// square: the square form (one set of rows); -1 as svgd_square_splits.
+// ops/sym_plan.square_bf16_work mirrors it.
+long long svgd_square_bf16_work_bytes(int n_t, int n_s, int m, int square) {
+  if (n_t <= 0 || n_s <= 0 || m < 1 || (square && n_t != n_s)) return -1;
+  int splits = 0;
+  sq_bf16_chunk(n_t, n_s, m, &splits);
+  return static_cast<long long>(
+      sq_bf16_work(n_t, n_s, m, splits, square != 0).bytes);
+}
+
+// K1's bf16 pack (the first of the instance's launches; the wrapper sums
+// the squares into the norms between it and the sweep): targets (n_t, m)
+// and sources (n_s, m) the centred float32 coordinates and scores (n_s, m)
+// float32, any alignment; square: the square form, targets are the sources
+// (n_t == n_s, targets and sq_t unread); sq_t (n_t, m) and sq_s (n_s, m)
+// float32 the rows' squares; work the 16-byte-aligned workspace of
+// svgd_square_bf16_work_bytes(n_t, n_s, m, square), splits =
+// svgd_square_bf16_splits(n_t, n_s, m); counts (T,) int64, zeroed here.
+int svgd_square_bf16_pack(const float* targets, const float* sources,
+                          const float* scores, float* sq_t, float* sq_s,
+                          void* work, long long* counts, int n_t, int n_s,
+                          int m, int T, int square, int splits,
+                          void* stream) {
+  int want = 0;
+  if (n_t <= 0 || n_s <= 0 || T < 1 || T > kMaxT || m < 1 ||
+      (square && n_t != n_s) ||
+      (reinterpret_cast<uintptr_t>(work) & 15u) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  sq_bf16_chunk(n_t, n_s, m, &want);
+  if (splits != want) return static_cast<int>(cudaErrorInvalidValue);
+  const SqBf16Work w = sq_bf16_work(n_t, n_s, m, splits, square != 0);
+  auto* base = static_cast<unsigned char*>(work);
+  const SqBf16Pack out{sq_t, sq_s, reinterpret_cast<float*>(base + w.x_t),
+                       reinterpret_cast<float*>(base + w.x_s),
+                       reinterpret_cast<__nv_bfloat16*>(base + w.rec)};
+  const int rows = (square ? 0 : n_t) + n_s;
+  const dim3 grid((rows + kSqBf16PackRows - 1) / kSqBf16PackRows,
+                  (bf16_record_width(m) + 31) / 32);
+  square_bf16_pack_kernel<<<grid, dim3(32, kSqBf16PackRows), 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      targets, sources, scores, square ? 0 : n_t, n_s, m, out,
+      reinterpret_cast<unsigned long long*>(counts), T);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K1's bf16 sweep and finishing pass at any m >= 1, after the pack: q_t
+// (n_t,) and q_s (n_s,) the float32 norms of the centred coordinates (the
+// wrapper's sums of the pack's squares; q_t is q_s in the square form),
+// q_s on a 16-byte boundary; targets (n_t, m) the centred float32 targets
+// of the finishing pass; work the pack's workspace (its partials filled
+// here); square, splits as the pack's; the rest as
+// svgd_fused_phi_counts_square's, counts zeroed by the pack. Launches: the
+// sweep, the finishing pass.
+int svgd_fused_phi_counts_square_bf16(
+    const float* q_t, const float* q_s, const float* targets,
+    const float* gamma, const float* thr, int n_t, int n_s, int m, int T,
+    int square, float* phi, long long* counts, void* work, int splits,
+    void* stream) {
+  if (n_t <= 0 || n_s <= 0 || T < 1 || T > kMaxT || m < 1 ||
+      (square && n_t != n_s) ||
+      ((reinterpret_cast<uintptr_t>(work) |
+        reinterpret_cast<uintptr_t>(q_s)) & 15u) != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   int want = 0;
-  const int chunk = square_chunk(n_t, n_s, true, &want);
+  const int chunk = sq_bf16_chunk(n_t, n_s, m, &want);
   if (splits != want) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* c = reinterpret_cast<unsigned long long*>(counts);
-  const dim3 grid((n_t + kSqMmaRows - 1) / kSqMmaRows, splits,
-                  wide_square_chunks(m, false));
-  if (T == 3) {
-    fused_phi_counts_square_bf16_kernel<3><<<grid, kSqMmaThreads, 0, s>>>(
-        targets, sources, scores, gamma, thr, n_t, n_s, m, T, chunk, work, c);
-  } else {
-    fused_phi_counts_square_bf16_kernel<kMaxT>
-        <<<grid, kSqMmaThreads, 0, s>>>(targets, sources, scores, gamma, thr,
-                                        n_t, n_s, m, T, chunk, work, c);
-  }
-  launch_square_finish(work, splits, n_t, m, 1, gamma, targets, n_s, phi, s);
+  const SqBf16Work w = sq_bf16_work(n_t, n_s, m, splits, square != 0);
+  const auto* base = static_cast<const unsigned char*>(work);
+  const SqBf16Operands ops{
+      q_t, reinterpret_cast<const float*>(base + w.x_t), q_s,
+      reinterpret_cast<const float*>(base + w.x_s),
+      reinterpret_cast<const __nv_bfloat16*>(base + w.rec)};
+  float* part = static_cast<float*>(work);
+  const SqBf16Plan p = sq_bf16_plan(m);
+  const dim3 grid((n_t + kSqBf16Rows - 1) / kSqBf16Rows, splits, p.chunks);
+  auto go = [&](auto kt, auto nt) {
+    constexpr int kT = decltype(kt)::value;
+    constexpr int NT = decltype(nt)::value;
+    auto* kernel = &fused_phi_counts_square_bf16_kernel<kT, NT>;
+    if (p.smem > 48 * 1024) {
+      const cudaError_t rc = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+      if (rc != cudaSuccess) return static_cast<int>(rc);
+    }
+    kernel<<<grid, SqBf16<NT>::kThreads, p.smem, s>>>(
+        ops, gamma, thr, n_t, n_s, m, T, chunk, part, c);
+    return 0;
+  };
+  auto by_tiles = [&](auto kt) {
+    switch (p.nt) {
+      case 2: return go(kt, std::integral_constant<int, 2>{});
+      case 4: return go(kt, std::integral_constant<int, 4>{});
+      case 8: return go(kt, std::integral_constant<int, 8>{});
+      default: return go(kt, std::integral_constant<int, 16>{});
+    }
+  };
+  const int rc = T == 3 ? by_tiles(std::integral_constant<int, 3>{})
+                        : by_tiles(std::integral_constant<int, kMaxT>{});
+  if (rc != 0) return rc;
+  launch_square_finish(part, splits, n_t, m, 1, gamma, targets, n_s, phi, s);
   return static_cast<int>(cudaGetLastError());
 }
 

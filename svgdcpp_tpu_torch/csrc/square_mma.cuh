@@ -75,9 +75,8 @@
 //     holds the 3m floats of a row.
 //   * m > 64 (kMaxM), square_wide_sm90.cuh's square_wide_sm90_body: the
 //     same arithmetic laid out for Hopper, with a launch plan of its own
-//     (square_plan_chunk). square_wide_body below, the Gram tile over
-//     slices of coordinates and the accumulator in column chunks along the
-//     grid's z, serves K1's bfloat16 instance at every m.
+//     (square_plan_chunk). K1's bfloat16 instance runs its own body at
+//     every m (square_bf16_sm90.cuh), with this file's finishing pass.
 //
 // The body copies sources and scores 16 bytes at a time: both must start
 // on a 16-byte boundary (the C entries refuse others).
@@ -127,6 +126,38 @@ inline int square_chunk(int n_t, int n_s, bool tensor, int* splits) {
   const int chunk = kSquareGrain * ((grains + parts - 1) / parts);
   *splits = (n_s + chunk - 1) / chunk;
   return chunk;
+}
+
+// The SMs whose waves the wide and bf16 bodies' split rules fill: the
+// H100's.
+constexpr int kSquareWaveSms = 132;
+
+// The tiles one split of such a launch sweeps, of `tiles` source tiles, and
+// the split count: the count that minimises the waves of bps x
+// kSquareWaveSms blocks (`blocks` a split: target blocks x passes; bps
+// blocks an SM) times the tiles an SM's bps blocks sweep plus one each (a
+// block's fixed cost: its targets, its partials), the fewest splits among
+// equals. ops/sym_plan.square_wave_tiles mirrors it.
+inline int square_wave_tiles(long long blocks, int tiles, int bps,
+                             int* splits) {
+  const long long slots = static_cast<long long>(kSquareWaveSms) * bps;
+  const int most = tiles < kSquareWaveSms ? tiles : kSquareWaveSms;
+  long long best = -1;
+  int best_ct = tiles;
+  int best_sp = 1;
+  for (int s = 1; s <= most; ++s) {
+    const int ct = (tiles + s - 1) / s;
+    const int sp = (tiles + ct - 1) / ct;
+    if (sp != s) continue;  // the plan of a smaller s
+    const long long est = (blocks * sp + slots - 1) / slots * bps * (ct + 1);
+    if (best < 0 || est < best) {
+      best = est;
+      best_ct = ct;
+      best_sp = sp;
+    }
+  }
+  *splits = best_sp;
+  return best_ct;
 }
 
 // ---------------------------------------------------------------------------
@@ -274,7 +305,7 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
 }
 
 // The bfloat16 operand opt-in (the JAX package's dot_dtype='bfloat16') of
-// the Gram-form bodies (square_wide_body, wide_tri.cuh). The JAX kernels
+// the Gram-form body of wide_tri.cuh (K15's bf16 instance). The JAX kernels
 // round their dot operands to bf16 (round to nearest, ties to even) and
 // accumulate the products in float32. Here the same function runs as ONE
 // TF32 pass on operands pre-rounded to bf16, in the 3xTF32 bodies' own
@@ -599,319 +630,11 @@ __device__ __forceinline__ void square_mma_body(
 }
 
 // ---------------------------------------------------------------------------
-// The Gram-form body of K1's bfloat16 instance
+// The Gram slices of wide_tri.cuh's body
 // ---------------------------------------------------------------------------
-//
-// Past kMaxM the float32 instances run square_wide_sm90.cuh's body; this
-// one serves K1's bf16 instance (kBf16) at every m. Its float32 form
-// (kBf16 = false) is what those instances ran before, which
-// chip_profile.py --square-wide builds as the parent to time beside them.
-//
-// square_mma_body holds a warp's 16 target rows as A fragments (8 registers
-// for each of ceil(m/8) k-steps) and 4 accumulator registers for each of
-// ceil((2m + 1)/8) column blocks, and stages raw tiles of m floats a
-// source: past m = 64 its registers pass 255 and its shared memory grows
-// with m. square_wide_body keeps the same block (4 warps of 16 target
-// rows), tile (32 sources), 3xTF32 mma.sync arithmetic, launch plan and
-// finishing pass, with nothing sized by m:
-//
-//   * the Gram tile G = X_t X_s^T (16 x 32 a warp) runs over slices of
-//     kWideK coordinates: per slice the block stages the 64 target rows'
-//     and the 32 sources' coordinates as TF32 pairs in shared memory and
-//     each warp reads its A and B fragments from there;
-//   * the accumulator columns are cut into chunks of kWideCB column blocks
-//     (128 columns), one chunk a block along the grid's z. Each chunk
-//     recomputes the Gram tile and the weights of its pairs; only chunk 0
-//     counts them, so each pair is counted once. At m = 123 one RBF has
-//     ceil(247 / 128) = 2 chunks and two terms ceil(256 / 128) = 2: the
-//     Gram tile (m-deep) is formed twice beside the two chunks' 128-column
-//     contractions (PERF.md gives the cost).
-//   * the chunk's records, the 32 sources' values at its 128 columns of
-//     [S | X | 1] (one RBF) or [S | 0..][X | 1 | 0..] (terms), are staged
-//     as TF32 pairs in the same shared memory as the Gram slices, read from
-//     device memory after the Gram tile.
-//
-// Static shared memory: 2 x 4224 floats of records or slices and 32 source
-// norms, 33.9 KB at any m. Registers: 16 x 4 accumulators, 2 x 4 x 4 Gram
-// values, the weights' fragments and the counts.
-//
-// kBf16 (the bfloat16 opt-in, K1's bf16 instance at every m): the Gram
-// slices' coordinates, the weights and the records rounded to bf16, each
-// product one TF32 pass (operand_split, mma_pass); the norms stay those of
-// the float32 coordinates and the finishing pass's D = rowsum x_i - KX
-// takes the float32 x_i, as the JAX kernel's epilogue does
-// (pallas_phi.py:429-433, :379, :707). No self pair is pinned: the square
-// form has none (the JAX kernel pins none either).
 
 constexpr int kWideK = 32;                // coordinates of one Gram slice
 constexpr int kWideLdK = kWideK + 4;      // slice rows' stride (4 mod 32)
-constexpr int kWideCB = 16;               // column blocks of one chunk
-constexpr int kWideCols = 8 * kWideCB;    // columns of one chunk
-constexpr int kWideLdR = kWideCols + 4;   // records' stride (4 mod 32)
-
-struct SqWide {
-  static constexpr int kSlice = (kSqMmaRows + kSqMmaCols) * kWideLdK;
-  static constexpr int kRecs = kSqMmaCols * kWideLdR;
-  // floats of one half (big or small) of the shared union
-  static constexpr int kHalf = kSlice > kRecs ? kSlice : kRecs;
-};
-
-// Record columns of a wide square launch at width m: [S | X | 1] for one
-// RBF, [S | 0..][X | 1 | 0..] in two bands for terms; their column blocks,
-// and the chunks (the grid's z) that cover them.
-__host__ __device__ inline int wide_square_blocks(int m, bool two) {
-  return two ? (m + 7) / 8 + (m + 1 + 7) / 8 : (2 * m + 1 + 7) / 8;
-}
-
-__host__ __device__ inline int wide_square_chunks(int m, bool two) {
-  return (wide_square_blocks(m, two) + kWideCB - 1) / kWideCB;
-}
-
-// The block body past kMaxM (see above). part: this split's (n_t, 2m + 1)
-// slice of the workspace; the block writes the columns of its chunk
-// (blockIdx.z). Arguments as square_mma_body's.
-template <int kT, bool kBf16 = false, class W>
-__device__ __forceinline__ void square_wide_body(
-    const float* __restrict__ targets, const float* __restrict__ sources,
-    const float* __restrict__ scores, const W& weights,
-    const float* __restrict__ thr, int n_t, int n_s, int m, int T, int chunk,
-    float* __restrict__ part, unsigned long long* __restrict__ counts) {
-  constexpr bool kTwo = kTwoBands<W>;
-  __shared__ __align__(16) float sh[2 * SqWide::kHalf];
-  __shared__ float norm_s[kSqMmaCols];
-  float* big = sh;
-  float* small = sh + SqWide::kHalf;
-  // Gram slices: the block's targets [64][kWideLdK], then the sources
-  // [32][kWideLdK]; records: [32][kWideLdR].
-  constexpr int kSrc = kSqMmaRows * kWideLdK;
-
-  const int nbs = (m + 7) / 8;
-  const int xo = kTwo ? 8 * nbs : m;  // the record's column of x_0
-  const int one = xo + m;             // the record's column of the 1
-  const int b0 = static_cast<int>(blockIdx.z) * kWideCB;
-  const int nbc = min(kWideCB, wide_square_blocks(m, kTwo) - b0);
-  const bool counting = blockIdx.z == 0;
-  const int tid = static_cast<int>(threadIdx.x);
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int rb = static_cast<int>(blockIdx.x) * kSqMmaRows;
-  const int j_begin = static_cast<int>(blockIdx.y) * chunk;
-  const int j_end = min(n_s, j_begin + chunk);
-  const int tiles = (j_end - j_begin + kSqMmaCols - 1) / kSqMmaCols;
-
-  float th[kT];
-#pragma unroll
-  for (int q = 0; q < kT; ++q) th[q] = thr[q < T ? q : 0];
-
-  // The warp's rows g and g + 8 and their squared norms (the quad's four
-  // threads each sum every fourth coordinate).
-  const int r0 = rb + 16 * warp + g;
-  const bool ok0 = r0 < n_t;
-  const bool ok1 = r0 + 8 < n_t;
-  float nt0 = 0.0f;
-  float nt1 = 0.0f;
-  for (int k = t; k < m; k += 4) {
-    const float v0 = ok0 ? targets[static_cast<size_t>(r0) * m + k] : 0.0f;
-    const float v1 =
-        ok1 ? targets[static_cast<size_t>(r0 + 8) * m + k] : 0.0f;
-    nt0 = fmaf(v0, v0, nt0);
-    nt1 = fmaf(v1, v1, nt1);
-  }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    nt0 += __shfl_xor_sync(0xffffffffu, nt0, off);
-    nt1 += __shfl_xor_sync(0xffffffffu, nt1, off);
-  }
-
-  float acc[kWideCB][4];
-#pragma unroll
-  for (int b = 0; b < kWideCB; ++b) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) acc[b][q] = 0.0f;
-  }
-  unsigned int cnt[kMaxT];
-#pragma unroll
-  for (int q = 0; q < kMaxT; ++q) cnt[q] = 0u;
-
-#pragma unroll 1
-  for (int c = 0; c < tiles; ++c) {
-    const int j0 = j_begin + c * kSqMmaCols;
-    // Gram tile: gb = big * big, gs = big * small + small * big.
-    float gb[4][4];
-    float gs[4][4];
-#pragma unroll
-    for (int nb = 0; nb < 4; ++nb) {
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        gb[nb][q] = 0.0f;
-        gs[nb][q] = 0.0f;
-      }
-    }
-    // The sources' squared norms, 4 threads a source, summed over slices.
-    const int js = tid >> 2;
-    const bool js_ok = j0 + js < n_s;
-    float qn = 0.0f;
-#pragma unroll 1
-    for (int k0 = 0; k0 < m; k0 += kWideK) {
-      const int kn = min(kWideK, m - k0);
-      __syncthreads();  // the shared union is free
-      for (int e = tid; e < (kSqMmaRows + kSqMmaCols) * kWideK;
-           e += kSqMmaThreads) {
-        const int r = e / kWideK;
-        const int k = e - r * kWideK;
-        float v = 0.0f;
-        if (k < kn) {
-          if (r < kSqMmaRows) {
-            if (rb + r < n_t) {
-              v = targets[static_cast<size_t>(rb + r) * m + k0 + k];
-            }
-          } else if (j0 + r - kSqMmaRows < n_s) {
-            v = sources[static_cast<size_t>(j0 + r - kSqMmaRows) * m + k0 +
-                        k];
-          }
-        }
-        uint32_t hi, lo;
-        operand_split<kBf16>(v, hi, lo);
-        big[r * kWideLdK + k] = __uint_as_float(hi);
-        small[r * kWideLdK + k] = __uint_as_float(lo);
-      }
-      if (js_ok) {
-        for (int k = k0 + (tid & 3); k < k0 + kn; k += 4) {
-          const float v = sources[static_cast<size_t>(j0 + js) * m + k];
-          qn = fmaf(v, v, qn);
-        }
-      }
-      __syncthreads();  // the slices are complete
-#pragma unroll
-      for (int ks = 0; ks < kWideK / 8; ++ks) {
-        if (8 * ks < kn) {
-          const int ar = (16 * warp + g) * kWideLdK + 8 * ks + t;
-          const uint32_t ab[4] = {
-              __float_as_uint(big[ar]),
-              __float_as_uint(big[ar + 8 * kWideLdK]),
-              __float_as_uint(big[ar + 4]),
-              __float_as_uint(big[ar + 8 * kWideLdK + 4])};
-          const uint32_t as[4] = {
-              __float_as_uint(small[ar]),
-              __float_as_uint(small[ar + 8 * kWideLdK]),
-              __float_as_uint(small[ar + 4]),
-              __float_as_uint(small[ar + 8 * kWideLdK + 4])};
-#pragma unroll
-          for (int nb = 0; nb < 4; ++nb) {
-            const int br = kSrc + (8 * nb + g) * kWideLdK + 8 * ks + t;
-            const uint32_t bb0 = __float_as_uint(big[br]);
-            const uint32_t bb1 = __float_as_uint(big[br + 4]);
-            if constexpr (!kBf16) {
-              mma_tf32(gs[nb], as, bb0, bb1);
-              mma_tf32(gs[nb], ab, __float_as_uint(small[br]),
-                       __float_as_uint(small[br + 4]));
-            }
-            mma_tf32(gb[nb], ab, bb0, bb1);
-          }
-        }
-      }
-    }
-    qn += __shfl_xor_sync(0xffffffffu, qn, 1);
-    qn += __shfl_xor_sync(0xffffffffu, qn, 2);
-    if ((tid & 3) == 0) norm_s[js] = qn;
-    __syncthreads();  // the slices are consumed; the norms are stored
-
-    // The chunk's records: column 8 b0 + cq of each source's record.
-    for (int e = tid; e < kSqMmaCols * kWideCols; e += kSqMmaThreads) {
-      const int j = e / kWideCols;
-      const int cq = e - j * kWideCols;
-      const int q = 8 * b0 + cq;
-      const size_t row = static_cast<size_t>(j0 + j) * m;
-      float v = 0.0f;
-      if (j0 + j < n_s) {
-        if (q < m) {
-          v = scores[row + q];
-        } else if (q >= xo && q < one) {
-          v = sources[row + q - xo];
-        } else if (q == one) {
-          v = 1.0f;
-        }
-      }
-      uint32_t hi, lo;
-      operand_split<kBf16>(v, hi, lo);
-      big[j * kWideLdR + cq] = __uint_as_float(hi);
-      small[j * kWideLdR + cq] = __uint_as_float(lo);
-    }
-    __syncthreads();  // the records are complete
-
-#pragma unroll
-    for (int nb = 0; nb < 4; ++nb) {
-      const int jl = 8 * nb + 2 * t;  // sources jl, jl + 1 of the fragment
-      const float ns0 = norm_s[jl];
-      const float ns1 = norm_s[jl + 1];
-      const bool c0 = j0 + jl < n_s;
-      const bool c1 = j0 + jl + 1 < n_s;
-      float kc[4], kw[4];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float gr = gb[nb][q] + gs[nb][q];
-        const float nt = q < 2 ? nt0 : nt1;
-        const float ns = q & 1 ? ns1 : ns0;
-        const float sq =
-            fmaxf(__fsub_rn(__fadd_rn(nt, ns), 2.0f * gr), 0.0f);
-        const bool cq = q & 1 ? c1 : c0;
-        float a, b;
-        weights(sq, a, b);
-        kc[q] = cq ? a : 0.0f;
-        kw[q] = cq ? b : 0.0f;
-        if (counting) {
-          const bool ok = (q < 2 ? ok0 : ok1) && cq;
-          count_pair_fixed<kT, true>(sq, th, ok, cnt);
-        }
-      }
-      uint32_t k_big[4], k_small[4], w_big[4], w_small[4];
-      weight_fragment<kBf16>(kc, k_big, k_small);
-      if constexpr (kTwo) weight_fragment<kBf16>(kw, w_big, w_small);
-      const int bk = jl * kWideLdR + g;
-#pragma unroll
-      for (int b = 0; b < kWideCB; ++b) {
-        if (b < nbc) {
-          uint32_t ab[4], as[4];
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            const bool use_w = kTwo && b0 + b >= nbs;
-            ab[q] = use_w ? w_big[q] : k_big[q];
-            as[q] = use_w ? w_small[q] : k_small[q];
-          }
-          mma_pass<kBf16>(acc[b], ab, as, big, small, bk + 8 * b,
-                          bk + kWideLdR + 8 * b);
-        }
-      }
-    }
-  }
-
-  // The chunk's columns of the split's partial [KS | KX | rowsum], mapped
-  // as square_mma_body maps its columns.
-  const int wd = 2 * m + 1;
-#pragma unroll
-  for (int b = 0; b < kWideCB; ++b) {
-    if (b < nbc) {
-      const int bg = b0 + b;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int row = r0 + (q >> 1) * 8;
-        const int cr = 8 * bg + 2 * t + (q & 1);
-        int col = cr;
-        bool keep = cr < wd;
-        if constexpr (kTwo) {
-          col = bg < nbs ? cr : m + (cr - xo);
-          keep = bg < nbs ? cr < m : cr - xo <= m;
-        }
-        if (row < n_t && keep) {
-          part[static_cast<size_t>(row) * wd + col] = acc[b][q];
-        }
-      }
-    }
-  }
-  if (counting) flush_counts(cnt, T, counts);
-}
 
 // ---------------------------------------------------------------------------
 // The finishing pass

@@ -3,14 +3,15 @@
 // the TPU's _fused_kernel via _phi_rbf_fused_pallas_cross_impl) and K6/K7's
 // (fused_phi_terms_square, fused_phi_terms.cu: FixedTerms<2> and AnyTerms,
 // the TPU's _fused_terms_direct_kernel and _fused_terms_kernel), the
-// instance MM = kWideMM of each. It computes what square_mma.cuh's
-// square_wide_body computed for them: each split's partial
+// instance MM = kWideMM of each. It computes what the body before it
+// (square_wide_body, whose text chip_profile.py's SQUARE_WIDE_PARENT_SOURCE
+// keeps) computed for them: each split's partial
 // [KS | KX | rowsum] (one RBF: k on both bands; terms: k_c on the scores,
 // w on the coordinates and the row sum), the counts of each pair once, no
 // pinned self pair (the square form has none), then the finishing pass
 // square_finish (D = rowsum x_i - KX with the float32 x_i, the splits
-// summed in split order). square_wide_body keeps serving K1's bfloat16
-// instance only.
+// summed in split order). K1's bfloat16 instance runs its own body
+// (square_bf16_sm90.cuh).
 //
 // What bounds it. At (1000, 123) the work is 10^6 pairs: about 2.2 GFLOP of
 // 3xTF32 products (the Gram tile m deep, the contraction 2m + 1 wide),
@@ -81,7 +82,7 @@
 //     8t + g or 24t + g); the weights' stores take two ways.
 //   * The launch plan is sized to the card: the grid (target blocks,
 //     splits, passes), the split count chosen to fill whole waves of
-//     kSqWideSms blocks (sq_wide_chunk): at (1000, 123) 16 x 8 = 128
+//     kSquareWaveSms blocks (sq_wide_chunk): at (1000, 123) 16 x 8 = 128
 //     blocks of two tiles, at (1500, 124) 24 x 5 of five. The workspace is
 //     half the parent's there.
 //
@@ -110,8 +111,6 @@ constexpr int kSqWideThreads = 32 * kSqWideWarps;
 constexpr int kSqWideAcc = 8;
 // The Gram warp tile's most blocks of 8 sources (2 at R = 64, else 1).
 constexpr int kSqWideGramBlocks = 2;
-// The waves the split rule fills: the H100's SMs, one block each.
-constexpr int kSqWideSms = 132;
 
 // The layout of a launch at row width w (a multiple of 4), with one weight
 // tile (one RBF) or two (terms, kTwo): the record's columns [S | 0.. | X |
@@ -152,34 +151,14 @@ __host__ __device__ inline SqWidePlan sq_wide_plan(int w, bool two) {
   return p;
 }
 
-// The sources of one split of a launch at row width w (a multiple of
-// kSqWideTile), and the split count: the count s of whole tiles a split
-// that minimises the waves of kSqWideSms blocks times the tiles a block
-// sweeps plus one (its fixed cost: the targets, the partials), the fewest
-// splits among equals. ops/sym_plan.square_wide_chunk mirrors it.
+// The sources of one split of a launch at row width w (whole tiles of
+// kSqWideTile; square_wave_tiles over target blocks x passes, one block an
+// SM) and the split count. ops/sym_plan.square_wide_chunk mirrors it.
 inline int sq_wide_chunk(int n_t, int n_s, int w, int* splits) {
   const SqWidePlan p = sq_wide_plan(w, false);
   const long long rb = (n_t + p.rows - 1) / p.rows;
   const int tiles = (n_s + kSqWideTile - 1) / kSqWideTile;
-  const int most = tiles < kSqWideSms ? tiles : kSqWideSms;
-  long long best = -1;
-  int best_ct = tiles;
-  int best_sp = 1;
-  for (int s = 1; s <= most; ++s) {
-    const int ct = (tiles + s - 1) / s;
-    const int sp = (tiles + ct - 1) / ct;
-    if (sp != s) continue;  // the plan of a smaller s
-    const long long blocks = rb * sp * p.passes;
-    const long long est =
-        ((blocks + kSqWideSms - 1) / kSqWideSms) * (ct + 1);
-    if (best < 0 || est < best) {
-      best = est;
-      best_ct = ct;
-      best_sp = sp;
-    }
-  }
-  *splits = best_sp;
-  return kSqWideTile * best_ct;
+  return kSqWideTile * square_wave_tiles(rb * p.passes, tiles, 1, splits);
 }
 
 // The square/cross plan of K1 and the terms kernel at width m: past kMaxM

@@ -17,9 +17,9 @@
 // flagship, hierarchical-BLR and flat-BLR widths), the runtime instance
 // with MM = 16, 32 or 64 for every other m up to 64 (kMaxM), and past it
 // the wide instance, MM = kWideMM, whose body holds no per-coordinate
-// array (square_mma.cuh's square_wide_body; the triangles'
-// wide_tri_sm90.cuh). The bf16 instances of K2 and K3 take no MM: they run
-// bf16_tri_sm90.cuh's body at every m.
+// array (square_wide_sm90.cuh's body; the triangles'
+// wide_tri_sm90.cuh). The bf16 instances of K1, K2 and K3 take no MM: they
+// run square_bf16_sm90.cuh's and bf16_tri_sm90.cuh's bodies at every m.
 // SVGD_DISPATCH_M_2_11, for the kernels with fewer main
 // paths (the panels, K14's term groups, K15), has exact instances for
 // m = 2 and 11 only and runtime ones with MM = 8, 16, 32 or 64, and

@@ -79,14 +79,19 @@ its matrix and its order table live in one block's shared memory, and
 past MAX_M K15 takes P itself, so nothing calls it there.
 
 The bfloat16 operand opt-in (``dot_dtype='bfloat16'``, the JAX package's
-``fused_dot_dtype``) runs instances of their own, at every m: K1's (square
-and cross, ``fused_phi_counts_square_bf16``, on ``square_wide_body``) and
-K15's (``phi_rbf_wide_bf16``, on ``wide_tri.cuh``'s body) in one TF32 pass
-on bf16-rounded values; K2's (``fused_phi_counts_sym_bf16``) and K3's
-(``fused_phi_counts_sympanel_bf16``) on ``csrc/bf16_tri_sm90.cuh``'s body,
-bf16 ``mma.sync`` on operands its pack kernel rounds once into a
-workspace, the accumulator [KS | KX | rowsum] finished by
-``ops/phi.bf16_sym_finish``. They round the Gram operands, the pair
+``fused_dot_dtype``) runs instances of their own, at every m: K15's
+(``phi_rbf_wide_bf16``, on ``wide_tri.cuh``'s body) in one TF32 pass on
+bf16-rounded values; K1's (square and cross,
+``fused_phi_counts_square_bf16``, on ``csrc/square_bf16_sm90.cuh``'s
+body: operands its pack kernel rounds once (``square_bf16_pack``), the
+norms the plain version's own sum of the pack's squares, the Gram tile by
+float32 FMA in the plain version's order, the splits' partials summed by
+the finishing pass), K2's (``fused_phi_counts_sym_bf16``)
+and K3's (``fused_phi_counts_sympanel_bf16``, both on
+``csrc/bf16_tri_sm90.cuh``'s body, operands the entry's pack kernel rounds
+once into a workspace, the accumulator [KS | KX | rowsum] finished by
+``ops/phi.bf16_sym_finish``), their contractions on bf16 ``mma.sync``.
+They round the Gram operands, the pair
 weights and the contraction's records to bf16 where the JAX kernels do;
 the norms and the epilogue's coordinates stay float32. The plain versions
 in ``ops/phi`` take the same ``dot_dtype`` and round at the same points.
@@ -143,17 +148,21 @@ from .phi import (
     phi_rbf_terms_fused_counts,
     phi_rbf_terms_sym_chunk_counts,
     phi_rbf_terms_sympanel_fused_counts,
+    round_bf16,
     sympanel_epilogue,
     sympanel_scatter,
 )
 from .sym_plan import (
     KERNEL_MAX_M,
     SYM_MIN_N,
+    bf16_record_width,
     bf16_work_bytes,
     card_panel_plan,
     card_resolve_sym,
     panel_chunk,
     panel_tile128,
+    square_bf16_row_width,
+    square_bf16_work,
     sym_tile_chunk,
     wide_row_width,
 )
@@ -255,7 +264,8 @@ def load_library() -> ctypes.CDLL:
                 "svgd_fused_phi_counts_square":
                     [ptr] * 5 + [i32] * 4 + [ptr] * 3 + [i32, ptr],
                 "svgd_fused_phi_counts_square_bf16":
-                    [ptr] * 5 + [i32] * 4 + [ptr] * 3 + [i32, ptr],
+                    [ptr] * 5 + [i32] * 5 + [ptr] * 3 + [i32, ptr],
+                "svgd_square_bf16_pack": [ptr] * 7 + [i32] * 6 + [ptr],
                 "svgd_square_splits": [i32] * 3,
                 "svgd_square_bf16_splits": [i32] * 3,
                 "svgd_fused_phi_counts_sym": [ptr] * 4 + [i32] * 3 + [ptr] * 3,
@@ -301,6 +311,8 @@ def load_library() -> ctypes.CDLL:
             for fn, argtypes in signatures.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = i32
+            lib.svgd_square_bf16_work_bytes.argtypes = [i32] * 4
+            lib.svgd_square_bf16_work_bytes.restype = i64
             _lib = lib
     return _lib
 
@@ -521,7 +533,11 @@ def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq,
     ``w = wide_row_width(m)`` floats (targets, sources and scores padded
     with zero columns, which add nothing to sq, KS or KX, so that every row
     of the wide body's 16-byte copies starts aligned), and phi is cut back
-    to m columns; elsewhere w = m."""
+    to m columns; elsewhere w = m.
+
+    K1's bf16 instance takes operands of its own (:func:`_square_bf16_launch`);
+    the square form (``targets is sources``) prepares them once for
+    both."""
     g, thr = _device_operands(sources, scores, gammas, thresholds_sq)
     if targets.ndim != 2 or targets.shape[1] != sources.shape[1]:
         raise ValueError("targets must be (n_t, m) with the sources' m")
@@ -532,10 +548,15 @@ def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq,
     # Center on the source mean, as the plain version and the JAX wrapper do.
     src32 = sources.to(torch.float32)
     center = src32.mean(dim=0)
-    tgt_c = (targets.to(torch.float32) - center).contiguous()
     src_c = (src32 - center).contiguous()
+    square = targets is sources
+    tgt_c = (src_c if square and bf16
+             else (targets.to(torch.float32) - center).contiguous())
     sc32 = scores.to(torch.float32).contiguous()
-    width = m if bf16 else wide_row_width(m)
+    if bf16:
+        return _square_bf16_launch(tgt_c, src_c, sc32, g, thr, square,
+                                   targets.dtype)
+    width = wide_row_width(m)
     if width != m:
         pad = (0, width - m)
         tgt_c, src_c, sc32 = (torch.nn.functional.pad(v, pad)
@@ -548,19 +569,10 @@ def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq,
     lib = load_library()
     with torch.cuda.device(targets.device):
         stream = torch.cuda.current_stream().cuda_stream
-        splits = (lib.svgd_square_bf16_splits if bf16
-                  else lib.svgd_square_splits)(n_t, n_s, width)
+        splits = lib.svgd_square_splits(n_t, n_s, width)
         work = torch.empty((splits, n_t, 2 * width + 1), dtype=torch.float32,
                            device=targets.device)
-        if bf16:
-            name = SQUARE_BF16_KERNEL
-            rc = lib.svgd_fused_phi_counts_square_bf16(
-                tgt_c.data_ptr(), src_c.data_ptr(), sc32.data_ptr(),
-                g.data_ptr(), thr.data_ptr(), n_t, n_s, m, thr.shape[0],
-                phi.data_ptr(), counts.data_ptr(), work.data_ptr(), splits,
-                stream,
-            )
-        elif signs is None:
+        if signs is None:
             name = SQUARE_KERNEL
             rc = lib.svgd_fused_phi_counts_square(
                 tgt_c.data_ptr(), src_c.data_ptr(), sc32.data_ptr(),
@@ -579,6 +591,100 @@ def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq,
     _check_launch(rc, name)
     launch_counts[name] += 1
     return phi[:, :m].to(targets.dtype).contiguous(), counts
+
+
+def square_bf16_operands(tgt_c, src_c, sc32, square):
+    """The plain version of K1's bf16 pack (:func:`square_bf16_pack`) from
+    the centred float32 targets and sources and the float32 scores:
+    (q_t, x_t, q_s, x_s, rec), the norms q of the centred rows by the plain
+    version's own reduction (``torch.sum`` of the squares), the rows
+    rounded to bf16 as float32 padded with zero columns to
+    ``square_bf16_row_width(m)``, and the sources' bf16 record
+    [S | X | 1 | 0...] of ``bf16_record_width(m)``; in the square form the
+    targets' q and rows are the sources'."""
+    n_s, m = src_c.shape
+    pad = (0, square_bf16_row_width(m) - m)
+
+    def rounded(c):
+        return (torch.sum(c * c, dim=1),
+                torch.nn.functional.pad(round_bf16(c), pad).contiguous())
+
+    q_s, x_s = rounded(src_c)
+    q_t, x_t = (q_s, x_s) if square else rounded(tgt_c)
+    ones = torch.ones((n_s, 1), dtype=torch.float32, device=src_c.device)
+    rec = torch.nn.functional.pad(
+        torch.cat([sc32, src_c, ones], dim=1),
+        (0, bf16_record_width(m) - 2 * m - 1)).to(torch.bfloat16).contiguous()
+    return q_t, x_t, q_s, x_s, rec
+
+
+def square_bf16_views(work, n_t, n_s, m, square, splits):
+    """(x_t, x_s, rec): the pack's rounded rows and record, views of K1's
+    bf16 workspace ``work`` (uint8, ``sym_plan.square_bf16_work``'s
+    layout)."""
+    lay = square_bf16_work(n_t, n_s, m, square, splits)
+    wq, rw = square_bf16_row_width(m), bf16_record_width(m)
+
+    def view(at, rows, cols, dtype):
+        size = rows * cols * dtype.itemsize
+        return work[at:at + size].view(dtype).view(rows, cols)
+
+    return (view(lay.x_t, n_t, wq, torch.float32),
+            view(lay.x_s, n_s, wq, torch.float32),
+            view(lay.rec, n_s, rw, torch.bfloat16))
+
+
+def square_bf16_pack(tgt_c, src_c, sc32, square, counts, splits):
+    """K1's bf16 pack on the card: one launch of ``svgd_square_bf16_pack``
+    into a new workspace (uint8, ``sym_plan.square_bf16_work``'s bytes)
+    that rounds the rows and writes the record and each row's squares,
+    whose ``torch.sum`` gives q (the reduction of the plain version's
+    norms, so that the sweep's sq is the plain version's to the bit); the
+    pack also zeroes ``counts`` (T,) int64. Returns (q_t, q_s, work); in
+    the square form q_t is q_s."""
+    (n_t, m), n_s = tgt_c.shape, src_c.shape[0]
+    device = src_c.device
+    lib = load_library()
+    nbytes = lib.svgd_square_bf16_work_bytes(n_t, n_s, m, int(square))
+    work = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    sq_s = torch.empty((n_s, m), dtype=torch.float32, device=device)
+    sq_t = sq_s if square else torch.empty((n_t, m), dtype=torch.float32,
+                                           device=device)
+    rc = lib.svgd_square_bf16_pack(
+        tgt_c.data_ptr(), src_c.data_ptr(), sc32.data_ptr(), sq_t.data_ptr(),
+        sq_s.data_ptr(), work.data_ptr(), counts.data_ptr(), n_t, n_s, m,
+        counts.shape[0], int(square), splits,
+        torch.cuda.current_stream().cuda_stream,
+    )
+    _check_launch(rc, SQUARE_BF16_KERNEL)
+    q_s = torch.sum(sq_s, dim=1)
+    return (q_s if square else torch.sum(sq_t, dim=1)), q_s, work
+
+
+def _square_bf16_launch(tgt_c, src_c, sc32, g, thr, square, dtype):
+    """K1's bfloat16 instance (``fused_phi_counts_square_bf16``, on
+    ``csrc/square_bf16_sm90.cuh``'s body): the pack
+    (:func:`square_bf16_pack`), the norms' sums, the sweep into the
+    workspace's partials (splits, n_t, 2m + 1) and the finishing pass that
+    sums them; launches counted once a call."""
+    (n_t, m), n_s = tgt_c.shape, src_c.shape[0]
+    device = tgt_c.device
+    phi = torch.empty((n_t, m), dtype=torch.float32, device=device)
+    counts = torch.empty(thr.shape[0], dtype=torch.int64, device=device)
+    lib = load_library()
+    with torch.cuda.device(device):
+        splits = lib.svgd_square_bf16_splits(n_t, n_s, m)
+        q_t, q_s, work = square_bf16_pack(tgt_c, src_c, sc32, square, counts,
+                                          splits)
+        rc = lib.svgd_fused_phi_counts_square_bf16(
+            q_t.data_ptr(), q_s.data_ptr(), tgt_c.data_ptr(), g.data_ptr(),
+            thr.data_ptr(), n_t, n_s, m, thr.shape[0], int(square),
+            phi.data_ptr(), counts.data_ptr(), work.data_ptr(), splits,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    _check_launch(rc, SQUARE_BF16_KERNEL)
+    launch_counts[SQUARE_BF16_KERNEL] += 1
+    return phi.to(dtype), counts
 
 
 def _bf16_operands(coords, scores, panel=False, panel_blocks=None):

@@ -642,6 +642,9 @@ SQUARE_GRAIN = 32
 SQUARE_ROWS_CUDA_CORES = 128
 SQUARE_ROWS_TENSOR = 64
 SQUARE_TENSOR_MIN_M = 5
+#: The SMs whose waves the wide and bf16 square bodies' split rule fills
+#: (``kSquareWaveSms``).
+SQUARE_WAVE_SMS = 132
 
 
 def square_tensor(m: int, bf16: bool = False) -> bool:
@@ -655,8 +658,11 @@ def square_chunk(n_t: int, n_s: int, m: int, bf16: bool = False) -> int:
     """The sources of one split of a square launch: whole tiles of
     SQUARE_GRAIN, as few as keep about SQUARE_BLOCKS blocks on the card
     (``square_chunk`` of csrc/square_mma.cuh); past KERNEL_MAX_M the
-    float32 wide body's rule (:func:`square_wide_chunk`)."""
-    if m > KERNEL_MAX_M and not bf16:
+    float32 wide body's rule (:func:`square_wide_chunk`); K1's bf16
+    instance its own body's at every m (:func:`square_bf16_chunk`)."""
+    if bf16:
+        return square_bf16_chunk(n_t, n_s, m)
+    if m > KERNEL_MAX_M:
         return square_wide_chunk(n_t, n_s, m)
     rows = (SQUARE_ROWS_TENSOR if square_tensor(m, bf16)
             else SQUARE_ROWS_CUDA_CORES)
@@ -674,7 +680,7 @@ def square_splits(n_t: int, n_s: int, m: int, bf16: bool = False) -> int:
     bf16 instance), which the wrapper reads on the card and the card's
     smoke test holds this copy to. Past KERNEL_MAX_M the float32 wide
     body's plan (:func:`square_wide_chunk`, at the padded row width); the
-    bf16 instance keeps the tensor-core body's plan at every m."""
+    bf16 instance its own body's at every m (:func:`square_bf16_chunk`)."""
     if n_t <= 0 or n_s <= 0 or m < 1:
         return -1
     return -(-n_s // square_chunk(n_t, n_s, m, bf16))
@@ -686,13 +692,11 @@ def square_splits(n_t: int, n_s: int, m: int, bf16: bool = False) -> int:
 # ----------------------------------------------------------------------
 
 #: Its sources a tile (the split grain, ``kSqWideTile``), its ring's stages
-#: (``kSqWideStages``), the SMs whose waves its split rule fills
-#: (``kSqWideSms``), its Gram slices' and weight tiles' strides
+#: (``kSqWideStages``), its Gram slices' and weight tiles' strides
 #: (``kSqWideSliceLd``, ``kSqWideWLd``), its accumulator blocks a warp
 #: (``kSqWideAcc``) and its warps (``kSqWideWarps``).
 SQUARE_WIDE_TILE = 64
 SQUARE_WIDE_STAGES = 4
-SQUARE_WIDE_SMS = 132
 SQUARE_WIDE_SLICE_LD = 68
 SQUARE_WIDE_W_LD = 68
 SQUARE_WIDE_ACC = 8
@@ -749,26 +753,150 @@ def square_wide_plan(m: int) -> SquareWidePlan:
                           4 * (base + 2 * tile) + counts)
 
 
-def square_wide_chunk(n_t: int, n_s: int, m: int) -> int:
-    """The sources of one split of the float32 wide square launch
-    (``sq_wide_chunk``): whole tiles of SQUARE_WIDE_TILE, the count per
-    split that minimises the waves of SQUARE_WIDE_SMS blocks (target
-    blocks x splits x passes) times the tiles a block sweeps plus one, the
-    fewest splits among equals."""
-    plan = square_wide_plan(m)
-    row_blocks = -(-n_t // plan.rows)
-    tiles = -(-n_s // SQUARE_WIDE_TILE)
+def square_wave_tiles(blocks: int, tiles: int, bps: int) -> int:
+    """The tiles one split of a wide or bf16 square launch sweeps
+    (``square_wave_tiles`` of csrc/square_mma.cuh): of ``tiles`` source
+    tiles, the count that minimises the waves of bps x SQUARE_WAVE_SMS
+    blocks (``blocks`` a split: target blocks x passes; ``bps`` blocks an
+    SM) times the tiles an SM's blocks sweep plus one each, the fewest
+    splits among equals."""
+    slots = SQUARE_WAVE_SMS * bps
     best = None
-    for s in range(1, min(tiles, SQUARE_WIDE_SMS) + 1):
+    for s in range(1, min(tiles, SQUARE_WAVE_SMS) + 1):
         per = -(-tiles // s)
         splits = -(-tiles // per)
         if splits != s:
             continue
-        blocks = row_blocks * splits * plan.passes
-        est = -(-blocks // SQUARE_WIDE_SMS) * (per + 1)
+        est = -(-blocks * splits // slots) * bps * (per + 1)
         if best is None or est < best[0]:
             best = (est, per)
-    return SQUARE_WIDE_TILE * best[1]
+    return best[1]
+
+
+def square_wide_chunk(n_t: int, n_s: int, m: int) -> int:
+    """The sources of one split of the float32 wide square launch
+    (``sq_wide_chunk``): whole tiles of SQUARE_WIDE_TILE, by
+    :func:`square_wave_tiles` over target blocks x passes, one block an
+    SM."""
+    plan = square_wide_plan(m)
+    row_blocks = -(-n_t // plan.rows)
+    tiles = -(-n_s // SQUARE_WIDE_TILE)
+    return SQUARE_WIDE_TILE * square_wave_tiles(row_blocks * plan.passes,
+                                                tiles, 1)
+
+
+# ----------------------------------------------------------------------
+# K1's bfloat16 body (csrc/square_bf16_sm90.cuh): the square and cross
+# forms of K1's bf16 instance at every m
+# ----------------------------------------------------------------------
+
+#: Its target rows a block (``kSqBf16Rows``), sources a tile (the split
+#: grain, ``kSqBf16Tile``), coordinates a Gram slice (``kSqBf16Slice``) and
+#: the stride of a slice's rows past 4 floats (``kSqBf16SliceLd``), most n8
+#: tiles a record chunk (``kSqBf16ChunkTiles``), ring stages
+#: (``kSqBf16Stages``) and most resident target slices
+#: (``kSqBf16ResidentSlices``).
+SQUARE_BF16_ROWS = 128
+SQUARE_BF16_TILE = 64
+SQUARE_BF16_SLICE = 32
+SQUARE_BF16_SLICE_LD = 36
+SQUARE_BF16_CHUNK_TILES = 16
+SQUARE_BF16_STAGES = 4
+SQUARE_BF16_RESIDENT_SLICES = 4
+
+
+class SquareBf16Plan(NamedTuple):
+    """K1's bf16 body's layout for dimension m (``sq_bf16_plan``): the Gram
+    slices of 32 coordinates ``slices``, the accumulator n8 tiles of the
+    instance that serves m ``tiles`` (2, 4, 8 or 16), the record chunks
+    along the grid's z ``chunks`` (16 tiles each), the blocks an SM holds
+    (``blocks_per_sm``: two at 2 tiles, else one), whether the block's
+    target rows stay resident in shared memory (``resident``: up to
+    SQUARE_BF16_RESIDENT_SLICES slices, else they stream with each slice),
+    and the bytes of a ring stage (``stage``) and of the dynamic shared
+    memory (``smem``)."""
+    slices: int
+    tiles: int
+    chunks: int
+    blocks_per_sm: int
+    resident: bool
+    stage: int
+    smem: int
+
+
+def square_bf16_row_width(m: int) -> int:
+    """The rounded coordinates' rows K1's bf16 entry takes: m floats padded
+    with zeros to a multiple of 4 (``sq_bf16_row_width``)."""
+    return 4 * -(-m // 4)
+
+
+def square_bf16_plan(m: int) -> SquareBf16Plan:
+    """K1's bf16 body's layout for dimension m: a stage holds the 64
+    sources' Gram slice (rows of SQUARE_BF16_SLICE_LD floats, or 4 when the
+    rows are 4 floats wide), the last slice's stage also their record chunk
+    (``tiles`` n8 tiles of bf16 a row) and norms, and past the resident
+    slices the 128 target rows' slice; the resident target slices follow
+    the ring."""
+    wq = square_bf16_row_width(m)
+    slices = -(-wq // SQUARE_BF16_SLICE)
+    ld = 4 if wq == 4 else SQUARE_BF16_SLICE_LD
+    n8 = bf16_record_width(m) // 8
+    chunks = -(-n8 // SQUARE_BF16_CHUNK_TILES)
+    tiles = 2
+    while tiles < min(n8, SQUARE_BF16_CHUNK_TILES):
+        tiles *= 2
+    resident = slices <= SQUARE_BF16_RESIDENT_SLICES
+    target_slot = SQUARE_BF16_ROWS * ld * 4
+    stage = (SQUARE_BF16_TILE * (4 * ld + 16 * tiles) + 4 * SQUARE_BF16_TILE
+             + (0 if resident else target_slot))
+    smem = SQUARE_BF16_STAGES * stage + (slices * target_slot if resident
+                                         else 0)
+    return SquareBf16Plan(slices, tiles, chunks, 2 if tiles <= 2 else 1,
+                          resident, stage, smem)
+
+
+def square_bf16_chunk(n_t: int, n_s: int, m: int) -> int:
+    """The sources of one split of K1's bf16 launch (``sq_bf16_chunk``):
+    whole tiles of SQUARE_BF16_TILE, by :func:`square_wave_tiles` over
+    target blocks of SQUARE_BF16_ROWS x record chunks, ``blocks_per_sm``
+    blocks an SM."""
+    plan = square_bf16_plan(m)
+    row_blocks = -(-n_t // SQUARE_BF16_ROWS)
+    tiles = -(-n_s // SQUARE_BF16_TILE)
+    return SQUARE_BF16_TILE * square_wave_tiles(
+        row_blocks * plan.chunks, tiles, plan.blocks_per_sm)
+
+
+class SquareBf16Work(NamedTuple):
+    """K1's bf16 workspace (``sq_bf16_work``), in 16-byte-aligned segments:
+    the splits' float32 partials (splits, n_t, 2m + 1) from byte 0, the
+    sources' rounded rows (n_s, ``square_bf16_row_width(m)``) float32 at
+    ``x_s``, the targets' at ``x_t`` (``x_s`` in the square form), the
+    sources' bf16 record (n_s, ``bf16_record_width(m)``) at ``rec``; the
+    whole's ``bytes``."""
+    x_s: int
+    x_t: int
+    rec: int
+    bytes: int
+
+
+def square_bf16_work(n_t: int, n_s: int, m: int, square: bool,
+                     splits: int | None = None) -> SquareBf16Work:
+    """K1's bf16 workspace for ``splits`` (by default the plan's,
+    ``square_splits(n_t, n_s, m, bf16=True)``)."""
+    if splits is None:
+        splits = square_splits(n_t, n_s, m, bf16=True)
+
+    def up(b):
+        return -(-b // 16) * 16
+
+    wq = square_bf16_row_width(m)
+    x_s = up(4 * splits * n_t * (2 * m + 1))
+    at = x_s + up(4 * n_s * wq)
+    x_t = x_s if square else at
+    if not square:
+        at += up(4 * n_t * wq)
+    return SquareBf16Work(x_s, x_t, at, at + up(2 * n_s * bf16_record_width(m)))
 
 
 def balanced_range(total: int, world: int, rank: int):

@@ -264,9 +264,9 @@ def sweep_work(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
 
 #: Published H100 SXM dense TF32 and bf16 tensor-core peaks (NVIDIA's data
 #: sheet); the bf16 peak bounds the bfloat16 opt-in's instances, whose
-#: products are bf16 x bf16 (bf16 mma.sync in K2's and K3's,
-#: csrc/bf16_tri_sm90.cuh; one TF32 pass in K1's and K15's,
-#: csrc/square_mma.cuh).
+#: products are bf16 x bf16 (bf16 mma.sync in K1's,
+#: csrc/square_bf16_sm90.cuh, and in K2's and K3's,
+#: csrc/bf16_tri_sm90.cuh; one TF32 pass in K15's, csrc/wide_tri.cuh).
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 

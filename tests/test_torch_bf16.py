@@ -6,7 +6,8 @@ on the CPU.
   CPU tensors, against the JAX package's bf16 Pallas kernels in interpret
   mode on the same float32 inputs (n = 300, off origin): K1 square and
   cross (``phi_rbf_fused_pallas`` with sym=False,
-  ``phi_rbf_fused_pallas_cross``) at m = 2, 11 and 65, K2 (sym=True) and
+  ``phi_rbf_fused_pallas_cross``) at m = 2, 11, 16, 17 (the edges of a
+  k16 step of its bf16 body's Gram tile), 50 and 65, K2 (sym=True) and
   K3 (sym="panel") at m = 2, 11, 16, 17 (the edges of a k16 step of their
   bf16 body's Gram tile) and 65, K15
   (``phi_rbf_pallas``) at m = 2 and 11 with a positive definite and an
@@ -34,8 +35,8 @@ on the CPU.
   'float32' or 'bfloat16' raises ValueError everywhere.
 * The wrappers on a stand-in library (meta tensors stand in for the card)
   at m = 2, 11 and 123: each form launches its own bf16 entry once, never
-  the float32 one, counted under its own key; K1's with the tensor-core
-  plan's split count at every m (``sym_plan.square_splits(bf16=True)``).
+  the float32 one, counted under its own key; K1's with its own body's
+  split count at every m (``sym_plan.square_splits(bf16=True)``).
 
 About 45 s in one process.
 """
@@ -117,7 +118,7 @@ def _jax_fused(x, s, g, thr, sym, dot_dtype):
 # ----------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("m", [2, 11, 65])
+@pytest.mark.parametrize("m", [2, 11, 16, 17, 50, 65])
 @pytest.mark.parametrize("cross", [False, True])
 def test_k1_bf16_vs_jax(m, cross):
     x, s = _inputs(300, m, 1.0, 900 + m)
@@ -329,6 +330,9 @@ def _stand_in(monkeypatch, calls):
                 calls.append((name, args))
                 if name == "svgd_square_bf16_splits":
                     return sym_plan.square_splits(*args, bf16=True)
+                if name == "svgd_square_bf16_work_bytes":
+                    return sym_plan.square_bf16_work(*args[:3],
+                                                     bool(args[3])).bytes
                 return 0
             return entry
 
@@ -343,8 +347,9 @@ def _stand_in(monkeypatch, calls):
 def test_bf16_wrappers_launch_their_own_entries(monkeypatch, m):
     """On a CUDA tensor (meta tensors and a stand-in library here) each
     form launches its bf16 entry once at any m, counted under its own key,
-    and never the float32 one: K1 square and cross (with the tensor-core
-    plan's split count at every m), K2, K3 and K15 (no decomposition)."""
+    and never the float32 one: K1 square and cross (its pack, then its
+    entry, with its own body's split count at every m), K2, K3 and K15 (no
+    decomposition)."""
     from svgdcpp_tpu_torch.ops import sym_plan
 
     calls = []
@@ -373,13 +378,17 @@ def test_bf16_wrappers_launch_their_own_entries(monkeypatch, m):
         del calls[:]
         cuda_phi.reset_launch_counts()
         call()
-        launches = [c for c in calls if not c[0].endswith("_splits")]
-        assert [c[0] for c in launches] == [entry]
-        assert m in launches[0][1]
+        launches = [c for c in calls
+                    if not c[0].endswith(("_splits", "_work_bytes"))]
+        square = "square" in entry
+        assert [c[0] for c in launches] == (
+            ["svgd_square_bf16_pack", entry] if square else [entry])
+        assert m in launches[-1][1]
         assert cuda_phi.launch_counts[kernel] == 1
         assert sum(cuda_phi.launch_counts.values()) == 1
-        if "square" in entry:  # (..., n_t, n_s, m, ..., splits, stream)
-            args = launches[0][1]
+        if square:  # (q_t, q_s, targets, gamma, thr, n_t, n_s, m, T,
+            # square, phi, counts, work, splits, stream)
+            args = launches[-1][1]
             assert args[-2] == sym_plan.square_splits(args[5], args[6], m,
                                                       bf16=True)
     cuda_phi.reset_launch_counts()

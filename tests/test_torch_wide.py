@@ -284,6 +284,14 @@ WIDE_SQUARE_PINS = {
     123: (128, 8, 5, 12, 5), 124: (128, 8, 5, 12, 5),
     128: (128, 8, 5, 12, 5), 256: (256, 4, 5, 6, 5), 512: (512, 2, 4, 3, 4),
 }
+#: K1's bf16 instance on its own body (csrc/square_bf16_sm90.cuh's
+#: sq_bf16_chunk: target blocks of 128 rows, whole tiles of 64 sources, the
+#: record in chunks of 128 columns along the grid's z): the sources a split
+#: at (1000, 1000) and the split count at (10000, 10000).
+WIDE_SQUARE_BF16_PINS = {
+    65: (128, 5), 100: (128, 5), 123: (128, 5), 124: (128, 5),
+    128: (256, 5), 256: (384, 1), 512: (384, 2),
+}
 
 
 @pytest.mark.parametrize("m", PLAN_WIDTHS)
@@ -293,8 +301,8 @@ def test_wide_plan_mirrors_pinned(m):
     csrc/wide_tri_sm90.cuh); the square launch takes the float32 wide
     square body's plan (csrc/square_wide_sm90.cuh: whole tiles of 64
     sources, the split count that fills whole waves of 132 blocks), the
-    bf16 instance the tensor-core body's (64 target rows a block, whole
-    tiles of 32 sources)."""
+    bf16 instance its own body's (csrc/square_bf16_sm90.cuh,
+    WIDE_SQUARE_BF16_PINS)."""
     assert sym_plan.dispatch_m(m) == sym_plan.WIDE_MM == 0
     assert sym_plan.sym_tile(m) == sym_plan.sym_tile(m, True) == 128
     assert sym_plan.square_tensor(m)
@@ -302,8 +310,9 @@ def test_wide_plan_mirrors_pinned(m):
     assert sym_plan.square_chunk(1000, 1000, m) == chunk
     assert [sym_plan.square_splits(n_t, n_s, m) for n_t, n_s in (
         (1000, 1000), (1500, 1500), (700, 1500), (10000, 10000))] == splits
-    assert sym_plan.square_chunk(1000, 1000, m, bf16=True) == 64
-    assert sym_plan.square_splits(10000, 10000, m, bf16=True) == 2
+    bf16_chunk, bf16_splits = WIDE_SQUARE_BF16_PINS[m]
+    assert sym_plan.square_chunk(1000, 1000, m, bf16=True) == bf16_chunk
+    assert sym_plan.square_splits(10000, 10000, m, bf16=True) == bf16_splits
     assert sym_plan.dispatch_m(64) == 64 and sym_plan.sym_tile(64) == 32
 
 
