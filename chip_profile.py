@@ -115,8 +115,10 @@ a copy of csrc/ under ``_verify/wide_breakdown/`` (git-ignored; no switch
 in the sources) to take one part out (the flush's atomics, the
 contraction, its mma, the Gram tile's mma, ...), builds a small harness
 of the body on one RBF (and two terms) with nvcc, and times it with CUDA
-events: ``wide_tri.cuh``'s ``wide_pair_body`` over tiles of 64 (the
-design K2's wide instance had before ``wide_tri_sm90.cuh``) at (10000,
+events: ``wide_pair_body`` over tiles of 64 (the design K2's wide
+instance had before ``wide_tri_sm90.cuh``; its header, deleted from the
+package, is ``WIDE_TRI_PARENT_HEADER``, which ``parent_csrc`` writes into
+each copy as ``wide_tri.cuh``) at (10000,
 123) and ``wide_tri_sm90.cuh``'s body at (10000, 124), the width the
 wrappers hand it for m = 123. Then the new body at m = 33, 50 and 64 (run at the padded
 widths 36, 52, 64) beside the library's K2 and K8/K9 at those m, which
@@ -126,10 +128,9 @@ and 32 warps an SM), the floor of both bodies (default output
 ``chiprun_out/wide_breakdown.json``).
 
 ``--bf16`` runs ``bf16_breakdown`` alone, with no driver profile: K2's
-and K3's bfloat16 instances on the parent's design (wide_tri.cuh's
-``wide_pair_body`` with kBf16, the body those instances ran before
-``bf16_tri_sm90.cuh``, which still serves K15's bf16 instance) and on the
-new body, each variant built from a copy of csrc/ under
+and K3's bfloat16 instances on the parent's design (``wide_pair_body``
+with kBf16, the body those instances ran before ``bf16_tri_sm90.cuh``) and
+on the new body, each variant built from a copy of csrc/ under
 ``_verify/bf16_breakdown/`` with one part taken out (``WIDE_PAIR_VARIANTS``
 and ``BF16_VARIANTS``): both bodies' parts at (10000, 2) and (10000, 123)
 for K2, (32768, 2) and (10000, 123) for K3; both on a ladder of m at
@@ -161,6 +162,17 @@ tile pairs of a panel into per-panel windows, built from a copy under
 ``_verify/wide_panel/``), kernel-only and through the wrapper, each beside
 the wide triangle at the same shape, and the triangle's order against the
 panels' at (131072, 123) (default output ``chiprun_out/wide_panel.json``).
+
+``--fixed-p-wide`` runs ``fixed_p_wide`` alone: K15's float32 wide
+instance (``wide_tri_sm90.cuh`` with the FixedPGram form) and its bf16
+instance (``bf16_tri_sm90.cuh`` with kAsym) against the parent's design
+(``wide_pair_body``, built from ``FIXED_P_WIDE_PARENT_SOURCE`` in a copy
+under ``_verify/fixed_p_wide/``), kernel-only (the bf16 pack counted;
+parent, new, new, parent) and through the wrapper, each result's
+distance from its plain version, at (10240 / 10000 / 10007, 123), (4096,
+65 / 123 / 256 / 512) and, for bf16, (1500, 2); beside them K2's float32 wide and bf16
+instances at the same shapes; and both builds' registers and spill
+(default output ``chiprun_out/fixed_p_wide.json``).
 
 ``--wide-drift`` runs ``wide_drift`` alone, with no driver profile: how
 far the float32 routes move from float64 at d = 123 and N = 10,000 in
@@ -1127,12 +1139,562 @@ def square_crossover_main(args) -> int:
     return 0
 
 
+#: The parent header of the earlier wide designs: csrc/wide_tri.cuh's text
+#: (wide_pair_body over 64 x 64 tile pairs, a block each: the design K2/K4,
+#: K8-K11, K14's groups, the panels, K2's, K3's and K15's bf16 instances
+#: and lastly K15's float32 wide sweep ran before they moved to
+#: wide_tri_sm90.cuh's and bf16_tri_sm90.cuh's bodies), with what the
+#: package's headers held for it alone (kWideTile, kWideK, kWideLdK and the
+#: bf16 operand helpers). parent_csrc writes it into a copy of csrc/, where
+#: the parents of --wide-breakdown, --bf16, --aniso-wide, --wide-panel,
+#: --square-wide, --square-bf16 and --fixed-p-wide build on it.
+WIDE_TRI_PARENT_HEADER = r"""// The upper-triangle sweep's body past kMaxM (m > 64), shared by the wide
+// kernels of K15 (phi_rbf.cu, its bfloat16 instance at any m too) and the
+// panels' wide instances (fused_phi_panel.cu). The float32 triangle
+// kernels (K2/K4, K8-K11) and K14's term groups run wide_tri_sm90.cuh's
+// body past kMaxM instead, and K2's and K3's bfloat16 instances
+// bf16_tri_sm90.cuh's at any m. The bodies
+// below it hold a row of m coordinates, scores and sums in registers
+// (micro_tile.cuh, counts_sym.cuh, terms_sym.cuh); past m = 64 they would
+// spill, so this one holds nothing sized by m and runs on the tensor
+// cores.
+//
+// One block (4 warps) works through one tile pair (I, J) of kWideTile = 64
+// particles a side, the block's WideSpot: for the triangle kernels tile
+// t0 + blockIdx.x of the upper triangle's linear tile list (t0 = 0 for the
+// whole triangle, a rank's first tile for a chunk; tri_spot), for the
+// panel kernels a tile pair of one panel (fused_phi_panel.cu's
+// panel_spot). The spot also says where each direction flushes.
+//
+//   1. Gram tile G = X_I X_J^T (64 x 64; warp w rows 16w..16w+15 of I
+//      against the 64 columns of J) in 3xTF32 mma.sync m16n8k8 over slices
+//      of kWideK coordinates, each slice of both tiles staged as TF32 pairs
+//      in shared memory;
+//   2. sq = max(0, |x_i|^2 + |x_j|^2 - 2 G) (the self pair pinned to 0, as
+//      the plain version pins it; WideForm below gives K15's forms), the
+//      pair's weights and its counts, ONCE a pair, into shared memory as
+//      TF32 pairs: W (k_c) and, for terms, a second tile (w). On the
+//      diagonal tile only j >= i is kept (the self pair included), the rest
+//      gets weight 0 and no count;
+//   3. the row sums of the D weight over J and its column sums over I;
+//   4. both contractions on the tensor cores, 64 columns of the operands
+//      at a time (the scores' columns with k_c, then the coordinates' with
+//      w): row i of I takes W [S_J | X_J], column j of J takes
+//      W^T [S_I | X_I], W^T reaching the A operand by reading W's shared
+//      tile transposed. D comes from the sums: D_i += rowsum_i x_i - (W X_J)_i,
+//      D_j += colsum_j x_j - (W^T X_I)_j, as the plain version forms it at
+//      these widths (ops/phi._pair_block);
+//   5. each chunk is flushed with float32 atomics into the spot's zeroed
+//      [KS | D] planes, the (2m, n) accumulator for the triangles, as the
+//      narrower bodies flush.
+//
+// The conventions are the narrower bodies': each self pair enters both
+// directions (k = 1 exactly: the wrapper subtracts s_i once), D is
+// unscaled for one RBF (the wrapper multiplies it by 2 gamma) and weighted
+// by w for terms, and the counts receive U, the upper count with the
+// diagonal (the wrapper forms 2U - n). kT = 0 (with T = 0) counts nothing;
+// T = 0 with kT > 0 counts nothing either.
+//
+// Shared memory (dynamic): 9216 floats for the Gram slices or the
+// contraction's records, 8704 for each weight tile, 256 for norms and
+// sums: 72.7 KB for one RBF, 107.5 KB for terms, at any m. Registers: the
+// warp's 16 x 64 Gram values (64 a thread) during the Gram tile, 32
+// accumulators during a contraction.
+//
+// kBf16 (the bfloat16 opt-in: K15's bf16 instance, at any m; K2's and
+// K3's ran it until bf16_tri_sm90.cuh, and chip_profile.py --bf16 still
+// times it as their parent design): the Gram operands, the weights and the
+// contraction's records
+// rounded to bf16, each product one TF32 pass (square_mma.cuh,
+// operand_split and mma_pass); the norms stay those of the float32
+// coordinates (or the caller's q), the self pair is pinned as above, and
+// D_i = rowsum_i x_i - (W X_J)_i takes the float32 x_i beside the rounded
+// X_J, as the JAX kernels' epilogue forms rowsum x - KX from the float32
+// coordinates (pallas_phi.py:636-640, :707, :956-960).
+//
+// kAsym (with kBf16: K15's bf16 instance): bf16(x_i) . bf16(y_j) is not
+// bf16(x_j) . bf16(y_i), as x_i^T (P_sym/2) x_j is in float32, so one
+// weight tile cannot serve both directions: the rows of I take the JAX
+// kernel's k(i <- j) from G = X_I Y_J^T and the columns of J k(j <- i)
+// from G' = Y_I X_J^T, a second Gram tile (in the registers and the
+// shared slices that 3xTF32's small parts take otherwise) and a second
+// weight tile (107.5 KB).
+
+#pragma once
+
+#include <cuda_bf16.h>
+
+#include "micro_tile.cuh"
+#include "square_mma.cuh"
+
+namespace svgd {
+
+// ---------------------------------------------------------------------------
+// What the package's headers held for this body (and the parents built
+// beside it) alone: the tile (sweep_common.cuh), the Gram slices and the
+// bf16 operand helpers (square_mma.cuh).
+// ---------------------------------------------------------------------------
+
+constexpr int kWideTile = 64;
+constexpr int kWideK = 32;                // coordinates of one Gram slice
+constexpr int kWideLdK = kWideK + 4;      // slice rows' stride (4 mod 32)
+
+// The bfloat16 operand opt-in (the JAX package's dot_dtype='bfloat16') of
+// the Gram-form body of wide_tri.cuh (K15's bf16 instance). The JAX kernels
+// round their dot operands to bf16 (round to nearest, ties to even) and
+// accumulate the products in float32. Here the same function runs as ONE
+// TF32 pass on operands pre-rounded to bf16, in the 3xTF32 bodies' own
+// fragment layouts: a bf16 value is exact in TF32 (8 of TF32's 11
+// significant bits) and the product of two is exact in float32, so the
+// pass computes what a bf16 mma.sync computes, and the bodies need no
+// second set of fragment layouts. The pass is a third of 3xTF32's tensor
+// work, at TF32's rate (half of bf16's): simple first, fast later.
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// An operand's TF32 pair: (tf32(v), tf32(v - big)), or under kBf16
+// (bf16(v), 0), the small product of which the pass leaves out.
+template <bool kBf16>
+__device__ __forceinline__ void operand_split(float v, uint32_t& big,
+                                              uint32_t& small) {
+  if constexpr (kBf16) {
+    big = __float_as_uint(bf16_round(v));
+    small = 0u;
+  } else {
+    tf32_split(v, big, small);
+  }
+}
+
+// d += a b: 3xTF32, or under kBf16 the one pass of the rounded operands.
+template <bool kBf16>
+__device__ __forceinline__ void mma_pass(float (&d)[4],
+                                         const uint32_t (&ab)[4],
+                                         const uint32_t (&as)[4],
+                                         const float* rec_big,
+                                         const float* rec_small, int off0,
+                                         int off1) {
+  if constexpr (kBf16) {
+    mma_tf32(d, ab, __float_as_uint(rec_big[off0]),
+             __float_as_uint(rec_big[off1]));
+  } else {
+    mma_3xtf32(d, ab, as, rec_big, rec_small, off0, off1);
+  }
+}
+
+// A fragment of TF32 pairs from one weight a pair: (g, t) <- source 2t,
+// (g, t + 4) <- source 2t + 1, rows g and g + 8 (v: the pairs (g, 2t),
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)); under kBf16 the weights
+// rounded to bf16, as the JAX kernels round k before the contraction.
+template <bool kBf16 = false>
+__device__ __forceinline__ void weight_fragment(const float (&v)[4],
+                                                uint32_t (&big)[4],
+                                                uint32_t (&small)[4]) {
+  operand_split<kBf16>(v[0], big[0], small[0]);
+  operand_split<kBf16>(v[2], big[1], small[1]);
+  operand_split<kBf16>(v[1], big[2], small[2]);
+  operand_split<kBf16>(v[3], big[3], small[3]);
+}
+
+
+constexpr int kWideTriThreads = 128;        // 4 warps of 16 rows
+constexpr int kWideLdW = kWideTile + 4;     // weight tiles' stride
+constexpr int kWideTriCols = 64;            // operand columns of a chunk
+constexpr int kWideTriLdR = kWideTriCols + 4;
+
+struct WideTri {
+  // floats: the union of the Gram slices ([2 tiles][64][kWideLdK], big and
+  // small) and the records ([64][kWideTriLdR], big and small)
+  static constexpr int kSlices = 4 * kWideTile * kWideLdK;
+  static constexpr int kRecords = 2 * kWideTile * kWideTriLdR;
+  static constexpr int kUnion = kSlices > kRecords ? kSlices : kRecords;
+  static constexpr int kWeight = 2 * kWideTile * kWideLdW;  // big, small
+  static constexpr int kSums = 4 * kWideTile;  // norms and sums of I, J
+
+  static constexpr size_t smem_bytes(int weights) {
+    return sizeof(float) * (kUnion + weights * kWeight + kSums);
+  }
+};
+
+// The Gram tile's operands and the form of sq. The default is the
+// Euclidean form: G = X_I X_J^T, the norms |x|^2 of the coordinates, sq
+// clamped at 0. K15's fixed-P form (the JAX kernel's, pallas_phi.py:116)
+// pairs X_I with Y_J, the rows of Y = X_c (P_sym/2), so G_ij = x_i^T
+// (P_sym/2) x_j = G_ji and one weight tile serves both directions; its norms
+// are q_i = x_i . y_i, so sq = q_i + q_j - 2 G = d^T P d, clamped only for a
+// P taken as positive semidefinite. The contraction takes the coordinates
+// either way. `phi` false leaves the contraction out (no kernel of the
+// library sets it since K14's groups left this body; chip_profile.py
+// --aniso-wide builds their earlier kernel, whose Euclidean group with no
+// isotropic term only counted, against it). `pin` false (K15's bf16
+// instance) forms the self pair's sq like any other pair's and halves its
+// weights, exactly, so that it enters once over both directions: the
+// square sweep's self pair, as the JAX kernel forms it (there the bf16
+// Gram moves it off 0 visibly); the triangles pin it to sq = 0 and their
+// wrappers take its second entry out.
+struct WideForm {
+  const float* y = nullptr;  // J's Gram operand (null: the coordinates)
+  const float* q = nullptr;  // the norms (null: |x|^2 of the coordinates)
+  bool clamp = true;         // sq = max(sq, 0)
+  bool phi = true;           // the contraction and its flush
+  bool pin = true;           // the self pair's sq = 0
+};
+
+// WideSpot (a block's tile pair and where it flushes) lives in
+// sweep_common.cuh, beside the bf16 triangle body that still takes it.
+
+// The triangles' spot: tile pair t of the upper triangle of nb tiles, both
+// directions into the (2m, n) accumulator.
+__device__ __forceinline__ WideSpot tri_spot(long long t, int nb, int n,
+                                             float* acc) {
+  int bi, bj;
+  decode_upper_pair(t, nb, &bi, &bj);
+  return WideSpot{bi * kWideTile, bj * kWideTile, bi == bj, acc, acc, 0, 0,
+                  n};
+}
+
+// The body (see the top of the file) on the block's tile pair ``spot``.
+// kT thresholds (3, or kMaxT for a runtime T, or 0 for none);
+// weights(sq, k_c, w) the pair's weights: one tile of them where W is
+// OneRbf (k_c = w), two otherwise. Composed kernels' constants in shared
+// memory (AnyTerms) must be stored before the call: the body's first
+// barrier comes before its first pair.
+template <int kT, bool kBf16, bool kAsym, class W>
+__device__ __forceinline__ void wide_pair_body(
+    const float* __restrict__ coords, const float* __restrict__ scores,
+    const W& weights, const float* __restrict__ thr, int n, int m, int T,
+    const WideSpot& spot, unsigned long long* __restrict__ counts,
+    const WideForm& form) {
+  static_assert(!kAsym || (kBf16 && !kTwoBands<W>),
+                "the second Gram tile takes the small parts' room");
+  constexpr int NW = kTwoBands<W> || kAsym ? 2 : 1;
+  constexpr int S = kWideTile;
+  extern __shared__ __align__(16) float sh[];
+  float* un = sh;                              // slices or records
+  float* wt = sh + WideTri::kUnion;            // [NW][big | small][S][LdW]
+  float* norm = wt + NW * WideTri::kWeight;    // [I | J]
+  float* sums = norm + 2 * S;                  // [rows of I | columns of J]
+
+  const int i0 = spot.i0;
+  const int j0 = spot.j0;
+  const bool diag = spot.diag;
+  const int tid = static_cast<int>(threadIdx.x);
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+
+  float th[kT > 0 ? kT : 1];
+#pragma unroll
+  for (int q = 0; q < kT; ++q) th[q] = thr[q < T ? q : 0];
+
+  // The norms of the 64 + 64 particles: the caller's, or the squared
+  // norms, 4 threads each.
+  if (form.q != nullptr) {
+    for (int p = tid; p < 2 * S; p += kWideTriThreads) {
+      const int part = p < S ? i0 + p : j0 + p - S;
+      norm[p] = part < n ? form.q[part] : 0.0f;
+    }
+  } else {
+    for (int e = tid; e < 2 * S * 4; e += kWideTriThreads) {
+      const int p = e >> 2;
+      const int part = p < S ? i0 + p : j0 + p - S;
+      float q = 0.0f;
+      if (part < n) {
+        for (int k = e & 3; k < m; k += 4) {
+          const float v = coords[static_cast<size_t>(part) * m + k];
+          q = fmaf(v, v, q);
+        }
+      }
+      q += __shfl_xor_sync(0xffffffffu, q, 1);
+      q += __shfl_xor_sync(0xffffffffu, q, 2);
+      if ((e & 3) == 0) norm[p] = q;
+    }
+  }
+  const float* gram_j = form.y != nullptr ? form.y : coords;
+
+  // 1. The Gram tile: slices [I | J][64][kWideLdK], big then small (under
+  // kAsym G's operands X_I, Y_J, then G''s, Y_I, X_J).
+  float gb[8][4];
+  float gs[8][4];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      gb[c][q] = 0.0f;
+      gs[c][q] = 0.0f;
+    }
+  }
+  constexpr int kTileK = S * kWideLdK;      // floats of one tile's slice
+  float* sl_big = un;
+  float* sl_small = un + 2 * kTileK;
+#pragma unroll 1
+  for (int k0 = 0; k0 < m; k0 += kWideK) {
+    const int kn = min(kWideK, m - k0);
+    __syncthreads();  // the union is free
+    for (int e = tid; e < 2 * S * kWideK; e += kWideTriThreads) {
+      const int r = e / kWideK;  // 0..127: I's rows, then J's
+      const int k = e - r * kWideK;
+      const int part = r < S ? i0 + r : j0 + r - S;
+      const float* src = r < S ? coords : gram_j;
+      const bool in = part < n && k < kn;
+      const size_t at = static_cast<size_t>(part) * m + k0 + k;
+      const float v = in ? src[at] : 0.0f;
+      uint32_t hi, lo;
+      operand_split<kBf16>(v, hi, lo);
+      if constexpr (kAsym) {
+        const float* other = r < S ? gram_j : coords;
+        lo = __float_as_uint(bf16_round(in ? other[at] : 0.0f));
+      }
+      sl_big[r * kWideLdK + k] = __uint_as_float(hi);
+      sl_small[r * kWideLdK + k] = __uint_as_float(lo);
+    }
+    __syncthreads();  // the slices are complete
+#pragma unroll
+    for (int ks = 0; ks < kWideK / 8; ++ks) {
+      if (8 * ks < kn) {
+        const int ar = (16 * warp + g) * kWideLdK + 8 * ks + t;
+        const uint32_t ab[4] = {
+            __float_as_uint(sl_big[ar]),
+            __float_as_uint(sl_big[ar + 8 * kWideLdK]),
+            __float_as_uint(sl_big[ar + 4]),
+            __float_as_uint(sl_big[ar + 8 * kWideLdK + 4])};
+        const uint32_t as[4] = {
+            __float_as_uint(sl_small[ar]),
+            __float_as_uint(sl_small[ar + 8 * kWideLdK]),
+            __float_as_uint(sl_small[ar + 4]),
+            __float_as_uint(sl_small[ar + 8 * kWideLdK + 4])};
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          const int br = kTileK + (8 * c + g) * kWideLdK + 8 * ks + t;
+          const uint32_t bb0 = __float_as_uint(sl_big[br]);
+          const uint32_t bb1 = __float_as_uint(sl_big[br + 4]);
+          if constexpr (kAsym) {
+            mma_tf32(gs[c], as, __float_as_uint(sl_small[br]),
+                     __float_as_uint(sl_small[br + 4]));
+          } else if constexpr (!kBf16) {
+            mma_tf32(gs[c], as, bb0, bb1);
+            mma_tf32(gs[c], ab, __float_as_uint(sl_small[br]),
+                     __float_as_uint(sl_small[br + 4]));
+          }
+          mma_tf32(gb[c], ab, bb0, bb1);
+        }
+      }
+    }
+  }
+
+  // 2. sq, the weights and the counts, once a pair; the weights into the
+  // tiles W[il][jl] (row il of I, column jl of J).
+  unsigned int cnt[kMaxT];
+#pragma unroll
+  for (int q = 0; q < kMaxT; ++q) cnt[q] = 0u;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int il = 16 * warp + g + (q >> 1) * 8;
+      const int jl = 8 * c + 2 * t + (q & 1);
+      const bool ok = i0 + il < n && j0 + jl < n && (!diag || jl >= il);
+      const float nij = __fadd_rn(norm[il], norm[S + jl]);
+      float sq = kAsym ? __fsub_rn(nij, 2.0f * gb[c][q])
+                       : __fsub_rn(nij, 2.0f * (gb[c][q] + gs[c][q]));
+      if (form.clamp) sq = fmaxf(sq, 0.0f);
+      const bool self = diag && il == jl;
+      if (self && form.pin) sq = 0.0f;
+      // The unpinned self pair's weights enter each direction at half.
+      const float half = self && !form.pin ? 0.5f : 1.0f;
+      float a, b;
+      weights(sq, a, b);
+      if constexpr (kAsym) {  // the columns' weight, k(j <- i), from G'
+        float sq2 = __fsub_rn(nij, 2.0f * gs[c][q]);
+        if (form.clamp) sq2 = fmaxf(sq2, 0.0f);
+        float a2;
+        weights(sq2, b, a2);
+      }
+      count_pair_fixed<kT, true>(sq, th, ok, cnt);
+      uint32_t hi, lo;
+      operand_split<kBf16>(ok ? a : 0.0f, hi, lo);
+      wt[il * kWideLdW + jl] = half * __uint_as_float(hi);
+      wt[S * kWideLdW + il * kWideLdW + jl] = half * __uint_as_float(lo);
+      if constexpr (NW == 2) {
+        float* w1 = wt + WideTri::kWeight;
+        operand_split<kBf16>(ok ? b : 0.0f, hi, lo);
+        w1[il * kWideLdW + jl] = half * __uint_as_float(hi);
+        w1[S * kWideLdW + il * kWideLdW + jl] = half * __uint_as_float(lo);
+      }
+    }
+  }
+  flush_counts(cnt, T, counts);
+  if (!form.phi) return;  // uniform over the block: no barrier is skipped
+  __syncthreads();        // the weight tiles are complete
+
+  // 3. The D weight's row sums (threads 0-63, row tid of I) and column sums
+  // (threads 64-127, column tid - 64 of J), from its TF32 pairs (under
+  // kAsym the rows' from the first tile, the columns' from the second).
+  {
+    const float* wd_big =
+        wt + (kAsym ? (tid < S ? 0 : 1) : NW - 1) * WideTri::kWeight;
+    const float* wd_small = wd_big + S * kWideLdW;
+    const int p = tid & (S - 1);
+    float sum = 0.0f;
+    for (int s = 0; s < S; ++s) {
+      // Rows walk their columns rotated by p, so that the 32 lanes of a
+      // warp read 32 distinct banks.
+      const int at = tid < S ? p * kWideLdW + ((s + p) & (S - 1))
+                             : s * kWideLdW + p;
+      sum += wd_big[at] + wd_small[at];
+    }
+    sums[tid] = sum;
+  }
+
+  // 4-5. The contractions, chunk by chunk: the scores' columns c0 .. c0 +
+  // 63 with k_c, then the coordinates' with w.
+  const int nch = (m + kWideTriCols - 1) / kWideTriCols;
+  float* rec_big = un;
+  float* rec_small = un + S * kWideTriLdR;
+#pragma unroll 1
+  for (int ch = 0; ch < 2 * nch; ++ch) {
+    const bool xband = ch >= nch;
+    const int c0 = (xband ? ch - nch : ch) * kWideTriCols;
+    const int cn = min(kWideTriCols, m - c0);
+    const float* src = xband ? coords : scores;
+#pragma unroll 1
+    for (int dir = 0; dir < 2; ++dir) {
+      const int tile = kAsym ? dir : (xband ? NW - 1 : 0);
+      const float* w_big = wt + tile * WideTri::kWeight;
+      const float* w_small = w_big + S * kWideLdW;
+      // dir 0: the rows of I take W [S_J | X_J]; dir 1: the columns of J
+      // take W^T [S_I | X_I].
+      const int p0 = dir == 0 ? j0 : i0;  // the operand tile
+      const int o0 = dir == 0 ? i0 : j0;  // the output tile
+      __syncthreads();  // the union is free (and the sums are stored)
+      for (int e = tid; e < S * kWideTriCols; e += kWideTriThreads) {
+        const int p = e / kWideTriCols;
+        const int c = e - p * kWideTriCols;
+        const float v = p0 + p < n && c < cn
+                            ? src[static_cast<size_t>(p0 + p) * m + c0 + c]
+                            : 0.0f;
+        uint32_t hi, lo;
+        operand_split<kBf16>(v, hi, lo);
+        rec_big[p * kWideTriLdR + c] = __uint_as_float(hi);
+        rec_small[p * kWideTriLdR + c] = __uint_as_float(lo);
+      }
+      __syncthreads();  // the records are complete
+      float out[8][4];
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) out[b][q] = 0.0f;
+      }
+#pragma unroll
+      for (int ks = 0; ks < S / 8; ++ks) {
+        // A: rows 16 warp + g (+ 8) of W (dir 0) or of W^T (dir 1),
+        // columns 8 ks + t (+ 4).
+        const int ra = 16 * warp + g;
+        const int ka = 8 * ks + t;
+        int at[4];
+        if (dir == 0) {
+          at[0] = ra * kWideLdW + ka;
+          at[1] = (ra + 8) * kWideLdW + ka;
+          at[2] = ra * kWideLdW + ka + 4;
+          at[3] = (ra + 8) * kWideLdW + ka + 4;
+        } else {
+          at[0] = ka * kWideLdW + ra;
+          at[1] = ka * kWideLdW + ra + 8;
+          at[2] = (ka + 4) * kWideLdW + ra;
+          at[3] = (ka + 4) * kWideLdW + ra + 8;
+        }
+        uint32_t ab[4], as[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          ab[q] = __float_as_uint(w_big[at[q]]);
+          as[q] = __float_as_uint(w_small[at[q]]);
+        }
+        const int bk = ka * kWideTriLdR + g;
+#pragma unroll
+        for (int b = 0; b < 8; ++b) {
+          if (8 * b < cn) {
+            mma_pass<kBf16>(out[b], ab, as, rec_big, rec_small, bk + 8 * b,
+                            bk + 4 * kWideTriLdR + 8 * b);
+          }
+        }
+      }
+      // Flush: row (dir 0) or column (dir 1) o0 + ol, operand column
+      // c0 + cl, into KS (scores) or D = sum x - W X (coordinates), at the
+      // spot's planes of that direction.
+      float* dst = dir == 0 ? spot.out0 : spot.out1;
+      const int base = dir == 0 ? spot.base0 : spot.base1;
+#pragma unroll
+      for (int b = 0; b < 8; ++b) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int ol = 16 * warp + g + (q >> 1) * 8;
+          const int cl = 8 * b + 2 * t + (q & 1);
+          const int o = o0 + ol;
+          if (o < n && cl < cn) {
+            const int k = c0 + cl;
+            if (xband) {
+              const float x = coords[static_cast<size_t>(o) * m + k];
+              atomicAdd(
+                  dst + static_cast<size_t>(m + k) * spot.ld + (o - base),
+                  fmaf(sums[dir * S + ol], x, -out[b][q]));
+            } else {
+              atomicAdd(dst + static_cast<size_t>(k) * spot.ld + (o - base),
+                        out[b][q]);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// The triangle sweeps' body: tile t0 + blockIdx.x of the upper triangle of
+// nb tiles, into the (2m, n) accumulator acc (see wide_pair_body).
+template <int kT, bool kBf16 = false, bool kAsym = false, class W>
+__device__ __forceinline__ void wide_tri_body(
+    const float* __restrict__ coords, const float* __restrict__ scores,
+    const W& weights, const float* __restrict__ thr, int n, int m, int T,
+    int nb, long long t0, float* __restrict__ acc,
+    unsigned long long* __restrict__ counts, const WideForm& form = {}) {
+  wide_pair_body<kT, kBf16, kAsym>(
+      coords, scores, weights, thr, n, m, T,
+      tri_spot(t0 + static_cast<long long>(blockIdx.x), nb, n, acc), counts,
+      form);
+}
+
+// Allow a kernel on the wide body with `weights` weight tiles its dynamic
+// shared memory, where that passes the default 48 KB. A refusal also fails
+// the launch, which the entry's cudaGetLastError() reports.
+template <class Kernel>
+inline cudaError_t wide_tri_prepare(Kernel* kernel, int weights) {
+  const size_t smem = WideTri::smem_bytes(weights);
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+}  // namespace svgd
+"""
+
+
+def parent_csrc(dest):
+    """A fresh copy of csrc/ under ``dest`` with the parent header
+    wide_tri.cuh (WIDE_TRI_PARENT_HEADER) beside the package's headers."""
+    dest = Path(dest)
+    shutil.rmtree(dest, ignore_errors=True)
+    shutil.copytree(ROOT / "svgdcpp_tpu_torch" / "csrc", dest)
+    (dest / "wide_tri.cuh").write_text(WIDE_TRI_PARENT_HEADER)
+    return dest
+
+
 #: --wide-breakdown's harness: the wide triangle bodies on one RBF
 #: (``BODY`` 0: wide_tri.cuh's wide_pair_body over tiles of 64, the
-#: parent design of K2's wide instance, which still serves K2's bf16
-#: instance, K14, K15 and the panels; 1: wide_tri_sm90.cuh's body, K2/K4's
-#: and K8-K11's, also with two terms), built from a copy of
-#: csrc/ whose header a variant rewrote. Not a kernel of the package.
+#: parent design of K2's wide instance; 1: wide_tri_sm90.cuh's body,
+#: K2/K4's and K8-K11's, also with two terms), built from a copy of csrc/
+#: (parent_csrc) whose header a variant rewrote. Not a kernel of the
+#: package.
 WIDE_BREAKDOWN_SOURCE = r"""
 #include "wide_tri.cuh"
 #include "wide_tri_sm90.cuh"
@@ -1289,9 +1851,7 @@ WIDE_BEGIN_MS = (33, 50, 64)
 def wide_breakdown_copy(dest, body, rewrites):
     """A copy of csrc/ under ``dest`` with ``rewrites`` applied to the
     body's header and the harness source written beside it."""
-    dest = Path(dest)
-    shutil.rmtree(dest, ignore_errors=True)
-    shutil.copytree(ROOT / "svgdcpp_tpu_torch" / "csrc", dest)
+    dest = parent_csrc(dest)
     header = dest / ("wide_tri_sm90.cuh" if body else "wide_tri.cuh")
     text = header.read_text()
     for old, new in rewrites:
@@ -1524,15 +2084,15 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
     new_tri(Bf16Operands ops, const float* gamma, const float* thr, int n,
             int m, int nb, long long items, float* acc,
             unsigned long long* counts) {
-  bf16_tri_body<3>(ops.q, ops.xg, ops.rec, -gamma[0] * kLog2e, thr, n, m, 3,
-                   items, Bf16TriWork{nb, n, acc}, counts);
+  bf16_tri_body<3>(ops, -gamma[0] * kLog2e, thr, n, m, 3, items,
+                   Bf16TriWork{nb, n, acc}, counts);
 }
 __global__ void __launch_bounds__(kBf16Threads, 1)
     new_panel(Bf16Operands ops, const float* gamma, const float* thr, int n,
               int m, long long items, Bf16PanelWork wk,
               unsigned long long* counts) {
-  bf16_tri_body<3>(ops.q, ops.xg, ops.rec, -gamma[0] * kLog2e, thr, n, m, 3,
-                   items, wk, counts);
+  bf16_tri_body<3>(ops, -gamma[0] * kLog2e, thr, n, m, 3, items, wk,
+                   counts);
 }
 extern "C" int bd_parent(int panel, const float* x, const float* s,
                          const float* gamma, const float* thr, int n, int m,
@@ -1561,14 +2121,14 @@ extern "C" int bd_new(int panel, int sweep, const float* x, const float* s,
                       long long* counts, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto* c = reinterpret_cast<unsigned long long*>(counts);
-  const Bf16Operands ops = sweep == 1 ? bf16_operands(work, n, m)
+  const Bf16Operands ops = sweep == 1 ? bf16_operands(work, n, m, false)
                                       : bf16_tri_pack(x, s, n, m, work, st);
   if (sweep < 0) return static_cast<int>(cudaGetLastError());
   if (panel) {
     const int tw = w / kBf16Tile;
     const long long off = static_cast<long long>(nb) * (nb - 1) / 2 * tw * tw;
     const long long items = off + static_cast<long long>(nb) * tw * (tw + 1) / 2;
-    const Bf16PanelWork wk{nb, tw, w, n, off, out};
+    const Bf16PanelWork wk{nb, tw, w, n, out};
     new_panel<<<bf16_tri_prepare(&new_panel, items), kBf16Threads,
                 Bf16Tri::kSmemBytes, st>>>(ops, gamma, thr, n, m, items, wk,
                                            c);
@@ -1614,8 +2174,7 @@ _BF16_SINK = (
     "        for (int kk = 0; kk < 8; ++kk) {\n#pragma unroll\n"
     "          for (int e = 0; e < 4; ++e) kf[kk][e] = 0u;\n        }\n"
     "      }\n")
-_BF16_WEIGH = ("      if (guarded) {\n        weigh(std::true_type{});\n"
-               "      } else {\n        weigh(std::false_type{});\n      }\n")
+_BF16_WEIGH = "        weigh_pass(std::true_type{}, std::true_type{});\n"
 _BF16_NTV = ("      const int ntv = min(cw >> 3, (2 * m + 1 - c0 + 7) >> 3);\n")
 BF16_VARIANTS = {
     "full": [],
@@ -1644,8 +2203,8 @@ BF16_VARIANTS = {
     "staging only": [
         (_BF16_NTV, "      const int ntv = 0;\n"),
         (_BF16_WEIGH, _BF16_SINK),
-        ("        const int kv = min(sl >> 4, (m - s * sl + 15) >> 4);\n",
-         "        const int kv = 0;\n")],
+        ("          const int kv = min(sl >> 4, (m - s * sl + 15) >> 4);\n",
+         "          const int kv = 0;\n")],
 }
 del BF16_VARIANTS["staging, Gram and weights"]
 
@@ -1662,9 +2221,7 @@ def bf16_breakdown_copy(dest, parent, rewrites):
     """A copy of csrc/ under ``dest`` with ``rewrites`` applied to the
     parent's header (wide_tri.cuh) or the new body's (bf16_tri_sm90.cuh),
     and the harness source beside it."""
-    dest = Path(dest)
-    shutil.rmtree(dest, ignore_errors=True)
-    shutil.copytree(ROOT / "svgdcpp_tpu_torch" / "csrc", dest)
+    dest = parent_csrc(dest)
     header = dest / ("wide_tri.cuh" if parent else "bf16_tri_sm90.cuh")
     text = header.read_text()
     for old, new in rewrites:
@@ -1962,7 +2519,7 @@ def float32_check_main(args) -> int:
 #: before they moved to wide_tri_sm90.cuh's body: every group on
 #: wide_tri.cuh's wide_tri_body, two weight tiles, tiles of 64), as that
 #: file had them, under another kernel name and a C entry of their own;
-#: built from a copy of csrc/ (wide_tri.cuh is unchanged since).
+#: built from a copy of csrc/ (parent_csrc's wide_tri.cuh).
 ANISO_WIDE_PARENT_SOURCE = r"""
 #include "wide_tri.cuh"
 using namespace svgd;
@@ -2067,9 +2624,7 @@ def aniso_wide(device):
     )
     from svgdcpp_tpu_torch.utils.cuda_build import ARCH_FLAGS, find_nvcc
 
-    dest = ROOT / "_verify" / "aniso_wide"
-    shutil.rmtree(dest, ignore_errors=True)
-    shutil.copytree(ROOT / "svgdcpp_tpu_torch" / "csrc", dest)
+    dest = parent_csrc(ROOT / "_verify" / "aniso_wide")
     (dest / "parent.cu").write_text(ANISO_WIDE_PARENT_SOURCE)
     proc = subprocess.Popen(
         [find_nvcc() or "nvcc", *ARCH_FLAGS, "-std=c++17", "-O3",
@@ -2194,8 +2749,8 @@ def aniso_wide_main(args) -> int:
 #: (tile pairs of a panel, panels), a diagonal panel's blocks past a <= b
 #: returning at once, rows of I into half 0 and columns of J into half 1 of
 #: the panel's window), as that file had them, under kernel names and a C
-#: entry of their own; built from a copy of csrc/ (wide_tri.cuh keeps the
-#: body for K15).
+#: entry of their own; built from a copy of csrc/ (parent_csrc's
+#: wide_tri.cuh).
 WIDE_PANEL_PARENT_SOURCE = r"""
 #include "wide_tri.cuh"
 using namespace svgd;
@@ -2360,9 +2915,7 @@ def wide_panel(device):
     )
     from svgdcpp_tpu_torch.utils.cuda_build import ARCH_FLAGS, find_nvcc
 
-    dest = ROOT / "_verify" / "wide_panel"
-    shutil.rmtree(dest, ignore_errors=True)
-    shutil.copytree(ROOT / "svgdcpp_tpu_torch" / "csrc", dest)
+    dest = parent_csrc(ROOT / "_verify" / "wide_panel")
     (dest / "parent.cu").write_text(WIDE_PANEL_PARENT_SOURCE)
     proc = subprocess.Popen(
         [find_nvcc() or "nvcc", *ARCH_FLAGS, "-std=c++17", "-O3",
@@ -2536,10 +3089,12 @@ def wide_panel_main(args) -> int:
 #: warps of 16 target rows, tiles of 32 sources, the 2m + 1 columns in
 #: 128-column chunks along the grid's z, square_chunk's plan; under kernel
 #: names and C entries of their own, built from a copy of csrc/ (which
-#: keeps the helpers it calls: operand_split, mma_pass, weight_fragment,
-#: kWideK and kWideLdK, and the finishing pass).
+#: keeps the finishing pass; parent_csrc's wide_tri.cuh the helpers it
+#: calls: operand_split, mma_pass, weight_fragment<kBf16>, kWideK and
+#: kWideLdK).
 SQUARE_WIDE_PARENT_SOURCE = r"""
 #include "square_mma.cuh"
+#include "wide_tri.cuh"
 using namespace svgd;
 // ---------------------------------------------------------------------------
 // The Gram-form body square_wide_body, moved here from csrc/square_mma.cuh
@@ -3019,9 +3574,7 @@ def square_wide(device):
     )
     from svgdcpp_tpu_torch.utils.cuda_build import ARCH_FLAGS, find_nvcc
 
-    dest = ROOT / "_verify" / "square_wide"
-    shutil.rmtree(dest, ignore_errors=True)
-    shutil.copytree(ROOT / "svgdcpp_tpu_torch" / "csrc", dest)
+    dest = parent_csrc(ROOT / "_verify" / "square_wide")
     (dest / "parent.cu").write_text(SQUARE_WIDE_PARENT_SOURCE)
     proc = subprocess.Popen(
         [find_nvcc() or "nvcc", *ARCH_FLAGS, "-std=c++17", "-O3",
@@ -3181,9 +3734,7 @@ def square_bf16(device):
     from svgdcpp_tpu_torch.utils.cuda_build import ARCH_FLAGS, find_nvcc
 
     bf16 = "bfloat16"
-    dest = ROOT / "_verify" / "square_bf16"
-    shutil.rmtree(dest, ignore_errors=True)
-    shutil.copytree(ROOT / "svgdcpp_tpu_torch" / "csrc", dest)
+    dest = parent_csrc(ROOT / "_verify" / "square_bf16")
     (dest / "parent.cu").write_text(SQUARE_WIDE_PARENT_SOURCE)
     proc = subprocess.Popen(
         [find_nvcc() or "nvcc", *ARCH_FLAGS, "-std=c++17", "-O3",
@@ -3352,17 +3903,95 @@ print(json.dumps(out), flush=True)
 """
 
 
-def wrapper_ab(parent: Path) -> dict:
-    """--wrapper-ab DIR: WRAPPER_AB_CHILD in the tree DIR (the parent's
-    checkout), in this one, in this one and in DIR, one process each, so
-    that the wrappers and the flat BLR step of two trees are compared on
-    one card; each tree builds its library on its first run."""
+#: --wrapper-ab's child under --ab-family k15: K15 through the package's
+#: public wrapper ``cuda_phi.phi_rbf_cuda`` at WRAPPER_AB_K15_SHAPES on
+#: --fixed-p-wide's inputs: ms a call between CUDA events
+#: (chip_smoke.time_ms, the median of 50 calls), host us a call (200 calls
+#: with no synchronisation between them, by the host clock: "host_us" up
+#: to the last call's return, "wall_us" up to the card's end), and the
+#: device operations one call launches and, under the profiler, a call's
+#: host us, its operators' self host us (the 12 largest) and what is left
+#: outside them (the entries' ctypes calls, Python) (torch.profiler over 5
+#: calls), one JSON line. It uses only what the trees before and after K15's
+#: redesign share.
+WRAPPER_AB_K15_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from svgdcpp_tpu_torch.ops import cuda_phi
+dev = torch.device("cuda")
+out = {}
+for n, m, kind, dd in json.loads(sys.argv[1]):
+    make = cs.grid_inputs if m > 4 else cs.sweep_inputs
+    x, s, g, thr = make(n, m, 0.0, 449 + m, dev)
+    p = cs.wide_p_ps(kind, m, 1, 448, g, dev)[0]
+    psd = kind != "indefinite"
+    fn = lambda: cuda_phi.phi_rbf_cuda(x, s, p, psd=psd, dot_dtype=dd)
+    ms = cs.time_ms(fn, reps=50, warmup=5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        fn()
+    host = (time.perf_counter() - t0) * 1e6 / 200
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e6 / 200
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(5):
+            with torch.profiler.record_function("k15_wrapper"):
+                fn()
+        torch.cuda.synchronize()
+    ops = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ops[e.name] = ops.get(e.name, 0) + 1
+    cpu = {a.key: (a.cpu_time_total if a.key == "k15_wrapper"
+                   else a.self_cpu_time_total) / 5
+           for a in prof.key_averages()
+           if a.device_type == torch.autograd.DeviceType.CPU}
+    whole = cpu.pop("k15_wrapper", 0.0)
+    top = sorted(cpu.items(), key=lambda kv: -kv[1])[:12]
+    out[f"{dd} ({n}, {m}) {kind}"] = {
+        "ms": ms, "host_us": host, "wall_us": wall,
+        "device_ops_per_call": sum(ops.values()) / 5,
+        "device_ops": {k: v / 5 for k, v in sorted(ops.items())},
+        "profiled_cpu_us": whole,
+        "profiled_cpu_us_outside_aten": whole - sum(cpu.values()),
+        "top_self_cpu_us": dict(top)}
+print(json.dumps(out), flush=True)
+"""
+
+#: --ab-family k15's shapes, (n, m, P as chip_smoke.wide_p_ps names it,
+#: dot_dtype): phase 46a's (1500, 2) and the main path's (10240, 123) for
+#: the bf16 instance, (10240, 123) for the float32 wide one, and (1500, 2)
+#: in float32 (the triangle with sym_eigen, the same code in both trees)
+#: as the control of the host's drift between processes.
+WRAPPER_AB_K15_SHAPES = (
+    (1500, 2, "gamma_i", "bfloat16"),
+    (1500, 2, "gamma_i", "float32"),
+    (10240, 123, "indefinite", "bfloat16"),
+    (10240, 123, "indefinite", "float32"),
+)
+
+
+def wrapper_ab(parent: Path, family: str = "k1") -> dict:
+    """--wrapper-ab DIR: WRAPPER_AB_CHILD (``family`` "k1") or
+    WRAPPER_AB_K15_CHILD ("k15") in the tree DIR (the parent's checkout),
+    in this one, in this one and in DIR, one process each, so that the
+    public wrappers (and, for "k1", the flat BLR step) of two trees are
+    compared on one card; each tree builds its library on its first
+    run."""
     runs = []
-    shapes = json.dumps(SQUARE_BF16_SHAPES)
+    child, shapes = ((WRAPPER_AB_K15_CHILD, WRAPPER_AB_K15_SHAPES)
+                     if family == "k15"
+                     else (WRAPPER_AB_CHILD, SQUARE_BF16_SHAPES))
+    shapes = json.dumps(shapes)
     for label, tree in (("parent", parent), ("change", ROOT),
                         ("change", ROOT), ("parent", parent)):
         proc = subprocess.run(
-            [sys.executable, "-c", WRAPPER_AB_CHILD, shapes], cwd=tree,
+            [sys.executable, "-c", child, shapes], cwd=tree,
             capture_output=True, text=True, timeout=1800)
         if proc.returncode:
             raise RuntimeError(f"--wrapper-ab in {tree}:\n"
@@ -3384,8 +4013,11 @@ def wrapper_ab_main(args) -> int:
         return 1
     card = card_name()
     print(card)
-    result = {"card": card, "wrapper_ab": wrapper_ab(Path(args.wrapper_ab))}
-    out = Path(args.out or "chiprun_out/wrapper_ab.json")
+    result = {"card": card, "family": args.ab_family,
+              "wrapper_ab": wrapper_ab(Path(args.wrapper_ab),
+                                       args.ab_family)}
+    suffix = "_k15" if args.ab_family == "k15" else ""
+    out = Path(args.out or f"chiprun_out/wrapper_ab{suffix}.json")
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps(result, indent=1))
     print(card)
@@ -3956,6 +4588,223 @@ def wide_drift_main(args) -> int:
     return 0
 
 
+#: --fixed-p-wide's parent: K15's two wide kernels as csrc/phi_rbf.cu held
+#: them on wide_pair_body (parent_csrc's wide_tri.cuh) before they moved to
+#: wide_tri_sm90.cuh's body (float32, m > 64) and bf16_tri_sm90.cuh's
+#: (bfloat16, any m): one block of 4 warps a 64 x 64 tile pair of the upper
+#: triangle, the float32 one 3xTF32 with one weight tile (72.7 KB), the
+#: bf16 one a TF32 pass on bf16-rounded values with both Gram and weight
+#: tiles (kAsym, 107.5 KB), both into (2m, n) [KS | D]; under names and a C
+#: entry of their own.
+FIXED_P_WIDE_PARENT_SOURCE = r"""
+#include "wide_tri.cuh"
+using namespace svgd;
+__global__ void __launch_bounds__(kWideTriThreads)
+    parent_phi_rbf_wide_kernel(const float* __restrict__ coords,
+                               const float* __restrict__ y,
+                               const float* __restrict__ q,
+                               const float* __restrict__ scores, int n,
+                               int m, int psd, int nb,
+                               float* __restrict__ out) {
+  WideForm form;
+  form.y = y;
+  form.q = q;
+  form.clamp = psd != 0;
+  wide_tri_body<0>(coords, scores, OneRbf{-kLog2e}, nullptr, n, m, 0, nb,
+                   0LL, out, nullptr, form);
+}
+__global__ void __launch_bounds__(kWideTriThreads)
+    parent_phi_rbf_wide_bf16_kernel(const float* __restrict__ coords,
+                                    const float* __restrict__ y,
+                                    const float* __restrict__ q,
+                                    const float* __restrict__ scores, int n,
+                                    int m, int psd, int nb,
+                                    float* __restrict__ out) {
+  WideForm form;
+  form.y = y;
+  form.q = q;
+  form.clamp = psd != 0;
+  form.pin = false;
+  wide_tri_body<0, true, true>(coords, scores, OneRbf{-kLog2e}, nullptr, n,
+                               m, 0, nb, 0LL, out, nullptr, form);
+}
+extern "C" int parent_phi_rbf_wide(int bf16, const float* coords,
+                                   const float* y, const float* q,
+                                   const float* scores, int n, int m, int psd,
+                                   float* out, void* stream) {
+  auto* kernel = bf16 ? &parent_phi_rbf_wide_bf16_kernel
+                      : &parent_phi_rbf_wide_kernel;
+  const int weights = bf16 ? 2 : 1;
+  const long long pairs = upper_pairs(n, kWideTile);
+  const int nb = (n + kWideTile - 1) / kWideTile;
+  const cudaError_t err = wide_tri_prepare(kernel, weights);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<static_cast<unsigned int>(pairs), kWideTriThreads,
+           WideTri::smem_bytes(weights), static_cast<cudaStream_t>(stream)>>>(
+      coords, y, q, scores, n, m, psd, nb, out);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+
+#: --fixed-p-wide's shapes: (n, m, P's kind, instances). The HESSIAN
+#: route's (10240, 123) with an indefinite P (phase 44b), the ladder at
+#: n = 4096 with a positive definite P (phase 44a's widths), and phase
+#: 46a's (1500, 2) for the bf16 instance with a median's gamma I; and
+#: n = 10000 and 10007 at m = 123 (phase 46a's edge: the accumulator's
+#: columns n floats apart, on 32-byte boundaries at n = 10000 and 10240
+#: only).
+FIXED_P_WIDE_SHAPES = (
+    (10240, 123, "indefinite", ("float32", "bfloat16")),
+    (10000, 123, "indefinite", ("float32", "bfloat16")),
+    (10007, 123, "indefinite", ("float32", "bfloat16")),
+    (4096, 65, "pd", ("float32", "bfloat16")),
+    (4096, 123, "pd", ("float32", "bfloat16")),
+    (4096, 256, "pd", ("float32", "bfloat16")),
+    (4096, 512, "pd", ("float32", "bfloat16")),
+    (1500, 2, "gamma_i", ("bfloat16",)),
+)
+
+
+def fixed_p_wide(device):
+    """--fixed-p-wide: K15's two wide instances, the parent's
+    (FIXED_P_WIDE_PARENT_SOURCE, built in a copy under _verify/fixed_p_wide/
+    in this process) and the package's, at FIXED_P_WIDE_SHAPES on
+    chip_smoke.py's inputs (grid inputs past m = 4): kernel-only us (the
+    profiler's events, 10 calls after one; the bf16 instance's pack kernel
+    counted), taken parent, new, new, parent; wrapper ms (CUDA events,
+    chip_smoke.time_ms; the parent's wrapper is the operands, the (2m, n)
+    buffer, the launch and the epilogue as they stood); each result's
+    distance from its plain version (float32: phi_rbf_gram in float64;
+    bf16: phi_rbf_gram(..., 'bfloat16') on the card), a share of max
+    |phi|; beside them K2's float32 wide and bf16 instances at the same
+    shapes, kernel-only and wrapper; and both builds' registers and
+    spill."""
+    import ctypes
+
+    import torch
+
+    from chip_smoke import (grid_inputs, kernel_us, ptxas_summary,
+                            sweep_inputs, time_ms, wide_p_ps)
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import gram_operands, phi_rbf_gram
+    from svgdcpp_tpu_torch.utils.cuda_build import ARCH_FLAGS, find_nvcc
+
+    dest = parent_csrc(ROOT / "_verify" / "fixed_p_wide")
+    (dest / "parent.cu").write_text(FIXED_P_WIDE_PARENT_SOURCE)
+    proc = subprocess.Popen(
+        [find_nvcc() or "nvcc", *ARCH_FLAGS, "-std=c++17", "-O3",
+         "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v", "-o",
+         str(dest / "libparent.so"), str(dest / "parent.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    cuda_phi.load_library()  # built meanwhile
+    out, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"the parent's K15 wide build:\n{out}")
+    lib = ctypes.CDLL(str(dest / "libparent.so"))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.parent_phi_rbf_wide.argtypes = [i32] + [ptr] * 4 + [i32] * 3 + [
+        ptr] * 2
+    lib.parent_phi_rbf_wide.restype = i32
+    new_build = ptxas_summary(cuda_phi.build_log_path().read_text())
+    builds = {
+        # The parent's two kernels (its float32 one under ptxas_summary's
+        # "rbf_wide").
+        "parent": ptxas_summary(out),
+        "new": {k: new_build.get(k, "?")
+                for k in ("rbf_wide", "rbf_wide_bf16", "bf16_tri_pack",
+                          "counts_sym<0,0,3>", "counts_sym_bf16<3>")},
+    }
+    print(json.dumps(builds), flush=True)
+
+    names = {("new", "float32"): "phi_rbf_wide_kernel",
+             ("new", "bfloat16"): ("phi_rbf_wide_bf16", "bf16_tri_pack"),
+             ("parent", "float32"): "parent_phi_rbf_wide_kernel",
+             ("parent", "bfloat16"): "parent_phi_rbf_wide_bf16",
+             ("k2", "float32"): "fused_phi_counts_sym_kernel",
+             ("k2", "bfloat16"): ("fused_phi_counts_sym_bf16",
+                                  "bf16_tri_pack")}
+    rows = []
+    for n, m, kind, dtypes in FIXED_P_WIDE_SHAPES:
+        make = grid_inputs if m > 4 else sweep_inputs
+        x, s, g, thr = make(n, m, 0.0, 449 + m, device)
+        p = wide_p_ps(kind, m, 1, 448, g, device)[0]
+        psd = kind != "indefinite"
+        half = 0.5 * (p + p.T).double()
+        for dd in dtypes:
+            bf16 = dd == "bfloat16"
+
+            def new_call(bf16=bf16):
+                return cuda_phi.phi_rbf_cuda(x, s, p, psd=psd,
+                                             dot_dtype=dd)
+
+            def parent_call(bf16=bf16):
+                """The parent's wrapper, as it stood."""
+                coords_c = (x - x.mean(dim=0)).contiguous()
+                y, q = gram_operands(coords_c, half)
+                acc = torch.zeros((2 * m, n), device=device)
+                rc = lib.parent_phi_rbf_wide(
+                    int(bf16), coords_c.data_ptr(), y.data_ptr(),
+                    q.data_ptr(), s.data_ptr(), n, m, int(psd),
+                    acc.data_ptr(), torch.cuda.current_stream().cuda_stream)
+                if rc:
+                    raise RuntimeError(f"parent_phi_rbf_wide returned {rc}")
+                grad = acc[m:].T.double() @ half
+                phi = acc[:m].T + 2.0 * grad.float()
+                return (phi if bf16 else phi - s) / n
+
+            def k2_call():
+                return cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=True,
+                                                   dot_dtype=dd)
+
+            want = (phi_rbf_gram(x, s, half, psd=psd, dot_dtype=dd) if bf16
+                    else phi_rbf_gram(x.double(), s.double(), half, psd=psd))
+            got_new, got_parent = new_call(), parent_call()
+            torch.cuda.synchronize()
+            scale = float(want.abs().max())
+            us = {}
+            for who in ("parent", "new", "new", "parent"):
+                fn = new_call if who == "new" else parent_call
+                us.setdefault(who, []).append(
+                    kernel_us(fn, names[(who, dd)]))
+            row = {
+                "n": n, "m": m, "P": kind, "dot_dtype": dd,
+                "parent_kernel_us": us["parent"],
+                "new_kernel_us": us["new"],
+                "parent_wrapper_ms": time_ms(parent_call, reps=20, warmup=3),
+                "new_wrapper_ms": time_ms(new_call, reps=20, warmup=3),
+                "new_rel_err": float(
+                    (got_new.double() - want.double()).abs().max()) / scale,
+                "parent_rel_err": float(
+                    (got_parent.double() - want.double()).abs().max())
+                / scale,
+            }
+            if m > 4 or bf16:
+                row["k2_kernel_us"] = kernel_us(k2_call, names[("k2", dd)])
+                row["k2_wrapper_ms"] = time_ms(k2_call, reps=20, warmup=3)
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    return {"builds": builds, "rows": rows}
+
+
+def fixed_p_wide_main(args) -> int:
+    """--fixed-p-wide: fixed_p_wide's rows, JSON to --out."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    card = card_name()
+    print(card)
+    result = {"card": card, "torch": torch.__version__,
+              "fixed_p_wide": fixed_p_wide(torch.device("cuda"))}
+    out = Path(args.out or "chiprun_out/fixed_p_wide.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(card)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config",
@@ -4009,8 +4858,11 @@ def main() -> int:
                              "instance (no driver profile)")
     parser.add_argument("--wrapper-ab", default=None, metavar="DIR",
                         help="only time K1's bf16 wrappers and the flat BLR "
-                             "bf16 step in the tree DIR and in this one, "
+                             "bf16 step (or, with --ab-family k15, K15's "
+                             "wrapper) in the tree DIR and in this one, "
                              "DIR / here / here / DIR (no driver profile)")
+    parser.add_argument("--ab-family", choices=("k1", "k15"), default="k1",
+                        help="the kernels --wrapper-ab times")
     parser.add_argument("--bf16-parity", action="store_true",
                         help="only replay the flat BLR driver's bf16 sweeps "
                              "with sq's sums in other orders (no driver "
@@ -4027,8 +4879,14 @@ def main() -> int:
                         help="only time the panels' float32 wide instances "
                              "against the parent's design (no driver "
                              "profile)")
+    parser.add_argument("--fixed-p-wide", action="store_true",
+                        help="only time K15's float32 wide and bf16 "
+                             "instances against the parent's design, "
+                             "beside K2's (no driver profile)")
     parser.add_argument("--out", default=None)
     args = parser.parse_args()
+    if args.fixed_p_wide:
+        return fixed_p_wide_main(args)
     if args.wide_panel:
         return wide_panel_main(args)
     if args.bf16:

@@ -266,12 +266,15 @@ forty-six phases, one line each (several for phases 2, 3, 7-9 and
      within 1e-3 of its float64 plain route after 20 steps, and the
      engine on a one-rank NCCL group (hier, K10/K11; MVN d = 123 with
      fused_sym="full", K4) within 1e-3 of the driver after 20 steps;
- 44. K14 and K15 past m = 64: 44a K14's wide term groups (iso + 1,
+ 44. K14 and K15 past m = 64 (both on wide_tri_sm90.cuh's body): 44a K14's
+     wide term groups (iso + 1,
      iso + 2 with a negative sign, 0 + 1 and two isotropic terms + 1;
      each group's raw slab against its plain per-group version too) and
      K15's wide sweep at m = 65, 123, 256 and 512 (n = 4096, grid inputs)
      against float64, 44e K14's groups at the tile-128 edges n = 127,
-     128, 129 and 257 (m = 65, 123) and their instances' 0 bytes of spill,
+     128, 129 and 257 (m = 65, 123), K15's at n = 1, 129 and 10007
+     (m = 65, 123; P positive definite and indefinite), and their
+     instances' 0 bytes of spill,
      44b both at (10240, 123), 44c the anisotropic MVN on auto and the
      HESSIAN 'cuda' route at d = 123, gated per call;
  45. the panel sweeps past m = 64 (their float32 wide entries on
@@ -299,7 +302,10 @@ forty-six phases, one line each (several for phases 2, 3, 7-9 and
      K2 at (10000, 2), (10000, 123), (10000, 16) and (10000, 17), K3
      forced at (32768, 2), (10000, 123), (8192, 16) and (8192, 17) (K2
      and K3 on bf16_tri_sm90.cuh's body, whose Gram tile steps k16 at a
-     time), K15 at (1500, 2) and (10240, 123), each against its
+     time), K15 (the same body, two Gram tiles an item) at (1500, 2),
+     (10240, 123) and the edges (1, 2), (129, 123) and (10007, 123) on
+     grid inputs, and at (1500, 11) and (1500, 50) on Gaussian inputs,
+     its pack's operands bit for bit, each against its
      bf16 plain version on the card within 1e-3 of max |phi| (counts
      within 1e-6 n_t n) and against the float32 plain version within
      3e-2, with times beside the float32 instance's and bounds at the
@@ -1001,19 +1007,18 @@ def wide_cases(dev):
 WIDE_SYM_SMEM = 4 * (3 * 2 * 128 * 40 + 128 * 136 + 1032)
 WIDE_SYM_TERMS_SMEM = 4 * (2 * 2 * 128 * 40 + 2 * 128 * 136 + 1032)
 
-#: The wide bodies' shared memory (csrc/wide_tri.cuh WideTri and
-#: WIDE_SYM_SMEM, dynamic), in bytes: wide_pair_body's 9216-float union,
-#: 8704 floats a weight tile and 256 norms and sums (K15's one tile); K14's
-#: single-term groups on the float32 wide triangle body's one-weight layout
-#: (its group 0 of two or more isotropic terms on the terms layout,
-#: WIDE_SYM_TERMS_SMEM + 192 B of static term constants). The square
-#: kernels' (csrc/square_wide_sm90.cuh, dynamic) follows m: wide_smem.
+#: The wide bodies' shared memory (WIDE_SYM_SMEM, dynamic), in bytes:
+#: K15's wide sweep and K14's single-term groups on the float32 wide
+#: triangle body's one-weight layout (K14's group 0 of two or more
+#: isotropic terms on the terms layout, WIDE_SYM_TERMS_SMEM + 192 B of
+#: static term constants). The square kernels' (csrc/square_wide_sm90.cuh,
+#: dynamic) follows m: wide_smem.
 WIDE_SMEM = {"fused_phi_counts_sym": WIDE_SYM_SMEM,
              "fused_phi_counts_sym_chunk": WIDE_SYM_SMEM,
              "fused_phi_terms_sym": WIDE_SYM_TERMS_SMEM,
              "fused_phi_terms_sym_chunk": WIDE_SYM_TERMS_SMEM,
              "fused_phi_aniso_terms_wide": WIDE_SYM_SMEM,
-             "phi_rbf_wide": 4 * (9216 + 8704 + 256)}
+             "phi_rbf_wide": WIDE_SYM_SMEM}
 
 #: The float32 wide triangle body's instances (ptxas names): K2, K4, K8/K9
 #: and K10/K11 at MM = 0, T = 3 or any T <= 8 (kT 8), two terms or any
@@ -1739,6 +1744,11 @@ WIDE_P_TERMS = {"iso+1": ((1.0,), (1.0,)), "iso+2": ((1.0,), (1.0, -0.5)),
 ANISO_WIDE_INSTANCES = ("aniso_wide_groups<3>", "aniso_wide_groups<8>",
                         "aniso_wide_iso<3>", "aniso_wide_iso<8>")
 WIDE_P_FORMS = ("pd", "indefinite", "gamma_i")
+#: K15's wide instance (ptxas name; no counts, one instance) and its edges
+#: in phase 44e: n = 1 (one ragged tile, the self pair alone), 129 (a tile
+#: and one particle) and 10007 (ragged last tile of 79) at m = 65 and 123.
+K15_WIDE_INSTANCES = ("rbf_wide",)
+K15_EDGE_NS = (1, 129, 10007)
 #: replay_gate's least count slack: one pair on the other side of a
 #: threshold in both orders, twice over (as tests/test_torch_wide.py's
 #: COUNT_SLACK).
@@ -2037,9 +2047,11 @@ def phase_wide_p_edges(dev, card, clock, ptxas, errs):
     128) at the tiles' edges, n = WIDE_EDGE_NS at m = WIDE_EDGE_MS on grid
     inputs, every WIDE_P_TERMS set: phi and counts held to the float64 and
     float32 plain versions (wide_held; its max |dphi| into ``errs``), each
-    group's slab to its plain version (aniso_slabs_held). Then ptxas's
-    registers, spill and shared memory of ANISO_WIDE_INSTANCES, none of
-    which may spill."""
+    group's slab to its plain version (aniso_slabs_held); K15's wide sweep
+    (the same body) at n = K15_EDGE_NS, P positive definite and
+    indefinite, held alike. Then ptxas's registers, spill and shared
+    memory of ANISO_WIDE_INSTANCES and K15_WIDE_INSTANCES, none of which
+    may spill."""
     from svgdcpp_tpu_torch.ops import cuda_phi
 
     kernel = cuda_phi.ANISO_WIDE_KERNEL
@@ -2062,15 +2074,37 @@ def phase_wide_p_edges(dev, card, clock, ptxas, errs):
           f"{list(WIDE_P_TERMS)} within {worst:.3e} of max |phi| from "
           f"float64, counts equal, slabs within {worst_slab:.3e} of their "
           f"plain versions {card} {clock()}")
-    report = {inst: ptxas.get(inst, "?") for inst in ANISO_WIDE_INSTANCES}
+    # K15's wide sweep at its own edges: the first n rows of at least 64
+    # (grid_inputs' median needs pairs).
+    kernel, worst, calls = cuda_phi.PHI_RBF_WIDE_KERNEL, 0.0, 0
+    for m in WIDE_EDGE_MS:
+        for n in K15_EDGE_NS:
+            x, s, g, thr = grid_inputs(max(n, 64), m, 0.0, 4450 + n + m, dev)
+            x, s = x[:n].contiguous(), s[:n].contiguous()
+            for kind in ("pd", "indefinite"):
+                p = wide_p_ps(kind, m, 1, 4451, g, dev)[0]
+                kern, want64, want32 = wide_p_call(kernel, x, s, g, thr,
+                                                   (kind, p))
+                abs_err, rel = wide_held(f"44e K15 wide ({n}, {m}) {kind}",
+                                         kern(), want64(), want32())
+                errs[kernel] = max(errs.get(kernel, 0.0), abs_err)
+                worst = max(worst, rel)
+                calls += 1
+    print(f"phase 44e edges: ok {calls} calls of K15's wide sweep at n = "
+          f"{list(K15_EDGE_NS)}, m = {list(WIDE_EDGE_MS)}, P positive "
+          f"definite and indefinite, within {worst:.3e} of max |phi| from "
+          f"float64 {card} {clock()}")
+    report = {inst: ptxas.get(inst, "?")
+              for inst in ANISO_WIDE_INSTANCES + K15_WIDE_INSTANCES}
     spilled = [inst for inst, text in report.items()
                if not text.endswith(" 0 B spill")]
-    check(not spilled, f"phase 44e: K14's wide instances spill or were not "
-                       f"found in the build log: "
+    check(not spilled, f"phase 44e: K14's and K15's wide instances spill or "
+                       f"were not found in the build log: "
                        f"{ {i: report[i] for i in spilled} }")
     print(f"phase 44e ptxas: ok {json.dumps(report)} dynamic smem_bytes="
-          f"{WIDE_SYM_SMEM} (single-term groups), {WIDE_SYM_TERMS_SMEM} "
-          f"+ 192 static (group 0's terms); one block of 288 threads an SM")
+          f"{WIDE_SYM_SMEM} (single-term groups, K15), "
+          f"{WIDE_SYM_TERMS_SMEM} + 192 static (group 0's terms); one block "
+          f"of 288 threads an SM")
 
 
 def phase_wide_p_shapes(dev, card, clock, plain_ms, errs):
@@ -2603,10 +2637,15 @@ def phase_wide_panel_paths(dev, card, clock):
 #: driver under a one-rank NCCL mesh (K1's cross form), COMPARE_STEPS
 #: steps each, every sweep call (every BF16_EVERY-th on the flagship, every
 #: fourth on the panel path) held to its bf16 plain version as in 46a.
-#: K2's and K3's bf16 instances run csrc/bf16_tri_sm90.cuh's body (its
-#: pack kernel, then the sweep; kernel-only times are both's), whose Gram
-#: tile steps k16 at a time: BF16_SHAPES holds them at m = 16 and 17 too,
-#: and 46a requires 0 bytes of spill of BF16_TRI_INSTANCES. K1's runs
+#: K2's, K3's and K15's bf16 instances run csrc/bf16_tri_sm90.cuh's body
+#: (its pack kernel, then the sweep; kernel-only times are both's), whose
+#: Gram tile steps k16 at a time: BF16_SHAPES holds K2 and K3 at m = 16 and
+#: 17 too, K15 (two Gram tiles an item, the rounded Gram not being
+#: symmetric) at the tile edges n = 1, 129 and 10007 and, under "K15
+#: normal", on Gaussian inputs at m = 11 and 50 (the Gram's order of sums
+#: against the plain version's on continuous data); 46a holds K15's pack
+#: to its plain version (cuda_phi.bf16_tri_operands) bit for bit and
+#: requires 0 bytes of spill of BF16_TRI_INSTANCES. K1's runs
 #: csrc/square_bf16_sm90.cuh's pack, the sum of its squares into the norms
 #: (torch.sum, the plain version's reduction), the sweep and the finishing
 #: pass (kernel-only times are all four's; 46a holds the pack's operands
@@ -2628,10 +2667,12 @@ BF16_SHAPES = {"K1": ((1000, 50), (1000, 16), (1000, 17), (1000, 63),
                             (129, 1, 2)),
                "K2": ((10000, 2), (10000, 123), (10000, 16), (10000, 17)),
                "K3": ((32768, 2), (10000, 123), (8192, 16), (8192, 17)),
-               "K15": ((1500, 2), (10240, 123))}
+               "K15": ((1500, 2), (10240, 123), (1, 2), (129, 123),
+                       (10007, 123)),
+               "K15 normal": ((1500, 11), (1500, 50))}
 BF16_TRI_INSTANCES = ("counts_sym_bf16<3>", "counts_sym_bf16<8>",
                       "counts_sympanel_bf16<3>", "counts_sympanel_bf16<8>",
-                      "bf16_tri_pack")
+                      "rbf_wide_bf16", "bf16_tri_pack")
 BF16_PACK = "bf16_tri_pack"
 BF16_SQUARE_INSTANCES = tuple(f"counts_square_bf16<{kt},{nt}>"
                               for kt in (3, 8) for nt in (2, 4, 8, 16)) + (
@@ -2707,12 +2748,16 @@ def bf16_cases(dev):
                                      "float32"), (cross, BF16),
                                     (cross, "float32"))]))
                 continue
-            if key == "K15":
+            if key.startswith("K15"):
+                if key == "K15 normal":
+                    x, s, g, thr = sweep_inputs(max(n, 64), m, 0.0,
+                                                475 + m, dev)
+                    x, s = x[:n].contiguous(), s[:n].contiguous()
                 p = (torch.eye(m, device=dev) * g if m <= 4
                      else wide_p_ps("pd", m, 1, 471, g, dev)[0])
                 half = 0.5 * (p + p.T).double()
                 cases.append((
-                    f"K15 bf16 ({n}, {m})", cuda_phi.PHI_RBF_WIDE_BF16_KERNEL,
+                    f"{key} bf16 ({n}, {m})", cuda_phi.PHI_RBF_WIDE_BF16_KERNEL,
                     n, m, None,
                     lambda x=x, s=s, p=p: (cuda_phi.phi_rbf_cuda(
                         x, s, p, dot_dtype=BF16), None),
@@ -2796,6 +2841,47 @@ def phase_square_bf16_pack(dev, card):
           f"kernel_us at the last {json.dumps(us)} {card}")
 
 
+def phase_fixed_p_bf16_pack(dev, card):
+    """Phase 46a's check of K15's bf16 pack at BF16_SHAPES' K15 shapes: the
+    workspace the entry fills (views cuda_phi.bf16_tri_views) equals its
+    plain version (cuda_phi.bf16_tri_operands) bit for bit: q copied, X, Y
+    and the record [S | X | 1] rounded to bf16, on the wrapper's operands
+    (centred coordinates, Y and q from gram_operands) with an indefinite
+    P; each call's accumulator finite."""
+    import torch
+
+    from svgdcpp_tpu_torch.ops import cuda_phi, sym_plan
+    from svgdcpp_tpu_torch.ops.phi import gram_operands
+
+    lib = cuda_phi.load_library()
+    shapes = BF16_SHAPES["K15"] + BF16_SHAPES["K15 normal"]
+    for n, m in shapes:
+        x, s, g, _ = sweep_inputs(max(n, 64), m, 0.0, 495 + m, dev)
+        x, s = x[:n].contiguous(), s[:n].contiguous()
+        p = wide_p_ps("indefinite", m, 1, 496, g, dev)[0]
+        coords_c = (x - x.mean(dim=0)).contiguous()
+        y, q = gram_operands(coords_c, 0.5 * (p + p.T).double())
+        work = torch.full((sym_plan.bf16_work_bytes(n, m, gram_y=True),), 7,
+                          dtype=torch.uint8, device=dev)
+        acc = torch.zeros((2 * m + 1, n), device=dev)
+        rc = lib.svgd_phi_rbf_wide_bf16(
+            coords_c.data_ptr(), y.data_ptr(), q.data_ptr(), s.data_ptr(), n,
+            m, 0, work.data_ptr(), acc.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"phase 46a K15 bf16 pack ({n}, {m}): entry "
+                       f"returned {rc}")
+        got = cuda_phi.bf16_tri_views(work, n, m, gram_y=True)
+        want = cuda_phi.bf16_tri_operands(coords_c, s, y, q)
+        torch.cuda.synchronize()
+        off = [name for name in want if not torch.equal(got[name],
+                                                        want[name])]
+        check(not off and bool(acc.isfinite().all()),
+              f"phase 46a K15 bf16 pack ({n}, {m}): {off} differ from the "
+              f"plain version, or the accumulator is not finite")
+    print(f"phase 46a K15 bf16 pack: ok q, X, Y and the record equal their "
+          f"plain version bit for bit at {len(shapes)} shapes {card}")
+
+
 def phase_bf16_kernels(dev, card, clock, ptxas, plain_ms):
     """Phase 46a (see BF16_GATE). Returns ({kernel: max |dphi| against the
     bf16 plain version}, {(kernel, n, m): times}, {kernel: launches of the
@@ -2806,6 +2892,7 @@ def phase_bf16_kernels(dev, card, clock, ptxas, plain_ms):
 
     errs, times, launched = {}, {}, {}
     phase_square_bf16_pack(dev, card)
+    phase_fixed_p_bf16_pack(dev, card)
     for label, kernel, n, m, n_t, kern, kern32, plain, plain32 in (
             bf16_cases(dev)):
         cuda_phi.reset_launch_counts()
@@ -2837,7 +2924,8 @@ def phase_bf16_kernels(dev, card, clock, ptxas, plain_ms):
             cnt = f" count_diff={dcnt} count_diff_vs_float32={d32}"
         errs[kernel] = max(errs.get(kernel, 0.0), abs_err)
         names = ((kernel, BF16_PACK) if kernel in (
-            cuda_phi.SYM_BF16_KERNEL, cuda_phi.SYMPANEL_BF16_KERNEL)
+            cuda_phi.SYM_BF16_KERNEL, cuda_phi.SYMPANEL_BF16_KERNEL,
+            cuda_phi.PHI_RBF_WIDE_BF16_KERNEL)
             else BF16_SQUARE_NAMES if kernel == cuda_phi.SQUARE_BF16_KERNEL
             else kernel)
         t = {"kernel": time_ms(kern, reps=10, warmup=2),
@@ -5922,6 +6010,7 @@ def main() -> int:
             tensor = tri_tensor_bound(n44, m44, n_terms=1, n_aniso=1)
         else:
             tensor = tri_tensor_bound(n44, m44, fixed_p=True)
+        path["tensor_bound_ms"] = tensor[0]
         paths[kernel] = [path]
         print(f"{kernel} phase 44 {name} n={n44} m={m44}: bound_ms="
               f"{path['bound_ms']:.6g} ({path['bound_by']}, FP32), on the "
@@ -5954,6 +6043,8 @@ def main() -> int:
     t15 = times46[(k15_16, 10240, WIDE_D)]
     paths[k15_16] = [main_path(46, k15_16, 10240, WIDE_D, launched46[k15_16],
                                t15)]
+    paths[k15_16][0]["tensor_bound_ms"] = bf16_bounds(k15_16, 10240,
+                                                      WIDE_D)[1][0]
     paths[k15_16][0]["launches_from"] = (
         "phase 46a's direct calls of phi_rbf_cuda(..., dot_dtype="
         "'bfloat16'): no driver route passes the option to K15")
@@ -6000,12 +6091,12 @@ def main() -> int:
         entry(aniso, "fused_phi_aniso.cu", f"{pallas}:3205", ["K14"],
               aniso_err),
         entry(k15, "phi_rbf.cu", f"{pallas}:116", ["K15"], k15_err),
-        # The wide instances past m = 64 (phase 44): K14's groups on
-        # wide_tri_sm90.cuh's body, K15's on wide_tri.cuh's.
+        # The wide instances past m = 64 (phase 44): K14's groups and
+        # K15's sweep on wide_tri_sm90.cuh's body.
         entry(k14w, "fused_phi_aniso.cu", f"{pallas}:3205", ["K14"],
               wide_p_errs[k14w], body="wide_tri_sm90.cuh"),
         entry(k15w, "phi_rbf.cu", f"{pallas}:116", ["K15"],
-              wide_p_errs[k15w]),
+              wide_p_errs[k15w], body="wide_tri_sm90.cuh"),
         # No TPU kernel of its own: K15's wrapper needs the decomposition
         # that _phi_rbf_pallas_impl's Gram form does without; the library
         # call is torch.linalg.eigh on the card.
@@ -6031,7 +6122,7 @@ def main() -> int:
         entry(sp16, "fused_phi_panel.cu", f"{pallas}:860", ["K3"],
               bf16_errs[sp16], body="bf16_tri_sm90.cuh"),
         entry(k15_16, "phi_rbf.cu", f"{pallas}:116", ["K15"],
-              bf16_errs[k15_16]),
+              bf16_errs[k15_16], body="bf16_tri_sm90.cuh"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

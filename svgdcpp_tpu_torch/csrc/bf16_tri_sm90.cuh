@@ -1,8 +1,10 @@
 // The bfloat16 opt-in's upper-triangle body (the JAX package's
 // dot_dtype='bfloat16'), at every m >= 1, for K2's bf16 instance
-// (fused_phi.cu, fused_phi_counts_sym_bf16: the whole triangle) and K3's
+// (fused_phi.cu, fused_phi_counts_sym_bf16: the whole triangle), K3's
 // (fused_phi_panel.cu, fused_phi_counts_sympanel_bf16: the tile pairs of
-// every panel in the panel list's order), on Hopper's bf16 tensor cores.
+// every panel in the panel list's order) and K15's (phi_rbf.cu,
+// phi_rbf_wide_bf16: the whole triangle in the fixed-P Gram form, kAsym
+// below), on Hopper's bf16 tensor cores.
 //
 // It computes what the JAX kernels compute under bf16 (_sym_kernel through
 // _phi_rbf_fused_pallas_sym_impl, pallas_phi.py:546 and :609-640, and
@@ -22,8 +24,9 @@
 // sq, one ex2, the bf16 rounding, T compares and the two contractions
 // (2(2m + 1) MACs): at small m the FP32 pipes and the special function
 // unit (the sq, weight and count instructions, about 12 a pair), at large
-// m the tensor cores. wide_tri.cuh's wide_pair_body, which ran these
-// instances before, was sized for float32 past m = 64: 64 x 64 tile pairs a
+// m the tensor cores. The parent body, which ran these instances before
+// (chip_profile.py keeps its text as their parent), was sized
+// for float32 past m = 64: 64 x 64 tile pairs a
 // block, synchronous staging, Gram slices of 32 coordinates and records of
 // 64 columns whatever m (at m = 2, 30 of 32 and 59 of 64 zero), each
 // product one TF32 m16n8k8 pass on bf16 values in float32 slots, W^T read
@@ -37,9 +40,10 @@
 //     one k-step over 16 coordinates and one n-tile of 8 columns.
 //   * The operands are rounded once, by the pack kernel (bf16_tri_pack),
 //     into the entry's workspace: q (float32), the Gram operand X (n rows
-//     of bf16_gram_width(m), zero past m) and the record R (n rows of
-//     bf16_record_width(m): [S | X | 1 | 0...]), every row a multiple of 16
-//     bytes; one launch more a call, half the float32 bytes staged after.
+//     of bf16_gram_width(m), zero past m), the record R (n rows of
+//     bf16_record_width(m): [S | X | 1 | 0...]) and, for K15, its second
+//     Gram operand Y (as X), every row a multiple of 16 bytes; one launch
+//     more a call, half the float32 bytes staged after.
 //   * Weights from registers: warp w owns rows 16w .. 16w + 15 of I against
 //     all 128 columns of J, so its Gram accumulators, rounded and packed to
 //     bf16x2, are the A fragments of K over J: the rows of I take
@@ -67,17 +71,34 @@
 // ldmatrix.trans) and the columns of J (A = W^T by ldmatrix.trans, B =
 // R_I), each flushed with float32 atomics
 // into the accumulator [KS | KX | rowsum] (the spot's out0 and out1,
-// wide_tri.cuh's WideSpot). Rows past n are staged as zeros, so they add
-// nothing to the other side; a diagonal item keeps j >= i. Shared memory:
+// sweep_common.cuh's WideSpot). Rows past n are staged as zeros, so they
+// add nothing to the other side, and a guarded item's weights past n are 0;
+// a diagonal item keeps j >= i. Shared memory:
 // 5 stages of 2 x 16 KB + 1 KB, and W 32 KB: 201,728 B, one block of 384
 // threads (8 consumer warps, 4 producer warps) an SM.
+//
+// kAsym, K15's fixed-P form (the JAX kernel's _phi_kernel,
+// pallas_phi.py:116-130, under bf16): the Gram operands are X and
+// Y = X_c (P_sym/2), both rounded, the norms the wrapper's float32
+// q_i = x_i . y_i (which the pack copies into the workspace's q), sq =
+// q_i + q_j - 2 G clamped at 0 only where P is taken as positive
+// semidefinite (qmin 0, else -inf), k = exp2(-log2(e) sq), no counts. The
+// rounded Gram is not symmetric in the pair (bf16(x_i) . bf16(y_j) against
+// bf16(x_j) . bf16(y_i)), so an item takes two Gram tiles in sequence into
+// the same accumulators: first G2 = Y_I X_J^T, whose weights k(j <- i) go
+// to W alone for the columns of J, then G1 = X_I Y_J^T, whose weights
+// k(i <- j) go to the A fragments alone for the rows of I; 2 kg Gram
+// stages an item, the norms beside the last of each pass. Nor is the self
+// pair pinned: its form is left as the rounded Gram gives it, as the JAX
+// kernel's square sweep forms it, and it enters once in all, from the rows'
+// pass (the columns' pass keeps j > i on a diagonal item). The wrapper
+// subtracts nothing.
 
 #pragma once
 
 #include <cuda_bf16.h>
 
 #include "square_mma.cuh"
-#include "wide_tri.cuh"
 
 namespace svgd {
 
@@ -119,22 +140,26 @@ __host__ __device__ inline int bf16_slot_lg(int width) {
 }
 
 // The workspace's layout (sym_plan.bf16_work_bytes): q (n floats, to a
-// 16-byte boundary), then X (n x gram width) and R (n x record width).
+// 16-byte boundary), then X (n x gram width) and R (n x record width),
+// then, for K15 alone, Y (n x gram width; null otherwise).
 struct Bf16Operands {
   float* q;
   __nv_bfloat16* xg;
   __nv_bfloat16* rec;
+  __nv_bfloat16* yg;
 };
 
 inline size_t bf16_work_q_bytes(int n) {
   return (static_cast<size_t>(n) * 4 + 15) / 16 * 16;
 }
 
-inline Bf16Operands bf16_operands(void* work, int n, int m) {
+inline Bf16Operands bf16_operands(void* work, int n, int m, bool with_y) {
   auto* base = static_cast<unsigned char*>(work);
   auto* xg = reinterpret_cast<__nv_bfloat16*>(base + bf16_work_q_bytes(n));
-  return Bf16Operands{static_cast<float*>(work), xg,
-                      xg + static_cast<size_t>(n) * bf16_gram_width(m)};
+  auto* rec = xg + static_cast<size_t>(n) * bf16_gram_width(m);
+  return Bf16Operands{
+      static_cast<float*>(work), xg, rec,
+      with_y ? rec + static_cast<size_t>(n) * bf16_record_width(m) : nullptr};
 }
 
 // The segment (r, seg) of a slot row of 2^lg segments, XOR-swizzled so
@@ -260,15 +285,19 @@ struct Bf16PanelWork {
 
 // The body over work items [0, items), block b taking the contiguous range
 // [b items / grid, (b + 1) items / grid) (sym_plan.bf16_walk), so that the
-// blocks in flight work in distinct parts of the list; kT thresholds (3,
-// or kMaxT for a runtime T); ng2 = -gamma log2(e). Warps 0-7 compute;
+// blocks in flight work in distinct parts of the list; the pack's operands
+// ops; kT thresholds (3, or kMaxT for a runtime T, or 0 with T = 0 and
+// counts null for none); ng2 = -gamma log2(e); kAsym K15's form (see the
+// top of the file: ops.yg set, qmin the clamp's floor). Warps 0-7 compute;
 // warps 8-11, the producers, issue every stage's copies.
-template <int kT, class Work>
+template <int kT, bool kAsym = false, class Work>
 __device__ __forceinline__ void bf16_tri_body(
-    const float* __restrict__ q, const __nv_bfloat16* __restrict__ xg,
-    const __nv_bfloat16* __restrict__ rec, float ng2,
-    const float* __restrict__ thr, int n, int m, int T, long long items,
-    const Work& work, unsigned long long* __restrict__ counts) {
+    const Bf16Operands& ops, float ng2, const float* __restrict__ thr, int n,
+    int m, int T, long long items, const Work& work,
+    unsigned long long* __restrict__ counts, float qmin = 0.0f) {
+  const float* __restrict__ q = ops.q;
+  const __nv_bfloat16* __restrict__ xg = ops.xg;
+  const __nv_bfloat16* __restrict__ rec = ops.rec;
   constexpr int S = kBf16Tile;
   using L = Bf16Tri;
   extern __shared__ __align__(128) unsigned char bf16_sh[];
@@ -287,9 +316,10 @@ __device__ __forceinline__ void bf16_tri_body(
   const int cw_lg = bf16_slot_lg(rw);  // a record chunk's segments
   const int sl = 8 << sl_lg;
   const int cw = 8 << cw_lg;
-  const int kg = (mk + sl - 1) / sl;   // Gram slices
+  const int kg = (mk + sl - 1) / sl;   // Gram slices of a pass
+  const int ng = kAsym ? 2 * kg : kg;  // Gram stages an item
   const int nc = (rw + cw - 1) / cw;   // record chunks
-  const int ns = kg + nc;              // stages an item
+  const int ns = ng + nc;              // stages an item
   const long long lo = items * blockIdx.x / gridDim.x;
   const long long mine = items * (blockIdx.x + 1) / gridDim.x - lo;
   const long long total = mine * ns;
@@ -307,22 +337,23 @@ __device__ __forceinline__ void bf16_tri_body(
     WideSpot sp;
     bool live = work.spot(pc, sp);
     int ps = 0;  // the stage of pc's item to issue next
-    // The rows of I into dst_i and of J into dst_j: slot rows of 2^lg
-    // segments, global rows of `width` bf16 from column c0 of `base`.
+    // The rows of I of `base_i` into dst_i and of J of `base_j` into
+    // dst_j: slot rows of 2^lg segments, global rows of `width` bf16 from
+    // column c0.
     auto copy = [&](uint32_t dst_i, uint32_t dst_j, int lg, int width,
-                    int c0, const __nv_bfloat16* base) {
+                    int c0, const __nv_bfloat16* base_i,
+                    const __nv_bfloat16* base_j) {
       const int seg = pt & ((1 << lg) - 1);
       if (c0 + 8 * seg >= width) return;
       const int r0 = pt >> lg;
       const int step = kBf16Producers >> lg;  // rows between copies
       const uint32_t off = 16 * bf16_slot_seg(r0, seg, lg);
-      const __nv_bfloat16* src = base + c0 + 8 * seg;
 #pragma unroll
       for (int slot = 0; slot < 2; ++slot) {
         const int row = slot ? sp.j0 : sp.i0;
         const uint32_t dst = (slot ? dst_j : dst_i) + off;
-        const __nv_bfloat16* from =
-            src + static_cast<size_t>(row + r0) * width;
+        const __nv_bfloat16* from = (slot ? base_j : base_i) + c0 + 8 * seg +
+                                    static_cast<size_t>(row + r0) * width;
         const int left = n - row - r0;  // rows to n
 #pragma unroll 2
         for (int i = 0; i < (1 << lg); ++i) {
@@ -340,12 +371,18 @@ __device__ __forceinline__ void bf16_tri_body(
       if (live) {
         const uint32_t stage =
             ring + static_cast<uint32_t>(st % kBf16Stages) * L::kStageBytes;
-        if (ps < kg) {
-          copy(stage, stage + L::kSlotBytes, sl_lg, mk, ps * sl, xg);
+        // K15's first pass stages Y_I and X_J, its second X_I and Y_J;
+        // the others' one pass X_I and X_J.
+        const bool second = kAsym && ps >= kg;
+        const int sg = second ? ps - kg : ps;  // the pass's slice
+        if (ps < ng) {
+          copy(stage, stage + L::kSlotBytes, sl_lg, mk, sg * sl,
+               kAsym && !second ? ops.yg : xg, second ? ops.yg : xg);
         } else {
-          copy(stage, stage + L::kSlotBytes, cw_lg, rw, (ps - kg) * cw, rec);
+          copy(stage, stage + L::kSlotBytes, cw_lg, rw, (ps - ng) * cw, rec,
+               rec);
         }
-        if (ps == kg - 1 && pt < 2 * S / 4) {  // the norms of I and J
+        if (ps < ng && sg == kg - 1 && pt < 2 * S / 4) {  // q of I and J
           const int part = ((pt >> 5) ? sp.j0 : sp.i0) + 4 * (pt & 31);
           const int v = min(max(n - part, 0), 4);
           cp_async16_shared(stage + 2 * L::kSlotBytes + 16 * pt,
@@ -374,7 +411,7 @@ __device__ __forceinline__ void bf16_tri_body(
     return;
   }
 
-  float th[kT];
+  float th[kT > 0 ? kT : 1];
 #pragma unroll
   for (int k = 0; k < kT; ++k) th[k] = thr[k < T ? k : 0];
   uint32_t kf[8][4];  // K's rows 16 warp .. + 15: A fragments over J
@@ -517,42 +554,50 @@ __device__ __forceinline__ void bf16_tri_body(
     }
     const bool diag = sp.diag;
     const bool guarded = diag || sp.i0 + S > n || sp.j0 + S > n;
-    int off = 0;  // the ring offset of the item's last Gram stage
     {
       float acc[16][4];
+      int off = 0;  // the ring offset of the pass's last Gram stage
+      // A Gram tile over the next kg stages into acc.
+      auto gram = [&]() {
 #pragma unroll
-      for (int c = 0; c < 16; ++c) {
+        for (int c = 0; c < 16; ++c) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
-      }
+          for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
+        }
 #pragma unroll 1
-      for (int s = 0; s < kg; ++s) {
-        off = next_stage();
-        const uint32_t x_i = ring + off;
-        const uint32_t x_j = x_i + L::kSlotBytes + gb_row;
-        const int kv = min(sl >> 4, (m - s * sl + 15) >> 4);
+        for (int s = 0; s < kg; ++s) {
+          off = next_stage();
+          const uint32_t x_i = ring + off;
+          const uint32_t x_j = x_i + L::kSlotBytes + gb_row;
+          const int kv = min(sl >> 4, (m - s * sl + 15) >> 4);
 #pragma unroll 1
-        for (int ks = 0; ks < kv; ++ks) {
-          uint32_t a[4];
-          ldsm_x4(x_i + ga_row + 16 * ((2 * ks + (lane >> 4)) ^ sw_ga), a);
-          const uint32_t bk =
-              x_j + 16 * ((2 * ks + ((lane >> 3) & 1)) ^ sw_gb);
+          for (int ks = 0; ks < kv; ++ks) {
+            uint32_t a[4];
+            ldsm_x4(x_i + ga_row + 16 * ((2 * ks + (lane >> 4)) ^ sw_ga), a);
+            const uint32_t bk =
+                x_j + 16 * ((2 * ks + ((lane >> 3) & 1)) ^ sw_gb);
 #pragma unroll
-          for (int p = 0; p < 8; ++p) {
-            uint32_t b[4];
-            ldsm_x4(bk + g16 * p, b);
-            mma_bf16(acc[2 * p], a, b[0], b[1]);
-            mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
+            for (int p = 0; p < 8; ++p) {
+              uint32_t b[4];
+              ldsm_x4(bk + g16 * p, b);
+              mma_bf16(acc[2 * p], a, b[0], b[1]);
+              mma_bf16(acc[2 * p + 1], a, b[2], b[3]);
+            }
           }
         }
-      }
-      // sq, the counts and k once a pair: kf from registers, W for the
-      // columns' direction.
-      const float* nrm = reinterpret_cast<const float*>(
-          bf16_sh + off + 2 * L::kSlotBytes);
-      const float qi[2] = {nrm[row0], nrm[row0 + 8]};
-      auto weigh = [&](auto guard_c) {
+      };
+      // sq, the counts and k once a pair, from the Gram tile in acc: into
+      // the A fragments kf (kRows: the rows of I take K from registers)
+      // and into W (kCols: the columns of J read K^T there). On a
+      // diagonal item the pass that feeds the rows keeps j >= i, the self
+      // pair pinned to 0 unless kAsym; K15's columns' pass keeps j > i.
+      auto weigh = [&](auto guard_c, auto rows_c, auto cols_c) {
         constexpr bool kGuard = decltype(guard_c)::value;
+        constexpr bool kRows = decltype(rows_c)::value;
+        constexpr bool kCols = decltype(cols_c)::value;
+        const float* nrm = reinterpret_cast<const float*>(
+            bf16_sh + off + 2 * L::kSlotBytes);
+        const float qi[2] = {nrm[row0], nrm[row0 + 8]};
 #pragma unroll
         for (int nt = 0; nt < 16; ++nt) {
           const float2 qj =
@@ -564,13 +609,13 @@ __device__ __forceinline__ void bf16_tri_body(
             const int jl = 8 * nt + 2 * t + (e & 1);
             float sq = fmaf(-2.0f, acc[nt][e],
                             __fadd_rn(qi[e >> 1], (e & 1) ? qj.y : qj.x));
-            sq = fmaxf(sq, 0.0f);
+            sq = fmaxf(sq, qmin);
             if constexpr (kGuard) {
-              if (diag && il == jl) sq = 0.0f;
-              const bool keep = !diag || jl >= il;
+              if (!kAsym && diag && il == jl) sq = 0.0f;
+              const bool keep = !diag || (kRows ? jl >= il : jl > il);
               const bool ok = keep && sp.i0 + il < n && sp.j0 + jl < n;
               count_pair_fixed<kT, true>(sq, th, ok, cnt);
-              kv[e] = keep ? ex2_ftz(ng2 * sq) : 0.0f;
+              kv[e] = ok ? ex2_ftz(ng2 * sq) : 0.0f;
             } else {
               count_pair_fixed<kT, false>(sq, th, true, cnt);
               kv[e] = ex2_ftz(ng2 * sq);
@@ -578,18 +623,33 @@ __device__ __forceinline__ void bf16_tri_body(
           }
           const uint32_t lo = pack_bf16x2(kv[0], kv[1]);  // row g
           const uint32_t hi = pack_bf16x2(kv[2], kv[3]);  // row g + 8
-          kf[nt >> 1][2 * (nt & 1)] = lo;
-          kf[nt >> 1][2 * (nt & 1) + 1] = hi;
-          *reinterpret_cast<uint32_t*>(
-              wgen + 16 * ((row0 << 4) + (nt ^ g)) + 4 * t) = lo;
-          *reinterpret_cast<uint32_t*>(
-              wgen + 16 * (((row0 + 8) << 4) + (nt ^ g)) + 4 * t) = hi;
+          if constexpr (kRows) {
+            kf[nt >> 1][2 * (nt & 1)] = lo;
+            kf[nt >> 1][2 * (nt & 1) + 1] = hi;
+          }
+          if constexpr (kCols) {
+            *reinterpret_cast<uint32_t*>(
+                wgen + 16 * ((row0 << 4) + (nt ^ g)) + 4 * t) = lo;
+            *reinterpret_cast<uint32_t*>(
+                wgen + 16 * (((row0 + 8) << 4) + (nt ^ g)) + 4 * t) = hi;
+          }
         }
       };
-      if (guarded) {
-        weigh(std::true_type{});
+      auto weigh_pass = [&](auto rows_c, auto cols_c) {
+        if (guarded) {
+          weigh(std::true_type{}, rows_c, cols_c);
+        } else {
+          weigh(std::false_type{}, rows_c, cols_c);
+        }
+      };
+      if constexpr (kAsym) {
+        gram();  // G2 = Y_I X_J^T: k(j <- i), the columns' W
+        weigh_pass(std::false_type{}, std::true_type{});
+        gram();  // G1 = X_I Y_J^T: k(i <- j), the rows' kf
+        weigh_pass(std::true_type{}, std::false_type{});
       } else {
-        weigh(std::false_type{});
+        gram();
+        weigh_pass(std::true_type{}, std::true_type{});
       }
     }
     // The record chunks: the rows of I (A = K from registers, B = R_J),
@@ -653,12 +713,16 @@ __device__ __forceinline__ __nv_bfloat16 bf16_record_value(const float* x,
 
 // The operands' one rounding: a warp a particle (kRows particles a block)
 // reads its float32 centred coordinates and scores and writes q (the
-// float32 norm), X (bf16, zero past m) and R = [S | X | 1 | 0...] (bf16).
-// A template, so that the two sources that include this header share it.
+// float32 norm |x|^2, or the caller's q copied where given), X (bf16, zero
+// past m), R = [S | X | 1 | 0...] (bf16) and, where y is given (K15's
+// Y = X_c (P_sym/2), float32), Y (bf16, zero past m; ops.yg). A template,
+// so that the three sources that include this header share it.
 template <int kRows>
 __global__ void __launch_bounds__(32 * kRows)
     bf16_tri_pack_kernel(const float* __restrict__ coords,
-                         const float* __restrict__ scores, int n, int m,
+                         const float* __restrict__ scores,
+                         const float* __restrict__ y,
+                         const float* __restrict__ qg, int n, int m,
                          Bf16Operands ops) {
   const int lane = static_cast<int>(threadIdx.x) & 31;
   const int i = static_cast<int>(blockIdx.x) * kRows +
@@ -673,6 +737,10 @@ __global__ void __launch_bounds__(32 * kRows)
     const float v = c < m ? x[c] : 0.0f;
     acc = fmaf(v, v, acc);
     ops.xg[static_cast<size_t>(i) * mk + c] = __float2bfloat16_rn(v);
+    if (y != nullptr) {
+      const float w = c < m ? y[static_cast<size_t>(i) * m + c] : 0.0f;
+      ops.yg[static_cast<size_t>(i) * mk + c] = __float2bfloat16_rn(w);
+    }
   }
   for (int c = lane; c < rw; c += 32) {
     ops.rec[static_cast<size_t>(i) * rw + c] = bf16_record_value(x, s, m, c);
@@ -681,17 +749,21 @@ __global__ void __launch_bounds__(32 * kRows)
   for (int off = 16; off > 0; off >>= 1) {
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   }
-  if (lane == 0) ops.q[i] = acc;
+  if (lane == 0) ops.q[i] = qg != nullptr ? qg[i] : acc;
 }
 
 // Launch the pack into `work` (16-byte aligned, sym_plan.bf16_work_bytes
-// bytes) and return the packed operands.
+// bytes, with Y's block where y is given) and return the packed operands:
+// K2's and K3's from the coordinates and scores; K15's also from y and q,
+// its rows x_c (P_sym/2) and norms x_i . y_i (float32, (n, m) and (n,)).
 inline Bf16Operands bf16_tri_pack(const float* coords, const float* scores,
-                                  int n, int m, void* work, cudaStream_t s) {
-  const Bf16Operands ops = bf16_operands(work, n, m);
+                                  int n, int m, void* work, cudaStream_t s,
+                                  const float* y = nullptr,
+                                  const float* q = nullptr) {
+  const Bf16Operands ops = bf16_operands(work, n, m, y != nullptr);
   bf16_tri_pack_kernel<kBf16PackRows>
       <<<(n + kBf16PackRows - 1) / kBf16PackRows, 32 * kBf16PackRows, 0,
-         s>>>(coords, scores, n, m, ops);
+         s>>>(coords, scores, y, q, n, m, ops);
   return ops;
 }
 

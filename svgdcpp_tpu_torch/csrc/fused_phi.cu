@@ -60,7 +60,6 @@
 #include "bf16_tri_sm90.cuh"
 #include "square_bf16_sm90.cuh"
 #include "square_wide_sm90.cuh"
-#include "wide_tri.cuh"
 #include "wide_tri_sm90.cuh"
 
 namespace {
@@ -292,8 +291,8 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
                                      int m, int T, int nb, long long items,
                                      float* __restrict__ acc,
                                      unsigned long long* __restrict__ counts) {
-  bf16_tri_body<kT>(ops.q, ops.xg, ops.rec, -gamma[0] * kLog2e, thr, n, m, T,
-                    items, Bf16TriWork{nb, n, acc}, counts);
+  bf16_tri_body<kT>(ops, -gamma[0] * kLog2e, thr, n, m, T, items,
+                    Bf16TriWork{nb, n, acc}, counts);
 }
 
 template <int MM, bool kExact, int kT>

@@ -617,8 +617,8 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
         Bf16Operands ops, const float* __restrict__ gamma,
         const float* __restrict__ thr, int n, int m, int T, long long items,
         Bf16PanelWork work, unsigned long long* __restrict__ counts) {
-  bf16_tri_body<kT>(ops.q, ops.xg, ops.rec, -gamma[0] * kLog2e, thr, n, m, T,
-                    items, work, counts);
+  bf16_tri_body<kT>(ops, -gamma[0] * kLog2e, thr, n, m, T, items, work,
+                    counts);
 }
 
 // Launch of the single-RBF panel sweep over panels [p0, p0 + num_p) of the

@@ -77,37 +77,39 @@
 // takes P itself, in _phi_kernel's own form: the wrapper forms
 // Y = X_c (P_sym/2) and q_i = x_i . y_i in float64 on the device and casts
 // them to float32 (the product the JAX package forms outside its kernel),
-// and wide_tri.cuh's tensor-core body sweeps the triangle of tiles of 64
-// with the Gram tile G = X_I Y_J^T in 3xTF32 (symmetric in the pair, since
-// P_sym is, so one weight tile serves both directions), sq =
-// q_i + q_j - 2 G clamped at 0 only where psd, the self pair pinned to 0,
-// k = exp(-sq) (above 1 for an indefinite P) and no thresholds; then both
-// contractions W [S | X] into the zeroed (2m, n) accumulator [KS | D],
-// D = sum_j k (x_i - x_j) from the sums as the body forms it. The self
-// pair enters KS in both directions; the wrapper subtracts s_i once and
-// applies 2 D (P_sym/2) in float64. 72.7 KB of dynamic shared memory (one
-// weight tile).
+// pads X_c, Y and S with zero columns to a multiple of 4 floats
+// (sym_plan.wide_row_width: the body's 16-byte copies), and
+// wide_tri_sm90.cuh's body sweeps the upper triangle of tiles of 128 on
+// one persistent block an SM with its FixedPGram form: the Gram tile
+// G = X_I Y_J^T in 3xTF32 (symmetric in the pair, since P_sym is, so one
+// weight tile serves both directions), sq = q_i + q_j - 2 G clamped at 0
+// only where psd, the self pair pinned to 0, k = exp(-sq) (above 1 for an
+// indefinite P) and no counts; then both contractions W [S | X] into the
+// zeroed (2m, n) accumulator [KS | D], D = sum_j k (x_i - x_j) from the
+// sums as the body forms it. The self pair enters KS in both directions;
+// the wrapper subtracts s_i once and applies 2 D (P_sym/2) in float64.
+// K2's wide instance sweeps the same triangle at the same widths: the two
+// differ in the Gram tile's form alone, and this one counts nothing.
 //
 // The bfloat16 operand opt-in (phi_rbf_pallas(..., dot_dtype='bfloat16'),
-// pallas_phi.py:169-201): svgd_phi_rbf_wide_bf16 runs the same wide sweep
-// at any m >= 1 with wide_tri.cuh's kBf16, the Gram operands X and Y, the
-// weights exp(-sq) and the records [S | X] rounded to bf16 (Y's rounding
-// is exactly half that of the JAX kernel's x_c P_sym), q and the D term's
-// x_i in float32, one TF32 pass a product. The JAX kernel sweeps the
-// square, and its rounded Gram is not symmetric in the pair
-// (bf16(x_i) . bf16(y_j) against bf16(x_j) . bf16(y_i)), so this instance
-// forms both (wide_tri.cuh's kAsym: a second Gram tile and a second
-// weight tile, 107.5 KB), the rows' weights from the first and the
-// columns' from the second. Nor does the JAX kernel pin the self pair,
-// whose form sits visibly off 0 under bf16, so this instance pins nothing
-// (WideForm.pin false): the self pair's weight is formed like any other
-// and enters each direction at half, once in all, and the wrapper
-// subtracts nothing.
+// pallas_phi.py:169-201): svgd_phi_rbf_wide_bf16 runs at any m >= 1 on
+// bf16_tri_sm90.cuh's body with kAsym: the pack kernel rounds X, Y (whose
+// rounding is exactly half that of the JAX kernel's x_c P_sym) and the
+// record [S | X | 1] to bf16 once and copies the wrapper's float32 q; the
+// body takes both rounded Gram tiles, since bf16(x_i) . bf16(y_j) is not
+// bf16(x_j) . bf16(y_i): G2 = Y_I X_J^T for the columns' weights, then
+// G1 = X_I Y_J^T for the rows', on bf16 mma.sync with float32
+// accumulation; the weights exp(-sq) rounded to bf16, the self pair
+// formed like any other and entered once in all (the JAX kernel sweeps
+// the square and pins nothing), into the zeroed (2m + 1, n) accumulator
+// [KS | KX | rowsum]. The wrapper forms D = rowsum x - KX with the float32
+// x, applies 2 D (P_sym/2) in float64 and subtracts nothing.
 //
 // The entry points return cudaGetLastError() after their launches.
 
+#include "bf16_tri_sm90.cuh"
 #include "micro_tile.cuh"
-#include "wide_tri.cuh"
+#include "wide_tri_sm90.cuh"
 
 namespace {
 
@@ -207,55 +209,33 @@ __global__ void __launch_bounds__(MicroTri<MM>::kThreads)
                                 out, nullptr);
 }
 
-// The wide sweep (see the top of the file): tile pair blockIdx.x of the
-// upper triangle of tiles of kWideTile, no counts.
-__global__ void __launch_bounds__(kWideTriThreads)
+// The wide sweep (see the top of the file): the upper triangle of tiles of
+// kWideSymTile, one persistent block an SM, no counts.
+__global__ void __launch_bounds__(kWideSymThreads)
     phi_rbf_wide_kernel(const float* __restrict__ coords,
                         const float* __restrict__ y,
                         const float* __restrict__ q,
                         const float* __restrict__ scores, int n, int m,
-                        int psd, int nb, float* __restrict__ out) {
-  WideForm form;
-  form.y = y;
-  form.q = q;
-  form.clamp = psd != 0;
-  wide_tri_body<0>(coords, scores, OneRbf{-kLog2e}, nullptr, n, m, 0, nb,
-                   0LL, out, nullptr, form);
+                        float qmin, int nb, long long count,
+                        float* __restrict__ out) {
+  wide_tri_sm90_body<0>(coords, scores, OneRbf{-kLog2e}, nullptr, n, m, 0,
+                        WideTriWork{nb, 0LL, count}, out, nullptr,
+                        FixedPGram{y, q, qmin});
 }
 
-// K15's bf16 instance (every m): the wide sweep with kBf16.
-__global__ void __launch_bounds__(kWideTriThreads)
-    phi_rbf_wide_bf16_kernel(const float* __restrict__ coords,
-                             const float* __restrict__ y,
-                             const float* __restrict__ q,
-                             const float* __restrict__ scores, int n, int m,
-                             int psd, int nb, float* __restrict__ out) {
-  WideForm form;
-  form.y = y;
-  form.q = q;
-  form.clamp = psd != 0;
-  form.pin = false;
-  wide_tri_body<0, true, true>(coords, scores, OneRbf{-kLog2e}, nullptr, n,
-                               m, 0, nb, 0LL, out, nullptr, form);
+// K15's bf16 instance (every m): bf16_tri_sm90.cuh's body with kAsym over
+// the whole triangle of tiles of kBf16Tile, on the packed operands, into
+// the (2m + 1, n) accumulator [KS | KX | rowsum].
+__global__ void __launch_bounds__(kBf16Threads, 1)
+    phi_rbf_wide_bf16_kernel(Bf16Operands ops, int n, int m, float qmin,
+                             int nb, long long items,
+                             float* __restrict__ acc) {
+  bf16_tri_body<0, true>(ops, -kLog2e, nullptr, n, m, 0, items,
+                         Bf16TriWork{nb, n, acc}, nullptr, qmin);
 }
 
-// The launch of a wide sweep kernel over the whole triangle, with
-// `weights` weight tiles (the f32 kernel one, the bf16 one two).
-template <class Kernel>
-int launch_phi_rbf_wide(Kernel* kernel, int weights, const float* coords,
-                        const float* y, const float* q, const float* scores,
-                        int n, int m, int psd, float* out, void* stream) {
-  if (n <= 0 || m < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const long long pairs = upper_pairs(n, kWideTile);
-  if (pairs < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int nb = (n + kWideTile - 1) / kWideTile;
-  const cudaError_t err = wide_tri_prepare(kernel, weights);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<static_cast<unsigned int>(pairs), kWideTriThreads,
-           WideTri::smem_bytes(weights), static_cast<cudaStream_t>(stream)>>>(
-      coords, y, q, scores, n, m, psd, nb, out);
-  return static_cast<int>(cudaGetLastError());
-}
+// The clamp's floor: 0 for a P taken as positive semidefinite, else none.
+inline float form_floor(int psd) { return psd ? 0.0f : -INFINITY; }
 
 // The Jacobi decomposition of P_sym/2 (see the top of the file).
 constexpr int kJacobiSweeps = 10;
@@ -428,25 +408,53 @@ int svgd_sym_eigen(const double* p, int m, double* lam, double* v,
 }
 
 
-// [KS | D] (2m, n) of the wide fixed-P sweep (m > 64 in the port; any
-// m >= 1 here). coords (n, m) the centered x_c, y (n, m) the rows
-// x_c (P_sym/2), q (n,) the norms q_i = x_i . y_i, scores (n, m), all
-// float32 row-major on the device; psd != 0 clamps the form at 0; out a
-// zeroed (2m, n) float32 buffer, KS with each self pair twice.
+// [KS | D] (2m, n) of the wide fixed-P sweep (m > 64 in the port). coords
+// (n, m) the centered x_c, y (n, m) the rows x_c (P_sym/2), q (n,) the
+// norms q_i = x_i . y_i, scores (n, m), all float32 row-major on the
+// device, m a multiple of 4 and coords, y and scores on a 16-byte boundary
+// (the wrapper pads the rows with zero columns); psd != 0 clamps the form
+// at 0; out a zeroed (2m, n) float32 buffer, KS with each self pair twice.
 int svgd_phi_rbf_wide(const float* coords, const float* y, const float* q,
                       const float* scores, int n, int m, int psd, float* out,
                       void* stream) {
-  return launch_phi_rbf_wide(phi_rbf_wide_kernel, 1, coords, y, q, scores, n,
-                             m, psd, out, stream);
+  if (n <= 0 || m < 1 || !wide_rows_ok(m, coords, scores) ||
+      (reinterpret_cast<uintptr_t>(y) & 15u) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long count = upper_pairs(n, kWideSymTile);
+  if (count < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = (n + kWideSymTile - 1) / kWideSymTile;
+  const unsigned int blocks =
+      wide_sym_prepare<false>(phi_rbf_wide_kernel, count);
+  phi_rbf_wide_kernel<<<blocks, kWideSymThreads, WideSym<false>::kSmemBytes,
+                        static_cast<cudaStream_t>(stream)>>>(
+      coords, y, q, scores, n, m, form_floor(psd), nb, count, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// K15's bf16 instance: the arguments as svgd_phi_rbf_wide's, at any
-// m >= 1 (the bfloat16 opt-in).
+// K15's bf16 instance, at any m >= 1: coords, y, q and scores as
+// svgd_phi_rbf_wide's, at any alignment and unpadded; psd as there; work a
+// 16-byte-aligned workspace of sym_plan.bf16_work_bytes(n, m, gram_y=True)
+// bytes, which the pack kernel fills with the rounded operands; out a
+// zeroed (2m + 1, n) float32 accumulator that receives [KS | KX | rowsum]
+// (each self pair once). Two launches: the pack, then the triangle in
+// tiles of kBf16Tile.
 int svgd_phi_rbf_wide_bf16(const float* coords, const float* y,
                            const float* q, const float* scores, int n, int m,
-                           int psd, float* out, void* stream) {
-  return launch_phi_rbf_wide(phi_rbf_wide_bf16_kernel, 2, coords, y, q,
-                             scores, n, m, psd, out, stream);
+                           int psd, void* work, float* out, void* stream) {
+  if (n <= 0 || m < 1 || (reinterpret_cast<uintptr_t>(work) & 15u) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long items = upper_pairs(n, kBf16Tile);
+  if (items < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = (n + kBf16Tile - 1) / kBf16Tile;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Bf16Operands ops = bf16_tri_pack(coords, scores, n, m, work, s, y, q);
+  const unsigned int blocks = bf16_tri_prepare(phi_rbf_wide_bf16_kernel,
+                                               items);
+  phi_rbf_wide_bf16_kernel<<<blocks, kBf16Threads, Bf16Tri::kSmemBytes, s>>>(
+      ops, n, m, form_floor(psd), nb, items, out);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // [KS | D_z] (2m, n) of the fixed-P square sweep. z (n, m) the rows

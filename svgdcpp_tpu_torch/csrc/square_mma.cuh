@@ -83,8 +83,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
-
 #include <type_traits>
 
 #include "sweep_common.cuh"
@@ -304,61 +302,16 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, ab, bb0, bb1);
 }
 
-// The bfloat16 operand opt-in (the JAX package's dot_dtype='bfloat16') of
-// the Gram-form body of wide_tri.cuh (K15's bf16 instance). The JAX kernels
-// round their dot operands to bf16 (round to nearest, ties to even) and
-// accumulate the products in float32. Here the same function runs as ONE
-// TF32 pass on operands pre-rounded to bf16, in the 3xTF32 bodies' own
-// fragment layouts: a bf16 value is exact in TF32 (8 of TF32's 11
-// significant bits) and the product of two is exact in float32, so the
-// pass computes what a bf16 mma.sync computes, and the bodies need no
-// second set of fragment layouts. The pass is a third of 3xTF32's tensor
-// work, at TF32's rate (half of bf16's): simple first, fast later.
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// An operand's TF32 pair: (tf32(v), tf32(v - big)), or under kBf16
-// (bf16(v), 0), the small product of which the pass leaves out.
-template <bool kBf16>
-__device__ __forceinline__ void operand_split(float v, uint32_t& big,
-                                              uint32_t& small) {
-  if constexpr (kBf16) {
-    big = __float_as_uint(bf16_round(v));
-    small = 0u;
-  } else {
-    tf32_split(v, big, small);
-  }
-}
-
-// d += a b: 3xTF32, or under kBf16 the one pass of the rounded operands.
-template <bool kBf16>
-__device__ __forceinline__ void mma_pass(float (&d)[4],
-                                         const uint32_t (&ab)[4],
-                                         const uint32_t (&as)[4],
-                                         const float* rec_big,
-                                         const float* rec_small, int off0,
-                                         int off1) {
-  if constexpr (kBf16) {
-    mma_tf32(d, ab, __float_as_uint(rec_big[off0]),
-             __float_as_uint(rec_big[off1]));
-  } else {
-    mma_3xtf32(d, ab, as, rec_big, rec_small, off0, off1);
-  }
-}
-
 // A fragment of TF32 pairs from one weight a pair: (g, t) <- source 2t,
 // (g, t + 4) <- source 2t + 1, rows g and g + 8 (v: the pairs (g, 2t),
-// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)); under kBf16 the weights
-// rounded to bf16, as the JAX kernels round k before the contraction.
-template <bool kBf16 = false>
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)).
 __device__ __forceinline__ void weight_fragment(const float (&v)[4],
                                                 uint32_t (&big)[4],
                                                 uint32_t (&small)[4]) {
-  operand_split<kBf16>(v[0], big[0], small[0]);
-  operand_split<kBf16>(v[2], big[1], small[1]);
-  operand_split<kBf16>(v[1], big[2], small[2]);
-  operand_split<kBf16>(v[3], big[3], small[3]);
+  tf32_split(v[0], big[0], small[0]);
+  tf32_split(v[2], big[1], small[1]);
+  tf32_split(v[1], big[2], small[2]);
+  tf32_split(v[3], big[3], small[3]);
 }
 
 // 16 bytes from global to shared memory, the bytes past `valid` (0-16)
@@ -628,13 +581,6 @@ __device__ __forceinline__ void square_mma_body(
   }
   flush_counts(cnt, T, counts);
 }
-
-// ---------------------------------------------------------------------------
-// The Gram slices of wide_tri.cuh's body
-// ---------------------------------------------------------------------------
-
-constexpr int kWideK = 32;                // coordinates of one Gram slice
-constexpr int kWideLdK = kWideK + 4;      // slice rows' stride (4 mod 32)
 
 // ---------------------------------------------------------------------------
 // The finishing pass

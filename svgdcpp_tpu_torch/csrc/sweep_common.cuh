@@ -1,12 +1,12 @@
 // Device helpers shared by the sweeps (fused_phi.cu, fused_phi_terms.cu,
 // counts_sym.cuh, terms_sym.cuh, micro_tile.cuh, square_mma.cuh,
-// wide_tri.cuh, fused_phi_aniso.cu, phi_rbf.cu, fused_phi_panel.cu,
-// count_le.cu): the pair's squared distance in the plain version's order,
-// the flushed-to-zero ex2 of the weights, threshold counting (at a runtime
-// or a compile-time number of thresholds), the exact count flush, the
-// upper-triangle tile decode, the pair's weights (one RBF, or the
-// signed-term combination of the composed kernels), and the dispatch from
-// a runtime dimension m to a kernel instance.
+// wide_tri_sm90.cuh, bf16_tri_sm90.cuh, fused_phi_aniso.cu, phi_rbf.cu,
+// fused_phi_panel.cu, count_le.cu): the pair's squared distance in the
+// plain version's order, the flushed-to-zero ex2 of the weights, threshold
+// counting (at a runtime or a compile-time number of thresholds), the
+// exact count flush, the upper-triangle tile decode, the pair's weights
+// (one RBF, or the signed-term combination of the composed kernels), and
+// the dispatch from a runtime dimension m to a kernel instance.
 //
 // Kernel instances. A kernel is a template over <MM, kExact>: with kExact
 // the dimension is exactly MM (every loop over the coordinates is unrolled
@@ -220,10 +220,19 @@ struct MicroWidth {
   static constexpr bool value = MM >= 1 && (MM <= 8 || MM == 11);
 };
 
-// The wide triangle body's tiles (wide_tri.cuh's wide_pair_body): 64
-// particles a side, for its users (K15 and its bf16 instance). The bf16
-// triangle body's are kBf16Tile = 128 (bf16_tri_sm90.cuh).
-constexpr int kWideTile = 64;
+// A tile pair of the bf16 triangle body's work (bf16_tri_sm90.cuh) and
+// where it flushes: the first particles i0 of I's tile and j0 of J's;
+// whether the pair lies on the diagonal (j >= i only); and, for each
+// direction (0: the rows of I, 1: the columns of J), the accumulator
+// planes it adds to, rows of ld floats whose column 0 is particle base.
+struct WideSpot {
+  int i0, j0;
+  bool diag;
+  float* out0;
+  float* out1;
+  int base0, base1;
+  int ld;
+};
 
 // The float32 triangle sweeps' tiles past kMaxM (wide_tri_sm90.cuh: K2/K4
 // and K8-K11 at MM = kWideMM, K14's term groups, and the panels K3/K5 and

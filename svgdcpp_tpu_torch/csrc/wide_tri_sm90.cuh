@@ -3,18 +3,20 @@
 // terms triangle kernels (fused_phi_terms.cu: K8/K9's and K10/K11's), the
 // instance MM = kWideMM of each, for K14's term groups (fused_phi_aniso.cu:
 // one RBF a single-term group, terms for group 0 of two or more isotropic
-// terms), and for the panel kernels' float32 instances past kMaxM
-// (fused_phi_panel.cu: K3's and K5's one RBF, K12/K13's terms). It computes
-// what wide_tri.cuh's wide_pair_body computes for them (the (2m, n)
-// accumulator [KS | D], D unscaled for one RBF and weighted by w for terms,
-// each self pair entered in both directions and pinned to sq = 0, the upper
-// count U with the diagonal), with the Gram tile and both contractions in
-// 3xTF32 on the tensor cores, and is laid out for Hopper's shared memory.
-// wide_pair_body keeps serving the other wide users (K15 and its bf16
-// instance); K2's and K3's bf16 instances run bf16_tri_sm90.cuh's body,
-// built on this one's loop structure.
+// terms), for the panel kernels' float32 instances past kMaxM
+// (fused_phi_panel.cu: K3's and K5's one RBF, K12/K13's terms), and for
+// K15's wide sweep (phi_rbf.cu: P itself in the Gram form, FixedPGram
+// below). It computes the (2m, n) accumulator [KS | D], D unscaled for one
+// RBF and weighted by w for terms, each self pair entered in both
+// directions and pinned to sq = 0, and the upper count U with the
+// diagonal, with the Gram tile and both contractions in 3xTF32 on the
+// tensor cores, laid out for Hopper's shared memory. The bfloat16
+// instances of K2, K3 and K15 run bf16_tri_sm90.cuh's body, built on this
+// one's loop structure.
 //
-// What bounds it. At (10000, 123) the parent body took 3.65 ms, of which
+// What bounds it. At (10000, 123) the parent body (64 x 64 tile pairs, a
+// block each, synchronous staging; chip_profile.py keeps its text) took
+// 3.65 ms, of which
 // the contraction's fragment loads took about 1.9 ms: 64 x 64 tile pairs
 // whose 3xTF32 operands (big and small parts) were read from shared memory
 // for every mma with two-way bank conflicts, so shared-memory bandwidth,
@@ -68,12 +70,17 @@
 //     [S_I | X_I]), so that each fragment feeds two or four products; the
 //     inner loops carry no guard where a slice or chunk is whole.
 //   * The norms accumulate from the staged Gram slices (no device memory
-//     read of their own); x_i and x_j of D's epilogue come from the staged
+//     read of their own; K15's form reads its given q instead, one float a
+//     thread an item); x_i and x_j of D's epilogue come from the staged
 //     coordinate chunks; the flush stays float32 atomics from the registers
 //     (about 0.1 ms in the parent; half as many here).
+//   * The Gram tile's form is a policy (EuclidForm, FixedPGram): J's Gram
+//     operand, the norms and the clamp's floor. The walk, the weights and
+//     the contractions do not depend on it.
 //
 // Per pair: the Gram tile (64 accumulators a thread, dead after the
-// weights), then sq = max(0, |x_i|^2 + |x_j|^2 - 2 G), the weights and the
+// weights), then sq = max(0, |x_i|^2 + |x_j|^2 - 2 G) (K15: max(floor,
+// q_i + q_j - 2 x_i . y_j)), the weights and the
 // counts once a pair into the weight tiles (k_c, and for terms w in a
 // second tile) and the row and column sums of D's weight (on the diagonal
 // tile j >= i only, the self pair at sq = 0). Each contraction chunk adds,
@@ -189,6 +196,34 @@ struct WideItem {
   bool diag;
 };
 
+// The Gram tile's form: the Euclidean one, G = X_I X_J^T, the norms
+// |x|^2 accumulated from the staged slices, sq clamped at 0.
+struct EuclidForm {
+  static constexpr bool kGivenNorms = false;
+  __device__ __forceinline__ const float* gram_j(const float* coords) const {
+    return coords;
+  }
+  __device__ __forceinline__ float qmin() const { return 0.0f; }
+};
+
+// K15's fixed-P form (the JAX kernel's, pallas_phi.py:116-130): J's Gram
+// operand the rows of Y = X_c (P_sym/2), so G_ij = x_i^T (P_sym/2) x_j =
+// G_ji and one weight tile serves both directions; the norms the caller's
+// q_i = x_i . y_i, so sq = q_i + q_j - 2 G = d^T P d; the floor 0 for a P
+// taken as positive semidefinite, -inf (no clamp) otherwise. The
+// contractions take the coordinates, as for the Euclidean form.
+struct FixedPGram {
+  static constexpr bool kGivenNorms = true;
+  const float* y;
+  const float* q;
+  float lo;
+  __device__ __forceinline__ const float* gram_j(const float*) const {
+    return y;
+  }
+  __device__ __forceinline__ float norm(int part) const { return q[part]; }
+  __device__ __forceinline__ float qmin() const { return lo; }
+};
+
 // The triangles' work: tile pairs [t0, t0 + count) of the upper triangle
 // of nb tiles in row-major order (sym_plan.wide_sym_walk).
 struct WideTriWork {
@@ -223,18 +258,19 @@ struct WidePanelWork {
 // stage, and leaves it in that stage (kItemCol) for the consumers, who hold
 // no decode's state in their registers; an item with a tile wholly past n
 // (a panel's last super-block) adds nothing, its stages only pass their
-// barriers; kT thresholds (3, or
-// kMaxT for a runtime T); weights(sq, k_c, w) the pair's weights (one weight
-// where W is OneRbf, k_c = w). Composed kernels' constants in shared memory
-// (AnyTerms) must be stored before the call: the body's first barrier comes
-// before its first pair. Warps 0-7 compute; warp 8, the producer, issues
+// barriers; kT thresholds (3, or kMaxT for a runtime T, or 0 with T = 0
+// and counts null for none); weights(sq, k_c, w) the pair's weights (one
+// weight where W is OneRbf, k_c = w); form the Gram tile's (EuclidForm,
+// FixedPGram). Composed kernels' constants in shared memory (AnyTerms) must
+// be stored before the call: the body's first barrier comes before its
+// first pair. Warps 0-7 compute; warp 8, the producer, issues
 // every stage's copies.
-template <int kT, class Wt, class Work>
+template <int kT, class Wt, class Work, class Form = EuclidForm>
 __device__ __forceinline__ void wide_tri_sm90_body(
     const float* __restrict__ coords, const float* __restrict__ scores,
     const Wt& weights, const float* __restrict__ thr, int n, int m, int T,
     const Work& work, float* __restrict__ acc,
-    unsigned long long* __restrict__ counts) {
+    unsigned long long* __restrict__ counts, const Form& form = Form{}) {
   constexpr bool kTwo = kTwoBands<Wt>;
   using L = WideSym<kTwo>;
   constexpr int kStages = L::kStages;
@@ -287,9 +323,11 @@ __device__ __forceinline__ void wide_tri_sm90_body(
       if (!live) return;
       const bool gram = s < kg;
       const int c0 = (gram ? s : (s - kg) % kg) * C;
-      const float* src = gram || s >= 2 * kg ? coords : scores;
-      // Slot 0: X_I (Gram) or the J rows (chunks); slot 1: X_J or the I
-      // rows.
+      const float* rec = s >= 2 * kg ? coords : scores;
+      // Slot 0: X_I (Gram) or the J rows (chunks); slot 1: J's Gram
+      // operand (X_J, or K15's Y_J) or the I rows.
+      const float* srcs[2] = {gram ? coords : rec,
+                              gram ? form.gram_j(coords) : rec};
       const int rows[2] = {gram ? it.i0 : it.j0, gram ? it.j0 : it.i0};
       // 16 bytes a copy: lane -> 4 columns of every fourth row.
       const int k4 = 4 * (lane & 7);
@@ -297,6 +335,7 @@ __device__ __forceinline__ void wide_tri_sm90_body(
 #pragma unroll
       for (int slot = 0; slot < 2; ++slot) {
         float* dst = stage + slot * L::kSlot;
+        const float* src = srcs[slot];
 #pragma unroll 4
         for (int r = lane >> 3; r < S; r += 4) {
           const int part = rows[slot] + r;
@@ -444,14 +483,20 @@ __device__ __forceinline__ void wide_tri_sm90_body(
           for (int e = 0; e < 4; ++e) acc_g[h][c][e] = 0.0f;
         }
       }
-      float nacc = 0.0f;  // this thread's norm: row tid of I, or of J
+      // This thread's norm: row tid of I, or of J (the given one read
+      // now, under the Gram tile).
+      float nacc = 0.0f;
+      if constexpr (Form::kGivenNorms) {
+        const int part = (tid < S ? i0 : j0) + (tid & (S - 1));
+        if (part < n) nacc = form.norm(part);
+      }
 #pragma unroll 1
       for (int s = 0; s < kg; ++s) {
         const float* slot0 = s == 0 ? stage0 : next_stage();
         const float* slot1 = slot0 + L::kSlot;
         // 1. The Gram tile's slice s, and this thread's norm over it (the
         // row's 32 columns in a lane-rotated order: conflict-free).
-        {
+        if constexpr (!Form::kGivenNorms) {
           const float* row = (tid < S ? slot0 : slot1) + (tid & (S - 1)) *
                                                              kSlotLd;
 #pragma unroll 8
@@ -493,7 +538,7 @@ __device__ __forceinline__ void wide_tri_sm90_body(
                 i0 + il < n && j0 + jl < n && (!diag || jl >= il);
             float sq = __fsub_rn(__fadd_rn(norm[il], norm[S + jl]),
                                  2.0f * acc_g[h][c][e]);
-            sq = fmaxf(sq, 0.0f);
+            sq = fmaxf(sq, form.qmin());
             if (diag && il == jl) sq = 0.0f;
             float a, b;
             weights(sq, a, b);

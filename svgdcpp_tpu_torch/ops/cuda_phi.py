@@ -17,7 +17,7 @@ package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
     (K2), the upper-triangle sweep over one particle set (each unordered
     pair once, both directions; on ``csrc/micro_tile.cuh``'s body at
     m = 1-8 and 11, ``csrc/counts_sym.cuh``'s up to 64 and
-    ``csrc/wide_tri.cuh``'s tensor-core body past it).
+    ``csrc/wide_tri_sm90.cuh``'s tensor-core body past it).
   * ``fused_phi_terms_square``  (``csrc/fused_phi_terms.cu``) --
     ``_fused_terms_direct_kernel`` and ``_fused_terms_kernel`` (K6, K7):
     the square/cross sweep of a signed sum of isotropic RBF terms, on K1's
@@ -26,7 +26,7 @@ package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
   * ``fused_phi_terms_sym``     (``csrc/fused_phi_terms.cu``) --
     ``_sym_terms_direct_kernel`` and ``_sym_terms_kernel`` (K8, K9): its
     upper-triangle sweep (the micro-tile body, ``csrc/terms_sym.cuh``'s up
-    to 64, ``csrc/wide_tri.cuh``'s past it).
+    to 64, ``csrc/wide_tri_sm90.cuh``'s past it).
   * ``fused_phi_aniso_terms_sym`` (``csrc/fused_phi_aniso.cu``) --
     ``_sym_aniso_terms_kernel`` (K14): the sweep of a composed kernel with
     anisotropic (full-P) terms. With one anisotropic term up to m = 32 a
@@ -42,8 +42,8 @@ package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
     triangle at m = 1-8 and 11, the square sweep up to 64); with it
     ``sym_eigen``, the Jacobi decomposition of P on the card. Past m = 64
     ``phi_rbf_wide``: the JAX kernel's own form, the Gram tile of X
-    against Y = X (P_sym/2) on ``csrc/wide_tri.cuh``'s body, with P itself
-    and no decomposition.
+    against Y = X (P_sym/2) on ``csrc/wide_tri_sm90.cuh``'s body (the rows
+    padded as K2's), with P itself and no decomposition.
   * ``fused_phi_counts_sympanel`` (``csrc/fused_phi_panel.cu``) --
     ``_sym_panel_kernel`` (K3): the triangle sweep of one RBF laid out as
     pairs of super-blocks, each with its own output window, summed by an
@@ -72,25 +72,26 @@ their plain versions; ``phi_rbf_square`` returns phi, like
 ``ops/phi.phi_rbf_blocked``. Every sweep and the count kernel take any
 m >= 1: past MAX_M = 64 the sweeps run wide bodies that hold nothing sized
 by m (``csrc/square_wide_sm90.cuh``'s for the float32 square sweeps,
-``csrc/wide_tri_sm90.cuh``'s body for the float32 triangles, the panels
-and K14's groups, ``csrc/wide_tri.cuh``'s for K15). ``sym_eigen`` alone
+``csrc/wide_tri_sm90.cuh``'s body for the float32 triangles, the panels,
+K14's groups and K15). ``sym_eigen`` alone
 takes 1 <= m <= MAX_M:
 its matrix and its order table live in one block's shared memory, and
 past MAX_M K15 takes P itself, so nothing calls it there.
 
 The bfloat16 operand opt-in (``dot_dtype='bfloat16'``, the JAX package's
-``fused_dot_dtype``) runs instances of their own, at every m: K15's
-(``phi_rbf_wide_bf16``, on ``wide_tri.cuh``'s body) in one TF32 pass on
-bf16-rounded values; K1's (square and cross,
-``fused_phi_counts_square_bf16``, on ``csrc/square_bf16_sm90.cuh``'s
-body: operands its pack kernel rounds once (``square_bf16_pack``), the
-norms the plain version's own sum of the pack's squares, the Gram tile by
-float32 FMA in the plain version's order, the splits' partials summed by
-the finishing pass), K2's (``fused_phi_counts_sym_bf16``)
-and K3's (``fused_phi_counts_sympanel_bf16``, both on
-``csrc/bf16_tri_sm90.cuh``'s body, operands the entry's pack kernel rounds
-once into a workspace, the accumulator [KS | KX | rowsum] finished by
-``ops/phi.bf16_sym_finish``), their contractions on bf16 ``mma.sync``.
+``fused_dot_dtype``) runs instances of their own, at every m: K1's
+(square and cross, ``fused_phi_counts_square_bf16``, on
+``csrc/square_bf16_sm90.cuh``'s body: operands its pack kernel rounds
+once (``square_bf16_pack``), the norms the plain version's own sum of the
+pack's squares, the Gram tile by float32 FMA in the plain version's
+order, the splits' partials summed by the finishing pass), K2's
+(``fused_phi_counts_sym_bf16``), K3's (``fused_phi_counts_sympanel_bf16``)
+and K15's (``phi_rbf_wide_bf16``), all three on
+``csrc/bf16_tri_sm90.cuh``'s body: operands the entry's pack kernel rounds
+once into a workspace (``bf16_tri_operands`` is its plain version; K15's
+adds the rounded Y and copies the wrapper's q), the accumulator
+[KS | KX | rowsum] finished by ``ops/phi.bf16_sym_finish`` (K15's by
+``fixed_p_wide_finish``), their contractions on bf16 ``mma.sync``.
 They round the Gram operands, the pair
 weights and the contraction's records to bf16 where the JAX kernels do;
 the norms and the epilogue's coordinates stay float32. The plain versions
@@ -131,6 +132,7 @@ from ..utils.cuda_build import CSRC_DIR, build_library, library_path
 from .median import count_le_plain
 from .phi import (
     aniso_groups_finish,
+    bf16_d_term,
     bf16_sym_finish,
     dot_bf16,
     gram_operands,
@@ -155,8 +157,10 @@ from .phi import (
 from .sym_plan import (
     KERNEL_MAX_M,
     SYM_MIN_N,
+    bf16_gram_width,
     bf16_record_width,
     bf16_work_bytes,
+    bf16_work_layout,
     card_panel_plan,
     card_resolve_sym,
     panel_chunk,
@@ -283,7 +287,7 @@ def load_library() -> ctypes.CDLL:
                     [ptr] * 5 + [i32, ptr, i32, ptr] + [i32] * 3 + [ptr] * 3,
                 "svgd_phi_rbf_square": [ptr] * 3 + [i32] * 3 + [ptr] * 2,
                 "svgd_phi_rbf_wide": [ptr] * 4 + [i32] * 3 + [ptr] * 2,
-                "svgd_phi_rbf_wide_bf16": [ptr] * 4 + [i32] * 3 + [ptr] * 2,
+                "svgd_phi_rbf_wide_bf16": [ptr] * 4 + [i32] * 3 + [ptr] * 3,
                 "svgd_sym_eigen": [ptr, i32, ptr, ptr, ptr],
                 "svgd_fused_phi_counts_sympanel":
                     [ptr] * 4 + [i32] * 5 + [ptr] * 3,
@@ -1089,27 +1093,106 @@ def _phi_rbf_wide_launch(coords, scores, p_matrix, psd, eig, bf16=False):
     coords_c = _centered32(coords).contiguous()
     y, q = gram_operands(coords_c, half)
     sc32 = scores.to(torch.float32).contiguous()
-    out = torch.zeros((2 * m, n), dtype=torch.float32, device=device)
     lib = load_library()
-    name = PHI_RBF_WIDE_BF16_KERNEL if bf16 else PHI_RBF_WIDE_KERNEL
-    entry = lib.svgd_phi_rbf_wide_bf16 if bf16 else lib.svgd_phi_rbf_wide
     with torch.cuda.device(device):
-        rc = entry(
-            coords_c.data_ptr(), y.data_ptr(), q.data_ptr(), sc32.data_ptr(),
-            n, m, int(psd), out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
+        stream = torch.cuda.current_stream().cuda_stream
+        if bf16:
+            name = PHI_RBF_WIDE_BF16_KERNEL
+            work = torch.empty(bf16_work_bytes(n, m, gram_y=True),
+                               dtype=torch.uint8, device=device)
+            out = torch.zeros((2 * m + 1, n), dtype=torch.float32,
+                              device=device)
+            rc = lib.svgd_phi_rbf_wide_bf16(
+                coords_c.data_ptr(), y.data_ptr(), q.data_ptr(),
+                sc32.data_ptr(), n, m, int(psd), work.data_ptr(),
+                out.data_ptr(), stream,
+            )
+        else:
+            name = PHI_RBF_WIDE_KERNEL
+            xk, sk, yk, width = fixed_p_wide_operands(coords_c, sc32, y)
+            out = torch.zeros((2 * width, n), dtype=torch.float32,
+                              device=device)
+            rc = lib.svgd_phi_rbf_wide(
+                xk.data_ptr(), yk.data_ptr(), q.data_ptr(), sk.data_ptr(), n,
+                width, int(psd), out.data_ptr(), stream,
+            )
     _check_launch(rc, name)
     launch_counts[name] += 1
-    # out = [KS | D], D = sum_j k (x_i - x_j). In float32 the self pairs
-    # (pinned, k = 1) entered KS in both directions, so subtract s_i once;
-    # the bf16 instance enters each self pair once, unpinned, as the JAX
-    # kernel's square sweep does. D P_sym = 2 D H (float64).
-    grad = out[m:].T.to(torch.float64) @ half
-    phi = out[:m].T + 2.0 * grad.to(torch.float32)
-    if not bf16:
-        phi = phi - sc32
-    return (phi / n).to(coords.dtype)
+    return (fixed_p_wide_finish(out, coords_c, sc32, half, bf16) / n).to(
+        coords.dtype)
+
+
+def fixed_p_wide_operands(coords_c, sc32, y):
+    """(coordinates, scores, Y, width) as K15's float32 wide entry takes
+    them: ``_tri_operands``' padding (zero columns to
+    ``wide_row_width(m)``), Y padded alike (zero columns of Y add nothing
+    to the Gram tile)."""
+    m = coords_c.shape[1]
+    xk, sk, width = _tri_operands(coords_c, sc32, m)
+    yk = (torch.nn.functional.pad(y, (0, width - m)) if width != m
+          else y if y.data_ptr() % 16 == 0 else y.clone())
+    return xk, sk, yk, width
+
+
+def fixed_p_wide_finish(out, coords_c, sc32, half, bf16):
+    """n phi of K15's wide accumulators: in float32 (2 width, n) [KS | D],
+    D = sum_j k (x_i - x_j), each self pair (pinned, k = 1) in KS in both
+    directions, so s_i comes off once; in bf16 (2m + 1, n) [KS | KX |
+    rowsum], D = rowsum x - KX with the float32 x (the JAX epilogue), each
+    self pair entered once, as the JAX kernel's square sweep enters it.
+    Then D P_sym = 2 D H in float64, returned in the accumulator's dtype."""
+    m = coords_c.shape[1]
+    a = out.T
+    if bf16:
+        d = bf16_d_term(a, coords_c)
+    else:
+        width = out.shape[0] // 2
+        d = a[:, width:width + m]
+    grad = d.to(torch.float64) @ half
+    phi = a[:, :m] + 2.0 * grad.to(a.dtype)
+    return phi if bf16 else phi - sc32
+
+
+def bf16_tri_operands(coords_c, sc32, y=None, q=None):
+    """The plain version of the bf16 triangle entries' pack kernel
+    (``csrc/bf16_tri_sm90.cuh``, bf16_tri_pack): {"q", "x", "rec"} and,
+    where ``y`` is given (K15's Y = X_c (P_sym/2)), "y", as the workspace
+    holds them (``bf16_tri_views``): q the given one, or |x|^2 summed in
+    float32 (the kernel's own order differs within rounding); X and Y
+    rounded to bf16 and padded with zeros to ``bf16_gram_width(m)``; the
+    record [S | X | 1 | 0...] rounded to bf16, ``bf16_record_width(m)``
+    wide."""
+    n, m = coords_c.shape
+    mk, rw = bf16_gram_width(m), bf16_record_width(m)
+
+    def padded(t, width):
+        return torch.nn.functional.pad(t.to(torch.float32),
+                                       (0, width - t.shape[1])).to(
+            torch.bfloat16)
+
+    ones = torch.ones((n, 1), dtype=torch.float32, device=coords_c.device)
+    ops = {"q": (torch.sum(coords_c * coords_c, dim=1) if q is None
+                 else q.to(torch.float32)),
+           "x": padded(coords_c, mk),
+           "rec": padded(torch.cat([sc32, coords_c, ones], dim=1), rw)}
+    if y is not None:
+        ops["y"] = padded(y, mk)
+    return ops
+
+
+def bf16_tri_views(work, n, m, gram_y=False):
+    """The blocks of the bf16 triangle entries' workspace ``work`` (uint8)
+    as bf16_tri_operands returns them: views in the layout
+    ``sym_plan.bf16_work_layout``."""
+    widths = {"x": bf16_gram_width(m), "rec": bf16_record_width(m),
+              "y": bf16_gram_width(m)}
+    views, at = {}, 0
+    for name, size in bf16_work_layout(n, m, gram_y):
+        block = work[at:at + size]
+        views[name] = (block.view(torch.float32)[:n] if name == "q"
+                       else block.view(torch.bfloat16).view(n, widths[name]))
+        at += size
+    return views
 
 
 def phi_rbf_fused_cuda(coords, scores, gamma, thresholds_sq, sym=None,

@@ -770,16 +770,22 @@ def phi_rbf_terms_fused_sym_finish(acc_band, scores_band, signs, n: int):
                       sum(float(s) for s in signs), 2.0)
 
 
+def bf16_d_term(a, coords):
+    """D = rowsum x - KX (n, m) of a bf16 accumulator's transpose a = [KS |
+    KX | rowsum] (n, 2m + 1), with the float32 x, as the JAX epilogue forms
+    it (pallas_phi.py:636-640)."""
+    m = coords.shape[1]
+    return a[:, 2 * m:2 * m + 1] * coords - a[:, m:2 * m]
+
+
 def bf16_sym_finish(acc, coords, scores, gamma, n: int):
     """phi (n, m) of the bf16 triangle kernels' accumulator (2m + 1, n) =
     [KS | KX | rowsum] (K2's and K3's bf16 instances, the panels' windows
-    scattered): D = rowsum x - KX with the float32 x, as the JAX epilogue
-    forms it (pallas_phi.py:636-640); each self pair entered KS in both
+    scattered): D by ``bf16_d_term``; each self pair entered KS in both
     directions, so s_i comes off once; phi = (KS - s + 2 gamma D) / n."""
     m = coords.shape[1]
     a = acc.T
-    d = a[:, 2 * m:2 * m + 1] * coords - a[:, m:2 * m]
-    return (a[:, :m] - scores + 2.0 * gamma * d) / n
+    return (a[:, :m] - scores + 2.0 * gamma * bf16_d_term(a, coords)) / n
 
 
 def sympanel_epilogue(panels, upper, index, n, scores, s_total, d_scale):

@@ -542,12 +542,22 @@ def bf16_record_width(m: int) -> int:
     return 8 * -(-(2 * m + 1) // 8)
 
 
-def bf16_work_bytes(n: int, m: int) -> int:
-    """The bytes of the workspace the bf16 entries' pack kernel fills:
-    q (n float32, to a 16-byte boundary), then X (n x
-    bf16_gram_width(m)) and R (n x bf16_record_width(m)) in bf16."""
-    q = -(-4 * n // 16) * 16
-    return q + 2 * n * (bf16_gram_width(m) + bf16_record_width(m))
+def bf16_work_bytes(n: int, m: int, gram_y: bool = False) -> int:
+    """The bytes of the workspace the bf16 entries' pack kernel fills
+    (``Bf16Operands``): q (n float32, to a 16-byte boundary), then X (n x
+    bf16_gram_width(m)) and R (n x bf16_record_width(m)) in bf16, and with
+    ``gram_y`` (K15's instance) Y (n x bf16_gram_width(m)) after R."""
+    return sum(size for _, size in bf16_work_layout(n, m, gram_y))
+
+
+def bf16_work_layout(n: int, m: int, gram_y: bool = False):
+    """The workspace's blocks in order, each (name, bytes): "q", "x",
+    "rec" and, with ``gram_y``, "y" (bf16_work_bytes)."""
+    blocks = [("q", -(-4 * n // 16) * 16), ("x", 2 * n * bf16_gram_width(m)),
+              ("rec", 2 * n * bf16_record_width(m))]
+    if gram_y:
+        blocks.append(("y", 2 * n * bf16_gram_width(m)))
+    return blocks
 
 
 def bf16_tri_items(n: int) -> int:

@@ -265,8 +265,8 @@ def sweep_work(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
 #: Published H100 SXM dense TF32 and bf16 tensor-core peaks (NVIDIA's data
 #: sheet); the bf16 peak bounds the bfloat16 opt-in's instances, whose
 #: products are bf16 x bf16 (bf16 mma.sync in K1's,
-#: csrc/square_bf16_sm90.cuh, and in K2's and K3's,
-#: csrc/bf16_tri_sm90.cuh; one TF32 pass in K15's, csrc/wide_tri.cuh).
+#: csrc/square_bf16_sm90.cuh, and in K2's, K3's and K15's,
+#: csrc/bf16_tri_sm90.cuh).
 PEAK_TF32_FLOPS = 495e12
 PEAK_BF16_FLOPS = 989e12
 
@@ -300,8 +300,7 @@ def square_tensor_bound(n, m, T=3, n_terms=None, n_t=None, bf16=False):
 def tri_tensor_bound(n, m, T=3, n_terms=None, pairs=None, n_aniso=0,
                      fixed_p=False, bf16=False):
     """(bound_ms, bound_by) of a triangle kernel's function with the work
-    its wide body (m > 64: csrc/wide_tri_sm90.cuh, K15's csrc/wide_tri.cuh)
-    puts on the TF32 tensor
+    its wide body (m > 64: csrc/wide_tri_sm90.cuh) puts on the TF32 tensor
     cores: per unordered pair (``pairs``, the whole triangle n(n + 1)/2 by
     default) the Gram product (2m) and both directions' contractions,
     W [S | X] and W^T [S | X] (2 x 4m), at PEAK_TF32_FLOPS; the rest at

@@ -349,7 +349,7 @@ def test_bf16_wrappers_launch_their_own_entries(monkeypatch, m):
     form launches its bf16 entry once at any m, counted under its own key,
     and never the float32 one: K1 square and cross (its pack, then its
     entry, with its own body's split count at every m), K2, K3 and K15 (no
-    decomposition)."""
+    decomposition; the unpadded rows, n, m and psd)."""
     from svgdcpp_tpu_torch.ops import sym_plan
 
     calls = []
@@ -391,4 +391,7 @@ def test_bf16_wrappers_launch_their_own_entries(monkeypatch, m):
             args = launches[-1][1]
             assert args[-2] == sym_plan.square_splits(args[5], args[6], m,
                                                       bf16=True)
+        if kernel == cuda_phi.PHI_RBF_WIDE_BF16_KERNEL:  # (coords, y, q,
+            # scores, n, m, psd, work, out, stream): the unpadded rows
+            assert launches[-1][1][4:7] == (n, m, 1)
     cuda_phi.reset_launch_counts()

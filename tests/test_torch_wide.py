@@ -502,9 +502,8 @@ def test_narrow_families_still_refuse_past_64(monkeypatch, m):
     its own reason (one block's shared memory), and launches nothing; the
     panel sweeps (K3, K12/K13, K5's chunk: their wide entries), the
     anisotropic and the fixed-P sweeps launch their wide instances, one
-    launch each with m (the panels and the anisotropic groups, on the
-    float32 wide triangle body, with the rows' padded width
-    wide_row_width(m))."""
+    launch each, all on the float32 wide triangle body, with the rows'
+    padded width wide_row_width(m)."""
     calls = []
     _stand_in(monkeypatch, calls)
     x, g, thr = _meta(300, m), _meta(), _meta(3)
@@ -534,9 +533,7 @@ def test_narrow_families_still_refuse_past_64(monkeypatch, m):
         del calls[:]
         call()
         assert [c[0] for c in calls] == [entry]
-        width = (m if kernel == cuda_phi.PHI_RBF_WIDE_KERNEL
-                 else sym_plan.wide_row_width(m))
-        assert width in calls[0][1]
+        assert sym_plan.wide_row_width(m) in calls[0][1]
         assert cuda_phi.launch_counts[kernel] == 1
     cuda_phi.reset_launch_counts()
     cuda_phi.check_dimension(64, eigen=True)

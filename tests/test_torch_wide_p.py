@@ -19,8 +19,9 @@ fixed P) past m = 64, on the CPU.
   ``wide_row_width(m)`` to ``svgd_fused_phi_aniso_terms_groups`` (whose
   wide kernels take it past 64), allocates its (1 + n_aniso, 2 width, n)
   accumulator and counts one launch of the wide instance (and, with no
-  isotropic term, one of the count kernel's self form); K15's hands m to ``svgd_phi_rbf_wide`` with P, or with a
-  caller's (lam, V), allocates (2m, n) and counts one launch, and never
+  isotropic term, one of the count kernel's self form); K15's hands the
+  same padded width to ``svgd_phi_rbf_wide`` with P, or with a caller's
+  (lam, V), allocates (2 width, n) and counts one launch, and never
   calls ``svgd_sym_eigen``, which still refuses past 64 with its own
   reason (one block's shared memory).
 * The driver with the card stood in at m = 123: auto on an anisotropic
@@ -254,21 +255,23 @@ def test_k14_wide_wrapper_launches_past_64(monkeypatch, m):
 @pytest.mark.parametrize("m", [65, 123, 512])
 def test_k15_wide_wrapper_launches_past_64(monkeypatch, m):
     """With P (a HESSIAN scale, each call) and with a caller's (lam, V) (a
-    MEDIAN's gamma I): one launch of svgd_phi_rbf_wide with m and psd, the
-    (2m, n) accumulator, and no svgd_sym_eigen, which still refuses past
-    64, naming its one block's shared memory."""
+    MEDIAN's gamma I): one launch of svgd_phi_rbf_wide with the padded
+    width ``wide_row_width(m)`` (the float32 triangle body's 16-byte
+    copies) and psd, the (2 width, n) accumulator, and no svgd_sym_eigen,
+    which still refuses past 64, naming its one block's shared memory."""
     calls, shapes = [], []
     _stand_in(monkeypatch, calls, shapes)
     n = 300
     x = _meta(n, m)
+    width = wide_row_width(m)
     for psd, p, eig in ((False, _meta(m, m), None),
                         (True, None, (_meta(m), _meta(m, m)))):
         del calls[:], shapes[:]
         cuda_phi.reset_launch_counts()
         phi = cuda_phi.phi_rbf_cuda(x, x, p, psd=psd, eig=eig)
         assert [c[0] for c in calls] == ["svgd_phi_rbf_wide"]
-        assert calls[0][1][4:7] == (n, m, int(psd))
-        assert (2 * m, n) in shapes
+        assert calls[0][1][4:7] == (n, width, int(psd))
+        assert (2 * width, n) in shapes
         assert tuple(phi.shape) == (n, m)
         assert cuda_phi.launch_counts[cuda_phi.PHI_RBF_WIDE_KERNEL] == 1
         assert sum(cuda_phi.launch_counts.values()) == 1
