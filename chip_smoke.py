@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the package's CUDA kernels from ``svgdcpp_tpu_torch/csrc`` and runs
-forty-six phases, one line each (several for phases 2, 3, 7-9 and
-14-46):
+forty-seven phases, one line each (several for phases 2, 3, 7-9 and
+14-47):
 
   1. device and build: the card's name and power limit, torch and CUDA
      versions, nvcc build seconds and ptxas's registers and spill bytes of
@@ -316,7 +316,16 @@ forty-six phases, one line each (several for phases 2, 3, 7-9 and
      the flat BLR (K1), the flagship with fused_sym="panel" at N = 32768
      (K3) and the flagship driver under a one-rank NCCL mesh (K1's cross
      form; forced triangles raise), 20 steps each, every call held; ms a
-     step of each.
+     step of each;
+ 47. entry() (svgdcpp_tpu_torch/entry.py, the twin of the JAX package's
+     __graft_entry__.entry) on the card: the flagship at n = 1024, d = 2,
+     whose fn takes fused_cuda and K1's square form (CUDA-core body at
+     m = 2); K1 at (1024, 2) against its plain version; fn applied 1 and
+     20 times, 20 K1 launches, its input state unchanged, held to the
+     port's plain 'fused' route stepped from the same state (max
+     |dcoords| within 1e-3 after 20 calls, printed after one too, the
+     float64 plain route beside it as the floor); ms a step of both
+     routes (CUDA events) and K1's wrapper, plain and kernel-only times.
 
 Phase 22 prints the N = 1,048,576 set-up (the median seed, now through
 K16) beside the 239.40 s the plain count pass took.
@@ -3486,6 +3495,102 @@ def phase_examples(dev, card, clock, plain_ms):
     return out
 
 
+#: Phase 47: entry() (svgdcpp_tpu_torch/entry.py) on the card: its fn
+#: applied ENTRY_STEPS times against the plain 'fused' route's step from
+#: the same state; K1 at the shape it gives (1024, 2).
+ENTRY_STEPS, ENTRY_GATE = 20, 1e-3
+
+
+def phase_entry(dev, card, clock, plain_ms):
+    """Phase 47: ``entry()``'s fn on the card (fused_cuda, K1's square form
+    at (1024, 2)) for 1 and ENTRY_STEPS calls, against the port's plain
+    'fused' driver stepped from the same state (the same lag-1 median
+    schedule), the float64 plain route printed as the floor; fn leaves its
+    input state as it was; K1 at (1024, 2) against its plain version; ms
+    a step (CUDA events) of both routes and K1's times. Returns (launch
+    counts of the ENTRY_STEPS calls, K1's times, K1's max |dphi|)."""
+    import numpy as np
+    import torch
+
+    from svgdcpp_tpu_torch.entry import ENTRY_DIM, ENTRY_PARTICLES, entry
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import phi_rbf_fused_counts
+    from svgdcpp_tpu_torch.utils.workloads import build_mvn_svgd, flagship_mvn
+
+    n, m = ENTRY_PARTICLES, ENTRY_DIM
+    sq = cuda_phi.SQUARE_KERNEL
+    # K1 at the shape this path gives it, against its plain version.
+    x, s, g, thr = sweep_inputs(n, m, 0.0, 470, dev)
+    got = cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=False)
+    rel, err, dcnt = compare(f"phase 47 K1 ({n}, {m})", got,
+                             phi_rbf_fused_counts(x, s, g, thr), n, m)
+
+    cuda_phi.reset_launch_counts()
+    fn, (state0,) = entry()
+    coords0, s0 = state0["coords"].clone(), state0["opt_state"]["s"].clone()
+    state, after = state0, {}
+    for k in range(1, ENTRY_STEPS + 1):
+        state = fn(state)
+        if k in (1, ENTRY_STEPS):
+            after[k] = state["coords"]
+    torch.cuda.synchronize()
+    counts = dict(cuda_phi.launch_counts)
+    require_only(counts, sq, ENTRY_STEPS, "phase 47 entry()")
+    check(state0["coords"].device.type == "cuda"
+          and tuple(state0["coords"].shape) == (n, m),
+          f"phase 47: entry() state on {state0['coords'].device}")
+    check(torch.equal(coords0, state0["coords"])
+          and torch.equal(s0, state0["opt_state"]["s"]),
+          "phase 47: fn wrote into its input state")
+    check(bool(after[ENTRY_STEPS].isfinite().all()),
+          "phase 47: non-finite coordinates")
+
+    # The plain 'fused' route's step from the same state: the same model,
+    # kernel and optimizer, its sweep phi_rbf_fused_counts.
+    mean, cov, x0 = flagship_mvn(n, dtype=np.float32)
+    plain = build_mvn_svgd(torch.tensor(x0, device=dev), mean, cov,
+                           phi_impl="fused", num_iterations=1)
+    plain_fn = plain.build_step_fn()
+    ref, dist = state0, {}
+    for k in range(1, ENTRY_STEPS + 1):
+        ref = plain_fn(ref)[0]
+        if k in (1, ENTRY_STEPS):
+            dist[k] = float((after[k].double()
+                             - ref["coords"].double()).abs().max())
+    check(dist[ENTRY_STEPS] <= ENTRY_GATE,
+          f"phase 47: entry() is {dist[ENTRY_STEPS]:.3e} from the plain "
+          f"'fused' route after {ENTRY_STEPS} calls")
+    # The float32 noise floor: the plain route in float64 from x0.
+    plain64 = build_mvn_svgd(torch.tensor(x0, dtype=torch.float64,
+                                          device=dev), mean, cov,
+                             phi_impl="fused", num_iterations=ENTRY_STEPS)
+    floor = float((plain64.run() - after[ENTRY_STEPS].double()).abs().max())
+
+    t = {"kernel": time_ms(lambda: cuda_phi.phi_rbf_fused_cuda(
+             x, s, g, thr, sym=False)),
+         "plain": plain_ms(lambda: phi_rbf_fused_counts(x, s, g, thr)),
+         "sweep_us": kernel_us(lambda: cuda_phi.phi_rbf_fused_cuda(
+             x, s, g, thr, sym=False), "fused_phi_counts_square_kernel"),
+         "finish_us": kernel_us(lambda: cuda_phi.phi_rbf_fused_cuda(
+             x, s, g, thr, sym=False), "fused_phi_counts_square_finish")}
+    step_ms = time_ms(lambda: fn(state0))
+    plain_step_ms = time_ms(lambda: plain_fn(state0))
+    bound_ms, bound_by = sweep_bound(sq, n, m)
+    print(f"phase 47 entry() on the card (flagship n={n} d={m}, fused_cuda,"
+          f" K1 square form): ok coords_max_abs_diff_vs_plain_fused after 1 "
+          f"call={dist[1]:.3e} after {ENTRY_STEPS}={dist[ENTRY_STEPS]:.3e} "
+          f"(gate {ENTRY_GATE:g}) vs_float64_plain_fused={floor:.3e} "
+          f"input state unchanged launches={json.dumps(counts)} "
+          f"ms_per_step={step_ms:.4f} plain_fused_ms_per_step="
+          f"{plain_step_ms:.4f} (CUDA events, median of 50) {card} {clock()}")
+    print(f"phase 47 K1 ({n}, {m}) T=3 against its plain version: ok "
+          f"phi_rel={rel:.3e} max_abs_err={err:.3e} count_diff={dcnt} "
+          f"wrapper_ms={t['kernel']:.4f} plain_ms={t['plain']:.4f} "
+          f"kernel_only_us sweep={t['sweep_us']} finish={t['finish_us']} "
+          f"bound_ms={bound_ms:.6g} ({bound_by}) {card}")
+    return counts, t, err
+
+
 def main() -> int:
     import torch
 
@@ -5855,6 +5960,10 @@ def main() -> int:
                                                         ptxas, plain_ms)
     main46 = phase_bf16_paths(dev, card, clock)
 
+    # -- phase 47: entry() on the card ----------------------------------------
+    main47, times47, err47 = phase_entry(dev, card, clock, plain_ms)
+    square_err = max(square_err, err47)
+
     def main_path(phase, kernel, n, m, launches, times, **work):
         bound_ms, bound_by = sweep_bound(kernel, n, m, **work)
         path = {"phase": phase, "n": n, "m": m, "launches": launches,
@@ -5885,7 +5994,9 @@ def main() -> int:
              # the flat BLR driver under a one-rank mesh: the cross form
              # at the same shape
              main_path(36, sq, 1000, 50, main36["flat_blr"][sq],
-                       times9[("square", 1000, 50)])],
+                       times9[("square", 1000, 50)]),
+             # entry()'s step on the card (phase 47)
+             main_path(47, sq, 1024, 2, main47[sq], times47)],
         sym: [main_path(5, sym, 10000, 2, main_sym[sym], k2_10k)],
         t_sq: [main_path(10, t_sq, 1500, 11, main_terms_sq[t_sq],
                          times9[("terms_square", 1500, 11)], n_iso=2)],

@@ -16,7 +16,9 @@ fused_terms, fused_terms_cuda, fused_aniso_terms_cuda and cuda routes
 (utils/checkpoint.py), the driver's ``SVGDOptions.mesh`` and
 ``parallel.ShardedSVGD`` (gather mode and the ring schedule) over a
 torch.distributed group (``initialize_distributed``,
-``make_particle_mesh``). The CUDA routes run
+``make_particle_mesh``), and ``entry()`` (entry.py), one pure step of
+the flagship, the counterpart of the JAX package's
+``__graft_entry__.entry``. The CUDA routes run
 hand-written CUDA kernels, one for each Pallas kernel of the JAX package
 (``csrc/``), built with nvcc at their first launch.
 
@@ -30,6 +32,7 @@ from .core.exceptions import (
     UnsetError,
 )
 from .core.types import ParticleStore, PrecisionPolicy, as_coords
+from .entry import entry
 from .kernels.gaussian_rbf import GaussianRBFKernel, ScaleMethod
 from .kernels.kernel import Kernel
 from .models.bayesian_logistic_regression import (
@@ -48,6 +51,8 @@ from .ops.ksd import ksd_rbf
 from .parallel.mesh import initialize_distributed, make_particle_mesh
 from .svgd import SVGD, SVGDOptions
 
+# ``entry`` is not in __all__, which mirrors the JAX package's top level:
+# the JAX entry() lives outside it, in __graft_entry__.py.
 __version__ = "1.0.0"  # keep in sync with pyproject.toml
 
 __all__ = [
