@@ -14,6 +14,7 @@
     python3 chip_profile.py --square-wide-breakdown [--out PATH]
     python3 chip_profile.py --square-bf16 [--out PATH]
     python3 chip_profile.py --wide-panel [--out PATH]
+    python3 chip_profile.py --mid-width [PARENT_DIR] [--out PATH]
 
 Drives one configuration of svgdcpp_tpu_torch at its full width:
 
@@ -173,6 +174,19 @@ distance from its plain version, at (10240 / 10000 / 10007, 123), (4096,
 65 / 123 / 256 / 512) and, for bf16, (1500, 2); beside them K2's float32 wide and bf16
 instances at the same shapes; and both builds' registers and spill
 (default output ``chiprun_out/fixed_p_wide.json``).
+
+``--mid-width [PARENT_DIR]`` runs ``mid_width`` alone: the float32
+triangles K2 (T = 3) and K8/K9 (two and three terms) at n = 10,000 and
+the mid widths m = 9, 10, 12-64 (``MID_WIDTH_MS``, with 65 beside them),
+kernel-only and through the wrapper, in the tree PARENT_DIR (a
+``git archive`` of the parent commit, which builds its own csrc/) and in
+this one, one process each, parent, change, change, parent; each call's
+distance from the float64 plain version, each build's triangle instances'
+registers and spill, and each width's change/parent ratio; without
+PARENT_DIR only this tree's forms. Then, in this tree, the forms at
+``MID_FORM_SHAPES`` (``mid_width_forms``): the triangle against the square
+form, and the panel where the JAX rule picks it, one RBF and two terms,
+kernel-only (default output ``chiprun_out/mid_width.json``).
 
 ``--wide-drift`` runs ``wide_drift`` alone, with no driver profile: how
 far the float32 routes move from float64 at d = 123 and N = 10,000 in
@@ -4024,6 +4038,240 @@ def wrapper_ab_main(args) -> int:
     return 0
 
 
+#: --mid-width's ladder: K2 (T = 3) and K8/K9 with two and three terms
+#: at n = MID_WIDTH_N and the float32 triangles' mid widths, the ones the
+#: micro-tile body does not serve up to m = 64, with m = 65 beside them
+#: (the wide body in both trees); then the small launches, where the wide
+#: body's one persistent block an SM has few tile pairs to share: whole
+#: triangles at n = 2048 (SYM_MIN_N, 136 pairs of 128-tiles) and 4096, and
+#: the chunks of a world of MID_WIDTH_WORLD ranks at n = MID_WIDTH_N
+#: (about 800 pairs a rank), at MID_WIDTH_SMALL_MS.
+MID_WIDTH_N = 10000
+MID_WIDTH_MS = (9, 10, 12, 13, 16, 17, 24, 31, 32, 33, 50, 54, 55, 64, 65)
+MID_WIDTH_SMALL_N = (2048, 4096)
+MID_WIDTH_SMALL_MS = (9, 33, 64)
+MID_WIDTH_WORLD = 4
+
+#: --mid-width's child, run in one tree (its cwd): each (n, m) shape on
+#: chip_smoke.grid_inputs, K2 and K8/K9 with two terms (1, 1) and three
+#: (1, -0.5, 1) through the public wrappers with sym=True, and each chunk
+#: width's K4 and K10/K11 (two terms) over every rank of the world, one
+#: launch a rank: kernel-only us (chip_smoke.kernel_us: the profiler's
+#: events of the kernel over 10 calls; for the chunks the world's launches
+#: of one call summed), the wrapper's ms (chip_smoke.time_ms, the median of
+#: 20 calls; the chunks' every rank), phi's distance from the float64
+#: plain version (relative to its max |phi|; the chunks summed and
+#: finished as the engine does) and the counts' difference from it; with
+#: the tree's library build seconds and the ptxas lines of its triangle
+#: instances. It uses only what the trees before and after the mid widths
+#: moved share.
+MID_WIDTH_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from svgdcpp_tpu_torch.ops import cuda_phi
+from svgdcpp_tpu_torch.ops.phi import (phi_rbf_fused_counts,
+                                       phi_rbf_fused_sym_finish,
+                                       phi_rbf_terms_fused_counts,
+                                       phi_rbf_terms_fused_sym_finish)
+dev = torch.device("cuda")
+cfg = json.loads(sys.argv[1])
+t0 = time.perf_counter()
+cuda_phi.load_library()
+build_s = time.perf_counter() - t0
+log = cuda_phi.build_log_path()
+ptxas = cs.ptxas_summary(log.read_text() if log.exists() else "")
+rows = []
+def held(phi, cnt, want):
+    torch.cuda.synchronize()
+    return {"phi_rel_err": float((phi.double() - want[0]).abs().max()
+                                 / want[0].abs().max()),
+            "count_diff": int((cnt - want[1]).abs().max()),
+            "finite": bool(phi.isfinite().all())}
+for n, m in cfg["shapes"]:
+    x, s, g, thr = cs.grid_inputs(n, m, 0.0, 480 + m, dev)
+    x64, s64, thr64 = x.double(), s.double(), thr.double()
+    cases = [("K2", None, [g])]
+    cases.append(("K8/K9 two terms", (1.0, 1.0), [g, 0.5 * g]))
+    cases.append(("K8/K9 three terms", (1.0, -0.5, 1.0),
+                  [g, 0.5 * g, 2.0 * g]))
+    for label, signs, gs in cases:
+        if signs is None:
+            fn = lambda: cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=True)
+            name = "fused_phi_counts_sym_kernel"
+            want = phi_rbf_fused_counts(x64, s64, g.double(), thr64)
+        else:
+            fn = lambda: cuda_phi.phi_rbf_terms_fused_cuda(
+                x, s, gs, signs, thr, sym=True)
+            name = "fused_phi_terms_sym_kernel"
+            want = phi_rbf_terms_fused_counts(
+                x64, s64, [v.double() for v in gs], signs, thr64)
+        got = held(*fn(), want)
+        us = cs.kernel_us(fn, name)
+        ms = cs.time_ms(fn, reps=20, warmup=3)
+        rows.append({"kernel": label, "n": n, "m": m, "world": None,
+                     "kernel_us": us, "wrapper_ms": ms, **got})
+n, world = cfg["n"], cfg["world"]
+for m in cfg["chunk_ms"]:
+    x, s, g, thr = cs.grid_inputs(n, m, 0.0, 480 + m, dev)
+    x64, s64, thr64 = x.double(), s.double(), thr.double()
+    gs, signs = [g, 0.5 * g], (1.0, 1.0)
+    for label, one, finish, name, want in (
+            ("K4", lambda w, r: cuda_phi.phi_rbf_fused_sym_chunk_cuda(
+                x, s, g, thr, w, r),
+             lambda acc: phi_rbf_fused_sym_finish(acc, s, g, n),
+             "fused_phi_counts_sym_chunk_kernel",
+             phi_rbf_fused_counts(x64, s64, g.double(), thr64)),
+            ("K10/K11 two terms",
+             lambda w, r: cuda_phi.phi_rbf_terms_fused_sym_chunk_cuda(
+                 x, s, gs, signs, thr, w, r),
+             lambda acc: phi_rbf_terms_fused_sym_finish(acc, s, signs, n),
+             "fused_phi_terms_sym_chunk_kernel",
+             phi_rbf_terms_fused_counts(x64, s64, [v.double() for v in gs],
+                                        signs, thr64))):
+        got = held(*cs.ranks_summed(one, world, n, finish), want)
+        ranks = lambda: [one(world, r) for r in range(world)]
+        us = cs.kernel_us(ranks, name)
+        ms = cs.time_ms(ranks, reps=20, warmup=3)
+        rows.append({"kernel": label, "n": n, "m": m, "world": world,
+                     "kernel_us": us, "wrapper_ms": ms, **got})
+tri = {k: v for k, v in ptxas.items()
+       if k.split("<")[0] in ("counts_sym", "counts_sym_chunk", "terms_sym",
+                              "terms_sym_chunk")}
+print(json.dumps({"build_s": build_s, "ptxas": tri, "rows": rows}),
+      flush=True)
+"""
+
+
+def mid_width(parent: Path) -> dict:
+    """--mid-width DIR: MID_WIDTH_CHILD in the tree DIR (the parent's
+    checkout, whose csrc/ it builds), in this one, in this one and in DIR,
+    one process each (parent, change, change, parent), so that the float32
+    triangles' instances at the mid widths are timed in both trees on one
+    card; then, for each kernel and shape, the parent's and the change's
+    kernel-only us side by side (each the mean of its tree's two runs) and
+    their ratio."""
+    runs = []
+    shapes = ([(MID_WIDTH_N, m) for m in MID_WIDTH_MS]
+              + [(n, m) for n in MID_WIDTH_SMALL_N
+                 for m in MID_WIDTH_SMALL_MS])
+    cfg = json.dumps({"shapes": shapes, "n": MID_WIDTH_N,
+                      "world": MID_WIDTH_WORLD,
+                      "chunk_ms": list(MID_WIDTH_SMALL_MS)})
+    for label, tree in (("parent", parent), ("change", ROOT),
+                        ("change", ROOT), ("parent", parent)):
+        proc = subprocess.run(
+            [sys.executable, "-c", MID_WIDTH_CHILD, cfg], cwd=tree,
+            capture_output=True, text=True, timeout=1800)
+        if proc.returncode:
+            raise RuntimeError(f"--mid-width in {tree}:\n"
+                               f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+        run = {"tree": label, **json.loads(proc.stdout.strip()
+                                           .splitlines()[-1])}
+        runs.append(run)
+        print(json.dumps({"tree": label, "build_s": run["build_s"],
+                          "ptxas": run["ptxas"]}), flush=True)
+        for row in run["rows"]:
+            print(json.dumps({"tree": label, **row}), flush=True)
+    ladder = []
+    for i, row in enumerate(runs[0]["rows"]):
+        def mean(tree):
+            us = [r["rows"][i]["kernel_us"] for r in runs
+                  if r["tree"] == tree]
+            return None if None in us else sum(us) / len(us)
+        p_us, c_us = mean("parent"), mean("change")
+        step = {"kernel": row["kernel"], "n": row["n"], "m": row["m"],
+                "world": row["world"], "parent_us": p_us, "change_us": c_us,
+                "change_over_parent": (None if not p_us or c_us is None
+                                       else c_us / p_us)}
+        ladder.append(step)
+        print(json.dumps(step), flush=True)
+    return {"runs": runs, "ladder": ladder}
+
+
+#: --mid-width's form ladder: (n, m) shapes at which the full-width
+#: triangle, the square form and, where the JAX rule picks it, the panel
+#: form are timed, one RBF and two terms; m = 33-36 share the wide body's
+#: two 32-column slices, the square body's MM = 64 instance serves 33-64.
+#: At m = 9-16 the JAX rule keeps the triangle up to n = 32,768-49,152
+#: and takes the panel from 32,768-65,536 (both forms, one RBF and two
+#: terms), so those widths are timed at 65,536 and 131,072.
+MID_FORM_SHAPES = (tuple((n, m) for n in (10000, 32768)
+                         for m in (17, 32, 33, 36, 40, 48, 54, 64))
+                   + tuple((n, m) for n in (65536, 131072)
+                           for m in (9, 12, 16)))
+
+
+def mid_width_forms(device):
+    """--mid-width's forms (this tree only): at MID_FORM_SHAPES on
+    chip_smoke.grid_inputs, K2 against K1's square form and K8/K9 against
+    K6/K7's (two terms), each kernel-only (chip_smoke.kernel_us over 3
+    calls; the square forms' finishing pass included), and the panel
+    form where the JAX rule (sym_plan.jax_resolve_sym) picks it; with
+    both rules' picks. A trace that holds other than one event a call of
+    the kernel (two for the square form) is taken again."""
+    import chip_smoke as cs
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.sym_plan import jax_resolve_sym
+
+    rows = []
+    for n, m in MID_FORM_SHAPES:
+        x, s, g, thr = cs.grid_inputs(n, m, 0.0, 490 + m, device)
+        for terms in (None, 2):
+            jax_rule = jax_resolve_sym(n, m, terms)
+            forms = (True, False) + (("panel",) if jax_rule == "panel"
+                                     else ())
+            us = {}
+            for form in forms:
+                if terms is None:
+                    kernel = {True: cuda_phi.SYM_KERNEL,
+                              False: cuda_phi.SQUARE_KERNEL,
+                              "panel": cuda_phi.SYMPANEL_KERNEL}[form]
+
+                    def fn(form=form):
+                        return cuda_phi.phi_rbf_fused_cuda(x, s, g, thr,
+                                                           sym=form)
+                else:
+                    kernel = {True: cuda_phi.TERMS_SYM_KERNEL,
+                              False: cuda_phi.TERMS_SQUARE_KERNEL,
+                              "panel": cuda_phi.TERMS_SYMPANEL_KERNEL}[form]
+
+                    def fn(form=form):
+                        return cuda_phi.phi_rbf_terms_fused_cuda(
+                            x, s, [g, 0.5 * g], (1.0, 1.0), thr, sym=form)
+                us[repr(form)] = cs.kernel_us(
+                    fn, kernel, calls=3, per_call=2 if form is False else 1)
+            row = {"n": n, "m": m, "terms": terms or 1, "kernel_us": us,
+                   "jax_rule": jax_rule,
+                   "card_rule": cuda_phi.resolve_sym(None, n, m, terms)}
+            rows.append(row)
+            print(json.dumps(row), flush=True)
+    return rows
+
+
+def mid_width_main(args) -> int:
+    """--mid-width: mid_width's rows (with a parent tree) and
+    mid_width_forms', JSON to --out."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    card = card_name()
+    print(card)
+    result = {"card": card}
+    if args.mid_width is not True:
+        result["mid_width"] = mid_width(Path(args.mid_width))
+    result["forms"] = mid_width_forms(torch.device("cuda"))
+    out = Path(args.out or "chiprun_out/mid_width.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(card)
+    return 0
+
+
 def bf16_parity(device):
     """--bf16-parity: how far K1's bf16 result moves with the order of the
     sums that form sq. The flat BLR driver (N = 1000, d = 50, the bf16
@@ -4861,6 +5109,11 @@ def main() -> int:
                              "bf16 step (or, with --ab-family k15, K15's "
                              "wrapper) in the tree DIR and in this one, "
                              "DIR / here / here / DIR (no driver profile)")
+    parser.add_argument("--mid-width", default=None, metavar="DIR",
+                        nargs="?", const=True,
+                        help="time the float32 triangles at the mid widths "
+                             "(in the parent tree DIR and in this one when "
+                             "DIR is given) and the forms there")
     parser.add_argument("--ab-family", choices=("k1", "k15"), default="k1",
                         help="the kernels --wrapper-ab times")
     parser.add_argument("--bf16-parity", action="store_true",
@@ -4899,6 +5152,8 @@ def main() -> int:
         return square_bf16_main(args)
     if args.bf16_parity:
         return bf16_parity_main(args)
+    if args.mid_width:
+        return mid_width_main(args)
     if args.wrapper_ab:
         return wrapper_ab_main(args)
     if args.square_wide_breakdown:

@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the package's CUDA kernels from ``svgdcpp_tpu_torch/csrc`` and runs
-forty-seven phases, one line each (several for phases 2, 3, 7-9 and
-14-47):
+forty-eight phases, one line each (several for phases 2, 3, 7-9 and
+14-48):
 
   1. device and build: the card's name and power limit, torch and CUDA
      versions, nvcc build seconds and ptxas's registers and spill bytes of
@@ -326,6 +326,26 @@ forty-seven phases, one line each (several for phases 2, 3, 7-9 and
      |dcoords| within 1e-3 after 20 calls, printed after one too, the
      float64 plain route beside it as the floor); ms a step of both
      routes (CUDA events) and K1's wrapper, plain and kernel-only times.
+ 48. the float32 triangles at the mid widths, m = 9, 10 and 12-64, on
+     wide_tri_sm90.cuh's body (phase_mid_width; sizes in MID_*): 48d K2
+     (T = 3 and 5), K8/K9 (two and three terms), K4 and K10/K11 over
+     worlds 1-3 at n = 127, 128, 129, 257 and 10007 and 13 widths on grid
+     inputs, each call within 1e-5 of max |phi| from float64 and its
+     counts equal to both plain versions'; svgd_sym_tile against
+     sym_plan.sym_tile at m = 1-64; the wide instances' 0 bytes of spill
+     and no other triangle instance past the micro widths in the build;
+     48e the triangle against the forced panel and square forms at
+     (10000, 54) one RBF, (10000, 55) two terms and (32768, 33) both,
+     kernel-only us and wrapper ms, resolve_sym(None, ...) within 5% of
+     the faster of the triangle and the JAX rule's form; 48a the flat BLR
+     at Covertype's d = 54 and the bench's
+     d = 50, 48b the hierarchical BLR at d = 54 (m = 55), N = 10,000,
+     auto, 20 steps, the triangle's launches counted, every sweep call of
+     the float64 run replayed through the kernel within 1e-5, the route
+     within 1e-3 of float64; 48c the engine on one NCCL rank (hier m = 55
+     on auto, K10/K11; MVN d = 54, fused_sym="full", K4) within 1e-3 of
+     the driver. Each of 48a-48c's paths is timed at its own n and m
+     (kernel-only us, wrapper and plain ms), as the kernels line gives it.
 
 Phase 22 prints the N = 1,048,576 set-up (the median seed, now through
 K16) beside the 239.40 s the plain count pass took.
@@ -820,25 +840,31 @@ WIDE_SYM_TIE = 0.05
 WIDE_D, WIDE_BLR_N, WIDE_BLR_STEPS, WIDE_BIG_N = 123, 1000, 500, 10000
 
 
-def kernel_us(fn, name, calls=10, tries=3):
+def kernel_us(fn, name, calls=10, tries=3, per_call=None):
     """Mean device us of the kernels whose name holds ``name`` (or any
     name of a tuple: a call's several kernels) (the profiler's events) over
     ``calls`` calls of ``fn``, after one; a trace that lacks any of the
     names (on an H100, a trace held none of a call's kernels once in a run
     of phase 43a's 38 cases, and once lacked one of two) is taken again,
-    up to ``tries`` times, else None."""
+    up to ``tries`` times, else None. Given ``per_call`` (the events of
+    those names one call launches), the trace takes one call more, first,
+    and keeps the last ``calls * per_call`` events by start time: late in
+    one chip_smoke.py process the trace of phase 48e's 3 calls held 2 of a
+    form's 3 sweeps (the first one's lost), so a trace with fewer is taken
+    again."""
     names = (name,) if isinstance(name, str) else tuple(name)
     import tempfile
     from pathlib import Path
 
     import torch
 
+    lead = 0 if per_call is None else 1
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with torch.profiler.profile(
                 activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
+            for _ in range(calls + lead):
                 fn()
             torch.cuda.synchronize()
         with tempfile.TemporaryDirectory() as tmp:
@@ -848,6 +874,11 @@ def kernel_us(fn, name, calls=10, tries=3):
         hits = [ev for ev in events
                 if ev.get("ph") == "X" and ev.get("cat") == "kernel"
                 and any(nm in ev.get("name", "") for nm in names)]
+        if per_call is not None:
+            want = calls * per_call
+            if len(hits) < want:
+                continue
+            hits = sorted(hits, key=lambda ev: float(ev["ts"]))[-want:]
         if all(any(nm in ev["name"] for ev in hits) for nm in names):
             return sum(float(ev["dur"]) for ev in hits) / calls
     return None
@@ -1086,12 +1117,12 @@ def wide_bounds(kernel, n, m, terms, pairs=None, n_t=None):
     return fp32, tri_tensor_bound(n, m, n_terms=n_terms, pairs=pairs)
 
 
-def wide_held(label, got, want64, want32):
+def wide_held(label, got, want64, want32, gate=WIDE_PHI_GATE):
     """Hold a wide kernel's (phi, counts) to its plain versions' on grid
-    inputs: phi finite and within WIDE_PHI_GATE (max relative) of the
-    float64 plain version's, the counts (None for K15, which has none)
-    equal to both plain versions'. ``label`` starts with its phase.
-    Returns (max |dphi|, that relative error)."""
+    inputs: phi finite and within ``gate`` (max relative) of the float64
+    plain version's, the counts (None for K15, which has none) equal to
+    both plain versions'. ``label`` starts with its phase. Returns (max
+    |dphi|, that relative error)."""
     import torch
 
     phi_k, cnt_k = got
@@ -1101,8 +1132,7 @@ def wide_held(label, got, want64, want32):
     check(bool(phi_k.isfinite().all()), f"phase {label}: non-finite")
     abs_err = float((phi_k.double() - phi_w).abs().max())
     rel = abs_err / float(phi_w.abs().max())
-    check(rel <= WIDE_PHI_GATE,
-          f"phase {label}: phi rel err {rel:.3e} > {WIDE_PHI_GATE}")
+    check(rel <= gate, f"phase {label}: phi rel err {rel:.3e} > {gate}")
     if cnt_k is not None:
         # Grid inputs: every sq is exact in both forms.
         d64 = int((cnt_k - cnt_w).abs().max())
@@ -1834,12 +1864,12 @@ def recorded_run(build, wrapper, steps):
     return final, calls
 
 
-def replay_gate(label, wrapper, calls):
+def replay_gate(label, wrapper, calls, gate=WIDE_PHI_GATE):
     """Hold the kernel route per call: each recorded float64 sweep call
     (recorded_run) replayed in float32 through the kernel wrapper
     ``wrapper`` (ops/cuda_phi; the Cholesky factors and decompositions the
     driver keeps stay in float64, as the float32 driver passes them). phi
-    must be finite and within WIDE_PHI_GATE of max |phi| of the float64
+    must be finite and within ``gate`` of max |phi| of the float64
     call, the counts within REPLAY_COUNT_SLACK or 1e-6 n^2 of its counts,
     the larger (continuous inputs: a pair within rounding of a threshold
     may go either way, in both orders). Returns the largest relative phi
@@ -1859,8 +1889,8 @@ def replay_gate(label, wrapper, calls):
         torch.cuda.synchronize()
         rel = float((phi.double() - phi64).abs().max()) / float(
             phi64.abs().max())
-        check(bool(phi.isfinite().all()) and rel <= WIDE_PHI_GATE,
-              f"{label} call {idx}: phi rel err {rel:.3e} > {WIDE_PHI_GATE}")
+        check(bool(phi.isfinite().all()) and rel <= gate,
+              f"{label} call {idx}: phi rel err {rel:.3e} > {gate}")
         worst_rel = max(worst_rel, rel)
         if cnt64 is not None:
             n = phi.shape[0]
@@ -3589,6 +3619,408 @@ def phase_entry(dev, card, clock, plain_ms):
           f"kernel_only_us sweep={t['sweep_us']} finish={t['finish_us']} "
           f"bound_ms={bound_ms:.6g} ({bound_by}) {card}")
     return counts, t, err
+
+
+#: Phase 48: the float32 triangles at the mid widths, m = 9, 10 and 12-64,
+#: where K2/K4 and K8-K11 run wide_tri_sm90.cuh's body (rows padded to a
+#: multiple of 4). MID_D is Covertype's width, the source paper's own BLR
+#: experiment (Liu & Wang 2016, section 5: 54 features; the hierarchical
+#: model's m = 55), on utils/workloads.blr_workload's synthetic data (the
+#: real rows are not in the repository); MID_BENCH_D the bench's flat BLR
+#: width (bench.py --config blr). 48a/48b: the flat BLR at both widths and
+#: the hierarchical one at MID_D, N = MID_N, auto, COMPARE_STEPS steps;
+#: 48c: the engine on one NCCL rank, the hierarchical model (K10/K11) and
+#: an MVN at MID_D (K4); 48d: the edges (MID_EDGE_NS x MID_EDGE_MS, chunks
+#: over worlds 1 to MID_EDGE_WORLDS); 48e: the triangle against the forced
+#: panel and square forms at MID_FORMS. Every sweep call is held within
+#: MID_PHI_GATE of max |phi| from float64.
+MID_D, MID_BENCH_D, MID_N = 54, 50, 10000
+MID_PHI_GATE = 1e-5
+MID_EDGE_NS = (127, 128, 129, 257, 10007)
+MID_EDGE_MS = (9, 10, 12, 13, 16, 17, 31, 32, 33, 50, 55, 63, 64)
+MID_EDGE_WORLDS = 3
+#: 48e's shapes (n, m, signs; None: one RBF) and the forms the JAX rule
+#: picks there (sym_plan.jax_resolve_sym): the panel at (10000, 54) with
+#: one RBF, the square form at (10000, 55) with two terms, the panel and
+#: the square form at (32768, 33).
+MID_FORMS = ((10000, 54, None), (10000, 55, (1.0, 1.0)),
+             (32768, 33, None), (32768, 33, (1.0, 1.0)))
+
+
+def mid_width_held(label, kernel, got, want64, want32, errs):
+    """wide_held at MID_PHI_GATE, the kernel's max |dphi| into ``errs``;
+    returns the relative error."""
+    abs_err, rel = wide_held(label, got, want64, want32, gate=MID_PHI_GATE)
+    errs[kernel] = max(errs.get(kernel, 0.0), abs_err)
+    return rel
+
+
+def phase_mid_width_edges(dev, card, clock, ptxas, errs):
+    """Phase 48d: K2 (T = 3 and, through the runtime-T instance, 5), K8/K9
+    with two terms and three (a negative sign), and K4 and K10/K11 summed
+    over worlds 1 to MID_EDGE_WORLDS, at n = MID_EDGE_NS (the tile-128
+    edges and a ragged 10007) and m = MID_EDGE_MS on grid inputs, each held
+    to its float64 plain version within MID_PHI_GATE and its counts to
+    both plain versions' (mid_width_held). Then the library's
+    svgd_sym_tile against sym_plan.sym_tile at m = 1-64, the wide
+    instances' 0 bytes of spill, and no triangle instance in the build but
+    the micro-tile ones (m = 1-8 and 11) and the wide ones (MM = 0)."""
+    import re
+
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import (
+        phi_rbf_fused_counts,
+        phi_rbf_fused_sym_finish,
+        phi_rbf_sym_chunk_counts,
+        phi_rbf_terms_fused_counts,
+        phi_rbf_terms_fused_sym_finish,
+        phi_rbf_terms_sym_chunk_counts,
+    )
+    from svgdcpp_tpu_torch.ops.sym_plan import sym_tile
+
+    def f64(*ts):
+        return [t.double() for t in ts]
+
+    worst, calls = 0.0, 0
+    for m in MID_EDGE_MS:
+        for n in MID_EDGE_NS:
+            x, s, g, thr = grid_inputs(n, m, 0.0, 4800 + n + m, dev)
+            k2_64 = phi_rbf_fused_counts(*f64(x, s, g, thr))
+            for th in (thr, thresholds_of(thr, 5)):
+                want64 = (k2_64 if th is thr
+                          else phi_rbf_fused_counts(*f64(x, s, g, th)))
+                worst = max(worst, mid_width_held(
+                    f"48d K2 ({n}, {m}) T={th.shape[0]}", cuda_phi.SYM_KERNEL,
+                    cuda_phi.phi_rbf_fused_cuda(x, s, g, th, sym=True),
+                    want64, phi_rbf_fused_counts(x, s, g, th), errs))
+            terms_64 = {}
+            for signs, gs in (((1.0, 1.0), [g, 0.5 * g]),
+                              ((1.0, -0.5, 1.0), [g, 0.5 * g, 2.0 * g])):
+                want64 = phi_rbf_terms_fused_counts(*f64(x, s), f64(*gs),
+                                                    signs, thr.double())
+                terms_64[signs] = want64
+                worst = max(worst, mid_width_held(
+                    f"48d K8/K9 ({n}, {m}) signs={signs}",
+                    cuda_phi.TERMS_SYM_KERNEL,
+                    cuda_phi.phi_rbf_terms_fused_cuda(x, s, gs, signs, thr,
+                                                      sym=True),
+                    want64, phi_rbf_terms_fused_counts(x, s, gs, signs, thr),
+                    errs))
+            signs, gs = (1.0, 1.0), [g, 0.5 * g]
+            terms_64 = terms_64[signs]
+            for world in range(1, MID_EDGE_WORLDS + 1):
+                worst = max(worst, mid_width_held(
+                    f"48d K4 ({n}, {m}) world={world}",
+                    cuda_phi.SYM_CHUNK_KERNEL,
+                    ranks_summed(
+                        lambda w, r: cuda_phi.phi_rbf_fused_sym_chunk_cuda(
+                            x, s, g, thr, w, r), world, n,
+                        lambda acc: phi_rbf_fused_sym_finish(acc, s, g, n)),
+                    k2_64,
+                    ranks_summed(
+                        lambda w, r: phi_rbf_sym_chunk_counts(
+                            x, s, g, thr, w, r), world, n,
+                        lambda acc: phi_rbf_fused_sym_finish(acc, s, g, n)),
+                    errs))
+                worst = max(worst, mid_width_held(
+                    f"48d K10/K11 ({n}, {m}) world={world}",
+                    cuda_phi.TERMS_SYM_CHUNK_KERNEL,
+                    ranks_summed(
+                        lambda w, r:
+                        cuda_phi.phi_rbf_terms_fused_sym_chunk_cuda(
+                            x, s, gs, signs, thr, w, r), world, n,
+                        lambda acc: phi_rbf_terms_fused_sym_finish(
+                            acc, s, signs, n)),
+                    terms_64,
+                    ranks_summed(
+                        lambda w, r: phi_rbf_terms_sym_chunk_counts(
+                            x, s, gs, signs, thr, w, r), world, n,
+                        lambda acc: phi_rbf_terms_fused_sym_finish(
+                            acc, s, signs, n)),
+                    errs))
+                calls += 2
+            calls += 4
+        print(f"phase 48d m={m}: ok n = {list(MID_EDGE_NS)} within "
+              f"{worst:.3e} of max |phi| from float64 so far (gate "
+              f"{MID_PHI_GATE}), counts equal {clock()}")
+    print(f"phase 48d edges: ok {calls} calls at n = {list(MID_EDGE_NS)}, "
+          f"m = {list(MID_EDGE_MS)} (chunks over worlds 1-{MID_EDGE_WORLDS})"
+          f" within {worst:.3e} of max |phi| from float64, counts equal "
+          f"{card} {clock()}")
+    lib = cuda_phi.load_library()
+    off = [(m, t) for m in range(1, 65) for t in (0, 1)
+           if lib.svgd_sym_tile(m, t) != sym_tile(m, bool(t))]
+    check(not off, f"phase 48d: svgd_sym_tile and sym_plan.sym_tile differ "
+                   f"at (m, terms) in {off}")
+    report = {inst: ptxas.get(inst, "?") for inst in WIDE_SYM_INSTANCES}
+    spilled = [inst for inst, text in report.items()
+               if not text.endswith(" 0 B spill")]
+    check(not spilled, f"phase 48d: the wide triangle body's instances "
+                       f"spill or were not found in the build log: "
+                       f"{ {i: report[i] for i in spilled} }")
+    pattern = re.compile(r"(counts_sym|counts_sym_chunk|terms_sym|"
+                         r"terms_sym_chunk)<(\d+),")
+    kept = sorted(inst for inst in ptxas
+                  if (hit := pattern.match(inst)) is not None
+                  and int(hit.group(2)) not in (0, *range(1, 9), 11))
+    check(not kept, f"phase 48d: triangle instances past the micro widths "
+                    f"other than the wide one are built: {kept}")
+    print(f"phase 48d: ok svgd_sym_tile equals sym_plan.sym_tile at "
+          f"m = 1-64 (128 at every m); ptxas {json.dumps(report)}; no "
+          f"one-row-a-thread triangle instance in the build {clock()}")
+
+
+def phase_mid_width_forms(dev, card, clock, errs):
+    """Phase 48e: at MID_FORMS's shapes on grid inputs, the full-width
+    triangle (the card's rule there) against the forced panel and square
+    forms, each call held to the float64 plain version (the triangle
+    within MID_PHI_GATE; the others, which this phase does not change,
+    within their own gate against float64, WIDE_PHI_GATE, as phases 7
+    and 43b hold them: K1's 3xTF32 square body stands 2.1e-4 from
+    float64 at (32768, 33) on an H100; counts equal),
+    kernel-only us (kernel_us; None where the trace stayed short) and
+    wrapper ms (CUDA events, median of 5). The card's rule takes the
+    triangle where the wide body runs it only where it beats the form the
+    JAX rule picks, so resolve_sym(None, ...) must pick, of the triangle
+    and the JAX rule's form, one within WIDE_SYM_TIE of the faster by the
+    wrapper's ms, what a caller waits for (the panel's epilogue
+    included); the fastest of all three forms is printed beside it."""
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import (
+        phi_rbf_fused_counts,
+        phi_rbf_terms_fused_counts,
+    )
+    from svgdcpp_tpu_torch.ops.sym_plan import jax_resolve_sym
+
+    names = {(None, True): cuda_phi.SYM_KERNEL,
+             (None, False): cuda_phi.SQUARE_KERNEL,
+             (None, "panel"): cuda_phi.SYMPANEL_KERNEL,
+             (2, True): cuda_phi.TERMS_SYM_KERNEL,
+             (2, False): cuda_phi.TERMS_SQUARE_KERNEL,
+             (2, "panel"): cuda_phi.TERMS_SYMPANEL_KERNEL}
+    for idx, (n, m, signs) in enumerate(MID_FORMS):
+        x, s, g, thr = grid_inputs(n, m, 0.0, 4900 + idx, dev)
+        terms = None if signs is None else len(signs)
+        gs = [g] if signs is None else [g, 0.5 * g]
+        if signs is None:
+            want64 = phi_rbf_fused_counts(x.double(), s.double(), g.double(),
+                                          thr.double())
+            want32 = phi_rbf_fused_counts(x, s, g, thr)
+        else:
+            want64 = phi_rbf_terms_fused_counts(
+                x.double(), s.double(), [v.double() for v in gs], signs,
+                thr.double())
+            want32 = phi_rbf_terms_fused_counts(x, s, gs, signs, thr)
+        plain_ms = time_ms(lambda: (phi_rbf_fused_counts(x, s, g, thr)
+                                    if signs is None else
+                                    phi_rbf_terms_fused_counts(
+                                        x, s, gs, signs, thr)),
+                           reps=3, warmup=1)
+        forms = {}
+        for form in (True, "panel", False):
+            kernel = names[(terms, form)]
+
+            def call(form=form):
+                if signs is None:
+                    return cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=form)
+                return cuda_phi.phi_rbf_terms_fused_cuda(x, s, gs, signs,
+                                                         thr, sym=form)
+            cuda_phi.reset_launch_counts()
+            rel = mid_width_held(
+                f"48e {kernel} ({n}, {m})", kernel, call(), want64, want32,
+                errs) if form is True else wide_held(
+                f"48e {kernel} ({n}, {m})", call(), want64, want32)[1]
+            # The kernel's events (the square form's finishing pass too).
+            us = kernel_us(call, kernel, calls=3,
+                           per_call=2 if form is False else 1)
+            ms = time_ms(call, reps=5, warmup=1)
+            launched = {k: v for k, v in cuda_phi.launch_counts.items() if v}
+            check(set(launched) == {kernel},
+                  f"phase 48e ({n}, {m}) {form!r}: launches {launched}")
+            forms[form] = {"kernel": kernel, "kernel_us": us, "wrapper_ms": ms,
+                           "phi_rel": rel, "launches": launched[kernel]}
+        rule = cuda_phi.resolve_sym(None, n, m, terms)
+        jax_rule = jax_resolve_sym(n, m, terms)
+        other = jax_rule if rule is True else True
+        ms = {f: v["wrapper_ms"] for f, v in forms.items()}
+        check(ms[rule] <= (1 + WIDE_SYM_TIE) * ms[other],
+              f"phase 48e ({n}, {m}) terms={terms}: the rule picks {rule!r} "
+              f"at {ms[rule]} ms, {other!r} takes {ms[other]} ms")
+        fastest = min(ms, key=ms.get)
+        bound = sweep_bound(names[(terms, True)], n, m,
+                            n_iso=terms or 1)
+        tensor = tri_tensor_bound(n, m, n_terms=terms)
+        print(f"phase 48e ({n}, {m}) {'one RBF' if signs is None else 'two terms'}"
+              f": ok rule={rule!r} (JAX rule {jax_rule!r}; fastest "
+              f"{fastest!r}) "
+              + " ".join(f"{f!r}: {v['kernel']} kernel_us="
+                         f"{v['kernel_us'] if v['kernel_us'] is None else round(v['kernel_us'], 1)}"
+                         f" wrapper_ms={v['wrapper_ms']:.4f} launches="
+                         f"{v['launches']} phi_rel={v['phi_rel']:.3e};"
+                         for f, v in forms.items())
+              + f" plain_ms={plain_ms:.3f} triangle bound_ms={bound[0]:.6g} "
+              f"({bound[1]}, FP32), TF32 {tensor[0]:.6g} {card} {clock()}")
+
+
+def path_times(wrapper, plain, kernel, call):
+    """A path's times for the kernels line, on one call (args, kwargs[,
+    output]) in float32 at the path's own shape: {"kernel_us": kernel_us
+    over 5 calls, "kernel": the wrapper's ms (time_ms, the median of 10),
+    "plain": the plain version ``plain``'s ms on the same inputs (the
+    median of 3)}."""
+    args, kwargs = to32(tuple(call[0])), {k: to32(v)
+                                          for k, v in call[1].items()}
+    us = kernel_us(lambda: wrapper(*args, **kwargs), kernel, calls=5,
+                   per_call=1)
+    return {"kernel_us": us,
+            "kernel": time_ms(lambda: wrapper(*args, **kwargs), reps=10,
+                              warmup=2),
+            "plain": time_ms(lambda: plain(*args, **kwargs), reps=3,
+                             warmup=1)}
+
+
+def phase_mid_width_paths(dev, card, clock):
+    """Phases 48a-48c at Covertype's width: 48a the flat BLR at d = MID_D
+    and MID_BENCH_D, 48b the hierarchical BLR at d = MID_D (m = 55), N =
+    MID_N on auto for COMPARE_STEPS steps, each route required to take the
+    full-width triangle (the card's rule), its launches counted, the
+    float64 run of its route recorded (recorded_run) and each of its sweep
+    calls replayed through the kernel within MID_PHI_GATE (replay_gate),
+    and the float32 kernel route within 1e-3 of that float64 run after
+    COMPARE_STEPS steps; 48c the engine on a one-rank NCCL group, the
+    hierarchical model on auto (K10/K11) and an MVN at d = MID_D with
+    fused_sym="full" (K4), against the driver within 1e-3. Returns {path:
+    (launch counts, kernel, n, m, ms a step, path_times at the path's n
+    and m: 48a/48b on its first sweep call, 48c its world-1 chunk on grid
+    inputs)}."""
+    import torch
+
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import (
+        phi_rbf_sym_chunk_counts,
+        phi_rbf_terms_sym_chunk_counts,
+    )
+    from svgdcpp_tpu_torch.parallel import initialize_distributed
+    from svgdcpp_tpu_torch.utils.workloads import (
+        blr_workload,
+        build_blr_svgd,
+        build_mvn_svgd,
+        build_sharded_hier_svgd,
+        build_sharded_mvn_svgd,
+    )
+
+    out = {}
+
+    def launched(build, steps):
+        cuda_phi.reset_launch_counts()
+        svgd = build()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = svgd.run(*steps).double()
+        torch.cuda.synchronize()
+        return (svgd, final, dict(cuda_phi.launch_counts),
+                (time.perf_counter() - t0) * 1e3 / COMPARE_STEPS)
+
+    for label, d, hier in (("48a", MID_D, False), ("48a", MID_BENCH_D, False),
+                           ("48b", MID_D, True)):
+        m = d + 1 if hier else d
+        feats, labels, x0 = blr_workload(MID_N, d, hierarchical=hier)
+        impl = "fused_terms_cuda" if hier else "fused_cuda"
+        kernel = cuda_phi.TERMS_SYM_KERNEL if hier else cuda_phi.SYM_KERNEL
+        wrapper = ("phi_rbf_terms_fused_cuda" if hier
+                   else "phi_rbf_fused_cuda")
+
+        def build(dt, x0=x0, feats=feats, labels=labels, hier=hier):
+            return build_blr_svgd(torch.tensor(x0, dtype=dt, device=dev),
+                                  feats, labels, hierarchical=hier,
+                                  num_iterations=COMPARE_STEPS)
+        svgd, final, counts, ms = launched(lambda: build(torch.float32), ())
+        check(svgd._phi_impl == impl and svgd.fused_sym_form is True,
+              f"phase {label} BLR hier={hier} d={d}: route "
+              f"{svgd._phi_impl!r}, form {svgd.fused_sym_form!r}")
+        require_only(counts, kernel, COMPARE_STEPS,
+                     f"phase {label} BLR hier={hier} d={d}")
+        final64, calls = recorded_run(lambda: build(torch.float64), wrapper,
+                                      COMPARE_STEPS)
+        rel, dcnt = replay_gate(f"phase {label} BLR hier={hier} d={d}",
+                                wrapper, calls, gate=MID_PHI_GATE)
+        times = path_times(getattr(cuda_phi, wrapper), f64_sweep(wrapper),
+                           kernel, calls[0])
+        diff = float((final - final64).abs().max())
+        check(bool(final.isfinite().all()) and diff <= 1e-3,
+              f"phase {label} BLR hier={hier} d={d}: {COMPARE_STEPS} steps "
+              f"from the float64 run by {diff:.3e}")
+        acc = blr_accuracy(final[:, :d].cpu().numpy() if hier
+                           else final.cpu().numpy(), feats, labels)
+        name = f"{'hier' if hier else 'flat_blr'}_{d}"
+        print(f"phase {label} {name} N={MID_N} m={m} auto: ok route={impl} "
+              f"form=True kernel={kernel} launches={json.dumps(counts)} "
+              f"ms_per_step={ms:.3f} kernel_us={times['kernel_us']} "
+              f"wrapper_ms={times['kernel']:.4f} plain_ms="
+              f"{times['plain']:.3f} (the first sweep call's inputs); "
+              f"per-call replay "
+              f"of the float64 run's "
+              f"{COMPARE_STEPS} sweeps: max phi_rel={rel:.3e} (gate "
+              f"{MID_PHI_GATE}) max count_diff={dcnt}; {COMPARE_STEPS} steps "
+              f"coords_max_abs_diff from float64={diff:.3e} (gate 1e-3) "
+              f"train_accuracy={acc:.4f} {card} {clock()}")
+        out[name] = (counts, kernel, MID_N, m, ms, times)
+        if hier:
+            x0_h, feats_h, labels_h, driver_hier = x0, feats, labels, final
+
+    group = initialize_distributed(f"tcp://localhost:{free_port()}", 1, 0)
+    check(group.backend == "nccl", f"one-rank group on {group.backend!r}")
+    mean, cov, x0_mvn = wide_mvn(MID_N, MID_D, 480)
+    driver_mvn = build_mvn_svgd(torch.tensor(x0_mvn, device=dev), mean, cov,
+                                num_iterations=COMPARE_STEPS).run().double()
+    for name, kernel, build, x0, driver in (
+            ("engine_hier", cuda_phi.TERMS_SYM_CHUNK_KERNEL,
+             lambda: build_sharded_hier_svgd(x0_h, feats_h, labels_h, group),
+             x0_h, driver_hier),
+            ("engine_mvn", cuda_phi.SYM_CHUNK_KERNEL,
+             lambda: build_sharded_mvn_svgd(x0_mvn, mean, cov, group,
+                                            fused_sym="full"),
+             x0_mvn, driver_mvn)):
+        eng, final, counts, ms = launched(build, (x0, COMPARE_STEPS))
+        check(eng._fused_cuda and eng._fused_sym == "full",
+              f"phase 48c {name}: fused_cuda={eng._fused_cuda} "
+              f"fused_sym={eng._fused_sym!r}")
+        require_only(counts, kernel, COMPARE_STEPS, f"phase 48c {name}")
+        diff = float((final - driver).abs().max())
+        check(bool(final.isfinite().all()) and diff <= 1e-3,
+              f"phase 48c {name}: coords differ from the driver by "
+              f"{diff:.3e}")
+        x, s, g, thr = grid_inputs(MID_N, x0.shape[1], 0.0, 4950, dev)
+        if kernel == cuda_phi.SYM_CHUNK_KERNEL:
+            args = (cuda_phi.phi_rbf_fused_sym_chunk_cuda,
+                    phi_rbf_sym_chunk_counts, x, s, g, thr)
+        else:
+            args = (cuda_phi.phi_rbf_terms_fused_sym_chunk_cuda,
+                    phi_rbf_terms_sym_chunk_counts, x, s, [g, 0.5 * g],
+                    (1.0, 1.0), thr)
+        times = path_times(args[0], args[1], kernel,
+                           (args[2:] + (1, 0), {}))
+        print(f"phase 48c {name} N={MID_N} m={x0.shape[1]} one NCCL rank "
+              f"fused_sym=full: ok kernel={kernel} launches="
+              f"{json.dumps(counts)} ms_per_step={ms:.3f} world-1 chunk on "
+              f"grid inputs kernel_us={times['kernel_us']} wrapper_ms="
+              f"{times['kernel']:.4f} plain_ms={times['plain']:.3f}; vs the "
+              f"driver "
+              f"{COMPARE_STEPS} steps coords_max_abs_diff={diff:.3e} {card} "
+              f"{clock()}")
+        out[name] = (counts, kernel, MID_N, x0.shape[1], ms, times)
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def phase_mid_width(dev, card, clock, ptxas):
+    """Phase 48 (see MID_D): 48d the edges, 48e the forms, 48a-48c the
+    paths. Returns ({kernel: max |dphi|}, the paths of 48a-48c with their
+    own times) for the kernels line."""
+    errs = {}
+    phase_mid_width_edges(dev, card, clock, ptxas, errs)
+    phase_mid_width_forms(dev, card, clock, errs)
+    return errs, phase_mid_width_paths(dev, card, clock)
 
 
 def main() -> int:
@@ -5964,6 +6396,9 @@ def main() -> int:
     main47, times47, err47 = phase_entry(dev, card, clock, plain_ms)
     square_err = max(square_err, err47)
 
+    # -- phase 48: the float32 triangles at the mid widths (m = 9-64) ---------
+    mid_errs, main48 = phase_mid_width(dev, card, clock, ptxas)
+
     def main_path(phase, kernel, n, m, launches, times, **work):
         bound_ms, bound_by = sweep_bound(kernel, n, m, **work)
         path = {"phase": phase, "n": n, "m": m, "launches": launches,
@@ -6139,6 +6574,19 @@ def main() -> int:
         path["tensor_bound_ms"] = tensor[0]
         path["body"] = "svgdcpp_tpu_torch/csrc/wide_tri_sm90.cuh"
         paths[kernel].append(path)
+    # Phase 48's paths: the mid-width triangles on the wide body at
+    # Covertype's width (48a-48c) and the bench's flat BLR width, each
+    # timed by its own kernel at its own n and m (path_times).
+    for counts, kernel, n48, m48, ms48, times in main48.values():
+        single = kernel in (sym, k4)
+        path = main_path(48, kernel, n48, m48, counts[kernel], times,
+                         **({} if single else {"n_iso": 2}))
+        path["kernel_us"] = times["kernel_us"]
+        path["ms_per_step"] = ms48
+        path["tensor_bound_ms"] = tri_tensor_bound(
+            n48, m48, n_terms=None if single else 2)[0]
+        path["body"] = "svgdcpp_tpu_torch/csrc/wide_tri_sm90.cuh"
+        paths[kernel].append(path)
     # Phase 46's paths: the bf16 instances (K15's has no driver route, as
     # in the JAX package: its launches are phase 46a's own calls).
     sq16, sym16 = cuda_phi.SQUARE_BF16_KERNEL, cuda_phi.SYM_BF16_KERNEL
@@ -6190,6 +6638,11 @@ def main() -> int:
     sympanel_err = max(sympanel_err, panel_errs[sp])
     terms_panel_err = max(terms_panel_err, panel_errs[t_sp])
     panel_chunk_err = max(panel_chunk_err, panel_errs[k5])
+    # The triangles' errors include phase 48's (their mid widths).
+    sym_err = max(sym_err, mid_errs[sym])
+    terms_sym_err = max(terms_sym_err, mid_errs[t_sym])
+    sym_chunk_err = max(sym_chunk_err, mid_errs[k4])
+    terms_chunk_err = max(terms_chunk_err, mid_errs[k10])
     pallas = "svgdcpp_tpu/ops/pallas_phi.py"
     print(card)  # again beside the numbers, at the end of the output
     print(json.dumps({"kernels": [

@@ -24,15 +24,16 @@
 // in 3xTF32 (square_mma.cuh); the centring keeps the subtraction's
 // cancellation at float32 level.
 //
-// Every m >= 1 runs. Up to m = 64 (kMaxM) the triangle sweeps take exact
-// instances for m = 1..8, 11 and 50 and a runtime-m instance for the rest
-// (sweep_common.cuh), the square sweep exact CUDA-core instances for
-// m = 1..4 and tensor-core ones past them (SVGD_DISPATCH_SQ_MMA); past
-// m = 64 both take their wide instance (MM = kWideMM), whose body holds
-// nothing sized by m: square_wide_sm90_body (square_wide_sm90.cuh) and
-// wide_tri_sm90_body (wide_tri_sm90.cuh), both on the tensor cores, their
-// rows padded by the wrappers to a multiple of 4 floats. ptxas's report
-// (-Xptxas -v, kept in the build log) says whether an instance spills.
+// Every m >= 1 runs. The triangle sweeps take exact micro-tile instances
+// for m = 1..8 and 11 and the wide instance (MM = kWideMM) for every other
+// m (SVGD_DISPATCH_TRI_M, sweep_common.cuh); the square sweep exact
+// CUDA-core instances for m = 1..4, tensor-core ones past them up to
+// m = 64 (SVGD_DISPATCH_SQ_MMA) and its wide instance past 64. The wide
+// instances' bodies hold nothing sized by m: square_wide_sm90_body
+// (square_wide_sm90.cuh) and wide_tri_sm90_body (wide_tri_sm90.cuh), both
+// on the tensor cores, their rows padded by the wrappers to a multiple of
+// 4 floats. ptxas's report (-Xptxas -v, kept in the build log) says
+// whether an instance spills.
 //
 // The bfloat16 operand opt-in (the JAX package's dot_dtype='bfloat16',
 // pallas_phi.py:406 and :619) has instances of its own, at every m >= 1,
@@ -245,20 +246,17 @@ int launch_square_mma(const float* targets, const float* sources,
 // runs the 8-threshold instance); interior chunks run unmasked; rows and
 // columns flush with float32 atomics into the (2m, n) accumulator; a launch
 // of fewer than 1056 tile pairs splits each pair's chunks over the grid's
-// second dimension (tri_splits). Past m = 64 the wide instance runs
-// wide_tri_sm90.cuh's tensor-core body in tiles of 128 (kWideSymTile), one
-// persistent block an SM walking the tile list. The
-// conventions are those of the body the m = 9, 10, 12-64 instances keep
-// (counts_sym.cuh, tiles of SymRowTile): each self pair enters both
-// directions, D is unscaled (the wrapper multiplies it by 2 gamma) and the
-// upper count includes the diagonal. Every body goes under both names, so
-// a profiler trace tells the whole sweep from a chunk.
+// second dimension (tri_splits). At every other m (9, 10, 12 and up) the
+// wide instance runs wide_tri_sm90.cuh's tensor-core body in tiles of 128
+// (kWideSymTile), one persistent block an SM walking the tile list, on
+// rows the wrapper pads to a multiple of 4 floats; at m = 9, 10 and 12-64
+// it replaced a one-row-a-thread body whose MM = 16, 32, 50 and 64
+// instances took 1.8-7.5x its time at n = 10,000 (PERF.md,
+// chip_profile.py --mid-width). Both bodies enter each self pair in both
+// directions, leave D unscaled (the wrapper multiplies it by 2 gamma) and
+// count the upper triangle with its diagonal. Every body goes under both
+// names, so a profiler trace tells the whole sweep from a chunk.
 // ---------------------------------------------------------------------------
-
-#define SVGD_COUNTS_SYM_KERNEL fused_phi_counts_sym_kernel
-#include "counts_sym.cuh"
-#define SVGD_COUNTS_SYM_KERNEL fused_phi_counts_sym_chunk_kernel
-#include "counts_sym.cuh"
 
 namespace {
 
@@ -324,9 +322,8 @@ __global__ void __launch_bounds__(TriThreads<MM>::value)
 
 // Launch of the single-RBF triangle sweep over tiles [t0, t0 + count) of
 // the tile list (SymTile<MM> particles a side; count > 0): the wide body's
-// instances past kMaxM (one persistent block an SM) and the micro-tile
-// ones where they serve MM, each for T = 3 or any T <= 8; counts_sym.cuh's
-// body otherwise.
+// instance (one persistent block an SM) or the micro-tile one of MM, each
+// for T = 3 or any T <= 8.
 template <int MM, bool kExact>
 void launch_counts_sym(bool chunk, const float* coords, const float* scores,
                        const float* gamma, const float* thr, int n, int m,
@@ -348,7 +345,7 @@ void launch_counts_sym(bool chunk, const float* coords, const float* scores,
     } else {
       go(std::integral_constant<int, kMaxT>{});
     }
-  } else if constexpr (MicroWidth<MM>::value) {
+  } else {
     const dim3 grid(static_cast<unsigned int>(count), tri_splits<MM>(count));
     constexpr int threads = MicroTri<MM>::kThreads;
     auto go = [&](auto kt) {
@@ -366,15 +363,6 @@ void launch_counts_sym(bool chunk, const float* coords, const float* scores,
       go(std::integral_constant<int, 3>{});
     } else {
       go(std::integral_constant<int, kMaxT>{});
-    }
-  } else {
-    const unsigned int blocks = static_cast<unsigned int>(count);
-    if (chunk) {
-      fused_phi_counts_sym_chunk_kernel<MM, kExact><<<blocks, tile, 0, s>>>(
-          coords, scores, gamma, thr, n, m, T, nb, t0, acc, counts);
-    } else {
-      fused_phi_counts_sym_kernel<MM, kExact><<<blocks, tile, 0, s>>>(
-          coords, scores, gamma, thr, n, m, T, nb, t0, acc, counts);
     }
   }
 }
@@ -571,15 +559,16 @@ int svgd_fused_phi_counts_square_bf16(
 // Upper-triangle sweep over one particle set. coords (n, m) centered,
 // scores (n, m), gamma (1,), thr (T,) float32 on the device; acc a zeroed
 // (2m, n) float32 accumulator [KS | D]; counts a zeroed int64 (T,) buffer that
-// receives the upper count U (diagonal included). m >= 1; past m = 64 (the
-// wide body's 16-byte copies) m a multiple of 4 and coords and scores on a
-// 16-byte boundary (the wrappers pad the rows with zero columns).
+// receives the upper count U (diagonal included). m >= 1; wherever the wide
+// body serves m (tri_wide: every m but 1-8 and 11; its 16-byte copies) m a
+// multiple of 4 and coords and scores on a 16-byte boundary (the wrappers
+// pad the rows with zero columns).
 int svgd_fused_phi_counts_sym(const float* coords, const float* scores,
                               const float* gamma, const float* thr, int n,
                               int m, int T, float* acc, long long* counts,
                               void* stream) {
   if (n <= 0 || T < 1 || T > kMaxT ||
-      (m > kMaxM && !wide_rows_ok(m, coords, scores))) {
+      (tri_wide(m) && !wide_rows_ok(m, coords, scores))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -591,7 +580,7 @@ int svgd_fused_phi_counts_sym(const float* coords, const float* scores,
     launch_counts_sym<MM_, EX_>(false, coords, scores, gamma, thr, n, m, T, \
                                 0LL, pairs, acc, c, s);                    \
   }
-  SVGD_DISPATCH_M(m, SVGD_LAUNCH_SYM)
+  SVGD_DISPATCH_TRI_M(m, SVGD_LAUNCH_SYM)
 #undef SVGD_LAUNCH_SYM
   return static_cast<int>(cudaGetLastError());
 }
@@ -639,7 +628,7 @@ int svgd_fused_phi_counts_sym_chunk(const float* coords, const float* scores,
                                     long long count, float* acc,
                                     long long* counts, void* stream) {
   if (n <= 0 || T < 1 || T > kMaxT ||
-      (m > kMaxM && !wide_rows_ok(m, coords, scores))) {
+      (tri_wide(m) && !wide_rows_ok(m, coords, scores))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -654,7 +643,7 @@ int svgd_fused_phi_counts_sym_chunk(const float* coords, const float* scores,
                                   T, t0, count, acc, c, s);                \
     }                                                                      \
   }
-  SVGD_DISPATCH_M(m, SVGD_LAUNCH_SYM_CHUNK)
+  SVGD_DISPATCH_TRI_M(m, SVGD_LAUNCH_SYM_CHUNK)
 #undef SVGD_LAUNCH_SYM_CHUNK
   return static_cast<int>(cudaGetLastError());
 }
@@ -663,11 +652,11 @@ int svgd_fused_phi_counts_sym_chunk(const float* coords, const float* scores,
 
 namespace {
 
-// The tile side of the triangle instance SVGD_DISPATCH_M picks for m.
+// The tile side of the triangle instance SVGD_DISPATCH_TRI_M picks for m.
 int sym_tile_of(int m, int terms, int* tile) {
 #define SVGD_SYM_TILE(MM_, EX_) \
   *tile = terms ? TermsTriTile<MM_>::value : SymTile<MM_>::value
-  SVGD_DISPATCH_M(m, SVGD_SYM_TILE)
+  SVGD_DISPATCH_TRI_M(m, SVGD_SYM_TILE)
 #undef SVGD_SYM_TILE
   return 0;
 }

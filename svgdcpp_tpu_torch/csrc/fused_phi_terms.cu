@@ -64,13 +64,17 @@
 // unmasked, the column sums rotating between lanes at m = 11. Rows and
 // columns flush with float32 atomics; a small launch splits a tile pair's
 // chunks over the grid's second dimension (tri_splits). At n = 10,000 the
-// 3160 tile pairs fill 132 SMs about 6 times. At the other widths (m = 9,
-// 10, 12-64, whose rows the micro-tile would spill) the kernel keeps the
-// one-row-a-thread body of terms_sym.cuh in tiles of SymTermsTile, and
-// past m = 64 wide_tri_sm90.cuh's tensor-core body in tiles of 128 (one
-// persistent block an SM; k_c in the weight tile for the scores, then w
-// for the coordinates), under the same names. The tile side of each instance
-// is svgd_sym_tile's (fused_phi.cu), which the chunk wrappers read.
+// 3160 tile pairs fill 132 SMs about 6 times. At every other width (m = 9,
+// 10 and 12 up, whose rows the micro-tile would spill) the kernel runs
+// wide_tri_sm90.cuh's tensor-core body in tiles of 128 (one persistent
+// block an SM; k_c in the weight tile for the scores, then w for the
+// coordinates) under the same names, on rows the wrapper pads to a
+// multiple of 4 floats; at m = 9, 10 and 12-64 it replaced the
+// one-row-a-thread body of terms_sym.cuh, whose MM = 16, 32, 50 and 64
+// instances took 1.8-13.3x its time at n = 10,000 (PERF.md,
+// chip_profile.py --mid-width; terms_sym.cuh now serves only K14's term
+// groups). The tile side of each instance is svgd_sym_tile's
+// (fused_phi.cu), which the chunk wrappers read.
 //
 // The gammas are read from device memory (they come out of the median
 // update as device scalars; the host never reads them); the signs are
@@ -87,21 +91,15 @@
 #include "square_wide_sm90.cuh"
 #include "wide_tri_sm90.cuh"
 
-#define SVGD_TERMS_SYM_KERNEL fused_phi_terms_sym_kernel
-#include "terms_sym.cuh"
-#define SVGD_TERMS_SYM_KERNEL fused_phi_terms_sym_chunk_kernel
-#include "terms_sym.cuh"
-
 namespace {
 
 using namespace svgd;
 
 // ---------------------------------------------------------------------------
-// fused_phi_terms_sym and _sym_chunk at m = 1-8 and 11 (K8/K9, K10/K11):
-// micro_tri_body with the terms' weights, kT thresholds (3, or kMaxT for a
-// runtime T) and NTerms terms (2 in registers, or 0 for any count in
-// shared memory). The kernels overload terms_sym.cuh's wider instances, so
-// a trace names both bodies alike.
+// fused_phi_terms_sym and _sym_chunk (K8/K9, K10/K11): micro_tri_body at
+// m = 1-8 and 11, wide_tri_sm90_body at every other m (MM = kWideMM), with
+// the terms' weights, kT thresholds (3, or kMaxT for a runtime T) and
+// NTerms terms (2 in registers, or 0 for any count in shared memory).
 // ---------------------------------------------------------------------------
 
 template <int MM, bool kExact, int kT, int NTerms>
@@ -165,9 +163,8 @@ __global__ void __launch_bounds__(TriThreads<MM>::value)
 
 // Launch of the terms triangle sweep over tiles [t0, t0 + count) of the
 // tile list (TermsTriTile<MM> particles a side; count > 0): the wide
-// body's instances past kMaxM (one persistent block an SM) and the
-// micro-tile ones where they serve MM, each for T = 3 or any T <= 8 and for
-// two terms or any count; terms_sym.cuh's body otherwise.
+// body's instance (one persistent block an SM) or the micro-tile one of
+// MM, each for T = 3 or any T <= 8 and for two terms or any count.
 template <int MM, bool kExact>
 void launch_terms_sym(bool chunk, const float* coords, const float* scores,
                       const float* gammas, const TermSigns& sg, int nterms,
@@ -200,7 +197,7 @@ void launch_terms_sym(bool chunk, const float* coords, const float* scores,
     } else {
       terms(std::integral_constant<int, kMaxT>{});
     }
-  } else if constexpr (MicroTri<MM>::enabled) {
+  } else {
     const dim3 grid(static_cast<unsigned int>(count),
                     tri_splits<MM>(count));
     constexpr int threads = MicroTri<MM>::kThreads;
@@ -230,20 +227,6 @@ void launch_terms_sym(bool chunk, const float* coords, const float* scores,
       terms(std::integral_constant<int, 3>{});
     } else {
       terms(std::integral_constant<int, kMaxT>{});
-    }
-  } else {
-    const AnisoSigns none{};
-    const unsigned int blocks = static_cast<unsigned int>(count);
-    if (chunk) {
-      fused_phi_terms_sym_chunk_kernel<MM, kExact, false>
-          <<<blocks, tile, 0, s>>>(coords, nullptr, scores, gammas, sg,
-                                   nterms, none, thr, n, m, T, nb, t0, acc,
-                                   counts);
-    } else {
-      fused_phi_terms_sym_kernel<MM, kExact, false>
-          <<<blocks, tile, 0, s>>>(coords, nullptr, scores, gammas, sg,
-                                   nterms, none, thr, n, m, T, nb, t0, acc,
-                                   counts);
     }
   }
 }
@@ -465,17 +448,17 @@ int svgd_fused_phi_terms_square(const float* targets, const float* sources,
 // centered, scores (n, m), gammas (nterms,), thr (T,) float32 on the device;
 // signs (nterms,) a host array; acc a zeroed (2m, n) float32 accumulator
 // [KS | D]; counts a zeroed int64 (T,) buffer that receives the upper count
-// U (diagonal included). m >= 1, 1 <= nterms <= 16, 1 <= T <= 8; past
-// m = 64 (the wide body's 16-byte copies) m a multiple of 4 and coords and
-// scores on a 16-byte boundary (the wrappers pad the rows with zero
-// columns).
+// U (diagonal included). m >= 1, 1 <= nterms <= 16, 1 <= T <= 8; wherever
+// the wide body serves m (tri_wide: every m but 1-8 and 11; its 16-byte
+// copies) m a multiple of 4 and coords and scores on a 16-byte boundary
+// (the wrappers pad the rows with zero columns).
 int svgd_fused_phi_terms_sym(const float* coords, const float* scores,
                              const float* gammas, const float* signs,
                              int nterms, const float* thr, int n, int m,
                              int T, float* acc, long long* counts,
                              void* stream) {
   if (n <= 0 || T < 1 || T > kMaxT || nterms < 1 || nterms > kMaxTerms ||
-      (m > kMaxM && !wide_rows_ok(m, coords, scores))) {
+      (tri_wide(m) && !wide_rows_ok(m, coords, scores))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const TermSigns sg = make_signs(signs, nterms);
@@ -488,7 +471,7 @@ int svgd_fused_phi_terms_sym(const float* coords, const float* scores,
     launch_terms_sym<MM_, EX_>(false, coords, scores, gammas, sg, nterms,  \
                                thr, n, m, T, 0LL, pairs, acc, c, s);       \
   }
-  SVGD_DISPATCH_M(m, SVGD_LAUNCH_TERMS_SYM)
+  SVGD_DISPATCH_TRI_M(m, SVGD_LAUNCH_TERMS_SYM)
 #undef SVGD_LAUNCH_TERMS_SYM
   return static_cast<int>(cudaGetLastError());
 }
@@ -505,7 +488,7 @@ int svgd_fused_phi_terms_sym_chunk(const float* coords, const float* scores,
                                    float* acc, long long* counts,
                                    void* stream) {
   if (n <= 0 || T < 1 || T > kMaxT || nterms < 1 || nterms > kMaxTerms ||
-      (m > kMaxM && !wide_rows_ok(m, coords, scores))) {
+      (tri_wide(m) && !wide_rows_ok(m, coords, scores))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const TermSigns sg = make_signs(signs, nterms);
@@ -521,7 +504,7 @@ int svgd_fused_phi_terms_sym_chunk(const float* coords, const float* scores,
                                  thr, n, m, T, t0, count, acc, c, s);      \
     }                                                                      \
   }
-  SVGD_DISPATCH_M(m, SVGD_LAUNCH_TERMS_SYM_CHUNK)
+  SVGD_DISPATCH_TRI_M(m, SVGD_LAUNCH_TERMS_SYM_CHUNK)
 #undef SVGD_LAUNCH_TERMS_SYM_CHUNK
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,26 +1,26 @@
 // Device helpers shared by the sweeps (fused_phi.cu, fused_phi_terms.cu,
-// counts_sym.cuh, terms_sym.cuh, micro_tile.cuh, square_mma.cuh,
-// wide_tri_sm90.cuh, bf16_tri_sm90.cuh, fused_phi_aniso.cu, phi_rbf.cu,
-// fused_phi_panel.cu, count_le.cu): the pair's squared distance in the
-// plain version's order, the flushed-to-zero ex2 of the weights, threshold
-// counting (at a runtime or a compile-time number of thresholds), the
-// exact count flush, the upper-triangle tile decode, the pair's weights
-// (one RBF, or the signed-term combination of the composed kernels), and
-// the dispatch from a runtime dimension m to a kernel instance.
+// terms_sym.cuh, micro_tile.cuh, square_mma.cuh, wide_tri_sm90.cuh,
+// bf16_tri_sm90.cuh, fused_phi_aniso.cu, phi_rbf.cu, fused_phi_panel.cu,
+// count_le.cu): the pair's squared distance in the plain version's order,
+// the flushed-to-zero ex2 of the weights, threshold counting (at a runtime
+// or a compile-time number of thresholds), the exact count flush, the
+// upper-triangle tile decode, the pair's weights (one RBF, or the
+// signed-term combination of the composed kernels), and the dispatch from
+// a runtime dimension m to a kernel instance.
 //
 // Kernel instances. A kernel is a template over <MM, kExact>: with kExact
 // the dimension is exactly MM (every loop over the coordinates is unrolled
 // with no guard); without it the dimension is a runtime m <= MM and every
 // coordinate k >= m is skipped by a guard that the unrolled loop folds into
 // predicates. Per-thread vectors are MM-long register arrays either way.
-// SVGD_DISPATCH_M picks the exact instance for m = 1..8, 11 and 50 (the
-// flagship, hierarchical-BLR and flat-BLR widths), the runtime instance
-// with MM = 16, 32 or 64 for every other m up to 64 (kMaxM), and past it
-// the wide instance, MM = kWideMM, whose body holds no per-coordinate
-// array (square_wide_sm90.cuh's body; the triangles'
-// wide_tri_sm90.cuh). The bf16 instances of K1, K2 and K3 take no MM: they
-// run square_bf16_sm90.cuh's and bf16_tri_sm90.cuh's bodies at every m.
-// SVGD_DISPATCH_M_2_11, for the kernels with fewer main
+// The wide instance, MM = kWideMM, holds no per-coordinate array
+// (square_wide_sm90.cuh's body; the triangles' wide_tri_sm90.cuh).
+// SVGD_DISPATCH_TRI_M, the float32 triangles' (K2/K4, K8-K11), picks the
+// exact micro-tile instance for m = 1..8 and 11 and the wide instance for
+// every other m. SVGD_DISPATCH_SQ_CUDA_CORES and SVGD_DISPATCH_SQ_MMA
+// (square_mma.cuh) are the square sweeps'. The bf16 instances of K1, K2
+// and K3 take no MM: they run square_bf16_sm90.cuh's and bf16_tri_sm90.cuh's
+// bodies at every m. SVGD_DISPATCH_M_2_11, for the kernels with fewer main
 // paths (the panels, K14's term groups, K15), has exact instances for
 // m = 2 and 11 only and runtime ones with MM = 8, 16, 32 or 64, and
 // refuses m past kMaxM: each of those kernels takes its wide instance
@@ -234,48 +234,42 @@ struct WideSpot {
   int ld;
 };
 
-// The float32 triangle sweeps' tiles past kMaxM (wide_tri_sm90.cuh: K2/K4
-// and K8-K11 at MM = kWideMM, K14's term groups, and the panels K3/K5 and
-// K12/K13): 128 particles a side, for one RBF and for terms alike.
+// The float32 triangle sweeps' tiles on wide_tri_sm90.cuh's body (K2/K4
+// and K8-K11 at MM = kWideMM, every m but the micro widths; K14's term
+// groups and the panels K3/K5 and K12/K13 past kMaxM): 128 particles a
+// side, for one RBF and for terms alike.
 constexpr int kWideSymTile = 128;
 
-// The single-RBF one-row-a-thread triangle body (counts_sym.cuh): tiles of
-// 64 particles up to m = 16 and 32 above, so the padded pair tile and the
-// four coordinate/score tiles stay within 48 KB of static shared memory.
-template <int MM>
-struct SymRowTile {
-  static constexpr int value = MM <= 16 ? 64 : 32;
-};
+// Whether the float32 triangles (K2/K4, K8-K11) run wide_tri_sm90.cuh's
+// body at dimension m (SVGD_DISPATCH_TRI_M's wide instance): every m >= 1
+// but the micro widths (MicroWidth: m = 1-8 and 11). The entries require
+// wide_rows_ok's rows wherever it holds.
+inline bool tri_wide(int m) { return m > 8 && m != 11; }
 
 // The single-RBF triangle kernels' tiles (fused_phi.cu, K2's and K4's
-// ports): 128 particles a side where the micro-tile body serves the
-// instance and past kMaxM (kWideSymTile), else SymRowTile. svgd_sym_tile exports it and
+// ports): 128 particles a side, the micro-tile body's where it serves the
+// instance and kWideSymTile elsewhere. svgd_sym_tile exports it and
 // ops/sym_plan.sym_tile mirrors it.
 template <int MM>
 struct SymTile {
-  static constexpr int value =
-      MM == kWideMM ? kWideSymTile
-                    : (MicroWidth<MM>::value ? 128 : SymRowTile<MM>::value);
+  static constexpr int value = MicroWidth<MM>::value ? 128 : kWideSymTile;
 };
 
-// The composed kernels' triangle sweeps: tiles of 64 particles up to m = 12
-// and 32 above, so two padded pair tiles and four coordinate/score tiles
-// stay within 48 KB of static shared memory.
+// The one-row-a-thread terms body (terms_sym.cuh: K14's term groups up to
+// kMaxM) and the panels' terms instances: tiles of 64 particles up to
+// m = 12 and 32 above, so two padded pair tiles and four coordinate/score
+// tiles stay within 48 KB of static shared memory.
 template <int MM>
 struct SymTermsTile {
   static constexpr int value = MM <= 12 ? 64 : 32;
 };
 
-// The terms triangle kernels' tiles (fused_phi_terms.cu): 128 particles a
-// side where the micro-tile body serves the instance (MicroWidth) and past
-// kMaxM (kWideSymTile), else the one-row-a-thread body's SymTermsTile
-// (terms_sym.cuh). svgd_sym_tile
-// exports it and ops/sym_plan.sym_tile mirrors it.
+// The terms triangle kernels' tiles (fused_phi_terms.cu): the same as
+// one RBF's, 128 particles a side on either body. svgd_sym_tile exports it
+// and ops/sym_plan.sym_tile mirrors it.
 template <int MM>
 struct TermsTriTile {
-  static constexpr int value =
-      MM == kWideMM ? kWideSymTile
-                    : (MicroWidth<MM>::value ? 128 : SymTermsTile<MM>::value);
+  static constexpr int value = SymTile<MM>::value;
 };
 
 // The triangle sweeps' launch over tiles [t0, t0 + count) of the tile list:
@@ -416,10 +410,12 @@ struct AnyTerms {
 
 }  // namespace svgd
 
-// LAUNCH(MM, kExact) for the instance that serves dimension m, the wide
-// one (kWideMM) past kMaxM; an m below 1 returns cudaErrorInvalidValue from
-// the enclosing function.
-#define SVGD_DISPATCH_M(m, LAUNCH)                                      \
+// LAUNCH(MM, kExact) for the float32 triangles' instance of dimension m
+// (K2/K4, K8-K11): the exact micro-tile instance at m = 1..8 and 11, the
+// wide one (kWideMM) at every other m; an m below 1 returns
+// cudaErrorInvalidValue from the enclosing function. The square sweeps
+// have dispatches of their own (square_mma.cuh).
+#define SVGD_DISPATCH_TRI_M(m, LAUNCH)                                  \
   switch (m) {                                                          \
     case 1: LAUNCH(1, true); break;                                     \
     case 2: LAUNCH(2, true); break;                                     \
@@ -430,22 +426,15 @@ struct AnyTerms {
     case 7: LAUNCH(7, true); break;                                     \
     case 8: LAUNCH(8, true); break;                                     \
     case 11: LAUNCH(11, true); break;                                   \
-    case 50: LAUNCH(50, true); break;                                   \
     default:                                                            \
-      if (m >= 9 && m <= 16) {                                          \
-        LAUNCH(16, false);                                              \
-      } else if (m >= 17 && m <= 32) {                                  \
-        LAUNCH(32, false);                                              \
-      } else if (m >= 33 && m <= svgd::kMaxM) {                         \
-        LAUNCH(64, false);                                              \
-      } else if (m > svgd::kMaxM) {                                     \
+      if (svgd::tri_wide(m)) {                                          \
         LAUNCH(svgd::kWideMM, false);                                   \
       } else {                                                          \
         return static_cast<int>(cudaErrorInvalidValue);                 \
       }                                                                 \
   }
 
-// As SVGD_DISPATCH_M with fewer exact instances; an m outside 1..kMaxM
+// Fewer exact instances than the triangles'; an m outside 1..kMaxM
 // returns cudaErrorInvalidValue (K14's entry takes its wide instance past
 // kMaxM before this dispatch; the panels' and K15's wide sweeps have entries
 // of their own, svgd_fused_phi_*_sympanel*_wide and svgd_phi_rbf_wide).

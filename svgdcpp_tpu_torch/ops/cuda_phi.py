@@ -16,8 +16,8 @@ package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
   * ``fused_phi_counts_sym``    (``csrc/fused_phi.cu``) -- ``_sym_kernel``
     (K2), the upper-triangle sweep over one particle set (each unordered
     pair once, both directions; on ``csrc/micro_tile.cuh``'s body at
-    m = 1-8 and 11, ``csrc/counts_sym.cuh``'s up to 64 and
-    ``csrc/wide_tri_sm90.cuh``'s tensor-core body past it).
+    m = 1-8 and 11 and ``csrc/wide_tri_sm90.cuh``'s tensor-core body at
+    every other m).
   * ``fused_phi_terms_square``  (``csrc/fused_phi_terms.cu``) --
     ``_fused_terms_direct_kernel`` and ``_fused_terms_kernel`` (K6, K7):
     the square/cross sweep of a signed sum of isotropic RBF terms, on K1's
@@ -25,8 +25,8 @@ package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
     k_c and w (two operand bands on the tensor cores).
   * ``fused_phi_terms_sym``     (``csrc/fused_phi_terms.cu``) --
     ``_sym_terms_direct_kernel`` and ``_sym_terms_kernel`` (K8, K9): its
-    upper-triangle sweep (the micro-tile body, ``csrc/terms_sym.cuh``'s up
-    to 64, ``csrc/wide_tri_sm90.cuh``'s past it).
+    upper-triangle sweep (the micro-tile body at m = 1-8 and 11,
+    ``csrc/wide_tri_sm90.cuh``'s at every other m).
   * ``fused_phi_aniso_terms_sym`` (``csrc/fused_phi_aniso.cu``) --
     ``_sym_aniso_terms_kernel`` (K14): the sweep of a composed kernel with
     anisotropic (full-P) terms. With one anisotropic term up to m = 32 a
@@ -73,7 +73,8 @@ their plain versions; ``phi_rbf_square`` returns phi, like
 m >= 1: past MAX_M = 64 the sweeps run wide bodies that hold nothing sized
 by m (``csrc/square_wide_sm90.cuh``'s for the float32 square sweeps,
 ``csrc/wide_tri_sm90.cuh``'s body for the float32 triangles, the panels,
-K14's groups and K15). ``sym_eigen`` alone
+K14's groups and K15), and the float32 triangles run theirs from m = 9
+already (every m but 1-8 and 11). ``sym_eigen`` alone
 takes 1 <= m <= MAX_M:
 its matrix and its order table live in one block's shared memory, and
 past MAX_M K15 takes P itself, so nothing calls it there.
@@ -98,8 +99,9 @@ the norms and the epilogue's coordinates stay float32. The plain versions
 in ``ops/phi`` take the same ``dot_dtype`` and round at the same points.
 
 Which form sweeps one particle set is ``resolve_sym``: by default the JAX
-package's decision up to MAX_M and the card's own past it
-(``ops/sym_plan.card_resolve_sym``), or the caller's.
+package's decision at m = 1-8 and 11 and the card's own wherever the
+float32 triangle runs the wide body (``ops/sym_plan.card_resolve_sym``),
+or the caller's.
 
 Where the wrappers run: a tensor on the CPU goes to the plain version (the
 CPU tests use this); a tensor on a CUDA device launches the kernel or
@@ -168,6 +170,7 @@ from .sym_plan import (
     square_bf16_row_width,
     square_bf16_work,
     sym_tile_chunk,
+    tri_wide,
     wide_row_width,
 )
 
@@ -321,30 +324,33 @@ def load_library() -> ctypes.CDLL:
     return _lib
 
 
-def resolve_sym(sym, n: int, m: int, num_terms: int | None = None):
+def resolve_sym(sym, n: int, m: int, num_terms: int | None = None,
+                dot_dtype="float32"):
     """Which form sweeps n particles of dimension m: False (the square
     kernel), True (the full-width triangle kernel) or "panel" (the panel
     triangle kernel), for one RBF (``num_terms`` None) or a composed kernel
     of ``num_terms`` terms.
 
-    ``None`` gives, up to MAX_M, the JAX package's decision
-    (``_resolve_sym`` at its default tiles, ``sym_plan.jax_resolve_sym``):
-    the square sweep below SYM_MIN_N, the full-width triangle while its
-    accumulator fits the TPU's VMEM budget, the panel form past it where
-    its eligibility rules admit the shape, else the square sweep. Those are
-    TPU numbers, taken as the starting point as SYM_MIN_N is; the
-    crossovers on the card are measured in PERF.md. Past MAX_M it gives the
-    card's own rule (``sym_plan.card_resolve_sym``): the square sweep below
-    SYM_MIN_N, from there the form measured faster on the card, never the
-    panel (its wide instance does the triangle's work and more, and the
-    TPU's VMEM budget, the JAX rule's reason for it, does not bind on the
-    card). ``True`` forces the full-width
+    ``None`` gives the card's rule (``sym_plan.card_resolve_sym``), keyed
+    on the body the triangle runs in ``dot_dtype``. Where it runs the wide
+    body (float32: every m but 1-8 and 11; bfloat16: past MAX_M): the
+    square sweep below SYM_MIN_N, from there
+    the triangle, the form measured faster on the card, never the panel
+    (its instances do the triangle's work and more, and the TPU's VMEM
+    budget, the JAX rule's reason for it, does not bind on the card).
+    Elsewhere the JAX package's decision (``_resolve_sym`` at its
+    default tiles, ``sym_plan.jax_resolve_sym``): the square sweep below
+    SYM_MIN_N, the full-width triangle while its accumulator fits the TPU's
+    VMEM budget, the panel form past it where its eligibility rules admit
+    the shape, else the square sweep. Those are TPU numbers, taken as the
+    starting point as SYM_MIN_N is; the crossovers on the card are
+    measured in PERF.md. ``True`` forces the full-width
     kernel at any n, where the JAX package's True is advisory (it takes the
     panel or the square form past the budget): on the card the accumulator
     lives in device memory and no shape is too wide for it. ``False`` and
     ``"panel"`` force the square and the panel kernel."""
     if sym is None:
-        return card_resolve_sym(n, m, num_terms)
+        return card_resolve_sym(n, m, num_terms, dot_bf16(dot_dtype))
     if sym is True or sym is False or sym == "panel":
         return sym
     raise ValueError(
@@ -433,16 +439,19 @@ def _centered32(coords):
     return c32 - c32.mean(dim=0)
 
 
-def _tri_operands(coords_c, sc32, m):
-    """(coordinates, scores, width) as the float32 triangle kernels take
-    them: past MAX_M padded with zero columns to ``wide_row_width(m)``, so
-    that the wide body's 16-byte copies start every row on a 16-byte
-    boundary, which the library requires there (zero columns add nothing
-    to sq, KS or D; the accumulator has 2 x width rows, of which the
-    wrappers keep [0, m) and [width, width + m)); a scores view off a
-    16-byte boundary is copied. ``coords_c`` is a fresh tensor. m <= MAX_M
-    takes them as they are."""
-    if m <= MAX_M:
+def _tri_operands(coords_c, sc32, m, wide):
+    """(coordinates, scores, width) as the float32 wide bodies take them
+    where the caller's instance is the wide body (``wide``: the triangles'
+    ``sym_plan.tri_wide(m)``, K14's groups' m > MAX_M; the panels and K15
+    call it past MAX_M only): padded with zero
+    columns to ``wide_row_width(m)``, so that the wide body's 16-byte
+    copies start every row on a 16-byte boundary, which the library
+    requires there (zero columns add nothing to sq, KS or D; the
+    accumulator has 2 x width rows, of which the wrappers keep [0, m) and
+    [width, width + m)); a scores view off a 16-byte boundary is copied.
+    ``coords_c`` is a fresh tensor. Otherwise they are taken as they
+    are."""
+    if not wide:
         return coords_c, sc32, m
     width = wide_row_width(m)
     if width != m:
@@ -560,7 +569,7 @@ def _square_launch(targets, sources, scores, gammas, signs, thresholds_sq,
     if bf16:
         return _square_bf16_launch(tgt_c, src_c, sc32, g, thr, square,
                                    targets.dtype)
-    width = wide_row_width(m)
+    width = wide_row_width(m) if m > MAX_M else m
     if width != m:
         pad = (0, width - m)
         tgt_c, src_c, sc32 = (torch.nn.functional.pad(v, pad)
@@ -755,7 +764,7 @@ def _sym_launch(coords, scores, gammas, signs, thresholds_sq):
     n, m = coords.shape
     coords_c = _centered32(coords).contiguous()
     sc32 = scores.to(torch.float32).contiguous()
-    xk, sk, width = _tri_operands(coords_c, sc32, m)
+    xk, sk, width = _tri_operands(coords_c, sc32, m, tri_wide(m))
     acc = torch.zeros((2 * width, n), dtype=torch.float32,
                       device=coords.device)
     upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=coords.device)
@@ -862,7 +871,8 @@ def _panel_operands(coords, sc32, wide, num_p, w):
     if not wide:
         windows = _panel_windows(num_p, m, w, coords.device)
         return _centered32(coords).contiguous(), sc32, m, windows
-    xk, sk, width = _tri_operands(_centered32(coords).contiguous(), sc32, m)
+    xk, sk, width = _tri_operands(_centered32(coords).contiguous(), sc32, m,
+                                  True)
     return xk, sk, width, torch.zeros((2 * width, n), dtype=torch.float32,
                                       device=coords.device)
 
@@ -984,7 +994,7 @@ def aniso_group_operands(coords_c, sc32, lowers):
     zeros, not a float32 product padded after); up to MAX_M all stay at
     width m."""
     m = coords_c.shape[1]
-    x, s, width = _tri_operands(coords_c, sc32, m)
+    x, s, width = _tri_operands(coords_c, sc32, m, m > MAX_M)
     if width != m:
         pad = torch.zeros((lowers.shape[0], width, width),
                           dtype=torch.float64, device=coords_c.device)
@@ -1128,7 +1138,7 @@ def fixed_p_wide_operands(coords_c, sc32, y):
     ``wide_row_width(m)``), Y padded alike (zero columns of Y add nothing
     to the Gram tile)."""
     m = coords_c.shape[1]
-    xk, sk, width = _tri_operands(coords_c, sc32, m)
+    xk, sk, width = _tri_operands(coords_c, sc32, m, True)
     yk = (torch.nn.functional.pad(y, (0, width - m)) if width != m
           else y if y.data_ptr() % 16 == 0 else y.clone())
     return xk, sk, yk, width
@@ -1213,7 +1223,8 @@ def phi_rbf_fused_cuda(coords, scores, gamma, thresholds_sq, sym=None,
     the triangle kernels pin it), for True.
     """
     bf16 = dot_bf16(dot_dtype)
-    form = resolve_sym(sym, coords.shape[0], coords.shape[1])
+    form = resolve_sym(sym, coords.shape[0], coords.shape[1],
+                       dot_dtype=dot_dtype)
     if coords.device.type == "cpu":
         if form == "panel":
             return phi_rbf_sympanel_fused_counts(
@@ -1402,7 +1413,7 @@ def _sym_chunk_launch(coords, scores, gammas, signs, thresholds_sq, world,
     # Every rank centers on the mean of the gathered global set.
     coords_c = _centered32(coords).contiguous()
     sc32 = scores.to(torch.float32).contiguous()
-    xk, sk, width = _tri_operands(coords_c, sc32, m)
+    xk, sk, width = _tri_operands(coords_c, sc32, m, tri_wide(m))
     acc = torch.zeros((2 * width, n), dtype=torch.float32,
                       device=coords.device)
     upper = torch.zeros(thr.shape[0], dtype=torch.int64, device=coords.device)

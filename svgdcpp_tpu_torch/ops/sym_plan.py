@@ -187,26 +187,42 @@ def jax_resolve_sym(n: int, m: int, num_terms: int | None = None):
 
 #: The largest m of the kernels' register-sized instances (``kMaxM`` of
 #: csrc/sweep_common.cuh); past it every sweep, the panels included, takes
-#: its wide instance.
+#: its wide instance (the float32 triangles take theirs from m = 9 already,
+#: :func:`tri_wide`).
 KERNEL_MAX_M = 64
 
 
-def card_resolve_sym(n: int, m: int, num_terms: int | None = None):
+def card_resolve_sym(n: int, m: int, num_terms: int | None = None,
+                     bf16: bool = False):
     """The card's automatic form for n particles of dimension m, one RBF
-    (``num_terms`` None) or a composed kernel: the JAX package's decision
-    (``jax_resolve_sym``) up to KERNEL_MAX_M; past it the square sweep
-    below SYM_MIN_N and the full-width triangle from there up, never
-    "panel" (which a caller may still force: its wide instance runs at any
-    m).
+    (``num_terms`` None) or a composed kernel, keyed on the body the
+    triangle runs: where it runs the wide body (float32: :func:`tri_wide`,
+    every m but 1-8 and 11; ``bf16``, K2's and K3's bfloat16 instances:
+    past KERNEL_MAX_M only, the rule those instances had before the
+    float32 mid widths moved, since nothing of theirs was timed there) the
+    square sweep below SYM_MIN_N and the full-width triangle from there
+    up, never "panel" (which a caller may still force); elsewhere the JAX
+    package's decision (``jax_resolve_sym``).
 
     Past KERNEL_MAX_M the triangle is what chip_smoke.py's phase 43b
     measured faster on an H100 80GB HBM3 at 700 W: 3.91-4.00 ms against the
     square sweep's 11.92-12.40 ms at (10000, 123) with one RBF, 5.05-5.35
-    against 12.32-12.81 ms at (10000, 124) with two terms (PERF.md). The
-    TPU's panel form, and its square form past the budget, exist for its
-    8 MiB VMEM accumulator budget, which the card does not have, so the JAX
-    rule is not repeated past KERNEL_MAX_M."""
-    if m <= KERNEL_MAX_M:
+    against 12.32-12.81 ms at (10000, 124) with two terms (PERF.md). At
+    m = 17-64 chip_profile.py --mid-width measured it at 0.51-0.93 ms at
+    n = 10,000 against the square form's 0.66-1.81 ms and the panel's
+    16.4-16.8 ms (m = 54, 64, where the JAX rule takes the panel for one
+    RBF), and at 5.2-9.7 ms at n = 32,768 against the square's 5.2-13.3
+    (within 2.4% of it at m = 17, one RBF) and the panel's 28.9-158. At
+    m = 9, 12 and 16, past the JAX budget, it took 18.1-19.1 ms at
+    n = 65,536 and 71.9-74.6 ms at 131,072 against the JAX rule's panel's
+    43.2-46.4 and 165-179 ms; the square form was faster than either
+    there (13.8-17.5 and 53.9-68.8 ms), which this rule does not take
+    (PERF.md). chip_smoke.py's phase 48e holds the rule to the JAX rule's
+    form at (10000, 54), (10000, 55) and (32768, 33). The TPU's
+    panel form, and its square form past the budget, exist for its 8 MiB
+    VMEM accumulator budget, which the card does not have, so the JAX rule
+    is not repeated where the wide body runs."""
+    if not (m > KERNEL_MAX_M if bf16 else tri_wide(m)):
         return jax_resolve_sym(n, m, num_terms)
     return n >= SYM_MIN_N
 
@@ -369,23 +385,26 @@ def sym_panel_sharded_plan(n: int, m: int, num_chunks: int,
 WIDE_MM = 0
 
 
+def tri_wide(m: int) -> bool:
+    """Whether the float32 triangles (K2/K4, K8-K11) run the wide body
+    (csrc/wide_tri_sm90.cuh) at dimension m: every m but the micro-tile
+    body's widths, 1-8 and 11 (``tri_wide`` of csrc/sweep_common.cuh)."""
+    return m > 8 and m != 11
+
+
 def dispatch_m(m: int) -> int:
-    """The kernels' instance for dimension m (``SVGD_DISPATCH_M`` of
-    csrc/sweep_common.cuh): m itself for m = 1..8, 11 and 50, the next of
-    16, 32 and 64 up to KERNEL_MAX_M, and WIDE_MM past it."""
-    if m > KERNEL_MAX_M:
-        return WIDE_MM
-    if m <= 8 or m in (11, 50):
-        return m
-    return 16 if m <= 16 else 32 if m <= 32 else 64
+    """The float32 triangles' instance for dimension m
+    (``SVGD_DISPATCH_TRI_M`` of csrc/sweep_common.cuh): m itself at the
+    micro widths, WIDE_MM where :func:`tri_wide` holds."""
+    return WIDE_MM if tri_wide(m) else m
 
 
 #: The triangle kernels' tile side where the micro-tile body serves the
 #: instance (``MicroWidth`` of csrc/sweep_common.cuh: m = 1-8 and 11), and
 #: where the float32 wide body does (``kWideSymTile``, csrc/
-#: wide_tri_sm90.cuh: m past KERNEL_MAX_M, the panels' float32 instances
-#: too), for one RBF (``SymTile``) and a composed kernel (``TermsTriTile``)
-#: alike. K2's and K3's bf16 instances take BF16_TILE
+#: wide_tri_sm90.cuh: every other m, and the panels' float32 instances
+#: past KERNEL_MAX_M), for one RBF (``SymTile``) and a composed kernel
+#: (``TermsTriTile``) alike. K2's and K3's bf16 instances take BF16_TILE
 #: (csrc/bf16_tri_sm90.cuh, below).
 MICRO_TILE = 128
 WIDE_TILE = 128
@@ -401,13 +420,13 @@ WIDE_ROW_ALIGN = 4
 
 
 def wide_row_width(m: int) -> int:
-    """The row width the float32 triangle wrappers hand the library for
-    dimension m: past KERNEL_MAX_M, m rounded up to WIDE_ROW_ALIGN (the
-    coordinates and scores padded with zero columns, which add nothing to
-    sq, KS or D, so that every row starts on a 16-byte boundary); m
-    itself below."""
-    if m <= KERNEL_MAX_M:
-        return m
+    """The row width the float32 wide bodies take for dimension m: m
+    rounded up to WIDE_ROW_ALIGN (the coordinates and scores padded with
+    zero columns, which add nothing to sq, KS or D, so that every row
+    starts on a 16-byte boundary). Each wrapper pads only where its own
+    instance is the wide body: the triangles where :func:`tri_wide` holds,
+    the square sweeps, K14's groups, K15 and the panels past
+    KERNEL_MAX_M."""
     return -(-m // WIDE_ROW_ALIGN) * WIDE_ROW_ALIGN
 
 
@@ -623,23 +642,14 @@ def bf16_walk(n: int, block: int, panel_blocks=None, panel: bool = False,
 
 def sym_tile(m: int, terms: bool = False) -> int:
     """The side of the full-width triangle kernels' tiles for dimension m,
-    from the instance that serves m (:func:`dispatch_m`): MICRO_TILE where
-    the micro-tile body serves the instance (m = 1-8 and 11), else the
-    one-row-a-thread body's. One RBF (``SymRowTile``): 64 up to an instance
-    of 16, 32 above. A composed kernel (``SymTermsTile``): 32 (its 64 up to
-    an instance of 12 serves no dimension outside the micro ones). Past
-    KERNEL_MAX_M the float32 wide body's WIDE_TILE, for both. The chunk wrappers on
+    one RBF (``SymTile``) or a composed kernel (``terms``,
+    ``TermsTriTile``), from the instance that serves m (:func:`dispatch_m`):
+    MICRO_TILE where the micro-tile body serves it (m = 1-8 and 11), the
+    float32 wide body's WIDE_TILE at every other m. The chunk wrappers on
     the card take the library's own answer (``svgd_sym_tile``); this copy
     serves the plain chunk sweeps, and the card's smoke test holds it to
-    the library's."""
-    inst = dispatch_m(m)
-    if inst == WIDE_MM:
-        return WIDE_TILE
-    if inst <= 8 or inst == 11:
-        return MICRO_TILE
-    if terms:
-        return 32
-    return 64 if inst <= 16 else 32
+    the library's at m = 1-64."""
+    return WIDE_TILE if tri_wide(m) else MICRO_TILE
 
 
 #: The square/cross sweeps' launch (K1's port and the terms kernel, K6/K7's,

@@ -91,10 +91,10 @@ from ..ops.phi import (
     phi_rbf_terms_fused_sym_finish,
 )
 from ..ops.sym_plan import (
-    KERNEL_MAX_M,
     card_resolve_sym,
     sym_panel_sharded_plan,
     sym_sharded_plan,
+    tri_wide,
 )
 from ..optimizers.base import _map_pair
 from ..svgd import SVGD, _skip_section
@@ -228,10 +228,12 @@ def resolve_sharded_sym(fused_sym, fused_cuda: bool, n: int, m: int,
     engine's ``fused_sym`` and the driver's under ``SVGDOptions.mesh``
     resolve here.
 
-    Past MAX_M (64) the TPU's budget, which sends wide shapes to the panel
-    or the cross sweep, is not the card's: under None the card's rule for
-    one RBF or ``num_terms`` terms (``sym_plan.card_resolve_sym``) picks
-    "full" or the cross sweep; a forced "panel" runs K5's wide instance."""
+    Where the float32 triangle runs the wide body (``sym_plan.tri_wide``:
+    every m but 1-8 and 11) the TPU's budget, which sends wide shapes to
+    the panel or the cross sweep, is not the card's: under None the card's
+    rule for one RBF or ``num_terms`` terms (``sym_plan.card_resolve_sym``)
+    picks "full" or the cross sweep; a forced "panel" runs K5's instance
+    (its wide one past 64)."""
     bf16 = dot_bf16(dot_dtype)
     if fused_sym is False:
         return False
@@ -256,7 +258,7 @@ def resolve_sharded_sym(fused_sym, fused_cuda: bool, n: int, m: int,
         return fused_sym
     mode = False
     if fused_cuda and not bf16:
-        if m > KERNEL_MAX_M:
+        if tri_wide(m):
             mode = "full" if card_resolve_sym(n, m, num_terms) else False
         elif sym_sharded_plan(n, m, world) is not None:
             mode = "full"
@@ -338,10 +340,11 @@ class ShardedSVGDConfig:
     CUDA device and the kernel qualifies (the built-in RBF, or every
     effective term gamma provably positive); True forces it (on the CPU its
     wrappers run their plain versions); False keeps the plain sweep.
-    ``fused_sym``: None = the JAX decision for the global n, m and the
-    group's world size (full-width triangle while the TPU's accumulator
-    budget holds, else the panel form for the built-in RBF, else the cross
-    sweep); True = that decision, raising where it is the cross sweep;
+    ``fused_sym``: None = at m = 1-8 and 11 the JAX decision for the
+    global n, m and the group's world size (full-width triangle while the
+    TPU's accumulator budget holds, else the panel form for the built-in
+    RBF, else the cross sweep), at every other m the card's rule
+    (``resolve_sharded_sym``); True = that decision, raising where it is the cross sweep;
     "full" / "panel" force the form at any n; False keeps the cross sweep.
     """
 

@@ -276,11 +276,15 @@ class SVGDOptions:
     #: driver's does. The other routes ignore it. Any other value raises.
     fused_dot_dtype: str = "float32"
     #: Which form of the sweep the 'fused_cuda' and 'fused_terms_cuda'
-    #: routes run (ops/cuda_phi.resolve_sym): None (default) the JAX
-    #: package's rule, the full-width triangle kernel from SYM_MIN_N
-    #: particles up and the panel triangle kernel past the TPU's accumulator
-    #: budget (N = 262,144 at d = 2, N = 131,072 for the hierarchical BLR);
-    #: False the square kernel; True the full-width triangle kernel at any n
+    #: routes run (ops/cuda_phi.resolve_sym): None (default) at m = 1-8 and
+    #: 11 the JAX package's rule, the full-width triangle kernel from
+    #: SYM_MIN_N particles up and the panel triangle kernel past the TPU's
+    #: accumulator budget (N = 262,144 at d = 2, N = 131,072 for the
+    #: hierarchical BLR), at every other m the card's (the square kernel
+    #: below SYM_MIN_N, the full-width triangle from there, never the
+    #: panel; under fused_dot_dtype='bfloat16' the JAX rule up to m = 64
+    #: and the card's past it); False the square kernel; True the
+    #: full-width triangle kernel at any n
     #: (advisory in the JAX package, which takes the panel or the square
     #: form where its budget is exceeded); "panel" the panel kernel. The
     #: form a driver resolved is ``SVGD.fused_sym_form``.
@@ -564,7 +568,8 @@ class SVGD:
             )
         elif impl == "fused_cuda":
             self.fused_sym_form = resolve_sym(
-                opts.fused_sym, self.num_particles, self.dimension
+                opts.fused_sym, self.num_particles, self.dimension,
+                dot_dtype=opts.fused_dot_dtype,
             )
         elif impl == "fused_terms_cuda":
             self.fused_sym_form = resolve_sym(

@@ -109,7 +109,7 @@ def test_package_data_covers_every_kernel_include():
     assert "csrc/sweep_common.cuh" in needed
     assert "csrc/fused_phi_panel.cu" in needed
     assert "csrc/count_le.cu" in needed
-    assert "csrc/counts_sym.cuh" in needed
+    assert "csrc/wide_tri_sm90.cuh" in needed
     for rel in sorted(needed):
         assert any(fnmatch.fnmatch(rel, g) for g in globs), (rel, globs)
 

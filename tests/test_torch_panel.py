@@ -72,7 +72,7 @@ def jax_decision(n, m, num_terms):
 
 
 @pytest.mark.parametrize("num_terms", [None, 1, 2, 3])
-@pytest.mark.parametrize("m", [2, 4, 7, 11, 16, 25, 50])
+@pytest.mark.parametrize("m", [1, 2, 4, 5, 7, 8, 11])
 def test_resolve_sym_none_is_the_jax_decision(m, num_terms):
     for n in RESOLVER_N:
         want = jax_decision(n, m, num_terms)

@@ -160,27 +160,33 @@ def test_card_chunks_cover_each_tile_once(world):
             p0, count = sym_plan.panel_chunk(nb, world, rank)
             seen += sym_plan.panel_pairs(nb)[p0:p0 + count]
         assert seen == sym_plan.panel_pairs(nb)
-    assert sym_plan.sym_tile(16) == 64 and sym_plan.sym_tile(17) == 32
-    # The composed kernels' tile follows the instance that serves m: the
-    # micro-tile body's 128 at m = 1-8 and 11, the instance of 16's 32 at
-    # m = 9, 10 and 12.
+    assert sym_plan.sym_tile(16) == 128 and sym_plan.sym_tile(17) == 128
+    # The tile follows the instance that serves m: the micro-tile body's
+    # 128 at m = 1-8 and 11, the wide body's 128 at m = 9, 10, 12 and up,
+    # for the composed kernels alike.
+    assert [sym_plan.dispatch_m(m) for m in (8, 9, 10, 11, 12, 13)] \
+        == [8, sym_plan.WIDE_MM, sym_plan.WIDE_MM, 11, sym_plan.WIDE_MM,
+            sym_plan.WIDE_MM]
     assert [sym_plan.sym_tile(m, terms=True) for m in (8, 9, 10, 11, 12, 13)] \
-        == [128, 32, 32, 128, 32, 32]
-    assert sym_plan.sym_tile(50) == 32 and sym_plan.sym_tile(9) == 64
+        == [128, 128, 128, 128, 128, 128]
+    assert sym_plan.sym_tile(50) == 128 and sym_plan.sym_tile(9) == 128
 
 
 @pytest.mark.parametrize("m,side", [
     (1, 128), (2, 128), (3, 128), (4, 128), (5, 128), (6, 128), (7, 128),
-    (8, 128), (9, 64), (10, 64), (11, 128), (12, 64), (16, 64), (50, 32),
+    (8, 128), (9, 128), (10, 128), (11, 128), (12, 128), (16, 128),
+    (50, 128),
 ])
 def test_single_rbf_tile_follows_the_micro_widths(m, side):
     """One RBF's triangle tile (``SymTile``): the micro-tile body's 128 at
-    m = 1-8 and 11, the one-row-a-thread body's 64 up to the instance of 16
-    and 32 above; the composed kernels' tile is the same at the micro
-    widths."""
+    m = 1-8 and 11 (MICRO_TILE), the float32 wide body's 128 at every other
+    m (WIDE_TILE, the instance WIDE_MM); the composed kernels' tile is the
+    same at every m."""
     assert sym_plan.sym_tile(m) == side
-    if side == sym_plan.MICRO_TILE:
-        assert sym_plan.sym_tile(m, terms=True) == side
+    assert sym_plan.sym_tile(m, terms=True) == side
+    micro = m <= 8 or m == 11
+    assert sym_plan.dispatch_m(m) == (m if micro else sym_plan.WIDE_MM)
+    assert side == (sym_plan.MICRO_TILE if micro else sym_plan.WIDE_TILE)
 
 
 def tile_pairs(n, side, bi, bj):
@@ -194,15 +200,16 @@ def tile_pairs(n, side, bi, bj):
 @pytest.mark.parametrize("world", range(1, 9))
 def test_terms_chunks_cover_each_pair_once_at_every_m(world):
     """The composed triangle kernel's work list at every m = 1-64 (128
-    particles a side where the micro-tile body serves m, 32 elsewhere):
-    the ranks' ranges cover each tile pair once, in order, and so each of
-    the n (n + 1) / 2 unordered pairs; ranks differ by at most one tile."""
+    particles a side, where the micro-tile body serves m and where the
+    wide body does): the ranks' ranges cover each tile pair once, in
+    order, and so each of the n (n + 1) / 2 unordered pairs; ranks differ
+    by at most one tile."""
     sides = {}
     for m in range(1, 65):
         side = sym_plan.sym_tile(m, terms=True)
-        assert side == (128 if m <= 8 or m == 11 else 32), m
+        assert side == 128, m
         sides.setdefault(side, []).append(m)
-    assert sorted(sides) == [32, 128]
+    assert sorted(sides) == [128]
     for side in sides:
         for n in (127, 1000, 10007):
             nb = -(-n // side)

@@ -313,7 +313,8 @@ def test_wide_plan_mirrors_pinned(m):
     bf16_chunk, bf16_splits = WIDE_SQUARE_BF16_PINS[m]
     assert sym_plan.square_chunk(1000, 1000, m, bf16=True) == bf16_chunk
     assert sym_plan.square_splits(10000, 10000, m, bf16=True) == bf16_splits
-    assert sym_plan.dispatch_m(64) == 64 and sym_plan.sym_tile(64) == 32
+    assert sym_plan.dispatch_m(64) == sym_plan.WIDE_MM
+    assert sym_plan.sym_tile(64) == 128 and sym_plan.dispatch_m(11) == 11
 
 
 @pytest.mark.parametrize("m,rows,passes", [
@@ -553,15 +554,20 @@ RULE_N = (1, 1000, 2047, 2048, 4096, 6144, 10000, 45057, 103424, 154624,
 @pytest.mark.parametrize("num_terms", [None, 1, 2, 3])
 def test_card_rule_past_64_is_never_the_panel(num_terms):
     """Past 64 the card's rule: the square sweep below SYM_MIN_N, the
-    full-width triangle (measured faster) from there; up to 64 the JAX
+    full-width triangle (measured faster) from there; so at 64, where the
+    triangle runs the same wide body; at the micro widths the JAX
     package's rule."""
     for m in (65, 100, 123, 124, 128, 256, 512):
         for n in RULE_N:
             got = cuda_phi.resolve_sym(None, n, m, num_terms)
             assert got is (n >= sym_plan.SYM_MIN_N)
+    # The card's rule holds wherever the triangle runs the wide body (64
+    # too); at the micro widths (11) the JAX package's.
     for n in RULE_N:
-        assert (cuda_phi.resolve_sym(None, n, 64, num_terms)
-                == sym_plan.jax_resolve_sym(n, 64, num_terms))
+        assert cuda_phi.resolve_sym(None, n, 64, num_terms) is (
+            n >= sym_plan.SYM_MIN_N)
+        assert (cuda_phi.resolve_sym(None, n, 11, num_terms)
+                == sym_plan.jax_resolve_sym(n, 11, num_terms))
     # The forced forms pass through at any m.
     assert cuda_phi.resolve_sym(True, 10, 123) is True
     assert cuda_phi.resolve_sym(False, 10**6, 123, 2) is False

@@ -137,9 +137,12 @@ def test_triangles_take_the_new_tile_and_the_panels_64(m):
             assert w % 64 == 0 and n_pad == nb * w >= n
     # (10000, 123)'s plan: 8 super-blocks of 1280.
     assert sym_plan.card_panel_plan(10000, None, True) == (8, 1280, 10240)
-    # Up to 64 the narrower bodies keep their own tiles.
+    # Up to 64 the micro widths keep the micro-tile body's tile; the
+    # triangles' other widths run the wide body (its tile), while the
+    # panels there keep their own plan (multiples of 64, above).
     assert sym_plan.sym_tile(11) == sym_plan.MICRO_TILE
-    assert sym_plan.sym_tile(64) == 32 and sym_plan.sym_tile(16) == 64
+    assert sym_plan.sym_tile(64) == sym_plan.WIDE_TILE
+    assert sym_plan.dispatch_m(16) == sym_plan.WIDE_MM
 
 
 # ----------------------------------------------------------------------
