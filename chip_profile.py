@@ -15,6 +15,7 @@
     python3 chip_profile.py --square-bf16 [--out PATH]
     python3 chip_profile.py --wide-panel [--out PATH]
     python3 chip_profile.py --mid-width [PARENT_DIR] [--out PATH]
+    python3 chip_profile.py --mid-p PARENT_DIR [--out PATH]
 
 Drives one configuration of svgdcpp_tpu_torch at its full width:
 
@@ -187,6 +188,20 @@ PARENT_DIR only this tree's forms. Then, in this tree, the forms at
 ``MID_FORM_SHAPES`` (``mid_width_forms``): the triangle against the square
 form, and the panel where the JAX rule picks it, one RBF and two terms,
 kernel-only (default output ``chiprun_out/mid_width.json``).
+
+``--mid-p PARENT_DIR`` runs ``mid_p`` alone: K15 (P positive definite
+with its decomposition given; an indefinite P decomposed by the parent on
+the card each call) and K14 (iso + 1, iso + 2, 0 + 1 on the route the
+tree picks, and iso + 1 with the term groups forced) at n = 10,240 and
+m = 9, 10, 12-64 (``MID_P_MS``, with m = 11 and 65 as controls), then
+K14's one-pass ladder (the one-pass kernel against the wide groups for
+one anisotropic term at m = 9-32, n = 2048, 10,240 and 32,768), in the
+tree PARENT_DIR (a ``git archive`` of the parent commit) and in this one,
+one process each, parent, change, change, parent: kernel-only us (every
+event of the port's kernels a call, sym_eigen and K16 included) and
+wrapper ms, each call's distance from float64 and each tree's K14 and
+K15 instances' registers and spill (default output
+``chiprun_out/mid_p.json``).
 
 ``--wide-drift`` runs ``wide_drift`` alone, with no driver profile: how
 far the float32 routes move from float64 at d = 123 and N = 10,000 in
@@ -4272,6 +4287,232 @@ def mid_width_main(args) -> int:
     return 0
 
 
+#: --mid-p's readings at n = MID_P_N: K15 and K14 at the widths the change
+#: moves to wide_tri_sm90.cuh's body (m = 9, 10 and 12-64), with m = 11
+#: (unmoved: the micro widths' bodies in both trees) and m = 65 (the wide
+#: body in both trees) as controls; then the one-pass ladder, K14's
+#: one-pass kernel against the wide groups for one isotropic and one
+#: anisotropic term at MID_P_LADDER_MS and MID_P_LADDER_NS.
+MID_P_N = 10240
+MID_P_MS = (9, 10, 12, 16, 17, 24, 32, 33, 50, 54, 64, 11, 65)
+MID_P_LADDER_MS = (9, 10, 12, 16, 17, 24, 32)
+MID_P_LADDER_NS = (2048, 10240, 32768)
+
+#: --mid-p's child, run in one tree (its cwd), through what both trees
+#: share (the public wrappers, chip_smoke's grid_inputs, wide_p_ps and
+#: time_ms). Each case on grid inputs: K15 with P positive definite and its
+#: decomposition given (as a driver keeps a CONSTANT P's or hands a
+#: MEDIAN's), and with an indefinite P and none (a HESSIAN scale: the
+#: parent decomposes it on the card each call, sym_eigen); K14 with
+#: iso + 1, iso + 2 (a negative sign) and 0 + 1 (its counts through K16's
+#: self form) on the route the tree picks, the Cholesky factors given, and
+#: iso + 1 with the term groups forced (the parent's ONE_PASS_MAX_M or the
+#: change's sym_plan rule patched in cuda_phi). The ladder times iso + 1 on
+#: the tree's route, with the groups forced and with the one-pass kernel
+#: forced (refused where the library has no instance for the width).
+#: Readings: kernel-only us (the profiler's events over 10 calls whose
+#: names hold any of the port's kernel names below, summed, with the names
+#: seen), the wrapper's ms (chip_smoke.time_ms, the median of 20), phi's
+#: distance from the float64 plain version (relative to max |phi|; in the
+#: ladder at n = 2048 only) and the counts' difference from it; with the
+#: tree's build seconds and the ptxas lines of K14's and K15's instances.
+MID_P_CHILD = r"""
+import json, os, re, sys, tempfile, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from svgdcpp_tpu_torch.ops import cuda_phi
+from svgdcpp_tpu_torch.ops.phi import (phi_rbf_aniso_terms_fused_counts,
+                                       phi_rbf_blocked)
+NAMES = ("phi_rbf_", "sym_eigen", "fused_phi_aniso", "count_le")
+TERMS = {"iso+1": ((1.0,), (1.0,)), "iso+2": ((1.0,), (1.0, -0.5)),
+         "0+1": ((), (1.0,))}
+dev = torch.device("cuda")
+cfg = json.loads(sys.argv[1])
+t0 = time.perf_counter()
+cuda_phi.load_library()
+build_s = time.perf_counter() - t0
+log = cuda_phi.build_log_path()
+ptxas = cs.ptxas_summary(log.read_text() if log.exists() else "")
+RULE = getattr(cuda_phi, "aniso_one_pass", None)
+LIMIT = getattr(cuda_phi, "ONE_PASS_MAX_M", None)
+rows = []
+
+def device_us(fn, calls=10):
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as fh:
+            events = json.load(fh)["traceEvents"]
+    hits = [ev for ev in events
+            if ev.get("ph") == "X" and ev.get("cat") == "kernel"
+            and any(nm in ev.get("name", "") for nm in NAMES)]
+    names = sorted({re.search(r"\w*(?:" + "|".join(NAMES) + r")\w*",
+                              ev["name"]).group(0) for ev in hits})
+    return (sum(float(ev["dur"]) for ev in hits) / calls if hits else None,
+            names)
+
+def forced(kind):
+    # "groups": no one-pass kernel; "one_pass": one anisotropic term in
+    # one pass; None: the tree's own rule.
+    if RULE is not None:
+        cuda_phi.aniso_one_pass = {
+            "groups": lambda m, k: False,
+            "one_pass": lambda m, k: k == 1}.get(kind, RULE)
+    else:
+        cuda_phi.ONE_PASS_MAX_M = {"groups": 0, "one_pass": 10**9}.get(
+            kind, LIMIT)
+
+def reading(label, n, m, fn, want, check):
+    row = {"kernel": label, "n": n, "m": m}
+    try:
+        cuda_phi.reset_launch_counts()
+        got = fn()
+        torch.cuda.synchronize()
+    except RuntimeError as err:
+        row["refused"] = str(err).splitlines()[0][:200]
+        rows.append(row)
+        print(json.dumps(row), flush=True)
+        return
+    row["launches"] = {k: v for k, v in cuda_phi.launch_counts.items() if v}
+    phi = got[0] if isinstance(got, tuple) else got
+    row["finite"] = bool(phi.isfinite().all())
+    if check:
+        ref = want()
+        ref_phi = ref[0] if isinstance(ref, tuple) else ref
+        row["phi_rel_err"] = float((phi.double() - ref_phi).abs().max()
+                                   / ref_phi.abs().max())
+        if isinstance(ref, tuple):
+            row["count_diff"] = int((got[1] - ref[1]).abs().max())
+    row["kernel_us"], row["kernel_names"] = device_us(fn)
+    row["wrapper_ms"] = cs.time_ms(fn, reps=20, warmup=3)
+    rows.append(row)
+    print(json.dumps(row), flush=True)
+
+def k14(x, s, g, thr, spec):
+    iso_s, an_s = TERMS[spec]
+    m = x.shape[1]
+    iso_g = [g, 2.0 * g][:len(iso_s)]
+    ps = cs.wide_p_ps("pd", m, len(an_s), 445, g, dev)
+    lowers = cuda_phi.cholesky_factors(ps, dev)
+    fn = lambda: cuda_phi.phi_rbf_aniso_terms_fused_cuda(
+        x, s, iso_g, iso_s, ps, an_s, thr, lowers=lowers)
+    want = lambda: phi_rbf_aniso_terms_fused_counts(
+        x.double(), s.double(), [v.double() for v in iso_g], iso_s,
+        [p.double() for p in ps], an_s, thr.double())
+    return fn, want
+
+n = cfg["n"]
+for m in cfg["ms"]:
+    x, s, g, thr = cs.grid_inputs(n, m, 0.0, 470 + m, dev)
+    p = cs.wide_p_ps("pd", m, 1, 446, g, dev)[0]
+    eig = torch.linalg.eigh(0.5 * (p + p.T).double())
+    reading("K15 P given", n, m,
+            lambda: cuda_phi.phi_rbf_cuda(x, s, p, psd=True, eig=eig),
+            lambda: phi_rbf_blocked(x.double(), s.double(), p.double()),
+            True)
+    q = cs.wide_p_ps("indefinite", m, 1, 447, g, dev)[0]
+    reading("K15 HESSIAN-style", n, m,
+            lambda: cuda_phi.phi_rbf_cuda(x, s, q, psd=False),
+            lambda: phi_rbf_blocked(x.double(), s.double(), q.double(),
+                                    psd=False), True)
+    for spec in TERMS:
+        fn, want = k14(x, s, g, thr, spec)
+        reading(f"K14 {spec}", n, m, fn, want, True)
+    forced("groups")
+    fn, want = k14(x, s, g, thr, "iso+1")
+    reading("K14 iso+1 groups forced", n, m, fn, want, True)
+    forced(None)
+for ln in cfg["ladder_ns"]:
+    for m in cfg["ladder_ms"]:
+        x, s, g, thr = cs.grid_inputs(ln, m, 0.0, 480 + m, dev)
+        for kind in (None, "groups", "one_pass"):
+            forced(kind)
+            fn, want = k14(x, s, g, thr, "iso+1")
+            reading(f"ladder iso+1 {kind or 'route'}", ln, m, fn, want,
+                    ln == 2048)
+        forced(None)
+inst = {k: v for k, v in ptxas.items()
+        if k.split("<")[0] in ("rbf_square", "rbf_sym", "rbf_wide",
+                               "aniso_terms_sym", "aniso_terms_groups",
+                               "aniso_wide_groups", "aniso_wide_iso")}
+print(json.dumps({"build_s": build_s, "ptxas": inst, "rows": rows}),
+      flush=True)
+"""
+
+
+def mid_p(parent: Path) -> dict:
+    """--mid-p DIR: MID_P_CHILD in the tree DIR (the parent's checkout,
+    which builds its own csrc/), in this one, in this one and in DIR, one
+    process each (parent, change, change, parent); then, for each reading,
+    the parent's and the change's kernel-only us and wrapper ms side by
+    side (each the mean of its tree's two runs), their ratio, the kernels
+    each tree ran and its largest distance from float64."""
+    cfg = json.dumps({"n": MID_P_N, "ms": list(MID_P_MS),
+                      "ladder_ms": list(MID_P_LADDER_MS),
+                      "ladder_ns": list(MID_P_LADDER_NS)})
+    runs = []
+    for label, tree in (("parent", parent), ("change", ROOT),
+                        ("change", ROOT), ("parent", parent)):
+        proc = subprocess.run(
+            [sys.executable, "-c", MID_P_CHILD, cfg], cwd=tree,
+            capture_output=True, text=True, timeout=2400)
+        if proc.returncode:
+            raise RuntimeError(f"--mid-p in {tree}:\n"
+                               f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+        run = {"tree": label, **json.loads(proc.stdout.strip()
+                                           .splitlines()[-1])}
+        runs.append(run)
+        print(json.dumps({"tree": label, "build_s": run["build_s"],
+                          "ptxas": run["ptxas"]}), flush=True)
+    table = []
+    for i, row in enumerate(runs[0]["rows"]):
+        def mean(tree, key):
+            vals = [r["rows"][i].get(key) for r in runs if r["tree"] == tree]
+            return None if None in vals else sum(vals) / len(vals)
+        step = {"kernel": row["kernel"], "n": row["n"], "m": row["m"]}
+        for key in ("kernel_us", "wrapper_ms"):
+            p_val, c_val = mean("parent", key), mean("change", key)
+            step[f"parent_{key}"], step[f"change_{key}"] = p_val, c_val
+            step[f"{key}_change_over_parent"] = (
+                None if not p_val or c_val is None else c_val / p_val)
+        for tree in ("parent", "change"):
+            mine = [r["rows"][i] for r in runs if r["tree"] == tree]
+            step[f"{tree}_names"] = mine[0].get("kernel_names",
+                                                mine[0].get("refused"))
+            errs = [r.get("phi_rel_err") for r in mine]
+            step[f"{tree}_phi_rel_err"] = (None if None in errs
+                                           else max(errs))
+        table.append(step)
+        print(json.dumps(step), flush=True)
+    return {"runs": runs, "table": table}
+
+
+def mid_p_main(args) -> int:
+    """--mid-p: mid_p's rows, JSON to --out."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    card = card_name()
+    print(card)
+    result = {"card": card, "mid_p": mid_p(Path(args.mid_p))}
+    out = Path(args.out or "chiprun_out/mid_p.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(card)
+    return 0
+
+
 def bf16_parity(device):
     """--bf16-parity: how far K1's bf16 result moves with the order of the
     sums that form sq. The flat BLR driver (N = 1000, d = 50, the bf16
@@ -5114,6 +5355,9 @@ def main() -> int:
                         help="time the float32 triangles at the mid widths "
                              "(in the parent tree DIR and in this one when "
                              "DIR is given) and the forms there")
+    parser.add_argument("--mid-p", default=None, metavar="DIR",
+                        help="time K14's groups and K15 at the mid widths "
+                             "in the parent tree DIR and this one")
     parser.add_argument("--ab-family", choices=("k1", "k15"), default="k1",
                         help="the kernels --wrapper-ab times")
     parser.add_argument("--bf16-parity", action="store_true",
@@ -5154,6 +5398,8 @@ def main() -> int:
         return bf16_parity_main(args)
     if args.mid_width:
         return mid_width_main(args)
+    if args.mid_p:
+        return mid_p_main(args)
     if args.wrapper_ab:
         return wrapper_ab_main(args)
     if args.square_wide_breakdown:

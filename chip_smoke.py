@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the package's CUDA kernels from ``svgdcpp_tpu_torch/csrc`` and runs
-forty-eight phases, one line each (several for phases 2, 3, 7-9 and
-14-48):
+forty-nine phases, one line each (several for phases 2, 3, 7-9 and
+14-49):
 
   1. device and build: the card's name and power limit, torch and CUDA
      versions, nvcc build seconds and ptxas's registers and spill bytes of
@@ -66,10 +66,13 @@ forty-eight phases, one line each (several for phases 2, 3, 7-9 and
      against its plain version: m = 2 (iso + 1 aniso off origin, aniso
      only), m = 11 (the main path's shape (10240, 11), iso + 3 aniso, iso +
      7 aniso, a negative sign) and m = 50, and one anisotropic term at
-     m = 1, 3, 5, 16 and 32; one anisotropic term up to m = 32 takes the
-     one-pass kernel, the others the term-group kernel;
+     m = 1, 3, 5, 16 and 32; one anisotropic term at the micro widths and
+     up to m = 16 takes the one-pass kernel, the others the term groups
+     (on wide_tri_sm90.cuh at every m but 1-8 and 11, whose errors go to
+     phase 49's entry);
  15. the fixed-P kernel (phi_rbf_square, K15's port: the triangle at
-     m = 1-8 and 11, the square sweep above) against phi_rbf /
+     m = 1-8 and 11, phi_rbf_wide at every other m, whose errors go to
+     phase 49's entry) against phi_rbf /
      phi_rbf_blocked: isotropic (1500, 2), the HESSIAN scale of the d = 11
      target at (10240, 11), a full PD P at (1000, 50), an indefinite P with
      psd=False, and an offset of 200; the decomposition on the card
@@ -346,6 +349,25 @@ forty-eight phases, one line each (several for phases 2, 3, 7-9 and
      on auto, K10/K11; MVN d = 54, fused_sym="full", K4) within 1e-3 of
      the driver. Each of 48a-48c's paths is timed at its own n and m
      (kernel-only us, wrapper and plain ms), as the kernels line gives it.
+ 49. K14's term groups and K15 at the mid widths, m = 9, 10 and 12-64, on
+     wide_tri_sm90.cuh's body (phase_mid_p; sizes in MID_P_*): 49a K15
+     (P positive definite, indefinite, a median's gamma I) and K14 (the
+     public route, which takes the one-pass kernel for one anisotropic
+     term where sym_plan.aniso_one_pass holds, and the wide groups
+     finished by the wrapper's epilogue, with each group's raw slab, for
+     iso + 1, iso + 2 with a negative sign, 0 + 1 and two isotropic terms
+     + 1) at 12 widths, n = 4096, grid inputs, each call within 1e-5 of
+     max |phi| from float64, counts equal; 49b the same at n = 1, 127,
+     128, 129 and 10007, m = 9, 33 and 64; 49c at Covertype's width
+     (d = 54, N = 10,240): the anisotropic MVN on auto (K14's wide groups
+     only) and the HESSIAN target on 'cuda' (K15's wide sweep only, no
+     sym_eigen), 20 steps each, every sweep call of the float64 run
+     replayed within 1e-5, the route within 1e-3 of float64, each timed at
+     its own shape; 49d the library's width rules (svgd_k15_wide,
+     svgd_aniso_groups_wide, svgd_aniso_one_pass) against sym_plan's at
+     m = 1-130, the wide instances' 0 bytes of spill, and no K15 square
+     sweep, no term-group instance past the micro widths and no one-pass
+     instance past the rule in the build.
 
 Phase 22 prints the N = 1,048,576 set-up (the median seed, now through
 K16) beside the 239.40 s the plain count pass took.
@@ -2029,12 +2051,12 @@ def phase_wide_p_kernels(dev, card, clock, ptxas):
     return errs
 
 
-def aniso_slabs_held(label, x, s, g, thr, spec):
+def aniso_slabs_held(label, x, s, g, thr, spec, gate=WIDE_PHI_GATE):
     """Hold K14's wide groups' raw slabs (cuda_phi.aniso_wide_groups_cuda,
     one launch of the wide entry) to their float64 plain per-group
     version (ops/phi.aniso_groups_plain) for WIDE_P_TERMS[spec] (P as
     wide_p_call's): each group's KS and D, before any sign or scale,
-    within WIDE_PHI_GATE of that part's max |.| (a group that does not
+    within ``gate`` of that part's max |.| (a group that does not
     sweep, exactly 0), the padded columns exactly 0, and the upper counts
     equal to the plain version's on grid inputs (none with no isotropic
     term). ``label`` starts with its phase. Returns the largest relative
@@ -2069,9 +2091,9 @@ def aniso_slabs_held(label, x, s, g, thr, spec):
                                       f" is not 0")
                 continue
             rel = float((have - ref).abs().max()) / scale
-            check(bool(have.isfinite().all()) and rel <= WIDE_PHI_GATE,
+            check(bool(have.isfinite().all()) and rel <= gate,
                   f"phase {label}: group {grp}'s {part} rel err {rel:.3e} "
-                  f"> {WIDE_PHI_GATE}")
+                  f"> {gate}")
             worst = max(worst, rel)
     if iso_s:
         diff = int((upper - want_upper).abs().max())
@@ -3867,9 +3889,11 @@ def path_times(wrapper, plain, kernel, call):
     output]) in float32 at the path's own shape: {"kernel_us": kernel_us
     over 5 calls, "kernel": the wrapper's ms (time_ms, the median of 10),
     "plain": the plain version ``plain``'s ms on the same inputs (the
-    median of 3)}."""
-    args, kwargs = to32(tuple(call[0])), {k: to32(v)
-                                          for k, v in call[1].items()}
+    median of 3); the factors and decompositions the driver keeps stay
+    in float64, as replay_gate passes them}."""
+    args = to32(tuple(call[0]))
+    kwargs = {k: (v if k in ("lowers", "eig") else to32(v))
+              for k, v in call[1].items()}
     us = kernel_us(lambda: wrapper(*args, **kwargs), kernel, calls=5,
                    per_call=1)
     return {"kernel_us": us,
@@ -4021,6 +4045,260 @@ def phase_mid_width(dev, card, clock, ptxas):
     phase_mid_width_edges(dev, card, clock, ptxas, errs)
     phase_mid_width_forms(dev, card, clock, errs)
     return errs, phase_mid_width_paths(dev, card, clock)
+
+
+#: Phase 49: K14's term groups and K15 at the mid widths, m = 9, 10 and
+#: 12-64, where both run wide_tri_sm90.cuh's body in float32 (K15's
+#: FixedPGram form on P itself, K14's single-term groups; rows padded to a
+#: multiple of 4). 49a: every WIDE_P_FORMS P of K15 and every WIDE_P_TERMS
+#: set of K14 at MID_P_MS on MID_P_N particles of grid inputs; 49b: the
+#: tiles' edges MID_P_EDGE_NS at MID_P_EDGE_MS; 49c: the anisotropic MVN
+#: (K14) and the HESSIAN target (K15) at d = MID_D, N = WIDE_P_BIG_N,
+#: MID_P_STEPS steps each; 49d: the width rules and ptxas. Every call is
+#: held within MID_PHI_GATE of max |phi| from float64.
+MID_P_MS = (9, 10, 12, 16, 17, 24, 32, 33, 50, 54, 55, 64)
+MID_P_N = 4096
+MID_P_EDGE_NS = (1, 127, 128, 129, 10007)
+MID_P_EDGE_MS = (9, 33, 64)
+MID_P_STEPS = 20
+
+
+def mid_p_groups_call(x, s, g, thr, spec):
+    """K14's wide groups at any width they serve, whatever the one-pass
+    rule picks for ``spec`` (WIDE_P_TERMS): one launch of the groups'
+    entry (cuda_phi.aniso_wide_groups_cuda), finished as the wrapper
+    finishes them (ops/phi.aniso_groups_finish; the counts 2U - n, or with
+    no isotropic term the count kernel's self form). Returns a call of
+    (phi, counts), with P as wide_p_call's."""
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import aniso_groups_finish
+
+    iso_s, an_s = WIDE_P_TERMS[spec]
+    iso_g = [g, 2.0 * g][:len(iso_s)]
+    n, m = x.shape
+    ps = wide_p_ps("pd", m, len(an_s), 445, g, x.device)
+    lowers = cuda_phi.cholesky_factors(ps, x.device)
+
+    def call():
+        acc, upper = cuda_phi.aniso_wide_groups_cuda(x, s, iso_g, iso_s,
+                                                     an_s, thr, lowers)
+        phi = aniso_groups_finish(acc, s, iso_g[0] if iso_g else None,
+                                  iso_s, an_s, lowers, n)
+        xc = x - x.mean(dim=0)
+        counts = (2 * upper - n if iso_s
+                  else cuda_phi.count_le_cuda(xc, xc, thr))
+        return phi, counts
+    return call
+
+
+def mid_p_held(label, x, s, g, thr, errs, forms=WIDE_P_FORMS,
+               terms=tuple(WIDE_P_TERMS)):
+    """Phase 49's calls at one (n, m): K15 for each P of ``forms`` and K14
+    for each set of ``terms``, through the public wrapper (the route the
+    width rules pick) and through the wide groups (mid_p_groups_call, with
+    each group's raw slab, aniso_slabs_held), each held to the float64 and
+    float32 plain versions (wide_held at MID_PHI_GATE, counts equal);
+    each call's max |dphi| into ``errs`` under the kernel it launched.
+    Returns the largest relative error and the number of calls."""
+    from svgdcpp_tpu_torch.ops import cuda_phi, sym_plan
+
+    k14w, k15w = cuda_phi.ANISO_WIDE_KERNEL, cuda_phi.PHI_RBF_WIDE_KERNEL
+    n, m = x.shape
+    worst, calls = 0.0, 0
+
+    def held(what, kern, want64, want32):
+        cuda_phi.reset_launch_counts()
+        got = kern()
+        launched = [k for k, v in cuda_phi.launch_counts.items()
+                    if v and k != cuda_phi.COUNT_KERNEL]
+        check(len(launched) == 1, f"phase 49 {what}: launches "
+                                  f"{cuda_phi.launch_counts}")
+        abs_err, rel = wide_held(f"49 {what}", got, want64(), want32(),
+                                 gate=MID_PHI_GATE)
+        errs[launched[0]] = max(errs.get(launched[0], 0.0), abs_err)
+        return rel, launched[0]
+
+    for kind in forms:
+        p = wide_p_ps(kind, m, 1, 4490, g, x.device)[0]
+        kern, want64, want32 = wide_p_call(k15w, x, s, g, thr, (kind, p))
+        rel, kernel = held(f"K15 ({n}, {m}) {kind}", kern, want64, want32)
+        check(kernel == k15w, f"phase 49 K15 ({n}, {m}): ran {kernel}")
+        worst, calls = max(worst, rel), calls + 1
+    for spec in terms:
+        kern, want64, want32 = wide_p_call(k14w, x, s, g, thr, spec)
+        one_pass = sym_plan.aniso_one_pass(m, len(WIDE_P_TERMS[spec][1]))
+        rel, kernel = held(f"K14 ({n}, {m}) {spec} route", kern, want64,
+                           want32)
+        check(kernel == (cuda_phi.ANISO_KERNEL if one_pass else k14w),
+              f"phase 49 K14 ({n}, {m}) {spec}: ran {kernel}")
+        worst = max(worst, rel)
+        rel, kernel = held(f"K14 ({n}, {m}) {spec} wide groups",
+                           mid_p_groups_call(x, s, g, thr, spec), want64,
+                           want32)
+        check(kernel == k14w, f"phase 49 K14 ({n}, {m}): ran {kernel}")
+        worst = max(worst, rel, aniso_slabs_held(
+            f"49 K14 ({n}, {m}) {spec}", x, s, g, thr, spec,
+            gate=MID_PHI_GATE))
+        calls += 2
+    return worst, calls
+
+
+def phase_mid_p_kernels(dev, card, clock, errs):
+    """Phases 49a and 49b (mid_p_held): every P and term set at MID_P_MS,
+    n = MID_P_N, then at the tiles' edges MID_P_EDGE_NS x MID_P_EDGE_MS
+    (the first n rows of at least 64 grid rows: grid_inputs' median needs
+    pairs), grid inputs."""
+    worst, calls = 0.0, 0
+    for m in MID_P_MS:
+        x, s, g, thr = grid_inputs(MID_P_N, m, 0.0, 4900 + m, dev)
+        rel, k = mid_p_held(f"49a ({MID_P_N}, {m})", x, s, g, thr, errs)
+        worst, calls = max(worst, rel), calls + k
+        print(f"phase 49a m={m}: ok n={MID_P_N} K15 {list(WIDE_P_FORMS)}, "
+              f"K14 {list(WIDE_P_TERMS)} (route and wide groups) within "
+              f"{worst:.3e} of max |phi| from float64 so far (gate "
+              f"{MID_PHI_GATE}), counts equal {clock()}")
+    print(f"phase 49a: ok {calls} calls at m = {list(MID_P_MS)}, "
+          f"n = {MID_P_N}, within {worst:.3e} of max |phi| {card} {clock()}")
+    worst, calls = 0.0, 0
+    for m in MID_P_EDGE_MS:
+        for n in MID_P_EDGE_NS:
+            x, s, g, thr = grid_inputs(max(n, 64), m, 0.0, 4950 + n + m, dev)
+            x, s = x[:n].contiguous(), s[:n].contiguous()
+            rel, k = mid_p_held(f"49b ({n}, {m})", x, s, g, thr, errs,
+                                forms=("pd", "indefinite"))
+            worst, calls = max(worst, rel), calls + k
+    print(f"phase 49b edges: ok {calls} calls at n = {list(MID_P_EDGE_NS)}, "
+          f"m = {list(MID_P_EDGE_MS)} within {worst:.3e} of max |phi| from "
+          f"float64 (gate {MID_PHI_GATE}), counts equal {card} {clock()}")
+
+
+def phase_mid_p_paths(dev, card, clock):
+    """Phase 49c at Covertype's width (d = MID_D, N = WIDE_P_BIG_N): the
+    anisotropic MVN (aniso_mvn_workload(..., dim=MID_D)) on auto, which
+    must route to fused_aniso_terms_cuda and launch K14's wide groups
+    only, and the HESSIAN target on 'cuda', K15's wide sweep only (no
+    sym_eigen), MID_P_STEPS steps each; every sweep call of the float64
+    run replayed through the kernel within MID_PHI_GATE (replay_gate), the
+    float32 route within 1e-3 of the float64 one after its steps, and the
+    path's kernel timed on its first call (path_times). Returns {path:
+    (launch counts, kernel, n, m, ms a step, times)}."""
+    import torch
+
+    import svgdcpp_tpu_torch as st
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.utils.workloads import (
+        aniso_mvn_workload,
+        build_aniso_svgd,
+    )
+
+    n, d = WIDE_P_BIG_N, MID_D
+    mean, cov, x0, p_aniso = aniso_mvn_workload(n, dim=d)
+    out = {}
+    for name, impl, scale, wrapper, kernel in (
+            ("aniso", "auto", None, "phi_rbf_aniso_terms_fused_cuda",
+             cuda_phi.ANISO_WIDE_KERNEL),
+            ("hessian", "cuda", st.ScaleMethod.HESSIAN, "phi_rbf_cuda",
+             cuda_phi.PHI_RBF_WIDE_KERNEL)):
+        def build(dtype, impl=impl, scale=scale):
+            return build_aniso_svgd(
+                torch.tensor(x0, dtype=dtype, device=dev), mean, cov,
+                p_aniso, phi_impl=impl, num_iterations=MID_P_STEPS,
+                kernel_scale=scale)
+        cuda_phi.reset_launch_counts()
+        svgd = build(torch.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = svgd.run().double()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / MID_P_STEPS
+        counts = dict(cuda_phi.launch_counts)
+        route = "fused_aniso_terms_cuda" if name == "aniso" else "cuda"
+        check(svgd._phi_impl == route,
+              f"phase 49c {name}: routed to {svgd._phi_impl!r}")
+        check(bool(final.isfinite().all()) and tuple(final.shape) == (n, d),
+              f"phase 49c {name}: bad output")
+        require_only(counts, kernel, MID_P_STEPS, f"phase 49c {name}")
+        final64, calls = recorded_run(
+            lambda: build(torch.float64, impl=route), wrapper, MID_P_STEPS)
+        rel, dcnt = replay_gate(f"phase 49c {name}", wrapper, calls,
+                                gate=MID_PHI_GATE)
+        diff = float((final - final64).abs().max())
+        check(diff <= 1e-3, f"phase 49c {name}: {MID_P_STEPS} steps from "
+                            f"the float64 run by {diff:.3e}")
+        times = path_times(getattr(cuda_phi, wrapper), f64_sweep(wrapper),
+                           kernel, calls[0])
+        print(f"phase 49c {name} N={n} d={d} {impl} {MID_P_STEPS} steps: ok "
+              f"route={route} kernel={kernel} launches={json.dumps(counts)} "
+              f"ms_per_step={ms:.3f} kernel_us={times['kernel_us']} "
+              f"wrapper_ms={times['kernel']:.4f} plain_ms="
+              f"{times['plain']:.3f} (the first sweep call's inputs); "
+              f"per-call replay of the float64 run's {len(calls)} sweeps: "
+              f"max phi_rel={rel:.3e} (gate {MID_PHI_GATE}) max "
+              f"count_diff={dcnt}; {MID_P_STEPS} steps coords_max_abs_diff "
+              f"from float64={diff:.3e} (gate 1e-3) {card} {clock()}")
+        out[name] = (counts, kernel, n, d, ms, times)
+    return out
+
+
+def phase_mid_p_rules(ptxas, clock):
+    """Phase 49d: the library's width rules (svgd_k15_wide,
+    svgd_aniso_groups_wide, svgd_aniso_one_pass for one to three
+    anisotropic terms) against ops/sym_plan's at m = 1-130; K14's and
+    K15's wide instances at 0 bytes of spill; and in the build no K15
+    square sweep (rbf_square<...>), no term-group instance of
+    terms_sym.cuh past the micro widths (aniso_terms_groups<MM,...> with
+    MM other than 2, 8, 11) and no one-pass instance past the rule's
+    (aniso_terms_sym<MM,...> with MM past max(8, ONE_PASS_MAX_M), 11
+    aside)."""
+    import re
+
+    from svgdcpp_tpu_torch.ops import cuda_phi, sym_plan
+
+    lib = cuda_phi.load_library()
+    off = [m for m in range(1, 131)
+           if bool(lib.svgd_k15_wide(m)) != sym_plan.k15_wide(m)
+           or bool(lib.svgd_aniso_groups_wide(m))
+           != sym_plan.aniso_groups_wide(m)
+           or any(bool(lib.svgd_aniso_one_pass(m, k))
+                  != sym_plan.aniso_one_pass(m, k) for k in (1, 2, 3))]
+    check(not off, f"phase 49d: the library's width rules differ from "
+                   f"sym_plan's at m = {off}")
+    report = {inst: ptxas.get(inst, "?")
+              for inst in ANISO_WIDE_INSTANCES + K15_WIDE_INSTANCES}
+    spilled = [inst for inst, text in report.items()
+               if not text.endswith(" 0 B spill")]
+    check(not spilled, f"phase 49d: K14's and K15's wide instances spill "
+                       f"or were not found in the build log: "
+                       f"{ {i: report[i] for i in spilled} }")
+    top = max(8, sym_plan.ONE_PASS_MAX_M)
+    stale = []
+    for inst in ptxas:
+        hit = re.match(r"(rbf_square|aniso_terms_groups|aniso_terms_sym)"
+                       r"<(\d+),", inst)
+        if hit is None:
+            continue
+        kind, mm = hit.group(1), int(hit.group(2))
+        if (kind == "rbf_square"
+                or (kind == "aniso_terms_groups" and mm not in (2, 8, 11))
+                or (kind == "aniso_terms_sym" and mm > top and mm != 11)):
+            stale.append(inst)
+    check(not stale, f"phase 49d: instances the width rules no longer "
+                     f"reach are built: {sorted(stale)}")
+    print(f"phase 49d: ok svgd_k15_wide, svgd_aniso_groups_wide and "
+          f"svgd_aniso_one_pass equal sym_plan's at m = 1-130 (one-pass up "
+          f"to m = {sym_plan.ONE_PASS_MAX_M} and at the micro widths); "
+          f"ptxas {json.dumps(report)}; no K15 square sweep, no term-group "
+          f"instance past m = 11 and no one-pass instance past MM = {top} "
+          f"in the build {clock()}")
+
+
+def phase_mid_p(dev, card, clock, ptxas, errs):
+    """Phase 49 (see MID_P_MS): 49d the rules and the build, 49a-49b the
+    calls (their max |dphi| into ``errs`` by the kernel launched), 49c the
+    paths. Returns 49c's paths for the kernels line."""
+    phase_mid_p_rules(ptxas, clock)
+    phase_mid_p_kernels(dev, card, clock, errs)
+    return phase_mid_p_paths(dev, card, clock)
 
 
 def main() -> int:
@@ -4678,6 +4956,7 @@ def main() -> int:
     # (10240, 11) with one isotropic and one anisotropic term is the shape
     # phase 17's main path gives the kernel.
     aniso_err = 0.0
+    mid_p_errs = {}
     for idx, (n, m, off, iso_s, an_s) in enumerate([
         (2048, 2, 100.0, (1.0,), (0.8,)),
         (10007, 2, 0.0, (), (1.0,)),
@@ -4687,7 +4966,8 @@ def main() -> int:
         (2048, 50, 0.0, (1.0,), (1.0,)),
         (4096, 11, 0.0, (1.0, -0.4), (-0.3,)),
         # one anisotropic term at the one-pass kernel's runtime-m
-        # instances (MM = 8: m = 1, 3 by differences, 5; 16; 32)
+        # instances (MM = 8: m = 1, 3 by differences, 5; 16), and at
+        # m = 32, past the one-pass rule, on the wide groups
         (3001, 1, 4.0, (1.0,), (0.8,)),
         (2048, 3, 0.0, (), (1.0,)),
         (3001, 5, 2.0, (1.0, -0.4), (0.8,)),
@@ -4697,12 +4977,20 @@ def main() -> int:
         x, s, g, thr = inputs_for(n, m, off, 140 + idx, dev)
         iso_g = [g, 2.0 * g][:len(iso_s)]
         ps = aniso_ps(g, m, len(an_s), 150 + idx)
+        cuda_phi.reset_launch_counts()
         got = cuda_phi.phi_rbf_aniso_terms_fused_cuda(x, s, iso_g, iso_s, ps,
                                                       an_s, thr)
+        wide = cuda_phi.launch_counts[cuda_phi.ANISO_WIDE_KERNEL] > 0
         want = phi_rbf_aniso_terms_fused_counts(x, s, iso_g, iso_s, ps, an_s,
                                                 thr)
         rel, abs_err, dcnt = compare(f"aniso n={n} m={m}", got, want, n, m)
-        aniso_err = max(aniso_err, abs_err)
+        # A mid width's groups run the wide kernels: their error goes to
+        # the mid-width entry (phase 49), the others' to K14's.
+        if wide:
+            mid_p_errs[cuda_phi.ANISO_WIDE_KERNEL] = max(
+                mid_p_errs.get(cuda_phi.ANISO_WIDE_KERNEL, 0.0), abs_err)
+        else:
+            aniso_err = max(aniso_err, abs_err)
         print(f"phase 14 aniso n={n} m={m} offset={off} "
               f"iso_signs={list(iso_s)} aniso_signs={list(an_s)}: ok "
               f"phi_rel={rel:.3e} count_diff={dcnt} "
@@ -4737,12 +5025,19 @@ def main() -> int:
                                   [0.0, 0.05, 0.3]], device=dev)
         else:
             p = g * torch.eye(m, device=dev)
+        cuda_phi.reset_launch_counts()
         got = cuda_phi.phi_rbf_cuda(x, s, p, psd=psd)
+        wide = cuda_phi.launch_counts[cuda_phi.PHI_RBF_WIDE_KERNEL] > 0
         # The dense phi_rbf does not center: off origin, the blocked one.
         plain = phi_rbf if n <= 2048 and off == 0.0 else phi_rbf_blocked
         rel, abs_err = compare_phi(f"phi_rbf {label} n={n} m={m}", got,
                                    plain(x, s, p, psd=psd))
-        k15_err = max(k15_err, abs_err)
+        # m = 50 runs the wide sweep: its error goes to phase 49's entry.
+        if wide:
+            mid_p_errs[cuda_phi.PHI_RBF_WIDE_KERNEL] = max(
+                mid_p_errs.get(cuda_phi.PHI_RBF_WIDE_KERNEL, 0.0), abs_err)
+        else:
+            k15_err = max(k15_err, abs_err)
         print(f"phase 15 phi_rbf {label} n={n} m={m} offset={off} psd={psd}: "
               f"ok phi_rel={rel:.3e} plain={plain.__name__}")
     # The decomposition on the card (sym_eigen) against its plain version,
@@ -6399,6 +6694,9 @@ def main() -> int:
     # -- phase 48: the float32 triangles at the mid widths (m = 9-64) ---------
     mid_errs, main48 = phase_mid_width(dev, card, clock, ptxas)
 
+    # -- phase 49: K14's groups and K15 at the mid widths (m = 9-64) ----------
+    main49 = phase_mid_p(dev, card, clock, ptxas, mid_p_errs)
+
     def main_path(phase, kernel, n, m, launches, times, **work):
         bound_ms, bound_by = sweep_bound(kernel, n, m, **work)
         path = {"phase": phase, "n": n, "m": m, "launches": launches,
@@ -6587,6 +6885,21 @@ def main() -> int:
             n48, m48, n_terms=None if single else 2)[0]
         path["body"] = "svgdcpp_tpu_torch/csrc/wide_tri_sm90.cuh"
         paths[kernel].append(path)
+    # Phase 49's paths: K14's wide groups (the anisotropic MVN, iso + 1)
+    # and K15's wide sweep (HESSIAN) at Covertype's width, each timed on
+    # its own first call; entries of their own in the kernels line, the
+    # launches those of the kernels' counters in that run.
+    k14m, k15m = f"{k14w}_mid", f"{k15w}_mid"
+    for key, (counts, kernel, n49, m49, ms49, times) in zip(
+            (k14m, k15m), (main49["aniso"], main49["hessian"])):
+        work = {"n_iso": 1, "n_aniso": 1} if kernel == k14w else {}
+        path = main_path(49, kernel, n49, m49, counts[kernel], times, **work)
+        path["kernel_us"] = times["kernel_us"]
+        path["ms_per_step"] = ms49
+        path["tensor_bound_ms"] = (
+            tri_tensor_bound(n49, m49, n_terms=1, n_aniso=1) if work
+            else tri_tensor_bound(n49, m49, fixed_p=True))[0]
+        paths[key] = [path]
     # Phase 46's paths: the bf16 instances (K15's has no driver route, as
     # in the JAX package: its launches are phase 46a's own calls).
     sq16, sym16 = cuda_phi.SQUARE_BF16_KERNEL, cuda_phi.SYM_BF16_KERNEL
@@ -6615,9 +6928,12 @@ def main() -> int:
                    "plain_ms": times16[("sym_eigen", 11)]["plain"],
                    "bound_ms": eig_bound[0], "bound_by": eig_bound[1]}]
 
-    def entry(name, source, replaces, tpu, err, library_ms=None, body=None):
+    def entry(name, source, replaces, tpu, err, library_ms=None, body=None,
+              counter=None):
         first = paths[name][0]
         extra = {"body": f"svgdcpp_tpu_torch/csrc/{body}"} if body else {}
+        if counter:  # the launch counter when it is not the name
+            extra["launch_counter"] = counter
         return {"name": name, "route": "cuda",
                 "source": f"svgdcpp_tpu_torch/csrc/{source}", **extra,
                 "replaces": replaces, "tpu_kernels": tpu,
@@ -6661,6 +6977,12 @@ def main() -> int:
               wide_p_errs[k14w], body="wide_tri_sm90.cuh"),
         entry(k15w, "phi_rbf.cu", f"{pallas}:116", ["K15"],
               wide_p_errs[k15w], body="wide_tri_sm90.cuh"),
+        # The same kernels at the mid widths, m = 9, 10 and 12-64 (phase
+        # 49; phases 14 and 15's mid-width calls among the errors).
+        entry(k14m, "fused_phi_aniso.cu", f"{pallas}:3205", ["K14"],
+              mid_p_errs[k14w], body="wide_tri_sm90.cuh", counter=k14w),
+        entry(k15m, "phi_rbf.cu", f"{pallas}:116", ["K15"],
+              mid_p_errs[k15w], body="wide_tri_sm90.cuh", counter=k15w),
         # No TPU kernel of its own: K15's wrapper needs the decomposition
         # that _phi_rbf_pallas_impl's Gram form does without; the library
         # call is torch.linalg.eigh on the card.

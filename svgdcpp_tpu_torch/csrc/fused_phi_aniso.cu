@@ -40,13 +40,16 @@
 //
 // Two kernels. Isotropic terms and ONE anisotropic term (at most two
 // gradient accumulators; the anisotropic posterior's median RBF + RBF(P))
-// take the one-pass kernel fused_phi_aniso_terms_sym_kernel up to m = 32
-// (exact instances at m = 2 and 11, runtime-m ones with MM = 8, 16 and 32
-// for the rest); two or more anisotropic terms, or one past m = 32, the
-// term-group kernel fused_phi_aniso_terms_groups_kernel. At MM = 64 the
-// one-pass kernel's row (5 x 64 sums and coordinates) spilled 3.2 KB and
-// ran 1.6-1.9x slower than the term groups at m = 50 and 64 (PERF.md
-// section 6); at MM = 32 it spills 156-216 B and still ran 1.2x faster.
+// take the one-pass kernel fused_phi_aniso_terms_sym_kernel at the micro
+// widths and up to kOnePassMaxM = 16 (aniso_one_pass of sweep_common.cuh;
+// exact instances at m = 2 and 11, runtime-m ones with MM = 8 and 16 for
+// the rest); two or more anisotropic terms, or one past it, the term
+// groups: terms_sym.cuh's fused_phi_aniso_terms_groups_kernel at the micro
+// widths, wide_tri_sm90.cuh's body at every other m (aniso_groups_wide).
+// Against the wide groups, on an H100 at n = 2048, 10,240 and 32,768, the
+// one-pass kernel at MM = 16 took 6-33% less time (m = 9-16), and its
+// MM = 32 instance, whose row spilled 156-216 B, 2.4-4.5x more (m = 17-32),
+// so that instance is gone (PERF.md section 6).
 //
 // The one-pass kernel (svgd_fused_phi_aniso_terms_sym). Every ordered pair
 // (i, j) once, in one pass for both groups: the Euclidean difference d and
@@ -79,9 +82,7 @@
 // Thresholds are held at a compile-time count (3, or 8 padded with -1).
 // A runtime-m instance holds MM coordinates with zeros past m in x, z, s
 // and L, which add nothing to any sum; up to m = 4 its sq takes the plain
-// order as the exact instances do. At MM = 32 a row's 5 MM sums and
-// coordinates exceed the registers (the compiler spills some) and a block
-// has 64 threads (AnisoShape).
+// order as the exact instances do.
 //
 // Work per unordered pair, as the term-group kernel runs it:
 // each term group
@@ -92,8 +93,9 @@
 // less (KS once, each difference once): chip_smoke.py's sweep_bound counts
 // that. The operands are a few MB, so the sweep is compute-bound.
 //
-// The term-group kernel: the composed kernels' triangle sweep
-// (terms_sym.cuh, K8/K9's port) with one more grid dimension, the term
+// The term-group kernel at the micro widths: the composed kernels'
+// one-row-a-thread triangle sweep (terms_sym.cuh) with one more grid
+// dimension, the term
 // group, from z_t = X_c L_t that the wrapper forms. The triangle enters the
 // self pair in both directions, so the wrapper subtracts (sum s) s_i once
 // and forms the counts 2U - n. Group 0 sweeps the
@@ -107,9 +109,11 @@
 // a thread has at n_w = 8 and m = 11. The cost is that the KS contraction
 // runs once per group instead of once per pair.
 //
-// Past m = 64 (kMaxM), where terms_sym.cuh's rows would spill, the term
-// groups run on wide_tri_sm90.cuh's tensor-core body (K2's and K8/K9's
-// past 64: tiles of 128 particles, one persistent block an SM walking the
+// At every other m (9, 10 and 12 up: aniso_groups_wide), where
+// terms_sym.cuh's rows would spill or its one row a thread would leave the
+// tensor cores idle, the term groups run on wide_tri_sm90.cuh's
+// tensor-core body (K2's and K8/K9's at the same widths: tiles of 128
+// particles, one persistent block an SM walking the
 // triangle, a producer warp feeding a cp.async ring, the Gram tile and
 // both contractions in 3xTF32), each group a sweep of its own rows into
 // its own (2w, n) slab of the (1 + n_aniso, 2w, n) accumulator, w the
@@ -146,14 +150,13 @@ using namespace svgd;
 
 // The one-pass kernel's shape at MM: threads a block, rows a thread,
 // columns a shared stage holds, and a staged column's record
-// [x (MM) | z (MM) | s (MM)] padded to 16 bytes. At MM = 32 half the
-// threads and columns keep the stage and each thread's two scratch rows
-// within 48 KB of static shared memory.
+// [x (MM) | z (MM) | s (MM)] padded to 16 bytes.
 template <int MM>
 struct AnisoShape {
-  static constexpr int threads = MM <= 16 ? 128 : 64;
+  static_assert(MM <= kOnePassMaxM, "a one-pass width");
+  static constexpr int threads = 128;
   static constexpr int rows = MM <= 2 ? 8 : 1;
-  static constexpr int cols = MM <= 16 ? 128 : 64;
+  static constexpr int cols = 128;
   static constexpr int rec = (3 * MM + 3) / 4 * 4;
 };
 
@@ -402,7 +405,7 @@ int launch_one_pass(const float* coords, const float* scores,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The single-term groups past kMaxM (see the top of the file): group
+// The wide single-term groups (see the top of the file): group
 // g0 + blockIdx.y, whose blocks walk the whole triangle of tiles of
 // kWideSymTile, one weight tile (OneRbf, k_c = w = k). Group 0 (g0 = 0,
 // one isotropic term) sweeps x with k = 2^(-gamma log2(e) sq), gamma read
@@ -428,7 +431,7 @@ __global__ void __launch_bounds__(kWideSymThreads)
                          counts);
 }
 
-// Group 0 past kMaxM with two or more isotropic terms: K8/K9's two-weight
+// The wide group 0 with two or more isotropic terms: K8/K9's two-weight
 // instance of the body (AnyTerms: k_c = sum s k in one weight tile, w =
 // sum s gamma k in the other) on x, with the counts, into group 0's slab.
 template <int kT>
@@ -502,14 +505,16 @@ extern "C" {
 // device; iso_signs (n_iso,) a HOST array and aniso_sign a number, passed
 // by value; acc a zeroed (m, n) float32 buffer that receives n phi^T;
 // counts a zeroed int64 (T,) buffer that receives the counts of all n^2
-// ordered pairs. 1 <= m <= 32, 0 <= n_iso <= 16, 1 <= T <= 8.
+// ordered pairs. aniso_one_pass(m, 1) must hold (any other m returns
+// cudaErrorInvalidValue), 0 <= n_iso <= 16, 1 <= T <= 8.
 int svgd_fused_phi_aniso_terms_sym(const float* coords, const float* scores,
                                    const float* lower, const float* gammas,
                                    const float* iso_signs, int n_iso,
                                    float aniso_sign, const float* thr, int n,
                                    int m, int T, float* acc,
                                    long long* counts, void* stream) {
-  if (n <= 0 || T < 1 || T > kMaxT || n_iso < 0 || n_iso > kMaxTerms) {
+  if (n <= 0 || T < 1 || T > kMaxT || n_iso < 0 || n_iso > kMaxTerms ||
+      !aniso_one_pass(m, 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const TermSigns si = make_signs(iso_signs, n_iso);
@@ -523,7 +528,6 @@ int svgd_fused_phi_aniso_terms_sym(const float* coords, const float* scores,
   if (m == 11) SVGD_LAUNCH_ONE(11, true);
   if (m >= 1 && m <= 8) SVGD_LAUNCH_ONE(8, false);
   if (m >= 9 && m <= 16) SVGD_LAUNCH_ONE(16, false);
-  if (m >= 17 && m <= 32) SVGD_LAUNCH_ONE(32, false);
 #undef SVGD_LAUNCH_ONE
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -536,12 +540,13 @@ int svgd_fused_phi_aniso_terms_sym(const float* coords, const float* scores,
 // to the kernel; acc a zeroed (1 + n_aniso, 2m, n) float32 buffer, group g's
 // [KS_g | D_g]; counts a zeroed int64 (T,) buffer that receives the upper
 // count U of the Euclidean distances (diagonal included). m >= 1,
-// 0 <= n_iso <= 16, 1 <= n_aniso <= 8, 1 <= T <= 8. Past m = 64 (the wide
-// kernels) m is the rows' padded width, a multiple of 4, coords, z and
-// scores start on 16-byte boundaries, group 1 + t's KS_g and D_g carry
-// neither s_t nor, with one isotropic term, group 0's s and 2 gamma
-// (see the top of the file), and with no isotropic term counts is left
-// as it is.
+// 0 <= n_iso <= 16, 1 <= n_aniso <= 8, 1 <= T <= 8. Where
+// aniso_groups_wide(m) holds (the wide kernels; every m but 1-8 and 11) m
+// is the rows' padded width, a multiple of 4 (the wrapper pads m = 9 and
+// 10 to 12), coords, z and scores start on 16-byte boundaries, group
+// 1 + t's KS_g and D_g carry neither s_t nor, with one isotropic term,
+// group 0's s and 2 gamma (see the top of the file), and with no
+// isotropic term counts is left as it is.
 int svgd_fused_phi_aniso_terms_groups(const float* coords, const float* z,
                                       const float* scores,
                                       const float* gammas,
@@ -559,7 +564,7 @@ int svgd_fused_phi_aniso_terms_groups(const float* coords, const float* z,
   for (int t = 0; t < n_aniso; ++t) sa.s[t] = aniso_signs[t];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* c = reinterpret_cast<unsigned long long*>(counts);
-  if (m > kMaxM) {
+  if (aniso_groups_wide(m)) {
     if (!wide_rows_ok(m, coords, scores) || !wide_rows_ok(m, z, z)) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -576,9 +581,18 @@ int svgd_fused_phi_aniso_terms_groups(const float* coords, const float* z,
         coords, z, scores, gammas, si, n_iso, sa, thr, n, m, T,            \
         (n + tile - 1) / tile, 0LL, acc, c);                               \
   }
-  SVGD_DISPATCH_M_2_11(m, SVGD_LAUNCH_ANISO)
+  SVGD_DISPATCH_MICRO_2_11(m, SVGD_LAUNCH_ANISO)
 #undef SVGD_LAUNCH_ANISO
   return static_cast<int>(cudaGetLastError());
 }
+
+// 1 where K14 takes its one-pass kernel for n_aniso anisotropic terms at
+// dimension m (aniso_one_pass), else 0; and 1 where its term groups take
+// the wide kernels (aniso_groups_wide). ops/sym_plan's copies are held to
+// them.
+int svgd_aniso_one_pass(int m, int n_aniso) {
+  return aniso_one_pass(m, n_aniso) ? 1 : 0;
+}
+int svgd_aniso_groups_wide(int m) { return aniso_groups_wide(m) ? 1 : 0; }
 
 }  // extern "C"

@@ -11,7 +11,9 @@
 // _phi_rbf_pallas_impl; the opt-in phi_impl='pallas' route, 'cuda' here).
 //
 // The quadratic form. _phi_kernel builds it with the Gram identity
-// q_i + q_j - x_i P_sym x_j. P may be indefinite, so Cholesky does not
+// q_i + q_j - x_i P_sym x_j; so does the wide sweep below, which runs at
+// every m but the micro-tile body's (1-8 and 11: k15_wide of
+// sweep_common.cuh). At those, P may be indefinite, so Cholesky does not
 // apply: P_sym/2 = V diag(lam) V^T is decomposed (svgd_sym_eigen below, or
 // by the caller) and the wrapper (ops/cuda_phi.py) passes z = X_c V and
 // lam, so d^T P d = sum_k lam_k (z_ik - z_jk)^2: the difference form,
@@ -58,23 +60,13 @@
 // FMA a coordinate), a clamp and one ex2, and 4m for KS and D_z in both
 // directions (an FMA counted as 2 operations, chip_smoke.py's sweep_bound);
 // the operands are a few hundred KB, so the sweep is bound by instruction
-// issue. Where the micro-tile body's rows would spill (m = 12-64, the
-// runtime instances of 16, 32 and 64), the square sweep below runs
-// instead:
+// issue.
 //
-// one thread owns one target row and keeps z_i, KS and D_z (3m values) in
-// registers; a block of kSqThreads targets walks sources in shared-memory
-// tiles (SqTile rows), with lam log2(e) broadcast from shared memory. One
-// block per 128 targets alone would leave most of the card idle, so the
-// sources are split into chunks of whole tiles over the grid's second
-// dimension, about kTargetBlocks blocks in all; each block adds its
-// partial sums into a zeroed (2m, n) buffer [KS | D_z] with float32
-// atomics (neighbouring threads, neighbouring particles).
-//
-// Past m = 64 (kMaxM) neither body holds a row in registers without
-// spilling, and the decomposition would not fit one block (its order table
-// alone takes 260 KB at m = 512), so the wide sweep (svgd_phi_rbf_wide)
-// takes P itself, in _phi_kernel's own form: the wrapper forms
+// At every other m (9, 10 and 12 up) the micro-tile body's rows would
+// spill, and past m = 64 (kMaxM) the decomposition would not fit one
+// block (its order table alone takes 260 KB at m = 512), so the wide sweep
+// (svgd_phi_rbf_wide) takes P itself, in _phi_kernel's own form, with no
+// decomposition: the wrapper forms
 // Y = X_c (P_sym/2) and q_i = x_i . y_i in float64 on the device and casts
 // them to float32 (the product the JAX package forms outside its kernel),
 // pads X_c, Y and S with zero columns to a multiple of 4 floats
@@ -89,7 +81,10 @@
 // sums as the body forms it. The self pair enters KS in both directions;
 // the wrapper subtracts s_i once and applies 2 D (P_sym/2) in float64.
 // K2's wide instance sweeps the same triangle at the same widths: the two
-// differ in the Gram tile's form alone, and this one counts nothing.
+// differ in the Gram tile's form alone, and this one counts nothing. The
+// Gram form cancels where the difference form does not: the pinned self
+// pair is exact, and every other pair's form carries float32 rounding of
+// q and G on the scale of |x_c|^2 |P|, as the JAX kernel's does.
 //
 // The bfloat16 operand opt-in (phi_rbf_pallas(..., dot_dtype='bfloat16'),
 // pallas_phi.py:169-201): svgd_phi_rbf_wide_bf16 runs at any m >= 1 on
@@ -114,82 +109,6 @@
 namespace {
 
 using namespace svgd;
-
-// Blocks a launch aims at: a few waves of 132 SMs.
-constexpr int kTargetBlocks = 1024;
-
-template <int MM, bool kExact>
-__global__ void __launch_bounds__(kSqThreads)
-    phi_rbf_square_kernel(const float* __restrict__ z,
-                          const float* __restrict__ scores,
-                          const float* __restrict__ lam, int n, int m_arg,
-                          int psd, int chunk, float* __restrict__ out) {
-  constexpr int kTile = SqTile<MM>::value;
-  __shared__ float sh_z[kTile * MM];
-  __shared__ float sh_s[kTile * MM];
-  __shared__ float sh_lam[MM];
-
-  const int m = kExact ? MM : m_arg;
-  const int i = blockIdx.x * kSqThreads + threadIdx.x;
-  const bool row_ok = i < n;
-  for (int k = threadIdx.x; k < m; k += kSqThreads) sh_lam[k] = lam[k] * kLog2e;
-
-  float zi[MM];
-  float acc_s[MM];
-  float acc_d[MM];
-#pragma unroll
-  for (int k = 0; k < MM; ++k) {
-    zi[k] = (row_ok && (kExact || k < m)) ? z[static_cast<size_t>(i) * m + k]
-                                          : 0.0f;
-    acc_s[k] = 0.0f;
-    acc_d[k] = 0.0f;
-  }
-
-  const int j_begin = static_cast<int>(blockIdx.y) * chunk;
-  const int j_end = min(n, j_begin + chunk);
-  for (int j0 = j_begin; j0 < j_end; j0 += kTile) {
-    const int tile_n = min(kTile, j_end - j0);
-    __syncthreads();  // the previous tile is consumed (and lam loaded)
-    for (int e = threadIdx.x; e < tile_n * m; e += kSqThreads) {
-      sh_z[e] = z[static_cast<size_t>(j0) * m + e];
-      sh_s[e] = scores[static_cast<size_t>(j0) * m + e];
-    }
-    __syncthreads();
-    if (row_ok) {
-      for (int jj = 0; jj < tile_n; ++jj) {
-        const float* zj = sh_z + jj * m;
-        const float* sj = sh_s + jj * m;
-        float q = 0.0f;  // log2(e) d^T P d
-#pragma unroll
-        for (int k = 0; k < MM; ++k) {
-          if (kExact || k < m) {
-            const float d = __fsub_rn(zi[k], zj[k]);
-            q = fmaf(sh_lam[k] * d, d, q);
-          }
-        }
-        if (psd) q = fmaxf(q, 0.0f);
-        const float kv = exp2f(-q);
-#pragma unroll
-        for (int k = 0; k < MM; ++k) {
-          if (kExact || k < m) {
-            acc_s[k] = fmaf(kv, sj[k], acc_s[k]);
-            acc_d[k] = fmaf(kv, __fsub_rn(zi[k], zj[k]), acc_d[k]);
-          }
-        }
-      }
-    }
-  }
-
-  if (row_ok) {
-#pragma unroll
-    for (int k = 0; k < MM; ++k) {
-      if (kExact || k < m) {
-        atomicAdd(out + static_cast<size_t>(k) * n + i, acc_s[k]);
-        atomicAdd(out + static_cast<size_t>(m + k) * n + i, acc_d[k]);
-      }
-    }
-  }
-}
 
 // The triangle sweep at the micro-tile body's widths.
 template <int MM, bool kExact>
@@ -357,29 +276,17 @@ __global__ void __launch_bounds__(kJacobiMaxThreads)
   }
 }
 
-// The fixed-P sweep for instance MM: the triangle where the micro-tile
-// body serves MM, the square sweep otherwise.
+// The fixed-P triangle sweep for the micro-tile instance MM.
 template <int MM, bool kExact>
 void launch_phi_rbf(const float* z, const float* scores, const float* lam,
                     int n, int m, int psd, float* out, cudaStream_t s) {
-  if constexpr (MicroTri<MM>::enabled) {
-    constexpr int tile = MicroTri<MM>::kSide;
-    const int nb = (n + tile - 1) / tile;
-    const long long pairs = static_cast<long long>(nb) * (nb + 1) / 2;
-    const dim3 grid(static_cast<unsigned int>(pairs), tri_splits<MM>(pairs));
-    phi_rbf_sym_kernel<MM, kExact><<<grid, MicroTri<MM>::kThreads, 0, s>>>(
-        z, scores, lam, n, m, psd, nb, out);
-  } else {
-    constexpr int tile = SqTile<MM>::value;
-    const int row_blocks = (n + kSqThreads - 1) / kSqThreads;
-    const int tiles = (n + tile - 1) / tile;
-    const int want = (kTargetBlocks + row_blocks - 1) / row_blocks;
-    const int splits = tiles < want ? tiles : want;
-    const int chunk = tile * ((tiles + splits - 1) / splits);
-    const dim3 grid(row_blocks, (n + chunk - 1) / chunk);
-    phi_rbf_square_kernel<MM, kExact><<<grid, kSqThreads, 0, s>>>(
-        z, scores, lam, n, m, psd, chunk, out);
-  }
+  static_assert(MicroTri<MM>::enabled, "the micro-tile body serves MM");
+  constexpr int tile = MicroTri<MM>::kSide;
+  const int nb = (n + tile - 1) / tile;
+  const long long pairs = static_cast<long long>(nb) * (nb + 1) / 2;
+  const dim3 grid(static_cast<unsigned int>(pairs), tri_splits<MM>(pairs));
+  phi_rbf_sym_kernel<MM, kExact><<<grid, MicroTri<MM>::kThreads, 0, s>>>(
+      z, scores, lam, n, m, psd, nb, out);
 }
 
 }  // namespace
@@ -389,7 +296,8 @@ extern "C" {
 // (lam (m,), V (m, m)) with P_sym/2 = V diag(lam) V^T, P_sym = P + P^T,
 // for p (m, m) float64 row-major on the device; lam (m,) and v (m, m)
 // float64 on the device, written by the kernel (any order of the
-// eigenvalues). 1 <= m <= 64.
+// eigenvalues). 1 <= m <= 64. No sweep needs it past m = 11: K15 takes P
+// itself wherever k15_wide holds.
 int svgd_sym_eigen(const double* p, int m, double* lam, double* v,
                    void* stream) {
   if (m < 1 || m > kMaxM) return static_cast<int>(cudaErrorInvalidValue);
@@ -408,7 +316,8 @@ int svgd_sym_eigen(const double* p, int m, double* lam, double* v,
 }
 
 
-// [KS | D] (2m, n) of the wide fixed-P sweep (m > 64 in the port). coords
+// [KS | D] (2m, n) of the wide fixed-P sweep (the port's float32 sweep at
+// every m but 1-8 and 11: k15_wide). coords
 // (n, m) the centered x_c, y (n, m) the rows x_c (P_sym/2), q (n,) the
 // norms q_i = x_i . y_i, scores (n, m), all float32 row-major on the
 // device, m a multiple of 4 and coords, y and scores on a 16-byte boundary
@@ -457,19 +366,24 @@ int svgd_phi_rbf_wide_bf16(const float* coords, const float* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// [KS | D_z] (2m, n) of the fixed-P square sweep. z (n, m) the rows
-// z = X_c V, scores (n, m), lam (m,) the eigenvalues of P_sym/2, all float32
-// row-major on the device; psd != 0 clamps the form at 0; out a zeroed
-// (2m, n) float32 buffer. 1 <= m <= 64.
+// [KS | D_z] (2m, n) of the fixed-P triangle sweep at the micro widths
+// (m = 1-8 and 11; any other m returns cudaErrorInvalidValue). z (n, m)
+// the rows z = X_c V, scores (n, m), lam (m,) the eigenvalues of P_sym/2,
+// all float32 row-major on the device; psd != 0 clamps the form at 0; out
+// a zeroed (2m, n) float32 buffer, KS with each self pair once.
 int svgd_phi_rbf_square(const float* z, const float* scores, const float* lam,
                         int n, int m, int psd, float* out, void* stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SVGD_LAUNCH_PHI_RBF(MM_, EX_)                                   \
   launch_phi_rbf<MM_, EX_>(z, scores, lam, n, m, psd, out, s);
-  SVGD_DISPATCH_M_2_11(m, SVGD_LAUNCH_PHI_RBF)
+  SVGD_DISPATCH_MICRO_2_11(m, SVGD_LAUNCH_PHI_RBF)
 #undef SVGD_LAUNCH_PHI_RBF
   return static_cast<int>(cudaGetLastError());
 }
+
+// 1 where the float32 K15 takes svgd_phi_rbf_wide at dimension m
+// (k15_wide), else 0: ops/sym_plan.k15_wide's copy is held to it.
+int svgd_k15_wide(int m) { return k15_wide(m) ? 1 : 0; }
 
 }  // extern "C"

@@ -20,11 +20,12 @@
 // every other m. SVGD_DISPATCH_SQ_CUDA_CORES and SVGD_DISPATCH_SQ_MMA
 // (square_mma.cuh) are the square sweeps'. The bf16 instances of K1, K2
 // and K3 take no MM: they run square_bf16_sm90.cuh's and bf16_tri_sm90.cuh's
-// bodies at every m. SVGD_DISPATCH_M_2_11, for the kernels with fewer main
-// paths (the panels, K14's term groups, K15), has exact instances for
-// m = 2 and 11 only and runtime ones with MM = 8, 16, 32 or 64, and
-// refuses m past kMaxM: each of those kernels takes its wide instance
-// before it.
+// bodies at every m. SVGD_DISPATCH_M_2_11, the panels', has exact
+// instances for m = 2 and 11 only and runtime ones with MM = 8, 16, 32 or
+// 64, and refuses m past kMaxM: the panels take their wide instance
+// before it. SVGD_DISPATCH_MICRO_2_11, K14's term groups' and K15's, has
+// the same instances at m = 1-8 and 11 and refuses every other m, where
+// both take wide_tri_sm90.cuh's body first.
 
 #pragma once
 
@@ -246,6 +247,24 @@ constexpr int kWideSymTile = 128;
 // wide_rows_ok's rows wherever it holds.
 inline bool tri_wide(int m) { return m > 8 && m != 11; }
 
+// K15's float32 sweep (phi_rbf.cu: svgd_phi_rbf_wide on P itself, else the
+// micro-tile triangle on P's decomposition) and K14's term groups
+// (fused_phi_aniso.cu: the wide groups, else terms_sym.cuh's) take
+// wide_tri_sm90.cuh's body wherever the float32 triangles do.
+// ops/sym_plan.k15_wide and aniso_groups_wide mirror them.
+inline bool k15_wide(int m) { return tri_wide(m); }
+inline bool aniso_groups_wide(int m) { return tri_wide(m); }
+
+// K14's one-pass kernel (fused_phi_aniso.cu) takes one anisotropic term at
+// the micro widths and up to kOnePassMaxM; the term groups take the rest
+// (on an H100 its MM = 16 instance took 6-33% less time than the wide
+// groups at m = 9-16, and an MM = 32 one 2.4-4.5x more at 17-32).
+// ops/sym_plan.aniso_one_pass and ONE_PASS_MAX_M mirror them.
+constexpr int kOnePassMaxM = 16;
+inline bool aniso_one_pass(int m, int n_aniso) {
+  return n_aniso == 1 && m >= 1 && (!tri_wide(m) || m <= kOnePassMaxM);
+}
+
 // The single-RBF triangle kernels' tiles (fused_phi.cu, K2's and K4's
 // ports): 128 particles a side, the micro-tile body's where it serves the
 // instance and kWideSymTile elsewhere. svgd_sym_tile exports it and
@@ -434,10 +453,11 @@ struct AnyTerms {
       }                                                                 \
   }
 
-// Fewer exact instances than the triangles'; an m outside 1..kMaxM
-// returns cudaErrorInvalidValue (K14's entry takes its wide instance past
-// kMaxM before this dispatch; the panels' and K15's wide sweeps have entries
-// of their own, svgd_fused_phi_*_sympanel*_wide and svgd_phi_rbf_wide).
+// The panels' instances up to kMaxM (fused_phi_panel.cu: K3/K5 and
+// K12/K13): exact ones at m = 2 and 11, runtime-m ones (MM = 8, 16, 32,
+// 64) elsewhere; an m outside 1..kMaxM returns cudaErrorInvalidValue (the
+// panels' wide sweeps past kMaxM have entries of their own,
+// svgd_fused_phi_*_sympanel*_wide).
 #define SVGD_DISPATCH_M_2_11(m, LAUNCH)                                 \
   switch (m) {                                                          \
     case 2: LAUNCH(2, true); break;                                     \
@@ -451,6 +471,24 @@ struct AnyTerms {
         LAUNCH(32, false);                                              \
       } else if (m >= 33 && m <= svgd::kMaxM) {                         \
         LAUNCH(64, false);                                              \
+      } else {                                                          \
+        return static_cast<int>(cudaErrorInvalidValue);                 \
+      }                                                                 \
+  }
+
+// The micro widths' instances of K15's triangle (phi_rbf.cu) and of K14's
+// term groups (terms_sym.cuh): exact ones at m = 2 and 11, a runtime-m
+// one (MM = 8) at the other m of 1..8. Every other m returns
+// cudaErrorInvalidValue: k15_wide and aniso_groups_wide send it to the
+// wide sweeps first (svgd_phi_rbf_wide; the term-group entry's wide
+// kernels).
+#define SVGD_DISPATCH_MICRO_2_11(m, LAUNCH)                             \
+  switch (m) {                                                          \
+    case 2: LAUNCH(2, true); break;                                     \
+    case 11: LAUNCH(11, true); break;                                   \
+    default:                                                            \
+      if (m >= 1 && m <= 8) {                                           \
+        LAUNCH(8, false);                                               \
       } else {                                                          \
         return static_cast<int>(cudaErrorInvalidValue);                 \
       }                                                                 \

@@ -1,11 +1,10 @@
-// The composed kernels' one-row-a-thread upper-triangle sweep, shared by
-// fused_phi_terms.cu (fused_phi_terms_sym, K8/K9's port: one term group; and
-// fused_phi_terms_sym_chunk, K10/K11's port: one rank's range of the tile
-// list; both at the widths the micro-tile body would spill, m = 9, 10 and
-// 12-64: fused_phi_terms.cu takes micro_tile.cuh's body at m = 1-8 and 11)
-// and fused_phi_aniso.cu (the term-group kernel of K14's port, for
-// compositions past the one-pass kernel's: one group per anisotropic term
-// besides the Euclidean one).
+// The composed kernels' one-row-a-thread upper-triangle sweep, for
+// fused_phi_aniso.cu's term-group kernel (K14's port, for compositions past
+// the one-pass kernel's: one group per anisotropic term besides the
+// Euclidean one) at the micro widths only, m = 1-8 and 11 (instances
+// MM = 2 and 11 exact, 8 at runtime m: SVGD_DISPATCH_MICRO_2_11); every other
+// m runs the groups on wide_tri_sm90.cuh's body (aniso_groups_wide of
+// sweep_common.cuh).
 //
 // fused_phi_counts_sym's design (fused_phi.cu) with TWO padded shared
 // tiles, k_c and w, in place of k: one block per upper-triangle tile pair

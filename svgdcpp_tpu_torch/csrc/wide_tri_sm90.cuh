@@ -1,12 +1,13 @@
-// The upper-triangle sweep's float32 body past kMaxM (m > 64) for the
-// single-RBF triangle kernels (fused_phi.cu: K2's and K4's ports) and the
-// terms triangle kernels (fused_phi_terms.cu: K8/K9's and K10/K11's), the
-// instance MM = kWideMM of each, for K14's term groups (fused_phi_aniso.cu:
-// one RBF a single-term group, terms for group 0 of two or more isotropic
-// terms), for the panel kernels' float32 instances past kMaxM
-// (fused_phi_panel.cu: K3's and K5's one RBF, K12/K13's terms), and for
-// K15's wide sweep (phi_rbf.cu: P itself in the Gram form, FixedPGram
-// below). It computes the (2m, n) accumulator [KS | D], D unscaled for one
+// The upper-triangle sweep's float32 body at every m but the micro widths
+// (1-8 and 11: tri_wide of sweep_common.cuh) for the single-RBF triangle
+// kernels (fused_phi.cu: K2's and K4's ports) and the terms triangle
+// kernels (fused_phi_terms.cu: K8/K9's and K10/K11's), the instance
+// MM = kWideMM of each, for K14's term groups (fused_phi_aniso.cu: one RBF
+// a single-term group, terms for group 0 of two or more isotropic terms)
+// and for K15's wide sweep (phi_rbf.cu: P itself in the Gram form,
+// FixedPGram below); past kMaxM (m > 64) for the panel kernels' float32
+// instances (fused_phi_panel.cu: K3's and K5's one RBF, K12/K13's terms).
+// It computes the (2m, n) accumulator [KS | D], D unscaled for one
 // RBF and weighted by w for terms, each self pair entered in both
 // directions and pinned to sq = 0, and the upper count U with the
 // diagonal, with the Gram tile and both contractions in 3xTF32 on the
@@ -142,7 +143,7 @@ __device__ __forceinline__ int swz(int row, int col) {
 
 // Whether the body takes these operands: rows of m floats that start on
 // 16-byte boundaries (its cp.async copies are 16 bytes). The entries
-// refuse others past kMaxM.
+// refuse others wherever they run this body.
 inline bool wide_rows_ok(int m, const float* coords, const float* scores) {
   return (m & 3) == 0 && ((reinterpret_cast<uintptr_t>(coords) |
                            reinterpret_cast<uintptr_t>(scores)) & 15u) == 0;
@@ -661,7 +662,7 @@ inline unsigned int wide_sym_prepare(Kernel* kernel, long long count) {
 }
 
 // The threads of a triangle kernel's block for instance MM: this body's at
-// MM = kWideMM, any m past kMaxM, else the micro-tile body's.
+// MM = kWideMM (every m but the micro widths), else the micro-tile body's.
 template <int MM>
 struct TriThreads {
   static constexpr int value =

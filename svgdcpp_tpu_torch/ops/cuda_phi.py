@@ -29,21 +29,24 @@ package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
     ``csrc/wide_tri_sm90.cuh``'s at every other m).
   * ``fused_phi_aniso_terms_sym`` (``csrc/fused_phi_aniso.cu``) --
     ``_sym_aniso_terms_kernel`` (K14): the sweep of a composed kernel with
-    anisotropic (full-P) terms. With one anisotropic term up to m = 32 a
-    one-pass kernel (every ordered pair once, both term groups in one pass,
-    n phi and all n^2 counts out); otherwise the terms triangle kernel's
-    body under its own name, with one term group per anisotropic term;
-    past m = 64 the same groups on ``csrc/wide_tri_sm90.cuh``'s tensor-core
-    body (``fused_phi_aniso_terms_wide``: a single-term group, each
-    anisotropic one and group 0 of one isotropic term, on one weight tile;
-    group 0 of more on two; with none, the counts from K16's self form).
+    anisotropic (full-P) terms. With one anisotropic term a one-pass
+    kernel where ``sym_plan.aniso_one_pass`` holds (every ordered pair
+    once, both term groups in one pass, n phi and all n^2 counts out);
+    otherwise one term group per anisotropic term besides the Euclidean
+    one: at m = 1-8 and 11 the one-row-a-thread triangle of
+    ``csrc/terms_sym.cuh``, at every other m (``sym_plan.
+    aniso_groups_wide``) ``csrc/wide_tri_sm90.cuh``'s tensor-core body
+    (``fused_phi_aniso_terms_wide``: a single-term group, each anisotropic
+    one and group 0 of one isotropic term, on one weight tile; group 0 of
+    more on two; with none, the counts from K16's self form).
   * ``phi_rbf_square``          (``csrc/phi_rbf.cu``) -- ``_phi_kernel``
-    (K15): the sweep of one RBF with a full, fixed P, no counts (the
-    triangle at m = 1-8 and 11, the square sweep up to 64); with it
-    ``sym_eigen``, the Jacobi decomposition of P on the card. Past m = 64
-    ``phi_rbf_wide``: the JAX kernel's own form, the Gram tile of X
-    against Y = X (P_sym/2) on ``csrc/wide_tri_sm90.cuh``'s body (the rows
-    padded as K2's), with P itself and no decomposition.
+    (K15): the sweep of one RBF with a full, fixed P, no counts: at
+    m = 1-8 and 11 the micro-tile triangle on the rows of P's
+    decomposition, with ``sym_eigen``, the Jacobi decomposition of P on
+    the card; at every other m (``sym_plan.k15_wide``) ``phi_rbf_wide``:
+    the JAX kernel's own form, the Gram tile of X against Y = X (P_sym/2)
+    on ``csrc/wide_tri_sm90.cuh``'s body (the rows padded as K2's), with P
+    itself and no decomposition.
   * ``fused_phi_counts_sympanel`` (``csrc/fused_phi_panel.cu``) --
     ``_sym_panel_kernel`` (K3): the triangle sweep of one RBF laid out as
     pairs of super-blocks, each with its own output window, summed by an
@@ -73,11 +76,11 @@ their plain versions; ``phi_rbf_square`` returns phi, like
 m >= 1: past MAX_M = 64 the sweeps run wide bodies that hold nothing sized
 by m (``csrc/square_wide_sm90.cuh``'s for the float32 square sweeps,
 ``csrc/wide_tri_sm90.cuh``'s body for the float32 triangles, the panels,
-K14's groups and K15), and the float32 triangles run theirs from m = 9
-already (every m but 1-8 and 11). ``sym_eigen`` alone
-takes 1 <= m <= MAX_M:
-its matrix and its order table live in one block's shared memory, and
-past MAX_M K15 takes P itself, so nothing calls it there.
+K14's groups and K15), and the float32 triangles, K14's groups and K15
+run ``csrc/wide_tri_sm90.cuh``'s from m = 9 already (every m but 1-8 and
+11). ``sym_eigen`` alone takes 1 <= m <= MAX_M: its matrix and its order
+table live in one block's shared memory; only K15 at m = 1-8 and 11
+calls it, since everywhere else K15 takes P itself.
 
 The bfloat16 operand opt-in (``dot_dtype='bfloat16'``, the JAX package's
 ``fused_dot_dtype``) runs instances of their own, at every m: K1's
@@ -107,16 +110,17 @@ Where the wrappers run: a tensor on the CPU goes to the plain version (the
 CPU tests use this); a tensor on a CUDA device launches the kernel or
 raises. There is no fallback from the card to the plain version.
 
-The quadratic forms of K14 and K15 up to MAX_M come from factors
-prepared in float64 (``cholesky_factors``, which the driver keeps while a
-constant P stays the same; ``eigen_rows``), so each kernel takes the
-difference form of its form. ``eigen_rows`` decomposes an (m, m) matrix
-(``symmetric_eigen``: on the card the kernel ``sym_eigen``, which reads
-nothing on the host) unless the caller passes the decomposition. Past
-MAX_M, K14's groups take the same factors' rows z_t = x L_t by the Gram
-identity (``aniso_group_operands``: L_t padded with zeros to the rows'
-width), and K15 takes P itself (``ops/phi.gram_operands``), so nothing
-is decomposed there.
+The quadratic forms of K14 come from factors prepared in float64
+(``cholesky_factors``, which the driver keeps while a constant P stays
+the same): its one-pass kernel (m <= 16) and its groups at m = 1-8 and
+11 take the difference form, the wide groups elsewhere the same factors'
+rows z_t = x L_t by the Gram identity (``aniso_group_operands``: L_t
+padded with zeros to the rows' width). K15 at m = 1-8 and 11 takes the
+difference form on the rows of P's decomposition (``eigen_rows``, which
+decomposes an (m, m) matrix with ``symmetric_eigen``: on the card the
+kernel ``sym_eigen``, which reads nothing on the host, unless the caller
+passes the decomposition); everywhere else it takes P itself
+(``ops/phi.gram_operands``), so nothing is decomposed there.
 
 Each wrapper counts its kernel's launches in ``launch_counts`` (one plain
 integer per kernel), so a run can show that it went through the kernels.
@@ -164,7 +168,10 @@ from .sym_plan import (
     bf16_work_bytes,
     bf16_work_layout,
     card_panel_plan,
+    aniso_groups_wide,
+    aniso_one_pass,
     card_resolve_sym,
+    k15_wide,
     panel_chunk,
     panel_tile128,
     square_bf16_row_width,
@@ -185,23 +192,20 @@ COUNT_MAX_T = 32
 MAX_TERMS = MAX_RBF_TERMS
 MAX_ANISO_TERMS = 8
 
-#: One anisotropic term takes K14's one-pass kernel up to this m; past it
-#: the term-group kernel, which ran 1.6-1.9x faster at m = 50 and 64, where
-#: the one-pass kernel's rows spill (PERF.md section 6, PR 9).
-ONE_PASS_MAX_M = 32
-
 SQUARE_KERNEL = "fused_phi_counts_square"
 SYM_KERNEL = "fused_phi_counts_sym"
 TERMS_SQUARE_KERNEL = "fused_phi_terms_square"
 TERMS_SYM_KERNEL = "fused_phi_terms_sym"
 ANISO_KERNEL = "fused_phi_aniso_terms_sym"
-#: K14's term groups past MAX_M (csrc/fused_phi_aniso.cu on
-#: csrc/wide_tri_sm90.cuh's body: fused_phi_aniso_terms_wide_groups_kernel,
-#: and fused_phi_aniso_terms_wide_iso_kernel for two or more isotropic
-#: terms), one launch a call of the entry.
+#: K14's term groups where sym_plan.aniso_groups_wide holds, every m but
+#: 1-8 and 11 (csrc/fused_phi_aniso.cu on csrc/wide_tri_sm90.cuh's body:
+#: fused_phi_aniso_terms_wide_groups_kernel, and
+#: fused_phi_aniso_terms_wide_iso_kernel for two or more isotropic terms),
+#: one launch a call of the entry.
 ANISO_WIDE_KERNEL = "fused_phi_aniso_terms_wide"
 PHI_RBF_KERNEL = "phi_rbf_square"
-#: K15 past MAX_M (csrc/phi_rbf.cu, P itself on the wide body).
+#: K15 where sym_plan.k15_wide holds, every m but 1-8 and 11
+#: (csrc/phi_rbf.cu, P itself on the wide body).
 PHI_RBF_WIDE_KERNEL = "phi_rbf_wide"
 SYM_EIGEN_KERNEL = "sym_eigen"
 SYMPANEL_KERNEL = "fused_phi_counts_sympanel"
@@ -314,6 +318,9 @@ def load_library() -> ctypes.CDLL:
                 "svgd_count_le_cross": [ptr] * 4 + [i32] * 4 + [ptr] * 2,
                 "svgd_count_le_self": [ptr] * 3 + [i32] * 3 + [ptr] * 2,
                 "svgd_sym_tile": [i32] * 2,
+                "svgd_k15_wide": [i32],
+                "svgd_aniso_one_pass": [i32] * 2,
+                "svgd_aniso_groups_wide": [i32],
             }
             for fn, argtypes in signatures.items():
                 getattr(lib, fn).argtypes = argtypes
@@ -442,9 +449,9 @@ def _centered32(coords):
 def _tri_operands(coords_c, sc32, m, wide):
     """(coordinates, scores, width) as the float32 wide bodies take them
     where the caller's instance is the wide body (``wide``: the triangles'
-    ``sym_plan.tri_wide(m)``, K14's groups' m > MAX_M; the panels and K15
-    call it past MAX_M only): padded with zero
-    columns to ``wide_row_width(m)``, so that the wide body's 16-byte
+    ``sym_plan.tri_wide(m)``, K14's groups' ``aniso_groups_wide(m)``,
+    K15's ``k15_wide(m)``; the panels call it past MAX_M only): padded
+    with zero columns to ``wide_row_width(m)``, so that the wide body's 16-byte
     copies start every row on a 16-byte boundary, which the library
     requires there (zero columns add nothing to sq, KS or D; the
     accumulator has 2 x width rows, of which the wrappers keep [0, m) and
@@ -486,11 +493,11 @@ def symmetric_eigen(p_matrix, device=None):
     On a CUDA device the one-block Jacobi kernel ``svgd_sym_eigen``
     (csrc/phi_rbf.cu), which reads nothing on the host: a HESSIAN scale's
     new P each step does not synchronise the step. It takes m <= MAX_M
-    (its matrix and order table live in one block's shared memory); past
-    it K15 takes P itself, so nothing on the card calls it there. On the
-    CPU its plain version, ``torch.linalg.eigh`` (which checks its result
-    on the host, so it never runs on the card here), at any m. P may be
-    indefinite."""
+    (its matrix and order table live in one block's shared memory); K15
+    calls it at m = 1-8 and 11 only, and takes P itself at every other m.
+    On the CPU its plain version, ``torch.linalg.eigh`` (which checks its
+    result on the host, so it never runs on the card here), at any m. P
+    may be indefinite."""
     p = torch.as_tensor(p_matrix)
     device = p.device if device is None else torch.device(device)
     p = p.to(device, torch.float64).contiguous()
@@ -925,8 +932,9 @@ def _sympanel_launch(coords, scores, gammas, signs, thresholds_sq,
 
 def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
                   aniso_signs, thresholds_sq, lowers):
-    """K14: the one-pass kernel, or the term-group triangle kernel (its
-    wide instances past MAX_M, finished by ``ops/phi.aniso_groups_finish``)."""
+    """K14: the one-pass kernel where ``sym_plan.aniso_one_pass`` holds,
+    else the term groups (their wide kernels where ``aniso_groups_wide``
+    holds, finished by ``ops/phi.aniso_groups_finish``)."""
     g, thr = _device_operands(coords, scores, iso_gammas, thresholds_sq,
                               min_terms=0)
     n_aniso = len(aniso_signs)
@@ -940,7 +948,7 @@ def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
         lowers = cholesky_factors(aniso_ps, coords.device)
     coords_c = _centered32(coords).contiguous()
     sc32 = scores.to(torch.float32).contiguous()
-    if n_aniso == 1 and m <= ONE_PASS_MAX_M:
+    if aniso_one_pass(m, n_aniso):
         lib = load_library()
         acc = torch.zeros((m, n), dtype=torch.float32, device=coords.device)
         counts = torch.zeros(thr.shape[0], dtype=torch.int64,
@@ -960,7 +968,7 @@ def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
         return (acc.T / n).to(coords.dtype), counts
     acc, upper = _aniso_groups(coords_c, sc32, g, thr, len(iso_gammas),
                                iso_signs, aniso_signs, lowers)
-    if m > MAX_M:
+    if aniso_groups_wide(m):
         phi = aniso_groups_finish(acc, sc32, g[0], iso_signs, aniso_signs,
                                   lowers, n)
         # With no isotropic term no group counted: the count kernel's self
@@ -968,10 +976,10 @@ def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
         counts = (2 * upper - n if len(iso_gammas)
                   else count_le_cuda(coords_c, coords_c, thr))
         return phi.to(coords.dtype), counts
-    # Up to MAX_M: acc[g] = [KS_g | D_g] with the signs in the weights. The
-    # groups' KS add up; the self pairs (k = 1 for every term) entered KS
-    # in both directions, so subtract (sum s) s_i once. D_0 is the
-    # isotropic direction (weights already carry gamma);
+    # At m = 1-8 and 11: acc[g] = [KS_g | D_g] with the signs in the
+    # weights. The groups' KS add up; the self pairs (k = 1 for every
+    # term) entered KS in both directions, so subtract (sum s) s_i once.
+    # D_0 is the isotropic direction (weights already carry gamma);
     # D_1+t = sum_j s_t k_t (z_ti - z_tj), and D_t P_sym = 2 D_1+t L_t^T
     # (float64, never TF32).
     s_total = sum(float(s) for s in iso_signs) + sum(
@@ -988,13 +996,14 @@ def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
 def aniso_group_operands(coords_c, sc32, lowers):
     """K14's term-group operands: (x, scores, z, width) with z
     (n_aniso, n, width) = x L_t formed in float64 and rounded to float32.
-    Past MAX_M x and the scores come from ``_tri_operands`` (zero columns
-    to ``wide_row_width(m)``) and each L_t is padded with zero rows and
-    columns, so that z's columns past m are exact zeros (a product of
-    zeros, not a float32 product padded after); up to MAX_M all stay at
-    width m."""
+    Where ``sym_plan.aniso_groups_wide(m)`` holds (the wide kernels, every
+    m but 1-8 and 11) x and the scores come from ``_tri_operands`` (zero
+    columns to ``wide_row_width(m)``: m = 9 and 10 to 12, 13 to 16, ...)
+    and each L_t is padded with zero rows and columns, so that z's columns
+    past m are exact zeros (a product of zeros, not a float32 product
+    padded after); at the micro widths all stay at width m."""
     m = coords_c.shape[1]
-    x, s, width = _tri_operands(coords_c, sc32, m, m > MAX_M)
+    x, s, width = _tri_operands(coords_c, sc32, m, aniso_groups_wide(m))
     if width != m:
         pad = torch.zeros((lowers.shape[0], width, width),
                           dtype=torch.float64, device=coords_c.device)
@@ -1008,9 +1017,10 @@ def _aniso_groups(coords_c, sc32, g, thr, n_iso, iso_signs, aniso_signs,
                   lowers):
     """One call of K14's term-group entry on centered float32 coordinates:
     the raw accumulator (1 + n_aniso, 2 width, n) of [KS_g | D_g] a group
-    and the upper counts (T,). Past MAX_M its wide kernels leave each
-    group's slab as ``ops/phi.aniso_groups_plain`` gives it (at width m
-    there) and, with no isotropic term, the counts at 0."""
+    and the upper counts (T,). Where ``aniso_groups_wide(m)`` holds its
+    wide kernels leave each group's slab as ``ops/phi.aniso_groups_plain``
+    gives it (at width m there) and, with no isotropic term, the counts
+    at 0."""
     n, m = coords_c.shape
     n_aniso = len(aniso_signs)
     x, s, z, width = aniso_group_operands(coords_c, sc32, lowers)
@@ -1027,7 +1037,7 @@ def _aniso_groups(coords_c, sc32, g, thr, n_iso, iso_signs, aniso_signs,
             width, thr.shape[0], acc.data_ptr(), upper.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
-    name = ANISO_WIDE_KERNEL if m > MAX_M else ANISO_KERNEL
+    name = ANISO_WIDE_KERNEL if aniso_groups_wide(m) else ANISO_KERNEL
     _check_launch(rc, name)
     launch_counts[name] += 1
     return acc, upper
@@ -1035,7 +1045,7 @@ def _aniso_groups(coords_c, sc32, g, thr, n_iso, iso_signs, aniso_signs,
 
 def aniso_wide_groups_cuda(coords, scores, iso_gammas, iso_signs,
                            aniso_signs, thresholds_sq, lowers):
-    """K14's wide term groups past MAX_M, unfinished: (acc
+    """K14's wide term groups (every m but 1-8 and 11), unfinished: (acc
     (1 + n_aniso, 2 width, n), upper (T,)) of one launch of the wide entry
     on CUDA tensors (``lowers`` the float64 factors, ``cholesky_factors``),
     the counterpart of ``ops/phi.aniso_groups_plain``, whose slabs are
@@ -1045,8 +1055,8 @@ def aniso_wide_groups_cuda(coords, scores, iso_gammas, iso_signs,
     _require_cuda(coords)
     g, thr = _device_operands(coords, scores, iso_gammas, thresholds_sq,
                               min_terms=0)
-    if coords.shape[1] <= MAX_M:
-        raise ValueError(f"the wide groups take m > {MAX_M}, got "
+    if not aniso_groups_wide(coords.shape[1]):
+        raise ValueError("the wide groups take every m but 1-8 and 11, got "
                          f"m={coords.shape[1]}")
     return _aniso_groups(
         _centered32(coords).contiguous(),
@@ -1055,12 +1065,13 @@ def aniso_wide_groups_cuda(coords, scores, iso_gammas, iso_signs,
 
 
 def _phi_rbf_launch(coords, scores, p_matrix, psd, eig, bf16=False):
-    """K15: the fixed-P sweep kernel (the decomposition, where the caller
-    has none, on the card too); past MAX_M, and for the bfloat16 opt-in at
-    any m, its wide instance on P itself."""
+    """K15: where ``sym_plan.k15_wide`` holds (float32: every m but 1-8 and
+    11; the bfloat16 opt-in at any m) its wide instance on P itself, else
+    the micro-tile triangle on the rows of P's decomposition (on the card
+    too, where the caller has none)."""
     _check_pair(coords, scores)
     n, m = coords.shape
-    if m > MAX_M or bf16:
+    if k15_wide(m, bf16):
         return _phi_rbf_wide_launch(coords, scores, p_matrix, psd, eig, bf16)
     z64, lam, v = eigen_rows(_centered32(coords), p_matrix, eig)
     z = z64.to(torch.float32).contiguous()
@@ -1092,9 +1103,9 @@ def _half_of(p_matrix, eig, device=None):
 
 
 def _phi_rbf_wide_launch(coords, scores, p_matrix, psd, eig, bf16=False):
-    """K15 past MAX_M (``phi_rbf_wide``; ``bf16`` its bfloat16 instance,
-    ``phi_rbf_wide_bf16``, at any m): the JAX kernel's form on
-    H = P_sym/2 itself, from P or from the caller's (lam, V) (a MEDIAN's
+    """K15's wide sweep (``phi_rbf_wide``, every m but 1-8 and 11; ``bf16``
+    its bfloat16 instance, ``phi_rbf_wide_bf16``, at any m): the JAX
+    kernel's form on H = P_sym/2 itself, from P or from the caller's (lam, V) (a MEDIAN's
     gamma I, a kept decomposition), formed on the device in float64; the
     operands Y = X_c H and q from ``ops/phi.gram_operands``."""
     n, m = coords.shape
@@ -1332,13 +1343,15 @@ def phi_rbf_aniso_terms_fused_cuda(coords, scores, iso_gammas, iso_signs,
     ``lowers`` the factors ``cholesky_factors(aniso_ps)`` where the caller
     keeps them (a constant P; ``aniso_ps`` may then be None), else they are
     factored here. On a CUDA tensor, in float32, at any m: the kernel
-    fused_phi_aniso_terms_sym, in one pass for one anisotropic term up to
-    ONE_PASS_MAX_M, in term groups otherwise, past MAX_M the groups' wide
-    instance fused_phi_aniso_terms_wide (``launch_counts`` under
-    ANISO_WIDE_KERNEL; with no isotropic term the counts take one launch
-    of the count kernel, ``count_le_cuda`` on the coordinates as rows and
-    columns); with no anisotropic term (a hot-swap may leave
-    none), the terms triangle kernel, which computes the same function. On
+    fused_phi_aniso_terms_sym, in one pass for one anisotropic term where
+    ``sym_plan.aniso_one_pass`` holds, in term groups otherwise; the
+    groups at m = 1-8 and 11 on ``csrc/terms_sym.cuh``'s body, at every
+    other m (``sym_plan.aniso_groups_wide``) the groups' wide instance
+    fused_phi_aniso_terms_wide on ``csrc/wide_tri_sm90.cuh``'s
+    (``launch_counts`` under ANISO_WIDE_KERNEL; with no isotropic term the
+    counts take one launch of the count kernel, ``count_le_cuda`` on the
+    coordinates as rows and columns); with no anisotropic term (a hot-swap
+    may leave none), the terms triangle kernel, which computes the same function. On
     a CPU tensor: the plain ``phi_rbf_aniso_terms_fused_counts``, in the
     factor form (``phi_rbf_factor``) where ``lowers`` are given.
     """
@@ -1364,11 +1377,12 @@ def phi_rbf_cuda(coords, scores, p_matrix, psd=True, eig=None,
     HESSIAN scale). ``eig``: (lam, V) of P_sym/2 where the caller has it
     (a P fixed over the run, or gamma I); without it the wrapper decomposes
     P on the card (``symmetric_eigen``), with no host read. On a CUDA
-    tensor, in float32: the kernel phi_rbf_square up to MAX_M (a triangle
-    sweep at m = 1-8 and 11, the square sweep above); past it phi_rbf_wide
-    (``launch_counts`` under PHI_RBF_WIDE_KERNEL), which takes P_sym/2
-    itself (from ``eig`` where given) in the JAX kernel's Gram form, so
-    nothing is decomposed. On a CPU tensor, at any m: the plain
+    tensor, in float32: at m = 1-8 and 11 the kernel phi_rbf_square (a
+    triangle sweep on the micro-tile body); at every other m
+    (``sym_plan.k15_wide``) phi_rbf_wide (``launch_counts`` under
+    PHI_RBF_WIDE_KERNEL) on ``csrc/wide_tri_sm90.cuh``'s body, which takes
+    P_sym/2 itself (from ``eig`` where given) in the JAX kernel's Gram
+    form, so nothing is decomposed. On a CPU tensor, at any m: the plain
     ``phi_rbf_eigen`` from ``eig``, or from the decomposition's plain
     version (``symmetric_eigen`` on the CPU, ``torch.linalg.eigh``).
 

@@ -22,13 +22,14 @@ Port of ``svgdcpp_tpu.ops.phi`` (reference hot loop SVGD.hpp:407-454):
                            is the plain version of the CUDA kernels in
                            ``ops/cuda_phi.py``, which hold themselves to it.
   * ``phi_rbf_aniso_terms_fused_counts`` -- the same for a composed kernel
-                           with anisotropic (full-P) terms; past m = 64
-                           the term groups' slabs, ``aniso_groups_plain``,
-                           and their epilogue, ``aniso_groups_finish``.
+                           with anisotropic (full-P) terms; at every m
+                           but 1-8 and 11 the wide term groups' slabs,
+                           ``aniso_groups_plain``, and their epilogue,
+                           ``aniso_groups_finish``.
   * ``phi_rbf_eigen`` / ``phi_rbf_gram`` -- one RBF with a full, fixed P:
-                           the fixed-P CUDA kernel's forms up to m = 64 (the
-                           eigen basis) and past it (P itself, the Gram
-                           operands of ``gram_operands``).
+                           the fixed-P CUDA kernel's forms at m = 1-8 and
+                           11 (the eigen basis) and at every other m (P
+                           itself, the Gram operands of ``gram_operands``).
   * ``phi_rbf_sympanel_fused_counts`` / ``phi_rbf_terms_sympanel_fused_counts``
                         -- the same function as the fused sweeps, computed
                            on the panel kernels' schedule (super-block pairs,
@@ -1008,8 +1009,8 @@ def phi_rbf_aniso_terms_fused_counts(
 
 def aniso_groups_plain(coords, scores, iso_gammas, iso_signs, aniso_signs,
                        thresholds_sq, lowers):
-    """What K14's wide term groups (``fused_phi_aniso_terms_wide``, past
-    m = 64) leave in each group's slab, in plain torch: (acc
+    """What K14's wide term groups (``fused_phi_aniso_terms_wide``, every
+    m but 1-8 and 11) leave in each group's slab, in plain torch: (acc
     (1 + n_aniso, 2m, n), upper (E,) int64 or None).
 
     Each slab [KS_g | D_g] is the full-width triangle's raw accumulator
@@ -1150,8 +1151,8 @@ def phi_rbf_factor(coords, scores, lower, row_tile: int = 1024):
 
 
 def gram_operands(coords_c, half):
-    """K15's operands past m = 64, the JAX kernel's own (pallas_phi.py:
-    189-190): Y = x_c H and q_i = x_i . y_i for H = P_sym/2 and centered
+    """K15's wide operands (every m but 1-8 and 11), the JAX kernel's own
+    (pallas_phi.py:189-190): Y = x_c H and q_i = x_i . y_i for H = P_sym/2 and centered
     coordinates x_c, both formed in float64 and returned in x_c's dtype,
     so that q_i + q_j - 2 x_i . y_j = d^T P d for d = x_i - x_j, for any P,
     indefinite too."""

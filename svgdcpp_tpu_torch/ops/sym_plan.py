@@ -399,6 +399,45 @@ def dispatch_m(m: int) -> int:
     return WIDE_MM if tri_wide(m) else m
 
 
+def k15_wide(m: int, bf16: bool = False) -> bool:
+    """Whether K15 (the sweep of one RBF with a full, fixed P) takes its
+    wide sweep on P itself (``svgd_phi_rbf_wide``, csrc/wide_tri_sm90.cuh's
+    body, ``k15_wide`` of csrc/sweep_common.cuh) at dimension m: in float32
+    wherever the float32 triangles run the wide body (:func:`tri_wide`),
+    elsewhere (m = 1-8 and 11) the micro-tile triangle on the rows of P's
+    decomposition; the bfloat16 instance at every m."""
+    return bf16 or tri_wide(m)
+
+
+def aniso_groups_wide(m: int) -> bool:
+    """Whether K14's term groups take their wide kernels on
+    csrc/wide_tri_sm90.cuh's body (``aniso_groups_wide`` of
+    csrc/sweep_common.cuh) at dimension m, the rows padded to
+    :func:`wide_row_width`: where :func:`tri_wide` holds; at m = 1-8 and
+    11 the one-row-a-thread groups of csrc/terms_sym.cuh."""
+    return tri_wide(m)
+
+
+#: K14's one-pass kernel takes one anisotropic term up to this m
+#: (``kOnePassMaxM`` of csrc/sweep_common.cuh; :func:`aniso_one_pass`).
+#: chip_profile.py --mid-p timed it against the wide groups for a median
+#: RBF + one RBF(P) on an H100 80GB HBM3 at 700 W: at m = 9-16 its MM = 16
+#: instance took 6-33% less time at n = 2048, 10,240 and 32,768; at
+#: m = 17-32 its MM = 32 instance (spilling 156-216 B) took 2.4-4.5x more
+#: at all three, so that instance is gone (PERF.md, section 6).
+ONE_PASS_MAX_M = 16
+
+
+def aniso_one_pass(m: int, n_aniso: int) -> bool:
+    """Whether K14 runs its one-pass kernel (``svgd_fused_phi_aniso_terms_
+    sym``; ``aniso_one_pass`` of csrc/sweep_common.cuh) for ``n_aniso``
+    anisotropic terms at dimension m: one term at the micro widths (m = 1-8
+    and 11) and up to ONE_PASS_MAX_M; otherwise the term groups
+    (:func:`aniso_groups_wide`)."""
+    return n_aniso == 1 and m >= 1 and (not tri_wide(m)
+                                        or m <= ONE_PASS_MAX_M)
+
+
 #: The triangle kernels' tile side where the micro-tile body serves the
 #: instance (``MicroWidth`` of csrc/sweep_common.cuh: m = 1-8 and 11), and
 #: where the float32 wide body does (``kWideSymTile``, csrc/
@@ -425,7 +464,8 @@ def wide_row_width(m: int) -> int:
     zero columns, which add nothing to sq, KS or D, so that every row
     starts on a 16-byte boundary). Each wrapper pads only where its own
     instance is the wide body: the triangles where :func:`tri_wide` holds,
-    the square sweeps, K14's groups, K15 and the panels past
+    K14's groups (:func:`aniso_groups_wide`), K15's float32 sweep
+    (:func:`k15_wide`) and the square sweeps and the panels past
     KERNEL_MAX_M."""
     return -(-m // WIDE_ROW_ALIGN) * WIDE_ROW_ALIGN
 

@@ -108,7 +108,6 @@ from .kernels.kernel import Kernel, _as_param_tuple
 from .models.model import Model, params_on
 from .ops.cuda_phi import (
     MAX_ANISO_TERMS,
-    MAX_M,
     SYM_MIN_N,
     cholesky_factors,
     phi_rbf_aniso_terms_fused_cuda,
@@ -137,6 +136,7 @@ from .ops.phi import (
     phi_rbf_terms_cross,
     phi_rbf_terms_fused_counts,
 )
+from .ops.sym_plan import k15_wide
 from .optimizers.base import Optimizer
 from .utils.logging import write_intermediate_matrices
 
@@ -742,16 +742,18 @@ class SVGD:
         it: a MEDIAN scale is gamma I, so (its diagonal, I) on the device;
         a CONSTANT P is decomposed once, on its device, and kept while the
         step carries the same tensor (a hot-swap or a new run() may bring a
-        new one), up to MAX_M: past it K15 takes P itself, so nothing is
-        decomposed. None for a HESSIAN scale, which changes every step: the
-        wrapper decomposes it each call, on the card, up to MAX_M."""
+        new one), where K15 takes the decomposition's rows (m = 1-8 and 11):
+        wherever ``sym_plan.k15_wide`` holds it takes P itself, so nothing
+        is decomposed. None for a HESSIAN scale, which changes every step:
+        the wrapper decomposes it each call, on the card, where K15 takes
+        the rows."""
         method = self.kernel.scale_method
         if method == GaussianRBFKernel.ScaleMethod.MEDIAN:
             return p.diagonal(), torch.eye(
                 p.shape[0], dtype=p.dtype, device=p.device
             )
         if (method == GaussianRBFKernel.ScaleMethod.CONSTANT
-                and p.shape[0] <= MAX_M):
+                and not k15_wide(p.shape[0])):
             cached = getattr(self, "_constant_eigen", None)
             if cached is None or cached[0] is not p:
                 self._constant_eigen = (p, symmetric_eigen(p))

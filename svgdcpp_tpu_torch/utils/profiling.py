@@ -183,7 +183,8 @@ def sweep_work(kernel, n, m, T=3, n_iso=1, n_aniso=0, pairs=None,
         and an FMA), 2 for the exponential, KS and D_z = sum k dz (2m each)
         per direction (``all_pairs``: over the n^2 ordered pairs and one
         direction, as it was counted before the triangle); its wide
-        instance (``phi_rbf_wide``, m > 64) the JAX kernel's form, the dot
+        instance (``phi_rbf_wide``, float32 at every m but 1-8 and 11) the
+        JAX kernel's form, the dot
         x_i . y_j (2m) and q_i + q_j - 2G (3), with the same exponential
         and contractions, and it reads the operand Y = X P_sym/2 and the
         norms q besides;
@@ -300,9 +301,10 @@ def square_tensor_bound(n, m, T=3, n_terms=None, n_t=None, bf16=False):
 def tri_tensor_bound(n, m, T=3, n_terms=None, pairs=None, n_aniso=0,
                      fixed_p=False, bf16=False):
     """(bound_ms, bound_by) of a triangle kernel's function with the work
-    its wide body (m > 64: csrc/wide_tri_sm90.cuh) puts on the TF32 tensor
-    cores: per unordered pair (``pairs``, the whole triangle n(n + 1)/2 by
-    default) the Gram product (2m) and both directions' contractions,
+    its wide body (csrc/wide_tri_sm90.cuh: every m but 1-8 and 11) puts on
+    the TF32 tensor cores: per unordered pair (``pairs``, the whole
+    triangle n(n + 1)/2 by default) the Gram product (2m) and both
+    directions' contractions,
     W [S | X] and W^T [S | X] (2 x 4m), at PEAK_TF32_FLOPS; the rest at
     the FP32 peak: sq and its clamp (4), the weights (one RBF, ``n_terms``
     None: 2; else 6 a term), T compares and the D weight's row and column

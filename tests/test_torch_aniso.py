@@ -471,14 +471,15 @@ def test_workload_is_the_scripts_draws():
 
 
 @pytest.mark.parametrize("m,n_aniso,entry", [
-    (2, 1, "one_pass"), (5, 1, "one_pass"), (32, 1, "one_pass"),
+    (2, 1, "one_pass"), (5, 1, "one_pass"), (32, 1, "groups"),
     (33, 1, "groups"), (50, 1, "groups"), (11, 2, "groups"),
 ])
 def test_aniso_wrapper_picks_the_one_pass_kernel_up_to_32(monkeypatch, m,
                                                           n_aniso, entry):
-    """On a CUDA tensor one anisotropic term up to ONE_PASS_MAX_M launches
-    the one-pass entry, anything else the term-group one (a stand-in
-    library; meta tensors stand in for the card)."""
+    """On a CUDA tensor one anisotropic term where sym_plan.aniso_one_pass
+    holds launches the one-pass entry, anything else the term-group one (a
+    stand-in library; meta tensors stand in for the card), which takes the
+    rows' padded width where its wide kernels run (m = 33: 36, 50: 52)."""
     launched = []
 
     class Library:
@@ -501,5 +502,6 @@ def test_aniso_wrapper_picks_the_one_pass_kernel_up_to_32(monkeypatch, m,
     cuda_phi.phi_rbf_aniso_terms_fused_cuda(
         x, x, [torch.empty((), device="meta")], (1.0,), None,
         (1.0,) * n_aniso, thr, lowers=lowers)
-    assert launched == [(entry, m)]
+    width = {33: 36, 50: 52}.get(m, m) if entry == "groups" else m
+    assert launched == [(entry, width)]
     cuda_phi.reset_launch_counts()

@@ -271,7 +271,8 @@ def test_mid_width_wrappers_pad_the_triangles(monkeypatch, m):
     wide_row_width(m) and allocate the (2 x width, n) accumulator, return
     phi (or the chunk's accumulator) of m columns and count one launch
     each; K1 and K6/K7 keep m itself up to 64 (their tensor-core
-    instances), as do K14's term groups."""
+    instances); K14's term groups take the padded width too (their wide
+    kernels)."""
     calls, shapes = [], []
     _stand_in(monkeypatch, calls)
     real = torch.zeros
@@ -328,7 +329,7 @@ def test_mid_width_wrappers_pad_the_triangles(monkeypatch, m):
     lowers = torch.eye(m, dtype=torch.float64)[None]
     x_c = torch.zeros((n, m))
     got = cuda_phi.aniso_group_operands(x_c, torch.zeros((n, m)), lowers)
-    assert got[3] == m and tuple(got[0].shape) == (n, m)
+    assert got[3] == width and tuple(got[0].shape) == (n, width)
     cuda_phi.reset_launch_counts()
 
 
