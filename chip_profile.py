@@ -16,6 +16,7 @@
     python3 chip_profile.py --wide-panel [--out PATH]
     python3 chip_profile.py --mid-width [PARENT_DIR] [--out PATH]
     python3 chip_profile.py --mid-p PARENT_DIR [--out PATH]
+    python3 chip_profile.py --mid-panel PARENT_DIR [--out PATH]
 
 Drives one configuration of svgdcpp_tpu_torch at its full width:
 
@@ -202,6 +203,18 @@ event of the port's kernels a call, sym_eigen and K16 included) and
 wrapper ms, each call's distance from float64 and each tree's K14 and
 K15 instances' registers and spill (default output
 ``chiprun_out/mid_p.json``).
+
+``--mid-panel PARENT_DIR`` runs ``mid_panel`` alone: K3 (T = 3), K5 at
+world 1 and K12/K13 (two terms) with the panel forced at n = 10,000 and
+32,768 and m = 9, 10, 11, 12, 16, 17, 32, 33, 54 and 64 (``MID_PANEL_MS``),
+m = 11 also at n = 65,536 and 131,072, then the d = 11 switch (K3's panel
+against K2's full-width triangle at m = 11, n = 32,768 to 262,144,
+``MID_PANEL_SWITCH_NS``), in the tree PARENT_DIR (a ``git archive`` of
+the parent commit, which builds its own csrc/) and in this one, one
+process each, parent, change, change, parent: kernel-only us and wrapper
+ms, each call's distance from float64 at n = 10,000 and each build's panel
+instances' registers and spill (default output
+``chiprun_out/mid_panel.json``).
 
 ``--wide-drift`` runs ``wide_drift`` alone, with no driver profile: how
 far the float32 routes move from float64 at d = 123 and N = 10,000 in
@@ -4513,6 +4526,172 @@ def mid_p_main(args) -> int:
     return 0
 
 
+#: --mid-panel's readings: K3 (T = 3), K5 at world 1 and K12/K13 (two
+#: terms) with the panel forced at MID_PANEL_NS x MID_PANEL_MS (the widths
+#: whose float32 panels the change moves: m = 11 for K3/K5 to the
+#: micro-tile body, the mid widths to the wide entries; K12/K13 at m = 11
+#: unmoved, a control), and m = 11 also at MID_PANEL_M11_NS; then the d = 11
+#: switch, K3 (the panel, auto's form from 45,057 particles) against K2
+#: (the full-width triangle) at m = 11 and MID_PANEL_SWITCH_NS. phi's
+#: distance from float64 at n = MID_PANEL_CHECK_N only.
+MID_PANEL_MS = (9, 10, 11, 12, 16, 17, 32, 33, 54, 64)
+MID_PANEL_NS = (10000, 32768)
+MID_PANEL_M11_NS = (65536, 131072)
+MID_PANEL_SWITCH_NS = (32768, 45056, 65536, 131072, 262144)
+MID_PANEL_CHECK_N = 10000
+
+#: --mid-panel's child, run in one tree (its cwd), through what both trees
+#: share (the public wrappers; chip_smoke's grid_inputs, kernel_us and
+#: time_ms): each reading on grid inputs, kernel-only us (chip_smoke.
+#: kernel_us over 3 calls, one event a call of the named kernel), the
+#: wrapper's ms (chip_smoke.time_ms, the median of 5), phi's distance from
+#: the float64 plain version (relative to its max |phi|) and the counts'
+#: difference from it where checked, and the launch counter that moved;
+#: with the tree's build seconds and the ptxas lines of its panel
+#: instances.
+MID_PANEL_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from svgdcpp_tpu_torch.ops import cuda_phi
+from svgdcpp_tpu_torch.ops.phi import (phi_rbf_fused_counts,
+                                       phi_rbf_fused_sym_finish,
+                                       phi_rbf_terms_fused_counts)
+dev = torch.device("cuda")
+cfg = json.loads(sys.argv[1])
+t0 = time.perf_counter()
+cuda_phi.load_library()
+build_s = time.perf_counter() - t0
+log = cuda_phi.build_log_path()
+ptxas = cs.ptxas_summary(log.read_text() if log.exists() else "")
+rows = []
+
+def reading(label, n, m, fn, name, want):
+    cuda_phi.reset_launch_counts()
+    got = fn()
+    torch.cuda.synchronize()
+    row = {"kernel": label, "n": n, "m": m,
+           "launches": {k: v for k, v in cuda_phi.launch_counts.items()
+                        if v}}
+    if want is not None:
+        ref = want()
+        row["phi_rel_err"] = float((got[0].double() - ref[0]).abs().max()
+                                   / ref[0].abs().max())
+        row["count_diff"] = int((got[1] - ref[1]).abs().max())
+    row["kernel_us"] = cs.kernel_us(fn, name, calls=3, per_call=1)
+    row["wrapper_ms"] = cs.time_ms(fn, reps=5, warmup=1)
+    rows.append(row)
+    print(json.dumps(row), flush=True)
+
+def panels(n, m, check):
+    x, s, g, thr = cs.grid_inputs(n, m, 0.0, 520 + m, dev)
+    x64, s64, thr64 = x.double(), s.double(), thr.double()
+    one = (lambda: phi_rbf_fused_counts(x64, s64, g.double(), thr64)
+           ) if check else None
+    reading("K3", n, m,
+            lambda: cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym="panel"),
+            "fused_phi_counts_sympanel", one)
+
+    def k5():
+        acc, upper = cuda_phi.phi_rbf_sympanel_chunk_cuda(x, s, g, thr, 1, 0)
+        return phi_rbf_fused_sym_finish(acc, s, g, n), 2 * upper - n
+    reading("K5 world 1", n, m, k5, "fused_phi_counts_sympanel_chunk", one)
+    gs, signs = [g, 0.5 * g], (1.0, 1.0)
+    reading("K12/K13 two terms", n, m,
+            lambda: cuda_phi.phi_rbf_terms_fused_cuda(x, s, gs, signs, thr,
+                                                      sym="panel"),
+            "fused_phi_terms_sympanel",
+            (lambda: phi_rbf_terms_fused_counts(
+                x64, s64, [v.double() for v in gs], signs, thr64))
+            if check else None)
+
+for n in cfg["ns"]:
+    for m in cfg["ms"]:
+        panels(n, m, n == cfg["check_n"])
+for n in cfg["m11_ns"]:
+    panels(n, 11, False)
+for n in cfg["switch_ns"]:
+    x, s, g, thr = cs.grid_inputs(n, 11, 0.0, 530, dev)
+    reading("switch K3 panel", n, 11,
+            lambda: cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym="panel"),
+            "fused_phi_counts_sympanel", None)
+    reading("switch K2 triangle", n, 11,
+            lambda: cuda_phi.phi_rbf_fused_cuda(x, s, g, thr, sym=True),
+            "fused_phi_counts_sym_kernel", None)
+inst = {k: v for k, v in ptxas.items() if "sympanel" in k}
+print(json.dumps({"build_s": build_s, "ptxas": inst, "rows": rows}),
+      flush=True)
+"""
+
+
+def mid_panel(parent: Path) -> dict:
+    """--mid-panel DIR: MID_PANEL_CHILD in the tree DIR (the parent's
+    checkout, which builds its own csrc/), in this one, in this one and in
+    DIR, one process each (parent, change, change, parent); then, for each
+    reading, the parent's and the change's kernel-only us and wrapper ms
+    side by side (each the mean of its tree's two runs), their ratio and
+    each tree's largest distance from float64."""
+    cfg = json.dumps({"ns": list(MID_PANEL_NS), "ms": list(MID_PANEL_MS),
+                      "m11_ns": list(MID_PANEL_M11_NS),
+                      "switch_ns": list(MID_PANEL_SWITCH_NS),
+                      "check_n": MID_PANEL_CHECK_N})
+    runs = []
+    for label, tree in (("parent", parent), ("change", ROOT),
+                        ("change", ROOT), ("parent", parent)):
+        proc = subprocess.run(
+            [sys.executable, "-c", MID_PANEL_CHILD, cfg], cwd=tree,
+            capture_output=True, text=True, timeout=2400)
+        if proc.returncode:
+            raise RuntimeError(f"--mid-panel in {tree}:\n"
+                               f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+        run = {"tree": label, **json.loads(proc.stdout.strip()
+                                           .splitlines()[-1])}
+        runs.append(run)
+        print(json.dumps({"tree": label, "build_s": run["build_s"],
+                          "ptxas": run["ptxas"]}), flush=True)
+    table = []
+    for i, row in enumerate(runs[0]["rows"]):
+        def mean(tree, key):
+            vals = [r["rows"][i].get(key) for r in runs if r["tree"] == tree]
+            return None if None in vals else sum(vals) / len(vals)
+        step = {"kernel": row["kernel"], "n": row["n"], "m": row["m"]}
+        for key in ("kernel_us", "wrapper_ms"):
+            p_val, c_val = mean("parent", key), mean("change", key)
+            step[f"parent_{key}"], step[f"change_{key}"] = p_val, c_val
+            step[f"{key}_change_over_parent"] = (
+                None if not p_val or c_val is None else c_val / p_val)
+        for tree in ("parent", "change"):
+            mine = [r["rows"][i] for r in runs if r["tree"] == tree]
+            errs = [r.get("phi_rel_err") for r in mine]
+            step[f"{tree}_phi_rel_err"] = (None if None in errs
+                                           else max(errs))
+            cnts = [r.get("count_diff") for r in mine]
+            step[f"{tree}_count_diff"] = (None if None in cnts
+                                          else max(cnts))
+        table.append(step)
+        print(json.dumps(step), flush=True)
+    return {"runs": runs, "table": table}
+
+
+def mid_panel_main(args) -> int:
+    """--mid-panel: mid_panel's rows, JSON to --out."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    card = card_name()
+    print(card)
+    result = {"card": card, "mid_panel": mid_panel(Path(args.mid_panel))}
+    out = Path(args.out or "chiprun_out/mid_panel.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(card)
+    return 0
+
+
 def bf16_parity(device):
     """--bf16-parity: how far K1's bf16 result moves with the order of the
     sums that form sq. The flat BLR driver (N = 1000, d = 50, the bf16
@@ -5355,6 +5534,10 @@ def main() -> int:
                         help="time the float32 triangles at the mid widths "
                              "(in the parent tree DIR and in this one when "
                              "DIR is given) and the forms there")
+    parser.add_argument("--mid-panel", default=None, metavar="DIR",
+                        help="time the panels K3/K5 and K12/K13 at m = 11 "
+                             "and the mid widths in the parent tree DIR "
+                             "and this one, and the d = 11 switch")
     parser.add_argument("--mid-p", default=None, metavar="DIR",
                         help="time K14's groups and K15 at the mid widths "
                              "in the parent tree DIR and this one")
@@ -5400,6 +5583,8 @@ def main() -> int:
         return mid_width_main(args)
     if args.mid_p:
         return mid_p_main(args)
+    if args.mid_panel:
+        return mid_panel_main(args)
     if args.wrapper_ab:
         return wrapper_ab_main(args)
     if args.square_wide_breakdown:

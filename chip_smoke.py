@@ -368,6 +368,29 @@ forty-nine phases, one line each (several for phases 2, 3, 7-9 and
      m = 1-130, the wide instances' 0 bytes of spill, and no K15 square
      sweep, no term-group instance past the micro widths and no one-pass
      instance past the rule in the build.
+ 50. the panels at every float32 width on a body designed for the card
+     (phase_mid_panel; sizes in MID_PANEL_*): K3/K5 at m = 11 (one RBF) on
+     the micro-tile body, whose column sums rotate between lanes there,
+     and K3/K5 and K12/K13 at m = 9, 10 and 12-64 on their wide entries
+     (wide_tri_sm90.cuh's body over the panel list's tile pairs). 50a K3
+     (T = 3 and 5), K5 summed over worlds 1, 2 and 4, and K12/K13 (two
+     and three terms, a negative sign, T = 3 and 5; not at m = 11) at
+     m = 9, 10, 11, 12, 16, 17, 32, 33, 54 and 64, n = 10,000 and the
+     edges 1, 127, 129, 2047 and 10007, grid inputs, each call within
+     1e-5 of max |phi| from float64, counts equal to both plain versions';
+     50b the aniso script's d = 11 target (N = 131,072) under the
+     flagship's kernel on auto (K3 at m = 11 only: the JAX decision takes
+     the panel from 45,057 particles), its first and last calls against
+     float64 and the route within 1e-3 of the full-width triangle's (K2),
+     the same target on the engine with one NCCL rank (K5 only), within
+     1e-3 of the driver; phase 45's forced-panel paths at Covertype's
+     width (flat BLR d = 54, hier m = 55, the engine's MVN d = 54; N =
+     10,000, 20 steps), each call against float64 within 1e-5, each route
+     within 1e-3 of float64 and of the full-width triangle; 50c the
+     library's svgd_panel_tile128 against sym_plan.panel_tile128 at
+     m = 1-130, every panel instance at 0 bytes of spill and none of the
+     micro-tile body past MM = 11. The phase's seconds and the whole
+     run's are printed.
 
 Phase 22 prints the N = 1,048,576 set-up (the median seed, now through
 K16) beside the 239.40 s the plain count pass took.
@@ -2561,6 +2584,22 @@ class CallGate:
         return len(self.calls), worst_rel, worst_cnt
 
 
+def panel_chunk_finish(out, args):
+    """(phi, counts) in float64 of a raw panel chunk call's output ``out``
+    (acc, upper) on its arguments (coords, scores, gamma, ...), finished
+    as the engine finishes the sum over its ranks (one rank here)."""
+    import torch
+
+    from svgdcpp_tpu_torch.ops.phi import phi_rbf_fused_sym_finish
+
+    c, s, g = args[0], args[1], args[2]
+    acc, upper = out
+    return (phi_rbf_fused_sym_finish(acc.double(), s.double(),
+                                     torch.as_tensor(g).double(),
+                                     c.shape[0]),
+            2 * upper - c.shape[0])
+
+
 def phase_wide_panel_paths(dev, card, clock):
     """Phase 45b: the main paths with fused_sym="panel" past m = 64, at
     full width, COMPARE_STEPS steps each: the flat BLR driver at
@@ -2576,10 +2615,7 @@ def phase_wide_panel_paths(dev, card, clock):
 
     import svgdcpp_tpu_torch.parallel.sharded as sharded_module
     from svgdcpp_tpu_torch.ops import cuda_phi
-    from svgdcpp_tpu_torch.ops.phi import (
-        phi_rbf_fused_sym_finish,
-        phi_rbf_sympanel_chunk_counts,
-    )
+    from svgdcpp_tpu_torch.ops.phi import phi_rbf_sympanel_chunk_counts
     from svgdcpp_tpu_torch.parallel import initialize_distributed
     from svgdcpp_tpu_torch.utils.workloads import (
         blr_workload,
@@ -2660,14 +2696,8 @@ def phase_wide_panel_paths(dev, card, clock):
             c.double(), s.double(), g.double(), thr.double(), world, rank)
         return acc, upper
 
-    def finish(out_, args):
-        c, s, g = args[0], args[1], args[2]
-        acc, upper = out_
-        return (phi_rbf_fused_sym_finish(acc.double(), s.double(),
-                                         g.double(), c.shape[0]),
-                2 * upper - c.shape[0])
     kept, rel, dcnt = gate.held("phase 45b engine", plain64, WIDE_PHI_GATE,
-                                finish)
+                                panel_chunk_finish)
     print(f"phase 45b engine N={n} m={d} one NCCL rank fused_sym=panel "
           f"{COMPARE_STEPS} steps: ok kernel={kernel} launches="
           f"{json.dumps(counts)} ms_per_step={ms:.4f} (host clock, synced); "
@@ -3801,7 +3831,7 @@ def phase_mid_width_forms(dev, card, clock, errs):
     and 43b hold them: K1's 3xTF32 square body stands 2.1e-4 from
     float64 at (32768, 33) on an H100; counts equal),
     kernel-only us (kernel_us; None where the trace stayed short) and
-    wrapper ms (CUDA events, median of 5). The card's rule takes the
+    wrapper ms (CUDA events, median of 50). The card's rule takes the
     triangle where the wide body runs it only where it beats the form the
     JAX rule picks, so resolve_sym(None, ...) must pick, of the triangle
     and the JAX rule's form, one within WIDE_SYM_TIE of the faster by the
@@ -3855,7 +3885,9 @@ def phase_mid_width_forms(dev, card, clock, errs):
             # The kernel's events (the square form's finishing pass too).
             us = kernel_us(call, kernel, calls=3,
                            per_call=2 if form is False else 1)
-            ms = time_ms(call, reps=5, warmup=1)
+            # The median of 50: the panel runs within a few percent of the
+            # triangle here, and a median of 5 moved by 15% between runs.
+            ms = time_ms(call)
             launched = {k: v for k, v in cuda_phi.launch_counts.items() if v}
             check(set(launched) == {kernel},
                   f"phase 48e ({n}, {m}) {form!r}: launches {launched}")
@@ -4299,6 +4331,448 @@ def phase_mid_p(dev, card, clock, ptxas, errs):
     phase_mid_p_rules(ptxas, clock)
     phase_mid_p_kernels(dev, card, clock, errs)
     return phase_mid_p_paths(dev, card, clock)
+
+
+#: Phase 50: the panels K3/K5 and K12/K13 at every float32 width on a body
+#: designed for the card: K3/K5 at m = 11 (one RBF) on the micro-tile body,
+#: whose column sums rotate between lanes there (the terms kernel's m = 11
+#: layout), and K3/K5 and K12/K13 at m = 9, 10 and 12-64 on their wide
+#: entries (wide_tri_sm90.cuh's body over the panel list's tile pairs, the
+#: rows padded to a multiple of 4, the plan of 128 multiples). 50a: each
+#: call at MID_PANEL_MS x MID_PANEL_NS on grid inputs; 50b: the paths at
+#: full width (MID_PANEL_D11_N particles of the aniso script's d = 11
+#: target on auto, which takes the panel there, and Covertype's width with
+#: the panel forced); 50c: the width rule and the build.
+MID_PANEL_MS = (9, 10, 11, 12, 16, 17, 32, 33, 54, 64)
+MID_PANEL_NS = (10000, 1, 127, 129, 2047, 10007)
+MID_PANEL_WORLDS = (1, 2, 4)
+MID_PANEL_D11_N = 131072
+#: The panels' instances in the build: the micro-tile body's at m = 2, the
+#: runtime m <= 8 and 11 (kT 3 or 8; the terms kernel two terms or any
+#: count), and the wide entries'.
+MID_PANEL_INSTANCES = (
+    tuple(f"{k}<{mm},{ex},{kt}>" for k in ("counts_sympanel",
+                                            "counts_sympanel_chunk")
+          for mm, ex in ((2, 1), (8, 0), (11, 1)) for kt in (3, 8))
+    + tuple(f"terms_sympanel<{mm},{ex},{kt},{nt}>"
+            for mm, ex in ((2, 1), (8, 0), (11, 1)) for kt in (3, 8)
+            for nt in (2, 0))
+    + tuple(i for inst in WIDE_PANEL_INSTANCES.values() for i in inst))
+
+
+def mid_panel_key(kernel, m):
+    """The kernels line's entry of a panel kernel's calls at width m: its
+    m = 11 instance (``<kernel>_m11``, the micro-tile body) or its wide
+    entries at the mid widths (``<kernel>_mid``)."""
+    return f"{kernel}_m11" if m == 11 else f"{kernel}_mid"
+
+
+def phase_mid_panel_kernels(dev, card, clock, errs):
+    """Phase 50a: K3 (T = 3 and, through the runtime-T instance, 5), K5's
+    chunks summed over every rank of MID_PANEL_WORLDS, and K12/K13 with two
+    terms and with three (a negative sign), each at T = 3 and 5 (not at
+    m = 11, whose terms instance did not move), at m = MID_PANEL_MS and
+    n = MID_PANEL_NS (the first n rows of at least 64 grid rows, whose
+    median needs pairs) on grid inputs: each call launches its kernel only,
+    its phi within MID_PHI_GATE of max |phi| from float64 and its counts
+    equal to both plain versions' (wide_held); its max |dphi| into
+    ``errs`` under mid_panel_key."""
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import (
+        phi_rbf_fused_counts,
+        phi_rbf_fused_sym_finish,
+        phi_rbf_terms_fused_counts,
+    )
+    from svgdcpp_tpu_torch.ops.sym_plan import (
+        card_panel_plan,
+        panel_chunk,
+        panel_tile128,
+    )
+
+    def f64(*ts):
+        return [t.double() for t in ts]
+
+    sp, t_sp = cuda_phi.SYMPANEL_KERNEL, cuda_phi.TERMS_SYMPANEL_KERNEL
+    k5 = cuda_phi.SYMPANEL_CHUNK_KERNEL
+    worst, calls = 0.0, 0
+
+    def held(label, kernel, m, call, want64, want32, launches=1):
+        nonlocal worst, calls
+        cuda_phi.reset_launch_counts()
+        got = call()
+        launched = {k: v for k, v in cuda_phi.launch_counts.items() if v}
+        check(launched == ({kernel: launches} if launches else {}),
+              f"phase 50a {label}: launches {launched}")
+        abs_err, rel = wide_held(f"50a {label}", got, want64, want32,
+                                 gate=MID_PHI_GATE)
+        key = mid_panel_key(kernel, m)
+        errs[key] = max(errs.get(key, 0.0), abs_err)
+        worst, calls = max(worst, rel), calls + 1
+
+    for m in MID_PANEL_MS:
+        for n in MID_PANEL_NS:
+            x, s, g, thr = grid_inputs(max(n, 64), m, 0.0, 5000 + n + m, dev)
+            x, s = x[:n].contiguous(), s[:n].contiguous()
+            for th in (thr, thresholds_of(thr, 5)):
+                want64 = phi_rbf_fused_counts(*f64(x, s, g, th))
+                want32 = phi_rbf_fused_counts(x, s, g, th)
+                held(f"K3 ({n}, {m}) T={th.shape[0]}", sp, m,
+                     lambda: cuda_phi.phi_rbf_fused_cuda(x, s, g, th,
+                                                         sym="panel"),
+                     want64, want32)
+                if th is not thr:
+                    continue
+                for world in MID_PANEL_WORLDS:
+                    # a rank whose chunk is empty launches nothing
+                    nb = card_panel_plan(n, None, panel_tile128(m))[0]
+                    busy = sum(1 for r in range(world)
+                               if panel_chunk(nb, world, r)[1])
+                    held(f"K5 ({n}, {m}) world={world}", k5, m,
+                         lambda: ranks_summed(
+                             lambda w, r: cuda_phi.phi_rbf_sympanel_chunk_cuda(
+                                 x, s, g, thr, w, r), world, n,
+                             lambda acc: phi_rbf_fused_sym_finish(acc, s, g,
+                                                                  n)),
+                         want64, want32, launches=busy)
+            if m == 11:
+                continue
+            for signs, gs in (((1.0, 1.0), [g, 0.5 * g]),
+                              ((1.0, -0.5, 1.0), [g, 0.5 * g, 2.0 * g])):
+                for th in (thr, thresholds_of(thr, 5)):
+                    held(f"K12/K13 ({n}, {m}) signs={signs} "
+                         f"T={th.shape[0]}", t_sp, m,
+                         lambda: cuda_phi.phi_rbf_terms_fused_cuda(
+                             x, s, gs, signs, th, sym="panel"),
+                         phi_rbf_terms_fused_counts(*f64(x, s), f64(*gs),
+                                                    signs, th.double()),
+                         phi_rbf_terms_fused_counts(x, s, gs, signs, th))
+        print(f"phase 50a m={m}: ok n = {list(MID_PANEL_NS)} within "
+              f"{worst:.3e} of max |phi| from float64 so far (gate "
+              f"{MID_PHI_GATE}), counts equal {clock()}")
+    print(f"phase 50a: ok {calls} calls (K3 T=3/5, K5 worlds "
+          f"{list(MID_PANEL_WORLDS)}, K12/K13 two and three terms T=3/5) at "
+          f"m = {list(MID_PANEL_MS)}, n = {list(MID_PANEL_NS)} within "
+          f"{worst:.3e} of max |phi| from float64, counts equal; "
+          f"max |dphi| {json.dumps(errs)} {card} {clock()}")
+
+
+def to64_call(fn):
+    """``fn`` with its float tensors (and lists of them) in float64."""
+    import torch
+
+    def cast(v):
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            return v.double()
+        if isinstance(v, (list, tuple)):
+            return type(v)(cast(u) for u in v)
+        return v
+    return lambda *args, **kwargs: fn(*cast(args),
+                                      **{k: cast(v) for k, v in
+                                         kwargs.items()})
+
+
+def phase_mid_panel_d11(dev, card, clock):
+    """Phase 50b at d = 11: the aniso script's target
+    (aniso_mvn_workload(MID_PANEL_D11_N, dim=11)) under the flagship's
+    kernel and optimizer (one median RBF, AdaGrad 0.1) on auto, which must
+    take the panel (the JAX decision at m = 11 from 45,057 particles) and
+    launch K3 only, for COMPARE_STEPS steps; its first and last sweep calls
+    held to their float64 plain version on the same inputs (CallGate,
+    MID_PHI_GATE; counts within REPLAY_COUNT_SLACK or 1e-6 n^2), its
+    coordinates within 1e-3 of the same driver forced to the full-width
+    triangle (K2); then the same target on ShardedSVGD with one NCCL rank
+    on auto, which must take the panel chunk (K5) only, its first and last
+    chunk calls held to the float64 plain chunk, within 1e-3 of the
+    driver. Returns {path: (launch counts, kernel, n, m, ms a step,
+    path_times on the first call)}; the kernels' errors are 50a's."""
+    import torch
+
+    import svgdcpp_tpu_torch.parallel.sharded as sharded_module
+    import svgdcpp_tpu_torch.svgd as driver_module
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import phi_rbf_sympanel_chunk_counts
+    from svgdcpp_tpu_torch.parallel import initialize_distributed
+    from svgdcpp_tpu_torch.utils.workloads import (
+        aniso_mvn_workload,
+        build_mvn_svgd,
+        build_sharded_mvn_svgd,
+    )
+
+    n, d = MID_PANEL_D11_N, 11
+    mean, cov, x0, _ = aniso_mvn_workload(n, dim=d)
+    sp, k5 = cuda_phi.SYMPANEL_KERNEL, cuda_phi.SYMPANEL_CHUNK_KERNEL
+    out = {}
+    finals = {}
+    # The full-width triangle first, so that the panel's ms a step is not
+    # the process's first run at this n.
+    for form in (True, None):
+        cuda_phi.reset_launch_counts()
+        svgd = build_mvn_svgd(torch.tensor(x0, device=dev), mean, cov,
+                              num_iterations=COMPARE_STEPS, fused_sym=form)
+        kernel = sp if form is None else cuda_phi.SYM_KERNEL
+        check(svgd._phi_impl == "fused_cuda"
+              and svgd.fused_sym_form == ("panel" if form is None else True),
+              f"phase 50b d=11 form={form!r}: route {svgd._phi_impl!r}, "
+              f"form {svgd.fused_sym_form!r}")
+        with CallGate(driver_module, "phi_rbf_fused_cuda",
+                      every=COMPARE_STEPS - 1) as gate:
+            cuda_phi.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            final = svgd.run().double()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / COMPARE_STEPS
+        counts = dict(cuda_phi.launch_counts)
+        check(bool(final.isfinite().all()) and tuple(final.shape) == (n, d),
+              f"phase 50b d=11 form={form!r}: bad output")
+        require_only(counts, kernel, COMPARE_STEPS,
+                     f"phase 50b d=11 form={form!r}")
+        finals[form] = final
+        if form is not None:
+            print(f"phase 50b d=11 N={n} forced full-width triangle: ok "
+                  f"kernel={kernel} launches={json.dumps(counts)} "
+                  f"ms_per_step={ms:.3f} {card} {clock()}")
+            continue
+        kept, rel, dcnt = gate.held(
+            "phase 50b d=11", to64_call(f64_sweep("phi_rbf_fused_cuda")),
+            MID_PHI_GATE)
+        args, kwargs, _ = gate.calls[0]
+        times = path_times(cuda_phi.phi_rbf_fused_cuda,
+                           f64_sweep("phi_rbf_fused_cuda"), sp,
+                           (args, kwargs))
+        panel = (counts, sp, n, d, ms, times)
+        panel_msg = (f"launches={json.dumps(counts)} ms_per_step={ms:.3f} "
+                     f"kernel_us={times['kernel_us']} wrapper_ms="
+                     f"{times['kernel']:.4f} plain_ms={times['plain']:.3f} "
+                     f"(the first call's inputs); calls {kept} (first and "
+                     f"last) against float64: max phi_rel={rel:.3e} (gate "
+                     f"{MID_PHI_GATE}) max count_diff={dcnt}")
+    diff = float((finals[None] - finals[True]).abs().max())
+    check(diff <= 1e-3, f"phase 50b d=11: the panel route stands {diff:.3e} "
+                        f"from the full-width triangle's after "
+                        f"{COMPARE_STEPS} steps")
+    print(f"phase 50b d=11 aniso target N={n} flagship kernel auto "
+          f"{COMPARE_STEPS} steps: ok form=panel kernel={sp} {panel_msg}; "
+          f"coords_max_abs_diff from the full-width triangle={diff:.3e} "
+          f"(gate 1e-3) {card} {clock()}")
+    out["d11"] = panel
+
+    group = initialize_distributed(f"tcp://localhost:{free_port()}", 1, 0)
+    check(group.backend == "nccl", f"one-rank group on {group.backend!r}")
+    eng = build_sharded_mvn_svgd(x0, mean, cov, group)
+    check(eng._fused_cuda and eng._fused_sym == "panel",
+          f"phase 50b d=11 engine: fused_cuda={eng._fused_cuda} fused_sym="
+          f"{eng._fused_sym!r}")
+    cuda_phi.reset_launch_counts()
+    with CallGate(sharded_module, "phi_rbf_sympanel_chunk_cuda",
+                  every=COMPARE_STEPS - 1) as gate:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = eng.run(x0, COMPARE_STEPS).double()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / COMPARE_STEPS
+    counts = dict(cuda_phi.launch_counts)
+    require_only(counts, k5, COMPARE_STEPS, "phase 50b d=11 engine")
+    diff = float((final - finals[None]).abs().max())
+    check(bool(final.isfinite().all()) and diff <= 1e-3,
+          f"phase 50b d=11 engine: {diff:.3e} from the driver")
+
+    kept, rel, dcnt = gate.held("phase 50b d=11 engine",
+                                to64_call(phi_rbf_sympanel_chunk_counts),
+                                MID_PHI_GATE, panel_chunk_finish)
+    args = gate.calls[0][0]
+    times = path_times(cuda_phi.phi_rbf_sympanel_chunk_cuda,
+                       phi_rbf_sympanel_chunk_counts, k5, (args, {}))
+    print(f"phase 50b d=11 engine N={n} one NCCL rank auto {COMPARE_STEPS} "
+          f"steps: ok fused_sym=panel kernel={k5} launches="
+          f"{json.dumps(counts)} ms_per_step={ms:.3f} kernel_us="
+          f"{times['kernel_us']} wrapper_ms={times['kernel']:.4f} plain_ms="
+          f"{times['plain']:.3f} (the first chunk call's inputs); chunk calls "
+          f"{kept} (first and last) against float64: max phi_rel={rel:.3e} "
+          f"(gate {MID_PHI_GATE}) max count_diff={dcnt}; vs the driver "
+          f"coords_max_abs_diff={diff:.3e} (gate 1e-3) {card} {clock()}")
+    out["d11_engine"] = (counts, k5, n, d, ms, times)
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def phase_mid_panel_paths(dev, card, clock):
+    """Phase 50b at Covertype's width (MID_N particles): phase 48's flat
+    BLR at d = MID_D (K3's wide entry) and hierarchical BLR at d = MID_D
+    (m = MID_D + 1, two terms: K12/K13's) with fused_sym="panel", each
+    COMPARE_STEPS steps, every sweep call of the float64 run replayed
+    through the kernel within MID_PHI_GATE (recorded_run, replay_gate), the
+    float32 route within 1e-3 of the float64 run and of the same driver on
+    the full-width triangle; the engine on a one-rank NCCL group on an MVN
+    at d = MID_D with fused_sym="panel" (K5's wide entry), every chunk
+    call held to its float64 plain chunk (CallGate), within 1e-3 of the
+    engine on the full-width triangle (fused_sym="full"). Returns {path:
+    (launch counts, kernel, n, m, ms a step, path_times at the path's
+    shape)}."""
+    import torch
+
+    import svgdcpp_tpu_torch.parallel.sharded as sharded_module
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import phi_rbf_sympanel_chunk_counts
+    from svgdcpp_tpu_torch.parallel import initialize_distributed
+    from svgdcpp_tpu_torch.utils.workloads import (
+        blr_workload,
+        build_blr_svgd,
+        build_sharded_mvn_svgd,
+    )
+
+    out = {}
+    n, d = MID_N, MID_D
+    for hier in (False, True):
+        m = d + 1 if hier else d
+        feats, labels, x0 = blr_workload(n, d, hierarchical=hier)
+        impl = "fused_terms_cuda" if hier else "fused_cuda"
+        kernel = (cuda_phi.TERMS_SYMPANEL_KERNEL if hier
+                  else cuda_phi.SYMPANEL_KERNEL)
+        wrapper = ("phi_rbf_terms_fused_cuda" if hier
+                   else "phi_rbf_fused_cuda")
+
+        def build(dt, form="panel", hier=hier, impl=impl, feats=feats,
+                  labels=labels, x0=x0):
+            return build_blr_svgd(torch.tensor(x0, dtype=dt, device=dev),
+                                  feats, labels, hierarchical=hier,
+                                  phi_impl=impl, fused_sym=form,
+                                  num_iterations=COMPARE_STEPS)
+        cuda_phi.reset_launch_counts()
+        svgd = build(torch.float32)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = svgd.run().double()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / COMPARE_STEPS
+        counts = dict(cuda_phi.launch_counts)
+        name = "hier" if hier else "flat_blr"
+        check(svgd.fused_sym_form == "panel" and bool(final.isfinite().all()),
+              f"phase 50b {name}: form {svgd.fused_sym_form!r}")
+        require_only(counts, kernel, COMPARE_STEPS, f"phase 50b {name}")
+        final64, calls = recorded_run(lambda: build(torch.float64), wrapper,
+                                      COMPARE_STEPS)
+        rel, dcnt = replay_gate(f"phase 50b {name}", wrapper, calls,
+                                gate=MID_PHI_GATE)
+        diff64 = float((final - final64).abs().max())
+        tri = build(torch.float32, form=True)
+        final_tri = tri.run().double()
+        diff_tri = float((final - final_tri).abs().max())
+        check(diff64 <= 1e-3 and diff_tri <= 1e-3,
+              f"phase 50b {name}: {COMPARE_STEPS} steps from the float64 "
+              f"run by {diff64:.3e}, from the full-width triangle by "
+              f"{diff_tri:.3e}")
+        times = path_times(getattr(cuda_phi, wrapper), f64_sweep(wrapper),
+                           kernel, calls[0])
+        print(f"phase 50b {name}_{d} N={n} m={m} {impl} fused_sym=panel "
+              f"{COMPARE_STEPS} steps: ok kernel={kernel} launches="
+              f"{json.dumps(counts)} ms_per_step={ms:.3f} kernel_us="
+              f"{times['kernel_us']} wrapper_ms={times['kernel']:.4f} "
+              f"plain_ms={times['plain']:.3f} (the first sweep call's "
+              f"inputs); per-call replay of the float64 run's {len(calls)} "
+              f"sweeps: max phi_rel={rel:.3e} (gate {MID_PHI_GATE}) max "
+              f"count_diff={dcnt}; coords_max_abs_diff from float64="
+              f"{diff64:.3e}, from the full-width triangle={diff_tri:.3e} "
+              f"(gate 1e-3) {card} {clock()}")
+        out[name] = (counts, kernel, n, m, ms, times)
+
+    group = initialize_distributed(f"tcp://localhost:{free_port()}", 1, 0)
+    check(group.backend == "nccl", f"one-rank group on {group.backend!r}")
+    mean, cov, x0 = wide_mvn(n, d, 500)
+    finals = {}
+    k5 = cuda_phi.SYMPANEL_CHUNK_KERNEL
+    for form in ("panel", "full"):
+        eng = build_sharded_mvn_svgd(x0, mean, cov, group, fused_sym=form)
+        check(eng._fused_cuda and eng._fused_sym == form,
+              f"phase 50b engine: fused_cuda={eng._fused_cuda} fused_sym="
+              f"{eng._fused_sym!r}")
+        cuda_phi.reset_launch_counts()
+        with CallGate(sharded_module, "phi_rbf_sympanel_chunk_cuda") as gate:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            finals[form] = eng.run(x0, COMPARE_STEPS).double()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / COMPARE_STEPS
+        counts = dict(cuda_phi.launch_counts)
+        if form == "panel":
+            panel = (counts, ms, gate)
+            require_only(counts, k5, COMPARE_STEPS, "phase 50b engine")
+    counts, ms, gate = panel
+    diff = float((finals["panel"] - finals["full"]).abs().max())
+    check(bool(finals["panel"].isfinite().all()) and diff <= 1e-3,
+          f"phase 50b engine: {diff:.3e} from the full-width triangle")
+
+    kept, rel, dcnt = gate.held("phase 50b engine",
+                                to64_call(phi_rbf_sympanel_chunk_counts),
+                                MID_PHI_GATE, panel_chunk_finish)
+    times = path_times(cuda_phi.phi_rbf_sympanel_chunk_cuda,
+                       phi_rbf_sympanel_chunk_counts, k5,
+                       (gate.calls[0][0], {}))
+    print(f"phase 50b engine N={n} m={d} one NCCL rank fused_sym=panel "
+          f"{COMPARE_STEPS} steps: ok kernel={k5} launches="
+          f"{json.dumps(counts)} ms_per_step={ms:.3f} kernel_us="
+          f"{times['kernel_us']} wrapper_ms={times['kernel']:.4f} plain_ms="
+          f"{times['plain']:.3f} (the first chunk call's inputs); each of "
+          f"its {kept} chunk calls against its float64 plain chunk: max "
+          f"phi_rel={rel:.3e} (gate {MID_PHI_GATE}) max count_diff={dcnt}; "
+          f"vs the engine on the full-width triangle coords_max_abs_diff="
+          f"{diff:.3e} (gate 1e-3) {card} {clock()}")
+    out["engine"] = (counts, k5, n, d, ms, times)
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def phase_mid_panel_rules(ptxas, clock):
+    """Phase 50c: the library's panel width rule (svgd_panel_tile128)
+    against sym_plan.panel_tile128 at m = 1-130; every panel instance in
+    the build (MID_PANEL_INSTANCES: the micro-tile body's at m = 2, 8 and
+    11 and the wide entries') at 0 bytes of spill; no other micro-tile
+    panel instance (none at MM = 16, 32 or 64) and no one-row-a-thread
+    panel body in the source."""
+    import re
+
+    from svgdcpp_tpu_torch.ops import cuda_phi, sym_plan
+    from svgdcpp_tpu_torch.utils.cuda_build import CSRC_DIR
+
+    lib = cuda_phi.load_library()
+    off = [m for m in range(1, 131)
+           if bool(lib.svgd_panel_tile128(m)) != sym_plan.panel_tile128(m)]
+    check(not off, f"phase 50c: svgd_panel_tile128 differs from "
+                   f"sym_plan.panel_tile128 at m = {off}")
+    report = {inst: ptxas.get(inst, "?") for inst in MID_PANEL_INSTANCES}
+    spilled = [inst for inst, text in report.items()
+               if not text.endswith(" 0 B spill")]
+    check(not spilled, f"phase 50c: panel instances spill or were not found "
+                       f"in the build log: "
+                       f"{ {i: report[i] for i in spilled} }")
+    stale = sorted(inst for inst in ptxas
+                   if (hit := re.match(r"(counts_sympanel|counts_sympanel_"
+                                       r"chunk|terms_sympanel)<(\d+),", inst))
+                   and int(hit.group(2)) not in (2, 8, 11))
+    check(not stale, f"phase 50c: panel instances past the micro widths "
+                     f"are built: {stale}")
+    source = (CSRC_DIR / "fused_phi_panel.cu").read_text()
+    check("sympanel_body" not in source,
+          "phase 50c: fused_phi_panel.cu keeps sympanel_body")
+    print(f"phase 50c: ok svgd_panel_tile128 equals sym_plan.panel_tile128 "
+          f"at m = 1-130 (the wide entries at m = 9, 10 and 12 up); ptxas "
+          f"{json.dumps(report)}; no micro-tile panel instance past MM = 11 "
+          f"and no sympanel_body {clock()}")
+
+
+def phase_mid_panel(dev, card, clock, ptxas):
+    """Phase 50 (see MID_PANEL_MS): 50c the rule and the build, 50a the
+    calls, 50b the paths. Returns ({entry: max |dphi|}, the paths of 50b
+    with their own times) for the kernels line."""
+    t0 = time.perf_counter()
+    errs = {}
+    phase_mid_panel_rules(ptxas, clock)
+    phase_mid_panel_kernels(dev, card, clock, errs)
+    paths = phase_mid_panel_d11(dev, card, clock)
+    paths.update(phase_mid_panel_paths(dev, card, clock))
+    print(f"phase 50: ok in {time.perf_counter() - t0:.1f} s {card} "
+          f"{clock()}")
+    return errs, paths
 
 
 def main() -> int:
@@ -5252,7 +5726,8 @@ def main() -> int:
     # -- phase 19: K3's port (the panel kernel) vs its plain version --------
     # T = 3 runs the kernel's fixed-T instance, T = 1 and 8 its runtime-T
     # one; m = 5 the runtime-m instance (MM = 8) of the micro-tile body, m =
-    # 11 the wide body. Ragged n, and every schedule has diagonal panels; at
+    # 11 its exact instance, whose column sums rotate between lanes. Ragged
+    # n, and every schedule has diagonal panels; at
     # m = 5 grid inputs make the plain version's Gram sq exact, so its counts
     # must be equal too.
     sympanel_err = 0.0
@@ -6697,6 +7172,9 @@ def main() -> int:
     # -- phase 49: K14's groups and K15 at the mid widths (m = 9-64) ----------
     main49 = phase_mid_p(dev, card, clock, ptxas, mid_p_errs)
 
+    # -- phase 50: the panels at m = 11 (one RBF) and the mid widths --------
+    mid_panel_errs, main50 = phase_mid_panel(dev, card, clock, ptxas)
+
     def main_path(phase, kernel, n, m, launches, times, **work):
         bound_ms, bound_by = sweep_bound(kernel, n, m, **work)
         path = {"phase": phase, "n": n, "m": m, "launches": launches,
@@ -6900,6 +7378,21 @@ def main() -> int:
             tri_tensor_bound(n49, m49, n_terms=1, n_aniso=1) if work
             else tri_tensor_bound(n49, m49, fixed_p=True))[0]
         paths[key] = [path]
+    # Phase 50's paths: K3 and K5 at m = 11 on the micro-tile body (the
+    # d = 11 target on auto at MID_PANEL_D11_N particles), and K3, K12/K13
+    # and K5 at Covertype's width on their wide entries (fused_sym="panel"),
+    # each timed on its own first call; entries of their own in the
+    # kernels line, the launches those of the kernels' counters in that run.
+    for counts, kernel, n50, m50, ms50, times in main50.values():
+        n_iso = 2 if kernel == t_sp else 1
+        path = main_path(50, kernel, n50, m50, counts[kernel], times,
+                         n_iso=n_iso)
+        path["kernel_us"] = times["kernel_us"]
+        path["ms_per_step"] = ms50
+        if m50 != 11:
+            path["tensor_bound_ms"] = tri_tensor_bound(
+                n50, m50, n_terms=2 if kernel == t_sp else None)[0]
+        paths[mid_panel_key(kernel, m50)] = [path]
     # Phase 46's paths: the bf16 instances (K15's has no driver route, as
     # in the JAX package: its launches are phase 46a's own calls).
     sq16, sym16 = cuda_phi.SQUARE_BF16_KERNEL, cuda_phi.SYM_BF16_KERNEL
@@ -6960,6 +7453,8 @@ def main() -> int:
     sym_chunk_err = max(sym_chunk_err, mid_errs[k4])
     terms_chunk_err = max(terms_chunk_err, mid_errs[k10])
     pallas = "svgdcpp_tpu/ops/pallas_phi.py"
+    print(f"chip_smoke: every phase ok in {clock()} (the build's "
+          f"{build_s:.1f} s included)")
     print(card)  # again beside the numbers, at the end of the output
     print(json.dumps({"kernels": [
         entry(sq, "fused_phi.cu", f"{pallas}:365", ["K1"], square_err),
@@ -6997,6 +7492,27 @@ def main() -> int:
               ["K10", "K11"], terms_chunk_err),
         entry(k5, "fused_phi_panel.cu", f"{pallas}:1555", ["K5"],
               panel_chunk_err),
+        # K3 and K5 at m = 11 on the micro-tile body, and K3, K12/K13 and
+        # K5 at the mid widths on their wide entries (phase 50; the errors
+        # phase 50a's).
+        entry(mid_panel_key(sp, 11), "fused_phi_panel.cu", f"{pallas}:860",
+              ["K3"], mid_panel_errs[mid_panel_key(sp, 11)],
+              body="micro_tile.cuh", counter=sp),
+        entry(mid_panel_key(k5, 11), "fused_phi_panel.cu",
+              f"{pallas}:1555", ["K5"], mid_panel_errs[mid_panel_key(k5, 11)],
+              body="micro_tile.cuh", counter=k5),
+        entry(mid_panel_key(sp, MID_D), "fused_phi_panel.cu",
+              f"{pallas}:860", ["K3"],
+              mid_panel_errs[mid_panel_key(sp, MID_D)],
+              body="wide_tri_sm90.cuh", counter=sp),
+        entry(mid_panel_key(t_sp, MID_D), "fused_phi_panel.cu",
+              f"{pallas}:2718 {pallas}:2925", ["K12", "K13"],
+              mid_panel_errs[mid_panel_key(t_sp, MID_D)],
+              body="wide_tri_sm90.cuh", counter=t_sp),
+        entry(mid_panel_key(k5, MID_D), "fused_phi_panel.cu",
+              f"{pallas}:1555", ["K5"],
+              mid_panel_errs[mid_panel_key(k5, MID_D)],
+              body="wide_tri_sm90.cuh", counter=k5),
         entry(k16, "count_le.cu", f"{pallas}:1839", ["K16"],
               float(count_err)),
         # The bfloat16 opt-in's instances (phase 46; the error against

@@ -241,7 +241,7 @@ struct Bf16TriWork {
 
 // K3's work list: the tile pairs of every panel, panel by panel in the
 // order of sym_plan.panel_pairs (decode_panel_item, sweep_common.cuh, which
-// the float32 panels past kMaxM share; sym_plan.bf16_panel_item mirrors it),
+// the float32 panels' wide entries share; sym_plan.bf16_panel_item mirrors it),
 // both directions into the (2m + 1, n) accumulator, as K2's: the panels'
 // windows, which the TPU's VMEM budget called for, would only be
 // scattered onto it (at (10000, 123) 91 MB of windows, past the card's

@@ -22,8 +22,9 @@
 //     each; the caller scatters the windows, sums the accumulators over the
 //     ranks and runs one epilogue.
 //
-// Layout. The particles are cut into nb super-blocks of W (a multiple of
-// 64; ops/sym_plan.card_panel_plan chooses them for the card, not for the
+// Layout at the micro widths (m = 1-8 and 11; the other widths below). The
+// particles are cut into nb super-blocks of W (a multiple of 64;
+// ops/sym_plan.card_panel_plan chooses them for the card, not for the
 // TPU's VMEM). Panel p is the super-block pair (I, J), I <= J, in the order
 // of sym_plan.panel_pairs: the off-diagonal pairs row by row, then the
 // diagonal ones, decoded here from p0 + blockIdx.y (p0 = 0 for the whole
@@ -46,83 +47,70 @@
 // ex2, 8 FMAs, a compare and an add per threshold); at m = 11, T = 3 with
 // two terms 91 (33 for sq, 8 for the terms, 44 FMAs, 6 for the counts).
 //
-// The micro-tile body: one RBF up to m = 8 (micro_panel_body; K3's and
-// K5's port).
+// The micro-tile body (micro_panel_body; K3's, K5's and K12/K13's port at
+// m = 1-8 and 11, the widths whose rows micro_tile.cuh keeps in registers:
+// MicroWidth, the micro-tile triangles' too).
 // A block of 4 warps owns a strip of 128 kRows rows of I (8 rows a thread
 // at m = 2) and sweeps all columns of J, 32 a chunk. Lane l of a warp holds
 // its rows' x, s and sums in registers and at step s of a chunk takes
 // column (l + s) mod 32, so the pair's value never leaves registers: it
 // feeds the rows' partials and the column's sums, the latter with -k d,
 // d = x_i - x_j computed once (IEEE subtraction is antisymmetric, so -d is
-// x_j - x_i exactly). The column sums are the warp's own records in shared
-// memory, read and written once per step for kRows pairs. Interior chunks
-// run without bounds or diagonal masks; only a chunk that crosses n, a strip
-// that does, or a chunk that meets the strip's rows on a diagonal panel
-// takes them. The counts are compare + predicated add per threshold at a
-// compile-time T (3, the fused path's edges; a runtime T <= 8 runs the
-// 8-threshold instance). Per chunk the block sums its warps' column records
-// in warp order and adds each column's 2m sums to half 1 with one float32
-// atomicAdd, and each thread adds its rows' chunk partials to their strip
-// totals (a two-level row sum, against one register across the strip);
-// operands and records are double-buffered, one barrier a chunk. The strip
-// totals go to half 0 with plain stores (the block is their only writer),
-// the counts through flush_counts' deterministic integer sums. phi's last
-// bits vary from run to run through the column atomics; the counts do not.
-// What the compiler makes of it (chip_profile.py --sass): at m = 2, T = 3
-// the unmasked step loop issues 22.5 instructions a pair and 3
-// shared-memory accesses per 8 pairs, where sympanel_body's instance issues
-// about 85 and 5 a pair (the row pass: bounds checks, 8 predicated compare+add
-// pairs for a runtime T, exp2f's range handling, the pair value to shared
-// memory; the column pass: the value back, x_i and s_i, the difference
-// again).
+// x_j - x_i exactly). Interior chunks run without bounds or diagonal
+// masks; only a chunk that crosses n, a strip that does, or a chunk that
+// meets the strip's rows on a diagonal panel takes them. The counts are
+// compare + predicated add per threshold at a compile-time T (3, the fused
+// path's edges; a runtime T <= 8 runs the 8-threshold instance). Per chunk
+// the block sums its warps' column records in warp order and adds each
+// column's 2m sums to half 1 with one float32 atomicAdd, and each thread
+// adds its rows' chunk partials to their strip totals (a two-level row
+// sum, against one register across the strip); operands and records are
+// double-buffered, one barrier a chunk. The strip totals go to half 0 with
+// plain stores (the block is their only writer), the counts through
+// flush_counts' deterministic integer sums. phi's last bits vary from run
+// to run through the column atomics; the counts do not. What the compiler
+// makes of it (chip_profile.py --sass): at m = 2, T = 3 the unmasked step
+// loop issues 22.5 instructions a pair and 3 shared-memory accesses per 8
+// pairs, where the one-row-a-thread body it replaced issued about 85 and 5
+// a pair.
 //
-// The terms kernel at m = 1-8 and 11 (K12/K13's port, replacing
-// _sym_panel_terms_direct_kernel, pallas_phi.py:2718, and
-// _sym_panel_terms_kernel, :2925) runs the same micro-tile body with the
-// pair's weights from its terms: k_c = sum_t s_t k_t for KS and
-// w = sum_t s_t gamma_t k_t for D, each k_t one ex2.approx.ftz, the terms'
-// constants -gamma_t log2(e), s_t and s_t gamma_t in registers for two
-// terms (the hierarchical BLR's kernel) and in shared memory for any other
-// count. At m = 11 a row's x, s, strip totals and chunk partials take 66
-// registers and a column's records 22 floats each, padded to 24. What
-// binds there is not FP32 issue alone: with 2 rows a thread a lane's 18
-// 16-byte shared accesses a step (its column's operands, and its sums read
-// and written) take about 72 of the shared-memory pipe's clocks a
-// warp-step, against about 45 of issue. Two ways out were measured on the
-// card (chip_profile.py; PERF.md section 6): 3 rows a thread, which
+// Up to m = 8 a column's sums live in the warp's shared records, read and
+// written once a step. The terms kernel's weights come from its terms:
+// k_c = sum_t s_t k_t for KS and w = sum_t s_t gamma_t k_t for D, each k_t
+// one ex2.approx.ftz, the terms' constants -gamma_t log2(e), s_t and
+// s_t gamma_t in registers for two terms (the hierarchical BLR's kernel)
+// and in shared memory for any other count; one RBF's are OneRbf's. At
+// m = 11 a row's x, s, strip totals and chunk partials take 66 registers
+// and a column's records 22 floats each, padded to 24. What binds there is
+// not FP32 issue alone: with 2 rows a thread a lane's 18 16-byte shared
+// accesses a step (its column's operands, and its sums read and written)
+// take about 72 of the shared-memory pipe's clocks a warp-step, against
+// about 45 of issue. Two ways out were measured on the card for the terms
+// kernel (chip_profile.py; PERF.md section 6): 3 rows a thread, which
 // spreads the same accesses over 3 pairs, and keeping the column's sums in
 // registers, passed one lane down after each step with __shfl_sync (the
 // lane rotation visits the columns in that order). At (131072, 11, two
 // terms, T = 3) on an NVIDIA H100 80GB HBM3 (700 W) the rotation took
 // 41.8-44.3 ms, 2 rows with records 46.2, and 3 rows with records spill
-// (255 registers, 104 B) and took 46.1-46.2, against 83.2-83.8 for
-// sympanel_body. So past m = 8 (kRotate) 2 rows a thread keep their
-// column's sums in registers: 22 shuffles and 6 16-byte shared reads a
-// step for 2 pairs, and after a chunk the warp writes its sums to its
-// records by plane, so that the block's atomics cover 32 consecutive
-// columns of one plane a warp. At m = 2 and 5 the records are faster
-// (41.7-42.0 and 39.6-39.8 ms against 44.0 and 41.2 at (262144, 2) and
-// (131072, 5), two terms) and stay. The m = 11 step loop then issues
-// about 109 instructions a pair (82 of them FP32) at 249 registers, 2
-// blocks an SM, and the kernel reaches about 66% of the card's issue
-// rate: it is bound by instruction issue with two warps a scheduler to
-// hide latency, not by shared memory or the special function unit.
+// (255 registers, 104 B) and took 46.1-46.2, against 83.2-83.8 for the
+// one-row-a-thread body. So past m = 8 (kRotate) 2 rows a thread keep
+// their column's sums in registers, for one RBF and for terms: 22 shuffles
+// and 6 16-byte shared reads a step for 2 pairs, and after a chunk the warp
+// writes its sums to its records by plane, so that the block's atomics
+// cover 32 consecutive columns of one plane a warp. At m = 2 and 5 the
+// records are faster (41.7-42.0 and 39.6-39.8 ms against 44.0 and 41.2 at
+// (262144, 2) and (131072, 5), two terms) and stay. The terms kernel's
+// m = 11 step loop then issues about 109 instructions a pair (82 of them
+// FP32) at 249 registers, 2 blocks an SM, and reaches about 66% of the
+// card's issue rate: it is bound by instruction issue with two warps a
+// scheduler to hide latency, not by shared memory or the special function
+// unit.
 //
-// The body for wider m (sympanel_body; one RBF at m > 8 and the terms
-// kernel at m = 9, 10 and 12-64, whose registers the micro-tile would
-// spill): one block of kTile threads owns a strip of kTile rows of I and
-// sweeps all columns of J in chunks of kTile; thread r keeps its row's 2m
-// sums and T counts in registers across the strip and stores them once at
-// the end. Per chunk the pair values go to a padded shared tile, thread r
-// then owns column j and flushes its 2m column sums with float32 atomicAdd
-// into half 1. On a diagonal panel a strip starts at its own chunk (the
-// chunks before it hold no pair j >= i) and masks j < i on it; the self
-// pairs enter both halves. Rows and columns past n are bounds checks.
-//
-// Past m = 64 (kMaxM) the bodies above would hold m values a row in
-// registers and spill, so the three kernels take entries of their own,
+// Every other m (panel_wide, the float32 triangles' tri_wide: m = 9, 10
+// and 12 up) would hold m values a row in registers and spill, so the
+// three kernels take entries of their own there,
 // svgd_fused_phi_counts_sympanel_wide, ..._chunk_wide and
-// svgd_fused_phi_terms_sympanel_wide, on the float32 wide triangles' body
+// svgd_fused_phi_terms_sympanel_wide, on the float32 triangles' body
 // (wide_tri_sm90.cuh's wide_tri_sm90_body: tiles of 128, persistent blocks
 // one an SM, a producer warp feeding a cp.async ring, 3xTF32 mma.sync, the
 // norms from the staged Gram slices; one weight tile for one RBF, 196,640
@@ -134,11 +122,12 @@
 // bf16 instance shares), the self pairs pinned on a diagonal panel's a == b
 // only, tiles wholly past n skipped, and flush both directions into the
 // (2m, n) accumulator [KS | D], as K2's wide instance does. The per-panel
-// windows of the bodies above, which the TPU's VMEM budget called for,
-// would only be scattered onto it: at (10000, 123) they took 91 MB, past
-// the card's 50 MB L2, and at N = 262,144 2.3 GB. The rows must pass
-// wide_rows_ok (16-byte aligned, m % 4 == 0: the wrapper pads them); the
-// old entries refuse m > 64.
+// windows, which the TPU's VMEM budget called for, would only be scattered
+// onto it: at (10000, 123) they took 91 MB, past the card's 50 MB L2, and
+// at N = 262,144 2.3 GB. The rows must pass wide_rows_ok (16-byte aligned,
+// m % 4 == 0: the wrapper pads them to sym_plan.wide_row_width, 12 at
+// m = 9 and 10, 56 at 54); the window entries refuse these widths, the
+// wide entries the micro widths.
 //
 // The bfloat16 opt-in's K3 instance (fused_phi_counts_sympanel_bf16, any
 // m) runs bf16_tri_sm90.cuh's body: persistent blocks walk the tile pairs
@@ -162,21 +151,6 @@ namespace {
 
 using namespace svgd;
 
-// Strip height and chunk width: 64 up to m = 16 (one term) or m = 12
-// (terms, which keep two pair tiles), 32 above, so the shared tiles stay
-// within 48 KB of static shared memory. Both divide the 64 that W is a
-// multiple of.
-template <int MM>
-struct CountsPanelTile {
-  static constexpr int value = MM <= 16 ? 64 : 32;
-};
-
-template <int MM, bool kTerms>
-struct PanelTile {
-  static constexpr int value =
-      kTerms ? SymTermsTile<MM>::value : CountsPanelTile<MM>::value;
-};
-
 constexpr int kPanelAlign = 64;  // sym_plan.CARD_PANEL_ALIGN
 
 // The super-blocks (I, J) of panel p of the list: the off-diagonal pairs
@@ -192,198 +166,23 @@ __device__ __forceinline__ void panel_blocks(int p, int nb, int* bi, int* bj) {
   }
 }
 
-template <int MM, bool kExact, bool kTerms>
-__device__ __forceinline__ void sympanel_body(
-    const float* __restrict__ coords, const float* __restrict__ scores,
-    const float* __restrict__ gammas, const TermSigns& signs, int nterms,
-    const float* __restrict__ thr, int n, int m_arg, int T, int nb, int w,
-    int p0, float* __restrict__ panels,
-    unsigned long long* __restrict__ counts) {
-  constexpr int kTile = PanelTile<MM, kTerms>::value;
-  __shared__ float sh_kc[kTile][kTile + 1];
-  __shared__ float sh_w[kTerms ? kTile : 1][kTile + 1];
-  __shared__ float sh_xi[kTile * MM];
-  __shared__ float sh_si[kTile * MM];
-  __shared__ float sh_xj[kTile * MM];
-  __shared__ float sh_sj[kTile * MM];
-  __shared__ float sh_g2[kMaxTerms];
-  __shared__ float sh_sn[kMaxTerms];
-  __shared__ float sh_sg[kMaxTerms];
-
-  const int m = kExact ? MM : m_arg;
-  const int p = static_cast<int>(blockIdx.y);  // the window
-  int bi, bj;
-  panel_blocks(p0 + p, nb, &bi, &bj);
-  const bool diag = bi == bj;
-  const int r = threadIdx.x;
-  const int li0 = static_cast<int>(blockIdx.x) * kTile;  // strip, local
-  const int gi0 = bi * w + li0;
-  const int gj_base = bj * w;
-  const int ncols = min(w, n - gj_base);
-  // Block-uniform: a strip or a super-block wholly past n has no pair.
-  if (gi0 >= n || ncols <= 0) return;
-
-  if (kTerms) {
-    load_terms(gammas, signs, nterms, sh_g2, sh_sn, sh_sg);
-  }
-  const float g2 = kTerms ? 0.0f : gammas[0] * kLog2e;
-  for (int e = r; e < kTile * m; e += kTile) {
-    const bool ok = gi0 + e / m < n;
-    sh_xi[e] = ok ? coords[static_cast<size_t>(gi0) * m + e] : 0.0f;
-    sh_si[e] = ok ? scores[static_cast<size_t>(gi0) * m + e] : 0.0f;
-  }
-  __syncthreads();
-
-  float th[kMaxT];
-#pragma unroll
-  for (int t = 0; t < kMaxT; ++t) th[t] = (t < T) ? thr[t] : 0.0f;
-
-  // Row direction: thread r owns particle i for the whole strip.
-  const int i = gi0 + r;
-  const bool row_ok = i < n;
-  float xi[MM];
-  float acc_s[MM];
-  float acc_d[MM];
-#pragma unroll
-  for (int k = 0; k < MM; ++k) {
-    xi[k] = (kExact || k < m) ? sh_xi[r * m + k] : 0.0f;
-    acc_s[k] = 0.0f;
-    acc_d[k] = 0.0f;
-  }
-  unsigned int cnt[kMaxT];
-#pragma unroll
-  for (int t = 0; t < kMaxT; ++t) cnt[t] = 0u;
-
-  const size_t plane = static_cast<size_t>(w);
-  float* half0 = panels + (static_cast<size_t>(p) * 2) * 2 * m * plane;
-  float* half1 = half0 + 2 * m * plane;
-  const int n_chunks = (ncols + kTile - 1) / kTile;
-  for (int c = diag ? static_cast<int>(blockIdx.x) : 0; c < n_chunks; ++c) {
-    const int lj0 = c * kTile;
-    const int gj0 = gj_base + lj0;
-    __syncthreads();  // the previous chunk's tiles are consumed
-    for (int e = r; e < kTile * m; e += kTile) {
-      const bool ok = gj0 + e / m < n;
-      sh_xj[e] = ok ? coords[static_cast<size_t>(gj0) * m + e] : 0.0f;
-      sh_sj[e] = ok ? scores[static_cast<size_t>(gj0) * m + e] : 0.0f;
-    }
-    __syncthreads();
-
-    // Pairs (i, j) of the chunk; on the diagonal chunk only j >= i.
-    const int jj_min = (diag && c == static_cast<int>(blockIdx.x)) ? r : 0;
-    for (int jj = 0; jj < kTile; ++jj) {
-      float kc = 0.0f;
-      float wv = 0.0f;
-      if (row_ok && gj0 + jj < n && jj >= jj_min) {
-        const float* xj = sh_xj + jj * m;
-        const float* sj = sh_sj + jj * m;
-        const float sq = pair_sq<MM, kExact>(xi, xj, m);
-        if (kTerms) {
-          combine_terms(sq, nterms, sh_g2, sh_sn, sh_sg, &kc, &wv);
-        } else {
-          kc = exp2f(-g2 * sq);
-          wv = kc;
-        }
-#pragma unroll
-        for (int k = 0; k < MM; ++k) {
-          if (kExact || k < m) {
-            acc_s[k] = fmaf(kc, sj[k], acc_s[k]);
-            acc_d[k] = fmaf(wv, __fsub_rn(xi[k], xj[k]), acc_d[k]);
-          }
-        }
-        count_pair(sq, th, T, cnt);
-      }
-      sh_kc[r][jj] = kc;
-      if (kTerms) sh_w[r][jj] = wv;
-    }
-    __syncthreads();  // the pair tile is complete
-
-    // Column direction: thread r owns column j of the chunk. Masked pairs
-    // hold 0.
-    const int lj = lj0 + r;
-    if (gj_base + lj < n) {
-      float xj[MM];
-      float col_s[MM];
-      float col_d[MM];
-#pragma unroll
-      for (int k = 0; k < MM; ++k) {
-        xj[k] = (kExact || k < m) ? sh_xj[r * m + k] : 0.0f;
-        col_s[k] = 0.0f;
-        col_d[k] = 0.0f;
-      }
-      for (int ii = 0; ii < kTile; ++ii) {
-        const float kc = sh_kc[ii][r];
-        const float wv = kTerms ? sh_w[ii][r] : kc;
-        const float* x_i = sh_xi + ii * m;
-        const float* s_i = sh_si + ii * m;
-#pragma unroll
-        for (int k = 0; k < MM; ++k) {
-          if (kExact || k < m) {
-            col_s[k] = fmaf(kc, s_i[k], col_s[k]);
-            col_d[k] = fmaf(wv, xj[k] - x_i[k], col_d[k]);
-          }
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < MM; ++k) {
-        if (kExact || k < m) {
-          atomicAdd(half1 + static_cast<size_t>(k) * plane + lj, col_s[k]);
-          atomicAdd(half1 + static_cast<size_t>(m + k) * plane + lj,
-                    col_d[k]);
-        }
-      }
-    }
-  }
-
-  // The strip's rows: this block is their only writer in this panel.
-  if (row_ok) {
-    const int li = li0 + r;
-#pragma unroll
-    for (int k = 0; k < MM; ++k) {
-      if (kExact || k < m) {
-        half0[static_cast<size_t>(k) * plane + li] = acc_s[k];
-        half0[static_cast<size_t>(m + k) * plane + li] = acc_d[k];
-      }
-    }
-  }
-  flush_counts(cnt, T, counts);
-}
-
 // ---------------------------------------------------------------------------
-// The micro-tile body: one RBF up to m = 8 (K3's and K5's port), and the
-// terms kernel (K12/K13's port) at m = 2, 1-8 and 11.
+// The micro-tile body: K3's, K5's and K12/K13's port at m = 1-8 and 11.
 // ---------------------------------------------------------------------------
 
-// The micro-tile body's shape for an instance of width MM, one RBF or
-// terms (kTerms). It serves one RBF up to MM = 8 and the terms kernel at
-// MM = 2, 8 and 11; wider instances keep sympanel_body, whose registers
-// the micro-tile would spill. A thread holds the coordinates, scores and
-// strip totals of kRows rows, and their chunk partials: 6 kRows MM
-// registers, 8 rows at MM = 2, 2 above (3 rows spill at MM = 11); a
-// column's records as micro_tile.cuh's MicroShape lays them out.
+// The micro-tile body's shape for an instance of width MM (2, 8 for a
+// runtime m <= 8, or 11), one RBF or terms (kTerms): a thread holds the
+// coordinates, scores and strip totals of kRows rows, and their chunk
+// partials: 6 kRows MM registers, 8 rows at MM = 2, 2 above (3 rows spill
+// at MM = 11); a column's records as micro_tile.cuh's MicroShape lays them
+// out, its sums rotating between lanes past MM = 8.
 template <int MM, bool kTerms>
 struct MicroPanel : MicroShape<MM, (MM <= 2 ? 8 : 2)> {
-  static constexpr bool enabled =
-      kTerms ? MM == 2 || MM == 8 || MM == 11 : MM <= 8;
+  static_assert(MicroWidth<MM>::value, "the panels' micro widths");
   static constexpr int kWarps = 4;
   static constexpr int kThreads = 32 * kWarps;
   static constexpr int kStrip =
       kThreads * MicroShape<MM, (MM <= 2 ? 8 : 2)>::kRows;  // rows of a block
-};
-
-// Block size and strip height of a panel kernel instance.
-template <int MM, bool kTerms>
-struct PanelThreads {
-  static constexpr int value = MicroPanel<MM, kTerms>::enabled
-                                   ? MicroPanel<MM, kTerms>::kThreads
-                                   : PanelTile<MM, kTerms>::value;
-};
-
-template <int MM, bool kTerms>
-struct PanelStrip {
-  static constexpr int value = MicroPanel<MM, kTerms>::enabled
-                                   ? MicroPanel<MM, kTerms>::kStrip
-                                   : PanelTile<MM, kTerms>::value;
 };
 
 // One block sweeps a strip of kStrip rows of super-block I against all
@@ -564,28 +363,21 @@ __device__ __forceinline__ void micro_panel_body(
   flush_counts(cnt, T, counts);
 }
 
-// The single-RBF kernels' body: the micro-tile body up to MM = 8 at kT
-// thresholds (3, or kMaxT for a runtime T), sympanel_body above.
+// The single-RBF kernels' body: the micro-tile body with OneRbf weights at
+// kT thresholds (3, or kMaxT for a runtime T).
 template <int MM, bool kExact, int kT>
 __device__ __forceinline__ void counts_sympanel(
     const float* __restrict__ coords, const float* __restrict__ scores,
     const float* __restrict__ gamma, const float* __restrict__ thr, int n,
     int m_arg, int T, int nb, int w, int p0, float* __restrict__ panels,
     unsigned long long* __restrict__ counts) {
-  if constexpr (MicroPanel<MM, false>::enabled) {
-    const OneRbf weights{-gamma[0] * kLog2e};
-    micro_panel_body<MM, kExact, kT, false>(coords, scores, weights, thr, n,
-                                            m_arg, T, nb, w, p0, panels,
-                                            counts);
-  } else {
-    const TermSigns none{};
-    sympanel_body<MM, kExact, false>(coords, scores, gamma, none, 1, thr, n,
-                                     m_arg, T, nb, w, p0, panels, counts);
-  }
+  const OneRbf weights{-gamma[0] * kLog2e};
+  micro_panel_body<MM, kExact, kT, false>(coords, scores, weights, thr, n,
+                                          m_arg, T, nb, w, p0, panels, counts);
 }
 
 template <int MM, bool kExact, int kT>
-__global__ void __launch_bounds__(PanelThreads<MM, false>::value)
+__global__ void __launch_bounds__(MicroPanel<MM, false>::kThreads)
     fused_phi_counts_sympanel_kernel(const float* __restrict__ coords,
                                      const float* __restrict__ scores,
                                      const float* __restrict__ gamma,
@@ -598,7 +390,7 @@ __global__ void __launch_bounds__(PanelThreads<MM, false>::value)
 }
 
 template <int MM, bool kExact, int kT>
-__global__ void __launch_bounds__(PanelThreads<MM, false>::value)
+__global__ void __launch_bounds__(MicroPanel<MM, false>::kThreads)
     fused_phi_counts_sympanel_chunk_kernel(
         const float* __restrict__ coords, const float* __restrict__ scores,
         const float* __restrict__ gamma, const float* __restrict__ thr, int n,
@@ -623,43 +415,39 @@ __global__ void __launch_bounds__(kBf16Threads, 1)
 
 // Launch of the single-RBF panel sweep over panels [p0, p0 + num_p) of the
 // list (p0 = 0 and the whole list for fused_phi_counts_sympanel): the
-// instance for T = 3 where the micro-tile body serves MM, else the one that
-// takes a runtime T.
+// instance for T = 3, else the one that takes a runtime T.
 template <int MM, bool kExact>
 void launch_counts_sympanel(bool chunk, const float* coords,
                             const float* scores, const float* gamma,
                             const float* thr, int n, int m, int T, int nb,
                             int w, int p0, unsigned int num_p, float* panels,
                             unsigned long long* counts, cudaStream_t s) {
-  constexpr int strip = PanelStrip<MM, false>::value;
-  const dim3 grid((w + strip - 1) / strip, num_p);
-  const int threads = PanelThreads<MM, false>::value;
+  using P = MicroPanel<MM, false>;
+  const dim3 grid((w + P::kStrip - 1) / P::kStrip, num_p);
   auto go = [&](auto kt) {
     constexpr int kT = decltype(kt)::value;
     if (chunk) {
       fused_phi_counts_sympanel_chunk_kernel<MM, kExact, kT>
-          <<<grid, threads, 0, s>>>(coords, scores, gamma, thr, n, m, T, nb,
-                                    w, p0, panels, counts);
+          <<<grid, P::kThreads, 0, s>>>(coords, scores, gamma, thr, n, m, T,
+                                        nb, w, p0, panels, counts);
     } else {
       fused_phi_counts_sympanel_kernel<MM, kExact, kT>
-          <<<grid, threads, 0, s>>>(coords, scores, gamma, thr, n, m, T, nb,
-                                    w, panels, counts);
+          <<<grid, P::kThreads, 0, s>>>(coords, scores, gamma, thr, n, m, T,
+                                        nb, w, panels, counts);
     }
   };
-  if constexpr (MicroPanel<MM, false>::enabled) {
-    if (T == 3) {
-      go(std::integral_constant<int, 3>{});
-      return;
-    }
+  if (T == 3) {
+    go(std::integral_constant<int, 3>{});
+  } else {
+    go(std::integral_constant<int, kMaxT>{});
   }
-  go(std::integral_constant<int, kMaxT>{});
 }
 
-// The terms kernel: the micro-tile body where it serves MM, at kT
-// thresholds (3, or kMaxT for a runtime T) and NTerms terms (a
-// compile-time count, or 0 for a runtime one); sympanel_body above.
+// The terms kernel: the micro-tile body at kT thresholds (3, or kMaxT for
+// a runtime T) and NTerms terms (a compile-time count, or 0 for a runtime
+// one).
 template <int MM, bool kExact, int kT, int NTerms>
-__global__ void __launch_bounds__(PanelThreads<MM, true>::value)
+__global__ void __launch_bounds__(MicroPanel<MM, true>::kThreads)
     fused_phi_terms_sympanel_kernel(const float* __restrict__ coords,
                                     const float* __restrict__ scores,
                                     const float* __restrict__ gammas,
@@ -668,11 +456,7 @@ __global__ void __launch_bounds__(PanelThreads<MM, true>::value)
                                     int m_arg, int T, int nb, int w,
                                     float* __restrict__ panels,
                                     unsigned long long* __restrict__ counts) {
-  if constexpr (!MicroPanel<MM, true>::enabled) {
-    sympanel_body<MM, kExact, true>(coords, scores, gammas, signs, nterms,
-                                    thr, n, m_arg, T, nb, w, 0, panels,
-                                    counts);
-  } else if constexpr (NTerms > 0) {
+  if constexpr (NTerms > 0) {
     const FixedTerms<NTerms> weights(gammas, signs);
     micro_panel_body<MM, kExact, kT, true>(coords, scores, weights, thr, n,
                                            m_arg, T, nb, w, 0, panels, counts);
@@ -688,51 +472,45 @@ __global__ void __launch_bounds__(PanelThreads<MM, true>::value)
   }
 }
 
-// Launch of the terms panel sweep: where the micro-tile body serves MM, the
-// instance for T = 3 or any T <= 8, each for two terms (the hierarchical
-// BLR's kernel) or any count; else sympanel_body's.
+// Launch of the terms panel sweep: the instance for T = 3 or any T <= 8,
+// each for two terms (the hierarchical BLR's kernel) or any count.
 template <int MM, bool kExact>
 void launch_terms_sympanel(const float* coords, const float* scores,
                            const float* gammas, const TermSigns& signs,
                            int nterms, const float* thr, int n, int m, int T,
                            int nb, int w, unsigned int num_p, float* panels,
                            unsigned long long* counts, cudaStream_t s) {
-  constexpr int strip = PanelStrip<MM, true>::value;
-  const dim3 grid((w + strip - 1) / strip, num_p);
-  const int threads = PanelThreads<MM, true>::value;
+  using P = MicroPanel<MM, true>;
+  const dim3 grid((w + P::kStrip - 1) / P::kStrip, num_p);
   auto go = [&](auto kt, auto nt) {
     fused_phi_terms_sympanel_kernel<MM, kExact, decltype(kt)::value,
                                     decltype(nt)::value>
-        <<<grid, threads, 0, s>>>(coords, scores, gammas, signs, nterms, thr,
-                                  n, m, T, nb, w, panels, counts);
+        <<<grid, P::kThreads, 0, s>>>(coords, scores, gammas, signs, nterms,
+                                      thr, n, m, T, nb, w, panels, counts);
   };
-  if constexpr (MicroPanel<MM, true>::enabled) {
-    auto terms = [&](auto kt) {
-      if (nterms == 2) {
-        go(kt, std::integral_constant<int, 2>{});
-      } else {
-        go(kt, std::integral_constant<int, 0>{});
-      }
-    };
-    if (T == 3) {
-      terms(std::integral_constant<int, 3>{});
+  auto terms = [&](auto kt) {
+    if (nterms == 2) {
+      go(kt, std::integral_constant<int, 2>{});
     } else {
-      terms(std::integral_constant<int, kMaxT>{});
+      go(kt, std::integral_constant<int, 0>{});
     }
+  };
+  if (T == 3) {
+    terms(std::integral_constant<int, 3>{});
   } else {
-    go(std::integral_constant<int, kMaxT>{},
-       std::integral_constant<int, 0>{});
+    terms(std::integral_constant<int, kMaxT>{});
   }
 }
 
 // ---------------------------------------------------------------------------
-// Past kMaxM: wide_tri_sm90.cuh's body over the panel list's tile pairs
-// (see the top of the file).
+// Every other m (panel_wide): wide_tri_sm90.cuh's body over the panel
+// list's tile pairs (see the top of the file).
 // ---------------------------------------------------------------------------
 
-// K3's and K5's float32 instance past kMaxM: one RBF, kT thresholds (3, or
-// kMaxT for a runtime T). The whole sweep and a rank's chunk run the same
-// body under two names, so a profiler trace tells them apart.
+// K3's and K5's float32 instance where panel_wide holds: one RBF, kT
+// thresholds (3, or kMaxT for a runtime T). The whole sweep and a rank's
+// chunk run the same body under two names, so a profiler trace tells them
+// apart.
 template <int kT>
 __global__ void __launch_bounds__(kWideSymThreads)
     fused_phi_counts_sympanel_wide_kernel(
@@ -755,8 +533,9 @@ __global__ void __launch_bounds__(kWideSymThreads)
                          m, T, work, acc, counts);
 }
 
-// K12/K13's float32 instance past kMaxM, with K8/K9's wide weights: two
-// terms in registers (NTerms = 2) or any count in shared memory (0).
+// K12/K13's float32 instance where panel_wide holds, with K8/K9's wide
+// weights: two terms in registers (NTerms = 2) or any count in shared
+// memory (0).
 template <int kT, int NTerms>
 __global__ void __launch_bounds__(kWideSymThreads)
     fused_phi_terms_sympanel_wide_kernel(
@@ -815,14 +594,15 @@ extern "C" {
 // Panel triangle sweep of one RBF. coords (n, m) centered, scores (n, m),
 // gamma (1,), thr (T,) float32 on the device; panels a zeroed float32
 // (nb (nb + 1) / 2, 2, 2m, w) buffer; counts a zeroed int64 (T,) buffer
-// that receives the upper count U (diagonal included). 1 <= m <= 64 (past
-// it svgd_fused_phi_counts_sympanel_wide), 1 <= T <= 8.
+// that receives the upper count U (diagonal included). m = 1-8 or 11 (the
+// other widths take svgd_fused_phi_counts_sympanel_wide), 1 <= T <= 8.
+// The window entries refuse the wide entries' widths (panel_wide).
 int svgd_fused_phi_counts_sympanel(const float* coords, const float* scores,
                                    const float* gamma, const float* thr,
                                    int n, int m, int T, int nb, int w,
                                    float* panels, long long* counts,
                                    void* stream) {
-  if (!plan_ok(n, nb, w) || T < 1 || T > kMaxT) {
+  if (!plan_ok(n, nb, w) || T < 1 || T > kMaxT || m < 1 || panel_wide(m)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -831,15 +611,15 @@ int svgd_fused_phi_counts_sympanel(const float* coords, const float* scores,
 #define SVGD_LAUNCH_SYMPANEL(MM_, EX_)                                  \
   launch_counts_sympanel<MM_, EX_>(false, coords, scores, gamma, thr, n, m, \
                                    T, nb, w, 0, num_p, panels, c, s);
-  SVGD_DISPATCH_M_2_11(m, SVGD_LAUNCH_SYMPANEL)
+  SVGD_DISPATCH_MICRO_2_11(m, SVGD_LAUNCH_SYMPANEL)
 #undef SVGD_LAUNCH_SYMPANEL
   return static_cast<int>(cudaGetLastError());
 }
 
-// K3's float32 instance past m = 64 (see the top of the file): coords,
-// scores, gamma, thr, n, T, nb and counts as
-// svgd_fused_phi_counts_sympanel's; m > 64 a multiple of 4, coords and
-// scores on 16-byte boundaries (wide_rows_ok: the wrapper pads the rows
+// K3's float32 instance where panel_wide holds (m = 9, 10 and 12 up; see
+// the top of the file): coords, scores, gamma, thr, n, T, nb and counts as
+// svgd_fused_phi_counts_sympanel's; m (the padded width) a multiple of 4
+// with panel_wide(m), coords and scores on 16-byte boundaries (wide_rows_ok: the wrapper pads the rows
 // with zero columns); w a multiple of 128 (sym_plan.card_panel_plan(...,
 // tile128=True)); acc a zeroed float32 (2m, n) accumulator that receives
 // [KS | D] of the whole triangle, as svgd_fused_phi_counts_sym's.
@@ -850,7 +630,7 @@ int svgd_fused_phi_counts_sympanel_wide(const float* coords,
                                         float* acc, long long* counts,
                                         void* stream) {
   if (!plan_ok(n, nb, w) || w % kWideSymTile ||
-      w / kWideSymTile > kPanelMaxTiles || m <= kMaxM || T < 1 ||
+      w / kWideSymTile > kPanelMaxTiles || !panel_wide(m) || T < 1 ||
       T > kMaxT || !wide_rows_ok(m, coords, scores)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -908,7 +688,7 @@ int svgd_fused_phi_counts_sympanel_bf16(const float* coords,
 // [p0, p0 + count) of the nb super-blocks' panel list, one window each in
 // panels, a zeroed float32 (count, 2, 2m, w) buffer; the arguments otherwise
 // as svgd_fused_phi_counts_sympanel's (coords and scores are the GLOBAL set,
-// centered on its mean; 1 <= m <= 64). counts receives this chunk's upper
+// centered on its mean; m = 1-8 or 11). counts receives this chunk's upper
 // count. count = 0 launches nothing.
 int svgd_fused_phi_counts_sympanel_chunk(const float* coords,
                                          const float* scores,
@@ -918,7 +698,7 @@ int svgd_fused_phi_counts_sympanel_chunk(const float* coords,
                                          long long* counts, void* stream) {
   const long long num_p = static_cast<long long>(nb) * (nb + 1) / 2;
   if (!plan_ok(n, nb, w) || T < 1 || T > kMaxT || p0 < 0 || count < 0 ||
-      p0 + static_cast<long long>(count) > num_p || m < 1 || m > kMaxM) {
+      p0 + static_cast<long long>(count) > num_p || m < 1 || panel_wide(m)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (count == 0) return static_cast<int>(cudaGetLastError());
@@ -929,12 +709,12 @@ int svgd_fused_phi_counts_sympanel_chunk(const float* coords,
                                    nb, w, p0,                                 \
                                    static_cast<unsigned int>(count), panels,  \
                                    c, s);
-  SVGD_DISPATCH_M_2_11(m, SVGD_LAUNCH_SYMPANEL_CHUNK)
+  SVGD_DISPATCH_MICRO_2_11(m, SVGD_LAUNCH_SYMPANEL_CHUNK)
 #undef SVGD_LAUNCH_SYMPANEL_CHUNK
   return static_cast<int>(cudaGetLastError());
 }
 
-// K5's float32 instance past m = 64: the tile pairs of panels
+// K5's float32 instance where panel_wide holds: the tile pairs of panels
 // [p0, p0 + count) of the list, the arguments otherwise as
 // svgd_fused_phi_counts_sympanel_wide's (coords and scores the GLOBAL set,
 // centered on its mean); acc, a zeroed (2m, n) accumulator, receives this
@@ -946,7 +726,7 @@ int svgd_fused_phi_counts_sympanel_chunk_wide(
     float* acc, long long* counts, void* stream) {
   const long long num_p = static_cast<long long>(nb) * (nb + 1) / 2;
   if (!plan_ok(n, nb, w) || w % kWideSymTile ||
-      w / kWideSymTile > kPanelMaxTiles || m <= kMaxM || T < 1 ||
+      w / kWideSymTile > kPanelMaxTiles || !panel_wide(m) || T < 1 ||
       T > kMaxT || !wide_rows_ok(m, coords, scores) || p0 < 0 || count < 0 ||
       p0 + static_cast<long long>(count) > num_p) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -969,14 +749,14 @@ int svgd_fused_phi_counts_sympanel_chunk_wide(
 
 // Panel triangle sweep of a composed kernel: as above, with gammas
 // (nterms,) float32 on the device and signs (nterms,) a HOST array, passed
-// by value to the kernel. 1 <= nterms <= 16, 1 <= m <= 64.
+// by value to the kernel. 1 <= nterms <= 16, m = 1-8 or 11.
 int svgd_fused_phi_terms_sympanel(const float* coords, const float* scores,
                                   const float* gammas, const float* signs,
                                   int nterms, const float* thr, int n, int m,
                                   int T, int nb, int w, float* panels,
                                   long long* counts, void* stream) {
   if (!plan_ok(n, nb, w) || T < 1 || T > kMaxT || nterms < 1 ||
-      nterms > kMaxTerms) {
+      nterms > kMaxTerms || m < 1 || panel_wide(m)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const TermSigns sg = make_signs(signs, nterms);
@@ -986,12 +766,13 @@ int svgd_fused_phi_terms_sympanel(const float* coords, const float* scores,
 #define SVGD_LAUNCH_TERMS_SYMPANEL(MM_, EX_)                             \
   launch_terms_sympanel<MM_, EX_>(coords, scores, gammas, sg, nterms, thr, \
                                   n, m, T, nb, w, num_p, panels, c, s);
-  SVGD_DISPATCH_M_2_11(m, SVGD_LAUNCH_TERMS_SYMPANEL)
+  SVGD_DISPATCH_MICRO_2_11(m, SVGD_LAUNCH_TERMS_SYMPANEL)
 #undef SVGD_LAUNCH_TERMS_SYMPANEL
   return static_cast<int>(cudaGetLastError());
 }
 
-// K12/K13's float32 instance past m = 64: gammas, signs and nterms as
+// K12/K13's float32 instance where panel_wide holds: gammas, signs and
+// nterms as
 // svgd_fused_phi_terms_sympanel's, the rest as
 // svgd_fused_phi_counts_sympanel_wide's; D in acc weighted by
 // w = sum s gamma k.
@@ -1003,7 +784,7 @@ int svgd_fused_phi_terms_sympanel_wide(const float* coords,
                                        int nb, int w, float* acc,
                                        long long* counts, void* stream) {
   if (!plan_ok(n, nb, w) || w % kWideSymTile ||
-      w / kWideSymTile > kPanelMaxTiles || m <= kMaxM || T < 1 ||
+      w / kWideSymTile > kPanelMaxTiles || !panel_wide(m) || T < 1 ||
       T > kMaxT || nterms < 1 || nterms > kMaxTerms ||
       !wide_rows_ok(m, coords, scores)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1033,5 +814,10 @@ int svgd_fused_phi_terms_sympanel_wide(const float* coords,
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+// The panels' width rule (panel_wide): 1 where the float32 panels at width
+// m take the wide entries, 0 where they take the window entries;
+// ops/sym_plan.panel_tile128 mirrors it.
+int svgd_panel_tile128(int m) { return panel_wide(m) ? 1 : 0; }
 
 }  // extern "C"

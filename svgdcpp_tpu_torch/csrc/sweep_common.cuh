@@ -20,12 +20,11 @@
 // every other m. SVGD_DISPATCH_SQ_CUDA_CORES and SVGD_DISPATCH_SQ_MMA
 // (square_mma.cuh) are the square sweeps'. The bf16 instances of K1, K2
 // and K3 take no MM: they run square_bf16_sm90.cuh's and bf16_tri_sm90.cuh's
-// bodies at every m. SVGD_DISPATCH_M_2_11, the panels', has exact
-// instances for m = 2 and 11 only and runtime ones with MM = 8, 16, 32 or
-// 64, and refuses m past kMaxM: the panels take their wide instance
-// before it. SVGD_DISPATCH_MICRO_2_11, K14's term groups' and K15's, has
-// the same instances at m = 1-8 and 11 and refuses every other m, where
-// both take wide_tri_sm90.cuh's body first.
+// bodies at every m. SVGD_DISPATCH_MICRO_2_11, the micro-tile panels'
+// (K3/K5, K12/K13), K14's term groups' and K15's, has exact instances for
+// m = 2 and 11 and a runtime one with MM = 8 for the other m of 1..8, and
+// refuses every other m, where all of them take wide_tri_sm90.cuh's body
+// first.
 
 #pragma once
 
@@ -160,7 +159,7 @@ __device__ __forceinline__ void decode_upper_pair(long long t, int nb, int* bi,
 
 // The panel list's tile pairs, the work of the panel kernels' bodies on
 // tiles of 128 (K3's bf16 instance, bf16_tri_sm90.cuh's Bf16PanelWork; K3/K5
-// and K12/K13 past kMaxM, wide_tri_sm90.cuh's WidePanelWork): nb
+// and K12/K13 where panel_wide holds, wide_tri_sm90.cuh's WidePanelWork): nb
 // super-blocks of tw tiles, panel by panel in the order of
 // sym_plan.panel_pairs (the off-diagonal super-block pairs row by row,
 // tw x tw tile pairs each, row-major; then the diagonal ones, the upper
@@ -237,8 +236,8 @@ struct WideSpot {
 
 // The float32 triangle sweeps' tiles on wide_tri_sm90.cuh's body (K2/K4
 // and K8-K11 at MM = kWideMM, every m but the micro widths; K14's term
-// groups and the panels K3/K5 and K12/K13 past kMaxM): 128 particles a
-// side, for one RBF and for terms alike.
+// groups, K15 and the panels K3/K5 and K12/K13 at the same widths): 128
+// particles a side, for one RBF and for terms alike.
 constexpr int kWideSymTile = 128;
 
 // Whether the float32 triangles (K2/K4, K8-K11) run wide_tri_sm90.cuh's
@@ -254,6 +253,12 @@ inline bool tri_wide(int m) { return m > 8 && m != 11; }
 // ops/sym_plan.k15_wide and aniso_groups_wide mirror them.
 inline bool k15_wide(int m) { return tri_wide(m); }
 inline bool aniso_groups_wide(int m) { return tri_wide(m); }
+
+// The float32 panels (fused_phi_panel.cu: K3/K5 and K12/K13) take their
+// wide entries, on wide_tri_sm90.cuh's body over the panel list's tile
+// pairs, at the same widths, and the micro-tile body with windows at
+// m = 1-8 and 11. ops/sym_plan.panel_tile128 mirrors it.
+inline bool panel_wide(int m) { return tri_wide(m); }
 
 // K14's one-pass kernel (fused_phi_aniso.cu) takes one anisotropic term at
 // the micro widths and up to kOnePassMaxM; the term groups take the rest
@@ -274,10 +279,10 @@ struct SymTile {
   static constexpr int value = MicroWidth<MM>::value ? 128 : kWideSymTile;
 };
 
-// The one-row-a-thread terms body (terms_sym.cuh: K14's term groups up to
-// kMaxM) and the panels' terms instances: tiles of 64 particles up to
-// m = 12 and 32 above, so two padded pair tiles and four coordinate/score
-// tiles stay within 48 KB of static shared memory.
+// The one-row-a-thread terms body (terms_sym.cuh: K14's term groups at
+// m = 1-8 and 11): tiles of 64 particles up to m = 12 and 32 above, so two
+// padded pair tiles and four coordinate/score tiles stay within 48 KB of
+// static shared memory.
 template <int MM>
 struct SymTermsTile {
   static constexpr int value = MM <= 12 ? 64 : 32;
@@ -453,35 +458,12 @@ struct AnyTerms {
       }                                                                 \
   }
 
-// The panels' instances up to kMaxM (fused_phi_panel.cu: K3/K5 and
-// K12/K13): exact ones at m = 2 and 11, runtime-m ones (MM = 8, 16, 32,
-// 64) elsewhere; an m outside 1..kMaxM returns cudaErrorInvalidValue (the
-// panels' wide sweeps past kMaxM have entries of their own,
-// svgd_fused_phi_*_sympanel*_wide).
-#define SVGD_DISPATCH_M_2_11(m, LAUNCH)                                 \
-  switch (m) {                                                          \
-    case 2: LAUNCH(2, true); break;                                     \
-    case 11: LAUNCH(11, true); break;                                   \
-    default:                                                            \
-      if (m >= 1 && m <= 8) {                                           \
-        LAUNCH(8, false);                                               \
-      } else if (m >= 9 && m <= 16) {                                   \
-        LAUNCH(16, false);                                              \
-      } else if (m >= 17 && m <= 32) {                                  \
-        LAUNCH(32, false);                                              \
-      } else if (m >= 33 && m <= svgd::kMaxM) {                         \
-        LAUNCH(64, false);                                              \
-      } else {                                                          \
-        return static_cast<int>(cudaErrorInvalidValue);                 \
-      }                                                                 \
-  }
-
-// The micro widths' instances of K15's triangle (phi_rbf.cu) and of K14's
-// term groups (terms_sym.cuh): exact ones at m = 2 and 11, a runtime-m
-// one (MM = 8) at the other m of 1..8. Every other m returns
-// cudaErrorInvalidValue: k15_wide and aniso_groups_wide send it to the
-// wide sweeps first (svgd_phi_rbf_wide; the term-group entry's wide
-// kernels).
+// The micro widths' instances of the panels (fused_phi_panel.cu), of
+// K15's triangle (phi_rbf.cu) and of K14's term groups (terms_sym.cuh):
+// exact ones at m = 2 and 11, a runtime-m one (MM = 8) at the other m of
+// 1..8. Every other m returns cudaErrorInvalidValue: panel_wide, k15_wide
+// and aniso_groups_wide send it to the wide sweeps first (the panels' wide
+// entries; svgd_phi_rbf_wide; the term-group entry's wide kernels).
 #define SVGD_DISPATCH_MICRO_2_11(m, LAUNCH)                             \
   switch (m) {                                                          \
     case 2: LAUNCH(2, true); break;                                     \

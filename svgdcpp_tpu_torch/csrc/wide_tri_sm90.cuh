@@ -5,8 +5,9 @@
 // MM = kWideMM of each, for K14's term groups (fused_phi_aniso.cu: one RBF
 // a single-term group, terms for group 0 of two or more isotropic terms)
 // and for K15's wide sweep (phi_rbf.cu: P itself in the Gram form,
-// FixedPGram below); past kMaxM (m > 64) for the panel kernels' float32
-// instances (fused_phi_panel.cu: K3's and K5's one RBF, K12/K13's terms).
+// FixedPGram below); and at the same widths for the panel kernels'
+// float32 wide entries (fused_phi_panel.cu: K3's and K5's one RBF,
+// K12/K13's terms; panel_wide).
 // It computes the (2m, n) accumulator [KS | D], D unscaled for one
 // RBF and weighted by w for terms, each self pair entered in both
 // directions and pinned to sq = 0, and the upper count U with the
@@ -52,7 +53,7 @@
 //     panels' instances at the 168 registers of nine warps. Nothing is
 //     staged synchronously and no slot is single-buffered. The copies are 16
 //     bytes: the rows must start on 16-byte boundaries (wide_rows_ok; the
-//     wrappers pad them to a multiple of 4 floats past 64,
+//     wrappers pad them to a multiple of 4 floats wherever it runs,
 //     ops/sym_plan.wide_row_width), since 4-byte copies of odd m's rows,
 //     one cp.async an element, cost the producer more than the padding.
 //   * The raw float32 slots are split into TF32 pairs where a warp loads

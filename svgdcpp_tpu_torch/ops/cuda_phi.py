@@ -50,7 +50,8 @@ package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
   * ``fused_phi_counts_sympanel`` (``csrc/fused_phi_panel.cu``) --
     ``_sym_panel_kernel`` (K3): the triangle sweep of one RBF laid out as
     pairs of super-blocks, each with its own output window, summed by an
-    epilogue (``ops/phi.sympanel_epilogue``); past m = 64 on
+    epilogue (``ops/phi.sympanel_epilogue``), at m = 1-8 and 11 (the
+    micro-tile body); at every other m (``sym_plan.panel_tile128``) on
     ``csrc/wide_tri_sm90.cuh``'s body, which walks the panels' tile pairs
     into the triangle's accumulator, with no windows.
   * ``fused_phi_terms_sympanel`` (``csrc/fused_phi_panel.cu``) --
@@ -76,9 +77,9 @@ their plain versions; ``phi_rbf_square`` returns phi, like
 m >= 1: past MAX_M = 64 the sweeps run wide bodies that hold nothing sized
 by m (``csrc/square_wide_sm90.cuh``'s for the float32 square sweeps,
 ``csrc/wide_tri_sm90.cuh``'s body for the float32 triangles, the panels,
-K14's groups and K15), and the float32 triangles, K14's groups and K15
-run ``csrc/wide_tri_sm90.cuh``'s from m = 9 already (every m but 1-8 and
-11). ``sym_eigen`` alone takes 1 <= m <= MAX_M: its matrix and its order
+K14's groups and K15), and the float32 triangles, the panels, K14's
+groups and K15 run ``csrc/wide_tri_sm90.cuh``'s from m = 9 already (every
+m but 1-8 and 11). ``sym_eigen`` alone takes 1 <= m <= MAX_M: its matrix and its order
 table live in one block's shared memory; only K15 at m = 1-8 and 11
 calls it, since everywhere else K15 takes P itself.
 
@@ -221,9 +222,9 @@ SYMPANEL_BF16_KERNEL = "fused_phi_counts_sympanel_bf16"
 PHI_RBF_WIDE_BF16_KERNEL = "phi_rbf_wide_bf16"
 
 #: Launches of each kernel since the last reset_launch_counts(). A panel
-#: kernel's wide instance (m > MAX_M, an entry of its own:
-#: ``svgd_fused_phi_counts_sympanel_wide``, ...) counts under its family's
-#: key.
+#: kernel's wide instance (``sym_plan.panel_tile128``, an entry of its
+#: own: ``svgd_fused_phi_counts_sympanel_wide``, ...) counts under its
+#: family's key.
 launch_counts = {
     SQUARE_KERNEL: 0, SYM_KERNEL: 0, TERMS_SQUARE_KERNEL: 0,
     TERMS_SYM_KERNEL: 0, ANISO_KERNEL: 0, ANISO_WIDE_KERNEL: 0,
@@ -319,6 +320,7 @@ def load_library() -> ctypes.CDLL:
                 "svgd_count_le_self": [ptr] * 3 + [i32] * 3 + [ptr] * 2,
                 "svgd_sym_tile": [i32] * 2,
                 "svgd_k15_wide": [i32],
+                "svgd_panel_tile128": [i32],
                 "svgd_aniso_one_pass": [i32] * 2,
                 "svgd_aniso_groups_wide": [i32],
             }
@@ -450,7 +452,7 @@ def _tri_operands(coords_c, sc32, m, wide):
     """(coordinates, scores, width) as the float32 wide bodies take them
     where the caller's instance is the wide body (``wide``: the triangles'
     ``sym_plan.tri_wide(m)``, K14's groups' ``aniso_groups_wide(m)``,
-    K15's ``k15_wide(m)``; the panels call it past MAX_M only): padded
+    K15's ``k15_wide(m)``, the panels' ``panel_tile128(m)``): padded
     with zero columns to ``wide_row_width(m)``, so that the wide body's 16-byte
     copies start every row on a 16-byte boundary, which the library
     requires there (zero columns add nothing to sq, KS or D; the
@@ -837,8 +839,8 @@ def _panel_index(nb, device, p0=0, count=None):
 def _panel_plan(n, panel_blocks, tile128=False):
     """(nb, w, number of panels) of the card's panel plan for n particles
     (``tile128``: the instances on the 128-tile bodies,
-    ``sym_plan.panel_tile128``), whose panels fill the grid's y up to
-    MAX_M (at most MAX_PANELS)."""
+    ``sym_plan.panel_tile128``), whose panels fill the grid's y at the
+    micro widths (at most MAX_PANELS)."""
     nb, w, _ = card_panel_plan(n, panel_blocks, tile128)
     num_p = nb * (nb + 1) // 2
     if num_p > MAX_PANELS:
@@ -851,7 +853,8 @@ def _panel_plan(n, panel_blocks, tile128=False):
 
 def _panel_windows(num_p, m, w, device):
     """The zeroed (num_p, 2, 2m, w) float32 window buffer of a panel
-    launch up to m = 64 (past it the kernels flush into the accumulator).
+    launch at m = 1-8 and 11 (at every other m the kernels flush into the
+    accumulator).
     It grows with m (about 1.2 GB at N = 262,144, m = 64): a buffer larger
     than the card's memory raises here, with its size, before anything is
     allocated or launched."""
@@ -871,9 +874,10 @@ def _panel_windows(num_p, m, w, device):
 
 def _panel_operands(coords, sc32, wide, num_p, w):
     """(coordinates, scores, width, output) of a panel launch: centred;
-    past m = 64 (``wide``) the triangles' padded rows (``_tri_operands``)
-    and their zeroed (2 width, n) accumulator, else the rows as they are
-    and ``num_p`` zeroed windows of w (``_panel_windows``)."""
+    where the wide entries run (``wide``, ``sym_plan.panel_tile128``) the
+    triangles' padded rows (``_tri_operands``) and their zeroed
+    (2 width, n) accumulator, else the rows as they are and ``num_p``
+    zeroed windows of w (``_panel_windows``)."""
     n, m = coords.shape
     if not wide:
         windows = _panel_windows(num_p, m, w, coords.device)
@@ -887,11 +891,12 @@ def _panel_operands(coords, sc32, wide, num_p, w):
 def _sympanel_launch(coords, scores, gammas, signs, thresholds_sq,
                      panel_blocks):
     """K3's port (one positive term, ``signs`` None) or the terms panel
-    kernel (K12/K13's), on the card's panel plan: up to m = 64 into one
-    window a panel, scattered by the epilogue; past it their wide entries,
-    on the rows padded as the triangles' (``_tri_operands``) and the plan
-    of 128-particle tiles, into the triangle's (2 width, n) accumulator,
-    finished by the triangle's epilogue."""
+    kernel (K12/K13's), on the card's panel plan: at m = 1-8 and 11 into
+    one window a panel, scattered by the epilogue; at every other m
+    (``sym_plan.panel_tile128``) their wide entries, on the rows padded as
+    the triangles' (``_tri_operands``) and the plan of 128-particle tiles,
+    into the triangle's (2 width, n) accumulator, finished by the
+    triangle's epilogue."""
     g, thr = _device_operands(coords, scores, gammas, thresholds_sq)
     n, m = coords.shape
     wide = panel_tile128(m)
@@ -1508,11 +1513,11 @@ def phi_rbf_sympanel_chunk_cuda(coords, scores, gamma, thresholds_sq, world,
     Counterpart of ``svgdcpp_tpu.ops.pallas_phi.
     phi_rbf_fused_pallas_sympanel_sharded`` (K5). The chunk is rank's
     balanced range of the card's panel list (``sym_plan.panel_chunk`` of
-    ``card_panel_plan(n, panel_blocks, panel_tile128(m))``); up to m = 64
-    its windows are scattered onto acc (``ops/phi.sympanel_scatter``), past
-    it the kernel flushes into the accumulator (rows [0, m) and [width,
-    width + m) of the padded one), so that the sum over the ranks is the
-    whole sweep's accumulator. On a CUDA tensor: the kernel
+    ``card_panel_plan(n, panel_blocks, panel_tile128(m))``); at m = 1-8
+    and 11 its windows are scattered onto acc (``ops/phi.sympanel_scatter``),
+    at every other m the kernel flushes into the accumulator (rows [0, m)
+    and [width, width + m) of the padded one), so that the sum over the
+    ranks is the whole sweep's accumulator. On a CUDA tensor: the kernel
     fused_phi_counts_sympanel_chunk, in float32. On a CPU tensor: the plain
     ``phi_rbf_sympanel_chunk_counts``."""
     _check_chunk(world, rank)

@@ -946,7 +946,7 @@ def phi_rbf_sympanel_fused_counts(
     :func:`phi_rbf_sym_fused_counts` under ``dot_dtype='bfloat16'``, the
     plain version of its bf16 instance (``fused_phi_counts_sympanel_bf16``);
     each on its kernel's plan (``card_panel_plan(..., tile128=True)`` for
-    the bf16 instance and past KERNEL_MAX_M, ``panel_tile128``)."""
+    the bf16 instance and the float32 wide entries, ``panel_tile128``)."""
     bf16 = dot_bf16(dot_dtype)
     n, m = coords.shape
     nb, w, _ = card_panel_plan(n, panel_blocks, panel_tile128(m, bf16))

@@ -240,14 +240,15 @@ def tpu_terms_panel_kernel(n: int, m: int, num_terms: int) -> str:
 # The card's panel plan
 # ----------------------------------------------------------------------
 
-#: The CUDA panel kernels' strips up to KERNEL_MAX_M (``kPanelAlign`` of
+#: The CUDA panel kernels' strips at the micro widths (``kPanelAlign`` of
 #: csrc/fused_phi_panel.cu): their super-block widths are multiples of it.
 CARD_PANEL_ALIGN = 64
 
 #: The panel instances on tiles of 128 (K3's bf16 instance on the bf16
-#: triangle body, BF16_TILE; the float32 panels past KERNEL_MAX_M on the
-#: float32 wide triangle body, WIDE_TILE): their plan's super-blocks are
-#: multiples of it, so that the panels' tile pairs are the triangle's.
+#: triangle body, BF16_TILE; the float32 panels where :func:`tri_wide`
+#: holds on the float32 wide triangle body, WIDE_TILE): their plan's
+#: super-blocks are multiples of it, so that the panels' tile pairs are
+#: the triangle's.
 TILE128_PANEL_ALIGN = 128
 
 #: The card's plan: at least this many super-blocks, and super-blocks of
@@ -264,10 +265,11 @@ def card_panel_plan(n: int, panel_blocks: int | None = None,
     otherwise).
 
     On the card the window lives in device memory, so no budget bounds W.
-    Up to KERNEL_MAX_M one thread block sweeps one 64-row strip of
-    super-block I against all W columns of super-block J, so W is the
-    longest work item: at least CARD_PANEL_MIN_BLOCKS super-blocks keep the
-    last blocks' tail short against the whole sweep, and W <=
+    At the micro widths one thread block sweeps one strip of super-block
+    I (a multiple of 64 rows) against all W columns of super-block J, so
+    W is the longest work item: at least CARD_PANEL_MIN_BLOCKS
+    super-blocks keep the last blocks' tail short against the whole
+    sweep, and W <=
     CARD_PANEL_MAX_W past that. The panel buffer is (nb + 1) * n_pad * 2m
     float32 values, so fewer super-blocks also mean less memory. The
     128-tile bodies walk the panels' tile pairs into one accumulator and
@@ -286,9 +288,12 @@ def card_panel_plan(n: int, panel_blocks: int | None = None,
 def panel_tile128(m: int, bf16: bool = False) -> bool:
     """Whether the panel sweep at width m runs on a body of 128-particle
     tiles, and so takes ``card_panel_plan(..., tile128=True)``: K3's bf16
-    instance at every m, the float32 panels (K3/K5, K12/K13) past
-    KERNEL_MAX_M."""
-    return bf16 or m > KERNEL_MAX_M
+    instance at every m, the float32 panels (K3/K5, K12/K13) wherever the
+    float32 triangles run the wide body (:func:`tri_wide`: m = 9, 10 and
+    12 up; ``panel_wide`` of csrc/sweep_common.cuh, exported by the
+    library as ``svgd_panel_tile128``); at m = 1-8 and 11 the float32
+    panels run the micro-tile body into per-panel windows."""
+    return bf16 or tri_wide(m)
 
 
 def panel_pairs(nb: int):
@@ -465,8 +470,8 @@ def wide_row_width(m: int) -> int:
     starts on a 16-byte boundary). Each wrapper pads only where its own
     instance is the wide body: the triangles where :func:`tri_wide` holds,
     K14's groups (:func:`aniso_groups_wide`), K15's float32 sweep
-    (:func:`k15_wide`) and the square sweeps and the panels past
-    KERNEL_MAX_M."""
+    (:func:`k15_wide`), the panels (:func:`panel_tile128`) and the square
+    sweeps past KERNEL_MAX_M."""
     return -(-m // WIDE_ROW_ALIGN) * WIDE_ROW_ALIGN
 
 

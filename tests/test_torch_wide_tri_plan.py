@@ -118,11 +118,14 @@ def test_triangles_take_the_new_tile_and_the_panels_64(m):
     """Past 64 the float32 triangle families (K2/K4 one RBF, K8-K11 terms)
     take WIDE_TILE = 128, and the panels (K3/K5, K12/K13) run the same
     body: their super-blocks become multiples of 128
-    (TILE128_PANEL_ALIGN), the plan the bf16 panels take; up to 64 the
-    panels' super-blocks stay multiples of CARD_PANEL_ALIGN = 64."""
+    (TILE128_PANEL_ALIGN), the plan the bf16 panels take, as at every
+    other width where the triangles run that body (m = 64 among them); at
+    the micro widths (m = 11 among them) the panels' super-blocks stay
+    multiples of CARD_PANEL_ALIGN = 64."""
     assert sym_plan.WIDE_TILE == 128 == sym_plan.TILE128_PANEL_ALIGN
     assert sym_plan.sym_tile(m) == sym_plan.sym_tile(m, terms=True) == 128
-    assert sym_plan.panel_tile128(m) and not sym_plan.panel_tile128(64)
+    assert sym_plan.panel_tile128(m) and sym_plan.panel_tile128(64)
+    assert not sym_plan.panel_tile128(11)
     assert sym_plan.CARD_PANEL_ALIGN == 64
     for n in (4096, 10000, 262144):
         for blocks in (None, 3):
@@ -138,8 +141,8 @@ def test_triangles_take_the_new_tile_and_the_panels_64(m):
     # (10000, 123)'s plan: 8 super-blocks of 1280.
     assert sym_plan.card_panel_plan(10000, None, True) == (8, 1280, 10240)
     # Up to 64 the micro widths keep the micro-tile body's tile; the
-    # triangles' other widths run the wide body (its tile), while the
-    # panels there keep their own plan (multiples of 64, above).
+    # other widths run the wide body (its tile), the triangles and the
+    # panels alike (the panels' plan of 128 multiples, above).
     assert sym_plan.sym_tile(11) == sym_plan.MICRO_TILE
     assert sym_plan.sym_tile(64) == sym_plan.WIDE_TILE
     assert sym_plan.dispatch_m(16) == sym_plan.WIDE_MM
