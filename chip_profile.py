@@ -17,6 +17,7 @@
     python3 chip_profile.py --mid-width [PARENT_DIR] [--out PATH]
     python3 chip_profile.py --mid-p PARENT_DIR [--out PATH]
     python3 chip_profile.py --mid-panel PARENT_DIR [--out PATH]
+    python3 chip_profile.py --micro-groups PARENT_DIR [--out PATH]
 
 Drives one configuration of svgdcpp_tpu_torch at its full width:
 
@@ -215,6 +216,19 @@ process each, parent, change, change, parent: kernel-only us and wrapper
 ms, each call's distance from float64 at n = 10,000 and each build's panel
 instances' registers and spill (default output
 ``chiprun_out/mid_panel.json``).
+
+``--micro-groups PARENT_DIR`` runs ``micro_groups`` alone: K14's term
+groups at m = 2, 5, 8 and 11 (``MICRO_GROUPS_MS``) and n = 2048, 10,240
+and 32,768 for iso + 2, iso + 3, iso + 7, 0 + 2 and two isotropic terms
++ 2, and iso + 1 with the groups forced against the one-pass kernel, in
+the tree PARENT_DIR (a ``git archive`` of the parent commit, which builds
+its own csrc/) and in this one, one process each, parent, change, change,
+parent: kernel-only us (every event of K14's and K16's kernels a call)
+and wrapper ms, each call's distance from float64 at n = 2048 and each
+build's K14 instances' registers and spill; then, in this tree, the
+groups with group 0 inside the anisotropic groups' launch
+(``MICRO_GROUPS_COMBINED_SOURCE``) against the package's two launches
+(default output ``chiprun_out/micro_groups.json``).
 
 ``--wide-drift`` runs ``wide_drift`` alone, with no driver profile: how
 far the float32 routes move from float64 at d = 123 and N = 10,000 in
@@ -4692,6 +4706,363 @@ def mid_panel_main(args) -> int:
     return 0
 
 
+#: --micro-groups' readings: K14's term groups at the micro widths
+#: MICRO_GROUPS_MS (the change moves them from terms_sym.cuh's
+#: one-row-a-thread body to micro_tile.cuh's triangle body) at
+#: MICRO_GROUPS_NS for each of MICRO_GROUPS_SETS (two or more anisotropic
+#: terms, or none beside one: the term groups in both trees), then iso + 1
+#: with the term groups forced against the one-pass kernel (the one-pass
+#: rule at the micro widths); phi's distance from float64 at
+#: MICRO_GROUPS_CHECK_N only.
+MICRO_GROUPS_MS = (2, 5, 8, 11)
+MICRO_GROUPS_NS = (2048, 10240, 32768)
+MICRO_GROUPS_SETS = {"iso+2": ((1.0,), (1.0, -0.5)),
+                     "iso+3": ((1.0,), (1.0, 0.5, -0.3)),
+                     "iso+7": ((1.0,), (1.0, 0.5, -0.3, 0.8, 0.4, -0.2,
+                                        0.6)),
+                     "0+2": ((), (1.0, 0.5)),
+                     "2iso+2": ((1.0, -0.5), (1.0, 0.5)),
+                     "iso+1": ((1.0,), (1.0,))}
+MICRO_GROUPS_CHECK_N = 2048
+
+#: --micro-groups' child, run in one tree (its cwd), through what both trees
+#: share (the public wrapper with the Cholesky factors given, chip_smoke's
+#: grid_inputs, wide_p_ps and time_ms): each reading on grid inputs, T = 3,
+#: kernel-only us (the profiler's events over 10 calls whose names hold
+#: "fused_phi_aniso" or "count_le", summed, with the names seen: the
+#: parent's groups count inside group 0, the change's with no isotropic
+#: term through K16), the wrapper's ms (the median of 20), phi's distance
+#: from the float64 plain version (relative to max |phi|) and the counts'
+#: difference from it at MICRO_GROUPS_CHECK_N; with the tree's build
+#: seconds and the ptxas lines of K14's instances. iso + 1 runs with the
+#: groups forced (cuda_phi.aniso_one_pass patched to refuse) and on the
+#: one-pass kernel (the route).
+MICRO_GROUPS_CHILD = r"""
+import json, os, re, sys, tempfile, time
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from svgdcpp_tpu_torch.ops import cuda_phi
+from svgdcpp_tpu_torch.ops.phi import phi_rbf_aniso_terms_fused_counts
+NAMES = ("fused_phi_aniso", "count_le")
+dev = torch.device("cuda")
+cfg = json.loads(sys.argv[1])
+t0 = time.perf_counter()
+cuda_phi.load_library()
+build_s = time.perf_counter() - t0
+log = cuda_phi.build_log_path()
+ptxas = cs.ptxas_summary(log.read_text() if log.exists() else "")
+RULE = cuda_phi.aniso_one_pass
+rows = []
+
+def device_us(fn, calls=10):
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as fh:
+            events = json.load(fh)["traceEvents"]
+    hits = [ev for ev in events
+            if ev.get("ph") == "X" and ev.get("cat") == "kernel"
+            and any(nm in ev.get("name", "") for nm in NAMES)]
+    names = sorted({re.search(r"\w*(?:" + "|".join(NAMES) + r")\w*",
+                              ev["name"]).group(0) for ev in hits})
+    return (sum(float(ev["dur"]) for ev in hits) / calls if hits else None,
+            names, len(hits) / calls)
+
+def reading(label, n, m, fn, want):
+    row = {"kernel": label, "n": n, "m": m}
+    cuda_phi.reset_launch_counts()
+    got = fn()
+    torch.cuda.synchronize()
+    row["launches"] = {k: v for k, v in cuda_phi.launch_counts.items() if v}
+    row["finite"] = bool(got[0].isfinite().all())
+    if want is not None:
+        ref = want()
+        row["phi_rel_err"] = float((got[0].double() - ref[0]).abs().max()
+                                   / ref[0].abs().max())
+        row["count_diff"] = int((got[1] - ref[1]).abs().max())
+    row["kernel_us"], row["kernel_names"], row["events_per_call"] = (
+        device_us(fn))
+    row["wrapper_ms"] = cs.time_ms(fn, reps=20, warmup=3)
+    rows.append(row)
+    print(json.dumps(row), flush=True)
+
+for n in cfg["ns"]:
+    for m in cfg["ms"]:
+        x, s, g, thr = cs.grid_inputs(n, m, 0.0, 530 + m, dev)
+        for spec, (iso_s, an_s) in cfg["sets"].items():
+            iso_g = [g, 2.0 * g][:len(iso_s)]
+            ps = cs.wide_p_ps("pd", m, len(an_s), 531, g, dev)
+            lowers = cuda_phi.cholesky_factors(ps, dev)
+            fn = lambda: cuda_phi.phi_rbf_aniso_terms_fused_cuda(
+                x, s, iso_g, iso_s, ps, an_s, thr, lowers=lowers)
+            want = (lambda: phi_rbf_aniso_terms_fused_counts(
+                x.double(), s.double(), [v.double() for v in iso_g], iso_s,
+                [p.double() for p in ps], an_s, thr.double())
+                ) if n == cfg["check_n"] else None
+            kinds = ("groups", "one_pass") if len(an_s) == 1 else (None,)
+            for kind in kinds:
+                cuda_phi.aniso_one_pass = (
+                    (lambda mm, k: False) if kind == "groups" else RULE)
+                reading(f"K14 {spec}" + (f" {kind}" if kind else ""), n, m,
+                        fn, want)
+            cuda_phi.aniso_one_pass = RULE
+inst = {k: v for k, v in ptxas.items() if k.startswith("aniso_terms_")}
+print(json.dumps({"build_s": build_s, "ptxas": inst, "rows": rows}),
+      flush=True)
+"""
+
+#: --micro-groups' second reading, in this tree only: group 0 of one
+#: isotropic term swept in the anisotropic groups' launch (the group along
+#: the grid's z, its compares in every group, one launch), the first design
+#: of the change, which at m = 11 spilled 8 B (kT = 3) on an H100, against
+#: the package's two launches (group 0 alone with its counts, then the
+#: anisotropic groups with none). Built from a copy of csrc/ (parent_csrc)
+#: under its own kernel name and a C entry of its own; n_iso = 1 only.
+MICRO_GROUPS_COMBINED_SOURCE = r"""
+#include "micro_tile.cuh"
+using namespace svgd;
+template <int MM, bool kExact, int kT>
+__global__ void __launch_bounds__(MicroTri<MM>::kThreads)
+    combined_micro_groups_kernel(
+        const float* __restrict__ coords, const float* __restrict__ z,
+        const float* __restrict__ scores, const float* __restrict__ gamma,
+        const float* __restrict__ thr, int n, int m_arg, int T, int nb,
+        float* __restrict__ acc, unsigned long long* __restrict__ counts) {
+  const int m = kExact ? MM : m_arg;
+  const int group = static_cast<int>(blockIdx.z);
+  const bool euclid = group == 0;
+  const float* rows =
+      euclid ? coords : z + static_cast<size_t>(group - 1) * n * m;
+  const OneRbf weights{euclid ? -gamma[0] * kLog2e : -kLog2e};
+  micro_tri_body<MM, kExact, kT>(rows, scores, weights, thr, n, m,
+                                 euclid ? T : 0, nb, 0LL,
+                                 acc + static_cast<size_t>(group) * 2 * m * n,
+                                 counts);
+}
+template <int MM, bool kExact>
+int combined_launch(const float* coords, const float* z, const float* scores,
+                    const float* gamma, int n_aniso, const float* thr, int n,
+                    int m, int T, float* acc, unsigned long long* c,
+                    cudaStream_t s) {
+  using P = MicroTri<MM>;
+  const long long pairs = upper_pairs(n, P::kSide);
+  const int nb = (n + P::kSide - 1) / P::kSide;
+  const dim3 grid(static_cast<unsigned int>(pairs),
+                  tri_splits<MM>(pairs * (1 + n_aniso)), 1 + n_aniso);
+  if (T == 3) {
+    combined_micro_groups_kernel<MM, kExact, 3><<<grid, P::kThreads, 0, s>>>(
+        coords, z, scores, gamma, thr, n, m, T, nb, acc, c);
+  } else {
+    combined_micro_groups_kernel<MM, kExact, kMaxT>
+        <<<grid, P::kThreads, 0, s>>>(coords, z, scores, gamma, thr, n, m, T,
+                                      nb, acc, c);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+extern "C" int combined_aniso_micro(const float* coords, const float* z,
+                                    const float* scores, const float* gamma,
+                                    int n_aniso, const float* thr, int n,
+                                    int m, int T, float* acc,
+                                    long long* counts, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  auto* c = reinterpret_cast<unsigned long long*>(counts);
+#define COMBINED(MM_, EX_)                                                 \
+  return combined_launch<MM_, EX_>(coords, z, scores, gamma, n_aniso, thr,  \
+                                   n, m, T, acc, c, s)
+  SVGD_DISPATCH_MICRO_2_11(m, COMBINED)
+#undef COMBINED
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+"""
+MICRO_GROUPS_COMBINED_NS = (10240, 32768)
+MICRO_GROUPS_COMBINED_SETS = ("iso+2", "iso+7")
+
+
+def micro_groups_combined(device):
+    """MICRO_GROUPS_COMBINED_SOURCE's one-launch groups against the
+    package's public wrapper at MICRO_GROUPS_MS x MICRO_GROUPS_COMBINED_NS
+    for MICRO_GROUPS_COMBINED_SETS, grid inputs, T = 3, in one process:
+    kernel-only us of each (chip_smoke.kernel_us over 10 calls: the
+    combined kernel's one event, the package's two), both wrappers' ms and
+    the combined result's distance from the package's (phi relative to its
+    max |phi|, the counts' difference), with the variant's registers and
+    spill."""
+    import ctypes
+
+    import torch
+
+    from chip_smoke import (
+        grid_inputs,
+        kernel_us,
+        ptxas_summary,
+        time_ms,
+        wide_p_ps,
+    )
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import aniso_groups_finish
+    from svgdcpp_tpu_torch.utils.cuda_build import ARCH_FLAGS, find_nvcc
+
+    dest = parent_csrc(ROOT / "_verify" / "micro_groups")
+    (dest / "combined.cu").write_text(MICRO_GROUPS_COMBINED_SOURCE)
+    proc = subprocess.Popen(
+        [find_nvcc() or "nvcc", *ARCH_FLAGS, "-std=c++17", "-O3",
+         "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v", "-o",
+         str(dest / "libcombined.so"), str(dest / "combined.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    cuda_phi.load_library()  # built meanwhile
+    out, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"the combined groups' build:\n{out}")
+    regs, name, spill = {}, None, "?"
+    for line in out.splitlines():
+        hit = re.search(r"combined_micro_groups_kernelILi(\d+)ELb([01])ELi"
+                        r"(\d+)E", line)
+        if hit and "Compiling entry" in line:
+            name = f"combined<{hit.group(1)},{hit.group(2)},{hit.group(3)}>"
+        hit = re.search(r"(\d+) bytes spill stores", line)
+        if hit:
+            spill = hit.group(1)
+        hit = re.search(r"Used (\d+) registers", line)
+        if hit and name:
+            regs[name] = f"{hit.group(1)} regs, {spill} B spill"
+            name, spill = None, "?"
+    lib = ctypes.CDLL(str(dest / "libcombined.so"))
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.combined_aniso_micro.argtypes = ([ptr] * 4 + [i32, ptr] + [i32] * 3
+                                         + [ptr] * 3)
+    lib.combined_aniso_micro.restype = i32
+    rows = []
+    for n in MICRO_GROUPS_COMBINED_NS:
+        for m in MICRO_GROUPS_MS:
+            x, s, g, thr = grid_inputs(n, m, 0.0, 530 + m, device)
+            for spec in MICRO_GROUPS_COMBINED_SETS:
+                iso_s, an_s = MICRO_GROUPS_SETS[spec]
+                ps = wide_p_ps("pd", m, len(an_s), 531, g, device)
+                lowers = cuda_phi.cholesky_factors(ps, device)
+
+                def package():
+                    return cuda_phi.phi_rbf_aniso_terms_fused_cuda(
+                        x, s, [g], iso_s, ps, an_s, thr, lowers=lowers)
+
+                def combined():
+                    xc = (x - x.mean(dim=0)).contiguous()
+                    z = (xc.double() @ lowers).float().contiguous()
+                    acc = torch.zeros((1 + len(an_s), 2 * m, n),
+                                      device=device)
+                    upper = torch.zeros(thr.shape[0], dtype=torch.int64,
+                                        device=device)
+                    rc = lib.combined_aniso_micro(
+                        xc.data_ptr(), z.data_ptr(), s.data_ptr(),
+                        g.reshape(1).data_ptr(), len(an_s), thr.data_ptr(),
+                        n, m, thr.shape[0], acc.data_ptr(),
+                        upper.data_ptr(),
+                        torch.cuda.current_stream().cuda_stream)
+                    if rc:
+                        raise RuntimeError(f"combined_aniso_micro: {rc}")
+                    return (aniso_groups_finish(acc, s, g, iso_s, an_s,
+                                                lowers, n), 2 * upper - n)
+                got, ref = combined(), package()
+                row = {
+                    "n": n, "m": m, "terms": spec,
+                    "combined_kernel_us": kernel_us(
+                        combined, "combined_micro_groups_kernel",
+                        per_call=1),
+                    "package_kernel_us": kernel_us(
+                        package, "fused_phi_aniso_terms_micro_", per_call=2),
+                    "combined_wrapper_ms": time_ms(combined, reps=20,
+                                                   warmup=3),
+                    "package_wrapper_ms": time_ms(package, reps=20,
+                                                  warmup=3),
+                    "phi_rel_diff": float((got[0] - ref[0]).abs().max()
+                                          / ref[0].abs().max()),
+                    "count_diff": int((got[1] - ref[1]).abs().max()),
+                }
+                rows.append(row)
+                print(json.dumps(row), flush=True)
+    return {"combined_ptxas": regs, "rows": rows}
+
+
+def micro_groups(parent: Path) -> dict:
+    """--micro-groups DIR: MICRO_GROUPS_CHILD in the tree DIR (the parent's
+    checkout, which builds its own csrc/), in this one, in this one and in
+    DIR, one process each (parent, change, change, parent); then, for each
+    reading, the parent's and the change's kernel-only us and wrapper ms
+    side by side (each the mean of its tree's two runs), their ratio, the
+    kernels each tree ran and its largest distance from float64; then
+    micro_groups_combined in this process."""
+    import torch
+
+    cfg = json.dumps({"ns": list(MICRO_GROUPS_NS),
+                      "ms": list(MICRO_GROUPS_MS),
+                      "sets": MICRO_GROUPS_SETS,
+                      "check_n": MICRO_GROUPS_CHECK_N})
+    runs = []
+    for label, tree in (("parent", parent), ("change", ROOT),
+                        ("change", ROOT), ("parent", parent)):
+        proc = subprocess.run(
+            [sys.executable, "-c", MICRO_GROUPS_CHILD, cfg], cwd=tree,
+            capture_output=True, text=True, timeout=2400)
+        if proc.returncode:
+            raise RuntimeError(f"--micro-groups in {tree}:\n"
+                               f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+        run = {"tree": label, **json.loads(proc.stdout.strip()
+                                           .splitlines()[-1])}
+        runs.append(run)
+        print(json.dumps({"tree": label, "build_s": run["build_s"],
+                          "ptxas": run["ptxas"]}), flush=True)
+    table = []
+    for i, row in enumerate(runs[0]["rows"]):
+        def mean(tree, key):
+            vals = [r["rows"][i].get(key) for r in runs if r["tree"] == tree]
+            return None if None in vals else sum(vals) / len(vals)
+        step = {"kernel": row["kernel"], "n": row["n"], "m": row["m"]}
+        for key in ("kernel_us", "wrapper_ms"):
+            p_val, c_val = mean("parent", key), mean("change", key)
+            step[f"parent_{key}"], step[f"change_{key}"] = p_val, c_val
+            step[f"{key}_change_over_parent"] = (
+                None if not p_val or c_val is None else c_val / p_val)
+        for tree in ("parent", "change"):
+            mine = [r["rows"][i] for r in runs if r["tree"] == tree]
+            step[f"{tree}_names"] = mine[0].get("kernel_names")
+            errs = [r.get("phi_rel_err") for r in mine]
+            step[f"{tree}_phi_rel_err"] = (None if None in errs
+                                           else max(errs))
+            cnts = [r.get("count_diff") for r in mine]
+            step[f"{tree}_count_diff"] = (None if None in cnts
+                                          else max(cnts))
+        table.append(step)
+        print(json.dumps(step), flush=True)
+    combined = micro_groups_combined(torch.device("cuda"))
+    return {"runs": runs, "table": table, "combined": combined}
+
+
+def micro_groups_main(args) -> int:
+    """--micro-groups: micro_groups' rows, JSON to --out."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_profile: torch.cuda.is_available() is False",
+              file=sys.stderr)
+        return 1
+    card = card_name()
+    print(card)
+    result = {"card": card,
+              "micro_groups": micro_groups(Path(args.micro_groups))}
+    out = Path(args.out or "chiprun_out/micro_groups.json")
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(result, indent=1))
+    print(card)
+    return 0
+
+
 def bf16_parity(device):
     """--bf16-parity: how far K1's bf16 result moves with the order of the
     sums that form sq. The flat BLR driver (N = 1000, d = 50, the bf16
@@ -5541,6 +5912,9 @@ def main() -> int:
     parser.add_argument("--mid-p", default=None, metavar="DIR",
                         help="time K14's groups and K15 at the mid widths "
                              "in the parent tree DIR and this one")
+    parser.add_argument("--micro-groups", default=None, metavar="DIR",
+                        help="time K14's term groups at the micro widths "
+                             "in the parent tree DIR and this one")
     parser.add_argument("--ab-family", choices=("k1", "k15"), default="k1",
                         help="the kernels --wrapper-ab times")
     parser.add_argument("--bf16-parity", action="store_true",
@@ -5585,6 +5959,8 @@ def main() -> int:
         return mid_p_main(args)
     if args.mid_panel:
         return mid_panel_main(args)
+    if args.micro_groups:
+        return micro_groups_main(args)
     if args.wrapper_ab:
         return wrapper_ab_main(args)
     if args.square_wide_breakdown:

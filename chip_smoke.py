@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Builds the package's CUDA kernels from ``svgdcpp_tpu_torch/csrc`` and runs
-forty-nine phases, one line each (several for phases 2, 3, 7-9 and
-14-49):
+fifty-one phases, one line each (several for phases 2, 3, 7-9 and
+14-51):
 
   1. device and build: the card's name and power limit, torch and CUDA
      versions, nvcc build seconds and ptxas's registers and spill bytes of
@@ -68,7 +68,8 @@ forty-nine phases, one line each (several for phases 2, 3, 7-9 and
      7 aniso, a negative sign) and m = 50, and one anisotropic term at
      m = 1, 3, 5, 16 and 32; one anisotropic term at the micro widths and
      up to m = 16 takes the one-pass kernel, the others the term groups
-     (on wide_tri_sm90.cuh at every m but 1-8 and 11, whose errors go to
+     (on micro_tile.cuh at m = 1-8 and 11, whose errors go to phase 51's
+     entry, and on wide_tri_sm90.cuh at every other m, whose errors go to
      phase 49's entry);
  15. the fixed-P kernel (phi_rbf_square, K15's port: the triangle at
      m = 1-8 and 11, phi_rbf_wide at every other m, whose errors go to
@@ -82,7 +83,8 @@ forty-nine phases, one line each (several for phases 2, 3, 7-9 and
      synchronisation;
  16. times, kernel against plain: K14 at (10240, 11) with 2, 4 and 8
      gradient accumulators (2 with the driver's kept Cholesky factor and
-     factoring each call), K15 at (10240, 11) and (1500, 2), sym_eigen at
+     factoring each call: the one-pass kernel; 4 and 8 the micro-tile term
+     groups), K15 at (10240, 11) and (1500, 2), sym_eigen at
      m = 11 beside torch.linalg.eigh on the CPU and on the card;
  17. the anisotropic main path (scripts/check_aniso_posterior.py's
      configuration: d = 11 MVN, median RBF + RBF with a full constant P,
@@ -391,6 +393,26 @@ forty-nine phases, one line each (several for phases 2, 3, 7-9 and
      m = 1-130, every panel instance at 0 bytes of spill and none of the
      micro-tile body past MM = 11. The phase's seconds and the whole
      run's are printed.
+ 51. K14's term groups at the micro widths (m = 1-8 and 11) on
+     micro_tile.cuh's triangle body (phase_micro_groups; sizes in
+     MICRO_GROUP_*): 51c the new instances' registers and 0 bytes of
+     spill, none of the deleted terms_sym.cuh's; 51a the groups' raw slabs
+     (cuda_phi.aniso_micro_groups_cuda) and their finished phi and counts
+     against ops/phi.aniso_groups_plain in float64 and float32 at m = 1, 2,
+     3, 4, 5, 8 and 11 for iso + 1 (on the groups directly), iso + 2,
+     0 + 2, two isotropic terms + 2, iso + 3 and iso + 7 (8 accumulators),
+     at n = 2048 (T = 3), 10007 (T = 8), the tile edges 1, 127, 128, 129
+     and 10240, grid inputs, within WIDE_PHI_GATE, max |dphi| / max |phi|
+     printed, counts equal; 51b median RBF + RBF(P) + RBF(P2) on auto on
+     the d = 11 script's target (N = 10,240), the flagship (d = 2,
+     N = 10,000) and the target at d = 5 (N = 4096), 20 steps each: K14's
+     launches only, the new kernels in a profiler trace and neither the
+     old nor the one-pass one, every sweep call of the float64 run
+     replayed, within 1e-3 of the plain lag-1 route (float32 and float64)
+     after 20 steps and of the rbf_terms route after the first (their
+     distance after 20 printed); 51d kernel-only and
+     wrapper times at (10240, 11) for iso + 2, iso + 3, iso + 7 and at
+     (10000, 2) for iso + 2 beside the bound.
 
 Phase 22 prints the N = 1,048,576 set-up (the median seed, now through
 K16) beside the 239.40 s the plain count pass took.
@@ -609,15 +631,17 @@ def ptxas_summary(log_text):
     named kernel<MM,exact> (sweep_common.cuh), e.g. rbf_square<2,1>
     (phi_rbf_square); the square kernels' tensor-core instances their
     thresholds and the terms kernel's its term count (0: any),
-    counts_square<50,1,3> and terms_square<11,1,3,2>; the terms triangle sweep
-    (terms_sym.cuh) has a third flag, its term groups: terms_sym<11,1,0>
-    and aniso_terms_sym<11,1,1>; the panel kernels their thresholds, and
+    counts_square<50,1,3> and terms_square<11,1,3,2>; the terms triangle
+    sweep its thresholds and term count, terms_sym<11,1,3,2>; the panel
+    kernels their thresholds, and
     the terms panel kernel its term count (0: any), counts_sympanel<2,1,3>
     and terms_sympanel<11,1,3,2>; the count kernel (count_le.cu)
     count_le<MM,exact,gram,binned,P> (P: thresholds held, or binned search
     steps) and count_le_wide<TT>; the one-pass anisotropic kernel
     aniso_terms_sym<MM,exact,NIso,kT> (NIso 0: any number of isotropic
-    terms) beside the term-group one, aniso_terms_groups<MM,exact,1>, the
+    terms) beside the micro-tile term-group ones,
+    aniso_terms_micro_groups<MM,exact,kT> and
+    aniso_terms_micro_iso<MM,exact,kT>, the
     wide ones past m = 64, aniso_wide_groups<kT>, aniso_wide_iso<kT> and
     rbf_wide, the panels' float32 ones past m = 64 (kernels of their own,
     on the float32 wide triangle body) counts_sympanel_wide<kT>,
@@ -3916,10 +3940,11 @@ def phase_mid_width_forms(dev, card, clock, errs):
               f"({bound[1]}, FP32), TF32 {tensor[0]:.6g} {card} {clock()}")
 
 
-def path_times(wrapper, plain, kernel, call):
+def path_times(wrapper, plain, kernel, call, per_call=1):
     """A path's times for the kernels line, on one call (args, kwargs[,
     output]) in float32 at the path's own shape: {"kernel_us": kernel_us
-    over 5 calls, "kernel": the wrapper's ms (time_ms, the median of 10),
+    over 5 calls (``per_call`` events of ``kernel`` a call), "kernel": the
+    wrapper's ms (time_ms, the median of 10),
     "plain": the plain version ``plain``'s ms on the same inputs (the
     median of 3); the factors and decompositions the driver keeps stay
     in float64, as replay_gate passes them}."""
@@ -3927,7 +3952,7 @@ def path_times(wrapper, plain, kernel, call):
     kwargs = {k: (v if k in ("lowers", "eig") else to32(v))
               for k, v in call[1].items()}
     us = kernel_us(lambda: wrapper(*args, **kwargs), kernel, calls=5,
-                   per_call=1)
+                   per_call=per_call)
     return {"kernel_us": us,
             "kernel": time_ms(lambda: wrapper(*args, **kwargs), reps=10,
                               warmup=2),
@@ -4277,9 +4302,11 @@ def phase_mid_p_rules(ptxas, clock):
     svgd_aniso_groups_wide, svgd_aniso_one_pass for one to three
     anisotropic terms) against ops/sym_plan's at m = 1-130; K14's and
     K15's wide instances at 0 bytes of spill; and in the build no K15
-    square sweep (rbf_square<...>), no term-group instance of
-    terms_sym.cuh past the micro widths (aniso_terms_groups<MM,...> with
-    MM other than 2, 8, 11) and no one-pass instance past the rule's
+    square sweep (rbf_square<...>), no micro-tile term-group instance past
+    the micro widths (aniso_terms_micro_groups<MM,...> or
+    aniso_terms_micro_iso<MM,...> with MM other than 2, 8, 11; phase 51c
+    also refuses any of the deleted terms_sym.cuh's) and no one-pass
+    instance past the rule's
     (aniso_terms_sym<MM,...> with MM past max(8, ONE_PASS_MAX_M), 11
     aside)."""
     import re
@@ -4305,13 +4332,15 @@ def phase_mid_p_rules(ptxas, clock):
     top = max(8, sym_plan.ONE_PASS_MAX_M)
     stale = []
     for inst in ptxas:
-        hit = re.match(r"(rbf_square|aniso_terms_groups|aniso_terms_sym)"
-                       r"<(\d+),", inst)
+        hit = re.match(r"(rbf_square|aniso_terms_micro_groups|"
+                       r"aniso_terms_micro_iso|aniso_terms_sym)<(\d+),",
+                       inst)
         if hit is None:
             continue
         kind, mm = hit.group(1), int(hit.group(2))
         if (kind == "rbf_square"
-                or (kind == "aniso_terms_groups" and mm not in (2, 8, 11))
+                or (kind.startswith("aniso_terms_micro")
+                    and mm not in (2, 8, 11))
                 or (kind == "aniso_terms_sym" and mm > top and mm != 11)):
             stale.append(inst)
     check(not stale, f"phase 49d: instances the width rules no longer "
@@ -4773,6 +4802,418 @@ def phase_mid_panel(dev, card, clock, ptxas):
     print(f"phase 50: ok in {time.perf_counter() - t0:.1f} s {card} "
           f"{clock()}")
     return errs, paths
+
+
+#: Phase 51: K14's term groups at the micro widths (m = 1-8 and 11) on
+#: micro_tile.cuh's triangle body (fused_phi_aniso_terms_micro_groups_kernel
+#: for the single-term groups: group 0 of one isotropic term with the counts
+#: in a launch of its own, kT > 0, the anisotropic ones in another, kT = 0;
+#: ..._micro_iso_kernel for group 0 of two or more isotropic terms), each
+#: group's slab in the wide groups' convention
+#: and finished by ops/phi.aniso_groups_finish. 51a: the groups' raw slabs
+#: and finished phi against the plain slabs (aniso_groups_plain) in float64
+#: and float32 at MICRO_GROUP_MS for every MICRO_GROUP_TERMS set at
+#: MICRO_GROUP_N, T = 3; at T = 8 on MICRO_GROUP_T8_N; at the tiles' edges
+#: MICRO_GROUP_EDGE_NS; and the larger sets at MICRO_GROUP_BIG_N, grid
+#: inputs. 51b: the driver paths (MICRO_GROUP_PATHS) on auto. 51c: the new
+#: instances' registers and spill. 51d: times at MICRO_GROUP_TIMED.
+MICRO_GROUP_MS = (1, 2, 3, 4, 5, 8, 11)
+MICRO_GROUP_TERMS = {
+    "iso+1": ((1.0,), (1.0,)),
+    "iso+2": ((1.0,), (1.0, -0.5)),
+    "0+2": ((), (1.0, 0.5)),
+    "2iso+2": ((1.0, -0.5), (1.0, 0.5)),
+    "iso+3": ((1.0,), (1.0, 0.5, -0.3)),
+    "iso+7": ((1.0,), (1.0, 0.5, -0.3, 0.8, 0.4, -0.2, 0.6)),
+}
+MICRO_GROUP_N = 2048
+MICRO_GROUP_T8_N = 10007
+MICRO_GROUP_EDGE_NS = (1, 127, 128, 129)
+MICRO_GROUP_BIG_N = 10240
+#: 51b's driver paths (name, n, d): the anisotropic script's d = 11
+#: target, the flagship MVN at d = 2 and the script's target at d = 5 (the
+#: runtime MM = 8 instance), each under median RBF + RBF(P) + RBF(P_2).
+MICRO_GROUP_PATHS = (("d11", 10240, 11), ("flagship", 10000, 2),
+                     ("d5", 4096, 5))
+MICRO_GROUP_STEPS = 20
+#: 51d's timed shapes: (n, m, term set).
+MICRO_GROUP_TIMED = ((10240, 11, "iso+2"), (10240, 11, "iso+3"),
+                     (10240, 11, "iso+7"), (10000, 2, "iso+2"))
+#: The micro-tile groups' instances (ptxas names): exact at m = 2 and 11,
+#: the runtime one at MM = 8; kT 0 (the anisotropic groups), 3 and kMaxT
+#: (group 0).
+MICRO_GROUP_INSTANCES = (
+    tuple(f"aniso_terms_micro_groups<{mm},{ex},{kt}>"
+          for mm, ex in ((2, 1), (8, 0), (11, 1)) for kt in (0, 3, 8))
+    + tuple(f"aniso_terms_micro_iso<{mm},{ex},{kt}>"
+            for mm, ex in ((2, 1), (8, 0), (11, 1)) for kt in (3, 8)))
+#: The kernels' names in a profiler trace: the new ones, and the term-group
+#: kernel of the deleted header.
+MICRO_GROUP_TRACE = "fused_phi_aniso_terms_micro_"
+OLD_GROUP_TRACE = "fused_phi_aniso_terms_groups_kernel"
+
+
+def micro_groups_key():
+    """The kernels line's entry of K14's micro-tile term groups (counted
+    under ANISO_KERNEL)."""
+    from svgdcpp_tpu_torch.ops import cuda_phi
+
+    return f"{cuda_phi.ANISO_KERNEL}_micro_groups"
+
+
+def micro_groups_call(x, s, g, thr, spec):
+    """(the groups' call, its plain call at a dtype) for
+    MICRO_GROUP_TERMS[spec], P as wide_p_ps's "pd" (Cholesky factors in
+    float64): the call launches the groups' entry once
+    (cuda_phi.aniso_micro_groups_cuda) and returns (phi, counts, acc),
+    finished as the wrapper finishes them (ops/phi.aniso_groups_finish;
+    the counts 2U - n, or with no isotropic term the count kernel's self
+    form); the plain call the same from ops/phi.aniso_groups_plain (with
+    no isotropic term the plain count pass)."""
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.median import count_le_plain
+    from svgdcpp_tpu_torch.ops.phi import (
+        aniso_groups_finish,
+        aniso_groups_plain,
+    )
+
+    iso_s, an_s = MICRO_GROUP_TERMS[spec]
+    iso_g = [g, 2.0 * g][:len(iso_s)]
+    n, m = x.shape
+    ps = wide_p_ps("pd", m, len(an_s), 5100, g, x.device)
+    lowers = cuda_phi.cholesky_factors(ps, x.device)
+
+    def call():
+        acc, upper = cuda_phi.aniso_micro_groups_cuda(x, s, iso_g, iso_s,
+                                                      an_s, thr, lowers)
+        phi = aniso_groups_finish(acc, s, iso_g[0] if iso_g else None,
+                                  iso_s, an_s, lowers, n)
+        xc = x - x.mean(dim=0)
+        counts = (2 * upper - n if iso_s
+                  else cuda_phi.count_le_cuda(xc, xc, thr))
+        return phi, counts, acc
+
+    def plain(dt):
+        xd, sd, td = x.to(dt), s.to(dt), thr.to(dt)
+        gd = [v.to(dt) for v in iso_g]
+        acc, upper = aniso_groups_plain(xd, sd, gd, iso_s, an_s, td, lowers)
+        phi = aniso_groups_finish(acc, sd, gd[0] if gd else None, iso_s,
+                                  an_s, lowers, n)
+        xc = xd - xd.mean(dim=0)
+        counts = 2 * upper - n if iso_s else count_le_plain(xc, xc, td)
+        return phi, counts, acc
+    return call, plain
+
+
+def micro_groups_held(label, x, s, g, thr, spec, errs):
+    """One 51a call: the groups' launches (ANISO_KERNEL once, and the count
+    kernel once with no isotropic term), each group's raw slab (KS and D,
+    before any sign or scale) within WIDE_PHI_GATE of that part's max |.|
+    of the float64 plain slab (a group that does not sweep exactly 0), and
+    the finished phi and counts held to the float64 and float32 plain
+    versions (wide_held: counts equal on grid inputs). Its max |dphi| goes
+    to ``errs``. Returns the largest relative error of phi and slabs."""
+    import torch
+
+    from svgdcpp_tpu_torch.ops import cuda_phi
+
+    iso_s = MICRO_GROUP_TERMS[spec][0]
+    call, plain = micro_groups_call(x, s, g, thr, spec)
+    cuda_phi.reset_launch_counts()
+    phi, counts, acc = call()
+    launched = {k: v for k, v in cuda_phi.launch_counts.items() if v}
+    want = {cuda_phi.ANISO_KERNEL: 1}
+    if not iso_s:
+        want[cuda_phi.COUNT_KERNEL] = 1
+    check(launched == want, f"phase 51a {label}: launches {launched}")
+    want64, want32 = plain(torch.float64), plain(torch.float32)
+    abs_err, rel = wide_held(f"51a {label}", (phi, counts), want64[:2],
+                             want32[:2])
+    key = micro_groups_key()
+    errs[key] = max(errs.get(key, 0.0), abs_err)
+    n, m = x.shape
+    worst = rel
+    for grp in range(acc.shape[0]):
+        for part, cols in (("KS", slice(0, m)), ("D", slice(m, 2 * m))):
+            ref, have = want64[2][grp, cols], acc[grp, cols].double()
+            scale = float(ref.abs().max())
+            if scale == 0.0:
+                check(not have.any(), f"phase 51a {label}: group {grp}'s "
+                                      f"{part} is not 0")
+                continue
+            slab = float((have - ref).abs().max()) / scale
+            check(bool(have.isfinite().all()) and slab <= WIDE_PHI_GATE,
+                  f"phase 51a {label}: group {grp}'s {part} rel err "
+                  f"{slab:.3e} > {WIDE_PHI_GATE}")
+            worst = max(worst, slab)
+    return worst
+
+
+def phase_micro_groups_kernels(dev, card, clock, errs):
+    """Phase 51a (micro_groups_held): every MICRO_GROUP_TERMS set at
+    MICRO_GROUP_MS x MICRO_GROUP_N, T = 3; at T = 8 (thresholds_of) for
+    iso + 2, 0 + 2 and two isotropic terms + 2 at MICRO_GROUP_T8_N; iso + 2
+    and 0 + 2 at the tiles' edges MICRO_GROUP_EDGE_NS (the first n rows of
+    64 grid rows: grid_inputs' median needs pairs); iso + 3 and iso + 7 at
+    MICRO_GROUP_BIG_N, and iso + 7 there at T = 8 at m = 11; grid inputs.
+    Prints max |dphi| / max |phi| per width."""
+    cases = []
+    for m in MICRO_GROUP_MS:
+        x, s, g, thr = grid_inputs(MICRO_GROUP_N, m, 0.0, 5110 + m, dev)
+        cases += [(m, f"({MICRO_GROUP_N}, {m}) {spec} T=3", x, s, g, thr,
+                   spec) for spec in MICRO_GROUP_TERMS]
+        x, s, g, thr = grid_inputs(MICRO_GROUP_T8_N, m, 0.0, 5120 + m, dev)
+        thr8 = thresholds_of(thr, 8)
+        cases += [(m, f"({MICRO_GROUP_T8_N}, {m}) {spec} T=8", x, s, g,
+                   thr8, spec) for spec in ("iso+2", "0+2", "2iso+2")]
+        for n in MICRO_GROUP_EDGE_NS:
+            x, s, g, thr = grid_inputs(64, m, 0.0, 5130 + n + m, dev)
+            x, s = x[:n].contiguous(), s[:n].contiguous()
+            cases += [(m, f"({n}, {m}) {spec} T=3", x, s, g, thr, spec)
+                      for spec in ("iso+2", "0+2")]
+        x, s, g, thr = grid_inputs(MICRO_GROUP_BIG_N, m, 0.0, 5140 + m, dev)
+        cases += [(m, f"({MICRO_GROUP_BIG_N}, {m}) {spec} T=3", x, s, g,
+                   thr, spec) for spec in ("iso+3", "iso+7")]
+        if m == 11:
+            cases.append((m, f"({MICRO_GROUP_BIG_N}, 11) iso+7 T=8", x, s,
+                          g, thresholds_of(thr, 8), "iso+7"))
+    per_m = {}
+    for m, label, x, s, g, thr, spec in cases:
+        rel = micro_groups_held(label, x, s, g, thr, spec, errs)
+        per_m[m] = max(per_m.get(m, 0.0), rel)
+    print(f"phase 51a: ok {len(cases)} calls of the micro-tile groups at "
+          f"m = {list(MICRO_GROUP_MS)} (sets {list(MICRO_GROUP_TERMS)} at "
+          f"n = {MICRO_GROUP_N}; T = 8 at {MICRO_GROUP_T8_N}; edges "
+          f"{list(MICRO_GROUP_EDGE_NS)}; iso+3/iso+7 at {MICRO_GROUP_BIG_N})"
+          f", max |dphi| / max |phi| and slab rel err from float64 per m "
+          f"{json.dumps({m: f'{v:.3e}' for m, v in per_m.items()})} (gate "
+          f"{WIDE_PHI_GATE}), counts equal to both plain versions; max "
+          f"|dphi| {errs[micro_groups_key()]:.3e} {card} {clock()}")
+
+
+def trace_names(fn, calls=2):
+    """The kernel names in a profiler trace of ``calls`` calls of ``fn``
+    (after one)."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(trace))
+        events = json.loads(trace.read_text())["traceEvents"]
+    return {ev.get("name", "") for ev in events
+            if ev.get("ph") == "X" and ev.get("cat") == "kernel"}
+
+
+def phase_micro_groups_paths(dev, card, clock):
+    """Phase 51b: MICRO_GROUP_PATHS on auto, median RBF + RBF(P) + RBF(P_2)
+    (utils/workloads.build_aniso_svgd with extra_ps=(second_aniso_p(d),),
+    AdaGrad 0.05): the d = 11 script's target (aniso_mvn_workload), the
+    flagship MVN (flagship_mvn; P aniso_mvn_workload(n, dim=2)'s) and the
+    script's target at d = 5; each must route to fused_aniso_terms_cuda
+    and launch K14 only (ANISO_KERNEL, the micro-tile groups: three
+    gradient accumulators take no one-pass kernel), MICRO_GROUP_STEPS
+    steps; a profiler trace of its first sweep call must name the new
+    kernels and neither the deleted header's nor the one-pass kernel;
+    every sweep call of the float64 run replayed through the kernel
+    (replay_gate), the route within 1e-3 of the same lag-1 route with its
+    sweep in plain torch (float32 and float64) after its steps and of the
+    'rbf_terms' route after the first step (their distance after
+    MICRO_GROUP_STEPS printed: 'rbf_terms' takes each step's own median),
+    timed on its first call (path_times). Returns {path: (launch counts,
+    kernel, n, m, ms a step, times)}."""
+    import re
+
+    import torch
+
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.utils.workloads import (
+        aniso_mvn_workload,
+        build_aniso_svgd,
+        flagship_mvn,
+        second_aniso_p,
+    )
+
+    wrapper = "phi_rbf_aniso_terms_fused_cuda"
+    aniso = cuda_phi.ANISO_KERNEL
+    out = {}
+    for name, n, d in MICRO_GROUP_PATHS:
+        if name == "flagship":
+            mean, cov, x0 = flagship_mvn(n)
+            p = aniso_mvn_workload(n, dim=d)[3]
+        else:
+            mean, cov, x0, p = aniso_mvn_workload(n, dim=d)
+        p2 = second_aniso_p(d)
+
+        def build(dtype, impl="auto", iters=MICRO_GROUP_STEPS):
+            return build_aniso_svgd(
+                torch.tensor(x0, dtype=dtype, device=dev), mean, cov, p,
+                phi_impl=impl, num_iterations=iters, extra_ps=(p2,))
+        svgd = build(torch.float32)
+        check(svgd._phi_impl == "fused_aniso_terms_cuda",
+              f"phase 51b {name}: routed to {svgd._phi_impl!r}")
+        cuda_phi.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = svgd.run().double()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / MICRO_GROUP_STEPS
+        counts = dict(cuda_phi.launch_counts)
+        check(bool(final.isfinite().all()) and tuple(final.shape) == (n, d),
+              f"phase 51b {name}: bad output")
+        require_only(counts, aniso, MICRO_GROUP_STEPS, f"phase 51b {name}")
+        # The same lag-1 route with its sweep in plain torch: float64 (whose
+        # calls are replayed through the kernel) and float32.
+        route = "fused_aniso_terms_cuda"
+        final64, calls = recorded_run(lambda: build(torch.float64, route),
+                                      wrapper, MICRO_GROUP_STEPS)
+        final32, _ = recorded_run(lambda: build(torch.float32, route),
+                                  wrapper, MICRO_GROUP_STEPS)
+        rel, dcnt = replay_gate(f"phase 51b {name}", wrapper, calls)
+        diff32 = float((final - final32).abs().max())
+        diff64 = float((final - final64).abs().max())
+        check(diff32 <= 1e-3 and diff64 <= 1e-3,
+              f"phase 51b {name}: {MICRO_GROUP_STEPS} steps from the plain "
+              f"route by {diff32:.3e} (float32), {diff64:.3e} (float64)")
+        args = to32(tuple(calls[0][0]))
+        kwargs = {k: (v if k == "lowers" else to32(v))
+                  for k, v in calls[0][1].items()}
+        names = trace_names(lambda: getattr(cuda_phi, wrapper)(*args,
+                                                               **kwargs))
+        check(any("fused_phi_aniso_terms_micro_groups_kernel" in nm
+                  for nm in names)
+              and not any(OLD_GROUP_TRACE in nm
+                          or "fused_phi_aniso_terms_sym_kernel" in nm
+                          for nm in names),
+              f"phase 51b {name}: the trace's kernels {sorted(names)}")
+        # 'rbf_terms' takes each step's median where the fused route takes
+        # the previous step's (lag-1, seeded with x0's): the first step
+        # uses one bandwidth on both, later steps do not.
+        first = {impl: build(torch.float32, impl, 1).run().double()
+                 for impl in (route, "rbf_terms")}
+        d_first = float((first[route] - first["rbf_terms"]).abs().max())
+        check(d_first <= 1e-3, f"phase 51b {name}: first step from the "
+                               f"rbf_terms route by {d_first:.3e}")
+        terms = build(torch.float32, "rbf_terms").run().double()
+        d_terms = float((final - terms).abs().max())
+        # Two launches a call: group 0 (one isotropic term), then the
+        # anisotropic groups.
+        times = path_times(getattr(cuda_phi, wrapper), f64_sweep(wrapper),
+                           MICRO_GROUP_TRACE, calls[0], per_call=2)
+        short = sorted({hit.group(0) for nm in names
+                        if (hit := re.search(r"\w+_kernel", nm))})
+        print(f"phase 51b {name} N={n} d={d} median RBF + RBF(P) + RBF(P2) "
+              f"auto {MICRO_GROUP_STEPS} steps: ok route="
+              f"{svgd._phi_impl} launches={json.dumps(counts)} trace "
+              f"kernels {short} ms_per_step={ms:.3f} kernel_us="
+              f"{times['kernel_us']} wrapper_ms={times['kernel']:.4f} "
+              f"plain_ms={times['plain']:.3f} (the first sweep call's "
+              f"inputs); per-call replay of the float64 run's {len(calls)} "
+              f"sweeps: max phi_rel={rel:.3e} (gate {WIDE_PHI_GATE}) max "
+              f"count_diff={dcnt}; coords_max_abs_diff from the plain route "
+              f"float32={diff32:.3e} float64={diff64:.3e} (gate 1e-3); "
+              f"from rbf_terms first step={d_first:.3e} (gate 1e-3), after "
+              f"{MICRO_GROUP_STEPS} steps={d_terms:.3e} (not gated: its "
+              f"same-step median) {card} {clock()}")
+        out[name] = (counts, aniso, n, d, ms, times)
+    return out
+
+
+def phase_micro_groups_rules(ptxas, clock):
+    """Phase 51c: every micro-tile group instance (MICRO_GROUP_INSTANCES)
+    in the build at 0 bytes of spill, its registers printed; no other
+    micro-tile group instance and none of the deleted header's
+    (aniso_terms_groups<...>); csrc/terms_sym.cuh gone."""
+    import re
+
+    from svgdcpp_tpu_torch.utils.cuda_build import CSRC_DIR
+
+    report = {inst: ptxas.get(inst, "?") for inst in MICRO_GROUP_INSTANCES}
+    spilled = [inst for inst, text in report.items()
+               if not text.endswith(" 0 B spill")]
+    check(not spilled, f"phase 51c: micro-tile group instances spill or "
+                       f"were not found in the build log: "
+                       f"{ {i: report[i] for i in spilled} }")
+    stale = sorted(
+        inst for inst in ptxas
+        if inst.startswith("aniso_terms_groups<")
+        or ((hit := re.match(r"aniso_terms_micro_(?:groups|iso)<(\d+),",
+                             inst)) and int(hit.group(1)) not in (2, 8, 11)))
+    check(not stale, f"phase 51c: stale term-group instances are built: "
+                     f"{stale}")
+    check(not (CSRC_DIR / "terms_sym.cuh").exists(),
+          "phase 51c: csrc/terms_sym.cuh is still there")
+    print(f"phase 51c: ok ptxas {json.dumps(report)}; no term-group "
+          f"instance of terms_sym.cuh and no micro-tile group instance past "
+          f"MM = 11 {clock()}")
+
+
+def phase_micro_groups_times(dev, card, clock, plain_ms):
+    """Phase 51d: the public wrapper at MICRO_GROUP_TIMED (the term groups:
+    two or more anisotropic terms), grid inputs, T = 3: kernel-only us (the
+    profiler's events of the micro-tile kernels over 10 calls), the
+    wrapper's ms (time_ms), the plain version's ms and the bound
+    (sweep_bound). Returns {(n, m, spec): times}."""
+    from svgdcpp_tpu_torch.ops import cuda_phi
+    from svgdcpp_tpu_torch.ops.phi import phi_rbf_aniso_terms_fused_counts
+
+    out = {}
+    for n, m, spec in MICRO_GROUP_TIMED:
+        iso_s, an_s = MICRO_GROUP_TERMS[spec]
+        x, s, g, thr = grid_inputs(n, m, 0.0, 5150 + m, dev)
+        iso_g = [g, 2.0 * g][:len(iso_s)]
+        ps = wide_p_ps("pd", m, len(an_s), 5100, g, dev)
+        lowers = cuda_phi.cholesky_factors(ps, dev)
+
+        def fn():
+            return cuda_phi.phi_rbf_aniso_terms_fused_cuda(
+                x, s, iso_g, iso_s, ps, an_s, thr, lowers=lowers)
+        cuda_phi.reset_launch_counts()
+        fn()
+        check(cuda_phi.launch_counts[cuda_phi.ANISO_KERNEL] == 1,
+              f"phase 51d ({n}, {m}) {spec}: launches "
+              f"{dict(cuda_phi.launch_counts)}")
+        # group 0's launch (none without an isotropic term), then the
+        # anisotropic groups'
+        us = kernel_us(fn, MICRO_GROUP_TRACE, calls=10,
+                       per_call=1 + (len(iso_s) > 0))
+        wrapper = time_ms(fn, reps=20, warmup=3)
+        plain = plain_ms(lambda: phi_rbf_aniso_terms_fused_counts(
+            x, s, iso_g, iso_s, ps, an_s, thr, lowers=lowers))
+        bound_ms, bound_by = sweep_bound(cuda_phi.ANISO_KERNEL, n, m,
+                                         n_iso=len(iso_s),
+                                         n_aniso=len(an_s))
+        out[(n, m, spec)] = {"kernel_us": us, "kernel": wrapper,
+                             "plain": plain}
+        print(f"phase 51d times K14 micro-tile groups ({n}, {m}) {spec} "
+              f"n_w={len(an_s) + 1} T=3: kernel_us={us} wrapper_ms="
+              f"{wrapper:.4f} plain_ms={plain:.3f} bound_ms={bound_ms:.6g} "
+              f"({bound_by}) kernel/bound="
+              f"{(us or 0) / 1e3 / bound_ms:.2f} {card} {clock()}")
+    return out
+
+
+def phase_micro_groups(dev, card, clock, ptxas, plain_ms, errs):
+    """Phase 51 (see MICRO_GROUP_MS): 51c the build, 51a the calls (their
+    max |dphi| into ``errs``, with phase 14's calls on these groups), 51b
+    the paths, 51d the times. Returns 51b's paths for the kernels line."""
+    t0 = time.perf_counter()
+    phase_micro_groups_rules(ptxas, clock)
+    phase_micro_groups_kernels(dev, card, clock, errs)
+    paths = phase_micro_groups_paths(dev, card, clock)
+    phase_micro_groups_times(dev, card, clock, plain_ms)
+    print(f"phase 51: ok in {time.perf_counter() - t0:.1f} s {card} "
+          f"{clock()}")
+    return paths
 
 
 def main() -> int:
@@ -5431,6 +5872,7 @@ def main() -> int:
     # phase 17's main path gives the kernel.
     aniso_err = 0.0
     mid_p_errs = {}
+    micro_group_errs = {}
     for idx, (n, m, off, iso_s, an_s) in enumerate([
         (2048, 2, 100.0, (1.0,), (0.8,)),
         (10007, 2, 0.0, (), (1.0,)),
@@ -5459,15 +5901,23 @@ def main() -> int:
                                                 thr)
         rel, abs_err, dcnt = compare(f"aniso n={n} m={m}", got, want, n, m)
         # A mid width's groups run the wide kernels: their error goes to
-        # the mid-width entry (phase 49), the others' to K14's.
+        # the mid-width entry (phase 49); the micro widths' groups to the
+        # micro-tile groups' entry (phase 51); the one-pass kernel's to
+        # K14's.
+        one_pass = cuda_phi.aniso_one_pass(m, len(an_s))
         if wide:
             mid_p_errs[cuda_phi.ANISO_WIDE_KERNEL] = max(
                 mid_p_errs.get(cuda_phi.ANISO_WIDE_KERNEL, 0.0), abs_err)
+        elif not one_pass:
+            micro_group_errs[micro_groups_key()] = max(
+                micro_group_errs.get(micro_groups_key(), 0.0), abs_err)
         else:
             aniso_err = max(aniso_err, abs_err)
+        body = ("wide groups" if wide else "one-pass" if one_pass
+                else "micro-tile groups")
         print(f"phase 14 aniso n={n} m={m} offset={off} "
               f"iso_signs={list(iso_s)} aniso_signs={list(an_s)}: ok "
-              f"phi_rel={rel:.3e} count_diff={dcnt} "
+              f"({body}) phi_rel={rel:.3e} count_diff={dcnt} "
               f"count_bound={1e-6 * n * n if m > 4 else 0:.3g}")
 
     # -- phase 15: K15 vs phi_rbf / phi_rbf_blocked ----------------------------
@@ -5567,7 +6017,8 @@ def main() -> int:
     x, s, g, thr = sweep_inputs(10240, 11, 0.0, 160, dev)
     # n_w = 2 is the main path's (the one-pass kernel), timed as the driver
     # calls it, with the Cholesky factor it keeps, and factoring each call;
-    # 4 and 8 take the term-group kernel.
+    # 4 and 8 take the term groups on micro_tile.cuh's body (phase 51d
+    # times them kernel-only).
     for n_w in (2, 4, 8):
         ps = aniso_ps(g, 11, n_w - 1, 161)
         an_s = (1.0,) * (n_w - 1)
@@ -5579,8 +6030,9 @@ def main() -> int:
         plain = time_ms(lambda: phi_rbf_aniso_terms_fused_counts(
             x, s, [g], (1.0,), ps, an_s, thr))
         times16[("aniso", n_w)] = {"kernel": kern, "plain": plain}
-        print(f"phase 16 times aniso n=10240 m=11 n_w={n_w} T=3 (ms, median "
-              f"of 50): kernel={kern:.4f} (kept factor) "
+        print(f"phase 16 times aniso n=10240 m=11 n_w={n_w} T=3 "
+              f"({'one-pass' if n_w == 2 else 'micro-tile groups'}; ms, "
+              f"median of 50): kernel={kern:.4f} (kept factor) "
               f"factored_each_call={factored:.4f} plain={plain:.4f}")
     # As the 'cuda' route calls it: a HESSIAN P decomposed on the card each
     # call, a median's gamma I with its decomposition (diagonal, I).
@@ -7175,6 +7627,10 @@ def main() -> int:
     # -- phase 50: the panels at m = 11 (one RBF) and the mid widths --------
     mid_panel_errs, main50 = phase_mid_panel(dev, card, clock, ptxas)
 
+    # -- phase 51: K14's term groups at the micro widths (micro_tile.cuh) ---
+    main51 = phase_micro_groups(dev, card, clock, ptxas, plain_ms,
+                                micro_group_errs)
+
     def main_path(phase, kernel, n, m, launches, times, **work):
         bound_ms, bound_by = sweep_bound(kernel, n, m, **work)
         path = {"phase": phase, "n": n, "m": m, "launches": launches,
@@ -7393,6 +7849,19 @@ def main() -> int:
             path["tensor_bound_ms"] = tri_tensor_bound(
                 n50, m50, n_terms=2 if kernel == t_sp else None)[0]
         paths[mid_panel_key(kernel, m50)] = [path]
+    # Phase 51's paths: K14's micro-tile term groups (three gradient
+    # accumulators: the d = 11 script's target, the flagship at d = 2, the
+    # target at d = 5), each timed on its own first call; an entry of its
+    # own in the kernels line, the launches those of ANISO_KERNEL's counter
+    # in that run.
+    micro_key = micro_groups_key()
+    paths[micro_key] = []
+    for counts, kernel, n51, m51, ms51, times in main51.values():
+        path = main_path(51, kernel, n51, m51, counts[kernel], times,
+                         n_iso=1, n_aniso=2)
+        path["kernel_us"] = times["kernel_us"]
+        path["ms_per_step"] = ms51
+        paths[micro_key].append(path)
     # Phase 46's paths: the bf16 instances (K15's has no driver route, as
     # in the JAX package: its launches are phase 46a's own calls).
     sq16, sym16 = cuda_phi.SQUARE_BF16_KERNEL, cuda_phi.SYM_BF16_KERNEL
@@ -7466,6 +7935,11 @@ def main() -> int:
         entry(aniso, "fused_phi_aniso.cu", f"{pallas}:3205", ["K14"],
               aniso_err),
         entry(k15, "phi_rbf.cu", f"{pallas}:116", ["K15"], k15_err),
+        # K14's term groups at the micro widths on micro_tile.cuh's body
+        # (phase 51; the errors phase 51a's and phase 14's calls there).
+        entry(micro_key, "fused_phi_aniso.cu", f"{pallas}:3205", ["K14"],
+              micro_group_errs[micro_key], body="micro_tile.cuh",
+              counter=aniso),
         # The wide instances past m = 64 (phase 44): K14's groups and
         # K15's sweep on wide_tri_sm90.cuh's body.
         entry(k14w, "fused_phi_aniso.cu", f"{pallas}:3205", ["K14"],

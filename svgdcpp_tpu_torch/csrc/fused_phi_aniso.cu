@@ -44,12 +44,13 @@
 // widths and up to kOnePassMaxM = 16 (aniso_one_pass of sweep_common.cuh;
 // exact instances at m = 2 and 11, runtime-m ones with MM = 8 and 16 for
 // the rest); two or more anisotropic terms, or one past it, the term
-// groups: terms_sym.cuh's fused_phi_aniso_terms_groups_kernel at the micro
-// widths, wide_tri_sm90.cuh's body at every other m (aniso_groups_wide).
-// Against the wide groups, on an H100 at n = 2048, 10,240 and 32,768, the
-// one-pass kernel at MM = 16 took 6-33% less time (m = 9-16), and its
-// MM = 32 instance, whose row spilled 156-216 B, 2.4-4.5x more (m = 17-32),
-// so that instance is gone (PERF.md section 6).
+// groups: micro_tile.cuh's triangle body at the micro widths
+// (fused_phi_aniso_terms_micro_groups_kernel), wide_tri_sm90.cuh's body at
+// every other m (aniso_groups_wide). Against the wide groups, on an H100
+// at n = 2048, 10,240 and 32,768, the one-pass kernel at MM = 16 took
+// 6-33% less time (m = 9-16), and its MM = 32 instance, whose row spilled
+// 156-216 B, 2.4-4.5x more (m = 17-32), so that instance is gone (PERF.md
+// section 6).
 //
 // The one-pass kernel (svgd_fused_phi_aniso_terms_sym). Every ordered pair
 // (i, j) once, in one pass for both groups: the Euclidean difference d and
@@ -84,64 +85,70 @@
 // and L, which add nothing to any sum; up to m = 4 its sq takes the plain
 // order as the exact instances do.
 //
-// Work per unordered pair, as the term-group kernel runs it:
-// each term group
-// computes its squared distance (3m+1 FP32 ops), one ex2 per term on the
-// special function unit plus 4 ops per term to combine, and 10m for the
-// two contraction directions (4 FMAs and 2 subtractions per coordinate, an
-// FMA counted as 2); group 0 adds T compares. The function itself needs
-// less (KS once, each difference once): chip_smoke.py's sweep_bound counts
-// that. The operands are a few MB, so the sweep is compute-bound.
-//
-// The term-group kernel at the micro widths: the composed kernels'
-// one-row-a-thread triangle sweep (terms_sym.cuh) with one more grid
-// dimension, the term
-// group, from z_t = X_c L_t that the wrapper forms. The triangle enters the
-// self pair in both directions, so the wrapper subtracts (sum s) s_i once
-// and forms the counts 2U - n. Group 0 sweeps the
-// Euclidean coordinates: the isotropic terms' (k_c, w) and the counts (with
-// no isotropic term, the counts alone). Group 1 + t sweeps z_t with its one
-// term (gamma = 1, sign s_t). Each group flushes into its own (2m, n)
-// accumulator [KS_g | D_g] of a zeroed (1 + n_aniso, 2m, n) buffer, and the
-// wrapper sums the KS_g. So a thread holds one row, 2m sums and its counts
-// in registers whatever the number of terms: holding every term's row and
-// sums at once would need about (2 + 2 n_aniso) m registers, past the 255
-// a thread has at n_w = 8 and m = 11. The cost is that the KS contraction
+// The term groups. Each group is a triangle sweep of its own rows in the
+// single-RBF or composed-kernel form of K2 and K8/K9 (every unordered pair
+// once, both directions), into its own slab [KS_g | D_g] of the zeroed
+// (1 + n_aniso, 2w, n) accumulator, w the rows' width. Group 0 sweeps the
+// centred coordinates x: with one isotropic term K2's single-RBF form
+// (OneRbf, k = 2^(-gamma log2(e) sq), gamma read on the device, KS and D
+// both of k alone) with the counts; with two or more the composed form
+// (AnyTerms: k_c = sum s k for KS, w = sum s gamma k for D) with the
+// counts; with none it does not sweep, and the wrapper takes the counts
+// from the count kernel's self form (K16). Group 1 + t sweeps
+// z_t = x L_t (the wrapper forms it in float64 and rounds once) with
+// k = 2^(-|z_i - z_j|^2 log2(e)) and no counts. The single-term slabs are unsigned: the wrapper applies s and
+// 2 gamma s to group 0, s_t and 2 (.) L_t^T to group 1 + t
+// (ops/phi.aniso_groups_finish, one epilogue at every m). The self pair
+// enters both directions at sq = 0, k = 1, so the wrapper subtracts
+// (sum s) s_i once, and the counts receive the upper count U with the
+// diagonal (the wrapper forms 2U - n). So a thread holds one group's rows
+// and sums whatever the number of terms: holding every term's rows at
+// once would need about (2 + 2 n_aniso) m registers a row, past the 255 a
+// thread has at n_w = 8 and m = 11. The cost is that the KS contraction
 // runs once per group instead of once per pair.
 //
-// At every other m (9, 10 and 12 up: aniso_groups_wide), where
-// terms_sym.cuh's rows would spill or its one row a thread would leave the
-// tensor cores idle, the term groups run on wide_tri_sm90.cuh's
-// tensor-core body (K2's and K8/K9's at the same widths: tiles of 128
-// particles, one persistent block an SM walking the
-// triangle, a producer warp feeding a cp.async ring, the Gram tile and
-// both contractions in 3xTF32), each group a sweep of its own rows into
-// its own (2w, n) slab of the (1 + n_aniso, 2w, n) accumulator, w the
-// rows' width padded to a multiple of 4 by the wrapper (the body's 16-byte
-// copies; z_t's columns past m are exact zeros, from L_t padded with zero
-// rows and columns). A group of one term is K2's single-RBF form, one
-// weight tile a pair (OneRbf, WideSym<false>, 196,640 B):
-// fused_phi_aniso_terms_wide_groups_kernel sweeps every anisotropic group
-// (z_t with gamma 1, T = 0: no counts) and, with exactly one isotropic
-// term, group 0 (x with its gamma, read on the device, and the counts),
-// the group along the grid's y. Its KS and D are unsigned and D carries k
-// alone: the wrapper applies s and 2 gamma s to group 0, s_t to group
-// 1 + t (ops/phi.aniso_groups_finish). Two or more isotropic terms take
-// group 0 through fused_phi_aniso_terms_wide_iso_kernel, K8/K9's
-// two-weight instance (AnyTerms, WideSym<true>, 225,312 B), a launch of
-// its own before the groups'. With no isotropic term group 0 does not
-// sweep, and the wrapper takes the counts from the count kernel's self
-// form (K16). The self pair enters both directions at sq = 0, k = 1, as
-// in the narrower groups, so the wrapper subtracts (sum s) s_i once.
+// At m = 1-8 and 11 the groups run micro_tile.cuh's body, K2's and
+// K8/K9's at the same widths (tiles of 128, a block of 32 kRows rows a
+// warp per tile pair, the pair's weights in registers feeding both
+// directions, the column sums rotating between lanes at m = 11, masks
+// only on diagonal and edge chunks, sq in the plain version's order, so
+// the counts equal the plain version's up to m = 4): group 0 in a launch
+// of its own (fused_phi_aniso_terms_micro_groups_kernel with kT > 0, or
+// fused_phi_aniso_terms_micro_iso_kernel), then the anisotropic groups in
+// one (the kT = 0 instance), the group along the grid's z, the chunk
+// splits along its y. The instances are exact at m = 2 and 11 and take a
+// runtime m <= 8 with MM = 8 (SVGD_DISPATCH_MICRO_2_11), at kT = 3 or
+// kMaxT thresholds for group 0.
+//
+// At m = 9, 10 and 12 up (aniso_groups_wide), where the micro-tile rows
+// would spill, the groups run wide_tri_sm90.cuh's tensor-core body (K2's
+// and K8/K9's at the same widths: tiles of 128 particles, one persistent
+// block an SM walking the triangle, a producer warp feeding a cp.async
+// ring, the Gram tile and both contractions in 3xTF32), w the rows' width
+// padded to a multiple of 4 by the wrapper (the body's 16-byte copies;
+// z_t's columns past m are exact zeros, from L_t padded with zero rows and
+// columns): fused_phi_aniso_terms_wide_groups_kernel for the single-term
+// groups (OneRbf, WideSym<false>, 196,640 B,
+// the group along the grid's y) and fused_phi_aniso_terms_wide_iso_kernel
+// for group 0 of two or more isotropic terms (AnyTerms, WideSym<true>,
+// 225,312 B).
+//
+// Work per unordered pair and group: the squared distance (3m - 1 FP32
+// ops), one ex2 per term on the special function unit plus up to 4 ops per
+// term to combine, and 8m for the two contraction directions (4 FMAs per
+// coordinate, an FMA counted as 2); group 0 adds T compares. The function
+// itself needs less (KS once, each difference once): chip_smoke.py's
+// sweep_bound counts that. The operands are a few MB, so the sweep is
+// compute-bound.
 //
 // The iso gammas and the thresholds are read from device memory (the host
 // never reads them); the signs are static and arrive by value. The kernels
 // allocate nothing. The entry points return cudaGetLastError() after the
 // launch.
 
-// The kGroups instances of terms_sym.cuh's sweep, under their own name.
-#define SVGD_TERMS_SYM_KERNEL fused_phi_aniso_terms_groups_kernel
-#include "terms_sym.cuh"
+#include <type_traits>
+
+#include "micro_tile.cuh"
 #include "wide_tri_sm90.cuh"
 
 namespace {
@@ -494,6 +501,98 @@ int launch_aniso_wide(const float* coords, const float* z,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The micro-width single-term groups (see the top of the file), K2's
+// form on micro_tile.cuh's body over the tile pair blockIdx.x, the chunk
+// splits along y. With kT > 0 the launch sweeps group 0 alone (one
+// isotropic term): x with k = 2^(-gamma log2(e) sq), gamma read on the
+// device, and the counts at T. With kT = 0 it sweeps group 1 + blockIdx.z:
+// z_t with k = 2^(-|z_i - z_j|^2 log2(e)) and no counts. Which group is
+// fixed at compile time: at m = 11 an instance that chose at run time
+// (group 0 among the others, its compares in every group) took 255
+// registers and spilled 8 B (kT = 3) and 12 B (kT = 8) on an H100. The
+// rows are (n, m) at width m; group g's slab starts at acc + g (2m n).
+template <int MM, bool kExact, int kT>
+__global__ void __launch_bounds__(MicroTri<MM>::kThreads)
+    fused_phi_aniso_terms_micro_groups_kernel(
+        const float* __restrict__ coords, const float* __restrict__ z,
+        const float* __restrict__ scores, const float* __restrict__ gamma,
+        const float* __restrict__ thr, int n, int m_arg, int T, int nb,
+        float* __restrict__ acc, unsigned long long* __restrict__ counts) {
+  const int m = kExact ? MM : m_arg;
+  if constexpr (kT > 0) {
+    micro_tri_body<MM, kExact, kT>(coords, scores,
+                                   OneRbf{-gamma[0] * kLog2e}, thr, n, m, T,
+                                   nb, 0LL, acc, counts);
+  } else {
+    const auto t = static_cast<size_t>(blockIdx.z);
+    micro_tri_body<MM, kExact, 0>(z + t * n * m, scores, OneRbf{-kLog2e},
+                                  thr, n, m, 0, nb, 0LL,
+                                  acc + (1 + t) * 2 * m * n, counts);
+  }
+}
+
+// The micro-width group 0 with two or more isotropic terms: K8/K9's
+// composed form (AnyTerms: k_c = sum s k, w = sum s gamma k, the terms'
+// constants in shared memory) on x, with the counts, into group 0's slab.
+template <int MM, bool kExact, int kT>
+__global__ void __launch_bounds__(MicroTri<MM>::kThreads)
+    fused_phi_aniso_terms_micro_iso_kernel(
+        const float* __restrict__ coords, const float* __restrict__ scores,
+        const float* __restrict__ gammas, TermSigns iso_signs, int n_iso,
+        const float* __restrict__ thr, int n, int m_arg, int T, int nb,
+        float* __restrict__ acc, unsigned long long* __restrict__ counts) {
+  __shared__ float sh_g2[kMaxTerms];
+  __shared__ float sh_sn[kMaxTerms];
+  __shared__ float sh_sg[kMaxTerms];
+  // The body's first barrier comes before its first pair.
+  load_terms(gammas, iso_signs, n_iso, sh_g2, sh_sn, sh_sg);
+  micro_tri_body<MM, kExact, kT>(coords, scores,
+                                 AnyTerms{sh_g2, sh_sn, sh_sg, n_iso}, thr, n,
+                                 m_arg, T, nb, 0LL, acc, counts);
+}
+
+// The micro-width launches at MM (width m): group 0 first, with the
+// counts (kT = 3 or kMaxT): the terms kernel where n_iso >= 2, the
+// single-term kernel where n_iso = 1, nothing where n_iso = 0; then the
+// anisotropic groups in one launch (kT = 0), the group along the grid's z.
+// Each launch a block per tile pair, group and chunk split (tri_splits
+// over its tile pairs and groups).
+template <int MM, bool kExact>
+int launch_aniso_micro(const float* coords, const float* z,
+                       const float* scores, const float* gammas,
+                       const TermSigns& si, int n_iso, int n_aniso,
+                       const float* thr, int n, int m, int T, float* acc,
+                       unsigned long long* c, cudaStream_t s) {
+  using P = MicroTri<MM>;
+  const long long pairs = upper_pairs(n, P::kSide);
+  if (pairs < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int nb = (n + P::kSide - 1) / P::kSide;
+  const auto blocks = static_cast<unsigned int>(pairs);
+  const dim3 grid0(blocks, tri_splits<MM>(pairs));
+  auto group0 = [&](auto kt) {
+    constexpr int kT = decltype(kt)::value;
+    if (n_iso >= 2) {
+      fused_phi_aniso_terms_micro_iso_kernel<MM, kExact, kT>
+          <<<grid0, P::kThreads, 0, s>>>(coords, scores, gammas, si, n_iso,
+                                         thr, n, m, T, nb, acc, c);
+    } else if (n_iso == 1) {
+      fused_phi_aniso_terms_micro_groups_kernel<MM, kExact, kT>
+          <<<grid0, P::kThreads, 0, s>>>(coords, z, scores, gammas, thr, n,
+                                         m, T, nb, acc, c);
+    }
+  };
+  if (T == 3) {
+    group0(std::integral_constant<int, 3>{});
+  } else {
+    group0(std::integral_constant<int, kMaxT>{});
+  }
+  const dim3 grid(blocks, tri_splits<MM>(pairs * n_aniso), n_aniso);
+  fused_phi_aniso_terms_micro_groups_kernel<MM, kExact, 0>
+      <<<grid, P::kThreads, 0, s>>>(coords, z, scores, gammas, thr, n, m, T,
+                                    nb, acc, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -535,18 +634,17 @@ int svgd_fused_phi_aniso_terms_sym(const float* coords, const float* scores,
 // The term-group sweep over one particle set: any composition with
 // anisotropic terms. coords (n, m) centered on their mean, z (n_aniso, n,
 // m) the rows z_t = coords L_t, scores (n, m), iso gammas (n_iso,), thr
-// (T,), all float32 on the device;
-// iso_signs (n_iso,) and aniso_signs (n_aniso,) HOST arrays, passed by value
-// to the kernel; acc a zeroed (1 + n_aniso, 2m, n) float32 buffer, group g's
-// [KS_g | D_g]; counts a zeroed int64 (T,) buffer that receives the upper
-// count U of the Euclidean distances (diagonal included). m >= 1,
-// 0 <= n_iso <= 16, 1 <= n_aniso <= 8, 1 <= T <= 8. Where
+// (T,), all float32 on the device; iso_signs (n_iso,) and aniso_signs
+// (n_aniso,) HOST arrays; acc a zeroed (1 + n_aniso, 2m, n) float32 buffer,
+// group g's [KS_g | D_g]; counts a zeroed int64 (T,) buffer that receives
+// the upper count U of the Euclidean distances (diagonal included), or,
+// with no isotropic term, is left as it is. m >= 1, 0 <= n_iso <= 16,
+// 1 <= n_aniso <= 8, 1 <= T <= 8. At every m each slab is in the groups'
+// convention (see the top of the file): group 1 + t's KS_g and D_g carry
+// neither s_t nor, with one isotropic term, group 0's s and 2 gamma. Where
 // aniso_groups_wide(m) holds (the wide kernels; every m but 1-8 and 11) m
 // is the rows' padded width, a multiple of 4 (the wrapper pads m = 9 and
-// 10 to 12), coords, z and scores start on 16-byte boundaries, group
-// 1 + t's KS_g and D_g carry neither s_t nor, with one isotropic term,
-// group 0's s and 2 gamma (see the top of the file), and with no
-// isotropic term counts is left as it is.
+// 10 to 12), and coords, z and scores start on 16-byte boundaries.
 int svgd_fused_phi_aniso_terms_groups(const float* coords, const float* z,
                                       const float* scores,
                                       const float* gammas,
@@ -555,13 +653,12 @@ int svgd_fused_phi_aniso_terms_groups(const float* coords, const float* z,
                                       const float* thr, int n, int m, int T,
                                       float* acc, long long* counts,
                                       void* stream) {
+  (void)aniso_signs;  // the wrapper applies them (aniso_groups_finish)
   if (n <= 0 || T < 1 || T > kMaxT || n_iso < 0 || n_iso > kMaxTerms ||
       n_aniso < 1 || n_aniso > kMaxAniso) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const TermSigns si = make_signs(iso_signs, n_iso);
-  AnisoSigns sa{};
-  for (int t = 0; t < n_aniso; ++t) sa.s[t] = aniso_signs[t];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* c = reinterpret_cast<unsigned long long*>(counts);
   if (aniso_groups_wide(m)) {
@@ -572,18 +669,12 @@ int svgd_fused_phi_aniso_terms_groups(const float* coords, const float* z,
                              thr, n, m, T, acc, c, s);
   }
 #define SVGD_LAUNCH_ANISO(MM_, EX_)                                        \
-  {                                                                        \
-    constexpr int tile = SymTermsTile<MM_>::value;                         \
-    const long long pairs = upper_pairs(n, tile);                          \
-    if (pairs < 0) return static_cast<int>(cudaErrorInvalidValue);        \
-    const dim3 grid(static_cast<unsigned int>(pairs), 1 + n_aniso);        \
-    fused_phi_aniso_terms_groups_kernel<MM_, EX_, true><<<grid, tile, 0, s>>>(\
-        coords, z, scores, gammas, si, n_iso, sa, thr, n, m, T,            \
-        (n + tile - 1) / tile, 0LL, acc, c);                               \
-  }
+  return launch_aniso_micro<MM_, EX_>(coords, z, scores, gammas, si,       \
+                                      n_iso, n_aniso, thr, n, m, T, acc,   \
+                                      c, s)
   SVGD_DISPATCH_MICRO_2_11(m, SVGD_LAUNCH_ANISO)
 #undef SVGD_LAUNCH_ANISO
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // 1 where K14 takes its one-pass kernel for n_aniso anisotropic terms at

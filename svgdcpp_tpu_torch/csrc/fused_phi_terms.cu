@@ -72,8 +72,9 @@
 // multiple of 4 floats; at m = 9, 10 and 12-64 it replaced the
 // one-row-a-thread body of terms_sym.cuh, whose MM = 16, 32, 50 and 64
 // instances took 1.8-13.3x its time at n = 10,000 (PERF.md,
-// chip_profile.py --mid-width; terms_sym.cuh now serves only K14's term
-// groups). The tile side of each instance is svgd_sym_tile's
+// chip_profile.py --mid-width; the header is deleted since K14's term
+// groups at the micro widths moved to micro_tile.cuh's body too). The tile
+// side of each instance is svgd_sym_tile's
 // (fused_phi.cu), which the chunk wrappers read.
 //
 // The gammas are read from device memory (they come out of the median

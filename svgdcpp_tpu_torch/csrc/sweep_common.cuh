@@ -1,11 +1,11 @@
 // Device helpers shared by the sweeps (fused_phi.cu, fused_phi_terms.cu,
-// terms_sym.cuh, micro_tile.cuh, square_mma.cuh, wide_tri_sm90.cuh,
+// micro_tile.cuh, square_mma.cuh, wide_tri_sm90.cuh,
 // bf16_tri_sm90.cuh, fused_phi_aniso.cu, phi_rbf.cu, fused_phi_panel.cu,
 // count_le.cu): the pair's squared distance in the plain version's order,
 // the flushed-to-zero ex2 of the weights, threshold counting (at a runtime
 // or a compile-time number of thresholds), the exact count flush, the
 // upper-triangle tile decode, the pair's weights (one RBF, or the
-// signed-term combination of the composed kernels), and the dispatch from
+// signed terms of the composed kernels), and the dispatch from
 // a runtime dimension m to a kernel instance.
 //
 // Kernel instances. A kernel is a template over <MM, kExact>: with kExact
@@ -21,7 +21,8 @@
 // (square_mma.cuh) are the square sweeps'. The bf16 instances of K1, K2
 // and K3 take no MM: they run square_bf16_sm90.cuh's and bf16_tri_sm90.cuh's
 // bodies at every m. SVGD_DISPATCH_MICRO_2_11, the micro-tile panels'
-// (K3/K5, K12/K13), K14's term groups' and K15's, has exact instances for
+// (K3/K5, K12/K13), K14's term groups' and K15's (all on micro_tile.cuh's
+// body), has exact instances for
 // m = 2 and 11 and a runtime one with MM = 8 for the other m of 1..8, and
 // refuses every other m, where all of them take wide_tri_sm90.cuh's body
 // first.
@@ -248,7 +249,7 @@ inline bool tri_wide(int m) { return m > 8 && m != 11; }
 
 // K15's float32 sweep (phi_rbf.cu: svgd_phi_rbf_wide on P itself, else the
 // micro-tile triangle on P's decomposition) and K14's term groups
-// (fused_phi_aniso.cu: the wide groups, else terms_sym.cuh's) take
+// (fused_phi_aniso.cu: the wide groups, else the micro-tile ones) take
 // wide_tri_sm90.cuh's body wherever the float32 triangles do.
 // ops/sym_plan.k15_wide and aniso_groups_wide mirror them.
 inline bool k15_wide(int m) { return tri_wide(m); }
@@ -279,15 +280,6 @@ struct SymTile {
   static constexpr int value = MicroWidth<MM>::value ? 128 : kWideSymTile;
 };
 
-// The one-row-a-thread terms body (terms_sym.cuh: K14's term groups at
-// m = 1-8 and 11): tiles of 64 particles up to m = 12 and 32 above, so two
-// padded pair tiles and four coordinate/score tiles stay within 48 KB of
-// static shared memory.
-template <int MM>
-struct SymTermsTile {
-  static constexpr int value = MM <= 12 ? 64 : 32;
-};
-
 // The terms triangle kernels' tiles (fused_phi_terms.cu): the same as
 // one RBF's, 128 particles a side on either body. svgd_sym_tile exports it
 // and ops/sym_plan.sym_tile mirrors it.
@@ -312,8 +304,9 @@ struct TermSigns {
   float s[kMaxTerms];
 };
 
-// The anisotropic sweep's term groups (terms_sym.cuh): MAX_ANISO_TERMS of
-// ops/cuda_phi.py.
+// The anisotropic sweep's term groups (fused_phi_aniso.cu): at most
+// MAX_ANISO_TERMS of ops/cuda_phi.py; AnisoSigns holds their signs (the
+// parent kernels chip_profile.py --aniso-wide builds take them by value).
 constexpr int kMaxAniso = 8;
 
 struct AnisoSigns {
@@ -339,25 +332,6 @@ __device__ __forceinline__ void load_terms(const float* __restrict__ gammas,
     sh_sn[t] = signs.s[t];
     sh_sg[t] = signs.s[t] * g;
   }
-}
-
-// (k_c, w) of one pair from its squared distance.
-__device__ __forceinline__ void combine_terms(float sq, int nterms,
-                                              const float* sh_g2,
-                                              const float* sh_sn,
-                                              const float* sh_sg, float* kc,
-                                              float* w) {
-  float a = 0.0f;
-  float b = 0.0f;
-#pragma unroll
-  for (int t = 0; t < kMaxTerms; ++t) {
-    if (t >= nterms) break;
-    const float kt = exp2f(sh_g2[t] * sq);
-    a = fmaf(sh_sn[t], kt, a);
-    b = fmaf(sh_sg[t], kt, b);
-  }
-  *kc = a;
-  *w = b;
 }
 
 // The pair's weights (k_c, w) from its sq: k_c multiplies the scores into
@@ -459,7 +433,8 @@ struct AnyTerms {
   }
 
 // The micro widths' instances of the panels (fused_phi_panel.cu), of
-// K15's triangle (phi_rbf.cu) and of K14's term groups (terms_sym.cuh):
+// K15's triangle (phi_rbf.cu) and of K14's term groups (fused_phi_aniso.cu),
+// all on micro_tile.cuh's body:
 // exact ones at m = 2 and 11, a runtime-m one (MM = 8) at the other m of
 // 1..8. Every other m returns cudaErrorInvalidValue: panel_wide, k15_wide
 // and aniso_groups_wide send it to the wide sweeps first (the panels' wide

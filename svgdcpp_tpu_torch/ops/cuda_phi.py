@@ -33,12 +33,13 @@ package's paths in ``svgdcpp_tpu/ops/pallas_phi.py``:
     kernel where ``sym_plan.aniso_one_pass`` holds (every ordered pair
     once, both term groups in one pass, n phi and all n^2 counts out);
     otherwise one term group per anisotropic term besides the Euclidean
-    one: at m = 1-8 and 11 the one-row-a-thread triangle of
-    ``csrc/terms_sym.cuh``, at every other m (``sym_plan.
-    aniso_groups_wide``) ``csrc/wide_tri_sm90.cuh``'s tensor-core body
-    (``fused_phi_aniso_terms_wide``: a single-term group, each anisotropic
-    one and group 0 of one isotropic term, on one weight tile; group 0 of
-    more on two; with none, the counts from K16's self form).
+    one, each a triangle sweep of its own rows in K2's single-RBF form (each
+    anisotropic group, and group 0 of one isotropic term) or K8/K9's
+    composed form (group 0 of more; with none, the counts from K16's self
+    form): at m = 1-8 and 11 on ``csrc/micro_tile.cuh``'s body, at every
+    other m (``sym_plan.aniso_groups_wide``, ``fused_phi_aniso_terms_wide``)
+    on ``csrc/wide_tri_sm90.cuh``'s tensor-core body; one epilogue at every
+    m (``ops/phi.aniso_groups_finish``).
   * ``phi_rbf_square``          (``csrc/phi_rbf.cu``) -- ``_phi_kernel``
     (K15): the sweep of one RBF with a full, fixed P, no counts: at
     m = 1-8 and 11 the micro-tile triangle on the rows of P's
@@ -938,8 +939,9 @@ def _sympanel_launch(coords, scores, gammas, signs, thresholds_sq,
 def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
                   aniso_signs, thresholds_sq, lowers):
     """K14: the one-pass kernel where ``sym_plan.aniso_one_pass`` holds,
-    else the term groups (their wide kernels where ``aniso_groups_wide``
-    holds, finished by ``ops/phi.aniso_groups_finish``)."""
+    else the term groups (the micro-tile ones at m = 1-8 and 11, the wide
+    kernels where ``aniso_groups_wide`` holds), finished by
+    ``ops/phi.aniso_groups_finish`` at every m."""
     g, thr = _device_operands(coords, scores, iso_gammas, thresholds_sq,
                               min_terms=0)
     n_aniso = len(aniso_signs)
@@ -973,29 +975,13 @@ def _aniso_launch(coords, scores, iso_gammas, iso_signs, aniso_ps,
         return (acc.T / n).to(coords.dtype), counts
     acc, upper = _aniso_groups(coords_c, sc32, g, thr, len(iso_gammas),
                                iso_signs, aniso_signs, lowers)
-    if aniso_groups_wide(m):
-        phi = aniso_groups_finish(acc, sc32, g[0], iso_signs, aniso_signs,
-                                  lowers, n)
-        # With no isotropic term no group counted: the count kernel's self
-        # form (the same tensor as rows and columns) counts all n^2 pairs.
-        counts = (2 * upper - n if len(iso_gammas)
-                  else count_le_cuda(coords_c, coords_c, thr))
-        return phi.to(coords.dtype), counts
-    # At m = 1-8 and 11: acc[g] = [KS_g | D_g] with the signs in the
-    # weights. The groups' KS add up; the self pairs (k = 1 for every
-    # term) entered KS in both directions, so subtract (sum s) s_i once.
-    # D_0 is the isotropic direction (weights already carry gamma);
-    # D_1+t = sum_j s_t k_t (z_ti - z_tj), and D_t P_sym = 2 D_1+t L_t^T
-    # (float64, never TF32).
-    s_total = sum(float(s) for s in iso_signs) + sum(
-        float(s) for s in aniso_signs
-    )
-    grad_aniso = torch.einsum(
-        "tkn,tlk->nl", acc[1:, m:].to(torch.float64), lowers
-    )
-    phi = (acc[:, :m].sum(dim=0).T - s_total * sc32 + 2.0 * acc[0, m:].T
-           + 2.0 * grad_aniso.to(torch.float32)) / n
-    return phi.to(coords.dtype), 2 * upper - n
+    phi = aniso_groups_finish(acc, sc32, g[0], iso_signs, aniso_signs,
+                              lowers, n)
+    # With no isotropic term no group counted: the count kernel's self
+    # form (the same tensor as rows and columns) counts all n^2 pairs.
+    counts = (2 * upper - n if len(iso_gammas)
+              else count_le_cuda(coords_c, coords_c, thr))
+    return phi.to(coords.dtype), counts
 
 
 def aniso_group_operands(coords_c, sc32, lowers):
@@ -1022,10 +1008,11 @@ def _aniso_groups(coords_c, sc32, g, thr, n_iso, iso_signs, aniso_signs,
                   lowers):
     """One call of K14's term-group entry on centered float32 coordinates:
     the raw accumulator (1 + n_aniso, 2 width, n) of [KS_g | D_g] a group
-    and the upper counts (T,). Where ``aniso_groups_wide(m)`` holds its
-    wide kernels leave each group's slab as ``ops/phi.aniso_groups_plain``
-    gives it (at width m there) and, with no isotropic term, the counts
-    at 0."""
+    and the upper counts (T,). At every m its kernels leave each group's
+    slab as ``ops/phi.aniso_groups_plain`` gives it (at width m there; the
+    wide kernels' at the padded width) and, with no isotropic term, the
+    counts at 0. Counted under ANISO_WIDE_KERNEL where
+    ``aniso_groups_wide(m)`` holds, else ANISO_KERNEL."""
     n, m = coords_c.shape
     n_aniso = len(aniso_signs)
     x, s, z, width = aniso_group_operands(coords_c, sc32, lowers)
@@ -1062,6 +1049,27 @@ def aniso_wide_groups_cuda(coords, scores, iso_gammas, iso_signs,
                               min_terms=0)
     if not aniso_groups_wide(coords.shape[1]):
         raise ValueError("the wide groups take every m but 1-8 and 11, got "
+                         f"m={coords.shape[1]}")
+    return _aniso_groups(
+        _centered32(coords).contiguous(),
+        scores.to(torch.float32).contiguous(), g, thr, len(iso_gammas),
+        iso_signs, aniso_signs, lowers)
+
+
+def aniso_micro_groups_cuda(coords, scores, iso_gammas, iso_signs,
+                            aniso_signs, thresholds_sq, lowers):
+    """K14's micro-tile term groups (m = 1-8 and 11), unfinished: (acc
+    (1 + n_aniso, 2m, n), upper (T,)) of one call of the groups' entry on
+    CUDA tensors (``lowers`` the float64 factors, ``cholesky_factors``),
+    the counterpart of ``ops/phi.aniso_groups_plain``, which
+    ``ops/phi.aniso_groups_finish`` finishes. The kernels' check
+    (chip_smoke.py) reads it; the sweep's wrapper is
+    ``phi_rbf_aniso_terms_fused_cuda``."""
+    _require_cuda(coords)
+    g, thr = _device_operands(coords, scores, iso_gammas, thresholds_sq,
+                              min_terms=0)
+    if aniso_groups_wide(coords.shape[1]):
+        raise ValueError("the micro-tile groups take m = 1-8 and 11, got "
                          f"m={coords.shape[1]}")
     return _aniso_groups(
         _centered32(coords).contiguous(),
@@ -1349,15 +1357,16 @@ def phi_rbf_aniso_terms_fused_cuda(coords, scores, iso_gammas, iso_signs,
     keeps them (a constant P; ``aniso_ps`` may then be None), else they are
     factored here. On a CUDA tensor, in float32, at any m: the kernel
     fused_phi_aniso_terms_sym, in one pass for one anisotropic term where
-    ``sym_plan.aniso_one_pass`` holds, in term groups otherwise; the
-    groups at m = 1-8 and 11 on ``csrc/terms_sym.cuh``'s body, at every
-    other m (``sym_plan.aniso_groups_wide``) the groups' wide instance
-    fused_phi_aniso_terms_wide on ``csrc/wide_tri_sm90.cuh``'s
-    (``launch_counts`` under ANISO_WIDE_KERNEL; with no isotropic term the
-    counts take one launch of the count kernel, ``count_le_cuda`` on the
-    coordinates as rows and columns); with no anisotropic term (a hot-swap
-    may leave none), the terms triangle kernel, which computes the same function. On
-    a CPU tensor: the plain ``phi_rbf_aniso_terms_fused_counts``, in the
+    ``sym_plan.aniso_one_pass`` holds, in term groups otherwise, finished
+    by ``ops/phi.aniso_groups_finish`` at every m; the groups at m = 1-8
+    and 11 on ``csrc/micro_tile.cuh``'s body (``launch_counts`` under
+    ANISO_KERNEL), at every other m (``sym_plan.aniso_groups_wide``) the
+    groups' wide instance fused_phi_aniso_terms_wide on
+    ``csrc/wide_tri_sm90.cuh``'s (under ANISO_WIDE_KERNEL); with no
+    isotropic term the counts take one launch of the count kernel,
+    ``count_le_cuda`` on the coordinates as rows and columns; with no
+    anisotropic term (a hot-swap may leave none), the terms triangle
+    kernel, which computes the same function. On a CPU tensor: the plain ``phi_rbf_aniso_terms_fused_counts``, in the
     factor form (``phi_rbf_factor``) where ``lowers`` are given.
     """
     if coords.device.type == "cpu":

@@ -1009,9 +1009,11 @@ def phi_rbf_aniso_terms_fused_counts(
 
 def aniso_groups_plain(coords, scores, iso_gammas, iso_signs, aniso_signs,
                        thresholds_sq, lowers):
-    """What K14's wide term groups (``fused_phi_aniso_terms_wide``, every
-    m but 1-8 and 11) leave in each group's slab, in plain torch: (acc
-    (1 + n_aniso, 2m, n), upper (E,) int64 or None).
+    """What K14's term groups leave in each group's slab, in plain torch,
+    at every m (the micro-tile groups at m = 1-8 and 11, the wide ones
+    ``fused_phi_aniso_terms_wide`` elsewhere, whose slabs are these at the
+    rows' padded width): (acc (1 + n_aniso, 2m, n), upper (E,) int64 or
+    None).
 
     Each slab [KS_g | D_g] is the full-width triangle's raw accumulator
     (:func:`phi_rbf_terms_sym_chunk_counts` at world 1: every unordered
@@ -1050,10 +1052,11 @@ def aniso_groups_plain(coords, scores, iso_gammas, iso_signs, aniso_signs,
 
 def aniso_groups_finish(acc, scores, gamma, iso_signs, aniso_signs, lowers,
                         n: int):
-    """phi (n, m) of K14's wide term groups' accumulator ``acc``
-    (1 + n_aniso, 2 width, n), width >= m = scores' columns (the kernel's
-    padded rows; :func:`aniso_groups_plain`'s width m): the wrapper's
-    epilogue, shared with the tests. Each group's KS and D are its
+    """phi (n, m) of K14's term groups' accumulator ``acc``
+    (1 + n_aniso, 2 width, n), width >= m = scores' columns (the wide
+    kernels' padded rows; the micro-tile groups' and
+    :func:`aniso_groups_plain`'s width m): the wrapper's one epilogue at
+    every m, shared with the tests. Each group's KS and D are its
     columns [0, m) and [width, width + m), scaled by the group's
     convention:
 

@@ -419,7 +419,9 @@ def aniso_groups_wide(m: int) -> bool:
     csrc/wide_tri_sm90.cuh's body (``aniso_groups_wide`` of
     csrc/sweep_common.cuh) at dimension m, the rows padded to
     :func:`wide_row_width`: where :func:`tri_wide` holds; at m = 1-8 and
-    11 the one-row-a-thread groups of csrc/terms_sym.cuh."""
+    11 the groups on csrc/micro_tile.cuh's triangle body
+    (``fused_phi_aniso_terms_micro_groups_kernel``), at width m. At every
+    m the groups leave the same slabs (``ops/phi.aniso_groups_plain``)."""
     return tri_wide(m)
 
 

@@ -187,16 +187,29 @@ def aniso_mvn_workload(num_particles: int, seed: int = 7, dim: int = 11):
     return mean, cov, x0, p_aniso
 
 
+def second_aniso_p(dim: int = 11, seed: int = 8):
+    """A second constant kernel slot for the anisotropic driver,
+    P_2 = 0.05 I + C C^T with C ~ 0.1 N(0, 1) (dim x dim) from
+    ``default_rng(seed)``: the anisotropic script's P drawn again, so that
+    median RBF + RBF(P) + RBF(P_2) has three gradient accumulators. No
+    published configuration runs two anisotropic terms."""
+    c = np.random.default_rng(seed).normal(size=(dim, dim)) * 0.1
+    return 0.05 * np.eye(dim) + c @ c.T
+
+
 def build_aniso_svgd(x0, mean, cov, p_aniso, phi_impl="auto",
-                     num_iterations=100, device="cuda", kernel_scale=None):
+                     num_iterations=100, device="cuda", kernel_scale=None,
+                     extra_ps=()):
     """The anisotropic posterior check's driver
     (scripts/check_aniso_posterior.py:51-69), initialized: an MVN target
     (mean and cov as float32), the composed kernel median RBF + RBF with
-    the constant full matrix ``p_aniso`` (float32), AdaGrad lr 0.05.
-    ``kernel_scale`` replaces the median RBF by one with that scale method
-    (a ScaleMethod) and no constant term. ``x0`` may be a tensor (its device
-    and dtype are kept) or an array (it goes to ``device`` first, so the
-    kernel's median is taken there, once)."""
+    the constant full matrix ``p_aniso`` (float32), AdaGrad lr 0.05;
+    ``extra_ps`` adds one RBF with each constant full matrix after it
+    (float32; ``second_aniso_p``). ``kernel_scale`` replaces the median
+    RBF by one with that scale method (a ScaleMethod) and no constant
+    term. ``x0`` may be a tensor (its device and dtype are kept) or an
+    array (it goes to ``device`` first, so the kernel's median is taken
+    there, once)."""
     import svgdcpp_tpu_torch as st
 
     from ..core.types import place_coords
@@ -213,6 +226,11 @@ def build_aniso_svgd(x0, mean, cov, p_aniso, phi_impl="auto",
             x0, st.ScaleMethod.CONSTANT,
             constant_scale=np.asarray(p_aniso, np.float32),
         )
+        for p_extra in extra_ps:
+            kernel = kernel + st.GaussianRBFKernel(
+                x0, st.ScaleMethod.CONSTANT,
+                constant_scale=np.asarray(p_extra, np.float32),
+            )
     else:
         kernel = st.GaussianRBFKernel(x0, kernel_scale, model)
     svgd = st.SVGD(

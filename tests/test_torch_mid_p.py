@@ -288,9 +288,9 @@ def test_k14_groups_wrapper_launches_by_width(monkeypatch, m):
     """Every term set the groups take (two anisotropic terms always; one
     where the one-pass rule does not hold): at a mid width one launch of
     the term-group entry with the padded width, counted under the wide
-    instance (with no isotropic term one count launch of the self form
-    after it); at m = 2, 8 and 11 the same entry at width m, counted under
-    the narrow one."""
+    instance; at m = 2, 8 and 11 the same entry at width m, counted under
+    the narrow one; at every width, with no isotropic term, one count
+    launch of the self form after it."""
     calls = []
     _stand_in(monkeypatch, calls)
     n, thr = 300, _meta(3)
@@ -307,7 +307,7 @@ def test_k14_groups_wrapper_launches_by_width(monkeypatch, m):
             lowers=_meta(len(an_s), m, m).double())
         assert tuple(phi.shape) == (n, m) and tuple(counts.shape) == (3,)
         names = [c[0] for c in calls]
-        counted = not iso_s and wide
+        counted = not iso_s
         assert names == (["svgd_fused_phi_aniso_terms_groups"]
                          + (["svgd_count_le_self"] if counted else []))
         assert calls[0][1][9:12] == (n, width, 3)
